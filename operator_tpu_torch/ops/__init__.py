@@ -1,0 +1,6 @@
+"""Attention ops of the port: the paged KV layout and the ragged kernel.
+
+Modules here import no compiler and load no library at import time; a
+kernel is built (``_build.py``) the first time a CUDA tensor reaches its
+wrapper.
+"""

@@ -1,0 +1,147 @@
+"""The port's kernel wrappers and their build, without JAX.
+
+On the CPU: the dispatch sends CPU tensors to the plain version and
+launches nothing, the CUDA wrapper refuses CPU tensors, and the ``nvcc``
+build is cached by a hash of the sources and raises with the compiler's
+stderr (both driven through a stand-in compiler script).
+
+On the card (``cuda`` marker; skips without one): the hand-written ragged
+paged-attention kernel against its plain version at the main path's head
+layout (QH=32, KH=4, D=64), in f32 and bf16, valid rows only.  This file
+imports no JAX, so it runs on a machine that has only PyTorch::
+
+    python -m pytest tests/test_torch_kernels.py -q
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from operator_tpu_torch.ops import _build  # noqa: E402
+from operator_tpu_torch.ops import ragged_attention as ragged  # noqa: E402
+
+B, C, QH, KH, D, PAGE, PPS = 4, 8, 32, 4, 64, 16, 6
+
+#: name -> (kv_len, q_count, sliding_window): prefill-only, decode-only,
+#: mixed, window, spec-verify, idle rows and kv lengths off the page grid
+GEOMETRIES = {
+    "prefill_only": ([8, 5, 8, 3], [8, 5, 8, 3], None),
+    "decode_only": ([17, 90, 9, 1], [1, 1, 1, 1], None),
+    "mixed": ([17, 20, 8, 0], [1, 6, 8, 0], None),
+    "window": ([73, 20, 8, 12], [1, 6, 8, 1], 7),
+    "spec_verify": ([21, 14, 40, 6], [5, 3, 2, 5], None),
+    "q_count_0": ([17, 30, 9, 25], [0, 1, 0, 4], None),
+    "ragged_kv_len": ([13, 27, 46, 7], [3, 1, 8, 7], 11),
+}
+
+#: f32: the kernel and the plain version sum in different orders; bf16:
+#: the plain version rounds the probabilities to bf16 before P.V, the
+#: kernel keeps them in f32 and rounds once at the end
+TOL = {"float32": 1e-4, "bfloat16": 6e-2}
+
+
+def _inputs(name, dtype=torch.float32, device="cpu"):
+    kv_len, q_count, window = GEOMETRIES[name]
+    rng = np.random.default_rng(sum(map(ord, name)))
+    num_pages = B * PPS + 1
+    arrays = [
+        rng.normal(size=(B, C, QH, D)).astype(np.float32),
+        rng.normal(size=(num_pages, PAGE, KH, D)).astype(np.float32),
+        rng.normal(size=(num_pages, PAGE, KH, D)).astype(np.float32),
+    ]
+    table = (1 + rng.permutation(num_pages - 1)[: B * PPS]).reshape(B, PPS)
+    args = [torch.from_numpy(a).to(device, dtype) for a in arrays] + [
+        torch.as_tensor(table, dtype=torch.int32, device=device),
+        torch.as_tensor(kv_len, dtype=torch.int32, device=device),
+        torch.as_tensor(q_count, dtype=torch.int32, device=device),
+    ]
+    return args, window, q_count
+
+
+@pytest.mark.parametrize("name", list(GEOMETRIES))
+def test_cpu_dispatch_takes_the_plain_version_and_launches_nothing(name):
+    args, window, _ = _inputs(name)
+    before = ragged.launches
+    got = ragged.ragged_paged_attention(*args, sliding_window=window)
+    want = ragged.ragged_attention_reference(*args, sliding_window=window)
+    assert ragged.launches == before
+    assert got.shape == (B, C, QH, D) and got.dtype == torch.float32
+    assert torch.equal(got, want)
+
+
+def test_cuda_wrapper_refuses_cpu_tensors():
+    args, window, _ = _inputs("mixed")
+    before = ragged.launches
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        ragged.ragged_attention_cuda(*args, sliding_window=window)
+    assert ragged.launches == before
+
+
+def _fake_nvcc(tmp_path, body):
+    """A stand-in compiler: records each call, then runs ``body``."""
+    script = tmp_path / "nvcc"
+    calls = tmp_path / "calls"
+    script.write_text(
+        "#!/bin/sh\n"
+        f'echo "$@" >> "{calls}"\n'
+        'while [ $# -gt 0 ]; do [ "$1" = "-o" ] && out="$2"; shift; done\n'
+        + body
+    )
+    script.chmod(0o755)
+    return str(script), calls
+
+
+def test_build_is_cached_by_source_hash(tmp_path, monkeypatch):
+    nvcc, calls = _fake_nvcc(tmp_path, 'echo built > "$out"\n')
+    monkeypatch.setattr(_build, "_nvcc", lambda: nvcc)
+    monkeypatch.setenv("OPERATOR_TPU_TORCH_BUILD_DIR", str(tmp_path / "build"))
+    assert _build.source_names() == ["ragged_attention"]
+    _build.build_all()
+    target = _build._library_path("ragged_attention")
+    assert target.parent == tmp_path / "build" and target.read_text() == "built\n"
+    _build.build_all()  # unchanged sources: nothing to build
+    lines = calls.read_text().splitlines()
+    assert len(lines) == 1
+    assert "arch=compute_90a,code=sm_90a" in lines[0]
+    assert lines[0].endswith("ragged_attention.cu")
+    assert sorted(p.name for p in target.parent.iterdir()) == [target.name]
+
+
+def test_failed_build_raises_with_the_compiler_stderr(tmp_path, monkeypatch):
+    nvcc, _ = _fake_nvcc(tmp_path, 'echo "error: no such intrinsic" >&2\nexit 3\n')
+    monkeypatch.setattr(_build, "_nvcc", lambda: nvcc)
+    monkeypatch.setenv("OPERATOR_TPU_TORCH_BUILD_DIR", str(tmp_path / "build"))
+    with pytest.raises(RuntimeError, match="(?s)exit 3.*no such intrinsic"):
+        _build.build_all(["ragged_attention"])
+    assert list((tmp_path / "build").iterdir()) == []  # no half-built library
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", list(GEOMETRIES))
+def test_cuda_kernel_matches_plain_version(cuda, name, dtype_name):
+    args, window, q_count = _inputs(name, getattr(torch, dtype_name), "cuda")
+    before = ragged.launches
+    got = ragged.ragged_paged_attention(*args, sliding_window=window)
+    torch.cuda.synchronize()
+    assert ragged.launches == before + 1
+    assert got.dtype == args[0].dtype
+    want = ragged.ragged_attention_reference(*args, sliding_window=window)
+    for row, n in enumerate(q_count):
+        if n:
+            diff = (got[row, :n].float() - want[row, :n].float()).abs().max().item()
+            assert diff <= TOL[dtype_name], (name, row, diff)
+
+
+@pytest.mark.cuda
+def test_cuda_wrapper_refuses_other_dtypes(cuda):
+    args, window, _ = _inputs("mixed", torch.float16, "cuda")
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        ragged.ragged_attention_cuda(*args, sliding_window=window)
