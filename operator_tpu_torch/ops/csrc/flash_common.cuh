@@ -51,6 +51,24 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
+// 16 bytes of T, as read by one vector load -> 16 / sizeof(T) floats
+// (bf16 -> f32 is exact: the bf16 bits are the float's high half).
+__device__ __forceinline__ void unpack(const uint4& u, float (&out)[4], float) {
+  out[0] = __uint_as_float(u.x);
+  out[1] = __uint_as_float(u.y);
+  out[2] = __uint_as_float(u.z);
+  out[3] = __uint_as_float(u.w);
+}
+
+__device__ __forceinline__ void unpack(const uint4& u, float (&out)[8], __nv_bfloat16) {
+  const unsigned int w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    out[2 * j] = __uint_as_float(w[j] << 16);
+    out[2 * j + 1] = __uint_as_float(w[j] & 0xffff0000u);
+  }
+}
+
 // Running state of one flash row.
 struct SoftmaxState {
   float m;  // running max

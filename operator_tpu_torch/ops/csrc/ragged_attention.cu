@@ -79,23 +79,6 @@ struct Tile {
   static_assert(D % (4 * kLanes) == 0 && D % kVec == 0, "unsupported head dim");
 };
 
-// 16 bytes of T -> kVec floats (bf16 -> f32 is exact: the high half)
-__device__ __forceinline__ void unpack(const uint4& u, float (&out)[4], float) {
-  out[0] = __uint_as_float(u.x);
-  out[1] = __uint_as_float(u.y);
-  out[2] = __uint_as_float(u.z);
-  out[3] = __uint_as_float(u.w);
-}
-
-__device__ __forceinline__ void unpack(const uint4& u, float (&out)[8], __nv_bfloat16) {
-  const unsigned int w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    out[2 * j] = __uint_as_float(w[j] << 16);
-    out[2 * j + 1] = __uint_as_float(w[j] & 0xffff0000u);
-  }
-}
-
 // Issue this thread's 16-byte loads of one chunk of K and V rows (KV
 // positions start .. start + kBlockN, gathered through the page table);
 // positions at or past kv_end read as zeros.

@@ -1,8 +1,8 @@
-"""Paged KV cache: layout, token writes and the decode-attention oracle.
+"""Paged KV cache: layout, token writes and decode attention.
 
 Port of ``operator_tpu/ops/paged_attention.py`` (``PagedKVCache``,
-``write_tokens``, ``paged_attention_reference``).  KV lives in fixed-size
-pages::
+``write_tokens``, ``paged_attention_reference``, ``_kernel_version``,
+``paged_attention``).  KV lives in fixed-size pages::
 
     k_pages, v_pages  [layers, num_pages, page_size, kv_heads, head_dim]
     page_table        [batch, pages_per_seq] int32  (page ids per sequence)
@@ -12,18 +12,46 @@ Page 0 is the trash page: padding tokens and released slots write there,
 so a page granted to a live sequence is never touched by anyone else.
 Unlike the JAX arrays, the page tensors are updated in place — that is
 what ``donate_argnums`` bought the JAX step.
+
+:func:`paged_attention` is the wave engine's decode attention.  CUDA
+tensors launch the hand-written Hopper kernel (``csrc/paged_attention.cu``),
+the port of BOTH Pallas decode kernels: ``OPERATOR_TPU_PAGED_KERNEL`` keeps
+the JAX package's selector (``v1``, the default, or ``v2``; anything else
+raises where the wave engine is built, ``serving/provider.py``), and both
+values reach the one kernel, since the two TPU kernels compute one function
+and differ only in how they move pages.  CPU tensors take
+:func:`paged_attention_reference`, the plain PyTorch version.  There is no
+fallback from the kernel to the plain version.
 """
 
 from __future__ import annotations
 
+import ctypes
+import os
 from dataclasses import dataclass
-from typing import Optional, Union
+from typing import Mapping, Optional, Union
 
 import torch
 
 _NEG_INF = -1e30
 
-__all__ = ["PagedKVCache", "paged_attention_reference", "write_tokens"]
+__all__ = [
+    "PagedKVCache",
+    "launches",
+    "paged_attention",
+    "paged_attention_cuda",
+    "paged_attention_reference",
+    "write_tokens",
+]
+
+#: decode-kernel launches since the count was last set to 0 (``chip_smoke.py``
+#: reads it to show the wave path went through the kernel)
+launches = 0
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_HEAD_DIMS = (16, 64, 128)
+#: query heads per KV head the kernel packs into one block
+_MAX_GROUP = 8
 
 
 @dataclass
@@ -71,17 +99,22 @@ def write_tokens(
     valid_len: Optional[torch.Tensor] = None,  # [B] tokens of new[] that are real
 ) -> torch.Tensor:
     """Scatter T new tokens per sequence into their pages, in place, and
-    return ``pages``.  Rows past ``valid_len`` go to the trash page 0."""
+    return ``pages``.  Rows past ``valid_len`` go to the trash page 0, and
+    so do positions past the end of the page table, which the JAX scatter
+    drops (a finished wave slot's decode-ahead junk can run past it)."""
     t = new.shape[1]
     page_size = pages.shape[1]
     steps = torch.arange(t, dtype=torch.int64, device=pages.device)
     positions = start.to(torch.int64)[:, None] + steps[None, :]  # [B, T]
-    page_ids = torch.gather(page_table.to(torch.int64), 1, positions // page_size)
-    slots = positions % page_size
+    page_index = positions // page_size
+    keep = page_index < page_table.shape[1]
     if valid_len is not None:
-        valid = steps[None, :] < valid_len.to(torch.int64)[:, None]
-        page_ids = torch.where(valid, page_ids, 0)
-        slots = torch.where(valid, slots, 0)
+        keep = keep & (steps[None, :] < valid_len.to(torch.int64)[:, None])
+    page_ids = torch.gather(
+        page_table.to(torch.int64), 1, page_index.clamp(max=page_table.shape[1] - 1)
+    )
+    page_ids = torch.where(keep, page_ids, 0)
+    slots = torch.where(keep, positions % page_size, 0)
     pages[page_ids, slots] = new.to(pages.dtype)
     return pages
 
@@ -118,3 +151,120 @@ def paged_attention_reference(
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     out = torch.einsum("bkgs,bskd->bkgd", probs, v)
     return out.reshape(b, qh, d).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernel wrapper
+# ---------------------------------------------------------------------------
+
+
+def _kernel_version(environ: Optional[Mapping[str, str]] = None) -> str:
+    """The decode-kernel selector, ``OPERATOR_TPU_PAGED_KERNEL``: ``v1``
+    (default) or ``v2``.  Both reach ``csrc/paged_attention.cu``, so it is
+    read once, where the wave engine is built; unknown values raise rather
+    than silently benching the wrong kernel."""
+    env = os.environ if environ is None else environ
+    version = env.get("OPERATOR_TPU_PAGED_KERNEL", "v1").strip().lower()
+    if version not in ("v1", "v2"):
+        raise ValueError(
+            f"OPERATOR_TPU_PAGED_KERNEL={version!r}: expected 'v1' or 'v2'"
+        )
+    return version
+
+
+def _kernel_fn():
+    from ._build import load_library
+
+    fn = load_library("paged_attention").paged_attention_launch
+    if fn.argtypes is None:
+        fn.argtypes = (
+            [ctypes.c_void_p] * 6
+            + [ctypes.c_int] * 7
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        )
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def paged_attention_cuda(
+    q: torch.Tensor,
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    page_table: torch.Tensor,
+    lengths: torch.Tensor,
+    sliding_window: Optional[int] = None,
+) -> torch.Tensor:
+    """Launch ``csrc/paged_attention.cu`` on the current stream (no
+    synchronisation).  Raises on anything the kernel does not take and
+    on a non-zero launch status."""
+    global launches
+
+    tensors = {
+        "q": q, "k_pages": k_pages, "v_pages": v_pages,
+        "page_table": page_table, "lengths": lengths,
+    }
+    for name, t in tensors.items():
+        if not t.is_cuda or t.device != q.device:
+            raise ValueError(f"{name} must be a CUDA tensor on {q.device}, got {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if q.dtype not in _DTYPE_CODES:
+        raise TypeError(f"q must be bfloat16 or float32, got {q.dtype}")
+    if k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
+        raise TypeError(
+            f"pages must share q's dtype {q.dtype}, got {k_pages.dtype}/{v_pages.dtype}"
+        )
+    for name in ("page_table", "lengths"):
+        if tensors[name].dtype != torch.int32:
+            raise TypeError(f"{name} must be int32, got {tensors[name].dtype}")
+    if q.dim() != 3 or k_pages.dim() != 4 or k_pages.shape != v_pages.shape:
+        raise ValueError(
+            f"want q [B, QH, D] and pages [P, page, KH, D], got "
+            f"{tuple(q.shape)} / {tuple(k_pages.shape)} / {tuple(v_pages.shape)}"
+        )
+    b, qh, d = q.shape
+    _, page_size, kh, dk = k_pages.shape
+    if dk != d or qh % kh != 0 or d not in _HEAD_DIMS or qh // kh > _MAX_GROUP:
+        raise ValueError(
+            f"unsupported heads/dims: QH={qh} KH={kh} D={d} (pages D={dk}); "
+            f"D must be one of {_HEAD_DIMS}, KH must divide QH and "
+            f"QH/KH be at most {_MAX_GROUP}"
+        )
+    if page_table.dim() != 2 or page_table.shape[0] != b:
+        raise ValueError(f"page_table must be [B={b}, pages_per_seq], got {tuple(page_table.shape)}")
+    if lengths.shape != (b,):
+        raise ValueError(f"lengths must be [B={b}], got {tuple(lengths.shape)}")
+    for name in ("q", "k_pages", "v_pages"):
+        if tensors[name].data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned (the kernel reads 16 bytes at a time)")
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    status = _kernel_fn()(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+        b, qh, kh, d, page_size, page_table.shape[1], int(sliding_window or 0),
+        float(d ** -0.5), _DTYPE_CODES[q.dtype], stream,
+    )
+    if status != 0:
+        raise RuntimeError(f"paged_attention kernel launch failed: CUDA error {status}")
+    launches += 1
+    return out
+
+
+def paged_attention(
+    q: torch.Tensor,
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    page_table: torch.Tensor,
+    lengths: torch.Tensor,
+    sliding_window: Optional[int] = None,
+) -> torch.Tensor:
+    """Dispatch: the CUDA decode kernel for CUDA tensors (either selector
+    value), the plain version for CPU tensors."""
+    if q.is_cuda:
+        return paged_attention_cuda(
+            q, k_pages, v_pages, page_table, lengths, sliding_window=sliding_window
+        )
+    return paged_attention_reference(
+        q, k_pages, v_pages, page_table, lengths, sliding_window=sliding_window
+    )

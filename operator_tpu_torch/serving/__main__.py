@@ -5,8 +5,9 @@
 
 Model and engine shape come from the serving environment
 (``serving/provider.py``: OPERATOR_TPU_MODEL, SERVING_DTYPE,
-MAX_BATCH_SIZE, KV_PAGE_SIZE, SCHED_CHUNK, SCHED_PIPELINE_DEPTH,
-SPEC_DECODE, ...).  Runs on the card unless ``--device cpu`` is given.
+MAX_BATCH_SIZE, KV_PAGE_SIZE, SCHED_MODE, SCHED_CHUNK,
+SCHED_PIPELINE_DEPTH, SPEC_DECODE, DECODE_BLOCK, PIPELINE_DEPTH, ...).
+Runs on the card unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations

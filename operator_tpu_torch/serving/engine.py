@@ -1,43 +1,58 @@
 """The port's serving engine: a paged generator and its worker thread.
 
-``Generator`` is the counterpart of the paged, continuous-mode part of
+``Generator`` is the counterpart of the paged part of
 ``operator_tpu/serving/engine.py:BatchedGenerator``: it holds the
 parameters, the ``PagedKVCache`` (worst-case sizing by default,
 ``max_slots * pages_per_seq + 1`` pages with page 0 the trash page), the
 page allocator, the slot table and the sampling ``torch.Generator`` —
-everything the continuous scheduler (``sched/scheduler.py``) reads.
+everything the continuous scheduler (``sched/scheduler.py``) reads — and
+runs the phase-separated WAVE engine itself: batched admission with one
+prefill per wave (``admission.py``), then decode in blocks of
+``decode_block`` chained steps (``programs.py``) with up to
+``pipeline_depth - 1`` blocks in flight while the host processes older
+tokens.  Per-slot epochs keep a block dispatched before a slot was
+recycled from crediting its tokens to the new sequence.
 
-``ServingEngine`` runs that scheduler on ONE worker thread: callers on
-any thread ``submit(prompt, params)`` and get a
-``concurrent.futures.Future``; the worker admits queued submissions at
-every step boundary (token-level admission), steps the scheduler and
-resolves futures as rows finish.  All device work happens on the worker.
+``ServingEngine`` runs one of the two loops on ONE worker thread: callers
+on any thread ``submit(prompt, params)`` and get a
+``concurrent.futures.Future``.  With a scheduler the worker admits queued
+submissions at every step boundary (token-level admission) and steps the
+scheduler; without one it runs the wave loop (``operator_tpu/serving/
+engine.py:_serve``): admit what fits into free slots and pages, requeue
+the rest, then ``generator.step()``.  All device work happens on the
+worker.
 """
 
 from __future__ import annotations
 
+import collections
 import concurrent.futures
+import itertools
 import logging
 import queue
 import threading
 import time
 from typing import Any, Optional, Sequence, Union
 
+import numpy as np
 import torch
 
 from ..models.configs import ModelConfig
 from ..ops.paged_attention import PagedKVCache
 from ..utils.device import resolve_device
+from .admission import AdmissionMixin
+from .programs import ProgramBuilderMixin
 from .sampling import SAMPLE_TOP_K
-from .types import GenerationResult, PageAllocator, SamplingParams, _Slot
+from .types import GenerationResult, OversizedRequest, PageAllocator, SamplingParams, _Slot
 
 log = logging.getLogger(__name__)
 
 __all__ = ["Generator", "ServingEngine"]
 
 
-class Generator:
-    """Slot-based paged generation state over one shared KV cache.
+class Generator(AdmissionMixin, ProgramBuilderMixin):
+    """Slot-based paged generation state over one shared KV cache, and
+    the wave engine over it (``admit`` + ``step``).
 
     Not thread-safe by design: the :class:`ServingEngine` serialises all
     calls on its one worker thread.  ``params`` must already live on
@@ -55,6 +70,8 @@ class Generator:
         kv_pages: Optional[int] = None,
         cache_dtype: Optional[torch.dtype] = None,
         sample_top_k: Optional[int] = None,
+        decode_block: int = 1,
+        pipeline_depth: int = 1,
         seed: int = 0,
         device: Union[str, torch.device, None] = None,
     ) -> None:
@@ -70,14 +87,59 @@ class Generator:
         self.cache_dtype = cache_dtype or torch.bfloat16
         num_pages = kv_pages or (max_slots * self.pages_per_seq + 1)
         self.allocator = PageAllocator(num_pages)
-        self.paged_cache = PagedKVCache.create(
-            config.num_layers, num_pages, page_size, config.num_kv_heads,
-            config.head_dim, max_slots, self.pages_per_seq,
-            dtype=self.cache_dtype, device=self.device,
-        )
+        # wave decode: blocks of K chained steps per host round trip, with
+        # up to pipeline_depth - 1 blocks in flight; a finished slot may
+        # decode that many junk blocks into its own pages before the host
+        # stops it, so the max_seq guard keeps that margin free
+        if decode_block < 1 or pipeline_depth < 1:
+            raise ValueError(
+                f"decode_block={decode_block} and pipeline_depth={pipeline_depth} "
+                f"must be >= 1"
+            )
+        if pipeline_depth * decode_block * 2 > self.max_seq:
+            raise ValueError(
+                f"pipeline_depth*decode_block={pipeline_depth * decode_block} "
+                f"reserves more than half of max_seq={self.max_seq} as the "
+                f"stop margin — generations would truncate immediately"
+            )
+        self.decode_block = decode_block
+        self.pipeline_depth = pipeline_depth
+        self._alloc_decode_state()
         self.slots: list[_Slot] = [_Slot() for _ in range(max_slots)]
+        # per-slot generation counter: an in-flight block carries the epoch
+        # it was dispatched under, so tokens of a block dispatched before a
+        # slot was recycled are never credited to the new sequence
+        self._slot_epoch = [0] * max_slots
+        # host shadow of per-slot token counts: the decode loop never reads
+        # lengths back from the device
+        self._host_offsets = np.zeros((max_slots,), np.int64)
+        #: dispatched, unprocessed blocks: (host tokens [K, B], snapshot,
+        #: begin event, end event)
+        self._inflight_blocks: list[tuple] = []
+        # per-slot sampling tensors change only at admit/finish
+        self._sampling_cache: Optional[tuple] = None
         self._rng = torch.Generator(device=self.device)
         self._rng.manual_seed(seed)
+        #: wave counters: prefill waves, decode blocks dispatched, held
+        #: slots / capacity summed over blocks, and the stream milliseconds
+        #: of each processed block (CUDA events around it; CUDA only)
+        self.prefill_waves = 0
+        self.blocks_dispatched = 0
+        self.occupancy_sum = 0.0
+        self.block_ms: list[float] = []
+
+    def _alloc_decode_state(self) -> None:
+        """Fresh zeroed decode state: the page pool and the per-slot last
+        sampled tokens."""
+        config = self.config
+        self.paged_cache = PagedKVCache.create(
+            config.num_layers, self.allocator.num_pages, self.page_size,
+            config.num_kv_heads, config.head_dim, self.max_slots,
+            self.pages_per_seq, dtype=self.cache_dtype, device=self.device,
+        )
+        self.last_tokens = torch.zeros(
+            (self.max_slots, 1), dtype=torch.int32, device=self.device
+        )
 
     def free_slots(self) -> list[int]:
         return [i for i, slot in enumerate(self.slots) if not slot.active]
@@ -86,23 +148,209 @@ class Generator:
     def num_active(self) -> int:
         return sum(1 for slot in self.slots if slot.active)
 
-    def _truncate_prompt(self, ids: list, budget: int) -> list:
-        """Fit ``ids`` into ``budget`` tokens, keeping the TAIL (failure
-        evidence concentrates there).  The JAX generator keeps a registered
-        shared prefix as the head; the port registers none yet."""
-        if len(ids) <= budget:
-            return ids
-        return ids[-budget:]
+    # -- the wave engine ------------------------------------------------
+
+    def _to_device(self, array: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(array).to(self.device)
+
+    def _activate_slots(
+        self, first_np: np.ndarray, lengths: np.ndarray, taken: list[int],
+        params_list: Sequence[SamplingParams], page_grants: list[list[int]],
+        prefill_ms: float,
+    ) -> list[int]:
+        """Prompt KV is in the pages and first tokens are sampled: flip the
+        slots live."""
+        started = time.perf_counter()
+        for row, slot_id in enumerate(taken):
+            self._slot_epoch[slot_id] += 1  # new generation begins
+            self.slots[slot_id] = _Slot(
+                active=True, prompt_len=int(lengths[row]),
+                params=params_list[row], pages=page_grants[row],
+                generated=[int(first_np[row])], started=started,
+                prefill_ms=prefill_ms,
+            )
+            self._host_offsets[slot_id] = int(lengths[row])
+        rows = self._to_device(np.asarray(taken, np.int64))
+        self.last_tokens[rows, 0] = self._to_device(
+            first_np[: len(taken)].astype(np.int32)
+        )
+        self._sampling_cache = None  # slot set changed
+        return list(taken)
+
+    def _sampling_tensors(self) -> tuple:
+        """(active_np, temp_dev, top_p_dev, active_dev), rebuilt only when
+        the slot set changes (admit/finish) — not every decode step."""
+        if self._sampling_cache is None:
+            active = np.array([s.active for s in self.slots])
+            temp = np.array(
+                [s.params.temperature if s.active else 0.0 for s in self.slots],
+                np.float32,
+            )
+            top_p = np.array(
+                [s.params.top_p if s.active else 1.0 for s in self.slots], np.float32
+            )
+            self._sampling_cache = (
+                active, self._to_device(temp), self._to_device(top_p),
+                self._to_device(active),
+            )
+        return self._sampling_cache
+
+    def step(self) -> list[tuple[int, GenerationResult]]:
+        """One decode round: dispatch a block, then process the oldest
+        blocks' tokens; returns finished (slot, result) pairs.
+
+        With ``pipeline_depth=1`` the block just dispatched is processed at
+        once.  With depth D > 1 up to D - 1 blocks stay IN FLIGHT while the
+        host processes older tokens, so the host's work overlaps the next
+        block's device time.  Once nothing is active the leftovers are
+        flushed (their tokens belong to finished epochs)."""
+        if self.num_active == 0 and not self._inflight_blocks:
+            return []
+        if self.num_active:
+            with torch.profiler.record_function("podmortem.decode"):
+                self._dispatch_block()
+        finished: list[tuple[int, GenerationResult]] = []
+        while self._inflight_blocks and (
+            len(self._inflight_blocks) >= self.pipeline_depth
+            or self.num_active == 0
+        ):
+            finished.extend(self._process_block(*self._inflight_blocks.pop(0)))
+        return finished
+
+    def _dispatch_block(self) -> None:
+        """Enqueue one decode block; its tokens stay on the device (and
+        travel to pinned host memory on the stream) until processed."""
+        active, temp_dev, top_p_dev, active_dev = self._sampling_tensors()
+        begin = end = None
+        cuda = self.device.type == "cuda"
+        if cuda:
+            begin = torch.cuda.Event(enable_timing=True)
+            begin.record()
+        self.paged_cache, toks, self.last_tokens = self._decode_block_paged(
+            self.params, self.paged_cache, self.last_tokens,
+            temp_dev, top_p_dev, active_dev,
+        )
+        if cuda:
+            toks = toks.to("cpu", non_blocking=True)
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+        # which generation of each slot this block belongs to and how many
+        # tokens it held before the block, BEFORE advancing the shadow
+        snapshot = {
+            i: (self._slot_epoch[i], int(self._host_offsets[i]))
+            for i, slot in enumerate(self.slots)
+            if slot.active
+        }
+        self._host_offsets[active] += self.decode_block
+        self.blocks_dispatched += 1
+        self.occupancy_sum += self.num_active / self.max_slots
+        self._inflight_blocks.append((toks, snapshot, begin, end))
+
+    def _process_block(
+        self, toks: torch.Tensor, snapshot: dict, begin: Any, end: Any
+    ) -> list[tuple[int, GenerationResult]]:
+        if end is not None:
+            end.synchronize()  # the block's ONE host sync
+            self.block_ms.append(begin.elapsed_time(end))
+        toks_np = toks.numpy()  # [K, B]
+        block = self.decode_block
+        finished: list[tuple[int, GenerationResult]] = []
+        eos = self.tokenizer.eos_id
+        for i, (epoch, before) in snapshot.items():
+            slot = self.slots[i]
+            # the slot moved on (finished, possibly re-admitted) after this
+            # block was dispatched: its lanes hold junk for the new epoch
+            if not slot.active or self._slot_epoch[i] != epoch:
+                continue
+            for k in range(block):
+                token = int(toks_np[k, i])
+                previous = slot.generated[-1] if slot.generated else None
+                # the PREVIOUS sampled token ended generation?
+                if slot.params.stop_on_eos and eos is not None and previous == eos:
+                    finished.append((i, self._finish(i, reason="stop")))
+                    break
+                if len(slot.generated) >= slot.params.max_tokens:
+                    # budget already consumed (the prefill-sampled token
+                    # counts); discard this token so max_tokens is exact
+                    finished.append((i, self._finish(i, reason="length")))
+                    break
+                slot.generated.append(token)
+                total = before + k + 1
+                # stop pipeline_depth BLOCKS short of max_seq: the device
+                # decodes that many further blocks before the host can stop
+                # it, and those writes must stay inside the slot's pages
+                if (
+                    len(slot.generated) >= slot.params.max_tokens
+                    or total >= self.max_seq - self.pipeline_depth * block
+                ):
+                    finished.append((i, self._finish(i, reason="length")))
+                    break
+        return finished
+
+    def _finish(self, slot_id: int, *, reason: str) -> GenerationResult:
+        slot = self.slots[slot_id]
+        if slot.pages:
+            # point the slot's table row at the trash page BEFORE releasing
+            # the grant: the freed pages may go to a new sequence while this
+            # slot row still takes part in batched decode (the write is
+            # ordered on the stream after every block already dispatched)
+            self.paged_cache.page_table[slot_id] = 0
+            self.paged_cache.lengths[slot_id] = 0
+            self.allocator.release(slot.pages)
+        self._slot_epoch[slot_id] += 1  # stale in-flight tokens now orphaned
+        self._host_offsets[slot_id] = 0
+        self._sampling_cache = None  # slot set changed
+        eos = self.tokenizer.eos_id
+        ids = [t for t in slot.generated if t != eos]
+        result = GenerationResult(
+            text=self.tokenizer.decode(ids),
+            token_ids=ids,
+            prompt_tokens=slot.prompt_len,
+            completion_tokens=len(ids),
+            finish_reason=reason,
+            prefill_ms=slot.prefill_ms,
+            decode_ms=max(0.0, (time.perf_counter() - slot.started) * 1e3),
+        )
+        self.slots[slot_id] = _Slot()
+        return result
+
+    def generate(
+        self, prompt: str, params: Optional[SamplingParams] = None
+    ) -> GenerationResult:
+        """Synchronous single-prompt generation (drains the whole batch)."""
+        [slot_id] = self.admit([prompt], [params or SamplingParams()])
+        while True:
+            for finished_id, result in self.step():
+                if finished_id == slot_id:
+                    return result
 
 
 class ServingEngine:
-    """Thread front: submissions -> the scheduler's loop -> futures."""
+    """Thread front: submissions -> the scheduler's loop, or the wave
+    loop when there is no scheduler -> futures."""
 
-    def __init__(self, generator: Generator, scheduler: Any) -> None:
+    def __init__(
+        self,
+        generator: Generator,
+        scheduler: Any = None,
+        *,
+        admission_wait_s: float = 0.004,
+    ) -> None:
         self.generator = generator
         self.scheduler = scheduler
+        #: wave mode: a short window that lets concurrent arrivals share
+        #: one prefill
+        self.admission_wait_s = admission_wait_s
         self._submissions: "queue.Queue[tuple]" = queue.Queue()
+        #: futures in flight, keyed by scheduler req id (continuous) or
+        #: slot id (wave)
         self._pending: dict[int, concurrent.futures.Future] = {}
+        #: wave mode: submissions taken from the queue, not yet admitted
+        #: (page backpressure keeps them here), and each admitted slot's
+        #: submit -> admission wall
+        self._waiting: collections.deque = collections.deque()
+        self._queue_wait_ms: dict[int, float] = {}
+        self._stalled_avail: Optional[int] = None
         self._lock = threading.Lock()
         self._thread: Optional[threading.Thread] = None
         self._closed = threading.Event()
@@ -111,12 +359,21 @@ class ServingEngine:
     # -- lifecycle -----------------------------------------------------
 
     def warmup(self) -> None:
-        """Run one empty wave (builds the kernels, warms the step) before
-        serving; call before the first submit."""
+        """Before serving, run one empty continuous step or, in wave mode,
+        one short wave (builds the kernels and warms both programs); call
+        before the first submit."""
         with self._lock:
             if self._thread is not None:
                 raise RuntimeError("warmup must run before the engine starts")
-            self.scheduler.precompile()
+            if self.scheduler is not None:
+                self.scheduler.precompile()
+                return
+            g = self.generator
+            g.admit(["warm up"], [SamplingParams(
+                max_tokens=g.decode_block + 1, temperature=0.0, stop_on_eos=False,
+            )])
+            while g.num_active or g._inflight_blocks:
+                g.step()
 
     def start(self) -> None:
         with self._lock:
@@ -168,8 +425,21 @@ class ServingEngine:
 
     def load_report(self) -> dict:
         """Queue depth and in-flight rows for ``/healthz`` (the JAX
-        server's ``load`` field names)."""
+        server's ``load`` field names); ``steps`` counts decode blocks in
+        wave mode."""
         sched = self.scheduler
+        if sched is None:
+            g = self.generator
+            return {
+                "queueDepth": self._submissions.qsize() + len(self._waiting),
+                "inflight": g.num_active,
+                "gaveUp": self._error is not None,
+                "steps": g.blocks_dispatched,
+                "occupancy": (
+                    round(g.occupancy_sum / g.blocks_dispatched, 6)
+                    if g.blocks_dispatched else None
+                ),
+            }
         return {
             "queueDepth": self._submissions.qsize() + sched.queue_depth,
             "inflight": sched.num_active,
@@ -204,30 +474,116 @@ class ServingEngine:
                 return
 
     def _run(self) -> None:
-        sched = self.scheduler
         try:
-            while not self._closed.is_set():
-                self._admit_submissions(block=sched.total_work == 0)
-                if not sched.total_work:
-                    continue
-                for outcome in sched.step():
-                    future = self._pending.pop(outcome.req_id, None)
-                    if future is None:
-                        continue
-                    if outcome.error is not None:
-                        future.set_exception(outcome.error)
-                    else:
-                        future.set_result(outcome.result)
+            if self.scheduler is not None:
+                self._run_sched()
+            else:
+                self._run_wave()
         except Exception as exc:  # noqa: BLE001 - the loop's boundary: fail loudly
             log.exception("serving engine loop died")
             self._error = exc
             self._fail_outstanding(exc)
+
+    def _run_sched(self) -> None:
+        sched = self.scheduler
+        while not self._closed.is_set():
+            self._admit_submissions(block=sched.total_work == 0)
+            if not sched.total_work:
+                continue
+            for outcome in sched.step():
+                future = self._pending.pop(outcome.req_id, None)
+                if future is None:
+                    continue
+                if outcome.error is not None:
+                    future.set_exception(outcome.error)
+                else:
+                    future.set_result(outcome.result)
+
+    # -- the wave loop -------------------------------------------------
+
+    def _take_submissions(self, block: bool) -> bool:
+        """Move queued submissions into the waiting line (blocking briefly
+        when ``block``); returns whether any arrived."""
+        arrived = False
+        timeout = 0.05 if block else None
+        while True:
+            try:
+                item = (
+                    self._submissions.get(timeout=timeout) if timeout
+                    else self._submissions.get_nowait()
+                )
+            except queue.Empty:
+                return arrived
+            timeout = None
+            if item[-1].set_running_or_notify_cancel():
+                self._waiting.append(item)
+                arrived = True
+
+    def _page_stalled(self) -> bool:
+        """True while a backpressured line has no new pages to retry with:
+        skipping the retry avoids re-tokenising every waiting prompt each
+        round while decode slowly frees pages."""
+        if self._stalled_avail is None:
+            return False
+        if self.generator.allocator.available > self._stalled_avail:
+            self._stalled_avail = None
+            return False
+        return True
+
+    def _admit_waiting(self, arrived: bool) -> None:
+        """Admit the head of the waiting line into free slots and pages;
+        what does not fit stays in line (backpressure)."""
+        g = self.generator
+        free = len(g.free_slots())
+        if not free or self._page_stalled():
+            return
+        if arrived and len(self._waiting) < free and self.admission_wait_s > 0:
+            # a short window lets concurrent arrivals share one prefill
+            time.sleep(self.admission_wait_s)
+            self._take_submissions(block=False)
+        batch = list(itertools.islice(self._waiting, free))
+        admitted_t = time.perf_counter()
+        try:
+            slots = g.admit([b[0] for b in batch], [b[1] for b in batch])
+        except OversizedRequest as exc:
+            # only the head is impossible: fail it alone, the rest retry
+            self._waiting.popleft()[-1].set_exception(exc)
+            return
+        for slot_id, (_, _, submitted, future) in zip(slots, batch):
+            self._waiting.popleft()
+            self._pending[slot_id] = future
+            self._queue_wait_ms[slot_id] = max(0.0, (admitted_t - submitted) * 1e3)
+        # a stall is recorded only while active sequences hold pages: their
+        # release is the retry trigger
+        self._stalled_avail = (
+            g.allocator.available
+            if len(slots) < len(batch) and g.num_active > 0 else None
+        )
+
+    def _run_wave(self) -> None:
+        g = self.generator
+        while not self._closed.is_set():
+            busy = bool(self._waiting) or g.num_active > 0 or bool(g._inflight_blocks)
+            arrived = self._take_submissions(block=not busy)
+            if self._waiting:
+                self._admit_waiting(arrived)
+            if not (g.num_active or g._inflight_blocks):
+                continue
+            for slot_id, result in g.step():
+                future = self._pending.pop(slot_id, None)
+                result.queue_wait_ms = self._queue_wait_ms.pop(slot_id, 0.0)
+                if future is not None:
+                    future.set_result(result)
 
     def _fail_outstanding(self, exc: BaseException) -> None:
         for future in self._pending.values():
             if not future.done():
                 future.set_exception(exc)
         self._pending.clear()
+        while self._waiting:
+            future = self._waiting.popleft()[-1]
+            if not future.done():
+                future.set_exception(exc)
         while True:
             try:
                 *_, future = self._submissions.get_nowait()

@@ -22,31 +22,25 @@ one call to the next, the property a later CUDA-graph capture needs.
 
 from __future__ import annotations
 
-from typing import Any, Union
+from typing import Union
 
 import torch
-import torch.nn.functional as F
 
 from ...models.configs import ModelConfig
-from ...models.llama import _PROJ_BIAS, apply_rope, rms_norm, rope_frequencies
-from ...models.quant import mm
+from ...models.llama import (
+    _layer_weights,
+    _logits,
+    _mlp,
+    _proj,
+    apply_rope,
+    rms_norm,
+    rope_frequencies,
+)
 from ...ops.paged_attention import PagedKVCache
 from ...ops.ragged_attention import ragged_paged_attention
 from ..sampling import SAMPLE_TOP_K, sample
 
 __all__ = ["make_mixed_step"]
-
-
-def _layer_weights(layers: dict[str, Any], index: int) -> dict[str, Any]:
-    """Layer ``index``'s slice of the stacked weights (int8 groups stay
-    groups)."""
-    out = {}
-    for name, leaf in layers.items():
-        if isinstance(leaf, dict):
-            out[name] = {key: value[index] for key, value in leaf.items()}
-        else:
-            out[name] = leaf[index]
-    return out
 
 
 def make_mixed_step(
@@ -123,18 +117,10 @@ def make_mixed_step(
 
         for index in range(config.num_layers):
             weights = _layer_weights(params["layers"], index)
-
-            def proj(h_in, name, weights=weights):
-                y = mm(h_in, weights[name])
-                bias = _PROJ_BIAS.get(name)
-                if bias is not None and bias in weights:
-                    y = y + weights[bias].to(y.dtype)
-                return y
-
             attn_in = rms_norm(x, weights["ln_attn"], eps)
-            q = proj(attn_in, "wq").reshape(1, t_budget, qh, hd)
-            k = proj(attn_in, "wk").reshape(1, t_budget, kvh, hd)
-            v = proj(attn_in, "wv").reshape(1, t_budget, kvh, hd)
+            q = _proj(attn_in, weights, "wq").reshape(1, t_budget, qh, hd)
+            k = _proj(attn_in, weights, "wk").reshape(1, t_budget, kvh, hd)
+            v = _proj(attn_in, weights, "wv").reshape(1, t_budget, kvh, hd)
             q = apply_rope(q, positions, inv_freq)
             k = apply_rope(k, positions, inv_freq)
             # scatter this step's K/V into the pages FIRST — the ragged
@@ -153,21 +139,15 @@ def make_mixed_step(
             # leaves unwritten, so they are zeroed to keep them finite
             attn = attn_pack[gather_rows, gather_in_row]
             attn = torch.where(token_live, attn, torch.zeros_like(attn))
-            x = x + proj(attn.to(x.dtype).reshape(1, t_budget, -1), "wo")
-            mlp_in = rms_norm(x, weights["ln_mlp"], eps)
-            gate = F.silu(proj(mlp_in, "w_gate"))
-            up = proj(mlp_in, "w_up")
-            x = x + proj(gate * up, "w_down")
+            x = x + _proj(attn.to(x.dtype).reshape(1, t_budget, -1), weights, "wo")
+            x = _mlp(x, weights, eps)
 
-        x = rms_norm(x, params["ln_final"], eps)
         # only each slot's sampled positions need logit rows: gather them
-        # before the head matmul ([B * W] rows, not [T])
+        # before the final norm and the head matmul ([B * W] rows, not [T])
         samp_idx = (sample_start.long()[:, None] + width_steps[None]).clamp(
             0, t_budget - 1
         )  # [B, W]
-        x_samp = x[0][samp_idx]  # [B, W, H]
-        head = params["embed"].T if config.tie_embeddings else params["lm_head"]
-        logits = (x_samp @ head).to(torch.float32)  # [B, W, V]
+        logits = _logits(params, config, x[0][samp_idx])  # [B, W, V]
         flat_toks = sample(
             logits.reshape(max_slots * width, -1), rng,
             temp.repeat_interleave(width), top_p.repeat_interleave(width),

@@ -1,9 +1,10 @@
 """Serving data types shared by the engine, the scheduler and the server.
 
 The port's own copies of ``operator_tpu/serving/types.py``:
-``SamplingParams``, ``GenerationResult``, ``PageAllocator`` and the two
-admission formulas.  ``SamplingParams`` carries only the fields the
-continuous path serves; LoRA adapters, guided decoding, deadlines, SLO
+``SamplingParams``, ``GenerationResult``, ``PageAllocator``, the two
+admission formulas and the wave engine's bucket rule ``_bucket``.
+``SamplingParams`` carries only the fields the continuous and wave paths
+serve; LoRA adapters, guided decoding, deadlines, SLO
 classes and trace tags come with the slices that port them.
 """
 
@@ -53,6 +54,19 @@ class _Slot:
     prompt_len: int = 0
     params: SamplingParams = field(default_factory=SamplingParams)
     pages: list[int] = field(default_factory=list)
+    # the wave engine's per-slot generation state (the continuous
+    # scheduler keeps its own on ``sched.types._Row``)
+    generated: list[int] = field(default_factory=list)
+    started: float = 0.0
+    prefill_ms: float = 0.0
+
+
+def _bucket(n: int, floor: int, cap: int) -> int:
+    """Smallest power-of-two >= n, clamped to [floor, cap]."""
+    size = floor
+    while size < n and size < cap:
+        size *= 2
+    return min(size, cap)
 
 
 class OversizedRequest(ValueError):

@@ -209,6 +209,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import operator_tpu_torch, operator_tpu_torch.serving.engine\n"
         "import operator_tpu_torch.serving.httpserver, operator_tpu_torch.serving.provider\n"
         "import operator_tpu_torch.serving.sched.mixed, operator_tpu_torch.ops._build\n"
+        "import operator_tpu_torch.serving.admission, operator_tpu_torch.serving.programs\n"
+        "import operator_tpu_torch.ops.flash_prefill, operator_tpu_torch.ops.paged_attention\n"
+        "import operator_tpu_torch.models.llama\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'operator_tpu' or m.startswith('operator_tpu.'))\n"
         "assert not bad, bad\n"

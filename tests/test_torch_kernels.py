@@ -5,10 +5,13 @@ launches nothing, the CUDA wrapper refuses CPU tensors, and the ``nvcc``
 build is cached by a hash of the sources and raises with the compiler's
 stderr (both driven through a stand-in compiler script).
 
-On the card (``cuda`` marker; skips without one): the hand-written ragged
-paged-attention kernel against its plain version at the main path's head
-layout (QH=32, KH=4, D=64), in f32 and bf16, valid rows only.  This file
-imports no JAX, so it runs on a machine that has only PyTorch::
+On the card (``cuda`` marker; skips without one): each hand-written
+kernel against its plain version at tinyllama's head layout (QH=32, KH=4,
+D=64), in f32 and bf16 — the ragged paged-attention kernel on valid rows,
+the paged decode kernel on every row, released rows included, and the
+flash-prefill kernel on every row, padded query rows included; and an
+unknown decode-kernel selector refusing to build the wave engine.  This file imports no JAX, so it runs on a machine that
+has only PyTorch::
 
     python -m pytest tests/test_torch_kernels.py -q
 """
@@ -19,6 +22,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from operator_tpu_torch.ops import _build  # noqa: E402
+from operator_tpu_torch.ops import flash_prefill  # noqa: E402
+from operator_tpu_torch.ops import paged_attention as paged  # noqa: E402
 from operator_tpu_torch.ops import ragged_attention as ragged  # noqa: E402
 
 B, C, QH, KH, D, PAGE, PPS = 4, 8, 32, 4, 64, 16, 6
@@ -39,6 +44,10 @@ GEOMETRIES = {
 #: the plain version rounds the probabilities to bf16 before P.V, the
 #: kernel keeps them in f32 and rounds once at the end
 TOL = {"float32": 1e-4, "bfloat16": 6e-2}
+#: the decode and prefill kernels, for the same reasons: in bf16 about
+#: twice the largest error measured on the card (0.0156, a bf16 ulp at
+#: magnitude 2)
+WAVE_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 
 
 def _inputs(name, dtype=torch.float32, device="cpu"):
@@ -78,6 +87,89 @@ def test_cuda_wrapper_refuses_cpu_tensors():
     assert ragged.launches == before
 
 
+#: decode: name -> (lengths, sliding_window, released rows); lengths of 1,
+#: full pages, off the page grid and past the window, at B=8, page 16
+DECODE_GEOMETRIES = {
+    "mixed": ([1, 16, 32, 17, 90, 96, 5, 63], None, ()),
+    "window": ([1, 16, 32, 17, 90, 96, 5, 63], 20, ()),
+    "released": ([17, 1, 96, 1, 40, 1, 3, 64], None, (1, 3, 5)),
+}
+DB, DPPS = 8, 6
+
+
+def _decode_inputs(name, dtype=torch.float32, device="cpu"):
+    lengths, window, released = DECODE_GEOMETRIES[name]
+    rng = np.random.default_rng(sum(map(ord, name)))
+    num_pages = DB * DPPS + 1
+    arrays = [
+        rng.normal(size=(DB, QH, D)).astype(np.float32),
+        rng.normal(size=(num_pages, PAGE, KH, D)).astype(np.float32),
+        rng.normal(size=(num_pages, PAGE, KH, D)).astype(np.float32),
+    ]
+    table = (1 + rng.permutation(num_pages - 1)[: DB * DPPS]).reshape(DB, DPPS)
+    table[list(released)] = 0  # released slots point at trash page 0
+    args = [torch.from_numpy(a).to(device, dtype) for a in arrays] + [
+        torch.as_tensor(table, dtype=torch.int32, device=device),
+        torch.as_tensor(lengths, dtype=torch.int32, device=device),
+    ]
+    return args, window
+
+
+#: prefill: name -> (T, lengths, sliding_window)
+PREFILL_GEOMETRIES = {
+    "full": (64, [64], None),
+    "ragged": (128, [128, 37, 1], None),
+    "window": (128, [128, 70, 9], 24),
+    "short_bucket": (24, [24, 7], None),
+}
+
+
+def _prefill_inputs(name, dtype=torch.float32, device="cpu"):
+    t, lengths, window = PREFILL_GEOMETRIES[name]
+    rng = np.random.default_rng(sum(map(ord, name)))
+    b = len(lengths)
+    arrays = [
+        rng.normal(size=(b, t, QH, D)).astype(np.float32),
+        rng.normal(size=(b, t, KH, D)).astype(np.float32),
+        rng.normal(size=(b, t, KH, D)).astype(np.float32),
+    ]
+    args = [torch.from_numpy(a).to(device, dtype) for a in arrays] + [
+        torch.as_tensor(lengths, dtype=torch.int32, device=device)
+    ]
+    return args, window
+
+
+@pytest.mark.parametrize("name", list(DECODE_GEOMETRIES))
+def test_decode_cpu_dispatch_takes_the_plain_version(name):
+    args, window = _decode_inputs(name)
+    before = paged.launches
+    got = paged.paged_attention(*args, sliding_window=window)
+    assert paged.launches == before
+    assert got.shape == (DB, QH, D) and torch.isfinite(got).all()
+    assert torch.equal(got, paged.paged_attention_reference(*args, sliding_window=window))
+
+
+@pytest.mark.parametrize("name", list(PREFILL_GEOMETRIES))
+def test_prefill_cpu_dispatch_takes_the_plain_version(name):
+    args, window = _prefill_inputs(name)
+    before = flash_prefill.launches
+    got = flash_prefill.flash_prefill_attention(*args, sliding_window=window)
+    assert flash_prefill.launches == before
+    assert got.shape == (args[0].shape[0], args[0].shape[1], QH * D)
+    assert torch.equal(
+        got, flash_prefill.flash_prefill_reference(*args, sliding_window=window)
+    )
+
+
+def test_new_cuda_wrappers_refuse_cpu_tensors():
+    args, window = _decode_inputs("mixed")
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        paged.paged_attention_cuda(*args, sliding_window=window)
+    args, window = _prefill_inputs("ragged")
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        flash_prefill.flash_prefill_cuda(*args, sliding_window=window)
+
+
 def _fake_nvcc(tmp_path, body):
     """A stand-in compiler: records each call, then runs ``body``."""
     script = tmp_path / "nvcc"
@@ -96,16 +188,22 @@ def test_build_is_cached_by_source_hash(tmp_path, monkeypatch):
     nvcc, calls = _fake_nvcc(tmp_path, 'echo built > "$out"\n')
     monkeypatch.setattr(_build, "_nvcc", lambda: nvcc)
     monkeypatch.setenv("OPERATOR_TPU_TORCH_BUILD_DIR", str(tmp_path / "build"))
-    assert _build.source_names() == ["ragged_attention"]
+    names = ["flash_prefill", "paged_attention", "ragged_attention"]
+    assert _build.source_names() == names
     _build.build_all()
-    target = _build._library_path("ragged_attention")
-    assert target.parent == tmp_path / "build" and target.read_text() == "built\n"
+    targets = [_build._library_path(name) for name in names]
+    for target in targets:
+        assert target.parent == tmp_path / "build" and target.read_text() == "built\n"
     _build.build_all()  # unchanged sources: nothing to build
     lines = calls.read_text().splitlines()
-    assert len(lines) == 1
-    assert "arch=compute_90a,code=sm_90a" in lines[0]
-    assert lines[0].endswith("ragged_attention.cu")
-    assert sorted(p.name for p in target.parent.iterdir()) == [target.name]
+    assert len(lines) == len(names)  # one nvcc per source
+    assert all("arch=compute_90a,code=sm_90a" in line for line in lines)
+    assert sorted(line.split()[-1].rsplit("/", 1)[-1] for line in lines) == [
+        f"{name}.cu" for name in names
+    ]
+    assert sorted(p.name for p in (tmp_path / "build").iterdir()) == sorted(
+        t.name for t in targets
+    )
 
 
 def test_failed_build_raises_with_the_compiler_stderr(tmp_path, monkeypatch):
@@ -145,3 +243,47 @@ def test_cuda_wrapper_refuses_other_dtypes(cuda):
     args, window, _ = _inputs("mixed", torch.float16, "cuda")
     with pytest.raises(TypeError, match="bfloat16 or float32"):
         ragged.ragged_attention_cuda(*args, sliding_window=window)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", list(DECODE_GEOMETRIES))
+def test_cuda_decode_kernel_matches_plain_version(cuda, name, dtype_name):
+    args, window = _decode_inputs(name, getattr(torch, dtype_name), "cuda")
+    before = paged.launches
+    got = paged.paged_attention(*args, sliding_window=window)
+    torch.cuda.synchronize()
+    assert paged.launches == before + 1
+    assert got.dtype == args[0].dtype
+    want = paged.paged_attention_reference(*args, sliding_window=window)
+    diff = (got.float() - want.float()).abs().max().item()
+    assert diff <= WAVE_TOL[dtype_name], (name, diff)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", list(PREFILL_GEOMETRIES))
+def test_cuda_prefill_kernel_matches_plain_version(cuda, name, dtype_name):
+    args, window = _prefill_inputs(name, getattr(torch, dtype_name), "cuda")
+    before = flash_prefill.launches
+    got = flash_prefill.flash_prefill_attention(*args, sliding_window=window)
+    torch.cuda.synchronize()
+    assert flash_prefill.launches == before + 1
+    assert got.dtype == args[0].dtype
+    want = flash_prefill.flash_prefill_reference(*args, sliding_window=window)
+    diff = (got.float() - want.float()).abs().max().item()
+    assert diff <= WAVE_TOL[dtype_name], (name, diff)
+
+
+@pytest.mark.cuda
+def test_cuda_decode_selector_v3_raises(cuda):
+    from operator_tpu_torch.serving.provider import build_serving_engine
+
+    env = {
+        "OPERATOR_TPU_MODEL": "tiny-test", "ALLOW_RANDOM_WEIGHTS": "true",
+        "SCHED_MODE": "wave", "OPERATOR_TPU_PAGED_KERNEL": "v3",
+    }
+    before = paged.launches
+    with pytest.raises(ValueError, match="v3"):
+        build_serving_engine("cuda", env)
+    assert paged.launches == before

@@ -6,6 +6,14 @@ sampler, the model registry and the byte tokenizer — each against its
 JAX twin on inputs drawn once with numpy, with the tolerance stated per
 test; and ``params_from_jax`` must carry a JAX ``init_params`` /
 ``quantize_params`` tree across bit for bit, bf16 included.
+
+The wave engine's passes: ``forward`` with a mini cache (flash prefill on
+and off, dense and query-chunked attention, per-sequence offsets, the
+``logits_at`` gather), without a cache, and ``decode_step_paged`` (with and
+without a sliding window, f32 and int8 weights) against the JAX functions
+on the same weights carried across by ``params_from_jax``; logits within
+2e-4 (f32 sums of a few hundred terms, in another order), caches exactly
+or within the same bound.
 """
 
 import dataclasses
@@ -21,8 +29,10 @@ from operator_tpu.models import configs as jax_configs  # noqa: E402
 from operator_tpu.models import llama as jax_llama  # noqa: E402
 from operator_tpu.models import quant as jax_quant  # noqa: E402
 from operator_tpu.models.tokenizer import ByteTokenizer as JaxByteTokenizer  # noqa: E402
+from operator_tpu.ops.paged_attention import PagedKVCache as JaxPagedKVCache  # noqa: E402
 from operator_tpu_torch.models import configs, llama, quant  # noqa: E402
 from operator_tpu_torch.models.tokenizer import ByteTokenizer  # noqa: E402
+from operator_tpu_torch.ops.paged_attention import PagedKVCache  # noqa: E402
 from operator_tpu_torch.serving.sampling import sample  # noqa: E402
 
 
@@ -182,3 +192,163 @@ def test_sampled_distribution_matches_the_nucleus():
     ))
     freq = np.bincount(got, minlength=logits.size) / draws
     np.testing.assert_allclose(freq, want, rtol=0, atol=0.015)
+
+
+# ---------------------------------------------------------------------------
+# forward and decode_step_paged
+# ---------------------------------------------------------------------------
+
+LOGIT_ATOL = 2e-4
+
+
+def _tiny_params(quantized=False, window=None):
+    cfg = jax_configs.TINY_TEST
+    if window is not None:
+        cfg = dataclasses.replace(cfg, sliding_window=window)
+    tree = jax_llama.init_params(cfg, jax.random.PRNGKey(0), dtype=jnp.float32)
+    if quantized:
+        tree = jax_quant.quantize_params(tree, cfg)
+    numpy_tree = jax.tree_util.tree_map(np.asarray, tree)
+    ours_cfg = dataclasses.replace(configs.TINY_TEST, sliding_window=window)
+    return cfg, tree, ours_cfg, llama.params_from_jax(numpy_tree)
+
+
+@pytest.mark.parametrize("attention", ["dense", "chunked", "flash"])
+def test_prefill_forward_with_a_mini_cache_matches_jax(monkeypatch, attention):
+    """The wave prefill's call: a right-padded bucket through a fresh
+    mini cache at offset 0 with kv_valid = pos < lengths."""
+    monkeypatch.setenv("OPERATOR_TPU_FLASH_PREFILL", "1" if attention == "flash" else "0")
+    jcfg, jparams, cfg, params = _tiny_params()
+    b, t = 3, 64
+    rng = np.random.default_rng(5)
+    ids = rng.integers(3, cfg.vocab_size, size=(b, t)).astype(np.int32)
+    lengths = np.asarray([64, 17, 1], np.int32)
+    positions = np.broadcast_to(np.arange(t, dtype=np.int32)[None], (b, t))
+    kv_valid = positions < lengths[:, None]
+    q_chunk = 16 if attention == "chunked" else None
+    want_logits, want_cache = jax_llama.forward(
+        jparams, jcfg, jnp.asarray(ids), jnp.asarray(positions),
+        cache=jax_llama.KVCache.create(jcfg, b, t, dtype=jnp.float32),
+        cache_offset=0, kv_valid=jnp.asarray(kv_valid), q_chunk=q_chunk,
+        prefill_lengths=jnp.asarray(lengths),
+    )
+    cache = llama.KVCache.create(cfg, b, t, dtype=torch.float32, device="cpu")
+    got_logits, got_cache = llama.forward(
+        params, cfg, torch.from_numpy(ids), torch.from_numpy(positions.copy()),
+        cache=cache, cache_offset=0, kv_valid=torch.from_numpy(kv_valid.copy()),
+        q_chunk=q_chunk, prefill_lengths=torch.from_numpy(lengths),
+    )
+    assert got_cache is cache  # written in place
+    np.testing.assert_allclose(_np(got_logits), np.asarray(want_logits), rtol=0,
+                               atol=LOGIT_ATOL)
+    np.testing.assert_allclose(_np(cache.k), np.asarray(want_cache.k), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(_np(cache.v), np.asarray(want_cache.v), rtol=0, atol=1e-5)
+    # the prefill's gather before the vocab head: the same rows
+    last, _ = llama.forward(
+        params, cfg, torch.from_numpy(ids), torch.from_numpy(positions.copy()),
+        cache=llama.KVCache.create(cfg, b, t, dtype=torch.float32, device="cpu"),
+        cache_offset=0, kv_valid=torch.from_numpy(kv_valid.copy()), q_chunk=q_chunk,
+        prefill_lengths=torch.from_numpy(lengths),
+        logits_at=torch.from_numpy(lengths - 1),
+    )
+    want_last = np.asarray(want_logits)[np.arange(b), lengths - 1]
+    np.testing.assert_allclose(_np(last), want_last, rtol=0, atol=LOGIT_ATOL)
+
+
+def test_forward_without_a_cache_matches_jax():
+    jcfg, jparams, cfg, params = _tiny_params()
+    rng = np.random.default_rng(6)
+    ids = rng.integers(3, cfg.vocab_size, size=(2, 24)).astype(np.int32)
+    positions = np.broadcast_to(np.arange(24, dtype=np.int32)[None], (2, 24)).copy()
+    want, _ = jax_llama.forward(jparams, jcfg, jnp.asarray(ids), jnp.asarray(positions))
+    got, cache = llama.forward(params, cfg, torch.from_numpy(ids), torch.from_numpy(positions))
+    assert cache is None
+    np.testing.assert_allclose(_np(got), np.asarray(want), rtol=0, atol=LOGIT_ATOL)
+
+
+def test_forward_at_per_sequence_offsets_matches_jax():
+    """Ragged offsets (a [B] tensor): each row writes and attends at its
+    own position of a cache that already holds earlier tokens."""
+    jcfg, jparams, cfg, params = _tiny_params()
+    b, s, t = 3, 32, 2
+    rng = np.random.default_rng(7)
+    k0 = rng.normal(size=(cfg.num_layers, b, s, cfg.num_kv_heads, cfg.head_dim)).astype(np.float32)
+    v0 = rng.normal(size=k0.shape).astype(np.float32)
+    offsets = np.asarray([5, 0, 29], np.int32)
+    ids = rng.integers(3, cfg.vocab_size, size=(b, t)).astype(np.int32)
+    positions = (offsets[:, None] + np.arange(t, dtype=np.int32)[None]).astype(np.int32)
+    want, want_cache = jax_llama.forward(
+        jparams, jcfg, jnp.asarray(ids), jnp.asarray(positions),
+        cache=jax_llama.KVCache(k=jnp.asarray(k0), v=jnp.asarray(v0)),
+        cache_offset=jnp.asarray(offsets),
+    )
+    cache = llama.KVCache(k=torch.from_numpy(k0.copy()), v=torch.from_numpy(v0.copy()))
+    got, _ = llama.forward(
+        params, cfg, torch.from_numpy(ids), torch.from_numpy(positions),
+        cache=cache, cache_offset=torch.from_numpy(offsets),
+    )
+    np.testing.assert_allclose(_np(got), np.asarray(want), rtol=0, atol=LOGIT_ATOL)
+    np.testing.assert_allclose(_np(cache.k), np.asarray(want_cache.k), rtol=0, atol=1e-5)
+
+
+def test_pick_q_chunk_matches_jax():
+    for shape in [(1, 64, 64, 8), (16, 2048, 2048, 32), (8, 4096, 4096, 32), (3, 96, 96, 4)]:
+        assert llama._pick_q_chunk(*shape) == jax_llama._pick_q_chunk(*shape), shape
+
+
+def test_make_causal_mask_matches_jax():
+    rng = np.random.default_rng(8)
+    q_pos = rng.integers(0, 40, size=(2, 5)).astype(np.int32)
+    kv_pos = np.broadcast_to(np.arange(40, dtype=np.int32)[None], (2, 40)).copy()
+    kv_valid = rng.random((2, 40)) < 0.8
+    for window in (None, 6):
+        want = jax_llama.make_causal_mask(
+            jnp.asarray(q_pos), jnp.asarray(kv_pos), jnp.asarray(kv_valid),
+            sliding_window=window,
+        )
+        got = llama.make_causal_mask(
+            torch.from_numpy(q_pos), torch.from_numpy(kv_pos),
+            torch.from_numpy(kv_valid), sliding_window=window,
+        )
+        np.testing.assert_array_equal(_np(got), np.asarray(want))
+
+
+@pytest.mark.parametrize("quantized,window", [(False, None), (True, None), (False, 6)])
+def test_decode_step_paged_matches_jax(quantized, window):
+    """One decode token per row over a paged cache holding earlier
+    tokens: rows at lengths 9, 1 and 30, and a released row (all-zero
+    table, length 0) writing to the trash page."""
+    jcfg, jparams, cfg, params = _tiny_params(quantized, window)
+    b, page, pps = 4, 8, 4
+    num_pages = b * pps + 1
+    rng = np.random.default_rng(9)
+    shape = (cfg.num_layers, num_pages, page, cfg.num_kv_heads, cfg.head_dim)
+    k_pages = rng.normal(size=shape).astype(np.float32)
+    v_pages = rng.normal(size=shape).astype(np.float32)
+    table = (1 + np.arange(b * pps, dtype=np.int32)).reshape(b, pps)
+    table[3] = 0
+    lengths = np.asarray([9, 1, 30, 0], np.int32)
+    tokens = rng.integers(3, cfg.vocab_size, size=(b, 1)).astype(np.int32)
+    want_logits, want_cache = jax_llama.decode_step_paged(
+        jparams, jcfg, jnp.asarray(tokens),
+        JaxPagedKVCache(
+            k_pages=jnp.asarray(k_pages), v_pages=jnp.asarray(v_pages),
+            page_table=jnp.asarray(table), lengths=jnp.asarray(lengths),
+        ),
+    )
+    paged = PagedKVCache(
+        k_pages=torch.from_numpy(k_pages.copy()), v_pages=torch.from_numpy(v_pages.copy()),
+        page_table=torch.from_numpy(table), lengths=torch.from_numpy(lengths),
+    )
+    got_logits, got_cache = llama.decode_step_paged(
+        params, cfg, torch.from_numpy(tokens), paged
+    )
+    assert got_cache.k_pages is paged.k_pages  # written in place
+    np.testing.assert_allclose(_np(got_logits), np.asarray(want_logits), rtol=0,
+                               atol=LOGIT_ATOL)
+    np.testing.assert_array_equal(_np(got_cache.lengths), np.asarray(want_cache.lengths))
+    # page 0 (trash) takes the released row's write in either package
+    for ours, theirs in ((got_cache.k_pages, want_cache.k_pages),
+                         (got_cache.v_pages, want_cache.v_pages)):
+        np.testing.assert_allclose(_np(ours)[:, 1:], np.asarray(theirs)[:, 1:],
+                                   rtol=0, atol=1e-5)

@@ -7,8 +7,16 @@ and to the JAX dense reference, across every geometry the scheduler
 produces; decode rows also to both packages' ``paged_attention_reference``;
 ``write_tokens`` to the JAX scatter.  f32 throughout, atol 1e-5 (the two
 packages sum in different orders), valid rows only (padding rows are
-don't-care by contract).  The CUDA kernel itself is compared with the
-plain version on the card by ``tests/test_torch_kernels.py``.
+don't-care by contract).
+
+The wave engine's ops: the port's ``paged_attention`` (the plain version
+on the CPU) against both JAX Pallas decode kernels (v1 and v2) in
+interpret mode, with windows and in bf16; ``flash_prefill_reference``
+against the JAX Pallas prefill kernel in interpret mode on every row,
+padded query rows included, with windows and non-default JAX blocks;
+``flash_prefill_supported`` against the JAX gate.  Tolerances are stated
+per test.  The CUDA kernels themselves are compared with the plain
+versions on the card by ``tests/test_torch_kernels.py``.
 """
 
 import importlib
@@ -23,6 +31,8 @@ import jax.numpy as jnp  # noqa: E402
 # operator_tpu.ops re-exports functions under the modules' names
 jax_paged = importlib.import_module("operator_tpu.ops.paged_attention")
 jax_ragged = importlib.import_module("operator_tpu.ops.ragged_attention")
+jax_flash = importlib.import_module("operator_tpu.ops.flash_prefill")
+from operator_tpu_torch.ops import flash_prefill  # noqa: E402
 from operator_tpu_torch.ops import paged_attention as paged  # noqa: E402
 from operator_tpu_torch.ops import ragged_attention as ragged  # noqa: E402
 
@@ -102,13 +112,18 @@ def test_decode_rows_match_paged_attention_references(window):
 
 
 @pytest.mark.parametrize("with_valid_len", [False, True])
-def test_write_tokens_matches_jax(with_valid_len):
+@pytest.mark.parametrize("past_table", [False, True], ids=["in_table", "past_table"])
+def test_write_tokens_matches_jax(with_valid_len, past_table):
+    """``past_table``: row 3's writes run past the end of its page table
+    (positions 46..50 of a 48-slot table), as a finished wave slot's
+    decode-ahead can; JAX drops them, the port sends them to the trash
+    page, and every real page ends the same."""
     rng = np.random.default_rng(3)
     num_pages = B * PPS + 1
     pages = rng.normal(size=(num_pages, PAGE, KH, D)).astype(np.float32)
     _, _, _, table = _inputs(4)
     new = rng.normal(size=(B, 5, KH, D)).astype(np.float32)
-    start = np.asarray([0, 7, 13, 30], np.int32)
+    start = np.asarray([0, 7, 13, 46 if past_table else 30], np.int32)
     valid_len = np.asarray([5, 2, 0, 4], np.int32) if with_valid_len else None
     want = np.asarray(jax_paged.write_tokens(
         jnp.asarray(pages), jnp.asarray(table), jnp.asarray(new),
@@ -124,7 +139,7 @@ def test_write_tokens_matches_jax(with_valid_len):
     assert out is ours  # in place
     # the trash page 0 takes every padding write in an unspecified order
     np.testing.assert_array_equal(ours.numpy()[1:], want[1:])
-    if not with_valid_len:
+    if not (with_valid_len or past_table):
         np.testing.assert_array_equal(ours.numpy()[0], want[0])
 
 
@@ -135,3 +150,185 @@ def test_paged_cache_layout():
     assert cache.page_table.dtype == torch.int32 and cache.page_table.shape == (B, PPS)
     assert cache.lengths.shape == (B,) and cache.page_size == PAGE
 
+
+
+# ---------------------------------------------------------------------------
+# the wave engine's decode attention and flash prefill
+# ---------------------------------------------------------------------------
+
+#: name -> (batch, qh, kh, d, page, pages_per_seq, lengths, window); the
+#: tests/test_ops.py decode shapes plus windows, a length-1 row, full pages
+#: and a released slot (row 2: an all-zero table row at length 1)
+DECODE_CASES = {
+    "gqa4": (2, 8, 2, 32, 16, 4, [10, 64], None),
+    "mha": (3, 4, 4, 32, 8, 3, [1, 24, 17], None),
+    "gqa8_released": (3, 16, 2, 16, 8, 4, [5, 32, 1], None),
+    "window8": (3, 8, 2, 32, 16, 4, [10, 40, 64], 8),
+    "window24": (3, 8, 2, 32, 16, 4, [10, 40, 64], 24),
+}
+
+
+def _decode_inputs(name, dtype=np.float32):
+    batch, qh, kh, d, page, pps, lengths, window = DECODE_CASES[name]
+    rng = np.random.default_rng(sum(map(ord, name)))
+    num_pages = batch * pps + 1
+    q = rng.normal(size=(batch, qh, d)).astype(np.float32)
+    k_pages = rng.normal(size=(num_pages, page, kh, d)).astype(np.float32)
+    v_pages = rng.normal(size=(num_pages, page, kh, d)).astype(np.float32)
+    table = (1 + np.arange(batch * pps, dtype=np.int32)).reshape(batch, pps)
+    if name.endswith("_released"):
+        table[2] = 0
+    lens = np.asarray(lengths, np.int32)
+    return (q, k_pages, v_pages, table, lens), window
+
+
+@pytest.mark.parametrize("impl", ["v1", "v2"])
+@pytest.mark.parametrize("name", list(DECODE_CASES))
+def test_paged_attention_matches_jax_decode_kernels(name, impl):
+    """f32, atol 1e-5: the two packages sum in different orders."""
+    arrays, window = _decode_inputs(name)
+    kernel = {
+        "v1": jax_paged._paged_attention_pallas,
+        "v2": jax_paged._paged_attention_pallas_v2,
+    }[impl]
+    want = np.asarray(kernel(*map(jnp.asarray, arrays), interpret=True,
+                             sliding_window=window))
+    before = paged.launches
+    got = paged.paged_attention(*map(torch.from_numpy, arrays), sliding_window=window)
+    assert paged.launches == before  # CPU tensors take the plain version
+    assert got.dtype == torch.float32 and got.shape == arrays[0].shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=ATOL)
+    reference = np.asarray(jax_paged.paged_attention_reference(
+        *map(jnp.asarray, arrays), sliding_window=window))
+    np.testing.assert_allclose(got.numpy(), reference, rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("impl", ["v1", "v2"])
+def test_paged_attention_bf16_matches_jax_decode_kernels(impl):
+    """bf16 q and pages, atol 5e-2 (the JAX tests' bf16 tolerance): the
+    plain version rounds the probabilities to bf16 before P.V, the
+    Pallas kernels keep them in f32 until the end."""
+    arrays, window = _decode_inputs("gqa4")
+    bf16 = [jnp.asarray(a).astype(jnp.bfloat16) for a in arrays[:3]] + [
+        jnp.asarray(a) for a in arrays[3:]
+    ]
+    kernel = {
+        "v1": jax_paged._paged_attention_pallas,
+        "v2": jax_paged._paged_attention_pallas_v2,
+    }[impl]
+    want = np.asarray(kernel(*bf16, interpret=True), np.float32)
+    t = [torch.from_numpy(a) for a in arrays]
+    got = paged.paged_attention(
+        *(x.to(torch.bfloat16) for x in t[:3]), *t[3:], sliding_window=window
+    )
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0, atol=5e-2)
+
+
+def test_kernel_version_selector(monkeypatch):
+    monkeypatch.delenv("OPERATOR_TPU_PAGED_KERNEL", raising=False)
+    assert paged._kernel_version() == jax_paged._kernel_version() == "v1"
+    for value in ("v2", " V1 "):
+        monkeypatch.setenv("OPERATOR_TPU_PAGED_KERNEL", value)
+        assert paged._kernel_version() == jax_paged._kernel_version()
+    monkeypatch.setenv("OPERATOR_TPU_PAGED_KERNEL", "v3")
+    with pytest.raises(ValueError, match="v3"):
+        paged._kernel_version()
+    assert paged._kernel_version({"OPERATOR_TPU_PAGED_KERNEL": "v2"}) == "v2"
+
+
+#: name -> (b, t, qh, kh, d, lengths, window, jax q_block, jax kv_block)
+PREFILL_CASES = {
+    "ragged": (2, 128, 8, 2, 32, [128, 40], None, 128, 128),
+    "len1": (3, 64, 4, 4, 16, [1, 50, 64], None, 128, 128),
+    "gqa8": (1, 64, 16, 2, 16, [50], None, 128, 128),
+    "window16": (2, 128, 8, 2, 16, [128, 90], 16, 128, 128),
+    "window100": (2, 128, 8, 2, 16, [128, 90], 100, 128, 128),
+    "small_blocks": (2, 128, 8, 4, 16, [77, 128], None, 32, 64),
+    "window_small_blocks": (2, 128, 4, 2, 16, [128, 70], 24, 32, 32),
+}
+
+
+def _prefill_inputs(name):
+    b, t, qh, kh, d, lengths, *_ = PREFILL_CASES[name]
+    rng = np.random.default_rng(sum(map(ord, name)))
+    return (
+        rng.normal(size=(b, t, qh, d)).astype(np.float32),
+        rng.normal(size=(b, t, kh, d)).astype(np.float32),
+        rng.normal(size=(b, t, kh, d)).astype(np.float32),
+        np.asarray(lengths, np.int32),
+    )
+
+
+def _rows_with_a_live_key(lengths, t, window):
+    """[B, T] bool: query rows whose mask admits at least one key.  A
+    padded row past ``length + window - 1`` has none; there the plain
+    versions of both packages give the uniform softmax over all T keys,
+    while the Pallas kernel averages only the key blocks it walked, so
+    the kernel is compared on the other rows only."""
+    q_pos = np.arange(t)[None, :]
+    lengths = np.asarray(lengths)[:, None]
+    live = lengths > 0
+    if window is not None:
+        live = live & (q_pos < lengths + window - 1)
+    return np.broadcast_to(live, (lengths.shape[0], t))
+
+
+@pytest.mark.parametrize("name", list(PREFILL_CASES))
+def test_flash_prefill_reference_matches_jax_kernel(name):
+    """f32, atol 2e-4 (the JAX test's tolerance for its kernel against its
+    reference) on every row with a live key, padded query rows included;
+    atol 1e-5 against the JAX reference on every row."""
+    *_, window, q_block, kv_block = PREFILL_CASES[name]
+    arrays = _prefill_inputs(name)
+    want = np.asarray(jax_flash._flash_prefill_pallas(
+        *map(jnp.asarray, arrays), sliding_window=window, q_block=q_block,
+        kv_block=kv_block, interpret=True,
+    ))
+    jax_reference = np.asarray(jax_flash.flash_prefill_reference(
+        *map(jnp.asarray, arrays), sliding_window=window))
+    before = flash_prefill.launches
+    got = flash_prefill.flash_prefill_attention(
+        *map(torch.from_numpy, arrays), sliding_window=window
+    )
+    assert flash_prefill.launches == before  # CPU tensors take the plain version
+    b, t, qh, _, d = PREFILL_CASES[name][:5]
+    assert got.shape == (b, t, qh * d) and got.dtype == torch.float32
+    live = _rows_with_a_live_key(arrays[3], t, window)
+    np.testing.assert_allclose(got.numpy()[live], want[live], rtol=0, atol=2e-4)
+    np.testing.assert_allclose(got.numpy(), jax_reference, rtol=0, atol=1e-5)
+
+
+def test_flash_prefill_reference_bf16_matches_jax_kernel():
+    """bf16, JAX blocks 32/64, atol 5e-2 (the JAX test's bf16 tolerance)."""
+    arrays = _prefill_inputs("small_blocks")
+    bf16 = [jnp.asarray(a).astype(jnp.bfloat16) for a in arrays[:3]]
+    want = np.asarray(jax_flash._flash_prefill_pallas(
+        *bf16, jnp.asarray(arrays[3]), q_block=32, kv_block=64, interpret=True,
+    ), np.float32)
+    t = [torch.from_numpy(a) for a in arrays]
+    got = flash_prefill.flash_prefill_attention(
+        *(x.to(torch.bfloat16) for x in t[:3]), t[3]
+    )
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0, atol=5e-2)
+
+
+@pytest.mark.parametrize("t,s,offset", [
+    (128, 128, 0), (64, 64, 0), (100, 100, 0), (2048, 2048, 0), (128, 1024, 0),
+    (1, 1, 0), (2, 2, 0), (192, 192, 0), (256, 256, 1), (128, 128, "tensor"),
+])
+def test_flash_prefill_supported_matches_jax_gate(t, s, offset):
+    jax_offset = jnp.zeros((2,), jnp.int32) if offset == "tensor" else offset
+    ours_offset = torch.zeros(2, dtype=torch.int32) if offset == "tensor" else offset
+    assert flash_prefill.flash_prefill_supported(t, s, ours_offset) == (
+        jax_flash.flash_prefill_supported(t, s, jax_offset)
+    )
+
+
+def test_flash_prefill_enabled_reads_the_jax_gate(monkeypatch):
+    monkeypatch.delenv("OPERATOR_TPU_FLASH_PREFILL", raising=False)
+    assert not flash_prefill.flash_prefill_enabled()
+    for value in ("1", "0", "true", " 1 "):
+        monkeypatch.setenv("OPERATOR_TPU_FLASH_PREFILL", value)
+        assert flash_prefill.flash_prefill_enabled() == jax_flash.flash_prefill_enabled()
