@@ -2,7 +2,7 @@
 """Chip smoke test of the PyTorch/H100 port (``operator_tpu_torch``).
 
     python3 chip_smoke.py [--out results.json]
-        [--phases device,kernels,serve,wave,parity]
+        [--phases device,kernels,serve,wave,analysis,parity]
 
 Runs on one CUDA card, from the root of a checkout; exits non-zero, and
 prints no result, when no card is present or the package is missing.
@@ -19,18 +19,23 @@ Phases, in order — any failure stops the run:
    pages, length-1 rows, a window and released (all-zero table) rows,
    every row; the flash-prefill kernel (K4) at T in {64, 512, 2048}, B in
    {1, 8}, ragged lengths and a window, every row (bf16 tolerance about
-   twice their largest measured error, not K1's looser one).  Times each kernel,
-   its plain version and one PyTorch library call computing the same
-   function (``scaled_dot_product_attention`` over the gathered KV, or
-   with the causal+length mask; timed here only, never called by the
-   port), beside the least time the card could take (``bound``);
+   twice their largest measured error, not K1's looser one); the
+   best-window similarity kernel (K5) at the semantic path's three
+   geometries (4,096 windows x 19 patterns, x 1,024 patterns, and one
+   query x 2,048 incidents; D = 384), scores and the plain score at the
+   chosen window, and exact first indices where window rows repeat.
+   Times each kernel, its plain version and one PyTorch library call
+   computing the same function (``scaled_dot_product_attention`` over
+   the gathered KV, or with the causal+length mask; ``torch.matmul`` +
+   ``max`` for K5; timed here only, never called by the port), beside
+   the least time the card could take (``bound``);
 3. serve: the continuous path at full width — tinyllama-1.1b, 22
    layers, int8 weights from a seed, 32 slots, page 64, chunk 64,
    pipeline depth 2, speculative decoding on — through the port's HTTP
    server on localhost, with concurrent ``/v1/completions`` requests of
    mixed prompt lengths, greedy and sampled.  Every kernel's launch count
    is set to 0 just before and read just after: the ragged kernel must
-   have launched exactly once per layer per step, the wave kernels never;
+   have launched exactly once per layer per step, the others never;
 4. wave: the wave path (``SCHED_MODE=wave``, ``DECODE_BLOCK=4``,
    ``PIPELINE_DEPTH=2``, ``OPERATOR_TPU_FLASH_PREFILL=1``) at the same
    width through the HTTP server with the same requests, driven twice,
@@ -38,18 +43,29 @@ Phases, in order — any failure stops the run:
    ``v1``, the default, then ``v2``), each engine built anew and the
    counts set to 0 before each drive: the prefill kernel must have
    launched 22 times per prefill wave, the decode kernel 22 x 4 times per
-   decode block, the ragged kernel never; every request finishes and
-   every page comes back free;
-5. parity: small f32 ``tiny-test`` engines on the card (kernels) and on
+   decode block, the ragged and similarity kernels never; every request
+   finishes and every page comes back free;
+5. analysis: the semantic analysis path at the full width of
+   all-MiniLM-L6-v2 (f32 weights from a seed, byte-level token ids,
+   buckets of 32 texts x 256 tokens) through ``PatternEngine.analyze``
+   with a ``SemanticMatcher`` on the card: a crash-loop log of 33,000
+   lines (4,096 windows after the newest-windows cut) and a short one,
+   then ``IncidentIndex.query`` over 2,048 incidents.  The counts are
+   set to 0 before each drive: K5 must launch exactly once per analysis
+   and once per query, K1-K4 never.  Each K5 call of the drives is held
+   to the plain version on its own inputs;
+6. parity: small f32 ``tiny-test`` engines on the card (kernels) and on
    the CPU (plain versions) must give the same greedy tokens — the
    continuous engine, and the wave engine with the decode selector at
-   ``v1`` and ``v2`` and flash prefill on and off.
+   ``v1`` and ``v2`` and flash prefill on and off; and a ``PatternEngine``
+   with a tiny f32 ``NeuralEmbedder`` must find the same events on the
+   card as on the CPU over the 12 fixture logs (scores within 1e-4).
 
 ``--phases device,kernels,serve,profile`` (or ``...,wave,profile``, the
-``v1`` drive) also drives that phase's requests again under
-``torch.profiler`` and
-prints the device time by kernel and the device's busy share (not part of
-the default run).
+``v1`` drive, or ``...,analysis,profile``, the long analysis) also drives
+that phase's work again under ``torch.profiler`` and prints the device
+time by kernel and the device's busy share (not part of the default
+run).
 
 The line before the last is one JSON object with a record per kernel;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -76,6 +92,13 @@ TOL = {"bfloat16": 6e-2, "float32": 1e-4}
 WAVE_TOL = {"bfloat16": 3e-2, "float32": 1e-4}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
 BF16_FLOPS = 989e12  # dense tensor-core bf16 peak
+F32_FLOPS = 67e12  # float32 on the CUDA cores (K5 does its products there)
+#: time_ms's spin before each timed call: 200,000 SM cycles, about 0.1 ms
+#: at the H100's 1.98 GHz boost clock
+SPIN_CYCLES = 200_000
+#: K5: the kernel and the plain version sum the same f32 products in
+#: different orders (bf16 inputs are widened exactly)
+SIM_TOL = 1e-5
 
 #: the serve and wave phases' requests: prompt lengths in characters and
 #: the completion budget
@@ -104,9 +127,11 @@ def card_line() -> str:
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
     """Mean device time of ``fn`` with a cold L2: each call is preceded by
     a write of twice the card's 50 MB L2 (outside the timed events), as
-    the serving step finds a layer's pages after 21 other layers.  All
-    calls are enqueued before the one synchronise, so the device does not
-    wait on the host between them."""
+    the serving step finds a layer's pages after 21 other layers, and by
+    a spin of the card (``torch.cuda._sleep``, about 0.1 ms) that lets the
+    host enqueue the call before the start event runs, so a call shorter
+    than its host-side work is timed without the host's gap.  All calls
+    are enqueued before the one synchronise."""
     import torch
 
     flush = torch.empty(100 * 2**20, dtype=torch.uint8, device="cuda")
@@ -115,6 +140,7 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     events = []
     for _ in range(iters):
         flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -568,6 +594,130 @@ def phase_wave_kernels(results: dict) -> list:
     ]
 
 
+#: K5's geometries on the semantic path: name -> (windows, patterns, D)
+SIM_GEOMETRIES = {
+    "analysis": (4096, 19, 384),  # max_windows x the built-in library
+    "library": (4096, 1024, 384),  # the same log against a large library
+    "recall": (1, 2048, 384),  # one query x IncidentStore.max_entries
+}
+
+
+def similarity_case(name: str, dtype, seed: int, duplicated: bool = False):
+    """(windows, patterns) of unit rows on the card.  ``duplicated``: each
+    pattern is a copy of one window row in the first half, and that row
+    appears again right after it, one tile on and near the end, so the
+    first copy is the only right index (returned as the third item)."""
+    import numpy as np
+    import torch
+
+    w, p, d = SIM_GEOMETRIES[name]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    windows = torch.nn.functional.normalize(
+        torch.randn((w, d), generator=gen, device="cuda"), dim=-1).to(dtype)
+    patterns = torch.nn.functional.normalize(
+        torch.randn((p, d), generator=gen, device="cuda"), dim=-1).to(dtype)
+    firsts = None
+    if duplicated:
+        rng = np.random.default_rng(seed)
+        firsts = rng.choice(w // 2, size=min(p, w // 2), replace=False)
+        taken = set(firsts.tolist())
+        for j, first in enumerate(firsts.tolist()):
+            for later in (first + 1, first + 65, w - 1 - j):
+                if later < w and later not in taken:
+                    windows[later] = windows[first]
+            patterns[j] = windows[first]
+    return windows, patterns, firsts
+
+
+def similarity_bound(w: int, p: int, d: int, itemsize: int):
+    """Least time of one best-window call: both matrices read once, the
+    scores and indices written once; 2 * W * P * D float32 operations on
+    the CUDA cores."""
+    nbytes = (w + p) * d * itemsize + p * 8
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    op_ms = 2 * w * p * d / F32_FLOPS * 1e3
+    return (byte_ms, "bytes") if byte_ms >= op_ms else (op_ms, "operations")
+
+
+def check_similarity(windows, patterns, scores, idx) -> float:
+    """K5's result against the plain version on the same inputs: the
+    largest error of the scores and of the plain score at the chosen
+    window (cuBLAS may order near-equal windows differently)."""
+    import torch
+
+    from operator_tpu_torch.ops import similarity as sim
+
+    want, _ = sim.best_window_scores_reference(windows, patterns)
+    matrix = sim.similarity_matrix(windows, patterns)
+    chosen = matrix[idx.long(), torch.arange(patterns.shape[0], device=matrix.device)]
+    return max((scores - want).abs().max().item(), (chosen - want).abs().max().item())
+
+
+def phase_similarity_kernels(results: dict, phases: set) -> dict:
+    """K5 against its plain version at the three geometries in bf16 and
+    f32, exact first indices on repeated rows; then its f32 times (and,
+    with ``profile``, ten calls per geometry under ``torch.profiler``)."""
+    import torch
+
+    from operator_tpu_torch.ops import similarity as sim
+
+    checks = []
+    worst = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).replace("torch.", "")
+        for seed, name in enumerate(SIM_GEOMETRIES):
+            for duplicated in (False, True):
+                if duplicated and name == "recall":
+                    continue  # one window: nothing to repeat
+                windows, patterns, firsts = similarity_case(name, dtype, seed, duplicated)
+                scores, idx = sim.best_window_scores_cuda(windows, patterns)
+                torch.cuda.synchronize()
+                err = check_similarity(windows, patterns, scores, idx)
+                exact = True
+                if duplicated:
+                    got = idx[: len(firsts)].cpu().numpy()
+                    exact = bool((got == firsts).all())
+                checks.append({"kernel": "similarity", "geometry": name, "dtype": dname,
+                               "repeated_rows": duplicated, "max_abs_err": err,
+                               "tol": SIM_TOL, "first_index_exact": exact})
+                print(json.dumps({"kernel_check": checks[-1]}), flush=True)
+                if not err <= SIM_TOL or not exact:
+                    raise fail(f"similarity kernel {name}/{dname} repeated={duplicated}: "
+                               f"max_abs_err={err} (tol {SIM_TOL}), first index exact={exact}")
+                worst = max(worst, err)
+    timings = {}
+    for name, (w, p, d) in SIM_GEOMETRIES.items():
+        windows, patterns, _ = similarity_case(name, torch.float32, 100)
+        bound_ms, bound_by = similarity_bound(w, p, d, 4)
+        timings[name] = {
+            "ms": time_ms(lambda: sim.best_window_scores_cuda(windows, patterns), 50),
+            "plain_ms": time_ms(lambda: sim.best_window_scores_reference(windows, patterns), 20),
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": time_ms(lambda: torch.matmul(windows, patterns.T).max(0), 20),
+        }
+        print(json.dumps({"kernel_timing": {
+            "kernel": "similarity", "geometry": name, **timings[name], "bound_us": bound_ms * 1e3,
+        }}), flush=True)
+    results["similarity_kernel_checks"] = checks
+    results["similarity_kernel_timings"] = timings
+    if "profile" in phases:  # the kernels' own device time, without time_ms's events
+        results["similarity_kernel_profile"] = {}
+        for name in SIM_GEOMETRIES:
+            windows, patterns, _ = similarity_case(name, torch.float32, 100)
+            results["similarity_kernel_profile"][name] = profile_call(
+                lambda: [sim.best_window_scores_cuda(windows, patterns) for _ in range(10)])
+    return {
+        "name": "best_window_similarity",
+        "route": "cuda",
+        "source": "operator_tpu_torch/ops/csrc/similarity.cu",
+        "replaces": "operator_tpu/ops/similarity.py:85",
+        "launches": None,  # filled by the analysis phase
+        "max_abs_err": worst,
+        **timings["analysis"],
+    }
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the main path through the HTTP server
 # ---------------------------------------------------------------------------
@@ -682,7 +832,7 @@ def phase_serve(results: dict, kernel_modules: dict, phases: set) -> dict:
             )
         others = {k: n for k, n in launches.items() if k != "ragged_paged_attention"}
         if any(others.values()):
-            raise fail(f"wave kernels launched on the continuous path: {others}")
+            raise fail(f"other kernels launched on the continuous path: {others}")
         stats = sched.stats()
         if "profile" in phases:
             results["profile"] = profile_drive(url, bodies)
@@ -771,6 +921,7 @@ def phase_wave(results: dict, kernel_modules: dict, phases: set, selector: str) 
                 "flash_prefill_attention": layers * waves,
                 "paged_decode_attention": layers * g.decode_block * blocks,
                 "ragged_paged_attention": 0,
+                "best_window_similarity": 0,
             }
             if waves == 0 or blocks == 0 or launches != want:
                 raise fail(
@@ -808,22 +959,25 @@ def phase_wave(results: dict, kernel_modules: dict, phases: set, selector: str) 
 
 
 def profile_drive(url: str, bodies: list) -> dict:
-    """Drive the same requests again under ``torch.profiler``: device
-    time by kernel, the device's busy share of the wall, and the host
-    time of the heaviest operators.  Opt-in (``--phases ...,profile``):
-    tracing slows the host, so no other number is taken in this drive."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    threads = [threading.Thread(target=_post, args=(url, body)) for body in bodies]
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        started = time.perf_counter()
+    """Drive the same requests again under ``torch.profiler`` (see
+    :func:`profile_call`)."""
+    def drive() -> None:
+        threads = [threading.Thread(target=_post, args=(url, body)) for body in bodies]
         for thread in threads:
             thread.start()
         for thread in threads:
             thread.join(900)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - started) * 1e3
+
+    return profile_call(drive)
+
+
+def device_times(events) -> list:
+    """(name, device ms, count) of the profiler's device-side events
+    (kernels, copies, memsets), largest first.  A host-side operator
+    (``aten::mm``) also carries the device time of the kernels it
+    launched, so only device-side events are counted: summing both
+    would count each kernel twice."""
+    from torch.autograd import DeviceType
 
     def device_us(event) -> float:
         for name in ("self_device_time_total", "self_cuda_time_total"):
@@ -831,11 +985,27 @@ def profile_drive(url: str, bodies: list) -> dict:
                 return float(getattr(event, name))
         return 0.0
 
+    rows = [(e.key, device_us(e) / 1e3, e.count) for e in events
+            if e.device_type != DeviceType.CPU and device_us(e) > 0]
+    return sorted(rows, key=lambda item: -item[1])
+
+
+def profile_call(drive) -> dict:
+    """Run ``drive()`` under ``torch.profiler``: device time by kernel,
+    the device's busy share of the wall, and the host time of the
+    heaviest operators.  Opt-in (``--phases ...,profile``): tracing slows
+    the host, so no other number is taken in this drive."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        started = time.perf_counter()
+        drive()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - started) * 1e3
+
     events = prof.key_averages()
-    kernels = sorted(
-        ((e.key, device_us(e) / 1e3, e.count) for e in events if device_us(e) > 0),
-        key=lambda item: -item[1],
-    )
+    kernels = device_times(events)
     device_ms = sum(ms for _, ms, _ in kernels)
     host = sorted(
         ((e.key, e.self_cpu_time_total / 1e3, e.count) for e in events),
@@ -853,7 +1023,205 @@ def profile_drive(url: str, bodies: list) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 4: card vs CPU on a small engine
+# phase 5: the semantic analysis path (MiniLM encoder + K5)
+# ---------------------------------------------------------------------------
+
+FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures")
+#: the long drive's log: enough lines for max_windows = 4,096 windows of 16
+#: lines at stride 8 (32,776 lines), with the OOM signature at the tail
+LONG_LOG_LINES = 33_000
+RECALL_INCIDENTS = 2048
+RECALL_QUERIES = [
+    "java.lang.OutOfMemoryError: Java heap space",
+    "Back-off restarting failed container app in pod web-7d9f8c",
+    "dial tcp 10.0.0.12:5432: connect: connection refused",
+    "x509: certificate has expired or is not yet valid",
+]
+
+
+def fixture_lines(name: str) -> list:
+    with open(os.path.join(FIXTURES, name), encoding="utf-8") as fh:
+        return fh.read().splitlines()
+
+
+def crash_loop_log() -> str:
+    """Every fixture log's lines, repeated, then ``oom_java.log`` whole."""
+    body = [line for name in sorted(os.listdir(FIXTURES)) if name.endswith(".log")
+            for line in fixture_lines(name)]
+    tail = fixture_lines("oom_java.log")
+    lines = [body[i % len(body)] for i in range(LONG_LOG_LINES - len(tail))] + tail
+    return "\n".join(lines)
+
+
+def byte_ids(text: str) -> list:
+    """Token ids of the drives: the text's bytes (the real WordPiece
+    tokenizer comes with the checkpoint loader)."""
+    return list(text.encode())
+
+
+class StreamSpans:
+    """Records the stream span (CUDA events) of each call of ``fn``, and
+    the call's arguments and result."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.calls: list = []
+
+    def __call__(self, *args):
+        import torch
+
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = self.fn(*args)
+        end.record()
+        self.calls.append((start, end, args, out))
+        return out
+
+    def spans_ms(self) -> list:
+        import torch
+
+        torch.cuda.synchronize()
+        return [start.elapsed_time(end) for start, end, _, _ in self.calls]
+
+
+class TimedEmbedder:
+    """An embedder that records the stream span of each ``embed``."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.dim = inner.dim
+        self.embed = StreamSpans(inner.embed)
+
+
+def phase_analysis(results: dict, kernel_modules: dict, phases: set) -> dict:
+    """``PatternEngine.analyze`` with the MiniLM encoder and K5 on the card
+    (a long and a short log), then ``IncidentIndex.query``.  Returns the
+    kernels' launch counts summed over the drives.  With ``profile`` in
+    ``phases``, the long drive runs again under ``torch.profiler``."""
+    import numpy as np
+    import torch
+
+    from operator_tpu_torch.memory import Incident, IncidentIndex
+    from operator_tpu_torch.memory import index as index_module
+    from operator_tpu_torch.models.encoder import MINILM_L6, init_encoder_params
+    from operator_tpu_torch.patterns import semantic as semantic_module
+    from operator_tpu_torch.patterns.engine import PatternEngine
+    from operator_tpu_torch.patterns.semantic import NeuralEmbedder, SemanticMatcher
+    from operator_tpu_torch.schema.analysis import PodFailureData
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_encoder_params(MINILM_L6, torch.Generator(device="cuda").manual_seed(0),
+                                 torch.float32, device="cuda")
+    embedder = NeuralEmbedder(params, MINILM_L6, byte_ids, device="cuda")
+    if (embedder.max_tokens, embedder.batch_size, embedder.dim) != (256, 32, 384):
+        raise fail("not MiniLM-L6 at full width with buckets of 32 x 256")
+    matcher = SemanticMatcher(embedder, device="cuda")
+    engine = PatternEngine(semantic=matcher)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    timed = TimedEmbedder(embedder)
+    matcher.embedder = timed
+    k5 = StreamSpans(semantic_module.best_window_scores)
+    semantic_module.best_window_scores = k5
+    index_module.best_window_scores = k5
+    total = {name: 0 for name in kernel_modules}
+    out: dict = {"model": MINILM_L6.name, "weights": "float32", "setup_s": setup_s,
+                 "patterns": matcher.num_patterns}
+
+    def counted(drive):
+        for module in kernel_modules.values():
+            module.launches = 0
+        result = drive()
+        launches = {name: m.launches for name, m in kernel_modules.items()}
+        for name, n in launches.items():
+            total[name] += n
+        return result, launches
+
+    try:
+        engine.analyze(PodFailureData(logs="\n".join(fixture_lines("oom_java.log"))))  # warm up
+        for drive_name, logs in (("long", crash_loop_log()), ("short", "\n".join(
+                fixture_lines("oom_java.log")))):
+            embeds0, k50 = len(timed.embed.calls), len(k5.calls)
+            started = time.perf_counter()
+            result, launches = counted(lambda: engine.analyze(PodFailureData(logs=logs)))
+            wall_ms = (time.perf_counter() - started) * 1e3
+            lines = len(logs.splitlines())
+            windows = min(matcher.max_windows, max(1, -(-(lines - matcher.window_lines) // matcher.stride) + 1))
+            want = {name: 0 for name in kernel_modules}
+            want["best_window_similarity"] = 1
+            if launches != want:
+                raise fail(f"analysis {drive_name}: launches {launches}, want {want}")
+            [(_, _, (w_emb, p_emb), (scores, idx))] = k5.calls[k50:]
+            err = check_similarity(w_emb, p_emb, scores, idx)
+            events = [(e.source, e.matched_pattern.id, e.score) for e in result.events]
+            ids = {pid for _, pid, _ in events}
+            sane = all(np.isfinite(score) and (src != "semantic" or abs(score) <= 1.0 + SIM_TOL)
+                       for src, _, score in events)
+            if w_emb.shape != (windows, 384) or not err <= SIM_TOL or not sane:
+                raise fail(f"analysis {drive_name}: windows {tuple(w_emb.shape)} (want {windows}), "
+                           f"K5 error {err}, events {events}")
+            if "java-heap-oom" not in ids:  # the OOM signature at the tail
+                raise fail(f"analysis {drive_name}: the tail's OOM was not found: {events}")
+            embed_spans = timed.embed.spans_ms()[embeds0:]
+            record = {
+                "log_lines": lines, "windows": windows, "buckets": -(-windows // 32),
+                "wall_ms": wall_ms, "encoder_stream_ms": sum(embed_spans),
+                "k5_stream_ms": k5.spans_ms()[k50], "k5_max_abs_err": err,
+                "launches": launches, "events": len(events),
+                "semantic_events": sum(1 for src, _, _ in events if src == "semantic"),
+                "top_events": events[:5],
+            }
+            print(json.dumps({"analysis": {drive_name: record}}), flush=True)
+            out[drive_name] = record
+            if "profile" in phases and drive_name == "long":
+                out["profile"] = profile_call(
+                    lambda: engine.analyze(PodFailureData(logs=logs)))
+
+        # incident recall: 2,048 incidents built from fixture lines
+        lines = [line for name in sorted(os.listdir(FIXTURES)) if name.endswith(".log")
+                 for line in fixture_lines(name)]
+        incidents = [
+            Incident(fingerprint=f"incident-{i:04d}", template=f"{lines[i % len(lines)]} #{i}",
+                     pattern_ids=[f"p{i % 19}"], exit_code=i % 256)
+            for i in range(RECALL_INCIDENTS)
+        ]
+        index = IncidentIndex(embedder, device="cuda")
+        started = time.perf_counter()
+        index.rebuild(incidents)
+        torch.cuda.synchronize()
+        rebuild_ms = (time.perf_counter() - started) * 1e3
+        queries = RECALL_QUERIES + [IncidentIndex._incident_text(incidents[7])]
+        k50 = len(k5.calls)
+        started = time.perf_counter()
+        answers, launches = counted(lambda: [index.query(text, k=3) for text in queries])
+        query_ms = (time.perf_counter() - started) * 1e3 / len(queries)
+        want = {name: 0 for name in kernel_modules}
+        want["best_window_similarity"] = len(queries)
+        if launches != want or any(len(a) != 3 for a in answers):
+            raise fail(f"recall: launches {launches} (want {want}), answers {answers}")
+        worst = max(check_similarity(*args, *res) for _, _, args, res in k5.calls[k50:])
+        if not worst <= SIM_TOL or not answers[-1][0][1] >= 1.0 - SIM_TOL:
+            raise fail(f"recall: K5 error {worst}, self-query {answers[-1]}")
+        recall = {
+            "incidents": RECALL_INCIDENTS, "queries": len(queries),
+            "rebuild_ms": rebuild_ms, "query_wall_ms": query_ms,
+            "k5_stream_ms": k5.spans_ms()[k50:], "k5_max_abs_err": worst,
+            "launches": launches, "self_query_top": answers[-1][0],
+        }
+        print(json.dumps({"analysis": {"recall": recall}}), flush=True)
+        out["recall"] = recall
+        out["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        results["analysis"] = out
+        return total
+    finally:
+        semantic_module.best_window_scores = k5.fn
+        index_module.best_window_scores = k5.fn
+
+
+# ---------------------------------------------------------------------------
+# phase 6: card vs CPU on a small engine
 # ---------------------------------------------------------------------------
 
 
@@ -914,6 +1282,7 @@ def phase_parity(results: dict, kernel_modules: dict) -> None:
                     and launches["paged_decode_attention"] > 0
                     and (launches["flash_prefill_attention"] > 0) == (flash == "1")
                     and launches["ragged_paged_attention"] == 0
+                    and launches["best_window_similarity"] == 0
                 )
                 wave_parity.append({"paged_kernel": version, "flash_prefill": flash == "1",
                                     "launches": launches, "tokens_equal": card == cpu})
@@ -928,6 +1297,60 @@ def phase_parity(results: dict, kernel_modules: dict) -> None:
             else:
                 os.environ[key] = value
     results["wave_parity"] = wave_parity
+    results["analysis_parity"] = analysis_parity(kernel_modules)
+
+
+def analysis_parity(kernel_modules: dict) -> dict:
+    """``PatternEngine.analyze`` with one tiny f32 ``NeuralEmbedder`` on the
+    card and on the CPU over the 12 fixture logs: the same events (pattern,
+    source, context), scores within 1e-4 (one step of the 4-digit rounding
+    of an event's score; compared by pattern, since a rounding step can
+    reorder events of equal score), K5 once per analysis on the card."""
+    import torch
+
+    from operator_tpu_torch.models.encoder import ENCODER_TINY_TEST, init_encoder_params
+    from operator_tpu_torch.patterns.engine import PatternEngine
+    from operator_tpu_torch.patterns.semantic import NeuralEmbedder, SemanticMatcher
+    from operator_tpu_torch.schema.analysis import PodFailureData
+
+    params = init_encoder_params(ENCODER_TINY_TEST, torch.Generator().manual_seed(0),
+                                 torch.float32, device="cpu")
+
+    def tokenize(text):
+        return [b % ENCODER_TINY_TEST.vocab_size for b in text.encode()]
+
+    def engine(device):
+        embedder = NeuralEmbedder(params, ENCODER_TINY_TEST, tokenize, max_tokens=64,
+                                  batch_size=8, device=device)
+        return PatternEngine(semantic=SemanticMatcher(embedder, device=device))
+
+    def events(result):
+        return {e.matched_pattern.id: (e.source, e.context.line_number, e.context.matched_line,
+                                       e.context.lines_before, e.context.lines_after, e.score)
+                for e in result.events}
+
+    card, cpu = engine("cuda"), engine("cpu")
+    names = sorted(n for n in os.listdir(FIXTURES) if n.endswith(".log"))
+    for module in kernel_modules.values():
+        module.launches = 0
+    found = 0
+    for name in names:
+        failure = PodFailureData(logs="\n".join(fixture_lines(name)))
+        got, want = events(card.analyze(failure)), events(cpu.analyze(failure))
+        same = got.keys() == want.keys() and all(
+            got[k][:-1] == want[k][:-1] and abs(got[k][-1] - want[k][-1]) <= 1e-4 + 1e-9
+            for k in got)
+        if not same:
+            raise fail(f"analysis parity {name}: card {got} cpu {want}")
+        found += len(got)
+    launches = {name: m.launches for name, m in kernel_modules.items()}
+    want_launches = {name: 0 for name in kernel_modules}
+    want_launches["best_window_similarity"] = len(names)
+    if launches != want_launches:
+        raise fail(f"analysis parity launches {launches}, want {want_launches}")
+    out = {"logs": len(names), "events": found, "launches": launches}
+    print(json.dumps({"analysis_parity": out}), flush=True)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -936,7 +1359,7 @@ def phase_parity(results: dict, kernel_modules: dict) -> None:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="also write every result to this JSON file")
-    parser.add_argument("--phases", default="device,kernels,serve,wave,parity")
+    parser.add_argument("--phases", default="device,kernels,serve,wave,analysis,parity")
     args = parser.parse_args()
     phases = set(args.phases.split(","))
 
@@ -947,7 +1370,12 @@ def main() -> int:
         return 2
     try:
         from operator_tpu_torch.ops import _build
-        from operator_tpu_torch.ops import flash_prefill, paged_attention, ragged_attention
+        from operator_tpu_torch.ops import (
+            flash_prefill,
+            paged_attention,
+            ragged_attention,
+            similarity,
+        )
     except ImportError as exc:
         print(f"chip_smoke: the operator_tpu_torch package is missing: {exc}", file=sys.stderr)
         return 2
@@ -958,6 +1386,7 @@ def main() -> int:
         "ragged_paged_attention": ragged_attention,
         "paged_decode_attention": paged_attention,
         "flash_prefill_attention": flash_prefill,
+        "best_window_similarity": similarity,
     }
     card = card_line()
     print(card, flush=True)
@@ -969,23 +1398,27 @@ def main() -> int:
 
     records = []
     if "kernels" in phases:
-        records = [phase_kernels(results)] + phase_wave_kernels(results)
+        records = ([phase_kernels(results)] + phase_wave_kernels(results)
+                   + [phase_similarity_kernels(results, phases)])
     launches = phase_serve(results, kernel_modules, phases) if "serve" in phases else {}
     wave_launches = {
         selector: phase_wave(results, kernel_modules, phases, selector)
         for selector in (("v1", "v2") if "wave" in phases else ())
     }
+    analysis = phase_analysis(results, kernel_modules, phases) if "analysis" in phases else {}
     if "parity" in phases:
         phase_parity(results, kernel_modules)
     # each kernel's count from the drive of the path it serves: K1 the
     # continuous serve phase, the decode kernel the wave drive under its
-    # own selector value, the prefill kernel the default (v1) wave drive
+    # own selector value, the prefill kernel the default (v1) wave drive,
+    # K5 the analysis phase's drives (two analyses and the recall queries)
     v1, v2 = wave_launches.get("v1", {}), wave_launches.get("v2", {})
     path_launches = {
         "ragged_paged_attention": launches.get("ragged_paged_attention"),
         "paged_decode_attention_v1": v1.get("paged_decode_attention"),
         "paged_decode_attention_v2": v2.get("paged_decode_attention"),
         "flash_prefill_attention": v1.get("flash_prefill_attention"),
+        "best_window_similarity": analysis.get("best_window_similarity"),
     }
     for record in records:
         record["launches"] = path_launches[record["name"]]

@@ -211,7 +211,14 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import operator_tpu_torch.serving.sched.mixed, operator_tpu_torch.ops._build\n"
         "import operator_tpu_torch.serving.admission, operator_tpu_torch.serving.programs\n"
         "import operator_tpu_torch.ops.flash_prefill, operator_tpu_torch.ops.paged_attention\n"
-        "import operator_tpu_torch.models.llama\n"
+        "import operator_tpu_torch.models.llama, operator_tpu_torch.models.encoder\n"
+        "import operator_tpu_torch.ops.similarity, operator_tpu_torch.schema\n"
+        "import operator_tpu_torch.patterns.engine, operator_tpu_torch.patterns.semantic\n"
+        "import operator_tpu_torch.patterns.loader, operator_tpu_torch.patterns.windows\n"
+        "import operator_tpu_torch.patterns.matcher, operator_tpu_torch.patterns.prefilter\n"
+        "import operator_tpu_torch.memory.index, operator_tpu_torch.memory.fingerprint\n"
+        "import operator_tpu_torch.memory.store, operator_tpu_torch.native\n"
+        "operator_tpu_torch.patterns.loader.load_builtin_library()\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'operator_tpu' or m.startswith('operator_tpu.'))\n"
         "assert not bad, bad\n"

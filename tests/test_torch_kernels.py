@@ -9,12 +9,18 @@ On the card (``cuda`` marker; skips without one): each hand-written
 kernel against its plain version at tinyllama's head layout (QH=32, KH=4,
 D=64), in f32 and bf16 — the ragged paged-attention kernel on valid rows,
 the paged decode kernel on every row, released rows included, and the
-flash-prefill kernel on every row, padded query rows included; and an
-unknown decode-kernel selector refusing to build the wave engine.  This file imports no JAX, so it runs on a machine that
+flash-prefill kernel on every row, padded query rows included; the
+best-window similarity kernel at the semantic path's three geometries
+and the CPU tests' shapes, exact indices where window rows are
+duplicated; and an unknown decode-kernel selector refusing to build the
+wave engine.  This file imports no JAX, so it runs on a machine that
 has only PyTorch::
 
     python -m pytest tests/test_torch_kernels.py -q
 """
+
+import importlib.util
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -25,6 +31,7 @@ from operator_tpu_torch.ops import _build  # noqa: E402
 from operator_tpu_torch.ops import flash_prefill  # noqa: E402
 from operator_tpu_torch.ops import paged_attention as paged  # noqa: E402
 from operator_tpu_torch.ops import ragged_attention as ragged  # noqa: E402
+from operator_tpu_torch.ops import similarity  # noqa: E402
 
 B, C, QH, KH, D, PAGE, PPS = 4, 8, 32, 4, 64, 16, 6
 
@@ -188,7 +195,7 @@ def test_build_is_cached_by_source_hash(tmp_path, monkeypatch):
     nvcc, calls = _fake_nvcc(tmp_path, 'echo built > "$out"\n')
     monkeypatch.setattr(_build, "_nvcc", lambda: nvcc)
     monkeypatch.setenv("OPERATOR_TPU_TORCH_BUILD_DIR", str(tmp_path / "build"))
-    names = ["flash_prefill", "paged_attention", "ragged_attention"]
+    names = ["flash_prefill", "paged_attention", "ragged_attention", "similarity"]
     assert _build.source_names() == names
     _build.build_all()
     targets = [_build._library_path(name) for name in names]
@@ -213,6 +220,32 @@ def test_failed_build_raises_with_the_compiler_stderr(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="(?s)exit 3.*no such intrinsic"):
         _build.build_all(["ragged_attention"])
     assert list((tmp_path / "build").iterdir()) == []  # no half-built library
+
+
+def test_chip_smoke_profile_counts_each_kernel_once():
+    """A host-side operator carries the device time of the kernels it
+    launched; the busy share must count the kernel events only."""
+    from types import SimpleNamespace
+
+    from torch.autograd import DeviceType
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    events = [
+        SimpleNamespace(key="aten::mm", count=4, device_type=DeviceType.CPU,
+                        self_device_time_total=900.0),
+        SimpleNamespace(key="sgemm_kernel", count=4, device_type=DeviceType.CUDA,
+                        self_device_time_total=900.0),
+        SimpleNamespace(key="best_window_pass1", count=2, device_type=DeviceType.CUDA,
+                        self_device_time_total=50.0),
+        SimpleNamespace(key="aten::empty", count=9, device_type=DeviceType.CPU,
+                        self_device_time_total=0.0),
+    ]
+    assert chip_smoke.device_times(events) == [
+        ("sgemm_kernel", 0.9, 4), ("best_window_pass1", 0.05, 2),
+    ]
 
 
 @pytest.fixture
@@ -287,3 +320,110 @@ def test_cuda_decode_selector_v3_raises(cuda):
     with pytest.raises(ValueError, match="v3"):
         build_serving_engine("cuda", env)
     assert paged.launches == before
+
+
+#: best-window similarity: name -> (W, P, D); the three geometries of the
+#: semantic path (analysis: 4,096 windows x the 19 built-in patterns; a
+#: 1,024-pattern library; recall: one query x 2,048 incidents) and the
+#: shapes of tests/test_ops.py
+SIM_CASES = {
+    "analysis": (4096, 19, 384),
+    "library": (4096, 1024, 384),
+    "recall": (1, 2048, 384),
+    "tiny": (7, 5, 128),
+    "ragged_tile": (300, 64, 128),
+    "wide": (513, 200, 384),
+    "one": (1, 1, 128),
+    "recall_small": (1, 300, 128),
+}
+
+
+def _unit_rows(rng, rows, dim):
+    x = rng.normal(size=(rows, dim)).astype(np.float32)
+    return x / np.linalg.norm(x, axis=-1, keepdims=True)
+
+
+def _sim_inputs(name, dtype=torch.float32, device="cpu"):
+    w, p, d = SIM_CASES[name]
+    rng = np.random.default_rng(sum(map(ord, name)))
+    return (
+        torch.from_numpy(_unit_rows(rng, w, d)).to(device, dtype),
+        torch.from_numpy(_unit_rows(rng, p, d)).to(device, dtype),
+    )
+
+
+def test_similarity_cpu_dispatch_takes_the_plain_version():
+    windows, patterns = _sim_inputs("ragged_tile")
+    before = similarity.launches
+    scores, idx = similarity.best_window_scores(windows, patterns)
+    want_s, want_i = similarity.best_window_scores_reference(windows, patterns)
+    assert similarity.launches == before
+    assert scores.dtype == torch.float32 and idx.dtype == torch.int32
+    assert torch.equal(scores, want_s) and torch.equal(idx, want_i)
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        similarity.best_window_scores_cuda(windows, patterns)
+    assert similarity.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", list(SIM_CASES))
+def test_cuda_similarity_kernel_matches_plain_version(cuda, name, dtype_name):
+    """Scores within 1e-5 in both dtypes (bf16 inputs are widened exactly
+    and the products summed in f32; only the order of the sums differs);
+    the index is checked by the plain score at the chosen window."""
+    windows, patterns = _sim_inputs(name, getattr(torch, dtype_name), "cuda")
+    before = similarity.launches
+    scores, idx = similarity.best_window_scores(windows, patterns)
+    torch.cuda.synchronize()
+    assert similarity.launches == before + 1
+    assert scores.shape == idx.shape == (patterns.shape[0],)
+    want_s, _ = similarity.best_window_scores_reference(windows, patterns)
+    matrix = similarity.similarity_matrix(windows, patterns)
+    chosen = matrix[idx.long(), torch.arange(patterns.shape[0], device="cuda")]
+    assert (scores - want_s).abs().max().item() <= 1e-5
+    assert (chosen - want_s).abs().max().item() <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", ["analysis", "library", "ragged_tile"])
+def test_cuda_similarity_kernel_takes_the_first_of_equal_windows(cuda, name, dtype_name):
+    """Each pattern is a copy of one window row, and that row appears again
+    later (in the same tile, the next tile and the last share): the kernel
+    must return the first copy, exactly as the plain version does."""
+    windows, patterns = _sim_inputs(name, getattr(torch, dtype_name), "cuda")
+    w, p = windows.shape[0], patterns.shape[0]
+    rng = np.random.default_rng(7)
+    firsts = rng.choice(w // 2, size=min(p, w // 2), replace=False)
+    for j, first in enumerate(firsts.tolist()):
+        for later in {first + 1, first + 65, w - 1 - j}:
+            if later < w and later not in firsts:
+                windows[later] = windows[first]
+        patterns[j] = windows[first]
+    scores, idx = similarity.best_window_scores(windows, patterns)
+    want_s, _ = similarity.best_window_scores_reference(windows, patterns)
+    torch.cuda.synchronize()
+    # against the known first copy, not the plain version's index: cuBLAS
+    # may score equal rows a last bit apart in different tiles
+    assert torch.equal(idx[: len(firsts)].cpu(), torch.as_tensor(firsts, dtype=torch.int32))
+    assert (scores - want_s).abs().max().item() <= 1e-5
+
+
+@pytest.mark.cuda
+def test_cuda_similarity_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    windows, patterns = _sim_inputs("tiny", torch.float32, "cuda")
+    before = similarity.launches
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        similarity.best_window_scores(windows, patterns.cpu())
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        similarity.best_window_scores(windows.cpu(), patterns)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        similarity.best_window_scores(windows[:, :100].contiguous(), patterns[:, :100].contiguous())
+    with pytest.raises(TypeError, match="dtype"):
+        similarity.best_window_scores(windows, patterns.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="contiguous"):
+        similarity.best_window_scores(windows[:, ::2], patterns[:, ::2])
+    with pytest.raises(ValueError, match="at least one window"):
+        similarity.best_window_scores(windows[:0], patterns)
+    assert similarity.launches == before

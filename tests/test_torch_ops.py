@@ -14,9 +14,15 @@ on the CPU) against both JAX Pallas decode kernels (v1 and v2) in
 interpret mode, with windows and in bf16; ``flash_prefill_reference``
 against the JAX Pallas prefill kernel in interpret mode on every row,
 padded query rows included, with windows and non-default JAX blocks;
-``flash_prefill_supported`` against the JAX gate.  Tolerances are stated
-per test.  The CUDA kernels themselves are compared with the plain
-versions on the card by ``tests/test_torch_kernels.py``.
+``flash_prefill_supported`` against the JAX gate.
+
+The semantic path's similarity: the port's ``best_window_scores`` (the
+plain version on the CPU) against the JAX dense reference and the JAX
+Pallas best-window kernel in interpret mode, at ``tests/test_ops.py``'s
+shapes, one query against many patterns, duplicated window rows and in
+bf16; ``top_k_windows`` against JAX.  Tolerances are stated per test.
+The CUDA kernels themselves are compared with the plain versions on the
+card by ``tests/test_torch_kernels.py``.
 """
 
 import importlib
@@ -32,9 +38,11 @@ import jax.numpy as jnp  # noqa: E402
 jax_paged = importlib.import_module("operator_tpu.ops.paged_attention")
 jax_ragged = importlib.import_module("operator_tpu.ops.ragged_attention")
 jax_flash = importlib.import_module("operator_tpu.ops.flash_prefill")
+jax_similarity = importlib.import_module("operator_tpu.ops.similarity")
 from operator_tpu_torch.ops import flash_prefill  # noqa: E402
 from operator_tpu_torch.ops import paged_attention as paged  # noqa: E402
 from operator_tpu_torch.ops import ragged_attention as ragged  # noqa: E402
+from operator_tpu_torch.ops import similarity  # noqa: E402
 
 ATOL = 1e-5
 B, C, QH, KH, D, PAGE, PPS = 4, 8, 4, 2, 16, 8, 6
@@ -332,3 +340,92 @@ def test_flash_prefill_enabled_reads_the_jax_gate(monkeypatch):
     for value in ("1", "0", "true", " 1 "):
         monkeypatch.setenv("OPERATOR_TPU_FLASH_PREFILL", value)
         assert flash_prefill.flash_prefill_enabled() == jax_flash.flash_prefill_enabled()
+
+
+# ---------------------------------------------------------------------------
+# best-window similarity (the semantic path and incident recall)
+# ---------------------------------------------------------------------------
+
+#: name -> (windows, patterns, dim): tests/test_ops.py's shapes, one query
+#: against many incidents (W = 1), and windows off the 64-row tile
+SIMILARITY_CASES = {
+    "tiny": (7, 5, 128),
+    "two_blocks": (300, 64, 128),
+    "wide": (513, 200, 384),
+    "one": (1, 1, 128),
+    "recall": (1, 300, 128),
+    "duplicated": (300, 30, 64),
+}
+
+
+def _unit_rows(rng, rows, dim):
+    x = rng.normal(size=(rows, dim)).astype(np.float32)
+    return x / np.linalg.norm(x, axis=-1, keepdims=True)
+
+
+def _similarity_inputs(name):
+    w, p, d = SIMILARITY_CASES[name]
+    rng = np.random.default_rng(sum(map(ord, name)))
+    windows, patterns = _unit_rows(rng, w, d), _unit_rows(rng, p, d)
+    if name == "duplicated":
+        # pattern j is a copy of window 7 j, which appears again at 7 j + 1
+        # and at 299 - j: the first copy is the only right answer
+        for j in range(p):
+            windows[7 * j + 1] = windows[299 - j] = windows[7 * j]
+            patterns[j] = windows[7 * j]
+    return windows, patterns
+
+
+@pytest.mark.parametrize("name", list(SIMILARITY_CASES))
+def test_best_window_scores_match_jax_kernel_and_reference(name):
+    """f32: scores within 1e-5 of the JAX reference and of the Pallas kernel
+    in interpret mode (the packages sum in different orders); indices
+    equal to the JAX reference's (its first match)."""
+    windows, patterns = _similarity_inputs(name)
+    ref_s, ref_i = jax_similarity.best_window_scores_reference(
+        jnp.asarray(windows), jnp.asarray(patterns))
+    pallas_s, pallas_i = jax_similarity._best_window_pallas(
+        jnp.asarray(windows), jnp.asarray(patterns), interpret=True)
+    before = similarity.launches
+    got_s, got_i = similarity.best_window_scores(
+        torch.from_numpy(windows), torch.from_numpy(patterns))
+    assert similarity.launches == before  # CPU tensors take the plain version
+    assert got_s.dtype == torch.float32 and got_i.dtype == torch.int32
+    assert got_s.shape == got_i.shape == (patterns.shape[0],)
+    np.testing.assert_allclose(got_s.numpy(), np.asarray(ref_s), rtol=0, atol=ATOL)
+    np.testing.assert_allclose(got_s.numpy(), np.asarray(pallas_s), rtol=0, atol=ATOL)
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(ref_i))
+    if name == "duplicated":
+        np.testing.assert_array_equal(got_i.numpy(), 7 * np.arange(patterns.shape[0]))
+        np.testing.assert_array_equal(np.asarray(pallas_i), got_i.numpy())
+
+
+def test_best_window_scores_bf16_match_jax_kernel():
+    """bf16 windows and patterns (tests/test_ops.py's bf16 case), scores
+    within 2e-2 (its tolerance) of the Pallas kernel and the reference."""
+    rng = np.random.default_rng(4)
+    windows, patterns = _unit_rows(rng, 100, 256), _unit_rows(rng, 33, 256)
+    jw = jnp.asarray(windows).astype(jnp.bfloat16)
+    jp = jnp.asarray(patterns).astype(jnp.bfloat16)
+    ref_s, _ = jax_similarity.best_window_scores_reference(jw, jp)
+    pallas_s, _ = jax_similarity._best_window_pallas(jw, jp, interpret=True)
+    got_s, _ = similarity.best_window_scores(
+        torch.from_numpy(windows).to(torch.bfloat16), torch.from_numpy(patterns).to(torch.bfloat16))
+    assert got_s.dtype == torch.float32
+    np.testing.assert_allclose(got_s.numpy(), np.asarray(ref_s, np.float32), rtol=0, atol=2e-2)
+    np.testing.assert_allclose(got_s.numpy(), np.asarray(pallas_s, np.float32), rtol=0, atol=2e-2)
+
+
+@pytest.mark.parametrize("k", [3, 10])
+def test_top_k_windows_matches_jax(k):
+    """Patterns copied from windows 3, 17 and 42 lead the ranking; k is
+    clamped to the window count (here 50)."""
+    rng = np.random.default_rng(8)
+    windows = _unit_rows(rng, 50, 128)
+    patterns = windows[[3, 17, 42]]
+    want_s, want_i = jax_similarity.top_k_windows(jnp.asarray(windows), jnp.asarray(patterns), k)
+    got_s, got_i = similarity.top_k_windows(torch.from_numpy(windows), torch.from_numpy(patterns), k)
+    assert got_i.dtype == torch.int32 and got_s.shape == (k,)
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+    np.testing.assert_allclose(got_s.numpy(), np.asarray(want_s), rtol=0, atol=ATOL)
+    assert set(got_i.numpy()[:3].tolist()) == {3, 17, 42}
