@@ -8,9 +8,12 @@ Runs on one CUDA card, from the root of a checkout; exits non-zero, and
 prints no result, when no card is present or the package is missing.
 Phases, in order — any failure stops the run:
 
-1. device: the card's name and power limit (``nvidia-smi``), and the
-   build of every kernel of the port from the checkout's sources (one
-   ``nvcc`` per source, all started together);
+1. device: the card's name and power limit (``nvidia-smi``), the build
+   of every kernel of the port from the checkout's sources (one ``nvcc``
+   per source, all started together), and each library's count of
+   tensor-core instructions (``cuobjdump -sass``: ``HMMA`` for mma.sync,
+   ``HGMMA`` for wgmma) — the bf16 ragged (K1) and prefill (K4) kernels
+   run on the tensor cores, so their libraries must have some;
 2. kernels: each kernel against its plain PyTorch version on the card at
    the main paths' shapes (tinyllama-1.1b: QH=32, KH=4, D=64, page 64,
    32 rows), bf16 and f32, tolerances stated below.  The ragged kernel
@@ -28,14 +31,19 @@ Phases, in order — any failure stops the run:
    computing the same function (``scaled_dot_product_attention`` over
    the gathered KV, or with the causal+length mask; ``torch.matmul`` +
    ``max`` for K5; timed here only, never called by the port), beside
-   the least time the card could take (``bound``);
+   the least time the card could take (``bound``); K1 at the serve
+   phase's three waves (decode, mixed, prefill), the mixed one its record;
 3. serve: the continuous path at full width — tinyllama-1.1b, 22
    layers, int8 weights from a seed, 32 slots, page 64, chunk 64,
    pipeline depth 2, speculative decoding on — through the port's HTTP
    server on localhost, with concurrent ``/v1/completions`` requests of
    mixed prompt lengths, greedy and sampled.  Every kernel's launch count
    is set to 0 just before and read just after: the ragged kernel must
-   have launched exactly once per layer per step, the others never;
+   have launched exactly once per layer per step, the others never.  Then
+   one more request, untimed, of 786 prompt tokens: each of the 22 K1
+   calls of its first decode or verify step is held to the plain version
+   on its own inputs (valid rows), and that step's tile 0 must have keys
+   in at least three of its splits, so the split-KV merge is held too;
 4. wave: the wave path (``SCHED_MODE=wave``, ``DECODE_BLOCK=4``,
    ``PIPELINE_DEPTH=2``, ``OPERATOR_TPU_FLASH_PREFILL=1``) at the same
    width through the HTTP server with the same requests, driven twice,
@@ -44,7 +52,9 @@ Phases, in order — any failure stops the run:
    counts set to 0 before each drive: the prefill kernel must have
    launched 22 times per prefill wave, the decode kernel 22 x 4 times per
    decode block, the ragged and similarity kernels never; every request
-   finishes and every page comes back free;
+   finishes and every page comes back free.  Then one more request,
+   untimed: each of its prefill wave's 22 K4 calls is held to the plain
+   version on its own inputs (every row; ``prefill_drive_limit``);
 5. analysis: the semantic analysis path at the full width of
    all-MiniLM-L6-v2 (f32 weights from a seed, byte-level token ids,
    buckets of 32 texts x 256 tokens) through ``PatternEngine.analyze``
@@ -76,6 +86,8 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import threading
@@ -122,6 +134,115 @@ def card_line() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def tensor_core_instructions(build) -> dict:
+    """Each built library's count of tensor-core instructions in its SASS
+    (``HMMA``: mma.sync; ``HGMMA``: wgmma), read by ``cuobjdump``."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME") or "/usr/local/cuda", "bin", "cuobjdump")
+    counts = {}
+    for name in build.source_names():
+        sass = subprocess.run(
+            [tool, "-sass", str(build.library_path(name))],
+            capture_output=True, text=True, timeout=300, check=True,
+        ).stdout
+        counts[name] = len(re.findall(r"\bHG?MMA\b", sass))
+    return counts
+
+
+def prefill_drive_limit(dtype: str, want_abs):
+    """The per-element limit for the wave drive's own K4 calls: WAVE_TOL
+    plus one bf16 ulp of the output (2^-7 |plain|), never above K1's 6e-2.
+    Those calls reach |out| = 4.16, where one ulp is 0.03125, and the
+    kernel rounds P to bf16 before normalising while the plain version
+    rounds it after, so the two can land one ulp apart (0.03125 measured
+    on an H100); small outputs keep the 3e-2 of the kernels phase."""
+    if dtype != "bfloat16":
+        return WAVE_TOL[dtype]
+    return (WAVE_TOL[dtype] + want_abs * 2.0 ** -7).clamp(max=TOL[dtype])
+
+
+class HeldToPlain:
+    """Stands in for a kernel's dispatch function: the first ``calls``
+    calls that ``select`` accepts are each held to the plain version on
+    their own inputs right after the launch (the plain version launches
+    none of the port's kernels, so the counts are untouched), rows chosen
+    by ``valid``, each element within ``limit(dtype, |plain|)``; ``note``
+    adds what a call covered to its record."""
+
+    def __init__(self, fn, plain, calls: int, limit, select=None, valid=None, note=None):
+        self.fn, self.plain, self.calls, self.limit = fn, plain, calls, limit
+        self.select, self.valid, self.note = select, valid, note
+        self.held: list = []
+
+    def __call__(self, *args, **kwargs):
+        import torch
+
+        got = self.fn(*args, **kwargs)
+        if len(self.held) < self.calls and (self.select is None or self.select(*args)):
+            want = self.plain(*args, **kwargs)
+            got_v, want_v = got.float(), want.float()
+            if self.valid is not None:
+                rows = self.valid(*args)
+                got_v, want_v = got_v[rows], want_v[rows]
+            dtype = str(got.dtype).replace("torch.", "")
+            err = (got_v - want_v).abs()
+            self.held.append({
+                "max_abs_err": err.max().item(),
+                "excess": (err - self.limit(dtype, want_v.abs())).max().item(),
+                "max_abs_plain": want_v.abs().max().item(),
+                "finite": bool(torch.isfinite(got_v).all().item()),
+                "dtype": dtype,
+                **(self.note(*args, **kwargs) if self.note else {}),
+            })
+        return got
+
+
+def held_drive_calls(url: str, module, name: str, held: HeldToPlain, prompt: str) -> dict:
+    """One more request, untimed, with ``module.name`` replaced by
+    ``held``; fails unless all of its calls were held and each agrees
+    (every element within its limit: ``excess`` <= 0).  The record keeps
+    the largest of each number over the calls."""
+    setattr(module, name, held)
+    try:
+        _post(url, {"prompt": prompt, "max_tokens": 8, "temperature": 0.0})
+    finally:
+        setattr(module, name, held.fn)
+    calls = held.held
+    record = {"calls": len(calls), "dtypes": sorted({c["dtype"] for c in calls})}
+    for key in (calls[0] if calls else {}):
+        if key not in ("finite", "dtype"):
+            record[key] = max(c[key] for c in calls)
+    print(json.dumps({"drive_calls": {name: record}}), flush=True)
+    bad = [c for c in calls if not c["finite"] or not c["excess"] <= 0]
+    if len(calls) != held.calls or bad:
+        raise fail(f"{name}: {len(calls)} of {held.calls} drive calls held, outside tolerance: {bad}")
+    return record
+
+
+def k1_split_note(q, k_pages, v_pages, page_table, kv_len, q_count, sliding_window=None) -> dict:
+    """How many of tile 0's splits hold keys of a live row in this K1
+    call, by the kernel's span rule (``csrc/ragged_attention.cu``
+    ``tile_span``) and the wrapper's plan; 1 when the plan does not split."""
+    from operator_tpu_torch.ops import ragged_attention as ra
+
+    plan = ra.launch_plan(q, k_pages, page_table)
+    group = q.shape[2] // k_pages.shape[2]
+    most = 0
+    for seq, count in zip(kv_len.tolist(), q_count.tolist()):
+        if count <= 0:
+            continue
+        if plan.n_splits == 1:
+            most = max(most, 1)
+            continue
+        end = min(seq, seq - count + min((ra.TILE_ROWS - 1) // group, count - 1) + 1)
+        begin = 0
+        if sliding_window:
+            begin = max(seq - count - sliding_window + 1, 0)
+            begin -= begin % ra.STAGE_KEYS
+        most = max(most, -(-end // plan.split_keys) - begin // plan.split_keys)
+    return {"n_splits": plan.n_splits, "splits_with_keys": most}
 
 
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -339,6 +460,7 @@ def phase_kernels(results: dict) -> dict:
         "launches": None,  # filled by the serve phase
         "max_abs_err": worst,
         **timings["wave_mixed"],
+        "geometries": timings,  # the serve phase's three waves
     }
     results["kernel_checks"] = checks
     results["kernel_timings"] = timings
@@ -531,13 +653,12 @@ def phase_wave_kernels(results: dict) -> list:
             finite = bool(torch.isfinite(got.float()).all().item())
             del got, want
             torch.cuda.empty_cache()
+            tol = WAVE_TOL[dname]
             checks.append({"kernel": kind, "geometry": name, "dtype": dname,
-                           "max_abs_err": err, "tol": WAVE_TOL[dname], "finite": finite})
+                           "max_abs_err": err, "tol": tol, "finite": finite})
             print(json.dumps({"kernel_check": checks[-1]}), flush=True)
-            if not finite or not err <= WAVE_TOL[dname]:
-                raise fail(
-                    f"{kind} kernel {name}/{dname}: max_abs_err={err} (tol {WAVE_TOL[dname]})"
-                )
+            if not finite or not err <= tol:
+                raise fail(f"{kind} kernel {name}/{dname}: max_abs_err={err} (tol {tol})")
             if dname == "bfloat16":
                 worst[kind] = max(worst[kind], err)
     timings = {}
@@ -792,8 +913,10 @@ def drive_requests(url: str, bodies: list) -> tuple:
 def phase_serve(results: dict, kernel_modules: dict, phases: set) -> dict:
     import torch
 
+    from operator_tpu_torch.ops import ragged_attention as ra
     from operator_tpu_torch.serving.httpserver import CompletionServer
     from operator_tpu_torch.serving.provider import build_serving_engine
+    from operator_tpu_torch.serving.sched import mixed as mixed_module
 
     t0 = time.perf_counter()
     engine, model_id = build_serving_engine("cuda", SERVE_ENV, seed=0)
@@ -836,6 +959,20 @@ def phase_serve(results: dict, kernel_modules: dict, phases: set) -> dict:
         stats = sched.stats()
         if "profile" in phases:
             results["profile"] = profile_drive(url, bodies)
+        # a prompt over two splits long; the held step is the first whose
+        # live rows reach past the prompt: a decode or verify step
+        prompt = LOG_LINE * 5
+        prompt_tokens = len(prompt.encode()) + 1
+        held = held_drive_calls(url, mixed_module, "ragged_paged_attention", HeldToPlain(
+            mixed_module.ragged_paged_attention, ra.ragged_attention_reference,
+            config.num_layers, lambda dtype, _: TOL[dtype],
+            select=lambda q, k, v, table, kv_len, q_count: (
+                (kv_len * (q_count > 0)).max().item() > prompt_tokens),
+            valid=lambda q, *args: torch.arange(q.shape[1], device=q.device)[None] < args[4][:, None],
+            note=k1_split_note,
+        ), prompt)
+        if held["splits_with_keys"] < 3:
+            raise fail(f"the held K1 step's tile 0 had keys in {held['splits_with_keys']} splits, want >= 3")
         serve = {
             "model": model_id, "layers": config.num_layers, "weights": "int8",
             "slots": engine.generator.max_slots, "requests": len(bodies),
@@ -848,6 +985,7 @@ def phase_serve(results: dict, kernel_modules: dict, phases: set) -> dict:
             "spec_decode": stats["spec_decode"],
             "decode_tokens_per_host_sync": stats["decode_tokens_per_host_sync"],
             "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "held_calls": held,
         }
         print(json.dumps({"serve": serve}), flush=True)
         results["serve"] = serve
@@ -871,6 +1009,7 @@ def phase_wave(results: dict, kernel_modules: dict, phases: set, selector: str) 
     the kernels' launch counts over this drive."""
     import torch
 
+    from operator_tpu_torch.ops import flash_prefill as fp
     from operator_tpu_torch.serving.httpserver import CompletionServer
     from operator_tpu_torch.serving.provider import build_serving_engine
 
@@ -930,6 +1069,10 @@ def phase_wave(results: dict, kernel_modules: dict, phases: set, selector: str) 
                 )
             if "profile" in phases and selector == "v1":
                 results["wave_profile"] = profile_drive(url, bodies)
+            held = held_drive_calls(url, fp, "flash_prefill_attention", HeldToPlain(
+                fp.flash_prefill_attention, fp.flash_prefill_reference, layers,
+                prefill_drive_limit,
+            ), LOG_LINE * 3)
         finally:
             server.stop()
         wave = {
@@ -943,7 +1086,7 @@ def phase_wave(results: dict, kernel_modules: dict, phases: set, selector: str) 
             "decode_blocks": blocks,
             "stream_ms_per_block": sum(block_ms) / len(block_ms) if block_ms else None,
             "launches": launches, "setup_s": setup_s,
-            "pages_free": free_pages,
+            "pages_free": free_pages, "held_calls": held,
             "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
         }
         print(json.dumps({"wave": wave}), flush=True)
@@ -1395,6 +1538,12 @@ def main() -> int:
     _build.build_all()
     results["build_s"] = time.perf_counter() - started
     print(json.dumps({"build_s": results["build_s"], "sources": _build.source_names()}), flush=True)
+    results["tensor_core_instructions"] = tensor_core_instructions(_build)
+    print(json.dumps({"tensor_core_instructions": results["tensor_core_instructions"]}), flush=True)
+    no_mma = [name for name in ("ragged_attention", "flash_prefill")
+              if not results["tensor_core_instructions"][name]]
+    if no_mma:
+        raise fail(f"no tensor-core instruction (HMMA/HGMMA) in {no_mma}")
 
     records = []
     if "kernels" in phases:

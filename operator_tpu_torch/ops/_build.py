@@ -26,7 +26,7 @@ import threading
 from pathlib import Path
 from typing import Iterable, Optional
 
-__all__ = ["build_all", "load_library", "source_names"]
+__all__ = ["build_all", "library_path", "load_library", "source_names"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = [
@@ -64,7 +64,8 @@ def _nvcc() -> str:
     )
 
 
-def _library_path(name: str) -> Path:
+def library_path(name: str) -> Path:
+    """Where the library built from ``csrc/<name>.cu`` lives (or will)."""
     digest = hashlib.sha256()
     digest.update(" ".join(NVCC_FLAGS).encode())
     for path in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
@@ -76,7 +77,7 @@ def _library_path(name: str) -> Path:
 def _start_build(name: str) -> Optional[tuple[subprocess.Popen, Path, Path]]:
     """Launch nvcc for one source unless its library is already built;
     the output goes to a temporary file renamed into place on success."""
-    target = _library_path(name)
+    target = library_path(name)
     if target.is_file():
         return None
     target.parent.mkdir(parents=True, exist_ok=True)
@@ -130,6 +131,6 @@ def load_library(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
-            lib = ctypes.CDLL(str(_library_path(name)))
+            lib = ctypes.CDLL(str(library_path(name)))
             _loaded[name] = lib
     return lib

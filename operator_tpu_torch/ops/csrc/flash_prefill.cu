@@ -19,36 +19,48 @@
 //   lengths [B] int32
 //   out     [B, T, QH * D] same dtype as q
 //
-// Design.  The tile of ragged_attention.cu: grid (B, KH, ceil(T*G / 64)),
-// one block per (row, KV head, 64 flash rows), a flash row being (query
-// token, q head within the GQA group), so with G = 8 a tile holds 8 tokens
-// (the TPU's 128 x 8 = 1,024 rows are too many for one block).  The block
-// stages its queries once, then walks the row's keys 32 at a time: each
-// chunk of K and V is read from [B, T, KH, D] into shared memory as
-// floats (the next chunk's loads fly while this one is computed), scored
-// with FMAs, folded into the running (m, l) state of each flash row and
-// multiplied into its float accumulator; two threads share a row, each
-// owning half the chunk's scores and half of the row's D columns.
+// Two kernels, chosen by dtype (not a fallback: each dtype has one):
 //
-// Only needed keys are walked: a tile stops at min(lengths[b], its last
-// token + 1) and, with a window, starts at the chunk holding its first
-// token - window + 1.  Skipped keys are masked for every row of the tile,
-// and a masked key is exact to skip: before the row's first live key it
-// would be wiped by the rescale (alpha = exp(-1e30 - m) == 0), after it it
-// enters with probability 0.  The one exception is a row with no live key
-// (a padded token past lengths[b] + window - 1, or lengths[b] <= 0): the
-// plain version gives it the mean of V over all T positions, so a tile
+// bf16 -> flash_prefill_tc_kernel, on the tensor cores.  Grid
+// (ceil(T*G / 128), KH, B), the last (longest) tiles first: one block of 8
+// warps per (row, KV head, 128 flash rows), a flash row being (query
+// token, q head within the GQA group), so with G = 8 a tile holds 16
+// tokens.  The block copies its queries and then K and V, 64 keys a stage,
+// as bf16 into padded shared memory with 16-byte cp.async, three stages in
+// flight; each warp keeps its 16 query rows as mma A fragments and, per
+// stage, computes S = Q.K^T with mma.sync.m16n8k16 (bf16 in, f32 out,
+// ldmatrix from shared memory), scales and masks the fragments (only the
+// stages that cross the causal diagonal, the length or the window pay for
+// the mask), folds them into each row's online softmax in base 2
+// (update_state_log2: the four lanes of a quad share a row), rounds P to
+// bf16 in registers and adds P.V with mma.sync (V through ldmatrix.trans).
+// That walk is flash_common.cuh's TcBlock, shared with the ragged kernel;
+// this file keeps the span, the addresses, the mask and the output.
+//
+// f32 -> flash_prefill_kernel, on the CUDA cores: 64 flash rows a
+// block, K and V widened into shared memory 32 keys at a time, FMA scores
+// and P.V with two threads per row.  TF32 tensor cores would miss the f32
+// tolerance and the card-vs-CPU greedy parity of the f32 engines.
+//
+// Both walk only the keys a tile needs: a tile stops at min(lengths[b],
+// its last token + 1) and, with a window, starts at the stage holding its
+// first token - window + 1.  Skipped keys are masked for every row of the
+// tile, and a masked key is exact to skip: before the row's first live key
+// it would be wiped by the rescale (alpha = exp(-1e30 - m) == 0), after it
+// it enters with probability 0.  The one exception is a row with no live
+// key (a padded token past lengths[b] + window - 1, or lengths[b] <= 0):
+// the plain version gives it the mean of V over all T positions, so a tile
 // holding such a row walks all T keys, and positions past T (the tail of
-// the last chunk when T % 32 != 0) score -inf, which contributes nothing
-// even to a fully masked row.
+// the last stage when T is not a multiple of it) score -inf, which
+// contributes nothing even to a fully masked row.
 //
 // What bounds it.  The function reads q, k and v once and writes out once:
 // B * T * (2 * QH + 2 * KH) * D * itemsize bytes; it does 4 * D * QH flops
 // for every (query, live key) pair, some B * T^2 * QH * D * 2 for long rows.
-// At T = 2048 the two bounds are about equal.  This version computes on the
-// CUDA cores in float32 (no tensor cores) and re-reads a row's keys from L2
-// for each of its tiles; mma.sync/wgmma and larger tiles are the known next
-// steps.
+// At T = 2048 the two bounds are about equal.  The bf16 kernel re-reads a
+// row's keys from L2 once per 128-row tile (half as often as 64-row tiles);
+// wgmma over a 64-row warpgroup tile with TMA loads, and a persistent grid,
+// are the known next steps.
 
 #include <math.h>
 
@@ -66,9 +78,9 @@ constexpr int kBlockM = kThreads / kLanes;  // flash rows per block (64)
 constexpr int kBlockN = 32;                 // keys per chunk
 constexpr int kKeysPerLane = kBlockN / kLanes;
 
-template <typename T, int D>
+template <int D>
 struct Tile {
-  static constexpr int kVec = 16 / sizeof(T);
+  static constexpr int kVec = 16 / sizeof(float);
   static constexpr int kVecsPerRow = D / kVec;
   static constexpr int kChunkVecs = kBlockN * kVecsPerRow;
   static constexpr int kLoadsPerThread = (kChunkVecs + kThreads - 1) / kThreads;
@@ -84,12 +96,12 @@ struct Tile {
 
 // This thread's 16-byte loads of one chunk of K and V (keys start ..
 // start + kBlockN of row b, head h); keys at or past kv_end read as zeros.
-template <typename T, int D>
+template <int D>
 __device__ __forceinline__ void load_chunk(
-    uint4 (&k_reg)[Tile<T, D>::kLoadsPerThread],
-    uint4 (&v_reg)[Tile<T, D>::kLoadsPerThread], const T* __restrict__ k_row0,
-    const T* __restrict__ v_row0, int start, int kv_end, int KH) {
-  using Tl = Tile<T, D>;
+    uint4 (&k_reg)[Tile<D>::kLoadsPerThread],
+    uint4 (&v_reg)[Tile<D>::kLoadsPerThread], const float* __restrict__ k_row0,
+    const float* __restrict__ v_row0, int start, int kv_end, int KH) {
+  using Tl = Tile<D>;
 #pragma unroll
   for (int i = 0; i < Tl::kLoadsPerThread; ++i) {
     const int vec = threadIdx.x + i * kThreads;
@@ -108,11 +120,11 @@ __device__ __forceinline__ void load_chunk(
   }
 }
 
-template <typename T, int D>
+template <int D>
 __device__ __forceinline__ void store_chunk(
-    const uint4 (&k_reg)[Tile<T, D>::kLoadsPerThread],
-    const uint4 (&v_reg)[Tile<T, D>::kLoadsPerThread], float* k_s, float* v_s) {
-  using Tl = Tile<T, D>;
+    const uint4 (&k_reg)[Tile<D>::kLoadsPerThread],
+    const uint4 (&v_reg)[Tile<D>::kLoadsPerThread], float* k_s, float* v_s) {
+  using Tl = Tile<D>;
 #pragma unroll
   for (int i = 0; i < Tl::kLoadsPerThread; ++i) {
     const int vec = threadIdx.x + i * kThreads;
@@ -121,8 +133,8 @@ __device__ __forceinline__ void store_chunk(
       const int c = vec - n * Tl::kVecsPerRow;
       float kf[Tl::kVec];
       float vf[Tl::kVec];
-      unpack(k_reg[i], kf, T());
-      unpack(v_reg[i], vf, T());
+      unpack(k_reg[i], kf, 0.0f);
+      unpack(v_reg[i], vf, 0.0f);
       float* k_dst = k_s + n * Tl::kLd + c * Tl::kVec;
       float* v_dst = v_s + n * Tl::kLd + c * Tl::kVec;
 #pragma unroll
@@ -136,13 +148,13 @@ __device__ __forceinline__ void store_chunk(
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const int* __restrict__ lengths,
-                     T* __restrict__ out, int T_len, int QH, int KH, int window,
+flash_prefill_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const int* __restrict__ lengths,
+                     float* __restrict__ out, int T_len, int QH, int KH, int window,
                      float scale) {
-  using Tl = Tile<T, D>;
+  using Tl = Tile<D>;
   constexpr int kLd = Tl::kLd;
   constexpr int kLdP = Tl::kLdP;
   constexpr int kDimsPerLane = Tl::kDimsPerLane;
@@ -169,8 +181,8 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
       kv_begin -= kv_begin % kBlockN;
     }
   }
-  const T* k_row0 = k + (static_cast<size_t>(b) * T_len * KH + h) * D;
-  const T* v_row0 = v + (static_cast<size_t>(b) * T_len * KH + h) * D;
+  const float* k_row0 = k + (static_cast<size_t>(b) * T_len * KH + h) * D;
+  const float* v_row0 = v + (static_cast<size_t>(b) * T_len * KH + h) * D;
 
   extern __shared__ __align__(16) float smem[];
   float* q_s = smem;                 // [kBlockM][kLd]
@@ -180,7 +192,7 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   uint4 k_reg[Tl::kLoadsPerThread];
   uint4 v_reg[Tl::kLoadsPerThread];
-  load_chunk<T, D>(k_reg, v_reg, k_row0, v_row0, kv_begin, kv_end, KH);
+  load_chunk<D>(k_reg, v_reg, k_row0, v_row0, kv_begin, kv_end, KH);
 
   // stage the tile's queries (rows past the bucket's end read as zeros)
   for (int vec = threadIdx.x; vec < kBlockM * Tl::kVecsPerRow; vec += kThreads) {
@@ -191,9 +203,9 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (fr < rows_total) {
       const int tok = fr / G;
       const int head = h * G + (fr - tok * G);
-      const T* src =
+      const float* src =
           q + ((static_cast<size_t>(b) * T_len + tok) * QH + head) * D + c * Tl::kVec;
-      unpack(*reinterpret_cast<const uint4*>(src), qf, T());
+      unpack(*reinterpret_cast<const uint4*>(src), qf, 0.0f);
     } else {
 #pragma unroll
       for (int e = 0; e < Tl::kVec; ++e) qf[e] = 0.0f;
@@ -220,10 +232,10 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int start = kv_begin; start < kv_end; start += kBlockN) {
     __syncthreads();  // the previous chunk's K/V/P are no longer read
-    store_chunk<T, D>(k_reg, v_reg, k_s, v_s);
+    store_chunk<D>(k_reg, v_reg, k_s, v_s);
     __syncthreads();
     if (start + kBlockN < kv_end) {
-      load_chunk<T, D>(k_reg, v_reg, k_row0, v_row0, start + kBlockN, kv_end, KH);
+      load_chunk<D>(k_reg, v_reg, k_row0, v_row0, start + kBlockN, kv_end, KH);
     }
     if (!warp_live) continue;
 
@@ -286,19 +298,19 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int fr = row0 + my_row;
   if (fr < rows_total) {
     const int head = h * G + (fr - q_pos * G);
-    T* dst = out + ((static_cast<size_t>(b) * T_len + q_pos) * QH + head) * D +
+    float* dst = out + ((static_cast<size_t>(b) * T_len + q_pos) * QH + head) * D +
              lane * kDimsPerLane;
 #pragma unroll
-    for (int c = 0; c < kDimsPerLane; ++c) dst[c] = from_float<T>(finalize(st, acc[c]));
+    for (int c = 0; c < kDimsPerLane; ++c) dst[c] = finalize(st, acc[c]);
   }
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* lengths,
                    void* out, int B, int T_len, int QH, int KH, int window,
                    float scale, cudaStream_t stream) {
-  const size_t smem_bytes = sizeof(float) * Tile<T, D>::kSharedFloats;
-  auto* kernel = flash_prefill_kernel<T, D>;
+  const size_t smem_bytes = sizeof(float) * Tile<D>::kSharedFloats;
+  auto* kernel = flash_prefill_kernel<D>;
   if (smem_bytes > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -308,25 +320,137 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* leng
   const int G = QH / KH;
   const dim3 grid(B, KH, (T_len * G + kBlockM - 1) / kBlockM);
   kernel<<<grid, kThreads, smem_bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const int*>(lengths), static_cast<T*>(out), T_len, QH, KH, window,
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const int*>(lengths), static_cast<float*>(out), T_len, QH, KH, window,
       scale);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_dim(int D, const void* q, const void* k, const void* v,
+cudaError_t dispatch_dim_f32(int D, const void* q, const void* k, const void* v,
                          const void* lengths, void* out, int B, int T_len, int QH,
                          int KH, int window, float scale, cudaStream_t stream) {
   switch (D) {
     case 16:
-      return launch<T, 16>(q, k, v, lengths, out, B, T_len, QH, KH, window, scale, stream);
+      return launch<16>(q, k, v, lengths, out, B, T_len, QH, KH, window, scale, stream);
     case 32:
-      return launch<T, 32>(q, k, v, lengths, out, B, T_len, QH, KH, window, scale, stream);
+      return launch<32>(q, k, v, lengths, out, B, T_len, QH, KH, window, scale, stream);
     case 64:
-      return launch<T, 64>(q, k, v, lengths, out, B, T_len, QH, KH, window, scale, stream);
+      return launch<64>(q, k, v, lengths, out, B, T_len, QH, KH, window, scale, stream);
     case 128:
-      return launch<T, 128>(q, k, v, lengths, out, B, T_len, QH, KH, window, scale, stream);
+      return launch<128>(q, k, v, lengths, out, B, T_len, QH, KH, window, scale, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16: tensor cores
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kTcWarps = 8;  // 128 flash rows a tile
+
+// Two blocks an SM up to D = 64 (at most 128 registers a thread; 129
+// without the bound left room for one block of 8 warps); at D = 128 the
+// fragments alone take 128 registers, so one.
+template <int D>
+__global__ void __launch_bounds__(TcBlock<D, kTcWarps>::kThreads, D <= 64 ? 2 : 1)
+flash_prefill_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, const int* __restrict__ lengths,
+                        bf16* __restrict__ out, int T_len, int QH, int KH, int window,
+                        float scale_log2) {
+  using Blk = TcBlock<D, kTcWarps>;
+
+  const int tile = gridDim.x - 1 - blockIdx.x;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int G = QH / KH;
+  const int rows_total = T_len * G;
+  const int row0 = tile * Blk::kRows;
+  const int tok0 = row0 / G;
+  const int tok_last = min((row0 + Blk::kRows - 1) / G, T_len - 1);
+  const int length = lengths[b];
+
+  // keys this tile walks (see the header)
+  int kv_begin = 0;
+  int kv_end = T_len;
+  if (length > 0 && (window <= 0 || tok_last < length + window - 1)) {
+    kv_end = min(length, tok_last + 1);
+    if (window > 0) {
+      kv_begin = max(tok0 - window + 1, 0);
+      kv_begin -= kv_begin % kTcKeys;
+    }
+  }
+  const size_t kv_stride = static_cast<size_t>(KH) * D;  // between tokens
+  const size_t head0 = (static_cast<size_t>(b) * T_len * KH + h) * D;
+  // flash row fr of this (row, KV head): token fr / G, q head h * G + fr % G
+  auto row_offset = [&](int fr) {
+    const int tok = fr / G;
+    return ((static_cast<size_t>(b) * T_len + tok) * QH + h * G + (fr - tok * G)) * D;
+  };
+  const int pos_a = (row0 + Blk::row(0)) / G;  // this lane's two tokens
+  const int pos_b = (row0 + Blk::row(1)) / G;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  typename Blk::Warp wt;
+  const bool warp_live = Blk::walk(
+      wt, smem_raw, k + head0, v + head0, kv_begin, kv_end, rows_total - row0, scale_log2,
+      [&](int r) { return q + row_offset(row0 + r); },
+      [&](int t) { return static_cast<size_t>(t) * kv_stride; },
+      // the stages crossing the causal diagonal, the length, the bucket's
+      // end or the window's start
+      [&](int start) {
+        return start + kTcKeys - 1 > tok0 || start + kTcKeys > length ||
+               start + kTcKeys > T_len || (window > 0 && start <= tok_last - window);
+      },
+      [&](float x, int t, int half) {
+        const int pos = half ? pos_b : pos_a;
+        bool live = t <= pos && t < length;
+        if (window > 0) live = live && t > pos - window;
+        return t >= T_len ? -INFINITY : (live ? x : kNegInf);
+      });
+  if (!warp_live) return;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int fr = row0 + Blk::row(half);
+    if (fr < rows_total) wt.store_bf16(half, out + row_offset(fr), threadIdx.x & 31);
+  }
+}
+
+template <int D>
+cudaError_t launch_tc(const void* q, const void* k, const void* v, const void* lengths,
+                      void* out, int B, int T_len, int QH, int KH, int window, float scale,
+                      cudaStream_t stream) {
+  using Blk = TcBlock<D, kTcWarps>;
+  const size_t smem_bytes = Blk::kSmemBytes;
+  auto* kernel = flash_prefill_tc_kernel<D>;
+  if (smem_bytes > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem_bytes));
+    if (err != cudaSuccess) return err;
+  }
+  const int G = QH / KH;
+  const dim3 grid((T_len * G + Blk::kRows - 1) / Blk::kRows, KH, B);
+  kernel<<<grid, Blk::kThreads, smem_bytes, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const int*>(lengths), static_cast<bf16*>(out), T_len, QH, KH, window,
+      scale * kLog2e);
+  return cudaGetLastError();
+}
+
+cudaError_t dispatch_dim_tc(int D, const void* q, const void* k, const void* v,
+                            const void* lengths, void* out, int B, int T_len, int QH, int KH,
+                            int window, float scale, cudaStream_t stream) {
+  switch (D) {
+    case 16:
+      return launch_tc<16>(q, k, v, lengths, out, B, T_len, QH, KH, window, scale, stream);
+    case 32:
+      return launch_tc<32>(q, k, v, lengths, out, B, T_len, QH, KH, window, scale, stream);
+    case 64:
+      return launch_tc<64>(q, k, v, lengths, out, B, T_len, QH, KH, window, scale, stream);
+    case 128:
+      return launch_tc<128>(q, k, v, lengths, out, B, T_len, QH, KH, window, scale, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -336,7 +460,8 @@ cudaError_t dispatch_dim(int D, const void* q, const void* k, const void* v,
 }  // namespace optorch
 
 // Plain C entry point, bound with ctypes (ops/flash_prefill.py).
-// dtype: 0 = float32, 1 = bfloat16.  window <= 0 means no sliding window.
+// dtype: 0 = float32 (the CUDA-core kernel), 1 = bfloat16 (the tensor-core
+// kernel).  window <= 0 means no sliding window.
 // scale is the score scale, D^-0.5, computed by the caller.  Returns the
 // launch status (cudaGetLastError), 0 on success.
 extern "C" int flash_prefill_launch(const void* q, const void* k, const void* v,
@@ -349,11 +474,11 @@ extern "C" int flash_prefill_launch(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0) {
-    err = optorch::dispatch_dim<float>(D, q, k, v, lengths, out, B, T_len, QH, KH,
+    err = optorch::dispatch_dim_f32(D, q, k, v, lengths, out, B, T_len, QH, KH,
                                        window, scale, s);
   } else if (dtype == 1) {
-    err = optorch::dispatch_dim<__nv_bfloat16>(D, q, k, v, lengths, out, B, T_len, QH,
-                                               KH, window, scale, s);
+    err = optorch::dispatch_dim_tc(D, q, k, v, lengths, out, B, T_len, QH, KH, window,
+                                   scale, s);
   } else {
     err = cudaErrorInvalidValue;
   }

@@ -17,20 +17,41 @@
 //   page_table [B, pages_per_seq] int32, kv_len [B] int32, q_count [B] int32
 //   out      [B, C, QH, D]            same dtype as q
 //
-// Design.  Grid (B, KH, ceil(C*G / BM)): one block takes one batch row, one
-// KV head and a tile of BM "flash rows", a flash row being (query token,
-// q head within the GQA group) — so the G = 8 heads of a decode row
-// (C = 1) already fill 8 rows of a tile.  The block reads its own kv_len,
-// q_count and page ids (no scalar prefetch on this card), stages the
-// tile's queries once and then walks the KV positions in chunks of BN
-// tokens: each chunk's K and V rows are gathered through the page table
-// into shared memory (converted to float), scored with FMAs, folded into
-// the running (m, l) state kept in registers, and multiplied into the
-// float accumulator, also in registers.  Two threads share a flash row
-// (LANES = 2): each owns half of the chunk's scores and half of the
-// row's D accumulator columns.  A warp whose 16 flash rows are all past
-// the row's last live query skips the arithmetic: a decode row (G = 8
-// live rows of 64) then costs one warp's work per chunk, not four.
+// Two kernels, chosen by dtype (not a fallback: each dtype has one):
+//
+// bf16 -> ragged_attention_tc_kernel, on the tensor cores, with split-KV.
+// A tile is 64 "flash rows", a flash row being (query token, q head within
+// the GQA group), so the G = 8 heads of a decode row fill 8 rows of tile 0.
+// Four warps own 16 rows each.  The block reads its own kv_len, q_count and
+// page ids (no scalar prefetch on this card), copies its queries and then
+// gathers K and V through the page table as bf16 into padded shared memory
+// with 16-byte cp.async (one head's slice of a page row is D bf16, KH * D
+// apart from the next position's), 64 positions a stage, three stages in
+// flight.  Each live warp computes S = Q.K^T with mma.sync.m16n8k16 (dead
+// rows of a decode or verify tile are zero queries whose results are never
+// written), masks only the stages that cross the causal diagonal, kv_len or
+// the window's start, folds the fragments into the online softmax in base
+// 2, rounds P to bf16 in registers and adds P.V with mma.sync.  A warp
+// whose rows are all past the last live query only helps load.  That walk
+// is flash_common.cuh's TcBlock, shared with the prefill kernel; this file
+// keeps the spans, the page-table addresses, the mask and the outputs.
+//
+// Split-KV.  Tile 0 holds every decode and verify row's queries, and its
+// key span is the whole live cache of the row: a chain of up to
+// pages_per_seq * page_size / 64 dependent stages in one block.  So tile 0
+// is cut into n_splits spans of split_keys positions (a multiple of the
+// stage), each walked by its own block, which writes its (m, l, acc)
+// partial to f32 scratch; ragged_merge_kernel then combines each row's
+// partials in split order (deterministic, no atomics).  Tiles 1 .. (prefill
+// chunks longer than 64 / G tokens) are walked whole.  The plan (n_splits,
+// split_keys, the scratch) comes from the caller and depends on shapes
+// only: the mixed step never reads kv_len on the host.
+//
+// f32 -> ragged_attention_kernel, on the CUDA cores: grid (B, KH,
+// ceil(C*G / 64)), K and V widened to float in shared memory 32 positions
+// a chunk, FMA scores and P.V with two threads per flash row, no split.
+// TF32 tensor cores would miss the f32 tolerance and the card-vs-CPU greedy
+// parity of the f32 engines.
 //
 // Only live KV is walked: a tile starts at the first position its
 // earliest query can see (window) and stops after the last position its
@@ -38,15 +59,15 @@
 // the positions before the window is exact because they would enter the
 // state before any live key and be wiped out by the first rescale (alpha
 // == 0); skipping those after the causal bound is exact because they would
-// enter with probability exp(-1e30 - m) == 0.
+// enter with probability exp(-1e30 - m) == 0.  A split whose keys are all
+// masked for a row carries m = -1e30 with l > 0 (each masked key folds in
+// exp(0)); the merge weights it by exp2(-1e30 - m_max) == 0 for a row with
+// a live key anywhere, exactly as the one-block walk's rescale would.
 //
 // What bounds it.  At serving shapes the kernel is a read of the live KV:
 // sum_b min(kv_len_b, window) * KH * D * 2 (K and V) * 2 bytes, plus the q
-// rows it reads and the out rows it writes, against 3.35 TB/s.  This
-// first version does not reach that bound: the scores and P.V run on the
-// CUDA cores in float32, and a prefill row's tiles each re-read the row's
-// KV (from L2, mostly).  wgmma, TMA page loads, a cp.async double buffer and
-// split-KV for long decode rows are the known next steps.
+// rows it reads and the out rows it writes, against 3.35 TB/s.  Still open:
+// wgmma and TMA page loads, a persistent grid, splitting the prefill tiles.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -62,10 +83,10 @@ constexpr int kBlockM = kThreads / kLanes;  // flash rows per block (64)
 constexpr int kBlockN = 32;                 // KV positions per chunk
 constexpr int kKeysPerLane = kBlockN / kLanes;
 
-template <typename T, int D>
+template <int D>
 struct Tile {
   // global memory is read 16 bytes per thread per load
-  static constexpr int kVec = 16 / sizeof(T);
+  static constexpr int kVec = 16 / sizeof(float);
   static constexpr int kVecsPerRow = D / kVec;
   static constexpr int kChunkVecs = kBlockN * kVecsPerRow;
   static constexpr int kLoadsPerThread = (kChunkVecs + kThreads - 1) / kThreads;
@@ -82,13 +103,13 @@ struct Tile {
 // Issue this thread's 16-byte loads of one chunk of K and V rows (KV
 // positions start .. start + kBlockN, gathered through the page table);
 // positions at or past kv_end read as zeros.
-template <typename T, int D>
+template <int D>
 __device__ __forceinline__ void load_chunk(
-    uint4 (&k_reg)[Tile<T, D>::kLoadsPerThread],
-    uint4 (&v_reg)[Tile<T, D>::kLoadsPerThread], const T* __restrict__ k_pages,
-    const T* __restrict__ v_pages, const int* __restrict__ table, int start,
+    uint4 (&k_reg)[Tile<D>::kLoadsPerThread],
+    uint4 (&v_reg)[Tile<D>::kLoadsPerThread], const float* __restrict__ k_pages,
+    const float* __restrict__ v_pages, const int* __restrict__ table, int start,
     int kv_end, int page_size, int KH, int h) {
-  using Tl = Tile<T, D>;
+  using Tl = Tile<D>;
 #pragma unroll
   for (int i = 0; i < Tl::kLoadsPerThread; ++i) {
     const int vec = threadIdx.x + i * kThreads;
@@ -112,11 +133,11 @@ __device__ __forceinline__ void load_chunk(
 }
 
 // Convert the loaded chunk to float into shared memory.
-template <typename T, int D>
+template <int D>
 __device__ __forceinline__ void store_chunk(
-    const uint4 (&k_reg)[Tile<T, D>::kLoadsPerThread],
-    const uint4 (&v_reg)[Tile<T, D>::kLoadsPerThread], float* k_s, float* v_s) {
-  using Tl = Tile<T, D>;
+    const uint4 (&k_reg)[Tile<D>::kLoadsPerThread],
+    const uint4 (&v_reg)[Tile<D>::kLoadsPerThread], float* k_s, float* v_s) {
+  using Tl = Tile<D>;
 #pragma unroll
   for (int i = 0; i < Tl::kLoadsPerThread; ++i) {
     const int vec = threadIdx.x + i * kThreads;
@@ -125,8 +146,8 @@ __device__ __forceinline__ void store_chunk(
       const int c = vec - n * Tl::kVecsPerRow;
       float kf[Tl::kVec];
       float vf[Tl::kVec];
-      unpack(k_reg[i], kf, T());
-      unpack(v_reg[i], vf, T());
+      unpack(k_reg[i], kf, 0.0f);
+      unpack(v_reg[i], vf, 0.0f);
       float* k_dst = k_s + n * Tl::kLd + c * Tl::kVec;
       float* v_dst = v_s + n * Tl::kLd + c * Tl::kVec;
 #pragma unroll
@@ -140,16 +161,16 @@ __device__ __forceinline__ void store_chunk(
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-ragged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
-                        const T* __restrict__ v_pages,
+ragged_attention_kernel(const float* __restrict__ q, const float* __restrict__ k_pages,
+                        const float* __restrict__ v_pages,
                         const int* __restrict__ page_table,
                         const int* __restrict__ kv_len,
-                        const int* __restrict__ q_count, T* __restrict__ out,
+                        const int* __restrict__ q_count, float* __restrict__ out,
                         int C, int QH, int KH, int page_size, int pages_per_seq,
                         int window, float scale) {
-  using Tl = Tile<T, D>;
+  using Tl = Tile<D>;
   constexpr int kLd = Tl::kLd;
   constexpr int kLdP = Tl::kLdP;
   constexpr int kDimsPerLane = Tl::kDimsPerLane;
@@ -183,7 +204,7 @@ ragged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   // first KV chunk in flight while the queries are staged
   uint4 k_reg[Tl::kLoadsPerThread];
   uint4 v_reg[Tl::kLoadsPerThread];
-  load_chunk<T, D>(k_reg, v_reg, k_pages, v_pages, table, kv_begin, kv_end,
+  load_chunk<D>(k_reg, v_reg, k_pages, v_pages, table, kv_begin, kv_end,
                    page_size, KH, h);
 
   // stage the tile's queries (rows past the tile's end read as zeros)
@@ -195,9 +216,9 @@ ragged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
     if (fr < rows_total) {
       const int tok = fr / G;
       const int head = h * G + (fr - tok * G);
-      const T* src =
+      const float* src =
           q + ((static_cast<size_t>(b) * C + tok) * QH + head) * D + c * Tl::kVec;
-      unpack(*reinterpret_cast<const uint4*>(src), qf, T());
+      unpack(*reinterpret_cast<const uint4*>(src), qf, 0.0f);
     } else {
 #pragma unroll
       for (int e = 0; e < Tl::kVec; ++e) qf[e] = 0.0f;
@@ -226,11 +247,11 @@ ragged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
 
   for (int start = kv_begin; start < kv_end; start += kBlockN) {
     __syncthreads();  // the previous chunk's K/V/P are no longer read
-    store_chunk<T, D>(k_reg, v_reg, k_s, v_s);
+    store_chunk<D>(k_reg, v_reg, k_s, v_s);
     __syncthreads();
     if (start + kBlockN < kv_end) {
       // the next chunk's loads fly while this one is computed
-      load_chunk<T, D>(k_reg, v_reg, k_pages, v_pages, table, start + kBlockN,
+      load_chunk<D>(k_reg, v_reg, k_pages, v_pages, table, start + kBlockN,
                        kv_end, page_size, KH, h);
     }
     if (!warp_live) continue;
@@ -295,21 +316,21 @@ ragged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   const int fr = row0 + my_row;
   if (fr < rows_total && my_tok < count) {
     const int head = h * G + (fr - my_tok * G);
-    T* dst = out + ((static_cast<size_t>(b) * C + my_tok) * QH + head) * D +
+    float* dst = out + ((static_cast<size_t>(b) * C + my_tok) * QH + head) * D +
              lane * kDimsPerLane;
 #pragma unroll
-    for (int k = 0; k < kDimsPerLane; ++k) dst[k] = from_float<T>(finalize(st, acc[k]));
+    for (int k = 0; k < kDimsPerLane; ++k) dst[k] = finalize(st, acc[k]);
   }
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
                    const void* page_table, const void* kv_len,
                    const void* q_count, void* out, int B, int C, int QH, int KH,
                    int page_size, int pages_per_seq, int window, float scale,
                    cudaStream_t stream) {
-  const size_t smem_bytes = sizeof(float) * Tile<T, D>::kSharedFloats;
-  auto* kernel = ragged_attention_kernel<T, D>;
+  const size_t smem_bytes = sizeof(float) * Tile<D>::kSharedFloats;
+  auto* kernel = ragged_attention_kernel<D>;
   if (smem_bytes > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -319,15 +340,14 @@ cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
   const int G = QH / KH;
   const dim3 grid(B, KH, (C * G + kBlockM - 1) / kBlockM);
   kernel<<<grid, kThreads, smem_bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pages),
-      static_cast<const T*>(v_pages), static_cast<const int*>(page_table),
+      static_cast<const float*>(q), static_cast<const float*>(k_pages),
+      static_cast<const float*>(v_pages), static_cast<const int*>(page_table),
       static_cast<const int*>(kv_len), static_cast<const int*>(q_count),
-      static_cast<T*>(out), C, QH, KH, page_size, pages_per_seq, window, scale);
+      static_cast<float*>(out), C, QH, KH, page_size, pages_per_seq, window, scale);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_dim(int D, const void* q, const void* k_pages,
+cudaError_t dispatch_dim_f32(int D, const void* q, const void* k_pages,
                          const void* v_pages, const void* page_table,
                          const void* kv_len, const void* q_count, void* out,
                          int B, int C, int QH, int KH, int page_size,
@@ -335,50 +355,345 @@ cudaError_t dispatch_dim(int D, const void* q, const void* k_pages,
                          cudaStream_t stream) {
   switch (D) {
     case 16:
-      return launch<T, 16>(q, k_pages, v_pages, page_table, kv_len, q_count, out,
+      return launch<16>(q, k_pages, v_pages, page_table, kv_len, q_count, out,
                            B, C, QH, KH, page_size, pages_per_seq, window, scale, stream);
     case 32:
-      return launch<T, 32>(q, k_pages, v_pages, page_table, kv_len, q_count, out,
+      return launch<32>(q, k_pages, v_pages, page_table, kv_len, q_count, out,
                            B, C, QH, KH, page_size, pages_per_seq, window, scale, stream);
     case 64:
-      return launch<T, 64>(q, k_pages, v_pages, page_table, kv_len, q_count, out,
+      return launch<64>(q, k_pages, v_pages, page_table, kv_len, q_count, out,
                            B, C, QH, KH, page_size, pages_per_seq, window, scale, stream);
     case 128:
-      return launch<T, 128>(q, k_pages, v_pages, page_table, kv_len, q_count, out,
+      return launch<128>(q, k_pages, v_pages, page_table, kv_len, q_count, out,
                             B, C, QH, KH, page_size, pages_per_seq, window, scale, stream);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16: tensor cores, split-KV
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kTcWarps = 4;
+constexpr int kTcBlockM = kTcWarps * 16;  // flash rows per tile (64)
+constexpr int kMaxSplits = 16;
+constexpr int kMergeThreads = 128;
+
+// The KV positions [begin, end) a tile of tokens tok0 .. tok_last walks
+// (begin aligned down to a stage); the split blocks and the merge both
+// derive their spans from it.
+struct Span {
+  int begin;
+  int end;
+};
+
+__device__ __forceinline__ Span tile_span(int seq_len, int count, int tok0, int tok_last,
+                                          int window) {
+  const int q_base = seq_len - count;
+  Span span;
+  span.end = min(seq_len, q_base + tok_last + 1);
+  span.begin = 0;
+  if (window > 0) {
+    span.begin = max(q_base + tok0 - window + 1, 0);
+    span.begin -= span.begin % kTcKeys;
+  }
+  return span;
+}
+
+// Work item blockIdx.x of (row b = blockIdx.z, KV head h = blockIdx.y):
+// with n_splits > 1, items 0 .. n_tiles - 2 are tiles 1 .. n_tiles - 1
+// (walked whole, written to out) and the last n_splits items are the
+// splits of tile 0 (each writes its (m, l, acc) partial for the merge);
+// with n_splits == 1 item i is tile i, written to out.
+template <int D>
+__global__ void __launch_bounds__(TcBlock<D, kTcWarps>::kThreads)
+ragged_attention_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_pages,
+                           const bf16* __restrict__ v_pages,
+                           const int* __restrict__ page_table,
+                           const int* __restrict__ kv_len,
+                           const int* __restrict__ q_count, bf16* __restrict__ out,
+                           float* __restrict__ part_acc, float* __restrict__ part_ml,
+                           int C, int QH, int KH, int page_size, int pages_per_seq,
+                           int window, int n_splits, int split_keys, float scale_log2) {
+  using Blk = TcBlock<D, kTcWarps>;
+  static_assert(Blk::kRows == kTcBlockM, "the merge and the scratch assume 64-row tiles");
+
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int G = QH / KH;
+  const int rows_total = C * G;
+  const int n_tiles = (rows_total + kTcBlockM - 1) / kTcBlockM;
+  int tile = blockIdx.x;
+  int split = -1;
+  if (n_splits > 1) {
+    if (tile >= n_tiles - 1) {
+      split = tile - (n_tiles - 1);
+      tile = 0;
+    } else {
+      tile += 1;
+    }
+  }
+  const int count = q_count[b];
+  const int seq_len = kv_len[b];  // read beside count: one latency, not two
+  const int row0 = tile * kTcBlockM;
+  const int tok0 = row0 / G;
+  if (count <= 0 || tok0 >= count) return;  // no live query in this tile
+
+  const int q_base = seq_len - count;  // absolute position of query token 0
+  const int tok_last = min((row0 + kTcBlockM - 1) / G, count - 1);
+  const Span span = tile_span(seq_len, count, tok0, tok_last, window);
+  int kv_begin = span.begin;
+  int kv_end = span.end;
+  if (split >= 0) {
+    kv_begin = max(kv_begin, split * split_keys);
+    if (split + 1 < n_splits) kv_end = min(kv_end, (split + 1) * split_keys);
+    if (kv_end <= kv_begin) return;  // the merge skips this split
+  }
+  const int* table = page_table + static_cast<size_t>(b) * pages_per_seq;
+  const int live_rows = min(count * G, rows_total);
+  // flash row fr of this (row, KV head): token fr / G, q head h * G + fr % G
+  auto row_offset = [&](int fr) {
+    const int tok = fr / G;
+    return ((static_cast<size_t>(b) * C + tok) * QH + h * G + (fr - tok * G)) * D;
+  };
+  const int pos_a = q_base + (row0 + Blk::row(0)) / G;  // this lane's two positions
+  const int pos_b = q_base + (row0 + Blk::row(1)) / G;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  typename Blk::Warp wt;
+  const bool warp_live = Blk::walk(
+      wt, smem_raw, k_pages, v_pages, kv_begin, kv_end, live_rows - row0, scale_log2,
+      [&](int r) { return q + row_offset(row0 + r); },
+      // through the page table: one head's slice of a page row is D bf16,
+      // KH * D apart from the next position's
+      [&](int t) {
+        const int page_idx = t / page_size;
+        const int slot = t - page_idx * page_size;
+        return ((static_cast<size_t>(table[page_idx]) * page_size + slot) * KH + h) * D;
+      },
+      // the stages crossing kv_end, the causal diagonal or the window's start
+      [&](int start) {
+        return start + kTcKeys > kv_end || start + kTcKeys - 1 > q_base + tok0 ||
+               (window > 0 && start <= q_base + tok_last - window);
+      },
+      [&](float x, int t, int half) {
+        const int pos = half ? pos_b : pos_a;
+        bool live = t <= pos && t < kv_end;
+        if (window > 0) live = live && t > pos - window;
+        return live ? x : kNegInf;
+      });
+  if (!warp_live) return;
+
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int fr = row0 + Blk::row(half);
+    if (fr >= live_rows) continue;
+    if (split >= 0) {
+      const size_t slot =
+          ((static_cast<size_t>(b) * KH + h) * n_splits + split) * kTcBlockM + fr;
+      wt.store_partial(half, part_acc + slot * D, part_ml + slot * 2, lane);
+    } else {
+      wt.store_bf16(half, out + row_offset(fr), lane);
+    }
+  }
+}
+
+// Combine tile 0's split partials of (row b = blockIdx.y, KV head h =
+// blockIdx.x) in split order: each split is weighted by exp2(m_s - m_max),
+// exactly the rescale the one-block walk would apply, so a split whose
+// keys are all masked for a row (m_s = -1e30, l_s > 0) drops out of a row
+// with a live key anywhere.  Deterministic: no atomics, a fixed order.
+template <int D>
+__global__ void __launch_bounds__(kMergeThreads)
+ragged_merge_kernel(const float* __restrict__ part_acc, const float* __restrict__ part_ml,
+                    const int* __restrict__ kv_len, const int* __restrict__ q_count,
+                    bf16* __restrict__ out, int C, int QH, int KH, int window,
+                    int n_splits, int split_keys) {
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int count = q_count[b];
+  const int seq_len = kv_len[b];
+  if (count <= 0) return;
+  const int G = QH / KH;
+  const int rows = min(min(count * G, C * G), kTcBlockM);
+  const int tok_last = min((kTcBlockM - 1) / G, count - 1);
+  const Span span = tile_span(seq_len, count, 0, tok_last, window);
+  const int s_lo = span.begin / split_keys;
+  const int s_hi =
+      span.end > span.begin ? min((span.end - 1) / split_keys, n_splits - 1) : s_lo - 1;
+
+  // The loops over splits run to the fixed kMaxSplits, unrolled, with the
+  // dead ones predicated off, so each thread's loads are all in flight
+  // together instead of one latency per split.
+  __shared__ float w_s[kTcBlockM][kMaxSplits];
+  __shared__ float l_s[kTcBlockM];
+  const size_t base = (static_cast<size_t>(b) * KH + h) * n_splits * kTcBlockM;
+  for (int r = threadIdx.x; r < rows; r += kMergeThreads) {
+    float2 ml[kMaxSplits];
+    float m_max = kNegInf;
+#pragma unroll
+    for (int j = 0; j < kMaxSplits; ++j) {
+      ml[j] = make_float2(kNegInf, 0.0f);
+      if (s_lo + j <= s_hi) {
+        ml[j] = *reinterpret_cast<const float2*>(part_ml + (base + (s_lo + j) * kTcBlockM + r) * 2);
+      }
+      m_max = fmaxf(m_max, ml[j].x);
+    }
+    float l = 0.0f;
+#pragma unroll
+    for (int j = 0; j < kMaxSplits; ++j) {
+      if (s_lo + j <= s_hi) {
+        const float w = exp2f(ml[j].x - m_max);
+        w_s[r][j] = w;
+        l += w * ml[j].y;
+      }
+    }
+    l_s[r] = l;
+  }
+  __syncthreads();
+  constexpr int kVecs = D / 4;
+  for (int i = threadIdx.x; i < rows * kVecs; i += kMergeThreads) {
+    const int r = i / kVecs;
+    const int d = (i - r * kVecs) * 4;
+    float4 part[kMaxSplits];
+#pragma unroll
+    for (int j = 0; j < kMaxSplits; ++j) {
+      if (s_lo + j <= s_hi) {
+        part[j] = *reinterpret_cast<const float4*>(part_acc + (base + (s_lo + j) * kTcBlockM + r) * D + d);
+      }
+    }
+    float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+    for (int j = 0; j < kMaxSplits; ++j) {
+      if (s_lo + j <= s_hi) {
+        const float w = w_s[r][j];
+        acc.x += w * part[j].x;
+        acc.y += w * part[j].y;
+        acc.z += w * part[j].z;
+        acc.w += w * part[j].w;
+      }
+    }
+    SoftmaxState st;
+    st.m = 0.0f;
+    st.l = l_s[r];
+    const int tok = r / G;
+    const int head = h * G + (r - tok * G);
+    bf16* dst = out + ((static_cast<size_t>(b) * C + tok) * QH + head) * D + d;
+    uint2 packed;
+    packed.x = pack_bf16x2(finalize(st, acc.x), finalize(st, acc.y));
+    packed.y = pack_bf16x2(finalize(st, acc.z), finalize(st, acc.w));
+    *reinterpret_cast<uint2*>(dst) = packed;
+  }
+}
+
+template <int D>
+cudaError_t launch_tc(const void* q, const void* k_pages, const void* v_pages,
+                      const void* page_table, const void* kv_len, const void* q_count,
+                      void* out, void* part_acc, void* part_ml, int B, int C, int QH,
+                      int KH, int page_size, int pages_per_seq, int window, int n_splits,
+                      int split_keys, float scale, cudaStream_t stream) {
+  using Blk = TcBlock<D, kTcWarps>;
+  const size_t smem_bytes = Blk::kSmemBytes;
+  auto* kernel = ragged_attention_tc_kernel<D>;
+  if (smem_bytes > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem_bytes));
+    if (err != cudaSuccess) return err;
+  }
+  const int G = QH / KH;
+  const int n_tiles = (C * G + kTcBlockM - 1) / kTcBlockM;
+  const int n_work = n_splits > 1 ? n_tiles - 1 + n_splits : n_tiles;
+  kernel<<<dim3(n_work, KH, B), Blk::kThreads, smem_bytes, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k_pages),
+      static_cast<const bf16*>(v_pages), static_cast<const int*>(page_table),
+      static_cast<const int*>(kv_len), static_cast<const int*>(q_count),
+      static_cast<bf16*>(out), static_cast<float*>(part_acc), static_cast<float*>(part_ml),
+      C, QH, KH, page_size, pages_per_seq, window, n_splits, split_keys, scale * kLog2e);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || n_splits == 1) return err;
+  ragged_merge_kernel<D><<<dim3(KH, B), kMergeThreads, 0, stream>>>(
+      static_cast<const float*>(part_acc), static_cast<const float*>(part_ml),
+      static_cast<const int*>(kv_len), static_cast<const int*>(q_count),
+      static_cast<bf16*>(out), C, QH, KH, window, n_splits, split_keys);
+  return cudaGetLastError();
+}
+
+cudaError_t dispatch_dim_tc(int D, const void* q, const void* k_pages, const void* v_pages,
+                            const void* page_table, const void* kv_len, const void* q_count,
+                            void* out, void* part_acc, void* part_ml, int B, int C, int QH,
+                            int KH, int page_size, int pages_per_seq, int window,
+                            int n_splits, int split_keys, float scale, cudaStream_t stream) {
+#define OPTORCH_RAGGED_TC(DIM)                                                           \
+  launch_tc<DIM>(q, k_pages, v_pages, page_table, kv_len, q_count, out, part_acc,       \
+                 part_ml, B, C, QH, KH, page_size, pages_per_seq, window, n_splits,     \
+                 split_keys, scale, stream)
+  switch (D) {
+    case 16:
+      return OPTORCH_RAGGED_TC(16);
+    case 32:
+      return OPTORCH_RAGGED_TC(32);
+    case 64:
+      return OPTORCH_RAGGED_TC(64);
+    case 128:
+      return OPTORCH_RAGGED_TC(128);
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef OPTORCH_RAGGED_TC
+}
+
 }  // namespace
 }  // namespace optorch
 
 // Plain C entry point, bound with ctypes (ops/ragged_attention.py).
-// dtype: 0 = float32, 1 = bfloat16.  window <= 0 means no sliding window.
-// scale is the score scale, D^-0.5, computed by the caller.  Returns the launch status (cudaGetLastError), 0 on success.
+// dtype: 0 = float32 (the CUDA-core kernel, n_splits must be 1), 1 =
+// bfloat16 (the tensor-core kernel).  window <= 0 means no sliding window.
+// scale is the score scale, D^-0.5, computed by the caller.  n_splits and
+// split_keys are the caller's launch plan (a function of shapes only);
+// with n_splits > 1, part_acc [B, KH, n_splits, 64, D] and part_ml
+// [B, KH, n_splits, 64, 2] are f32 scratch the caller allocated.  Returns
+// the launch status (cudaGetLastError), 0 on success.
 extern "C" int ragged_attention_launch(
     const void* q, const void* k_pages, const void* v_pages,
     const void* page_table, const void* kv_len, const void* q_count, void* out,
-    int B, int C, int QH, int KH, int D, int page_size, int pages_per_seq,
-    int window, float scale, int dtype, void* stream) {
+    void* part_acc, void* part_ml, int B, int C, int QH, int KH, int D, int page_size,
+    int pages_per_seq, int window, int n_splits, int split_keys, float scale, int dtype,
+    void* stream) {
   if (B <= 0 || C <= 0 || KH <= 0 || QH % KH != 0 || page_size <= 0 ||
-      pages_per_seq <= 0) {
+      pages_per_seq <= 0 || n_splits < 1 || n_splits > optorch::kMaxSplits) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n_splits > 1 && (dtype != 1 || split_keys <= 0 ||
+                       split_keys % optorch::kTcKeys != 0 || part_acc == nullptr ||
+                       part_ml == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0) {
-    err = optorch::dispatch_dim<float>(D, q, k_pages, v_pages, page_table, kv_len,
+    err = optorch::dispatch_dim_f32(D, q, k_pages, v_pages, page_table, kv_len,
                                        q_count, out, B, C, QH, KH, page_size,
                                        pages_per_seq, window, scale, s);
   } else if (dtype == 1) {
-    err = optorch::dispatch_dim<__nv_bfloat16>(D, q, k_pages, v_pages, page_table,
-                                               kv_len, q_count, out, B, C, QH, KH,
-                                               page_size, pages_per_seq, window, scale,
-                                               s);
+    err = optorch::dispatch_dim_tc(D, q, k_pages, v_pages, page_table, kv_len, q_count,
+                                   out, part_acc, part_ml, B, C, QH, KH, page_size,
+                                   pages_per_seq, window, n_splits, split_keys, scale, s);
   } else {
     err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
+}
+
+// The tensor-core kernel's split geometry, the one source of the caller's
+// scratch shape: flash rows per tile, KV positions per stage (split_keys
+// must be a multiple), most splits.  ops/ragged_attention.py holds its
+// launch plan's copy against these once, when it binds the library.
+extern "C" void ragged_attention_tc_geometry(int* tile_rows, int* stage_keys, int* max_splits) {
+  *tile_rows = optorch::kTcBlockM;
+  *stage_keys = optorch::kTcKeys;
+  *max_splits = optorch::kMaxSplits;
 }

@@ -17,6 +17,11 @@ the port of the Pallas ``_flash_prefill_kernel``); CPU tensors take
 fallback from the kernel to the plain version.  ``models/llama.py:forward``
 takes this path only when :func:`flash_prefill_enabled` (off by default,
 as in the JAX package) and :func:`flash_prefill_supported` say so.
+
+On the card the dtype picks the kernel, by design: bf16 runs on the tensor
+cores (``mma.sync``, 128-row tiles, K and V staged as bf16 by
+``cp.async``), f32 on the CUDA cores (TF32 would miss the f32 tolerance
+and the card-vs-CPU greedy parity of the f32 engines).
 """
 
 from __future__ import annotations
@@ -124,8 +129,9 @@ def flash_prefill_cuda(
     sliding_window: Optional[int] = None,
 ) -> torch.Tensor:
     """Launch ``csrc/flash_prefill.cu`` on the current stream (no
-    synchronisation).  Raises on anything the kernel does not take and
-    on a non-zero launch status."""
+    synchronisation): the tensor-core kernel for bf16, the CUDA-core
+    kernel for f32.  Raises on anything the kernels do not take and on a
+    non-zero launch status."""
     global launches
 
     tensors = {"q": q, "k": k, "v": v, "lengths": lengths}

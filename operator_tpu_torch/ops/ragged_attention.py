@@ -25,16 +25,26 @@ tensors launch the hand-written Hopper kernel (``csrc/ragged_attention.cu``,
 the port of the Pallas ``_ragged_attn_kernel``); CPU tensors take
 :func:`ragged_attention_reference`, the plain PyTorch version.  There is
 no third branch and no fallback from the kernel to the plain version.
+
+On the card the dtype picks the kernel, by design: bf16 runs on the tensor
+cores (``mma.sync``) with split-KV for the tile that holds the decode and
+verify rows, f32 on the CUDA cores (TF32 would miss the f32 tolerance and
+the card-vs-CPU greedy parity of the f32 engines).  :func:`launch_plan`
+sizes the split from shapes alone, so the mixed step never syncs on
+``kv_len``.
 """
 
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 from typing import Optional
 
 import torch
 
 __all__ = [
+    "LaunchPlan",
+    "launch_plan",
     "launches",
     "ragged_attention_cuda",
     "ragged_attention_reference",
@@ -49,6 +59,48 @@ launches = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64, 128)
+
+# the bf16 kernel's geometry (csrc/ragged_attention.cu; checked against the
+# library's ragged_attention_tc_geometry when it is first bound)
+TILE_ROWS = 64  # flash rows per tile
+STAGE_KEYS = 64  # KV positions per shared-memory stage
+SPLIT_KEYS = 256  # positions per split of tile 0, raised to keep <= MAX_SPLITS
+MAX_SPLITS = 16
+
+
+@dataclass(frozen=True)
+class LaunchPlan:
+    """How the bf16 kernel cuts tile 0's key span: ``n_splits`` spans of
+    ``split_keys`` positions, each walked by its own block into f32
+    scratch (``acc_shape``, ``ml_shape``) that a merge kernel combines.
+    ``n_splits == 1``: no split, no scratch."""
+
+    n_splits: int
+    split_keys: int
+    acc_shape: tuple = ()
+    ml_shape: tuple = ()
+
+
+def launch_plan(q: torch.Tensor, k_pages: torch.Tensor, page_table: torch.Tensor) -> LaunchPlan:
+    """The kernel's split plan, from shapes and dtype only (never from
+    ``kv_len``, which lives on the card).  Tile 0's longest possible span,
+    ``pages_per_seq * page_size`` positions, is cut into splits of
+    ``SPLIT_KEYS`` (more when that would need over ``MAX_SPLITS``); f32
+    and spans of one split are not cut.  At tinyllama's serve shapes (B=32,
+    KH=4, D=64, 32 pages of 64) that is 8 splits of 256 positions and
+    17.3 MB of scratch."""
+    b, _, _, d = q.shape
+    page_size, kh = k_pages.shape[1], k_pages.shape[2]
+    max_seq = page_table.shape[1] * page_size
+    split_keys = max(SPLIT_KEYS, STAGE_KEYS * -(-max_seq // (MAX_SPLITS * STAGE_KEYS)))
+    n_splits = -(-max_seq // split_keys)
+    if q.dtype != torch.bfloat16 or n_splits <= 1:
+        return LaunchPlan(1, 0)
+    return LaunchPlan(
+        n_splits, split_keys,
+        acc_shape=(b, kh, n_splits, TILE_ROWS, d),
+        ml_shape=(b, kh, n_splits, TILE_ROWS, 2),
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -105,15 +157,30 @@ def ragged_attention_reference(
 def _kernel_fn():
     from ._build import load_library
 
-    fn = load_library("ragged_attention").ragged_attention_launch
+    lib = load_library("ragged_attention")
+    fn = lib.ragged_attention_launch
     if fn.argtypes is None:
+        _check_geometry(lib)
         fn.argtypes = (
-            [ctypes.c_void_p] * 7
-            + [ctypes.c_int] * 8
+            [ctypes.c_void_p] * 9
+            + [ctypes.c_int] * 10
             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
     return fn
+
+
+def _check_geometry(lib) -> None:
+    """Hold :func:`launch_plan`'s copy of the kernel's geometry against the
+    library's own: the scratch it sizes is what the kernel writes."""
+    values = [ctypes.c_int() for _ in range(3)]
+    lib.ragged_attention_tc_geometry(*(ctypes.byref(v) for v in values))
+    built = tuple(v.value for v in values)
+    if built != (TILE_ROWS, STAGE_KEYS, MAX_SPLITS):
+        raise RuntimeError(
+            f"ragged_attention library geometry (tile rows, stage keys, max splits) {built} "
+            f"!= the wrapper's {(TILE_ROWS, STAGE_KEYS, MAX_SPLITS)}"
+        )
 
 
 def ragged_attention_cuda(
@@ -126,8 +193,10 @@ def ragged_attention_cuda(
     sliding_window: Optional[int] = None,
 ) -> torch.Tensor:
     """Launch ``csrc/ragged_attention.cu`` on the current stream (no
-    synchronisation).  Raises on anything the kernel does not take and
-    on a non-zero launch status."""
+    synchronisation): the tensor-core kernel for bf16 (and, when
+    :func:`launch_plan` splits, its merge kernel; one launch counted), the
+    CUDA-core kernel for f32.  Raises on anything the kernels do not take
+    and on a non-zero launch status."""
     global launches
 
     tensors = {
@@ -167,15 +236,22 @@ def ragged_attention_cuda(
     for name in ("q", "k_pages", "v_pages"):
         if tensors[name].data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned (the kernel reads 16 bytes at a time)")
+    plan = launch_plan(q, k_pages, page_table)
     out = torch.empty_like(q)
+    part_acc = part_ml = None
+    if plan.n_splits > 1:
+        part_acc = torch.empty(plan.acc_shape, dtype=torch.float32, device=q.device)
+        part_ml = torch.empty(plan.ml_shape, dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     status = _kernel_fn()(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         page_table.data_ptr(), kv_len.data_ptr(), q_count.data_ptr(),
         out.data_ptr(),
+        part_acc.data_ptr() if part_acc is not None else None,
+        part_ml.data_ptr() if part_ml is not None else None,
         b, c, qh, kh, d, page_size, page_table.shape[1],
-        int(sliding_window or 0), float(d ** -0.5), _DTYPE_CODES[q.dtype],
-        stream,
+        int(sliding_window or 0), plan.n_splits, plan.split_keys,
+        float(d ** -0.5), _DTYPE_CODES[q.dtype], stream,
     )
     if status != 0:
         raise RuntimeError(f"ragged_attention kernel launch failed: CUDA error {status}")

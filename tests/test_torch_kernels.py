@@ -13,13 +13,20 @@ flash-prefill kernel on every row, padded query rows included; the
 best-window similarity kernel at the semantic path's three geometries
 and the CPU tests' shapes, exact indices where window rows are
 duplicated; and an unknown decode-kernel selector refusing to build the
-wave engine.  This file imports no JAX, so it runs on a machine that
-has only PyTorch::
+wave engine.  The bf16 tensor-core kernels also at D = 16, 32, 64 and
+128; the ragged kernel on long rows (2,048 positions at page 16 and at
+page 96, so its split-KV runs with split edges on and off page edges, a
+window emptying whole splits); the prefill kernel at T = 24 and
+T = 2,048 and on padded rows a window leaves with no key.  On the CPU,
+the ragged kernel's launch plan is a function of shapes alone, and
+its copy of the kernel's geometry is the sources' and the library's.  This
+file imports no JAX, so it runs on a machine that has only PyTorch::
 
     python -m pytest tests/test_torch_kernels.py -q
 """
 
 import importlib.util
+import re
 from pathlib import Path
 
 import numpy as np
@@ -57,16 +64,22 @@ TOL = {"float32": 1e-4, "bfloat16": 6e-2}
 WAVE_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 
 
-def _inputs(name, dtype=torch.float32, device="cpu"):
+def _inputs(name, dtype=torch.float32, device="cpu", d=D):
     kv_len, q_count, window = GEOMETRIES[name]
-    rng = np.random.default_rng(sum(map(ord, name)))
-    num_pages = B * PPS + 1
+    return _paged_inputs(kv_len, q_count, window, PAGE, PPS, sum(map(ord, name)), dtype,
+                         device, d)
+
+
+def _paged_inputs(kv_len, q_count, window, page, pps, seed, dtype, device, d=D):
+    rng = np.random.default_rng(seed)
+    b = len(kv_len)
+    num_pages = b * pps + 1
     arrays = [
-        rng.normal(size=(B, C, QH, D)).astype(np.float32),
-        rng.normal(size=(num_pages, PAGE, KH, D)).astype(np.float32),
-        rng.normal(size=(num_pages, PAGE, KH, D)).astype(np.float32),
+        rng.normal(size=(b, C, QH, d)).astype(np.float32),
+        rng.normal(size=(num_pages, page, KH, d)).astype(np.float32),
+        rng.normal(size=(num_pages, page, KH, d)).astype(np.float32),
     ]
-    table = (1 + rng.permutation(num_pages - 1)[: B * PPS]).reshape(B, PPS)
+    table = (1 + rng.permutation(num_pages - 1)[: b * pps]).reshape(b, pps)
     args = [torch.from_numpy(a).to(device, dtype) for a in arrays] + [
         torch.as_tensor(table, dtype=torch.int32, device=device),
         torch.as_tensor(kv_len, dtype=torch.int32, device=device),
@@ -84,6 +97,80 @@ def test_cpu_dispatch_takes_the_plain_version_and_launches_nothing(name):
     assert ragged.launches == before
     assert got.shape == (B, C, QH, D) and got.dtype == torch.float32
     assert torch.equal(got, want)
+
+
+def _meta(shape, dtype):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def test_ragged_launch_plan_is_a_function_of_shapes():
+    """The split plan reads shapes and dtype only: meta tensors (no data,
+    nothing to read) give it, and tinyllama's serve shapes (B=32, C=64,
+    QH=32, KH=4, D=64, 32 pages of 64) give 8 splits of 256 positions and
+    17.3 MB of scratch."""
+    bf16, i32 = torch.bfloat16, torch.int32
+    plan = ragged.launch_plan(
+        _meta((32, 64, 32, 64), bf16), _meta((32 * 32 + 1, 64, 4, 64), bf16), _meta((32, 32), i32)
+    )
+    assert plan == ragged.LaunchPlan(8, 256, (32, 4, 8, 64, 64), (32, 4, 8, 64, 2))
+    assert 4 * (np.prod(plan.acc_shape) + np.prod(plan.ml_shape)) == 17_301_504  # f32 scratch
+    # the same shapes with data: the same plan, whatever kv_len holds
+    args, _, _ = _inputs("mixed", torch.bfloat16)
+    for table_len in (PPS, 128):
+        table = torch.zeros((B, table_len), dtype=torch.int32)
+        want = ragged.launch_plan(_meta(args[0].shape, bf16), _meta(args[1].shape, bf16),
+                                  _meta(table.shape, i32))
+        assert ragged.launch_plan(args[0], args[1], table) == want
+    # page 16 x 128 pages and page 96 x 22 pages: 2,048 and 2,112 positions
+    split = ragged.launch_plan(args[0], args[1], torch.zeros((B, 128), dtype=i32))
+    assert (split.n_splits, split.split_keys) == (8, 256)
+    split = ragged.launch_plan(args[0], _meta((9, 96, KH, D), bf16), _meta((B, 22), i32))
+    assert (split.n_splits, split.split_keys) == (9, 256)
+    # short caches and f32 are not cut; long ones keep at most 16 splits
+    assert ragged.launch_plan(args[0], args[1], table[:, :16]) == ragged.LaunchPlan(1, 0)
+    assert ragged.launch_plan(args[0].float(), args[1].float(), table) == ragged.LaunchPlan(1, 0)
+    long = ragged.launch_plan(args[0], args[1], _meta((B, 4096), i32))
+    assert (long.n_splits, long.split_keys) == (16, 4096)
+
+
+class _GeometryLibrary:
+    """Stands in for the built library: ``ragged_attention_tc_geometry``
+    reports ``values`` (tile rows, stage keys, most splits)."""
+
+    def __init__(self, values):
+        self.values = values
+
+    def ragged_attention_tc_geometry(self, *refs):
+        for ref, value in zip(refs, self.values):
+            ref._obj.value = value
+
+
+@pytest.mark.parametrize("drift", [None, 0, 1, 2], ids=["same", "tile_rows", "stage_keys", "max_splits"])
+def test_ragged_wrapper_refuses_a_library_of_other_geometry(drift):
+    """The wrapper sizes the split scratch from its own copy of the bf16
+    kernel's geometry, so binding a library that reports another one
+    raises before any launch."""
+    values = [ragged.TILE_ROWS, ragged.STAGE_KEYS, ragged.MAX_SPLITS]
+    if drift is None:
+        ragged._check_geometry(_GeometryLibrary(values))
+        return
+    values[drift] *= 2
+    with pytest.raises(RuntimeError, match="geometry"):
+        ragged._check_geometry(_GeometryLibrary(values))
+
+
+def test_ragged_wrapper_geometry_matches_the_kernel_sources():
+    """The same copy against the constants in the CUDA sources, read as
+    text (nothing is built): 16 flash rows a warp."""
+    csrc = Path(ragged.__file__).resolve().parent / "csrc"
+
+    def constant(source, name):
+        found = re.search(rf"constexpr int {name} = (\d+);", (csrc / source).read_text())
+        return int(found.group(1))
+
+    assert ragged.TILE_ROWS == 16 * constant("ragged_attention.cu", "kTcWarps")
+    assert ragged.STAGE_KEYS == constant("flash_common.cuh", "kTcKeys")
+    assert ragged.MAX_SPLITS == constant("ragged_attention.cu", "kMaxSplits")
 
 
 def test_cuda_wrapper_refuses_cpu_tensors():
@@ -122,23 +209,33 @@ def _decode_inputs(name, dtype=torch.float32, device="cpu"):
     return args, window
 
 
-#: prefill: name -> (T, lengths, sliding_window)
+#: prefill: name -> (T, lengths, sliding_window); "window_no_key": padded
+#: tokens from 55 (length 40) and every token (length 0) have no key under
+#: the window, in tiles of their own and in a tile beside live rows
 PREFILL_GEOMETRIES = {
     "full": (64, [64], None),
     "ragged": (128, [128, 37, 1], None),
     "window": (128, [128, 70, 9], 24),
     "short_bucket": (24, [24, 7], None),
+    "window_no_key": (128, [128, 40, 0], 16),
+}
+#: on the card only (the plain version's [T, T] scores are large for the
+#: CPU tests): one long row
+CARD_PREFILL_GEOMETRIES = {
+    **PREFILL_GEOMETRIES,
+    "long_b1": (2048, [1501], None),
+    "long_window": (2048, [2048, 700], 300),
 }
 
 
-def _prefill_inputs(name, dtype=torch.float32, device="cpu"):
-    t, lengths, window = PREFILL_GEOMETRIES[name]
+def _prefill_inputs(name, dtype=torch.float32, device="cpu", d=D):
+    t, lengths, window = CARD_PREFILL_GEOMETRIES[name]
     rng = np.random.default_rng(sum(map(ord, name)))
     b = len(lengths)
     arrays = [
-        rng.normal(size=(b, t, QH, D)).astype(np.float32),
-        rng.normal(size=(b, t, KH, D)).astype(np.float32),
-        rng.normal(size=(b, t, KH, D)).astype(np.float32),
+        rng.normal(size=(b, t, QH, d)).astype(np.float32),
+        rng.normal(size=(b, t, KH, d)).astype(np.float32),
+        rng.normal(size=(b, t, KH, d)).astype(np.float32),
     ]
     args = [torch.from_numpy(a).to(device, dtype) for a in arrays] + [
         torch.as_tensor(lengths, dtype=torch.int32, device=device)
@@ -198,7 +295,7 @@ def test_build_is_cached_by_source_hash(tmp_path, monkeypatch):
     names = ["flash_prefill", "paged_attention", "ragged_attention", "similarity"]
     assert _build.source_names() == names
     _build.build_all()
-    targets = [_build._library_path(name) for name in names]
+    targets = [_build.library_path(name) for name in names]
     for target in targets:
         assert target.parent == tmp_path / "build" and target.read_text() == "built\n"
     _build.build_all()  # unchanged sources: nothing to build
@@ -293,9 +390,57 @@ def test_cuda_decode_kernel_matches_plain_version(cuda, name, dtype_name):
     assert diff <= WAVE_TOL[dtype_name], (name, diff)
 
 
+def _valid_rows_err(got, want, q_count):
+    return max((got[row, :n].float() - want[row, :n].float()).abs().max().item()
+               for row, n in enumerate(q_count) if n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head_dim", [16, 32, 64, 128])
+@pytest.mark.parametrize("name", ["mixed", "spec_verify", "window", "ragged_kv_len"])
+def test_cuda_bf16_kernel_matches_plain_version_at_every_head_dim(cuda, name, head_dim):
+    args, window, q_count = _inputs(name, torch.bfloat16, "cuda", d=head_dim)
+    got = ragged.ragged_paged_attention(*args, sliding_window=window)
+    want = ragged.ragged_attention_reference(*args, sliding_window=window)
+    assert _valid_rows_err(got, want, q_count) <= TOL["bfloat16"], name
+
+
+#: long rows: name -> (page, pages_per_seq, kv_len, q_count, window).
+#: Page 16 x 128 pages: 8 splits of 256 positions, split edges on page
+#: edges; page 96 x 22 pages: 9 splits, most edges inside a page.  Rows:
+#: a decode row filling the cache, a verify row whose first query is the
+#: last position of split 3 (split 4 is all masked for it), a row one past
+#: a split edge, a verify row whose window empties splits 0-5, decode rows
+#: at a split edge and one position, and an idle row.
+LONG_ROWS = {
+    "page16": (16, 128, [2048, 1027, 257, 2048, 512, 1, 0], [1, 4, 2, 5, 1, 1, 0], 300),
+    "page16_no_window": (16, 128, [2048, 1027, 257, 2000, 512, 1, 0], [1, 4, 2, 5, 1, 1, 0], None),
+    "page96": (96, 22, [2112, 1027, 257, 2100, 768, 97, 0], [1, 4, 2, 5, 1, 3, 0], 300),
+    "page96_no_window": (96, 22, [2112, 1027, 257, 2100, 768, 97, 0], [1, 4, 2, 5, 1, 3, 0], None),
+}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
-@pytest.mark.parametrize("name", list(PREFILL_GEOMETRIES))
+@pytest.mark.parametrize("name", list(LONG_ROWS))
+def test_cuda_kernel_matches_plain_version_on_long_rows(cuda, name, dtype_name):
+    page, pps, kv_len, q_count, window = LONG_ROWS[name]
+    args, window, q_count = _paged_inputs(kv_len, q_count, window, page, pps, pps + page,
+                                          getattr(torch, dtype_name), "cuda")
+    if dtype_name == "bfloat16":
+        plan = ragged.launch_plan(args[0], args[1], args[3])
+        assert plan.n_splits == (8 if page == 16 else 9)
+    before = ragged.launches
+    got = ragged.ragged_paged_attention(*args, sliding_window=window)
+    torch.cuda.synchronize()
+    assert ragged.launches == before + 1  # kernel and merge: one wrapper call
+    want = ragged.ragged_attention_reference(*args, sliding_window=window)
+    assert _valid_rows_err(got, want, q_count) <= TOL[dtype_name], name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", list(CARD_PREFILL_GEOMETRIES))
 def test_cuda_prefill_kernel_matches_plain_version(cuda, name, dtype_name):
     args, window = _prefill_inputs(name, getattr(torch, dtype_name), "cuda")
     before = flash_prefill.launches
@@ -306,6 +451,22 @@ def test_cuda_prefill_kernel_matches_plain_version(cuda, name, dtype_name):
     want = flash_prefill.flash_prefill_reference(*args, sliding_window=window)
     diff = (got.float() - want.float()).abs().max().item()
     assert diff <= WAVE_TOL[dtype_name], (name, diff)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head_dim", [16, 32, 64, 128])
+@pytest.mark.parametrize("name", ["ragged", "window_no_key", "short_bucket"])
+def test_cuda_bf16_prefill_kernel_at_every_head_dim(cuda, name, head_dim):
+    """WAVE_TOL plus one bf16 ulp of the output (2^-7 |want|), never above
+    K1's 6e-2: rows with one or two keys reach |out| >= 4, where the two
+    versions' different rounding of P (normalised or not) can land one
+    ulp, 0.03125, apart (measured on D = 32, ``window_no_key``)."""
+    args, window = _prefill_inputs(name, torch.bfloat16, "cuda", d=head_dim)
+    got = flash_prefill.flash_prefill_attention(*args, sliding_window=window).float()
+    want = flash_prefill.flash_prefill_reference(*args, sliding_window=window).float()
+    limit = (WAVE_TOL["bfloat16"] + want.abs() * 2.0 ** -7).clamp(max=TOL["bfloat16"])
+    excess = (got - want).abs() - limit
+    assert excess.max().item() <= 0, (name, head_dim, (got - want).abs().max().item())
 
 
 @pytest.mark.cuda

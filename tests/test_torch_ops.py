@@ -7,7 +7,10 @@ and to the JAX dense reference, across every geometry the scheduler
 produces; decode rows also to both packages' ``paged_attention_reference``;
 ``write_tokens`` to the JAX scatter.  f32 throughout, atol 1e-5 (the two
 packages sum in different orders), valid rows only (padding rows are
-don't-care by contract).
+don't-care by contract).  A numpy model of the bf16 CUDA kernel's
+split-KV arithmetic (its stages, its split rule, the -1e30 mask and the
+merge by exp2(m_s - m_max)) is held to the JAX dense reference on the
+same geometries and on long rows cut into the kernel's 8 splits.
 
 The wave engine's ops: the port's ``paged_attention`` (the plain version
 on the CPU) against both JAX Pallas decode kernels (v1 and v2) in
@@ -117,6 +120,150 @@ def test_decode_rows_match_paged_attention_references(window):
     ))
     np.testing.assert_allclose(ours_decode, jax_decode, rtol=0, atol=ATOL)
     np.testing.assert_allclose(ours_ragged[:, 0], jax_decode, rtol=0, atol=ATOL)
+
+
+_NEG_INF = np.float32(-1e30)
+
+
+def _walk(q_rows, pos, keys, values, begin, end, window, stage):
+    """One block's walk of KV positions [begin, end) in stages, as the bf16
+    kernel walks them: scores in base 2, masked entries at -1e30 (positions
+    past ``end`` in the last stage are zero rows, masked), the online
+    softmax state per row.  Returns the partial (m, l, acc)."""
+    rows, d = q_rows.shape
+    scale_log2 = np.float32(d ** -0.5 * np.log2(np.e))
+    m = np.full(rows, _NEG_INF, np.float32)
+    l = np.zeros(rows, np.float32)
+    acc = np.zeros((rows, d), np.float32)
+    for start in range(begin, end, stage):
+        t = np.arange(start, start + stage)
+        inside = t < end
+        k = np.where(inside[:, None], keys[np.minimum(t, len(keys) - 1)], 0)
+        v = np.where(inside[:, None], values[np.minimum(t, len(values) - 1)], 0)
+        live = (t[None] <= pos[:, None]) & inside[None]
+        if window is not None:
+            live &= t[None] > pos[:, None] - window
+        s = np.where(live, (q_rows @ k.T) * scale_log2, _NEG_INF).astype(np.float32)
+        m_new = np.maximum(m, s.max(axis=1))
+        alpha = np.exp2(m - m_new)
+        p = np.exp2(s - m_new[:, None])
+        l = alpha * l + p.sum(axis=1)
+        acc = alpha[:, None] * acc + p @ v
+        m = m_new
+    return m, l, acc
+
+
+def split_merge_model(q, k_pages, v_pages, table, kv_len, q_count, window,
+                      n_splits, split_keys, stage=ragged.STAGE_KEYS,
+                      tile_rows=ragged.TILE_ROWS):
+    """The bf16 ragged kernel's arithmetic in f32 numpy: tiles of
+    ``tile_rows`` flash rows, each tile's span (window start aligned down
+    to a stage, causal and kv_len end), tile 0 cut into ``n_splits`` spans
+    of ``split_keys`` (the last unbounded, empty ones skipped), and the
+    merge weighting each split by exp2(m_s - m_max)."""
+    b_, c, qh, d = q.shape
+    kh = k_pages.shape[2]
+    g = qh // kh
+    out = np.zeros_like(q)
+    for b in range(b_):
+        count, seq = int(q_count[b]), int(kv_len[b])
+        if count <= 0:
+            continue
+        q_base = seq - count
+        keys = k_pages[table[b]].reshape(-1, kh, d)
+        values = v_pages[table[b]].reshape(-1, kh, d)
+        for row0 in range(0, min(count * g, c * g), tile_rows):
+            rows = np.arange(row0, min(row0 + tile_rows, count * g, c * g))
+            tok0, tok_last = row0 // g, min((row0 + tile_rows - 1) // g, count - 1)
+            end = min(seq, q_base + tok_last + 1)
+            begin = 0 if window is None else max(q_base + tok0 - window + 1, 0)
+            begin -= begin % stage
+            spans = [(begin, end)]
+            if row0 == 0 and n_splits > 1:
+                spans = [(max(begin, s * split_keys),
+                          min(end, (s + 1) * split_keys) if s + 1 < n_splits else end)
+                         for s in range(n_splits)]
+                spans = [(lo, hi) for lo, hi in spans if hi > lo]
+            pos = q_base + rows // g
+            for h in range(kh):
+                q_rows = q[b, rows // g, h * g + rows % g]
+                parts = [_walk(q_rows, pos, keys[:, h], values[:, h], lo, hi, window, stage)
+                         for lo, hi in spans]
+                m_max = np.max([m for m, _, _ in parts], axis=0)
+                l = np.zeros(len(rows), np.float32)
+                acc = np.zeros((len(rows), d), np.float32)
+                for m_s, l_s, acc_s in parts:
+                    w = np.exp2(m_s - m_max)
+                    l += w * l_s
+                    acc += w[:, None] * acc_s
+                out[b, rows // g, h * g + rows % g] = acc / np.maximum(l, 1e-30)[:, None]
+    return out
+
+
+#: (stage, split_keys): the kernel's constants, and small ones that cut the
+#: seven geometries' short rows into many stages and splits (with tiles of
+#: 4 flash rows, so tiles past tile 0 are walked whole beside the splits)
+SPLIT_RULES = [(ragged.STAGE_KEYS, ragged.SPLIT_KEYS), (4, 8), (8, 8)]
+
+
+@pytest.mark.parametrize("rule", SPLIT_RULES, ids=lambda r: f"stage{r[0]}_split{r[1]}")
+@pytest.mark.parametrize("name", list(GEOMETRIES))
+def test_split_merge_model_matches_jax_reference(name, rule):
+    """The split-and-merge arithmetic of the bf16 kernel (in f32, P not
+    rounded) equals the JAX dense reference on the valid rows: splitting
+    tile 0 and merging by exp2(m_s - m_max) changes nothing but the
+    order of the sums."""
+    stage, split_keys = rule
+    kv_len, q_count, window = GEOMETRIES[name]
+    q, k_pages, v_pages, table = _inputs(sum(map(ord, name)))
+    n_splits = -(-PPS * PAGE // split_keys)
+    got = split_merge_model(q, k_pages, v_pages, table, np.asarray(kv_len),
+                            np.asarray(q_count), window, n_splits, split_keys,
+                            stage=stage, tile_rows=4)
+    want = np.asarray(jax_ragged.ragged_attention_reference(
+        *(jnp.asarray(a) for a in (q, k_pages, v_pages, table,
+                                   np.asarray(kv_len, np.int32), np.asarray(q_count, np.int32))),
+        sliding_window=window,
+    ))
+    _assert_valid_rows_close(got, want, q_count)
+
+
+#: one long row per case at page 16 and 128 pages (2,048 positions; the
+#: kernel's plan: 8 splits of 256): a decode row filling the cache, a
+#: verify row whose first query sits at the last position of split 3 (split
+#: 4 is all masked for it: m = -1e30 with l > 0), a verify row whose window
+#: empties splits 0-5, and a row one past a split edge
+LONG_ROWS = {
+    "decode_2048": (2048, 1, None),
+    "verify_masked_split": (1024 + 3, 4, None),
+    "window_empties_splits": (2048, 5, 300),
+    "split_edge_plus_one": (257, 2, None),
+}
+
+
+@pytest.mark.parametrize("name", list(LONG_ROWS))
+def test_split_merge_model_matches_jax_reference_on_a_long_row(name):
+    seq, count, window = LONG_ROWS[name]
+    page, pps, c, qh, kh, d = 16, 128, 8, 8, 2, 16
+    rng = np.random.default_rng(seq + count)
+    q = rng.normal(size=(1, c, qh, d)).astype(np.float32)
+    k_pages = rng.normal(size=(pps + 1, page, kh, d)).astype(np.float32)
+    v_pages = rng.normal(size=(pps + 1, page, kh, d)).astype(np.float32)
+    table = (1 + rng.permutation(pps))[None].astype(np.int32)
+    kv_len, q_count = np.asarray([seq], np.int32), np.asarray([count], np.int32)
+    plan = ragged.launch_plan(
+        torch.empty((1, c, qh, d), dtype=torch.bfloat16, device="meta"),
+        torch.empty(k_pages.shape, dtype=torch.bfloat16, device="meta"),
+        torch.empty(table.shape, dtype=torch.int32, device="meta"),
+    )
+    assert (plan.n_splits, plan.split_keys) == (8, 256)
+    got = split_merge_model(q, k_pages, v_pages, table, kv_len, q_count, window,
+                            plan.n_splits, plan.split_keys)
+    want = np.asarray(jax_ragged.ragged_attention_reference(
+        *(jnp.asarray(a) for a in (q, k_pages, v_pages, table, kv_len, q_count)),
+        sliding_window=window,
+    ))
+    _assert_valid_rows_close(got, want, q_count)
 
 
 @pytest.mark.parametrize("with_valid_len", [False, True])
