@@ -12,8 +12,9 @@ Phases, in order — any failure stops the run:
    of every kernel of the port from the checkout's sources (one ``nvcc``
    per source, all started together), and each library's count of
    tensor-core instructions (``cuobjdump -sass``: ``HMMA`` for mma.sync,
-   ``HGMMA`` for wgmma) — the bf16 ragged (K1) and prefill (K4) kernels
-   run on the tensor cores, so their libraries must have some;
+   ``HGMMA`` for wgmma) — the bf16 ragged (K1), paged decode (K2/K3) and
+   prefill (K4) kernels run on the tensor cores, so their libraries must
+   have some;
 2. kernels: each kernel against its plain PyTorch version on the card at
    the main paths' shapes (tinyllama-1.1b: QH=32, KH=4, D=64, page 64,
    32 rows), bf16 and f32, tolerances stated below.  The ragged kernel
@@ -26,7 +27,8 @@ Phases, in order — any failure stops the run:
    best-window similarity kernel (K5) at the semantic path's three
    geometries (4,096 windows x 19 patterns, x 1,024 patterns, and one
    query x 2,048 incidents; D = 384), scores and the plain score at the
-   chosen window, and exact first indices where window rows repeat.
+   chosen window, and exact first indices where window rows repeat; and
+   the K5 wrapper's host time per call, part by part.
    Times each kernel, its plain version and one PyTorch library call
    computing the same function (``scaled_dot_product_attention`` over
    the gathered KV, or with the causal+length mask; ``torch.matmul`` +
@@ -54,7 +56,11 @@ Phases, in order — any failure stops the run:
    decode block, the ragged and similarity kernels never; every request
    finishes and every page comes back free.  Then one more request,
    untimed: each of its prefill wave's 22 K4 calls is held to the plain
-   version on its own inputs (every row; ``prefill_drive_limit``);
+   version on its own inputs (every row; ``prefill_drive_limit``); and
+   one more, of 786 prompt tokens: each of the 22 K2/K3 calls of its
+   first decode step is held to the plain version (every row, WAVE_TOL),
+   and its long row must have keys in at least three of the kernel's
+   splits, so the split-KV merge is held too;
 5. analysis: the semantic analysis path at the full width of
    all-MiniLM-L6-v2 (f32 weights from a seed, byte-level token ids,
    buckets of 32 texts x 256 tokens) through ``PatternEngine.analyze``
@@ -242,6 +248,27 @@ def k1_split_note(q, k_pages, v_pages, page_table, kv_len, q_count, sliding_wind
             begin = max(seq - count - sliding_window + 1, 0)
             begin -= begin % ra.STAGE_KEYS
         most = max(most, -(-end // plan.split_keys) - begin // plan.split_keys)
+    return {"n_splits": plan.n_splits, "splits_with_keys": most}
+
+
+def k2_split_note(q, k_pages, v_pages, page_table, lengths, sliding_window=None) -> dict:
+    """How many of the decode kernel's splits hold keys of the longest
+    row in this K2/K3 call, by the kernel's span rule
+    (``csrc/paged_attention.cu``) and the wrapper's plan; 1 when the plan
+    does not split."""
+    from operator_tpu_torch.ops import paged_attention as pa
+    from operator_tpu_torch.ops import ragged_attention as ra
+
+    plan = pa.launch_plan(q, k_pages, page_table)
+    most = 0
+    for seq in lengths.tolist():
+        end = min(seq, page_table.shape[1] * k_pages.shape[1])
+        lo = max(seq - sliding_window, 0) if sliding_window else 0
+        begin = lo - lo % ra.STAGE_KEYS
+        if plan.n_splits == 1 or end <= begin:
+            most = max(most, 1)
+            continue
+        most = max(most, (end - 1) // plan.split_keys - begin // plan.split_keys + 1)
     return {"n_splits": plan.n_splits, "splits_with_keys": most}
 
 
@@ -701,6 +728,7 @@ def phase_wave_kernels(results: dict) -> list:
         "launches": None,  # filled by the wave phase
         "max_abs_err": worst["decode"],
         **timings["decode_wave"],
+        "geometries": {name: timings[name] for name in ("decode_wave", "decode_mixed")},
     }
     return [
         {"name": "paged_decode_attention_v2", **decode,
@@ -822,6 +850,11 @@ def phase_similarity_kernels(results: dict, phases: set) -> dict:
         }}), flush=True)
     results["similarity_kernel_checks"] = checks
     results["similarity_kernel_timings"] = timings
+    results["similarity_host_us"] = {
+        name: similarity_host_us(*similarity_case(name, torch.float32, 100)[:2])
+        for name in ("analysis", "recall")
+    }
+    print(json.dumps({"similarity_host_us": results["similarity_host_us"]}), flush=True)
     if "profile" in phases:  # the kernels' own device time, without time_ms's events
         results["similarity_kernel_profile"] = {}
         for name in SIM_GEOMETRIES:
@@ -836,7 +869,65 @@ def phase_similarity_kernels(results: dict, phases: set) -> dict:
         "launches": None,  # filled by the analysis phase
         "max_abs_err": worst,
         **timings["analysis"],
+        "geometries": timings,
     }
+
+
+def similarity_host_us(windows, patterns, iters: int = 400) -> dict:
+    """The K5 wrapper's host time per call in microseconds, part by part:
+    each part run ``iters`` times back to back on the host clock (the card
+    is not waited for; a synchronise ends each part, outside its time).
+    ``checks`` is the whole call less the parts timed."""
+    import torch
+
+    from operator_tpu_torch.ops import similarity as sim
+
+    (w, d), p = windows.shape, patterns.shape[0]
+    device = windows.device
+    fn = sim._kernel_fn()
+    plan = sim.launch_plan(w, p, d, 4, sim._sm_count(device))
+    stream = torch.cuda.current_stream(device).cuda_stream
+    scores = torch.empty(p, dtype=torch.float32, device=device)
+    best = torch.empty(p, dtype=torch.int32, device=device)
+    part_s = torch.empty((plan.shares, p), dtype=torch.float32, device=device)
+    part_i = torch.empty((plan.shares, p), dtype=torch.int32, device=device)
+    counters = sim.ticket_counters(device, stream, plan.p_tiles)
+    scratch = plan.shares > 1
+    ptrs = (part_s.data_ptr(), part_i.data_ptr(), counters.data_ptr()) if scratch else (None,) * 3
+
+    def outputs():
+        torch.empty(p, dtype=torch.float32, device=device)
+        torch.empty(p, dtype=torch.int32, device=device)
+
+    def scratches():
+        if scratch:
+            torch.empty((plan.shares, p), dtype=torch.float32, device=device)
+            torch.empty((plan.shares, p), dtype=torch.int32, device=device)
+            sim.ticket_counters(device, stream, plan.p_tiles)
+
+    parts = {
+        "call": lambda: sim.best_window_scores_cuda(windows, patterns),
+        "plan": lambda: sim.launch_plan(w, p, d, 4, sim._sm_count(device)),
+        "stream": lambda: torch.cuda.current_stream(device).cuda_stream,
+        "outputs": outputs,
+        "scratch": scratches,
+        "launch": lambda: fn(windows.data_ptr(), patterns.data_ptr(), scores.data_ptr(),
+                             best.data_ptr(), *ptrs, w, p, d, plan.config, plan.share_w,
+                             plan.shares, 0, stream),
+    }
+    out = {}
+    for name, part in parts.items():
+        for _ in range(20):
+            part()
+        torch.cuda.synchronize()
+        started = time.perf_counter()
+        for _ in range(iters):
+            part()
+        out[name] = (time.perf_counter() - started) / iters * 1e6
+        torch.cuda.synchronize()
+    out["checks"] = out["call"] - sum(v for k, v in out.items() if k != "call")
+    out["shares"] = plan.shares
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1010,6 +1101,7 @@ def phase_wave(results: dict, kernel_modules: dict, phases: set, selector: str) 
     import torch
 
     from operator_tpu_torch.ops import flash_prefill as fp
+    from operator_tpu_torch.ops import paged_attention as pa
     from operator_tpu_torch.serving.httpserver import CompletionServer
     from operator_tpu_torch.serving.provider import build_serving_engine
 
@@ -1073,6 +1165,19 @@ def phase_wave(results: dict, kernel_modules: dict, phases: set, selector: str) 
                 fp.flash_prefill_attention, fp.flash_prefill_reference, layers,
                 prefill_drive_limit,
             ), LOG_LINE * 3)
+            # a prompt over two splits long, held on its first decode step
+            # (the first call whose longest row reaches past the prompt)
+            prompt = LOG_LINE * 5
+            prompt_tokens = len(prompt.encode()) + 1
+            held_decode = held_drive_calls(url, pa, "paged_attention", HeldToPlain(
+                pa.paged_attention, pa.paged_attention_reference, layers,
+                lambda dtype, _: WAVE_TOL[dtype],
+                select=lambda q, k, v, table, lengths: lengths.max().item() > prompt_tokens,
+                note=k2_split_note,
+            ), prompt)
+            if held_decode["splits_with_keys"] < 3:
+                raise fail(f"the held K2/K3 step's long row had keys in "
+                           f"{held_decode['splits_with_keys']} splits, want >= 3")
         finally:
             server.stop()
         wave = {
@@ -1086,7 +1191,7 @@ def phase_wave(results: dict, kernel_modules: dict, phases: set, selector: str) 
             "decode_blocks": blocks,
             "stream_ms_per_block": sum(block_ms) / len(block_ms) if block_ms else None,
             "launches": launches, "setup_s": setup_s,
-            "pages_free": free_pages, "held_calls": held,
+            "pages_free": free_pages, "held_calls": held, "held_decode_calls": held_decode,
             "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
         }
         print(json.dumps({"wave": wave}), flush=True)
@@ -1540,7 +1645,7 @@ def main() -> int:
     print(json.dumps({"build_s": results["build_s"], "sources": _build.source_names()}), flush=True)
     results["tensor_core_instructions"] = tensor_core_instructions(_build)
     print(json.dumps({"tensor_core_instructions": results["tensor_core_instructions"]}), flush=True)
-    no_mma = [name for name in ("ragged_attention", "flash_prefill")
+    no_mma = [name for name in ("ragged_attention", "paged_attention", "flash_prefill")
               if not results["tensor_core_instructions"][name]]
     if no_mma:
         raise fail(f"no tensor-core instruction (HMMA/HGMMA) in {no_mma}")

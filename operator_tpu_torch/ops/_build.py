@@ -26,7 +26,7 @@ import threading
 from pathlib import Path
 from typing import Iterable, Optional
 
-__all__ = ["build_all", "library_path", "load_library", "source_names"]
+__all__ = ["build_all", "library_path", "load_library", "source_names", "ticket_counters"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = [
@@ -134,3 +134,24 @@ def load_library(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(library_path(name)))
             _loaded[name] = lib
     return lib
+
+
+#: (device index, stream) -> int32 zeros: the merge tickets of the kernels
+#: whose last block to finish merges the others' partials (paged decode,
+#: similarity).  The merging block resets its counter, so the tensor stays
+#: zero between launches, and launches on one stream run in order, so they
+#: may share it; launches that may overlap (other streams) never do.
+_counters: dict = {}
+
+
+def ticket_counters(device, stream: int, n: int):
+    """At least ``n`` int32 zeros on ``device`` for launches on ``stream``,
+    allocated once and reused."""
+    import torch
+
+    key = (device.index, stream)
+    buf = _counters.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 256), dtype=torch.int32, device=device)
+        _counters[key] = buf
+    return buf

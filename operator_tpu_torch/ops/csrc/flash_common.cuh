@@ -25,32 +25,6 @@ namespace optorch {
 constexpr float kNegInf = -1e30f;
 constexpr float kDenomFloor = 1e-30f;
 
-template <typename T>
-__device__ __forceinline__ float to_float(T x);
-
-template <>
-__device__ __forceinline__ float to_float<float>(float x) {
-  return x;
-}
-
-template <>
-__device__ __forceinline__ float to_float<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-
-template <>
-__device__ __forceinline__ float from_float<float>(float x) {
-  return x;
-}
-
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
 // 16 bytes of T, as read by one vector load -> 16 / sizeof(T) floats
 // (bf16 -> f32 is exact: the bf16 bits are the float's high half).
 __device__ __forceinline__ void unpack(const uint4& u, float (&out)[4], float) {
@@ -248,6 +222,23 @@ struct WarpTile {
     const int c = (lane >> 4) * 8;
 #pragma unroll
     for (int kk = 0; kk < kKSteps; ++kk) ldmatrix_x4(q[kk], q_s + r * kLd + kk * 16 + c);
+  }
+
+  // The query slice straight from device memory, for a tile whose live
+  // rows are at most 8 (a decode row's G heads): rows 0 .. rows - 1 at
+  // q_rows + r * D, the rest zero.  In the A fragment lane l holds row
+  // l / 4 (registers 0 and 2) and row l / 4 + 8 (1 and 3, zero here),
+  // columns 2 * (l % 4) and +1, and those + 8.
+  __device__ __forceinline__ void load_q_rows(const __nv_bfloat16* q_rows, int rows, int lane) {
+    const int r = lane >> 2;
+    const bool live = r < rows;
+    const __nv_bfloat16* src = q_rows + (live ? r : 0) * D + (lane & 3) * 2;
+#pragma unroll
+    for (int kk = 0; kk < kKSteps; ++kk) {
+      q[kk][0] = live ? *reinterpret_cast<const unsigned int*>(src + kk * 16) : 0u;
+      q[kk][2] = live ? *reinterpret_cast<const unsigned int*>(src + kk * 16 + 8) : 0u;
+      q[kk][1] = q[kk][3] = 0u;
+    }
   }
 
   // s = Q . K^T over the block's keys (k_s: kKeys rows of stride kLd)
@@ -465,5 +456,103 @@ struct TcBlock {
     return warp_live;
   }
 };
+
+// ---------------------------------------------------------------------------
+// The split-KV merge, shared by the ragged (K1) and paged decode (K2/K3)
+// tensor-core kernels
+// ---------------------------------------------------------------------------
+//
+// Parts j = lo .. hi of a row's key span were each walked on their own
+// (a split by a block, a stage run by a warp), each leaving its partial
+// (m in base 2, l) and unnormalised acc in f32: row r of part j at
+// ml[(j * kRows + r) * 2] and acc[(j * kRows + r) * D] (the caller offsets
+// both pointers to its (row, KV head)).  Each part is weighted by
+// exp2(m_j - m_max), exactly the rescale a one-block walk would apply, so
+// a part whose keys are all masked for a row (m_j = -1e30, l_j > 0) drops
+// out of a row with a live key anywhere.  The parts are summed in order:
+// deterministic, no atomics.  The block's kThreads threads combine rows
+// 0 .. rows - 1 and hand each four columns to emit(r, d, acc, m_max, l):
+// store_bf16x4 normalises and writes them, or the caller keeps the merged
+// partial.  kViaL2: the parts were written by other blocks of the same
+// launch, so they are read through L2 (__ldcg), never from a stale L1
+// line; otherwise (shared memory, or an earlier launch) by plain loads.
+// The loops over parts run to the fixed kMaxParts, unrolled, with the dead
+// ones predicated off, so each thread's loads are all in flight together
+// instead of one latency per part.
+template <bool kViaL2>
+__device__ __forceinline__ float2 load_part2(const float* p) {
+  if constexpr (kViaL2) return __ldcg(reinterpret_cast<const float2*>(p));
+  return *reinterpret_cast<const float2*>(p);
+}
+
+template <bool kViaL2>
+__device__ __forceinline__ float4 load_part4(const float* p) {
+  if constexpr (kViaL2) return __ldcg(reinterpret_cast<const float4*>(p));
+  return *reinterpret_cast<const float4*>(p);
+}
+
+template <int D, int kRows, int kMaxParts, int kThreads, bool kViaL2, class Emit>
+__device__ __forceinline__ void merge_partials(const float* __restrict__ acc_in,
+                                               const float* __restrict__ ml_in, int lo, int hi,
+                                               int rows, Emit emit) {
+  __shared__ float w_s[kRows][kMaxParts];
+  __shared__ float m_s[kRows];
+  __shared__ float l_s[kRows];
+  for (int r = threadIdx.x; r < rows; r += kThreads) {
+    float2 ml[kMaxParts];
+    float m_max = kNegInf;
+#pragma unroll
+    for (int j = 0; j < kMaxParts; ++j) {
+      ml[j] = make_float2(kNegInf, 0.0f);
+      if (lo + j <= hi) ml[j] = load_part2<kViaL2>(ml_in + ((lo + j) * kRows + r) * 2);
+      m_max = fmaxf(m_max, ml[j].x);
+    }
+    float l = 0.0f;
+#pragma unroll
+    for (int j = 0; j < kMaxParts; ++j) {
+      if (lo + j <= hi) {
+        const float w = exp2f(ml[j].x - m_max);
+        w_s[r][j] = w;
+        l += w * ml[j].y;
+      }
+    }
+    m_s[r] = m_max;
+    l_s[r] = l;
+  }
+  __syncthreads();
+  constexpr int kVecs = D / 4;
+  for (int i = threadIdx.x; i < rows * kVecs; i += kThreads) {
+    const int r = i / kVecs;
+    const int d = (i - r * kVecs) * 4;
+    float4 part[kMaxParts];
+#pragma unroll
+    for (int j = 0; j < kMaxParts; ++j) {
+      if (lo + j <= hi) part[j] = load_part4<kViaL2>(acc_in + ((lo + j) * kRows + r) * D + d);
+    }
+    float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+    for (int j = 0; j < kMaxParts; ++j) {
+      if (lo + j <= hi) {
+        const float w = w_s[r][j];
+        acc.x += w * part[j].x;
+        acc.y += w * part[j].y;
+        acc.z += w * part[j].z;
+        acc.w += w * part[j].w;
+      }
+    }
+    emit(r, d, acc, m_s[r], l_s[r]);
+  }
+}
+
+// four merged columns normalised (acc / max(l, 1e-30)) and rounded to bf16
+__device__ __forceinline__ void store_bf16x4(__nv_bfloat16* dst, float4 acc, float l) {
+  SoftmaxState st;
+  st.m = 0.0f;
+  st.l = l;
+  uint2 packed;
+  packed.x = pack_bf16x2(finalize(st, acc.x), finalize(st, acc.y));
+  packed.y = pack_bf16x2(finalize(st, acc.z), finalize(st, acc.w));
+  *reinterpret_cast<uint2*>(dst) = packed;
+}
 
 }  // namespace optorch

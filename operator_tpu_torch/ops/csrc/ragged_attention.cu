@@ -503,10 +503,9 @@ ragged_attention_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
 }
 
 // Combine tile 0's split partials of (row b = blockIdx.y, KV head h =
-// blockIdx.x) in split order: each split is weighted by exp2(m_s - m_max),
-// exactly the rescale the one-block walk would apply, so a split whose
-// keys are all masked for a row (m_s = -1e30, l_s > 0) drops out of a row
-// with a live key anywhere.  Deterministic: no atomics, a fixed order.
+// blockIdx.x) in split order, by flash_common.cuh's merge_partials (the
+// arithmetic the paged decode kernel shares): each split weighted by
+// exp2(m_s - m_max).  Deterministic: no atomics, a fixed order.
 template <int D>
 __global__ void __launch_bounds__(kMergeThreads)
 ragged_merge_kernel(const float* __restrict__ part_acc, const float* __restrict__ part_ml,
@@ -525,69 +524,14 @@ ragged_merge_kernel(const float* __restrict__ part_acc, const float* __restrict_
   const int s_lo = span.begin / split_keys;
   const int s_hi =
       span.end > span.begin ? min((span.end - 1) / split_keys, n_splits - 1) : s_lo - 1;
-
-  // The loops over splits run to the fixed kMaxSplits, unrolled, with the
-  // dead ones predicated off, so each thread's loads are all in flight
-  // together instead of one latency per split.
-  __shared__ float w_s[kTcBlockM][kMaxSplits];
-  __shared__ float l_s[kTcBlockM];
   const size_t base = (static_cast<size_t>(b) * KH + h) * n_splits * kTcBlockM;
-  for (int r = threadIdx.x; r < rows; r += kMergeThreads) {
-    float2 ml[kMaxSplits];
-    float m_max = kNegInf;
-#pragma unroll
-    for (int j = 0; j < kMaxSplits; ++j) {
-      ml[j] = make_float2(kNegInf, 0.0f);
-      if (s_lo + j <= s_hi) {
-        ml[j] = *reinterpret_cast<const float2*>(part_ml + (base + (s_lo + j) * kTcBlockM + r) * 2);
-      }
-      m_max = fmaxf(m_max, ml[j].x);
-    }
-    float l = 0.0f;
-#pragma unroll
-    for (int j = 0; j < kMaxSplits; ++j) {
-      if (s_lo + j <= s_hi) {
-        const float w = exp2f(ml[j].x - m_max);
-        w_s[r][j] = w;
-        l += w * ml[j].y;
-      }
-    }
-    l_s[r] = l;
-  }
-  __syncthreads();
-  constexpr int kVecs = D / 4;
-  for (int i = threadIdx.x; i < rows * kVecs; i += kMergeThreads) {
-    const int r = i / kVecs;
-    const int d = (i - r * kVecs) * 4;
-    float4 part[kMaxSplits];
-#pragma unroll
-    for (int j = 0; j < kMaxSplits; ++j) {
-      if (s_lo + j <= s_hi) {
-        part[j] = *reinterpret_cast<const float4*>(part_acc + (base + (s_lo + j) * kTcBlockM + r) * D + d);
-      }
-    }
-    float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-#pragma unroll
-    for (int j = 0; j < kMaxSplits; ++j) {
-      if (s_lo + j <= s_hi) {
-        const float w = w_s[r][j];
-        acc.x += w * part[j].x;
-        acc.y += w * part[j].y;
-        acc.z += w * part[j].z;
-        acc.w += w * part[j].w;
-      }
-    }
-    SoftmaxState st;
-    st.m = 0.0f;
-    st.l = l_s[r];
-    const int tok = r / G;
-    const int head = h * G + (r - tok * G);
-    bf16* dst = out + ((static_cast<size_t>(b) * C + tok) * QH + head) * D + d;
-    uint2 packed;
-    packed.x = pack_bf16x2(finalize(st, acc.x), finalize(st, acc.y));
-    packed.y = pack_bf16x2(finalize(st, acc.z), finalize(st, acc.w));
-    *reinterpret_cast<uint2*>(dst) = packed;
-  }
+  merge_partials<D, kTcBlockM, kMaxSplits, kMergeThreads, false>(
+      part_acc + base * D, part_ml + base * 2, s_lo, s_hi, rows,
+      [&](int r, int d, float4 acc, float, float l) {
+        const int tok = r / G;
+        const int head = h * G + (r - tok * G);
+        store_bf16x4(out + ((static_cast<size_t>(b) * C + tok) * QH + head) * D + d, acc, l);
+      });
 }
 
 template <int D>

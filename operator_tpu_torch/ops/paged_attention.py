@@ -22,6 +22,12 @@ values reach the one kernel, since the two TPU kernels compute one function
 and differ only in how they move pages.  CPU tensors take
 :func:`paged_attention_reference`, the plain PyTorch version.  There is no
 fallback from the kernel to the plain version.
+
+On the card the dtype picks the kernel, by design: bf16 runs on the tensor
+cores (``mma.sync``) with split-KV, the splits merged in the same launch;
+f32 on the CUDA cores, unsplit (TF32 would miss the f32 tolerance and the
+card-vs-CPU greedy parity of the f32 engines).  :func:`launch_plan` sizes
+the split from shapes alone, so a decode step never syncs on ``lengths``.
 """
 
 from __future__ import annotations
@@ -33,10 +39,15 @@ from typing import Mapping, Optional, Union
 
 import torch
 
+from . import ragged_attention as _ragged
+from ._build import ticket_counters
+
 _NEG_INF = -1e30
 
 __all__ = [
+    "LaunchPlan",
     "PagedKVCache",
+    "launch_plan",
     "launches",
     "paged_attention",
     "paged_attention_cuda",
@@ -50,7 +61,9 @@ launches = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 64, 128)
-#: query heads per KV head the kernel packs into one block
+#: query heads per KV head the kernels pack into one block; also the rows
+#: of a split's partial (csrc/paged_attention.cu kSplitRows, checked against
+#: the library's paged_attention_tc_geometry when it is first bound)
 _MAX_GROUP = 8
 
 
@@ -172,18 +185,70 @@ def _kernel_version(environ: Optional[Mapping[str, str]] = None) -> str:
     return version
 
 
+@dataclass(frozen=True)
+class LaunchPlan:
+    """How the bf16 kernel cuts each row's key span: ``n_splits`` spans of
+    ``split_keys`` positions, each walked by its own block into f32
+    scratch (``acc_shape``, ``ml_shape``) that the row's last block merges,
+    with one int32 counter per (row, KV head) (``counters``).
+    ``n_splits == 1``: no split, no scratch."""
+
+    n_splits: int
+    split_keys: int
+    acc_shape: tuple = ()
+    ml_shape: tuple = ()
+    counters: int = 0
+
+
+def launch_plan(q: torch.Tensor, k_pages: torch.Tensor, page_table: torch.Tensor) -> LaunchPlan:
+    """The kernel's split plan, from shapes and dtype only (never from
+    ``lengths``, which lives on the card): the longest possible span,
+    ``pages_per_seq * page_size`` positions, cut by K1's rule
+    (:func:`ragged_attention.split_plan`); f32 and spans of one split are
+    not cut.  At tinyllama's wave shapes (B=32, KH=4, D=64, 32 pages of
+    64) that is 8 splits of 256 positions and 2.1 MB of scratch."""
+    b, _, d = q.shape
+    page_size, kh = k_pages.shape[1], k_pages.shape[2]
+    n_splits, split_keys = _ragged.split_plan(page_table.shape[1] * page_size)
+    if q.dtype != torch.bfloat16 or n_splits <= 1:
+        return LaunchPlan(1, 0)
+    return LaunchPlan(
+        n_splits, split_keys,
+        acc_shape=(b, kh, n_splits, _MAX_GROUP, d),
+        ml_shape=(b, kh, n_splits, _MAX_GROUP, 2),
+        counters=b * kh,
+    )
+
+
 def _kernel_fn():
     from ._build import load_library
 
-    fn = load_library("paged_attention").paged_attention_launch
+    lib = load_library("paged_attention")
+    fn = lib.paged_attention_launch
     if fn.argtypes is None:
+        _check_geometry(lib)
         fn.argtypes = (
-            [ctypes.c_void_p] * 6
-            + [ctypes.c_int] * 7
+            [ctypes.c_void_p] * 9
+            + [ctypes.c_int] * 9
             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
     return fn
+
+
+def _check_geometry(lib) -> None:
+    """Hold :func:`launch_plan`'s copy of the kernel's geometry (partial
+    rows a split, stage keys, most splits) against the library's own: the
+    scratch it sizes is what the kernel writes."""
+    values = [ctypes.c_int() for _ in range(3)]
+    lib.paged_attention_tc_geometry(*(ctypes.byref(v) for v in values))
+    built = tuple(v.value for v in values)
+    want = (_MAX_GROUP, _ragged.STAGE_KEYS, _ragged.MAX_SPLITS)
+    if built != want:
+        raise RuntimeError(
+            f"paged_attention library geometry (split rows, stage keys, max splits) {built} "
+            f"!= the wrapper's {want}"
+        )
 
 
 def paged_attention_cuda(
@@ -195,8 +260,9 @@ def paged_attention_cuda(
     sliding_window: Optional[int] = None,
 ) -> torch.Tensor:
     """Launch ``csrc/paged_attention.cu`` on the current stream (no
-    synchronisation).  Raises on anything the kernel does not take and
-    on a non-zero launch status."""
+    synchronisation): the split tensor-core kernel for bf16, the CUDA-core
+    kernel for f32.  Raises on anything the kernels do not take and on a
+    non-zero launch status."""
     global launches
 
     tensors = {
@@ -237,13 +303,22 @@ def paged_attention_cuda(
     for name in ("q", "k_pages", "v_pages"):
         if tensors[name].data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned (the kernel reads 16 bytes at a time)")
+    plan = launch_plan(q, k_pages, page_table)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    part_acc = part_ml = counters = None
+    if plan.n_splits > 1:
+        part_acc = torch.empty(plan.acc_shape, dtype=torch.float32, device=q.device)
+        part_ml = torch.empty(plan.ml_shape, dtype=torch.float32, device=q.device)
+        counters = ticket_counters(q.device, stream, plan.counters)
     status = _kernel_fn()(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+        None if part_acc is None else part_acc.data_ptr(),
+        None if part_ml is None else part_ml.data_ptr(),
+        None if counters is None else counters.data_ptr(),
         b, qh, kh, d, page_size, page_table.shape[1], int(sliding_window or 0),
-        float(d ** -0.5), _DTYPE_CODES[q.dtype], stream,
+        plan.n_splits, plan.split_keys, float(d ** -0.5), _DTYPE_CODES[q.dtype], stream,
     )
     if status != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA error {status}")

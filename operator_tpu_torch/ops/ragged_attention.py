@@ -49,6 +49,7 @@ __all__ = [
     "ragged_attention_cuda",
     "ragged_attention_reference",
     "ragged_paged_attention",
+    "split_plan",
 ]
 
 _NEG_INF = -1e30
@@ -81,6 +82,15 @@ class LaunchPlan:
     ml_shape: tuple = ()
 
 
+def split_plan(max_seq: int) -> tuple[int, int]:
+    """(n_splits, split_keys) for a key span of up to ``max_seq``
+    positions: splits of ``SPLIT_KEYS``, more when that would need over
+    ``MAX_SPLITS`` (the paged decode kernel cuts its rows by the same
+    rule)."""
+    split_keys = max(SPLIT_KEYS, STAGE_KEYS * -(-max_seq // (MAX_SPLITS * STAGE_KEYS)))
+    return -(-max_seq // split_keys), split_keys
+
+
 def launch_plan(q: torch.Tensor, k_pages: torch.Tensor, page_table: torch.Tensor) -> LaunchPlan:
     """The kernel's split plan, from shapes and dtype only (never from
     ``kv_len``, which lives on the card).  Tile 0's longest possible span,
@@ -91,9 +101,7 @@ def launch_plan(q: torch.Tensor, k_pages: torch.Tensor, page_table: torch.Tensor
     17.3 MB of scratch."""
     b, _, _, d = q.shape
     page_size, kh = k_pages.shape[1], k_pages.shape[2]
-    max_seq = page_table.shape[1] * page_size
-    split_keys = max(SPLIT_KEYS, STAGE_KEYS * -(-max_seq // (MAX_SPLITS * STAGE_KEYS)))
-    n_splits = -(-max_seq // split_keys)
+    n_splits, split_keys = split_plan(page_table.shape[1] * page_size)
     if q.dtype != torch.bfloat16 or n_splits <= 1:
         return LaunchPlan(1, 0)
     return LaunchPlan(

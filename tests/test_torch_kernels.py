@@ -17,10 +17,17 @@ wave engine.  The bf16 tensor-core kernels also at D = 16, 32, 64 and
 128; the ragged kernel on long rows (2,048 positions at page 16 and at
 page 96, so its split-KV runs with split edges on and off page edges, a
 window emptying whole splits); the prefill kernel at T = 24 and
-T = 2,048 and on padded rows a window leaves with no key.  On the CPU,
-the ragged kernel's launch plan is a function of shapes alone, and
-its copy of the kernel's geometry is the sources' and the library's.  This
-file imports no JAX, so it runs on a machine that has only PyTorch::
+T = 2,048 and on padded rows a window leaves with no key.  The decode
+kernel also on long rows (2,048 positions at page 16 and 64: rows
+crossing many split edges, a window starting inside a split, released
+rows beside long ones) at D = 16, 64 and 128 and the groups G = 3, 4, 7
+and 8, and its merge counters left at zero; the similarity kernel also
+at P = 19 and 33 with W at a share edge, W = 8 and 9, and rows of 768.
+On the CPU, the ragged kernel's launch plan is a function of shapes
+alone, and the ragged and decode wrappers' copies of their kernels'
+split geometry and the similarity wrapper's layouts are the sources' and
+the library's.  This file imports no JAX, so it runs on a machine that
+has only PyTorch::
 
     python -m pytest tests/test_torch_kernels.py -q
 """
@@ -173,6 +180,78 @@ def test_ragged_wrapper_geometry_matches_the_kernel_sources():
     assert ragged.MAX_SPLITS == constant("ragged_attention.cu", "kMaxSplits")
 
 
+class _DecodeGeometryLibrary:
+    """Stands in for the built decode library: ``paged_attention_tc_geometry``
+    reports ``values`` (split rows, stage keys, most splits)."""
+
+    def __init__(self, values):
+        self.values = values
+
+    def paged_attention_tc_geometry(self, *refs):
+        for ref, value in zip(refs, self.values):
+            ref._obj.value = value
+
+
+@pytest.mark.parametrize("drift", [None, 0, 1, 2], ids=["same", "split_rows", "stage_keys", "max_splits"])
+def test_decode_wrapper_refuses_a_library_of_other_geometry(drift):
+    """The decode wrapper sizes its split scratch from its own copy of the
+    bf16 kernel's geometry, so binding a library that reports another one
+    raises before any launch."""
+    values = [paged._MAX_GROUP, ragged.STAGE_KEYS, ragged.MAX_SPLITS]
+    if drift is None:
+        paged._check_geometry(_DecodeGeometryLibrary(values))
+        return
+    values[drift] *= 2
+    with pytest.raises(RuntimeError, match="geometry"):
+        paged._check_geometry(_DecodeGeometryLibrary(values))
+
+
+def test_decode_wrapper_geometry_matches_the_kernel_sources():
+    """The decode wrapper's copy against the constants in the CUDA sources,
+    read as text (nothing is built)."""
+    csrc = Path(paged.__file__).resolve().parent / "csrc"
+
+    def constant(source, name):
+        found = re.search(rf"constexpr int {name} = (\d+);", (csrc / source).read_text())
+        return int(found.group(1))
+
+    assert paged._MAX_GROUP == constant("paged_attention.cu", "kSplitRows")
+    assert ragged.STAGE_KEYS == constant("flash_common.cuh", "kTcKeys")
+    assert ragged.MAX_SPLITS == constant("paged_attention.cu", "kMaxSplits")
+
+
+class _SimilarityGeometryLibrary:
+    """Stands in for the built similarity library: ``best_window_geometry``
+    reports ``configs`` ((patterns per block, window rows per tile) each)."""
+
+    def __init__(self, configs):
+        self.configs = configs
+
+    def best_window_geometry(self, tile_p, tile_w):
+        for i, (p, w) in enumerate(self.configs[: len(tile_p)]):
+            tile_p[i], tile_w[i] = p, w
+        return len(self.configs)
+
+
+@pytest.mark.parametrize("drift", [None, "tile_p", "tile_w", "count"])
+def test_similarity_wrapper_refuses_a_library_of_other_geometry(drift):
+    """The similarity plan's layouts (which size the grid, the shares and
+    the scratch) must be the library's own."""
+    configs = [list(c) for c in similarity.CONFIGS]
+    if drift == "tile_p":
+        configs[3][0] = 32
+    elif drift == "tile_w":
+        configs[5][1] = 64
+    elif drift == "count":
+        configs.append([128, 128])
+    library = _SimilarityGeometryLibrary([tuple(c) for c in configs])
+    if drift is None:
+        similarity._check_geometry(library)
+        return
+    with pytest.raises(RuntimeError, match="layouts"):
+        similarity._check_geometry(library)
+
+
 def test_cuda_wrapper_refuses_cpu_tensors():
     args, window, _ = _inputs("mixed")
     before = ragged.launches
@@ -181,26 +260,34 @@ def test_cuda_wrapper_refuses_cpu_tensors():
     assert ragged.launches == before
 
 
-#: decode: name -> (lengths, sliding_window, released rows); lengths of 1,
-#: full pages, off the page grid and past the window, at B=8, page 16
+#: decode: name -> (lengths, sliding_window, released rows, page,
+#: pages_per_seq) at B=8.  Short tables (page 16 x 6, one split): lengths
+#: of 1, full pages, off the page grid and past the window.  Long tables
+#: (2,048 positions, the bf16 kernel's 8 splits of 256): rows crossing
+#: many split edges, one past and at an edge, at page 16 and page 64; a
+#: window starting inside split 6, 4 and 0; released rows beside long ones
 DECODE_GEOMETRIES = {
-    "mixed": ([1, 16, 32, 17, 90, 96, 5, 63], None, ()),
-    "window": ([1, 16, 32, 17, 90, 96, 5, 63], 20, ()),
-    "released": ([17, 1, 96, 1, 40, 1, 3, 64], None, (1, 3, 5)),
+    "mixed": ([1, 16, 32, 17, 90, 96, 5, 63], None, (), 16, 6),
+    "window": ([1, 16, 32, 17, 90, 96, 5, 63], 20, (), 16, 6),
+    "released": ([17, 1, 96, 1, 40, 1, 3, 64], None, (1, 3, 5), 16, 6),
+    "split_edges_page16": ([2048, 1, 256, 257, 1000, 1537, 513, 64], None, (), 16, 128),
+    "split_edges_page64": ([2048, 1, 256, 257, 1000, 1537, 513, 64], None, (), 64, 32),
+    "window_mid_split": ([2048, 1300, 700, 1, 260, 1024, 2000, 90], 300, (), 16, 128),
+    "released_long": ([1500, 1, 1, 700, 1, 2048, 1, 33], None, (1, 2, 4, 6), 64, 32),
 }
-DB, DPPS = 8, 6
+DB = 8
 
 
-def _decode_inputs(name, dtype=torch.float32, device="cpu"):
-    lengths, window, released = DECODE_GEOMETRIES[name]
+def _decode_inputs(name, dtype=torch.float32, device="cpu", qh=QH, kh=KH, d=D):
+    lengths, window, released, page, pps = DECODE_GEOMETRIES[name]
     rng = np.random.default_rng(sum(map(ord, name)))
-    num_pages = DB * DPPS + 1
+    num_pages = DB * pps + 1
     arrays = [
-        rng.normal(size=(DB, QH, D)).astype(np.float32),
-        rng.normal(size=(num_pages, PAGE, KH, D)).astype(np.float32),
-        rng.normal(size=(num_pages, PAGE, KH, D)).astype(np.float32),
+        rng.normal(size=(DB, qh, d)).astype(np.float32),
+        rng.normal(size=(num_pages, page, kh, d)).astype(np.float32),
+        rng.normal(size=(num_pages, page, kh, d)).astype(np.float32),
     ]
-    table = (1 + rng.permutation(num_pages - 1)[: DB * DPPS]).reshape(DB, DPPS)
+    table = (1 + rng.permutation(num_pages - 1)[: DB * pps]).reshape(DB, pps)
     table[list(released)] = 0  # released slots point at trash page 0
     args = [torch.from_numpy(a).to(device, dtype) for a in arrays] + [
         torch.as_tensor(table, dtype=torch.int32, device=device),
@@ -390,6 +477,35 @@ def test_cuda_decode_kernel_matches_plain_version(cuda, name, dtype_name):
     assert diff <= WAVE_TOL[dtype_name], (name, diff)
 
 
+@pytest.mark.cuda
+def test_cuda_decode_kernel_splits_and_resets_its_counters(cuda):
+    """A long bf16 call runs split (8 splits of 256) and leaves its merge
+    counters at zero, so a second call on the same stream gives the same
+    bits."""
+    args, window = _decode_inputs("split_edges_page16", torch.bfloat16, "cuda")
+    assert paged.launch_plan(args[0], args[1], args[3]).n_splits == 8
+    first = paged.paged_attention(*args, sliding_window=window)
+    second = paged.paged_attention(*args, sliding_window=window)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert all(not buf.any().item() for buf in _build._counters.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+@pytest.mark.parametrize("group", [3, 4, 7, 8])
+@pytest.mark.parametrize("head_dim", [16, 64, 128])
+def test_cuda_decode_kernel_at_every_head_dim_and_group(cuda, head_dim, group, dtype_name):
+    """D in {16, 64, 128} and the groups of models/configs.py (G = 3 .. 8,
+    KH = 2) on long rows with a window starting inside a split."""
+    args, window = _decode_inputs("window_mid_split", getattr(torch, dtype_name), "cuda",
+                                  qh=2 * group, kh=2, d=head_dim)
+    got = paged.paged_attention(*args, sliding_window=window)
+    want = paged.paged_attention_reference(*args, sliding_window=window)
+    diff = (got.float() - want.float()).abs().max().item()
+    assert diff <= WAVE_TOL[dtype_name], (head_dim, group, diff)
+
+
 def _valid_rows_err(got, want, q_count):
     return max((got[row, :n].float() - want[row, :n].float()).abs().max().item()
                for row, n in enumerate(q_count) if n)
@@ -496,6 +612,13 @@ SIM_CASES = {
     "wide": (513, 200, 384),
     "one": (1, 1, 128),
     "recall_small": (1, 300, 128),
+    # P off every pattern tile, and W at a share edge: 4,123 windows are
+    # 133 shares of 31 on 132 SMs, the last one whole
+    "p33_share_edge": (4123, 33, 384),
+    "p19_share_edge": (4123, 19, 384),
+    "nine_windows": (9, 19, 384),
+    "eight_windows": (8, 2048, 384),
+    "wide_rows": (1000, 40, 768),
 }
 
 
@@ -548,7 +671,8 @@ def test_cuda_similarity_kernel_matches_plain_version(cuda, name, dtype_name):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
-@pytest.mark.parametrize("name", ["analysis", "library", "ragged_tile"])
+@pytest.mark.parametrize("name", ["analysis", "library", "ragged_tile", "p33_share_edge",
+                                  "p19_share_edge", "nine_windows", "wide_rows"])
 def test_cuda_similarity_kernel_takes_the_first_of_equal_windows(cuda, name, dtype_name):
     """Each pattern is a copy of one window row, and that row appears again
     later (in the same tile, the next tile and the last share): the kernel
@@ -558,7 +682,8 @@ def test_cuda_similarity_kernel_takes_the_first_of_equal_windows(cuda, name, dty
     rng = np.random.default_rng(7)
     firsts = rng.choice(w // 2, size=min(p, w // 2), replace=False)
     for j, first in enumerate(firsts.tolist()):
-        for later in {first + 1, first + 65, w - 1 - j}:
+        # the next row, the next tile of 32, 64 and 128 rows, the last share
+        for later in {first + 1, first + 31, first + 32, first + 65, first + 128, w - 1 - j}:
             if later < w and later not in firsts:
                 windows[later] = windows[first]
         patterns[j] = windows[first]

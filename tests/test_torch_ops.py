@@ -320,6 +320,7 @@ DECODE_CASES = {
     "gqa8_released": (3, 16, 2, 16, 8, 4, [5, 32, 1], None),
     "window8": (3, 8, 2, 32, 16, 4, [10, 40, 64], 8),
     "window24": (3, 8, 2, 32, 16, 4, [10, 40, 64], 24),
+    "window_mid_split": (3, 8, 2, 32, 16, 4, [37, 61, 1], 13),
 }
 
 
@@ -378,6 +379,150 @@ def test_paged_attention_bf16_matches_jax_decode_kernels(impl):
     )
     assert got.dtype == torch.bfloat16
     np.testing.assert_allclose(got.float().numpy(), want, rtol=0, atol=5e-2)
+
+
+def decode_split_model(q, k_pages, v_pages, table, lengths, window, n_splits,
+                       split_keys, stage=ragged.STAGE_KEYS):
+    """The bf16 decode kernel's arithmetic in f32 numpy (P not rounded):
+    each row's live span (the window's start aligned down to a stage, the
+    row's length clipped to the table), cut into ``n_splits`` spans of
+    ``split_keys``; the splits holding keys each walked in stages with the
+    -1e30 mask (``_walk``: a decode row is a query at position length - 1),
+    then merged in split order by exp2(m_s - m_max), or, for a row whose
+    span lies in one split, normalised directly."""
+    b_, qh, d = q.shape
+    page, kh = k_pages.shape[1], k_pages.shape[2]
+    g = qh // kh
+    end_max = table.shape[1] * page
+    out = np.zeros_like(q)
+    for b in range(b_):
+        seq = int(lengths[b])
+        end = min(seq, end_max)
+        window_lo = max(seq - window, 0) if window else 0
+        begin = window_lo - window_lo % stage
+        if n_splits > 1:
+            s_lo = min(min(begin, end) // split_keys, n_splits - 1)
+            s_hi = min((end - 1) // split_keys, n_splits - 1) if end > begin else s_lo
+            spans = [(max(begin, s * split_keys), min(end, (s + 1) * split_keys))
+                     for s in range(s_lo, s_hi + 1)]
+        else:
+            spans = [(begin, end)]
+        keys = k_pages[table[b]].reshape(-1, kh, d)
+        values = v_pages[table[b]].reshape(-1, kh, d)
+        pos = np.full(g, seq - 1)
+        for h in range(kh):
+            q_rows = q[b, h * g:(h + 1) * g]
+            parts = [_walk(q_rows, pos, keys[:, h], values[:, h], lo, hi, window, stage)
+                     for lo, hi in spans]
+            m_max = np.max([m for m, _, _ in parts], axis=0)
+            l = np.zeros(g, np.float32)
+            acc = np.zeros((g, d), np.float32)
+            for m_s, l_s, acc_s in parts:
+                w = np.float32(1) if len(parts) == 1 else np.exp2(m_s - m_max)
+                l += w * l_s
+                acc += w * acc_s if np.ndim(w) == 0 else w[:, None] * acc_s
+            out[b, h * g:(h + 1) * g] = acc / np.maximum(l, 1e-30)[:, None]
+    return out
+
+
+def _decode_split_rules(max_seq):
+    """(stage, n_splits, split_keys): the kernel's own plan for this table,
+    and small rules that cut short rows into many stages and splits."""
+    return [(ragged.STAGE_KEYS, *ragged.split_plan(max_seq)),
+            (4, -(-max_seq // 8), 8), (8, -(-max_seq // 8), 8), (4, -(-max_seq // 12), 12)]
+
+
+@pytest.mark.parametrize("rule", [0, 1, 2, 3], ids=["kernel", "stage4_split8",
+                                                    "stage8_split8", "stage4_split12"])
+@pytest.mark.parametrize("name", list(DECODE_CASES))
+def test_decode_split_model_matches_jax_decode_kernels(name, rule):
+    """The bf16 decode kernel's split-and-merge arithmetic (in f32, P not
+    rounded) equals both JAX Pallas decode kernels in interpret mode and
+    the JAX reference, atol 1e-5: splitting a row and merging by
+    exp2(m_s - m_max) changes only the order of the sums.  The cases hold
+    rows of length 1, a released row, full pages and windows starting
+    inside a split."""
+    arrays, window = _decode_inputs(name)
+    max_seq = arrays[3].shape[1] * arrays[1].shape[1]
+    stage, n_splits, split_keys = _decode_split_rules(max_seq)[rule]
+    got = decode_split_model(*arrays, window, n_splits, split_keys, stage=stage)
+    for kernel in (jax_paged._paged_attention_pallas, jax_paged._paged_attention_pallas_v2):
+        want = np.asarray(kernel(*map(jnp.asarray, arrays), interpret=True,
+                                 sliding_window=window))
+        np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
+    reference = np.asarray(jax_paged.paged_attention_reference(
+        *map(jnp.asarray, arrays), sliding_window=window))
+    np.testing.assert_allclose(got, reference, rtol=0, atol=ATOL)
+
+
+#: long decode rows at page 16 and 128 pages (2,048 positions; the
+#: kernel's plan: 8 splits of 256): name -> (lengths, window).  Rows fill
+#: the cache, sit one past and at a split edge, hold one key, and (with
+#: the window) start inside split 6, 4 and 0
+LONG_DECODE_ROWS = {
+    "no_window": ([2048, 257, 256, 1, 1000, 1537], None),
+    "window300": ([2048, 1300, 700, 1, 260, 1024], 300),
+}
+
+
+@pytest.mark.parametrize("name", list(LONG_DECODE_ROWS))
+def test_decode_split_model_matches_jax_reference_on_long_rows(name):
+    lengths, window = LONG_DECODE_ROWS[name]
+    b, page, pps, qh, kh, d = len(lengths), 16, 128, 8, 2, 16
+    rng = np.random.default_rng(len(name))
+    q = rng.normal(size=(b, qh, d)).astype(np.float32)
+    k_pages = rng.normal(size=(b * pps + 1, page, kh, d)).astype(np.float32)
+    v_pages = rng.normal(size=(b * pps + 1, page, kh, d)).astype(np.float32)
+    table = (1 + rng.permutation(b * pps)).reshape(b, pps).astype(np.int32)
+    lens = np.asarray(lengths, np.int32)
+    plan = paged.launch_plan(
+        torch.empty(q.shape, dtype=torch.bfloat16, device="meta"),
+        torch.empty(k_pages.shape, dtype=torch.bfloat16, device="meta"),
+        torch.empty(table.shape, dtype=torch.int32, device="meta"),
+    )
+    assert (plan.n_splits, plan.split_keys) == (8, 256)
+    got = decode_split_model(q, k_pages, v_pages, table, lens, window,
+                             plan.n_splits, plan.split_keys)
+    want = np.asarray(jax_paged.paged_attention_reference(
+        *map(jnp.asarray, (q, k_pages, v_pages, table, lens)), sliding_window=window))
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
+
+
+def _meta(shape, dtype):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def test_decode_launch_plan_is_a_function_of_shapes():
+    """The decode kernel's split plan reads shapes and dtype only: meta
+    tensors (no data, nothing to read) give it, and tinyllama's wave
+    shapes (B=32, QH=32, KH=4, D=64, 32 pages of 64) give 8 splits of 256
+    positions, 2.1 MB of scratch and one counter per (row, KV head)."""
+    bf16, i32 = torch.bfloat16, torch.int32
+    plan = paged.launch_plan(_meta((32, 32, 64), bf16), _meta((1025, 64, 4, 64), bf16),
+                             _meta((32, 32), i32))
+    assert plan == paged.LaunchPlan(8, 256, (32, 4, 8, 8, 64), (32, 4, 8, 8, 2), 128)
+    assert 4 * (np.prod(plan.acc_shape) + np.prod(plan.ml_shape)) == 2_162_688
+    # the same shapes with data, whatever lengths holds: the same plan
+    arrays, _ = _decode_inputs("gqa4")
+    t = [torch.from_numpy(a) for a in arrays]
+    q, k_pages = t[0].to(bf16), t[1].to(bf16)
+    for pps in (4, 128):
+        table = torch.zeros((q.shape[0], pps), dtype=i32)
+        want = paged.launch_plan(_meta(q.shape, bf16), _meta(k_pages.shape, bf16),
+                                 _meta(table.shape, i32))
+        assert paged.launch_plan(q, k_pages, table) == want
+    # K1's rule: page 16 x 128 pages 8 splits; page 96 x 22 pages 9;
+    # short tables and f32 not cut; at most 16 splits
+    split = paged.launch_plan(q, k_pages, torch.zeros((2, 128), dtype=i32))
+    assert (split.n_splits, split.split_keys) == (8, 256)
+    split = paged.launch_plan(q, _meta((9, 96, 2, 32), bf16), _meta((2, 22), i32))
+    assert (split.n_splits, split.split_keys) == (9, 256)
+    assert paged.launch_plan(q, k_pages, torch.zeros((2, 16), dtype=i32)) == paged.LaunchPlan(1, 0)
+    assert paged.launch_plan(q.float(), k_pages.float(),
+                             torch.zeros((2, 128), dtype=i32)) == paged.LaunchPlan(1, 0)
+    long = paged.launch_plan(q, k_pages, _meta((2, 4096), i32))
+    assert (long.n_splits, long.split_keys) == (16, 4096)
+    assert (long.n_splits, long.split_keys) == ragged.split_plan(4096 * 16)
 
 
 def test_kernel_version_selector(monkeypatch):
@@ -561,6 +706,121 @@ def test_best_window_scores_bf16_match_jax_kernel():
     assert got_s.dtype == torch.float32
     np.testing.assert_allclose(got_s.numpy(), np.asarray(ref_s, np.float32), rtol=0, atol=2e-2)
     np.testing.assert_allclose(got_s.numpy(), np.asarray(pallas_s, np.float32), rtol=0, atol=2e-2)
+
+
+def _take_better(best, candidate):
+    """K5's merge rule on (score, index): the larger score, then the
+    smaller index."""
+    (s, i), (s2, i2) = best, candidate
+    return candidate if s2 > s or (s2 == s and i2 < i) else best
+
+
+def best_window_walk_model(windows, patterns, plan):
+    """K5's walk in numpy, f32: every (window, pattern) dot product summed
+    over d = 0 .. D-1 in one order; the windows cut into the plan's shares,
+    each walked in tiles of the layout's window rows, in order, with the
+    rows of a tile dealt to window lanes (row r to lane r % lanes: 32 and
+    16 for the large tiles, configs 5 and 6, where each thread folds its
+    own windows; one for the small tiles, folded a window a lane into the
+    pattern's running best, and for the rows layout) that each keep their
+    first strictly greater score; the lanes merged, then the shares, by
+    "larger score, then smaller index"."""
+    lanes_w = {5: 32, 6: 16}.get(plan.config, 1)
+    w_count, d = windows.shape
+    dots = np.zeros((w_count, patterns.shape[0]), np.float32)
+    for k in range(d):  # one fixed order of the sum for every window
+        dots += windows[:, k:k + 1] * patterns[None, :, k]
+    tile_w = similarity.CONFIGS[plan.config][1]
+    results = []
+    for p in range(patterns.shape[0]):
+        best = (-np.inf, np.iinfo(np.int32).max)
+        for share in range(plan.shares):
+            lo, hi = share * plan.share_w, min(w_count, (share + 1) * plan.share_w)
+            lanes = [(-np.inf, np.iinfo(np.int32).max)] * lanes_w
+            for w0 in range(lo, hi, tile_w):
+                for r, w in enumerate(range(w0, min(w0 + tile_w, hi))):
+                    lane = r % lanes_w
+                    if dots[w, p] > lanes[lane][0]:
+                        lanes[lane] = (dots[w, p], w)
+            part = lanes[0]
+            for lane in lanes[1:]:
+                part = _take_better(part, lane)
+            best = _take_better(best, part)
+        results.append(best)
+    return (np.asarray([s for s, _ in results], np.float32),
+            np.asarray([i for _, i in results], np.int32))
+
+
+#: name -> (windows, patterns, dim, SM count): P off the pattern tile (19
+#: in a tile of 24; 70 in tiles of 64), one window, and SM counts that cut
+#: the windows into several shares of several tiles
+SIM_WALK_CASES = {
+    "p19_shares": (300, 19, 64, 4),
+    "p70_two_tiles": (600, 70, 64, 4),
+    "p5_one_window_share": (40, 5, 32, 64),
+    "w1_rows": (1, 33, 128, 132),
+    "w8_rows": (8, 13, 64, 132),
+}
+
+
+@pytest.mark.parametrize("duplicated", [False, True], ids=["random", "duplicated"])
+@pytest.mark.parametrize("name", list(SIM_WALK_CASES))
+def test_best_window_walk_model_matches_jax_first_match(name, duplicated):
+    """The kernel's share, tile, lane and merge order picks the JAX Pallas
+    kernel's (interpret mode) first best window, and its scores agree
+    within 1e-5.  ``duplicated``: pattern j is a copy of one window row,
+    repeated on the other side of a share edge, a tile edge and a lane,
+    so only the first copy is right."""
+    w, p, d, sms = SIM_WALK_CASES[name]
+    rng = np.random.default_rng(sum(map(ord, name)))
+    windows, patterns = _unit_rows(rng, w, d), _unit_rows(rng, p, d)
+    plan = similarity.launch_plan(w, p, d, 4, sms)
+    tile_w = similarity.CONFIGS[plan.config][1]
+    firsts = []
+    if duplicated and w > 1:
+        edges = sorted({e for e in range(plan.share_w, w, plan.share_w)}
+                       | {e for e in range(tile_w, w, tile_w)}) or [w // 2]
+        used: set = set()
+        for edge in edges:
+            j = len(firsts)
+            first = edge - 1 - j % 2
+            rows = {first} | {r for r in (first + 1, edge, edge + 1, edge + tile_w)
+                              if first < r < w}
+            if j == p or first < 0 or rows & used:
+                continue  # keep every copied row a copy of one first row
+            used |= rows
+            windows[sorted(rows)] = windows[first]
+            patterns[j] = windows[first]
+            firsts.append(first)
+    assert plan.shares > 1 or plan.config == 0
+    got_s, got_i = best_window_walk_model(windows, patterns, plan)
+    pallas_s, pallas_i = jax_similarity._best_window_pallas(
+        jnp.asarray(windows), jnp.asarray(patterns), interpret=True)
+    np.testing.assert_allclose(got_s, np.asarray(pallas_s), rtol=0, atol=ATOL)
+    np.testing.assert_array_equal(got_i, np.asarray(pallas_i))
+    if firsts:
+        np.testing.assert_array_equal(got_i[: len(firsts)], firsts)
+
+
+def test_similarity_launch_plan_fills_the_card():
+    """The plan at the semantic path's geometries on 132 SMs: the analysis
+    (4,096 windows x 19 patterns) takes the 24-pattern tile and 133 shares
+    of 31 windows, at least one block per SM; recall (one query x 2,048
+    incidents) the rows layout, 256 blocks of one warp a pattern; the
+    1,024-pattern library 16 tiles of 64 x 8 shares of 512 windows.  The
+    shares cover the windows exactly; wide rows take the smaller large tile."""
+    plan = similarity.launch_plan(4096, 19, 384, 4, 132)
+    assert plan == similarity.LaunchPlan(3, 31, 133, 1)
+    assert similarity.CONFIGS[plan.config][0] == 24 and plan.p_tiles * plan.shares >= 132
+    assert similarity.launch_plan(1, 2048, 384, 4, 132) == similarity.LaunchPlan(0, 1, 1, 256)
+    assert similarity.launch_plan(4096, 1024, 384, 4, 132) == similarity.LaunchPlan(5, 512, 8, 16)
+    assert similarity.launch_plan(4096, 33, 768, 4, 132).config == 6
+    for w, p in ((4096, 19), (1, 2048), (4096, 1024), (300, 64), (513, 200), (9, 3)):
+        plan = similarity.launch_plan(w, p, 384, 4, 132)
+        assert (plan.shares - 1) * plan.share_w < w <= plan.shares * plan.share_w
+        tile_p = similarity.CONFIGS[plan.config][0]
+        assert plan.p_tiles == -(-p // tile_p)
+        assert plan.config == 0 if w <= 8 else (plan.config >= 5) == (p > 32)
 
 
 @pytest.mark.parametrize("k", [3, 10])
