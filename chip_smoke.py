@@ -37,15 +37,34 @@ Phases, in order — any failure stops the run:
    phase's three waves (decode, mixed, prefill), the mixed one its record;
 3. serve: the continuous path at full width — tinyllama-1.1b, 22
    layers, int8 weights from a seed, 32 slots, page 64, chunk 64,
-   pipeline depth 2, speculative decoding on — through the port's HTTP
-   server on localhost, with concurrent ``/v1/completions`` requests of
-   mixed prompt lengths, greedy and sampled.  Every kernel's launch count
-   is set to 0 just before and read just after: the ragged kernel must
-   have launched exactly once per layer per step, the others never.  Then
-   one more request, untimed, of 786 prompt tokens: each of the 22 K1
-   calls of its first decode or verify step is held to the plain version
-   on its own inputs (valid rows), and that step's tile 0 must have keys
-   in at least three of its splits, so the split-KV merge is held too;
+   pipeline depth 2, speculative decoding on, the block-hash prefix cache
+   on (the default) — through the port's HTTP server on localhost, with
+   concurrent ``/v1/completions`` requests of mixed prompt lengths, greedy
+   and sampled: the timed COLD drive.  Every kernel's launch count is set
+   to 0 just before and read just after: the ragged kernel must have
+   launched exactly once per layer per step, the others never, and the
+   pages must balance in four terms (free + rows + the cache's pages +
+   the shared-prefix hold).  Then one more request, untimed, of 786 prompt
+   tokens: each of the 22 K1 calls of its first decode or verify step is
+   held to the plain version on its own inputs (valid rows), and that
+   step's tile 0 must have keys in at least three of its splits, so the
+   split-KV merge is held too; and the same prompt again, held on its
+   FIRST prefill step, a cache hit (12 of 13 pages cached: 18 queries at
+   kv_len 786).  Then the WARM drive, the same ten requests again: it
+   must save exactly the prompt tokens of every cached full block (4,032)
+   and its step records must carry them.  Then, through ``engine.submit``,
+   a deadline that fits fewer tokens than asked (finish "deadline"), one
+   already passed (``DeadlineExceeded``), and a burst over a queue limit
+   of 4 with an ``OverloadPolicy`` on the scheduler and the generator
+   (sheds counted, every request settled); ``spill_cache()`` must leave
+   no cached page on the card.  Then a second engine with a 256 MB host
+   pool and 48 KV pages: a cold drive, a pressure drive (the same bodies,
+   first byte changed) whose admissions must evict the cached blocks to
+   the pinned pool while steps are in flight, ``spill_cache()`` and one
+   short request, and a warm drive that restores the first chain from
+   the pool: the pages balance, a restored page must hold exactly the
+   bytes gathered at its eviction, and no commit window's drain may wait
+   half a step (the copies run on a side stream);
 4. wave: the wave path (``SCHED_MODE=wave``, ``DECODE_BLOCK=4``,
    ``PIPELINE_DEPTH=2``, ``OPERATOR_TPU_FLASH_PREFILL=1``) at the same
    width through the HTTP server with the same requests, driven twice,
@@ -73,7 +92,10 @@ Phases, in order — any failure stops the run:
 6. parity: small f32 ``tiny-test`` engines on the card (kernels) and on
    the CPU (plain versions) must give the same greedy tokens — the
    continuous engine, and the wave engine with the decode selector at
-   ``v1`` and ``v2`` and flash prefill on and off; and a ``PatternEngine``
+   ``v1`` and ``v2`` and flash prefill on and off; the continuous engine
+   with the prefix cache and an 8 MB host pool over two waves of prompts
+   sharing a prefix, a ``spill_cache()`` between them (and the warm wave
+   the cold one's on the card); and a ``PatternEngine``
    with a tiny f32 ``NeuralEmbedder`` must find the same events on the
    card as on the CPU over the 12 fixture logs (scores within 1e-4).
 
@@ -122,6 +144,8 @@ SIM_TOL = 1e-5
 #: the completion budget
 PROMPT_CHARS = [16, 40, 100, 220, 400, 700, 1000, 1500, 64, 300]
 MAX_TOKENS = 32
+#: the held requests' prompt (LOG_LINE * 5) in tokens: 785 bytes + BOS
+HIT_PROMPT_TOKENS = 786
 
 LOG_LINE = (
     "2026-10-16T12:00:01Z kubelet[812]: Back-off restarting failed container "
@@ -350,6 +374,13 @@ def geometry(name: str, rng):
         q_count[0] = C
         kv_len[1:] = 0
         kv_len[0] = rng.integers(C, 1536 + 1)
+    elif name == "wave_hit":  # a prefix-cache hit's first chunk: the held
+        # warm request of the serve phase, 786 prompt tokens of which 12
+        # pages were cached, so 18 queries at the end of 786 keys
+        q_count = np.zeros(B, np.int64)
+        q_count[0] = HIT_PROMPT_TOKENS - cached_tokens(HIT_PROMPT_TOKENS)
+        kv_len[1:] = 0
+        kv_len[0] = HIT_PROMPT_TOKENS
     else:
         raise ValueError(name)
     return c, kv_len.astype(np.int32), q_count.astype(np.int32), window
@@ -440,7 +471,7 @@ def phase_kernels(results: dict) -> dict:
 
     geometries = [
         "prefill", "decode", "mixed", "verify", "idle_rows", "window", "ragged",
-        "wave_decode", "wave_mixed", "wave_prefill",
+        "wave_decode", "wave_mixed", "wave_prefill", "wave_hit",
     ]
     checks = []
     worst = 0.0
@@ -462,9 +493,10 @@ def phase_kernels(results: dict) -> dict:
                 raise fail(f"ragged kernel {name}/{dname}: max_abs_err={err} (tol {TOL[dname]})")
             if dname == "bfloat16":
                 worst = max(worst, err)
-    # the serve phase's waves in bf16; the mixed one is the record
+    # the serve phase's waves in bf16 (and a prefix-cache hit's first
+    # chunk); the mixed one is the record
     timings = {}
-    for name in ("wave_decode", "wave_mixed", "wave_prefill"):
+    for name in ("wave_decode", "wave_mixed", "wave_prefill", "wave_hit"):
         args, window, kv_len, q_count = kernel_case(name, torch.bfloat16, 100)
         bound_ms, bound_by = bound(kv_len, q_count, window, 2)
         timings[name] = {
@@ -487,7 +519,7 @@ def phase_kernels(results: dict) -> dict:
         "launches": None,  # filled by the serve phase
         "max_abs_err": worst,
         **timings["wave_mixed"],
-        "geometries": timings,  # the serve phase's three waves
+        "geometries": timings,  # the serve phase's waves and the hit chunk
     }
     results["kernel_checks"] = checks
     results["kernel_timings"] = timings
@@ -496,6 +528,13 @@ def phase_kernels(results: dict) -> dict:
 
 #: the serve and wave phases' prompts in tokens (byte tokenizer: chars + BOS)
 PROMPT_TOKENS = [n + 1 for n in PROMPT_CHARS]
+
+
+def cached_tokens(prompt_tokens: int, page: int = PAGE) -> int:
+    """Prompt tokens a warm request reuses from the prefix cache: every
+    full block but the one the match leaves so one token prefills
+    (``(len - 1) // page`` blocks)."""
+    return (prompt_tokens - 1) // page * page
 
 
 def decode_case(name: str, dtype, seed: int):
@@ -1001,6 +1040,67 @@ def drive_requests(url: str, bodies: list) -> tuple:
     return completion, wall
 
 
+def balanced(sched, where: str) -> dict:
+    """The scheduler's page accounting, failing unless it balances in
+    four terms: free + rows' grants + the prefix cache's pages + the
+    shared-prefix hold == every page but the trash page."""
+    acc = sched.page_accounting()
+    if acc["available"] + acc["row_pages"] + acc["store_pages"] + acc["prefix_pages"] != acc["total"]:
+        raise fail(f"page accounting does not balance {where}: {acc}")
+    return acc
+
+
+def wait_idle(sched) -> None:
+    deadline = time.time() + 30
+    while sched.num_active and time.time() < deadline:
+        time.sleep(0.05)
+
+
+def timed_drive(url: str, sched, config, kernel_modules: dict, where: str,
+                bodies: "list | None" = None) -> dict:
+    """The ten requests once, every kernel count set to 0 just before and
+    read just after: K1 exactly once per layer per step, the others never;
+    the scheduler holds no row after it and its pages balance.  Returns
+    the drive's record, the prefix cache's economy over it included."""
+    g = sched.generator
+    bodies = bodies or request_bodies()
+    counter = g.metrics.counter
+    kv_names = ("kv_hit", "kv_miss", "kv_prefill_tokens_saved", "kv_evict",
+                "kv_offload", "kv_restore")
+    kv0 = {name: counter(name) for name in kv_names}
+    ring = g.step_clock.ring
+    seq0 = ring.records(1)[0].seq if len(ring) else -1
+    for module in kernel_modules.values():
+        module.launches = 0
+    steps0, dev0 = sched.steps, len(sched.device_ms)
+    completion, wall = drive_requests(url, bodies)
+    launches = {name: m.launches for name, m in kernel_modules.items()}
+    steps = sched.steps - steps0
+    device_ms = sched.device_ms[dev0:]
+    wait_idle(sched)
+    accounting = balanced(sched, f"after the {where} drive")
+    if accounting["row_pages"]:
+        raise fail(f"rows hold pages after the {where} drive: {accounting}")
+    if launches["ragged_paged_attention"] != config.num_layers * steps or steps == 0:
+        raise fail(
+            f"{where} drive: ragged kernel launched {launches['ragged_paged_attention']} "
+            f"times over {steps} steps of {config.num_layers} layers"
+        )
+    others = {k: n for k, n in launches.items() if k != "ragged_paged_attention"}
+    if any(others.values()):
+        raise fail(f"other kernels launched on the continuous path: {others}")
+    records = [r for r in ring.records() if r.seq > seq0]
+    return {
+        "completion_tokens": completion, "wall_s": wall,
+        "tokens_per_s": completion / wall, "steps": steps,
+        "device_ms_per_step": sum(device_ms) / len(device_ms) if device_ms else None,
+        "launches": launches, "page_accounting": accounting,
+        "kv_economy": {name[3:]: counter(name) - kv0[name] for name in kv_names},
+        "cached_tokens": sum(r.cached_tokens or 0 for r in records),
+        "step_records": len(records),
+    }
+
+
 def phase_serve(results: dict, kernel_modules: dict, phases: set) -> dict:
     import torch
 
@@ -1014,46 +1114,32 @@ def phase_serve(results: dict, kernel_modules: dict, phases: set) -> dict:
     config = engine.generator.config
     if (config.num_layers, config.hidden_size, config.num_heads) != (22, 2048, 32):
         raise fail(f"not tinyllama-1.1b at full width: {config}")
+    sched = engine.scheduler
+    if sched._kvstore is None or sched._kvstore.host_pool is not None:
+        raise fail("the default continuous engine has no prefix cache, or a host pool")
     engine.warmup()
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     server = CompletionServer(engine, model_id=model_id, host="127.0.0.1", port=0)
     server.start()
-    sched = engine.scheduler
     url = f"http://127.0.0.1:{server.bound_port}/v1/completions"
     try:
         # one short request first so the timed drive is not a cold start
         _post(url, {"prompt": "warm up", "max_tokens": 4, "temperature": 0.0})
-        bodies = request_bodies()
-        for module in kernel_modules.values():
-            module.launches = 0
-        steps0, dev0 = sched.steps, len(sched.device_ms)
-        completion, wall = drive_requests(url, bodies)
-        launches = {name: m.launches for name, m in kernel_modules.items()}
-        steps = sched.steps - steps0
-        device_ms = sched.device_ms[dev0:]
-        # every request finished: the scheduler holds no row and no page
-        deadline = time.time() + 30
-        while sched.num_active and time.time() < deadline:
-            time.sleep(0.05)
-        accounting = sched.page_accounting()
-        if accounting["row_pages"] or accounting["available"] != accounting["total"]:
-            raise fail(f"page accounting not clean: {accounting}")
-        if launches["ragged_paged_attention"] != config.num_layers * steps or steps == 0:
-            raise fail(
-                f"ragged kernel launched {launches['ragged_paged_attention']} times "
-                f"over {steps} steps of {config.num_layers} layers"
-            )
-        others = {k: n for k, n in launches.items() if k != "ragged_paged_attention"}
-        if any(others.values()):
-            raise fail(f"other kernels launched on the continuous path: {others}")
+        # the cold drive: the prefix cache holds nothing of these prompts;
+        # a request admitted after another finished its prefill can hit
+        cold = timed_drive(url, sched, config, kernel_modules, "cold")
+        launches = cold["launches"]
         stats = sched.stats()
         if "profile" in phases:
-            results["profile"] = profile_drive(url, bodies)
+            sched.spill_cache()  # profile a cold drive, as before the cache
+            results["profile"] = profile_drive(url, request_bodies())
         # a prompt over two splits long; the held step is the first whose
         # live rows reach past the prompt: a decode or verify step
         prompt = LOG_LINE * 5
         prompt_tokens = len(prompt.encode()) + 1
+        if prompt_tokens != HIT_PROMPT_TOKENS:
+            raise fail(f"the held prompt has {prompt_tokens} tokens")
         held = held_drive_calls(url, mixed_module, "ragged_paged_attention", HeldToPlain(
             mixed_module.ragged_paged_attention, ra.ragged_attention_reference,
             config.num_layers, lambda dtype, _: TOL[dtype],
@@ -1064,19 +1150,59 @@ def phase_serve(results: dict, kernel_modules: dict, phases: set) -> dict:
         ), prompt)
         if held["splits_with_keys"] < 3:
             raise fail(f"the held K1 step's tile 0 had keys in {held['splits_with_keys']} splits, want >= 3")
+        # the same prompt again, held on its FIRST prefill step: a cache
+        # hit, 12 of its 13 pages store-owned, so 18 queries at kv_len 786
+        hit_q = prompt_tokens - cached_tokens(prompt_tokens)
+        saved0 = engine.generator.metrics.counter("kv_prefill_tokens_saved")
+        held_hit = held_drive_calls(url, mixed_module, "ragged_paged_attention", HeldToPlain(
+            mixed_module.ragged_paged_attention, ra.ragged_attention_reference,
+            config.num_layers, lambda dtype, _: TOL[dtype],
+            select=lambda q, k, v, table, kv_len, q_count: bool(
+                ((kv_len == prompt_tokens) & (q_count == hit_q)).any().item()),
+            valid=lambda q, *args: torch.arange(q.shape[1], device=q.device)[None] < args[4][:, None],
+            note=lambda q, k, v, table, kv_len, q_count, sliding_window=None: {
+                **k1_split_note(q, k, v, table, kv_len, q_count, sliding_window),
+                "q_count": int(q_count.max().item()), "kv_len": int(kv_len.max().item()),
+            },
+        ), prompt)
+        hit_saved = engine.generator.metrics.counter("kv_prefill_tokens_saved") - saved0
+        if hit_saved != cached_tokens(prompt_tokens) or held_hit["q_count"] != hit_q:
+            raise fail(f"the held hit request reused {hit_saved} tokens, first chunk "
+                       f"{held_hit['q_count']} queries; want {cached_tokens(prompt_tokens)}, {hit_q}")
+        # the warm drive: the same ten bodies; every full block but the
+        # last of each prompt is cached
+        warm = timed_drive(url, sched, config, kernel_modules, "warm")
+        want_saved = sum(cached_tokens(n) for n in PROMPT_TOKENS)
+        if warm["kv_economy"]["prefill_tokens_saved"] != want_saved:
+            raise fail(f"warm drive saved {warm['kv_economy']['prefill_tokens_saved']} "
+                       f"prefill tokens, the prompts give {want_saved}")
+        if warm["cached_tokens"] != want_saved:
+            raise fail(f"warm drive's step records carry {warm['cached_tokens']} cached "
+                       f"tokens, want {want_saved}")
+        admission = deadline_and_overload(engine, sched)
+        spilled = sched.spill_cache()
+        after_spill = balanced(sched, "after spill_cache()")
+        if after_spill["store_pages"] != 0:
+            raise fail(f"store pages left after spill_cache(): {after_spill}")
+        summary = engine.generator.step_clock.summary()
         serve = {
             "model": model_id, "layers": config.num_layers, "weights": "int8",
-            "slots": engine.generator.max_slots, "requests": len(bodies),
+            "slots": engine.generator.max_slots, "requests": len(PROMPT_CHARS),
             "prompt_chars": PROMPT_CHARS, "max_tokens": MAX_TOKENS,
-            "completion_tokens": completion, "wall_s": wall,
-            "tokens_per_s": completion / wall, "steps": steps,
-            "device_ms_per_step": sum(device_ms) / len(device_ms) if device_ms else None,
-            "launches": launches, "setup_s": setup_s,
-            "page_accounting": accounting,
+            **{k: v for k, v in cold.items() if k not in ("kv_economy", "cached_tokens")},
+            "cold_kv_economy": cold["kv_economy"], "cold_cached_tokens": cold["cached_tokens"],
+            "warm": warm, "warm_saved_expected": want_saved,
+            "setup_s": setup_s,
             "spec_decode": stats["spec_decode"],
             "decode_tokens_per_host_sync": stats["decode_tokens_per_host_sync"],
+            "kv_economy": sched.stats()["kv_economy"],
+            "spilled_blocks": spilled, "page_accounting_after_spill": after_spill,
+            "admission": admission,
+            "step_clock": {"peak_tflops": engine.generator.step_clock.peak_tflops,
+                           "flops_per_token": engine.generator.step_clock.flops_per_token,
+                           "summary": summary},
             "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
-            "held_calls": held,
+            "held_calls": held, "held_hit_calls": held_hit,
         }
         print(json.dumps({"serve": serve}), flush=True)
         results["serve"] = serve
@@ -1084,6 +1210,201 @@ def phase_serve(results: dict, kernel_modules: dict, phases: set) -> dict:
     finally:
         server.stop()
         engine.close()
+
+
+def deadline_and_overload(engine, sched) -> dict:
+    """The deadline policy and the overload ladder on the full-width
+    engine, through ``engine.submit`` (HTTP carries no deadline): a
+    request whose budget fits fewer tokens than it asks finishes
+    "deadline"; one whose deadline has passed fails with
+    ``DeadlineExceeded``; with an ``OverloadPolicy`` and a queue limit on
+    the scheduler and the generator (as the reference's pipeline wires
+    them), a burst over the limit sheds and every request settles."""
+    from operator_tpu_torch.router.value import OverloadPolicy, ValueModel
+    from operator_tpu_torch.serving.types import DeadlineExceeded, SamplingParams, ShedLowValue
+
+    g = engine.generator
+    per_token = g.decode_token_estimate_s()
+    if per_token <= 0:
+        raise fail("no measured decode step time after the drives")
+    clamped = engine.submit(LOG_LINE, SamplingParams(
+        max_tokens=MAX_TOKENS, temperature=0.0, stop_on_eos=False,
+        deadline=g._clock() + 6.5 * per_token,
+    )).result(timeout=300)
+    if clamped.finish_reason != "deadline" or not 1 <= clamped.completion_tokens < MAX_TOKENS:
+        raise fail(f"a deadline fitting ~6 tokens gave {clamped.completion_tokens} tokens, "
+                   f"finish {clamped.finish_reason!r}")
+    try:
+        engine.submit(LOG_LINE, SamplingParams(max_tokens=8, deadline=g._clock() - 1.0))
+    except DeadlineExceeded:
+        pass
+    else:
+        raise fail("an expired deadline was accepted")
+    policy = OverloadPolicy(
+        ValueModel({"interactive": 2.0, "standard": 30.0, "batch": 120.0}),
+        shed_pressure=8.0, metrics=g.metrics,
+    )
+    sched.queue_limit, sched.overload_policy, g.overload_policy = 4, policy, policy
+    counter = g.metrics.counter
+    before = {name: counter(name) for name in ("sched_queue_evicted", "admission_shed")}
+    classes = ["batch", "standard", "interactive", None]
+    try:
+        futures = [
+            engine.submit(f"{LOG_LINE[:60]} burst {i}", SamplingParams(
+                max_tokens=8, temperature=0.0, slo_class=classes[i % 4],
+            ))
+            for i in range(24)
+        ]
+        settled = {"ok": 0, "shed": 0, "degraded": 0}
+        for future in futures:
+            try:
+                result = future.result(timeout=300)
+            except ShedLowValue:
+                settled["shed"] += 1
+            else:
+                settled["degraded" if result.finish_reason == "degraded" else "ok"] += 1
+    finally:
+        sched.queue_limit, sched.overload_policy, g.overload_policy = 0, None, None
+    wait_idle(sched)
+    sheds = {name: counter(name) - before[name] for name in before}
+    if settled["shed"] == 0 or sum(sheds.values()) != settled["shed"]:
+        raise fail(f"the burst over the queue limit: {settled}, counted sheds {sheds}")
+    balanced(sched, "after the overload burst")
+    out = {
+        "decode_token_estimate_ms": per_token * 1e3,
+        "deadline_tokens": clamped.completion_tokens,
+        "burst": settled, "sheds": sheds, "decisions": len(policy.log.lines()),
+    }
+    print(json.dumps({"admission": out}), flush=True)
+    return out
+
+
+POOL_ENV = {**SERVE_ENV, "KV_HOST_POOL_MB": "256", "KV_PAGES": "49"}
+
+
+def phase_serve_pool(results: dict, kernel_modules: dict) -> None:
+    """The prefix cache's host-RAM tier at full width: a second engine
+    with a 256 MB pinned pool and 48 KV pages.  The cold drive caches the
+    ten prompts' block chain; a pressure drive of the same ten bodies with
+    their first byte changed (a chain of its own) must evict those blocks
+    at admission while steps are in flight, so their pages are gathered,
+    copied to the pool on the side stream and put into it in commit
+    windows; ``spill_cache()`` and one short request move the rest; the
+    warm drive restores the first chain from the pool.  Fails unless
+    blocks were offloaded in flight and restored, the pages balance, a
+    restored page holds exactly the bytes gathered at its eviction, and
+    no commit window's drain waited as long as half a step (a copy queued
+    behind the in-flight step would)."""
+    import torch
+
+    from operator_tpu_torch.ops import kv_transfer
+    from operator_tpu_torch.serving.httpserver import CompletionServer
+    from operator_tpu_torch.serving.provider import build_serving_engine
+
+    engine, model_id = build_serving_engine("cuda", POOL_ENV, seed=0)
+    sched, g = engine.scheduler, engine.generator
+    config = g.config
+    pool = sched._kvstore.host_pool
+    if pool is None or pool.capacity_bytes != 256 << 20:
+        raise fail("KV_HOST_POOL_MB=256 did not give the store a 256 MB pool")
+    drains: list = []  # (host ms waiting + putting, [gather->copy-done device ms], pages)
+    restores: list = []  # (start, end) events around each restored page
+    checked: dict = {}  # the block whose bytes are held: hash, gathered, equal
+    fetch_host_ms: list = []  # host time of each fetch_page call (pinning included)
+    original_drain, original_restore = sched._drain_offload, kv_transfer.restore_page
+    original_fetch = kv_transfer.fetch_page
+    original_evict, original_restore_block = sched._evict_blocks, sched._restore_block
+
+    def timed_drain() -> None:
+        fetches = [f for _, _, _, f in sched._pending_offload]
+        t0 = time.perf_counter()
+        original_drain()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        drains.append((host_ms, [f.ready.elapsed_time(f.done) for f in fetches], len(fetches)))
+
+    def timed_restore(paged, page, k, v):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = original_restore(paged, page, k, v)
+        end.record()
+        restores.append((start, end))
+        return out
+
+    def timed_fetch(k_dev, v_dev):
+        t0 = time.perf_counter()
+        out = original_fetch(k_dev, v_dev)
+        fetch_host_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def kept_evict(count: int) -> None:
+        before = len(sched._pending_offload)
+        original_evict(count)
+        if "hash" not in checked and len(sched._pending_offload) > before:
+            h, k_dev, v_dev, _ = sched._pending_offload[before]
+            checked.update(hash=h, gathered=(k_dev.clone(), v_dev.clone()))
+
+    def held_restore_block(blk) -> None:
+        original_restore_block(blk)
+        if blk.hash == checked.get("hash") and "equal" not in checked:
+            checked["equal"] = (
+                torch.equal(g.paged_cache.k_pages[:, blk.page], checked["gathered"][0])
+                and torch.equal(g.paged_cache.v_pages[:, blk.page], checked["gathered"][1])
+            )
+
+    sched._drain_offload, sched._evict_blocks = timed_drain, kept_evict
+    sched._restore_block = held_restore_block
+    kv_transfer.restore_page, kv_transfer.fetch_page = timed_restore, timed_fetch
+    engine.warmup()
+    server = CompletionServer(engine, model_id=model_id, host="127.0.0.1", port=0)
+    server.start()
+    url = f"http://127.0.0.1:{server.bound_port}/v1/completions"
+    try:
+        _post(url, {"prompt": "warm up", "max_tokens": 4, "temperature": 0.0})
+        cold = timed_drive(url, sched, config, kernel_modules, "pool cold")
+        shifted = [{**body, "prompt": "#" + body["prompt"][1:]} for body in request_bodies()]
+        pressure = timed_drive(url, sched, config, kernel_modules, "pool pressure", shifted)
+        in_flight = list(drains)
+        if not in_flight or pressure["kv_economy"]["offload"] == 0:
+            raise fail(f"the pressure drive evicted nothing to the pool: {pressure['kv_economy']}")
+        spilled = sched.spill_cache()
+        _post(url, {"prompt": "drain the offloads", "max_tokens": 2, "temperature": 0.0})
+        if not pool.has(checked["hash"]):
+            raise fail("the checked block did not reach the host pool")
+        restores.clear()
+        warm = timed_drive(url, sched, config, kernel_modules, "pool warm")
+        if warm["kv_economy"]["restore"] == 0 or "equal" not in checked:
+            raise fail(f"the warm drive restored nothing from the pool: {warm['kv_economy']}")
+        if not checked["equal"]:
+            raise fail("a restored page's bytes differ from the bytes gathered at its eviction")
+        step_ms = sorted(sched.device_ms)[len(sched.device_ms) // 2]
+        waited = max(ms for ms, _, _ in in_flight)
+        spans = [span for _, ss, _ in in_flight for span in ss]
+        record = {
+            "pool_mb": 256, "kv_pages": g.allocator.num_pages, "spilled_blocks": spilled,
+            "cold": cold, "pressure": pressure, "warm": warm,
+            "kv_economy": sched.stats()["kv_economy"],
+            "pool_blocks": len(pool), "pool_bytes": pool.bytes_used,
+            "drains_in_flight": len(in_flight),
+            "drain_host_ms_in_flight": [ms for ms, _, _ in in_flight],
+            "drain_pages_in_flight": [n for _, _, n in in_flight],
+            "drain_host_ms_max": waited,
+            "copy_span_ms_in_flight": [min(spans), max(spans)] if spans else None,
+            "fetch_host_ms": [min(fetch_host_ms), max(fetch_host_ms), sum(fetch_host_ms)],
+            "step_stream_ms_median": step_ms,
+            "drain_waited_behind_a_step": waited >= step_ms / 2,
+            "restore_ms_per_page": [s.elapsed_time(e) for s, e in restores],
+            "restored_bytes_equal": checked["equal"],
+        }
+        print(json.dumps({"serve_pool": record}), flush=True)
+        if record["drain_waited_behind_a_step"]:
+            raise fail(f"a commit window's drain waited {waited} ms, a step is {step_ms} ms")
+        results["serve_pool"] = record
+    finally:
+        server.stop()
+        engine.close()
+        sched._drain_offload, sched._evict_blocks = original_drain, original_evict
+        sched._restore_block = original_restore_block
+        kv_transfer.restore_page, kv_transfer.fetch_page = original_restore, original_fetch
 
 
 WAVE_ENV = {
@@ -1512,6 +1833,7 @@ def phase_parity(results: dict, kernel_modules: dict) -> None:
         raise fail(f"greedy tokens differ card vs CPU: {tokens}")
     results["parity"] = {"prompts": len(prompts), "tokens": tokens["cuda"]}
     print(json.dumps({"parity": "ok", "tokens": tokens["cuda"]}), flush=True)
+    results["store_parity"] = store_parity(to(params_cpu, "cuda"), params_cpu)
 
     saved = {k: os.environ.get(k) for k in ("OPERATOR_TPU_FLASH_PREFILL", "OPERATOR_TPU_PAGED_KERNEL")}
     wave_parity = []
@@ -1546,6 +1868,60 @@ def phase_parity(results: dict, kernel_modules: dict) -> None:
                 os.environ[key] = value
     results["wave_parity"] = wave_parity
     results["analysis_parity"] = analysis_parity(kernel_modules)
+
+
+def store_parity(params_cuda, params_cpu) -> dict:
+    """The continuous scheduler with the prefix cache and an 8 MB host
+    pool, f32 ``tiny-test``: prompts sharing a prefix arrive in two waves
+    with a ``spill_cache()`` and one short request (whose commit window
+    puts the spilled pages into the pool) between them, so the second
+    wave restores from pinned host memory.  The card must give the CPU's
+    tokens, and on the card the warm wave the cold one's."""
+    import torch
+
+    from operator_tpu_torch.models import TINY_TEST, ByteTokenizer
+    from operator_tpu_torch.ops.kv_transfer import HostKVPool
+    from operator_tpu_torch.serving.engine import Generator, ServingEngine
+    from operator_tpu_torch.serving.kvstore import PrefixKVStore
+    from operator_tpu_torch.serving.sched import Scheduler
+    from operator_tpu_torch.serving.types import SamplingParams
+
+    head = LOG_LINE * 2
+    prompts = [head + "pod a", head + "pod b restarted", head[:100], LOG_LINE[:50]]
+    sampling = SamplingParams(max_tokens=12, temperature=0.0, stop_on_eos=False)
+
+    def run(device, params):
+        generator = Generator(
+            params, TINY_TEST, ByteTokenizer(), max_slots=4, max_seq=256, page_size=16,
+            cache_dtype=torch.float32, device=device,
+        )
+        store = PrefixKVStore(16, host_pool=HostKVPool(8), metrics=generator.metrics)
+        sched = Scheduler(generator, chunk=16, token_budget=32, pipeline_depth=2,
+                          spec_decode=True, kvstore=store)
+        engine = ServingEngine(generator, sched)
+        try:
+            cold = [r.token_ids for r in engine.generate(prompts, sampling)]
+            spilled = sched.spill_cache()
+            engine.generate(["drain"], SamplingParams(max_tokens=1, temperature=0.0))
+            warm = [r.token_ids for r in engine.generate(prompts, sampling)]
+            acc = sched.page_accounting()
+            if sum(acc[k] for k in ("available", "row_pages", "store_pages", "prefix_pages")) != acc["total"]:
+                raise fail(f"store parity on {device}: pages do not balance {acc}")
+            counter = generator.metrics.counter
+            return {"cold": cold, "warm": warm, "spilled": spilled,
+                    "offloads": counter("kv_offload"), "restores": counter("kv_restore"),
+                    "saved": counter("kv_prefill_tokens_saved")}
+        finally:
+            engine.close()
+
+    card, cpu = run("cuda", params_cuda), run("cpu", params_cpu)
+    if card != cpu:
+        raise fail(f"store parity: the card's run differs from the CPU's: {card} vs {cpu}")
+    if card["warm"] != card["cold"] or not card["restores"] or not card["offloads"]:
+        raise fail(f"store parity on the card: warm != cold or no pool round trip: {card}")
+    out = {k: v for k, v in card.items() if k not in ("cold", "warm")}
+    print(json.dumps({"store_parity": "ok", **out}), flush=True)
+    return out
 
 
 def analysis_parity(kernel_modules: dict) -> dict:
@@ -1655,6 +2031,8 @@ def main() -> int:
         records = ([phase_kernels(results)] + phase_wave_kernels(results)
                    + [phase_similarity_kernels(results, phases)])
     launches = phase_serve(results, kernel_modules, phases) if "serve" in phases else {}
+    if "serve" in phases:
+        phase_serve_pool(results, kernel_modules)
     wave_launches = {
         selector: phase_wave(results, kernel_modules, phases, selector)
         for selector in (("v1", "v2") if "wave" in phases else ())

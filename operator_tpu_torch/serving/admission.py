@@ -4,15 +4,20 @@ Counterpart of the paged, plain branch of ``operator_tpu/serving/admission.py``:
 :meth:`AdmissionMixin.admit` (:395), ``_admit_tokens`` (:429), the batch
 buckets ``_admission_n_pads``/``_admission_n_pad`` (:478-499), the plain
 paged branch of ``_admit_batch`` (:501-664), ``_stage_page_tables`` (:747)
-and ``_truncate_prompt``.  Not ported yet: the deadline clamp, the
-registered shared prefix (prefix matching and the suffix-only prefill),
-chunked prefill, guided decoding and LoRA adapters.
+and ``_truncate_prompt``; and the deadline budget's policy, which both
+loops share: ``decode_token_estimate_s`` (:53), ``deadline_policy`` (:64,
+on the injectable ``_clock``, with the overload ladder when
+``overload_policy`` is wired) and the wave's ``_deadline_clamp_wave``
+(:142).  Not ported yet: the registered shared prefix (prefix matching
+and the suffix-only prefill), chunked prefill, guided decoding and LoRA
+adapters.
 
 Mixed into :class:`serving.engine.Generator`.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Sequence
 
@@ -26,7 +31,107 @@ __all__ = ["AdmissionMixin"]
 
 
 class AdmissionMixin:
-    """Batched admission of the wave engine (see module doc)."""
+    """Batched admission of the wave engine and the deadline policy (see
+    module doc)."""
+
+    # -- deadline budget (utils/deadline.py) ----------------------------
+
+    def decode_token_estimate_s(self) -> float:
+        """Expected seconds per decoded token: the MEASURED p50 of the
+        decode_step stage once any step has run, else the constructor's
+        roofline estimate (``roofline_token_s``).  0.0 = unknown — the
+        policy then only rejects already-expired requests."""
+        stats = self.metrics.stage("decode_step")
+        if stats.count:
+            return stats.p50_ms / 1e3
+        return self.roofline_token_s or 0.0
+
+    def deadline_policy(
+        self,
+        params: SamplingParams,
+        *,
+        now: "float | None" = None,
+        pressure: "float | None" = None,
+    ) -> "tuple[SamplingParams, str]":
+        """(possibly clamped params, outcome) for one request's budget.
+
+        Outcomes: ``"ok"`` (fits, untouched), ``"truncated"``
+        (``max_tokens`` clamped to the estimated fit, ``deadline_clamped``
+        set so the finish reason reads "deadline"), ``"degraded"`` (the
+        overload ladder scaled ``max_tokens`` down), ``"shed"`` (the
+        ladder dropped the request: lowest value under storm, class
+        unprotected), ``"rejected"`` (the residue cannot fit even one
+        token).  ``pressure`` is the caller's load signal (queued +
+        running rows): with an ``overload_policy`` wired the ladder may
+        reduce the ask BEFORE the deadline math."""
+        policy = getattr(self, "overload_policy", None)
+        degraded = False
+        if policy is not None and pressure is not None and not params.degraded:
+            residual = None
+            if params.deadline is not None:
+                residual = params.deadline - (self._clock() if now is None else now)
+            value = policy.model.value(
+                slo_class=params.slo_class,
+                residual_s=residual,
+                recall_p=params.recall_p,
+            )
+            verdict = policy.decide(
+                value, pressure, site="admission",
+                request_id=params.trace_tag or "",
+            )
+            if verdict.action == "shed":
+                return params, "shed"
+            if verdict.action == "degrade":
+                params = dataclasses.replace(
+                    params,
+                    max_tokens=max(
+                        1, int(params.max_tokens * verdict.degrade_tokens_frac)
+                    ),
+                    degraded=True,
+                )
+                degraded = True
+        ok = "degraded" if degraded else "ok"
+        if params.deadline is None:
+            return params, ok
+        now = self._clock() if now is None else now
+        remaining = params.deadline - now
+        if remaining <= 0.0:
+            return params, "rejected"
+        per_token = self.decode_token_estimate_s()
+        if per_token <= 0.0:
+            return params, ok
+        fit = int(remaining / per_token)
+        if fit < 1:
+            return params, "rejected"
+        if fit < params.max_tokens:
+            return (
+                dataclasses.replace(params, max_tokens=fit, deadline_clamped=True),
+                "truncated",
+            )
+        return params, ok
+
+    def _deadline_clamp_wave(
+        self, params_list: Sequence[SamplingParams]
+    ) -> list[SamplingParams]:
+        """Apply the deadline policy to a whole admission wave at
+        ADMISSION time (after any queue wait eroded the budget).  A request
+        that expired since the serve loop's sweep gets the minimal
+        one-token clamp instead of failing the co-batched wave; its result
+        still carries finish_reason "deadline"."""
+        out = []
+        for sampling in params_list:
+            clamped, outcome = self.deadline_policy(sampling)
+            if outcome == "rejected":
+                clamped = dataclasses.replace(
+                    sampling, max_tokens=1, deadline_clamped=True
+                )
+                outcome = "truncated"
+            if outcome == "truncated":
+                self.metrics.incr("admission_deadline_truncated")
+            out.append(clamped)
+        return out
+
+    # -- wave admission -------------------------------------------------
 
     def admit(
         self, prompts: Sequence[str], params_list: Sequence[SamplingParams]
@@ -45,6 +150,10 @@ class AdmissionMixin:
         if not prompts:
             return []
         started = time.perf_counter()
+        if any(p.deadline is not None for p in params_list):
+            # clamp BEFORE token budgeting: max_tokens decides both the
+            # truncation budget and the page grant below
+            params_list = self._deadline_clamp_wave(params_list)
         token_lists = []
         for prompt, sampling in zip(prompts, params_list):
             ids = self.tokenizer.encode(prompt)

@@ -13,6 +13,12 @@ prefill per wave (``admission.py``), then decode in blocks of
 tokens.  Per-slot epochs keep a block dispatched before a slot was
 recycled from crediting its tokens to the new sequence.
 
+Both loops record each step into the generator's step clock
+(``serving/perf.py:StepClock``; ``step_clock.summary()`` is the stall
+attribution and the measured MFU against the H100's peak) and its
+``metrics`` registry (``utils/timing.py``), and share the deadline policy
+(``admission.py:deadline_policy`` on the injectable ``_clock``).
+
 ``ServingEngine`` runs one of the two loops on ONE worker thread: callers
 on any thread ``submit(prompt, params)`` and get a
 ``concurrent.futures.Future``.  With a scheduler the worker admits queued
@@ -38,16 +44,40 @@ import numpy as np
 import torch
 
 from ..models.configs import ModelConfig
+from ..models.quant import is_quantized
 from ..ops.paged_attention import PagedKVCache
 from ..utils.device import resolve_device
+from ..utils.timing import MetricsRegistry
 from .admission import AdmissionMixin
+from .perf import StepClock, flops_per_token, peak_tflops
 from .programs import ProgramBuilderMixin
 from .sampling import SAMPLE_TOP_K
-from .types import GenerationResult, OversizedRequest, PageAllocator, SamplingParams, _Slot
+from .types import (
+    DeadlineExceeded,
+    GenerationResult,
+    OversizedRequest,
+    PageAllocator,
+    SamplingParams,
+    ShedLowValue,
+    _Slot,
+)
 
 log = logging.getLogger(__name__)
 
 __all__ = ["Generator", "ServingEngine"]
+
+_NOT_PORTED_GUIDED = (
+    "guided decoding and LoRA adapters are not ported to operator_tpu_torch "
+    "yet (ROADMAP.md Queue 1 item 9)"
+)
+
+
+def _params_dtype_name(params: Any) -> str:
+    """The serving dtype's name for the step clock's peak: ``int8`` for
+    quantized weights, else the embedding's dtype."""
+    if is_quantized(params):
+        return "int8"
+    return str(params["embed"].dtype).replace("torch.", "")
 
 
 class Generator(AdmissionMixin, ProgramBuilderMixin):
@@ -74,6 +104,9 @@ class Generator(AdmissionMixin, ProgramBuilderMixin):
         pipeline_depth: int = 1,
         seed: int = 0,
         device: Union[str, torch.device, None] = None,
+        metrics: Optional[MetricsRegistry] = None,
+        roofline_token_s: Optional[float] = None,
+        step_ring_capacity: Optional[int] = None,
     ) -> None:
         self.device = resolve_device(device)
         self.params = params
@@ -81,6 +114,27 @@ class Generator(AdmissionMixin, ProgramBuilderMixin):
         self.tokenizer = tokenizer
         self.max_slots = max_slots
         self.max_seq = min(max_seq or config.max_seq_len, config.max_seq_len)
+        self.metrics = metrics if metrics is not None else MetricsRegistry()
+        # the step clock: a bounded ring of per-step host-gap/device/
+        # sample-transfer records with the analytic flops per token, so
+        # every decode-bearing step carries its MFU (STEP_RING_CAPACITY)
+        serving_dtype = _params_dtype_name(params)
+        self.step_clock = StepClock(
+            capacity=step_ring_capacity,
+            flops_per_token=flops_per_token(config, serving_dtype),
+            peak_tflops=peak_tflops(serving_dtype),
+            max_slots=max_slots,
+            metrics=self.metrics,
+        )
+        # deadline budgets (admission.deadline_policy): per-token decode
+        # estimate before any step has been measured; the clock is an
+        # attribute so tests can inject a fake one
+        self.roofline_token_s = roofline_token_s
+        self._clock = time.monotonic
+        #: value-aware overload ladder (router/value.py OverloadPolicy):
+        #: when a caller wires one, deadline_policy degrades/sheds by value
+        #: under pressure; None = no overload control
+        self.overload_policy = None
         self.page_size = page_size
         self.pages_per_seq = -(-self.max_seq // page_size)
         self.sample_top_k = sample_top_k or SAMPLE_TOP_K
@@ -145,6 +199,12 @@ class Generator(AdmissionMixin, ProgramBuilderMixin):
         return [i for i, slot in enumerate(self.slots) if not slot.active]
 
     @property
+    def prefix_held_pages(self) -> int:
+        """KV pages held by registered shared prefixes: none, the wave
+        engine's shared prefix is not ported (ROADMAP Queue 1 item 6)."""
+        return 0
+
+    @property
     def num_active(self) -> int:
         return sum(1 for slot in self.slots if slot.active)
 
@@ -160,6 +220,17 @@ class Generator(AdmissionMixin, ProgramBuilderMixin):
     ) -> list[int]:
         """Prompt KV is in the pages and first tokens are sampled: flip the
         slots live."""
+        self.metrics.record("prefill", prefill_ms)
+        # the wave's prefill is one phase-separated step; its time is all
+        # "device" (no per-component split is measurable after the fact)
+        self.step_clock.observe(
+            kind="prefill",
+            tokens=int(sum(int(n) for n in lengths[: len(taken)])),
+            slots=len(taken),
+            host_gap_ms=0.0,
+            device_ms=float(prefill_ms),
+            sample_xfer_ms=0.0,
+        )
         started = time.perf_counter()
         for row, slot_id in enumerate(taken):
             self._slot_epoch[slot_id] += 1  # new generation begins
@@ -168,6 +239,7 @@ class Generator(AdmissionMixin, ProgramBuilderMixin):
                 params=params_list[row], pages=page_grants[row],
                 generated=[int(first_np[row])], started=started,
                 prefill_ms=prefill_ms,
+                decode_cum0=self.step_clock.decode_cum_ms,
             )
             self._host_offsets[slot_id] = int(lengths[row])
         rows = self._to_device(np.asarray(taken, np.int64))
@@ -206,15 +278,22 @@ class Generator(AdmissionMixin, ProgramBuilderMixin):
         flushed (their tokens belong to finished epochs)."""
         if self.num_active == 0 and not self._inflight_blocks:
             return []
+        started = time.perf_counter()
         if self.num_active:
             with torch.profiler.record_function("podmortem.decode"):
                 self._dispatch_block()
         finished: list[tuple[int, GenerationResult]] = []
+        processed = 0
         while self._inflight_blocks and (
             len(self._inflight_blocks) >= self.pipeline_depth
             or self.num_active == 0
         ):
             finished.extend(self._process_block(*self._inflight_blocks.pop(0)))
+            processed += 1
+        if processed:
+            # seconds per token for the deadline policy's estimate
+            elapsed_ms = (time.perf_counter() - started) * 1e3
+            self.metrics.record("decode_step", elapsed_ms / (processed * self.decode_block))
         return finished
 
     def _dispatch_block(self) -> None:
@@ -244,16 +323,33 @@ class Generator(AdmissionMixin, ProgramBuilderMixin):
         self._host_offsets[active] += self.decode_block
         self.blocks_dispatched += 1
         self.occupancy_sum += self.num_active / self.max_slots
-        self._inflight_blocks.append((toks, snapshot, begin, end))
+        # step-clock stamps travel WITH the block: with pipeline_depth > 1
+        # it is processed (and its record written) a later round
+        t_dispatch = time.perf_counter()
+        timing = (t_dispatch, self.step_clock.host_gap_ms(t_dispatch), len(snapshot))
+        self._inflight_blocks.append((toks, snapshot, begin, end, timing))
 
     def _process_block(
-        self, toks: torch.Tensor, snapshot: dict, begin: Any, end: Any
+        self, toks: torch.Tensor, snapshot: dict, begin: Any, end: Any,
+        timing: tuple,
     ) -> list[tuple[int, GenerationResult]]:
         if end is not None:
             end.synchronize()  # the block's ONE host sync
             self.block_ms.append(begin.elapsed_time(end))
+        t_ready = time.perf_counter()
         toks_np = toks.numpy()  # [K, B]
         block = self.decode_block
+        t_dispatch, host_gap_ms, live = timing
+        t_fetch = time.perf_counter()
+        self.step_clock.observe(
+            kind="decode",
+            tokens=block * live,
+            slots=live,
+            host_gap_ms=host_gap_ms,
+            device_ms=max(0.0, (t_ready - t_dispatch) * 1e3),
+            sample_xfer_ms=max(0.0, (t_fetch - t_ready) * 1e3),
+            commit_t=t_fetch,
+        )
         finished: list[tuple[int, GenerationResult]] = []
         eos = self.tokenizer.eos_id
         for i, (epoch, before) in snapshot.items():
@@ -302,6 +398,10 @@ class Generator(AdmissionMixin, ProgramBuilderMixin):
         self._sampling_cache = None  # slot set changed
         eos = self.tokenizer.eos_id
         ids = [t for t in slot.generated if t != eos]
+        if reason == "length" and slot.params.deadline_clamped:
+            # the length cap was the deadline budget's clamp, not the
+            # caller's max_tokens — surface the difference
+            reason = "deadline"
         result = GenerationResult(
             text=self.tokenizer.decode(ids),
             token_ids=ids,
@@ -309,7 +409,9 @@ class Generator(AdmissionMixin, ProgramBuilderMixin):
             completion_tokens=len(ids),
             finish_reason=reason,
             prefill_ms=slot.prefill_ms,
-            decode_ms=max(0.0, (time.perf_counter() - slot.started) * 1e3),
+            # the decode-bearing wall the step clock accrued while the
+            # slot was live
+            decode_ms=max(0.0, self.step_clock.decode_cum_ms - slot.decode_cum0),
         )
         self.slots[slot_id] = _Slot()
         return result
@@ -400,10 +502,31 @@ class ServingEngine:
     def submit(
         self, prompt: str, params: Optional[SamplingParams] = None
     ) -> "concurrent.futures.Future[GenerationResult]":
+        """Queue one request; raises ``ValueError`` for a guided or LoRA
+        request (not ported) and :class:`DeadlineExceeded` when its budget
+        cannot fit one decoded token — both to this caller, before the
+        request takes a queue place."""
         if self._closed.is_set():
             raise RuntimeError("serving engine is closed")
         if self._error is not None:
             raise RuntimeError("serving engine loop died") from self._error
+        if params is not None and (
+            params.guided_choice is not None
+            or params.guided_regex is not None
+            or params.adapter is not None
+        ):
+            raise ValueError(_NOT_PORTED_GUIDED)
+        if params is not None and params.deadline is not None:
+            # fail fast: admission re-runs the policy with the residue
+            # left after the queue wait and owns the clamp
+            g = self.generator
+            _, outcome = g.deadline_policy(params)
+            if outcome == "rejected":
+                g.metrics.incr("admission_deadline_rejected")
+                raise DeadlineExceeded(
+                    "deadline budget cannot fit any decoded output "
+                    f"(remaining {max(0.0, params.deadline - g._clock()):.3f}s)"
+                )
         future: concurrent.futures.Future = concurrent.futures.Future()
         self._submissions.put(
             (prompt, params or SamplingParams(), time.perf_counter(), future)
@@ -464,7 +587,7 @@ class ServingEngine:
             if future.set_running_or_notify_cancel():
                 try:
                     req_id = self.scheduler.enqueue(prompt, params, submitted=submitted)
-                except (ValueError, MemoryError) as exc:  # per-request verdict
+                except (ValueError, MemoryError, ShedLowValue) as exc:  # per-request verdict
                     future.set_exception(exc)
                 else:
                     self._pending[req_id] = future
@@ -482,6 +605,10 @@ class ServingEngine:
         except Exception as exc:  # noqa: BLE001 - the loop's boundary: fail loudly
             log.exception("serving engine loop died")
             self._error = exc
+            if self.scheduler is not None:
+                # drop rows, queue and the gathered offload buffers: the
+                # device state they point into is no longer trusted
+                self.scheduler.reset()
             self._fail_outstanding(exc)
 
     def _run_sched(self) -> None:
@@ -530,6 +657,23 @@ class ServingEngine:
             return False
         return True
 
+    def _sweep_waiting(self) -> None:
+        """Fail every waiting request whose deadline expired while it
+        queued (the reference's ``_sweep_batch``): its budget is gone
+        before any card time was spent on it."""
+        now = self.generator._clock()
+        live = collections.deque()
+        for item in self._waiting:
+            deadline = item[1].deadline
+            if deadline is not None and deadline <= now:
+                self.generator.metrics.incr("admission_deadline_rejected")
+                item[-1].set_exception(DeadlineExceeded(
+                    "deadline expired while queued for admission"
+                ))
+            else:
+                live.append(item)
+        self._waiting = live
+
     def _admit_waiting(self, arrived: bool) -> None:
         """Admit the head of the waiting line into free slots and pages;
         what does not fit stays in line (backpressure)."""
@@ -565,6 +709,8 @@ class ServingEngine:
         while not self._closed.is_set():
             busy = bool(self._waiting) or g.num_active > 0 or bool(g._inflight_blocks)
             arrived = self._take_submissions(block=not busy)
+            if self._waiting:
+                self._sweep_waiting()
             if self._waiting:
                 self._admit_waiting(arrived)
             if not (g.num_active or g._inflight_blocks):

@@ -7,6 +7,12 @@ A subset of ``operator_tpu/serving/httpserver.py`` in its wire format:
 - ``POST /v1/completions``  — prompt (str or list), n, max_tokens,
   temperature, top_p, stop; every prompt and replica joins the shared
   continuous batch.  Non-streaming only: ``stream: true`` is refused.
+  A ``model`` other than the served id answers 404, as the reference's
+  ``_resolve_adapter`` does for a name that is neither the base model nor
+  an adapter (the port registers no adapters).  The guided-decoding
+  fields (``guided_choice``, ``guided_regex``, ``guided_json`` and a
+  ``response_format`` other than ``{"type": "text"}``) answer 400 naming
+  ROADMAP Queue 1 item 9 until guided decoding is ported.
 
 Stop sequences are applied by post-truncation, logprobs are null, as in
 the JAX server.  The server is the standard library's threading HTTP
@@ -105,7 +111,38 @@ class CompletionServer:
             "load": load,
         }
 
+    def _resolve_model(self, req: dict) -> None:
+        """The served id (or no ``model``) serves; anything else is a 404
+        — the port has no adapters to select."""
+        model = req.get("model")
+        if model is not None and model != self.model_id:
+            raise ApiError(
+                404, f"model {model!r} not found; available: {[self.model_id]}",
+            )
+
+    @staticmethod
+    def _refuse_guided(req: dict) -> None:
+        """Guided decoding is not ported: refuse its fields rather than
+        answer with unconstrained text."""
+        fields = [
+            name for name in ("guided_choice", "guided_regex", "guided_json")
+            if req.get(name) is not None
+        ]
+        response_format = req.get("response_format")
+        if response_format is not None and not (
+            isinstance(response_format, dict) and response_format.get("type") in (None, "text")
+        ):
+            fields.append("response_format")
+        if fields:
+            raise ApiError(
+                400,
+                f"{', '.join(fields)}: guided decoding is not ported to "
+                f"operator_tpu_torch yet (ROADMAP.md Queue 1 item 9)",
+            )
+
     def _sampling(self, req: dict) -> tuple[SamplingParams, list[str]]:
+        self._resolve_model(req)
+        self._refuse_guided(req)
         max_tokens = req.get("max_tokens", 256)
         if not isinstance(max_tokens, int) or max_tokens < 1:
             raise ApiError(400, "max_tokens must be a positive integer")
@@ -164,7 +201,7 @@ class CompletionServer:
             "id": f"cmpl-{uuid.uuid4().hex[:24]}",
             "object": "text_completion",
             "created": int(time.time()),
-            "model": req.get("model") or self.model_id,
+            "model": self.model_id,
             "choices": choices,
             "usage": {
                 "prompt_tokens": usage_prompt,

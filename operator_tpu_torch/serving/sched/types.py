@@ -2,8 +2,7 @@
 
 The port's own copies of ``operator_tpu/serving/sched/types.py``
 (``SchedConfig``, ``_Row``, ``RowWork``, ``StepPlan``, ``StepOutcome``),
-less the prefix-cache fields: the block-hash prefix cache is not ported
-yet.
+the prefix-cache fields included.
 """
 
 from __future__ import annotations
@@ -51,6 +50,9 @@ class _Row:
     prefill_ms: float = 0.0  # accumulated chunk compute share
     chunked: bool = False  # took more than one step of prefill
     queue_wait_ms: float = 0.0  # measured submit -> admission wall
+    #: step-clock decode cumulative (StepRing.decode_cum_ms) when the
+    #: prompt completed — _finish derives decode_ms as the delta
+    decode_cum0: float = 0.0
     # --- decode-ahead pipelining: uncommitted in-flight deltas.  The
     # authoritative fields above advance only at commit; planning reads
     # the PREDICTED state (authoritative + pending). ---
@@ -62,6 +64,15 @@ class _Row:
     #: a speculation verify round is in flight: the row must not be
     #: re-planned until its commit lands
     pend_spec: bool = False
+    # --- prefix cache (serving/kvstore.py) ---
+    #: prompt tokens served from cached blocks at admission: the row's
+    #: first ``cached_len // page_size`` table entries are STORE-OWNED
+    #: read-only pages (never in ``pages``, never written — suffix
+    #: prefill starts at ``pos = cached_len`` in a row-owned page)
+    cached_len: int = 0
+    #: block hashes this row holds references on (acquired at admission
+    #: + blocks it donated at prefill completion); released on finish
+    cached_hashes: list[bytes] = field(default_factory=list)
 
     @property
     def prompt_len(self) -> int:
@@ -132,6 +143,9 @@ class StepPlan:
     prefill_rows: int = 0
     deferred_decode: int = 0  # decode-ready rows left out (stall signal)
     admitted: list[int] = field(default_factory=list)  # req ids admitted NOW
+    #: prompt tokens rows admitted THIS step reused from the prefix
+    #: cache (spared prefill compute; rides into StepRecord.cached_tokens)
+    cached_tokens: int = 0
 
     def trace(self) -> tuple:
         return tuple(

@@ -3,20 +3,25 @@
 The port's own copies of ``operator_tpu/serving/types.py``:
 ``SamplingParams``, ``GenerationResult``, ``PageAllocator``, the two
 admission formulas and the wave engine's bucket rule ``_bucket``.
-``SamplingParams`` carries only the fields the continuous and wave paths
-serve; LoRA adapters, guided decoding, deadlines, SLO
-classes and trace tags come with the slices that port them.
+``SamplingParams`` carries the reference's fields; the engine refuses a
+request that sets ``adapter``, ``guided_choice`` or ``guided_regex``
+(ROADMAP Queue 1 item 9, not ported yet).  ``DeadlineExceeded`` and
+``ShedLowValue`` are the deadline policy's and the overload ladder's
+terminal errors.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from typing import Optional
 
 __all__ = [
+    "DeadlineExceeded",
     "GenerationResult",
     "OversizedRequest",
     "PageAllocator",
     "SamplingParams",
+    "ShedLowValue",
     "pages_needed",
     "prompt_budget",
 ]
@@ -28,6 +33,32 @@ class SamplingParams:
     temperature: float = 0.3  # reference default, aiprovider-crd.yaml:56-58
     top_p: float = 0.95
     stop_on_eos: bool = True
+    #: LoRA adapter name (not ported: a request that sets it is refused)
+    adapter: Optional[str] = None
+    #: guided decoding (not ported: a request that sets either is refused)
+    guided_choice: Optional[tuple] = None
+    guided_regex: Optional[str] = None
+    #: absolute ``time.monotonic()`` deadline (``utils/deadline.py``).
+    #: Admission rejects a request whose decode estimate cannot fit the
+    #: residue, or clamps ``max_tokens`` to what does fit
+    #: (``admission.deadline_policy``); an entry that expires while queued
+    #: fails with :class:`DeadlineExceeded`.  None = no budget.
+    deadline: Optional[float] = None
+    #: set by admission when max_tokens was clamped to fit the deadline —
+    #: the finish reason then reads "deadline" instead of "length"
+    deadline_clamped: bool = False
+    #: set when the overload ladder truncated ``max_tokens`` under
+    #: pressure: the finish reason then reads "degraded"
+    degraded: bool = False
+    #: recall-hit probability; rides into the request's overload value
+    #: (``router/value.py``)
+    recall_p: float = 0.0
+    #: trace id of the request's analysis (None = untraced); the overload
+    #: ladder's decision log keys on it
+    trace_tag: Optional[str] = None
+    #: SLO class the overload ladder values the request under (None =
+    #: the default class)
+    slo_class: Optional[str] = None
 
 
 @dataclass
@@ -36,9 +67,11 @@ class GenerationResult:
     token_ids: list[int]
     prompt_tokens: int
     completion_tokens: int
-    finish_reason: str  # "stop" | "length"
+    finish_reason: str  # "stop" | "length" | "deadline" (budget-clamped) | "degraded" (overload-truncated)
     prefill_ms: float = 0.0
-    #: host wall from the prompt's completion to the request's finish
+    #: decode wall derived from the step clock (``obs/steptrace.py``): the
+    #: cumulative wall of the decode-bearing steps this request lived
+    #: through
     decode_ms: float = 0.0
     #: submit -> admission wall
     queue_wait_ms: float = 0.0
@@ -59,6 +92,8 @@ class _Slot:
     generated: list[int] = field(default_factory=list)
     started: float = 0.0
     prefill_ms: float = 0.0
+    #: step-clock decode cumulative when the slot went live
+    decode_cum0: float = 0.0
 
 
 def _bucket(n: int, floor: int, cap: int) -> int:
@@ -71,6 +106,18 @@ def _bucket(n: int, floor: int, cap: int) -> int:
 
 class OversizedRequest(ValueError):
     """A single request needs more KV pages than the whole cache holds."""
+
+
+class DeadlineExceeded(RuntimeError):
+    """The request's deadline budget cannot fit even one decoded token
+    (rejected at submit), or expired while the request was queued."""
+
+
+class ShedLowValue(RuntimeError):
+    """The overload ladder shed this request: under storm its value score
+    (router/value.py) fell below the rising cutoff and its SLO class was
+    not protected — shed-lowest-value-first, after degradation already
+    fired."""
 
 
 def prompt_budget(max_seq: int, max_tokens: int) -> int:

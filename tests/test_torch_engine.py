@@ -12,6 +12,7 @@ import ast
 import json
 import subprocess
 import sys
+import urllib.error
 import urllib.request
 from pathlib import Path
 
@@ -203,6 +204,53 @@ def test_http_server_answers_healthz_and_completions(torch_params):
         engine.close()
 
 
+def _post_status(url, body):
+    request = urllib.request.Request(
+        url, data=json.dumps(body).encode(), headers={"Content-Type": "application/json"},
+    )
+    try:
+        with urllib.request.urlopen(request, timeout=60) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as exc:
+        return exc.code, json.loads(exc.read())
+
+
+@pytest.mark.parametrize("extra,status,needle", [
+    ({"model": "tiny-test"}, 200, None),
+    ({"model": "no-such-model"}, 404, "no-such-model"),
+    ({"model": "an-adapter"}, 404, "not found"),
+    ({"guided_choice": ["yes", "no"]}, 400, "item 9"),
+    ({"guided_regex": "[a-z]+"}, 400, "item 9"),
+    ({"guided_json": {"type": "object"}}, 400, "item 9"),
+    ({"response_format": {"type": "json_schema", "json_schema": {"schema": {}}}}, 400, "item 9"),
+    ({"response_format": {"type": "json_object"}}, 400, "item 9"),
+    ({"response_format": {"type": "text"}}, 200, None),
+])
+def test_http_server_answers_model_and_guided_fields_as_the_reference(
+    torch_params, extra, status, needle
+):
+    """An unknown ``model`` is a 404 (the reference's ``_resolve_adapter``);
+    guided decoding is not ported, so its fields are refused, naming the
+    ROADMAP item, instead of answered with unconstrained text."""
+    engine = _engine(torch_params, 1, False)
+    server = CompletionServer(engine, model_id="tiny-test", host="127.0.0.1", port=0)
+    server.start()
+    try:
+        code, payload = _post_status(
+            f"http://127.0.0.1:{server.bound_port}/v1/completions",
+            {"prompt": "pod crashed", "max_tokens": 3, "temperature": 0.0, **extra},
+        )
+        assert code == status, payload
+        if status == 200:
+            assert payload["model"] == "tiny-test"
+            assert payload["usage"]["completion_tokens"] > 0
+        else:
+            assert needle in payload["error"]["message"]
+    finally:
+        server.stop()
+        engine.close()
+
+
 def test_port_imports_neither_jax_nor_the_jax_package():
     code = (
         "import sys\n"
@@ -218,6 +266,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import operator_tpu_torch.patterns.matcher, operator_tpu_torch.patterns.prefilter\n"
         "import operator_tpu_torch.memory.index, operator_tpu_torch.memory.fingerprint\n"
         "import operator_tpu_torch.memory.store, operator_tpu_torch.native\n"
+        "import operator_tpu_torch.utils.config, operator_tpu_torch.utils.timing\n"
+        "import operator_tpu_torch.utils.deadline, operator_tpu_torch.serving.kvstore\n"
+        "import operator_tpu_torch.ops.kv_transfer, operator_tpu_torch.router.value\n"
+        "import operator_tpu_torch.obs.steptrace, operator_tpu_torch.serving.perf\n"
         "operator_tpu_torch.patterns.loader.load_builtin_library()\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'operator_tpu' or m.startswith('operator_tpu.'))\n"

@@ -23,6 +23,10 @@ crossing many split edges, a window starting inside a split, released
 rows beside long ones) at D = 16, 64 and 128 and the groups G = 3, 4, 7
 and 8, and its merge counters left at zero; the similarity kernel also
 at P = 19 and 33 with W at a share edge, W = 8 and 9, and rows of 768.
+The ragged kernel also at the prefix cache's hit geometry (a first
+prefill chunk of 18 queries at kv_len 786 over head pages that rows
+share), and the host pool's page transfers (gather, side-stream fetch to
+pinned memory, restore) against the CPU's bytes.
 On the CPU, the ragged kernel's launch plan is a function of shapes
 alone, and the ragged and decode wrappers' copies of their kernels'
 split geometry and the similarity wrapper's layouts are the sources' and
@@ -552,6 +556,106 @@ def test_cuda_kernel_matches_plain_version_on_long_rows(cuda, name, dtype_name):
     assert ragged.launches == before + 1  # kernel and merge: one wrapper call
     want = ragged.ragged_attention_reference(*args, sliding_window=window)
     assert _valid_rows_err(got, want, q_count) <= TOL[dtype_name], name
+
+
+#: the prefix cache's hit geometry at tinyllama's page 64 and chunk 64:
+#: name -> (kv_len, q_count, store-owned head pages per row).  A warm
+#: request's first prefill chunk starts where its cached blocks end: 18
+#: queries at kv_len 786 over 12 shared pages, beside a longer row over
+#: the same 12 pages, a one-block hit, a decode row and an idle row.
+HIT_ROWS = {
+    "warm_first_chunk": ([786, 850, 130, 65, 0], [18, 64, 2, 1, 0], [12, 12, 2, 0, 0]),
+    "full_chunk_after_hit": ([832, 1501, 64 + 64, 1, 0], [64, 64, 64, 1, 0], [12, 22, 1, 0, 0]),
+}
+
+
+def _hit_inputs(name, dtype, device, page=64, pps=32, chunk=64):
+    """K1's inputs with rows that share their head pages, as rows that hit
+    one cached block chain do: the store's pages first in each table."""
+    kv_len, q_count, shared = HIT_ROWS[name]
+    rng = np.random.default_rng(sum(map(ord, name)))
+    b = len(kv_len)
+    num_pages = b * pps + 1
+    store = list(range(1, 1 + max(shared)))
+    own = iter(range(1 + max(shared), num_pages))
+    table = np.zeros((b, pps), np.int64)
+    for row in range(b):
+        table[row, : shared[row]] = store[: shared[row]]
+        for j in range(shared[row], pps):
+            table[row, j] = next(own, 0)
+    arrays = [
+        rng.normal(size=(b, chunk, QH, D)).astype(np.float32),
+        rng.normal(size=(num_pages, page, KH, D)).astype(np.float32),
+        rng.normal(size=(num_pages, page, KH, D)).astype(np.float32),
+    ]
+    args = [torch.from_numpy(a).to(device, dtype) for a in arrays] + [
+        torch.as_tensor(table, dtype=torch.int32, device=device),
+        torch.as_tensor(kv_len, dtype=torch.int32, device=device),
+        torch.as_tensor(q_count, dtype=torch.int32, device=device),
+    ]
+    return args, q_count
+
+
+@pytest.mark.parametrize("name", list(HIT_ROWS))
+def test_hit_geometry_shares_head_pages_and_takes_the_plain_version_on_cpu(name):
+    args, q_count = _hit_inputs(name, torch.float32, "cpu")
+    table, kv_len = args[3], args[4]
+    assert torch.equal(table[0, :12], table[1, :12])
+    before = ragged.launches
+    got = ragged.ragged_paged_attention(*args)
+    assert ragged.launches == before
+    assert torch.equal(got, ragged.ragged_attention_reference(*args))
+    assert int(kv_len[0]) - q_count[0] == 12 * 64
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", list(HIT_ROWS))
+def test_cuda_kernel_matches_plain_version_at_the_cache_hit_geometry(cuda, name, dtype_name):
+    args, q_count = _hit_inputs(name, getattr(torch, dtype_name), "cuda")
+    before = ragged.launches
+    got = ragged.ragged_paged_attention(*args)
+    torch.cuda.synchronize()
+    assert ragged.launches == before + 1
+    want = ragged.ragged_attention_reference(*args)
+    assert _valid_rows_err(got, want, q_count) <= TOL[dtype_name], name
+
+
+def _transfer_pages(dtype, device):
+    from types import SimpleNamespace
+
+    rng = np.random.default_rng(5)
+    shape = (22, 9, 64, KH, D)  # [layers, pages, page, kv_heads, head_dim]
+    k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(device, dtype)
+            for _ in range(2))
+    return SimpleNamespace(k_pages=k, v_pages=v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+def test_cuda_page_transfers_match_the_cpu_bytes(cuda, dtype_name):
+    """Gather, fetch (side stream, pinned) and restore on the card give
+    the CPU's bytes; a write of the gathered page after the gather does
+    not reach the fetched copy."""
+    from operator_tpu_torch.ops import kv_transfer
+
+    dtype = getattr(torch, dtype_name)
+    cpu, card = _transfer_pages(dtype, "cpu"), _transfer_pages(dtype, "cuda")
+    want_k, want_v = kv_transfer.fetch_page(*kv_transfer.gather_page(cpu, 5)).wait()
+    k_dev, v_dev = kv_transfer.gather_page(card, 5)
+    fetch = kv_transfer.fetch_page(k_dev, v_dev)
+    card.k_pages[:, 5].fill_(7.0)  # the page's next owner writes, in stream order
+    del k_dev, v_dev  # the side stream still holds them
+    k_host, v_host = fetch.wait()
+    assert k_host.is_pinned() and v_host.is_pinned()
+    assert torch.equal(k_host, want_k) and torch.equal(v_host, want_v)
+    assert fetch.ready.elapsed_time(fetch.done) >= 0.0
+    kv_transfer.restore_page(card, 8, k_host, v_host)
+    kv_transfer.restore_page(cpu, 8, want_k, want_v)
+    torch.cuda.synchronize()
+    cpu.k_pages[:, 5].fill_(7.0)
+    assert torch.equal(card.k_pages.cpu(), cpu.k_pages)
+    assert torch.equal(card.v_pages.cpu(), cpu.v_pages)
 
 
 @pytest.mark.cuda
