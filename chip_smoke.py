@@ -2,7 +2,7 @@
 """Chip smoke test of the PyTorch/H100 port (``operator_tpu_torch``).
 
     python3 chip_smoke.py [--out results.json]
-        [--phases device,kernels,serve,wave,analysis,parity]
+        [--phases device,kernels,serve,wave,analysis,checkpoint,parity]
 
 Runs on one CUDA card, from the root of a checkout; exits non-zero, and
 prints no result, when no card is present or the package is missing.
@@ -89,7 +89,33 @@ Phases, in order — any failure stops the run:
    set to 0 before each drive: K5 must launch exactly once per analysis
    and once per query, K1-K4 never.  Each K5 call of the drives is held
    to the plain version on its own inputs;
-6. parity: small f32 ``tiny-test`` engines on the card (kernels) and on
+6. checkpoint: a tinyllama-1.1b checkpoint at full width (bf16, the
+   serve phase's seeded weights) written by the port's ``save_params``
+   as HF-layout shards with an index, with the committed
+   SentencePiece-style ``tokenizer.json`` (``tests/torch_tokenizers/``),
+   loaded back through ``build_tpu_native_provider`` (``CHECKPOINT_DIR``,
+   int8 weights quantized as they land, the continuous scheduler): the
+   tokenizer must be the checkpoint's ``HFTokenizer``, not the byte
+   fallback, and the int8 tree byte for byte the seeded tree's
+   ``quantize_params``.  Ten ``AnalysisRequest``s of the fixture logs
+   (regex analysis, pod, logs; half greedy, 32 tokens each) go through
+   ``TPUNativeProvider.generate`` at once, counts set to 0 before: K1
+   exactly once per layer per step, the others never; one more request's
+   22 K1 calls are held to the plain version; the same drive on an engine
+   built in memory from the seeded tree must give the greedy requests'
+   responses exactly (admission held until all ten are queued, in both,
+   so both take the same steps).  Then an all-MiniLM-L6-v2-width f32
+   encoder checkpoint (HF BERT names, ``config.json``, a 30,522-entry
+   ``vocab.txt`` built from the fixtures and the built-in patterns):
+   ``build_embedder`` must return a ``NeuralEmbedder`` (not the lexical
+   fallback) whose weights are the seeded tree's, and
+   ``PatternEngine.analyze`` of the 33,000-line log launches K5 once,
+   held to the plain version, with the events of an in-memory encoder of
+   the same weights and WordPiece tokenizer.  Checkpoint bytes, write and
+   load seconds, GB/s, device memory after the load, the drive's wall,
+   tokens/s and K1 launches, and the analysis wall, encoder span and K5
+   launches are printed with the card's name and power limit;
+7. parity: small f32 ``tiny-test`` engines on the card (kernels) and on
    the CPU (plain versions) must give the same greedy tokens — the
    continuous engine, and the wave engine with the decode selector at
    ``v1`` and ``v2`` and flash prefill on and off; the continuous engine
@@ -1790,7 +1816,383 @@ def phase_analysis(results: dict, kernel_modules: dict, phases: set) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 6: card vs CPU on a small engine
+# phase 6: serve a checkpoint from disk (loader, tokenizers, provider)
+# ---------------------------------------------------------------------------
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+#: the committed SentencePiece-style tokenizer (1,405 ids) the LLM
+#: checkpoint is written with
+TOKENIZER_FIXTURE = os.path.join(ROOT, "tests", "torch_tokenizers", "llama_sp")
+#: the provider drive: one request per fixture log, half greedy
+CHECKPOINT_REQUESTS = 10
+CHECKPOINT_ENV = {k: v for k, v in SERVE_ENV.items() if k != "ALLOW_RANDOM_WEIGHTS"}
+#: all-MiniLM-L6-v2's HF config, the fields the loader reads
+MINILM_CONFIG_JSON = {
+    "model_type": "bert", "vocab_size": 30522, "hidden_size": 384,
+    "intermediate_size": 1536, "num_hidden_layers": 6, "num_attention_heads": 12,
+    "max_position_embeddings": 512, "type_vocab_size": 2, "layer_norm_eps": 1e-12,
+}
+
+
+def tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+
+def trees_equal(a, b) -> bool:
+    """Byte-for-byte equality of two param trees."""
+    import torch
+
+    if isinstance(a, dict):
+        return sorted(a) == sorted(b) and all(trees_equal(a[k], b[k]) for k in a)
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+
+
+def provider_requests() -> list:
+    """One ``AnalysisRequest`` per fixture log (the first ten by name):
+    the regex analysis, the pod and its logs; even ones greedy."""
+    from operator_tpu_torch.patterns.engine import PatternEngine
+    from operator_tpu_torch.schema.analysis import (
+        AIProviderConfig,
+        AnalysisRequest,
+        PodFailureData,
+    )
+
+    engine = PatternEngine()
+    names = sorted(n for n in os.listdir(FIXTURES) if n.endswith(".log"))[:CHECKPOINT_REQUESTS]
+    requests = []
+    for i, name in enumerate(names):
+        failure = PodFailureData.parse({
+            "logs": "\n".join(fixture_lines(name)),
+            "pod": {"metadata": {"name": name[:-4].replace("_", "-"), "namespace": "prod"}},
+        })
+        requests.append(AnalysisRequest(
+            analysis_result=engine.analyze(failure), failure_data=failure,
+            provider_config=AIProviderConfig(
+                provider_id="tpu-native", max_tokens=MAX_TOKENS,
+                temperature=0.0 if i % 2 == 0 else 0.7),
+        ))
+    return requests
+
+
+def wordpiece_vocab(size: int = 30522) -> list:
+    """A MiniLM-sized ``vocab.txt``, built deterministically from the
+    fixture logs and the built-in patterns' embedding texts: the specials,
+    every character, its ``##`` piece, the words by frequency (ties by
+    spelling), then ``[unusedN]`` filler."""
+    from operator_tpu_torch.patterns.loader import load_builtin_library
+    from operator_tpu_torch.patterns.semantic import embedding_text
+
+    texts = [line for name in sorted(os.listdir(FIXTURES)) if name.endswith(".log")
+             for line in fixture_lines(name)]
+    texts += [embedding_text(p) for p in load_builtin_library().patterns]
+    lowered = [t.lower() for t in texts]
+    chars = sorted({c for t in lowered for c in t if not c.isspace()})
+    counts: dict = {}
+    for text in lowered:
+        for word in re.findall(r"[a-z0-9]+", text):
+            counts[word] = counts.get(word, 0) + 1
+    words = sorted(counts, key=lambda w: (-counts[w], w))
+    vocab = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"] + chars + ["##" + c for c in chars]
+    vocab = list(dict.fromkeys(vocab + words))
+    return vocab + [f"[unused{i}]" for i in range(size - len(vocab))]
+
+
+def gated_drive(provider, requests: list) -> list:
+    """Every request through ``provider.generate`` at once, the engine's
+    admission held until all are queued, so two engines driven this way
+    take the same steps (a prefill chunk's split over K1's tiles, and so
+    its rounding, follows the step's mix)."""
+    import asyncio
+
+    engine = provider.engine
+    gate = threading.Lock()
+    admit = engine._admit_submissions
+
+    def gated(block: bool) -> None:
+        with gate:
+            admit(block)
+
+    async def drive():
+        with gate:
+            tasks = [asyncio.ensure_future(provider.generate(r)) for r in requests]
+            while (engine._submissions.qsize() < len(requests)
+                   and not any(t.done() for t in tasks)):
+                await asyncio.sleep(0)
+        return await asyncio.gather(*tasks)
+
+    engine._admit_submissions = gated
+    try:
+        return asyncio.run(drive())
+    finally:
+        engine._admit_submissions = admit
+
+
+def write_encoder_checkpoint(params, path: str) -> None:
+    """The encoder tree under HF BERT names (projections back to
+    ``[out, in]``), one f32 ``model.safetensors``, with ``config.json``,
+    ``vocab.txt`` and a lower-casing ``tokenizer_config.json``."""
+    from operator_tpu_torch.models import encoder
+    from operator_tpu_torch.models.loader import write_safetensors
+
+    tensors = {hf: params[ours].cpu() for hf, ours in encoder._BERT_TOP_MAP.items()}
+    for sub, (ours, transpose) in encoder._BERT_LAYER_MAP.items():
+        stacked = params["layers"][ours]
+        stacked = (stacked.transpose(-1, -2) if transpose else stacked).contiguous().cpu()
+        for i in range(stacked.shape[0]):
+            tensors[f"encoder.layer.{i}.{sub}"] = stacked[i]
+    os.makedirs(path, exist_ok=True)
+    write_safetensors(os.path.join(path, "model.safetensors"), tensors)
+    with open(os.path.join(path, "config.json"), "w") as fh:
+        json.dump(MINILM_CONFIG_JSON, fh)
+    with open(os.path.join(path, "vocab.txt"), "w", encoding="utf-8") as fh:
+        fh.write("\n".join(wordpiece_vocab()) + "\n")
+    with open(os.path.join(path, "tokenizer_config.json"), "w") as fh:
+        json.dump({"do_lower_case": True, "tokenizer_class": "BertTokenizer"}, fh)
+
+
+def phase_checkpoint(results: dict, kernel_modules: dict) -> dict:
+    """A tinyllama-1.1b checkpoint written at full width from the serve
+    phase's seeded weights, loaded back with int8 weights through
+    ``build_tpu_native_provider`` and driven with ten analysis requests;
+    then a MiniLM-width encoder checkpoint through ``build_embedder`` and
+    ``PatternEngine.analyze``.  Returns the kernels' launch counts summed
+    over the provider drive and the long analysis."""
+    import asyncio
+    import tempfile
+
+    import torch
+
+    from operator_tpu_torch.models.configs import get_config
+    from operator_tpu_torch.models.encoder import MINILM_L6, init_encoder_params
+    from operator_tpu_torch.models.llama import init_params
+    from operator_tpu_torch.models.loader import save_params
+    from operator_tpu_torch.models.quant import quantize_params
+    from operator_tpu_torch.models.tokenizer import HFTokenizer
+    from operator_tpu_torch.models.wordpiece import WordPieceTokenizer
+    from operator_tpu_torch.ops import ragged_attention as ra
+    from operator_tpu_torch.patterns import semantic as semantic_module
+    from operator_tpu_torch.patterns.engine import PatternEngine
+    from operator_tpu_torch.patterns.semantic import NeuralEmbedder, SemanticMatcher, build_embedder
+    from operator_tpu_torch.schema.analysis import PodFailureData
+    from operator_tpu_torch.serving import provider as provider_module
+    from operator_tpu_torch.serving.sched import mixed as mixed_module
+
+    config = get_config(SERVE_ENV["OPERATOR_TPU_MODEL"])
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    workdir = tempfile.mkdtemp(prefix="checkpoint-", dir=os.path.join(ROOT, "build"))
+    total = {name: 0 for name in kernel_modules}
+    out: dict = {"card": card_line(), "model": config.name, "layers": config.num_layers}
+
+    def counted(drive):
+        for module in kernel_modules.values():
+            module.launches = 0
+        result = drive()
+        launches = {name: m.launches for name, m in kernel_modules.items()}
+        for name, n in launches.items():
+            total[name] += n
+        return result, launches
+
+    try:
+        # 1. the LLM checkpoint: the serve phase's seeded tree, in bf16
+        ckpt = os.path.join(workdir, "tinyllama")
+        seeded = init_params(config, torch.Generator(device="cuda").manual_seed(0),
+                             torch.bfloat16, device="cuda")
+        if (config.num_layers, config.hidden_size, config.num_heads, config.num_kv_heads,
+                config.vocab_size) != (22, 2048, 32, 4, 32000):
+            raise fail(f"not tinyllama-1.1b at full width: {config}")
+        torch.cuda.synchronize()
+        started = time.perf_counter()
+        files = save_params(seeded, ckpt, config, shard_bytes=1 << 30)
+        write_s = time.perf_counter() - started
+        for name in ("tokenizer.json", "tokenizer_config.json"):
+            shutil.copy(os.path.join(TOKENIZER_FIXTURE, name), os.path.join(ckpt, name))
+        ckpt_bytes = sum(os.path.getsize(os.path.join(ckpt, f)) for f in files)
+        want = quantize_params(seeded, config)
+        del seeded
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+        # 2. load and serve: the weight stream's handle is kept for its time
+        handles = []
+        stream = provider_module.load_params_async
+
+        def recorded(*args, **kwargs):
+            handles.append(stream(*args, **kwargs))
+            return handles[-1]
+
+        provider_module.load_params_async = recorded
+        torch.cuda.reset_peak_memory_stats()
+        memory0 = torch.cuda.memory_allocated()
+        started = time.perf_counter()
+        try:
+            provider = provider_module.build_tpu_native_provider(
+                "cuda", {**CHECKPOINT_ENV, "CHECKPOINT_DIR": ckpt})
+        finally:
+            provider_module.load_params_async = stream
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - started
+        load_s = handles[0].seconds
+        engine = provider.engine
+        g = engine.generator
+        out["checkpoint"] = {
+            "files": len(files), "bytes": ckpt_bytes, "write_s": write_s,
+            "write_gb_per_s": ckpt_bytes / write_s / 1e9, "load_s": load_s,
+            "load_gb_per_s": ckpt_bytes / load_s / 1e9, "provider_build_s": build_s,
+            "weights_gib": tree_bytes(g.params) / 2**30,
+            "memory_after_load_gib": (torch.cuda.memory_allocated() - memory0) / 2**30,
+            "peak_memory_during_load_gib": (torch.cuda.max_memory_allocated() - memory0) / 2**30,
+        }
+        print(json.dumps({"checkpoint": out["checkpoint"], "card": out["card"]}), flush=True)
+        if not isinstance(g.tokenizer, HFTokenizer):
+            raise fail(f"the checkpoint's tokenizer fell back to {type(g.tokenizer).__name__}")
+        if not trees_equal(g.params, want):
+            raise fail("the loaded int8 tree is not the seeded tree's quantize_params, byte for byte")
+        del want
+
+        # 3. the provider drive: ten requests at once, K1 counted
+        sched = engine.scheduler
+        requests = provider_requests()
+        engine.warmup()
+        asyncio.run(provider.generate(requests[0]))  # not a cold start
+        steps0 = sched.steps
+        started = time.perf_counter()
+        responses, launches = counted(lambda: gated_drive(provider, requests))
+        wall = time.perf_counter() - started
+        steps = sched.steps - steps0
+        wait_idle(sched)
+        accounting = balanced(sched, "after the provider drive")
+        bad = [r.to_dict() for r in responses if r.error or not r.completion_tokens]
+        if bad:
+            raise fail(f"provider responses without an explanation: {bad}")
+        if launches["ragged_paged_attention"] != config.num_layers * steps or steps == 0:
+            raise fail(f"provider drive: ragged kernel launched {launches} over {steps} steps")
+        if any(n for k, n in launches.items() if k != "ragged_paged_attention"):
+            raise fail(f"other kernels launched on the provider drive: {launches}")
+        completion = sum(r.completion_tokens for r in responses)
+        # K1 held to its plain version on one more request's first 22 calls
+        held = HeldToPlain(
+            mixed_module.ragged_paged_attention, ra.ragged_attention_reference,
+            config.num_layers, lambda dtype, _: TOL[dtype],
+            valid=lambda q, *args: torch.arange(q.shape[1], device=q.device)[None] < args[4][:, None],
+            note=k1_split_note,
+        )
+        mixed_module.ragged_paged_attention = held
+        try:
+            asyncio.run(provider.generate(requests[1]))
+        finally:
+            mixed_module.ragged_paged_attention = held.fn
+        bad_held = [c for c in held.held if not c["finite"] or not c["excess"] <= 0]
+        if len(held.held) != config.num_layers or bad_held:
+            raise fail(f"provider drive: {len(held.held)} K1 calls held, outside tolerance: {bad_held}")
+        tokenizer = g.tokenizer
+        engine.close()
+
+        # the same drive on an engine built in memory from the same seeded
+        # tree (the serve phase's), with the checkpoint's tokenizer: the
+        # greedy half must give the same tokens
+        reference, model_id = provider_module.build_serving_engine("cuda", SERVE_ENV, seed=0)
+        reference.generator.tokenizer = tokenizer
+        in_memory = provider_module.TPUNativeProvider(reference, model_id=model_id)
+        try:
+            reference.warmup()
+            asyncio.run(in_memory.generate(requests[0]))
+            want_responses = gated_drive(in_memory, requests)
+        finally:
+            reference.close()
+        greedy = [i for i, r in enumerate(requests) if r.provider_config.temperature == 0.0]
+        mismatched = [i for i in greedy
+                      if responses[i].to_dict() != want_responses[i].to_dict()]
+        if mismatched:
+            raise fail(f"greedy requests {mismatched} differ from the in-memory engine's: "
+                       f"{[responses[i].to_dict() for i in mismatched]} != "
+                       f"{[want_responses[i].to_dict() for i in mismatched]}")
+        out["provider"] = {
+            "requests": len(requests), "greedy": len(greedy), "max_tokens": MAX_TOKENS,
+            "prompt_tokens": [r.prompt_tokens for r in responses],
+            "completion_tokens": completion, "wall_s": wall, "tokens_per_s": completion / wall,
+            "steps": steps, "launches": launches, "page_accounting": accounting,
+            "held_k1_calls": len(held.held),
+            "held_k1_max_abs_err": max(c["max_abs_err"] for c in held.held),
+            "held_k1_splits_with_keys": max(c["splits_with_keys"] for c in held.held),
+            "greedy_equal_in_memory": True,
+            "sampled_equal_in_memory": all(
+                a.to_dict() == b.to_dict() for a, b in zip(responses, want_responses)),
+        }
+        print(json.dumps({"checkpoint_provider": out["provider"], "card": out["card"]}), flush=True)
+        torch.cuda.empty_cache()
+
+        # 4. the encoder checkpoint at all-MiniLM-L6-v2's width
+        enc_dir = os.path.join(workdir, "minilm")
+        enc_params = init_encoder_params(MINILM_L6, torch.Generator(device="cuda").manual_seed(0),
+                                         torch.float32, device="cuda")
+        write_encoder_checkpoint(enc_params, enc_dir)
+        started = time.perf_counter()
+        loaded = build_embedder(enc_dir, device="cuda")
+        torch.cuda.synchronize()
+        embedder_build_s = time.perf_counter() - started
+        if not isinstance(loaded, NeuralEmbedder):
+            raise fail(f"build_embedder fell back to {type(loaded).__name__}")
+        if loaded.dim != 384 or not trees_equal(loaded.params, enc_params):
+            raise fail("the loaded encoder is not the seeded MiniLM-width tree")
+        wordpiece = WordPieceTokenizer.from_dir(enc_dir)
+        in_memory = NeuralEmbedder(enc_params, MINILM_L6, wordpiece.encode, device="cuda")
+        logs = crash_loop_log()
+        runs = {}
+        for name, emb in (("loaded", loaded), ("in_memory", in_memory)):
+            matcher = SemanticMatcher(emb, device="cuda")
+            engine_ = PatternEngine(semantic=matcher)
+            engine_.analyze(PodFailureData(logs="\n".join(fixture_lines("oom_java.log"))))
+            timed = TimedEmbedder(emb)
+            matcher.embedder = timed
+            k5 = StreamSpans(semantic_module.best_window_scores)
+            semantic_module.best_window_scores = k5
+            try:
+                started = time.perf_counter()
+                result, launches_a = counted(lambda: engine_.analyze(PodFailureData(logs=logs)))
+                wall_ms = (time.perf_counter() - started) * 1e3
+            finally:
+                semantic_module.best_window_scores = k5.fn
+            [(_, _, (w_emb, p_emb), (scores, idx))] = k5.calls
+            runs[name] = {
+                "events": [(e.source, e.matched_pattern.id, e.context.line_number, e.score)
+                           for e in result.events],
+                "launches": launches_a, "wall_ms": wall_ms,
+                "encoder_stream_ms": sum(timed.embed.spans_ms()),
+                "k5_stream_ms": k5.spans_ms()[0],
+                "k5_max_abs_err": check_similarity(w_emb, p_emb, scores, idx),
+                "windows": int(w_emb.shape[0]),
+            }
+        want_launch = {name: 0 for name in kernel_modules}
+        want_launch["best_window_similarity"] = 1
+        got = runs["loaded"]
+        if got["launches"] != want_launch or not got["k5_max_abs_err"] <= SIM_TOL:
+            raise fail(f"checkpoint analysis: launches {got['launches']}, K5 error {got['k5_max_abs_err']}")
+        if got["events"] != runs["in_memory"]["events"]:
+            raise fail(f"the loaded encoder's events {got['events']} differ from the "
+                       f"in-memory encoder's {runs['in_memory']['events']}")
+        # the in-memory run's counts are a comparison, not the path's
+        for name, n in runs["in_memory"]["launches"].items():
+            total[name] -= n
+        out["analysis"] = {
+            "embedder_build_s": embedder_build_s, "log_lines": LONG_LOG_LINES,
+            "vocab": len(wordpiece.vocab), **{k: v for k, v in got.items() if k != "events"},
+            "events": len(got["events"]),
+            "semantic_events": sum(1 for src, *_ in got["events"] if src == "semantic"),
+            "top_events": got["events"][:5],
+            "in_memory_wall_ms": runs["in_memory"]["wall_ms"],
+        }
+        print(json.dumps({"checkpoint_analysis": out["analysis"], "card": out["card"]}), flush=True)
+        results["checkpoint"] = out
+        return total
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 7: card vs CPU on a small engine
 # ---------------------------------------------------------------------------
 
 
@@ -1824,7 +2226,7 @@ def phase_parity(results: dict, kernel_modules: dict) -> None:
         )
         engine = ServingEngine(generator, sched)
         try:
-            return [r.token_ids for r in engine.generate(prompts, sampling)]
+            return [r.token_ids for r in engine.generate_batch(prompts, sampling)]
         finally:
             engine.close()
 
@@ -1900,10 +2302,10 @@ def store_parity(params_cuda, params_cpu) -> dict:
                           spec_decode=True, kvstore=store)
         engine = ServingEngine(generator, sched)
         try:
-            cold = [r.token_ids for r in engine.generate(prompts, sampling)]
+            cold = [r.token_ids for r in engine.generate_batch(prompts, sampling)]
             spilled = sched.spill_cache()
-            engine.generate(["drain"], SamplingParams(max_tokens=1, temperature=0.0))
-            warm = [r.token_ids for r in engine.generate(prompts, sampling)]
+            engine.generate_batch(["drain"], SamplingParams(max_tokens=1, temperature=0.0))
+            warm = [r.token_ids for r in engine.generate_batch(prompts, sampling)]
             acc = sched.page_accounting()
             if sum(acc[k] for k in ("available", "row_pages", "store_pages", "prefix_pages")) != acc["total"]:
                 raise fail(f"store parity on {device}: pages do not balance {acc}")
@@ -1983,7 +2385,7 @@ def analysis_parity(kernel_modules: dict) -> dict:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="also write every result to this JSON file")
-    parser.add_argument("--phases", default="device,kernels,serve,wave,analysis,parity")
+    parser.add_argument("--phases", default="device,kernels,serve,wave,analysis,checkpoint,parity")
     args = parser.parse_args()
     phases = set(args.phases.split(","))
 
@@ -2038,6 +2440,7 @@ def main() -> int:
         for selector in (("v1", "v2") if "wave" in phases else ())
     }
     analysis = phase_analysis(results, kernel_modules, phases) if "analysis" in phases else {}
+    checkpoint = phase_checkpoint(results, kernel_modules) if "checkpoint" in phases else {}
     if "parity" in phases:
         phase_parity(results, kernel_modules)
     # each kernel's count from the drive of the path it serves: K1 the
@@ -2054,6 +2457,8 @@ def main() -> int:
     }
     for record in records:
         record["launches"] = path_launches[record["name"]]
+        # the same kernel's launches on the checkpoint phase's path
+        record["launches_checkpoint"] = checkpoint.get(re.sub(r"_v[12]$", "", record["name"]))
     kernels = records
     results["kernels"] = kernels
     device = {

@@ -15,18 +15,23 @@ params stacked on a leading axis (the JAX package's layout, so
 ``lax.scan`` over that axis becomes a loop.  Every projection is stored
 ``[in_features, out_features]``.  LayerNorm statistics are f32; the
 attention is plain einsum/softmax (the JAX package has no Pallas kernel
-here either).  The HF checkpoint conversion and its loader are not
-ported yet.
+here either).  :func:`load_encoder_params` reads a HF BERT/MiniLM
+safetensors checkpoint (``models/loader.py``'s reader) and
+:func:`convert_hf_bert_state_dict` maps its names onto the tree.
 """
 
 from __future__ import annotations
 
+import json
+import os
+import re
 from dataclasses import dataclass
-from typing import Any, Union
+from typing import Any, Iterable, Mapping, Optional, Union
 
 import torch
 import torch.nn.functional as F
 
+from ..utils.device import resolve_device
 from .llama import params_from_jax
 
 Params = dict[str, Any]
@@ -35,9 +40,12 @@ __all__ = [
     "ENCODER_TINY_TEST",
     "MINILM_L6",
     "EncoderConfig",
+    "convert_hf_bert_state_dict",
     "encode",
     "encode_tokens",
+    "encoder_config_from_hf_json",
     "init_encoder_params",
+    "load_encoder_params",
     "params_from_jax",
 ]
 
@@ -202,3 +210,129 @@ def encode(
     counts = mask.sum(dim=1).clamp_min(1.0)
     pooled = summed / counts
     return pooled / torch.linalg.norm(pooled, dim=-1, keepdim=True).clamp_min(1e-12)
+
+
+# ---------------------------------------------------------------------------
+# HF BERT checkpoint conversion (all-MiniLM-L6-v2 layout)
+# ---------------------------------------------------------------------------
+
+_BERT_LAYER_RE = re.compile(r"(?:bert\.)?encoder\.layer\.(\d+)\.(.+)")
+
+#: HF sub-name -> (our stacked name, transpose?)
+_BERT_LAYER_MAP = {
+    "attention.self.query.weight": ("wq", True),
+    "attention.self.query.bias": ("bq", False),
+    "attention.self.key.weight": ("wk", True),
+    "attention.self.key.bias": ("bk", False),
+    "attention.self.value.weight": ("wv", True),
+    "attention.self.value.bias": ("bv", False),
+    "attention.output.dense.weight": ("wo", True),
+    "attention.output.dense.bias": ("bo", False),
+    "attention.output.LayerNorm.weight": ("ln_attn_scale", False),
+    "attention.output.LayerNorm.bias": ("ln_attn_bias", False),
+    "intermediate.dense.weight": ("w_in", True),
+    "intermediate.dense.bias": ("b_in", False),
+    "output.dense.weight": ("w_out", True),
+    "output.dense.bias": ("b_out", False),
+    "output.LayerNorm.weight": ("ln_mlp_scale", False),
+    "output.LayerNorm.bias": ("ln_mlp_bias", False),
+}
+
+_BERT_TOP_MAP = {
+    "embeddings.word_embeddings.weight": "tok_embed",
+    "embeddings.position_embeddings.weight": "pos_embed",
+    "embeddings.token_type_embeddings.weight": "type_embed",
+    "embeddings.LayerNorm.weight": "ln_embed_scale",
+    "embeddings.LayerNorm.bias": "ln_embed_bias",
+}
+
+
+def convert_hf_bert_state_dict(
+    state: "Mapping[str, torch.Tensor] | Iterable[tuple[str, torch.Tensor]]",
+    config: EncoderConfig,
+    dtype: torch.dtype = torch.float32,
+    *,
+    device: Union[str, torch.device, None] = None,
+) -> Params:
+    """Map a HF BERT state dict to the stacked tree ``encode`` uses, on
+    ``device`` (``cuda`` unless the caller asks for another)."""
+    device = resolve_device(device)
+    n = config.num_layers
+    per_layer: dict[str, list[Optional[torch.Tensor]]] = {
+        ours: [None] * n for ours, _ in _BERT_LAYER_MAP.values()
+    }
+    top: dict[str, torch.Tensor] = {}
+    items = state.items() if hasattr(state, "items") else state
+    for name, raw in items:
+        bare = name.removeprefix("bert.")
+        if bare in _BERT_TOP_MAP:
+            top[_BERT_TOP_MAP[bare]] = raw.detach().to(device=device, dtype=dtype, copy=True)
+            continue
+        match = _BERT_LAYER_RE.fullmatch(name)
+        if not match:
+            continue
+        idx, sub = int(match.group(1)), match.group(2)
+        mapped = _BERT_LAYER_MAP.get(sub)
+        if mapped is None or idx >= n:
+            continue
+        ours, transpose = mapped
+        tensor = raw.detach()
+        per_layer[ours][idx] = tensor.T if transpose else tensor
+
+    missing = [
+        f"{ours}[{i}]"
+        for ours, slots in per_layer.items()
+        for i, s in enumerate(slots)
+        if s is None
+    ]
+    if missing:
+        raise ValueError(f"encoder checkpoint missing {len(missing)} tensors, e.g. {missing[:4]}")
+    layers = {
+        ours: torch.stack(slots).to(device=device, dtype=dtype).contiguous()
+        for ours, slots in per_layer.items()
+    }
+    missing_top = [k for k in _BERT_TOP_MAP.values() if k not in top]
+    if missing_top:
+        raise ValueError(f"encoder checkpoint missing {missing_top}")
+    return {**top, "layers": layers}
+
+
+def encoder_config_from_hf_json(checkpoint_dir: str) -> EncoderConfig:
+    """Build an :class:`EncoderConfig` from a HF ``config.json`` (the
+    all-MiniLM-L6-v2 layout); falls back to MINILM_L6 when absent."""
+    path = os.path.join(checkpoint_dir, "config.json")
+    if not os.path.exists(path):
+        return MINILM_L6
+    with open(path) as f:
+        raw = json.load(f)
+    return EncoderConfig(
+        name=raw.get("_name_or_path") or os.path.basename(checkpoint_dir) or "hf-encoder",
+        vocab_size=int(raw.get("vocab_size", MINILM_L6.vocab_size)),
+        hidden_size=int(raw.get("hidden_size", MINILM_L6.hidden_size)),
+        intermediate_size=int(raw.get("intermediate_size", MINILM_L6.intermediate_size)),
+        num_layers=int(raw.get("num_hidden_layers", MINILM_L6.num_layers)),
+        num_heads=int(raw.get("num_attention_heads", MINILM_L6.num_heads)),
+        max_positions=int(raw.get("max_position_embeddings", MINILM_L6.max_positions)),
+        type_vocab_size=int(raw.get("type_vocab_size", MINILM_L6.type_vocab_size)),
+        layer_norm_eps=float(raw.get("layer_norm_eps", MINILM_L6.layer_norm_eps)),
+    )
+
+
+def load_encoder_params(
+    checkpoint_dir: str,
+    config: Optional[EncoderConfig] = None,
+    dtype: torch.dtype = torch.float32,
+    *,
+    device: Union[str, torch.device, None] = None,
+) -> tuple[Params, EncoderConfig]:
+    """Load a MiniLM-class safetensors checkpoint directory onto
+    ``device`` (``cuda`` unless the caller asks for another).  Returns
+    ``(params, config)``, the config read from the directory's
+    ``config.json`` unless one is passed."""
+    from .loader import iter_safetensors
+
+    config = config or encoder_config_from_hf_json(checkpoint_dir)
+    params = convert_hf_bert_state_dict(
+        iter_safetensors(checkpoint_dir), config, dtype, device=device
+    )
+    return params, config

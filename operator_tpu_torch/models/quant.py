@@ -28,10 +28,12 @@ QUANTIZED_LAYER_MATRICES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 
 __all__ = [
     "QUANTIZED_LAYER_MATRICES",
+    "dequantize_params",
     "is_quantized",
     "mm",
     "quantize_matrix",
     "quantize_params",
+    "quantized_bytes",
 ]
 
 
@@ -43,11 +45,27 @@ def is_quantized(params: Params) -> bool:
     )
 
 
+def dequantize_params(params: Params, dtype: torch.dtype = torch.bfloat16) -> Params:
+    """Expand every int8 {q, s} group back to a float matrix (e.g. before
+    ``save_params``, whose HF layout has no quantized convention)."""
+    layers = {
+        name: (
+            (leaf["q"].to(torch.float32) * leaf["s"].unsqueeze(-2)).to(dtype)
+            if isinstance(leaf, dict) and "q" in leaf
+            else leaf
+        )
+        for name, leaf in params["layers"].items()
+    }
+    return {**params, "layers": layers}
+
+
 def quantize_matrix(w: torch.Tensor) -> dict[str, torch.Tensor]:
     """[..., in, out] float -> {q: int8 [..., in, out], s: f32 [..., out]}."""
     w32 = w.to(torch.float32)
     absmax = w32.abs().amax(dim=-2)  # [..., out]
-    scale = absmax.clamp_min(1e-8) / 127.0
+    # a divisor on the tensor's device: CUDA multiplies by the reciprocal
+    # of a host scalar, so the card would round differently from the CPU
+    scale = absmax.clamp_min(1e-8) / torch.full((), 127.0, device=w.device)
     q = torch.round(w32 / scale.unsqueeze(-2)).clamp_(-127, 127).to(torch.int8)
     return {"q": q, "s": scale}
 
@@ -70,3 +88,10 @@ def mm(x: torch.Tensor, w: Union[torch.Tensor, dict[str, torch.Tensor]]) -> torc
     if isinstance(w, dict):
         return (x @ w["q"].to(x.dtype)) * w["s"].to(x.dtype)
     return x @ w
+
+
+def quantized_bytes(params: Params) -> int:
+    """Bytes of every tensor in the tree (int8 groups at their int8 size)."""
+    if isinstance(params, dict):
+        return sum(quantized_bytes(leaf) for leaf in params.values())
+    return params.numel() * params.element_size()

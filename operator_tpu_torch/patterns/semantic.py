@@ -207,14 +207,28 @@ class NeuralEmbedder:
         batch_size: int = 32,
         device: Optional[Union[str, torch.device]] = None,
     ) -> "NeuralEmbedder":
-        """Build from a local sentence-transformers/BERT checkpoint dir.
-        Not ported yet: the safetensors loader, the HF BERT conversion and
-        a WordPiece tokenizer come with ROADMAP Queue 1 item 4 (loader and
-        tokenizers)."""
-        raise NotImplementedError(
-            f"NeuralEmbedder.from_checkpoint({checkpoint_dir!r}): the encoder "
-            "checkpoint loader and WordPiece tokenizer are not ported yet "
-            "(ROADMAP Queue 1 item 4, loader and tokenizers)"
+        """Build from a local sentence-transformers/BERT checkpoint dir
+        (safetensors weights + config.json + ``vocab.txt`` WordPiece
+        files), the weights loaded straight onto ``device``.
+
+        Tokenisation includes the [CLS]/[SEP] specials — the
+        sentence-transformers mean-pooling convention counts them, and
+        matching it is what makes cosine scores comparable to the public
+        MiniLM embeddings.
+        """
+        from ..models.encoder import load_encoder_params
+        from ..models.wordpiece import WordPieceTokenizer
+
+        device = resolve_device(device)
+        params, config = load_encoder_params(checkpoint_dir, device=device)
+        tok = WordPieceTokenizer.from_dir(checkpoint_dir)
+
+        def tokenize(text: str) -> list[int]:
+            return tok.encode(text, add_special_tokens=True)
+
+        return cls(
+            params, config, tokenize, max_tokens=max_tokens, batch_size=batch_size,
+            device=device,
         )
 
     def embed(self, texts: Sequence[str]) -> np.ndarray:
@@ -242,22 +256,21 @@ class NeuralEmbedder:
 
 
 def build_embedder(
-    encoder_checkpoint_dir: "str | None", *, fallback: bool = True
+    encoder_checkpoint_dir: "str | None",
+    *,
+    fallback: bool = True,
+    device: Optional[Union[str, torch.device]] = None,
 ):
     """The one embedder ladder every surface uses: MiniLM-class neural
-    encoder when a checkpoint dir is given and loads, degrading with a
-    warning to the lexical ``HashingEmbedder`` (or ``None`` when
-    ``fallback=False`` — the semantic matcher treats no-encoder as
-    "lexical matching only").  Until the checkpoint loader is ported,
-    a given checkpoint dir raises ``NotImplementedError``: a mounted
-    checkpoint must not silently lose the neural path."""
+    encoder on ``device`` when a checkpoint dir is given and loads,
+    degrading with a warning to the lexical ``HashingEmbedder`` (or
+    ``None`` when ``fallback=False`` — the semantic matcher treats
+    no-encoder as "lexical matching only")."""
     if encoder_checkpoint_dir:
         try:
-            embedder = NeuralEmbedder.from_checkpoint(encoder_checkpoint_dir)
+            embedder = NeuralEmbedder.from_checkpoint(encoder_checkpoint_dir, device=device)
             log.info("neural embedder from %s", encoder_checkpoint_dir)
             return embedder
-        except NotImplementedError:
-            raise
         except Exception:  # noqa: BLE001 - optional neural path degrades
             log.warning(
                 "encoder checkpoint %s unusable; degrading to lexical",

@@ -1,14 +1,18 @@
 """Typed schema layer of the port: own copies of the JAX package's
-``operator_tpu/schema`` modules that the analysis path reads (the CRDs and
-their generator come with the operator)."""
+``operator_tpu/schema`` modules that the analysis path and the provider
+read (the CRDs and their generator come with the operator)."""
 
 from .analysis import (
+    AIProviderConfig,
+    AIResponse,
     AnalysisEvent,
+    AnalysisRequest,
     AnalysisResult,
     AnalysisSummary,
     MatchContext,
     MatchedPattern,
     PodFailureData,
+    PriorIncident,
     Severity,
     StageTimings,
 )

@@ -20,8 +20,12 @@ attribution and the measured MFU against the H100's peak) and its
 (``admission.py:deadline_policy`` on the injectable ``_clock``).
 
 ``ServingEngine`` runs one of the two loops on ONE worker thread: callers
-on any thread ``submit(prompt, params)`` and get a
-``concurrent.futures.Future``.  With a scheduler the worker admits queued
+on any thread ``submit(prompt, params, priority=...)`` and get a
+``concurrent.futures.Future``; on an event loop, ``await
+engine.generate(prompt, params, priority=...)`` (the reference's
+coroutine, which the provider awaits); ``generate_batch(prompts)`` submits
+a list and waits.  ``priority`` orders admission only (higher first, FIFO
+within a class).  With a scheduler the worker admits queued
 submissions at every step boundary (token-level admission) and steps the
 scheduler; without one it runs the wave loop (``operator_tpu/serving/
 engine.py:_serve``): admit what fits into free slots and pages, requeue
@@ -31,6 +35,7 @@ worker.
 
 from __future__ import annotations
 
+import asyncio
 import collections
 import concurrent.futures
 import itertools
@@ -500,12 +505,13 @@ class ServingEngine:
     # -- submit side ---------------------------------------------------
 
     def submit(
-        self, prompt: str, params: Optional[SamplingParams] = None
+        self, prompt: str, params: Optional[SamplingParams] = None, *, priority: int = 0
     ) -> "concurrent.futures.Future[GenerationResult]":
         """Queue one request; raises ``ValueError`` for a guided or LoRA
         request (not ported) and :class:`DeadlineExceeded` when its budget
         cannot fit one decoded token — both to this caller, before the
-        request takes a queue place."""
+        request takes a queue place.  ``priority`` orders admission
+        (higher first, FIFO within a class)."""
         if self._closed.is_set():
             raise RuntimeError("serving engine is closed")
         if self._error is not None:
@@ -529,7 +535,7 @@ class ServingEngine:
                 )
         future: concurrent.futures.Future = concurrent.futures.Future()
         self._submissions.put(
-            (prompt, params or SamplingParams(), time.perf_counter(), future)
+            (prompt, params or SamplingParams(), time.perf_counter(), priority, future)
         )
         if self._error is not None:
             # the worker died between the check above and the put: its
@@ -539,7 +545,17 @@ class ServingEngine:
         self.start()
         return future
 
-    def generate(
+    async def generate(
+        self, prompt: str, params: Optional[SamplingParams] = None, *, priority: int = 0
+    ) -> GenerationResult:
+        """Generate on the caller's event loop: the submission's verdicts
+        (``ValueError``, :class:`DeadlineExceeded`) raise here, the result
+        or the engine's error when the request finishes.  The pipeline's
+        explanations use ``priority=10`` so external API callers sharing
+        the engine never starve them."""
+        return await asyncio.wrap_future(self.submit(prompt, params, priority=priority))
+
+    def generate_batch(
         self, prompts: Sequence[str], params: Optional[SamplingParams] = None
     ) -> list[GenerationResult]:
         """Submit every prompt (they co-batch) and wait for all results."""
@@ -583,10 +599,12 @@ class ServingEngine:
         except queue.Empty:
             return
         while True:
-            prompt, params, submitted, future = item
+            prompt, params, submitted, priority, future = item
             if future.set_running_or_notify_cancel():
                 try:
-                    req_id = self.scheduler.enqueue(prompt, params, submitted=submitted)
+                    req_id = self.scheduler.enqueue(
+                        prompt, params, submitted=submitted, priority=priority,
+                    )
                 except (ValueError, MemoryError, ShedLowValue) as exc:  # per-request verdict
                     future.set_exception(exc)
                 else:
@@ -643,7 +661,11 @@ class ServingEngine:
                 return arrived
             timeout = None
             if item[-1].set_running_or_notify_cancel():
-                self._waiting.append(item)
+                # higher priority first, FIFO within a class
+                at = len(self._waiting)
+                while at and self._waiting[at - 1][3] < item[3]:
+                    at -= 1
+                self._waiting.insert(at, item)
                 arrived = True
 
     def _page_stalled(self) -> bool:
@@ -693,7 +715,7 @@ class ServingEngine:
             # only the head is impossible: fail it alone, the rest retry
             self._waiting.popleft()[-1].set_exception(exc)
             return
-        for slot_id, (_, _, submitted, future) in zip(slots, batch):
+        for slot_id, (_, _, submitted, _, future) in zip(slots, batch):
             self._waiting.popleft()
             self._pending[slot_id] = future
             self._queue_wait_ms[slot_id] = max(0.0, (admitted_t - submitted) * 1e3)

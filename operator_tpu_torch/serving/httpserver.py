@@ -4,9 +4,18 @@ A subset of ``operator_tpu/serving/httpserver.py`` in its wire format:
 
 - ``GET  /healthz``         — liveness, this replica's identity and its
   load report (``status``, ``uptime_s``, ``replica``, ``load``)
+- ``GET  /v1/models``       — the served model (the port has no adapters
+  and serves no embedder)
 - ``POST /v1/completions``  — prompt (str or list), n, max_tokens,
   temperature, top_p, stop; every prompt and replica joins the shared
-  continuous batch.  Non-streaming only: ``stream: true`` is refused.
+  continuous batch.
+- ``POST /v1/chat/completions`` — messages (string or text-part content)
+  rendered with the served model family's chat template
+  (``serving/templates.py:template_for``), otherwise as completions.
+
+Non-streaming only: ``stream: true`` is refused (streaming, ``/metrics``,
+``/v1/embeddings``, the analysis route, ``/profile`` and ``/kv/blocks``
+are ROADMAP Queue 1 item 5).
   A ``model`` other than the served id answers 404, as the reference's
   ``_resolve_adapter`` does for a name that is neither the base model nor
   an adapter (the port registers no adapters).  The guided-decoding
@@ -32,6 +41,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Optional
 
 from .engine import ServingEngine
+from .templates import template_for
 from .types import GenerationResult, OversizedRequest, SamplingParams
 
 log = logging.getLogger(__name__)
@@ -46,6 +56,35 @@ class ApiError(Exception):
         super().__init__(message)
         self.status = status
         self.err_type = err_type
+
+
+def _content_text(content: Any) -> str:
+    """Flatten OpenAI message content: plain string or content-parts list
+    (``[{"type": "text", "text": ...}, ...]``; non-text parts rejected)."""
+    if isinstance(content, str):
+        return content
+    if isinstance(content, list):
+        texts = []
+        for part in content:
+            if not isinstance(part, dict) or part.get("type") != "text" \
+                    or not isinstance(part.get("text"), str):
+                raise ValueError("only string or text content parts are supported")
+            texts.append(part["text"])
+        return "".join(texts)
+    raise ValueError("message content must be a string or list of text parts")
+
+
+def _flatten_messages(messages: list) -> list[dict]:
+    """Validate + flatten content-parts; raises ValueError on bad shape."""
+    flat = []
+    for msg in messages:
+        if not isinstance(msg, dict) or "content" not in msg:
+            raise ValueError("each message needs 'role' and 'content'")
+        flat.append({
+            "role": msg.get("role", "user"),
+            "content": _content_text(msg["content"]),
+        })
+    return flat
 
 
 def _truncate_at_stop(result: GenerationResult, stop: list[str]) -> tuple[str, str]:
@@ -162,20 +201,38 @@ class CompletionServer:
         )
         return params, stop
 
-    def _completions(self, req: dict) -> dict:
+    def _models(self) -> dict:
+        return {"object": "list", "data": [{
+            "id": self.model_id,
+            "object": "model",
+            "created": int(self._started),
+            "owned_by": "operator-tpu",
+        }]}
+
+    def _completions(self, req: dict, *, chat: bool) -> dict:
         params, stop = self._sampling(req)
         n = req.get("n", 1)
         if not isinstance(n, int) or not 1 <= n <= 16:
             raise ApiError(400, "n must be an integer in [1, 16]")
+        if chat:
+            messages = req.get("messages")
+            if not isinstance(messages, list) or not messages:
+                raise ApiError(400, "messages must be a non-empty list")
+            try:
+                # the loaded model family's published conversation format
+                prompts = [template_for(self.model_id)(_flatten_messages(messages))]
+            except ValueError as exc:
+                raise ApiError(400, str(exc)) from None
+        else:
+            prompt = req.get("prompt")
+            if isinstance(prompt, str):
+                prompts = [prompt]
+            elif isinstance(prompt, list) and prompt and all(isinstance(p, str) for p in prompt):
+                prompts = prompt
+            else:
+                raise ApiError(400, "prompt must be a string or non-empty list of strings")
         if req.get("stream"):
             raise ApiError(400, "stream=true is not supported by this server")
-        prompt = req.get("prompt")
-        if isinstance(prompt, str):
-            prompts = [prompt]
-        elif isinstance(prompt, list) and prompt and all(isinstance(p, str) for p in prompt):
-            prompts = prompt
-        else:
-            raise ApiError(400, "prompt must be a string or non-empty list of strings")
         try:
             futures = [
                 self.engine.submit(p, params) for p in prompts for _ in range(n)
@@ -191,15 +248,15 @@ class CompletionServer:
             text, finish = _truncate_at_stop(result, stop)
             usage_prompt += result.prompt_tokens
             usage_completion += result.completion_tokens
+            body = (
+                {"message": {"role": "assistant", "content": text}} if chat else {"text": text}
+            )
             choices.append({
-                "index": index,
-                "text": text,
-                "logprobs": None,
-                "finish_reason": finish,
+                "index": index, **body, "logprobs": None, "finish_reason": finish,
             })
         return {
-            "id": f"cmpl-{uuid.uuid4().hex[:24]}",
-            "object": "text_completion",
+            "id": f"{'chatcmpl' if chat else 'cmpl'}-{uuid.uuid4().hex[:24]}",
+            "object": "chat.completion" if chat else "text_completion",
             "created": int(time.time()),
             "model": self.model_id,
             "choices": choices,
@@ -214,14 +271,16 @@ class CompletionServer:
         path = path.split("?", 1)[0]
         if method == "GET" and path == "/healthz":
             return 200, self._healthz()
-        if method == "POST" and path == "/v1/completions":
+        if method == "GET" and path == "/v1/models":
+            return 200, self._models()
+        if method == "POST" and path in ("/v1/completions", "/v1/chat/completions"):
             try:
                 req = json.loads(body or b"null")
             except json.JSONDecodeError as exc:
                 raise ApiError(400, f"body is not valid JSON: {exc}") from None
             if not isinstance(req, dict):
                 raise ApiError(400, "body must be a JSON object")
-            return 200, self._completions(req)
+            return 200, self._completions(req, chat=path == "/v1/chat/completions")
         raise ApiError(404, f"no route for {method} {path}")
 
     def _handler_class(self):

@@ -38,6 +38,10 @@ from operator_tpu_torch.serving.types import SamplingParams  # noqa: E402
 from operator_tpu_torch.utils.device import resolve_device  # noqa: E402
 
 REPO = Path(__file__).resolve().parents[1]
+#: what neither the port nor ``chip_smoke.py`` may import: the port
+#: depends on PyTorch alone and keeps its own copies
+FORBIDDEN = ("jax", "jaxlib", "operator_tpu", "safetensors", "transformers", "tokenizers",
+             "ml_dtypes")
 
 PROMPTS = [
     "pod crashed with exit code 137",
@@ -127,9 +131,9 @@ def test_greedy_tokens_match_jax_scheduler(torch_params, jax_reference, mode, de
     sampling = SamplingParams(max_tokens=MAX_TOKENS, temperature=0.0)
     try:
         if mode == "solo":
-            got = {p: engine.generate([p], sampling)[0].token_ids for p in PROMPTS}
+            got = {p: engine.generate_batch([p], sampling)[0].token_ids for p in PROMPTS}
         else:
-            results = engine.generate(PROMPTS, sampling)
+            results = engine.generate_batch(PROMPTS, sampling)
             got = {p: r.token_ids for p, r in zip(PROMPTS, results)}
         for prompt in PROMPTS:
             assert got[prompt] == want[prompt], prompt
@@ -162,7 +166,7 @@ def test_scheduler_plans_match_jax(torch_params, jax_reference, depth, spec):
 def test_sampled_requests_finish_without_leaks(torch_params):
     engine = _engine(torch_params, 2, True)
     try:
-        results = engine.generate(
+        results = engine.generate_batch(
             PROMPTS, SamplingParams(max_tokens=MAX_TOKENS, temperature=0.8, top_p=0.9)
         )
         for result in results:
@@ -270,9 +274,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import operator_tpu_torch.utils.deadline, operator_tpu_torch.serving.kvstore\n"
         "import operator_tpu_torch.ops.kv_transfer, operator_tpu_torch.router.value\n"
         "import operator_tpu_torch.obs.steptrace, operator_tpu_torch.serving.perf\n"
+        "import operator_tpu_torch.models.loader, operator_tpu_torch.models.tokenizer\n"
+        "import operator_tpu_torch.models.bpe, operator_tpu_torch.models.wordpiece\n"
+        "import operator_tpu_torch.obs.span, operator_tpu_torch.serving.prompts\n"
+        "import operator_tpu_torch.serving.templates, operator_tpu_torch.models.quant\n"
         "operator_tpu_torch.patterns.loader.load_builtin_library()\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        " or m == 'operator_tpu' or m.startswith('operator_tpu.'))\n"
+        "operator_tpu_torch.models.tokenizer.load_tokenizer('tests/torch_tokenizers/llama_sp')\n"
+        "operator_tpu_torch.models.bpe.load_builtin_bpe()\n"
+        f"roots = {sorted(FORBIDDEN)!r}\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in roots)\n"
         "assert not bad, bad\n"
     )
     proc = subprocess.run(
@@ -294,7 +304,7 @@ def _forbidden_imports(path: Path) -> list[str]:
             continue
         for name in names:
             root = name.split(".")[0]
-            if root in ("jax", "jaxlib", "operator_tpu"):
+            if root in FORBIDDEN:
                 found.append(f"{path.relative_to(REPO)}: {name}")
     return found
 

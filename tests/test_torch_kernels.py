@@ -26,7 +26,10 @@ at P = 19 and 33 with W at a share edge, W = 8 and 9, and rows of 768.
 The ragged kernel also at the prefix cache's hit geometry (a first
 prefill chunk of 18 queries at kv_len 786 over head pages that rows
 share), and the host pool's page transfers (gather, side-stream fetch to
-pinned memory, restore) against the CPU's bytes.
+pinned memory, restore) against the CPU's bytes.  A checkpoint written by
+the port's ``save_params`` loads onto the card byte for byte as onto the
+CPU (bf16 and int8), and ``TPUNativeProvider.generate`` over it launches
+the ragged kernel.
 On the CPU, the ragged kernel's launch plan is a function of shapes
 alone, and the ragged and decode wrappers' copies of their kernels'
 split geometry and the similarity wrapper's layouts are the sources' and
@@ -817,3 +820,88 @@ def test_cuda_similarity_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError, match="at least one window"):
         similarity.best_window_scores(windows[:0], patterns)
     assert similarity.launches == before
+
+
+#: a ``tiny-test`` model with room for the committed tokenizer fixture's
+#: 1,405 ids and the default prompt template (its prompts of the fixture
+#: logs are under 1,500 of that tokenizer's tokens)
+CHECKPOINT_MODEL = "tiny-test-sp"
+TOKENIZER_FIXTURE = Path(__file__).resolve().parent / "torch_tokenizers" / "llama_sp"
+
+
+def _seeded_checkpoint(path, monkeypatch) -> dict:
+    """Seeded bf16 ``CHECKPOINT_MODEL`` weights written by the port's own
+    ``save_params`` (no ``transformers`` here), with the committed
+    tokenizer; the model registered for ``build_serving_engine``."""
+    import dataclasses
+    import shutil
+
+    from operator_tpu_torch.models import configs
+    from operator_tpu_torch.models.llama import init_params
+    from operator_tpu_torch.models.loader import save_params
+
+    config = dataclasses.replace(
+        configs.TINY_TEST, name=CHECKPOINT_MODEL, vocab_size=1536, max_seq_len=2048)
+    monkeypatch.setitem(configs._REGISTRY, CHECKPOINT_MODEL, config)
+    params = init_params(config, torch.Generator().manual_seed(0), torch.bfloat16, device="cpu")
+    save_params(params, str(path), config, shard_bytes=1 << 20)
+    for name in ("tokenizer.json", "tokenizer_config.json"):
+        shutil.copy(TOKENIZER_FIXTURE / name, path / name)
+    return {"config": config, "params": params}
+
+
+def _trees_equal_bytes(a, b) -> bool:
+    if isinstance(a, dict):
+        return sorted(a) == sorted(b) and all(_trees_equal_bytes(a[k], b[k]) for k in a)
+    a, b = a.cpu(), b.cpu()
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+
+
+def _provider_request(name: str):
+    from operator_tpu_torch.patterns.engine import PatternEngine
+    from operator_tpu_torch.schema.analysis import (
+        AIProviderConfig,
+        AnalysisRequest,
+        PodFailureData,
+    )
+
+    logs = (Path(__file__).resolve().parent / "fixtures" / name).read_text()
+    failure = PodFailureData.parse({"logs": logs, "pod": {
+        "metadata": {"name": name.split(".")[0].replace("_", "-"), "namespace": "prod"}}})
+    return AnalysisRequest(
+        analysis_result=PatternEngine().analyze(failure), failure_data=failure,
+        provider_config=AIProviderConfig(max_tokens=6, temperature=0.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantize", [False, True])
+def test_cuda_load_params_equals_the_cpu_load(cuda, tmp_path, monkeypatch, quantize):
+    from operator_tpu_torch.models.loader import load_params
+
+    config = _seeded_checkpoint(tmp_path, monkeypatch)["config"]
+    on_card = load_params(str(tmp_path), config, device="cuda", quantize=quantize)
+    on_cpu = load_params(str(tmp_path), config, device="cpu", quantize=quantize)
+    assert on_card["embed"].is_cuda
+    assert _trees_equal_bytes(on_card, on_cpu)
+
+
+@pytest.mark.cuda
+def test_cuda_provider_launches_the_ragged_kernel(cuda, tmp_path, monkeypatch):
+    import asyncio
+
+    from operator_tpu_torch.models.tokenizer import HFTokenizer
+    from operator_tpu_torch.serving.provider import build_tpu_native_provider
+
+    _seeded_checkpoint(tmp_path, monkeypatch)
+    provider = build_tpu_native_provider("cuda", {
+        "OPERATOR_TPU_MODEL": CHECKPOINT_MODEL, "CHECKPOINT_DIR": str(tmp_path),
+        "MAX_BATCH_SIZE": "4", "KV_PAGE_SIZE": "16"})
+    try:
+        assert isinstance(provider.engine.generator.tokenizer, HFTokenizer)
+        before = ragged.launches
+        response = asyncio.run(provider.generate(_provider_request("oom_java.log")))
+        assert response.error is None and response.completion_tokens > 0
+        assert ragged.launches > before
+    finally:
+        provider.engine.close()

@@ -6,12 +6,15 @@ pattern library, the literal prefilter, ``SemanticMatcher.match`` and
 ``PatternEngine.analyze`` on the 12 fixture logs (with the lexical
 ``HashingEmbedder`` and with a tiny ``NeuralEmbedder`` sharing params and
 ``tokenize``), failure fingerprints of the results, and
-``IncidentIndex.query``.  Pattern ids, best windows, contexts, digests and
+``IncidentIndex.query``; and a tiny ``transformers`` BERT checkpoint
+through ``load_encoder_params``, ``NeuralEmbedder.from_checkpoint`` (each
+package's WordPiece tokenizer) and ``build_embedder``'s ladder.  Pattern ids, best windows, contexts, digests and
 orders must be equal; float tolerances are stated per test.  On the CPU
 the similarity calls take the plain version of the kernel (K5); the
 kernel itself is held to it on the card by ``tests/test_torch_kernels.py``.
 """
 
+import dataclasses
 import os
 
 import numpy as np
@@ -273,11 +276,73 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(monkeypatch, tiny
     PatternEngine()  # regex only: no device needed
 
 
-def test_build_embedder_reraises_the_missing_checkpoint_loader(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 4"):
-        semantic.build_embedder(str(tmp_path))
-    with pytest.raises(NotImplementedError):
-        semantic.NeuralEmbedder.from_checkpoint(str(tmp_path))
+@pytest.fixture(scope="module")
+def bert_checkpoint(tmp_path_factory):
+    """A tiny ``transformers`` BERT checkpoint (``save_pretrained``: f32
+    safetensors and ``config.json``) with a WordPiece ``vocab.txt`` of the
+    fixture logs' words and a lower-casing ``tokenizer_config.json``."""
+    transformers = pytest.importorskip("transformers")
+    pytest.importorskip("safetensors")
+    from test_torch_tokenizer import _bert_vocab
+
+    path = tmp_path_factory.mktemp("bert") / "minilm-tiny"
+    vocab = _bert_vocab()
+    torch.manual_seed(0)
+    model = transformers.BertModel(transformers.BertConfig(
+        vocab_size=len(vocab), hidden_size=64, intermediate_size=128, num_hidden_layers=2,
+        num_attention_heads=4, max_position_embeddings=128), add_pooling_layer=False)
+    model.save_pretrained(str(path), safe_serialization=True)
+    (path / "vocab.txt").write_text("\n".join(vocab) + "\n", encoding="utf-8")
+    (path / "tokenizer_config.json").write_text(
+        '{"do_lower_case": true, "tokenizer_class": "BertTokenizer"}')
+    return str(path)
+
+
+def test_load_encoder_params_matches_jax(bert_checkpoint):
+    got, config = encoder.load_encoder_params(bert_checkpoint, device="cpu")
+    want, jax_config = jax_encoder.load_encoder_params(bert_checkpoint)
+    assert dataclasses.asdict(config) == dataclasses.asdict(jax_config)
+    assert (config.hidden_size, config.num_layers, config.max_positions) == (64, 2, 128)
+    flat_got = {**{k: v for k, v in got.items() if k != "layers"}, **got["layers"]}
+    flat_want = {**{k: v for k, v in want.items() if k != "layers"}, **want["layers"]}
+    assert sorted(flat_got) == sorted(flat_want)
+    for name, value in flat_got.items():
+        np.testing.assert_array_equal(value.numpy(), np.asarray(flat_want[name]), err_msg=name)
+    assert encoder.encoder_config_from_hf_json(os.path.dirname(bert_checkpoint)) == encoder.MINILM_L6
+
+
+def test_from_checkpoint_matches_jax(bert_checkpoint):
+    """``NeuralEmbedder.from_checkpoint``: embeddings within 1e-5 of the
+    JAX ones (each package's WordPiece tokenizer, the same weights), and
+    ``PatternEngine.analyze`` finds the same events on every fixture."""
+    ours = semantic.NeuralEmbedder.from_checkpoint(bert_checkpoint, device="cpu")
+    theirs = jax_semantic.NeuralEmbedder.from_checkpoint(bert_checkpoint)
+    assert (ours.max_tokens, ours.dim) == (theirs.max_tokens, theirs.dim) == (128, 64)
+    texts = [line for name in FIXTURE_NAMES for line in _read(name).splitlines()]
+    texts += ["", "Café OOMKilled [SEP] 日本", "x" * 400]
+    for text in texts:
+        assert ours.tokenize(text) == theirs.tokenize(text), text
+    np.testing.assert_allclose(ours.embed(texts), theirs.embed(texts), rtol=0, atol=1e-5)
+    port_engine = PatternEngine(semantic=semantic.SemanticMatcher(ours, device="cpu"))
+    jax_engine = JaxPatternEngine(semantic=jax_semantic.SemanticMatcher(theirs))
+    semantic_events = 0
+    for name in FIXTURE_NAMES:
+        got = port_engine.analyze(PodFailureData(logs=_read(name)))
+        want = jax_engine.analyze(JaxPodFailureData(logs=_read(name)))
+        _assert_events_equal(got.events, want.events)
+        semantic_events += sum(e.source == "semantic" for e in got.events)
+    assert semantic_events > 0
+
+
+def test_build_embedder_takes_the_reference_ladder(bert_checkpoint, tmp_path, caplog):
+    neural = semantic.build_embedder(bert_checkpoint, device="cpu")
+    assert isinstance(neural, semantic.NeuralEmbedder) and neural.device.type == "cpu"
+    with caplog.at_level("WARNING"):
+        degraded = semantic.build_embedder(str(tmp_path), device="cpu")  # no weights
+    assert isinstance(degraded, semantic.HashingEmbedder)
+    assert "degrading to lexical" in caplog.text
+    assert isinstance(jax_semantic.build_embedder(str(tmp_path)), jax_semantic.HashingEmbedder)
+    assert semantic.build_embedder(str(tmp_path), fallback=False, device="cpu") is None
     assert isinstance(semantic.build_embedder(None), semantic.HashingEmbedder)
     assert semantic.build_embedder("", fallback=False) is None
 

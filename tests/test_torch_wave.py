@@ -215,7 +215,7 @@ def test_wave_serving_engine_matches_jax_and_backpressures(jax_params, torch_par
     try:
         engine.warmup()
         admissions.clear()
-        results = engine.generate(
+        results = engine.generate_batch(
             prompts, SamplingParams(max_tokens=50, temperature=0.0, stop_on_eos=False)
         )
         assert [r.token_ids for r in results] == want
@@ -259,7 +259,7 @@ def test_provider_builds_the_wave_engine():
         g = engine.generator
         assert (g.decode_block, g.pipeline_depth) == (4, 2)
         engine.warmup()
-        [result] = engine.generate(["pod crashed"], SamplingParams(max_tokens=6, temperature=0.0))
+        [result] = engine.generate_batch(["pod crashed"], SamplingParams(max_tokens=6, temperature=0.0))
         assert 1 <= result.completion_tokens <= 6
         _assert_no_leaks(g)
     finally:
@@ -275,3 +275,17 @@ def test_provider_builds_the_wave_engine():
 def test_provider_refuses_bad_settings(key, value, error):
     with pytest.raises(error, match=value):
         build_serving_engine("cpu", {**_WAVE_ENV, key: value})
+
+
+def test_wave_line_admits_higher_priority_first(torch_params):
+    """The wave loop's waiting line orders by priority, FIFO within a
+    class, as the reference's ``(-priority, seq)`` admission queue does."""
+    import concurrent.futures
+
+    engine = ServingEngine(_torch_generator(torch_params, max_slots=1, max_seq=64, page_size=16))
+    for name, priority in (("a", 0), ("b", 10), ("c", 0), ("d", 10), ("e", 5), ("f", -1)):
+        engine._submissions.put(
+            (name, SamplingParams(), 0.0, priority, concurrent.futures.Future()))
+    assert engine._take_submissions(block=False)
+    assert [item[0] for item in engine._waiting] == ["b", "d", "e", "a", "c", "f"]
+    engine.close()
