@@ -2,7 +2,7 @@
 """Chip smoke test of the PyTorch/H100 port (``operator_tpu_torch``).
 
     python3 chip_smoke.py [--out results.json]
-        [--phases device,kernels,serve,wave,analysis,checkpoint,parity]
+        [--phases device,kernels,serve,wave,analysis,checkpoint,operator,parity]
 
 Runs on one CUDA card, from the root of a checkout; exits non-zero, and
 prints no result, when no card is present or the package is missing.
@@ -26,9 +26,11 @@ Phases, in order — any failure stops the run:
    twice their largest measured error, not K1's looser one); the
    best-window similarity kernel (K5) at the semantic path's three
    geometries (4,096 windows x 19 patterns, x 1,024 patterns, and one
-   query x 2,048 incidents; D = 384), scores and the plain score at the
-   chosen window, and exact first indices where window rows repeat; and
-   the K5 wrapper's host time per call, part by part.
+   query x 2,048 incidents; D = 384) and at any D (4,096 x 19 at D = 385,
+   rows off 16-byte vectors, and at D = 1,536, 6 KB rows in f32), scores
+   and the plain score at the chosen window, and exact first indices
+   where window rows repeat; and the K5 wrapper's host time per call,
+   part by part.
    Times each kernel, its plain version and one PyTorch library call
    computing the same function (``scaled_dot_product_attention`` over
    the gathered KV, or with the causal+length mask; ``torch.matmul`` +
@@ -115,7 +117,34 @@ Phases, in order — any failure stops the run:
    load seconds, GB/s, device memory after the load, the drive's wall,
    tokens/s and K1 launches, and the analysis wall, encoder span and K5
    launches are printed with the card's name and power limit;
-7. parity: small f32 ``tiny-test`` engines on the card (kernels) and on
+7. operator: the port's ``Operator`` (its default device, cuda) over the
+   in-memory ``FakeKubeApi``, with the checkpoint phase's two checkpoints
+   (kept for it, deleted after it): ``providerId: tpu-native`` through
+   two AIProviders on the one engine (greedy, and the default
+   temperature), each named by a Podmortem selecting ``app=payment`` pods
+   of its variant, and ``ENCODER_CHECKPOINT_DIR`` for the semantic matcher
+   and incident recall.  Ten pods in CrashLoopBackOff, one fixture log
+   each, half per AIProvider, are poked with the reference demo's
+   MODIFIED patch, the engine's admission held until all ten requests are
+   queued; then a new pod with the log of a pod that stored an
+   explanation (a recall hit), and pods with that log's numbers changed,
+   then the next candidate's, until one changes the fingerprint (near or
+   miss).  Every pod must carry its annotations, a ``recentFailures``
+   entry whose status follows the provider's answer (``Analyzed``, or
+   ``PatternOnly`` when seeded weights decode to blanks) and its two
+   Events, the SLO ledger must settle each analysis once as completed, K1
+   must launch 22 times per step of the drive and never for the hit, K5
+   once per semantic ``analyze()`` and once per recall ``query()`` over a
+   non-empty index, and ``/metrics`` must show the hit.  One more
+   request's 22 K1 calls and one ``analyze()``'s K5 call are held to the
+   plain versions, and a direct ``TPUNativeProvider`` drive of the same
+   captured requests on an engine of the same weights (admission held
+   too) must give the greedy pods' stored explanations.  Per pod: the
+   wall from the poke to the stored status, its stage split from the
+   span tree (collect, analyze, recall, generate, store) and the host
+   time outside the engine; the drive's tokens/s against the checkpoint
+   phase's provider drive, and the recall hit's wall;
+8. parity: small f32 ``tiny-test`` engines on the card (kernels) and on
    the CPU (plain versions) must give the same greedy tokens — the
    continuous engine, and the wave engine with the decode selector at
    ``v1`` and ``v2`` and flash prefill on and off; the continuous engine
@@ -138,6 +167,7 @@ the last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import re
@@ -813,6 +843,10 @@ SIM_GEOMETRIES = {
     "analysis": (4096, 19, 384),  # max_windows x the built-in library
     "library": (4096, 1024, 384),  # the same log against a large library
     "recall": (1, 2048, 384),  # one query x IncidentStore.max_entries
+    # any D, as the JAX kernel: rows off 16-byte vectors, and rows of 6 KB
+    # (an encoder wider than 1,024 in f32: the streaming layout)
+    "odd_d": (4096, 19, 385),
+    "wide_d": (4096, 19, 1536),
 }
 
 
@@ -1953,13 +1987,15 @@ def write_encoder_checkpoint(params, path: str) -> None:
         json.dump({"do_lower_case": True, "tokenizer_class": "BertTokenizer"}, fh)
 
 
-def phase_checkpoint(results: dict, kernel_modules: dict) -> dict:
+def phase_checkpoint(results: dict, kernel_modules: dict, keep: bool = False) -> tuple:
     """A tinyllama-1.1b checkpoint written at full width from the serve
     phase's seeded weights, loaded back with int8 weights through
     ``build_tpu_native_provider`` and driven with ten analysis requests;
     then a MiniLM-width encoder checkpoint through ``build_embedder`` and
     ``PatternEngine.analyze``.  Returns the kernels' launch counts summed
-    over the provider drive and the long analysis."""
+    over the provider drive and the long analysis, and the checkpoints'
+    directories (``workdir``, ``llm``, ``encoder``); with ``keep`` the
+    caller deletes ``workdir``, else it is gone already."""
     import asyncio
     import tempfile
 
@@ -2057,12 +2093,13 @@ def phase_checkpoint(results: dict, kernel_modules: dict) -> dict:
         requests = provider_requests()
         engine.warmup()
         asyncio.run(provider.generate(requests[0]))  # not a cold start
-        steps0 = sched.steps
+        steps0, dev0 = sched.steps, len(sched.device_ms)
         started = time.perf_counter()
         responses, launches = counted(lambda: gated_drive(provider, requests))
         wall = time.perf_counter() - started
         steps = sched.steps - steps0
         wait_idle(sched)
+        stream_ms = sched.device_ms[dev0:]
         accounting = balanced(sched, "after the provider drive")
         bad = [r.to_dict() for r in responses if r.error or not r.completion_tokens]
         if bad:
@@ -2114,6 +2151,7 @@ def phase_checkpoint(results: dict, kernel_modules: dict) -> dict:
             "prompt_tokens": [r.prompt_tokens for r in responses],
             "completion_tokens": completion, "wall_s": wall, "tokens_per_s": completion / wall,
             "steps": steps, "launches": launches, "page_accounting": accounting,
+            "stream_ms_per_step": sum(stream_ms) / len(stream_ms) if stream_ms else None,
             "held_k1_calls": len(held.held),
             "held_k1_max_abs_err": max(c["max_abs_err"] for c in held.held),
             "held_k1_splits_with_keys": max(c["splits_with_keys"] for c in held.held),
@@ -2186,13 +2224,445 @@ def phase_checkpoint(results: dict, kernel_modules: dict) -> dict:
         }
         print(json.dumps({"checkpoint_analysis": out["analysis"], "card": out["card"]}), flush=True)
         results["checkpoint"] = out
-        return total
+        return total, {"workdir": workdir, "llm": ckpt, "encoder": enc_dir}
+    except BaseException:
+        keep = False
+        raise
     finally:
-        shutil.rmtree(workdir, ignore_errors=True)
+        if not keep:
+            shutil.rmtree(workdir, ignore_errors=True)
 
 
 # ---------------------------------------------------------------------------
-# phase 7: card vs CPU on a small engine
+# phase 7: the operator control plane over the fake apiserver
+# ---------------------------------------------------------------------------
+
+#: the operator phase's pods: one per fixture log (the first ten by name),
+#: even ones on the greedy AIProvider
+OPERATOR_PODS = 10
+#: how long the drive may take to queue its ten requests
+OPERATOR_QUEUE_S = 120.0
+#: the logs the recurrences may repeat, in order: each one's evidence
+#: carries numbers the fingerprint keeps (memory figures, addresses,
+#: versions), so changing them changes its identity.  The first whose pod
+#: stored a generated explanation is taken (random weights can decode to
+#: an empty one, which is never reused)
+OPERATOR_RECURRENT_LOGS = ("eviction.log", "go_panic.log", "image_pull_backoff.log",
+                           "init_container_config.log", "oom_java.log")
+
+
+def operator_pod(name: str, variant: str, finished_at: str) -> dict:
+    """A pod of ``app=payment`` in CrashLoopBackOff after exit code 1."""
+    return {
+        "apiVersion": "v1", "kind": "Pod",
+        "metadata": {"name": name, "namespace": "prod",
+                     "labels": {"app": "payment", "variant": variant}},
+        "status": {"phase": "Running", "containerStatuses": [{
+            "name": "app", "restartCount": 3,
+            "state": {"waiting": {"reason": "CrashLoopBackOff"}},
+            "lastState": {"terminated": {"exitCode": 1, "finishedAt": finished_at}},
+        }]},
+    }
+
+
+def operator_resources(model_name: str) -> list:
+    """Two AIProviders on the one ``tpu-native`` engine, greedy and at the
+    default temperature (0.3), and a Podmortem for each selecting
+    ``app=payment`` pods of its variant (a Podmortem names one
+    AIProvider)."""
+    out = []
+    for variant, temperature in (("greedy", 0.0), ("sampled", None)):
+        spec = {"providerId": "tpu-native", "modelId": model_name, "maxTokens": MAX_TOKENS}
+        if temperature is not None:
+            spec["temperature"] = temperature
+        out.append(("AIProvider", {"metadata": {"name": variant, "namespace": "ops"}, "spec": spec}))
+        out.append(("Podmortem", {
+            "metadata": {"name": f"watch-payment-{variant}", "namespace": "ops"},
+            "spec": {"podSelector": {"matchLabels": {"app": "payment"}, "matchExpressions": [
+                         {"key": "variant", "operator": "In", "values": [variant]}]},
+                     "aiProviderRef": {"name": variant, "namespace": "ops"},
+                     "aiAnalysisEnabled": True}}))
+    return out
+
+
+def phase_operator(results: dict, kernel_modules: dict, dirs: dict) -> dict:
+    """The port's ``Operator`` on the card over ``FakeKubeApi``, with the
+    checkpoint phase's tinyllama-1.1b checkpoint through ``providerId:
+    tpu-native`` and its MiniLM-width encoder as ``ENCODER_CHECKPOINT_DIR``.
+    Ten failing pods (the fixture logs; half on the greedy AIProvider;
+    admission held until all ten are queued), then the recurrences: an
+    earlier pod's log (a recall hit) and changed logs until one is near or
+    miss.  Returns the kernels' launch counts over the drive and the
+    recurrences."""
+    import asyncio
+
+    import torch
+
+    from operator_tpu_torch.operator import FakeKubeApi, Operator
+    from operator_tpu_torch.operator.storage import ANNOTATION_ANALYSIS
+    from operator_tpu_torch.ops import ragged_attention as ra
+    from operator_tpu_torch.patterns import semantic as semantic_module
+    from operator_tpu_torch.patterns.semantic import NeuralEmbedder
+    from operator_tpu_torch.schema.analysis import PodFailureData
+    from operator_tpu_torch.serving import provider as provider_module
+    from operator_tpu_torch.serving.sched import mixed as mixed_module
+    from operator_tpu_torch.utils.config import OperatorConfig
+    from operator_tpu_torch.utils.timing import MetricsRegistry
+
+    env = {**CHECKPOINT_ENV, "MODEL_ID": CHECKPOINT_ENV["OPERATOR_TPU_MODEL"],
+           "CHECKPOINT_DIR": dirs["llm"], "ENCODER_CHECKPOINT_DIR": dirs["encoder"],
+           "PATTERN_CACHE_DIRECTORY": os.path.join(dirs["workdir"], "no-pattern-cache"),
+           "HEALTH_PORT": "0", "HEALTH_HOST": "127.0.0.1"}
+    config = OperatorConfig.from_env(env)
+    out: dict = {"card": card_line(), "pods": OPERATOR_PODS}
+    names = sorted(n for n in os.listdir(FIXTURES) if n.endswith(".log"))[:OPERATOR_PODS]
+    pods = [(f"payment-{i}", ("greedy", "sampled")[i % 2], "\n".join(fixture_lines(name)))
+            for i, name in enumerate(names)]
+
+    # the operator's default device is cuda: no device argument
+    operator = Operator(FakeKubeApi(), config=config, metrics=MetricsRegistry())
+    api, semantic, index = operator.api, operator.engine.semantic, operator.memory.index
+    if semantic is None or not isinstance(semantic.embedder, NeuralEmbedder):
+        raise fail("the operator did not mount the encoder checkpoint")
+    provider = operator.providers.resolve("tpu-native")
+    engine = provider.engine
+    sched, model = engine.scheduler, engine.generator.config
+    # what the drives ask of K5: semantic analyses, and recall queries over
+    # a non-empty index (each one launch)
+    k5_calls = {"analyze": 0, "query": 0}
+    match, query, generate = semantic.match, index.query, provider.generate
+
+    def counted_match(lines):
+        k5_calls["analyze"] += bool(lines) and semantic.num_patterns > 0
+        return match(lines)
+
+    def counted_query(text, k=3):
+        k5_calls["query"] += len(index) > 0 and bool(text.strip())
+        return query(text, k)
+
+    # the requests the pipeline hands the provider, in call order, and
+    # their responses
+    exchanged: list = []
+
+    async def captured(request):
+        pair = [request, None]
+        exchanged.append(pair)
+        pair[1] = await generate(request)
+        return pair[1]
+
+    gate = threading.Lock()
+    admit = engine._admit_submissions
+
+    def gated(block: bool) -> None:
+        with gate:
+            admit(block)
+
+    # what the drive queued: each prompt's absolute deadline and the
+    # engine's clock at its submit (admission is earliest deadline first)
+    submitted: dict = {}
+    submit = engine.submit
+
+    def recorded(prompt, params=None, *, priority=0):
+        submitted[prompt] = (params.deadline if params else None, engine.generator._clock())
+        return submit(prompt, params, priority=priority)
+
+    def counts() -> dict:
+        """The counts since the last call; then every count is 0."""
+        launches = {name: m.launches for name, m in kernel_modules.items()}
+        for module in kernel_modules.values():
+            module.launches = 0
+        return launches
+
+    async def poke(name: str, variant: str, log: str, finished_at: str) -> int:
+        api.set_pod_log("prod", name, log, previous=True)
+        await asyncio.wait_for(api.create("Pod", operator_pod(name, variant, finished_at)),
+                               timeout=config.kube_call_timeout_s)
+        poked = time.monotonic_ns()
+        # the watcher reacts to MODIFIED (as run_demo pokes its pod)
+        await asyncio.wait_for(
+            api.patch("Pod", name, "prod", {"metadata": {"labels": {"poked": "1"}}}),
+            timeout=config.kube_call_timeout_s)
+        return poked
+
+    async def drive() -> dict:
+        for kind, obj in operator_resources(model.name):
+            await asyncio.wait_for(api.create(kind, obj), timeout=config.kube_call_timeout_s)
+        await operator.start()
+        await asyncio.sleep(0.05)  # the watches register, the caches prime
+        # not a cold start: the engine's programs and the template's head
+        engine.warmup()
+        await generate(provider_requests()[0])
+        wait_idle(sched)
+        poked: dict = {}
+        counts()
+        steps0, dev0 = sched.steps, len(sched.device_ms)
+        # the sampler's state as the drive's first step will find it
+        drive_rng.append(engine.generator._rng.get_state())
+        engine._admit_submissions, engine.submit = gated, recorded
+        gate.acquire()
+        try:
+            # the worker's idle wait for a submission (50 ms) runs out, so
+            # it reads the gated admission before the first one arrives
+            await asyncio.sleep(0.2)
+            started = time.monotonic_ns()
+            for i, (name, variant, log) in enumerate(pods):
+                poked[name] = await poke(name, variant, log, f"2026-07-28T09:{i:02d}:00Z")
+            queued_by = time.monotonic() + OPERATOR_QUEUE_S
+            while engine._submissions.qsize() < OPERATOR_PODS:
+                if time.monotonic() > queued_by:
+                    handed = [r.failure_data.pod.metadata.name for r, _ in exchanged]
+                    events = [(e["regarding"]["name"], e["reason"], e.get("note"))
+                              for e in await api.list("Event")]
+                    raise fail(f"operator drive: {engine._submissions.qsize()} of "
+                               f"{OPERATOR_PODS} requests queued in {OPERATOR_QUEUE_S} s "
+                               f"(handed to the provider: {handed}; events {events})")
+                await asyncio.sleep(0.001)
+        finally:
+            gate.release()
+        await asyncio.sleep(0.01)
+        await operator.watcher.drain()
+        wall_s = (time.monotonic_ns() - started) / 1e9
+        wait_idle(sched)
+        engine._admit_submissions, engine.submit = admit, submit
+        steps, launches = sched.steps - steps0, counts()
+        stream_ms = sched.device_ms[dev0:]
+        # the recurrences, each on its pod's AIProvider: a new pod with a
+        # drive pod's log (a hit), then that log with its numbers changed,
+        # and the next candidate's, until one changes the fingerprint (the
+        # normalised evidence keeps a number only where it is part of a
+        # token, and the strongest evidence may carry none)
+        stored = {f["podName"]: f for cr in await api.list("Podmortem", "ops")
+                  for f in (cr.get("status") or {}).get("recentFailures") or []}
+        candidates = [pods[names.index(n)] for n in OPERATOR_RECURRENT_LOGS
+                      if stored[pods[names.index(n)][0]]["analysisStatus"] == "Analyzed"]
+        if not candidates:
+            raise fail(f"operator: no candidate for the recurrences stored an explanation: {stored}")
+        recurrence: dict = {}
+
+        async def recur(name: str, variant: str, log: str) -> dict:
+            poked[name] = await poke(name, variant, log,
+                                     f"2026-07-28T10:{len(recurrence):02d}:00Z")
+            await asyncio.sleep(0.05)
+            await operator.watcher.drain()
+            wait_idle(sched)
+            recurrence[name] = counts()
+            recurrences.append((name, variant, log))
+            failures = {f["podName"]: f for cr in await api.list("Podmortem", "ops")
+                        for f in (cr.get("status") or {}).get("recentFailures") or []}
+            return failures[name].get("recurrence") or {}
+
+        first, variant, log = candidates[0]
+        await recur("payment-hit", variant, log)
+        for i, (first, variant, log) in enumerate(candidates):
+            changed = re.sub(r"\d+", lambda m: str(int(m.group()) + 7), log)
+            got = await recur(f"payment-changed-{i}", variant, changed)
+            if got.get("fingerprint") != stored[first]["recurrence"]["fingerprint"]:
+                break
+        url = f"http://127.0.0.1:{operator.health_server.bound_port}"
+        scraped = {path: await asyncio.to_thread(
+            lambda p=path: urllib.request.urlopen(url + p, timeout=30).read().decode())
+            for path in ("/metrics", "/readyz")}
+        pods_now = {p["metadata"]["name"]: p for p in await api.list("Pod", "prod")}
+        failures = {f["podName"]: f for cr in await api.list("Podmortem", "ops")
+                    for f in (cr.get("status") or {}).get("recentFailures") or []}
+        events = await api.list("Event")
+        await operator.stop()
+        return {"poked": poked, "wall_s": wall_s, "steps": steps, "launches": launches,
+                "stream_ms_per_step": sum(stream_ms) / len(stream_ms) if stream_ms else None,
+                "recurrence": recurrence, "scraped": scraped, "pods": pods_now,
+                "failures": failures, "events": events}
+
+    semantic.match, index.query, provider.generate = counted_match, counted_query, captured
+    #: (pod, variant, log) of each recurrence, in poke order
+    recurrences: list = []
+    drive_rng: list = []
+    try:
+        run = asyncio.run(drive())
+    finally:
+        semantic.match, index.query, provider.generate = match, query, generate
+        engine._admit_submissions, engine.submit = admit, submit
+    analysed = [name for name, _, _ in pods + recurrences]
+    failures, pod_events = run["failures"], {}
+    for e in run["events"]:
+        regarding = e.get("regarding") or {}
+        if regarding.get("kind") == "Pod":
+            pod_events.setdefault(regarding.get("name"), set()).add(e.get("reason"))
+    responses = {r.failure_data.pod.metadata.name: a for r, a in exchanged}
+    counters = operator.metrics.snapshot()["counters"]
+    reused = {name for name in analysed
+              if (failures.get(name, {}).get("recurrence") or {}).get("reusedAnalysis")}
+    # the stored status follows the answer: "Analyzed" with a generated
+    # explanation or a reused one, "PatternOnly" when the tokens decode to
+    # nothing but blanks.  A pod without its own provider call and no
+    # reuse was served by the pipeline's response cache (the same evidence
+    # lines as an earlier pod's)
+    want_status = {name: ("Analyzed" if responses[name].explanation else "PatternOnly")
+                   if name in responses else ("Analyzed",) if name in reused
+                   else ("Analyzed", "PatternOnly") for name in analysed}
+    bad_answers = [(name, a.to_dict()) for name, a in responses.items()
+                   if a.error or not a.completion_tokens]
+    missing = [name for name in analysed
+               if not (run["pods"][name]["metadata"].get("annotations") or {}).get(ANNOTATION_ANALYSIS)
+               or failures.get(name, {}).get("analysisStatus") not in want_status[name]
+               or pod_events.get(name) != {"PodFailureDetected", "PodmortemAnalysisComplete"}]
+    cache_served = [n for n in analysed if n not in responses and n not in reused]
+    if (missing or bad_answers or reused & set(responses)
+            or len(cache_served) != counters.get("ai_cache_hits", 0)):
+        raise fail(f"operator: pods without their annotations, status entry or events: "
+                   f"{[(n, failures.get(n), pod_events.get(n)) for n in missing]}; "
+                   f"provider answers without tokens: {bad_answers}; reused {reused}, "
+                   f"served from the response cache {cache_served}, counters {counters}")
+    ledger = operator.pipeline.slo_ledger
+    records = ledger.records
+    if (len(records) != len(analysed) or len({r.trace_id for r in records}) != len(records)
+            or ledger.pending or any(r.outcome != "completed" for r in records)):
+        raise fail(f"operator: the SLO ledger {ledger.snapshot()} over {len(analysed)} analyses")
+    hit, near = (failures[name].get("recurrence") or {} for name in ("payment-hit", recurrences[-1][0]))
+    if (not hit.get("reusedAnalysis") or near.get("reusedAnalysis")
+            or near.get("fingerprint") == hit.get("fingerprint")
+            or counters.get("recall_hit") != len(reused)):
+        raise fail(f"operator: recall hit {hit}, changed logs "
+                   f"{[failures[n].get('recurrence') for n, _, _ in recurrences[1:]]}, "
+                   f"counters {counters}")
+    launches, steps = run["launches"], run["steps"]
+    if launches["ragged_paged_attention"] != model.num_layers * steps or steps == 0:
+        raise fail(f"operator drive: K1 launched {launches} over {steps} steps")
+    if run["recurrence"]["payment-hit"]["ragged_paged_attention"]:
+        raise fail(f"operator: the recall hit launched K1: {run['recurrence']}")
+    every = [launches, *run["recurrence"].values()]
+    k5 = sum(c["best_window_similarity"] for c in every)
+    if k5 != k5_calls["analyze"] + k5_calls["query"] or k5_calls["analyze"] != len(analysed):
+        raise fail(f"operator: K5 launched {k5} times for {k5_calls}")
+    if any(c["paged_decode_attention"] or c["flash_prefill_attention"] for c in every):
+        raise fail(f"operator: wave kernels launched: {every}")
+    if f"podmortem_recall_hit_total {len(reused)}" not in run["scraped"]["/metrics"]:
+        raise fail("operator: /metrics lacks the recall hit")
+
+    # per pod: poke to stored status, and the stage split from its trace
+    traces = {r.trace_id: r.trace["spans"] for r in operator.recorder.traces()}
+    per_pod: dict = {}
+    for record in records:
+        spans = traces[record.trace_id]
+        root = next(sp for sp in spans if "parentId" not in sp)
+        name = root["attributes"]["pod"].split("/")[-1]
+        store = next(sp for sp in spans if sp["name"] == "store"
+                     and sp.get("parentId") == root["spanId"])
+        stages = record.stages
+        per_pod[name] = {
+            "poke_to_stored_ms": (store["endNs"] - run["poked"][name]) / 1e6,
+            "analysis_ms": record.latency_s * 1e3,
+            "stages_ms": {"collect": stages.get("collect"), "analyze": stages.get("parse"),
+                          "recall": stages.get("recall"), "generate": stages.get("explain"),
+                          "store": stages.get("store")},
+            "host_outside_engine_ms": record.latency_s * 1e3 - stages.get("explain", 0.0),
+        }
+    drive_pods = [name for name, _, _ in pods]
+    completion = sum(responses[name].completion_tokens for name in drive_pods)
+    out.update({
+        "steps": steps, "launches": launches, "recurrence_launches": run["recurrence"],
+        "k5_calls": k5_calls, "recall": {"hit": hit, "changed_log": near},
+        "drive_wall_s": run["wall_s"], "completion_tokens": completion,
+        "prompt_tokens": [responses[n].prompt_tokens for n in drive_pods],
+        "stream_ms_per_step": run["stream_ms_per_step"],
+        "recurrent_log": names[[log for _, _, log in pods].index(recurrences[0][2])],
+        "changed_logs": {n: failures[n].get("recurrence") for n, _, _ in recurrences[1:]},
+        "served_from_response_cache": cache_served,
+        "blank_explanations": sorted(n for n in drive_pods if not responses[n].explanation),
+        "tokens_per_s": completion / run["wall_s"],
+        "poke_to_stored_ms": {n: per_pod[n]["poke_to_stored_ms"] for n in analysed},
+        "stages_ms": {n: per_pod[n]["stages_ms"] for n in analysed},
+        "host_outside_engine_ms": {n: per_pod[n]["host_outside_engine_ms"] for n in analysed},
+        "recall_hit_wall_ms": per_pod["payment-hit"]["poke_to_stored_ms"],
+        "changed_log_wall_ms": per_pod[recurrences[-1][0]]["poke_to_stored_ms"],
+        "readyz": run["scraped"]["/readyz"],
+    })
+    print(json.dumps({"operator": {k: v for k, v in out.items() if k not in (
+        "poke_to_stored_ms", "stages_ms", "host_outside_engine_ms")}}), flush=True)
+    print(json.dumps({"operator_per_pod": per_pod, "card": out["card"]}), flush=True)
+
+    # one more request's 22 K1 calls and one analyze()'s K5 call, held
+    held = HeldToPlain(
+        mixed_module.ragged_paged_attention, ra.ragged_attention_reference,
+        model.num_layers, lambda dtype, _: TOL[dtype],
+        valid=lambda q, *args: torch.arange(q.shape[1], device=q.device)[None] < args[4][:, None],
+        note=k1_split_note,
+    )
+    k5_held = StreamSpans(semantic_module.best_window_scores)
+    mixed_module.ragged_paged_attention = held
+    semantic_module.best_window_scores = k5_held
+    try:
+        asyncio.run(generate(exchanged[0][0]))
+        operator.engine.analyze(PodFailureData(logs=pods[1][2]))
+    finally:
+        mixed_module.ragged_paged_attention = held.fn
+        semantic_module.best_window_scores = k5_held.fn
+    counts()  # the comparisons' launches are not the path's
+    bad = [c for c in held.held if not c["finite"] or not c["excess"] <= 0]
+    [(_, _, (w_emb, p_emb), (scores, idx))] = k5_held.calls
+    k5_err = check_similarity(w_emb, p_emb, scores, idx)
+    if len(held.held) != model.num_layers or bad or not k5_err <= SIM_TOL:
+        raise fail(f"operator: {len(held.held)} K1 calls held, outside tolerance: {bad}; "
+                   f"K5 error {k5_err}")
+    out["held"] = {"k1_calls": len(held.held),
+                   "k1_max_abs_err": max(c["max_abs_err"] for c in held.held),
+                   "k5_max_abs_err": k5_err}
+    engine.close()
+
+    # the greedy pods' stored explanations against a direct provider drive
+    # of the same captured requests, on an engine of the same weights.
+    # The two drives must take the same steps (K1's rounding follows a
+    # row's place in the step): the direct engine's sampler starts where
+    # the operator's did, and each request keeps its operator deadline,
+    # moved by one constant, so earliest-deadline-first admission orders
+    # the rows as it did there (the pipeline hands the provider the budget
+    # left after each pod's own collect and match, not a common one)
+    direct = provider_module.build_tpu_native_provider(
+        "cuda", {**CHECKPOINT_ENV, "CHECKPOINT_DIR": dirs["llm"]})
+    direct_submit = direct.engine.submit
+    moved: dict = {}
+
+    def replayed(prompt, params=None, *, priority=0):
+        deadline, at = submitted[prompt]
+        shift = moved.setdefault("s", direct.engine.generator._clock() - at)
+        if deadline is not None:
+            params = dataclasses.replace(params, deadline=deadline + shift)
+        return direct_submit(prompt, params, priority=priority)
+
+    try:
+        direct.engine.warmup()
+        asyncio.run(direct.generate(provider_requests()[0]))
+        wait_idle(direct.engine.scheduler)
+        drive_requests = [r for r, _ in exchanged[:OPERATOR_PODS]]
+        direct.engine.generator._rng.set_state(drive_rng[0])
+        direct.engine.submit = replayed
+        want = gated_drive(direct, drive_requests)
+    finally:
+        direct.engine.submit = direct_submit
+        direct.engine.close()
+    greedy = [(r.failure_data.pod.metadata.name, w) for r, w in zip(drive_requests, want)
+              if r.provider_config.temperature == 0.0]
+    unequal = [(name, responses[name].to_dict(), w.to_dict()) for name, w in greedy
+               if (responses[name].explanation, responses[name].completion_tokens,
+                   responses[name].prompt_tokens)
+               != (w.explanation, w.completion_tokens, w.prompt_tokens)]
+    if len(greedy) != OPERATOR_PODS // 2 or unequal:
+        raise fail(f"operator: greedy explanations differ from the direct drive's: {unequal}")
+    out["greedy_equal_direct"] = len(greedy)
+    out["sampled_equal_direct"] = all(
+        responses[r.failure_data.pod.metadata.name].explanation == w.explanation
+        for r, w in zip(drive_requests, want))
+    provider_drive = (results.get("checkpoint") or {}).get("provider") or {}
+    if provider_drive.get("tokens_per_s"):
+        out["tokens_per_s_vs_provider_drive"] = out["tokens_per_s"] / provider_drive["tokens_per_s"]
+    print(json.dumps({"operator_checks": {k: out.get(k) for k in (
+        "held", "greedy_equal_direct", "sampled_equal_direct", "tokens_per_s",
+        "tokens_per_s_vs_provider_drive")}, "card": out["card"]}), flush=True)
+    results["operator"] = out
+    return {name: sum(c[name] for c in every) for name in kernel_modules}
+
+
+# ---------------------------------------------------------------------------
+# phase 8: card vs CPU on a small engine
 # ---------------------------------------------------------------------------
 
 
@@ -2385,7 +2855,8 @@ def analysis_parity(kernel_modules: dict) -> dict:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="also write every result to this JSON file")
-    parser.add_argument("--phases", default="device,kernels,serve,wave,analysis,checkpoint,parity")
+    parser.add_argument("--phases",
+                        default="device,kernels,serve,wave,analysis,checkpoint,operator,parity")
     args = parser.parse_args()
     phases = set(args.phases.split(","))
 
@@ -2440,7 +2911,16 @@ def main() -> int:
         for selector in (("v1", "v2") if "wave" in phases else ())
     }
     analysis = phase_analysis(results, kernel_modules, phases) if "analysis" in phases else {}
-    checkpoint = phase_checkpoint(results, kernel_modules) if "checkpoint" in phases else {}
+    if "operator" in phases and "checkpoint" not in phases:
+        raise fail("the operator phase serves the checkpoint phase's checkpoints: add checkpoint")
+    checkpoint, dirs = (phase_checkpoint(results, kernel_modules, keep="operator" in phases)
+                        if "checkpoint" in phases else ({}, None))
+    operator = {}
+    if "operator" in phases:
+        try:
+            operator = phase_operator(results, kernel_modules, dirs)
+        finally:
+            shutil.rmtree(dirs["workdir"], ignore_errors=True)
     if "parity" in phases:
         phase_parity(results, kernel_modules)
     # each kernel's count from the drive of the path it serves: K1 the
@@ -2457,8 +2937,10 @@ def main() -> int:
     }
     for record in records:
         record["launches"] = path_launches[record["name"]]
-        # the same kernel's launches on the checkpoint phase's path
-        record["launches_checkpoint"] = checkpoint.get(re.sub(r"_v[12]$", "", record["name"]))
+        # the same kernel's launches on the checkpoint and operator phases' paths
+        base = re.sub(r"_v[12]$", "", record["name"])
+        record["launches_checkpoint"] = checkpoint.get(base)
+        record["launches_operator"] = operator.get(base)
     kernels = records
     results["kernels"] = kernels
     device = {

@@ -1,5 +1,5 @@
-"""PyTorch/CUDA port of operator-tpu's serving and semantic analysis
-paths, for NVIDIA Hopper.
+"""PyTorch/CUDA port of operator-tpu's operator control plane, serving
+and semantic analysis paths, for NVIDIA Hopper.
 
 The JAX package (``operator_tpu``) is the reference; this package mirrors
 its layout module by module and imports nothing of it.  Plain tensor code

@@ -7,7 +7,7 @@
 // SMALLEST window index that reaches it (jnp.argmax's first match).  The
 // [W, P] score matrix never reaches device memory.
 //
-// Layouts (all contiguous, 16-byte aligned, D a multiple of 8):
+// Layouts (all contiguous, 16-byte aligned, any D >= 1):
 //   windows  [W, D]  f32 or bf16
 //   patterns [P, D]  same dtype
 //   scores   [P]     f32    best_idx [P] int32
@@ -66,6 +66,22 @@
 // merging block resets the counter to 0 for the next launch.
 // Deterministic; no atomics in the arithmetic.
 //
+// Streaming layout (config 7), for rows wider than 4 KB, whose resident
+// pattern tile would not fit in shared memory: the geometry of config 6
+// (8 x 2 a thread, 128 windows, 32 patterns), but each ring stage brings
+// the pattern rows' KC columns beside the window rows' instead of keeping
+// the patterns resident, so shared memory does not grow with D.  The sums
+// run in the same order as in the resident layouts.
+//
+// Any D.  With D a multiple of 16 bytes' elements every copy is a 16-byte
+// cp.async; otherwise rows start off 16-byte boundaries, and the same
+// copies are made an element at a time by plain loads and stores (the
+// ring's wait-and-barrier protocol covers them too).  The tiled layouts
+// are built once for each case (kAligned), so the aligned ones carry no
+// test for it.  Columns past D are
+// zeros in shared memory either way: fmaf(0, x, a) == a, so the padding
+// adds nothing to any sum.
+//
 // Rows layout (config 0), for W <= 8 (incident recall: one query against
 // the stored incidents).  One warp per pattern, all eight warps of a block
 // computing: the windows are staged in shared memory, each lane takes
@@ -116,6 +132,28 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
   const uint2 u = *reinterpret_cast<const uint2*>(p);
   return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
                      __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+}
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+// kVec elements of a row into shared memory from column c on, zeros past D
+// (and for a row that is not there): one 16-byte cp.async when rows are
+// 16-byte aligned (vec_ok), else element by element.
+template <typename T>
+__device__ __forceinline__ void copy_vec(T* dst, const T* row, int c, int D, bool row_ok,
+                                         bool vec_ok, const T* any) {
+  constexpr int kVec = 16 / sizeof(T);
+  if (vec_ok) {
+    const bool ok = row_ok && c < D;
+    cp_async_16(dst, ok ? row + c : any, ok);
+    return;
+  }
+#pragma unroll
+  for (int e = 0; e < kVec; ++e) {
+    const bool ok = row_ok && c + e < D;
+    dst[e] = ok ? row[c + e] : T(0.0f);
+  }
 }
 
 // Each pattern tile's S partials merged by the last block to finish:
@@ -180,8 +218,9 @@ __device__ __forceinline__ void merge_shares(const float* part_scores, const int
 // WK groups of warps share out the columns of each ring stage (each group
 // KC / WK of them); in a group, WP warps across the patterns and the rest
 // across the windows; RP patterns and RW windows a thread; KC columns a
-// ring stage, kStages stages.
-template <typename T, int WK, int WP, int RP, int RW, int KC, int kStages>
+// ring stage, kStages stages; kStream: the pattern rows come through the
+// ring beside the windows instead of staying resident.
+template <typename T, int WK, int WP, int RP, int RW, int KC, int kStages, bool kStream>
 struct Tiled {
   static constexpr int kGroupWarps = kWarps / WK;
   static constexpr int kLanesP = 8 * WP;
@@ -199,24 +238,31 @@ struct Tiled {
   static constexpr int kRedFloats = WK > 1 ? WK * kTileW * kLdRed : 2 * kLanesW * kTileP;
   static constexpr int kFoldP = (kTileP + kWarps - 1) / kWarps;  // patterns a warp folds
   static constexpr size_t kStaticBytes = sizeof(float) * kRedFloats + 16;
+  static constexpr int kStageRows = kTileW + (kStream ? kTileP : 0);
   static_assert(kLanesP * kLanesW * WK == kThreads, "thread layout");
   static_assert(KC % kVec == 0 && kSlice % 4 == 0, "ring stage width");
   static_assert(WK == 1 || (kTileW == 32 && kFoldP <= RP),
                 "a column-split tile folds one window a lane into RP running bests");
 
-  static __host__ __device__ int ld_p(int D) { return (D + KC - 1) / KC * KC + kPad; }
+  // the pattern rows' stride: a ring stage's, or the resident rows' (D
+  // rounded up to whole stages)
+  static __host__ __device__ int ld_p(int D) {
+    return kStream ? kLdW : (D + KC - 1) / KC * KC + kPad;
+  }
   static __host__ size_t smem_bytes(int D) {
-    return sizeof(T) * (static_cast<size_t>(kTileP) * ld_p(D) + kStages * kTileW * kLdW);
+    const size_t resident = kStream ? 0 : static_cast<size_t>(kTileP) * ld_p(D);
+    return sizeof(T) * (resident + static_cast<size_t>(kStages) * kStageRows * kLdW);
   }
 };
 
-template <typename T, int WK, int WP, int RP, int RW, int KC, int kStages>
+template <typename T, int WK, int WP, int RP, int RW, int KC, int kStages, bool kStream,
+          bool kAligned>
 __global__ void __launch_bounds__(kThreads)
 best_window_tiled(const T* __restrict__ windows, const T* __restrict__ patterns,
                   float* __restrict__ scores, int* __restrict__ best_idx,
                   float* __restrict__ part_scores, int* __restrict__ part_idx,
                   int* __restrict__ counters, int W, int P, int D, int share_w, int S) {
-  using L = Tiled<T, WK, WP, RP, RW, KC, kStages>;
+  using L = Tiled<T, WK, WP, RP, RW, KC, kStages, kStream>;
   constexpr int kTileP = L::kTileP;
   constexpr int kTileW = L::kTileW;
   constexpr int kLanesP = L::kLanesP;
@@ -226,9 +272,11 @@ best_window_tiled(const T* __restrict__ windows, const T* __restrict__ patterns,
   __shared__ int last_s;
   extern __shared__ __align__(16) unsigned char smem_raw[];
 
+  constexpr int kStage = L::kStageRows * kLdW;  // elements a ring stage
   const int ld_p = L::ld_p(D);
-  T* p_s = reinterpret_cast<T*>(smem_raw);  // [kTileP][ld_p], resident
-  T* ring = p_s + kTileP * ld_p;            // [kStages][kTileW][kLdW]
+  constexpr bool vec_ok = kAligned;  // D % kVec == 0: rows on 16-byte boundaries
+  T* p_s = reinterpret_cast<T*>(smem_raw);         // [kTileP][ld_p], resident
+  T* ring = p_s + (kStream ? 0 : kTileP * ld_p);  // [kStages][kStageRows][kLdW]
 
   const int p0 = blockIdx.x * kTileP;
   const int share = blockIdx.y;
@@ -249,27 +297,28 @@ best_window_tiled(const T* __restrict__ windows, const T* __restrict__ patterns,
   // ring stage `step % kStages` <- window rows of tile step / chunks,
   // columns of chunk step % chunks.  The first tile's steps also bring the
   // pattern rows' columns of their chunk, which then stay resident: the
-  // first step waits for one chunk of the patterns, not all of them.
+  // first step waits for one chunk of the patterns, not all of them
+  // (kStream: every step brings them, after the windows in its stage).
   // Columns past D and rows past P are zeros.
   auto load_step = [&](int step) {
     const int tile = step / chunks;
     const int k0 = (step - tile * chunks) * KC;
     const int w0 = w_begin + tile * kTileW;
-    if (tile == 0) {
+    T* dst = ring + (step % kStages) * kStage;
+    if (kStream || tile == 0) {
+      T* p_dst = kStream ? dst + kTileW * kLdW : p_s + k0;
       for (int v = threadIdx.x; v < kTileP * L::kChunkVecs; v += kThreads) {
         const int r = v / L::kChunkVecs;
-        const int c = k0 + (v - r * L::kChunkVecs) * L::kVec;
-        const bool ok = p0 + r < P && c < D;
-        cp_async_16(p_s + r * ld_p + c,
-                    ok ? patterns + static_cast<size_t>(p0 + r) * D + c : patterns, ok);
+        const int c = (v - r * L::kChunkVecs) * L::kVec;
+        copy_vec(p_dst + r * ld_p + c, patterns + static_cast<size_t>(p0 + r) * D, k0 + c, D,
+                 p0 + r < P, vec_ok, patterns);
       }
     }
-    T* dst = ring + (step % kStages) * kTileW * kLdW;
     for (int v = threadIdx.x; v < kTileW * L::kChunkVecs; v += kThreads) {
       const int r = v / L::kChunkVecs;
       const int c = (v - r * L::kChunkVecs) * L::kVec;
-      const bool ok = w0 + r < w_end && k0 + c < D;
-      cp_async_16(dst + r * kLdW + c, ok ? windows + static_cast<size_t>(w0 + r) * D + k0 + c : windows, ok);
+      copy_vec(dst + r * kLdW + c, windows + static_cast<size_t>(w0 + r) * D, k0 + c, D,
+               w0 + r < w_end, vec_ok, windows);
     }
   };
   if (steps > 0) load_step(0);
@@ -303,8 +352,10 @@ best_window_tiled(const T* __restrict__ windows, const T* __restrict__ patterns,
     // (WK > 1: one row of warps covers the tile, never past the end)
     if (WK == 1 && w0 + warp_tw0 >= w_end) continue;
 
-    const T* w_stage = ring + (step % kStages) * kTileW * kLdW + group * L::kSlice;
-    const T* p_chunk = p_s + chunk * KC + group * L::kSlice;
+    const T* w_stage = ring + (step % kStages) * kStage + group * L::kSlice;
+    const T* p_chunk =
+        (kStream ? ring + (step % kStages) * kStage + kTileW * kLdW : p_s + chunk * KC) +
+        group * L::kSlice;
 #pragma unroll 4
     for (int k = 0; k < L::kSlice; k += 4) {
       float4 pv[RP];
@@ -446,27 +497,32 @@ best_window_tiled(const T* __restrict__ windows, const T* __restrict__ patterns,
 // rows layout: W <= 8, one warp per pattern
 // ---------------------------------------------------------------------------
 
+// D is padded to whole 16-byte vectors, Dp columns, zeros past D.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 best_window_rows(const T* __restrict__ windows, const T* __restrict__ patterns,
                  float* __restrict__ scores, int* __restrict__ best_idx, int W, int P, int D) {
   constexpr int kVec = 16 / sizeof(T);
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* w_s = reinterpret_cast<T*>(smem_raw);  // [W][D]
-  const int n = W * D / kVec;
-  for (int v = threadIdx.x; v < n; v += kThreads) {
-    cp_async_16(w_s + v * kVec, windows + static_cast<size_t>(v) * kVec, true);
+  const int vecs = (D + kVec - 1) / kVec;
+  const int Dp = vecs * kVec;
+  const bool vec_ok = D == Dp;  // rows on 16-byte boundaries
+  T* w_s = reinterpret_cast<T*>(smem_raw);  // [W][Dp]
+  for (int v = threadIdx.x; v < W * vecs; v += kThreads) {
+    const int r = v / vecs;
+    const int c = (v - r * vecs) * kVec;
+    copy_vec(w_s + r * Dp + c, windows + static_cast<size_t>(r) * D, c, D, true, vec_ok,
+             windows);
   }
   cp_async_commit();
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int p = blockIdx.x * kWarps + warp;
-  const int vecs = D / kVec;
   const T* row = patterns + static_cast<size_t>(min(p, P - 1)) * D;
   // this lane's first pattern vector flies while the windows land
   uint4 first = make_uint4(0u, 0u, 0u, 0u);
-  if (lane < vecs) first = __ldg(reinterpret_cast<const uint4*>(row) + lane);
+  if (vec_ok && lane < vecs) first = __ldg(reinterpret_cast<const uint4*>(row) + lane);
   cp_async_wait<0>();
   __syncthreads();
   if (p >= P) return;  // warp-uniform
@@ -475,13 +531,18 @@ best_window_rows(const T* __restrict__ windows, const T* __restrict__ patterns,
 #pragma unroll
   for (int w = 0; w < kRowsMaxW; ++w) part[w] = 0.0f;
   for (int v = lane; v < vecs; v += 32) {
-    const uint4 raw = v == lane ? first : __ldg(reinterpret_cast<const uint4*>(row) + v);
     float pf[kVec];
-    unpack(raw, pf, T());
+    if (vec_ok) {
+      const uint4 raw = v == lane ? first : __ldg(reinterpret_cast<const uint4*>(row) + v);
+      unpack(raw, pf, T());
+    } else {
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) pf[e] = v * kVec + e < D ? to_float(row[v * kVec + e]) : 0.0f;
+    }
 #pragma unroll
     for (int w = 0; w < kRowsMaxW; ++w) {
       if (w < W) {
-        const T* wr = w_s + w * D + v * kVec;
+        const T* wr = w_s + w * Dp + v * kVec;
 #pragma unroll
         for (int e = 0; e < kVec; e += 4) {
           const float4 x = load4(wr + e);
@@ -515,12 +576,13 @@ best_window_rows(const T* __restrict__ windows, const T* __restrict__ patterns,
 // launch
 // ---------------------------------------------------------------------------
 
-template <typename T, int WK, int WP, int RP, int RW, int KC, int kStages>
+template <typename T, bool kAligned, int WK, int WP, int RP, int RW, int KC, int kStages,
+          bool kStream = false>
 cudaError_t launch_tiled(const void* windows, const void* patterns, float* scores,
                          int* best_idx, float* part_scores, int* part_idx, int* counters,
                          int W, int P, int D, int share_w, int S, cudaStream_t stream) {
-  using L = Tiled<T, WK, WP, RP, RW, KC, kStages>;
-  auto* kernel = best_window_tiled<T, WK, WP, RP, RW, KC, kStages>;
+  using L = Tiled<T, WK, WP, RP, RW, KC, kStages, kStream>;
+  auto* kernel = best_window_tiled<T, WK, WP, RP, RW, KC, kStages, kStream, kAligned>;
   const size_t smem_bytes = L::smem_bytes(D);
   // the static exchange arrays count against the same 48 KB that a block
   // gets without asking
@@ -540,7 +602,8 @@ cudaError_t launch_tiled(const void* windows, const void* patterns, float* score
 template <typename T>
 cudaError_t launch_rows(const void* windows, const void* patterns, float* scores,
                         int* best_idx, int W, int P, int D, cudaStream_t stream) {
-  const size_t smem_bytes = sizeof(T) * static_cast<size_t>(W) * D;
+  constexpr int kVec = 16 / sizeof(T);
+  const size_t smem_bytes = sizeof(T) * static_cast<size_t>(W) * ((D + kVec - 1) / kVec * kVec);
   if (W > kRowsMaxW || smem_bytes > 48 * 1024) return cudaErrorInvalidValue;
   best_window_rows<T><<<(P + kWarps - 1) / kWarps, kThreads, smem_bytes, stream>>>(
       static_cast<const T*>(windows), static_cast<const T*>(patterns), scores, best_idx, W,
@@ -548,43 +611,60 @@ cudaError_t launch_rows(const void* windows, const void* patterns, float* scores
   return cudaGetLastError();
 }
 
-// config -> layout; the table best_window_geometry exports
-template <typename T>
-cudaError_t launch(int config, const void* windows, const void* patterns, float* scores,
-                   int* best_idx, float* ps, int* pi, int* counters, int W, int P, int D,
-                   int share_w, int S, cudaStream_t stream) {
+// config -> layout; the table best_window_geometry exports.  kAligned:
+// D fills whole 16-byte vectors, so the tiled layouts copy with cp.async
+template <typename T, bool kAligned>
+cudaError_t launch_config(int config, const void* windows, const void* patterns,
+                          float* scores, int* best_idx, float* ps, int* pi, int* counters,
+                          int W, int P, int D, int share_w, int S, cudaStream_t stream) {
   switch (config) {
     case 0:
       return S == 1 ? launch_rows<T>(windows, patterns, scores, best_idx, W, P, D, stream)
                     : cudaErrorInvalidValue;
     case 1:
-      return launch_tiled<T, 8, 1, 1, 8, 64, 4>(windows, patterns, scores, best_idx, ps, pi,
-                                             counters, W, P, D, share_w, S, stream);
+      return launch_tiled<T, kAligned, 8, 1, 1, 8, 64, 4>(windows, patterns, scores, best_idx, ps,
+                                                       pi, counters, W, P, D, share_w, S, stream);
     case 2:
-      return launch_tiled<T, 8, 1, 2, 8, 64, 4>(windows, patterns, scores, best_idx, ps, pi,
-                                             counters, W, P, D, share_w, S, stream);
+      return launch_tiled<T, kAligned, 8, 1, 2, 8, 64, 4>(windows, patterns, scores, best_idx, ps,
+                                                       pi, counters, W, P, D, share_w, S, stream);
     case 3:
-      return launch_tiled<T, 8, 1, 3, 8, 64, 4>(windows, patterns, scores, best_idx, ps, pi,
-                                             counters, W, P, D, share_w, S, stream);
+      return launch_tiled<T, kAligned, 8, 1, 3, 8, 64, 4>(windows, patterns, scores, best_idx, ps,
+                                                       pi, counters, W, P, D, share_w, S, stream);
     case 4:
-      return launch_tiled<T, 8, 1, 4, 8, 64, 4>(windows, patterns, scores, best_idx, ps, pi,
-                                             counters, W, P, D, share_w, S, stream);
+      return launch_tiled<T, kAligned, 8, 1, 4, 8, 64, 4>(windows, patterns, scores, best_idx, ps,
+                                                       pi, counters, W, P, D, share_w, S, stream);
     case 5:
-      return launch_tiled<T, 1, 1, 8, 8, 16, 3>(windows, patterns, scores, best_idx, ps, pi,
-                                             counters, W, P, D, share_w, S, stream);
+      return launch_tiled<T, kAligned, 1, 1, 8, 8, 16, 3>(windows, patterns, scores, best_idx, ps,
+                                                       pi, counters, W, P, D, share_w, S, stream);
     case 6:
-      return launch_tiled<T, 1, 2, 2, 8, 32, 3>(windows, patterns, scores, best_idx, ps, pi,
-                                             counters, W, P, D, share_w, S, stream);
+      return launch_tiled<T, kAligned, 1, 2, 2, 8, 32, 3>(windows, patterns, scores, best_idx, ps,
+                                                       pi, counters, W, P, D, share_w, S, stream);
+    case 7:
+      return launch_tiled<T, kAligned, 1, 2, 2, 8, 32, 3, true>(
+          windows, patterns, scores, best_idx, ps, pi, counters, W, P, D, share_w, S, stream);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
-constexpr int kConfigs = 7;
+template <typename T>
+cudaError_t launch(int config, const void* windows, const void* patterns, float* scores,
+                   int* best_idx, float* ps, int* pi, int* counters, int W, int P, int D,
+                   int share_w, int S, cudaStream_t stream) {
+  constexpr int kVec = 16 / sizeof(T);
+  if (D % kVec == 0) {
+    return launch_config<T, true>(config, windows, patterns, scores, best_idx, ps, pi,
+                                  counters, W, P, D, share_w, S, stream);
+  }
+  return launch_config<T, false>(config, windows, patterns, scores, best_idx, ps, pi, counters,
+                                 W, P, D, share_w, S, stream);
+}
 
-template <typename T, int WK, int WP, int RP, int RW, int KC, int kStages>
+constexpr int kConfigs = 8;
+
+template <typename T, int WK, int WP, int RP, int RW, int KC, int kStages, bool kStream = false>
 void geometry_of(int* tile_p, int* tile_w) {
-  using L = Tiled<T, WK, WP, RP, RW, KC, kStages>;
+  using L = Tiled<T, WK, WP, RP, RW, KC, kStages, kStream>;
   *tile_p = L::kTileP;
   *tile_w = L::kTileW;
 }
@@ -594,7 +674,7 @@ void geometry_of(int* tile_p, int* tile_w) {
 
 // Plain C entry point, bound with ctypes (ops/similarity.py).
 // dtype: 0 = float32, 1 = bfloat16.  config picks the layout (0: rows,
-// W <= 8; 1-6: tiled, see best_window_geometry).  The windows are cut into
+// W <= 8; 1-7: tiled, see best_window_geometry).  The windows are cut into
 // S shares of share_w rows (S = ceil(W / share_w)); with S > 1 the caller
 // passes partial buffers of [S, P] floats and ints and ceil(P / TP) int32
 // counters that are zero (the merging blocks leave them zero, so they may
@@ -604,7 +684,7 @@ extern "C" int best_window_launch(const void* windows, const void* patterns,
                                   void* scores, void* best_idx, void* part_scores,
                                   void* part_idx, void* counters, int W, int P, int D,
                                   int config, int share_w, int S, int dtype, void* stream) {
-  if (W <= 0 || P <= 0 || D <= 0 || D % 8 != 0 || share_w <= 0 || S <= 0 ||
+  if (W <= 0 || P <= 0 || D <= 0 || share_w <= 0 || S <= 0 ||
       (W + share_w - 1) / share_w != S) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -630,8 +710,8 @@ extern "C" int best_window_launch(const void* windows, const void* patterns,
   return static_cast<int>(err);
 }
 
-// Each layout's (patterns per block, window rows per tile), config 0 .. 6,
-// into tile_p[7] and tile_w[7] (config 0, the rows layout: 8 patterns a
+// Each layout's (patterns per block, window rows per tile), config 0 .. 7,
+// into tile_p[8] and tile_w[8] (config 0, the rows layout: 8 patterns a
 // block, at most 8 windows): the one source of the caller's plan and
 // scratch shape.  ops/similarity.py holds its copy against these once,
 // when it binds the library.
@@ -645,5 +725,6 @@ extern "C" int best_window_geometry(int* tile_p, int* tile_w) {
   geometry_of<float, 8, 1, 4, 8, 64, 4>(tile_p + 4, tile_w + 4);
   geometry_of<float, 1, 1, 8, 8, 16, 3>(tile_p + 5, tile_w + 5);
   geometry_of<float, 1, 2, 2, 8, 32, 3>(tile_p + 6, tile_w + 6);
+  geometry_of<float, 1, 2, 2, 8, 32, 3, true>(tile_p + 7, tile_w + 7);
   return optorch::kConfigs;
 }

@@ -53,14 +53,16 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: (patterns per block, window rows per tile).  Config 0 is the rows
 #: layout (one warp a pattern, at most 8 windows); 1-4 tile 8-32 patterns
 #: against 32 window rows; 5 tiles 64 patterns against 256, 6 (wide rows)
-#: 32 against 128.
-CONFIGS = ((8, 8), (8, 32), (16, 32), (24, 32), (32, 32), (64, 256), (32, 128))
+#: 32 against 128; 7 (rows wider than 4 KB) is config 6 with the pattern
+#: rows streamed through the ring instead of resident.
+CONFIGS = ((8, 8), (8, 32), (16, 32), (24, 32), (32, 32), (64, 256), (32, 128), (32, 128))
 #: the rows layout stages all windows in 48 KB of shared memory
 _ROWS_SMEM = 48 * 1024
 #: a row of more bytes makes the large tile's resident patterns (config 5)
 #: too large for one SM; config 6 then halves them
 _WIDE_ROW = 2048
-#: the widest row the tiled layouts take (config 6's 32 resident rows)
+#: the widest row whose pattern tile stays resident (configs 1-6: 32 rows);
+#: wider rows take the streaming layout, config 7
 _MAX_ROW = 4096
 
 
@@ -123,15 +125,20 @@ def launch_plan(num_windows: int, num_patterns: int, dim: int, itemsize: int,
     and shares cut to give every SM at least one block: 4,096 windows are
     133 shares of 31.  More patterns take a large tile, and shares of whole
     window tiles keep the grid within one block per SM: 1,024 patterns are
-    16 tiles x 8 shares of 512."""
-    if num_windows <= CONFIGS[0][1] and num_windows * dim * itemsize <= _ROWS_SMEM:
+    16 tiles x 8 shares of 512.  Rows wider than 4 KB take the streaming
+    layout like a large library (1,536 f32 columns: 19 patterns are one
+    tile x 32 shares of 128 windows).  Any D: the kernel pads rows to whole
+    16-byte vectors with zeros."""
+    vec = 16 // itemsize
+    row_bytes = -(-dim // vec) * 16  # a row padded to whole 16-byte vectors
+    if num_windows <= CONFIGS[0][1] and num_windows * row_bytes <= _ROWS_SMEM:
         return LaunchPlan(0, num_windows, 1, -(-num_patterns // CONFIGS[0][0]))
-    if num_patterns <= CONFIGS[4][0]:
+    if num_patterns <= CONFIGS[4][0] and dim * itemsize <= _MAX_ROW:
         config = -(-num_patterns // CONFIGS[1][0])
         p_tiles = 1
         share_w = max(1, num_windows // -(-sm_count // p_tiles))
     else:
-        config = 5 if dim * itemsize <= _WIDE_ROW else 6
+        config = 5 if dim * itemsize <= _WIDE_ROW else 6 if dim * itemsize <= _MAX_ROW else 7
         tile_p, tile_w = CONFIGS[config]
         p_tiles = -(-num_patterns // tile_p)
         shares = max(1, sm_count // p_tiles)
@@ -198,10 +205,8 @@ def best_window_scores_cuda(
     if patterns.dtype != windows.dtype:
         raise TypeError(f"patterns must share the windows' dtype {windows.dtype}, got {patterns.dtype}")
     (w, d), (p, dp) = windows.shape, patterns.shape
-    if dp != d or d % 8:
-        raise ValueError(f"embedding dims must match and be a multiple of 8, got {d} and {dp}")
-    if d * windows.element_size() > _MAX_ROW:
-        raise ValueError(f"embedding rows of at most {_MAX_ROW} bytes, got {d} x {windows.dtype}")
+    if dp != d or d == 0:
+        raise ValueError(f"embedding dims must match and be at least 1, got {d} and {dp}")
     if w == 0 or p == 0:
         raise ValueError(f"need at least one window and one pattern, got W={w}, P={p}")
 

@@ -1,1 +1,2 @@
-"""The port's copy of the router's value model (``router/value.py``)."""
+"""The port's copies of the router's value model (``router/value.py``)
+and circuit breakers (``router/health.py``)."""

@@ -1,6 +1,6 @@
 """Typed schema layer of the port: own copies of the JAX package's
-``operator_tpu/schema`` modules that the analysis path and the provider
-read (the CRDs and their generator come with the operator)."""
+``operator_tpu/schema`` modules (the CRD manifest generator, ``crdgen``,
+is not ported yet)."""
 
 from .analysis import (
     AIProviderConfig,
@@ -16,19 +16,55 @@ from .analysis import (
     Severity,
     StageTimings,
 )
+from .crds import (
+    API_VERSION,
+    GROUP,
+    VERSION,
+    AIProvider,
+    AIProviderRef,
+    AIProviderSpec,
+    AIProviderStatus,
+    AuthenticationRef,
+    FailureRecurrence,
+    PatternLibrary,
+    PatternLibrarySpec,
+    PatternLibraryStatus,
+    PatternRepository,
+    PodFailureStatus,
+    Podmortem,
+    PodmortemSpec,
+    PodmortemStatus,
+    RepositoryCredentials,
+    SecretRef,
+    SyncedRepository,
+    parse_refresh_interval,
+)
 from .kube import (
     Container,
     ContainerState,
     ContainerStateTerminated,
     ContainerStateWaiting,
     ContainerStatus,
+    Deployment,
+    DeploymentSpec,
     Event,
+    Lease,
+    LeaseSpec,
     ObjectReference,
     Pod,
     PodSpec,
     PodStatus,
+    ReplicaSet,
+    Secret,
 )
-from .meta import K8sObject, ObjectMeta, OwnerReference, now_iso
+from .meta import (
+    K8sObject,
+    LabelSelector,
+    LabelSelectorRequirement,
+    ObjectMeta,
+    OwnerReference,
+    now_iso,
+)
 from .patterns import (
     ContextExtraction,
     LibraryMetadata,

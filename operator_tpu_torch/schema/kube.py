@@ -1,9 +1,10 @@
-"""Typed models of the core-Kubernetes objects the analysis path reads:
-Pods (failure detection) and Events (evidence).
+"""Typed models of the core-Kubernetes objects the system touches:
+Pods (failure detection), Events (evidence and result channel), Secrets
+(credentials), ReplicaSets/Deployments (owner chase for event targeting)
+and Leases.
 
-Copy of ``operator_tpu/schema/kube.py`` as far as that path needs it; the
-other objects (Secrets, Leases, ReplicaSets, Deployments, Endpoints,
-Scale) come with the operator.
+Copy of ``operator_tpu/schema/kube.py`` less the objects of parts not
+ported yet (Endpoints for discovery, Scale for the autoscaler).
 
 Field coverage mirrors what the reference actually reads:
 - container terminated state w/ exit code   (reference PodFailureWatcher.java:147-159)
@@ -113,3 +114,80 @@ class Event(K8sObject):
         super().__post_init__()
         self.api_version = self.api_version or "events.k8s.io/v1"
         self.kind = self.kind or "Event"
+
+
+@dataclass
+class Secret(K8sObject):
+    """Opaque secret; ``data`` values are base64-encoded on the wire, exactly
+    as the reference consumes them (reference AIInterfaceClient.java:138-139)."""
+
+    data: dict[str, str] = field(default_factory=dict)
+    string_data: dict[str, str] = field(default_factory=dict)
+    type_: Optional[str] = wire("type", default=None)
+
+    def __post_init__(self) -> None:
+        super().__post_init__()
+        self.api_version = self.api_version or "v1"
+        self.kind = self.kind or "Secret"
+
+    def decoded(self, key: str) -> Optional[str]:
+        import base64
+
+        if key in self.string_data:
+            return self.string_data[key]
+        raw = self.data.get(key)
+        if raw is None:
+            return None
+        try:
+            return base64.b64decode(raw).decode("utf-8").strip()
+        except Exception:
+            return raw
+
+
+@dataclass
+class LeaseSpec:
+    """coordination.k8s.io/v1 LeaseSpec — the fields leader election
+    reads and writes."""
+
+    holder_identity: Optional[str] = None
+    lease_duration_seconds: Optional[int] = None
+    acquire_time: Optional[str] = None  # RFC3339 MicroTime
+    renew_time: Optional[str] = None  # RFC3339 MicroTime
+    lease_transitions: Optional[int] = None
+
+
+@dataclass
+class Lease(K8sObject):
+    """The leader-election lock object: whoever is in
+    ``spec.holderIdentity`` with a fresh ``renewTime`` runs the control
+    plane; everyone else is a hot standby."""
+
+    spec: LeaseSpec = field(default_factory=LeaseSpec)
+
+    def __post_init__(self) -> None:
+        super().__post_init__()
+        self.api_version = self.api_version or "coordination.k8s.io/v1"
+        self.kind = self.kind or "Lease"
+
+
+@dataclass
+class ReplicaSet(K8sObject):
+    def __post_init__(self) -> None:
+        super().__post_init__()
+        self.api_version = self.api_version or "apps/v1"
+        self.kind = self.kind or "ReplicaSet"
+
+
+@dataclass
+class DeploymentSpec:
+    replicas: Optional[int] = None
+
+
+@dataclass
+class Deployment(K8sObject):
+    spec: DeploymentSpec = field(default_factory=DeploymentSpec)
+
+    def __post_init__(self) -> None:
+        super().__post_init__()
+        self.api_version = self.api_version or "apps/v1"
+        self.kind = self.kind or "Deployment"

@@ -207,13 +207,17 @@ def build_serving_engine(
     environ: Optional[Mapping[str, str]] = None,
     *,
     seed: int = 0,
+    config: Optional[OperatorConfig] = None,
 ) -> "tuple[ServingEngine, str]":
     """Build ``(engine, model_id)`` from ``environ`` (default
-    ``os.environ``) on ``device`` (default ``cuda``)."""
+    ``os.environ``) on ``device`` (default ``cuda``).  ``config`` (the
+    operator's) takes the place of ``OperatorConfig.from_env(environ)``,
+    as the JAX package's ``build_serving_engine`` takes it; the model id is read
+    from ``OPERATOR_TPU_MODEL`` in ``environ`` either way."""
     from ..utils.device import resolve_device
 
     env = dict(os.environ if environ is None else environ)
-    config = OperatorConfig.from_env(env)
+    config = OperatorConfig.from_env(env) if config is None else config
     device = resolve_device(device)
     model_id = (env.get("OPERATOR_TPU_MODEL") or "").strip() or config.model_id
     model_config = get_config(model_id)
@@ -320,13 +324,15 @@ def build_tpu_native_provider(
     environ: Optional[Mapping[str, str]] = None,
     *,
     seed: int = 0,
+    config: Optional[OperatorConfig] = None,
 ) -> TPUNativeProvider:
     """Factory for the ``tpu-native`` provider: builds the shared engine
-    once (:func:`build_serving_engine`); every AIProvider CR with
-    ``providerId: tpu-native`` then multiplexes onto the same batch."""
+    once (:func:`build_serving_engine`, ``config`` as there); every
+    AIProvider CR with ``providerId: tpu-native`` then multiplexes onto
+    the same batch."""
     env = dict(os.environ if environ is None else environ)
-    engine, model_id = build_serving_engine(device, env, seed=seed)
+    config = OperatorConfig.from_env(env) if config is None else config
+    engine, model_id = build_serving_engine(device, env, seed=seed, config=config)
     return TPUNativeProvider(
-        engine, model_id=model_id,
-        register_template_prefixes=OperatorConfig.from_env(env).prefix_cache,
+        engine, model_id=model_id, register_template_prefixes=config.prefix_cache,
     )

@@ -1,19 +1,21 @@
-"""Per-stage latency metrics.
+"""Lightweight stage timing + metrics registry.
 
-The port's own copy of ``operator_tpu/utils/timing.py``'s
+The port's own copy of ``operator_tpu/utils/timing.py``: the
 ``MetricsRegistry`` (stage percentiles, counters, labeled counters,
-histograms, gauges, ``snapshot``): what the continuous scheduler, the
-prefix cache, the step clock and the overload ladder record into.  The
-Prometheus text exposition is not ported: the port's HTTP server has no
-``/metrics`` route yet.
+histograms, gauges, ``snapshot``) that the continuous scheduler, the
+prefix cache, the step clock, the overload ladder and the operator record
+into, its Prometheus text exposition (the operator's ``/metrics``), and
+the process-wide ``METRICS`` default.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from bisect import bisect_left, insort
+from contextlib import contextmanager
 from dataclasses import dataclass, field
-from typing import Optional, Sequence
+from typing import Iterator, Optional, Sequence
 
 #: default bucket upper bounds (ms) for latency histograms: sub-millisecond
 #: decode steps through multi-second queue waits under storm load
@@ -142,6 +144,14 @@ class MetricsRegistry:
                 self._stages[name] = stats
             stats.record(duration_ms)
 
+    @contextmanager
+    def timed(self, name: str) -> Iterator[None]:
+        started = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.record(name, (time.perf_counter() - started) * 1e3)
+
     def observe(
         self,
         name: str,
@@ -251,3 +261,81 @@ class MetricsRegistry:
                 # (no format constraints there, unlike the text exposition)
                 out["exemplars"] = dict(self._exemplars)
             return out
+
+    def prometheus(self, *, openmetrics: bool = False) -> str:
+        """Prometheus text exposition (version 0.0.4) of the same data, so
+        any standard scraper can consume the operator's metrics; stage
+        latencies render as summaries with p50/p99 quantiles.
+
+        ``openmetrics=True`` renders the OpenMetrics flavour instead
+        (trailing ``# EOF``, counter exemplars): exemplars are ONLY legal
+        there — a mid-line ``#`` in classic text makes the legacy parser
+        reject the whole scrape, so the default exposition never emits
+        them.  Servers switch on content negotiation
+        (``Accept: application/openmetrics-text``)."""
+
+        def sane(name: str) -> str:
+            return "".join(c if c.isalnum() or c == "_" else "_" for c in name)
+
+        lines: list[str] = []
+        with self._lock:
+            if self._stages:
+                metric = "podmortem_stage_duration_milliseconds"
+                lines.append(f"# HELP {metric} Per-stage latency (detect->store pipeline).")
+                lines.append(f"# TYPE {metric} summary")
+                for name, s in sorted(self._stages.items()):
+                    stage = sane(name)
+                    lines.append(f'{metric}{{stage="{stage}",quantile="0.5"}} {s.p50_ms:.3f}')
+                    lines.append(f'{metric}{{stage="{stage}",quantile="0.99"}} {s.p99_ms:.3f}')
+                    lines.append(f'{metric}_sum{{stage="{stage}"}} {s.total_ms:.3f}')
+                    lines.append(f'{metric}_count{{stage="{stage}"}} {s.count}')
+            for name, h in sorted(self._histograms.items()):
+                # histograms are legal (and identical) in BOTH flavours:
+                # cumulative le-buckets ending at +Inf, then _sum/_count
+                metric = f"podmortem_{sane(name)}"
+                lines.append(f"# TYPE {metric} histogram")
+                for le, cumulative in h.cumulative():
+                    lines.append(f'{metric}_bucket{{le="{le}"}} {cumulative}')
+                lines.append(f"{metric}_sum {h.sum:.3f}")
+                lines.append(f"{metric}_count {h.count}")
+            for name, value in sorted(self._counters.items()):
+                family = f"podmortem_{sane(name)}"
+                metric = f"{family}_total"
+                if openmetrics:
+                    # OpenMetrics names the counter FAMILY without the
+                    # _total suffix (the sample keeps it); declaring the
+                    # family as ..._total makes the reference parser
+                    # reject the exemplar-carrying sample — and the whole
+                    # scrape with it
+                    lines.append(f"# TYPE {family} counter")
+                else:
+                    lines.append(f"# TYPE {metric} counter")
+                series = self._labeled.get(name)
+                if series:
+                    # labeled counters expose one sample per label set (the
+                    # flat total stays on the JSON surface via counter());
+                    # emitting BOTH would double every sum() over the family
+                    for key in sorted(series):
+                        labels = ",".join(
+                            f'{sane(k)}="{v}"' for k, v in key
+                        )
+                        lines.append(f"{metric}{{{labels}}} {series[key]}")
+                    continue
+                exemplar = self._exemplars.get(name) if openmetrics else None
+                if exemplar:
+                    lines.append(
+                        f'{metric} {value} # {{trace_id="{sane(exemplar)}"}} 1'
+                    )
+                else:
+                    lines.append(f"{metric} {value}")
+            for name, value in sorted(self._gauges.items()):
+                metric = f"podmortem_{sane(name)}"
+                lines.append(f"# TYPE {metric} gauge")
+                lines.append(f"{metric} {value:.6g}")
+            if openmetrics:
+                lines.append("# EOF")
+        return "\n".join(lines) + "\n"
+
+
+#: process-wide default registry (dependency-inject a fresh one in tests)
+METRICS = MetricsRegistry()

@@ -281,6 +281,14 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "operator_tpu_torch.patterns.loader.load_builtin_library()\n"
         "operator_tpu_torch.models.tokenizer.load_tokenizer('tests/torch_tokenizers/llama_sp')\n"
         "operator_tpu_torch.models.bpe.load_builtin_bpe()\n"
+        "import operator_tpu_torch.operator, operator_tpu_torch.operator.app\n"
+        "import operator_tpu_torch.obs.record, operator_tpu_torch.obs.sloledger\n"
+        "import operator_tpu_torch.memory.recall, operator_tpu_torch.router.health\n"
+        "import operator_tpu_torch.utils.journal, operator_tpu_torch.schema.crds\n"
+        "import importlib, pkgutil, asyncio\n"
+        "for info in pkgutil.walk_packages(operator_tpu_torch.__path__, 'operator_tpu_torch.'):\n"
+        "    importlib.import_module(info.name)\n"
+        "asyncio.run(operator_tpu_torch.operator.app.run_demo(device='cpu'))\n"
         f"roots = {sorted(FORBIDDEN)!r}\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in roots)\n"
         "assert not bad, bad\n"

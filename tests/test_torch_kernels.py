@@ -22,7 +22,11 @@ kernel also on long rows (2,048 positions at page 16 and 64: rows
 crossing many split edges, a window starting inside a split, released
 rows beside long ones) at D = 16, 64 and 128 and the groups G = 3, 4, 7
 and 8, and its merge counters left at zero; the similarity kernel also
-at P = 19 and 33 with W at a share edge, W = 8 and 9, and rows of 768.
+at P = 19 and 33 with W at a share edge, W = 8 and 9, and rows of 768,
+and at any D (100 and 385, off 16-byte vectors; 1,536 f32 and 4,096 bf16,
+rows wider than 4 KB) with W in {1, 4096} and P in {19, 1024}.  The
+operator's ``run_demo`` with ``tpu-native`` runs on the card and
+launches K1 once per layer per step and K5 once.
 The ragged kernel also at the prefix cache's hit geometry (a first
 prefill chunk of 18 queries at kv_len 786 over head pages that rows
 share), and the host pool's page transfers (gather, side-stream fetch to
@@ -728,6 +732,31 @@ SIM_CASES = {
     "wide_rows": (1000, 40, 768),
 }
 
+#: any embedding width, as the JAX kernel takes: D off 16-byte vectors
+#: (100, 385) in both dtypes; rows wider than 4 KB (1,536 f32 = 6 KB,
+#: 4,096 bf16 = 8 KB), which take the streaming layout
+ANY_D = [(100, "float32"), (100, "bfloat16"), (385, "float32"), (385, "bfloat16"),
+         (1536, "float32"), (4096, "bfloat16")]
+
+
+def _any_d_inputs(w, p, d, dtype_name, duplicated=False):
+    """Unit rows on the card; ``duplicated``: pattern j copies one window
+    row of the first half, repeated right after it, a tile on and near the
+    end, so the first copy (returned) is the only right index."""
+    rng = np.random.default_rng(w * 7 + p * 3 + d)
+    windows, patterns = _unit_rows(rng, w, d), _unit_rows(rng, p, d)
+    firsts = None
+    if duplicated:
+        firsts = rng.choice(w // 2, size=min(p, w // 2), replace=False)
+        for j, first in enumerate(firsts.tolist()):
+            for later in {first + 1, first + 129, w - 1 - j}:
+                if later < w and later not in firsts:
+                    windows[later] = windows[first]
+            patterns[j] = windows[first]
+    dtype = getattr(torch, dtype_name)
+    return (torch.from_numpy(windows).to("cuda", dtype),
+            torch.from_numpy(patterns).to("cuda", dtype), firsts)
+
 
 def _unit_rows(rng, rows, dim):
     x = rng.normal(size=(rows, dim)).astype(np.float32)
@@ -804,6 +833,29 @@ def test_cuda_similarity_kernel_takes_the_first_of_equal_windows(cuda, name, dty
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("p", [19, 1024])
+@pytest.mark.parametrize("w", [1, 4096])
+@pytest.mark.parametrize("d,dtype_name", ANY_D, ids=[f"{d}-{t}" for d, t in ANY_D])
+def test_cuda_similarity_kernel_takes_any_width(cuda, d, dtype_name, w, p):
+    """Any D, as the JAX kernel: scores within 1e-5 of the plain version
+    and the plain score at the chosen window, one launch; at 4,096 windows
+    also the first of equal windows, exactly."""
+    for duplicated in (False, True) if w > 1 else (False,):
+        windows, patterns, firsts = _any_d_inputs(w, p, d, dtype_name, duplicated)
+        before = similarity.launches
+        scores, idx = similarity.best_window_scores(windows, patterns)
+        torch.cuda.synchronize()
+        assert similarity.launches == before + 1
+        want_s, _ = similarity.best_window_scores_reference(windows, patterns)
+        matrix = similarity.similarity_matrix(windows, patterns)
+        chosen = matrix[idx.long(), torch.arange(p, device="cuda")]
+        assert (scores - want_s).abs().max().item() <= 1e-5
+        assert (chosen - want_s).abs().max().item() <= 1e-5
+        if firsts is not None:
+            assert torch.equal(idx[: len(firsts)].cpu(), torch.as_tensor(firsts, dtype=torch.int32))
+
+
+@pytest.mark.cuda
 def test_cuda_similarity_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     windows, patterns = _sim_inputs("tiny", torch.float32, "cuda")
     before = similarity.launches
@@ -811,8 +863,6 @@ def test_cuda_similarity_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         similarity.best_window_scores(windows, patterns.cpu())
     with pytest.raises(ValueError, match="must be a CUDA tensor"):
         similarity.best_window_scores(windows.cpu(), patterns)
-    with pytest.raises(ValueError, match="multiple of 8"):
-        similarity.best_window_scores(windows[:, :100].contiguous(), patterns[:, :100].contiguous())
     with pytest.raises(TypeError, match="dtype"):
         similarity.best_window_scores(windows, patterns.to(torch.bfloat16))
     with pytest.raises(ValueError, match="contiguous"):
@@ -905,3 +955,52 @@ def test_cuda_provider_launches_the_ragged_kernel(cuda, tmp_path, monkeypatch):
         assert ragged.launches > before
     finally:
         provider.engine.close()
+
+
+@pytest.mark.cuda
+def test_cuda_operator_demo_launches_k1_per_step_and_k5_per_analysis(cuda, monkeypatch):
+    """``run_demo(provider_id="tpu-native")`` on the card (its default
+    device) at ``tiny-test``'s widths with a 2,048-token context (random
+    weights, byte tokenizer) and a tiny encoder: the pod is analysed and
+    stored, K1 launched once per layer per engine step and K5 once, for
+    the one semantic ``analyze()`` (the recall index is still empty)."""
+    import asyncio
+    import dataclasses
+    import functools
+
+    from operator_tpu_torch.models import configs
+    from operator_tpu_torch.models.encoder import ENCODER_TINY_TEST, init_encoder_params
+    from operator_tpu_torch.operator import app
+    from operator_tpu_torch.patterns.semantic import NeuralEmbedder, SemanticMatcher
+    from operator_tpu_torch.serving import provider as provider_module
+    from operator_tpu_torch.utils.config import OperatorConfig
+
+    name = "tiny-test-demo"
+    cfg = dataclasses.replace(configs.TINY_TEST, name=name, max_seq_len=2048)
+    monkeypatch.setitem(configs._REGISTRY, name, cfg)
+    monkeypatch.setattr(app, "OperatorConfig", functools.partial(
+        OperatorConfig, model_id=name, allow_random_weights=True, max_batch_size=4,
+        kv_page_size=16))
+    monkeypatch.delenv("OPERATOR_TPU_MODEL", raising=False)
+    params = init_encoder_params(ENCODER_TINY_TEST, torch.Generator(device="cuda").manual_seed(0),
+                                 device="cuda")
+    monkeypatch.setattr(app.Operator, "_build_semantic", lambda self: SemanticMatcher(
+        NeuralEmbedder(params, ENCODER_TINY_TEST, lambda t: [b % 512 for b in t.encode()],
+                       device=self.device), device=self.device))
+    built = []
+    build = provider_module.build_tpu_native_provider
+    monkeypatch.setattr(provider_module, "build_tpu_native_provider",
+                        lambda *a, **k: built.append(build(*a, **k)) or built[-1])
+    ragged.launches = similarity.launches = 0
+    try:
+        summary = asyncio.run(app.run_demo(provider_id="tpu-native"))
+        [provider] = built
+        steps = provider.engine.scheduler.steps
+        assert ragged.launches == cfg.num_layers * steps and steps > 0
+        assert similarity.launches == 1
+        status = summary["podmortem_status"]["recentFailures"][0]
+        assert status["analysisStatus"] == "Analyzed" and status["explanation"]
+        assert summary["metrics"]["counters"].get("provider_errors") is None
+    finally:
+        for provider in built:
+            provider.engine.close()

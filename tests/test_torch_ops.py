@@ -725,7 +725,7 @@ def best_window_walk_model(windows, patterns, plan):
     pattern's running best, and for the rows layout) that each keep their
     first strictly greater score; the lanes merged, then the shares, by
     "larger score, then smaller index"."""
-    lanes_w = {5: 32, 6: 16}.get(plan.config, 1)
+    lanes_w = {5: 32, 6: 16, 7: 16}.get(plan.config, 1)
     w_count, d = windows.shape
     dots = np.zeros((w_count, patterns.shape[0]), np.float32)
     for k in range(d):  # one fixed order of the sum for every window
@@ -760,6 +760,11 @@ SIM_WALK_CASES = {
     "p5_one_window_share": (40, 5, 32, 64),
     "w1_rows": (1, 33, 128, 132),
     "w8_rows": (8, 13, 64, 132),
+    # any D: off 16-byte vectors (the kernel pads with zeros), and rows
+    # wider than 4 KB (the streaming layout, config 7)
+    "odd_d": (300, 19, 101, 4),
+    "odd_d_rows": (3, 21, 37, 132),
+    "wide_d_stream": (300, 19, 1100, 4),
 }
 
 
@@ -815,6 +820,12 @@ def test_similarity_launch_plan_fills_the_card():
     assert similarity.launch_plan(1, 2048, 384, 4, 132) == similarity.LaunchPlan(0, 1, 1, 256)
     assert similarity.launch_plan(4096, 1024, 384, 4, 132) == similarity.LaunchPlan(5, 512, 8, 16)
     assert similarity.launch_plan(4096, 33, 768, 4, 132).config == 6
+    # rows over 4 KB stream their patterns; rows off 16-byte vectors are
+    # planned at their padded width
+    assert similarity.launch_plan(4096, 19, 1536, 4, 132) == similarity.LaunchPlan(7, 128, 32, 1)
+    assert similarity.launch_plan(4096, 1024, 4096, 2, 132) == similarity.LaunchPlan(7, 1024, 4, 32)
+    assert similarity.launch_plan(1, 19, 4096, 2, 132).config == 0
+    assert similarity.launch_plan(8, 19, 1537, 4, 132).config == 7
     for w, p in ((4096, 19), (1, 2048), (4096, 1024), (300, 64), (513, 200), (9, 3)):
         plan = similarity.launch_plan(w, p, 384, 4, 132)
         assert (plan.shares - 1) * plan.share_w < w <= plan.shares * plan.share_w
