@@ -2,7 +2,7 @@
 """Chip smoke test of the PyTorch/H100 port (``operator_tpu_torch``).
 
     python3 chip_smoke.py [--out results.json]
-        [--phases device,kernels,serve,wave,analysis,checkpoint,operator,parity]
+        [--phases device,kernels,serve,wave,analysis,checkpoint,operator,remote,parity]
 
 Runs on one CUDA card, from the root of a checkout; exits non-zero, and
 prints no result, when no card is present or the package is missing.
@@ -144,7 +144,38 @@ Phases, in order — any failure stops the run:
    span tree (collect, analyze, recall, generate, store) and the host
    time outside the engine; the drive's tokens/s against the checkpoint
    phase's provider drive, and the recall hit's wall;
-8. parity: small f32 ``tiny-test`` engines on the card (kernels) and on
+8. remote: the serving front as a service and the operator's remote
+   path, on the checkpoint phase's two checkpoints (kept for it too): two
+   ``CompletionServer``s, replicas A and B, on an event loop of their own
+   over one engine on the card, with the encoder as the embedder and the
+   ``tpu-native`` provider as the analysis backend.  (a) The ten fixture
+   prompts as chat requests, half greedy, 32 tokens, streamed, then the
+   same ten plain, each drive held until all ten are queued in order, on
+   an empty prefix cache from the same sampler state: each greedy
+   stream's deltas must join to its plain text.  (b) A stream of 256
+   tokens whose socket closes after its first chunk: its row must leave
+   the scheduler within pipeline depth + 2 steps and the pages balance,
+   ``/healthz`` ``inflight`` 0.  (c) Three ``AnalysisRequest``s through
+   ``/api/v1/analysis/analyze``, then through ``TPUNativeProvider``
+   directly, both held: equal greedy ``AIResponse``s.  (d) The port's
+   ``Operator`` with ``providerId: openai-compatible`` naming both
+   replicas: the operator phase's ten pods, each analysis held at the
+   provider until all ten have their affinity owner; the replica owning
+   enough pods is stopped between two held batches of five, so its pods
+   fail there, requeue once and land on the other while its breaker
+   opens; every pod stores its answer, ``GET /fleet`` lists both
+   replicas, and the greedy answers equal a held replay of the captured
+   engine requests from each batch's sampler state.  (e)
+   ``/v1/embeddings`` of eight fixture lines equals ``embedder.embed``
+   bit for bit.  (f) ``/metrics`` parses as Prometheus text and under
+   OpenMetrics, and ``POST /profile?seconds=1`` during a short drive
+   writes a trace naming K1's kernel.  In every drive K1 launches once
+   per layer per step, K5 once per semantic ``analyze()`` and recall
+   ``query()`` on the operator side; time to the first chunk, chunks per
+   stream, the steps from the close to the release, tokens/s, the
+   per-pod stage split and the HTTP overhead per request (the provider's
+   dispatch span less the replica's own request span) are printed;
+9. parity: small f32 ``tiny-test`` engines on the card (kernels) and on
    the CPU (plain versions) must give the same greedy tokens — the
    continuous engine, and the wave engine with the decode selector at
    ``v1`` and ``v2`` and flash prefill on and off; the continuous engine
@@ -167,6 +198,7 @@ the last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import asyncio
 import dataclasses
 import json
 import os
@@ -1045,6 +1077,39 @@ SERVE_ENV = {
 }
 
 
+class HttpLoop:
+    """The port's ``CompletionServer``s (asyncio ``start``/``stop``) on an
+    event loop of their own thread, while the drives talk to them over
+    urllib from this one."""
+
+    def __init__(self, *servers) -> None:
+        self.servers = list(servers)
+        self.loop = asyncio.new_event_loop()
+        self.thread = threading.Thread(target=self.loop.run_forever, name="http", daemon=True)
+        self.thread.start()
+        for server in self.servers:
+            self.run(server.start())
+
+    def run(self, coro, timeout: float = 600.0):
+        return asyncio.run_coroutine_threadsafe(coro, self.loop).result(timeout)
+
+    def stop(self) -> None:
+        """Stop every server still listening, then the loop."""
+        try:
+            for server in self.servers:
+                if server.bound_port is not None:
+                    self.run(server.stop(), timeout=120)
+        finally:
+            self.loop.call_soon_threadsafe(self.loop.stop)
+            self.thread.join(30)
+            self.loop.close()
+
+
+def healthz(port: int) -> dict:
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=60) as resp:
+        return json.loads(resp.read())
+
+
 def _post(url: str, body: dict, timeout: float = 600.0) -> dict:
     request = urllib.request.Request(
         url, data=json.dumps(body).encode(), headers={"Content-Type": "application/json"},
@@ -1181,7 +1246,7 @@ def phase_serve(results: dict, kernel_modules: dict, phases: set) -> dict:
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     server = CompletionServer(engine, model_id=model_id, host="127.0.0.1", port=0)
-    server.start()
+    http = HttpLoop(server)
     url = f"http://127.0.0.1:{server.bound_port}/v1/completions"
     try:
         # one short request first so the timed drive is not a cold start
@@ -1263,12 +1328,14 @@ def phase_serve(results: dict, kernel_modules: dict, phases: set) -> dict:
                            "summary": summary},
             "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
             "held_calls": held, "held_hit_calls": held_hit,
+            # the replica's load report as the router reads it
+            "healthz_load": healthz(server.bound_port)["load"],
         }
         print(json.dumps({"serve": serve}), flush=True)
         results["serve"] = serve
         return launches
     finally:
-        server.stop()
+        http.stop()
         engine.close()
 
 
@@ -1416,7 +1483,7 @@ def phase_serve_pool(results: dict, kernel_modules: dict) -> None:
     kv_transfer.restore_page, kv_transfer.fetch_page = timed_restore, timed_fetch
     engine.warmup()
     server = CompletionServer(engine, model_id=model_id, host="127.0.0.1", port=0)
-    server.start()
+    http = HttpLoop(server)
     url = f"http://127.0.0.1:{server.bound_port}/v1/completions"
     try:
         _post(url, {"prompt": "warm up", "max_tokens": 4, "temperature": 0.0})
@@ -1460,7 +1527,7 @@ def phase_serve_pool(results: dict, kernel_modules: dict) -> None:
             raise fail(f"a commit window's drain waited {waited} ms, a step is {step_ms} ms")
         results["serve_pool"] = record
     finally:
-        server.stop()
+        http.stop()
         engine.close()
         sched._drain_offload, sched._evict_blocks = original_drain, original_evict
         sched._restore_block = original_restore_block
@@ -1505,7 +1572,7 @@ def phase_wave(results: dict, kernel_modules: dict, phases: set, selector: str) 
         torch.cuda.synchronize()
         setup_s = time.perf_counter() - t0
         server = CompletionServer(engine, model_id=model_id, host="127.0.0.1", port=0)
-        server.start()
+        http = HttpLoop(server)
         url = f"http://127.0.0.1:{server.bound_port}/v1/completions"
         try:
             _post(url, {"prompt": "warm up", "max_tokens": 4, "temperature": 0.0})
@@ -1559,8 +1626,9 @@ def phase_wave(results: dict, kernel_modules: dict, phases: set, selector: str) 
             if held_decode["splits_with_keys"] < 3:
                 raise fail(f"the held K2/K3 step's long row had keys in "
                            f"{held_decode['splits_with_keys']} splits, want >= 3")
+            load = healthz(server.bound_port)["load"]
         finally:
-            server.stop()
+            http.stop()
         wave = {
             "model": model_id, "layers": layers, "weights": "int8",
             "slots": g.max_slots, "decode_block": g.decode_block,
@@ -1574,6 +1642,7 @@ def phase_wave(results: dict, kernel_modules: dict, phases: set, selector: str) 
             "launches": launches, "setup_s": setup_s,
             "pages_free": free_pages, "held_calls": held, "held_decode_calls": held_decode,
             "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "healthz_load": load,
         }
         print(json.dumps({"wave": wave}), flush=True)
         results["wave" if selector == "v1" else f"wave_{selector}"] = wave
@@ -1951,9 +2020,19 @@ def gated_drive(provider, requests: list) -> list:
 
     async def drive():
         with gate:
+            # the worker's idle wait for a submission (50 ms) runs out, so
+            # it reads the gated admission before the first one arrives
+            # (else it takes the first requests ungated, and the rest wait
+            # on a gate that waits for them)
+            await asyncio.sleep(0.2)
+            base = engine._submissions.qsize()
             tasks = [asyncio.ensure_future(provider.generate(r)) for r in requests]
-            while (engine._submissions.qsize() < len(requests)
+            by = time.monotonic() + 120
+            while (engine._submissions.qsize() < base + len(requests)
                    and not any(t.done() for t in tasks)):
+                if time.monotonic() > by:
+                    raise fail(f"gated drive: {engine._submissions.qsize() - base} of "
+                               f"{len(requests)} requests queued in 120 s")
                 await asyncio.sleep(0)
         return await asyncio.gather(*tasks)
 
@@ -2362,9 +2441,9 @@ def phase_operator(results: dict, kernel_modules: dict, dirs: dict) -> dict:
     submitted: dict = {}
     submit = engine.submit
 
-    def recorded(prompt, params=None, *, priority=0):
+    def recorded(prompt, params=None, **kw):
         submitted[prompt] = (params.deadline if params else None, engine.generator._clock())
-        return submit(prompt, params, priority=priority)
+        return submit(prompt, params, **kw)
 
     def counts() -> dict:
         """The counts since the last call; then every count is 0."""
@@ -2621,12 +2700,12 @@ def phase_operator(results: dict, kernel_modules: dict, dirs: dict) -> dict:
     direct_submit = direct.engine.submit
     moved: dict = {}
 
-    def replayed(prompt, params=None, *, priority=0):
+    def replayed(prompt, params=None, **kw):
         deadline, at = submitted[prompt]
         shift = moved.setdefault("s", direct.engine.generator._clock() - at)
         if deadline is not None:
             params = dataclasses.replace(params, deadline=deadline + shift)
-        return direct_submit(prompt, params, priority=priority)
+        return direct_submit(prompt, params, **kw)
 
     try:
         direct.engine.warmup()
@@ -2662,7 +2741,699 @@ def phase_operator(results: dict, kernel_modules: dict, dirs: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 8: card vs CPU on a small engine
+# phase 8: the serving front as a service, and the operator's remote path
+# ---------------------------------------------------------------------------
+
+#: the remote phase's two replicas, each a CompletionServer over one engine
+REMOTE_REPLICAS = ("replica-a", "replica-b")
+#: pods per batch of the remote operator drive (the ten are two batches)
+REMOTE_BATCH = 5
+#: the cancelled stream's budget: far past the steps its release may take
+CANCEL_MAX_TOKENS = 256
+
+
+def held_sends(engine, sends: list, timeout_s: float = 120.0) -> tuple:
+    """Run every ``send()`` on its own thread, each queued at the engine in
+    list order, the engine's admission held until all are queued — so two
+    drives of the same requests take the same steps.  Returns (results in
+    list order, the sampler's state the first step will find)."""
+    gate = threading.Lock()
+    admit = engine._admit_submissions
+    results: list = [None] * len(sends)
+    errors: list = []
+
+    def gated(block: bool) -> None:
+        with gate:
+            admit(block)
+
+    def call(i: int) -> None:
+        try:
+            results[i] = sends[i]()
+        except BaseException as exc:  # noqa: BLE001 - reported below
+            errors.append(f"send {i}: {exc!r}")
+
+    engine._admit_submissions = gated
+    threads = []
+    try:
+        with gate:
+            # the worker's idle wait for a submission (50 ms) runs out, so
+            # it reads the gated admission before the first one arrives
+            time.sleep(0.2)
+            base = engine._submissions.qsize()
+            for i in range(len(sends)):
+                thread = threading.Thread(target=call, args=(i,), daemon=True)
+                thread.start()
+                threads.append(thread)
+                by = time.monotonic() + timeout_s
+                while engine._submissions.qsize() < base + i + 1 and not errors:
+                    if time.monotonic() > by:
+                        raise fail(f"held drive: request {i} not queued in {timeout_s} s")
+                    time.sleep(0.0005)
+            rng = engine.generator._rng.get_state()
+        for thread in threads:
+            thread.join(900)
+    finally:
+        engine._admit_submissions = admit
+    if errors or any(t.is_alive() for t in threads):
+        raise fail(f"held drive: {errors or 'a request did not finish'}")
+    return results, rng
+
+
+def sse_request(port: int, path: str, body: dict, *, close_after_first: bool = False,
+                timeout: float = 600.0) -> dict:
+    """POST ``body`` with ``stream: true``; read the Server-Sent Events:
+    the chunks' texts, time to the first chunk and the wall.  With
+    ``close_after_first`` the socket is closed after the first chunk."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    started = time.perf_counter()
+    try:
+        conn.request("POST", path, json.dumps({**body, "stream": True}),
+                     {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        if resp.status != 200 or "text/event-stream" not in (resp.getheader("Content-Type") or ""):
+            raise fail(f"stream {path}: status {resp.status}: {resp.read()[:300]!r}")
+        out = {"texts": [], "finish": None, "first_chunk_s": None}
+        while True:
+            line = resp.readline()
+            if not line:
+                break
+            line = line.strip()
+            if not line.startswith(b"data: "):
+                continue
+            data = line[len(b"data: "):]
+            if data == b"[DONE]":
+                break
+            event = json.loads(data)
+            if "error" in event:
+                raise fail(f"stream {path}: in-stream error {event}")
+            choice = event["choices"][0]
+            delta = choice.get("delta", {}).get("content") if "delta" in choice else choice.get("text")
+            if out["first_chunk_s"] is None:
+                out["first_chunk_s"] = time.perf_counter() - started
+            if choice.get("finish_reason"):
+                out["finish"] = choice["finish_reason"]
+            if delta:
+                out["texts"].append(delta)
+            if close_after_first:
+                break
+        out["wall_s"] = time.perf_counter() - started
+        return out
+    finally:
+        conn.close()
+
+
+def parse_prometheus(text: str, openmetrics: bool) -> int:
+    """Every sample line is ``name{labels} value [timestamp]`` (an
+    OpenMetrics exemplar after `` # `` stripped); OpenMetrics ends with
+    ``# EOF``.  Returns the number of samples."""
+    samples = 0
+    lines = text.rstrip("\n").splitlines()
+    if openmetrics and lines[-1] != "# EOF":
+        raise fail("the OpenMetrics exposition does not end with # EOF")
+    for line in lines:
+        if not line or line.startswith("#"):
+            continue
+        if openmetrics:
+            line = line.split(" # ", 1)[0]
+        match = re.fullmatch(r"([a-zA-Z_:][a-zA-Z0-9_:]*)(\{.*\})? (\S+)( \S+)?", line)
+        if match is None:
+            raise fail(f"not a Prometheus sample line: {line!r}")
+        float(match.group(3))
+        samples += 1
+    return samples
+
+
+def http_get(port: int, path: str, headers: "dict | None" = None) -> tuple:
+    request = urllib.request.Request(f"http://127.0.0.1:{port}{path}", headers=headers or {})
+    with urllib.request.urlopen(request, timeout=60) as resp:
+        return resp.status, resp.headers.get("Content-Type"), resp.read()
+
+
+def remote_resources(model_name: str, api_url: str) -> list:
+    """The operator phase's two AIProviders and Podmortems, with
+    ``providerId: openai-compatible`` naming both replicas."""
+    out = []
+    for kind, obj in operator_resources(model_name):
+        if kind == "AIProvider":
+            obj = {**obj, "spec": {**obj["spec"], "providerId": "openai-compatible",
+                                   "apiUrl": api_url, "maxRetries": 3,
+                                   "timeoutSeconds": 300}}
+        out.append((kind, obj))
+    return out
+
+
+def phase_remote(results: dict, kernel_modules: dict, dirs: dict) -> dict:
+    """The serving front as a service and the operator's remote path, on
+    the checkpoint phase's two checkpoints.  Two ``CompletionServer``s
+    (replicas A and B) over one engine on the card: (a) ten streamed and
+    ten plain chat completions, held; (b) a stream closed after its first
+    chunk; (c) three ``AnalysisRequest``s through the analyze route
+    against the provider; (d) the port's ``Operator`` with ``providerId:
+    openai-compatible`` over both replicas, B stopped between two batches
+    of five pods; (e) ``/v1/embeddings``; (f) ``/metrics`` and a
+    ``/profile`` capture.  Returns the launch counts over the drives."""
+    import asyncio
+
+    import numpy as np
+
+    from operator_tpu_torch.obs import FlightRecorder, Tracer
+    from operator_tpu_torch.operator import FakeKubeApi, Operator
+    from operator_tpu_torch.operator.providers import replica_set
+    from operator_tpu_torch.patterns.semantic import NeuralEmbedder, build_embedder
+    from operator_tpu_torch.router import EngineRouter
+    from operator_tpu_torch.serving.httpserver import CompletionServer
+    from operator_tpu_torch.serving.prompts import build_prompt
+    from operator_tpu_torch.serving.provider import TPUNativeProvider, build_serving_engine
+    from operator_tpu_torch.utils.config import OperatorConfig
+    from operator_tpu_torch.utils.timing import MetricsRegistry
+
+    out: dict = {"card": card_line()}
+    env = {**CHECKPOINT_ENV, "CHECKPOINT_DIR": dirs["llm"]}
+    engine, model_id = build_serving_engine("cuda", env)
+    sched, g, layers = engine.scheduler, engine.generator, engine.generator.config.num_layers
+    embedder = build_embedder(dirs["encoder"], fallback=False, device="cuda")
+    if not isinstance(embedder, NeuralEmbedder):
+        raise fail("remote: the encoder checkpoint did not load as a NeuralEmbedder")
+    provider = TPUNativeProvider(engine, model_id=model_id)
+    server_recorder = FlightRecorder(capacity=256)
+    profile_dir = os.path.join(dirs["workdir"], "profile")
+    servers = [CompletionServer(
+        engine, model_id=model_id, host="127.0.0.1", port=0, embedder=embedder,
+        analysis_backend=provider, tracer=Tracer(recorder=server_recorder),
+        replica_id=rid, profile_enabled=True, profile_dir=profile_dir,
+    ) for rid in REMOTE_REPLICAS]
+    engine.warmup()
+    http = HttpLoop(*servers)
+    ports = [s.bound_port for s in servers]
+    #: the launches of the drives' checked windows (not the comparisons')
+    launches_total = {name: 0 for name in kernel_modules}
+
+    def counts(path: bool = False) -> dict:
+        """The counts since the last call, added to the path's total when
+        ``path``; then every count is 0."""
+        launches = {name: m.launches for name, m in kernel_modules.items()}
+        for module in kernel_modules.values():
+            module.launches = 0
+        for name, n in launches.items():
+            launches_total[name] += n if path else 0
+        return launches
+
+    def k1_per_step(where: str, steps0: int, k5: "int | None" = 0) -> dict:
+        """The counts since ``steps0``: K1 once per layer per step, K5 as
+        given (``None``: the caller counts it), the wave kernels never."""
+        steps, launches = sched.steps - steps0, counts(path=True)
+        want = {"ragged_paged_attention": layers * steps,
+                "best_window_similarity": launches["best_window_similarity"] if k5 is None else k5,
+                "paged_decode_attention": 0, "flash_prefill_attention": 0}
+        if launches != want or steps == 0:
+            raise fail(f"remote {where}: launches {launches} over {steps} steps; want {want}")
+        return {"steps": steps, "launches": launches}
+
+    try:
+        requests = provider_requests()
+        prompts = [build_prompt(r) for r in requests]
+        # (a) ten chat completions streamed, then the same ten plain: both
+        # held, each on an empty prefix cache from the same sampler state
+        chat = [{"messages": [{"role": "user", "content": p}], "max_tokens": MAX_TOKENS,
+                 "temperature": r.provider_config.temperature, "top_p": 0.95}
+                for p, r in zip(prompts, requests)]
+        wait_idle(sched)
+        sched.spill_cache()
+        rng0 = g._rng.get_state()
+        counts()
+        steps0 = sched.steps
+        started = time.perf_counter()
+        streamed, _ = held_sends(engine, [
+            lambda b=b, i=i: sse_request(ports[i % 2], "/v1/chat/completions", b)
+            for i, b in enumerate(chat)])
+        stream_wall = time.perf_counter() - started
+        stream_launches = k1_per_step("streamed drive", steps0)
+        wait_idle(sched)
+        sched.spill_cache()
+        g._rng.set_state(rng0)
+        steps0 = sched.steps
+        started = time.perf_counter()
+        plain, _ = held_sends(engine, [
+            lambda b=b, i=i: _post(f"http://127.0.0.1:{ports[i % 2]}/v1/chat/completions", b)
+            for i, b in enumerate(chat)])
+        plain_wall = time.perf_counter() - started
+        plain_launches = k1_per_step("plain drive", steps0)
+        greedy = [i for i, b in enumerate(chat) if b["temperature"] == 0.0]
+        unequal = [(i, "".join(streamed[i]["texts"]), plain[i]["choices"][0]["message"]["content"])
+                   for i in greedy
+                   if "".join(streamed[i]["texts"]) != plain[i]["choices"][0]["message"]["content"]]
+        if unequal or not greedy:
+            raise fail(f"remote: streamed greedy text differs from the plain text: {unequal}")
+        completion = sum(p["usage"]["completion_tokens"] for p in plain)
+        out["streaming"] = {
+            "requests": len(chat), "greedy_equal": len(greedy),
+            "sampled_equal": all("".join(streamed[i]["texts"])
+                                 == plain[i]["choices"][0]["message"]["content"]
+                                 for i in range(len(chat))),
+            "first_chunk_s": [s["first_chunk_s"] for s in streamed],
+            "chunks": [len(s["texts"]) for s in streamed],
+            "completion_tokens": [p["usage"]["completion_tokens"] for p in plain],
+            "stream_wall_s": stream_wall, "plain_wall_s": plain_wall,
+            "stream_tokens_per_s": completion / stream_wall,
+            "plain_tokens_per_s": completion / plain_wall,
+            "stream_steps": stream_launches["steps"], "plain_steps": plain_launches["steps"],
+        }
+        print(json.dumps({"remote_streaming": out["streaming"], "card": out["card"]}), flush=True)
+
+        # (b) a long stream closed after its first chunk: its row and pages
+        # return within pipeline depth + 2 steps of the close
+        wait_idle(sched)
+        steps0 = sched.steps
+        first = sse_request(ports[0], "/v1/chat/completions",
+                            {**chat[0], "max_tokens": CANCEL_MAX_TOKENS}, close_after_first=True)
+        closed_at = sched.steps
+        by = time.monotonic() + 60
+        while sched.total_work and time.monotonic() < by:
+            time.sleep(0.0005)
+        released_at = sched.steps
+        cancel_launches = k1_per_step("cancelled stream", steps0)
+        accounting = balanced(sched, "after the cancelled stream")
+        load = healthz(ports[0])["load"]
+        if (sched.total_work or accounting["row_pages"] or load["inflight"] != 0
+                or released_at - closed_at > sched.depth + 2):
+            raise fail(f"remote: the closed stream was not released: work {sched.total_work}, "
+                       f"steps close -> release {released_at - closed_at}, {accounting}, "
+                       f"inflight {load['inflight']}")
+        out["cancel"] = {"first_chunk_s": first["first_chunk_s"],
+                         "steps_close_to_release": released_at - closed_at,
+                         "steps_in_all": cancel_launches["steps"],
+                         "page_accounting": accounting}
+        print(json.dumps({"remote_cancel": out["cancel"], "card": out["card"]}), flush=True)
+
+        # (c) the reference contract: three AnalysisRequests through the
+        # analyze route, then the provider directly, both held
+        three = requests[:3]
+        wait_idle(sched)
+        sched.spill_cache()
+        rng0 = g._rng.get_state()
+        steps0 = sched.steps
+        routed, _ = held_sends(engine, [
+            lambda r=r: _post(f"http://127.0.0.1:{ports[1]}/api/v1/analysis/analyze",
+                              r.to_dict()) for r in three])
+        analyze_launches = k1_per_step("analyze route", steps0)
+        wait_idle(sched)
+        sched.spill_cache()
+        g._rng.set_state(rng0)
+        direct, _ = held_sends(engine, [
+            lambda r=r: asyncio.run(provider.generate(r)).to_dict() for r in three])
+        counts()
+        greedy = [i for i, r in enumerate(three) if r.provider_config.temperature == 0.0]
+        unequal = [(i, routed[i], direct[i]) for i in greedy if routed[i] != direct[i]]
+        if unequal or not greedy or any(r.get("error") for r in routed):
+            raise fail(f"remote: the analyze route differs from the provider: {unequal or routed}")
+        out["analyze"] = {"requests": len(three), "greedy_equal": len(greedy),
+                          "steps": analyze_launches["steps"],
+                          "completion_tokens": [r["completionTokens"] for r in routed]}
+        print(json.dumps({"remote_analyze": out["analyze"], "card": out["card"]}), flush=True)
+
+        out["operator"] = remote_operator(
+            dirs, engine, model_id, servers, http, ports, counts, k1_per_step, out["card"])
+        # the replica still listening serves (e) and (f)
+        [live] = [s.bound_port for s in servers if s.bound_port is not None]
+
+        # (e) /v1/embeddings: the encoder on the card, bit for bit
+        lines = fixture_lines(sorted(n for n in os.listdir(FIXTURES) if n.endswith(".log"))[0])[:8]
+        counts()
+        embedded = _post(f"http://127.0.0.1:{live}/v1/embeddings", {"input": lines})
+        got = np.asarray([d["embedding"] for d in embedded["data"]], np.float32)
+        want = embedder.embed(lines)
+        launches = counts()
+        if got.shape != want.shape or not np.array_equal(got, want) or any(launches.values()):
+            raise fail(f"remote: /v1/embeddings differs from embedder.embed "
+                       f"(max {float(np.abs(got - want).max()) if got.shape == want.shape else got.shape}), "
+                       f"launches {launches}")
+        out["embeddings"] = {"lines": len(lines), "dim": int(want.shape[1]), "bit_equal": True}
+
+        # (f) /metrics as Prometheus text and under OpenMetrics, and a
+        # one-second /profile capture during a short drive that names K1
+        _, ctype, text = http_get(live, "/metrics")
+        _, om_ctype, om_text = http_get(live, "/metrics", {
+            "Accept": "application/openmetrics-text; version=1.0.0"})
+        if "text/plain" not in ctype or "openmetrics-text" not in om_ctype:
+            raise fail(f"remote: /metrics content types {ctype!r}, {om_ctype!r}")
+        samples = (parse_prometheus(text.decode(), False),
+                   parse_prometheus(om_text.decode(), True))
+        wait_idle(sched)
+        steps0 = sched.steps
+        captured: dict = {}
+        capture = threading.Thread(target=lambda: captured.update(
+            _post(f"http://127.0.0.1:{live}/profile?seconds=1", {})), daemon=True)
+        capture.start()
+        time.sleep(0.2)
+        short = [threading.Thread(target=_post, args=(
+            f"http://127.0.0.1:{live}/v1/completions",
+            {"prompt": LOG_LINE[:200 + 50 * i], "max_tokens": 16, "temperature": 0.0}))
+            for i in range(4)]
+        for thread in short:
+            thread.start()
+        for thread in short + [capture]:
+            thread.join(300)
+        wait_idle(sched)
+        profile_launches = k1_per_step("profiled drive", steps0)
+        trace = os.path.join(captured.get("artifact", ""), "trace.json")
+        if not os.path.exists(trace):
+            raise fail(f"remote: /profile wrote no trace: {captured}")
+        with open(trace, encoding="utf-8") as fh:
+            names = {e.get("name", "") for e in json.load(fh).get("traceEvents", [])}
+        k1_names = sorted(n for n in names if "ragged_attention" in n)
+        if not k1_names:
+            raise fail("remote: the /profile trace names no K1 kernel")
+        out["metrics"] = {"samples": samples[0], "openmetrics_samples": samples[1]}
+        out["profile"] = {"seconds": captured["seconds"], "k1_kernels": k1_names,
+                          "steps": profile_launches["steps"]}
+    finally:
+        http.stop()
+        engine.close()
+    out["launches"] = launches_total
+    print(json.dumps({"remote": {k: out[k] for k in (
+        "embeddings", "metrics", "profile", "launches")}, "card": out["card"]}), flush=True)
+    results["remote"] = out
+    return launches_total
+
+
+def remote_operator(dirs: dict, engine, model_id: str, servers: list, http, ports: list,
+                    counts, k1_per_step, card: str) -> dict:
+    """(d) of the remote phase: the port's ``Operator`` over ``FakeKubeApi``
+    with ``providerId: openai-compatible`` naming both replicas and the
+    encoder checkpoint as ``ENCODER_CHECKPOINT_DIR``.  The operator
+    phase's ten pods are poked at once; each analysis is held at the
+    provider until all ten have their fingerprints, so the drive knows
+    every pod's affinity owner.  The replica that owns enough pods is
+    stopped between two batches of five: the first batch holds pods of
+    both owners, the second at least ``router_replica_failure_threshold``
+    of the stopped replica's, which fail there, requeue once and land on
+    the other replica while its breaker opens.  Each batch's engine
+    admission is held until its five requests are queued; the drive's
+    greedy explanations must equal a held replay of the captured engine
+    requests on the same engine, from each batch's sampler state."""
+    import asyncio
+
+    from operator_tpu_torch.operator import FakeKubeApi, Operator
+    from operator_tpu_torch.operator.providers import replica_set
+    from operator_tpu_torch.router import EngineRouter
+    from operator_tpu_torch.serving.prompts import build_prompt
+    from operator_tpu_torch.utils.config import OperatorConfig
+    from operator_tpu_torch.utils.timing import MetricsRegistry
+
+    sched, g = engine.scheduler, engine.generator
+    api_url = ",".join(f"http://127.0.0.1:{p}" for p in ports)
+    env = {"ENCODER_CHECKPOINT_DIR": dirs["encoder"],
+           "PATTERN_CACHE_DIRECTORY": os.path.join(dirs["workdir"], "no-pattern-cache"),
+           "HEALTH_PORT": "0", "HEALTH_HOST": "127.0.0.1", "INCIDENTS_API_TOKEN": "remote",
+           # the drive polls /healthz itself, after the failover
+           "ROUTER_HEALTH_POLL_S": "0"}
+    config = OperatorConfig.from_env(env)
+    names = sorted(n for n in os.listdir(FIXTURES) if n.endswith(".log"))[:OPERATOR_PODS]
+    pods = [(f"payment-{i}", ("greedy", "sampled")[i % 2], "\n".join(fixture_lines(name)))
+            for i, name in enumerate(names)]
+    operator = Operator(FakeKubeApi(), config=config, metrics=MetricsRegistry())
+    api, semantic, index = operator.api, operator.engine.semantic, operator.memory.index
+    backend = operator._http_backend
+    k5_calls = {"analyze": 0, "query": 0}
+    match, query, generate = semantic.match, index.query, backend.generate
+
+    def counted_match(lines):
+        k5_calls["analyze"] += bool(lines) and semantic.num_patterns > 0
+        return match(lines)
+
+    def counted_query(text, k=3):
+        k5_calls["query"] += len(index) > 0 and bool(text.strip())
+        return query(text, k)
+
+    # each pod's analysis waits at the provider until its batch is let go
+    owners: dict = {}
+    release: dict = {}
+    held_ns: dict = {}
+    responses: dict = {}
+
+    async def held_generate(request):
+        pod = request.failure_data.pod.metadata.name
+        router = backend.router_for(replica_set(request.provider_config.api_url))
+        key = EngineRouter.affinity_key(prefix=build_prompt(request),
+                                        fingerprint=request.fingerprint)
+        owners[pod] = router.route(key).affinity_owner
+        release.setdefault(pod, asyncio.Event())
+        arrived = time.monotonic_ns()
+        await release[pod].wait()
+        held_ns[pod] = time.monotonic_ns() - arrived
+        responses[pod] = await generate(request)
+        return responses[pod]
+
+    # the engine side: every submission, in queue order, per batch
+    captured: list = []
+    submit = engine.submit
+
+    def recorded(prompt, params=None, **kw):
+        future = submit(prompt, params, **kw)
+        captured.append((prompt, params, kw, future))
+        return future
+
+    async def wait_for(predicate, what: str, timeout_s: float = 300.0) -> None:
+        by = time.monotonic() + timeout_s
+        while not predicate():
+            if time.monotonic() > by:
+                raise fail(f"remote operator: {what} not within {timeout_s} s")
+            await asyncio.sleep(0.002)
+
+    async def stored(names_: list) -> dict:
+        return {f["podName"]: f for cr in await api.list("Podmortem", "ops")
+                for f in (cr.get("status") or {}).get("recentFailures") or []
+                if f["podName"] in names_}
+
+    async def drive() -> dict:
+        for kind, obj in remote_resources(model_id, api_url):
+            await asyncio.wait_for(api.create(kind, obj), timeout=config.kube_call_timeout_s)
+        await operator.start()
+        await asyncio.sleep(0.05)
+        poked: dict = {}
+        counts()
+        started = time.monotonic_ns()
+        for i, (name, variant, log) in enumerate(pods):
+            api.set_pod_log("prod", name, log, previous=True)
+            await asyncio.wait_for(api.create("Pod", operator_pod(
+                name, variant, f"2026-07-28T09:{i:02d}:00Z")), timeout=config.kube_call_timeout_s)
+            poked[name] = time.monotonic_ns()
+            await asyncio.wait_for(
+                api.patch("Pod", name, "prod", {"metadata": {"labels": {"poked": "1"}}}),
+                timeout=config.kube_call_timeout_s)
+        await wait_for(lambda: len(owners) == len(pods), "ten analyses at the provider")
+        # the analyses' K5 launches; K1 none, every answer is held
+        analyses = counts(path=True)
+        by_owner: dict = {}
+        for name, _, _ in pods:
+            by_owner.setdefault(owners[name], []).append(name)
+        threshold = config.router_replica_failure_threshold
+        # the replica to stop: one owning at least threshold + 1 pods while
+        # the other owns one (B, if that will do)
+        urls = [f"http://127.0.0.1:{p}" for p in ports]
+        order = [urls[1], urls[0]]
+        stop_url = next((u for u in order if len(by_owner.get(u, [])) >= threshold + 1
+                         and len(pods) - len(by_owner.get(u, [])) >= 1), None)
+        if stop_url is None:
+            raise fail(f"remote operator: every pod is owned by one replica: {owners}")
+        keep_url = urls[1 - urls.index(stop_url)]
+        doomed = by_owner[stop_url]
+        second = doomed[:min(len(doomed) - 1, REMOTE_BATCH)]
+        second += [n for n, _, _ in pods if n not in second][:REMOTE_BATCH - len(second)]
+        first = [n for n, _, _ in pods if n not in second]
+        batches = []
+        for batch_no, batch in enumerate((first, second)):
+            if batch_no == 1:
+                # the replica goes away between the batches
+                stopped = servers[urls.index(stop_url)]
+                await asyncio.wrap_future(asyncio.run_coroutine_threadsafe(
+                    stopped.stop(), http.loop))
+            wait_idle(sched)
+            sched.spill_cache()
+            counts()
+            steps0 = sched.steps
+            gate = threading.Lock()
+            admit = engine._admit_submissions
+
+            def gated(block: bool, admit=admit, gate=gate) -> None:
+                with gate:
+                    admit(block)
+
+            engine._admit_submissions = gated
+            gate.acquire()
+            try:
+                await asyncio.sleep(0.2)
+                before = len(captured)
+                released = time.monotonic_ns()
+                for name in batch:
+                    release.setdefault(name, asyncio.Event()).set()
+                await wait_for(lambda: engine._submissions.qsize() >= len(batch),
+                               f"batch {batch_no + 1}'s requests queued")
+                rng = g._rng.get_state()
+            finally:
+                gate.release()
+                engine._admit_submissions = admit
+            await wait_for(lambda: all(n in responses for n in batch),
+                           f"batch {batch_no + 1}'s answers")
+            wait_idle(sched)
+            done = time.monotonic_ns()
+            batches.append({"pods": batch, "captured": (before, before + len(batch)),
+                            "rng": rng, "released_ns": released, "done_ns": done,
+                            **k1_per_step(f"operator batch {batch_no + 1}", steps0,
+                                          k5=None)})
+        await operator.watcher.drain()
+        wall_s = (time.monotonic_ns() - started) / 1e9
+        polled = await backend.poll_replica_health(timeout_s=30.0)
+        url = f"http://127.0.0.1:{operator.health_server.bound_port}"
+
+        def fleet_get():
+            request = urllib.request.Request(url + "/fleet",
+                                             headers={"Authorization": "Bearer remote"})
+            with urllib.request.urlopen(request, timeout=30) as resp:
+                return json.loads(resp.read())
+
+        fleet = await asyncio.to_thread(fleet_get)
+        failures = await stored([n for n, _, _ in pods])
+        events = await api.list("Event")
+        await operator.stop()
+        return {"poked": poked, "wall_s": wall_s, "batches": batches, "stop_url": stop_url,
+                "analyses": analyses,
+                "keep_url": keep_url, "polled": polled, "fleet": fleet,
+                "failures": failures, "events": events}
+
+    semantic.match, index.query, backend.generate = counted_match, counted_query, held_generate
+    engine.submit = recorded
+    try:
+        run = asyncio.run(drive())
+    finally:
+        semantic.match, index.query, backend.generate = match, query, generate
+        engine.submit = submit
+    stop_url, keep_url = run["stop_url"], run["keep_url"]
+    names_all = [n for n, _, _ in pods]
+    failures = run["failures"]
+    pod_events: dict = {}
+    for e in run["events"]:
+        regarding = e.get("regarding") or {}
+        if regarding.get("kind") == "Pod":
+            pod_events.setdefault(regarding.get("name"), set()).add(e.get("reason"))
+    bad = [(n, failures.get(n), responses.get(n) and responses[n].to_dict())
+           for n in names_all
+           if n not in failures or not responses.get(n) or responses[n].error
+           or not responses[n].completion_tokens
+           or failures[n]["analysisStatus"] != (
+               "Analyzed" if responses[n].explanation else "PatternOnly")
+           or (responses[n].explanation and failures[n].get("explanation")
+               != responses[n].explanation)
+           or pod_events.get(n) != {"PodFailureDetected", "PodmortemAnalysisComplete"}]
+    if bad:
+        raise fail(f"remote operator: pods without a stored answer: {bad}")
+    first, second = run["batches"][0]["pods"], run["batches"][1]["pods"]
+    served = {n: responses[n].replica_id for n in names_all}
+    requeues = {n: responses[n].requeues for n in names_all}
+    first_replicas = {served[n] for n in first}
+    failed_over = [n for n in second if owners[n] == stop_url and requeues[n] >= 1]
+    stopped_health = run["fleet"]["replicas"].get(stop_url, {})
+    backend_router = backend.router_for(replica_set(",".join(
+        f"http://127.0.0.1:{p}" for p in ports)))
+    breaker = backend_router.health.breakers.for_key(stop_url).state
+    stop_errors = backend_router.health.for_replica(stop_url).total_errors
+    threshold = config.router_replica_failure_threshold
+    if (len(first_replicas) != 2 or any(served[n] != owners[n] for n in first)
+            or any(served[n] != keep_url for n in second) or not failed_over
+            or breaker != "open" or stop_errors < threshold
+            or sorted(run["fleet"]["replicas"]) != sorted([stop_url, keep_url])
+            or stopped_health.get("ready") is not False):
+        raise fail(f"remote operator: first batch on {first_replicas}, served {served}, "
+                   f"owners {owners}, requeues {requeues}, stopped {stop_url} breaker "
+                   f"{breaker} after {stop_errors} errors, fleet {run['fleet']}")
+    # K1 per step was held per batch; K5 is the operator's: one per
+    # semantic analyze() and one per recall query over a non-empty index
+    every = [run["analyses"], *(b["launches"] for b in run["batches"])]
+    k5 = sum(c["best_window_similarity"] for c in every)
+    if (k5 != k5_calls["analyze"] + k5_calls["query"] or k5_calls["analyze"] != len(pods)
+            or any(c["paged_decode_attention"] or c["flash_prefill_attention"] for c in every)
+            or run["analyses"]["ragged_paged_attention"]):
+        raise fail(f"remote operator: launches {every} for {k5_calls}")
+
+    # the greedy explanations against a held replay of the captured engine
+    # requests, batch by batch, on the same engine from the same state
+    replay: list = []
+    for batch in run["batches"]:
+        lo, hi = batch["captured"]
+        wait_idle(sched)
+        sched.spill_cache()
+        g._rng.set_state(batch["rng"])
+        results_, _ = held_sends(engine, [
+            lambda c=c: submit(c[0], c[1], **c[2]).result(timeout=600)
+            for c in captured[lo:hi]])
+        replay.extend(results_)
+    counts()
+    drive_results = [c[3].result() for c in captured]
+    greedy = [i for i, c in enumerate(captured) if c[1].temperature == 0.0]
+    unequal = [(i, drive_results[i].text, replay[i].text) for i in greedy
+               if drive_results[i].token_ids != replay[i].token_ids]
+    if len(captured) != len(pods) or unequal or not greedy:
+        raise fail(f"remote operator: {len(captured)} engine requests; greedy ones differ "
+                   f"from the replay: {unequal}")
+
+    # per pod: the stage split, the provider's gate wait taken out of the
+    # explain stage, and the HTTP overhead: the successful dispatch span
+    # less the serving replica's own request span for the same trace
+    server_spans = {}
+    for server in servers:
+        for record in server.tracer.recorder.traces():
+            root = next(sp for sp in record.trace["spans"] if sp["name"].startswith("http "))
+            server_spans[record.trace_id] = (root["endNs"] - root["startNs"]) / 1e6
+    per_pod: dict = {}
+    traces = {r.trace_id: r.trace["spans"] for r in operator.recorder.traces()}
+    for record in operator.pipeline.slo_ledger.records:
+        spans = traces[record.trace_id]
+        root = next(sp for sp in spans if "parentId" not in sp)
+        name = root["attributes"]["pod"].split("/")[-1]
+        dispatch = [sp for sp in spans if sp["name"] == "router.dispatch"]
+        ok = [sp for sp in dispatch if sp["status"] == "ok"][-1]
+        stages = record.stages
+        store = next(sp for sp in spans if sp["name"] == "store"
+                     and sp.get("parentId") == root["spanId"])
+        per_pod[name] = {
+            "poke_to_stored_ms": (store["endNs"] - run["poked"][name]) / 1e6,
+            "held_at_provider_ms": held_ns[name] / 1e6,
+            "stages_ms": {"collect": stages.get("collect"), "analyze": stages.get("parse"),
+                          "recall": stages.get("recall"),
+                          "generate_less_hold": stages.get("explain", 0.0) - held_ns[name] / 1e6,
+                          "store": stages.get("store")},
+            "dispatch_attempts": len(dispatch),
+            "http_overhead_ms": ((ok["endNs"] - ok["startNs"]) / 1e6
+                                 - server_spans[record.trace_id]),
+        }
+    completion = sum(responses[n].completion_tokens for n in names_all)
+    active_s = sum((b["done_ns"] - b["released_ns"]) / 1e9 for b in run["batches"])
+    out = {
+        "pods": len(pods), "owners": owners, "stopped": stop_url, "served": served,
+        "requeues": requeues, "failed_over": failed_over, "breaker": breaker,
+        "stopped_replica_errors": stop_errors, "fleet_replicas": sorted(run["fleet"]["replicas"]),
+        "batches": [{"pods": b["pods"], "steps": b["steps"], "launches": b["launches"],
+                     "wall_s": (b["done_ns"] - b["released_ns"]) / 1e9}
+                    for b in run["batches"]],
+        "k5_calls": k5_calls, "completion_tokens": completion,
+        "first_poke_to_drain_s": run["wall_s"],
+        "tokens_per_s": completion / run["wall_s"],
+        "tokens_per_s_released": completion / active_s,
+        "greedy_equal_replay": len(greedy),
+        "sampled_equal_replay": all(drive_results[i].token_ids == replay[i].token_ids
+                                    for i in range(len(captured))),
+        "http_overhead_ms": sorted(p["http_overhead_ms"] for p in per_pod.values()),
+        "launches": {"analyses": run["analyses"]},
+    }
+    print(json.dumps({"remote_operator": out, "card": card}), flush=True)
+    print(json.dumps({"remote_operator_per_pod": per_pod, "card": card}), flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 9: card vs CPU on a small engine
 # ---------------------------------------------------------------------------
 
 
@@ -2856,7 +3627,8 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="also write every result to this JSON file")
     parser.add_argument("--phases",
-                        default="device,kernels,serve,wave,analysis,checkpoint,operator,parity")
+                        default="device,kernels,serve,wave,analysis,checkpoint,operator,remote,"
+                                "parity")
     args = parser.parse_args()
     phases = set(args.phases.split(","))
 
@@ -2911,14 +3683,19 @@ def main() -> int:
         for selector in (("v1", "v2") if "wave" in phases else ())
     }
     analysis = phase_analysis(results, kernel_modules, phases) if "analysis" in phases else {}
-    if "operator" in phases and "checkpoint" not in phases:
-        raise fail("the operator phase serves the checkpoint phase's checkpoints: add checkpoint")
-    checkpoint, dirs = (phase_checkpoint(results, kernel_modules, keep="operator" in phases)
+    served = phases & {"operator", "remote"}
+    if served and "checkpoint" not in phases:
+        raise fail(f"the {', '.join(sorted(served))} phase serves the checkpoint phase's "
+                   f"checkpoints: add checkpoint")
+    checkpoint, dirs = (phase_checkpoint(results, kernel_modules, keep=bool(served))
                         if "checkpoint" in phases else ({}, None))
-    operator = {}
-    if "operator" in phases:
+    operator, remote = {}, {}
+    if served:
         try:
-            operator = phase_operator(results, kernel_modules, dirs)
+            if "operator" in phases:
+                operator = phase_operator(results, kernel_modules, dirs)
+            if "remote" in phases:
+                remote = phase_remote(results, kernel_modules, dirs)
         finally:
             shutil.rmtree(dirs["workdir"], ignore_errors=True)
     if "parity" in phases:
@@ -2941,6 +3718,7 @@ def main() -> int:
         base = re.sub(r"_v[12]$", "", record["name"])
         record["launches_checkpoint"] = checkpoint.get(base)
         record["launches_operator"] = operator.get(base)
+        record["launches_remote"] = remote.get(base)
     kernels = records
     results["kernels"] = kernels
     device = {

@@ -12,16 +12,22 @@ another device (``utils/device.py``): the ``tpu-native`` provider's engine
 and the semantic matcher and incident index live there.  Without a card it
 raises; nothing falls back to the CPU.
 
+The HTTP providerIds (``openai``, ``ollama``, ``openai-compatible``)
+share one configured ``OpenAICompatProvider`` whose routers a background
+``/healthz`` poll feeds (``router_health_poll_s``); ``GET /fleet`` on the
+health port serves its fleet view.  ``completion_api_port >= 0`` serves
+the OpenAI-compatible API and the reference's analyze route from this
+process on an engine built on the operator's device (the ``tpu-native``
+provider then answers on the same engine); like the reference, a build
+or bind failure disables the API with a warning, and nothing runs on the
+CPU in the card's place.
+
 Not ported yet (ROADMAP.md Queue 1 item 5a), and refused when the config
 turns it on (``NotImplementedError`` naming the item): leader election
-(``lease.py``), the autoscaler, endpoint discovery, the in-process
-completion API (``completion_api_port >= 0``), and the real API server
-(``httpapi.py``, the CLI without ``--demo``); the pattern library's git
-sync (``patternsync.py``) is refused at ``start()`` when a PatternLibrary
-CR asks for it.  The HTTP providerIds resolve through a factory that
-raises (``providers.py``), so their analyses store the pattern result
-with the error in an Event, as the reference does for a provider that
-fails to initialise.
+(``lease.py``), the autoscaler, endpoint discovery, and the real API
+server (``httpapi.py``, the CLI without ``--demo``); the pattern
+library's git sync (``patternsync.py``) is refused at ``start()`` when a
+PatternLibrary CR asks for it.
 
 ``python -m operator_tpu_torch.operator --demo [--provider tpu-native]
 [--device cpu]`` runs the whole control plane against the in-memory fake
@@ -34,6 +40,7 @@ from __future__ import annotations
 import asyncio
 import logging
 import os
+import time
 from typing import Optional, Union
 
 import torch
@@ -44,11 +51,18 @@ from ..utils.config import OperatorConfig
 from ..utils.device import resolve_device
 from ..utils.timing import METRICS, MetricsRegistry
 from .events import EventService
-from .health import ENGINE_DISABLED, LivenessCheck, ReadinessCheck
+from .health import (
+    ENGINE_DISABLED,
+    ENGINE_FAILED,
+    ENGINE_LOADING,
+    ENGINE_READY,
+    LivenessCheck,
+    ReadinessCheck,
+)
 from .httpserver import HealthServer
 from .kubeapi import FakeKubeApi, KubeApi
 from .pipeline import AnalysisPipeline
-from .providers import HTTP_PROVIDER_IDS, ProviderRegistry, default_registry, http_provider_unported
+from .providers import HTTP_PROVIDER_IDS, ProviderRegistry, default_registry
 from .reconciler import AIProviderReconciler, PodmortemReconciler
 from .storage import AnalysisStorageService
 from .watcher import PodFailureWatcher, PodmortemCache
@@ -73,8 +87,6 @@ def _refuse_unported(config: OperatorConfig) -> None:
         ("AUTOSCALE_ENABLED", config.autoscale_enabled, "the autoscaler (operator/autoscale.py)"),
         ("DISCOVERY_ENABLED", config.discovery_enabled,
          "endpoint discovery (router/discovery.py)"),
-        ("COMPLETION_API_PORT", config.completion_api_port >= 0,
-         "the operator's in-process completion API"),
     )
     for name, on, feature in unported:
         if on:
@@ -100,6 +112,9 @@ class Operator:
         # per-analysis tracing + flight recorder: one recorder behind the
         # pipeline and GET /traces on the health port
         self.tracer, self.recorder = build_tracer(self.config, self.metrics)
+        #: the shared HTTP backend whose routers the background /healthz
+        #: poll loop feeds (None when an injected registry owns providers)
+        self._http_backend = None
         self._register_tpu_provider()
         self._register_http_providers()
         self.engine = PatternEngine(
@@ -141,8 +156,8 @@ class Operator:
         self.aiprovider_reconciler = AIProviderReconciler(
             api, providers=self.providers, config=self.config
         )
-        # engine warmth stays "disabled": only the in-process completion
-        # API (not ported) warms an engine before readiness
+        # engine warmth: "disabled" unless the in-process completion API
+        # warms an engine before readiness (LOADING -> READY)
         self.engine_warmth = ENGINE_DISABLED
         self.readiness = ReadinessCheck(
             api, self.config, engine_state=lambda: self.engine_warmth
@@ -158,12 +173,19 @@ class Operator:
                 recorder=self.recorder,
                 tracer=self.tracer,
                 incidents_token=self.config.incidents_api_token or None,
+                # GET /fleet: the HTTP backend's per-replica rows + rollup
+                fleet=(
+                    (lambda: self._fleet_view())
+                    if self._http_backend is not None else None
+                ),
                 # per-class queue depth + attainment from the pipeline's
                 # SLO ledger on GET /healthz/ready (obs/sloledger.py)
                 slo=(lambda: self.pipeline.slo_ledger.snapshot()),
                 host=self.config.health_host,
                 port=self.config.health_port,
             )
+        self.completion_server = None  # started on demand (completion_api_port)
+        self.completion_task: Optional[asyncio.Task] = None
         self._stop = asyncio.Event()
         self._tasks: list[asyncio.Task] = []
         self._control_tasks: list[asyncio.Task] = []
@@ -185,12 +207,44 @@ class Operator:
         self.providers.register_factory("tpu-native", factory)
 
     def _register_http_providers(self) -> None:
-        """Every HTTP providerId stays registered, as in the reference,
-        through a factory that raises: the OpenAI-compatible client is not
-        ported.  Injected registries keep their own backends (tests)."""
-        for pid in HTTP_PROVIDER_IDS:
-            if not self.providers.has(pid):
-                self.providers.register_factory(pid, http_provider_unported)
+        """One CONFIGURED OpenAI-compat backend behind every HTTP
+        providerId: the config's router knobs (affinity, shed, breakers)
+        reach dispatch, the operator's metrics registry receives the
+        podmortem_router_* counters, and all three ids share ONE router
+        per replica set — so per-replica breaker and health history
+        survives across CRs naming the same replicas.  Injected
+        registries keep their own backends (tests)."""
+        from .providers import OpenAICompatProvider
+
+        http_ids = [pid for pid in HTTP_PROVIDER_IDS if not self.providers.has(pid)]
+        if not http_ids:
+            return
+        backend = OpenAICompatProvider(
+            metrics=self.metrics,
+            router_vnodes=self.config.router_vnodes,
+            shed_pressure=self.config.router_shed_pressure,
+            replica_failure_threshold=self.config.router_replica_failure_threshold,
+            replica_reset_s=self.config.router_replica_reset_s,
+        )
+        # the background /healthz poll loop (start()) feeds this
+        # backend's routers so shedding has load data between analyses
+        self._http_backend = backend
+        for pid in http_ids:
+            self.providers.register(pid, backend)
+
+    def _fleet_view(self) -> dict:
+        """``GET /fleet`` body: the backend's per-replica rows + rollup,
+        plus the serverless-fleet fields (no autoscaler in the port:
+        ``desiredReplicas`` and ``lastScaleReason`` stay null)."""
+        view = (
+            self._http_backend.fleet_view()
+            if self._http_backend is not None
+            else {"replicas": {}, "fleet": {}}
+        )
+        view["fleetSize"] = len(view.get("replicas") or {})
+        view["desiredReplicas"] = None
+        view["lastScaleReason"] = None
+        return view
 
     def _build_semantic(self):
         """Neural semantic matcher on the operator's device when an encoder
@@ -207,6 +261,132 @@ class Operator:
         if embedder is None:
             return None
         return SemanticMatcher(embedder=embedder, device=self.device)
+
+    async def _start_completion_api(self) -> None:
+        """Serve the OpenAI-compatible API and the reference's analyze
+        route from the operator process on one engine built on the
+        operator's device; the ``tpu-native`` provider is re-registered
+        on it, so in-cluster explanations and external callers share one
+        batch.  Like the reference, an engine that cannot be built or a
+        port that cannot be bound disables the API with a warning — it
+        never takes down the control plane — and the engine never moves
+        to the CPU in the card's place.  Runs as its own task so the
+        watcher and reconcilers never wait for the weight load."""
+        engine = None
+        server = None
+        self.engine_warmth = ENGINE_LOADING
+        bringup_t0 = time.monotonic()
+        try:
+            from ..patterns.semantic import build_embedder
+            from ..serving.httpserver import CompletionServer
+            from ..serving.prompts import build_warmup_prompt
+            from ..serving.provider import TPUNativeProvider, build_serving_engine
+            from ..serving.types import OversizedRequest, SamplingParams
+
+            loop = asyncio.get_running_loop()
+            # the weight load and the kernel build block for seconds:
+            # keep probes live
+            engine, model_id = await loop.run_in_executor(
+                None, lambda: build_serving_engine(self.device, os.environ, config=self.config)
+            )
+            await loop.run_in_executor(None, engine.warmup)
+            # /v1/embeddings reuses the pattern engine's embedder (MiniLM
+            # if an encoder checkpoint is mounted, lexical hashing
+            # otherwise)
+            semantic = getattr(self.engine, "semantic", None)
+            embedder = semantic.embedder if semantic is not None else build_embedder(None)
+            tpu_provider = TPUNativeProvider(
+                engine, model_id=model_id,
+                register_template_prefixes=self.config.prefix_cache,
+            )
+            server = CompletionServer(
+                engine,
+                model_id=model_id,
+                host=self.config.completion_api_host,
+                port=self.config.completion_api_port,
+                api_token=self.config.completion_api_token or None,
+                embedder=embedder,
+                # the reference's ai-interface contract, served verbatim
+                # (POST /api/v1/analysis/analyze)
+                analysis_backend=tpu_provider,
+                # inbound traceparent joins the caller's trace; the spans
+                # land in the same flight recorder /traces serves
+                tracer=self.tracer,
+                drain_grace_s=self.config.serving_drain_grace_s,
+                replica_id=(
+                    self.config.serving_replica_id or self.config.pod_name or None
+                ),
+                profile_enabled=self.config.profile_enabled,
+                profile_dir=self.config.profile_dir,
+            )
+            await server.start()
+            # one throwaway generation shaped like a real explanation, so
+            # the first real failure does not pay the first step's costs
+            warm_tokens = 2 * max(1, self.config.decode_block)
+            try:
+                # graftlint: disable=GL003 reason=warmup generation is deliberately unbounded: readiness stays cold (visible to probes) until it completes
+                await engine.generate(
+                    build_warmup_prompt(), SamplingParams(max_tokens=warm_tokens)
+                )
+            except OversizedRequest:
+                log.warning(
+                    "full-size warmup exceeds the KV cache; warming with a "
+                    "minimal prompt"
+                )
+                try:
+                    # graftlint: disable=GL003 reason=same unbounded-warmup exception as the full-size probe above
+                    await engine.generate("warmup", SamplingParams(max_tokens=1))
+                except OversizedRequest:
+                    log.warning("minimal warmup also exceeds the KV cache; "
+                                "serving cold")
+            log.info(
+                "engine bring-up ready in %.1fs", time.monotonic() - bringup_t0,
+            )
+        except asyncio.CancelledError:
+            # operator stop() mid-load: not a failure, just no engine
+            self.engine_warmth = ENGINE_DISABLED
+            if server is not None:
+                await server.stop()
+            if engine is not None:
+                await asyncio.to_thread(engine.close)
+            raise
+        except Exception:  # noqa: BLE001 - optional surface, degrade quietly
+            self.engine_warmth = ENGINE_FAILED
+            log.warning("completion api disabled", exc_info=True)
+            if server is not None:  # a post-start warmup failure leaks the port
+                await server.stop()
+            if engine is not None:  # free the loaded weights, not just leak them
+                await asyncio.to_thread(engine.close)
+            return
+        # register (not register_factory): overwrite any backend a pipeline
+        # already resolved from the lazy factory, so explanations and HTTP
+        # callers share this engine
+        self.providers.register("tpu-native", tpu_provider)
+        self.completion_server = server
+        self.engine_warmth = ENGINE_READY
+
+    async def _health_poll_loop(self) -> None:
+        """Periodic ``/healthz`` sweep over every routed serving replica
+        (``OpenAICompatProvider.poll_replica_health``): probe verdicts and
+        load reports land in the routers' health boards so the shed
+        decision has data BETWEEN analyses.  A failed poll marks the
+        replica not-ready, never crashes; the loop exits on stop."""
+        assert self._http_backend is not None
+        interval = self.config.router_health_poll_s
+        while not self._stop.is_set():
+            try:
+                await asyncio.wait_for(self._stop.wait(), timeout=interval)
+                return  # stopping
+            except asyncio.TimeoutError:
+                pass
+            try:
+                await self._http_backend.poll_replica_health(
+                    timeout_s=self.config.kube_call_timeout_s
+                )
+            except asyncio.CancelledError:
+                raise
+            except Exception:  # noqa: BLE001 - polling must outlive one bad sweep
+                log.warning("replica health poll sweep failed", exc_info=True)
 
     async def _refuse_pattern_sync(self) -> None:
         """The git sync of PatternLibrary CRs is not ported: a cluster that
@@ -235,6 +415,14 @@ class Operator:
             await self.memory.restore_from_configmap(self.api, namespace)
         if self.health_server is not None:
             await self.health_server.start()
+        if self.config.completion_api_port >= 0:
+            # flip warmth BEFORE the task is scheduled: a readiness probe
+            # landing between create_task and the task's first step must
+            # already see the engine as cold
+            self.engine_warmth = ENGINE_LOADING
+            self.completion_task = asyncio.create_task(
+                self._start_completion_api(), name="completion-api"
+            )
         # resume any claims a crashed predecessor left in the ledger, then
         # run the control loops — resume must COMPLETE first, or the
         # watcher's pre-watch sweep could claim a failure that
@@ -243,6 +431,12 @@ class Operator:
         self._tasks = [
             asyncio.create_task(self._single_replica_cycle(), name="claims-resume"),
         ]
+        if self._http_backend is not None and self.config.router_health_poll_s > 0:
+            # background /healthz polling: load-fed shedding needs load
+            # reports even when no analysis traffic produces them
+            self._tasks.append(asyncio.create_task(
+                self._health_poll_loop(), name="replica-health-poll"
+            ))
 
     def _spawn_control_tasks(self) -> list[asyncio.Task]:
         return [
@@ -281,6 +475,17 @@ class Operator:
         self._stop.set()
         if self.health_server is not None:
             await self.health_server.stop()
+        if self.completion_task is not None and not self.completion_task.done():
+            self.completion_task.cancel()  # stop mid-weight-load
+            await asyncio.gather(self.completion_task, return_exceptions=True)
+        self.completion_task = None
+        # swap-then-act: detach the server reference BEFORE the awaits so a
+        # concurrent stop() can't re-enter stop/close on a half-torn-down
+        # server
+        completion_server, self.completion_server = self.completion_server, None
+        if completion_server is not None:
+            await completion_server.stop()
+            await asyncio.to_thread(completion_server.engine.close)
         # graceful drain: in-flight analyses finish (their own deadlines
         # usually end them sooner) or are cancelled at the grace boundary —
         # a wedged analysis must not hold SIGTERM past the pod's

@@ -18,6 +18,11 @@ asyncio HTTP server exposes:
   look like?
 - ``GET /traces``        — the flight recorder's recent analysis traces
   (``?limit=N&blackbox=1``; docs/OBSERVABILITY.md)
+- ``GET /fleet``         — fleet-wide perf roll-up: every routed serving
+  replica's step-clock summary (decode MFU, host-gap fraction, slot
+  occupancy, queue depth) plus step-weighted fleet aggregates, as fed by
+  the background ``/healthz`` poll; token-gated like /incidents and
+  /traces
 - ``GET /traces/{id}``   — one trace: full span JSON plus the rendered
   flame-style text tree (the ``obs.view`` CLI's online twin)
 
@@ -28,9 +33,7 @@ flight recorder — a client can follow its own request into the operator.
 Probe responses are JSON; failures return 503 so the kubelet treats the
 pod exactly as it treats the reference's native binary.
 
-The port's own copy of ``operator_tpu/operator/httpserver.py``, less
-``GET /fleet`` (the roll-up of routed serving replicas comes with the
-router).
+The port's own copy of ``operator_tpu/operator/httpserver.py``.
 """
 
 from __future__ import annotations
@@ -70,6 +73,7 @@ class HealthServer:
         recorder: Optional[FlightRecorder] = None,
         tracer: Optional[Tracer] = None,
         incidents_token: Optional[str] = None,
+        fleet: Optional[Callable[[], dict]] = None,
         slo: Optional[Callable[[], dict]] = None,
         host: str = "0.0.0.0",
         port: int = 8080,
@@ -88,6 +92,10 @@ class HealthServer:
         #: trace attributes quote pod identities and evidence, which is
         #: more sensitive than latency numbers
         self.incidents_token = incidents_token or None
+        #: zero-arg callable returning the fleet perf roll-up
+        #: (OpenAICompatProvider.fleet_view) behind GET /fleet (None =
+        #: 404: no routed replica sets on this operator)
+        self.fleet = fleet
         #: zero-arg callable returning the SLO ledger's current state
         #: (per-class pending depth + attainment, obs/sloledger.py) —
         #: folded into GET /healthz/ready so one probe answers both
@@ -235,7 +243,9 @@ class HealthServer:
         if method not in ("GET", "HEAD"):
             return 405, {"error": "method not allowed"}
         if (
-            path.startswith("/incidents") or path.startswith("/traces")
+            path.startswith("/incidents")
+            or path.startswith("/traces")
+            or path.startswith("/fleet")
         ) and not self._authorized(authorization):
             return 401, {"error": "missing or invalid bearer token"}
         if path in ("/healthz/live", "/livez"):
@@ -267,6 +277,12 @@ class HealthServer:
             return 200, self.metrics.prometheus(openmetrics=openmetrics).encode()
         if path == "/metrics.json":
             return 200, self.metrics.snapshot()
+        if path == "/fleet":
+            if self.fleet is None:
+                return 404, {"error": "no routed replica sets"}
+            # the roll-up walks every router's health board; small, but
+            # keep it off the probe loop like the other forensic reads
+            return 200, await asyncio.to_thread(self.fleet)
         if path == "/incidents":
             if self.memory is None:
                 return 404, {"error": "incident memory disabled"}

@@ -3,19 +3,24 @@
     ALLOW_RANDOM_WEIGHTS=true python -m operator_tpu_torch.serving \\
         [--host 0.0.0.0] [--port 8000] [--device cuda]
 
-Model and engine shape come from the serving environment
-(``serving/provider.py``: OPERATOR_TPU_MODEL, SERVING_DTYPE,
-MAX_BATCH_SIZE, KV_PAGE_SIZE, SCHED_MODE, SCHED_CHUNK,
-SCHED_PIPELINE_DEPTH, SPEC_DECODE, DECODE_BLOCK, PIPELINE_DEPTH, ...).
-Runs on the card unless ``--device cpu`` is given.
+Model and engine shape come from the same operator config environment
+the cluster deployment uses (``serving/provider.py``,
+``utils/config.py``: OPERATOR_TPU_MODEL, CHECKPOINT_DIR, WEIGHT_DTYPE,
+MAX_BATCH_SIZE, KV_PAGE_SIZE, SCHED_MODE, ...), plus
+OPERATOR_TPU_API_TOKEN to require a bearer token,
+ENCODER_CHECKPOINT_DIR for ``/v1/embeddings``, PROFILE_ENABLED /
+PROFILE_DIR for ``/profile`` and SERVING_REPLICA_ID (or POD_NAME) for
+the replica's identity.  The ``tpu-native`` provider answers
+``/api/v1/analysis/analyze``.  Runs on the card unless ``--device cpu``
+is given.
 """
 
 from __future__ import annotations
 
 import argparse
+import asyncio
 import logging
 import os
-import threading
 
 
 def main() -> None:
@@ -30,23 +35,43 @@ def main() -> None:
         level=logging.INFO, format="%(asctime)s %(name)s %(levelname)s %(message)s"
     )
 
-    from .httpserver import CompletionServer
-    from .provider import build_serving_engine
+    from ..patterns.semantic import build_embedder
+    from ..utils.config import OperatorConfig
+    from .httpserver import serve_forever
+    from .provider import TPUNativeProvider, build_serving_engine
 
-    engine, model_id = build_serving_engine(args.device)
+    cfg = OperatorConfig.from_env()
+    engine, model_id = build_serving_engine(args.device, config=cfg)
     engine.warmup()
-    server = CompletionServer(
-        engine, model_id=model_id, host=args.host, port=args.port,
-        replica_id=os.environ.get("SERVING_REPLICA_ID") or os.environ.get("POD_NAME"),
+    analysis_backend = TPUNativeProvider(
+        engine, model_id=model_id, register_template_prefixes=cfg.prefix_cache,
     )
-    server.start()
+    # /v1/embeddings: MiniLM when a checkpoint is mounted, lexical hashing
+    # otherwise — the one shared ladder (patterns/semantic.py)
+    embedder = build_embedder(
+        os.environ.get("ENCODER_CHECKPOINT_DIR", "").strip(), device=args.device,
+    )
     try:
-        threading.Event().wait()
+        asyncio.run(
+            serve_forever(
+                engine,
+                model_id=model_id,
+                host=args.host,
+                port=args.port,
+                api_token=os.environ.get("OPERATOR_TPU_API_TOKEN") or None,
+                embedder=embedder,
+                analysis_backend=analysis_backend,
+                replica_id=(
+                    os.environ.get("SERVING_REPLICA_ID")
+                    or os.environ.get("POD_NAME")
+                    or None
+                ),
+                profile_enabled=cfg.profile_enabled,
+                profile_dir=cfg.profile_dir,
+            )
+        )
     except KeyboardInterrupt:
         pass
-    finally:
-        server.stop()
-        engine.close()
 
 
 if __name__ == "__main__":

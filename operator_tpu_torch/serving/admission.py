@@ -246,6 +246,10 @@ class AdmissionMixin:
             slot_ids[row] = slot_ids[0]
 
         self.prefill_waves += 1
+        # the reference counts plain against prefix-shared waves; the
+        # wave engine's shared prefix is not ported (Queue 1 item 6), so
+        # every wave is plain
+        self.metrics.incr("prefill_waves_plain")
         staged, row_tables = self._stage_page_tables(
             n, n_pad, slot_ids, page_grants, lengths
         )

@@ -22,10 +22,16 @@ attribution and the measured MFU against the H100's peak) and its
 ``ServingEngine`` runs one of the two loops on ONE worker thread: callers
 on any thread ``submit(prompt, params, priority=...)`` and get a
 ``concurrent.futures.Future``; on an event loop, ``await
-engine.generate(prompt, params, priority=...)`` (the reference's
-coroutine, which the provider awaits); ``generate_batch(prompts)`` submits
-a list and waits.  ``priority`` orders admission only (higher first, FIFO
-within a class).  With a scheduler the worker admits queued
+engine.generate(prompt, params, on_partial=..., priority=...,
+resume_tokens=...)`` (the reference's coroutine, which the provider and
+the HTTP server await: ``on_partial`` receives each step's
+generated-so-far ids on the caller's loop, cancelling the coroutine
+releases the request's slot and pages at the next step, and
+``resume_tokens`` re-prefills a failed-over stream's tokens);
+``generate_batch(prompts)`` submits a list and waits.  ``priority``
+orders admission only (higher first, FIFO within a class).
+``load_report()`` is the reference's ``ReplicaLoad`` that ``/healthz``
+serves and the router reads.  With a scheduler the worker admits queued
 submissions at every step boundary (token-level admission) and steps the
 scheduler; without one it runs the wave loop (``operator_tpu/serving/
 engine.py:_serve``): admit what fits into free slots and pages, requeue
@@ -38,6 +44,7 @@ from __future__ import annotations
 import asyncio
 import collections
 import concurrent.futures
+import dataclasses
 import itertools
 import logging
 import queue
@@ -50,7 +57,10 @@ import torch
 
 from ..models.configs import ModelConfig
 from ..models.quant import is_quantized
+from ..obs import span as obs_span
+from ..obs.sloledger import SLOBoard
 from ..ops.paged_attention import PagedKVCache
+from ..router.health import ReplicaLoad
 from ..utils.device import resolve_device
 from ..utils.timing import MetricsRegistry
 from .admission import AdmissionMixin
@@ -163,6 +173,11 @@ class Generator(AdmissionMixin, ProgramBuilderMixin):
             )
         self.decode_block = decode_block
         self.pipeline_depth = pipeline_depth
+        #: optional ``hook(slot_id, token_ids_so_far)`` called after each
+        #: processed block for slots that are still generating — the
+        #: streaming feed (ServingEngine marshals it onto the caller's
+        #: event loop).  Called from the worker thread; must not block.
+        self.partial_hook: Optional[Any] = None
         self._alloc_decode_state()
         self.slots: list[_Slot] = [_Slot() for _ in range(max_slots)]
         # per-slot generation counter: an in-flight block carries the epoch
@@ -226,6 +241,7 @@ class Generator(AdmissionMixin, ProgramBuilderMixin):
         """Prompt KV is in the pages and first tokens are sampled: flip the
         slots live."""
         self.metrics.record("prefill", prefill_ms)
+        self.metrics.record("prefill_batch", float(len(taken)))
         # the wave's prefill is one phase-separated step; its time is all
         # "device" (no per-component split is measurable after the fact)
         self.step_clock.observe(
@@ -285,6 +301,11 @@ class Generator(AdmissionMixin, ProgramBuilderMixin):
             return []
         started = time.perf_counter()
         if self.num_active:
+            # held slots over capacity, as the continuous scheduler's
+            # occupancy is defined
+            self.metrics.record(
+                "batch_occupancy", 100.0 * self.num_active / self.max_slots
+            )
             with torch.profiler.record_function("podmortem.decode"):
                 self._dispatch_block()
         finished: list[tuple[int, GenerationResult]] = []
@@ -299,6 +320,8 @@ class Generator(AdmissionMixin, ProgramBuilderMixin):
             # seconds per token for the deadline policy's estimate
             elapsed_ms = (time.perf_counter() - started) * 1e3
             self.metrics.record("decode_step", elapsed_ms / (processed * self.decode_block))
+            if self.decode_block > 1:
+                self.metrics.record("decode_block", elapsed_ms / processed)
         return finished
 
     def _dispatch_block(self) -> None:
@@ -363,6 +386,7 @@ class Generator(AdmissionMixin, ProgramBuilderMixin):
             # block was dispatched: its lanes hold junk for the new epoch
             if not slot.active or self._slot_epoch[i] != epoch:
                 continue
+            generated_before = len(slot.generated)
             for k in range(block):
                 token = int(toks_np[k, i])
                 previous = slot.generated[-1] if slot.generated else None
@@ -386,7 +410,29 @@ class Generator(AdmissionMixin, ProgramBuilderMixin):
                 ):
                     finished.append((i, self._finish(i, reason="length")))
                     break
+            if (
+                self.partial_hook is not None
+                # identity: _finish() swaps in a fresh _Slot, so a slot that
+                # finished inside this block is skipped (its result carries
+                # the tail)
+                and self.slots[i] is slot
+                and len(slot.generated) > generated_before
+            ):
+                # list COPY: the hook crosses into the event-loop thread
+                # while this worker keeps appending
+                self.partial_hook(i, list(slot.generated))
         return finished
+
+    def cancel(self, slot_id: int) -> bool:
+        """Abort a decoding sequence and reclaim its slot and pages now
+        (a client that went away must not decode to ``max_tokens``).  The
+        epoch bump in :meth:`_finish` orphans the in-flight decode-ahead
+        blocks that still carry the slot.  Returns True if a slot was
+        freed."""
+        if 0 <= slot_id < self.max_slots and self.slots[slot_id].active:
+            self._finish(slot_id, reason="cancelled")
+            return True
+        return False
 
     def _finish(self, slot_id: int, *, reason: str) -> GenerationResult:
         slot = self.slots[slot_id]
@@ -432,9 +478,58 @@ class Generator(AdmissionMixin, ProgramBuilderMixin):
                     return result
 
 
+@dataclasses.dataclass
+class _Submission:
+    """One request on its way from a caller to the worker."""
+
+    prompt: str
+    params: SamplingParams
+    submitted: float
+    priority: int
+    future: "concurrent.futures.Future[GenerationResult]"
+    #: token-level failover: generated ids re-prefilled after the prompt
+    resume_tokens: Optional[list] = None
+    #: streaming: where each step's generated-so-far ids go
+    partial: Optional["_PartialFeed"] = None
+
+
+@dataclasses.dataclass
+class _PartialFeed:
+    """One streaming request's feed: the caller's loop and callback, its
+    future (a cancelled one hears nothing more) and how many tokens the
+    callback has seen (the order guard)."""
+
+    loop: asyncio.AbstractEventLoop
+    callback: Any
+    future: Optional[concurrent.futures.Future] = None
+    sent: int = 0
+
+
+def _settle(
+    future: concurrent.futures.Future, *, result: Any = None,
+    exc: Optional[BaseException] = None,
+) -> None:
+    """Resolve a request's future unless its caller cancelled it first
+    (the caller's cancel and the worker's answer race across threads)."""
+    try:
+        if exc is not None:
+            future.set_exception(exc)
+        else:
+            future.set_result(result)
+    except concurrent.futures.InvalidStateError:
+        pass
+
+
 class ServingEngine:
     """Thread front: submissions -> the scheduler's loop, or the wave
-    loop when there is no scheduler -> futures."""
+    loop when there is no scheduler -> futures.
+
+    A request's future stays pending until the worker answers it, so a
+    caller that goes away (``await engine.generate(...)`` cancelled, a
+    streaming client's disconnect) cancels it; the worker reaps the
+    cancelled request at its next step boundary — ``Scheduler.cancel`` or
+    ``Generator.cancel`` — and its slot and pages return at once, as the
+    reference's serve loops do."""
 
     def __init__(
         self,
@@ -448,7 +543,7 @@ class ServingEngine:
         #: wave mode: a short window that lets concurrent arrivals share
         #: one prefill
         self.admission_wait_s = admission_wait_s
-        self._submissions: "queue.Queue[tuple]" = queue.Queue()
+        self._submissions: "queue.Queue[_Submission]" = queue.Queue()
         #: futures in flight, keyed by scheduler req id (continuous) or
         #: slot id (wave)
         self._pending: dict[int, concurrent.futures.Future] = {}
@@ -458,6 +553,18 @@ class ServingEngine:
         self._waiting: collections.deque = collections.deque()
         self._queue_wait_ms: dict[int, float] = {}
         self._stalled_avail: Optional[int] = None
+        # streaming: key (req id or slot id) -> feed; the worker's hooks
+        # marshal each snapshot onto the caller's loop
+        self._partial_cbs: dict[int, _PartialFeed] = {}
+        generator.partial_hook = self._on_partial_from_worker
+        if scheduler is not None:
+            scheduler.partial_hook = self._on_partial_from_worker
+        #: per-class SLO aggregates (obs/sloledger.py SLOBoard) carried on
+        #: load_report() and /healthz; the operator-side ledger owns the
+        #: podmortem_slo_* counters
+        self._slo_board = SLOBoard()
+        #: prefill/decode disaggregation role advertised on /healthz
+        self.replica_role: str = "mixed"
         self._lock = threading.Lock()
         self._thread: Optional[threading.Thread] = None
         self._closed = threading.Event()
@@ -493,25 +600,38 @@ class ServingEngine:
                 self._thread.start()
 
     def close(self, timeout: float = 30.0) -> None:
-        """Stop the worker and fail every request still outstanding."""
+        """Stop the worker and fail every request still outstanding with
+        ``asyncio.CancelledError("serving engine closed")``, as the
+        reference does (the HTTP server answers "server shutting down")."""
         self._closed.set()
         thread = self._thread
         if thread is not None:
             thread.join(timeout)
             if thread.is_alive():
                 log.warning("serving worker did not stop within %.0fs", timeout)
-        self._fail_outstanding(RuntimeError("serving engine closed"))
+        self._fail_outstanding(asyncio.CancelledError("serving engine closed"))
 
     # -- submit side ---------------------------------------------------
 
     def submit(
-        self, prompt: str, params: Optional[SamplingParams] = None, *, priority: int = 0
+        self,
+        prompt: str,
+        params: Optional[SamplingParams] = None,
+        *,
+        priority: int = 0,
+        resume_tokens: Optional[list] = None,
+        on_partial: Optional[tuple] = None,
     ) -> "concurrent.futures.Future[GenerationResult]":
         """Queue one request; raises ``ValueError`` for a guided or LoRA
-        request (not ported) and :class:`DeadlineExceeded` when its budget
-        cannot fit one decoded token — both to this caller, before the
-        request takes a queue place.  ``priority`` orders admission
-        (higher first, FIFO within a class)."""
+        request (not ported) or ``resume_tokens`` without the scheduler,
+        and :class:`DeadlineExceeded` when its budget cannot fit one
+        decoded token — all to this caller, before the request takes a
+        queue place.  ``priority`` orders admission (higher first, FIFO
+        within a class).  ``on_partial`` is ``(loop, callback)``: each
+        step's generated-so-far ids reach ``callback`` on ``loop``."""
+        feed = None
+        if on_partial is not None:
+            feed = _PartialFeed(*on_partial)
         if self._closed.is_set():
             raise RuntimeError("serving engine is closed")
         if self._error is not None:
@@ -522,6 +642,11 @@ class ServingEngine:
             or params.adapter is not None
         ):
             raise ValueError(_NOT_PORTED_GUIDED)
+        if resume_tokens and self.scheduler is None:
+            raise ValueError(
+                "token-level streaming resume requires the continuous "
+                "scheduler (sched_mode=continuous)"
+            )
         if params is not None and params.deadline is not None:
             # fail fast: admission re-runs the policy with the residue
             # left after the queue wait and owns the clamp
@@ -534,9 +659,13 @@ class ServingEngine:
                     f"(remaining {max(0.0, params.deadline - g._clock()):.3f}s)"
                 )
         future: concurrent.futures.Future = concurrent.futures.Future()
-        self._submissions.put(
-            (prompt, params or SamplingParams(), time.perf_counter(), priority, future)
-        )
+        if feed is not None:
+            feed.future = future
+        self._submissions.put(_Submission(
+            prompt, params or SamplingParams(), time.perf_counter(), priority, future,
+            resume_tokens=list(resume_tokens) if resume_tokens else None,
+            partial=feed,
+        ))
         if self._error is not None:
             # the worker died between the check above and the put: its
             # drain may have missed this submission
@@ -546,14 +675,73 @@ class ServingEngine:
         return future
 
     async def generate(
-        self, prompt: str, params: Optional[SamplingParams] = None, *, priority: int = 0
+        self,
+        prompt: str,
+        params: Optional[SamplingParams] = None,
+        *,
+        on_partial: Optional[Any] = None,
+        priority: int = 0,
+        resume_tokens: Optional[list] = None,
     ) -> GenerationResult:
-        """Generate on the caller's event loop: the submission's verdicts
-        (``ValueError``, :class:`DeadlineExceeded`) raise here, the result
-        or the engine's error when the request finishes.  The pipeline's
-        explanations use ``priority=10`` so external API callers sharing
-        the engine never starve them."""
-        return await asyncio.wrap_future(self.submit(prompt, params, priority=priority))
+        """Generate on the caller's event loop (the reference's coroutine):
+        the submission's verdicts (``ValueError``,
+        :class:`DeadlineExceeded`) raise here, the result or the engine's
+        error when the request finishes.
+
+        ``on_partial(token_ids_so_far)`` fires on this loop after each
+        committed step or decode block while the request generates — the
+        streaming feed of the HTTP server.  Cancelling this coroutine
+        (the client went away) releases the request's slot and pages at
+        the worker's next step.  ``priority`` orders admission; the
+        pipeline's explanations use 10 so external API callers sharing the
+        engine never starve them.  ``resume_tokens`` resumes a failed-over
+        stream: the ids are re-prefilled after the prompt and the result
+        carries only the continuation (continuous mode only)."""
+        loop = asyncio.get_running_loop()
+        future = self.submit(
+            prompt, params, priority=priority, resume_tokens=resume_tokens,
+            on_partial=(loop, on_partial) if on_partial is not None else None,
+        )
+        # per-class SLO accounting: every submit settles exactly once — a
+        # cancelled or failed request is a miss
+        slo_cls = (params.slo_class if params is not None else None) or "default"
+        self._slo_board.submitted(slo_cls)
+        settled = False
+        try:
+            with obs_span("engine.generate", priority=priority) as span_:
+                result = await asyncio.wrap_future(future)
+                metrics = self.generator.metrics
+                metrics.observe("queue_wait_milliseconds", result.queue_wait_ms)
+                metrics.observe(
+                    "ttft_milliseconds", result.queue_wait_ms + result.prefill_ms
+                )
+                if result.completion_tokens > 0:
+                    metrics.observe(
+                        "token_latency_milliseconds",
+                        result.decode_ms / result.completion_tokens,
+                    )
+                # attained = finished with output inside its own deadline;
+                # deadline-free requests attain by completing at all
+                attained = result.finish_reason != "deadline" and (
+                    params is None or params.deadline is None
+                    or self.generator._clock() <= params.deadline
+                )
+                self._slo_board.finished(
+                    slo_cls, attained=attained, tokens=result.completion_tokens,
+                )
+                settled = True
+                span_.set(
+                    queue_wait_ms=round(result.queue_wait_ms, 3),
+                    prefill_ms=round(result.prefill_ms, 3),
+                    decode_ms=round(result.decode_ms, 3),
+                    prompt_tokens=result.prompt_tokens,
+                    completion_tokens=result.completion_tokens,
+                    finish_reason=result.finish_reason,
+                )
+                return result
+        finally:
+            if not settled:
+                self._slo_board.finished(slo_cls, attained=False, tokens=0)
 
     def generate_batch(
         self, prompts: Sequence[str], params: Optional[SamplingParams] = None
@@ -562,32 +750,82 @@ class ServingEngine:
         futures = [self.submit(prompt, params) for prompt in prompts]
         return [future.result() for future in futures]
 
-    def load_report(self) -> dict:
-        """Queue depth and in-flight rows for ``/healthz`` (the JAX
-        server's ``load`` field names); ``steps`` counts decode blocks in
-        wave mode."""
+    def load_report(self) -> ReplicaLoad:
+        """This replica's load in the shape the router's shed decision
+        reads (``router/health.py:ReplicaLoad``), built as the reference
+        builds it: queue pressure, the admission roofline's own per-token
+        estimate, the step clock's summary, the SLO board, the KV economy
+        and the overload ladder's totals.  Cheap reads from any thread;
+        approximate under concurrent decode, which the router treats as
+        feedback, not truth.  Served on ``GET /healthz``."""
+        g = self.generator
         sched = self.scheduler
-        if sched is None:
-            g = self.generator
-            return {
-                "queueDepth": self._submissions.qsize() + len(self._waiting),
-                "inflight": g.num_active,
-                "gaveUp": self._error is not None,
-                "steps": g.blocks_dispatched,
-                "occupancy": (
-                    round(g.occupancy_sum / g.blocks_dispatched, 6)
-                    if g.blocks_dispatched else None
-                ),
-            }
-        return {
-            "queueDepth": self._submissions.qsize() + sched.queue_depth,
-            "inflight": sched.num_active,
-            "gaveUp": self._error is not None,
-            "steps": sched.steps,
-            "occupancy": (
-                round(sched.occupancy_sum / sched.steps, 6) if sched.steps else None
-            ),
-        }
+        if sched is not None:
+            queue_depth = self._submissions.qsize() + sched.queue_depth
+            inflight = sched.num_active
+        else:
+            # wave: the waiting line is popped but not yet admitted
+            queue_depth = self._submissions.qsize()
+            inflight = len(self._waiting) + len(self._pending)
+        summary = g.step_clock.summary()
+        fractions = summary.get("fractions") or {}
+        kvstore = getattr(sched, "_kvstore", None)
+        return ReplicaLoad(
+            queue_depth=queue_depth,
+            inflight=inflight,
+            decode_token_s=g.decode_token_estimate_s(),
+            # the supervisor is not ported (ROADMAP.md Queue 1 item 10):
+            # only a dead loop gives up
+            gave_up=self._error is not None,
+            decode_mfu=summary.get("decode_mfu"),
+            host_gap_frac=fractions.get("host_gap"),
+            occupancy=summary.get("occupancy_avg"),
+            steps=summary.get("steps") or 0,
+            slo_attainment=self._slo_board.attainment(),
+            goodput_tokens_s=self._slo_board.goodput_tokens_s(),
+            slo_completed=self._slo_board.completed,
+            slo_classes=self._slo_board.per_class(),
+            kv_pages_free=g.allocator.available,
+            kv_pages_total=g.allocator.num_pages - 1,
+            prefix_hit_rate=kvstore.hit_rate() if kvstore is not None else None,
+            prefix_lookups=kvstore.lookups if kvstore is not None else 0,
+            kv_blocks=kvstore.inventory() if kvstore is not None else None,
+            role=self.replica_role,
+            shed=g.metrics.labeled_total("shed"),
+            degraded=g.metrics.labeled_total("degraded"),
+        )
+
+    # -- streaming -----------------------------------------------------
+
+    def _register_partial(self, key: int, item: _Submission) -> None:
+        if item.partial is not None:
+            self._partial_cbs[key] = item.partial
+
+    def _forget(self, key: int) -> None:
+        self._partial_cbs.pop(key, None)
+
+    def _on_partial_from_worker(self, key: int, token_ids: list) -> None:
+        """Scheduler/generator hook (worker thread) -> the caller's loop.
+        Snapshots are queued in commit order ahead of the request's
+        result, so a stream hears every step before its end."""
+        feed = self._partial_cbs.get(key)
+        if feed is None or feed.future.cancelled():  # the client went away
+            return
+        try:
+            feed.loop.call_soon_threadsafe(self._deliver_partial, feed, token_ids)
+        except RuntimeError:  # the caller's loop is closed
+            pass
+
+    @staticmethod
+    def _deliver_partial(feed: _PartialFeed, token_ids: list) -> None:
+        """Loop-side delivery with a per-request order guard: a snapshot
+        is delivered only when it is longer than the last one sent, so a
+        stream never rewinds, however commits and cancellations
+        interleave."""
+        if feed.future.cancelled() or len(token_ids) <= feed.sent:
+            return
+        feed.sent = len(token_ids)
+        feed.callback(token_ids)
 
     # -- the worker ----------------------------------------------------
 
@@ -599,16 +837,17 @@ class ServingEngine:
         except queue.Empty:
             return
         while True:
-            prompt, params, submitted, priority, future = item
-            if future.set_running_or_notify_cancel():
+            if not item.future.cancelled():
                 try:
                     req_id = self.scheduler.enqueue(
-                        prompt, params, submitted=submitted, priority=priority,
+                        item.prompt, item.params, submitted=item.submitted,
+                        priority=item.priority, resume_tokens=item.resume_tokens,
                     )
                 except (ValueError, MemoryError, ShedLowValue) as exc:  # per-request verdict
-                    future.set_exception(exc)
+                    _settle(item.future, exc=exc)
                 else:
-                    self._pending[req_id] = future
+                    self._pending[req_id] = item.future
+                    self._register_partial(req_id, item)
             try:
                 item = self._submissions.get_nowait()
             except queue.Empty:
@@ -629,20 +868,33 @@ class ServingEngine:
                 self.scheduler.reset()
             self._fail_outstanding(exc)
 
+    def _cancelled(self) -> list[int]:
+        """Keys of in-flight requests whose callers went away."""
+        return [key for key, future in self._pending.items() if future.cancelled()]
+
     def _run_sched(self) -> None:
         sched = self.scheduler
         while not self._closed.is_set():
             self._admit_submissions(block=sched.total_work == 0)
             if not sched.total_work:
                 continue
+            # reclaim rows whose callers are gone (disconnects): the slot
+            # and pages return before this step is planned
+            for req_id in self._cancelled():
+                sched.cancel(req_id)
+                self._pending.pop(req_id, None)
+                self._forget(req_id)
+            if not sched.total_work:
+                continue
             for outcome in sched.step():
+                self._forget(outcome.req_id)
                 future = self._pending.pop(outcome.req_id, None)
                 if future is None:
                     continue
                 if outcome.error is not None:
-                    future.set_exception(outcome.error)
+                    _settle(future, exc=outcome.error)
                 else:
-                    future.set_result(outcome.result)
+                    _settle(future, result=outcome.result)
 
     # -- the wave loop -------------------------------------------------
 
@@ -660,10 +912,10 @@ class ServingEngine:
             except queue.Empty:
                 return arrived
             timeout = None
-            if item[-1].set_running_or_notify_cancel():
+            if not item.future.cancelled():
                 # higher priority first, FIFO within a class
                 at = len(self._waiting)
-                while at and self._waiting[at - 1][3] < item[3]:
+                while at and self._waiting[at - 1].priority < item.priority:
                     at -= 1
                 self._waiting.insert(at, item)
                 arrived = True
@@ -680,16 +932,18 @@ class ServingEngine:
         return True
 
     def _sweep_waiting(self) -> None:
-        """Fail every waiting request whose deadline expired while it
-        queued (the reference's ``_sweep_batch``): its budget is gone
-        before any card time was spent on it."""
+        """Drop waiting requests whose callers went away, and fail every
+        one whose deadline expired while it queued (the reference's
+        ``_sweep_batch``): neither should take card time."""
         now = self.generator._clock()
         live = collections.deque()
         for item in self._waiting:
-            deadline = item[1].deadline
+            deadline = item.params.deadline
+            if item.future.cancelled():
+                continue
             if deadline is not None and deadline <= now:
                 self.generator.metrics.incr("admission_deadline_rejected")
-                item[-1].set_exception(DeadlineExceeded(
+                _settle(item.future, exc=DeadlineExceeded(
                     "deadline expired while queued for admission"
                 ))
             else:
@@ -710,15 +964,16 @@ class ServingEngine:
         batch = list(itertools.islice(self._waiting, free))
         admitted_t = time.perf_counter()
         try:
-            slots = g.admit([b[0] for b in batch], [b[1] for b in batch])
+            slots = g.admit([b.prompt for b in batch], [b.params for b in batch])
         except OversizedRequest as exc:
             # only the head is impossible: fail it alone, the rest retry
-            self._waiting.popleft()[-1].set_exception(exc)
+            _settle(self._waiting.popleft().future, exc=exc)
             return
-        for slot_id, (_, _, submitted, _, future) in zip(slots, batch):
+        for slot_id, item in zip(slots, batch):
             self._waiting.popleft()
-            self._pending[slot_id] = future
-            self._queue_wait_ms[slot_id] = max(0.0, (admitted_t - submitted) * 1e3)
+            self._pending[slot_id] = item.future
+            self._register_partial(slot_id, item)
+            self._queue_wait_ms[slot_id] = max(0.0, (admitted_t - item.submitted) * 1e3)
         # a stall is recorded only while active sequences hold pages: their
         # release is the retry trigger
         self._stalled_avail = (
@@ -735,27 +990,33 @@ class ServingEngine:
                 self._sweep_waiting()
             if self._waiting:
                 self._admit_waiting(arrived)
+            if g.num_active:
+                # reclaim slots whose callers are gone: an abandoned
+                # request must not decode to max_tokens holding its pages
+                for slot_id in self._cancelled():
+                    g.cancel(slot_id)
+                    self._pending.pop(slot_id, None)
+                    self._queue_wait_ms.pop(slot_id, None)
+                    self._forget(slot_id)
             if not (g.num_active or g._inflight_blocks):
                 continue
             for slot_id, result in g.step():
+                self._forget(slot_id)
                 future = self._pending.pop(slot_id, None)
                 result.queue_wait_ms = self._queue_wait_ms.pop(slot_id, 0.0)
                 if future is not None:
-                    future.set_result(result)
+                    _settle(future, result=result)
 
     def _fail_outstanding(self, exc: BaseException) -> None:
-        for future in self._pending.values():
-            if not future.done():
-                future.set_exception(exc)
+        self._partial_cbs.clear()
+        for future in list(self._pending.values()):
+            _settle(future, exc=exc)
         self._pending.clear()
         while self._waiting:
-            future = self._waiting.popleft()[-1]
-            if not future.done():
-                future.set_exception(exc)
+            _settle(self._waiting.popleft().future, exc=exc)
         while True:
             try:
-                *_, future = self._submissions.get_nowait()
+                item = self._submissions.get_nowait()
             except queue.Empty:
                 break
-            if future.set_running_or_notify_cancel():
-                future.set_exception(exc)
+            _settle(item.future, exc=exc)

@@ -54,6 +54,7 @@ from typing import Mapping, Optional, Union
 
 import torch
 
+from ..fabric.disagg import normalize_role
 from ..models.configs import get_config
 from ..models.llama import init_params
 from ..models.loader import load_params_async
@@ -285,7 +286,7 @@ def build_serving_engine(
         # the JAX provider primes the default template's shared prefix
         # here; the port has no shared-prefix path yet (Queue 1 item 6)
         log.info("shared-prefix priming is not ported; every prompt is prefilled in full")
-        return ServingEngine(generator), model_id
+        return _with_role(ServingEngine(generator), config), model_id
     # automatic block-hash prefix caching (serving/kvstore.py), with an
     # optional host-RAM tier for evicted blocks (ops/kv_transfer.py)
     kvstore = None
@@ -316,7 +317,15 @@ def build_serving_engine(
         scheduler.depth, scheduler.spec_k > 0, scheduler.spec_k,
         scheduler._kvstore is not None, config.kv_host_pool_mb,
     )
-    return ServingEngine(generator, scheduler), model_id
+    return _with_role(ServingEngine(generator, scheduler), config), model_id
+
+
+def _with_role(engine: ServingEngine, config: OperatorConfig) -> ServingEngine:
+    """The disaggregation role ``/healthz`` advertises (``REPLICA_ROLE``),
+    validated as the reference does; the router prefers, never filters,
+    by it."""
+    engine.replica_role = normalize_role(config.replica_role)
+    return engine
 
 
 def build_tpu_native_provider(

@@ -170,6 +170,10 @@ class Scheduler:
         self._host_syncs = 0
         self._decode_committed = 0
         self.metrics = generator.metrics
+        #: ``hook(req_id, token_ids_so_far)`` after each step for rows
+        #: still generating — the streaming feed (ServingEngine marshals
+        #: it onto the caller's event loop).  Called from the worker.
+        self.partial_hook: Optional[Any] = None
         # (req_id, tokens, params, submitted, priority) — admission order
         # is priority class first, then earliest deadline (EDF) within a
         # class, then FIFO (_edf_head)
@@ -1229,4 +1233,11 @@ class Scheduler:
                 outcomes.append(
                     StepOutcome(work.req_id, result=self._finish(row, finished))
                 )
+            elif (
+                self.partial_hook is not None
+                and row.decoding
+                and row.generated
+            ):
+                # list COPY: the hook crosses into the event-loop thread
+                self.partial_hook(row.req_id, list(row.generated))
         return outcomes

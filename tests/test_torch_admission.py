@@ -559,6 +559,8 @@ def test_wave_engine_fails_requests_that_expire_while_waiting(sides):
     before it takes a slot; the others stay in line, in order."""
     import concurrent.futures
 
+    from operator_tpu_torch.serving.engine import _Submission
+
     side = sides["torch"]
     generator = side.generator()
     clock = FakeClock(100.0)
@@ -566,16 +568,14 @@ def test_wave_engine_fails_requests_that_expire_while_waiting(sides):
     engine = ServingEngine(generator)
     waiting = []
     for i, residual in enumerate([None, 1.0, 5.0, 0.5]):
-        future = concurrent.futures.Future()
-        future.set_running_or_notify_cancel()
         params = side.params_(deadline=None if residual is None else clock.now + residual)
-        waiting.append((f"prompt {i}", params, 0.0, future))
+        waiting.append(_Submission(f"prompt {i}", params, 0.0, 0, concurrent.futures.Future()))
     engine._waiting.extend(waiting)
     clock.now += 2.0
     engine._sweep_waiting()
-    assert [item[0] for item in engine._waiting] == ["prompt 0", "prompt 2"]
+    assert [item.prompt for item in engine._waiting] == ["prompt 0", "prompt 2"]
     for i in (1, 3):
         with pytest.raises(types.DeadlineExceeded):
-            waiting[i][-1].result(timeout=1)
+            waiting[i].future.result(timeout=1)
     assert generator.metrics.counter("admission_deadline_rejected") == 2
     engine.close()

@@ -9,9 +9,12 @@ nothing of JAX or of the JAX package.
 """
 
 import ast
+import asyncio
+import contextlib
 import json
 import subprocess
 import sys
+import threading
 import urllib.error
 import urllib.request
 from pathlib import Path
@@ -49,6 +52,41 @@ PROMPTS = [
     "OOMKilled OOMKilled OOMKilled",  # repeated n-grams: drafts get proposed
 ]
 MAX_TOKENS = 10
+
+
+@contextlib.contextmanager
+def event_loop_thread():
+    """An event loop on a thread of its own; yields ``run(coro,
+    timeout)``, which runs a coroutine there and waits for its result."""
+    loop = asyncio.new_event_loop()
+    thread = threading.Thread(target=loop.run_forever, daemon=True)
+    thread.start()
+
+    def run(coro, timeout: float = 60.0):
+        return asyncio.run_coroutine_threadsafe(coro, loop).result(timeout)
+
+    try:
+        yield run
+    finally:
+        loop.call_soon_threadsafe(loop.stop)
+        thread.join(10)
+        loop.close()
+
+
+@contextlib.contextmanager
+def serving(server):
+    """Run a port ``CompletionServer`` (asyncio ``start``/``stop``) on a
+    loop thread of its own while the test talks to it over urllib; the
+    engine closes with it."""
+    try:
+        with event_loop_thread() as run:
+            run(server.start())
+            try:
+                yield run
+            finally:
+                run(server.stop())
+    finally:
+        server.engine.close()
 
 
 @pytest.fixture(scope="module")
@@ -180,9 +218,8 @@ def test_sampled_requests_finish_without_leaks(torch_params):
 def test_http_server_answers_healthz_and_completions(torch_params):
     engine = _engine(torch_params, 2, True)
     server = CompletionServer(engine, model_id="tiny-test", host="127.0.0.1", port=0)
-    server.start()
-    base = f"http://127.0.0.1:{server.bound_port}"
-    try:
+    with serving(server):
+        base = f"http://127.0.0.1:{server.bound_port}"
         with urllib.request.urlopen(f"{base}/healthz", timeout=30) as resp:
             health = json.loads(resp.read())
         assert health["status"] == "ok"
@@ -203,9 +240,6 @@ def test_http_server_answers_healthz_and_completions(torch_params):
         assert payload["usage"]["total_tokens"] == (
             payload["usage"]["prompt_tokens"] + payload["usage"]["completion_tokens"]
         )
-    finally:
-        server.stop()
-        engine.close()
 
 
 def _post_status(url, body):
@@ -238,8 +272,7 @@ def test_http_server_answers_model_and_guided_fields_as_the_reference(
     ROADMAP item, instead of answered with unconstrained text."""
     engine = _engine(torch_params, 1, False)
     server = CompletionServer(engine, model_id="tiny-test", host="127.0.0.1", port=0)
-    server.start()
-    try:
+    with serving(server):
         code, payload = _post_status(
             f"http://127.0.0.1:{server.bound_port}/v1/completions",
             {"prompt": "pod crashed", "max_tokens": 3, "temperature": 0.0, **extra},
@@ -250,9 +283,6 @@ def test_http_server_answers_model_and_guided_fields_as_the_reference(
             assert payload["usage"]["completion_tokens"] > 0
         else:
             assert needle in payload["error"]["message"]
-    finally:
-        server.stop()
-        engine.close()
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():

@@ -28,9 +28,13 @@ sums) are reduced to their counts, the SLO ledger's latencies and rates
 are dropped.
 
 Also here: the port refuses each unported operator feature naming ROADMAP
-Queue 1 item 5a, degrades an HTTP providerId as the reference degrades a
-provider whose factory raises, and its ``Operator`` raises without a card
-unless given ``device="cpu"``.
+Queue 1 item 5a, degrades a provider whose factory raises as the reference
+does, and its ``Operator`` raises without a card unless given
+``device="cpu"``.  The remote path: the port's ``Operator`` with
+``providerId: openai-compatible`` against the port's ``CompletionServer``
+stores what the JAX ``Operator`` stores against the JAX server;
+``COMPLETION_API_PORT`` serves ``/healthz`` from the operator process, and
+``GET /fleet`` serves the HTTP backend's fleet view.
 """
 
 import asyncio
@@ -38,6 +42,7 @@ import base64
 import dataclasses
 import functools
 import importlib
+import json
 import os
 import re
 import shutil
@@ -880,7 +885,6 @@ def test_run_demo_matches_jax(provider_id, encoder, request, monkeypatch):
 
 @pytest.mark.parametrize("knob,value", [
     ("leader_election", True), ("autoscale_enabled", True), ("discovery_enabled", True),
-    ("completion_api_port", 0),
 ])
 def test_operator_refuses_unported_features_naming_item_5a(knob, value):
     port = PKGS["port"]
@@ -910,9 +914,8 @@ def test_operator_cli_without_demo_refuses_the_real_api_server(capsys):
 
 
 async def _http_provider_case(pkg, provider_id: str, message: str) -> dict:
-    """A pipeline over a registry whose ``provider_id`` factory raises the
-    port's NotImplementedError: the reference's path for a provider that
-    fails to initialise."""
+    """A pipeline over a registry whose ``provider_id`` factory raises:
+    the reference's path for a provider that fails to initialise."""
     O, s = pkg.operator, pkg.schema
     api = O.FakeKubeApi()
     config = pkg.utils_config.OperatorConfig(pattern_cache_directory="/nonexistent")
@@ -921,8 +924,7 @@ async def _http_provider_case(pkg, provider_id: str, message: str) -> dict:
     def factory():
         raise NotImplementedError(message)
 
-    if pkg.name == "jax":
-        registry.register_factory(provider_id, factory)
+    registry.register_factory(provider_id, factory)
     metrics = pkg.utils_timing.MetricsRegistry()
     pipeline = O.AnalysisPipeline(api, pkg.patterns_engine.PatternEngine(), config=config,
                                   metrics=metrics, providers=registry,
@@ -949,22 +951,16 @@ async def _http_provider_case(pkg, provider_id: str, message: str) -> dict:
 
 @pytest.mark.parametrize("provider_id", ["openai", "ollama", "openai-compatible"])
 def test_http_provider_ids_degrade_as_the_reference_does_for_a_raising_factory(provider_id):
-    """The port's HTTP providerIds resolve through a factory that raises
-    NotImplementedError naming item 5a: a pattern-only result with the
-    error in the Event, exactly the JAX pipeline's result for a factory
-    raising the same error."""
-    port = PKGS["port"]
-    try:
-        port.operator_providers.http_provider_unported()
-    except NotImplementedError as exc:
-        message = str(exc)
-    assert "item 5a" in message
+    """An HTTP providerId whose factory raises (here: an injected one)
+    degrades to a pattern-only result with the error in the Event,
+    exactly the JAX pipeline's result for the same factory."""
+    message = "the OpenAI-compatible backend failed to initialise"
     ref, ours = (run(_http_provider_case(PKGS[name], provider_id, message))
                  for name in ("jax", "port"))
     assert ours == ref
     assert ours["result_events"] > 0  # the pattern result is kept and stored
     assert ours["annotations"]["podmortem.io/analysis"]
-    assert any("item 5a" in (e["note"] or "") for e in ours["events"])
+    assert any(message in (e["note"] or "") for e in ours["events"])
 
 
 def test_operator_without_a_device_raises_without_a_card():
@@ -1029,3 +1025,171 @@ def test_port_operator_passes_gl003_deadline_propagation(tmp_path, capsys, mutat
     out = capsys.readouterr().out
     assert (rc != 0) == mutated, out
     assert ("GL003" in out) == mutated and ("clean" in out) != mutated
+
+
+# ---------------------------------------------------------------------------
+# the remote path: the operator against serving replicas over HTTP
+# ---------------------------------------------------------------------------
+
+async def _remote_operator(pkg, url: str) -> dict:
+    """The package's ``Operator`` over its fake API with ``providerId:
+    openai-compatible`` naming ``url`` (its own package's serving
+    replica): two failing pods, then the health poll and ``GET /fleet``."""
+    import urllib.request
+
+    O, s = pkg.operator, pkg.schema
+    api = O.FakeKubeApi()
+    config = pkg.utils_config.OperatorConfig(
+        pattern_cache_directory="/nonexistent", health_port=0, health_host="127.0.0.1",
+        incidents_api_token="tok", router_health_poll_s=0.0)
+    operator = O.Operator(api, config=config, metrics=pkg.utils_timing.MetricsRegistry(),
+                          **pkg.device)
+    # the replica's bearer token comes from the AIProvider's Secret
+    await api.create_obj(s.Secret(metadata=s.ObjectMeta(name="llm", namespace="ns"),
+                                  data={"token": base64.b64encode(b"sekrit").decode()}))
+    await api.create_obj(s.AIProvider(
+        metadata=s.ObjectMeta(name="remote", namespace="ns"),
+        spec=s.AIProviderSpec(provider_id="openai-compatible", api_url=url,
+                              model_id="tiny-test", temperature=0.0, max_tokens=8,
+                              authentication_ref=s.AuthenticationRef(secret_name="llm"))))
+    await api.create_obj(s.Podmortem(
+        metadata=s.ObjectMeta(name="pm", namespace="ns"),
+        spec=s.PodmortemSpec(pod_selector=s.LabelSelector(match_labels={"app": "web"}),
+                             ai_provider_ref=s.AIProviderRef(name="remote", namespace="ns"),
+                             ai_analysis_enabled=True)))
+    await operator.start()
+    try:
+        await asyncio.sleep(0.05)
+        for name, log in (("web-1", "oom_java.log"), ("web-2", "dns_failure.log")):
+            pod = _failed_pod(pkg, name=name)
+            api.set_pod_log("prod", name, _read(log), previous=True)
+            await api.create("Pod", pod.to_dict())
+            await api.patch("Pod", name, "prod", {"metadata": {"labels": {"poked": "1"}}})
+        await asyncio.sleep(0.1)
+        await operator.watcher.drain()
+        polled = await operator._http_backend.poll_replica_health(timeout_s=30.0)
+        port = operator.health_server.bound_port
+
+        def get(path, token):
+            request = urllib.request.Request(f"http://127.0.0.1:{port}{path}")
+            if token:
+                request.add_header("Authorization", f"Bearer {token}")
+            try:
+                with urllib.request.urlopen(request, timeout=30) as resp:
+                    return resp.status, json.loads(resp.read())
+            except urllib.error.HTTPError as exc:
+                return exc.code, json.loads(exc.read())
+
+        fleet = await asyncio.to_thread(get, "/fleet", "tok")
+        refused = await asyncio.to_thread(get, "/fleet", None)
+        out = {
+            "events": [{k: e.get(k) for k in ("reason", "type", "note", "regarding")}
+                       for e in await api.list("Event")],
+            "pods": [p["metadata"].get("annotations") for p in await api.list("Pod")],
+            "status": (await api.get("Podmortem", "pm", "ns")).get("status"),
+            "counters": {k: v for k, v in operator.metrics.snapshot()["counters"].items()
+                         if k.startswith(("router_", "analyses_", "provider_"))},
+            "polled": polled,
+            "fleet_status": fleet[0],
+            "fleet": fleet[1],
+            "refused": refused[0],
+        }
+    finally:
+        await operator.stop()
+    # the fleet view: every key, and the values that do not follow the
+    # engine's step timing (how the two requests met in its steps)
+    stable = ("ready", "breaker", "queueDepth", "inflight", "sloCompleted", "role",
+              "kvPagesTotal", "shedTotal", "degradedTotal")
+    out["fleet"]["replicas"] = {
+        rid: {"keys": sorted(row), **{k: row[k] for k in stable}}
+        for rid, row in out["fleet"]["replicas"].items()}
+    rollup = out["fleet"]["fleet"]
+    out["fleet"]["fleet"] = {"keys": sorted(rollup), **{
+        k: rollup[k] for k in ("replicaCount", "readyCount", "queueDepth", "inflight",
+                               "kvPagesTotal", "shedTotal", "degradedTotal", "roles")}}
+    # each package's replica has its own port: one placeholder for both
+    return normalise(json.loads(json.dumps(out).replace(url, "<replica>")))
+
+
+def test_remote_operator_stores_what_the_jax_operator_stores(torch_params_remote):
+    """``providerId: openai-compatible`` in both packages, each operator
+    against its own package's ``CompletionServer`` over the same weights:
+    the stored statuses, pod annotations, Events and router counters are
+    equal, and ``GET /fleet`` (token-gated) lists the replica with the
+    same non-wall-clock fields."""
+    from test_torch_completion_api import _Pair
+
+    pair = _Pair(*torch_params_remote, "continuous")
+    try:
+        got = {name: run(_remote_operator(PKGS[name],
+                                          f"http://127.0.0.1:{pair.ports[name]}"))
+               for name in ("jax", "port")}
+    finally:
+        pair.close()
+    assert got["port"] == got["jax"]
+    port = got["port"]
+    failures = port["status"]["recentFailures"]
+    assert len(failures) == 2
+    assert all(f["analysisStatus"] == "Analyzed" and f["explanation"] for f in failures)
+    assert port["counters"]["router_routed"] == 2
+    assert port["fleet_status"] == 200 and port["refused"] == 401
+    assert list(port["fleet"]["replicas"]) == ["<replica>"]
+    assert port["fleet"]["replicas"]["<replica>"]["ready"] is True
+
+
+@pytest.fixture(scope="module")
+def torch_params_remote():
+    """(jax_params, torch_params) at ``tiny-test`` for the serving pair."""
+    import jax.numpy as jnp
+    import numpy as np
+
+    from operator_tpu.models import TINY_TEST, init_params
+    from operator_tpu_torch.models import params_from_jax
+
+    jax_params = init_params(TINY_TEST, jax.random.PRNGKey(0), dtype=jnp.float32)
+    return jax_params, params_from_jax(jax.tree_util.tree_map(np.asarray, jax_params))
+
+
+def test_completion_api_port_serves_from_the_operator_process(monkeypatch):
+    """``COMPLETION_API_PORT=0``: the operator builds an engine on its own
+    device (the CPU here, as asked), warms it (LOADING -> READY), serves
+    ``/healthz`` with the load report and re-registers ``tpu-native`` on
+    the same engine; stop closes both."""
+    import urllib.request
+
+    port = PKGS["port"]
+    monkeypatch.setenv("OPERATOR_TPU_MODEL", "tiny-test")
+    config = port.utils_config.OperatorConfig(
+        health_port=-1, completion_api_port=0, completion_api_host="127.0.0.1",
+        allow_random_weights=True, max_batch_size=4, kv_page_size=16,
+        pattern_cache_directory="/nonexistent", serving_replica_id="op-replica")
+
+    async def body():
+        operator = port.operator.Operator(port.operator.FakeKubeApi(), config=config,
+                                          device="cpu")
+        await operator.start()
+        try:
+            assert operator.engine_warmth == "loading"
+            await asyncio.wait_for(operator.completion_task, 120)
+            assert operator.engine_warmth == "ready"
+            readiness = await operator.readiness.check()
+            server = operator.completion_server
+            url = f"http://127.0.0.1:{server.bound_port}/healthz"
+
+            def get():
+                with urllib.request.urlopen(url, timeout=30) as resp:
+                    return json.loads(resp.read())
+
+            health = await asyncio.to_thread(get)  # the server is on this loop
+            provider = operator.providers.resolve("tpu-native")
+            return health, readiness, provider.engine is server.engine, server.engine
+        finally:
+            await operator.stop()
+
+    health, readiness, shared, engine = run(body())
+    assert health["status"] == "ok" and health["replica"] == "op-replica"
+    assert health["load"]["steps"] > 0 and health["load"]["sloCompleted"] == 1
+    assert readiness.ready and "engine warm" in readiness.reason
+    assert shared
+    with pytest.raises(RuntimeError, match="closed"):
+        engine.submit("after stop")

@@ -86,6 +86,7 @@ def _resolved(engine, sched, params_dtype) -> dict:
         "page_size": g.page_size,
         "max_slots": g.max_slots,
         "continuous": sched is not None,
+        "role": engine.replica_role,
         "spec_k": sched.spec_k if sched is not None else None,
         "chunk": sched.chunk if sched is not None else None,
         "depth": sched.depth if sched is not None else None,
@@ -130,6 +131,7 @@ def _jax(env, monkeypatch) -> dict:
     ("SCHED_PIPELINE_DEPTH", "1"),
     ("SPEC_DECODE", "false"),
     ("SCHED_MODE", "wave"),
+    ("REPLICA_ROLE", "Prefill"),
 ])
 def test_provider_knob_resolves_as_the_jax_package(knob, value, monkeypatch):
     env = dict(BASE)
@@ -147,6 +149,7 @@ def test_provider_knob_resolves_as_the_jax_package(knob, value, monkeypatch):
         "KV_PREFIX_CACHE": ("prefix_cache", False),
         "KV_HOST_POOL_MB": ("host_pool_bytes", 64 << 20),
         "STEP_RING_CAPACITY": ("ring_capacity", 7),
+        "REPLICA_ROLE": ("role", "prefill"),
     }
     if knob in pins:
         key, want = pins[knob]
@@ -214,8 +217,9 @@ def checkpoint(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def served(checkpoint):
-    """Both packages' providers and HTTP servers over one checkpoint: the
-    port's on its threads, the JAX one on an event loop of its own."""
+    """Both packages' providers and HTTP servers over one checkpoint, both
+    servers on one event loop of their own (the port's engine keeps its
+    worker thread)."""
     env = {"OPERATOR_TPU_MODEL": LONG, "CHECKPOINT_DIR": checkpoint,
            "MAX_BATCH_SIZE": "4", "KV_PAGE_SIZE": "16"}
     with pytest.MonkeyPatch.context() as mp:
@@ -236,7 +240,7 @@ def served(checkpoint):
         jax_server = JaxCompletionServer(ref.engine, model_id=LONG, host="127.0.0.1", port=0)
         on_jax(jax_server.start())
         port_server = CompletionServer(port.engine, model_id=LONG, host="127.0.0.1", port=0)
-        port_server.start()
+        on_jax(port_server.start())
         try:
             yield SimpleNamespace(
                 port=port, ref=ref, on_jax=on_jax,
@@ -244,7 +248,7 @@ def served(checkpoint):
                       "jax": f"http://127.0.0.1:{jax_server.bound_port}"},
             )
         finally:
-            port_server.stop()
+            on_jax(port_server.stop())
             port.engine.close()
             on_jax(jax_server.stop())
             on_jax(ref.engine.close())

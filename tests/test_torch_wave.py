@@ -222,7 +222,7 @@ def test_wave_serving_engine_matches_jax_and_backpressures(jax_params, torch_par
         assert all(r.finish_reason == "length" for r in results)
         assert max(admitted for _, admitted in admissions) <= 2
         report = engine.load_report()
-        assert report["steps"] > 0 and report["inflight"] == 0
+        assert report.steps > 0 and report.inflight == 0
     finally:
         engine.close()
     _assert_no_leaks(generator)
@@ -282,10 +282,12 @@ def test_wave_line_admits_higher_priority_first(torch_params):
     class, as the reference's ``(-priority, seq)`` admission queue does."""
     import concurrent.futures
 
+    from operator_tpu_torch.serving.engine import _Submission
+
     engine = ServingEngine(_torch_generator(torch_params, max_slots=1, max_seq=64, page_size=16))
     for name, priority in (("a", 0), ("b", 10), ("c", 0), ("d", 10), ("e", 5), ("f", -1)):
         engine._submissions.put(
-            (name, SamplingParams(), 0.0, priority, concurrent.futures.Future()))
+            _Submission(name, SamplingParams(), 0.0, priority, concurrent.futures.Future()))
     assert engine._take_submissions(block=False)
-    assert [item[0] for item in engine._waiting] == ["b", "d", "e", "a", "c", "f"]
+    assert [item.prompt for item in engine._waiting] == ["b", "d", "e", "a", "c", "f"]
     engine.close()
