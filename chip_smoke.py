@@ -2,7 +2,7 @@
 """Chip smoke test of the PyTorch/H100 port (``operator_tpu_torch``).
 
     python3 chip_smoke.py [--out results.json]
-        [--phases device,kernels,serve,wave,analysis,checkpoint,operator,remote,parity]
+        [--phases device,kernels,serve,wave,analysis,checkpoint,operator,remote,fleet,parity]
 
 Runs on one CUDA card, from the root of a checkout; exits non-zero, and
 prints no result, when no card is present or the package is missing.
@@ -175,7 +175,43 @@ Phases, in order — any failure stops the run:
    stream, the steps from the close to the release, tokens/s, the
    per-pod stage split and the HTTP overhead per request (the provider's
    dispatch span less the replica's own request span) are printed;
-9. parity: small f32 ``tiny-test`` engines on the card (kernels) and on
+9. fleet: the operator's HA and elastic fleet, on the checkpoint phase's
+   two checkpoints (kept for it too).  (a) Two ``Operator``s, ``op-a`` and
+   ``op-b``, with ``LEADER_ELECTION`` and a 3 s lease over one
+   ``FakeKubeApi``, one claims ledger and one ``tpu-native`` engine: ten
+   failing pods (greedy; half at 32 tokens, half at 192), admission held
+   until all ten are queued; once the leader has stored an analysis and
+   still decodes, it is partitioned from its Lease and its tasks are
+   cancelled without ``release()``.  The standby must take the lease and
+   resume the leader's non-terminal claims (its admission held until all
+   are queued); the cancelled rows leave the engine and the pages
+   balance; every pod ends with one ``recentFailures`` entry from one
+   successful status write; the greedy answers equal a held replay of
+   each leader's batch.  (b) One ``Operator`` with ``DISCOVERY_ENABLED``
+   and ``AUTOSCALE_ENABLED`` (1 to 2 replicas, target pressure 4, ticks
+   and ``/healthz`` polls every 0.25 s, 2 s idle window) over a serving
+   Deployment at one replica, ``providerId: openai-compatible`` with no
+   ``apiUrl`` (the dynamic router).  A kubelet in this script follows
+   ``spec.replicas``: it builds replica B (an engine from the checkpoint,
+   a ``CompletionServer`` on an ephemeral port, one Endpoints subset) and
+   later drops its subset, stops it and closes its engine.  Ten pods held
+   on replica A until B has been prewarmed and joined, twelve more (every
+   fixture log) held on both; the autoscaler must scale 1 -> 2 on fleet pressure and back to 1
+   when idle, B must leave the ring and its engine's memory be freed, and
+   the greedy answers equal held replays on the engines that served them.
+   (c) A PatternLibrary CR naming a local git repository (skipped, with a
+   line saying so, where ``git`` is not installed): the synced pattern
+   must name the next analysis's event and K5 run at the new pattern
+   count.  (d) ``python -m operator_tpu_torch.operator`` (``_run_real``)
+   as a process of its own against a stub apiserver
+   (``operator/kubefacade.py``, ``KUBECONFIG``): a pod stored over HTTP,
+   SIGTERM exits 0 and the Lease is released; the process writes its
+   kernel counts at exit.  K1 must launch once per layer per step of
+   every drive, K5 once per semantic ``analyze()`` and recall ``query()``;
+   kill to takeover, scale-up reaction, replica start, join to the first
+   routed request, scale-down and process start to stored status are
+   printed;
+10. parity: small f32 ``tiny-test`` engines on the card (kernels) and on
    the CPU (plain versions) must give the same greedy tokens — the
    continuous engine, and the wave engine with the decode selector at
    ``v1`` and ``v2`` and flash prefill on and off; the continuous engine
@@ -3087,10 +3123,16 @@ def phase_remote(results: dict, kernel_modules: dict, dirs: dict) -> dict:
             _post(f"http://127.0.0.1:{live}/profile?seconds=1", {})), daemon=True)
         capture.start()
         time.sleep(0.2)
-        short = [threading.Thread(target=_post, args=(
-            f"http://127.0.0.1:{live}/v1/completions",
-            {"prompt": LOG_LINE[:200 + 50 * i], "max_tokens": 16, "temperature": 0.0}))
-            for i in range(4)]
+
+        def short_drive(i: int) -> None:
+            # requests until the capture ends: the profiler's start may
+            # take longer than a few short requests do
+            while capture.is_alive():
+                _post(f"http://127.0.0.1:{live}/v1/completions",
+                      {"prompt": LOG_LINE[:200 + 50 * i], "max_tokens": 16,
+                       "temperature": 0.0})
+
+        short = [threading.Thread(target=short_drive, args=(i,)) for i in range(4)]
         for thread in short:
             thread.start()
         for thread in short + [capture]:
@@ -3433,7 +3475,1066 @@ def remote_operator(dirs: dict, engine, model_id: str, servers: list, http, port
 
 
 # ---------------------------------------------------------------------------
-# phase 9: card vs CPU on a small engine
+# phase 9: the operator's HA and elastic fleet
+# ---------------------------------------------------------------------------
+
+#: the HA drive's lease: a standby takes over 3 s after the leader's last
+#: renewal (production runs 15 s / 5 s / 2 s)
+FLEET_LEASE_ENV = {"LEASE_DURATION_S": "3", "LEASE_RENEW_PERIOD_S": "0.5",
+                   "LEASE_RETRY_PERIOD_S": "0.25"}
+#: the HA drive's two AIProviders, both greedy: the short answers are
+#: stored while the long ones are still decoding when the leader dies
+FLEET_TOKENS = {"short": 32, "long": 192}
+#: the elastic drive: ten held analyses put a pressure of 10 (queued +
+#: active) on the one replica, past this target
+FLEET_TARGET_PRESSURE = 4
+FLEET_TICK_S = 0.25
+FLEET_IDLE_S = 2.0
+#: the synced library's one pattern: it matches ``oom_java.log``
+FLEET_SYNCED_PATTERN = "fleet-synced-heap"
+#: a phase's waits for the control plane (lease expiry, the autoscaler's
+#: ticks, an engine's build) are bounded by this
+FLEET_WAIT_S = 120.0
+
+
+def fleet_resources(model_name: str, provider_id: str, variants: dict,
+                    **extra) -> list:
+    """One AIProvider per variant (``maxTokens`` as given, greedy, no
+    response cache) and a Podmortem selecting ``app=payment`` pods of that
+    variant."""
+    out = []
+    for variant, max_tokens in variants.items():
+        spec = {"providerId": provider_id, "modelId": model_name, "maxTokens": max_tokens,
+                "temperature": 0.0, "cachingEnabled": False, **extra}
+        out.append(("AIProvider", {"metadata": {"name": variant, "namespace": "ops"},
+                                   "spec": spec}))
+        out.append(("Podmortem", {
+            "metadata": {"name": f"watch-payment-{variant}", "namespace": "ops"},
+            "spec": {"podSelector": {"matchLabels": {"app": "payment"}, "matchExpressions": [
+                         {"key": "variant", "operator": "In", "values": [variant]}]},
+                     "aiProviderRef": {"name": variant, "namespace": "ops"},
+                     "aiAnalysisEnabled": True}}))
+    return out
+
+
+class PartitionableApi:
+    """One replica's view of a shared ``FakeKubeApi``: every call passes
+    through, but Lease calls fail while ``partitioned`` (a partition
+    between this replica and its Lease), and each successful Podmortem
+    status write of an analysis (``recentFailures``) is recorded with its
+    time."""
+
+    def __init__(self, api) -> None:
+        self._api = api
+        self.partitioned = False
+        self.status_writes: list = []
+
+    def __getattr__(self, name):
+        return getattr(self._api, name)
+
+    def _guard(self, kind: str) -> None:
+        from operator_tpu_torch.operator.kubeapi import ApiError
+
+        if self.partitioned and kind == "Lease":
+            raise ApiError("partitioned from the apiserver", 503)
+
+    async def get(self, kind, name, namespace):
+        self._guard(kind)
+        return await self._api.get(kind, name, namespace)
+
+    async def create(self, kind, obj):
+        self._guard(kind)
+        return await self._api.create(kind, obj)
+
+    async def patch(self, kind, name, namespace, patch, **kw):
+        self._guard(kind)
+        return await self._api.patch(kind, name, namespace, patch, **kw)
+
+    async def patch_status(self, kind, name, namespace, status, **kw):
+        out = await self._api.patch_status(kind, name, namespace, status, **kw)
+        if kind == "Podmortem" and status.get("recentFailures"):
+            self.status_writes.append((time.monotonic(), name, status))
+        return out
+
+
+class EngineTap:
+    """Records every submission to one engine (prompt, params, the
+    engine's clock, the future) and holds its admission on demand
+    (``hold``/``release``; after ``hold`` give the idle worker 0.2 s to
+    read the gated admission, as the other held drives do)."""
+
+    def __init__(self, engine) -> None:
+        self.engine = engine
+        self.submit = engine.submit
+        self.admit = engine._admit_submissions
+        self.captured: list = []
+        self.first_submit_ns: "int | None" = None
+        self.gate = threading.Lock()
+        engine.submit = self._recorded
+
+    def _recorded(self, prompt, params=None, **kw):
+        if self.first_submit_ns is None:
+            self.first_submit_ns = time.monotonic_ns()
+        future = self.submit(prompt, params, **kw)
+        self.captured.append((prompt, params, kw, self.engine.generator._clock(), future))
+        return future
+
+    def _gated(self, block: bool) -> None:
+        with self.gate:
+            self.admit(block)
+
+    def hold(self) -> None:
+        # the lock first: the worker only meets the gate once it is shut
+        self.gate.acquire()
+        self.engine._admit_submissions = self._gated
+
+    def release(self) -> None:
+        self.engine._admit_submissions = self.admit
+        self.gate.release()
+
+    def close(self) -> None:
+        """Give the engine its own submit and admission back, and let go
+        of it (the captured requests stay)."""
+        if self.engine is not None:
+            self.engine.submit = self.submit
+            self.engine._admit_submissions = self.admit
+        self.engine = self.submit = self.admit = None
+
+    def replay(self, lo: int, hi: int, rng) -> list:
+        """The captured requests ``lo:hi`` again on the same engine, held
+        until all are queued, from an empty prefix cache and the sampler
+        state ``rng``, each deadline moved by one constant (earliest-
+        deadline-first admission orders the rows as in the drive)."""
+        sched = self.engine.scheduler
+        wait_idle(sched)
+        sched.spill_cache()
+        self.engine.generator._rng.set_state(rng)
+        shift = self.engine.generator._clock() - self.captured[lo][3]
+        sends = []
+        for prompt, params, kw, _, _ in self.captured[lo:hi]:
+            if params is not None and params.deadline is not None:
+                params = dataclasses.replace(params, deadline=params.deadline + shift)
+            sends.append(lambda p=prompt, s=params, k=kw: self.submit(p, s, **k).result(600))
+        results, _ = held_sends(self.engine, sends)
+        return results
+
+
+async def fleet_wait(predicate, what: str, timeout_s: float = FLEET_WAIT_S,
+                     poll_s: float = 0.002, explain=None) -> float:
+    """Wait until ``predicate()``; returns the monotonic time it held.
+    On a timeout the failure carries ``explain()``, the state to read."""
+    import asyncio
+
+    by = time.monotonic() + timeout_s
+    while not predicate():
+        if time.monotonic() > by:
+            state = explain() if explain is not None else ""
+            raise fail(f"fleet: {what} not within {timeout_s} s {state}")
+        await asyncio.sleep(poll_s)
+    return time.monotonic()
+
+
+def fleet_ledger(path: str) -> tuple:
+    """(key -> claim of the non-terminal claims, the pods whose claim is
+    done), read from the claims journal (``operator/claims.py``: claim,
+    stage, done, release)."""
+    claims: dict = {}
+    done: set = set()
+    if not os.path.exists(path):
+        return claims, done
+    with open(path, encoding="utf-8") as fh:
+        for line in fh:
+            try:
+                record = json.loads(line)
+            except ValueError:
+                continue  # a torn tail line
+            op = record.get("op")
+            if op == "claim":
+                claims[record["claim"]["key"]] = record["claim"]
+            elif op in ("done", "release"):
+                claim = claims.pop(record.get("key"), None)
+                if op == "done" and claim is not None:
+                    done.add(claim["pod_name"])
+    return claims, done
+
+
+def fleet_counter(kernel_modules: dict):
+    """``counts()``: every kernel's launches since the last call, added to
+    ``counts.total`` unless ``path`` is false (a comparison's launches, or
+    a build's); then every count is 0.  Every count starts at 0."""
+    total = {name: 0 for name in kernel_modules}
+    for module in kernel_modules.values():
+        module.launches = 0
+
+    def counts(path: bool = True) -> dict:
+        launches = {name: m.launches for name, m in kernel_modules.items()}
+        for module in kernel_modules.values():
+            module.launches = 0
+        if path:
+            for name, n in launches.items():
+                total[name] += n
+        return launches
+
+    counts.total = total
+    return counts
+
+
+def counted_k5(operator, k5_calls: dict) -> None:
+    """Count what the operator asks of K5: each semantic ``analyze()`` with
+    lines and patterns, each recall ``query()`` over a non-empty index."""
+    semantic = operator.engine.semantic
+    index = operator.memory.index if operator.memory is not None else None
+    match = semantic.match
+
+    def counted_match(lines):
+        k5_calls["analyze"] += bool(lines) and semantic.num_patterns > 0
+        return match(lines)
+
+    semantic.match = counted_match
+    if index is not None:
+        query = index.query
+
+        def counted_query(text, k=3):
+            k5_calls["query"] += len(index) > 0 and bool(text.strip())
+            return query(text, k)
+
+        index.query = counted_query
+
+
+def fleet_pods(prefix: str, variants: tuple, count: int = OPERATOR_PODS) -> list:
+    """(name, variant, log) of ``count`` pods, one per fixture log (the
+    first ``count`` by name), variants taken in turn."""
+    names = sorted(n for n in os.listdir(FIXTURES) if n.endswith(".log"))[:count]
+    return [(f"{prefix}-{i}", variants[i % len(variants)], "\n".join(fixture_lines(name)))
+            for i, name in enumerate(names)]
+
+
+async def fleet_poke(api, name: str, variant: str, log: str, finished_at: str,
+                     timeout_s: float) -> None:
+    """A failing pod, poked with the MODIFIED patch the watcher reacts to."""
+    import asyncio
+
+    api.set_pod_log("prod", name, log, previous=True)
+    await asyncio.wait_for(api.create("Pod", operator_pod(name, variant, finished_at)),
+                           timeout=timeout_s)
+    await asyncio.wait_for(
+        api.patch("Pod", name, "prod", {"metadata": {"labels": {"poked": "1"}}}),
+        timeout=timeout_s)
+
+
+async def fleet_stored(api) -> dict:
+    """podName -> its recentFailures entries, over every Podmortem."""
+    out: dict = {}
+    for cr in await api.list("Podmortem", "ops"):
+        for entry in (cr.get("status") or {}).get("recentFailures") or []:
+            out.setdefault(entry["podName"], []).append(entry)
+    return out
+
+
+def fleet_takeover(dirs: dict, counts, layers: int, card: str) -> dict:
+    """(a) Two ``Operator``s (``op-a``, ``op-b``) with leader election over
+    one ``FakeKubeApi``, one claims ledger and one ``tpu-native`` engine.
+    Ten pods fail, the admission held until all ten are queued; once the
+    leader has stored an analysis and still has rows on the engine, it is
+    partitioned from its Lease and its tasks are cancelled without
+    ``release()``.  The standby takes the lease, resumes the leader's
+    non-terminal claims (its engine admission held until all are queued)
+    and stores them."""
+    import asyncio
+
+    from operator_tpu_torch.operator import FakeKubeApi, Operator, default_registry
+    from operator_tpu_torch.operator.lease import parse_micro
+    from operator_tpu_torch.operator.storage import ANNOTATION_ANALYZED_FAILURE
+    from operator_tpu_torch.serving.provider import build_tpu_native_provider
+    from operator_tpu_torch.utils.config import OperatorConfig
+    from operator_tpu_torch.utils.timing import MetricsRegistry
+
+    env = {**CHECKPOINT_ENV, "MODEL_ID": CHECKPOINT_ENV["OPERATOR_TPU_MODEL"],
+           "CHECKPOINT_DIR": dirs["llm"], "ENCODER_CHECKPOINT_DIR": dirs["encoder"],
+           "PATTERN_CACHE_DIRECTORY": os.path.join(dirs["workdir"], "no-pattern-cache"),
+           "CLAIMS_PATH": os.path.join(dirs["workdir"], "fleet-claims.jsonl"),
+           "HEALTH_PORT": "-1", "ROUTER_HEALTH_POLL_S": "0", "LEADER_ELECTION": "true",
+           **FLEET_LEASE_ENV}
+    provider = build_tpu_native_provider("cuda", env)
+    engine = provider.engine
+    sched = engine.scheduler
+    shared = FakeKubeApi()
+    shared.namespace = "ops"
+    ops, apis = {}, {}
+    for name in ("op-a", "op-b"):
+        registry = default_registry()
+        registry.register("tpu-native", provider)
+        apis[name] = PartitionableApi(shared)
+        ops[name] = Operator(apis[name], config=OperatorConfig.from_env({**env, "POD_NAME": name}),
+                             providers=registry, metrics=MetricsRegistry())
+    a, b = ops["op-a"], ops["op-b"]
+    timeout = a.config.kube_call_timeout_s
+    k5_calls = {"analyze": 0, "query": 0}
+    for operator in ops.values():
+        counted_k5(operator, k5_calls)
+    pods = fleet_pods("payment", tuple(FLEET_TOKENS))
+    # each pod's final answer (the standby's, for a resumed pod)
+    answers: dict = {}
+    generate = provider.generate
+
+    async def answered(request):
+        response = await generate(request)
+        answers[request.failure_data.pod.metadata.name] = response
+        return response
+
+    provider.generate = answered
+    engine.warmup()
+    asyncio.run(generate(provider_requests()[0]))
+    wait_idle(sched)
+    tap = EngineTap(engine)
+
+    async def drive() -> dict:
+        for kind, obj in fleet_resources(engine.generator.config.name, "tpu-native", FLEET_TOKENS):
+            await asyncio.wait_for(shared.create(kind, obj), timeout=timeout)
+        await a.start()
+        await fleet_wait(lambda: a.elector.is_leader and bool(a._control_tasks), "op-a leading")
+        await b.start()
+        await asyncio.sleep(0.5)  # a live leader renews: the standby waits
+        if b.elector.is_leader:
+            raise fail("fleet takeover: the standby took a live leader's lease")
+        if not await a.cr_cache.wait_ready(FLEET_WAIT_S):
+            raise fail("fleet takeover: op-a's Podmortem cache never primed")
+        sched.spill_cache()
+        counts(path=False)
+        steps0 = sched.steps
+        tap.hold()
+        try:
+            await asyncio.sleep(0.2)  # the idle worker reads the gated admission
+            started = time.monotonic_ns()
+            for i, (name, variant, log) in enumerate(pods):
+                await fleet_poke(shared, name, variant, log, f"2026-07-28T09:{i:02d}:00Z", timeout)
+            await fleet_wait(lambda: engine._submissions.qsize() >= len(pods),
+                             "the leader's ten requests queued")
+            rng_a = engine.generator._rng.get_state()
+        finally:
+            tap.release()
+        # the leader dies once it has stored an answer, each stored pod's
+        # claim is done on disk (else the standby redoes a pod stored
+        # without the durable marker: a blank answer), and it still decodes
+        def stored_and_done() -> bool:
+            writes = apis["op-a"].status_writes
+            if len(writes) == len(pods):
+                return True
+            stored = {w[2]["recentFailures"][0]["podName"] for w in writes}
+            return (bool(stored) and sched.num_active > 0
+                    and stored <= fleet_ledger(env["CLAIMS_PATH"])[1])
+
+        await fleet_wait(stored_and_done, "the leader's first stored analysis", poll_s=0.002)
+        if len(apis["op-a"].status_writes) == len(pods):
+            raise fail("fleet takeover: the leader stored every pod before the kill")
+        killed_wall, killed = time.time(), time.monotonic()
+        apis["op-a"].partitioned = True
+        a.pipeline.claims.abandon()
+        dead = [*a._tasks, *a._control_tasks]
+        for task in dead:
+            task.cancel()
+        a.watcher.cancel_inflight()
+        await asyncio.gather(*dead, return_exceptions=True)
+        await a.watcher.drain()
+        captured_a = len(tap.captured)
+        cancelled = sum(c[4].cancelled() for c in tap.captured)
+        # the cancelled generations leave the engine: rows and pages back
+        await fleet_wait(lambda: sched.num_active == 0 and sched.queue_depth == 0
+                         and not engine._pending, "the deposed leader's rows released")
+        released = balanced(sched, "after the leader's kill")
+        # what the standby must redo: the ledger's non-terminal claims
+        # whose pod lacks the durable marker (a stored answer with text)
+        pending, _ = fleet_ledger(env["CLAIMS_PATH"])
+        resumable = 0
+        for claim in pending.values():
+            pod = await shared.get("Pod", claim["pod_name"], claim["pod_namespace"])
+            marker = (pod["metadata"].get("annotations") or {}).get(ANNOTATION_ANALYZED_FAILURE)
+            resumable += marker != claim["failure_time"]
+
+        def state() -> str:
+            counters = {k: v for k, v in b.metrics.snapshot()["counters"].items()
+                        if not k.startswith(("slo_", "router_"))}
+            events = sorted((e.get("reason"), (e.get("note") or "")[:80])
+                            for e in shared._bucket("Event").values()
+                            if e.get("reason") != "PodFailureDetected")
+            return (f"(captured {len(tap.captured)} of {captured_a} + {resumable}, queued "
+                    f"{engine._submissions.qsize()}, active {sched.num_active}, standby "
+                    f"leading {b.elector.is_leader}, control {len(b._control_tasks)}, "
+                    f"writes {len(apis['op-b'].status_writes)}, counters {counters}, "
+                    f"events {events})")
+
+        tap.hold()
+        try:
+            await asyncio.sleep(0.2)
+            sched.spill_cache()
+            await fleet_wait(lambda: b.elector.is_leader, "the standby's takeover",
+                             explain=state)
+            await fleet_wait(lambda: len(tap.captured) >= captured_a + resumable,
+                             "the standby's resumed requests queued", explain=state)
+            rng_b = engine.generator._rng.get_state()
+        finally:
+            tap.release()
+        await fleet_wait(lambda: len(apis["op-b"].status_writes) >= resumable,
+                         "the standby's stored analyses", explain=state)
+        await fleet_wait(lambda: bool(b._control_tasks), "the standby's control loops")
+        await b.watcher.drain()
+        wait_idle(sched)
+        wall_s = (time.monotonic_ns() - started) / 1e9
+        steps, launches = sched.steps - steps0, counts()
+        lease = (await shared.get("Lease", b.config.lease_name, "ops"))["spec"]
+        stored = await fleet_stored(shared)
+        await b.stop()
+        released_lease = (await shared.get("Lease", b.config.lease_name, "ops"))["spec"]
+        return {"rng": (rng_a, rng_b), "captured_a": captured_a, "cancelled": cancelled,
+                "killed_wall": killed_wall, "killed": killed, "resumable": resumable,
+                "released": released,
+                "steps": steps, "launches": launches, "wall_s": wall_s, "lease": lease,
+                "released_lease": released_lease, "stored": stored}
+
+    try:
+        run = asyncio.run(drive())
+    finally:
+        provider.generate = generate
+    # every pod: one recentFailures entry and one successful status write
+    stored, writes = run["stored"], [w for api in apis.values() for w in api.status_writes]
+    names = [name for name, _, _ in pods]
+    entries = {name: len(stored.get(name, [])) for name in names}
+    if any(n != 1 for n in entries.values()) or len(writes) != len(pods):
+        raise fail(f"fleet takeover: entries per pod {entries}, {len(writes)} status writes")
+    resumed = b.metrics.counter("claims_resumed")
+    if (resumed != run["resumable"] or run["lease"]["holderIdentity"] != "op-b"
+            or run["released_lease"]["holderIdentity"] != ""):
+        raise fail(f"fleet takeover: {resumed} claims resumed of {run['resumable']}, lease "
+                   f"{run['lease']} then {run['released_lease']}")
+    launches, steps = run["launches"], run["steps"]
+    k5 = k5_calls["analyze"] + k5_calls["query"]
+    if (launches["ragged_paged_attention"] != layers * steps or not steps
+            or launches["best_window_similarity"] != k5
+            or launches["paged_decode_attention"] or launches["flash_prefill_attention"]):
+        raise fail(f"fleet takeover: launches {launches} over {steps} steps, K5 calls {k5_calls}")
+    # the greedy answers against a held replay of each leader's batch
+    counts(path=False)
+    rng_a, rng_b = run["rng"]
+    replay_a = tap.replay(0, run["captured_a"], rng_a)
+    replay_b = (tap.replay(run["captured_a"], len(tap.captured), rng_b)
+                if len(tap.captured) > run["captured_a"] else [])
+    tap.close()
+    counts(path=False)  # the replays' launches are not the path's
+    by_prompt = {}
+    for (prompt, _, _, _, future), again in zip(tap.captured, replay_a + replay_b):
+        if not future.cancelled() and future.exception() is None:
+            by_prompt[prompt] = (future.result().token_ids, again.token_ids)
+    unequal = [p[:60] for p, (got, want) in by_prompt.items() if got != want]
+    a_writer = {w[2]["recentFailures"][0]["podName"] for w in apis["op-a"].status_writes}
+    if unequal or len(by_prompt) < len(pods):
+        raise fail(f"fleet takeover: {len(unequal)} greedy answers differ from the replay "
+                   f"({len(by_prompt)} compared): {unequal}")
+    completion = sum(answers[n].completion_tokens for n in names)
+    first_resumed = min(t for t, _, _ in apis["op-b"].status_writes)
+    out = {
+        "card": card, "pods": len(pods), "stored_by_leader": sorted(a_writer),
+        "claims_resumed": resumed, "cancelled_generations": run["cancelled"],
+        "pages_after_kill": run["released"],
+        "kill_to_lease_s": parse_micro(run["lease"]["acquireTime"]) - run["killed_wall"],
+        "kill_to_first_resumed_stored_s": first_resumed - run["killed"],
+        "steps": steps, "launches": launches, "k5_calls": k5_calls,
+        "completion_tokens": completion, "first_poke_to_drain_s": run["wall_s"],
+        "tokens_per_s": completion / run["wall_s"], "greedy_equal_replay": len(by_prompt),
+    }
+    print(json.dumps({"fleet_takeover": out}), flush=True)
+    engine.close()
+    return out
+
+
+def fleet_elastic(dirs: dict, counts, layers: int, card: str) -> dict:
+    """(b) One ``Operator`` with endpoint discovery and the autoscaler over
+    a serving Deployment at one replica.  A small kubelet follows the
+    Deployment's ``spec.replicas``: for a new replica it builds an engine
+    from the checkpoint on the card, serves it with a ``CompletionServer``
+    on an ephemeral port and adds one Endpoints subset; for a removed one
+    it drops the subset, then stops the server and closes the engine.  Ten
+    pods fail against replica A, their requests held there until B has
+    joined; twelve more go to both, held per replica until all are
+    queued; the idle fleet then scales back to one."""
+    import asyncio
+    import gc
+
+    import torch
+
+    from operator_tpu_torch.operator import FakeKubeApi, Operator
+    from operator_tpu_torch.serving.httpserver import CompletionServer
+    from operator_tpu_torch.serving.provider import build_serving_engine
+    from operator_tpu_torch.utils.config import OperatorConfig
+    from operator_tpu_torch.utils.timing import MetricsRegistry
+
+    engine_env = {**CHECKPOINT_ENV, "CHECKPOINT_DIR": dirs["llm"]}
+    config = OperatorConfig.from_env({
+        "ENCODER_CHECKPOINT_DIR": dirs["encoder"],
+        "PATTERN_CACHE_DIRECTORY": os.path.join(dirs["workdir"], "no-pattern-cache"),
+        "HEALTH_PORT": "0", "HEALTH_HOST": "127.0.0.1", "INCIDENTS_API_TOKEN": "fleet",
+        "DISCOVERY_ENABLED": "true", "DISCOVERY_SERVICE": "podmortem-serving",
+        "AUTOSCALE_ENABLED": "true", "AUTOSCALE_DEPLOYMENT": "podmortem-serving",
+        "AUTOSCALE_MIN_REPLICAS": "1", "AUTOSCALE_MAX_REPLICAS": "2",
+        "AUTOSCALE_INTERVAL_S": str(FLEET_TICK_S),
+        "AUTOSCALE_TARGET_PRESSURE": str(FLEET_TARGET_PRESSURE),
+        "ROUTER_HEALTH_POLL_S": str(FLEET_TICK_S), "SCALE_TO_ZERO_IDLE_S": str(FLEET_IDLE_S),
+        # the held batches queue ten at a replica: above the overload
+        # ladder's default shed line (8), which would drop the last ones
+        # to pattern-only answers whenever a poll lands mid-batch
+        "SHED_PRESSURE": "64",
+        "WATCH_RESTART_DELAY_S": "0.1"})
+    api = FakeKubeApi()
+    api.namespace = "ops"
+    timeout = config.kube_call_timeout_s
+    model_id = CHECKPOINT_ENV["OPERATOR_TPU_MODEL"]
+    http = HttpLoop()
+    replicas: dict = {}  # name -> engine, server, port, the build's numbers
+    taps: dict = {}  # name -> EngineTap (kept after the replica is gone)
+    timeline: dict = {}
+    k1 = "ragged_paged_attention"
+
+    def start_replica(name: str) -> dict:
+        """An engine from the checkpoint on the card, warmed and served on
+        an ephemeral port; returns once ``/healthz`` answers.  The warmup's
+        K1 launches are the build's, not the path's (the other replica's
+        admission is held meanwhile, so none of them is a step's)."""
+        t0 = time.monotonic()
+        counts()
+        allocated = torch.cuda.memory_allocated()
+        engine, _ = build_serving_engine("cuda", engine_env)
+        engine.warmup()
+        built_bytes = torch.cuda.memory_allocated() - allocated
+        warmup = counts(path=False)
+        for kernel, n in warmup.items():
+            counts.total[kernel] += 0 if kernel == k1 else n
+        server = CompletionServer(engine, model_id=model_id, host="127.0.0.1", port=0,
+                                  replica_id=name)
+        http.run(server.start())
+        status = healthz(server.bound_port).get("status")
+        taps[name] = EngineTap(engine)
+        replicas[name] = {"engine": engine, "server": server, "port": server.bound_port,
+                          "url": f"http://127.0.0.1:{server.bound_port}",
+                          "steps0": engine.scheduler.steps, "start_s": time.monotonic() - t0,
+                          "warmup_launches": warmup, "healthz": status,
+                          "built_bytes": built_bytes}
+        return replicas[name]
+
+    def stop_replica(name: str) -> dict:
+        replica = replicas[name]
+        before = torch.cuda.memory_allocated()
+        taps[name].close()
+        http.run(replica.pop("server").stop(), timeout=120)
+        engine = replica.pop("engine")
+        engine.close()
+        replica["steps"] = engine.scheduler.steps - replica["steps0"]
+        del engine
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        return {"allocated_before": before, "allocated_after": torch.cuda.memory_allocated()}
+
+    def subset(port: int) -> dict:
+        return {"addresses": [{"ip": "127.0.0.1"}], "ports": [{"name": "http", "port": port}]}
+
+    async def set_subsets(names: list) -> None:
+        await asyncio.wait_for(api.patch("Endpoints", "podmortem-serving", "ops", {
+            "subsets": [subset(replicas[n]["port"]) for n in names]}), timeout=timeout)
+
+    async def kubelet() -> None:
+        """Follow the Deployment's spec.replicas: one subset per replica."""
+        _, cursor = await api.list_rv("Deployment", "ops")
+        async for event in api.watch("Deployment", "ops", resource_version=cursor):
+            want = int((event.object.get("spec") or {}).get("replicas") or 0)
+            live = sorted(n for n, r in replicas.items() if "engine" in r)
+            if want > len(live) and "replica-b" not in replicas:
+                timeline["patched_up"] = time.monotonic()
+                await asyncio.to_thread(start_replica, "replica-b")
+                timeline["b_ready"] = time.monotonic()
+                await set_subsets(["replica-a", "replica-b"])
+            elif want < len(live) and "replica-b" in live:
+                timeline["patched_down"] = time.monotonic()
+                await set_subsets(["replica-a"])
+                timeline["b_memory"] = await asyncio.to_thread(stop_replica, "replica-b")
+                timeline["b_stopped"] = time.monotonic()
+
+    # a Podmortem's status keeps its newest ten entries: one Podmortem for
+    # the first batch, two for the later one.  The later pods take every
+    # fixture log, so their twelve fingerprints (the router's affinity
+    # keys) spread over both replicas' ring arcs (all twelve on one arc
+    # is under 1 % likely at an even split); their logs repeat the first
+    # ones', and cachingEnabled: false keeps the recall hits from reusing
+    # the first answers
+    pods = fleet_pods("payment", ("first",))
+    later = fleet_pods("payment-later", ("later", "later-b"),
+                       count=len([n for n in os.listdir(FIXTURES) if n.endswith(".log")]))
+    stored_names: list = []
+    try:
+        a = start_replica("replica-a")
+        operator = Operator(api, config=config, metrics=MetricsRegistry())
+        k5_calls = {"analyze": 0, "query": 0}
+        counted_k5(operator, k5_calls)
+        backend = operator._http_backend
+        decisions: list = []
+        tick = operator.autoscaler.tick
+
+        async def recorded_tick():
+            """Every verdict but a hold; a repeat of the last one only
+            counts."""
+            decision = await tick()
+            if decision.action == "hold":
+                return decision
+            if decisions and tuple(decisions[-1][1:3]) == (decision.desired, decision.action):
+                decisions[-1][4] += 1
+            else:
+                decisions.append([time.monotonic(), decision.desired, decision.action,
+                                  decision.reason, 1])
+            return decision
+
+        operator.autoscaler.tick = recorded_tick
+        prewarmed: list = []
+        prewarm = operator.discovery.prewarm
+
+        async def recorded_prewarm(replica):
+            ok = await prewarm(replica)
+            prewarmed.append((replica.id, ok))
+            return ok
+
+        operator.discovery.prewarm = recorded_prewarm
+        store = operator.storage.store_to_podmortem_status
+
+        async def recorded_store(podmortem, pod, *args, **kw):
+            out = await store(podmortem, pod, *args, **kw)
+            stored_names.append(pod.metadata.name)
+            return out
+
+        operator.storage.store_to_podmortem_status = recorded_store
+        # the first time the fleet rollup's pressure reaches the target
+        crossed: dict = {}
+
+        async def watch_pressure() -> None:
+            while True:
+                pressure = (backend.fleet_view().get("fleet") or {}).get("pressure")
+                if pressure is not None and pressure >= FLEET_TARGET_PRESSURE:
+                    crossed.setdefault("at", time.monotonic())
+                await asyncio.sleep(0.005)
+
+        async def fleet_get() -> dict:
+            url = f"http://127.0.0.1:{operator.health_server.bound_port}/fleet"
+
+            def get():
+                request = urllib.request.Request(url, headers={"Authorization": "Bearer fleet"})
+                with urllib.request.urlopen(request, timeout=30) as resp:
+                    return json.loads(resp.read())
+
+            return await asyncio.to_thread(get)
+
+        async def batch(pods_: list, names: list, what: str, *, until=None) -> list:
+            """Poke the pods, each named replica's admission held until all
+            their requests are queued (and ``until()`` holds); returns
+            (replica, lo, hi, sampler state) per replica."""
+            lows = {n: len(taps[n].captured) for n in names}
+            for n in names:
+                taps[n].hold()
+            try:
+                await asyncio.sleep(0.2)  # the idle workers read the gated admission
+                timeline.setdefault(f"{what} poked", time.monotonic())
+                for i, (name, variant, log) in enumerate(pods_):
+                    await fleet_poke(api, name, variant, log, f"2026-07-28T11:{i:02d}:00Z",
+                                     timeout)
+                await fleet_wait(lambda: sum(len(taps[n].captured) - lows[n] for n in names)
+                                 >= len(pods_), f"{what}'s requests queued")
+                if until is not None:
+                    await until()
+                return [(n, lows[n], len(taps[n].captured),
+                         replicas[n]["engine"].generator._rng.get_state()) for n in names]
+            finally:
+                for n in names:
+                    taps[n].release()
+
+        async def b_joined() -> None:
+            await fleet_wait(lambda: "replica-b" in replicas and replicas["replica-b"]["url"]
+                             in operator.discovery.members(), "replica B's join")
+            timeline["b_joined"] = time.monotonic()
+
+        async def drive() -> dict:
+            await asyncio.wait_for(api.create("Deployment", {
+                "metadata": {"name": "podmortem-serving", "namespace": "ops"},
+                "spec": {"replicas": 1}}), timeout=timeout)
+            await asyncio.wait_for(api.create("Endpoints", {
+                "metadata": {"name": "podmortem-serving", "namespace": "ops"},
+                "subsets": [subset(a["port"])]}), timeout=timeout)
+            for kind, obj in fleet_resources(model_id, "openai-compatible",
+                                             {"first": MAX_TOKENS, "later": MAX_TOKENS,
+                                              "later-b": MAX_TOKENS},
+                                             maxRetries=3, timeoutSeconds=300):
+                await asyncio.wait_for(api.create(kind, obj), timeout=timeout)
+            side = [asyncio.create_task(kubelet()), asyncio.create_task(watch_pressure())]
+            try:
+                await operator.start()
+                await fleet_wait(lambda: operator.discovery.members() == [a["url"]],
+                                 "replica A's join")
+                a["engine"].scheduler.spill_cache()
+                counts(path=False)
+                started = time.monotonic_ns()
+                first = await batch(pods, ["replica-a"], "the first batch", until=b_joined)
+                await fleet_wait(lambda: len(stored_names) >= len(pods), "the first batch stored")
+                b = replicas["replica-b"]
+                for replica in (a, b):
+                    wait_idle(replica["engine"].scheduler)
+                    replica["engine"].scheduler.spill_cache()
+                second = await batch(later, ["replica-a", "replica-b"], "the second batch")
+                await fleet_wait(lambda: len(stored_names) >= len(pods) + len(later),
+                                 "the second batch stored")
+                await operator.watcher.drain()
+                wall_s = (time.monotonic_ns() - started) / 1e9
+                for replica in (a, b):
+                    wait_idle(replica["engine"].scheduler)
+                counts()
+                steps = {n: r["engine"].scheduler.steps - r["steps0"] for n, r in replicas.items()}
+                scaled_up = await fleet_get()
+                # the held replays, on the engine that served each request
+                replays = [(n, lo, await asyncio.to_thread(taps[n].replay, lo, hi, rng))
+                           for n, lo, hi, rng in first + second if hi > lo]
+                counts(path=False)
+                idle_from = time.monotonic()
+                await fleet_wait(lambda: "b_stopped" in timeline, "the scale-down")
+                await fleet_wait(lambda: operator.discovery.members() == [a["url"]],
+                                 "replica B's leave")
+                scaled_down = await fleet_get()
+                stored = await fleet_stored(api)
+                await operator.stop()
+            finally:
+                for task in side:
+                    task.cancel()
+                await asyncio.gather(*side, return_exceptions=True)
+            return {"first": first, "second": second, "wall_s": wall_s, "steps": steps,
+                    "replays": replays, "idle_from": idle_from, "fleet_up": scaled_up,
+                    "fleet_down": scaled_down, "stored": stored}
+
+        run = asyncio.run(drive())
+    finally:
+        for name, replica in list(replicas.items()):
+            if "engine" in replica:
+                taps[name].close()
+                replica["engine"].close()
+        http.stop()
+    names = [n for n, _, _ in pods + later]
+    missing = [n for n in names if len(run["stored"].get(n, [])) != 1]
+    ups = [d for d in decisions if d[2] == "up"]
+    downs = [d for d in decisions if d[2] == "down"]
+    b = replicas["replica-b"]
+    if missing or not ups or "fleet_pressure" not in ups[0][3] or not downs or not crossed:
+        raise fail(f"fleet elastic: pods without one entry {missing}, decisions {decisions}, "
+                   f"pressure crossing {crossed}")
+    if [ok for rid, ok in prewarmed if rid == b["url"]] != [True]:
+        raise fail(f"fleet elastic: replica B was not prewarmed once before its join: {prewarmed}")
+    later_per_replica = {n: hi - lo for n, lo, hi, _ in run["second"]}
+    routing = {k: v for k, v in operator.metrics.snapshot()["counters"].items()
+               if k.startswith(("router_", "ring_"))}
+    if 0 in later_per_replica.values():
+        raise fail(f"fleet elastic: the later pods all went to one replica: {later_per_replica}; "
+                   f"router counters {routing}")
+    # B's stop must give back (nearly) what its build took: the fleet is
+    # idle then, while the build shared the card with the first batch's
+    # analyses
+    memory = timeline["b_memory"]
+    freed = memory["allocated_before"] - memory["allocated_after"]
+    if b["built_bytes"] <= 0 or freed < 0.9 * b["built_bytes"]:
+        raise fail(f"fleet elastic: replica B's memory not freed: its build took "
+                   f"{b['built_bytes']} bytes, its stop gave back {freed} ({memory})")
+    launches, steps = counts.total, sum(run["steps"].values())
+    k5 = k5_calls["analyze"] + k5_calls["query"]
+    if (launches[k1] != layers * steps or not steps or launches["best_window_similarity"] != k5
+            or launches["paged_decode_attention"] or launches["flash_prefill_attention"]):
+        raise fail(f"fleet elastic: launches {launches} over {run['steps']} steps, "
+                   f"K5 calls {k5_calls}")
+    # the greedy answers against the held replays, engine by engine
+    unequal, compared = [], 0
+    for name, lo, results_ in run["replays"]:
+        for (prompt, _, _, _, future), again in zip(taps[name].captured[lo:], results_):
+            compared += 1
+            if future.result().token_ids != again.token_ids:
+                unequal.append((name, prompt[:60]))
+    if unequal or compared != len(names):
+        raise fail(f"fleet elastic: {len(unequal)} of {compared} greedy answers differ from "
+                   f"the replay: {unequal}")
+    out = {
+        "card": card, "pods": len(names), "target_pressure": FLEET_TARGET_PRESSURE,
+        "decisions": [{"at_s": t - crossed["at"], "desired": d, "action": act, "reason": why,
+                       "ticks": n} for t, d, act, why, n in decisions],
+        "scale_up_reaction_s": timeline["patched_up"] - crossed["at"],
+        "replica_start_s": b["start_s"],
+        # the later batch is poked once the first is stored: the first
+        # routed request's wait after the join is the drive's schedule;
+        # from the poke it is the operator's own path to the new replica
+        "join_to_first_routed_s": taps["replica-b"].first_submit_ns / 1e9 - timeline["b_joined"],
+        "later_poke_to_first_routed_on_b_s": (taps["replica-b"].first_submit_ns / 1e9
+                                              - timeline["the second batch poked"]),
+        "idle_to_scale_down_patch_s": timeline["patched_down"] - run["idle_from"],
+        "scale_down_patch_to_stopped_s": timeline["b_stopped"] - timeline["patched_down"],
+        "later_per_replica": later_per_replica, "replica_b_built_bytes": b["built_bytes"],
+        "replica_b_freed_bytes": freed, "replica_b_memory": memory,
+        "fleet_scaled_up": {k: run["fleet_up"].get(k) for k in (
+            "fleetSize", "desiredReplicas", "lastScaleReason")},
+        "fleet_scaled_down": {k: run["fleet_down"].get(k) for k in (
+            "fleetSize", "desiredReplicas", "lastScaleReason")},
+        "steps": run["steps"], "launches": dict(launches),
+        "b_warmup_launches": b["warmup_launches"], "k5_calls": k5_calls,
+        "first_poke_to_drain_s": run["wall_s"], "greedy_equal_replay": compared,
+    }
+    print(json.dumps({"fleet_elastic": out}), flush=True)
+    return out
+
+
+def fleet_pattern_sync(dirs: dict, counts, layers: int, card: str) -> dict:
+    """(c) A PatternLibrary CR naming a local git repository that holds one
+    library whose pattern matches ``oom_java.log``: the reconciler clones
+    it at ``start()``, the engine reloads and the semantic matcher
+    re-embeds on the card; the next analysis names the synced pattern and
+    K5 runs at the new pattern count."""
+    import asyncio
+
+    from operator_tpu_torch.operator import FakeKubeApi, Operator
+    from operator_tpu_torch.patterns import semantic as semantic_module
+    from operator_tpu_torch.utils.config import OperatorConfig
+    from operator_tpu_torch.utils.timing import MetricsRegistry
+
+    git = shutil.which("git")
+    if git is None:
+        note = "skipped: git is not installed on this machine (a host tool, not the device)"
+        print(json.dumps({"fleet_pattern_sync": note, "card": card}), flush=True)
+        return {"skipped": note}
+    remote = os.path.join(dirs["workdir"], "patterns-remote")
+    os.makedirs(remote, exist_ok=True)
+    with open(os.path.join(remote, "fleet.yaml"), "w") as fh:
+        json.dump({"metadata": {"libraryId": "fleet-team"}, "patterns": [{
+            "id": FLEET_SYNCED_PATTERN, "name": "Synced: Java heap exhausted",
+            "severity": "CRITICAL",
+            "primaryPattern": {"regex": "java\\.lang\\.OutOfMemoryError", "confidence": 0.99},
+        }]}, fh)  # JSON is YAML
+    git_env = {"GIT_AUTHOR_NAME": "fleet", "GIT_AUTHOR_EMAIL": "fleet@localhost",
+               "GIT_COMMITTER_NAME": "fleet", "GIT_COMMITTER_EMAIL": "fleet@localhost",
+               "HOME": dirs["workdir"], "PATH": os.environ.get("PATH", "")}
+    for args in (["init", "-q", "-b", "main"], ["add", "-A"], ["commit", "-q", "-m", "fleet"]):
+        subprocess.run([git, *args], cwd=remote, env=git_env, check=True, capture_output=True,
+                       timeout=60)
+    config = OperatorConfig.from_env({
+        "ENCODER_CHECKPOINT_DIR": dirs["encoder"], "HEALTH_PORT": "-1",
+        "PATTERN_CACHE_DIRECTORY": os.path.join(dirs["workdir"], "pattern-cache"),
+        "MEMORY_ENABLED": "false"})
+    operator = Operator(FakeKubeApi(), config=config, metrics=MetricsRegistry())
+    api, semantic = operator.api, operator.engine.semantic
+    timeout = config.kube_call_timeout_s
+    patterns_before = semantic.num_patterns
+    analyses: list = []
+    analyze = operator.engine.analyze
+
+    def recorded_analyze(data):
+        result = analyze(data)
+        analyses.append(result)
+        return result
+
+    operator.engine.analyze = recorded_analyze
+    k5 = StreamSpans(semantic_module.best_window_scores)
+
+    async def drive() -> dict:
+        for kind, obj in fleet_resources("template", "template", {"synced": 32}):
+            await asyncio.wait_for(api.create(kind, obj), timeout=timeout)
+        await asyncio.wait_for(api.create("PatternLibrary", {
+            "metadata": {"name": "team-patterns", "namespace": "ops"},
+            "spec": {"repositories": [{"name": "local", "url": remote, "branch": "main"}],
+                     "refreshInterval": "1h"}}), timeout=timeout)
+        started = time.monotonic()
+        await operator.start()
+        await fleet_wait(lambda: semantic.num_patterns > patterns_before,
+                         "the synced library's re-embedding")
+        synced_s = time.monotonic() - started
+        status = (await api.get("PatternLibrary", "team-patterns", "ops")).get("status") or {}
+        counts(path=False)
+        semantic_module.best_window_scores = k5
+        try:
+            await fleet_poke(api, "payment-synced", "synced", "\n".join(fixture_lines(
+                "oom_java.log")), "2026-07-28T12:00:00Z", timeout)
+            await fleet_wait(lambda: analyses, "the analysis after the sync")
+            await operator.watcher.drain()
+        finally:
+            semantic_module.best_window_scores = k5.fn
+        launches = counts()
+        stored = await fleet_stored(api)
+        await operator.stop()
+        return {"status": status, "synced_s": synced_s, "launches": launches, "stored": stored}
+
+    run = asyncio.run(drive())
+    status, launches = run["status"], run["launches"]
+    events = [e.matched_pattern.id for e in analyses[-1].events]
+    repos = [(r.get("name"), r.get("status")) for r in status.get("syncedRepositories") or []]
+    k5_patterns = [args[1].shape[0] for _, _, args, _ in k5.calls]
+    if (FLEET_SYNCED_PATTERN not in events or repos != [("local", "Synced")]
+            or status.get("phase") != "Ready" or k5_patterns != [patterns_before + 1]
+            or launches["best_window_similarity"] != 1 or launches["ragged_paged_attention"]
+            or len(run["stored"].get("payment-synced", [])) != 1):
+        raise fail(f"fleet pattern sync: events {events}, status {status}, K5 over "
+                   f"{k5_patterns} patterns (before {patterns_before}), launches {launches}")
+    out = {"card": card, "patterns_before": patterns_before, "patterns_after": k5_patterns[0],
+           "events": events, "status": {k: status.get(k) for k in (
+               "phase", "message", "availableLibraries", "syncedRepositories")},
+           "start_to_reembedded_s": run["synced_s"], "launches": launches,
+           "stored": run["stored"]["payment-synced"][0].get("explanation")}
+    print(json.dumps({"fleet_pattern_sync": out}), flush=True)
+    return out
+
+
+#: ``python -m operator_tpu_torch.operator`` as the deployed entry point
+#: runs it, plus an exit hook that writes the process's kernel launch
+#: counts and its engine's steps to ``FLEET_COUNTS_PATH``
+FLEET_LAUNCHER = """
+import atexit, json, os, runpy
+from operator_tpu_torch.ops import flash_prefill, paged_attention, ragged_attention, similarity
+from operator_tpu_torch.serving import provider
+built = []
+build = provider.build_tpu_native_provider
+def recorded(*args, **kwargs):
+    built.append(build(*args, **kwargs))
+    return built[-1]
+provider.build_tpu_native_provider = recorded
+def dump():
+    modules = {"ragged_paged_attention": ragged_attention,
+               "paged_decode_attention": paged_attention,
+               "flash_prefill_attention": flash_prefill, "best_window_similarity": similarity}
+    with open(os.environ["FLEET_COUNTS_PATH"], "w") as fh:
+        json.dump({"launches": {n: m.launches for n, m in modules.items()},
+                   "steps": [b.engine.scheduler.steps for b in built]}, fh)
+atexit.register(dump)
+runpy.run_module("operator_tpu_torch.operator", run_name="__main__", alter_sys=True)
+"""
+
+
+def fleet_cli(dirs: dict, counts, layers: int, card: str) -> dict:
+    """(d) ``python -m operator_tpu_torch.operator`` (no ``--demo``:
+    ``_run_real``) in a process of its own, with ``KUBECONFIG`` naming a
+    stub apiserver served here (``kubefacade.KubeFacade``: a
+    ``FakeKubeApi`` behind the paths ``HttpKubeApi`` builds), leader
+    election on and ``providerId: tpu-native`` on the checkpoints: one
+    failing pod is stored through HTTP, SIGTERM exits 0 and the Lease is
+    released."""
+    import signal
+
+    from operator_tpu_torch.operator.kubefacade import KubeFacade
+
+    facade = KubeFacade(namespace="ops").start()
+    api = facade.api
+    workdir = dirs["workdir"]
+    counts_path = os.path.join(workdir, "fleet-cli-counts.json")
+    log_path = os.path.join(workdir, "fleet-cli.log")
+    env = {k: v for k, v in os.environ.items() if k != "KUBERNETES_SERVICE_HOST"}
+    env.update(CHECKPOINT_ENV)
+    env.update({
+        "KUBECONFIG": facade.write_kubeconfig(os.path.join(workdir, "kubeconfig")),
+        "CHECKPOINT_DIR": dirs["llm"], "ENCODER_CHECKPOINT_DIR": dirs["encoder"],
+        "MODEL_ID": CHECKPOINT_ENV["OPERATOR_TPU_MODEL"], "LEADER_ELECTION": "true",
+        "POD_NAME": "op-cli", "HEALTH_PORT": "-1",
+        "PATTERN_CACHE_DIRECTORY": os.path.join(workdir, "no-pattern-cache"),
+        "CLAIMS_PATH": os.path.join(workdir, "fleet-cli-claims.jsonl"),
+        "FLEET_COUNTS_PATH": counts_path, "PYTHONPATH": ROOT})
+    proc = None
+    try:
+        async def seed() -> None:
+            for kind, obj in fleet_resources(CHECKPOINT_ENV["OPERATOR_TPU_MODEL"], "tpu-native",
+                                             {"cli": MAX_TOKENS}):
+                await api.create(kind, obj)
+
+        facade.call(seed())
+        started = time.monotonic()
+        with open(log_path, "w") as log:
+            proc = subprocess.Popen([sys.executable, "-c", FLEET_LAUNCHER], cwd=ROOT, env=env,
+                                    stdout=log, stderr=subprocess.STDOUT)
+        api.set_pod_log("prod", "payment-cli", "\n".join(fixture_lines("oom_java.log")),
+                        previous=True)
+        facade.call(api.create("Pod", operator_pod("payment-cli", "cli", "2026-07-28T13:00:00Z")))
+        stored_s, entry = None, None
+        by = time.monotonic() + 600
+        poked = 0
+        while time.monotonic() < by and proc.poll() is None:
+            status = facade.call(api.get("Podmortem", "watch-payment-cli", "ops")).get("status")
+            entries = (status or {}).get("recentFailures") or []
+            if entries:
+                stored_s, entry = time.monotonic() - started, entries[0]
+                break
+            if time.monotonic() - started > 5 * (poked + 1):
+                # the MODIFIED the watcher reacts to, in case the pod came
+                # before the watch (a claimed failure is not claimed twice)
+                poked += 1
+                facade.call(api.patch("Pod", "payment-cli", "prod", {
+                    "metadata": {"labels": {"poked": str(poked)}}}))
+            time.sleep(0.05)
+        proc.send_signal(signal.SIGTERM)
+        term = time.monotonic()
+        rc = proc.wait(120)
+        exit_s = time.monotonic() - term
+        lease = facade.call(api.get("Lease", "podmortem-tpu-operator", "ops"))["spec"]
+        requests = list(facade.requests)
+    finally:
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait(30)
+        facade.stop()
+    with open(log_path, encoding="utf-8", errors="replace") as fh:
+        tail = fh.read()[-3000:]
+    if rc != 0 or entry is None or lease.get("holderIdentity") != "" or not os.path.exists(
+            counts_path):
+        raise fail(f"fleet cli: exit {rc}, stored {entry}, lease {lease}; log tail: {tail}")
+    with open(counts_path) as fh:
+        child = json.load(fh)
+    launches, steps = child["launches"], sum(child["steps"])
+    for name, n in launches.items():
+        counts.total[name] += n
+    if (launches["ragged_paged_attention"] != layers * steps or not steps
+            or not launches["best_window_similarity"] or launches["paged_decode_attention"]
+            or launches["flash_prefill_attention"] or entry.get("analysisStatus") not in (
+                "Analyzed", "PatternOnly")):
+        raise fail(f"fleet cli: launches {launches} over {steps} steps, entry {entry}")
+    paths = sorted({path.split("?")[0] for _, path in requests})
+    out = {"card": card, "start_to_stored_s": stored_s, "sigterm_to_exit_s": exit_s,
+           "exit_code": rc, "lease": lease, "status": entry.get("analysisStatus"),
+           "steps": steps, "launches": launches, "http_requests": len(requests),
+           "http_paths": paths}
+    print(json.dumps({"fleet_cli": out}), flush=True)
+    return out
+
+
+def phase_fleet(results: dict, kernel_modules: dict, dirs: dict) -> dict:
+    """The operator's HA and elastic fleet on the checkpoint phase's two
+    checkpoints: (a) a leader killed mid-drive and the standby's takeover,
+    (b) the autoscaler and endpoint discovery over a 1 -> 2 -> 1 serving
+    fleet, (c) a PatternLibrary synced from a local git repository, (d)
+    the deployed entry point against a stub apiserver.  Returns each
+    kernel's launches summed over the four drives."""
+    import gc
+
+    import torch
+
+    from operator_tpu_torch.models.configs import get_config
+
+    card = card_line()
+    layers = get_config(CHECKPOINT_ENV["OPERATOR_TPU_MODEL"]).num_layers
+    total = {name: 0 for name in kernel_modules}
+    out: dict = {"card": card}
+    for key, part in (("takeover", fleet_takeover), ("elastic", fleet_elastic),
+                      ("pattern_sync", fleet_pattern_sync), ("cli", fleet_cli)):
+        # the last part's engines are closed: give their memory back first
+        gc.collect()
+        torch.cuda.empty_cache()
+        counts = fleet_counter(kernel_modules)
+        out[key] = part(dirs, counts, layers, card)
+        for name, n in counts.total.items():
+            total[name] += n
+    out["launches"] = total
+    results["fleet"] = out
+    return total
+
+
+# ---------------------------------------------------------------------------
+# phase 10: card vs CPU on a small engine
 # ---------------------------------------------------------------------------
 
 
@@ -3628,7 +4729,7 @@ def main() -> int:
     parser.add_argument("--out", help="also write every result to this JSON file")
     parser.add_argument("--phases",
                         default="device,kernels,serve,wave,analysis,checkpoint,operator,remote,"
-                                "parity")
+                                "fleet,parity")
     args = parser.parse_args()
     phases = set(args.phases.split(","))
 
@@ -3683,19 +4784,21 @@ def main() -> int:
         for selector in (("v1", "v2") if "wave" in phases else ())
     }
     analysis = phase_analysis(results, kernel_modules, phases) if "analysis" in phases else {}
-    served = phases & {"operator", "remote"}
+    served = phases & {"operator", "remote", "fleet"}
     if served and "checkpoint" not in phases:
         raise fail(f"the {', '.join(sorted(served))} phase serves the checkpoint phase's "
                    f"checkpoints: add checkpoint")
     checkpoint, dirs = (phase_checkpoint(results, kernel_modules, keep=bool(served))
                         if "checkpoint" in phases else ({}, None))
-    operator, remote = {}, {}
+    operator, remote, fleet = {}, {}, {}
     if served:
         try:
             if "operator" in phases:
                 operator = phase_operator(results, kernel_modules, dirs)
             if "remote" in phases:
                 remote = phase_remote(results, kernel_modules, dirs)
+            if "fleet" in phases:
+                fleet = phase_fleet(results, kernel_modules, dirs)
         finally:
             shutil.rmtree(dirs["workdir"], ignore_errors=True)
     if "parity" in phases:
@@ -3719,6 +4822,7 @@ def main() -> int:
         record["launches_checkpoint"] = checkpoint.get(base)
         record["launches_operator"] = operator.get(base)
         record["launches_remote"] = remote.get(base)
+        record["launches_fleet"] = fleet.get(base)
     kernels = records
     results["kernels"] = kernels
     device = {

@@ -3,8 +3,8 @@
 ``span.py`` holds the span/trace model and the ambient (contextvars)
 tracer; ``record.py`` the bounded flight recorder with JSONL journaling
 and black-box dumps; ``sloledger.py`` the per-analysis SLO ledger;
-``steptrace.py`` the step clock's records.  The offline viewer
-(``view.py``) is not ported yet.
+``steptrace.py`` the step clock's records; ``view.py`` the offline viewer
+(``python -m operator_tpu_torch.obs.view``).
 
 Module defaults mirror :data:`..utils.timing.METRICS`: one process-wide
 ``RECORDER``/``TRACER`` pair (dependency-inject fresh ones in tests).

@@ -32,7 +32,7 @@ from __future__ import annotations
 import os
 import threading
 from dataclasses import dataclass
-from typing import Optional, Sequence
+from typing import Iterable, Optional, Sequence
 
 #: record kinds: a pure-prefill step, a pure-decode step, or the
 #: continuous scheduler's ragged mixed step (both phases in one program)
@@ -269,3 +269,22 @@ def attribution(
         out["achieved_tflops"] = round(achieved, 6)
         out["decode_mfu"] = round(achieved / peak_tflops, 6)
     return out
+
+
+def render_steps(records: "Iterable[StepRecord]") -> str:
+    """Compact fixed-width per-step timeline table (the ``obs.view
+    --steps`` rendering; also readable when pasted from a black-box
+    dump)."""
+    header = (
+        f"{'seq':>5}  {'kind':<7} {'tok':>5} {'slots':>5} {'occ':>5} "
+        f"{'gap_ms':>8} {'dev_ms':>8} {'xfer_ms':>8} {'total':>8} {'mfu':>8}"
+    )
+    lines = [header, "-" * len(header)]
+    for r in records:
+        mfu = f"{r.mfu:.4f}" if r.mfu is not None else "-"
+        lines.append(
+            f"{r.seq:>5}  {r.kind:<7} {r.tokens:>5} {r.slots:>5} "
+            f"{r.occupancy:>5.2f} {r.host_gap_ms:>8.3f} {r.device_ms:>8.3f} "
+            f"{r.sample_xfer_ms:>8.3f} {r.total_ms:>8.3f} {mfu:>8}"
+        )
+    return "\n".join(lines)

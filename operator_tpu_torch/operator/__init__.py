@@ -1,5 +1,6 @@
 """The asyncio control plane of the port: watch loop, reconcilers, event
-emission, durable storage and claims, health — own copies of
+emission, durable storage and claims, git pattern sync, leader election,
+the fleet autoscaler, health — own copies of
 ``operator_tpu/operator``, rebuilt around one shared analysis pipeline
 that drives the port's provider and semantic matcher on the card."""
 
@@ -16,10 +17,12 @@ from .kubeapi import (
     WatchClosed,
     WatchEvent,
 )
+from .patternsync import GitSyncService, PatternLibraryReconciler, SyncOutcome
 from .pipeline import AnalysisPipeline
 from .providers import (
     BreakerBoard,
     CircuitBreaker,
+    OpenAICompatProvider,
     ProviderError,
     ProviderRegistry,
     ResponseCache,

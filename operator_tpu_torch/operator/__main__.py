@@ -1,4 +1,4 @@
-"""CLI entry: ``python -m operator_tpu_torch.operator --demo``."""
+"""CLI entry: ``python -m operator_tpu_torch.operator [--demo]``."""
 
 from .app import _main
 

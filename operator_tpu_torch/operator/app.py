@@ -2,10 +2,10 @@
 
 The port's own copy of ``operator_tpu/operator/app.py``.  ``Operator``
 composes the control plane: pattern engine, analysis pipeline, pod-failure
-watcher, the Podmortem and AIProvider reconcilers, and health checks, all
-over one ``KubeApi``.  The startup sequence is the reference's: the claim
-ledger resumes, the reconcilers register, the pod watcher starts,
-readiness gates on pattern availability.
+watcher, the Podmortem, AIProvider and PatternLibrary reconcilers, and
+health checks, all over one ``KubeApi``.  The startup sequence is the
+reference's: the claim ledger resumes, the reconcilers register, the pod
+watcher starts, readiness gates on pattern availability.
 
 ``Operator(..., device=None)`` runs on ``cuda`` unless the caller asks for
 another device (``utils/device.py``): the ``tpu-native`` provider's engine
@@ -22,17 +22,20 @@ provider then answers on the same engine); like the reference, a build
 or bind failure disables the API with a warning, and nothing runs on the
 CPU in the card's place.
 
-Not ported yet (ROADMAP.md Queue 1 item 5a), and refused when the config
-turns it on (``NotImplementedError`` naming the item): leader election
-(``lease.py``), the autoscaler, endpoint discovery, and the real API
-server (``httpapi.py``, the CLI without ``--demo``); the pattern
-library's git sync (``patternsync.py``) is refused at ``start()`` when a
-PatternLibrary CR asks for it.
+The fleet, as in the reference: with ``LEADER_ELECTION`` the control
+loops run only while this replica holds the Lease (``lease.py``), and a
+standby that takes over resumes the dead leader's non-terminal claims;
+``DISCOVERY_ENABLED`` feeds the dynamic router from the serving
+Service's Endpoints (``router/discovery.py``, on leaders and standbys);
+``AUTOSCALE_ENABLED`` sizes the serving Deployment through its scale
+subresource (``autoscale.py``, leader-only).  PatternLibrary CRs are
+synced from git (``patternsync.py``) and the pattern engine reloads.
 
-``python -m operator_tpu_torch.operator --demo [--provider tpu-native]
-[--device cpu]`` runs the whole control plane against the in-memory fake
-apiserver, injects a CrashLoopBackOff failure, and prints the emitted
-events, annotations, and CR status.
+``python -m operator_tpu_torch.operator [--device cpu]`` is the deployed
+entry point: in-cluster or through ``KUBECONFIG`` (``httpapi.py``), until
+SIGTERM.  ``--demo [--provider tpu-native]`` runs the whole control plane
+against the in-memory fake apiserver instead, injects a CrashLoopBackOff
+failure, and prints the emitted events, annotations, and CR status.
 """
 
 from __future__ import annotations
@@ -61,6 +64,8 @@ from .health import (
 )
 from .httpserver import HealthServer
 from .kubeapi import FakeKubeApi, KubeApi
+from .lease import LeaseElector
+from .patternsync import GitSyncService, PatternLibraryReconciler
 from .pipeline import AnalysisPipeline
 from .providers import HTTP_PROVIDER_IDS, ProviderRegistry, default_registry
 from .reconciler import AIProviderReconciler, PodmortemReconciler
@@ -68,29 +73,6 @@ from .storage import AnalysisStorageService
 from .watcher import PodFailureWatcher, PodmortemCache
 
 log = logging.getLogger(__name__)
-
-#: where a refusal points the reader
-_ITEM = "ROADMAP.md Queue 1 item 5a"
-
-
-def _not_ported(feature: str, how: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{feature} is not ported to operator_tpu_torch yet ({_ITEM}); {how}"
-    )
-
-
-def _refuse_unported(config: OperatorConfig) -> None:
-    """Raise for a config that turns on a part of the JAX operator the
-    port does not have yet."""
-    unported = (
-        ("LEADER_ELECTION", config.leader_election, "leader election (operator/lease.py)"),
-        ("AUTOSCALE_ENABLED", config.autoscale_enabled, "the autoscaler (operator/autoscale.py)"),
-        ("DISCOVERY_ENABLED", config.discovery_enabled,
-         "endpoint discovery (router/discovery.py)"),
-    )
-    for name, on, feature in unported:
-        if on:
-            raise _not_ported(feature, f"unset {name}")
 
 
 class Operator:
@@ -105,7 +87,6 @@ class Operator:
     ) -> None:
         self.api = api
         self.config = config or OperatorConfig()
-        _refuse_unported(self.config)
         self.device = resolve_device(device)
         self.metrics = metrics or METRICS
         self.providers = providers or default_registry()
@@ -156,6 +137,56 @@ class Operator:
         self.aiprovider_reconciler = AIProviderReconciler(
             api, providers=self.providers, config=self.config
         )
+        self.pattern_reconciler = PatternLibraryReconciler(
+            api, GitSyncService(self.config), engine=self.engine, config=self.config
+        )
+        # serverless fleet: the SLO-judged autoscaler (leader-only,
+        # _spawn_control_tasks) and endpoint-watch membership (leaders AND
+        # standbys, start(): a standby's router must track the live fleet
+        # or its first routed request after takeover would hit pods that
+        # no longer exist)
+        self.autoscaler = None
+        if self.config.autoscale_enabled:
+            from .autoscale import AutoscaleController
+
+            self.autoscaler = AutoscaleController.from_config(
+                api,
+                self.config,
+                fleet=self._fleet_signals,
+                attainment=(
+                    lambda: self.pipeline.slo_ledger.attainment_by_class()
+                ),
+                pending=(lambda: self.pipeline.slo_ledger.pending),
+                metrics=self.metrics,
+            )
+        self.discovery = None
+        if self.config.discovery_enabled and self._http_backend is not None:
+            from ..router.discovery import EndpointDiscovery
+
+            backend = self._http_backend
+            self.discovery = EndpointDiscovery(
+                api,
+                backend.dynamic_router(),
+                service=self.config.discovery_service,
+                namespace=(
+                    self.config.discovery_namespace
+                    or getattr(api, "namespace", None)
+                    or "default"
+                ),
+                scheme=self.config.discovery_scheme,
+                port_name=self.config.discovery_port,
+                kube_timeout_s=self.config.kube_call_timeout_s,
+                restart_delay_s=self.config.watch_restart_delay_s,
+                prewarm=(
+                    (
+                        lambda replica: backend.prewarm_replica(
+                            replica, timeout_s=self.config.kube_call_timeout_s
+                        )
+                    )
+                    if self.config.discovery_prewarm
+                    else None
+                ),
+            )
         # engine warmth: "disabled" unless the in-process completion API
         # warms an engine before readiness (LOADING -> READY)
         self.engine_warmth = ENGINE_DISABLED
@@ -186,6 +217,34 @@ class Operator:
             )
         self.completion_server = None  # started on demand (completion_api_port)
         self.completion_task: Optional[asyncio.Task] = None
+        # HA: with leader_election on, the control loops run only while
+        # this replica holds the Lease; standbys keep probes and the
+        # serving engine warm and take over on expiry, resuming the dead
+        # leader's non-terminal claims from the ledger
+        self.elector: Optional[LeaseElector] = None
+        if self.config.leader_election:
+            import socket
+
+            identity = (
+                self.config.pod_name
+                or f"{socket.gethostname()}-{os.getpid()}"
+            )
+            namespace = (
+                self.config.lease_namespace
+                or getattr(api, "namespace", None)
+                or "default"
+            )
+            self.elector = LeaseElector(
+                api,
+                lease_name=self.config.lease_name,
+                namespace=namespace,
+                identity=identity,
+                duration_s=self.config.lease_duration_s,
+                renew_period_s=self.config.lease_renew_period_s,
+                retry_period_s=self.config.lease_retry_period_s,
+                kube_timeout_s=self.config.kube_call_timeout_s,
+                metrics=self.metrics,
+            )
         self._stop = asyncio.Event()
         self._tasks: list[asyncio.Task] = []
         self._control_tasks: list[asyncio.Task] = []
@@ -232,10 +291,17 @@ class Operator:
         for pid in http_ids:
             self.providers.register(pid, backend)
 
+    def _fleet_signals(self) -> dict:
+        """The autoscaler's rollup feed: the ``fleet`` half of the
+        backend's fleet view (queueDepth / inflight / pressure)."""
+        if self._http_backend is None:
+            return {}
+        return self._http_backend.fleet_view().get("fleet") or {}
+
     def _fleet_view(self) -> dict:
         """``GET /fleet`` body: the backend's per-replica rows + rollup,
-        plus the serverless-fleet fields (no autoscaler in the port:
-        ``desiredReplicas`` and ``lastScaleReason`` stay null)."""
+        plus the serverless-fleet fields — live member count and the
+        autoscaler's last verdict."""
         view = (
             self._http_backend.fleet_view()
             if self._http_backend is not None
@@ -244,6 +310,8 @@ class Operator:
         view["fleetSize"] = len(view.get("replicas") or {})
         view["desiredReplicas"] = None
         view["lastScaleReason"] = None
+        if self.autoscaler is not None:
+            view.update(self.autoscaler.view())
         return view
 
     def _build_semantic(self):
@@ -388,25 +456,10 @@ class Operator:
             except Exception:  # noqa: BLE001 - polling must outlive one bad sweep
                 log.warning("replica health poll sweep failed", exc_info=True)
 
-    async def _refuse_pattern_sync(self) -> None:
-        """The git sync of PatternLibrary CRs is not ported: a cluster that
-        has one must not have its libraries silently left unsynced."""
-        libraries = await asyncio.wait_for(
-            self.api.list("PatternLibrary"), timeout=self.config.kube_call_timeout_s
-        )
-        if libraries:
-            name = (libraries[0].get("metadata") or {}).get("name")
-            raise _not_ported(
-                "the pattern library's git sync (operator/patternsync.py)",
-                f"PatternLibrary {name!r} asks for it; mount the synced "
-                "libraries under PATTERN_CACHE_DIRECTORY instead",
-            )
-
     # ------------------------------------------------------------------
     async def start(self) -> None:
         log.info("operator starting (namespaces: %s)",
                  self.config.watch_namespaces or "ALL")
-        await self._refuse_pattern_sync()
         self._stop.clear()
         if self.memory is not None and self.config.memory_configmap:
             # PVC-less durability: merge the last ConfigMap snapshot before
@@ -423,27 +476,52 @@ class Operator:
             self.completion_task = asyncio.create_task(
                 self._start_completion_api(), name="completion-api"
             )
-        # resume any claims a crashed predecessor left in the ledger, then
-        # run the control loops — resume must COMPLETE first, or the
-        # watcher's pre-watch sweep could claim a failure that
-        # ClaimLedger.reload() then re-lists as pending and analyzes a
-        # second time, concurrently
-        self._tasks = [
-            asyncio.create_task(self._single_replica_cycle(), name="claims-resume"),
-        ]
+        if self.elector is None:
+            # single-replica mode: resume any claims a crashed predecessor
+            # left in the ledger, then run the control loops — resume must
+            # COMPLETE first, or the watcher's pre-watch sweep could claim
+            # a failure that ClaimLedger.reload() then re-lists as pending
+            # and analyzes a second time, concurrently
+            self._tasks = [
+                asyncio.create_task(self._single_replica_cycle(), name="claims-resume"),
+            ]
+        else:
+            # HA mode: contend for the Lease; the leader cycle starts and
+            # stops the control loops as leadership comes and goes
+            self._tasks = [
+                asyncio.create_task(self.elector.run(self._stop), name="leader-elector"),
+                asyncio.create_task(self._leader_cycle(), name="leader-cycle"),
+            ]
         if self._http_backend is not None and self.config.router_health_poll_s > 0:
             # background /healthz polling: load-fed shedding needs load
-            # reports even when no analysis traffic produces them
+            # reports even when no analysis traffic produces them.  Runs
+            # on leaders AND standbys (breaker and health state are then
+            # warm at takeover)
             self._tasks.append(asyncio.create_task(
                 self._health_poll_loop(), name="replica-health-poll"
             ))
+        if self.discovery is not None:
+            # endpoint-watch membership on leaders AND standbys, like the
+            # health poll: a standby whose ring already tracks the live
+            # fleet takes over without a stale-member window
+            self._tasks.append(asyncio.create_task(
+                self.discovery.run(self._stop), name="endpoint-discovery"
+            ))
 
     def _spawn_control_tasks(self) -> list[asyncio.Task]:
-        return [
+        tasks = [
             asyncio.create_task(self.watcher.run(self._stop), name="pod-watcher"),
             asyncio.create_task(self.podmortem_reconciler.run(self._stop), name="podmortem-reconciler"),
             asyncio.create_task(self.aiprovider_reconciler.run(self._stop), name="aiprovider-reconciler"),
+            asyncio.create_task(self.pattern_reconciler.run(self._stop), name="patternlibrary-reconciler"),
         ]
+        if self.autoscaler is not None:
+            # leader-only like the reconcilers: two replicas scaling one
+            # Deployment would fight through the rv guard forever
+            tasks.append(asyncio.create_task(
+                self.autoscaler.run(self._stop), name="autoscaler"
+            ))
+        return tasks
 
     async def _single_replica_cycle(self) -> None:
         await self._resume_claims()
@@ -470,6 +548,89 @@ class Operator:
             raise
         except Exception:  # noqa: BLE001 - resume is best-effort recovery
             log.exception("claim-ledger resume failed; continuing")
+
+    async def _leader_cycle(self) -> None:
+        """Run the control loops only while holding the Lease.  On
+        takeover, first resume the previous leader's non-terminal claims
+        (idempotent status patches make a double-completed claim converge
+        anyway), THEN start the watcher — whose startup re-lists pods and
+        CRs, closing any blind window the dead leader left."""
+        assert self.elector is not None
+        while not self._stop.is_set():
+            if not await self.elector.wait_leading(self._stop):
+                return  # stopping
+            if self._stop.is_set():
+                return
+            # watch for depose through BOTH phases — resume can run for
+            # minutes of residual claim budget, and a deposed replica must
+            # not keep analyzing claims the new leader is resuming
+            lost = asyncio.create_task(
+                self.elector.wait_not_leading(self._stop),
+                name="leadership-lost",
+            )
+            crashed: list[asyncio.Task] = []
+            resume: Optional[asyncio.Task] = None
+            try:
+                resume = asyncio.create_task(
+                    self._resume_claims(), name="claims-resume"
+                )
+                await asyncio.wait(
+                    {resume, lost}, return_when=asyncio.FIRST_COMPLETED
+                )
+                if not resume.done():
+                    resume.cancel()  # deposed mid-resume
+                    await asyncio.gather(resume, return_exceptions=True)
+                    continue
+                await resume  # raises nothing: _resume_claims guards itself
+                if lost.done():
+                    continue
+                self._control_tasks = self._spawn_control_tasks()
+                done, _ = await asyncio.wait(
+                    {lost, *self._control_tasks},
+                    return_when=asyncio.FIRST_COMPLETED,
+                )
+                crashed = [task for task in done if task is not lost]
+            finally:
+                # resume too: if stop() cancels THIS task mid-wait, an
+                # orphaned resume would keep analyzing past claims.close()
+                settle = [lost] + ([resume] if resume is not None else [])
+                for task in settle:
+                    task.cancel()
+                await asyncio.gather(*settle, return_exceptions=True)
+                # leadership lost (or stopping, or a control loop died):
+                # halt — another replica may already be leading, and two
+                # concurrent watchers double-analyze everything
+                await self._halt_control_tasks()
+            for task in crashed:
+                if task.exception() is not None:
+                    # zombie-leader guard: a dead control loop must not
+                    # leave this replica renewing the lease with no watcher
+                    # running while the healthy standby is fenced out
+                    raise task.exception()
+
+    async def _halt_control_tasks(self) -> None:
+        deposed = not self._stop.is_set()
+        if deposed:
+            # deposed, not stopping.  FIRST — before any cancellation can
+            # run a handler that releases a claim — stop touching the
+            # shared ledger: a deposed replica's appends, or a stale
+            # compaction, must not clobber records the new leader is
+            # writing.  The handle reopens via reload() when this replica
+            # re-acquires (resume_pending).  The new leader re-runs the
+            # cancelled analyses from the ledger as non-terminal, which is
+            # the at-least-once contract.
+            self.pipeline.claims.abandon()
+        for task in self._control_tasks:
+            task.cancel()
+        await asyncio.gather(*self._control_tasks, return_exceptions=True)
+        self._control_tasks = []
+        if deposed:
+            # the watcher's detached analysis tasks survive its
+            # cancellation, but a deposed leader must not keep analyzing:
+            # cancelling them cancels their generations on the engine,
+            # whose worker frees the rows and pages at its next step
+            self.watcher.cancel_inflight()
+            await self.watcher.drain()
 
     async def stop(self) -> None:
         self._stop.set()
@@ -530,6 +691,10 @@ class Operator:
             except Exception:  # noqa: BLE001 - shutdown must complete
                 log.warning("flight-recorder flush failed", exc_info=True)
         self.pipeline.claims.close()  # terminal ledger records are on disk
+        if self.elector is not None:
+            # release LAST so the standby takes over a fully drained state
+            # (and at once, instead of waiting out the lease duration)
+            await self.elector.release()
         log.info("operator stopped")
 
     async def run_forever(self) -> None:
@@ -674,11 +839,17 @@ def _main(argv: Optional[list[str]] = None) -> int:
     logging.basicConfig(level=logging.DEBUG if args.verbose else logging.INFO,
                         format="%(asctime)s %(levelname)-7s %(name)s: %(message)s")
     if not args.demo:
-        print(
-            f"error: {_not_ported('the Kubernetes API client (operator/httpapi.py)', 'use --demo')}",
-            file=sys.stderr,
-        )
-        return 2
+        from .kubeapi import ApiError
+
+        try:
+            return asyncio.run(_run_real(OperatorConfig.from_env(), device=args.device))
+        except (ApiError, FileNotFoundError) as exc:
+            print(
+                f"error: no cluster access ({exc}); "
+                "run in-cluster, point KUBECONFIG at a cluster, or use --demo",
+                file=sys.stderr,
+            )
+            return 2
     try:
         summary = asyncio.run(run_demo(args.logfile, args.provider, device=args.device))
     except OSError as exc:
@@ -688,6 +859,39 @@ def _main(argv: Optional[list[str]] = None) -> int:
         print(json.dumps(summary, indent=2))
     except BrokenPipeError:
         sys.stderr.close()
+    return 0
+
+
+async def _run_real(
+    config: OperatorConfig,
+    *,
+    device: Optional[Union[str, torch.device]] = None,
+) -> int:
+    """In-cluster / kubeconfig mode: the deployed entry point
+    (``python -m operator_tpu_torch.operator``), on ``device`` (``cuda``
+    unless the caller asks for another), until SIGTERM or SIGINT."""
+    import signal
+
+    from .httpapi import HttpKubeApi
+
+    # from_env reads the serviceaccount token / kubeconfig from disk:
+    # startup-once, but _run_real is already on the loop, so offload
+    api = await asyncio.to_thread(HttpKubeApi.from_env)
+    operator = Operator(api, config=config, device=device)
+    loop = asyncio.get_running_loop()
+    stop = asyncio.Event()
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        loop.add_signal_handler(sig, stop.set)
+    await operator.start()
+    try:
+        stopped = asyncio.create_task(stop.wait())
+        tasks = [*operator._tasks, stopped]
+        done, _ = await asyncio.wait(tasks, return_when=asyncio.FIRST_COMPLETED)
+        for task in done:
+            if task is not stopped and task.exception() is not None:
+                raise task.exception()
+    finally:
+        await operator.stop()
     return 0
 
 

@@ -1,11 +1,9 @@
 """Kubernetes API abstraction + in-memory fake apiserver.
 
 The port's own copy of ``operator_tpu/operator/kubeapi.py``.  The control
-plane talks to this interface only; the JAX package's HTTP client
-(``httpapi.py``) is not ported yet, so the port runs against
-:class:`FakeKubeApi` — the fabric8-mock-server role the reference's test
-strategy called for.  Not ported either: the scale subresource (the
-autoscaler's) and the declarative fault-plan seam (``faultinject.py``).
+plane talks to this interface only; production uses the HTTP client
+(``httpapi.py``), tests and the demo use :class:`FakeKubeApi` — the
+fabric8-mock-server role the reference's test strategy called for.
 
 The fake reproduces the apiserver behaviours the operator's correctness
 depends on:
@@ -18,7 +16,12 @@ depends on:
   reference PodFailureWatcher.java:127-135);
 - **label-selector list filtering** (reference PodmortemReconciler.java:105-111);
 - **error injection hooks** for 409 storms, 403s, and transient faults —
-  filterable by kind.
+  filterable by kind, so chaos tests can partition the leader away from its
+  ``coordination.k8s.io/Lease`` (operator/lease.py) while the rest of its
+  API traffic flows (Lease CRUD itself rides the generic kind-keyed store:
+  create/get/patch with resourceVersion guards behave exactly like the real
+  apiserver's optimistic concurrency, which is what leader takeover races
+  are decided by).
 """
 
 from __future__ import annotations
@@ -139,6 +142,27 @@ class KubeApi:
     async def delete(self, kind: str, name: str, namespace: str) -> None:
         raise NotImplementedError
 
+    async def get_scale(self, kind: str, name: str, namespace: str) -> dict:
+        """Read the ``scale`` subresource (autoscaling/v1 Scale dict) of a
+        scalable object — ``spec.replicas`` is the desired count, an RBAC
+        grant on ``deployments/scale`` alone suffices (the autoscaler
+        never needs the full Deployment)."""
+        raise NotImplementedError
+
+    async def patch_scale(
+        self,
+        kind: str,
+        name: str,
+        namespace: str,
+        replicas: int,
+        *,
+        resource_version: Optional[str] = None,
+    ) -> dict:
+        """Set ``spec.replicas`` through the ``scale`` subresource.  With
+        ``resource_version`` the write is guarded by the same optimistic
+        concurrency as :meth:`patch` (409 on mismatch)."""
+        raise NotImplementedError
+
     async def get_log(
         self,
         name: str,
@@ -248,6 +272,12 @@ class FakeKubeApi(KubeApi):
         self._history: dict[str, list[tuple[int, WatchEvent]]] = {}
         self._trimmed_through: dict[str, int] = {}
         self.error_hooks: list[ErrorHook] = []
+        #: opt-in chaos seam (utils/faultinject.py FaultPlan): consulted on
+        #: every API op ("kube.<op>"), at watch-stream open
+        #: ("kube.watch_open.<kind>") and per delivered watch event
+        #: ("kube.watch.<kind>") — declarative 409 storms, 410 relists and
+        #: disconnect storms that replay deterministically
+        self.fault_plan = None
 
     # --- error injection --------------------------------------------------
     def inject_errors(
@@ -260,7 +290,12 @@ class FakeKubeApi(KubeApi):
     ) -> None:
         """Raise ``error_factory()`` for the next ``times`` calls of ``op``
         (op is 'get'/'list'/'create'/'patch'/'patch_status'/'delete'/
-        'get_log').  ``kind`` narrows the fault to one object kind."""
+        'get_log'/'get_scale'/'patch_scale').  ``kind`` narrows the fault
+        to one object kind — e.g. partitioning a leader away from its
+        Lease (``kind="Lease"``) without touching its Pod/Podmortem
+        traffic (tests/test_leader.py), or partitioning the autoscaler
+        away from the Deployment scale subresource mid-scale-up
+        (``kind="Deployment"``, tests/test_chaos.py)."""
         remaining = {"n": times}
 
         def hook(actual_op: str, actual_kind: str, name: str) -> Optional[Exception]:
@@ -281,6 +316,10 @@ class FakeKubeApi(KubeApi):
             exc = hook(op, kind, name)
             if exc is not None:
                 raise exc
+        if self.fault_plan is not None:
+            # apply_async: a delay/jitter action holds the op without
+            # blocking the loop (latency-shaped apiserver)
+            await self.fault_plan.apply_async(f"kube.{op}", kind=kind, name=name)
 
     # --- store helpers ----------------------------------------------------
     def _bucket(self, kind: str) -> dict[tuple[str, str], dict]:
@@ -412,6 +451,71 @@ class FakeKubeApi(KubeApi):
         obj["metadata"]["resourceVersion"] = self._next_rv()
         self._notify("DELETED", kind, obj)
 
+    # --- scale subresource ------------------------------------------------
+    async def get_scale(self, kind: str, name: str, namespace: str) -> dict:
+        await self._check_hooks("get_scale", kind, name)
+        obj = self._bucket(kind).get((namespace, name))
+        if obj is None:
+            raise NotFoundError(f"{kind} {namespace}/{name} not found")
+        spec_replicas = (obj.get("spec") or {}).get("replicas")
+        return {
+            "apiVersion": "autoscaling/v1",
+            "kind": "Scale",
+            "metadata": {
+                "name": name,
+                "namespace": namespace,
+                "resourceVersion": obj["metadata"].get("resourceVersion"),
+            },
+            "spec": {"replicas": int(spec_replicas or 0)},
+            "status": {
+                "replicas": int(
+                    (obj.get("status") or {}).get("replicas")
+                    or spec_replicas
+                    or 0
+                ),
+            },
+        }
+
+    async def patch_scale(
+        self,
+        kind: str,
+        name: str,
+        namespace: str,
+        replicas: int,
+        *,
+        resource_version: Optional[str] = None,
+    ) -> dict:
+        await self._check_hooks("patch_scale", kind, name)
+        bucket = self._bucket(kind)
+        current = bucket.get((namespace, name))
+        if current is None:
+            raise NotFoundError(f"{kind} {namespace}/{name} not found")
+        if (
+            resource_version is not None
+            and current["metadata"].get("resourceVersion") != resource_version
+        ):
+            raise ConflictError(
+                f"Operation cannot be fulfilled on {kind} "
+                f"{namespace}/{name}: the object has been modified"
+            )
+        merged = _deep_merge(current, {"spec": {"replicas": int(replicas)}})
+        merged["metadata"]["resourceVersion"] = self._next_rv()
+        bucket[(namespace, name)] = merged
+        # a scale write IS a Deployment modification: watchers of the kind
+        # see it exactly as they would from the real apiserver
+        self._notify("MODIFIED", kind, merged)
+        return {
+            "apiVersion": "autoscaling/v1",
+            "kind": "Scale",
+            "metadata": {
+                "name": name,
+                "namespace": namespace,
+                "resourceVersion": merged["metadata"]["resourceVersion"],
+            },
+            "spec": {"replicas": int(replicas)},
+            "status": {"replicas": int(replicas)},
+        }
+
     # --- pod logs ---------------------------------------------------------
     def set_pod_log(self, namespace: str, name: str, text: str, *, previous: bool = False) -> None:
         self._logs[(namespace, name, previous)] = text
@@ -444,6 +548,13 @@ class FakeKubeApi(KubeApi):
         namespace: Optional[str] = None,
         resource_version: Optional[str] = None,
     ) -> AsyncIterator[WatchEvent]:
+        if self.fault_plan is not None:
+            # stream-open faults: inject a 410 on a resume attempt
+            # (WatchExpired forces the consumer's relist path) or refuse the
+            # connection (WatchClosed) before any replay happens
+            await self.fault_plan.apply_async(
+                f"kube.watch_open.{kind}", resource_version=resource_version
+            )
         replayed: list[WatchEvent] = []
         if resource_version is not None:
             since = int(resource_version)
@@ -468,11 +579,18 @@ class FakeKubeApi(KubeApi):
         self._watches.append(registration)
         try:
             for event in replayed:
+                if self.fault_plan is not None:
+                    # per-event faults ("drop the stream after N events"):
+                    # WatchClosed/WatchExpired here reaches the consumer
+                    # exactly as a server-side stream death would
+                    await self.fault_plan.apply_async(f"kube.watch.{kind}", event=event.type)
                 yield event
             while True:
                 event = await registration.queue.get()
                 if isinstance(event, Exception):
                     raise WatchClosed(str(event)) from event
+                if self.fault_plan is not None:
+                    await self.fault_plan.apply_async(f"kube.watch.{kind}", event=event.type)
                 yield event
         finally:
             if registration in self._watches:

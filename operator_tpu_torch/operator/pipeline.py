@@ -383,7 +383,7 @@ class AnalysisPipeline:
         the trace id stamped into ``status.recentFailures[]``, and — when
         the analysis ends ``deadline-exceeded``, a breaker opens, or the
         engine reports a device error — a black-box dump of the full span
-        tree plus the deadline ledger."""
+        tree plus the deadline ledger and any active fault-plan seed."""
         if deadline is None:
             deadline = self._deadline_for(podmortem)
         root: Optional[Span] = None
@@ -446,8 +446,8 @@ class AnalysisPipeline:
 
     def _dump_black_box(self, root: Span, reason: str, deadline: Deadline) -> None:
         """Dump the completed trace with its failure context: the deadline
-        ledger (the JAX package adds the api seam's fault plan, which is not
-        ported)."""
+        ledger and, when a chaos fault plan is active on the api seam, its
+        seed + fired-fault fingerprint so the dump names the exact replay."""
         recorder = getattr(self.tracer, "recorder", None)
         if recorder is None:
             return
@@ -458,6 +458,13 @@ class AnalysisPipeline:
                 "remaining_s": round(deadline.remaining(), 3),
             },
         }
+        plan = getattr(self.api, "fault_plan", None)
+        if plan is not None:
+            extra["fault_plan"] = {
+                "seed": plan.seed,
+                "fired": len(plan.trace()),
+                "fingerprint": plan.fingerprint(),
+            }
         recorder.black_box(root.trace_id, reason, extra)
 
     async def _analyze(

@@ -12,9 +12,8 @@ are in-process backends behind one async interface:
   routed over the N serving replicas an ``apiUrl`` names through the
   port's :class:`~..router.EngineRouter` (consistent-hash affinity,
   per-replica breakers, load-fed shedding, requeue-once failover).
-  Endpoint discovery (``dynamic_router``'s feed) is not ported yet
-  (ROADMAP.md Queue 1 item 5a): the dynamic router stays empty unless a
-  caller fills it.
+  Endpoint discovery (``router/discovery.py``) feeds
+  ``dynamic_router``, the router of an AIProvider with no ``apiUrl``.
 
 Config resolution mirrors AIInterfaceClient.convertToProviderConfig: CR
 spec + defaults + auth token base64-decoded from the referenced Secret.
@@ -313,10 +312,9 @@ class OpenAICompatProvider:
     ) -> None:
         # injectable for tests; defaults to urllib
         self._opener = opener or urllib.request.urlopen
-        #: chaos seam: stays None in the port (utils/faultinject.py is
-        #: ROADMAP.md Queue 1 item 5a); a plan with the reference's
-        #: apply/apply_async is consulted before each outbound attempt
-        #: under site "http.provider" (ctx: attempt, replica)
+        #: opt-in chaos seam (utils/faultinject.py): consulted before each
+        #: outbound attempt under site "http.provider" (ctx: attempt,
+        #: replica) and each health probe under "http.healthz"
         self.fault_plan = None
         #: value-aware overload ladder (router/value.py): the pipeline
         #: stamps its policy here; router_for hands it to every router so
@@ -335,8 +333,8 @@ class OpenAICompatProvider:
         self._routers: dict[tuple[str, ...], EngineRouter] = {}
 
     #: sentinel replica-set key for the DISCOVERY-driven router: its
-    #: membership is mutated live by endpoint discovery (not ported,
-    #: ROADMAP.md Queue 1 item 5a) instead of being derived from apiUrl
+    #: membership is mutated live by endpoint discovery
+    #: (router/discovery.py) instead of being derived from apiUrl
     DYNAMIC_KEY: tuple[str, ...] = ("<discovery>",)
 
     def dynamic_router(self) -> EngineRouter:

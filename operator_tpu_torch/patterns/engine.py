@@ -14,7 +14,8 @@ Evidence beyond the raw log also participates in matching:
 A reload() picks up newly synced pattern libraries.  With a semantic
 matcher, every ``analyze`` that has lines and patterns scores them with
 one best-window similarity call on the matcher's device (K5 on the card).
-The YAML command line of the JAX module is not ported yet.
+``python -m operator_tpu_torch.patterns [logfile ...]`` prints the result
+as YAML, as the JAX module's command line does.
 """
 
 from __future__ import annotations
@@ -176,3 +177,61 @@ class PatternEngine:
         )
         result.timings = StageTimings(parse_ms=round((time.perf_counter() - started) * 1e3, 3))
         return result
+
+
+def _main(argv: Optional[list[str]] = None) -> int:
+    """``python -m operator_tpu_torch.patterns.engine [logfile ...]`` — analyze log
+    files (or stdin) against the loaded pattern libraries and print the
+    result as YAML."""
+    import argparse
+    import sys
+
+    import yaml
+
+    parser = argparse.ArgumentParser(
+        prog="operator_tpu_torch.patterns.engine",
+        description="Pattern-match log files against failure-pattern libraries.",
+    )
+    parser.add_argument("logfiles", nargs="*", help="log files (default: stdin)")
+    parser.add_argument("--cache-dir", help="synced pattern-cache directory")
+    parser.add_argument("--no-builtin", action="store_true",
+                        help="skip the built-in kubernetes-common library")
+    parser.add_argument("--top", type=int, default=5, help="show top-K events")
+    args = parser.parse_args(argv)
+
+    engine = PatternEngine(cache_dir=args.cache_dir, include_builtin=not args.no_builtin)
+    sources = args.logfiles or ["-"]
+    exit_code = 0
+    for source in sources:
+        try:
+            logs = sys.stdin.read() if source == "-" else open(source, encoding="utf-8", errors="replace").read()
+        except OSError as exc:
+            print(f"error: cannot read {source}: {exc}", file=sys.stderr)
+            exit_code = 2
+            continue
+        result = engine.analyze(PodFailureData(logs=logs))
+        doc = {
+            "source": source,
+            "summary": result.summary.__dict__,
+            "events": [
+                {
+                    "pattern": e.matched_pattern.id,
+                    "name": e.matched_pattern.name,
+                    "severity": e.matched_pattern.severity,
+                    "score": e.score,
+                    "line": e.context.line_number if e.context else None,
+                    "matched": e.context.matched_line if e.context else None,
+                }
+                for e in result.top_events(args.top)
+            ],
+        }
+        try:
+            print(yaml.safe_dump(doc, sort_keys=False), end="")
+        except BrokenPipeError:
+            sys.stderr.close()
+            return 0
+    return exit_code
+
+
+if __name__ == "__main__":
+    raise SystemExit(_main())

@@ -5,10 +5,9 @@ A health-gated, affinity-aware failover router in front of N serving
 replicas: consistent-hash placement on prompt prefix / incident
 fingerprint (``ring.py``), per-replica breakers + passive scoring + load
 reports (``health.py``), requeue-once failover with residual deadlines
-(``core.py``), token-level streaming resume checkpoints (``resume.py``)
-and the value model of the overload ladder (``value.py``).  Endpoint
-discovery (``discovery.py``) is not ported yet (ROADMAP.md Queue 1 item
-5a).
+(``core.py``), token-level streaming resume checkpoints (``resume.py``),
+the value model of the overload ladder (``value.py``) and endpoint-watch
+fleet membership (``discovery.py``).
 """
 
 from .core import (
@@ -19,6 +18,7 @@ from .core import (
     RouterError,
     request_key,
 )
+from .discovery import EndpointDiscovery, endpoint_urls
 from .health import (
     BreakerBoard,
     CircuitBreaker,
@@ -39,6 +39,7 @@ from .value import (
 __all__ = [
     "BreakerBoard",
     "CircuitBreaker",
+    "EndpointDiscovery",
     "EngineRouter",
     "HashRing",
     "HealthBoard",
@@ -54,5 +55,6 @@ __all__ = [
     "RouterError",
     "ShedDecisionLog",
     "ValueModel",
+    "endpoint_urls",
     "request_key",
 ]

@@ -35,10 +35,10 @@ Every attempt opens a ``router.dispatch`` span on the ambient analysis
 trace (``obs/``), so the flight recorder shows exactly which
 replica served — or killed — each leg.
 
-Chaos seam: ``fault_plan`` stays ``None`` in the port, because
-``utils/faultinject.py`` is not ported yet (ROADMAP.md Queue 1 item 5a);
-the seam is a no-op then, as in the reference.  A plan with the
-reference's ``apply_async`` is consulted at site ``router.dispatch``.
+Chaos seam: set ``fault_plan`` (``utils/faultinject.py``) and every
+dispatch attempt consults it at site ``router.dispatch`` (ctx ``replica``
+and ``attempt``): a rule matching one replica id is a replica kill, one
+matching every attempt against it a partition.  ``None`` costs nothing.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Typed schema layer of the port: own copies of the JAX package's
-``operator_tpu/schema`` modules (the CRD manifest generator, ``crdgen``,
-is not ported yet)."""
+``operator_tpu/schema`` modules, the CRD manifest generator (``crdgen``)
+included."""
 
 from .analysis import (
     AIProviderConfig,
@@ -47,6 +47,10 @@ from .kube import (
     ContainerStatus,
     Deployment,
     DeploymentSpec,
+    EndpointAddress,
+    EndpointPort,
+    Endpoints,
+    EndpointSubset,
     Event,
     Lease,
     LeaseSpec,
@@ -55,6 +59,9 @@ from .kube import (
     PodSpec,
     PodStatus,
     ReplicaSet,
+    Scale,
+    ScaleSpec,
+    ScaleStatus,
     Secret,
 )
 from .meta import (

@@ -1,10 +1,10 @@
 """Typed models of the core-Kubernetes objects the system touches:
 Pods (failure detection), Events (evidence and result channel), Secrets
-(credentials), ReplicaSets/Deployments (owner chase for event targeting)
-and Leases.
+(credentials), ReplicaSets/Deployments (owner chase for event targeting),
+Leases (leader election), Endpoints (fleet discovery) and the Deployment's
+Scale (the autoscaler).
 
-Copy of ``operator_tpu/schema/kube.py`` less the objects of parts not
-ported yet (Endpoints for discovery, Scale for the autoscaler).
+The port's own copy of ``operator_tpu/schema/kube.py``.
 
 Field coverage mirrors what the reference actually reads:
 - container terminated state w/ exit code   (reference PodFailureWatcher.java:147-159)
@@ -191,3 +191,68 @@ class Deployment(K8sObject):
         super().__post_init__()
         self.api_version = self.api_version or "apps/v1"
         self.kind = self.kind or "Deployment"
+
+
+@dataclass
+class EndpointAddress:
+    """One ready (or not-ready) pod IP behind a Service subset."""
+
+    ip: Optional[str] = None
+    hostname: Optional[str] = None
+    node_name: Optional[str] = None
+
+
+@dataclass
+class EndpointPort:
+    name: Optional[str] = None
+    port: Optional[int] = None
+    protocol: Optional[str] = None
+
+
+@dataclass
+class EndpointSubset:
+    """core/v1 EndpointSubset: the (addresses x ports) cross product the
+    headless serving Service publishes — what ``router/discovery.py``
+    turns into consistent-hash ring members."""
+
+    addresses: list[EndpointAddress] = field(default_factory=list)
+    not_ready_addresses: list[EndpointAddress] = field(default_factory=list)
+    ports: list[EndpointPort] = field(default_factory=list)
+
+
+@dataclass
+class Endpoints(K8sObject):
+    """core/v1 Endpoints for the headless serving Service: the
+    membership source of truth the endpoint-watch discovery loop
+    lists + watches."""
+
+    subsets: list[EndpointSubset] = field(default_factory=list)
+
+    def __post_init__(self) -> None:
+        super().__post_init__()
+        self.api_version = self.api_version or "v1"
+        self.kind = self.kind or "Endpoints"
+
+
+@dataclass
+class ScaleSpec:
+    replicas: int = 0
+
+
+@dataclass
+class ScaleStatus:
+    replicas: int = 0
+
+
+@dataclass
+class Scale(K8sObject):
+    """autoscaling/v1 Scale — the Deployment ``scale`` subresource shape
+    the autoscale controller (operator/autoscale.py) reads and patches."""
+
+    spec: ScaleSpec = field(default_factory=ScaleSpec)
+    status: ScaleStatus = field(default_factory=ScaleStatus)
+
+    def __post_init__(self) -> None:
+        super().__post_init__()
+        self.api_version = self.api_version or "autoscaling/v1"
+        self.kind = self.kind or "Scale"

@@ -150,6 +150,11 @@ class Generator(AdmissionMixin, ProgramBuilderMixin):
         #: when a caller wires one, deadline_policy degrades/sheds by value
         #: under pressure; None = no overload control
         self.overload_policy = None
+        #: opt-in chaos seam (utils/faultinject.py): consulted per step()
+        #: round, on the wave loop and the continuous scheduler alike —
+        #: stalls (a sleep action; the worker thread, never the event
+        #: loop) and simulated device errors
+        self.fault_plan = None
         self.page_size = page_size
         self.pages_per_seq = -(-self.max_seq // page_size)
         self.sample_top_k = sample_top_k or SAMPLE_TOP_K
@@ -299,6 +304,10 @@ class Generator(AdmissionMixin, ProgramBuilderMixin):
         flushed (their tokens belong to finished epochs)."""
         if self.num_active == 0 and not self._inflight_blocks:
             return []
+        if self.fault_plan is not None:
+            # chaos seam: a raise action fails this step as a device error
+            # would, and the worker's boundary fails what is outstanding
+            self.fault_plan.apply("engine.step", active=self.num_active)
         started = time.perf_counter()
         if self.num_active:
             # held slots over capacity, as the continuous scheduler's

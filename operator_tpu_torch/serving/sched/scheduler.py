@@ -67,8 +67,10 @@ Counters (on the generator's ``metrics``): ``sched_admitted_midwave``,
 ``fabric_mirror``, ``admission_shed``, ``admission_deadline_rejected``,
 ``admission_deadline_truncated``.
 
-Not ported yet: the chaos seam (``fault_plan``) and the fabric's wire
-(ROADMAP Queue 1 item 5b).
+Chaos seam: the generator's ``fault_plan`` is consulted at the top of
+every :meth:`Scheduler.step` under the wave engine's site,
+``engine.step``.  Not ported yet: the fabric's wire (ROADMAP Queue 1 item
+5b).
 """
 
 from __future__ import annotations
@@ -453,6 +455,10 @@ class Scheduler:
         pipeline bound.  Returns every request that reached a terminal
         state (result or admission error)."""
         g = self.generator
+        if g.fault_plan is not None:
+            # chaos seam, same site as the wave engine's step so stall /
+            # device-error scenarios drive both loops identically
+            g.fault_plan.apply("engine.step", active=self.num_active)
         outcomes: list[StepOutcome] = []
         if self._evicted:
             # value-based queue evictions since the last step

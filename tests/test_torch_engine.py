@@ -315,6 +315,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import operator_tpu_torch.obs.record, operator_tpu_torch.obs.sloledger\n"
         "import operator_tpu_torch.memory.recall, operator_tpu_torch.router.health\n"
         "import operator_tpu_torch.utils.journal, operator_tpu_torch.schema.crds\n"
+        "import operator_tpu_torch.utils.faultinject, operator_tpu_torch.operator.lease\n"
+        "import operator_tpu_torch.operator.autoscale, operator_tpu_torch.router.discovery\n"
+        "import operator_tpu_torch.operator.patternsync, operator_tpu_torch.operator.httpapi\n"
+        "import operator_tpu_torch.operator.kubefacade, operator_tpu_torch.schema.crdgen\n"
+        "import operator_tpu_torch.obs.view, operator_tpu_torch.patterns.__main__\n"
         "import importlib, pkgutil, asyncio\n"
         "for info in pkgutil.walk_packages(operator_tpu_torch.__path__, 'operator_tpu_torch.'):\n"
         "    importlib.import_module(info.name)\n"
@@ -350,6 +355,12 @@ def _forbidden_imports(path: Path) -> list[str]:
 def test_no_jax_import_in_port_sources():
     files = sorted((REPO / "operator_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 10
+    names = {str(path.relative_to(REPO)) for path in files}
+    for module in ("utils/faultinject.py", "operator/lease.py", "operator/autoscale.py",
+                   "router/discovery.py", "operator/patternsync.py", "operator/httpapi.py",
+                   "operator/kubefacade.py", "schema/crdgen.py", "obs/view.py",
+                   "patterns/__main__.py"):
+        assert f"operator_tpu_torch/{module}" in names
     bad = [hit for path in files for hit in _forbidden_imports(path)]
     assert not bad, bad
 

@@ -27,10 +27,12 @@ are sorted, and measured durations (stage times, histogram buckets and
 sums) are reduced to their counts, the SLO ledger's latencies and rates
 are dropped.
 
-Also here: the port refuses each unported operator feature naming ROADMAP
-Queue 1 item 5a, degrades a provider whose factory raises as the reference
-does, and its ``Operator`` raises without a card unless given
-``device="cpu"``.  The remote path: the port's ``Operator`` with
+Also here: the fleet knobs (``LEADER_ELECTION``, ``AUTOSCALE_ENABLED``,
+``DISCOVERY_ENABLED``) wire the same control loops as the reference, a
+PatternLibrary CR is synced at ``start()``, the CLI without ``--demo``
+and without a cluster exits 2 with the reference's message; a provider
+whose factory raises degrades as the reference does, and the port's
+``Operator`` raises without a card unless given ``device="cpu"``.  The remote path: the port's ``Operator`` with
 ``providerId: openai-compatible`` against the port's ``CompletionServer``
 stores what the JAX ``Operator`` stores against the JAX server;
 ``COMPLETION_API_PORT`` serves ``/healthz`` from the operator process, and
@@ -883,34 +885,121 @@ def test_run_demo_matches_jax(provider_id, encoder, request, monkeypatch):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("knob,value", [
-    ("leader_election", True), ("autoscale_enabled", True), ("discovery_enabled", True),
-])
-def test_operator_refuses_unported_features_naming_item_5a(knob, value):
-    port = PKGS["port"]
-    config = port.utils_config.OperatorConfig(health_port=-1, **{knob: value})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 5a"):
-        port.operator.Operator(port.operator.FakeKubeApi(), config=config, device="cpu")
+async def _fleet_knob_case(pkg, knob: str) -> dict:
+    """An ``Operator`` with one fleet knob on, started and stopped over a
+    fake apiserver holding the serving Deployment and its Endpoints."""
+    O, s = pkg.operator, pkg.schema
+    api = O.FakeKubeApi()
+    api.namespace = "podmortem-system"
+    config = pkg.utils_config.OperatorConfig(
+        pattern_cache_directory="/nonexistent", health_port=-1, pod_name="replica-0",
+        lease_renew_period_s=0.02, lease_retry_period_s=0.02, autoscale_interval_s=0.02,
+        router_health_poll_s=0, discovery_prewarm=False, **{knob: True})
+    await api.create("Deployment", s.Deployment(
+        metadata=s.ObjectMeta(name="podmortem-serving", namespace="podmortem-system"),
+        spec=s.DeploymentSpec(replicas=1)).to_dict())
+    await api.create("Endpoints", {
+        "metadata": {"name": "podmortem-serving", "namespace": "podmortem-system"},
+        "subsets": [{"addresses": [{"ip": "10.0.0.7"}], "ports": [{"name": "http", "port": 8000}]}]})
+    operator = O.Operator(api, config=config, **pkg.device)
+    await operator.start()
+    for _ in range(300):
+        ready = (operator.elector is None or operator.elector.is_leader) and bool(
+            operator._control_tasks)
+        if operator.autoscaler is not None:
+            ready = ready and operator.autoscaler.desired_replicas is not None
+        if operator.discovery is not None:
+            ready = ready and bool(operator.discovery.members())
+        if ready:
+            break
+        await asyncio.sleep(0.01)
+    out = {
+        "tasks": sorted(t.get_name() for t in operator._tasks),
+        "control": sorted(t.get_name() for t in operator._control_tasks),
+        "elector": operator.elector is not None,
+        "autoscaler": operator.autoscaler is not None,
+        "discovery": operator.discovery is not None,
+        "members": operator.discovery.members() if operator.discovery else None,
+        "fleet": {k: v for k, v in operator._fleet_view().items()
+                  if k in ("fleetSize", "desiredReplicas", "lastScaleReason")},
+    }
+    await operator.stop()
+    out["lease"] = (await _attempt(pkg, api.get("Lease", config.lease_name,
+                                                "podmortem-system")))
+    out["scale"] = (await api.get_scale("Deployment", "podmortem-serving",
+                                        "podmortem-system"))["spec"]
+    return normalise(out)
 
 
-def test_operator_refuses_pattern_library_git_sync_naming_item_5a():
-    port = PKGS["port"]
-    s = port.schema
+@pytest.mark.parametrize("knob", ["leader_election", "autoscale_enabled", "discovery_enabled"])
+def test_fleet_knobs_wire_the_operator_as_jax(knob):
+    """Each knob the port used to refuse now wires the reference's loops:
+    the elector and leader cycle, the autoscaler (here it scales the idle
+    Deployment to zero), the endpoint-watch discovery feeding the dynamic
+    router."""
+    ref, ours = (run(_fleet_knob_case(PKGS[name], knob)) for name in ("jax", "port"))
+    assert ours == ref
+    if knob == "leader_election":
+        assert ours["tasks"] == ["leader-cycle", "leader-elector"]
+        assert ours["lease"][1]["spec"]["holderIdentity"] == ""
+    if knob == "autoscale_enabled":
+        assert "autoscaler" in ours["control"]
+        assert ours["fleet"]["desiredReplicas"] is not None
+    if knob == "discovery_enabled":
+        assert "endpoint-discovery" in ours["tasks"]
+        assert ours["members"] == ["http://10.0.0.7:8000"]
 
-    async def body():
-        api = port.operator.FakeKubeApi()
-        await api.create_obj(s.PatternLibrary(metadata=s.ObjectMeta(name="pl", namespace="ns")))
-        operator = port.operator.Operator(
-            api, config=port.utils_config.OperatorConfig(health_port=-1), device="cpu")
-        with pytest.raises(NotImplementedError, match="item 5a"):
-            await operator.start()
 
-    run(body())
+async def _pattern_library_at_start(pkg, remote: str, cache: str) -> dict:
+    O, s = pkg.operator, pkg.schema
+    api = O.FakeKubeApi()
+    config = pkg.utils_config.OperatorConfig(pattern_cache_directory=cache, health_port=-1)
+    await api.create_obj(s.PatternLibrary(
+        metadata=s.ObjectMeta(name="team-lib", namespace="ns"),
+        spec=s.PatternLibrarySpec(repositories=[s.PatternRepository(name="r1", url=remote)])))
+    operator = O.Operator(api, config=config, **pkg.device)
+    await operator.start()
+    status = {}
+    for _ in range(500):
+        status = (await api.get("PatternLibrary", "team-lib", "ns")).get("status") or {}
+        if status.get("phase") in ("Ready", "Failed"):
+            break
+        await asyncio.sleep(0.01)
+    # the engine reloads after the status write
+    for _ in range(200):
+        result = operator.engine.analyze(s.PodFailureData(logs="x\nQUARKUS_FAIL boom\n"))
+        if any(e.matched_pattern.id == "q1" for e in result.events):
+            break
+        await asyncio.sleep(0.01)
+    await operator.stop()
+    return normalise({"status": status, "patterns": sorted(
+        {e.matched_pattern.id for e in result.events})})
 
 
-def test_operator_cli_without_demo_refuses_the_real_api_server(capsys):
-    assert PKGS["port"].operator_app._main([]) == 2
-    assert "item 5a" in capsys.readouterr().err
+def test_pattern_library_is_synced_at_start_as_jax(tmp_path):
+    if shutil.which("git") is None:
+        pytest.skip("git is not installed")
+    from test_torch_patternsync import make_remote
+
+    remote = str(make_remote(tmp_path))
+    ref, ours = (run(_pattern_library_at_start(PKGS[name], remote, str(tmp_path / name)))
+                 for name in ("jax", "port"))
+    assert ours == ref
+    assert ours["status"]["phase"] == "Ready" and ours["status"]["availableLibraries"] == ["quarkus"]
+    assert "q1" in ours["patterns"]
+
+
+def test_operator_cli_without_demo_and_without_a_cluster_exits_2_as_jax(
+        capsys, monkeypatch, tmp_path):
+    monkeypatch.delenv("KUBERNETES_SERVICE_HOST", raising=False)
+    monkeypatch.setenv("KUBECONFIG", str(tmp_path / "absent-kubeconfig"))
+    out = []
+    for name in ("jax", "port"):
+        rc = PKGS[name].operator_app._main([])
+        out.append([rc, capsys.readouterr().err.strip().splitlines()[-1]])
+    assert out[0] == out[1]
+    assert out[1][0] == 2 and out[1][1].startswith("error: no cluster access (")
+    assert "use --demo" in out[1][1]
 
 
 async def _http_provider_case(pkg, provider_id: str, message: str) -> dict:

@@ -9,9 +9,11 @@ which order, the residual budget each attempt gets, counters and raised
 messages), ``replica_set`` and ``_completions_url``, the provider's
 request bodies, headers, idempotency keys and ``AIResponse``s, the
 background ``/healthz`` poll and the fleet view, and ``ResumeLog``
-replay from its journal.  The reference's fault-plan seam is not ported
-(ROADMAP Queue 1 item 5a), so its kill scenarios fail the replica in the
-fake transport instead.
+replay from its journal.  The kill and partition scenarios run twice:
+failing the replica in the fake transport, and through a seeded
+``FaultPlan`` at ``router.dispatch``, ``http.provider`` (a replica
+killed under a whole analysis, over the pipeline) and ``http.healthz``,
+whose fired-fault traces must equal JAX's.
 """
 
 import asyncio
@@ -33,6 +35,7 @@ import operator_tpu.router as jax_router  # noqa: E402
 import operator_tpu.router.health as jax_health  # noqa: E402
 import operator_tpu.schema.analysis as jax_analysis  # noqa: E402
 import operator_tpu.utils.deadline as jax_deadline  # noqa: E402
+import operator_tpu.utils.faultinject as jax_faultinject  # noqa: E402
 import operator_tpu.utils.timing as jax_timing  # noqa: E402
 import operator_tpu_torch.obs as obs  # noqa: E402
 import operator_tpu_torch.operator.providers as providers  # noqa: E402
@@ -40,14 +43,16 @@ import operator_tpu_torch.router as router_pkg  # noqa: E402
 import operator_tpu_torch.router.health as health  # noqa: E402
 import operator_tpu_torch.schema.analysis as analysis  # noqa: E402
 import operator_tpu_torch.utils.deadline as deadline  # noqa: E402
+import operator_tpu_torch.utils.faultinject as faultinject  # noqa: E402
 import operator_tpu_torch.utils.timing as timing  # noqa: E402
 
 PKGS = {
     "jax": SimpleNamespace(router=jax_router, health=jax_health, providers=jax_providers,
                            analysis=jax_analysis, deadline=jax_deadline, timing=jax_timing,
-                           obs=jax_obs),
+                           obs=jax_obs, faultinject=jax_faultinject, root="operator_tpu"),
     "port": SimpleNamespace(router=router_pkg, health=health, providers=providers,
-                            analysis=analysis, deadline=deadline, timing=timing, obs=obs),
+                            analysis=analysis, deadline=deadline, timing=timing, obs=obs,
+                            faultinject=faultinject, root="operator_tpu_torch"),
 }
 KEYS = [f"key-{i}" for i in range(300)]
 
@@ -367,6 +372,153 @@ def test_partitioned_replica_breaker_drains_follow_up_traffic():
     assert outcomes == [("b", 1), ("b", 1), ("b", 0)] and served == ["b", "b", "b"]
     assert counters["router_excluded"] == 1 and counters["router_failover"] == 2
     assert state == "open"
+
+
+def _drains_through_the_plan(pkg, seed):
+    """The same partition through the router's own seam: a seeded plan at
+    ``router.dispatch`` kills every attempt against ``a`` twice."""
+    fi = pkg.faultinject
+    metrics = pkg.timing.MetricsRegistry()
+    clock = {"t": 0.0}
+    router = pkg.router.EngineRouter(["a", "b"], failure_threshold=2, reset_s=30.0,
+                                     clock=lambda: clock["t"], metrics=metrics)
+    plan = fi.FaultPlan(seed=seed)
+    plan.rule("router.dispatch", [fi.raise_(lambda: urllib.error.URLError("partitioned"), "part")
+                                  for _ in range(2)],
+              match=lambda replica, attempt: replica == "a")
+    router.fault_plan = plan
+    key = _key_preferring(router, "a")
+    served = []
+
+    async def send(replica, attempt, budget_s):
+        served.append(replica.id)
+        return replica.id
+
+    outcomes = [run(router.dispatch(send, key=key, attempts=3)) for _ in range(3)]
+    return ([(o.replica_id, o.requeues) for o in outcomes], served,
+            metrics.snapshot()["counters"], router.health.breakers.for_key("a").state,
+            plan.trace(), plan.fingerprint(), plan.pending())
+
+
+@pytest.mark.parametrize("seed", [3, 11])
+def test_partition_through_the_dispatch_seam_traces_as_jax(seed):
+    outcomes, served, counters, state, trace, _, pending = both(_drains_through_the_plan, seed)
+    assert outcomes == [("b", 1), ("b", 1), ("b", 0)] and served == ["b", "b", "b"]
+    assert counters["router_excluded"] == 1 and counters["router_failover"] == 2
+    assert state == "open" and pending == {}
+    assert trace == [("router.dispatch", 0, "<raise:part>"), ("router.dispatch", 2, "<raise:part>")]
+
+
+def _replica_kill(pkg, seed):
+    """A replica killed mid-request under a whole analysis: the first
+    ``http.provider`` attempt dies on whichever replica affinity chose;
+    the analysis is requeued once on the survivor and stored once."""
+    import importlib
+
+    mod = {name: importlib.import_module(f"{pkg.root}.{name}") for name in (
+        "memory", "operator.kubeapi", "operator.pipeline", "patterns.engine", "schema",
+        "utils.config")}
+    s = mod["schema"]
+    fi = pkg.faultinject
+    plan = fi.FaultPlan(seed=seed)
+    plan.rule("http.provider", fi.raise_(
+        lambda: urllib.error.URLError("replica killed mid-stream"), "kill"))
+    api = mod["operator.kubeapi"].FakeKubeApi()
+    api.fault_plan = plan
+    metrics = pkg.timing.MetricsRegistry()
+    recorder = pkg.obs.FlightRecorder(capacity=32, metrics=metrics)
+    config = mod["utils.config"].OperatorConfig(
+        pattern_cache_directory="/nonexistent", conflict_backoff_base_s=0.001,
+        analysis_deadline_s=30.0)
+    registry = pkg.providers.default_registry()
+    backend = pkg.providers.OpenAICompatProvider(_opener(text="Root Cause: survived."),
+                                                 metrics=metrics)
+    backend.fault_plan = plan
+    registry.register("openai", backend)
+    device = {"device": "cpu"} if pkg.root == "operator_tpu_torch" else {}
+    pipeline = mod["operator.pipeline"].AnalysisPipeline(
+        api, mod["patterns.engine"].PatternEngine(), config=config, metrics=metrics,
+        providers=registry, tracer=pkg.obs.Tracer(recorder=recorder),
+        memory=mod["memory"].build_incident_memory(config, **device))
+
+    async def scenario():
+        await api.create("AIProvider", s.AIProvider(
+            metadata=s.ObjectMeta(name="prov", namespace="ns"),
+            spec=s.AIProviderSpec(provider_id="openai", model_id="m",
+                                  api_url="http://replica-a:8000,http://replica-b:8000",
+                                  max_retries=3, caching_enabled=True)).to_dict())
+        pm = s.Podmortem(metadata=s.ObjectMeta(name="pm", namespace="ns"), spec=s.PodmortemSpec(
+            pod_selector=s.LabelSelector(match_labels={"app": "web"}),
+            ai_provider_ref=s.AIProviderRef(name="prov", namespace="ns")))
+        await api.create("Podmortem", pm.to_dict())
+        pod = s.Pod(metadata=s.ObjectMeta(name="web-1", namespace="prod", labels={"app": "web"}),
+                    status=s.PodStatus(phase="Running", container_statuses=[s.ContainerStatus(
+                        name="app", restart_count=1, state=s.ContainerState(
+                            terminated=s.ContainerStateTerminated(
+                                exit_code=1, finished_at="2026-07-28T09:00:00Z")))]))
+        api.set_pod_log("prod", "web-1", "java.lang.OutOfMemoryError: heap\n")
+        await api.create("Pod", pod.to_dict())
+        await pipeline.process_failure_group(pod, [pm], failure_time="t-0")
+        return (await api.get("Podmortem", "pm", "ns")).get("status") or {}
+
+    status = run(scenario())
+    failures = status.get("recentFailures") or []
+    record = recorder.get(failures[0]["traceId"]) if failures else None
+    spans = [{"replica": sp["attributes"]["replica"], "requeue": sp["attributes"]["requeue"],
+              "status": sp["status"]}
+             for sp in (record.trace["spans"] if record else []) if sp["name"] == "router.dispatch"]
+    pipeline.claims.close()
+    return {
+        "trace": plan.trace(), "fingerprint": plan.fingerprint(), "pending": plan.pending(),
+        "entries": [(f["analysisStatus"], f.get("deadlineOutcome"), f["explanation"])
+                    for f in failures],
+        "counters": {k: v for k, v in metrics.snapshot()["counters"].items()
+                     if k.startswith(("router_", "analysis_", "analyses_"))},
+        "spans": spans,
+    }
+
+
+def test_replica_kill_through_the_provider_seam_fails_over_as_jax():
+    """Two seeded runs per package, equal to each other and to JAX's:
+    one kill fired, one failover, one stored entry completed in budget."""
+    out = both(lambda pkg: [_replica_kill(pkg, 13) for _ in range(2)])
+    assert out[0] == out[1]
+    run_ = out[0]
+    assert run_["trace"] == [("http.provider", 0, "<raise:kill>")] and run_["pending"] == {}
+    assert run_["entries"] == [("Analyzed", "completed", "Root Cause: survived.")]
+    assert run_["counters"]["router_failover"] == 1 and run_["counters"]["router_routed"] == 1
+    assert run_["counters"]["analysis_requeued"] == 1
+    first, second = run_["spans"]
+    assert first["status"] == "error" and second["status"] == "ok"
+    assert first["replica"] != second["replica"] and second["requeue"] == 1
+
+
+def _healthz_partition(pkg):
+    """A plan at ``http.healthz`` partitions one replica's probe for two
+    sweeps: it is marked not ready, then readmitted."""
+    fi = pkg.faultinject
+    payloads = {n: {"status": "ok", "replica": n, "load": LOAD} for n in ("r1:8000", "r2:8000")}
+    provider = pkg.providers.OpenAICompatProvider(_healthz_opener(payloads),
+                                                  metrics=pkg.timing.MetricsRegistry())
+    router = provider.router_for([pkg.router.Replica(id=f"http://{n}/v1", url=f"http://{n}/v1")
+                                  for n in sorted(payloads)])
+    plan = fi.FaultPlan(seed=5)
+    plan.rule("http.healthz", fi.times(2, fi.raise_(lambda: OSError("partitioned"), "part")),
+              match=lambda replica: replica == "http://r2:8000/v1")
+    provider.fault_plan = plan
+    out = []
+    for _ in range(3):
+        polled = run(provider.poll_replica_health(timeout_s=3.0))
+        out.append((polled, {rid: router.health.can_route(rid) for rid in sorted(router._replicas)}))
+    return out, plan.trace(), plan.pending()
+
+
+def test_healthz_partition_through_the_plan_as_jax():
+    sweeps, trace, pending = both(_healthz_partition)
+    assert [polled for polled, _ in sweeps] == [1, 1, 2]
+    assert sweeps[0][1] == {"http://r1:8000/v1": True, "http://r2:8000/v1": False}
+    assert sweeps[2][1] == {"http://r1:8000/v1": True, "http://r2:8000/v1": True}
+    assert [site for site, _, _ in trace] == ["http.healthz"] * 2 and pending == {}
 
 
 # ---------------------------------------------------------------------------
