@@ -2,7 +2,8 @@
 """Chip smoke test of the PyTorch/H100 port (``operator_tpu_torch``).
 
     python3 chip_smoke.py [--out results.json]
-        [--phases device,kernels,serve,wave,analysis,checkpoint,operator,remote,fleet,parity]
+        [--phases device,kernels,serve,wave,analysis,checkpoint,operator,remote,fleet,deployed,
+                  parity]
 
 Runs on one CUDA card, from the root of a checkout; exits non-zero, and
 prints no result, when no card is present or the package is missing.
@@ -37,6 +38,10 @@ Phases, in order — any failure stops the run:
    ``max`` for K5; timed here only, never called by the port), beside
    the least time the card could take (``bound``); K1 at the serve
    phase's three waves (decode, mixed, prefill), the mixed one its record;
+   and K1 again at llama-3-8b's heads (QH=32, KH=8, D=128, the group of 4
+   the deployed phase launches) over the three waves and the decode,
+   window and off-grid geometries, held in bf16 and f32, and timed at the
+   three waves beside its bound and the SDPA call;
 3. serve: the continuous path at full width — tinyllama-1.1b, 22
    layers, int8 weights from a seed, 32 slots, page 64, chunk 64,
    pipeline depth 2, speculative decoding on, the block-hash prefix cache
@@ -81,7 +86,11 @@ Phases, in order — any failure stops the run:
    one more, of 786 prompt tokens: each of the 22 K2/K3 calls of its
    first decode step is held to the plain version (every row, WAVE_TOL),
    and its long row must have keys in at least three of the kernel's
-   splits, so the split-KV merge is held too;
+   splits, so the split-KV merge is held too.  On the ``v1`` engine the
+   ten requests go once more with the step sleeping past a tightened
+   stall budget after four steps: the supervisor must restart once and
+   requeue every request in flight, the decode and prefill kernels launch
+   again after the restart, and every page and slot comes back free;
 5. analysis: the semantic analysis path at the full width of
    all-MiniLM-L6-v2 (f32 weights from a seed, byte-level token ids,
    buckets of 32 texts x 256 tokens) through ``PatternEngine.analyze``
@@ -211,7 +220,34 @@ Phases, in order — any failure stops the run:
    kill to takeover, scale-up reaction, replica start, join to the first
    routed request, scale-down and process start to stored status are
    printed;
-10. parity: small f32 ``tiny-test`` engines on the card (kernels) and on
+10. deployed: the deployed model, llama-3-8b at full width (32 layers,
+   hidden 4,096, 32 query heads over 8 KV heads of 128, vocab 128,256,
+   rope theta 500,000; int8 weights from a seed), with the committed
+   byte-level tokenizer (``tests/torch_tokenizers/llama3_bl`` through
+   ``load_tokenizer``), built by ``build_serving_engine`` with the
+   reference's defaults: the continuous scheduler, the prefix cache,
+   pipeline depth 2, speculation and the supervisor.  (a) Ten
+   ``AnalysisRequest``s of the fixture logs through
+   ``TPUNativeProvider.generate`` (32 tokens, half greedy, admission held
+   until all ten are queued, on an empty prefix cache): K1 launches 32
+   times per step, K2-K5 never, the pages balance; one step's 32 K1 calls
+   are held to the plain version, its tile 0 with keys in three or more
+   splits; tokens/s, ms per step, device memory after the load and the
+   tokenizer's encode time per request are printed.  (b) The same drive
+   with the step sleeping 5 s past a 3 s stall budget after 20 steps: one
+   restart, every request requeued, no give-up and no leak, one
+   ``engine-stall`` black-box record; every request settles, the greedy
+   answers equal (a)'s, K1 launches 32 times per step, and the device
+   memory is back within 64 MiB of its level before the stall.  (c) A
+   one-shot device error at the ``engine.step`` seam is absorbed by a
+   requeue; a persistent one fails its request after ``max_requeues``
+   and, the window's three resets spent, ``load_report().gave_up`` is
+   set.  (d) On a fresh engine, the JAX smoke's storm (``ArrivalSpec``
+   "storm", 240/min for 5 s, seed 0) through ``build_storm_stack`` with
+   one ``EngineReplica``, a stall after 40 steps: one restart, every
+   arrival settles, no torn ledger line; the schedule's fingerprint, the
+   attainment and the goodput are printed;
+11. parity: small f32 ``tiny-test`` engines on the card (kernels) and on
    the CPU (plain versions) must give the same greedy tokens — the
    continuous engine, and the wave engine with the decode selector at
    ``v1`` and ``v2`` and flash prefill on and off; the continuous engine
@@ -453,6 +489,9 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
 
 B, C, QH, KH, D, PAGE, PPS = 32, 64, 32, 4, 64, 64, 32
 MAX_SEQ = PAGE * PPS
+#: K1's heads at the two full widths the port serves: tinyllama-1.1b (the
+#: serve phase) and llama-3-8b (the deployed phase: D = 128, group of 4)
+HEADS = {"tinyllama-1.1b": (QH, KH, D), "llama-3-8b": (32, 8, 128)}
 
 
 def geometry(name: str, rng):
@@ -510,19 +549,20 @@ def geometry(name: str, rng):
     return c, kv_len.astype(np.int32), q_count.astype(np.int32), window
 
 
-def kernel_case(name: str, dtype, seed: int):
+def kernel_case(name: str, dtype, seed: int, heads: tuple = (QH, KH, D)):
     import numpy as np
     import torch
 
+    qh, kh, d = heads
     rng = np.random.default_rng(seed)
     c, kv_len, q_count, window = geometry(name, rng)
     num_pages = B * PPS + 1
     table = (1 + rng.permutation(num_pages - 1)[: B * PPS]).reshape(B, PPS)
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    shape = (num_pages, PAGE, KH, D)
+    shape = (num_pages, PAGE, kh, d)
     k_pages = torch.randn(shape, generator=gen, device="cuda").to(dtype)
     v_pages = torch.randn(shape, generator=gen, device="cuda").to(dtype)
-    q = torch.randn((B, c, QH, D), generator=gen, device="cuda").to(dtype)
+    q = torch.randn((B, c, qh, d), generator=gen, device="cuda").to(dtype)
     args = (
         q, k_pages, v_pages,
         torch.as_tensor(table, dtype=torch.int32, device="cuda"),
@@ -532,10 +572,11 @@ def kernel_case(name: str, dtype, seed: int):
     return args, window, kv_len, q_count
 
 
-def bound(kv_len, q_count, window, itemsize):
+def bound(kv_len, q_count, window, itemsize, heads: tuple = (QH, KH, D)):
     """Least time for the function on these inputs: live KV (each row's
     in-window keys), the valid q rows and out rows, the indices; and the
     QK^T + PV operations at the bf16 tensor-core peak."""
+    qh, kh, d = heads
     live_kv = 0
     flops = 0
     for length, count in zip(kv_len.tolist(), q_count.tolist()):
@@ -545,8 +586,8 @@ def bound(kv_len, q_count, window, itemsize):
         for i in range(count):
             q_pos = length - count + i
             keys = min(q_pos + 1, window or (q_pos + 1))
-            flops += 4 * keys * QH * D
-    nbytes = live_kv * KH * D * 2 * itemsize + 2 * int(sum(q_count)) * QH * D * itemsize
+            flops += 4 * keys * qh * d
+    nbytes = live_kv * kh * d * 2 * itemsize + 2 * int(sum(q_count)) * qh * d * itemsize
     nbytes += (len(kv_len) * PPS + 2 * len(kv_len)) * 4
     byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
     op_ms = flops / BF16_FLOPS * 1e3
@@ -577,8 +618,9 @@ def library_call(args, window):
 
     q, k_pages, v_pages, table, kv_len, q_count = args
     b, c = q.shape[0], q.shape[1]
-    k = k_pages[table.long()].reshape(b, MAX_SEQ, KH, D).transpose(1, 2).contiguous()
-    v = v_pages[table.long()].reshape(b, MAX_SEQ, KH, D).transpose(1, 2).contiguous()
+    kh, d = k_pages.shape[2], k_pages.shape[3]
+    k = k_pages[table.long()].reshape(b, MAX_SEQ, kh, d).transpose(1, 2).contiguous()
+    v = v_pages[table.long()].reshape(b, MAX_SEQ, kh, d).transpose(1, 2).contiguous()
     qd = q.transpose(1, 2).contiguous()  # [B, QH, C, D]
     kv_pos = torch.arange(MAX_SEQ, device="cuda")[None, None, :]
     q_pos = ((kv_len - q_count).long()[:, None] + torch.arange(c, device="cuda"))[:, :, None]
@@ -635,6 +677,7 @@ def phase_kernels(results: dict) -> dict:
         print(json.dumps({"kernel_timing": {
             "geometry": name, **timings[name], "bound_us": bound_ms * 1e3,
         }}), flush=True)
+    deployed, deployed_worst = k1_deployed_geometry(checks)
     record = {
         "name": "ragged_paged_attention",
         "route": "cuda",
@@ -644,10 +687,64 @@ def phase_kernels(results: dict) -> dict:
         "max_abs_err": worst,
         **timings["wave_mixed"],
         "geometries": timings,  # the serve phase's waves and the hit chunk
+        # llama-3-8b's heads (D = 128, group of 4) at the same waves
+        "geometries_llama_3_8b": deployed,
+        "max_abs_err_llama_3_8b": deployed_worst,
     }
     results["kernel_checks"] = checks
     results["kernel_timings"] = timings
+    results["kernel_timings_llama_3_8b"] = deployed
     return record
+
+
+def k1_deployed_geometry(checks: list) -> tuple:
+    """K1 at llama-3-8b's heads (QH = 32, KH = 8, D = 128, page 64) over the
+    serve phase's three waves (decode, mixed, prefill), bf16 and f32: held
+    to the plain version (valid rows), then timed in bf16 beside its bound
+    and the SDPA call.  Returns (timings by wave, the largest bf16 error)."""
+    import torch
+
+    from operator_tpu_torch.ops import ragged_attention as ra
+
+    heads = HEADS["llama-3-8b"]
+    worst = 0.0
+    timings = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).replace("torch.", "")
+        for seed, name in enumerate(("wave_decode", "wave_mixed", "wave_prefill", "decode",
+                                     "window", "ragged")):
+            args, window, kv_len, q_count = kernel_case(name, dtype, 200 + seed, heads)
+            got = ra.ragged_attention_cuda(*args, sliding_window=window)
+            torch.cuda.synchronize()
+            want = ra.ragged_attention_reference(*args, sliding_window=window)
+            valid = torch.arange(args[0].shape[1], device="cuda")[None, :] < args[5][:, None]
+            err = (got[valid].float() - want[valid].float()).abs().max().item()
+            finite = bool(torch.isfinite(got[valid].float()).all().item())
+            checks.append({"geometry": f"llama-3-8b/{name}", "dtype": dname, "max_abs_err": err,
+                           "tol": TOL[dname], "finite": finite, "heads": heads})
+            print(json.dumps({"kernel_check": checks[-1]}), flush=True)
+            if not finite or not err <= TOL[dname]:
+                raise fail(f"ragged kernel llama-3-8b/{name}/{dname}: max_abs_err={err} "
+                           f"(tol {TOL[dname]})")
+            if dname == "bfloat16":
+                worst = max(worst, err)
+    for name in ("wave_decode", "wave_mixed", "wave_prefill"):
+        args, window, kv_len, q_count = kernel_case(name, torch.bfloat16, 300, heads)
+        bound_ms, bound_by = bound(kv_len, q_count, window, 2, heads)
+        timings[name] = {
+            "ms": time_ms(lambda: ra.ragged_attention_cuda(*args, sliding_window=window), 50),
+            "plain_ms": time_ms(
+                lambda: ra.ragged_attention_reference(*args, sliding_window=window), 5
+            ),
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": time_ms(library_call(args, window), 20),
+            "heads": heads,
+        }
+        print(json.dumps({"kernel_timing": {
+            "geometry": f"llama-3-8b/{name}", **timings[name], "bound_us": bound_ms * 1e3,
+        }}), flush=True)
+    return timings, worst
 
 
 #: the serve and wave phases' prompts in tokens (byte tokenizer: chars + BOS)
@@ -1662,6 +1759,7 @@ def phase_wave(results: dict, kernel_modules: dict, phases: set, selector: str) 
             if held_decode["splits_with_keys"] < 3:
                 raise fail(f"the held K2/K3 step's long row had keys in "
                            f"{held_decode['splits_with_keys']} splits, want >= 3")
+            stall = wave_stall(engine, url, bodies, kernel_modules) if selector == "v1" else None
             load = healthz(server.bound_port)["load"]
         finally:
             http.stop()
@@ -1677,6 +1775,7 @@ def phase_wave(results: dict, kernel_modules: dict, phases: set, selector: str) 
             "stream_ms_per_block": sum(block_ms) / len(block_ms) if block_ms else None,
             "launches": launches, "setup_s": setup_s,
             "pages_free": free_pages, "held_calls": held, "held_decode_calls": held_decode,
+            "supervised_stall": stall,
             "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
             "healthz_load": load,
         }
@@ -1690,6 +1789,32 @@ def phase_wave(results: dict, kernel_modules: dict, phases: set, selector: str) 
                 os.environ.pop(key, None)
             else:
                 os.environ[key] = value
+
+
+def wave_stall(engine, url: str, bodies: list, kernel_modules: dict) -> dict:
+    """The wave loop supervised: the ten requests again with the engine's
+    step sleeping past a tightened budget after four steps.  One restart,
+    every request in flight requeued, the decode and prefill kernels
+    launching again after it, every page and slot free at the end."""
+    g = engine.generator
+    for module in kernel_modules.values():
+        module.launches = 0
+    _, record = supervised_stall(engine, kernel_modules, lambda: drive_requests(url, bodies), 4,
+                                 "wave", arrivals_continue=True)
+    deadline = time.time() + 30
+    while (g.num_active or g._inflight_blocks) and time.time() < deadline:
+        time.sleep(0.05)
+    after = {name: m.launches - record["launches_at_stall"][name]
+             for name, m in kernel_modules.items()}
+    record["launches_after_stall"] = after
+    record["pages_free"] = g.allocator.available
+    print(json.dumps({"wave_stall": record}), flush=True)
+    if g.allocator.available != g.allocator.num_pages - 1 or len(g.free_slots()) != g.max_slots:
+        raise fail(f"pages or slots held after the wave stall: {g.allocator.available} pages, "
+                   f"{len(g.free_slots())} slots free")
+    if not after["paged_decode_attention"] or not after["flash_prefill_attention"]:
+        raise fail(f"the wave kernels did not launch after the restart: {after}")
+    return record
 
 
 def profile_drive(url: str, bodies: list) -> dict:
@@ -4538,6 +4663,403 @@ def phase_fleet(results: dict, kernel_modules: dict, dirs: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the deployed model (llama-3-8b) with the byte-level tokenizer,
+# the supervisor, device errors and an open-loop storm
+# ---------------------------------------------------------------------------
+
+DEPLOYED_ENV = {**SERVE_ENV, "OPERATOR_TPU_MODEL": "llama-3-8b"}
+LLAMA3_TOKENIZER = os.path.join(ROOT, "tests", "torch_tokenizers", "llama3_bl")
+#: the tightened stall budget of the injected stalls, and the injected
+#: step's sleep: past the budget, inside the default 10 s join grace
+STALL_BUDGET_S = 3.0
+STALL_SLEEP_S = 5.0
+#: the steps let through before the stall: mid-drive, before any of the
+#: ten requests can finish (their prompts alone take longer to prefill)
+STALL_AFTER_STEPS = 20
+#: device memory allowed above its level before a supervised restart
+RESTART_MEMORY_MARGIN = 64 * 2**20
+#: the storm: the JAX smoke's shape (``operator_tpu/loadgen/__main__.py``)
+STORM_SPEC = {"name": "storm", "rate_per_min": 240.0, "duration_s": 5.0, "burst_factor": 4.0,
+              "burst_every_s": 2.0, "burst_len_s": 0.5}
+STORM_STALL_AFTER_STEPS = 40
+
+
+class StallAction:
+    """An ``engine.step`` fault action that sleeps ``seconds`` (past the
+    tightened stall budget) and records, as it fires, the requests the
+    supervisor will collect and the kernels' counts."""
+
+    kind = "sleep"
+    label = "stall"
+
+    def __init__(self, seconds: float, engine, kernel_modules: dict) -> None:
+        self.seconds, self.engine, self.kernel_modules = seconds, engine, kernel_modules
+        self.fired: "dict | None" = None
+
+    def fire(self) -> None:
+        engine = self.engine
+        self.fired = {
+            "in_flight": len(engine._pending) + len(engine._waiting) + engine._submissions.qsize(),
+            "launches": {name: m.launches for name, m in self.kernel_modules.items()},
+        }
+        time.sleep(self.seconds)
+
+    def __repr__(self) -> str:
+        return f"<sleep:{self.seconds}>"
+
+
+def supervisor_counts(metrics) -> dict:
+    return {name: metrics.counter(f"supervisor_{name}")
+            for name in ("restart", "requeue", "gaveup", "leak")}
+
+
+def supervised_stall(engine, kernel_modules: dict, drive, steps_before: int, where: str,
+                     arrivals_continue: bool = False) -> tuple:
+    """Run ``drive()`` with the engine's step sleeping past a tightened
+    stall budget after ``steps_before`` steps; fails unless the supervisor
+    restarted once, requeued every request in flight (with
+    ``arrivals_continue``, an open-loop drive, those that arrived before
+    the stall was declared too), gave up on none and leaked nothing, with
+    one ``engine-stall`` black-box record.  Returns (the drive's result,
+    the record)."""
+    from operator_tpu_torch.obs import FlightRecorder
+    from operator_tpu_torch.utils.faultinject import OK, FaultPlan
+
+    g = engine.generator
+    policy = engine._supervisor
+    if policy is None:
+        raise fail(f"{where}: the engine is not supervised")
+    counts0 = supervisor_counts(g.metrics)
+    recorder = FlightRecorder(capacity=16)
+    engine.recorder = recorder
+    stall = StallAction(STALL_SLEEP_S, engine, kernel_modules)
+    plan = FaultPlan(seed=11)
+    plan.rule("engine.step", [OK] * steps_before + [stall])
+    budget, policy.stall_timeout_s = policy.stall_timeout_s, STALL_BUDGET_S
+    g.fault_plan = plan
+    try:
+        result = drive()
+    finally:
+        g.fault_plan = None
+        policy.stall_timeout_s = budget
+        engine.recorder = None
+    counts = {k: v - counts0[k] for k, v in supervisor_counts(g.metrics).items()}
+    dumps = [r for r in recorder.traces() if r.blackbox]
+    record = {
+        "stall_budget_s": STALL_BUDGET_S, "stall_sleep_s": STALL_SLEEP_S,
+        "join_grace_s": policy.join_grace_s, "steps_before": steps_before,
+        "in_flight_at_stall": stall.fired["in_flight"] if stall.fired else None,
+        "counters": counts,
+        "blackbox": [d.reason for d in dumps],
+        "blackbox_requeued": [d.extra.get("requeued") for d in dumps],
+        "restart_ready_s": g.metrics.gauge("supervisor_restart_ready_seconds"),
+        "launches_at_stall": stall.fired["launches"] if stall.fired else None,
+        "gave_up": engine.load_report().gave_up,
+    }
+    print(json.dumps({"supervised_stall": {where: record}}), flush=True)
+    in_flight = record["in_flight_at_stall"]
+    requeued = record["blackbox_requeued"][0] if dumps else None
+    want = {"restart": 1, "requeue": requeued, "gaveup": 0, "leak": 0}
+    if (stall.fired is None or counts != want or record["blackbox"] != ["engine-stall"]
+            or not (requeued >= in_flight if arrivals_continue else requeued == in_flight)):
+        raise fail(f"{where}: supervised stall {record}, want counters {want} and one "
+                   f"engine-stall record")
+    if record["gave_up"]:
+        raise fail(f"{where}: the engine gave up after one stall")
+    return result, record
+
+
+def deployed_requests(tokenizer) -> tuple:
+    """The checkpoint phase's ten ``AnalysisRequest``s, and one long raw
+    prompt (fixture lines, past two of K1's splits of 256 keys in the
+    byte-level tokenizer's ids) for the held step."""
+    requests = provider_requests()
+    lines = [line for name in sorted(os.listdir(FIXTURES)) if name.endswith(".log")
+             for line in fixture_lines(name)]
+    prompt = ""
+    for line in lines * 4:
+        prompt += line + "\n"
+        if len(tokenizer.encode(prompt)) >= 900:
+            break
+    return requests, prompt
+
+
+def phase_deployed(results: dict, kernel_modules: dict) -> dict:
+    """llama-3-8b at full width (int8 weights from a seed, the committed
+    byte-level tokenizer through ``load_tokenizer``) on the continuous
+    path with the reference's defaults (prefix cache, pipeline depth 2,
+    speculation, the supervisor on): (a) ten analysis requests through
+    ``TPUNativeProvider.generate``, K1 held on one step; (b) a supervised
+    stall mid-drive; (c) a one-shot and a persistent device error; (d) an
+    open-loop storm on a fresh engine with a stall mid-storm.  Returns
+    the kernels' launch counts over (a)."""
+    import torch
+
+    from operator_tpu_torch.loadgen import ArrivalProcess, ArrivalSpec
+    from operator_tpu_torch.loadgen.storm import EngineReplica, build_storm_stack, run_storm
+    from operator_tpu_torch.models.tokenizer import HFTokenizer, load_tokenizer
+    from operator_tpu_torch.ops import ragged_attention as ra
+    from operator_tpu_torch.serving.prompts import build_prompt
+    from operator_tpu_torch.serving.provider import TPUNativeProvider, build_serving_engine
+    from operator_tpu_torch.serving.sched import mixed as mixed_module
+    from operator_tpu_torch.serving.types import SamplingParams
+    from operator_tpu_torch.utils.faultinject import OK, FaultPlan, raise_, times
+
+    card = card_line()
+    out: dict = {"card": card}
+    tokenizer = load_tokenizer(LLAMA3_TOKENIZER)
+    if not isinstance(tokenizer, HFTokenizer) or tokenizer.bos_id != 128000:
+        raise fail(f"the byte-level fixture did not load as Llama-3's HFTokenizer: {tokenizer}")
+
+    def build():
+        torch.cuda.empty_cache()
+        memory0 = torch.cuda.memory_allocated()
+        started = time.perf_counter()
+        engine, model_id = build_serving_engine("cuda", DEPLOYED_ENV, seed=0)
+        config = engine.generator.config
+        shape = (config.num_layers, config.hidden_size, config.num_heads, config.num_kv_heads,
+                 config.head_dim, config.vocab_size, config.rope_theta)
+        if shape != (32, 4096, 32, 8, 128, 128256, 500_000.0):
+            engine.close()
+            raise fail(f"not llama-3-8b at full width: {config}")
+        if engine._supervisor is None or engine.scheduler is None:
+            engine.close()
+            raise fail("the deployed engine is not the supervised continuous one")
+        engine.generator.tokenizer = tokenizer
+        engine.warmup()
+        torch.cuda.synchronize()
+        return engine, model_id, {
+            "build_s": time.perf_counter() - started,
+            "memory_after_load_gib": (torch.cuda.memory_allocated() - memory0) / 2**30,
+        }
+
+    def counted(drive):
+        for module in kernel_modules.values():
+            module.launches = 0
+        result = drive()
+        return result, {name: m.launches for name, m in kernel_modules.items()}
+
+    requests, long_prompt = deployed_requests(tokenizer)
+    engine, model_id, built = build()
+    g, sched = engine.generator, engine.scheduler
+    layers = g.config.num_layers
+    provider = TPUNativeProvider(engine, model_id=model_id)
+    try:
+        # (a) the drive, on an empty prefix cache (as (b)'s requeued run)
+        asyncio.run(provider.generate(requests[0]))
+        wait_idle(sched)
+        sched.spill_cache()
+        encode_ms = []
+        for request in requests:
+            prompt = build_prompt(request)
+            started = time.perf_counter()
+            tokenizer.encode(prompt)
+            encode_ms.append((time.perf_counter() - started) * 1e3)
+        steps0, dev0 = sched.steps, len(sched.device_ms)
+        started = time.perf_counter()
+        responses, launches = counted(lambda: gated_drive(provider, requests))
+        wall = time.perf_counter() - started
+        steps = sched.steps - steps0
+        wait_idle(sched)
+        stream_ms = sched.device_ms[dev0:]
+        accounting = balanced(sched, "after the deployed drive")
+        bad = [r.to_dict() for r in responses if r.error or not r.completion_tokens]
+        if bad:
+            raise fail(f"deployed responses without an explanation: {bad}")
+        if launches["ragged_paged_attention"] != layers * steps or steps == 0:
+            raise fail(f"deployed drive: K1 launched {launches} over {steps} steps")
+        if any(n for k, n in launches.items() if k != "ragged_paged_attention"):
+            raise fail(f"other kernels launched on the deployed drive: {launches}")
+        completion = sum(r.completion_tokens for r in responses)
+        # one step's 32 K1 calls held to the plain version: the first step
+        # whose live rows reach past the long prompt (a decode or verify step)
+        prompt_tokens = len(tokenizer.encode(long_prompt))
+        held = HeldToPlain(
+            mixed_module.ragged_paged_attention, ra.ragged_attention_reference, layers,
+            lambda dtype, _: TOL[dtype],
+            select=lambda q, k, v, table, kv_len, q_count: (
+                (kv_len * (q_count > 0)).max().item() > prompt_tokens),
+            valid=lambda q, *args: torch.arange(q.shape[1], device=q.device)[None] < args[4][:, None],
+            note=k1_split_note,
+        )
+        mixed_module.ragged_paged_attention = held
+        try:
+            asyncio.run(engine.generate(long_prompt, SamplingParams(max_tokens=8, temperature=0.0)))
+        finally:
+            mixed_module.ragged_paged_attention = held.fn
+        bad_held = [c for c in held.held if not c["finite"] or not c["excess"] <= 0]
+        splits = max((c["splits_with_keys"] for c in held.held), default=0)
+        if len(held.held) != layers or bad_held or splits < 3:
+            raise fail(f"deployed drive: {len(held.held)} K1 calls held, {splits} splits with "
+                       f"keys, outside tolerance: {bad_held}")
+        wait_idle(sched)
+        out["drive"] = {
+            "model": model_id, "layers": layers, "weights": "int8",
+            "tokenizer": "tests/torch_tokenizers/llama3_bl", "slots": g.max_slots,
+            "requests": len(requests), "max_tokens": MAX_TOKENS, **built,
+            "prompt_tokens": [r.prompt_tokens for r in responses],
+            "completion_tokens": completion, "wall_s": wall, "tokens_per_s": completion / wall,
+            "steps": steps, "wall_ms_per_step": wall / steps * 1e3,
+            "stream_ms_per_step": sum(stream_ms) / len(stream_ms) if stream_ms else None,
+            "encode_ms_per_request": sum(encode_ms) / len(encode_ms),
+            "launches": launches, "page_accounting": accounting,
+            "held_k1_calls": len(held.held), "held_prompt_tokens": prompt_tokens,
+            "held_k1_max_abs_err": max(c["max_abs_err"] for c in held.held),
+            "held_k1_splits_with_keys": splits,
+        }
+        print(json.dumps({"deployed": out["drive"], "card": card}), flush=True)
+
+        # (b) a supervised stall mid-drive: the same ten requests, every
+        # one requeued, the greedy answers (a)'s
+        sched.spill_cache()
+        torch.cuda.synchronize()
+        memory_before = torch.cuda.memory_allocated()
+        steps0 = sched.steps
+        (stalled, stall_record), stall_launches = counted(lambda: supervised_stall(
+            engine, kernel_modules, lambda: gated_drive(provider, requests),
+            STALL_AFTER_STEPS, "deployed"))
+        wait_idle(sched)
+        stall_steps = sched.steps - steps0
+        torch.cuda.synchronize()
+        memory_after = torch.cuda.memory_allocated()
+        accounting_b = balanced(sched, "after the supervised stall")
+        greedy = [i for i, r in enumerate(requests) if r.provider_config.temperature == 0.0]
+        mismatched = [i for i in greedy if stalled[i].to_dict() != responses[i].to_dict()]
+        if mismatched:
+            raise fail(f"greedy answers after the restart differ from the drive's: "
+                       f"{[(stalled[i].to_dict(), responses[i].to_dict()) for i in mismatched]}")
+        if any(r.error or not r.completion_tokens for r in stalled):
+            raise fail(f"a request did not settle with an answer after the restart: "
+                       f"{[r.to_dict() for r in stalled]}")
+        if stall_launches["ragged_paged_attention"] != layers * stall_steps:
+            raise fail(f"stall drive: K1 launched {stall_launches} over {stall_steps} steps")
+        if memory_after > memory_before + RESTART_MEMORY_MARGIN:
+            raise fail(f"device memory {memory_after} after the restart, {memory_before} before "
+                       f"(margin {RESTART_MEMORY_MARGIN})")
+        out["stall"] = {
+            "steps": stall_steps, "launches": stall_launches,
+            "memory_before_gib": memory_before / 2**30, "memory_after_gib": memory_after / 2**30,
+            "memory_margin_mib": RESTART_MEMORY_MARGIN / 2**20,
+            "greedy_equal_to_drive": True, "page_accounting": accounting_b,
+            "supervisor": stall_record,
+        }
+        print(json.dumps({"deployed_stall": out["stall"], "card": card}), flush=True)
+
+        # (c) device errors through the seam: one absorbed by a requeue;
+        # a persistent one fails its request after max_requeues, and with
+        # the window's three resets spent the engine gives up
+        counts0 = supervisor_counts(g.metrics)
+        plan = FaultPlan(seed=7)
+        plan.rule("engine.step", raise_(lambda: RuntimeError("injected device error"), "device"))
+        g.fault_plan = plan
+        try:
+            absorbed = asyncio.run(provider.generate(requests[2]))
+        finally:
+            g.fault_plan = None
+        after_one = {k: v - counts0[k] for k, v in supervisor_counts(g.metrics).items()}
+        if absorbed.error or not absorbed.completion_tokens or plan.pending():
+            raise fail(f"a one-shot device error was not absorbed: {absorbed.to_dict()}")
+        plan = FaultPlan(seed=8)
+        plan.rule("engine.step", times(20, raise_(
+            lambda: RuntimeError("injected device error"), "device")))
+        g.fault_plan = plan
+        try:
+            doomed = asyncio.run(provider.generate(requests[4]))
+            deadline = time.monotonic() + 60
+            while not engine.load_report().gave_up and time.monotonic() < deadline:
+                time.sleep(0.05)
+        finally:
+            g.fault_plan = None
+        persistent = {k: v - counts0[k] for k, v in supervisor_counts(g.metrics).items()}
+        out["device_errors"] = {
+            "after_one_shot": after_one, "after_persistent": persistent,
+            "persistent_error": doomed.error, "gave_up": engine.load_report().gave_up,
+        }
+        print(json.dumps({"deployed_device_errors": out["device_errors"], "card": card}),
+              flush=True)
+        if after_one["restart"] != 1 or after_one["requeue"] < 1 or after_one["gaveup"]:
+            raise fail(f"one-shot device error: {after_one}")
+        if not doomed.error or persistent["gaveup"] < 1 or not out["device_errors"]["gave_up"]:
+            raise fail(f"persistent device error did not give up: {out['device_errors']}")
+    finally:
+        engine.close()
+    del engine, provider, g, sched
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # (d) the storm on a fresh engine: the JAX smoke's arrivals at seed 0
+    # through the operator -> router -> EngineReplica stack, a stall mid-storm
+    engine, model_id, built = build()
+    sched = engine.scheduler
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    ledger = os.path.join(ROOT, "build", "deployed-storm-ledger.jsonl")
+    if os.path.exists(ledger):
+        os.remove(ledger)
+    process = ArrivalProcess(ArrivalSpec(**STORM_SPEC), seed=0)
+
+    async def storm():
+        stack = await build_storm_stack(
+            replicas=[EngineReplica("deployed-0", engine)], ledger_path=ledger,
+            time_scale=1.0, device="cuda",
+        )
+        try:
+            return await run_storm(stack, process, drain_s=300.0)
+        finally:
+            stack.close()
+
+    try:
+        steps0 = sched.steps
+        started = time.perf_counter()
+        (report, storm_stall), storm_launches = counted(lambda: supervised_stall(
+            engine, kernel_modules, lambda: asyncio.run(storm()), STORM_STALL_AFTER_STEPS,
+            "storm", arrivals_continue=True))
+        storm_wall = time.perf_counter() - started
+        wait_idle(sched)
+        storm_steps = sched.steps - steps0
+        accounting_d = balanced(sched, "after the storm")
+        with open(ledger) as fh:
+            lines = [line for line in fh if line.strip()]
+        torn = 0
+        outcomes: dict = {}
+        for line in lines:
+            try:
+                outcome = json.loads(line).get("outcome")
+            except ValueError:
+                torn += 1
+                continue
+            outcomes[outcome] = outcomes.get(outcome, 0) + 1
+        total = report["slo"]["total"]
+        out["storm"] = {
+            "spec": process.spec.to_dict(), "seed": 0, "fingerprint": report["fingerprint"],
+            "arrivals": report["arrivals"], "offered_per_min": report["offered_per_min"],
+            "achieved_per_min": report["achieved_per_min"],
+            "cancelled_at_drain": report["cancelled_at_drain"],
+            "admitted": total["admitted"], "completed": total["completed"],
+            "shed": total["shed"], "deadline_exceeded": total["deadline_exceeded"],
+            "failed": total["failed"], "attainment": total["attainment"],
+            "goodput_analyses_per_min": total["goodput_analyses_per_min"],
+            "journal_lines": len(lines), "torn_lines": torn, "outcomes": outcomes,
+            "wall_s": storm_wall,
+            "steps": storm_steps, "launches": storm_launches, "page_accounting": accounting_d,
+            "supervisor": storm_stall,
+            **{f"engine_{k}": v for k, v in built.items()},
+        }
+        print(json.dumps({"deployed_storm": out["storm"], "card": card}), flush=True)
+        if report["slo"]["pending"] or total["admitted"] != report["arrivals"] - report[
+                "cancelled_at_drain"] or report["cancelled_at_drain"]:
+            raise fail(f"storm arrivals did not all settle: {out['storm']}")
+        if torn or len(lines) != total["admitted"]:
+            raise fail(f"storm ledger: {len(lines)} lines, {torn} torn, {total['admitted']} settled")
+        if storm_launches["ragged_paged_attention"] != layers * storm_steps:
+            raise fail(f"storm: K1 launched {storm_launches} over {storm_steps} steps")
+    finally:
+        engine.close()
+        torch.cuda.empty_cache()
+    results["deployed"] = out
+    return launches
+
+
 def phase_parity(results: dict, kernel_modules: dict) -> None:
     import torch
 
@@ -4729,7 +5251,7 @@ def main() -> int:
     parser.add_argument("--out", help="also write every result to this JSON file")
     parser.add_argument("--phases",
                         default="device,kernels,serve,wave,analysis,checkpoint,operator,remote,"
-                                "fleet,parity")
+                                "fleet,deployed,parity")
     args = parser.parse_args()
     phases = set(args.phases.split(","))
 
@@ -4801,6 +5323,7 @@ def main() -> int:
                 fleet = phase_fleet(results, kernel_modules, dirs)
         finally:
             shutil.rmtree(dirs["workdir"], ignore_errors=True)
+    deployed = phase_deployed(results, kernel_modules) if "deployed" in phases else {}
     if "parity" in phases:
         phase_parity(results, kernel_modules)
     # each kernel's count from the drive of the path it serves: K1 the
@@ -4823,6 +5346,7 @@ def main() -> int:
         record["launches_operator"] = operator.get(base)
         record["launches_remote"] = remote.get(base)
         record["launches_fleet"] = fleet.get(base)
+        record["launches_deployed"] = deployed.get(base)
     kernels = records
     results["kernels"] = kernels
     device = {

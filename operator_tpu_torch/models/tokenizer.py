@@ -6,35 +6,44 @@ implementations behind one minimal interface (encode/decode/ids):
 - :class:`HFTokenizer` reads a checkpoint directory's own
   ``tokenizer.json`` (and ``tokenizer_config.json``) itself — the JAX
   package goes through ``transformers.AutoTokenizer``; the port depends on
-  PyTorch alone.  It covers the SentencePiece-style BPE of the
-  default model family (TinyLlama, Llama-2, Mistral): the
-  ``Prepend("▁")`` + ``Replace(" ", "▁")`` normalizer or the
-  ``Metaspace`` pre-tokenizer, rank-ordered merges, ``<0xNN>`` byte
-  fallback with ``fuse_unk``, added/special tokens split out before the
-  model, and the ``Replace``/``ByteFallback``/``Fuse``/``Strip`` (or
-  ``Metaspace``) decoder chain, each step as the ``tokenizers`` library
-  runs it.  Anything else in a ``tokenizer.json`` — the byte-level family
-  (Llama-3, Qwen2.5), whose regex pre-tokenizer needs Unicode classes
-  Python's ``re`` cannot express, or another model type — raises
-  ``NotImplementedError`` naming ROADMAP Queue 1 item 4a;
+  PyTorch alone.  It covers the SentencePiece-style BPE of TinyLlama,
+  Llama-2 and Mistral (the ``Prepend("▁")`` + ``Replace(" ", "▁")``
+  normalizer or the ``Metaspace`` pre-tokenizer, ``<0xNN>`` byte fallback
+  with ``fuse_unk``, the ``Replace``/``ByteFallback``/``Fuse``/``Strip``
+  or ``Metaspace`` decoder chain) and the byte-level family of Llama-3 and
+  Qwen2.5 (the ``NFC`` normalizer, the ``Split`` pre-tokenizer with their
+  regular expressions, the ``ByteLevel`` pre-tokenizer and decoder over
+  GPT-2's byte-to-unicode table, BPE with ``ignore_merges``): rank-ordered
+  merges, added/special tokens split out before the model, each step as
+  the ``tokenizers`` library runs it.  Python's ``re`` has no ``\\p{L}`` or
+  ``\\p{N}``: those classes (and ``\\s``, Unicode White_Space as the
+  library's Oniguruma reads it) are built once from ``unicodedata`` and
+  written into the expression as ranges.  Anything else in a
+  ``tokenizer.json`` — another model type, a ``Regex`` replace, the
+  ``NFKC``/``Lowercase``/``Precompiled`` normalizers, ``single_word``
+  added tokens, BPE dropout, a lone ``tokenizer.model`` — raises
+  ``NotImplementedError`` naming ROADMAP Queue 1 item 4c;
 - :class:`~.bpe.BPETokenizer`, the shipped log-trained byte-level BPE;
 - :class:`ByteTokenizer`, the dependency-free byte-level fallback.
 """
 
 from __future__ import annotations
 
+import functools
 import heapq
 import json
 import logging
 import os
 import re
+import sys
+import unicodedata
 from typing import Any, Callable, Optional, Protocol, Sequence
 
 log = logging.getLogger(__name__)
 
 __all__ = ["ByteTokenizer", "HFTokenizer", "Tokenizer", "load_tokenizer"]
 
-_ITEM_4A = "ROADMAP.md Queue 1 item 4a"
+_ITEM_4C = "ROADMAP.md Queue 1 item 4c"
 
 #: ``char::is_whitespace`` (Unicode White_Space), which the added-token
 #: ``lstrip``/``rstrip`` rules use; Python's ``str.isspace`` also counts
@@ -88,8 +97,7 @@ class ByteTokenizer:
 def _unsupported(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"tokenizer.json {what} is not read by operator_tpu_torch yet "
-        f"({_ITEM_4A}: the byte-level tokenizer.json family and other "
-        f"tokenizer.json features)"
+        f"({_ITEM_4C}: the other tokenizer.json features)"
     )
 
 
@@ -98,6 +106,107 @@ def _string_pattern(spec: dict, where: str) -> str:
     if "String" not in pattern:
         raise _unsupported(f"{where} with a {sorted(pattern)} pattern")
     return pattern["String"]
+
+
+# ---------------------------------------------------------------------------
+# Unicode classes for the byte-level pre-tokenizer's expressions
+# ---------------------------------------------------------------------------
+
+
+def _ranges(chars: "list[int]") -> str:
+    """Code points as the body of an ``re`` character class."""
+    out, start, prev = [], None, None
+    for c in chars + [-2]:
+        if start is not None and c == prev + 1:
+            prev = c
+            continue
+        if start is not None:
+            lo, hi = re.escape(chr(start)), re.escape(chr(prev))
+            out.append(lo if start == prev else f"{lo}-{hi}")
+        start = prev = c
+    return "".join(out)
+
+
+@functools.lru_cache(maxsize=None)
+def _unicode_class(name: str) -> str:
+    """``\\p{L}`` (letters), ``\\p{N}`` (numbers) or ``\\s`` (White_Space,
+    which Oniguruma's ``\\s`` matches; Python's also takes U+001C..U+001F)
+    as class ranges, built once from ``unicodedata``."""
+    if name == "s":
+        return _ranges(sorted(ord(c) for c in _RUST_WHITESPACE))
+    return _ranges([c for c in range(sys.maxunicode + 1)
+                    if unicodedata.category(chr(c))[0] == name])
+
+
+def _translate_regex(pattern: str) -> "re.Pattern":
+    """The ``tokenizers`` (Oniguruma) expression as a Python ``re``:
+    ``\\p{L}``, ``\\p{N}``, ``\\s`` and ``\\S`` become explicit ranges,
+    inside a class or standing alone; other escapes pass through."""
+    out: list[str] = []
+    in_class = False
+    i = 0
+    while i < len(pattern):
+        c = pattern[i]
+        if c == "\\" and i + 1 < len(pattern):
+            nxt = pattern[i + 1]
+            if nxt == "p":
+                match = re.match(r"\\p\{(\w+)\}", pattern[i:])
+                if match is None or match.group(1) not in ("L", "N"):
+                    raise _unsupported(f"Split pattern class {pattern[i:i + 8]!r}")
+                body = _unicode_class(match.group(1))
+                out.append(body if in_class else f"[{body}]")
+                i += match.end()
+                continue
+            if nxt in "sS":
+                body = _unicode_class("s")
+                if in_class:
+                    if nxt == "S":
+                        raise _unsupported("Split pattern with \\S inside a class")
+                    out.append(body)
+                else:
+                    out.append(f"[{body}]" if nxt == "s" else f"[^{body}]")
+                i += 2
+                continue
+            out.append(pattern[i:i + 2])
+            i += 2
+            continue
+        if c == "[" and not in_class:
+            in_class = True
+            out.append(c)
+            if pattern[i + 1:i + 2] == "^":
+                out.append("^")
+                i += 1
+        elif c == "]" and in_class:
+            in_class = False
+            out.append(c)
+        else:
+            out.append(c)
+        i += 1
+    return re.compile("".join(out))
+
+
+@functools.lru_cache(maxsize=None)
+def _bytes_to_unicode() -> "dict[int, str]":
+    """GPT-2's byte -> printable character table (``ByteLevel``)."""
+    keep = [*range(ord("!"), ord("~") + 1), *range(ord("¡"), ord("¬") + 1),
+            *range(ord("®"), ord("ÿ") + 1)]
+    table = {b: chr(b) for b in keep}
+    extra = 0
+    for b in range(256):
+        if b not in table:
+            table[b] = chr(256 + extra)
+            extra += 1
+    return table
+
+
+@functools.lru_cache(maxsize=None)
+def _unicode_to_bytes() -> "dict[str, int]":
+    return {c: b for b, c in _bytes_to_unicode().items()}
+
+
+#: GPT-2's expression: ``ByteLevel`` with ``use_regex`` splits by it
+_GPT2_PATTERN = (r"'s|'t|'re|'ve|'m|'ll|'d| ?\p{L}+| ?\p{N}+| ?[^\s\p{L}\p{N}]+"
+                 r"|\s+(?!\S)|\s+")
 
 
 # ---------------------------------------------------------------------------
@@ -113,10 +222,11 @@ class _BPEModel:
     def __init__(self, spec: dict) -> None:
         if spec.get("type") != "BPE":
             raise _unsupported(f"model type {spec.get('type')!r}")
-        for option in ("dropout", "continuing_subword_prefix", "end_of_word_suffix",
-                       "ignore_merges"):
+        for option in ("dropout", "continuing_subword_prefix", "end_of_word_suffix"):
             if spec.get(option):
                 raise _unsupported(f"BPE {option}")
+        #: a word that is in the vocab whole is taken whole (Llama-3)
+        self.ignore_merges = bool(spec.get("ignore_merges", False))
         self.vocab: dict[str, int] = dict(spec["vocab"])
         self.id_to_token = {i: tok for tok, i in self.vocab.items()}
         self.unk_token: Optional[str] = spec.get("unk_token")
@@ -167,6 +277,8 @@ class _BPEModel:
         return ids
 
     def encode_word(self, word: str) -> list[int]:
+        if self.ignore_merges and word in self.vocab:
+            return [self.vocab[word]]
         sym = self._symbols(word)
         n = len(sym)
         if n < 2:
@@ -227,6 +339,8 @@ def _normalizer(spec: Optional[dict]) -> Callable[[str], str]:
     if kind == "Replace":
         pattern, content = _string_pattern(spec, "Replace normalizer"), spec["content"]
         return lambda text: text.replace(pattern, content)
+    if kind == "NFC":
+        return lambda text: unicodedata.normalize("NFC", text)
     raise _unsupported(f"normalizer {kind!r}")
 
 
@@ -236,11 +350,68 @@ def _prepend_scheme(spec: dict) -> str:
     return "always" if spec.get("add_prefix_space", True) else "never"
 
 
+def _split_isolated(regex: "re.Pattern", text: str) -> list[str]:
+    """``Split`` with ``behavior: Isolated``: every match is a piece, and
+    so is every stretch between matches."""
+    out, offset = [], 0
+    for match in regex.finditer(text):
+        start, stop = match.span()
+        if start == stop:
+            continue
+        if offset < start:
+            out.append(text[offset:start])
+        out.append(text[start:stop])
+        offset = stop
+    if offset < len(text):
+        out.append(text[offset:])
+    return out
+
+
 def _pre_tokenizer(spec: Optional[dict]) -> Callable[[list[tuple[str, bool]]], list[tuple[str, bool]]]:
     """Maps pieces ``(text, starts the input)`` to finer pieces."""
     if spec is None:
         return lambda pieces: pieces
     kind = spec.get("type")
+    if kind == "Sequence":
+        steps = [_pre_tokenizer(s) for s in spec["pretokenizers"]]
+
+        def sequence(pieces):
+            for step in steps:
+                pieces = step(pieces)
+            return pieces
+
+        return sequence
+    if kind == "Split":
+        pattern = spec.get("pattern") or {}
+        if spec.get("behavior") != "Isolated" or spec.get("invert"):
+            raise _unsupported(
+                f"Split behavior {spec.get('behavior')!r} (invert={spec.get('invert')})")
+        if "Regex" in pattern:
+            regex = _translate_regex(pattern["Regex"])
+        else:
+            regex = re.compile(re.escape(_string_pattern(spec, "Split")))
+
+        def split(pieces):
+            return [(part, first and k == 0) for text, first in pieces
+                    for k, part in enumerate(_split_isolated(regex, text))]
+
+        return split
+    if kind == "ByteLevel":
+        table = _bytes_to_unicode()
+        prefix = bool(spec.get("add_prefix_space", True))
+        regex = _translate_regex(_GPT2_PATTERN) if spec.get("use_regex", True) else None
+
+        def byte_level(pieces):
+            out = []
+            for text, first in pieces:
+                if prefix and not text.startswith(" "):
+                    text = " " + text
+                parts = _split_isolated(regex, text) if regex is not None else [text]
+                out.extend(("".join(table[b] for b in part.encode("utf-8")), first and k == 0)
+                           for k, part in enumerate(parts))
+            return out
+
+        return byte_level
     if kind == "Metaspace":
         replacement = spec.get("replacement", "▁")
         scheme, split = _prepend_scheme(spec), spec.get("split", True)
@@ -327,6 +498,19 @@ def _decoder(spec: Optional[dict]) -> Callable[[list[str]], list[str]]:
             return out
 
         return strip
+    if kind == "ByteLevel":
+        table = _unicode_to_bytes()
+
+        def byte_level(tokens):
+            data = bytearray()
+            for token in tokens:
+                # a token with a character outside the table (an added
+                # token's own text) goes in as its UTF-8 bytes
+                raw = [table.get(c) for c in token]
+                data.extend(token.encode("utf-8") if None in raw else raw)
+            return [data.decode("utf-8", errors="replace")]
+
+        return byte_level
     if kind == "Metaspace":
         replacement = spec.get("replacement", "▁")
         drop_first = _prepend_scheme(spec) != "never"

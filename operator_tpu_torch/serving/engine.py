@@ -37,6 +37,22 @@ scheduler; without one it runs the wave loop (``operator_tpu/serving/
 engine.py:_serve``): admit what fits into free slots and pages, requeue
 the rest, then ``generator.step()``.  All device work happens on the
 worker.
+
+Supervision (the reference's ``SupervisorPolicy``): with a policy, a
+watchdog thread sees a step (or a wave's batched prefill) older than
+``stall_timeout_s`` and abandons the worker behind an epoch — the
+orphan, when its step returns, touches nothing and waits — or is woken
+by a loop death; it then collects the outstanding requests, waits
+``join_grace_s`` for a stalled orphan, resets the generator and the
+scheduler (``Generator.reset``: a fresh page pool, every slot emptied,
+the weights kept), audits slots and pages, requeues each survivor once
+at priority ``max(p, 1)`` with its absolute deadline and restarts the
+loop — on the orphan when it came back, else on a fresh thread —
+leaving a black-box record (``engine-stall`` or ``engine-error``).  Without a policy a loop death fails what is
+outstanding, and the next ``submit`` resets the engine first (lazy
+recovery); both paths allow ``MAX_RESETS_PER_WINDOW`` resets per
+``RESET_WINDOW_S``.  A reset that fails (a CUDA context killed by a
+sticky error) gives up loudly.
 """
 
 from __future__ import annotations
@@ -79,12 +95,42 @@ from .types import (
 
 log = logging.getLogger(__name__)
 
-__all__ = ["Generator", "ServingEngine"]
+__all__ = ["EngineStalled", "Generator", "ServingEngine", "SupervisorPolicy"]
 
 _NOT_PORTED_GUIDED = (
     "guided decoding and LoRA adapters are not ported to operator_tpu_torch "
     "yet (ROADMAP.md Queue 1 item 9)"
 )
+
+
+class EngineStalled(RuntimeError):
+    """The serving loop made no step progress within the supervisor's
+    stall budget: the device (or its runtime) is wedged, not merely
+    slow."""
+
+
+@dataclasses.dataclass
+class SupervisorPolicy:
+    """Watchdog policy for the serving engine, with the reference's
+    defaults.  With a policy, a step exceeding ``stall_timeout_s`` or a
+    loop death triggers a supervised restart that requeues each
+    in-flight request up to ``max_requeues`` times with its residual
+    deadline; without one, a loop death fails what is outstanding and
+    recovery is lazy (the next ``submit``)."""
+
+    #: a step may hide a first kernel build: only a wedged device should
+    #: trip this (``OperatorConfig.supervisor_stall_s``)
+    stall_timeout_s: float = 120.0
+    #: how long to wait for an abandoned (stalled) worker to return
+    #: before resetting the device state under it anyway
+    join_grace_s: float = 10.0
+    #: each request is re-admitted at most this many times
+    max_requeues: int = 1
+
+
+class _Orphaned(Exception):
+    """Raised in a worker the supervisor abandoned, as it comes back from
+    its device call: it exits touching nothing."""
 
 
 def _params_dtype_name(params: Any) -> str:
@@ -219,6 +265,31 @@ class Generator(AdmissionMixin, ProgramBuilderMixin):
         self.last_tokens = torch.zeros(
             (self.max_slots, 1), dtype=torch.int32, device=self.device
         )
+
+    def reset(self) -> None:
+        """Drop every sequence and rebuild the decode state: the engine's
+        recovery path after a device error or a stall.  The page pool and
+        allocator are rebuilt, every slot is emptied and its epoch bumped
+        (tokens of blocks still in flight are orphaned), the step clock
+        restarts; the weights are kept.  The old pool is dropped before
+        the new one is allocated, so a full-width pool is never held
+        twice.  On the card a sticky error (an illegal address kills the
+        context) makes this raise: no in-process reset revives it."""
+        self._inflight_blocks.clear()
+        # the step timeline died with the decode state (the black-box
+        # dump captured its tail first)
+        self.step_clock.reset()
+        self.paged_cache = None
+        self.last_tokens = None
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.allocator = PageAllocator(self.allocator.num_pages)
+        self._alloc_decode_state()
+        for i in range(self.max_slots):
+            self._slot_epoch[i] += 1
+            self.slots[i] = _Slot()
+        self._host_offsets[:] = 0
+        self._sampling_cache = None
 
     def free_slots(self) -> list[int]:
         return [i for i, slot in enumerate(self.slots) if not slot.active]
@@ -500,6 +571,8 @@ class _Submission:
     resume_tokens: Optional[list] = None
     #: streaming: where each step's generated-so-far ids go
     partial: Optional["_PartialFeed"] = None
+    #: supervised restarts this request has been requeued through
+    requeues: int = 0
 
 
 @dataclasses.dataclass
@@ -538,7 +611,16 @@ class ServingEngine:
     streaming client's disconnect) cancels it; the worker reaps the
     cancelled request at its next step boundary — ``Scheduler.cancel`` or
     ``Generator.cancel`` — and its slot and pages return at once, as the
-    reference's serve loops do."""
+    reference's serve loops do.
+
+    ``supervisor`` (a :class:`SupervisorPolicy`) turns on the watchdog;
+    ``recorder`` (an ``obs.FlightRecorder``, default the process-wide
+    one) takes its black-box records."""
+
+    #: recovery budget: at most this many resets per window, so a
+    #: persistent device fault surfaces instead of thrashing
+    MAX_RESETS_PER_WINDOW = 3
+    RESET_WINDOW_S = 600.0
 
     def __init__(
         self,
@@ -546,6 +628,8 @@ class ServingEngine:
         scheduler: Any = None,
         *,
         admission_wait_s: float = 0.004,
+        supervisor: Optional[SupervisorPolicy] = None,
+        recorder: Optional[Any] = None,
     ) -> None:
         self.generator = generator
         self.scheduler = scheduler
@@ -553,9 +637,9 @@ class ServingEngine:
         #: one prefill
         self.admission_wait_s = admission_wait_s
         self._submissions: "queue.Queue[_Submission]" = queue.Queue()
-        #: futures in flight, keyed by scheduler req id (continuous) or
-        #: slot id (wave)
-        self._pending: dict[int, concurrent.futures.Future] = {}
+        #: requests in flight, keyed by scheduler req id (continuous) or
+        #: slot id (wave), kept whole so a restart can requeue them
+        self._pending: dict[int, _Submission] = {}
         #: wave mode: submissions taken from the queue, not yet admitted
         #: (page backpressure keeps them here), and each admitted slot's
         #: submit -> admission wall
@@ -578,6 +662,35 @@ class ServingEngine:
         self._thread: Optional[threading.Thread] = None
         self._closed = threading.Event()
         self._error: Optional[BaseException] = None
+        #: watchdog policy; None = loop death fails in-flight requests and
+        #: recovery is lazy
+        self._supervisor = supervisor
+        self.recorder = recorder
+        #: held by the worker except inside its device calls: whoever
+        #: holds it may read and change the request state
+        self._work_lock = threading.Lock()
+        #: the current worker's generation: a worker whose epoch is stale
+        #: was abandoned and touches nothing more
+        self._epoch = 0
+        self._local = threading.local()
+        #: (epoch, monotonic start, what) of the device call in progress
+        self._busy: Optional[tuple[int, float, str]] = None
+        self._wake = threading.Event()
+        #: a stalled worker that came back from its device call parks and
+        #: is handed the next epoch (a fresh thread takes over only when
+        #: it stays wedged past the grace): no thread exits and starts
+        #: around a restart
+        self._orphan_back = threading.Event()
+        self._returned: Optional[threading.Thread] = None  # the orphan that came back
+        self._handoff = threading.Event()
+        self._handoff_to: Optional[tuple[threading.Thread, int]] = None
+        self._supervise_thread: Optional[threading.Thread] = None
+        self._stalled = False  # the last loop death was a stall
+        self._gave_up = False  # the reset budget ran out, or a reset failed
+        # survivors of a restart in progress: close() still fails them
+        self._restarting: list[_Submission] = []
+        self._reset_times: list[float] = []
+        self._reset_lock = threading.Lock()
 
     # -- lifecycle -----------------------------------------------------
 
@@ -604,15 +717,27 @@ class ServingEngine:
                 raise RuntimeError("serving engine is closed")
             if self._thread is None:
                 self._thread = threading.Thread(
-                    target=self._run, name="torch-decode", daemon=True
+                    target=self._run, args=(self._epoch,), name="torch-decode",
+                    daemon=True,
                 )
                 self._thread.start()
+            if self._supervisor is not None and self._supervise_thread is None:
+                self._supervise_thread = threading.Thread(
+                    target=self._supervise, name="torch-supervisor", daemon=True
+                )
+                self._supervise_thread.start()
 
     def close(self, timeout: float = 30.0) -> None:
         """Stop the worker and fail every request still outstanding with
         ``asyncio.CancelledError("serving engine closed")``, as the
-        reference does (the HTTP server answers "server shutting down")."""
+        reference does (the HTTP server answers "server shutting down").
+        A restart in progress is waited for (bounded), not interrupted."""
         self._closed.set()
+        self._wake.set()
+        self._handoff.set()  # a parked orphan exits
+        supervise = self._supervise_thread
+        if supervise is not None:
+            supervise.join(5.0 + self._supervisor.join_grace_s)
         thread = self._thread
         if thread is not None:
             thread.join(timeout)
@@ -621,6 +746,32 @@ class ServingEngine:
         self._fail_outstanding(asyncio.CancelledError("serving engine closed"))
 
     # -- submit side ---------------------------------------------------
+
+    def _recover_if_needed(self) -> None:
+        """The reference's checks at the head of ``generate``: a given-up
+        engine revives once its reset window has room; an unsupervised
+        engine whose loop died resets now (lazy recovery).  Raises when
+        the engine stays down."""
+        if self._gave_up:
+            # the reset budget is a rate limit, not a death sentence
+            now = time.monotonic()
+            in_window = [t for t in self._reset_times if now - t < self.RESET_WINDOW_S]
+            if len(in_window) < self.MAX_RESETS_PER_WINDOW and not self._closed.is_set():
+                if self._error is not None:
+                    self._try_recover()
+                if self._gave_up and self._error is None:
+                    self._gave_up = False
+            if self._gave_up:
+                raise RuntimeError(
+                    "serving engine is down (supervisor reset budget exhausted)"
+                ) from self._error
+        if self._supervisor is None:
+            # supervised engines restart on their own: a death seen here
+            # is mid-restart, and the queue survives it
+            if self._error is not None:
+                self._try_recover()
+            if self._error is not None:
+                raise RuntimeError("serving engine loop died") from self._error
 
     def submit(
         self,
@@ -643,8 +794,7 @@ class ServingEngine:
             feed = _PartialFeed(*on_partial)
         if self._closed.is_set():
             raise RuntimeError("serving engine is closed")
-        if self._error is not None:
-            raise RuntimeError("serving engine loop died") from self._error
+        self._recover_if_needed()
         if params is not None and (
             params.guided_choice is not None
             or params.guided_regex is not None
@@ -675,7 +825,7 @@ class ServingEngine:
             resume_tokens=list(resume_tokens) if resume_tokens else None,
             partial=feed,
         ))
-        if self._error is not None:
+        if self._supervisor is None and self._error is not None:
             # the worker died between the check above and the put: its
             # drain may have missed this submission
             self._fail_outstanding(RuntimeError("serving engine loop died"))
@@ -705,8 +855,11 @@ class ServingEngine:
         pipeline's explanations use 10 so external API callers sharing the
         engine never starve them.  ``resume_tokens`` resumes a failed-over
         stream: the ids are re-prefilled after the prompt and the result
-        carries only the continuation (continuous mode only)."""
+        carries only the continuation (continuous mode only).  A lazy
+        recovery's reset runs off this loop."""
         loop = asyncio.get_running_loop()
+        if self._error is not None or self._gave_up:
+            await asyncio.to_thread(self._recover_if_needed)
         future = self.submit(
             prompt, params, priority=priority, resume_tokens=resume_tokens,
             on_partial=(loop, on_partial) if on_partial is not None else None,
@@ -763,10 +916,11 @@ class ServingEngine:
         """This replica's load in the shape the router's shed decision
         reads (``router/health.py:ReplicaLoad``), built as the reference
         builds it: queue pressure, the admission roofline's own per-token
-        estimate, the step clock's summary, the SLO board, the KV economy
-        and the overload ladder's totals.  Cheap reads from any thread;
-        approximate under concurrent decode, which the router treats as
-        feedback, not truth.  Served on ``GET /healthz``."""
+        estimate, whether the supervisor gave up, the step clock's
+        summary, the SLO board, the KV economy and the overload ladder's
+        totals.  Cheap reads from any thread; approximate under
+        concurrent decode, which the router treats as feedback, not
+        truth.  Served on ``GET /healthz``."""
         g = self.generator
         sched = self.scheduler
         if sched is not None:
@@ -783,9 +937,7 @@ class ServingEngine:
             queue_depth=queue_depth,
             inflight=inflight,
             decode_token_s=g.decode_token_estimate_s(),
-            # the supervisor is not ported (ROADMAP.md Queue 1 item 10):
-            # only a dead loop gives up
-            gave_up=self._error is not None,
+            gave_up=self._gave_up,
             decode_mfu=summary.get("decode_mfu"),
             host_gap_frac=fractions.get("host_gap"),
             occupancy=summary.get("occupancy_avg"),
@@ -804,6 +956,297 @@ class ServingEngine:
             degraded=g.metrics.labeled_total("degraded"),
         )
 
+    # -- recovery --------------------------------------------------------
+
+    def _reset_engine(self) -> None:
+        """Rebuild the device state after a loop death or a stall.  The
+        scheduler drops its rows, queue and in-flight steps first, so
+        nothing holds the old page pool when the generator frees it."""
+        if self.scheduler is not None:
+            self.scheduler.reset()
+        self.generator.reset()
+
+    def _try_recover(self) -> None:
+        """One bounded attempt to revive a dead loop (lazy recovery): the
+        requests in flight were already failed when it died.  Leaves
+        ``_error`` set when the reset budget is spent or the reset
+        fails."""
+        with self._reset_lock, self._work_lock:
+            if self._error is None or self._closed.is_set():  # raced another caller
+                return
+            now = time.monotonic()
+            self._reset_times = [t for t in self._reset_times if now - t < self.RESET_WINDOW_S]
+            if len(self._reset_times) >= self.MAX_RESETS_PER_WINDOW:
+                return
+            self._reset_times.append(now)
+            log.warning(
+                "serving engine loop died (%s); resetting device state and "
+                "restarting (%d/%d resets in window)",
+                self._error, len(self._reset_times), self.MAX_RESETS_PER_WINDOW,
+            )
+            try:
+                self._reset_engine()
+            except Exception as exc:  # noqa: BLE001 - the reset failed: stay down
+                log.exception("engine reset failed; staying down")
+                self._error = exc
+                return
+            with self._lock:
+                self._error = None
+                self._epoch += 1
+                self._thread = None  # the caller's submit starts a fresh worker
+
+    def _supervise(self) -> None:
+        """The watchdog thread: spots a device call older than the stall
+        budget, or is woken by a loop death, and runs the supervised
+        restart — proactively, so in-flight work is requeued at once."""
+        policy = self._supervisor
+        while not self._closed.is_set():
+            # the budget may be tightened after warmup: poll at a quarter
+            woke = self._wake.wait(max(0.01, min(0.1, policy.stall_timeout_s / 4)))
+            if woke:
+                self._wake.clear()
+            if self._closed.is_set():
+                return
+            if self._error is None:
+                if not self._abandon_stalled(policy):
+                    continue
+            elif not woke:
+                continue
+            try:
+                self._supervised_restart()
+            except Exception:  # noqa: BLE001 - the watchdog must outlive one bad restart
+                log.exception("supervised engine restart itself failed")
+
+    def _abandon_stalled(self, policy: SupervisorPolicy) -> bool:
+        """Declare a stall when the current worker's device call is older
+        than the budget: bump the epoch so the worker, when its call
+        returns, exits touching nothing."""
+        busy = self._busy
+        if busy is None or time.monotonic() - busy[1] <= policy.stall_timeout_s:
+            return False
+        with self._work_lock:
+            busy = self._busy
+            if (
+                self._error is not None or busy is None or busy[0] != self._epoch
+                or time.monotonic() - busy[1] <= policy.stall_timeout_s
+            ):
+                return False
+            self._orphan_back.clear()
+            self._returned = None
+            self._handoff.clear()
+            self._handoff_to = None
+            self._epoch += 1
+            self._busy = None
+            self._stalled = True
+            self._error = EngineStalled(
+                f"{busy[2]} made no progress in {policy.stall_timeout_s:.1f}s"
+            )
+        log.error("serving engine stalled: %s", self._error)
+        return True
+
+    def _audit_leaks(self) -> dict:
+        """After a reset every slot is free and every page is back in the
+        pool; anything else is a reclamation bug, counted as
+        ``supervisor_leak`` and written into the black box."""
+        g = self.generator
+        leaks: dict = {}
+        free = len(g.free_slots())
+        if free != g.max_slots:
+            leaks["slots"] = g.max_slots - free
+        expected = g.allocator.num_pages - 1 - g.prefix_held_pages
+        if g.allocator.available != expected:
+            leaks["pages"] = expected - g.allocator.available
+        return leaks
+
+    def _step_tail(self) -> list:
+        """The last step records, taken before a reset wipes the clock."""
+        try:
+            return [r.to_dict() for r in self.generator.step_clock.ring.records(last=32)]
+        except Exception:  # noqa: BLE001 - forensics must never block recovery
+            return []
+
+    def _dump_blackbox(self, reason: str, extra: dict) -> None:
+        """A black-box record for a supervisor event: a one-span trace
+        (the watchdog has no analysis trace of its own) carrying the
+        restart's context."""
+        recorder = self.recorder
+        if recorder is None:
+            from ..obs import RECORDER as recorder
+        if "steps" not in extra:
+            steps = self._step_tail()
+            if steps:
+                extra = {**extra, "steps": steps}
+        try:
+            from ..obs import Tracer
+
+            tracer = Tracer(recorder=recorder)
+            with tracer.trace("engine.supervisor", attributes={"reason": reason}) as root:
+                pass
+            recorder.black_box(root.trace_id, reason, extra)
+        except Exception:  # noqa: BLE001 - forensics must never block recovery
+            log.warning("supervisor black-box dump failed", exc_info=True)
+
+    def _collect_survivors(self) -> "tuple[list[_Submission], int]":
+        """Every outstanding request (admitted, waiting, queued) for the
+        requeue; one already requeued ``max_requeues`` times fails now.
+        Called with the worker lock held.  Returns (requeue list, gave-up
+        count)."""
+        requests = list(self._pending.values())
+        self._pending.clear()
+        self._partial_cbs.clear()  # re-armed from each submission's feed
+        self._queue_wait_ms.clear()
+        self._stalled_avail = None
+        requests.extend(self._waiting)
+        self._waiting.clear()
+        while True:
+            try:
+                requests.append(self._submissions.get_nowait())
+            except queue.Empty:
+                break
+        retry: list[_Submission] = []
+        gaveup = 0
+        for item in requests:
+            if item.future.done():
+                continue
+            if item.requeues >= self._supervisor.max_requeues:
+                failure = RuntimeError(
+                    "request failed after a supervised engine restart "
+                    f"(requeued {item.requeues}x)"
+                )
+                failure.__cause__ = self._error
+                _settle(item.future, exc=failure)
+                self.generator.metrics.incr("supervisor_gaveup")
+                gaveup += 1
+            else:
+                retry.append(item)
+        return retry, gaveup
+
+    def _fail_survivors(self, retry: "list[_Submission]", why: str) -> int:
+        failed = 0
+        for item in retry:
+            if item.future.done():
+                continue
+            failure = RuntimeError(why)
+            failure.__cause__ = self._error
+            _settle(item.future, exc=failure)
+            self.generator.metrics.incr("supervisor_gaveup")
+            failed += 1
+        return failed
+
+    def _give_up_restart(
+        self, retry: "list[_Submission]", gaveup: int, *,
+        reason: str, cause: str, message: str, outcome: str,
+    ) -> None:
+        """The supervised restart's terminal exit: fail the survivors, mark
+        the engine given up, fail what was submitted during the restart
+        (no loop is left to take it) and leave a black-box record."""
+        gaveup += self._fail_survivors(retry, message)
+        self._restarting = []
+        self._gave_up = True
+        self._handoff.set()  # a parked orphan exits
+        self._fail_outstanding(RuntimeError(message))
+        self._dump_blackbox(reason, {
+            "cause": cause, "gaveup": gaveup, "requeued": 0, "outcome": outcome,
+        })
+
+    def _supervised_restart(self) -> None:
+        """Collect the survivors, retire a stalled worker, reset the device
+        state (bounded resets per window), audit slots and pages, start a
+        fresh worker, requeue the survivors once with their deadlines and
+        leave a black-box record."""
+        policy = self._supervisor
+        restart_t0 = time.monotonic()
+        stalled = self._stalled
+        reason = "engine-stall" if stalled else "engine-error"
+        cause = str(self._error)
+        step_tail = self._step_tail()  # before the reset wipes the clock
+        with self._work_lock:
+            retry, gaveup = self._collect_survivors()
+            # parked here until requeued or failed: close() reaches them
+            self._restarting = retry
+            old = self._thread
+        returned = False
+        if stalled:
+            # the wedged worker cannot be interrupted: give the orphan a
+            # bounded grace to come back, then reset under it anyway
+            deadline = time.monotonic() + policy.join_grace_s
+            while self._returned is not old and time.monotonic() < deadline:
+                self._orphan_back.wait(deadline - time.monotonic())
+                self._orphan_back.clear()
+            returned = old is not None and self._returned is old
+            if not returned:
+                log.error(
+                    "stalled worker still wedged after %.1fs; resetting "
+                    "device state under it", policy.join_grace_s,
+                )
+            self._stalled = False
+        now = time.monotonic()
+        self._reset_times = [t for t in self._reset_times if now - t < self.RESET_WINDOW_S]
+        if len(self._reset_times) >= self.MAX_RESETS_PER_WINDOW:
+            self._give_up_restart(
+                retry, gaveup, reason=reason, cause=cause,
+                message="serving engine down: supervisor reset budget exhausted",
+                outcome="reset-budget-exhausted",
+            )
+            log.error("engine supervisor giving up: %d resets within %.0fs",
+                      self.MAX_RESETS_PER_WINDOW, self.RESET_WINDOW_S)
+            return
+        self._reset_times.append(now)
+        try:
+            with self._work_lock:
+                self._reset_engine()
+        except Exception as exc:  # noqa: BLE001 - the reset failed: stay down
+            log.exception("supervised engine reset failed; staying down")
+            self._error = exc
+            self._give_up_restart(
+                retry, gaveup, reason=reason, cause=cause,
+                message="serving engine down: device-state reset failed",
+                outcome="reset-failed",
+            )
+            return
+        leaks = self._audit_leaks()
+        if leaks:
+            self.generator.metrics.incr("supervisor_leak")
+            log.error("post-reset leak audit failed: %s", leaks)
+        for item in retry:
+            item.requeues += 1
+            # above the normal lanes (they were admitted once); the
+            # deadline is an absolute instant, so the residual budget
+            # carries through the restart
+            item.priority = max(item.priority, 1)
+            self.generator.metrics.incr("supervisor_requeue")
+            self._submissions.put(item)
+        self._restarting = []
+        with self._lock:
+            self._error = None
+            self._epoch += 1
+            if returned and old is not None:
+                # the orphan is parked: it carries on as this epoch's worker
+                self._handoff_to = (old, self._epoch)
+                self._handoff.set()
+            else:
+                self._thread = None
+        if self._closed.is_set():
+            return  # close() fails what was requeued
+        self.start()
+        self.generator.metrics.incr("supervisor_restart")
+        ready_s = time.monotonic() - restart_t0
+        self.generator.metrics.set_gauge("supervisor_restart_ready_seconds", round(ready_s, 3))
+        self._dump_blackbox(reason, {
+            "cause": cause,
+            "requeued": len(retry),
+            "gaveup": gaveup,
+            "leaks": leaks,
+            "resets_in_window": len(self._reset_times),
+            "restart_ready_s": round(ready_s, 3),
+            "steps": step_tail,
+        })
+        log.warning(
+            "supervised engine restart (%s) ready in %.2fs: %d requeued, "
+            "%d failed, leaks=%s",
+            reason, ready_s, len(retry), gaveup, leaks or "none",
+        )
+
     # -- streaming -----------------------------------------------------
 
     def _register_partial(self, key: int, item: _Submission) -> None:
@@ -816,7 +1259,10 @@ class ServingEngine:
     def _on_partial_from_worker(self, key: int, token_ids: list) -> None:
         """Scheduler/generator hook (worker thread) -> the caller's loop.
         Snapshots are queued in commit order ahead of the request's
-        result, so a stream hears every step before its end."""
+        result, so a stream hears every step before its end.  An
+        abandoned worker's snapshots are dropped."""
+        if getattr(self._local, "epoch", None) != self._epoch:
+            return
         feed = self._partial_cbs.get(key)
         if feed is None or feed.future.cancelled():  # the client went away
             return
@@ -829,14 +1275,35 @@ class ServingEngine:
     def _deliver_partial(feed: _PartialFeed, token_ids: list) -> None:
         """Loop-side delivery with a per-request order guard: a snapshot
         is delivered only when it is longer than the last one sent, so a
-        stream never rewinds, however commits and cancellations
-        interleave."""
+        stream never rewinds, however commits, cancellations and
+        requeues interleave."""
         if feed.future.cancelled() or len(token_ids) <= feed.sent:
             return
         feed.sent = len(token_ids)
         feed.callback(token_ids)
 
     # -- the worker ----------------------------------------------------
+
+    def _device_call(self, epoch: int, what: str, fn: Any, *args: Any) -> Any:
+        """Run one device call (a step, a wave's prefill) without the
+        worker lock, stamped for the watchdog.  A worker abandoned while
+        inside raises :class:`_Orphaned` when the call returns."""
+        self._busy = (epoch, time.monotonic(), what)
+        self._work_lock.release()
+        try:
+            result = fn(*args)
+        except BaseException:
+            self._work_lock.acquire()
+            self._check_epoch(epoch)
+            raise
+        self._work_lock.acquire()
+        self._check_epoch(epoch)
+        return result
+
+    def _check_epoch(self, epoch: int) -> None:
+        if epoch != self._epoch:
+            raise _Orphaned()
+        self._busy = None
 
     def _admit_submissions(self, block: bool) -> None:
         try:
@@ -855,33 +1322,72 @@ class ServingEngine:
                 except (ValueError, MemoryError, ShedLowValue) as exc:  # per-request verdict
                     _settle(item.future, exc=exc)
                 else:
-                    self._pending[req_id] = item.future
+                    self._pending[req_id] = item
                     self._register_partial(req_id, item)
             try:
                 item = self._submissions.get_nowait()
             except queue.Empty:
                 return
 
-    def _run(self) -> None:
+    def _run(self, epoch: int) -> None:
+        while epoch is not None:
+            epoch = self._run_epoch(epoch)
+
+    def _await_handoff(self) -> Optional[int]:
+        """An abandoned worker back from its device call: it has touched
+        nothing; it waits for the supervisor to hand it the next epoch
+        (after the reset), or exits when a fresh thread took over, the
+        engine gave up or closed."""
+        me = threading.current_thread()
+        self._returned = me
+        self._orphan_back.set()
+        while not self._closed.is_set():
+            if self._handoff.wait(1.0):
+                handoff = self._handoff_to
+                if handoff is not None and handoff[0] is me and not self._closed.is_set():
+                    return handoff[1]
+                return None
+            if self._thread is not me:
+                return None  # a fresh worker took over
+        return None
+
+    def _run_epoch(self, epoch: int) -> Optional[int]:
+        """Serve as the worker of ``epoch``; returns the next epoch when an
+        abandoned worker is handed one, else None (the thread ends)."""
+        self._local.epoch = epoch
         try:
-            if self.scheduler is not None:
-                self._run_sched()
-            else:
-                self._run_wave()
+            with self._work_lock:
+                if self.scheduler is not None:
+                    self._run_sched(epoch)
+                else:
+                    self._run_wave(epoch)
+            return None
+        except _Orphaned:
+            # abandoned by the supervisor: touch nothing
+            return self._await_handoff()
         except Exception as exc:  # noqa: BLE001 - the loop's boundary: fail loudly
-            log.exception("serving engine loop died")
-            self._error = exc
-            if self.scheduler is not None:
-                # drop rows, queue and the gathered offload buffers: the
-                # device state they point into is no longer trusted
-                self.scheduler.reset()
-            self._fail_outstanding(exc)
+            with self._work_lock:
+                if epoch != self._epoch:
+                    return None
+                log.exception("serving engine loop died")
+                self._error = exc
+                if self._supervisor is not None and not self._closed.is_set():
+                    # keep the requests: the supervisor resets the engine
+                    # and requeues them once instead of failing them
+                    self._wake.set()
+                    return None
+                if self.scheduler is not None:
+                    # drop rows, queue and the gathered offload buffers:
+                    # the device state they point into is not trusted
+                    self.scheduler.reset()
+                self._fail_outstanding(exc)
+            return None
 
     def _cancelled(self) -> list[int]:
         """Keys of in-flight requests whose callers went away."""
-        return [key for key, future in self._pending.items() if future.cancelled()]
+        return [key for key, item in self._pending.items() if item.future.cancelled()]
 
-    def _run_sched(self) -> None:
+    def _run_sched(self, epoch: int) -> None:
         sched = self.scheduler
         while not self._closed.is_set():
             self._admit_submissions(block=sched.total_work == 0)
@@ -895,15 +1401,15 @@ class ServingEngine:
                 self._forget(req_id)
             if not sched.total_work:
                 continue
-            for outcome in sched.step():
+            for outcome in self._device_call(epoch, "mixed dispatch", sched.step):
                 self._forget(outcome.req_id)
-                future = self._pending.pop(outcome.req_id, None)
-                if future is None:
+                item = self._pending.pop(outcome.req_id, None)
+                if item is None:
                     continue
                 if outcome.error is not None:
-                    _settle(future, exc=outcome.error)
+                    _settle(item.future, exc=outcome.error)
                 else:
-                    _settle(future, result=outcome.result)
+                    _settle(item.future, result=outcome.result)
 
     # -- the wave loop -------------------------------------------------
 
@@ -959,9 +1465,10 @@ class ServingEngine:
                 live.append(item)
         self._waiting = live
 
-    def _admit_waiting(self, arrived: bool) -> None:
+    def _admit_waiting(self, epoch: int, arrived: bool) -> None:
         """Admit the head of the waiting line into free slots and pages;
-        what does not fit stays in line (backpressure)."""
+        what does not fit stays in line (backpressure).  The batched
+        prefill is a device call under the stall watchdog."""
         g = self.generator
         free = len(g.free_slots())
         if not free or self._page_stalled():
@@ -973,14 +1480,17 @@ class ServingEngine:
         batch = list(itertools.islice(self._waiting, free))
         admitted_t = time.perf_counter()
         try:
-            slots = g.admit([b.prompt for b in batch], [b.params for b in batch])
+            slots = self._device_call(
+                epoch, "batched prefill", g.admit,
+                [b.prompt for b in batch], [b.params for b in batch],
+            )
         except OversizedRequest as exc:
             # only the head is impossible: fail it alone, the rest retry
             _settle(self._waiting.popleft().future, exc=exc)
             return
         for slot_id, item in zip(slots, batch):
             self._waiting.popleft()
-            self._pending[slot_id] = item.future
+            self._pending[slot_id] = item
             self._register_partial(slot_id, item)
             self._queue_wait_ms[slot_id] = max(0.0, (admitted_t - item.submitted) * 1e3)
         # a stall is recorded only while active sequences hold pages: their
@@ -990,7 +1500,7 @@ class ServingEngine:
             if len(slots) < len(batch) and g.num_active > 0 else None
         )
 
-    def _run_wave(self) -> None:
+    def _run_wave(self, epoch: int) -> None:
         g = self.generator
         while not self._closed.is_set():
             busy = bool(self._waiting) or g.num_active > 0 or bool(g._inflight_blocks)
@@ -998,7 +1508,7 @@ class ServingEngine:
             if self._waiting:
                 self._sweep_waiting()
             if self._waiting:
-                self._admit_waiting(arrived)
+                self._admit_waiting(epoch, arrived)
             if g.num_active:
                 # reclaim slots whose callers are gone: an abandoned
                 # request must not decode to max_tokens holding its pages
@@ -1009,17 +1519,20 @@ class ServingEngine:
                     self._forget(slot_id)
             if not (g.num_active or g._inflight_blocks):
                 continue
-            for slot_id, result in g.step():
+            for slot_id, result in self._device_call(epoch, "decode step", g.step):
                 self._forget(slot_id)
-                future = self._pending.pop(slot_id, None)
+                item = self._pending.pop(slot_id, None)
                 result.queue_wait_ms = self._queue_wait_ms.pop(slot_id, 0.0)
-                if future is not None:
-                    _settle(future, result=result)
+                if item is not None:
+                    _settle(item.future, result=result)
 
     def _fail_outstanding(self, exc: BaseException) -> None:
         self._partial_cbs.clear()
-        for future in list(self._pending.values()):
-            _settle(future, exc=exc)
+        for item in self._restarting:  # a restart interrupted by close()
+            _settle(item.future, exc=exc)
+        self._restarting = []
+        for item in list(self._pending.values()):
+            _settle(item.future, exc=exc)
         self._pending.clear()
         while self._waiting:
             _settle(self._waiting.popleft().future, exc=exc)

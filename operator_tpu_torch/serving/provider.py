@@ -21,7 +21,10 @@ reads ``SCHED_CHUNK`` (64), ``SCHED_TOKEN_BUDGET`` (0 = auto),
 and the block-hash prefix cache, ``KV_PREFIX_CACHE`` (true) with its
 host-RAM pool ``KV_HOST_POOL_MB`` (0 = none); the wave engine reads
 ``DECODE_BLOCK`` (4), ``PIPELINE_DEPTH`` (2) and
-``OPERATOR_TPU_PAGED_KERNEL`` (``v1``/``v2``).
+``OPERATOR_TPU_PAGED_KERNEL`` (``v1``/``v2``).  Both loops are supervised
+by default, as in the reference: ``ENGINE_SUPERVISOR`` (true) with
+``SUPERVISOR_STALL_S`` (120) and ``SUPERVISOR_JOIN_GRACE_S`` (10) build the
+engine's ``SupervisorPolicy``.
 
 A knob whose feature is not ported is refused when it is set away from
 its default, naming the ROADMAP Queue 1 item that ports it:
@@ -63,7 +66,7 @@ from ..obs import annotate_root, current_trace_id
 from ..ops.paged_attention import _kernel_version
 from ..schema.analysis import AIResponse, AnalysisRequest
 from ..utils.config import OperatorConfig
-from .engine import Generator, ServingEngine
+from .engine import Generator, ServingEngine, SupervisorPolicy
 from .prompts import build_prompt, template_preamble
 from .sched.scheduler import Scheduler
 from .types import DeadlineExceeded, SamplingParams
@@ -281,12 +284,22 @@ def build_serving_engine(
         seed=seed,
         device=device,
     )
+    # supervised by default (the reference's production wiring): a stalled
+    # or errored loop resets the engine and requeues in-flight requests
+    # once with their residual deadlines
+    supervisor = None
+    if config.engine_supervisor:
+        supervisor = SupervisorPolicy(
+            stall_timeout_s=config.supervisor_stall_s,
+            join_grace_s=config.supervisor_join_grace_s,
+        )
     if config.sched_mode == "wave":
         log.info("serving mode: WAVE engine (sched_mode=%s)", config.sched_mode)
         # the JAX provider primes the default template's shared prefix
         # here; the port has no shared-prefix path yet (Queue 1 item 6)
         log.info("shared-prefix priming is not ported; every prompt is prefilled in full")
-        return _with_role(ServingEngine(generator), config), model_id
+        engine = ServingEngine(generator, supervisor=supervisor)
+        return _with_role(engine, config), model_id
     # automatic block-hash prefix caching (serving/kvstore.py), with an
     # optional host-RAM tier for evicted blocks (ops/kv_transfer.py)
     kvstore = None
@@ -317,7 +330,8 @@ def build_serving_engine(
         scheduler.depth, scheduler.spec_k > 0, scheduler.spec_k,
         scheduler._kvstore is not None, config.kv_host_pool_mb,
     )
-    return _with_role(ServingEngine(generator, scheduler), config), model_id
+    engine = ServingEngine(generator, scheduler, supervisor=supervisor)
+    return _with_role(engine, config), model_id
 
 
 def _with_role(engine: ServingEngine, config: OperatorConfig) -> ServingEngine:

@@ -43,7 +43,7 @@ from operator_tpu_torch.utils.device import resolve_device  # noqa: E402
 REPO = Path(__file__).resolve().parents[1]
 #: what neither the port nor ``chip_smoke.py`` may import: the port
 #: depends on PyTorch alone and keeps its own copies
-FORBIDDEN = ("jax", "jaxlib", "operator_tpu", "safetensors", "transformers", "tokenizers",
+FORBIDDEN = ("jax", "jaxlib", "operator_tpu", "safetensors", "transformers", "tokenizers", "regex",
              "ml_dtypes")
 
 PROMPTS = [
@@ -310,6 +310,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import operator_tpu_torch.serving.templates, operator_tpu_torch.models.quant\n"
         "operator_tpu_torch.patterns.loader.load_builtin_library()\n"
         "operator_tpu_torch.models.tokenizer.load_tokenizer('tests/torch_tokenizers/llama_sp')\n"
+        "bl = operator_tpu_torch.models.tokenizer.load_tokenizer('tests/torch_tokenizers/llama3_bl')\n"
+        "assert bl.decode(bl.encode(\"it's 2024: ÉCHEC 😀\\r\\n\")) == \"it's 2024: ÉCHEC 😀\\r\\n\"\n"
+        "import operator_tpu_torch.loadgen, operator_tpu_torch.loadgen.storm\n"
+        "import operator_tpu_torch.loadgen.arrivals, operator_tpu_torch.loadgen.driver\n"
+        "from operator_tpu_torch.serving.engine import SupervisorPolicy, EngineStalled\n"
         "operator_tpu_torch.models.bpe.load_builtin_bpe()\n"
         "import operator_tpu_torch.operator, operator_tpu_torch.operator.app\n"
         "import operator_tpu_torch.obs.record, operator_tpu_torch.obs.sloledger\n"
@@ -359,7 +364,8 @@ def test_no_jax_import_in_port_sources():
     for module in ("utils/faultinject.py", "operator/lease.py", "operator/autoscale.py",
                    "router/discovery.py", "operator/patternsync.py", "operator/httpapi.py",
                    "operator/kubefacade.py", "schema/crdgen.py", "obs/view.py",
-                   "patterns/__main__.py"):
+                   "patterns/__main__.py", "loadgen/arrivals.py", "loadgen/driver.py",
+                   "loadgen/storm.py", "loadgen/__main__.py"):
         assert f"operator_tpu_torch/{module}" in names
     bad = [hit for path in files for hit in _forbidden_imports(path)]
     assert not bad, bad

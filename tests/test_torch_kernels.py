@@ -34,6 +34,11 @@ pinned memory, restore) against the CPU's bytes.  A checkpoint written by
 the port's ``save_params`` loads onto the card byte for byte as onto the
 CPU (bf16 and int8), and ``TPUNativeProvider.generate`` over it launches
 the ragged kernel.
+The ragged kernel also at llama-3-8b's head layout (QH=32, KH=8,
+D=128: the group of 4 the deployed model serves with), on short and
+long rows, and a supervised restart of a continuous engine on the card
+(a stalled step, the supervisor's reset) leaves its device memory where
+it was.
 On the CPU, the ragged kernel's launch plan is a function of shapes
 alone, and the ragged and decode wrappers' copies of their kernels'
 split geometry and the similarity wrapper's layouts are the sources' and
@@ -88,14 +93,14 @@ def _inputs(name, dtype=torch.float32, device="cpu", d=D):
                          device, d)
 
 
-def _paged_inputs(kv_len, q_count, window, page, pps, seed, dtype, device, d=D):
+def _paged_inputs(kv_len, q_count, window, page, pps, seed, dtype, device, d=D, qh=QH, kh=KH):
     rng = np.random.default_rng(seed)
     b = len(kv_len)
     num_pages = b * pps + 1
     arrays = [
-        rng.normal(size=(b, C, QH, d)).astype(np.float32),
-        rng.normal(size=(num_pages, page, KH, d)).astype(np.float32),
-        rng.normal(size=(num_pages, page, KH, d)).astype(np.float32),
+        rng.normal(size=(b, C, qh, d)).astype(np.float32),
+        rng.normal(size=(num_pages, page, kh, d)).astype(np.float32),
+        rng.normal(size=(num_pages, page, kh, d)).astype(np.float32),
     ]
     table = (1 + rng.permutation(num_pages - 1)[: b * pps]).reshape(b, pps)
     args = [torch.from_numpy(a).to(device, dtype) for a in arrays] + [
@@ -1004,3 +1009,73 @@ def test_cuda_operator_demo_launches_k1_per_step_and_k5_per_analysis(cuda, monke
     finally:
         for provider in built:
             provider.engine.close()
+
+
+#: llama-3-8b's heads: 32 query heads over 8 KV heads of 128
+LLAMA3_HEADS = {"qh": 32, "kh": 8, "d": 128}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", list(GEOMETRIES) + list(LONG_ROWS))
+def test_cuda_kernel_matches_plain_version_at_llama3_heads(cuda, name, dtype_name):
+    """K1 at D = 128 with a group of 4, the instantiation the deployed
+    model launches, on every short geometry and the long rows."""
+    if name in GEOMETRIES:
+        kv_len, q_count, window = GEOMETRIES[name]
+        page, pps = PAGE, PPS
+    else:
+        page, pps, kv_len, q_count, window = LONG_ROWS[name]
+    args, window, q_count = _paged_inputs(kv_len, q_count, window, page, pps, 128 + pps,
+                                          getattr(torch, dtype_name), "cuda", **LLAMA3_HEADS)
+    before = ragged.launches
+    got = ragged.ragged_paged_attention(*args, sliding_window=window)
+    torch.cuda.synchronize()
+    assert ragged.launches == before + 1
+    want = ragged.ragged_attention_reference(*args, sliding_window=window)
+    assert _valid_rows_err(got, want, q_count) <= TOL[dtype_name], name
+
+
+@pytest.mark.cuda
+def test_cuda_supervised_restart_leaves_no_device_memory_behind(cuda):
+    """A continuous engine on the card whose step stalls past a tightened
+    budget: the supervisor abandons the step, frees the old page pool
+    before it allocates the new one, requeues the request, and once it
+    finishes the device memory is back at its level before the stall."""
+    import asyncio
+
+    from operator_tpu_torch.serving.provider import build_serving_engine
+    from operator_tpu_torch.serving.types import SamplingParams
+    from operator_tpu_torch.utils.faultinject import OK, FaultPlan, sleep_
+
+    engine, _ = build_serving_engine("cuda", {
+        "OPERATOR_TPU_MODEL": "tiny-test", "ALLOW_RANDOM_WEIGHTS": "true",
+        "MAX_BATCH_SIZE": "4", "KV_PAGE_SIZE": "16"})
+    g = engine.generator
+    try:
+        engine.warmup()
+        greedy = SamplingParams(max_tokens=12, temperature=0.0, stop_on_eos=False)
+        want = asyncio.run(engine.generate("stalled mid-decode then requeued", greedy))
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        pool = g.paged_cache
+        engine._supervisor.stall_timeout_s = 0.5
+        plan = FaultPlan(seed=5)
+        plan.rule("engine.step", [OK, sleep_(1.5)])
+        g.fault_plan = plan
+        got = asyncio.run(asyncio.wait_for(
+            engine.generate("stalled mid-decode then requeued", greedy), 30))
+        g.fault_plan = None
+        del pool
+        torch.cuda.synchronize()
+        after = torch.cuda.memory_allocated()
+        assert g.metrics.counter("supervisor_restart") == 1
+        assert g.metrics.counter("supervisor_requeue") == 1
+        assert got.token_ids == want.token_ids
+        assert after <= before + (1 << 20), (before, after)
+        # no row holds a page; the prefix cache keeps the prompt's blocks
+        acc = engine.scheduler.page_accounting()
+        assert acc["row_pages"] == 0
+        assert acc["available"] + acc["store_pages"] + acc["prefix_pages"] == acc["total"]
+    finally:
+        engine.close()

@@ -78,7 +78,9 @@ def _weights(params, quantized) -> str:
 def _resolved(engine, sched, params_dtype) -> dict:
     g = engine.generator
     store = sched._kvstore if sched is not None else None
+    policy = engine._supervisor
     return {
+        "supervisor": dataclasses.asdict(policy) if policy is not None else None,
         "num_pages": g.allocator.num_pages,
         "sample_top_k": g.sample_top_k,
         "weights": params_dtype,
@@ -132,6 +134,9 @@ def _jax(env, monkeypatch) -> dict:
     ("SPEC_DECODE", "false"),
     ("SCHED_MODE", "wave"),
     ("REPLICA_ROLE", "Prefill"),
+    ("SUPERVISOR_STALL_S", "7.5"),
+    ("SUPERVISOR_JOIN_GRACE_S", "2.5"),
+    ("ENGINE_SUPERVISOR", "false"),
 ])
 def test_provider_knob_resolves_as_the_jax_package(knob, value, monkeypatch):
     env = dict(BASE)
@@ -150,6 +155,11 @@ def test_provider_knob_resolves_as_the_jax_package(knob, value, monkeypatch):
         "KV_HOST_POOL_MB": ("host_pool_bytes", 64 << 20),
         "STEP_RING_CAPACITY": ("ring_capacity", 7),
         "REPLICA_ROLE": ("role", "prefill"),
+        "SUPERVISOR_STALL_S": ("supervisor", {
+            "stall_timeout_s": 7.5, "join_grace_s": 10.0, "max_requeues": 1}),
+        "SUPERVISOR_JOIN_GRACE_S": ("supervisor", {
+            "stall_timeout_s": 120.0, "join_grace_s": 2.5, "max_requeues": 1}),
+        "ENGINE_SUPERVISOR": ("supervisor", None),
     }
     if knob in pins:
         key, want = pins[knob]
@@ -157,6 +167,25 @@ def test_provider_knob_resolves_as_the_jax_package(knob, value, monkeypatch):
     if knob is None:
         assert got["weights"] == "int8" and got["prefix_cache"]
         assert got["host_pool_bytes"] is None
+        assert got["supervisor"] == {
+            "stall_timeout_s": 120.0, "join_grace_s": 10.0, "max_requeues": 1}
+
+
+@pytest.mark.parametrize("mode", ["continuous", "wave"])
+@pytest.mark.parametrize("enabled", [None, "true", "false"])
+@pytest.mark.parametrize("stall,grace", [(None, None), ("3", None), (None, "0.5"), ("3", "0.5")])
+def test_supervisor_policy_resolves_as_the_jax_package(mode, enabled, stall, grace, monkeypatch):
+    """Every combination of ``ENGINE_SUPERVISOR``, ``SUPERVISOR_STALL_S``
+    and ``SUPERVISOR_JOIN_GRACE_S`` gives the engine the reference's
+    ``SupervisorPolicy`` (or none), in both loops."""
+    env = {**BASE, "SCHED_MODE": mode}
+    for key, value in (("ENGINE_SUPERVISOR", enabled), ("SUPERVISOR_STALL_S", stall),
+                       ("SUPERVISOR_JOIN_GRACE_S", grace)):
+        if value is not None:
+            env[key] = value
+    got = _port(env)["supervisor"]
+    assert got == _jax(env, monkeypatch)["supervisor"]
+    assert (got is None) == (enabled == "false")
 
 
 def test_weight_dtype_wins_over_serving_dtype():

@@ -1,0 +1,537 @@
+"""The port's serving supervisor and lazy recovery against the JAX engine.
+
+The same scenarios run through ``operator_tpu_torch``'s ``ServingEngine``
+(a worker thread and a watchdog thread, on the CPU) and the JAX
+``ServingEngine`` (asyncio), on the same ``TINY_TEST`` f32 weights, in both
+loops (the continuous scheduler and the wave engine), with the chaos seam
+``engine.step`` injecting stalls and device errors:
+
+- without a policy, a device error fails the request in flight and the
+  next caller resets the engine (lazy recovery);
+- a stalled step is restarted once and its survivor requeued, with its
+  absolute deadline kept; the greedy tokens equal an unstalled run's and
+  the JAX engine's, and two seeded replays are identical;
+- a one-shot device error is absorbed by a requeue; a persistent one fails
+  the caller after ``max_requeues`` and, once the reset budget is spent,
+  ``load_report().gave_up`` is set.
+
+The counters (``supervisor_{restart,requeue,gaveup,leak}``), the black-box
+reason and the leak audit are held equal to the JAX engine's.  Every wait
+is bounded (30 s at most, as the reference's ``asyncio.wait_for``).
+"""
+
+import asyncio
+import dataclasses
+import inspect
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+from operator_tpu.models import TINY_TEST as JAX_TINY_TEST  # noqa: E402
+from operator_tpu.models import init_params as jax_init_params  # noqa: E402
+from operator_tpu.models.tokenizer import ByteTokenizer as JaxByteTokenizer  # noqa: E402
+from operator_tpu.obs import FlightRecorder as JaxFlightRecorder  # noqa: E402
+from operator_tpu.serving import engine as jax_engine  # noqa: E402
+from operator_tpu.serving.sched import Scheduler as JaxScheduler  # noqa: E402
+from operator_tpu.utils import faultinject as jax_faultinject  # noqa: E402
+from operator_tpu.utils.timing import MetricsRegistry as JaxMetricsRegistry  # noqa: E402
+from operator_tpu_torch.models import TINY_TEST, ByteTokenizer, params_from_jax  # noqa: E402
+from operator_tpu_torch.obs import FlightRecorder  # noqa: E402
+from operator_tpu_torch.serving import engine as port_engine  # noqa: E402
+from operator_tpu_torch.serving.sched import Scheduler  # noqa: E402
+from operator_tpu_torch.serving.types import SamplingParams  # noqa: E402
+from operator_tpu_torch.utils import faultinject  # noqa: E402
+from operator_tpu_torch.utils.timing import MetricsRegistry  # noqa: E402
+
+#: every wait in a scenario, as the reference's ``asyncio.wait_for``
+WAIT_S = 30
+#: the stall budget once the engine is warm, and the injected step's
+#: sleep: the reference's tests use 0.4 s and 1.5 s; a plain-PyTorch step
+#: of a loaded CPU (the suite runs six workers at once) can itself take
+#: longer than 0.4 s, so both are wider here, the sleep still well past
+#: the budget and inside the grace
+STALL_BUDGET_S = 1.5
+STALL_SLEEP_S = 3.5
+GRACE_S = 8.0
+
+PORT = SimpleNamespace(
+    name="port", SamplingParams=SamplingParams, faults=faultinject,
+    FlightRecorder=FlightRecorder, MetricsRegistry=MetricsRegistry,
+    SupervisorPolicy=port_engine.SupervisorPolicy,
+)
+JAX = SimpleNamespace(
+    name="jax", SamplingParams=jax_engine.SamplingParams, faults=jax_faultinject,
+    FlightRecorder=JaxFlightRecorder, MetricsRegistry=JaxMetricsRegistry,
+    SupervisorPolicy=jax_engine.SupervisorPolicy,
+)
+MODES = ["continuous", "wave"]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_intra_op_thread():
+    """One intra-op thread while these timed scenarios run: with six test
+    workers each spinning a full OpenMP team, a plain-PyTorch CPU step can
+    take longer than the stall budget by itself."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.fixture(scope="module")
+def params():
+    jax_params = jax_init_params(JAX_TINY_TEST, jax.random.PRNGKey(0), dtype=jnp.float32)
+    return {"jax": jax_params,
+            "port": params_from_jax(jax.tree_util.tree_map(np.asarray, jax_params))}
+
+
+def build(pkg, params, mode, *, policy=None, recorder=None, depth=1, spec=False,
+          gen_depth=1):
+    """Both packages' engines at the reference tests' shapes: two slots,
+    ``max_seq`` 128, pages of 16, decode blocks of 2; the continuous
+    scheduler with chunk 16 and a 32-token budget."""
+    metrics = pkg.MetricsRegistry()
+    if pkg is PORT:
+        generator = port_engine.Generator(
+            params["port"], TINY_TEST, ByteTokenizer(), max_slots=2, max_seq=128,
+            page_size=16, decode_block=2, pipeline_depth=gen_depth,
+            cache_dtype=torch.float32, device="cpu", metrics=metrics,
+        )
+        sched = Scheduler(generator, chunk=16, token_budget=32, pipeline_depth=depth,
+                          spec_decode=spec) if mode == "continuous" else None
+        engine = port_engine.ServingEngine(
+            generator, sched, admission_wait_s=0.002, supervisor=policy, recorder=recorder,
+        )
+    else:
+        generator = jax_engine.BatchedGenerator(
+            params["jax"], JAX_TINY_TEST, JaxByteTokenizer(), max_slots=2, max_seq=128,
+            cache_dtype=jnp.float32, paged=True, page_size=16, decode_block=2,
+            pipeline_depth=gen_depth, metrics=metrics,
+        )
+        sched = JaxScheduler(generator, chunk=16, token_budget=32, pipeline_depth=depth,
+                             spec_decode=spec) if mode == "continuous" else None
+        engine = jax_engine.ServingEngine(
+            generator, admission_wait_s=0.002, supervisor=policy, recorder=recorder,
+            scheduler=sched,
+        )
+    return engine, generator, metrics
+
+
+async def _maybe(value):
+    """The JAX engine's ``start``/``close`` are coroutines, the port's are
+    plain calls."""
+    if inspect.isawaitable(value):
+        await value
+
+
+def leaks(generator) -> dict:
+    return {
+        "slots": generator.max_slots - len(generator.free_slots()),
+        "pages": generator.allocator.num_pages - 1 - generator.prefix_held_pages
+        - generator.allocator.available,
+    }
+
+
+def supervisor_counters(metrics) -> dict:
+    counters = metrics.snapshot()["counters"]
+    return {name: counters.get(f"supervisor_{name}", 0)
+            for name in ("restart", "requeue", "gaveup", "leak")}
+
+
+def greedy(pkg, n):
+    return pkg.SamplingParams(max_tokens=n, temperature=0.0, stop_on_eos=False)
+
+
+async def _warm(pkg, engine):
+    await asyncio.wait_for(engine.generate("warm", greedy(pkg, 2)), WAIT_S)
+
+
+# ---------------------------------------------------------------------------
+# lazy recovery (no policy)
+# ---------------------------------------------------------------------------
+
+
+def lazy_recovery(pkg, params, mode) -> dict:
+    """``test_chaos.py::test_engine_chaos_stall_and_device_error_no_leaks``:
+    a short stall delays, a device error fails the request in flight, and
+    the next generate resets the engine and serves."""
+    engine, generator, metrics = build(pkg, params, mode)
+    f = pkg.faults
+    plan = f.FaultPlan(seed=3)
+    plan.rule("engine.step", [f.OK, f.sleep_(0.05), f.OK, f.raise_(
+        lambda: RuntimeError("injected device error"), "device")])
+
+    async def scenario():
+        await _maybe(engine.start())
+        generator.fault_plan = plan
+        with pytest.raises(RuntimeError, match="injected device error"):
+            await asyncio.wait_for(engine.generate(
+                "doomed by injected device error", greedy(pkg, 60)), WAIT_S)
+        generator.fault_plan = None
+        result = await asyncio.wait_for(
+            engine.generate("served after recovery", greedy(pkg, 8)), WAIT_S)
+        await _maybe(engine.close())
+        return result
+
+    result = asyncio.run(scenario())
+    return {
+        "tokens": result.token_ids,
+        "completion_tokens": result.completion_tokens,
+        "leaks": leaks(generator),
+        "pending": plan.pending(),
+        "counters": supervisor_counters(metrics),
+    }
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_lazy_recovery_after_a_device_error_leaves_no_leaks(params, mode):
+    got = lazy_recovery(PORT, params, mode)
+    assert got["completion_tokens"] == 8
+    assert got["leaks"] == {"slots": 0, "pages": 0}
+    assert got["pending"] == {}
+    assert got == lazy_recovery(JAX, params, mode)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_a_loop_death_without_a_policy_recovers_on_the_next_submit(params, mode):
+    """The thread API: the future of the request in flight fails with the
+    device error, and the next ``submit`` resets the engine and serves
+    instead of raising "serving engine loop died" for good."""
+    engine, generator, _ = build(PORT, params, mode)
+    f = faultinject
+    plan = f.FaultPlan(seed=1)
+    plan.rule("engine.step", f.raise_(lambda: RuntimeError("injected device error"), "device"))
+    generator.fault_plan = plan
+    try:
+        doomed = engine.submit("doomed", greedy(PORT, 8))
+        with pytest.raises(RuntimeError, match="injected device error"):
+            doomed.result(WAIT_S)
+        generator.fault_plan = None
+        result = engine.submit("served after recovery", greedy(PORT, 8)).result(WAIT_S)
+        assert result.completion_tokens == 8
+        assert not engine.load_report().gave_up
+    finally:
+        engine.close()
+    assert leaks(generator) == {"slots": 0, "pages": 0}
+
+
+def test_lazy_recovery_budget_is_three_resets_per_window(params):
+    """Past ``MAX_RESETS_PER_WINDOW`` resets in ``RESET_WINDOW_S`` the
+    engine stays down and says so, as the reference does."""
+    assert (port_engine.ServingEngine.MAX_RESETS_PER_WINDOW,
+            port_engine.ServingEngine.RESET_WINDOW_S) == (
+        jax_engine.ServingEngine.MAX_RESETS_PER_WINDOW, jax_engine.ServingEngine.RESET_WINDOW_S)
+    engine, generator, _ = build(PORT, params, "continuous")
+    f = faultinject
+    plan = f.FaultPlan(seed=2)
+    plan.rule("engine.step", f.times(8, f.raise_(
+        lambda: RuntimeError("injected device error"), "device")))
+    generator.fault_plan = plan
+    try:
+        for _ in range(engine.MAX_RESETS_PER_WINDOW + 1):
+            with pytest.raises(RuntimeError, match="injected device error"):
+                engine.submit("doomed", greedy(PORT, 4)).result(WAIT_S)
+        with pytest.raises(RuntimeError, match="serving engine loop died"):
+            engine.submit("stays down", greedy(PORT, 4))
+    finally:
+        engine.close()
+
+
+# ---------------------------------------------------------------------------
+# the supervisor
+# ---------------------------------------------------------------------------
+
+
+def stalled_and_requeued(pkg, params, mode, *, seed=5, steps_before=1, depth=1,
+                         spec=False, gen_depth=1, with_deadline=False) -> dict:
+    """``test_chaos.py::test_supervisor_recovers_stalled_engine_and_requeues``
+    (and, with ``depth=2``/``steps_before=2``, ``test_sched_pipeline.py::
+    test_stall_midpipeline_requeues_with_residual_deadline``): a step wedges
+    past the tightened stall budget, the supervisor abandons the worker,
+    resets, requeues the request, and it completes."""
+    policy = pkg.SupervisorPolicy(stall_timeout_s=60.0, join_grace_s=GRACE_S)
+    recorder = pkg.FlightRecorder(capacity=16)
+    engine, generator, metrics = build(pkg, params, mode, policy=policy, recorder=recorder,
+                                       depth=depth, spec=spec, gen_depth=gen_depth)
+    f = pkg.faults
+    plan = f.FaultPlan(seed=seed)
+    plan.rule("engine.step", [f.OK] * steps_before + [f.sleep_(STALL_SLEEP_S)])
+    async def scenario():
+        await _maybe(engine.start())
+        await _warm(pkg, engine)
+        policy.stall_timeout_s = STALL_BUDGET_S
+        generator.fault_plan = plan
+        sampling = pkg.SamplingParams(
+            max_tokens=12, temperature=0.0, stop_on_eos=False,
+            # a generous residue, an absolute instant the requeue keeps
+            deadline=generator._clock() + 60.0 if with_deadline else None,
+        )
+        result = await asyncio.wait_for(
+            engine.generate("stalled mid-decode then requeued", sampling), WAIT_S)
+        generator.fault_plan = None
+        await _maybe(engine.close())
+        return result
+
+    result = asyncio.run(scenario())
+    dumps = [r for r in recorder.traces() if r.blackbox]
+    return {
+        "tokens": result.token_ids,
+        "finish_reason": result.finish_reason,
+        "completion_tokens": result.completion_tokens,
+        "counters": supervisor_counters(metrics),
+        "blackbox": [d.reason for d in dumps],
+        "leaks": leaks(generator),
+        "pending": plan.pending(),
+        "gave_up": engine.load_report().gave_up,
+    }
+
+
+def unstalled(pkg, params, mode, **kw) -> list:
+    engine, generator, _ = build(pkg, params, mode, **kw)
+
+    async def scenario():
+        await _maybe(engine.start())
+        result = await asyncio.wait_for(
+            engine.generate("stalled mid-decode then requeued", greedy(pkg, 12)), WAIT_S)
+        await _maybe(engine.close())
+        return result.token_ids
+
+    return asyncio.run(scenario())
+
+
+EXPECTED_STALL = {
+    "counters": {"restart": 1, "requeue": 1, "gaveup": 0, "leak": 0},
+    "blackbox": ["engine-stall"],
+    "leaks": {"slots": 0, "pages": 0},
+    "pending": {},
+    "gave_up": False,
+    "completion_tokens": 12,
+    "finish_reason": "length",
+}
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_supervisor_recovers_a_stalled_engine_and_requeues(params, mode):
+    got = stalled_and_requeued(PORT, params, mode)
+    assert {k: got[k] for k in EXPECTED_STALL} == EXPECTED_STALL
+    assert got["tokens"] == unstalled(PORT, params, mode)
+    assert got == stalled_and_requeued(JAX, params, mode)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_engine_stall_requeues_and_replays_byte_identically(params, mode):
+    """``test_sched.py::...::test_engine_stall_requeues_and_replays_byte_identically``:
+    two seeded replays give the same record, whose greedy tokens equal an
+    unstalled run's and the JAX engine's."""
+    first = stalled_and_requeued(PORT, params, mode, seed=11)
+    second = stalled_and_requeued(PORT, params, mode, seed=11)
+    assert first == second
+    assert first["tokens"] == unstalled(PORT, params, mode)
+    assert first["tokens"] == stalled_and_requeued(JAX, params, mode, seed=11)["tokens"]
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_stall_midpipeline_requeues_with_residual_deadline(params, mode):
+    """A step wedges while the pipeline holds dispatched-ahead work
+    (scheduler depth 2 with speculation, or two wave blocks in flight):
+    one restart, the survivor requeued with its original absolute
+    deadline, the pool clean, and the JAX engine's record."""
+    kw = dict(seed=13, steps_before=2, with_deadline=True)
+    kw.update(dict(depth=2, spec=True) if mode == "continuous" else dict(gen_depth=2))
+    got = stalled_and_requeued(PORT, params, mode, **kw)
+    assert {k: got[k] for k in EXPECTED_STALL} == EXPECTED_STALL
+    assert got == stalled_and_requeued(JAX, params, mode, **kw)
+
+
+def device_errors(pkg, params, mode) -> dict:
+    """``test_chaos.py::test_supervisor_requeues_after_device_error_then_
+    gives_up_when_persistent``, then once more until the reset budget is
+    spent: the engine gives up and ``load_report().gave_up`` is set."""
+    policy = pkg.SupervisorPolicy(stall_timeout_s=60.0, join_grace_s=GRACE_S)
+    recorder = pkg.FlightRecorder(capacity=16)
+    engine, generator, metrics = build(pkg, params, mode, policy=policy, recorder=recorder)
+    f = pkg.faults
+
+    def device_error():
+        return f.raise_(lambda: RuntimeError("injected device error"), "device")
+
+    async def scenario():
+        await _maybe(engine.start())
+        await _warm(pkg, engine)
+        plan = f.FaultPlan(seed=7)
+        plan.rule("engine.step", device_error())
+        generator.fault_plan = plan
+        survived = await asyncio.wait_for(
+            engine.generate("survives one device error", greedy(pkg, 8)), WAIT_S)
+        assert plan.pending() == {}
+        after_one = supervisor_counters(metrics)
+
+        plan2 = f.FaultPlan(seed=8)
+        plan2.rule("engine.step", f.times(20, device_error()))
+        generator.fault_plan = plan2
+        with pytest.raises(RuntimeError, match="supervised engine restart"):
+            await asyncio.wait_for(
+                engine.generate("doomed under persistent fault", greedy(pkg, 8)), WAIT_S)
+        # the caller hears the failure as the survivors are collected; the
+        # restart (the third reset) completes after it: wait for it
+        for _ in range(WAIT_S * 100):
+            if supervisor_counters(metrics)["restart"] == 3:
+                break
+            await asyncio.sleep(0.01)
+        after_persistent = supervisor_counters(metrics)
+        gave_up_then = engine.load_report().gave_up
+        leaks_then = leaks(generator)
+
+        # the budget's fourth reset within the window: the engine gives up
+        with pytest.raises(RuntimeError, match="reset budget exhausted"):
+            await asyncio.wait_for(
+                engine.generate("the budget runs out", greedy(pkg, 8)), WAIT_S)
+        gave_up = engine.load_report().gave_up
+        with pytest.raises(RuntimeError, match="serving engine is down"):
+            await asyncio.wait_for(engine.generate("stays down", greedy(pkg, 8)), WAIT_S)
+        generator.fault_plan = None
+        await _maybe(engine.close())
+        return survived, after_one, after_persistent, gave_up_then, leaks_then, gave_up
+
+    survived, after_one, after_persistent, gave_up_then, leaks_then, gave_up = asyncio.run(
+        scenario())
+    return {
+        "survived": survived.token_ids,
+        "after_one": after_one,
+        "after_persistent": after_persistent,
+        "gave_up_after_persistent": gave_up_then,
+        # after the persistent fault's last reset: the pool audits clean
+        "leaks_after_persistent": leaks_then,
+        "gave_up": gave_up,
+        "counters": supervisor_counters(metrics),
+        "blackbox": [r.reason for r in recorder.traces() if r.blackbox],
+        # the give-up resets nothing: what the last request held stays held
+        "leaks_after_giving_up": leaks(generator),
+    }
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_supervisor_requeues_after_a_device_error_then_gives_up_when_persistent(params, mode):
+    got = device_errors(PORT, params, mode)
+    assert len(got["survived"]) == 8
+    assert got["after_one"] == {"restart": 1, "requeue": 1, "gaveup": 0, "leak": 0}
+    assert got["after_persistent"] == {"restart": 3, "requeue": 2, "gaveup": 1, "leak": 0}
+    assert not got["gave_up_after_persistent"]
+    assert got["gave_up"]
+    assert got["leaks_after_persistent"] == {"slots": 0, "pages": 0}
+    assert got == device_errors(JAX, params, mode)
+
+
+def test_policy_defaults_match_the_reference():
+    assert dataclasses.asdict(port_engine.SupervisorPolicy()) == dataclasses.asdict(
+        jax_engine.SupervisorPolicy())
+    assert issubclass(port_engine.EngineStalled, RuntimeError)
+
+
+def test_reset_frees_the_pool_and_keeps_the_weights(params):
+    """``Generator.reset``: a fresh pool and allocator, every slot empty
+    and its epoch bumped, the step clock restarted, the weights kept."""
+    engine, generator, _ = build(PORT, params, "wave")
+    generator.admit(["some prompt"], [greedy(PORT, 8)])
+    generator.step()
+    old_cache, weights = generator.paged_cache, generator.params
+    epochs = list(generator._slot_epoch)
+    generator.reset()
+    assert generator.paged_cache is not old_cache
+    assert generator.params is weights
+    assert generator.num_active == 0 and not generator._inflight_blocks
+    assert all(b > a for a, b in zip(epochs, generator._slot_epoch))
+    assert generator.step_clock.summary().get("steps", 0) == 0
+    assert leaks(generator) == {"slots": 0, "pages": 0}
+    engine.close()
+
+
+def streamed_through_a_stall(pkg, params, mode) -> dict:
+    """A streaming request whose step stalls: the supervisor requeues it
+    and its snapshots never rewind (each one extends the last), ending in
+    a prefix of the result."""
+    policy = pkg.SupervisorPolicy(stall_timeout_s=60.0, join_grace_s=GRACE_S)
+    engine, generator, metrics = build(pkg, params, mode, policy=policy)
+    f = pkg.faults
+    plan = f.FaultPlan(seed=21)
+    plan.rule("engine.step", [f.OK, f.OK, f.sleep_(STALL_SLEEP_S)])
+    snapshots: list = []
+
+    async def scenario():
+        await _maybe(engine.start())
+        await _warm(pkg, engine)
+        policy.stall_timeout_s = STALL_BUDGET_S
+        generator.fault_plan = plan
+        result = await asyncio.wait_for(engine.generate(
+            "a stream stalled mid-decode", greedy(pkg, 12),
+            on_partial=lambda ids: snapshots.append(list(ids))), WAIT_S)
+        generator.fault_plan = None
+        await asyncio.sleep(0.05)
+        await _maybe(engine.close())
+        return result
+
+    result = asyncio.run(scenario())
+    return {"tokens": result.token_ids, "snapshots": snapshots,
+            "counters": supervisor_counters(metrics)}
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_a_requeued_stream_never_rewinds(params, mode):
+    got = streamed_through_a_stall(PORT, params, mode)
+    assert got["counters"]["restart"] == 1 and got["counters"]["requeue"] == 1
+    lengths = [len(s) for s in got["snapshots"]]
+    assert lengths and lengths == sorted(set(lengths)), lengths
+    for earlier, later in zip(got["snapshots"], got["snapshots"][1:]):
+        assert later[:len(earlier)] == earlier
+    assert got["tokens"][:lengths[-1]] == got["snapshots"][-1]
+    assert got["tokens"] == streamed_through_a_stall(JAX, params, mode)["tokens"]
+
+
+def failed_reset(pkg, params, mode) -> dict:
+    """A reset that raises (on the card, a context killed by a sticky
+    error) is not caught and carried on from: the supervisor gives up
+    loudly with outcome ``reset-failed`` and the engine reports it."""
+    policy = pkg.SupervisorPolicy(stall_timeout_s=60.0, join_grace_s=GRACE_S)
+    recorder = pkg.FlightRecorder(capacity=16)
+    engine, generator, metrics = build(pkg, params, mode, policy=policy, recorder=recorder)
+    f = pkg.faults
+
+    def dead_context():
+        raise RuntimeError("CUDA error: an illegal memory access was encountered")
+
+    async def scenario():
+        await _maybe(engine.start())
+        await _warm(pkg, engine)
+        generator.reset = dead_context
+        plan = f.FaultPlan(seed=9)
+        plan.rule("engine.step", f.raise_(lambda: RuntimeError("injected device error"), "device"))
+        generator.fault_plan = plan
+        with pytest.raises(RuntimeError, match="device-state reset failed"):
+            await asyncio.wait_for(engine.generate("doomed", greedy(pkg, 8)), WAIT_S)
+        for _ in range(WAIT_S * 100):
+            if engine.load_report().gave_up:
+                break
+            await asyncio.sleep(0.01)
+        generator.fault_plan = None
+        gave_up = engine.load_report().gave_up
+        await _maybe(engine.close())
+        return gave_up
+
+    gave_up = asyncio.run(scenario())
+    dumps = [r for r in recorder.traces() if r.blackbox]
+    return {"gave_up": gave_up, "counters": supervisor_counters(metrics),
+            "blackbox": [(d.reason, d.extra.get("outcome")) for d in dumps]}
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_a_failed_reset_gives_up_loudly(params, mode):
+    got = failed_reset(PORT, params, mode)
+    assert got["gave_up"]
+    assert got["blackbox"] == [("engine-error", "reset-failed")]
+    assert got["counters"] == {"restart": 0, "requeue": 0, "gaveup": 1, "leak": 0}
+    assert got == failed_reset(JAX, params, mode)

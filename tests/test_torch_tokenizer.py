@@ -4,10 +4,19 @@
   ``tokenizer.json`` itself) against the JAX ``HFTokenizer`` over
   ``AutoTokenizer`` on the committed SentencePiece-style fixture
   (``tests/torch_tokenizers/llama_sp``, trained here by
-  :func:`llama_sp_files` on the fixture logs), its layout variants
+  :func:`llama_sp_files` on the fixture logs) and its layout variants
   (``Metaspace`` pre-tokenizer and decoder, string merges, ``lstrip`` /
-  ``rstrip`` added tokens, no byte fallback) and a byte-level tokenizer,
-  which must raise ``NotImplementedError`` naming ROADMAP Queue 1 item 4a;
+  ``rstrip`` added tokens, no byte fallback);
+- the same on the committed byte-level fixture
+  (``tests/torch_tokenizers/llama3_bl``, Llama-3's layout trained by
+  :func:`llama3_bl_files`: the ``Split`` + ``ByteLevel`` pre-tokenizer,
+  BPE with ``ignore_merges``, the ``ByteLevel`` decoder, the specials at
+  Llama-3's ids) and its variants (Qwen2.5's ``NFC`` normalizer and
+  one-digit numbers, GPT-2's ``ByteLevel`` with its own expression, a
+  prefix space, the instruct EOS), over the fixture lines and seeded
+  random texts of many scripts, and random ids up to 128,256;
+- the ``tokenizer.json`` features still not read, which must raise
+  ``NotImplementedError`` naming ROADMAP Queue 1 item 4c;
 - ``load_tokenizer``'s ladder against the JAX one;
 - the builtin BPE against the JAX one;
 - ``WordPieceTokenizer`` against ``transformers.BertTokenizer``, the fast
@@ -16,7 +25,7 @@
 
 Every comparison is exact (token ids, strings, special ids).
 
-    PYTHONPATH=. python tests/test_torch_tokenizer.py   # rewrite the fixture
+    PYTHONPATH=. python tests/test_torch_tokenizer.py   # rewrite the fixtures
 """
 
 import copy
@@ -54,6 +63,21 @@ LLAMA_SP_CONFIG = {
     "clean_up_tokenization_spaces": False,
     "legacy": False,
     "model_max_length": 2048,
+}
+
+LLAMA3_BL = os.path.join(HERE, "torch_tokenizers", "llama3_bl")
+#: Llama-3's ``Split`` expression, and Qwen2.5's (numbers one digit at a time)
+LLAMA3_PATTERN = (r"(?i:'s|'t|'re|'ve|'m|'ll|'d)|[^\r\n\p{L}\p{N}]?\p{L}+|\p{N}{1,3}"
+                  r"| ?[^\s\p{L}\p{N}]+[\r\n]*|\s*[\r\n]+|\s+(?!\S)|\s+")
+QWEN2_PATTERN = LLAMA3_PATTERN.replace(r"\p{N}{1,3}", r"\p{N}")
+#: ``tokenizer_config.json`` of the fixture: Meta-Llama-3-8B's fields
+LLAMA3_BL_CONFIG = {
+    "bos_token": "<|begin_of_text|>",
+    "clean_up_tokenization_spaces": True,
+    "eos_token": "<|end_of_text|>",
+    "model_input_names": ["input_ids", "attention_mask"],
+    "model_max_length": 1000000000000000019884624838656,
+    "tokenizer_class": "PreTrainedTokenizerFast",
 }
 
 EDGE_TEXTS = [
@@ -130,6 +154,85 @@ def llama_sp_files(directory: str, spec: "dict | None" = None, config: "dict | N
     return directory
 
 
+def llama3_specials() -> list:
+    """Llama-3's 256 special tokens at ids 128,000..128,255."""
+    names = ["<|begin_of_text|>", "<|end_of_text|>"] + [
+        f"<|reserved_special_token_{i}|>" for i in range(4)] + [
+        "<|start_header_id|>", "<|end_header_id|>", "<|reserved_special_token_4|>",
+        "<|eot_id|>"] + [f"<|reserved_special_token_{i}|>" for i in range(5, 251)]
+    return [{"id": 128000 + i, "content": name, "single_word": False, "lstrip": False,
+             "rstrip": False, "normalized": False, "special": True}
+            for i, name in enumerate(names)]
+
+
+def llama3_bl_spec(vocab_size: int = 4000) -> dict:
+    """A byte-level BPE ``tokenizer.json`` in Meta-Llama-3-8B's layout
+    (no normalizer; ``Split`` by Llama-3's expression, ``Isolated``, then
+    ``ByteLevel`` without the prefix space or its own expression; BPE
+    with ``ignore_merges``; the ``ByteLevel`` decoder and post-processor;
+    the 256 specials at 128,000) trained with ``tokenizers`` on the
+    fixture logs from the 256 byte characters up (1,740 ids: the logs run
+    out of merges; ``vocab_size`` is a ceiling).  The library numbers
+    added tokens after the model's vocab, so the vocab is filled up to
+    Llama-3's 128,000 with tokens no text can produce (``"␀<id>"``: a
+    byte-level pre-token holds only the 256 byte characters)."""
+    from tokenizers import Regex, Tokenizer, decoders, models, pre_tokenizers, trainers
+
+    trainer = Tokenizer(models.BPE(ignore_merges=True))
+    trainer.pre_tokenizer = pre_tokenizers.Sequence([
+        pre_tokenizers.Split(Regex(LLAMA3_PATTERN), behavior="isolated", invert=False),
+        pre_tokenizers.ByteLevel(add_prefix_space=False, trim_offsets=True, use_regex=False),
+    ])
+    trainer.decoder = decoders.ByteLevel()
+    trainer.train_from_iterator(fixture_lines(), trainers.BpeTrainer(
+        vocab_size=vocab_size, min_frequency=1, show_progress=False,
+        initial_alphabet=pre_tokenizers.ByteLevel.alphabet()))
+    trained = json.loads(trainer.to_str())
+    byte_level = {"type": "ByteLevel", "add_prefix_space": True, "trim_offsets": True,
+                  "use_regex": True}
+    spec = {
+        "version": "1.0",
+        "truncation": None,
+        "padding": None,
+        "added_tokens": llama3_specials(),
+        "normalizer": None,
+        "pre_tokenizer": {"type": "Sequence", "pretokenizers": [
+            {"type": "Split", "pattern": {"Regex": LLAMA3_PATTERN}, "behavior": "Isolated",
+             "invert": False},
+            {"type": "ByteLevel", "add_prefix_space": False, "trim_offsets": True,
+             "use_regex": False},
+        ]},
+        "post_processor": {"type": "Sequence", "processors": [
+            {**byte_level, "add_prefix_space": True, "use_regex": True, "trim_offsets": False},
+            {"type": "TemplateProcessing",
+             "single": [{"SpecialToken": {"id": "<|begin_of_text|>", "type_id": 0}},
+                        {"Sequence": {"id": "A", "type_id": 0}}],
+             "pair": [{"SpecialToken": {"id": "<|begin_of_text|>", "type_id": 0}},
+                      {"Sequence": {"id": "A", "type_id": 0}},
+                      {"SpecialToken": {"id": "<|begin_of_text|>", "type_id": 1}},
+                      {"Sequence": {"id": "B", "type_id": 1}}],
+             "special_tokens": {"<|begin_of_text|>": {
+                 "id": "<|begin_of_text|>", "ids": [128000], "tokens": ["<|begin_of_text|>"]}}},
+        ]},
+        "decoder": byte_level,
+        "model": {**trained["model"], "ignore_merges": True, "byte_fallback": False,
+                  "fuse_unk": False},
+    }
+    _fill_vocab(spec, 128000)
+    Tokenizer.from_str(json.dumps(spec))  # the library reads it
+    return spec
+
+
+def _fill_vocab(spec, size: int) -> None:
+    vocab = spec["model"]["vocab"]
+    vocab.update({f"\u2400{i}": i for i in range(len(vocab), size)})
+
+
+def llama3_bl_files(directory: str, spec: "dict | None" = None,
+                    config: "dict | None" = None) -> str:
+    return llama_sp_files(directory, spec or llama3_bl_spec(), config or LLAMA3_BL_CONFIG)
+
+
 def _variant(tmp_path, name: str, mutate) -> str:
     with open(os.path.join(LLAMA_SP, "tokenizer.json"), encoding="utf-8") as fh:
         spec = json.load(fh)
@@ -196,6 +299,75 @@ VARIANTS = {
 }
 
 
+def _bl_variant(tmp_path, name: str, mutate) -> str:
+    with open(os.path.join(LLAMA3_BL, "tokenizer.json"), encoding="utf-8") as fh:
+        spec = json.load(fh)
+    config = copy.deepcopy(LLAMA3_BL_CONFIG)
+    mutate(spec, config)
+    return llama3_bl_files(str(tmp_path / name), spec, config)
+
+
+def _qwen2_5(spec, config):
+    """Qwen2.5's layout: the ``NFC`` normalizer, numbers one digit at a
+    time, merges applied to every word, its own specials and config."""
+    spec["normalizer"] = {"type": "NFC"}
+    spec["pre_tokenizer"]["pretokenizers"][0]["pattern"] = {"Regex": QWEN2_PATTERN}
+    spec["model"]["ignore_merges"] = False
+    spec["post_processor"] = None
+    _fill_vocab(spec, 151643)
+    spec["added_tokens"] = [
+        {"id": 151643 + i, "content": name, "single_word": False, "lstrip": False,
+         "rstrip": False, "normalized": False, "special": True}
+        for i, name in enumerate(["<|endoftext|>", "<|im_start|>", "<|im_end|>"])]
+    config.clear()
+    config.update({"bos_token": None, "eos_token": "<|endoftext|>", "pad_token": "<|endoftext|>",
+                   "unk_token": None, "clean_up_tokenization_spaces": False,
+                   "tokenizer_class": "PreTrainedTokenizerFast", "model_max_length": 131072})
+
+
+def _gpt2_byte_level(spec, config):
+    """GPT-2's layout: ``ByteLevel`` alone, splitting by its own
+    expression, merges applied to every word."""
+    spec["pre_tokenizer"] = {"type": "ByteLevel", "add_prefix_space": False,
+                             "trim_offsets": True, "use_regex": True}
+    spec["model"]["ignore_merges"] = False
+
+
+def _prefix_space(spec, config):
+    spec["pre_tokenizer"]["pretokenizers"][1]["add_prefix_space"] = True
+
+
+def _instruct_eos(spec, config):
+    config["eos_token"] = "<|eot_id|>"
+
+
+BYTE_LEVEL_VARIANTS = {
+    "committed": None,
+    "qwen2_5": _qwen2_5,
+    "gpt2_byte_level": _gpt2_byte_level,
+    "prefix_space": _prefix_space,
+    "instruct_eos": _instruct_eos,
+}
+
+
+def _many_scripts_texts(seed: int, n: int) -> list:
+    """Seeded texts over letters of several scripts, non-ASCII digits,
+    combining marks, emoji, contractions in both cases, CRLF, runs of
+    whitespace and the specials."""
+    rng = random.Random(seed)
+    pieces = [
+        "error", "Pod", "ÉCHEC", "straße", "Ωμέγα", "данные", "日本語", "중국어", "العربية",
+        "हिन्दी", "ไทย", "שלום", "٣٤٥", "४२", "１２３", "²³", "Ⅻ", "½", "12345", "7",
+        "e\u0301", "\u0308", "n\u0303o", "😀", "🚀🇩🇪", "👩‍💻", "'s", "'S", "'ll", "'LL",
+        "'Re", "'ve", "'M", "'d", "don't", "I'M", "\r\n", "\n\n", "\r", "\t", "   ",
+        " ", "  \t ", "\xa0", "\u2028", "\u3000", "\x1c", "\x00", ".", ",", "!?", "->",
+        "==", "/var/log", "<|begin_of_text|>", "<|eot_id|>", "<|endoftext|>", "<|im_end|>",
+        "<|reserved_special_token_7|>", "<|", "|>", "Ġ", "Ċ", "\ufffd",
+    ]
+    return ["".join(rng.choice(pieces) + rng.choice(["", " ", "", "\n"])
+                    for _ in range(rng.randrange(0, 24))) for _ in range(n)]
+
+
 def _random_texts(seed: int, n: int) -> list:
     rng = random.Random(seed)
     alphabet = list("abc xyz<>/s.:=,?!'") + [" .", " 's", " n't", " ,", " ' ",
@@ -233,29 +405,118 @@ def test_hf_tokenizer_matches_the_jax_tokenizer(tmp_path, variant):
         assert got.decode(ids) == want.decode(ids), ids
 
 
-def test_a_byte_level_tokenizer_raises_naming_item_4a(tmp_path):
-    from tokenizers import Tokenizer, decoders, models, pre_tokenizers, trainers
+def test_committed_byte_level_fixture_regenerates(tmp_path):
+    fresh = llama3_bl_files(str(tmp_path / "llama3_bl"))
+    for name in ("tokenizer.json", "tokenizer_config.json"):
+        with open(os.path.join(fresh, name), "rb") as a, open(os.path.join(LLAMA3_BL, name), "rb") as b:
+            assert a.read() == b.read(), name
+    spec = json.load(open(os.path.join(LLAMA3_BL, "tokenizer.json"), encoding="utf-8"))
+    assert spec["model"]["ignore_merges"] and not spec["model"]["byte_fallback"]
+    ids = {t["content"]: t["id"] for t in spec["added_tokens"]}
+    assert (ids["<|begin_of_text|>"], ids["<|end_of_text|>"], ids["<|eot_id|>"]) == (
+        128000, 128001, 128009)
+    assert len(ids) == 256
+    assert len(spec["model"]["vocab"]) == 128000
 
-    byte_level = Tokenizer(models.BPE())
-    byte_level.pre_tokenizer = pre_tokenizers.ByteLevel(add_prefix_space=False)
-    byte_level.decoder = decoders.ByteLevel()
-    byte_level.train_from_iterator(fixture_lines(), trainers.BpeTrainer(
-        vocab_size=400, show_progress=False, special_tokens=["<|endoftext|>"],
-        initial_alphabet=pre_tokenizers.ByteLevel.alphabet()))
-    path = tmp_path / "byte_level"
-    path.mkdir()
-    byte_level.save(str(path / "tokenizer.json"))
-    (path / "tokenizer_config.json").write_text(json.dumps(
-        {"tokenizer_class": "PreTrainedTokenizerFast", "eos_token": "<|endoftext|>"}))
-    jax_tokenizer.HFTokenizer(str(path))  # the JAX package reads it
+
+@pytest.mark.parametrize("variant", sorted(BYTE_LEVEL_VARIANTS))
+def test_byte_level_tokenizer_matches_the_jax_tokenizer(tmp_path, variant):
+    mutate = BYTE_LEVEL_VARIANTS[variant]
+    path = LLAMA3_BL if mutate is None else _bl_variant(tmp_path, variant, mutate)
+    want = jax_tokenizer.HFTokenizer(path)
+    got = tokenizer.HFTokenizer(path)
+    assert (got.vocab_size, got.bos_id, got.eos_id, got.pad_id) == (
+        want.vocab_size, want.bos_id, want.eos_id, want.pad_id)
+    texts = (fixture_lines() + EDGE_TEXTS + _many_scripts_texts(len(variant), 300)
+             + _random_texts(len(variant), 100))
+    for text in texts:
+        for add_bos in (True, False):
+            ids = want.encode(text, add_bos=add_bos)
+            assert got.encode(text, add_bos=add_bos) == ids, (text, add_bos)
+        assert got.decode(ids) == want.decode(ids), text
+    rng = random.Random(1)
+    for _ in range(300):  # ids the tokenizer lacks (a seeded 128,256-id model samples them)
+        ids = [rng.randrange(0, 128256) for _ in range(rng.randrange(0, 40))]
+        ids += [rng.randrange(0, got.vocab_size) for _ in range(rng.randrange(0, 20))]
+        rng.shuffle(ids)
+        assert got.decode(ids) == want.decode(ids), ids
+
+
+def _wordpiece_model(spec, config):
+    spec["model"] = {"type": "WordPiece", "unk_token": "[UNK]", "vocab": {"[UNK]": 0}}
+
+
+def _unigram_model(spec, config):
+    spec["model"] = {"type": "Unigram", "unk_id": 0, "vocab": [["<unk>", 0.0]]}
+
+
+def _wordlevel_model(spec, config):
+    spec["model"] = {"type": "WordLevel", "vocab": {"<unk>": 0}, "unk_token": "<unk>"}
+
+
+def _regex_replace(spec, config):
+    spec["normalizer"] = {"type": "Replace", "pattern": {"Regex": "\\s+"}, "content": " "}
+
+
+def _nfkc(spec, config):
+    spec["normalizer"] = {"type": "NFKC"}
+
+
+def _lowercase(spec, config):
+    spec["normalizer"] = {"type": "Sequence", "normalizers": [{"type": "NFC"},
+                                                              {"type": "Lowercase"}]}
+
+
+def _precompiled(spec, config):
+    spec["normalizer"] = {"type": "Precompiled", "precompiled_charsmap": ""}
+
+
+def _single_word(spec, config):
+    spec["added_tokens"][0]["single_word"] = True
+
+
+def _bpe_dropout(spec, config):
+    spec["model"]["dropout"] = 0.1
+
+
+def _tokenizer_model_only(spec, config):
+    """A SentencePiece ``tokenizer.model`` and no ``tokenizer.json``
+    (renamed below)."""
+
+
+STILL_UNPORTED = {
+    "wordpiece_model": _wordpiece_model,
+    "unigram_model": _unigram_model,
+    "wordlevel_model": _wordlevel_model,
+    "regex_replace": _regex_replace,
+    "nfkc_normalizer": _nfkc,
+    "lowercase_normalizer": _lowercase,
+    "precompiled_normalizer": _precompiled,
+    "single_word_added_token": _single_word,
+    "bpe_dropout": _bpe_dropout,
+    "tokenizer_model_only": _tokenizer_model_only,
+}
+
+
+@pytest.mark.parametrize("case", sorted(STILL_UNPORTED))
+def test_an_unported_tokenizer_feature_raises_naming_item_4c(tmp_path, case):
+    """What item 4c still has to port raises ``NotImplementedError``
+    naming it, from ``HFTokenizer`` and from ``load_tokenizer`` (a
+    mounted checkpoint is never served through the wrong vocabulary
+    quietly)."""
+    path = _bl_variant(tmp_path, case, STILL_UNPORTED[case])
+    if case == "tokenizer_model_only":
+        os.replace(os.path.join(path, "tokenizer.json"), os.path.join(path, "tokenizer.model"))
     for load in (tokenizer.HFTokenizer, tokenizer.load_tokenizer):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 4a"):
-            load(str(path))
+        with pytest.raises(NotImplementedError, match="Queue 1 item 4c"):
+            load(path)
 
 
-@pytest.mark.parametrize("spec", ["byte", "builtin-bpe", "directory", "empty-directory", None])
+@pytest.mark.parametrize("spec", ["byte", "builtin-bpe", "directory", "byte-level-directory",
+                                  "empty-directory", None])
 def test_load_tokenizer_ladder_matches_jax(tmp_path, spec):
-    path = {"directory": LLAMA_SP, "empty-directory": str(tmp_path)}.get(spec, spec)
+    path = {"directory": LLAMA_SP, "byte-level-directory": LLAMA3_BL,
+            "empty-directory": str(tmp_path)}.get(spec, spec)
     want = jax_tokenizer.load_tokenizer(path)
     got = tokenizer.load_tokenizer(path)
     assert type(got).__name__ == type(want).__name__
@@ -311,4 +572,4 @@ def test_wordpiece_matches_bert_tokenizers(tmp_path, lower):
 
 
 if __name__ == "__main__":
-    sys.exit(print(llama_sp_files(LLAMA_SP)))
+    sys.exit(print(llama_sp_files(LLAMA_SP), llama3_bl_files(LLAMA3_BL)))
