@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--out results.json]
         [--phases device,kernels,serve,wave,analysis,checkpoint,operator,remote,fleet,deployed,
-                  parity]
+                  fabric,parity]
 
 Runs on one CUDA card, from the root of a checkout; exits non-zero, and
 prints no result, when no card is present or the package is missing.
@@ -247,7 +247,44 @@ Phases, in order — any failure stops the run:
    one ``EngineReplica``, a stall after 40 steps: one restart, every
    arrival settles, no torn ledger line; the schedule's fingerprint, the
    attainment and the goodput are printed;
-11. parity: small f32 ``tiny-test`` engines on the card (kernels) and on
+11. fabric: the fleet KV fabric at llama-3-8b's full width, a prefill
+   replica P (``REPLICA_ROLE=prefill``) and a decode replica D
+   (``REPLICA_ROLE=decode``, ``KV_FABRIC_PEERS`` naming P) on the card,
+   each built by ``build_serving_engine`` with the deployed phase's
+   defaults and ``KV_FABRIC=1``, the mirror on and a 2 GB host pool (one
+   set of int8 weights shared), each behind its own ``CompletionServer``,
+   ``InvariantAuditor.barrier_hook`` on both schedulers.  (a) P serves the
+   deployed phase's ten analysis prompts (32 tokens, half greedy, held)
+   and mirrors their blocks; D serves them cold with the fabric off, then,
+   its cache emptied and its index fed by one ``PeerPoller.poll_once()``
+   of P's ``/healthz`` (the 128 most recently used blocks), with the
+   fabric: the fetches, adoptions, restores and saved tokens must be
+   those the advertised blocks give, each adopted block P's device page
+   byte for byte, one step's 32 K1 calls over restored pages held to the
+   plain version, and D's greedy answers P's when P, its cache pruned to
+   the same blocks, restores them from its own pool; fetch ms per block
+   (HTTP, decode: sha256 and copy, adopt), GB/s, D's prefill steps and
+   time to first token against the cold drive are printed.  (c) On the
+   first four prompts, each drive held against D's cold drive of them: a
+   flipped payload byte (counted corrupt, never adopted, the index
+   entries decaying); P's server killed once D's first block has decoded
+   (its listener closed, every open connection reset: the fetches in
+   flight fail, the rest are refused, every failure is counted, no
+   attempt outlives its budget, and the greedy answers equal P's
+   like-for-like restore of whatever blocks landed); P back on its port
+   with its pool emptied under its advertised inventory (404s, evicted at
+   once); and P's server stopped and its port black-holed (every attempt
+   within its 0.25 s budget, the holder decaying).  (b) Ten greedy
+   requests through ``disaggregated_dispatch`` over an ``EngineRouter``
+   of P and D, the health board (D's index) refreshed after each prefill
+   leg: ten handoffs, each prefill leg one token on P, each decode leg on
+   D fetching every block of its prompt; the first four answers equal a
+   replay of those four; the replay's wall against the same four on P
+   alone and the decode legs a 5 s poll would have left on a stale index
+   are printed.  (d) The auditor records no
+   violation.  K1 launches 32 times per step of each engine, K2-K5
+   never, and the pages balance after every drive;
+12. parity: small f32 ``tiny-test`` engines on the card (kernels) and on
    the CPU (plain versions) must give the same greedy tokens — the
    continuous engine, and the wave engine with the decode selector at
    ``v1`` and ``v2`` and flash prefill on and off; the continuous engine
@@ -263,6 +300,9 @@ that phase's work again under ``torch.profiler`` and prints the device
 time by kernel and the device's busy share (not part of the default
 run).
 
+After the phases, one JSON line gives each phase's seconds (``phase_s``)
+and, after each, the threads left and the share of a host CPU they burn
+while the script sleeps (``left_behind``).
 The line before the last is one JSON object with a record per kernel;
 the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -1227,11 +1267,19 @@ class HttpLoop:
         return asyncio.run_coroutine_threadsafe(coro, self.loop).result(timeout)
 
     def stop(self) -> None:
-        """Stop every server still listening, then the loop."""
+        """Stop every server still listening, cancel what else runs on the
+        loop (an engine's peer poller), then stop the loop."""
+        async def cancel_rest():
+            rest = [t for t in asyncio.all_tasks() if t is not asyncio.current_task()]
+            for task in rest:
+                task.cancel()
+            await asyncio.gather(*rest, return_exceptions=True)
+
         try:
             for server in self.servers:
                 if server.bound_port is not None:
                     self.run(server.stop(), timeout=120)
+            self.run(cancel_rest(), timeout=60)
         finally:
             self.loop.call_soon_threadsafe(self.loop.stop)
             self.thread.join(30)
@@ -5060,6 +5108,883 @@ def phase_deployed(results: dict, kernel_modules: dict) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the fleet KV fabric — llama-3-8b on a prefill and a decode
+# replica on one card
+# ---------------------------------------------------------------------------
+
+#: both replicas: the deployed model with the reference's defaults, the
+#: fabric on, the mirror on and a host pool of 2 GB (256 blocks of 8 MiB)
+FABRIC_ENV = {**DEPLOYED_ENV, "KV_FABRIC": "true", "KV_FABRIC_MIRROR": "true",
+              "KV_HOST_POOL_MB": "2048"}
+#: D's peer poll: one round at its server's start, then the script's own
+#: ``poll_once()`` before each drive (a background round mid-drive would
+#: reset the index's failure counts that (c) reads); (b) estimates what
+#: the default of 5 s would have left stale
+FABRIC_POLL_S = "3600"
+DEFAULT_POLL_S = 5.0
+#: (c): the black-holed holder's per-fetch budget (KV_FABRIC_FETCH_TIMEOUT_S)
+BLACK_HOLE_TIMEOUT_S = 0.25
+#: the fetcher's thread slack over the socket timeout (fabric/fetch.py)
+FETCH_SLACK_S = 0.25
+#: (c): the prompts each fault drive sends (the first four: two greedy)
+FAULT_PROMPTS = 4
+#: (b): each request's tokens (the prefill leg's one and the decode leg's)
+TWO_LEG_TOKENS = 16
+#: (b): the requests of the held replay (the drive's first ones; each
+#: request's blocks are its own, so a shorter replay is like for like)
+REPLAY_REQUESTS = 4
+#: llama-3-8b's layers, hidden size and head dim, and its block of tokens
+FABRIC_SHAPE = (32, 4096, 128)
+FABRIC_PAGE = 64
+
+
+def held_generate(engine, prompts: list, params: list, *, run=asyncio.run,
+                  sequential: bool = False, timing: "dict | None" = None,
+                  timeout_s: float = 600.0) -> tuple:
+    """Every prompt through ``engine.generate`` at once, the worker's
+    admission held until all are queued so two drives take the same steps.
+    The hold does not block the worker (it keeps running the fabric
+    prefetch's store tasks); with ``sequential`` each request's prefetch
+    finishes before the next request starts.  ``run`` runs the drive's
+    coroutine (an engine with a fetcher keeps to one event loop: its
+    semaphore binds to the loop it first waits on).  ``timing`` receives
+    ``queued_s``, the first request's start to the release (with the
+    fabric: the prefetches).  Returns (results, seconds from the release
+    to each request's first token)."""
+    hold = threading.Event()
+    hold.set()
+    admit = engine._admit_submissions
+
+    def gated(block: bool) -> None:
+        if hold.is_set():
+            time.sleep(0.001)
+            return
+        admit(block)
+
+    first: list = [None] * len(prompts)
+
+    async def drive():
+        # the worker's idle wait (50 ms) runs out first, so it reads the gate
+        await asyncio.sleep(0.2)
+        base = engine._submissions.qsize()
+        tasks: list = []
+        by = time.monotonic() + timeout_s
+        begun = time.perf_counter()
+
+        async def queued(n: int) -> None:
+            while engine._submissions.qsize() < base + n and not any(t.done() for t in tasks):
+                if time.monotonic() > by:
+                    raise fail(f"held drive: {engine._submissions.qsize() - base} of {n} queued")
+                await asyncio.sleep(0.001)
+
+        for i, (prompt, sp) in enumerate(zip(prompts, params)):
+            def on_partial(ids, i=i):
+                if first[i] is None:
+                    first[i] = time.perf_counter()
+
+            tasks.append(asyncio.ensure_future(engine.generate(prompt, sp, on_partial=on_partial)))
+            if sequential:
+                await queued(i + 1)
+        await queued(len(prompts))
+        released = time.perf_counter()
+        if timing is not None:
+            timing["queued_s"] = released - begun
+        hold.clear()
+        return released, await asyncio.wait_for(asyncio.gather(*tasks), timeout_s)
+
+    engine._admit_submissions = gated
+    try:
+        released, results = run(drive())
+    finally:
+        engine._admit_submissions = admit
+    return results, [None if f is None else f - released for f in first]
+
+
+def on_worker(engine, fn):
+    """Run ``fn()`` on the engine's worker between steps, holding its lock."""
+    return engine.store_executor.submit(fn).result(120)
+
+
+def empty_prefix_cache(engine) -> None:
+    """Forget every cached block, on the card and in the host pool."""
+    def empty():
+        sched = engine.scheduler
+        store = sched._kvstore
+        pool = store.host_pool
+        store.host_pool = None  # evicted blocks are forgotten, not pooled
+        try:
+            sched.spill_cache()
+        finally:
+            store.host_pool = pool
+        for block in list(store._blocks.values()):
+            store.forget(block.hash)
+        for h in list(pool._entries):
+            pool.drop(h)
+    on_worker(engine, empty)
+
+
+def keep_only_pooled(engine, keep: set) -> None:
+    """Spill the cache to the host pool and keep only ``keep`` there: the
+    next drive restores exactly those blocks and recomputes the rest."""
+    def prune():
+        sched = engine.scheduler
+        store = sched._kvstore
+        sched.spill_cache()
+        for block in list(store._blocks.values()):
+            if block.hash not in keep:
+                store.forget(block.hash)
+                store.host_pool.drop(block.hash)
+        missing = [h.hex() for h in keep if not store.host_pool.has(h)]
+        if missing:
+            raise fail(f"blocks to restore are not in the host pool: {missing}")
+    on_worker(engine, prune)
+
+
+def fabric_expectation(blocks: list, advertised: set, *, adopt: bool, threshold: int,
+                       attempts: "int | None" = None, failures: "dict | None" = None) -> dict:
+    """What a drive's prefetches must do, prompt after prompt (each
+    prefetch ends before the next starts): ``blocks`` is each prompt's
+    matchable block hashes, ``advertised`` the holder's inventory.  A
+    wanted block is advertised, not yet in the store and not decayed;
+    with ``adopt`` the contiguous run of cached or adopted blocks lands
+    (``cached``: each request's cached blocks; ``adopted`` the blocks
+    restored), else every fetch fails and a block decays from the index
+    after ``threshold``.  ``attempts``: only the first that many wanted
+    blocks of a prompt reach the holder (a black hole holds each of the
+    fetcher's slots for the whole budget, which the queued fetches'
+    budgets run out behind); the rest fall back at once.  ``failures``
+    receives each block's failed attempts."""
+    store, decayed = set(), set()
+    failures = {} if failures is None else failures
+    out = {"fetched": 0, "fallback": 0, "adopted": 0, "cached": 0, "decayed": 0}
+    for hashes in blocks:
+        wanted = [h for h in hashes
+                  if h not in store and h.hex() in advertised and h not in decayed]
+        tried = wanted if attempts is None else wanted[:attempts]
+        out["fetched"] += len(tried)
+        out["fallback"] += len(wanted) - len(tried)
+        if adopt:
+            for h in hashes:
+                if h not in store and h not in wanted:
+                    break
+                if h not in store:
+                    store.add(h)
+                    out["adopted"] += 1
+                out["cached"] += 1
+        else:
+            for h in tried:
+                failures[h] = failures.get(h, 0) + 1
+                if failures[h] >= threshold:
+                    decayed.add(h)
+    out["decayed"] = len(decayed)
+    return out
+
+
+class FetchTaps:
+    """Times D's fetch path: each HTTP attempt (and its budget), each
+    decode (sha256 and the copy out), each store task on the worker
+    (probe, adopt); records the hashes adopted.  ``corrupt`` flips one
+    payload byte of every answer; ``on_first_ok()`` runs on the fetch's
+    event loop once the first block has decoded."""
+
+    def __init__(self, engine, *, corrupt: bool = False, on_first_ok=None) -> None:
+        from operator_tpu_torch.fabric import fetch as fetch_module
+
+        self.engine, self.fetch_module = engine, fetch_module
+        self.fetcher = engine.fabric
+        self.http: list = []
+        self.decode_ms: list = []
+        self.tasks: list = []
+        self.adopted: list = []
+        self._http_get = self.fetcher._http_get
+        self._decode = fetch_module.decode_block
+        self._submit = engine._submit_host_task
+        store = engine.scheduler._kvstore
+        self._adopt = store.adopt_host
+        self.store = store
+
+        async def http_get(url, budget_s):
+            started = time.perf_counter()
+            try:
+                status, data = await self._http_get(url, budget_s)
+            finally:
+                self.http.append(((time.perf_counter() - started) * 1e3, budget_s))
+            if corrupt and status == 200 and data:
+                data = data[:-1] + bytes([data[-1] ^ 0x01])
+            return status, data
+
+        def decode(data):
+            nonlocal on_first_ok
+            started = time.perf_counter()
+            try:
+                decoded = self._decode(data)
+            finally:
+                self.decode_ms.append((time.perf_counter() - started) * 1e3)
+            if on_first_ok is not None:
+                on_first_ok, fire = None, on_first_ok
+                fire()
+            return decoded
+
+        def submit(fn):
+            def timed():
+                started = time.perf_counter()
+                try:
+                    return fn()
+                finally:
+                    name = getattr(getattr(fn, "func", fn), "__name__", "task")
+                    self.tasks.append((name, (time.perf_counter() - started) * 1e3))
+            return self._submit(timed)
+
+        def adopt(h, parent, tokens):
+            self.adopted.append(h)
+            return self._adopt(h, parent, tokens)
+
+        self.fetcher._http_get = http_get
+        fetch_module.decode_block = decode
+        engine._submit_host_task = submit
+        store.adopt_host = adopt
+
+    def close(self) -> None:
+        self.fetcher._http_get = self._http_get
+        self.fetch_module.decode_block = self._decode
+        self.engine._submit_host_task = self._submit
+        self.store.adopt_host = self._adopt
+
+
+class KillableServer:
+    """A ``CompletionServer`` (wrapped before its start) that can die as
+    its process would: ``kill()`` closes the listener and resets every
+    open connection, a transfer in flight included."""
+
+    def __init__(self, server) -> None:
+        self.server, self.writers, self.reset = server, set(), None
+        handle = server._handle
+
+        async def tracked(reader, writer):
+            self.writers.add(writer)
+            try:
+                await handle(reader, writer)
+            finally:
+                self.writers.discard(writer)
+
+        server._handle = tracked
+
+    def kill(self) -> None:
+        """On the server's event loop; ``reset`` counts the connections cut."""
+        listener, self.server._server = self.server._server, None
+        listener.close()
+        self.reset = len(self.writers)
+        for writer in list(self.writers):
+            writer.transport.abort()
+
+
+def block_split_ms(blob: bytes, iters: int = 5) -> dict:
+    """One wire block's decode, part by part, on the host: the sha256 over
+    the payload and the copy of both tensors out of it."""
+    import hashlib
+
+    from operator_tpu_torch.fabric import decode_block
+
+    payload = memoryview(blob)[blob.find(b"\n", 6) + 1:]
+    sha, total = [], []
+    for _ in range(iters):
+        started = time.perf_counter()
+        hashlib.sha256(payload).hexdigest()
+        sha.append((time.perf_counter() - started) * 1e3)
+        started = time.perf_counter()
+        decode_block(blob)
+        total.append((time.perf_counter() - started) * 1e3)
+    sha_ms, decode_ms = min(sha), min(total)
+    return {"sha256_ms": sha_ms, "copy_ms": max(0.0, decode_ms - sha_ms), "decode_ms": decode_ms}
+
+
+def dist(values: list) -> dict:
+    values = sorted(values)
+    if not values:
+        return {"n": 0}
+    return {"n": len(values), "min": values[0], "median": values[len(values) // 2],
+            "max": values[-1], "mean": sum(values) / len(values)}
+
+
+def phase_fabric(results: dict, kernel_modules: dict) -> dict:
+    """The fleet KV fabric (``fabric_drives``); afterwards every byte the
+    two replicas held on the card must be free again (within
+    ``RESTART_MEMORY_MARGIN``), before the parity phase.  Returns the
+    kernels' launch counts over the phase's drives."""
+    import gc
+
+    import torch
+
+    def settled() -> int:
+        """Bytes allocated once the garbage of closed engines (they, their
+        executors and servers refer to each other) and cuBLAS's
+        workspaces are gone: cuBLAS keeps one in the caching allocator for
+        each thread's handle and stream until told to free them, and every
+        engine's worker thread adds its own."""
+        gc.collect()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch._C._cuda_clearCublasWorkspaces()
+        torch.cuda.empty_cache()
+        return torch.cuda.memory_allocated(), before
+
+    out: dict = {"card": card_line()}
+    memory0, _ = settled()
+    totals = fabric_drives(out, kernel_modules, memory0)
+    memory1, with_workspaces = settled()
+    left = memory1 - memory0
+    out["memory_after_close_gib"] = left / 2**30
+    out["cublas_workspaces_mib"] = (with_workspaces - memory1) / 2**20
+    print(json.dumps({"fabric_memory_after_close_gib": out["memory_after_close_gib"],
+                      "cublas_workspaces_mib": out["cublas_workspaces_mib"],
+                      "card": out["card"]}), flush=True)
+    if left > RESTART_MEMORY_MARGIN:
+        raise fail(f"the fabric replicas left {left} bytes on the card")
+    results["fabric"] = out
+    return totals
+
+
+def fabric_drives(out: dict, kernel_modules: dict, memory0: int) -> dict:
+    """The fleet KV fabric at llama-3-8b's full width: a prefill replica P
+    and a decode replica D, each built by ``build_serving_engine`` (one
+    set of int8 weights shared) behind its own ``CompletionServer``, with
+    ``InvariantAuditor.barrier_hook`` on both schedulers.  (a) P serves
+    the ten analysis prompts and mirrors their blocks; D, its index fed
+    from P's ``/healthz`` by its ``PeerPoller``, fetches them instead of
+    recomputing (against a cold drive on D with the fabric off); D's
+    greedy answers equal P's from a like-for-like host-pool restore;
+    (c) a corrupted payload, a 404 and a black-holed holder fall back to
+    recompute; (b) ten requests as a prefill leg on P and a decode leg on
+    D through ``disaggregated_dispatch`` over the ``EngineRouter``, held
+    to a replay; (d) no invariant violation.  Returns the kernels' launch
+    counts over the phase's drives."""
+    import hashlib
+    import socket
+    from types import SimpleNamespace
+
+    import torch
+
+    import operator_tpu_torch.serving.provider as provider_module
+    from operator_tpu_torch.chaos import GameDayView, InvariantAuditor
+    from operator_tpu_torch.fabric import disaggregated_dispatch
+    from operator_tpu_torch.models.tokenizer import load_tokenizer
+    from operator_tpu_torch.ops import ragged_attention as ra
+    from operator_tpu_torch.router import EngineRouter
+    from operator_tpu_torch.router.core import Replica
+    from operator_tpu_torch.serving.httpserver import CompletionServer
+    from operator_tpu_torch.serving.kvstore import block_hashes
+    from operator_tpu_torch.serving.prompts import build_prompt
+    from operator_tpu_torch.serving.provider import build_serving_engine
+    from operator_tpu_torch.serving.sched import mixed as mixed_module
+    from operator_tpu_torch.serving.types import SamplingParams, prompt_budget
+    from operator_tpu_torch.utils.timing import MetricsRegistry
+
+    card = out["card"]
+    tokenizer = load_tokenizer(LLAMA3_TOKENIZER)
+    requests, _ = deployed_requests(tokenizer)
+    prompts = [build_prompt(r) for r in requests]
+    params = [SamplingParams(max_tokens=MAX_TOKENS, temperature=r.provider_config.temperature)
+              for r in requests]
+    greedy = [i for i, r in enumerate(requests) if r.provider_config.temperature == 0.0]
+    totals = {name: 0 for name in kernel_modules}
+
+    def counted(drive, engines: list, where: str):
+        """``drive()`` with every count set to 0 before: K1 exactly once
+        per layer per step of the engines that stepped, the others never."""
+        for module in kernel_modules.values():
+            module.launches = 0
+        steps0 = [e.scheduler.steps for e in engines]
+        result = drive()
+        for e in engines:
+            wait_idle(e.scheduler)
+        steps = sum(e.scheduler.steps - s for e, s in zip(engines, steps0))
+        launches = {name: m.launches for name, m in kernel_modules.items()}
+        for name, n in launches.items():
+            totals[name] += n
+        if launches["ragged_paged_attention"] != FABRIC_SHAPE[0] * steps or not steps:
+            raise fail(f"fabric {where}: K1 launched {launches} over {steps} steps")
+        if any(n for k, n in launches.items() if k != "ragged_paged_attention"):
+            raise fail(f"fabric {where}: other kernels launched: {launches}")
+        for e in engines:
+            balanced(e.scheduler, f"after the fabric {where}")
+        return result, steps
+
+    def prefill_steps(engine, steps: int) -> int:
+        records = engine.generator.step_clock.ring.records(steps)
+        return sum(1 for r in records if r.kind in ("prefill", "mixed"))
+
+    def hashes_of(prompt: str, max_tokens: int = MAX_TOKENS, resume: int = 0) -> list:
+        """The matchable block hashes of a request, tokenized and cut as
+        the scheduler's enqueue does (``resume`` resumed tokens appended)."""
+        g = engines[0].generator
+        budget = prompt_budget(g.max_seq, max_tokens) - resume
+        tokens = g._truncate_prompt(tokenizer.encode(prompt), budget) + [0] * resume
+        matchable = (len(tokens) - 1) // FABRIC_PAGE
+        return block_hashes(tokens[:matchable * FABRIC_PAGE], FABRIC_PAGE)
+
+    auditor = InvariantAuditor(metrics=MetricsRegistry())
+    barrier = auditor.barrier_hook(lambda sched: GameDayView(schedulers=[sched]))
+    started = time.perf_counter()
+
+    def prepare(engine) -> None:
+        config = engine.generator.config
+        if (config.num_layers, config.hidden_size, config.head_dim) != FABRIC_SHAPE:
+            raise fail(f"not llama-3-8b at full width: {config}")
+        if engine.fabric is None or engine._supervisor is None or engine.scheduler is None:
+            raise fail("a fabric replica is not the supervised continuous one with a fetcher")
+        engine.generator.tokenizer = tokenizer
+        engine.warmup()
+        engine.scheduler.audit_hook = barrier
+
+    engine_p, model_id = build_serving_engine(
+        "cuda", {**FABRIC_ENV, "REPLICA_ROLE": "prefill", "SERVING_REPLICA_ID": "replica-p"})
+    engines = [engine_p]
+    prepare(engine_p)
+    server_p = CompletionServer(engine_p, model_id=model_id, host="127.0.0.1", port=0,
+                                replica_id="replica-p")
+    killable = KillableServer(server_p)
+    http = HttpLoop(server_p)
+    black_hole = None
+    try:
+        url_p = f"http://127.0.0.1:{server_p.bound_port}"
+        init_params = provider_module.init_params
+        # D serves the same read-only int8 tensors: no second seeding
+        provider_module.init_params = lambda *a, **k: engine_p.generator.params
+        try:
+            engine_d, _ = build_serving_engine("cuda", {
+                **FABRIC_ENV, "REPLICA_ROLE": "decode", "SERVING_REPLICA_ID": "replica-d",
+                "KV_FABRIC_PEERS": url_p, "KV_FABRIC_POLL_S": FABRIC_POLL_S})
+        finally:
+            provider_module.init_params = init_params
+        engines.append(engine_d)
+        prepare(engine_d)
+        server_d = CompletionServer(engine_d, model_id=model_id, host="127.0.0.1", port=0,
+                                    replica_id="replica-d")
+        http.servers.append(server_d)
+        http.run(server_d.start())
+        if engine_d.generator.params is not engine_p.generator.params:
+            raise fail("the two replicas do not share their weights")
+        if engine_d.fabric_poller is None or engine_p.replica_role != "prefill" \
+                or engine_d.replica_role != "decode":
+            raise fail("the replicas' roles or D's peer poller are not as configured")
+        torch.cuda.synchronize()
+        out["build"] = {
+            "build_s": time.perf_counter() - started,
+            "memory_after_both_builds_gib": (torch.cuda.memory_allocated() - memory0) / 2**30,
+            "host_pool_mb": int(FABRIC_ENV["KV_HOST_POOL_MB"]),
+        }
+        print(json.dumps({"fabric_build": out["build"], "card": card}), flush=True)
+        sched_p, sched_d = engine_p.scheduler, engine_d.scheduler
+        metrics_d = engine_d.generator.metrics
+
+        def poll_d() -> set:
+            """D's one poll round of P's /healthz (P idle); returns what P
+            advertised: its 128 most recently used blocks."""
+            advertised = set(engine_p.load_report().kv_blocks or ())
+            if http.run(engine_d.fabric_poller.poll_once()) != 1:
+                raise fail("D's peer poller did not index P")
+            return advertised
+
+        def held(engine, ps=prompts, sps=params, **kw):
+            return held_generate(engine, ps, sps, run=http.run, **kw)
+
+        def counters_d(*names) -> dict:
+            return {n: metrics_d.counter(n) for n in names}
+
+        fabric_counters = ("fabric_fetch_ok", "fabric_prefetch_adopted", "fabric_fetch_corrupt",
+                           "fabric_fetch_miss", "fabric_fetch_timeout", "fabric_fetch_error",
+                           "fabric_fetch_fallback", "fabric_index_evicted",
+                           "fabric_index_decayed", "kv_prefill_tokens_saved", "kv_restore")
+
+        def delta(before: dict) -> dict:
+            return {n: metrics_d.counter(n) - v for n, v in before.items()}
+
+        # (a) P serves the ten prompts and mirrors their blocks
+        (p_first, _), p_steps = counted(lambda: held(engine_p),
+                                        [engine_p], "P drive")
+        wait_idle(sched_p)
+        cached_p = len(sched_p._kvstore)
+        # D cold, with the fabric off
+        fetcher = engine_d.fabric
+        engine_d.fabric = None
+        try:
+            (cold, cold_ttft), cold_steps = counted(
+                lambda: held(engine_d), [engine_d], "D cold drive")
+        finally:
+            engine_d.fabric = fetcher
+        cold_prefill = prefill_steps(engine_d, cold_steps)
+        empty_prefix_cache(engine_d)
+        # D with the fabric: its index from P's /healthz, prefetches in turn
+        advertised = poll_d()
+        blocks = [hashes_of(p) for p in prompts]
+        want = fabric_expectation(blocks, advertised, adopt=True,
+                                  threshold=fetcher.index.failure_threshold)
+        before = counters_d(*fabric_counters)
+        taps = FetchTaps(engine_d)
+        prefetch: dict = {}
+        try:
+            (fetched, fabric_ttft), fabric_steps = counted(
+                lambda: held(engine_d, sequential=True, timing=prefetch),
+                [engine_d], "D fabric drive")
+        finally:
+            taps.close()
+        got = delta(before)
+        fabric_prefill = prefill_steps(engine_d, fabric_steps)
+        if (got["fabric_fetch_ok"] != want["fetched"] or got["fabric_prefetch_adopted"]
+                != want["adopted"] or got["kv_prefill_tokens_saved"] != FABRIC_PAGE * want["cached"]
+                or got["kv_restore"] != want["adopted"] or not want["adopted"]):
+            raise fail(f"fabric drive: counters {got}, expected {want}")
+        # each adopted block is P's device page, byte for byte
+        store_p, store_d = sched_p._kvstore, sched_d._kvstore
+        cache_p, cache_d = engine_p.generator.paged_cache, engine_d.generator.paged_cache
+        differ = []
+        for h in taps.adopted:
+            entry_p, entry_d = store_p.get(h), store_d.get(h)
+            if entry_p is None or entry_d is None or entry_p.page < 0 or entry_d.page < 0:
+                raise fail(f"adopted block {h.hex()} is not on the card in both replicas")
+            for pages_p, pages_d in ((cache_p.k_pages, cache_d.k_pages),
+                                     (cache_p.v_pages, cache_d.v_pages)):
+                if not torch.equal(pages_p[:, entry_p.page], pages_d[:, entry_d.page]):
+                    differ.append(h.hex())
+        if differ:
+            raise fail(f"adopted blocks differ from P's pages: {differ}")
+        # one request on D whose first prefill step attends restored pages:
+        # its 32 K1 calls held to the plain version
+        held_k1 = HeldToPlain(
+            mixed_module.ragged_paged_attention, ra.ragged_attention_reference, FABRIC_SHAPE[0],
+            lambda dtype, _: TOL[dtype],
+            valid=lambda q, *args: torch.arange(q.shape[1], device=q.device)[None] < args[4][:, None],
+            note=k1_split_note,
+        )
+        mixed_module.ragged_paged_attention = held_k1
+        try:
+            http.run(engine_d.generate(prompts[0] + " Summary:",
+                                       SamplingParams(max_tokens=2, temperature=0.0)))
+        finally:
+            mixed_module.ragged_paged_attention = held_k1.fn
+        bad_held = [c for c in held_k1.held if not c["finite"] or not c["excess"] <= 0]
+        if len(held_k1.held) != FABRIC_SHAPE[0] or bad_held:
+            raise fail(f"fabric: {len(held_k1.held)} K1 calls held over restored pages: {bad_held}")
+        wait_idle(sched_d)
+        # P, like for like: the same blocks restored from its own pool
+        keep_only_pooled(engine_p, set(taps.adopted))
+        (restored, _), restore_steps = counted(lambda: held(engine_p),
+                                               [engine_p], "P restore drive")
+        mismatched = [i for i in greedy if list(fetched[i].token_ids) != list(restored[i].token_ids)]
+        if mismatched:
+            raise fail(f"greedy answers after a fetch differ from a local restore: {mismatched}")
+        blob = engine_p.kv_block_bytes(taps.adopted[0].hex())
+        split = block_split_ms(blob)
+        adopt_ms = sum(ms for name, ms in taps.tasks if name == "adopt")
+        fetch_ms = [h + d for (h, _b), d in zip(taps.http, taps.decode_ms)]
+        out["a"] = {
+            "prompts": len(prompts), "prompt_tokens": [r.prompt_tokens for r in fetched],
+            "p_cached_blocks": cached_p, "advertised_blocks": len(advertised),
+            "expected": want, "counters": got, "adopted_blocks": len(taps.adopted),
+            "block_bytes": len(blob),
+            "fetch_ms_per_block": dist(fetch_ms), "http_ms_per_block": dist([h for h, _ in taps.http]),
+            "decode_ms_per_block": dist(taps.decode_ms), "decode_split_one_block": split,
+            "adopt_ms_per_block": adopt_ms / len(taps.adopted),
+            "probe_ms": dist([ms for name, ms in taps.tasks if name == "probe"]),
+            "gb_per_s": len(blob) / (sum(fetch_ms) / len(fetch_ms) / 1e3) / 1e9,
+            "d_fabric_steps": fabric_steps, "d_fabric_prefill_steps": fabric_prefill,
+            "d_cold_steps": cold_steps, "d_cold_prefill_steps": cold_prefill,
+            "d_fabric_ttft_s": dist([t for t in fabric_ttft if t is not None]),
+            "d_fabric_prefetch_s": prefetch["queued_s"],
+            "d_cold_ttft_s": dist([t for t in cold_ttft if t is not None]),
+            "p_steps": p_steps, "p_restore_steps": restore_steps,
+            "greedy_equal_to_local_restore": len(greedy),
+            "held_k1_calls": len(held_k1.held),
+            "held_k1_max_abs_err": max(c["max_abs_err"] for c in held_k1.held),
+        }
+        print(json.dumps({"fabric_a": out["a"], "card": card}), flush=True)
+
+        # (c) faults on the first FAULT_PROMPTS prompts (S): a flipped
+        # payload byte, P's server killed mid-drive, a 404, a black-holed
+        # holder; each falls back to recompute, held against D's cold drive
+        # of S or, where blocks landed, a like-for-like restore on P
+        s_prompts, s_params, s_blocks = (prompts[:FAULT_PROMPTS], params[:FAULT_PROMPTS],
+                                         blocks[:FAULT_PROMPTS])
+        s_greedy = [i for i in greedy if i < FAULT_PROMPTS]
+        threshold = fetcher.index.failure_threshold
+
+        def greedy_s(results) -> list:
+            return [list(results[i].token_ids) for i in s_greedy]
+
+        empty_prefix_cache(engine_d)
+        engine_d.fabric = None
+        try:
+            (cold_s, _), _ = counted(lambda: held(engine_d, s_prompts, s_params),
+                                     [engine_d], "D cold drive of S")
+        finally:
+            engine_d.fabric = fetcher
+        empty_prefix_cache(engine_d)
+        advertised = poll_d()
+        want_c = fabric_expectation(s_blocks, advertised, adopt=False, threshold=threshold)
+        before = counters_d(*fabric_counters)
+        taps = FetchTaps(engine_d, corrupt=True)
+        try:
+            (corrupt, _), _ = counted(
+                lambda: held(engine_d, s_prompts, s_params, sequential=True),
+                [engine_d], "corrupt drive")
+        finally:
+            taps.close()
+        got_corrupt = delta(before)
+        if (got_corrupt["fabric_fetch_corrupt"] != want_c["fetched"] or taps.adopted
+                or got_corrupt["fabric_prefetch_adopted"] or got_corrupt["kv_restore"]
+                or got_corrupt["fabric_index_decayed"] != want_c["decayed"]):
+            raise fail(f"corrupt payloads: {got_corrupt}, expected {want_c}, adopted {taps.adopted}")
+        if greedy_s(corrupt) != greedy_s(cold_s):
+            raise fail("greedy answers after corrupt fetches differ from D's cold drive")
+        # P's server killed once D's first block has decoded: the fetches
+        # in flight are reset, the rest refused
+        empty_prefix_cache(engine_d)
+        advertised = poll_d()
+        port_p = server_p.bound_port
+        before = counters_d(*fabric_counters)
+        taps = FetchTaps(engine_d, on_first_ok=killable.kill)
+        try:
+            (killed, _), _ = counted(
+                lambda: held(engine_d, s_prompts, s_params, sequential=True),
+                [engine_d], "kill drive")
+        finally:
+            taps.close()
+        got_kill = delta(before)
+        outlived = [(ms, b) for ms, b in taps.http if ms > (b + FETCH_SLACK_S) * 1e3 + 50]
+        failed_kill = got_kill["fabric_fetch_timeout"] + got_kill["fabric_fetch_error"]
+        if (killable.reset is None or not got_kill["fabric_fetch_ok"]
+                or not got_kill["fabric_fetch_error"] or outlived
+                or got_kill["fabric_fetch_fallback"] != failed_kill
+                or len(taps.http) != got_kill["fabric_fetch_ok"] + failed_kill
+                or got_kill["fabric_fetch_miss"] or got_kill["fabric_fetch_corrupt"]
+                or got_kill["fabric_prefetch_adopted"] != len(taps.adopted)
+                or got_kill["kv_restore"] != len(taps.adopted)):
+            raise fail(f"P killed mid-drive: {got_kill} over {len(taps.http)} attempts, "
+                       f"{killable.reset} connections reset, over budget {outlived[:5]}")
+        out_kill = {"counters": got_kill, "attempts": len(taps.http),
+                    "connections_reset": killable.reset, "adopted": len(taps.adopted),
+                    "attempt_ms": dist([ms for ms, _ in taps.http]),
+                    "held_to": "P's like-for-like restore" if taps.adopted else "D's cold drive"}
+        if taps.adopted:
+            # like for like: P restores the blocks D adopted, recomputes the rest
+            keep_only_pooled(engine_p, set(taps.adopted))
+            (reference, _), _ = counted(lambda: held(engine_p, s_prompts, s_params),
+                                        [engine_p], "P restore drive of S")
+        else:
+            reference = cold_s
+        if greedy_s(killed) != greedy_s(reference):
+            raise fail("greedy answers after P's death mid-drive differ from "
+                       + ("a like-for-like restore on P" if taps.adopted else "D's cold drive"))
+        # P back on its port; a 404: its pool emptied under its advertised
+        # inventory, the prompt of S with the most advertised blocks
+        server_p = CompletionServer(engine_p, model_id=model_id, host="127.0.0.1", port=port_p,
+                                    replica_id="replica-p")
+        http.servers.append(server_p)
+        http.run(server_p.start())
+        empty_prefix_cache(engine_d)
+        advertised = poll_d()
+        on_worker(engine_p, lambda: [store_p.host_pool.drop(h)
+                                     for h in list(store_p.host_pool._entries)])
+        pick = max(range(FAULT_PROMPTS),
+                   key=lambda i: sum(h.hex() in advertised for h in blocks[i]))
+        before = counters_d(*fabric_counters)
+        (_, _), _ = counted(lambda: held(engine_d, prompts[pick:pick + 1], params[pick:pick + 1]),
+                            [engine_d], "404 drive")
+        got_404 = delta(before)
+        wanted_404 = [h for h in blocks[pick] if h.hex() in advertised]
+        stale = [h.hex() for h in wanted_404 if fetcher.index.holders(h.hex())]
+        if (got_404["fabric_fetch_miss"] != len(wanted_404)
+                or got_404["fabric_index_evicted"] != len(wanted_404) or stale or not wanted_404):
+            raise fail(f"404s: {got_404} for {len(wanted_404)} advertised blocks, still indexed "
+                       f"{stale}")
+        # a black hole: P's server stopped under D's index, its port taken
+        # by a listener that never answers
+        empty_prefix_cache(engine_d)
+        advertised = poll_d()
+        http.run(server_p.stop(), timeout=120)
+        black_hole = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        black_hole.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        black_hole.bind(("127.0.0.1", port_p))
+        black_hole.listen(1024)
+        failed: dict = {}
+        want_bh = fabric_expectation(s_blocks, advertised, adopt=False, threshold=threshold,
+                                     attempts=int(FABRIC_ENV.get("KV_FABRIC_CONCURRENCY", "4")),
+                                     failures=failed)
+        timeout_s, fetcher.timeout_s = fetcher.timeout_s, BLACK_HOLE_TIMEOUT_S
+        before = counters_d(*fabric_counters)
+        taps = FetchTaps(engine_d)
+        try:
+            (holed, _), _ = counted(
+                lambda: held(engine_d, s_prompts, s_params, sequential=True),
+                [engine_d], "black-hole drive")
+            got_bh = delta(before)
+            # an advertised block the drive did not try: indexed until its
+            # threshold-th consecutive timeout, then decayed
+            spare = next(h for h in sorted(advertised)
+                         if bytes.fromhex(h) not in failed and fetcher.index.holders(h))
+            indexed = []
+            for _ in range(threshold):
+                http.run(fetcher.fetch_block(spare))
+                indexed.append(bool(fetcher.index.holders(spare)))
+        finally:
+            taps.close()
+            fetcher.timeout_s = timeout_s
+        decayed_spare = metrics_d.counter("fabric_index_decayed") - before[
+            "fabric_index_decayed"] - got_bh["fabric_index_decayed"]
+        outlived = [(ms, b) for ms, b in taps.http if ms > (b + FETCH_SLACK_S) * 1e3 + 50]
+        if (got_bh["fabric_fetch_timeout"] + got_bh["fabric_fetch_error"] != want_bh["fetched"]
+                or got_bh["fabric_fetch_fallback"] != want_bh["fetched"] + want_bh["fallback"]
+                or got_bh["fabric_index_decayed"] != want_bh["decayed"] or outlived
+                or got_bh["fabric_prefetch_adopted"]
+                or indexed != [True] * (threshold - 1) + [False] or decayed_spare != 1):
+            raise fail(f"black hole: {got_bh}, expected {want_bh}, over budget {outlived[:5]}, "
+                       f"a spare block indexed after each timeout {indexed}")
+        if greedy_s(holed) != greedy_s(cold_s):
+            raise fail("greedy answers behind a black-holed holder differ from D's cold drive")
+        black_hole.close()
+        black_hole = None
+        out["c"] = {
+            "prompts": FAULT_PROMPTS,
+            "corrupt": {"expected": want_c, "counters": got_corrupt},
+            "killed_mid_drive": out_kill,
+            "not_found": {"advertised_wanted": len(wanted_404), "counters": got_404},
+            "black_hole": {"expected": want_bh, "counters": got_bh,
+                           "budget_s": BLACK_HOLE_TIMEOUT_S, "threshold": threshold,
+                           "spare_indexed_after_each_timeout": indexed,
+                           "attempt_ms": dist([ms for ms, _ in taps.http])},
+            "greedy_equal": len(s_greedy),
+        }
+        print(json.dumps({"fabric_c": out["c"], "card": card}), flush=True)
+
+        # (b) two legs through the router: P again behind a new server
+        server_p = CompletionServer(engine_p, model_id=model_id, host="127.0.0.1", port=0,
+                                    replica_id="replica-p")
+        http.servers.append(server_p)
+        http.run(server_p.start())
+        url_p = f"http://127.0.0.1:{server_p.bound_port}"
+        url_d = f"http://127.0.0.1:{server_d.bound_port}"
+        legs_prompts = [f"Two-leg request {i}.\n{p}" for i, p in enumerate(prompts)]
+        router = EngineRouter([Replica("replica-p", url_p), Replica("replica-d", url_d)],
+                              metrics=MetricsRegistry())
+        by_id = {"replica-p": engine_p, "replica-d": engine_d}
+        fetcher.index, own_index = router.health.kv_index, fetcher.index
+
+        def two_legs(count: int = len(legs_prompts)) -> tuple:
+            empty_prefix_cache(engine_p)
+            empty_prefix_cache(engine_d)
+            for rid, engine in by_id.items():
+                router.report_load(rid, engine.load_report())
+            rows: list = []
+
+            async def drive():
+                answers = []
+                for prompt in legs_prompts[:count]:
+                    row: dict = {}
+
+                    async def prefill_send(replica, attempt, budget_s):
+                        result = await by_id[replica.id].generate(
+                            prompt, SamplingParams(max_tokens=1, temperature=0.0))
+                        row["prefill_end"] = time.perf_counter()
+                        for rid, engine in by_id.items():  # the in-process feeder
+                            router.report_load(rid, engine.load_report())
+                        row["prefill"] = (replica.id, result.completion_tokens)
+                        return result
+
+                    async def decode_send(replica, attempt, budget_s, prefix):
+                        row["decode_start"] = time.perf_counter()
+                        before = counters_d(*fabric_counters)
+                        result = await by_id[replica.id].generate(
+                            prompt, SamplingParams(max_tokens=TWO_LEG_TOKENS - len(prefix),
+                                                   temperature=0.0),
+                            resume_tokens=prefix)
+                        row["decode"] = (replica.id, list(prefix), delta(before))
+                        return SimpleNamespace(token_ids=list(prefix) + list(result.token_ids))
+
+                    _pre, dec = await asyncio.wait_for(disaggregated_dispatch(
+                        router, prefill_send, decode_send, key=prompt,
+                        request_id=f"two-leg-{len(rows)}", metrics=metrics_d), 600)
+                    answers.append(dec.response.token_ids)
+                    rows.append(row)
+                return answers
+
+            started = time.perf_counter()
+            answers = http.run(drive())
+            return answers, rows, time.perf_counter() - started
+
+        handoffs0 = metrics_d.counter("fabric_disagg_handoff")
+        try:
+            (answers, rows, wall), legs_steps = counted(two_legs, engines, "two-leg drive")
+            handoffs = metrics_d.counter("fabric_disagg_handoff") - handoffs0
+            (replay, _rows, replay_wall), replay_steps = counted(
+                lambda: two_legs(REPLAY_REQUESTS), engines, "two-leg replay")
+        finally:
+            fetcher.index = own_index
+        replay_handoffs = metrics_d.counter("fabric_disagg_handoff") - handoffs0 - handoffs
+        wrong = []
+        for i, row in enumerate(rows):
+            full = hashes_of(legs_prompts[i], TWO_LEG_TOKENS - 1, resume=1)
+            d = row["decode"][2]
+            if (row["prefill"] != ("replica-p", 1) or row["decode"][0] != "replica-d"
+                    or len(row["decode"][1]) != 1 or d["fabric_prefetch_adopted"] != len(full)
+                    or d["fabric_fetch_ok"] != len(full)
+                    or d["kv_prefill_tokens_saved"] != FABRIC_PAGE * len(full)):
+                wrong.append((i, row["prefill"], row["decode"], len(full)))
+        if handoffs != len(legs_prompts) or replay_handoffs != REPLAY_REQUESTS or wrong:
+            raise fail(f"two-leg drive: {handoffs} handoffs, {replay_handoffs} in the replay, "
+                       f"legs {wrong}")
+        if replay != answers[:REPLAY_REQUESTS]:
+            raise fail("two-leg greedy answers differ from a replay of the same drive")
+        # the replay's requests on P alone, and the stale index a 5 s poll
+        # leaves
+        empty_prefix_cache(engine_p)
+
+        def single() -> float:
+            async def drive():
+                for prompt in legs_prompts[:REPLAY_REQUESTS]:
+                    await engine_p.generate(prompt, SamplingParams(max_tokens=TWO_LEG_TOKENS,
+                                                                   temperature=0.0))
+            started = time.perf_counter()
+            http.run(drive())
+            return time.perf_counter() - started
+
+        single_wall, single_steps = counted(single, [engine_p], "single-replica drive")
+        # polls every 5 s from the first prefill leg's end: a decode leg
+        # whose prefill leg ended after the last poll before it finds the
+        # index without its blocks
+        t0 = rows[0]["prefill_end"]
+        stale = sum(1 for row in rows if int((row["decode_start"] - t0) // DEFAULT_POLL_S)
+                    == int((row["prefill_end"] - t0) // DEFAULT_POLL_S))
+        out["b"] = {
+            "requests": len(legs_prompts), "tokens": TWO_LEG_TOKENS, "handoffs": handoffs,
+            "two_leg_wall_s": wall, "two_leg_steps": legs_steps,
+            "replay_wall_s": replay_wall, "replay_steps": replay_steps,
+            "single_replica_wall_s": single_wall, "single_replica_steps": single_steps,
+            "blocks_fetched_per_decode_leg": [row["decode"][2]["fabric_fetch_ok"] for row in rows],
+            "prefill_to_decode_ms": dist([(r["decode_start"] - r["prefill_end"]) * 1e3
+                                          for r in rows]),
+            "stale_at_default_poll": stale, "default_poll_s": DEFAULT_POLL_S,
+            "replay_requests": REPLAY_REQUESTS, "replay_handoffs": replay_handoffs,
+            "replay_equal": True,
+        }
+        print(json.dumps({"fabric_b": out["b"], "card": card}), flush=True)
+
+        # (d) the auditor through every drive
+        if auditor.violations or not auditor.checks:
+            raise fail(f"invariant violations at the commit barriers: {auditor.report()}")
+        out["d"] = {"barrier_checks": auditor.checks, "violations": 0,
+                    "launches_over_the_phase": dict(totals)}
+        print(json.dumps({"fabric_d": out["d"], "card": card}), flush=True)
+    finally:
+        if black_hole is not None:
+            black_hole.close()
+        http.stop()
+        for engine in engines:
+            engine.scheduler.audit_hook = None
+            engine.close()
+    return totals
+
+
 def phase_parity(results: dict, kernel_modules: dict) -> None:
     import torch
 
@@ -5251,7 +6176,7 @@ def main() -> int:
     parser.add_argument("--out", help="also write every result to this JSON file")
     parser.add_argument("--phases",
                         default="device,kernels,serve,wave,analysis,checkpoint,operator,remote,"
-                                "fleet,deployed,parity")
+                                "fleet,deployed,fabric,parity")
     args = parser.parse_args()
     phases = set(args.phases.split(","))
 
@@ -5294,38 +6219,63 @@ def main() -> int:
     if no_mma:
         raise fail(f"no tensor-core instruction (HMMA/HGMMA) in {no_mma}")
 
+    # each phase's seconds, the build's (device) included; after each
+    # phase, the threads left and the host CPU they burn while this one
+    # sleeps (what a later phase competes with)
+    phase_s = results["phase_s"] = {"device": time.perf_counter() - started}
+    left_behind = results["left_behind"] = {}
+
+    def timed(name: str, fn, *args, **kwargs):
+        begun = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            phase_s[name] = phase_s.get(name, 0.0) + time.perf_counter() - begun
+            cpu = time.process_time()
+            time.sleep(0.2)
+            left_behind[name] = {"threads": threading.active_count(),
+                                 "idle_cpu_share": (time.process_time() - cpu) / 0.2}
+
     records = []
     if "kernels" in phases:
-        records = ([phase_kernels(results)] + phase_wave_kernels(results)
-                   + [phase_similarity_kernels(results, phases)])
-    launches = phase_serve(results, kernel_modules, phases) if "serve" in phases else {}
+        records = timed("kernels", lambda: [phase_kernels(results)] + phase_wave_kernels(results)
+                        + [phase_similarity_kernels(results, phases)])
+    launches = timed("serve", phase_serve, results, kernel_modules, phases) \
+        if "serve" in phases else {}
     if "serve" in phases:
-        phase_serve_pool(results, kernel_modules)
+        timed("serve", phase_serve_pool, results, kernel_modules)
     wave_launches = {
-        selector: phase_wave(results, kernel_modules, phases, selector)
+        selector: timed("wave", phase_wave, results, kernel_modules, phases, selector)
         for selector in (("v1", "v2") if "wave" in phases else ())
     }
-    analysis = phase_analysis(results, kernel_modules, phases) if "analysis" in phases else {}
+    analysis = timed("analysis", phase_analysis, results, kernel_modules, phases) \
+        if "analysis" in phases else {}
     served = phases & {"operator", "remote", "fleet"}
     if served and "checkpoint" not in phases:
         raise fail(f"the {', '.join(sorted(served))} phase serves the checkpoint phase's "
                    f"checkpoints: add checkpoint")
-    checkpoint, dirs = (phase_checkpoint(results, kernel_modules, keep=bool(served))
+    checkpoint, dirs = (timed("checkpoint", phase_checkpoint, results, kernel_modules,
+                              keep=bool(served))
                         if "checkpoint" in phases else ({}, None))
     operator, remote, fleet = {}, {}, {}
     if served:
         try:
             if "operator" in phases:
-                operator = phase_operator(results, kernel_modules, dirs)
+                operator = timed("operator", phase_operator, results, kernel_modules, dirs)
             if "remote" in phases:
-                remote = phase_remote(results, kernel_modules, dirs)
+                remote = timed("remote", phase_remote, results, kernel_modules, dirs)
             if "fleet" in phases:
-                fleet = phase_fleet(results, kernel_modules, dirs)
+                fleet = timed("fleet", phase_fleet, results, kernel_modules, dirs)
         finally:
             shutil.rmtree(dirs["workdir"], ignore_errors=True)
-    deployed = phase_deployed(results, kernel_modules) if "deployed" in phases else {}
+    deployed = timed("deployed", phase_deployed, results, kernel_modules) \
+        if "deployed" in phases else {}
+    fabric = timed("fabric", phase_fabric, results, kernel_modules) if "fabric" in phases else {}
     if "parity" in phases:
-        phase_parity(results, kernel_modules)
+        timed("parity", phase_parity, results, kernel_modules)
+    phase_s["total"] = time.perf_counter() - started
+    print(json.dumps({"phase_s": phase_s, "left_behind": left_behind, "card": card}),
+          flush=True)
     # each kernel's count from the drive of the path it serves: K1 the
     # continuous serve phase, the decode kernel the wave drive under its
     # own selector value, the prefill kernel the default (v1) wave drive,
@@ -5347,6 +6297,7 @@ def main() -> int:
         record["launches_remote"] = remote.get(base)
         record["launches_fleet"] = fleet.get(base)
         record["launches_deployed"] = deployed.get(base)
+        record["launches_fabric"] = fabric.get(base)
     kernels = records
     results["kernels"] = kernels
     device = {

@@ -1,8 +1,8 @@
 """Fabric block index: which replica holds which KV blocks.
 
 The port's own copy of ``operator_tpu/fabric/index.py``; the router's
-health board keeps it.  The rest of the fabric (the wire, the fetch
-client, disaggregation) is ROADMAP.md Queue 1 item 5b.
+health board and the peer poller (``peers.py``) keep it, the fetch
+client (``fetch.py``) reads it and feeds fetch outcomes back.
 
 This promotes the router's passive ``HealthBoard.holders()`` scan into a
 first-class index with two freshness mechanisms the scan could not

@@ -30,6 +30,14 @@ default 900) and is gated on
 - byte-identical replay: the 2× point re-run with the same seed must
   reproduce the identical result row and decision-log sha256 (GL007).
 
+``LOADGEN_DISAGG=1`` runs the prefill/decode disaggregation smoke (a
+one-prefill, two-decode synthetic fleet, every analysis as two legs
+through ``fabric/disagg.py:disaggregated_dispatch``); ``LOADGEN_GAMEDAY=1``
+the game-day matrix through the chaos conductor (``chaos/``): the
+builtin scenarios reseeded by ``LOADGEN_SEED`` and every committed repro
+under ``tests/scenarios/*.json``, or the one ``LOADGEN_SCENARIO`` names,
+with ``LOADGEN_MUTATION`` arming the auditor's self-test.
+
 The storm's pattern engine and incident memory run on ``--device``
 (``cuda`` unless the caller asks for another, e.g. ``--device cpu``).
 
@@ -40,6 +48,7 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import collections
 import json
 import os
 import sys
@@ -143,15 +152,121 @@ async def _main(device: str | None) -> None:
     print("loadgen smoke: OK")
 
 
-async def _disagg_main() -> None:
-    """The prefill/decode disaggregation smoke (``LOADGEN_DISAGG=1``)
-    needs the fleet KV fabric's ``disaggregated_dispatch``, which is not
-    ported yet."""
-    raise NotImplementedError(
-        "LOADGEN_DISAGG=1: the disaggregation lane needs the fleet KV "
-        "fabric's disaggregated_dispatch, which is not ported to "
-        "operator_tpu_torch yet (ROADMAP.md Queue 1 item 5b)"
+async def _disagg_main(device: str | None) -> None:
+    """The prefill/decode disaggregation smoke (LOADGEN_DISAGG=1).
+
+    A seeded storm runs against a 1-prefill + 2-decode synthetic fleet
+    with the backend in disaggregated dispatch: every analysis is a
+    prefill leg routed role=prefill plus a decode leg routed
+    role=decode (fabric/disagg.py).  Gates: byte-identical arrival
+    replay (two independent materialisations), every arrival settled
+    with nothing leaked pending and zero torn ledger lines, the
+    disaggregation actually happened (handoff counter fired, the
+    prefill replica served prefill legs, the decode replicas served
+    decode legs), and the fleet rollup carries the per-role tiers the
+    autoscaler keys on."""
+    seed = int(os.environ.get("LOADGEN_SEED", "0") or 0)
+    time_scale = 0.2
+    spec = ArrivalSpec(
+        name="disagg",
+        rate_per_min=float(
+            os.environ.get("LOADGEN_DISAGG_RATE_PER_MIN", "240")
+        ),
+        duration_s=float(os.environ.get("LOADGEN_DISAGG_DURATION_S", "4")),
+        burst_factor=3.0,
+        burst_every_s=2.0,
+        burst_len_s=0.5,
     )
+    process = ArrivalProcess(spec, seed=seed)
+
+    # replay gate first: two independent materialisations of the same
+    # (spec, seed) must be byte-identical
+    replay = ArrivalProcess(spec, seed=seed)
+    if process.fingerprint() != replay.fingerprint():
+        _fail("disagg arrival schedule is not replay-identical")
+    if [e.to_dict() for e in process.materialize()] != [
+        e.to_dict() for e in replay.materialize()
+    ]:
+        _fail("fingerprints matched but materialised events differ")
+
+    with tempfile.TemporaryDirectory(prefix="loadgen-disagg-") as tmp:
+        ledger_path = os.path.join(tmp, "slo-ledger.jsonl")
+        fleet = [
+            SyntheticReplica("disagg-prefill-0", concurrency=2,
+                             time_scale=time_scale, role="prefill"),
+            SyntheticReplica("disagg-decode-0", concurrency=2,
+                             time_scale=time_scale, role="decode"),
+            SyntheticReplica("disagg-decode-1", concurrency=2,
+                             time_scale=time_scale, role="decode"),
+        ]
+        stack = await build_storm_stack(
+            replicas=fleet, time_scale=time_scale,
+            ledger_path=ledger_path, disaggregate=True, device=device,
+        )
+        report = await run_storm(stack, process, drain_s=20.0)
+        stack.close()
+
+        # gate: populated record, every arrival settled, nothing pending
+        if report["arrivals"] <= 0:
+            _fail("disagg storm produced no arrivals")
+        total = report["slo"]["total"]
+        if total["admitted"] != report["arrivals"] - report["cancelled_at_drain"]:
+            _fail(
+                f"ledger admitted {total['admitted']} != "
+                f"{report['arrivals']} arrivals - "
+                f"{report['cancelled_at_drain']} cancelled"
+            )
+        if report["slo"]["pending"] != 0:
+            _fail(f"{report['slo']['pending']} records leaked pending")
+        if total["attainment"] is None:
+            _fail("disagg storm record has null attainment")
+
+        # gate: zero torn ledger lines
+        with open(ledger_path) as fh:
+            for line in fh:
+                if not line.strip():
+                    continue
+                try:
+                    json.loads(line)
+                except ValueError:
+                    _fail(f"torn ledger line: {line[:80]!r}")
+
+        # gate: disaggregation actually happened, on the right tiers
+        handoffs = stack.metrics.counter("fabric_disagg_handoff")
+        if handoffs <= 0:
+            _fail("no fabric_disagg_handoff recorded — the backend never "
+                  "split a request into prefill+decode legs")
+        prefill_replica, *decode_replicas = fleet
+        if prefill_replica.served_by_phase.get("prefill", 0) <= 0:
+            _fail("the prefill replica served no prefill legs")
+        if sum(r.served_by_phase.get("decode", 0)
+               for r in decode_replicas) <= 0:
+            _fail("the decode replicas served no decode legs")
+        # role preference, not filter: prefill legs stay OFF the decode
+        # tier while the prefill replica is healthy (and vice versa)
+        if any(r.served_by_phase.get("prefill", 0) > 0
+               for r in decode_replicas) and \
+                prefill_replica.served_by_phase.get("decode", 0) > 0:
+            _fail("both tiers crossed roles despite healthy exact-role "
+                  "candidates — role preference is not being applied")
+
+        # gate: the fleet rollup carries per-role tiers
+        roles = (report["fleet"].get("fleet") or {}).get("roles") or {}
+        if "prefill" not in roles or "decode" not in roles:
+            _fail(f"fleet rollup missing role tiers: {sorted(roles)}")
+        if roles["prefill"]["replicas"] != 1 or roles["decode"]["replicas"] != 2:
+            _fail(f"role tier shape wrong: {roles}")
+
+    print(json.dumps({
+        "arrivals": report["arrivals"],
+        "attainment": total["attainment"],
+        "goodput_analyses_per_min": total["goodput_analyses_per_min"],
+        "handoffs": handoffs,
+        "prefill_legs": prefill_replica.served_by_phase,
+        "decode_legs": [r.served_by_phase for r in decode_replicas],
+        "fingerprint": report["fingerprint"][:16],
+    }, indent=2))
+    print("loadgen disagg: OK")
 
 
 async def _elastic_main(device: str | None) -> None:
@@ -431,14 +546,148 @@ def _overload_main() -> None:
     print("loadgen overload: OK")
 
 
-async def _gameday_main() -> None:
-    """``LOADGEN_GAMEDAY=1``: the seeded game-day matrix needs the chaos
-    conductor, which is not ported yet."""
-    raise NotImplementedError(
-        "LOADGEN_GAMEDAY=1: the game-day lane needs the chaos conductor "
-        "(chaos/), which is not ported to operator_tpu_torch yet "
-        "(ROADMAP.md Queue 1 item 5d)"
-    )
+async def _gameday_main(device: str | None) -> None:
+    """``LOADGEN_GAMEDAY=1``: the seeded game-day matrix.
+
+    Runs each scenario through the chaos conductor
+    (``chaos/``) and fails loudly unless, per scenario:
+
+    - BUILD determinism: an independent second build and a JSON
+      round-trip both produce the identical fingerprint — the replay
+      contract a committed repro depends on;
+    - the invariant auditor recorded ZERO violations across its commit
+      barriers and the scenario-end sweep;
+    - every injection fired (``pending_faults == {}``) — a rule the run
+      never consumed is a renamed seam or a dead phase window, and a
+      gate that ignores it quietly stops rehearsing that failure.  A
+      seam whose every injection is match-scoped (``Injection.match``,
+      e.g. the composed storm's partition of one replica) must fire at
+      least once: how many calls reach one replica depends on its
+      breaker and load, so on wall-clock interleaving, and its leftover
+      below the declared count is reported (``pending_match_scoped``),
+      not failed.  The JAX lane's gate also fails on that leftover, in
+      some runs on a CPU host;
+    - arrivals landed and every submit drained without error.
+
+    Scenario selection: the builtin matrix (``chaos/library.py``,
+    reseeded by ``LOADGEN_SEED``) plus every committed repro under
+    ``tests/scenarios/*.json``; ``LOADGEN_SCENARIO=<file.json>`` runs
+    that one file instead — the replay path printed by the shrinker.
+    ``LOADGEN_MUTATION=<name>`` arms a mutation lane (the auditor
+    self-test), inverting the violation gate: the run must violate.
+    """
+    from ..chaos import ChaosScenario, run_scenario
+    from ..chaos.library import builtin_scenarios
+    from ..utils.timing import MetricsRegistry
+
+    seed = int(os.environ.get("LOADGEN_SEED", "0") or 0)
+    mutation = os.environ.get("LOADGEN_MUTATION") or None
+    single = os.environ.get("LOADGEN_SCENARIO") or None
+
+    # (scenario, source, rebuild): rebuild() is the INDEPENDENT second
+    # build the fingerprint-identity gate compares against
+    jobs = []
+    if single:
+        try:
+            with open(single, encoding="utf-8") as fh:
+                text = fh.read()
+            scenario = ChaosScenario.from_json(text)
+        except (OSError, ValueError, KeyError) as exc:
+            _fail(f"cannot load LOADGEN_SCENARIO={single}: {exc}")
+        jobs.append((
+            scenario, single,
+            lambda text=text: ChaosScenario.from_json(text),
+        ))
+    else:
+        for i, scenario in enumerate(builtin_scenarios(seed)):
+            jobs.append((
+                scenario, "builtin",
+                lambda i=i: builtin_scenarios(seed)[i],
+            ))
+        scen_dir = os.path.join(
+            os.path.dirname(os.path.dirname(os.path.dirname(
+                os.path.abspath(__file__)))),
+            "tests", "scenarios",
+        )
+        if os.path.isdir(scen_dir):
+            for name in sorted(os.listdir(scen_dir)):
+                if not name.endswith(".json"):
+                    continue
+                path = os.path.join(scen_dir, name)
+                with open(path, encoding="utf-8") as fh:
+                    text = fh.read()
+                try:
+                    scenario = ChaosScenario.from_json(text)
+                except (ValueError, KeyError) as exc:
+                    _fail(f"committed scenario {name} does not load: {exc}")
+                jobs.append((
+                    scenario, f"tests/scenarios/{name}",
+                    lambda text=text: ChaosScenario.from_json(text),
+                ))
+
+    rows = []
+    for scenario, source, rebuild in jobs:
+        where = f"{scenario.name} ({source})"
+        if rebuild().fingerprint() != scenario.fingerprint():
+            _fail(f"{where}: two builds disagree on the fingerprint")
+        round_trip = ChaosScenario.from_json(scenario.to_json())
+        if round_trip.fingerprint() != scenario.fingerprint():
+            _fail(f"{where}: JSON round-trip changes the fingerprint")
+
+        report = await run_scenario(
+            scenario, mutation=mutation, metrics=MetricsRegistry(),
+            device=device,
+        )
+        violated = [v["name"] for v in report["violations"]]
+        if mutation is None and violated:
+            _fail(
+                f"{where}: invariant violation(s) {violated} — black-boxed "
+                "by the flight recorder; shrink the scenario to a minimal "
+                "repro with operator_tpu_torch.chaos.shrink"
+            )
+        if mutation is not None and not violated:
+            _fail(
+                f"{where}: mutation `{mutation}` armed but no invariant "
+                "fired — the auditor is asleep"
+            )
+        scoped = {i.seam for i in scenario.injections() if i.match} - {
+            i.seam for i in scenario.injections() if not i.match}
+        declared = collections.Counter()
+        for inj in scenario.injections():
+            declared[inj.seam] += inj.count
+        pending = report["pending_faults"]
+        unfired = {site: n for site, n in pending.items()
+                   if site not in scoped or n >= declared[site]}
+        if unfired:
+            _fail(
+                f"{where}: injections never fired: "
+                f"{unfired} — renamed seam or dead "
+                "phase window"
+            )
+        driver = report["driver"]
+        if not driver["arrivals"]:
+            _fail(f"{where}: no arrivals landed")
+        if driver["submit_errors"] or driver["cancelled_at_drain"]:
+            _fail(
+                f"{where}: {driver['submit_errors']} submit error(s), "
+                f"{driver['cancelled_at_drain']} cancelled at drain"
+            )
+        rows.append({
+            "scenario": scenario.name,
+            "source": source,
+            "seed": scenario.seed,
+            "fingerprint": report["fingerprint"],
+            "arrivals": driver["arrivals"],
+            "completed": report["slo"]["total"]["completed"],
+            "invariant_checks": report["invariant_checks"],
+            "violations": violated,
+            "fault_trace_len": report["fault_trace_len"],
+            "pending_match_scoped": {site: n for site, n in pending.items() if site in scoped},
+            "actions": len(report["actions"]),
+        })
+
+    print(json.dumps(rows, indent=2))
+    print("loadgen gameday: OK")
 
 
 if __name__ == "__main__":
@@ -451,8 +700,8 @@ if __name__ == "__main__":
     elif os.environ.get("LOADGEN_ELASTIC", "0") == "1":
         asyncio.run(_elastic_main(device))
     elif os.environ.get("LOADGEN_DISAGG", "0") == "1":
-        asyncio.run(_disagg_main())
+        asyncio.run(_disagg_main(device))
     elif os.environ.get("LOADGEN_GAMEDAY", "0") == "1":
-        asyncio.run(_gameday_main())
+        asyncio.run(_gameday_main(device))
     else:
         asyncio.run(_main(device))

@@ -332,12 +332,6 @@ class InProcessServingBackend:
         allow_empty: bool = False,
         disaggregate: bool = False,
     ) -> None:
-        if disaggregate:
-            raise NotImplementedError(
-                "a disaggregated storm needs the fleet KV fabric's "
-                "disaggregated_dispatch, which is not ported to "
-                "operator_tpu_torch yet (ROADMAP.md Queue 1 item 5b)"
-            )
         if not replicas and not allow_empty:
             raise ValueError("storm backend needs at least one replica")
         self.replicas = {r.id: r for r in replicas}
@@ -348,6 +342,9 @@ class InProcessServingBackend:
             max_failover=max_failover,
             metrics=metrics,
         )
+        #: fabric disaggregation (fabric/disagg.py): every analysis runs
+        #: as a prefill leg + a decode leg, role-preferred routing each
+        self.disaggregate = disaggregate
         #: pulsed on every membership change; arrivals against an empty
         #: fleet wait here for the autoscaler to wake a replica
         self._members_changed = asyncio.Event()
@@ -446,13 +443,34 @@ class InProcessServingBackend:
         )
         rid = request_key(prompt_basis)
         try:
-            outcome = await self.router.dispatch(
-                send,
-                key=key,
-                request_id=rid,
-                deadline=budget,
-                attempts=1,
-            )
+            if self.disaggregate:
+                from ..fabric.disagg import disaggregated_dispatch
+
+                async def prefill_send(replica, attempt, budget_s):
+                    target = self.replicas[replica.id]
+                    return await target.serve(
+                        request, budget_s, degrade_frac, phase="prefill"
+                    )
+
+                async def decode_send(replica, attempt, budget_s, prefix):
+                    target = self.replicas[replica.id]
+                    return await target.serve(
+                        request, budget_s, degrade_frac, phase="decode"
+                    )
+
+                _prefill, outcome = await disaggregated_dispatch(
+                    self.router, prefill_send, decode_send,
+                    key=key, request_id=rid, deadline=budget,
+                    metrics=self.metrics,
+                )
+            else:
+                outcome = await self.router.dispatch(
+                    send,
+                    key=key,
+                    request_id=rid,
+                    deadline=budget,
+                    attempts=1,
+                )
         except RouterError as exc:
             deadline_spent = budget is not None and budget.remaining() <= 0.0
             if not deadline_spent:

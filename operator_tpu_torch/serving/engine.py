@@ -38,6 +38,14 @@ engine.py:_serve``): admit what fits into free slots and pages, requeue
 the rest, then ``generator.step()``.  All device work happens on the
 worker.
 
+The fleet KV fabric (``fabric/``, continuous mode): with ``fabric`` set,
+``generate`` first pulls the prompt's missing prefix blocks from peers'
+host pools into this replica's (``FabricFetcher.prefetch``; its store
+probe and adoption run on the worker between steps through
+``store_executor``), ``kv_block_bytes`` serves this replica's pooled
+blocks to peers in the PMKV1 wire format, and ``fabric_poller`` feeds
+the fetcher's index from peers' ``/healthz``.
+
 Supervision (the reference's ``SupervisorPolicy``): with a policy, a
 watchdog thread sees a step (or a wave's batched prefill) older than
 ``stall_timeout_s`` and abandons the worker behind an epoch — the
@@ -61,6 +69,7 @@ import asyncio
 import collections
 import concurrent.futures
 import dataclasses
+import functools
 import itertools
 import logging
 import queue
@@ -575,6 +584,29 @@ class _Submission:
     requeues: int = 0
 
 
+class _HostTask:
+    """Store work for the worker's next step boundary (the fabric
+    prefetch's probe and adoption)."""
+
+    def __init__(self, fn: Any) -> None:
+        self.fn = fn
+        self.future: concurrent.futures.Future = concurrent.futures.Future()
+
+
+class _WorkerExecutor(concurrent.futures.Executor):
+    """``loop.run_in_executor`` onto the engine's worker: each call runs
+    on the worker thread between steps, holding the worker lock, so it
+    is serialized with everything the scheduler does to its store (the
+    port's counterpart of the reference's single-thread decode
+    executor)."""
+
+    def __init__(self, engine: "ServingEngine") -> None:
+        self._engine = engine
+
+    def submit(self, fn, /, *args, **kwargs) -> concurrent.futures.Future:
+        return self._engine._submit_host_task(functools.partial(fn, *args, **kwargs))
+
+
 @dataclasses.dataclass
 class _PartialFeed:
     """One streaming request's feed: the caller's loop and callback, its
@@ -658,6 +690,22 @@ class ServingEngine:
         self._slo_board = SLOBoard()
         #: prefill/decode disaggregation role advertised on /healthz
         self.replica_role: str = "mixed"
+        #: fleet KV fabric (``fabric/``): a ``FabricFetcher`` wired after
+        #: construction when KV_FABRIC=1; admission-time prefix misses then
+        #: consult the fleet index and pull pages from a holder's host pool
+        #: instead of recomputing.  None = local only (the default)
+        self.fabric: Optional[Any] = None
+        #: ``fabric/peers.py:PeerPoller`` feeding the fetcher's index from
+        #: peer /healthz inventories (KV_FABRIC_PEERS); runs on the event
+        #: loop of the first ``generate`` or server start, cancelled by close
+        self.fabric_poller: Optional[Any] = None
+        self._fabric_poll_task: Optional[asyncio.Task] = None
+        #: runs store work (the fabric prefetch's probe and adoption) on
+        #: the worker at a step boundary, holding the worker lock
+        self.store_executor = _WorkerExecutor(self)
+        self._host_tasks: "queue.SimpleQueue[_HostTask]" = queue.SimpleQueue()
+        #: set with every submission or store task: wakes an idle worker
+        self._kick = threading.Event()
         self._lock = threading.Lock()
         self._thread: Optional[threading.Thread] = None
         self._closed = threading.Event()
@@ -735,6 +783,13 @@ class ServingEngine:
         self._closed.set()
         self._wake.set()
         self._handoff.set()  # a parked orphan exits
+        poll, self._fabric_poll_task = self._fabric_poll_task, None
+        if poll is not None and not poll.done():
+            # the peer poller is index plumbing on its loop: nothing waits on it
+            try:
+                poll.get_loop().call_soon_threadsafe(poll.cancel)
+            except RuntimeError:  # its loop is already closed
+                pass
         supervise = self._supervise_thread
         if supervise is not None:
             supervise.join(5.0 + self._supervisor.join_grace_s)
@@ -773,25 +828,13 @@ class ServingEngine:
             if self._error is not None:
                 raise RuntimeError("serving engine loop died") from self._error
 
-    def submit(
-        self,
-        prompt: str,
-        params: Optional[SamplingParams] = None,
-        *,
-        priority: int = 0,
-        resume_tokens: Optional[list] = None,
-        on_partial: Optional[tuple] = None,
-    ) -> "concurrent.futures.Future[GenerationResult]":
-        """Queue one request; raises ``ValueError`` for a guided or LoRA
-        request (not ported) or ``resume_tokens`` without the scheduler,
-        and :class:`DeadlineExceeded` when its budget cannot fit one
-        decoded token — all to this caller, before the request takes a
-        queue place.  ``priority`` orders admission (higher first, FIFO
-        within a class).  ``on_partial`` is ``(loop, callback)``: each
-        step's generated-so-far ids reach ``callback`` on ``loop``."""
-        feed = None
-        if on_partial is not None:
-            feed = _PartialFeed(*on_partial)
+    def _check_submission(
+        self, params: Optional[SamplingParams], resume_tokens: Optional[list]
+    ) -> None:
+        """The verdicts a request gets before it takes a queue place (or,
+        with the fabric, prefetches): a closed or down engine, a guided or
+        LoRA request (not ported), ``resume_tokens`` without the
+        scheduler, a deadline that cannot fit one decoded token."""
         if self._closed.is_set():
             raise RuntimeError("serving engine is closed")
         self._recover_if_needed()
@@ -806,9 +849,14 @@ class ServingEngine:
                 "token-level streaming resume requires the continuous "
                 "scheduler (sched_mode=continuous)"
             )
+        self._check_deadline(params)
+
+    def _check_deadline(self, params: Optional[SamplingParams]) -> None:
+        """Fail fast when the request's deadline cannot fit one decoded
+        token."""
         if params is not None and params.deadline is not None:
-            # fail fast: admission re-runs the policy with the residue
-            # left after the queue wait and owns the clamp
+            # admission re-runs the policy with the residue left after the
+            # queue wait and owns the clamp
             g = self.generator
             _, outcome = g.deadline_policy(params)
             if outcome == "rejected":
@@ -817,6 +865,36 @@ class ServingEngine:
                     "deadline budget cannot fit any decoded output "
                     f"(remaining {max(0.0, params.deadline - g._clock()):.3f}s)"
                 )
+
+    def submit(
+        self,
+        prompt: str,
+        params: Optional[SamplingParams] = None,
+        *,
+        priority: int = 0,
+        resume_tokens: Optional[list] = None,
+        on_partial: Optional[tuple] = None,
+        _checked: bool = False,
+    ) -> "concurrent.futures.Future[GenerationResult]":
+        """Queue one request; raises ``ValueError`` for a guided or LoRA
+        request (not ported) or ``resume_tokens`` without the scheduler,
+        and :class:`DeadlineExceeded` when its budget cannot fit one
+        decoded token — all to this caller, before the request takes a
+        queue place.  ``priority`` orders admission (higher first, FIFO
+        within a class).  ``on_partial`` is ``(loop, callback)``: each
+        step's generated-so-far ids reach ``callback`` on ``loop``.
+        ``_checked``: ``generate`` ran the verdicts before its fabric
+        prefetch; only the closed engine and the deadline, which the
+        prefetch's wait may have used up, are checked again."""
+        feed = None
+        if on_partial is not None:
+            feed = _PartialFeed(*on_partial)
+        if not _checked:
+            self._check_submission(params, resume_tokens)
+        elif self._closed.is_set():
+            raise RuntimeError("serving engine is closed")
+        else:
+            self._check_deadline(params)
         future: concurrent.futures.Future = concurrent.futures.Future()
         if feed is not None:
             feed.future = future
@@ -825,6 +903,7 @@ class ServingEngine:
             resume_tokens=list(resume_tokens) if resume_tokens else None,
             partial=feed,
         ))
+        self._kick.set()
         if self._supervisor is None and self._error is not None:
             # the worker died between the check above and the put: its
             # drain may have missed this submission
@@ -860,9 +939,21 @@ class ServingEngine:
         loop = asyncio.get_running_loop()
         if self._error is not None or self._gave_up:
             await asyncio.to_thread(self._recover_if_needed)
+        self.start_fabric_poll()
+        checked = self.fabric is not None and self.scheduler is not None
+        if checked:
+            # fleet KV fabric: once the request passed its verdicts, pull
+            # the prompt's missing prefix blocks from a peer's host pool
+            # BEFORE admission so the scheduler's prefix match restores
+            # them instead of recomputing.  Best effort, residual-budget
+            # clamped: a failed fetch degrades to the ordinary recompute,
+            # never an error to this caller
+            self._check_submission(params, resume_tokens)
+            await self._fabric_prefetch(prompt, params, resume_tokens)
         future = self.submit(
             prompt, params, priority=priority, resume_tokens=resume_tokens,
             on_partial=(loop, on_partial) if on_partial is not None else None,
+            _checked=checked,
         )
         # per-class SLO accounting: every submit settles exactly once — a
         # cancelled or failed request is a miss
@@ -955,6 +1046,144 @@ class ServingEngine:
             shed=g.metrics.labeled_total("shed"),
             degraded=g.metrics.labeled_total("degraded"),
         )
+
+    # -- the fleet KV fabric ---------------------------------------------
+
+    def start_fabric_poll(self) -> None:
+        """Run the peer poller (``fabric_poller``) on the running event
+        loop, unless it already runs; the reference's ``start`` does so.
+        ``generate`` and ``CompletionServer.start`` call it."""
+        task = self._fabric_poll_task
+        if self.fabric_poller is None or (task is not None and not task.done()):
+            return
+        if self._closed.is_set():
+            return
+        self._fabric_poll_task = asyncio.get_running_loop().create_task(
+            self.fabric_poller.run(), name="fabric-peer-poll"
+        )
+
+    async def _fabric_prefetch(
+        self,
+        prompt: str,
+        params: Optional[SamplingParams],
+        resume_tokens: Optional[list],
+    ) -> None:
+        """Admission-time fabric prefetch (``fabric/fetch.py``).
+
+        Tokenizes exactly as the scheduler's enqueue will (same
+        truncation budget, same resume suffix) so the probed block hashes
+        line up with the prefix match that follows.  The cheap gates run
+        first: no host pool to land pages in, or an index with no holders
+        at all, costs the request nothing (not even the tokenize, which
+        runs off the event loop).  The store probe and the adoption run
+        on the worker at a step boundary, holding its lock
+        (``store_executor``): the scheduler mutates the store from inside
+        its step, which runs without that lock, so only the worker's own
+        thread is serialized with it.  The fetches' budget is the
+        request's residual deadline.  Never raises: every failure falls
+        through to the recompute the request was going to do anyway."""
+        from .types import prompt_budget
+
+        store = getattr(self.scheduler, "_kvstore", None)
+        if store is None:
+            return
+        pool = getattr(store, "host_pool", None)
+        if pool is None or getattr(pool, "capacity_bytes", 0) <= 0:
+            return  # nowhere to land a fetched page
+        try:
+            if self.fabric.index.empty():
+                return  # no holders anywhere: nothing to fetch
+            g = self.generator
+            p = params or SamplingParams()
+
+            def tokenize() -> Optional[list]:
+                ids = g.tokenizer.encode(prompt)
+                budget = prompt_budget(g.max_seq, p.max_tokens)
+                if resume_tokens:
+                    if len(resume_tokens) >= budget:
+                        return None  # enqueue will reject it
+                    return g._truncate_prompt(
+                        ids, budget - len(resume_tokens)
+                    ) + list(resume_tokens)
+                return g._truncate_prompt(ids, budget)
+
+            tokens = await asyncio.to_thread(tokenize)
+            if tokens is None:
+                return
+            residual = None
+            if p.deadline is not None:
+                residual = p.deadline - g._clock()
+            await self.fabric.prefetch(
+                tokens, store=store, budget_s=residual,
+                executor=self.store_executor,
+            )
+        except asyncio.CancelledError:
+            raise
+        except Exception:  # noqa: BLE001 - the recompute covers every failure
+            log.debug("fabric prefetch failed; recompute covers it", exc_info=True)
+
+    def kv_block_bytes(self, hash_hex: str) -> Optional[bytes]:
+        """Serve one KV block out of the host pool for a fabric peer
+        (``GET /kv/blocks/{hash}``, ``serving/httpserver.py``): host
+        tensors in, PMKV1 wire bytes out, no device and no scheduler.
+        None when the block is not pooled here (the peer treats that 404
+        as index-eviction feedback)."""
+        from ..fabric.wire import encode_block
+
+        metrics = self.generator.metrics
+        store = getattr(self.scheduler, "_kvstore", None)
+        pool = getattr(store, "host_pool", None)
+        try:
+            block_hash = bytes.fromhex(hash_hex)
+        except ValueError:
+            return None
+        entry = pool.get(block_hash) if pool is not None else None
+        if entry is None:
+            metrics.incr("fabric_serve_miss", exemplar=hash_hex)
+            return None
+        metrics.incr("fabric_serve_hit", exemplar=hash_hex)
+        return encode_block(block_hash, entry[0], entry[1])
+
+    def _submit_host_task(self, fn: Any) -> concurrent.futures.Future:
+        """Queue ``fn()`` for the worker's next step boundary (continuous
+        mode only); its future carries the result."""
+        if self.scheduler is None:
+            raise RuntimeError("store tasks need the continuous scheduler")
+        if self._closed.is_set():
+            raise RuntimeError("serving engine is closed")
+        task = _HostTask(fn)
+        self._host_tasks.put(task)
+        self._kick.set()
+        if self._supervisor is None and self._error is not None:
+            # the worker died: nothing will run the task
+            self._fail_outstanding(RuntimeError("serving engine loop died"))
+            return task.future
+        self.start()
+        return task.future
+
+    def _run_host_tasks(self) -> None:
+        """Run the queued store tasks (worker thread, worker lock held)."""
+        while True:
+            try:
+                task = self._host_tasks.get_nowait()
+            except queue.Empty:
+                return
+            if not task.future.set_running_or_notify_cancel():
+                continue
+            try:
+                result = task.fn()
+            except BaseException as exc:  # noqa: BLE001 - handed to the caller
+                task.future.set_exception(exc)
+            else:
+                task.future.set_result(result)
+
+    def _fail_host_tasks(self, exc: BaseException) -> None:
+        while True:
+            try:
+                task = self._host_tasks.get_nowait()
+            except queue.Empty:
+                return
+            _settle(task.future, exc=exc)
 
     # -- recovery --------------------------------------------------------
 
@@ -1103,6 +1332,8 @@ class ServingEngine:
                 requests.append(self._submissions.get_nowait())
             except queue.Empty:
                 break
+        # a queued store task's prefetch falls back to recompute
+        self._fail_host_tasks(RuntimeError("serving engine restarting"))
         retry: list[_Submission] = []
         gaveup = 0
         for item in requests:
@@ -1140,9 +1371,11 @@ class ServingEngine:
         """The supervised restart's terminal exit: fail the survivors, mark
         the engine given up, fail what was submitted during the restart
         (no loop is left to take it) and leave a black-box record."""
+        # given up before the survivors hear it: a caller woken by its
+        # failure reads ``load_report().gave_up`` from another thread
+        self._gave_up = True
         gaveup += self._fail_survivors(retry, message)
         self._restarting = []
-        self._gave_up = True
         self._handoff.set()  # a parked orphan exits
         self._fail_outstanding(RuntimeError(message))
         self._dump_blackbox(reason, {
@@ -1216,6 +1449,7 @@ class ServingEngine:
             item.priority = max(item.priority, 1)
             self.generator.metrics.incr("supervisor_requeue")
             self._submissions.put(item)
+        self._kick.set()
         self._restarting = []
         with self._lock:
             self._error = None
@@ -1306,13 +1540,14 @@ class ServingEngine:
         self._busy = None
 
     def _admit_submissions(self, block: bool) -> None:
-        try:
-            item = self._submissions.get(timeout=0.05) if block else (
-                self._submissions.get_nowait()
-            )
-        except queue.Empty:
-            return
+        if block:
+            self._kick.wait(0.05)  # an idle worker: a submission or a store task
+        self._kick.clear()
         while True:
+            try:
+                item = self._submissions.get_nowait()
+            except queue.Empty:
+                return
             if not item.future.cancelled():
                 try:
                     req_id = self.scheduler.enqueue(
@@ -1324,10 +1559,6 @@ class ServingEngine:
                 else:
                     self._pending[req_id] = item
                     self._register_partial(req_id, item)
-            try:
-                item = self._submissions.get_nowait()
-            except queue.Empty:
-                return
 
     def _run(self, epoch: int) -> None:
         while epoch is not None:
@@ -1390,6 +1621,7 @@ class ServingEngine:
     def _run_sched(self, epoch: int) -> None:
         sched = self.scheduler
         while not self._closed.is_set():
+            self._run_host_tasks()
             self._admit_submissions(block=sched.total_work == 0)
             if not sched.total_work:
                 continue
@@ -1401,7 +1633,13 @@ class ServingEngine:
                 self._forget(req_id)
             if not sched.total_work:
                 continue
-            for outcome in self._device_call(epoch, "mixed dispatch", sched.step):
+            outcomes = self._device_call(epoch, "mixed dispatch", sched.step)
+            if sched.mirror_pending and not sched.total_work:
+                # the fabric: the last mirrored blocks of a replica left
+                # idle land in the pool now (no later window comes), before
+                # their requests settle, so a peer's fetch finds them
+                self._device_call(epoch, "mirror drain", sched.drain_mirror)
+            for outcome in outcomes:
                 self._forget(outcome.req_id)
                 item = self._pending.pop(outcome.req_id, None)
                 if item is None:
@@ -1528,6 +1766,7 @@ class ServingEngine:
 
     def _fail_outstanding(self, exc: BaseException) -> None:
         self._partial_cbs.clear()
+        self._fail_host_tasks(exc)
         for item in self._restarting:  # a restart interrupted by close()
             _settle(item.future, exc=exc)
         self._restarting = []

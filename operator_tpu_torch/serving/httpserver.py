@@ -39,8 +39,12 @@ the reference's ``_resolve_adapter`` does for a name that is neither the
 base model nor an adapter (the port registers no adapters).  The
 guided-decoding fields (``guided_choice``, ``guided_regex``,
 ``guided_json`` and a ``response_format`` other than
-``{"type": "text"}``) answer 400 naming ROADMAP Queue 1 item 9, and
-``GET /kv/blocks/{hash}`` answers 404 naming item 5b (the fabric's wire).
+``{"type": "text"}``) answer 400 naming ROADMAP Queue 1 item 9.
+
+``GET /kv/blocks/{hash}`` is the fleet KV fabric's peer endpoint: the
+block's PMKV1 wire bytes (``fabric/wire.py``) out of the engine's host
+pool (200, ``application/octet-stream``), 404 when it is not pooled
+here, 400 for a hash that is not 32 lower-case hex characters.
 
 Auth: set ``api_token`` (env OPERATOR_TPU_API_TOKEN via the CLI) to
 require ``Authorization: Bearer <token>``; ``/healthz`` stays open for
@@ -75,6 +79,17 @@ _STREAMED = object()
 #: sentinel: the bounded pre-header peek in _stream expired before the
 #: first engine update — commit the SSE headers and report in-stream
 _PEEK_TIMED_OUT = object()
+
+
+class _Binary:
+    """A route payload that goes out as ``application/octet-stream`` (the
+    fabric's /kv/blocks wire bytes), apart from the plain ``bytes`` the
+    /metrics exposition sends as text."""
+
+    __slots__ = ("data",)
+
+    def __init__(self, data: bytes) -> None:
+        self.data = data
 
 
 def _content_text(content: Any) -> str:
@@ -230,6 +245,7 @@ class CompletionServer:
 
     async def start(self) -> None:
         self.engine.start()
+        self.engine.start_fabric_poll()
         # limit= makes readuntil overrun (-> 431) at exactly the header
         # budget instead of the 64 KiB StreamReader default; readexactly
         # for bodies is unaffected by the buffer limit
@@ -347,7 +363,9 @@ class CompletionServer:
                 pass
             return
         try:
-            if isinstance(payload, bytes):  # /metrics Prometheus exposition
+            if isinstance(payload, _Binary):  # /kv/blocks wire payload
+                data, ctype = payload.data, "application/octet-stream"
+            elif isinstance(payload, bytes):  # /metrics Prometheus exposition
                 data = payload
                 ctype = (
                     "application/openmetrics-text; version=1.0.0; charset=utf-8"
@@ -474,19 +492,21 @@ class CompletionServer:
                 self._parse_json(body), chat=True, writer=writer, reader=reader
             )
         if method == "GET" and path.startswith("/kv/blocks/"):
-            return self._kv_block(path)
+            return await self._kv_block(path)
         raise ApiError(404, f"no route for {method} {path}")
 
-    @staticmethod
-    def _kv_block(path: str):
-        """The fleet KV fabric's peer endpoint needs the PMKV1 wire
-        (``fabric/wire.py``) and ``ServingEngine.kv_block_bytes``: not
-        ported yet."""
-        raise ApiError(
-            404,
-            f"{path}: the KV fabric's /kv/blocks endpoint is not ported to "
-            "operator_tpu_torch yet (ROADMAP.md Queue 1 item 5b)",
-        )
+    async def _kv_block(self, path: str):
+        """The fleet KV fabric's peer endpoint: one KV block straight out
+        of the host pool, in the PMKV1 wire format (``fabric/wire.py``).
+        Token-gated like every non-probe route (the auth check already
+        ran); the encode (a sha256 over the page) runs off this loop."""
+        hash_hex = path.rsplit("/", 1)[-1].lower()
+        if len(hash_hex) != 32 or any(c not in "0123456789abcdef" for c in hash_hex):
+            raise ApiError(400, f"malformed block hash {hash_hex!r}")
+        data = await asyncio.to_thread(self.engine.kv_block_bytes, hash_hex)
+        if data is None:
+            raise ApiError(404, f"block {hash_hex} is not pooled here")
+        return 200, _Binary(data)
 
     @staticmethod
     def _parse_json(body: bytes) -> dict:

@@ -24,13 +24,21 @@ host-RAM pool ``KV_HOST_POOL_MB`` (0 = none); the wave engine reads
 ``OPERATOR_TPU_PAGED_KERNEL`` (``v1``/``v2``).  Both loops are supervised
 by default, as in the reference: ``ENGINE_SUPERVISOR`` (true) with
 ``SUPERVISOR_STALL_S`` (120) and ``SUPERVISOR_JOIN_GRACE_S`` (10) build the
-engine's ``SupervisorPolicy``.
+engine's ``SupervisorPolicy``.  The fleet KV fabric, on the continuous
+path: ``KV_FABRIC`` (false) gives the engine a ``FabricFetcher`` over an
+empty index (``KV_FABRIC_FETCH_TIMEOUT_S`` 2, ``KV_FABRIC_CONCURRENCY``
+4; ``SERVING_REPLICA_ID`` or ``POD_NAME`` is the replica's own id and
+``OPERATOR_TPU_API_TOKEN`` the peers' bearer token), ``KV_FABRIC_MIRROR``
+(true) mirrors new prompt blocks into the host pool when there is one,
+``KV_FABRIC_PEERS`` (comma-separated peer URLs) adds a ``PeerPoller``
+every ``KV_FABRIC_POLL_S`` (5); ``REPLICA_ROLE`` (``mixed``) is the role
+``/healthz`` advertises.
 
 A knob whose feature is not ported is refused when it is set away from
 its default, naming the ROADMAP Queue 1 item that ports it:
 ``KV_CACHE_MODE=contiguous`` (item 8), ``PREFILL_CHUNK`` (item 7),
-``SERVING_MESH`` (item 11), ``LORA_DIR`` (item 9), ``AOT_CACHE_PATH``
-(item 10) and ``KV_FABRIC`` (item 5b).  The reference would fall back to
+``SERVING_MESH`` (item 11), ``LORA_DIR`` (item 9) and ``AOT_CACHE_PATH``
+(item 10).  The reference would fall back to
 the wave engine for a mesh or LoRA on the continuous path; the port does
 not serve something else quietly.  As in the reference, the queue limit
 and the overload ladder are not read here: the caller that wants them
@@ -195,7 +203,6 @@ def _refuse_unported(config: OperatorConfig) -> None:
         ("SERVING_MESH", config.serving_mesh, "11", "multi-device serving"),
         ("LORA_DIR", config.lora_dir, "9", "LoRA adapters"),
         ("AOT_CACHE_PATH", config.aot_cache_path, "10", "the AOT executable cache"),
-        ("KV_FABRIC", config.kv_fabric, "5b", "the fleet KV fabric"),
     )
     for name, value, item, feature in unported:
         if value:
@@ -322,6 +329,14 @@ def build_serving_engine(
         spec_decode=config.spec_decode,
         spec_lookup_k=config.spec_lookup_k,
         kvstore=kvstore,
+        # the fleet KV fabric: mirror newly registered prompt blocks into
+        # the host pool so peers can fetch them over GET /kv/blocks/{hash}
+        fabric_mirror=(
+            config.kv_fabric
+            and config.kv_fabric_mirror
+            and kvstore is not None
+            and kvstore.host_pool is not None
+        ),
     )
     log.info(
         "serving mode: CONTINUOUS scheduler (pipeline_depth=%d "
@@ -330,8 +345,10 @@ def build_serving_engine(
         scheduler.depth, scheduler.spec_k > 0, scheduler.spec_k,
         scheduler._kvstore is not None, config.kv_host_pool_mb,
     )
-    engine = ServingEngine(generator, scheduler, supervisor=supervisor)
-    return _with_role(engine, config), model_id
+    engine = _with_role(ServingEngine(generator, scheduler, supervisor=supervisor), config)
+    if config.kv_fabric:
+        _with_fabric(engine, config, env)
+    return engine, model_id
 
 
 def _with_role(engine: ServingEngine, config: OperatorConfig) -> ServingEngine:
@@ -340,6 +357,46 @@ def _with_role(engine: ServingEngine, config: OperatorConfig) -> ServingEngine:
     by it."""
     engine.replica_role = normalize_role(config.replica_role)
     return engine
+
+
+def _with_fabric(engine: ServingEngine, config: OperatorConfig, env: Mapping[str, str]) -> None:
+    """The fleet KV fabric, as the reference wires it: a fetcher over a
+    private empty index, fed by an in-process router's ``kv_index`` (the
+    caller sets ``engine.fabric.index``) or by the ``KV_FABRIC_PEERS``
+    poller; with neither, the empty-index gate makes the fabric cost a
+    request nothing."""
+    from ..fabric.fetch import FabricFetcher
+    from ..fabric.index import FabricIndex
+
+    metrics = engine.generator.metrics
+    self_id = env.get("SERVING_REPLICA_ID") or env.get("POD_NAME") or ""
+    engine.fabric = FabricFetcher(
+        FabricIndex(),
+        api_token=env.get("OPERATOR_TPU_API_TOKEN") or None,
+        timeout_s=config.kv_fabric_fetch_timeout_s,
+        concurrency=config.kv_fabric_concurrency,
+        self_id=self_id,
+        metrics=metrics,
+    )
+    peers = [u.strip() for u in config.kv_fabric_peers.split(",") if u.strip()]
+    if peers:
+        from ..fabric.peers import PeerPoller
+
+        engine.fabric_poller = PeerPoller(
+            engine.fabric.index,
+            peers=peers,
+            self_id=self_id,
+            poll_s=config.kv_fabric_poll_s,
+            timeout_s=config.kv_fabric_fetch_timeout_s,
+            metrics=metrics,
+        )
+    log.info(
+        "fleet KV fabric: fetch timeout %.2fs concurrency %d role %s "
+        "mirror %s peers %s",
+        config.kv_fabric_fetch_timeout_s, config.kv_fabric_concurrency,
+        engine.replica_role, config.kv_fabric_mirror,
+        ",".join(peers) or "<in-process index>",
+    )
 
 
 def build_tpu_native_provider(

@@ -46,7 +46,10 @@ needs pages, LRU refcount-zero blocks are evicted; with a host pool
 to pinned host memory on a side stream, and put into the pool inside the
 commit step's existing host-sync window, restorable later with one page
 copy.  ``fabric_mirror`` copies newly donated blocks into the pool the
-same way.  Greedy output is byte-identical cache-on vs cache-off.
+same way; a worker with no work left lands the last window's mirror
+copies at once (``drain_mirror``), so a prompt that finished in the
+window its prefill completed (a one-token prefill leg) is servable to
+peers.  Greedy output is byte-identical cache-on vs cache-off.
 
 **Admission** is the reference's, one request at a time: expired queued
 requests fail (``_sweep_expired``), the head is the highest priority
@@ -644,6 +647,19 @@ class Scheduler:
                 if entry is not None and entry.page < 0:
                     store.forget(old)
         self._pending_offload.clear()
+
+    @property
+    def mirror_pending(self) -> bool:
+        """Mirror copies gathered but not yet in the host pool."""
+        return bool(self._pending_mirror)
+
+    def drain_mirror(self) -> None:
+        """Land the pending mirror copies now, outside a commit window
+        (the engine's worker calls this when it has no work left; the
+        reference leaves them to the next window, which an idle replica
+        never reaches)."""
+        if self._pending_mirror:
+            self._drain_mirror()
 
     def _drain_mirror(self) -> None:
         """Put mirrored prompt blocks' host copies into the pool — same

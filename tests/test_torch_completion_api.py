@@ -22,7 +22,7 @@ Also: ``resume_tokens`` continue as in the JAX engine (continuous mode;
 the wave engine refuses them in both).  The port alone: a client that
 disconnects mid-stream releases its row and pages on both loops; a
 closed engine answers "server shutting down" to a plain request and in a
-stream; ``/kv/blocks`` names its ROADMAP item; ``/profile`` captures a
+stream; ``/kv/blocks`` serves a mirrored block; ``/profile`` captures a
 ``torch.profiler`` trace.  Every network call has its own timeout.
 """
 
@@ -574,16 +574,42 @@ def test_disconnect_cancels_the_request_and_returns_its_pages(torch_params, mode
 
 
 def test_kv_blocks_route_names_its_roadmap_item(torch_params):
-    engine = _port_engine(torch_params, "continuous", store=False)
+    """The fabric's peer route (once a refusal naming item 5b) serves a
+    pooled block: a mirrored prompt block answers 200 with its PMKV1
+    bytes, which the JAX package decodes to the pooled page; a block not
+    pooled here answers 404 (``tests/test_torch_fabric.py`` holds the
+    route to the JAX server)."""
+    from operator_tpu.fabric import decode_block as jax_decode_block
+    from operator_tpu_torch.fabric import encode_block
+    from operator_tpu_torch.ops.kv_transfer import HostKVPool
+    from operator_tpu_torch.serving.types import SamplingParams
+
+    generator = Generator(
+        torch_params, TINY_TEST, ByteTokenizer(), cache_dtype=torch.float32, device="cpu",
+        metrics=MetricsRegistry(), **SHAPE,
+    )
+    store = kvstore.PrefixKVStore(16, host_pool=HostKVPool(8), metrics=generator.metrics)
+    engine = ServingEngine(generator, Scheduler(generator, kvstore=store, fabric_mirror=True))
     server = CompletionServer(engine, model_id="tiny-test", host="127.0.0.1", port=0)
+    prompt = "the quick brown fox jumps over the lazy dog " * 2
     with event_loop_thread() as run:
         run(server.start())
         try:
-            status, _, data = call(server.bound_port, "GET", "/kv/blocks/" + "0" * 32)
+            run(engine.generate(prompt, SamplingParams(max_tokens=2, temperature=0.0)))
+            h = kvstore.block_hashes(generator.tokenizer.encode(prompt), 16)[0]
+            status, head, data = call(server.bound_port, "GET", f"/kv/blocks/{h.hex()}")
+            missing, _, miss_body = call(server.bound_port, "GET", "/kv/blocks/" + "0" * 32)
         finally:
             run(server.stop())
             engine.close()
-    assert status == 404 and "item 5b" in json.loads(data)["error"]["message"]
+    k, v = store.host_pool.get(h)
+    assert status == 200 and "application/octet-stream" in head
+    assert data == encode_block(h, k, v)
+    got_hash, jk, jv = jax_decode_block(data)
+    assert got_hash == h and np.array_equal(jk, k.numpy()) and np.array_equal(jv, v.numpy())
+    assert missing == 404 and "not pooled here" in json.loads(miss_body)["error"]["message"]
+    assert generator.metrics.counter("fabric_serve_hit") == 1
+    assert generator.metrics.counter("fabric_serve_miss") == 1
 
 
 def test_profile_writes_a_trace_and_guards_its_window(torch_params, tmp_path):

@@ -325,6 +325,17 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import operator_tpu_torch.operator.patternsync, operator_tpu_torch.operator.httpapi\n"
         "import operator_tpu_torch.operator.kubefacade, operator_tpu_torch.schema.crdgen\n"
         "import operator_tpu_torch.obs.view, operator_tpu_torch.patterns.__main__\n"
+        "import operator_tpu_torch.fabric.wire, operator_tpu_torch.fabric.fetch\n"
+        "import operator_tpu_torch.fabric.peers, operator_tpu_torch.fabric.disagg\n"
+        "import operator_tpu_torch.chaos, operator_tpu_torch.chaos.conductor\n"
+        "import operator_tpu_torch.chaos.scenario, operator_tpu_torch.chaos.invariants\n"
+        "import operator_tpu_torch.chaos.library, operator_tpu_torch.chaos.shrink\n"
+        "import torch\n"
+        "k = torch.arange(8, dtype=torch.float32).to(torch.bfloat16).reshape(2, 4)\n"
+        "_h, k2, _v = operator_tpu_torch.fabric.decode_block(\n"
+        "    operator_tpu_torch.fabric.encode_block(b'\\x01' * 16, k, k))\n"
+        "assert torch.equal(k, k2)\n"
+        "assert operator_tpu_torch.chaos.builtin_scenarios()[0].fingerprint()\n"
         "import importlib, pkgutil, asyncio\n"
         "for info in pkgutil.walk_packages(operator_tpu_torch.__path__, 'operator_tpu_torch.'):\n"
         "    importlib.import_module(info.name)\n"
@@ -365,7 +376,10 @@ def test_no_jax_import_in_port_sources():
                    "router/discovery.py", "operator/patternsync.py", "operator/httpapi.py",
                    "operator/kubefacade.py", "schema/crdgen.py", "obs/view.py",
                    "patterns/__main__.py", "loadgen/arrivals.py", "loadgen/driver.py",
-                   "loadgen/storm.py", "loadgen/__main__.py"):
+                   "loadgen/storm.py", "loadgen/__main__.py", "fabric/wire.py",
+                   "fabric/fetch.py", "fabric/peers.py", "fabric/disagg.py",
+                   "chaos/scenario.py", "chaos/invariants.py", "chaos/library.py",
+                   "chaos/conductor.py", "chaos/shrink.py", "chaos/__init__.py"):
         assert f"operator_tpu_torch/{module}" in names
     bad = [hit for path in files for hit in _forbidden_imports(path)]
     assert not bad, bad

@@ -38,7 +38,11 @@ The ragged kernel also at llama-3-8b's head layout (QH=32, KH=8,
 D=128: the group of 4 the deployed model serves with), on short and
 long rows, and a supervised restart of a continuous engine on the card
 (a stalled step, the supervisor's reset) leaves its device memory where
-it was.
+it was.  The fleet KV fabric on the card: a page gathered by one engine,
+sent through the PMKV1 wire and restored by a second is the first's
+device page byte for byte (and the second's greedy tokens the first's),
+and the ragged kernel at llama-3-8b's heads over a page restored from the
+wire agrees with its plain version.
 On the CPU, the ragged kernel's launch plan is a function of shapes
 alone, and the ragged and decode wrappers' copies of their kernels'
 split geometry and the similarity wrapper's layouts are the sources' and
@@ -1079,3 +1083,98 @@ def test_cuda_supervised_restart_leaves_no_device_memory_behind(cuda):
         assert acc["available"] + acc["store_pages"] + acc["prefix_pages"] == acc["total"]
     finally:
         engine.close()
+
+
+@pytest.mark.cuda
+def test_cuda_page_through_the_wire_restores_byte_for_byte_on_a_second_engine(cuda):
+    """Two continuous engines on the card: A mirrors a prompt's blocks
+    (gathered on the card into its pinned pool), B prefetches them through
+    the PMKV1 wire and restores them; each restored page is A's device
+    page byte for byte and B's greedy tokens are A's when A restores the
+    same blocks from its own pool."""
+    import asyncio
+
+    from operator_tpu_torch.fabric import FabricIndex
+    from operator_tpu_torch.serving.kvstore import block_hashes
+    from operator_tpu_torch.serving.provider import build_serving_engine
+    from operator_tpu_torch.serving.types import SamplingParams
+
+    env = {"OPERATOR_TPU_MODEL": "tiny-test", "ALLOW_RANDOM_WEIGHTS": "true",
+           "MAX_BATCH_SIZE": "4", "KV_PAGE_SIZE": "16", "KV_FABRIC": "true",
+           "KV_HOST_POOL_MB": "16"}
+    engine_a, _ = build_serving_engine("cuda", {**env, "SERVING_REPLICA_ID": "a"})
+    engine_b, _ = build_serving_engine("cuda", {**env, "SERVING_REPLICA_ID": "b"})
+    prompt = "the quick brown fox jumps over the lazy dog " * 2
+    greedy = SamplingParams(max_tokens=8, temperature=0.0, stop_on_eos=False)
+    try:
+        for engine in (engine_a, engine_b):
+            engine.warmup()
+        asyncio.run(engine_a.generate(prompt, greedy))
+        # like for like: A restores the same blocks from its own pool, so
+        # both engines run the same chunks (K1's split rounds by a chunk's
+        # place)
+        engine_a.store_executor.submit(engine_a.scheduler.spill_cache).result(30)
+        want = asyncio.run(engine_a.generate(prompt, greedy))
+        assert engine_a.generator.metrics.counter("kv_restore") == 5
+        hashes = block_hashes(engine_a.generator.tokenizer.encode(prompt), 16)
+        index = FabricIndex()
+        index.update("a", [h.hex() for h in hashes], url="http://a")
+
+        async def transport(url, budget_s):
+            data = engine_a.kv_block_bytes(url.rsplit("/", 1)[-1])
+            return (404, b"") if data is None else (200, data)
+
+        engine_b.fabric.index, engine_b.fabric._transport = index, transport
+        got = asyncio.run(engine_b.generate(prompt, greedy))
+        metrics = engine_b.generator.metrics
+        assert metrics.counter("fabric_prefetch_adopted") == len(hashes) == 5
+        assert metrics.counter("kv_restore") == len(hashes)
+        assert got.token_ids == want.token_ids
+        cache_a, cache_b = engine_a.generator.paged_cache, engine_b.generator.paged_cache
+        for h in hashes:
+            page_a = engine_a.scheduler._kvstore.get(h).page
+            page_b = engine_b.scheduler._kvstore.get(h).page
+            assert page_a >= 0 and page_b >= 0
+            assert torch.equal(cache_a.k_pages[:, page_a], cache_b.k_pages[:, page_b])
+            assert torch.equal(cache_a.v_pages[:, page_a], cache_b.v_pages[:, page_b])
+    finally:
+        engine_a.close()
+        engine_b.close()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+def test_cuda_kernel_over_a_page_restored_from_the_wire_matches_plain_version(
+        cuda, dtype_name):
+    """K1 at llama-3-8b's heads (D = 128, group 4, page 64) over a page
+    gathered from another cache on the card, sent through the PMKV1 wire
+    and restored: the restored page is the sender's byte for byte, and the
+    kernel agrees with the plain version on every valid row."""
+    from types import SimpleNamespace
+
+    from operator_tpu_torch.fabric import decode_block, encode_block
+    from operator_tpu_torch.ops import kv_transfer
+
+    dtype = getattr(torch, dtype_name)
+    kv_len, q_count = [700, 129, 64, 1], [1, 5, 8, 1]
+    args, window, q_count = _paged_inputs(kv_len, q_count, None, 64, 12, 31, dtype, "cuda",
+                                          **LLAMA3_HEADS)
+    rng = np.random.default_rng(9)
+    sender = SimpleNamespace(**{
+        name: torch.from_numpy(rng.normal(size=(1, 8, 64, 8, 128)).astype(np.float32))
+        .to("cuda", dtype) for name in ("k_pages", "v_pages")})
+    k_host, v_host = kv_transfer.fetch_page(*kv_transfer.gather_page(sender, 5)).wait()
+    _h, k, v = decode_block(encode_block(b"\x07" * 16, k_host, v_host))
+    receiver = SimpleNamespace(k_pages=args[1][None], v_pages=args[2][None])
+    for row in range(3):  # the page each of the long rows reads first
+        kv_transfer.restore_page(receiver, int(args[3][row, 0]), k, v)
+    torch.cuda.synchronize()
+    target = int(args[3][0, 0])
+    assert torch.equal(args[1][target], sender.k_pages[0, 5])
+    assert torch.equal(args[2][target], sender.v_pages[0, 5])
+    before = ragged.launches
+    got = ragged.ragged_paged_attention(*args, sliding_window=window)
+    torch.cuda.synchronize()
+    assert ragged.launches == before + 1
+    want = ragged.ragged_attention_reference(*args, sliding_window=window)
+    assert _valid_rows_err(got, want, q_count) <= TOL[dtype_name]

@@ -13,8 +13,10 @@
 - an ``EngineReplica`` storm on the port's engine (CPU, ``tiny-test``,
   supervised as ``build_serving_engine`` builds it) settles every arrival;
 - ``python -m operator_tpu_torch.loadgen`` exits 0 with ``loadgen smoke:
-  OK`` (and the elastic lane with its own line), while the lanes that need
-  the fabric (5b) or the chaos conductor (5d) refuse, naming their item.
+  OK``, and its elastic, overload, disaggregation and game-day lanes with
+  their own lines;
+- a disaggregated storm settles every arrival, each analysis as a
+  prefill leg and a decode leg.
 """
 
 import asyncio
@@ -226,20 +228,57 @@ def test_loadgen_cli_lanes_pass(lane, env, expect):
     assert proc.stdout.strip().splitlines()[-1] == expect
 
 
-@pytest.mark.parametrize("env,item", [
-    ({"LOADGEN_DISAGG": "1"}, "item 5b"),
-    ({"LOADGEN_GAMEDAY": "1"}, "item 5d"),
+@pytest.mark.parametrize("env,expect", [
+    # the ids are those of the refusals these lanes replaced (items 5b, 5d)
+    pytest.param({"LOADGEN_DISAGG": "1"}, "loadgen disagg: OK", id="env0-item 5b"),
+    pytest.param({"LOADGEN_GAMEDAY": "1"}, "loadgen gameday: OK", id="env1-item 5d"),
 ])
-def test_loadgen_lanes_not_ported_refuse_naming_their_item(env, item):
+def test_loadgen_lanes_not_ported_refuse_naming_their_item(env, expect):
+    """The disaggregation and game-day lanes (once refusals naming items
+    5b and 5d) exit 0 with the reference's OK lines."""
     proc = subprocess.run(
         [sys.executable, "-m", "operator_tpu_torch.loadgen", "--device", "cpu"],
-        cwd=REPO, capture_output=True, text=True, timeout=120,
+        cwd=REPO, capture_output=True, text=True, timeout=240,
         env={**os.environ, **env},
     )
-    assert proc.returncode != 0
-    assert "NotImplementedError" in proc.stderr and item in proc.stderr
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert proc.stdout.strip().splitlines()[-1] == expect
 
 
 def test_a_disaggregated_storm_refuses_naming_item_5b():
-    with pytest.raises(NotImplementedError, match="item 5b"):
-        storm.InProcessServingBackend([storm.SyntheticReplica("r0")], disaggregate=True)
+    """A disaggregated storm (once a refusal naming item 5b) settles every
+    arrival, as the JAX package's does: each analysis runs as a prefill
+    leg on the prefill replica and a decode leg on a decode replica."""
+    spec = {"name": "disagg", "rate_per_min": 240.0, "duration_s": 2.0, "burst_factor": 3.0,
+            "burst_every_s": 2.0, "burst_len_s": 0.5}
+
+    def drive(module, process, **kw):
+        async def run():
+            fleet = [module.SyntheticReplica(f"d-{role}-{i}", concurrency=2, time_scale=0.2,
+                                             role=role)
+                     for i, role in enumerate(("prefill", "decode", "decode"))]
+            stack = await module.build_storm_stack(replicas=fleet, time_scale=0.2,
+                                                   disaggregate=True, **kw)
+            try:
+                report = await module.run_storm(stack, process, drain_s=20.0)
+            finally:
+                stack.close()
+            return report, fleet, stack.metrics.counter("fabric_disagg_handoff")
+
+        return asyncio.run(run())
+
+    report, fleet, handoffs = drive(storm, ArrivalProcess(ArrivalSpec(**spec), seed=3),
+                                    device="cpu")
+    ref, ref_fleet, ref_handoffs = drive(
+        jax_storm, JaxArrivalProcess(JaxArrivalSpec(**spec), seed=3))
+    total = report["slo"]["total"]
+    assert report["arrivals"] == ref["arrivals"] > 0
+    assert report["fingerprint"] == ref["fingerprint"]
+    assert report["slo"]["pending"] == ref["slo"]["pending"] == 0
+    assert total["admitted"] == report["arrivals"] - report["cancelled_at_drain"]
+    assert handoffs > 0 and ref_handoffs > 0
+    prefill, *decode = fleet
+    assert prefill.served_by_phase.get("prefill", 0) > 0
+    assert sum(r.served_by_phase.get("decode", 0) for r in decode) > 0
+    assert (report["fleet"]["fleet"]["roles"]["prefill"]["replicas"],
+            report["fleet"]["fleet"]["roles"]["decode"]["replicas"]) == (1, 2)

@@ -1,8 +1,9 @@
 """The port's ``build_serving_engine`` and ``tpu-native`` provider against
 the JAX package's.
 
-- Every serving knob the reference reads resolves to the same setting in
-  both, through each package's ``OperatorConfig.from_env``; a knob whose
+- Every serving knob the reference reads (the fleet KV fabric's
+  ``KV_FABRIC*`` too) resolves to the same setting in both, through each
+  package's ``OperatorConfig.from_env``; a knob whose
   feature is not ported is refused with a message naming its ROADMAP
   Queue 1 item.
 - With ``CHECKPOINT_DIR`` (a tiny ``transformers`` Llama checkpoint with
@@ -79,8 +80,19 @@ def _resolved(engine, sched, params_dtype) -> dict:
     g = engine.generator
     store = sched._kvstore if sched is not None else None
     policy = engine._supervisor
+    fetcher, poller = engine.fabric, engine.fabric_poller
     return {
         "supervisor": dataclasses.asdict(policy) if policy is not None else None,
+        "fabric": None if fetcher is None else {
+            "timeout_s": fetcher.timeout_s, "concurrency": fetcher._sem._value,
+            "self_id": fetcher.self_id, "api_token": fetcher.api_token,
+            "index_empty": fetcher.index.empty(),
+        },
+        "fabric_poller": None if poller is None else {
+            "peers": poller.peers, "poll_s": poller.poll_s, "timeout_s": poller.timeout_s,
+            "self_id": poller.self_id, "same_index": poller.index is fetcher.index,
+        },
+        "fabric_mirror": sched._fabric_mirror if sched is not None else None,
         "num_pages": g.allocator.num_pages,
         "sample_top_k": g.sample_top_k,
         "weights": params_dtype,
@@ -137,10 +149,27 @@ def _jax(env, monkeypatch) -> dict:
     ("SUPERVISOR_STALL_S", "7.5"),
     ("SUPERVISOR_JOIN_GRACE_S", "2.5"),
     ("ENGINE_SUPERVISOR", "false"),
+    # the fleet KV fabric (each case adds KV_FABRIC=true and its extras)
+    ("KV_FABRIC", "true"),
+    ("KV_FABRIC_FETCH_TIMEOUT_S", "0.75"),
+    ("KV_FABRIC_CONCURRENCY", "9"),
+    ("KV_FABRIC_MIRROR", "false"),
+    ("KV_FABRIC_PEERS", "http://peer-a:8000, http://peer-b:8000"),
+    ("KV_FABRIC_POLL_S", "0.5"),
+    ("SERVING_REPLICA_ID", "replica-7"),
+    ("KV_FABRIC_WAVE", "wave"),
 ])
 def test_provider_knob_resolves_as_the_jax_package(knob, value, monkeypatch):
     env = dict(BASE)
-    if knob is not None:
+    if knob is not None and knob.startswith(("KV_FABRIC", "SERVING_REPLICA_ID")):
+        # the fabric's knobs, with a host pool for the mirror to land in
+        env.update({"KV_FABRIC": "true", "KV_HOST_POOL_MB": "8", "POD_NAME": "pod-3",
+                    "OPERATOR_TPU_API_TOKEN": "tok", "KV_FABRIC_PEERS": "http://peer:8000"})
+        if knob == "KV_FABRIC_WAVE":
+            env["SCHED_MODE"] = value
+        elif knob != "KV_FABRIC":
+            env[knob] = value
+    elif knob is not None:
         env[knob] = value
     port_config = dataclasses.asdict(OperatorConfig.from_env(env))
     assert port_config == dataclasses.asdict(JaxOperatorConfig.from_env(env))
@@ -164,8 +193,15 @@ def test_provider_knob_resolves_as_the_jax_package(knob, value, monkeypatch):
     if knob in pins:
         key, want = pins[knob]
         assert got[key] == want
+    if env.get("KV_FABRIC") and env.get("SCHED_MODE") != "wave":
+        assert got["fabric"]["self_id"] == env.get("SERVING_REPLICA_ID", "pod-3")
+        assert got["fabric"]["index_empty"] and got["fabric_poller"]["same_index"]
+        assert got["fabric_mirror"] == (knob != "KV_FABRIC_MIRROR")
+    elif env.get("KV_FABRIC"):
+        assert got["fabric"] is None  # the wave engine has no fabric, as in JAX
     if knob is None:
         assert got["weights"] == "int8" and got["prefix_cache"]
+        assert got["fabric"] is None and got["fabric_mirror"] is False
         assert got["host_pool_bytes"] is None
         assert got["supervisor"] == {
             "stall_timeout_s": 120.0, "join_grace_s": 10.0, "max_requeues": 1}
@@ -198,7 +234,6 @@ def test_weight_dtype_wins_over_serving_dtype():
     ("SERVING_MESH", "tp=2", "item 11"),
     ("LORA_DIR", "/nonexistent/adapters", "item 9"),
     ("AOT_CACHE_PATH", "/nonexistent/aot", "item 10"),
-    ("KV_FABRIC", "true", "item 5b"),
     ("KV_CACHE_MODE", "contiguous", "item 8"),
 ])
 def test_provider_refuses_unported_knobs_naming_their_item(knob, value, item):
