@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/H100 port (``operator_tpu_torch``).
 
-    python3 chip_smoke.py [--out results.json]
-        [--phases device,kernels,serve,wave,analysis,checkpoint,operator,remote,fleet,deployed,
-                  fabric,parity]
+    python3 chip_smoke.py [--out results.json] [--seed N]
+        [--phases device,kernels,serve,wave,guided,analysis,checkpoint,operator,remote,fleet,
+                  deployed,fabric,parity]
 
 Runs on one CUDA card, from the root of a checkout; exits non-zero, and
 prints no result, when no card is present or the package is missing.
@@ -91,7 +91,46 @@ Phases, in order — any failure stops the run:
    stall budget after four steps: the supervisor must restart once and
    requeue every request in flight, the decode and prefill kernels launch
    again after the restart, and every page and slot comes back free;
-5. analysis: the semantic analysis path at the full width of
+5. guided: guided decoding and multi-LoRA on the wave engine at
+   tinyllama-1.1b's full width (int8, 32 slots, page 64, flash prefill
+   on), built by ``build_serving_engine`` with the default
+   ``SCHED_MODE`` (continuous) and ``LORA_DIR`` naming ``incident`` and
+   ``verbose`` (rank 16, wq/wk/wv/wo, alpha 16, a and b from ``--seed``,
+   b nonzero), ``zero`` (all zeros) and a truncated file, all written by
+   the port's ``save_lora``: the truncated file is skipped with its
+   warning and the adapters fall back to the wave engine (block 4, depth
+   2).  The host builds of a choice, a regex and a root-cause JSON
+   schema's automata (ms, table MiB at the 32,000 vocab).  (a) Thirteen
+   ``/v1/completions`` through the HTTP server, queued together: base,
+   ``model: incident`` and ``model: verbose`` on three prompts each, the
+   zero adapter, a ``guided_choice`` with ``incident``, a
+   ``guided_regex`` and a ``guided_json`` root cause (a summary of up
+   to 32 characters, 192 tokens, sampled; the rest 32 tokens, half
+   greedy).  The greedy adapter rows
+   must differ from the base row and the zero adapter's equal it; the
+   guided rows must be in their languages and their tokens, replayed
+   through their transition tables, never leave them; a replay of the
+   batch from the same sampler state gives the same greedy answers;
+   ``/v1/models`` lists the adapters, an unknown ``model`` is a 404 and
+   ``response_format: json_object`` a 400; K4 launches 22 times per
+   prefill wave, K2/K3 22 x 4 per decode block, K1 and K5 never, and the
+   pages come back.  (b) For one prefill wave and one decode step of
+   base, incident and verbose rows, each of the 22 x 4 adapted
+   projections is held, row by row, to the f32 formula ``x @ W + (x @
+   A[idx] @ B[idx]) * alpha / r`` (``LORA_ATOL`` + ``LORA_RTOL`` times
+   the two terms' magnitudes).  The stream ms per decode block at 32
+   rows: plain rows without the LoRA pass, plain rows on the adapter
+   stack, every row adapted, every row guided, and a quarter of each
+   kind.  (c) The port's ``Operator`` over
+   ``FakeKubeApi`` (an encoder checkpoint of MiniLM width from a seed)
+   with two ``tpu-native`` AIProviders on this engine: one asking for
+   ``lora_adapter: incident`` and the root-cause ``guided_json``, one
+   plain; five failing pods each.  Every stored explanation of the first
+   must parse to the schema, the providers' identity digests differ (and
+   the first's without its ``additionalConfig``), K5 launches once per
+   ``analyze()`` and recall ``query()``, the wave kernels as the drive's
+   waves and blocks say, K1 never;
+6. analysis: the semantic analysis path at the full width of
    all-MiniLM-L6-v2 (f32 weights from a seed, byte-level token ids,
    buckets of 32 texts x 256 tokens) through ``PatternEngine.analyze``
    with a ``SemanticMatcher`` on the card: a crash-loop log of 33,000
@@ -100,7 +139,7 @@ Phases, in order — any failure stops the run:
    set to 0 before each drive: K5 must launch exactly once per analysis
    and once per query, K1-K4 never.  Each K5 call of the drives is held
    to the plain version on its own inputs;
-6. checkpoint: a tinyllama-1.1b checkpoint at full width (bf16, the
+7. checkpoint: a tinyllama-1.1b checkpoint at full width (bf16, the
    serve phase's seeded weights) written by the port's ``save_params``
    as HF-layout shards with an index, with the committed
    SentencePiece-style ``tokenizer.json`` (``tests/torch_tokenizers/``),
@@ -126,7 +165,7 @@ Phases, in order — any failure stops the run:
    load seconds, GB/s, device memory after the load, the drive's wall,
    tokens/s and K1 launches, and the analysis wall, encoder span and K5
    launches are printed with the card's name and power limit;
-7. operator: the port's ``Operator`` (its default device, cuda) over the
+8. operator: the port's ``Operator`` (its default device, cuda) over the
    in-memory ``FakeKubeApi``, with the checkpoint phase's two checkpoints
    (kept for it, deleted after it): ``providerId: tpu-native`` through
    two AIProviders on the one engine (greedy, and the default
@@ -153,7 +192,7 @@ Phases, in order — any failure stops the run:
    span tree (collect, analyze, recall, generate, store) and the host
    time outside the engine; the drive's tokens/s against the checkpoint
    phase's provider drive, and the recall hit's wall;
-8. remote: the serving front as a service and the operator's remote
+9. remote: the serving front as a service and the operator's remote
    path, on the checkpoint phase's two checkpoints (kept for it too): two
    ``CompletionServer``s, replicas A and B, on an event loop of their own
    over one engine on the card, with the encoder as the embedder and the
@@ -184,7 +223,7 @@ Phases, in order — any failure stops the run:
    stream, the steps from the close to the release, tokens/s, the
    per-pod stage split and the HTTP overhead per request (the provider's
    dispatch span less the replica's own request span) are printed;
-9. fleet: the operator's HA and elastic fleet, on the checkpoint phase's
+10. fleet: the operator's HA and elastic fleet, on the checkpoint phase's
    two checkpoints (kept for it too).  (a) Two ``Operator``s, ``op-a`` and
    ``op-b``, with ``LEADER_ELECTION`` and a 3 s lease over one
    ``FakeKubeApi``, one claims ledger and one ``tpu-native`` engine: ten
@@ -220,7 +259,7 @@ Phases, in order — any failure stops the run:
    kill to takeover, scale-up reaction, replica start, join to the first
    routed request, scale-down and process start to stored status are
    printed;
-10. deployed: the deployed model, llama-3-8b at full width (32 layers,
+11. deployed: the deployed model, llama-3-8b at full width (32 layers,
    hidden 4,096, 32 query heads over 8 KV heads of 128, vocab 128,256,
    rope theta 500,000; int8 weights from a seed), with the committed
    byte-level tokenizer (``tests/torch_tokenizers/llama3_bl`` through
@@ -247,7 +286,7 @@ Phases, in order — any failure stops the run:
    one ``EngineReplica``, a stall after 40 steps: one restart, every
    arrival settles, no torn ledger line; the schedule's fingerprint, the
    attainment and the goodput are printed;
-11. fabric: the fleet KV fabric at llama-3-8b's full width, a prefill
+12. fabric: the fleet KV fabric at llama-3-8b's full width, a prefill
    replica P (``REPLICA_ROLE=prefill``) and a decode replica D
    (``REPLICA_ROLE=decode``, ``KV_FABRIC_PEERS`` naming P) on the card,
    each built by ``build_serving_engine`` with the deployed phase's
@@ -284,7 +323,7 @@ Phases, in order — any failure stops the run:
    are printed.  (d) The auditor records no
    violation.  K1 launches 32 times per step of each engine, K2-K5
    never, and the pages balance after every drive;
-12. parity: small f32 ``tiny-test`` engines on the card (kernels) and on
+13. parity: small f32 ``tiny-test`` engines on the card (kernels) and on
    the CPU (plain versions) must give the same greedy tokens — the
    continuous engine, and the wave engine with the decode selector at
    ``v1`` and ``v2`` and flash prefill on and off; the continuous engine
@@ -313,6 +352,7 @@ import argparse
 import asyncio
 import dataclasses
 import json
+import logging
 import os
 import re
 import shutil
@@ -320,6 +360,7 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.error
 import urllib.request
 
 #: bf16: the plain version rounds the softmax probabilities to bf16 before
@@ -1930,6 +1971,639 @@ def profile_call(drive) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the guided phase: guided decoding and multi-LoRA on the wave engine
+# ---------------------------------------------------------------------------
+
+#: the guided phase's engine: the serve phase's settings with LORA_DIR,
+#: SCHED_MODE left at its default (continuous): adapters fall back to the
+#: wave engine (block 4, depth 2 by default)
+GUIDED_SHAPE = (22, 2048, 32)  # tinyllama-1.1b: layers, hidden, query heads
+GUIDED_CHOICES = ["CrashLoopBackOff", "OOMKilled", "ImagePullBackOff", "Error"]
+GUIDED_REGEX = r"exit code [0-9]{1,3}"
+#: the root cause a Podmortem user asks for (guided_json).  The summary
+#: is capped at 32 characters: at 64 its DFA has 620 states, 19.8M table
+#: entries at the 32,000 vocab, above the 16M cap both packages enforce
+#: (the phase records that refusal)
+ROOT_CAUSE_MAX_SUMMARY = 32
+ROOT_CAUSE_SCHEMA = {
+    "type": "object",
+    "properties": {
+        "reason": {"enum": GUIDED_CHOICES},
+        "confidence": {"type": "integer"},
+        "summary": {"type": "string", "maxLength": ROOT_CAUSE_MAX_SUMMARY},
+    },
+    "required": ["reason", "confidence", "summary"],
+}
+#: a root cause takes up to ~120 byte tokens (the summary 34); the JSON
+#: rows are sampled (temperature 1.0), so the unbounded integer ends with
+#: probability 1/11 a step rather than at a greedy argmax's whim
+GUIDED_JSON_TOKENS = 192
+LORA_RANK, LORA_ALPHA = 16, 16.0
+#: b ~ N(0, 0.02): with a ~ N(0, 1/16) at hidden 2,048 the rank-16 delta
+#: is about as large as the base projection's output (std ~1), so an
+#: adapter moves greedy tokens without swamping the base model
+LORA_B_STD = 0.02
+#: an adapted bf16 projection (int8 ``mm``, its bf16 scale, the two
+#: rank-16 products and the add, each rounded to bf16) against the f32
+#: formula x @ (q * s) + (x @ A[idx] @ B[idx]) * alpha / r: |err| <=
+#: LORA_ATOL + LORA_RTOL * (|x @ W| + |delta|), both terms in f32 — about
+#: four bf16 roundings (2^-9 relative each) at the magnitude of the terms
+#: (which the sum may cancel: the base product is rounded before the add)
+LORA_ATOL, LORA_RTOL = 2e-2, 2e-2
+#: the block-time drives: 32 rows, 64 tokens each, EOS not stopping them,
+#: so every block of a drive carries all 32 rows
+GUIDED_TIMED_TOKENS = 64
+
+
+def write_lora_dir(path: str, config, seed: int) -> dict:
+    """``incident`` and ``verbose`` (rank 16, the default targets, a and b
+    seeded, b nonzero), ``zero`` (all zeros) and ``truncated`` (the first
+    half of incident's file), written by the port's ``save_lora``.  Returns
+    each file's bytes."""
+    import torch
+
+    from operator_tpu_torch.parallel.lora import init_lora, save_lora, zero_lora
+
+    os.makedirs(path, exist_ok=True)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    for name in ("incident", "verbose"):
+        adapter = init_lora(config, gen, rank=LORA_RANK, device="cuda")
+        for factors in adapter.values():
+            factors["b"] = (torch.randn(factors["b"].shape, generator=gen, device="cuda")
+                            * LORA_B_STD).to(torch.bfloat16)
+        save_lora(adapter, os.path.join(path, f"{name}.safetensors"))
+    save_lora(zero_lora(config, rank=LORA_RANK, device="cuda"),
+              os.path.join(path, "zero.safetensors"))
+    with open(os.path.join(path, "incident.safetensors"), "rb") as fh:
+        whole = fh.read()
+    with open(os.path.join(path, "truncated.safetensors"), "wb") as fh:
+        fh.write(whole[: len(whole) // 2])
+    return {name: os.path.getsize(os.path.join(path, name))
+            for name in sorted(os.listdir(path))}
+
+
+class LogTap(logging.Handler):
+    """Keeps the messages a logger emits while attached."""
+
+    def __init__(self) -> None:
+        super().__init__(logging.WARNING)
+        self.messages: list = []
+
+    def emit(self, record) -> None:
+        self.messages.append(record.getMessage())
+
+
+def root_cause_ok(text: str) -> bool:
+    """``text`` parses as JSON and satisfies ROOT_CAUSE_SCHEMA."""
+    try:
+        doc = json.loads(text)
+    except ValueError:
+        return False
+    return (isinstance(doc, dict) and set(doc) == {"reason", "confidence", "summary"}
+            and doc["reason"] in GUIDED_CHOICES
+            and isinstance(doc["confidence"], int) and not isinstance(doc["confidence"], bool)
+            and isinstance(doc["summary"], str)
+            and len(doc["summary"]) <= ROOT_CAUSE_MAX_SUMMARY)
+
+
+class LoraHeld:
+    """Wraps ``models/llama.py:_proj``: for the first prefill pass and the
+    first decode step that carry adapters, holds every adapted projection
+    (22 layers x 4 targets each) to the f32 formula, row by row."""
+
+    def __init__(self, fn, calls: int) -> None:
+        self.fn, self.calls = fn, calls
+        self.held: dict = {"prefill": [], "decode": []}
+
+    def __call__(self, h_in, weights, name, lora=None):
+        import torch
+
+        y = self.fn(h_in, weights, name, lora)
+        if lora is None or name not in lora[0]:
+            return y
+        kind = "decode" if h_in.shape[1] == 1 else "prefill"
+        if len(self.held[kind]) >= self.calls:
+            return y
+        factors, alpha, idx = lora
+        w = weights[name]
+        w32 = w["q"].float() * w["s"].float()[None] if isinstance(w, dict) else w.float()
+        x = h_in.float()
+        a, b = factors[name]["a"].float(), factors[name]["b"].float()
+        base = x @ w32
+        delta = torch.bmm(torch.bmm(x, a[idx]), b[idx]) * (alpha / a.shape[-1])
+        want = base + delta
+        err = (y.float() - want).abs()
+        excess = err - (LORA_ATOL + LORA_RTOL * (base.abs() + delta.abs()))
+        self.held[kind].append({
+            "name": name,
+            "rows": idx.tolist(),
+            "max_abs_err_by_row": err.amax(dim=(1, 2)).tolist(),
+            "excess": excess.max().item(),
+            "max_abs_f32": want.abs().max().item(),
+            "max_abs_delta": delta.abs().max().item(),
+            "finite": bool(torch.isfinite(y).all().item()),
+        })
+        return y
+
+
+def guided_bodies(prompts: list) -> list:
+    """(a)'s thirteen requests: base, incident and verbose on three
+    prompts (the first greedy, the others sampled), the zero adapter on
+    the first (greedy), a choice with ``incident``, a regex (both greedy)
+    and a root cause (sampled)."""
+    bodies = []
+    for model in (None, "incident", "verbose"):
+        for i in range(3):
+            body = {"prompt": prompts[i], "max_tokens": MAX_TOKENS,
+                    "temperature": 0.0 if i == 0 else 0.7, "top_p": 0.95}
+            if model:
+                body["model"] = model
+            bodies.append(body)
+    greedy = {"max_tokens": MAX_TOKENS, "temperature": 0.0}
+    bodies.append({"prompt": prompts[0], "model": "zero", **greedy})
+    bodies.append({"prompt": prompts[3], "model": "incident",
+                   "guided_choice": GUIDED_CHOICES, **greedy})
+    bodies.append({"prompt": prompts[4], "guided_regex": GUIDED_REGEX, **greedy})
+    bodies.append({"prompt": prompts[5], "guided_json": ROOT_CAUSE_SCHEMA,
+                   "max_tokens": GUIDED_JSON_TOKENS, "temperature": 1.0})
+    return bodies
+
+
+def post_status(url: str, body: dict) -> tuple:
+    request = urllib.request.Request(
+        url, data=json.dumps(body).encode(), headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(request, timeout=120) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as exc:
+        return exc.code, json.loads(exc.read())
+
+
+def guided_drive(engine, url: str, bodies: list) -> tuple:
+    """Every body over HTTP at once, queued in order and admitted
+    together (``held_sends``); each request's engine result is captured
+    at ``submit``.  Returns (replies, results in body order, wall s)."""
+    submit = engine.submit
+    futures: list = []
+
+    def recorded(prompt, params=None, **kw):
+        future = submit(prompt, params, **kw)
+        futures.append(future)
+        return future
+
+    engine.submit = recorded
+    try:
+        started = time.perf_counter()
+        replies, _ = held_sends(engine, [
+            (lambda b=body: _post(url, b)) for body in bodies])
+        wall = time.perf_counter() - started
+    finally:
+        engine.submit = submit
+    return replies, [f.result() for f in futures], wall
+
+
+def replay_in_automaton(generator, spec: tuple, result) -> dict:
+    """The row's tokens through its automaton's transition table from the
+    start state: no step may leave it, and a row that stopped must end in
+    an accepting state (EOS allowed)."""
+    generator._ensure_automaton(spec)
+    table = generator._guided_cache[spec].transition
+    state, left = 0, None
+    for step, token in enumerate(result.token_ids):
+        state = int(table[state, token])
+        if state < 0:
+            left = step
+            break
+    eos = generator.tokenizer.eos_id
+    accepting = state >= 0 and table[state, eos] >= 0
+    return {"tokens": len(result.token_ids), "left_at": left,
+            "accepting": bool(accepting), "finish_reason": result.finish_reason}
+
+
+def timed_blocks(engine, config: str, sends: list) -> dict:
+    """One held drive of 32 requests on the engine; the stream ms of each
+    of its decode blocks (every block carries all 32 rows)."""
+    g = engine.generator
+    ms0, blocks0 = len(g.block_ms), g.blocks_dispatched
+    held_sends(engine, sends)
+    deadline = time.time() + 30
+    while (g.num_active or g._inflight_blocks) and time.time() < deadline:
+        time.sleep(0.01)
+    block_ms = sorted(g.block_ms[ms0:])
+    if not block_ms:
+        raise fail(f"guided timing ({config}): no decode block was timed")
+    return {"blocks": g.blocks_dispatched - blocks0, "median_ms": block_ms[len(block_ms) // 2],
+            "mean_ms": sum(block_ms) / len(block_ms), "min_ms": block_ms[0],
+            "max_ms": block_ms[-1]}
+
+
+def phase_guided(results: dict, kernel_modules: dict, seed: int) -> dict:
+    """Guided decoding and multi-LoRA on the wave engine at
+    tinyllama-1.1b's full width (see the module doc).  Returns the
+    kernels' launch counts over (a)'s and (c)'s drives."""
+    import torch
+
+    from operator_tpu_torch.models import llama
+    from operator_tpu_torch.models.configs import get_config
+    from operator_tpu_torch.parallel.lora import DEFAULT_TARGETS
+    from operator_tpu_torch.serving.httpserver import CompletionServer
+    from operator_tpu_torch.serving.json_schema import lower_guided_json
+    from operator_tpu_torch.serving.provider import build_serving_engine
+    from operator_tpu_torch.serving.types import SamplingParams, _bucket
+
+    phase_t0 = time.perf_counter()
+    saved = os.environ.get("OPERATOR_TPU_FLASH_PREFILL")
+    os.environ["OPERATOR_TPU_FLASH_PREFILL"] = "1"
+    workdir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                           "chip_smoke_guided")
+    shutil.rmtree(workdir, ignore_errors=True)
+    lora_dir = os.path.join(workdir, "lora")
+    out: dict = {"card": card_line(), "seed": seed}
+    tap = LogTap()
+    provider_log = logging.getLogger("operator_tpu_torch.serving.provider")
+    engine = None
+    try:
+        out["lora_files"] = write_lora_dir(lora_dir, get_config("tinyllama-1.1b"), seed)
+        t0 = time.perf_counter()
+        provider_log.addHandler(tap)
+        try:
+            engine, model_id = build_serving_engine(
+                "cuda", {**SERVE_ENV, "LORA_DIR": lora_dir}, seed=seed)
+        finally:
+            provider_log.removeHandler(tap)
+        g = engine.generator
+        config = g.config
+        if (config.num_layers, config.hidden_size, config.num_heads) != GUIDED_SHAPE:
+            raise fail(f"guided: not tinyllama-1.1b at full width: {config}")
+        if engine.scheduler is not None or (g.decode_block, g.pipeline_depth) != (4, 2):
+            raise fail("guided: LORA_DIR under SCHED_MODE=continuous did not fall back "
+                       "to the wave engine (block 4, depth 2)")
+        if g.adapter_names != ["incident", "verbose", "zero"]:
+            raise fail(f"guided: adapters {g.adapter_names}, want incident, verbose, zero")
+        warned = [m for m in tap.messages if "truncated.safetensors unusable" in m]
+        fell_back = [m for m in tap.messages if "falling back to the wave engine" in m]
+        if not warned or not fell_back:
+            raise fail(f"guided: warnings {tap.messages}")
+        engine.warmup()
+        torch.cuda.synchronize()
+        out["setup_s"] = time.perf_counter() - t0
+
+        # automaton builds on the host (a fresh cache) and their tables
+        json_regex = lower_guided_json(ROOT_CAUSE_SCHEMA)
+        specs = {"choice": ("choice", tuple(GUIDED_CHOICES)),
+                 "regex": ("regex", GUIDED_REGEX), "json": ("regex", json_regex)}
+        builds = {}
+        for kind, spec in specs.items():
+            t0 = time.perf_counter()
+            g._ensure_automaton(spec)
+            automaton = g._guided_cache[spec]
+            builds[kind] = {"build_ms": (time.perf_counter() - t0) * 1e3,
+                            "states": automaton.num_states,
+                            "table_mib": automaton.transition.nbytes / 2**20}
+        # the same schema with a 64-character summary: over the table cap
+        wide = {**ROOT_CAUSE_SCHEMA, "properties": {
+            **ROOT_CAUSE_SCHEMA["properties"], "summary": {"type": "string", "maxLength": 64}}}
+        try:
+            g._ensure_automaton(("regex", lower_guided_json(wide)))
+        except ValueError as exc:
+            builds["json_summary_64"] = {"refused": str(exc)}
+        else:
+            raise fail("guided: a 64-character summary's automaton was not refused")
+        states = max(b.get("states", 0) for b in builds.values())
+        a_pad = _bucket(len(specs) + 1, 2, 64)
+        s_pad = _bucket(states, 8, g.MAX_GUIDED_STATES)
+        out["automata"] = {"vocab": config.vocab_size, "specs": builds,
+                           "stacked_mib": a_pad * s_pad * config.vocab_size * 4 / 2**20,
+                           "stacked_shape": [a_pad, s_pad, config.vocab_size]}
+
+        server = CompletionServer(engine, model_id=model_id, host="127.0.0.1", port=0)
+        http = HttpLoop(server)
+        base = f"http://127.0.0.1:{server.bound_port}"
+        url = f"{base}/v1/completions"
+        try:
+            _post(url, {"prompt": "warm up", "max_tokens": 4, "temperature": 0.0})
+            prompts = [b["prompt"] for b in request_bodies()]
+            bodies = guided_bodies(prompts)
+
+            # (a) the HTTP drive, held so its replay takes the same steps
+            for module in kernel_modules.values():
+                module.launches = 0
+            waves0, blocks0 = g.prefill_waves, g.blocks_dispatched
+            rng = g._rng.get_state()
+            replies, res, wall = guided_drive(engine, url, bodies)
+            launches_a = {name: m.launches for name, m in kernel_modules.items()}
+            waves, blocks = g.prefill_waves - waves0, g.blocks_dispatched - blocks0
+            deadline = time.time() + 30
+            while (g.num_active or g._inflight_blocks) and time.time() < deadline:
+                time.sleep(0.05)
+            if g.allocator.available != g.allocator.num_pages - 1 or \
+                    len(g.free_slots()) != g.max_slots:
+                raise fail(f"guided: pages or slots held after (a): {g.allocator.available} "
+                           f"of {g.allocator.num_pages - 1} pages, {len(g.free_slots())} slots")
+            layers = config.num_layers
+            want = {"flash_prefill_attention": layers * waves,
+                    "paged_decode_attention": layers * g.decode_block * blocks,
+                    "ragged_paged_attention": 0, "best_window_similarity": 0}
+            if waves == 0 or blocks == 0 or launches_a != want:
+                raise fail(f"guided (a): launches {launches_a} over {waves} prefill waves "
+                           f"and {blocks} blocks; want {want}")
+            texts = [r["choices"][0]["text"] for r in replies]
+            completion = sum(r["usage"]["completion_tokens"] for r in replies)
+            by_prompt = {(b.get("model"), b["prompt"]): r.token_ids
+                         for b, r in zip(bodies, res) if b["temperature"] == 0.0}
+            base0 = by_prompt[(None, prompts[0])]
+            vacuous = [m for m in ("incident", "verbose") if by_prompt[(m, prompts[0])] == base0]
+            if vacuous:
+                raise fail(f"guided (a): greedy rows of {vacuous} equal the base row")
+            if by_prompt[("zero", prompts[0])] != base0 or texts[9] != texts[0]:
+                raise fail("guided (a): the zero adapter's greedy answer is not the base's")
+            choice, regex, doc = texts[10], texts[11], texts[12]
+            if choice not in GUIDED_CHOICES or not re.fullmatch(GUIDED_REGEX, regex) \
+                    or not root_cause_ok(doc):
+                raise fail(f"guided (a): choice {choice!r}, regex {regex!r}, json {doc!r}")
+            replays = {kind: replay_in_automaton(g, spec, r) for kind, spec, r in (
+                ("choice", specs["choice"], res[10]), ("regex", specs["regex"], res[11]),
+                ("json", specs["json"], res[12]))}
+            if any(r["left_at"] is not None or (r["finish_reason"] == "stop"
+                                                and not r["accepting"])
+                   for r in replays.values()):
+                raise fail(f"guided (a): a row left its automaton: {replays}")
+            # the same batch again from the same sampler state: the greedy
+            # answers must be the drive's
+            g._rng.set_state(rng)
+            _, again, _ = guided_drive(engine, url, bodies)
+            unequal = [i for i, (b, r0, r1) in enumerate(zip(bodies, res, again))
+                       if b["temperature"] == 0.0 and r0.token_ids != r1.token_ids]
+            if unequal:
+                raise fail(f"guided (a): greedy answers differ from the replay at {unequal}")
+            with urllib.request.urlopen(f"{base}/v1/models", timeout=60) as resp:
+                models = json.loads(resp.read())
+            listed = [m["id"] for m in models["data"]]
+            if listed[:4] != [model_id, "incident", "verbose", "zero"]:
+                raise fail(f"guided: /v1/models lists {listed}")
+            unknown = post_status(url, {"prompt": "x", "model": "no-such-adapter"})
+            json_object = post_status(url, {"prompt": "x",
+                                            "response_format": {"type": "json_object"}})
+            if unknown[0] != 404 or json_object[0] != 400:
+                raise fail(f"guided: unknown model {unknown}, json_object {json_object}")
+            out["a"] = {
+                "requests": len(bodies), "completion_tokens": completion, "wall_s": wall,
+                "tokens_per_s": completion / wall, "prefill_waves": waves,
+                "decode_blocks": blocks, "launches": launches_a,
+                "texts": {"choice": choice, "regex": regex, "json": doc},
+                "replays": replays, "greedy_equal_replay": True,
+                "models": listed, "unknown_model": unknown[0],
+                "json_object": json_object[0],
+                "pages_free": g.allocator.available,
+            }
+            wave = results.get("wave") or {}
+            if wave.get("tokens_per_s"):
+                out["a"]["tokens_per_s_vs_wave"] = out["a"]["tokens_per_s"] / wave["tokens_per_s"]
+            print(json.dumps({"guided_a": out["a"], "card": out["card"]}), flush=True)
+
+            # (b) the LoRA numerics on the card: one prefill wave and one
+            # decode step of base, incident and verbose rows
+            held = LoraHeld(llama._proj, layers * len(DEFAULT_TARGETS))
+            llama._proj = held
+            try:
+                held_sends(engine, [(lambda m=m: _post(url, {
+                    "prompt": prompts[2], "max_tokens": 4, "temperature": 0.0,
+                    **({"model": m} if m else {})})) for m in (None, "incident", "verbose")])
+            finally:
+                llama._proj = held.fn
+            record_b = {}
+            for kind, calls in held.held.items():
+                bad = [c for c in calls if not c["finite"] or not c["excess"] <= 0]
+                if len(calls) != held.calls or bad:
+                    raise fail(f"guided (b): {len(calls)} of {held.calls} {kind} projections "
+                               f"held, outside tolerance: {bad[:3]}")
+                rows = sorted({i for c in calls for i in c["rows"]})
+                record_b[kind] = {
+                    "projections": len(calls), "adapter_rows": rows,
+                    "max_abs_err": max(max(c["max_abs_err_by_row"]) for c in calls),
+                    "max_abs_f32": max(c["max_abs_f32"] for c in calls),
+                    "max_abs_delta": max(c["max_abs_delta"] for c in calls),
+                    "max_excess": max(c["excess"] for c in calls),
+                }
+                if not {1, 2} <= set(rows):
+                    raise fail(f"guided (b): the held {kind} carried adapters {rows}")
+            out["b"] = {"tolerance": {"atol": LORA_ATOL, "rtol": LORA_RTOL}, **record_b}
+            print(json.dumps({"guided_b": out["b"], "card": out["card"]}), flush=True)
+
+            # block times at 32 rows: plain without the LoRA pass (the
+            # stack set aside), plain on the stack (adapter 0), every row
+            # adapted, every row guided, and a quarter of each kind
+            short = [(LOG_LINE * 2)[:48 + i] for i in range(g.max_slots)]
+
+            def sends(kinds: list) -> list:
+                def one(i: int, kind: str):
+                    extra = {"plain": {}, "adapter": {"adapter": "incident"},
+                             "guided": {"guided_regex": json_regex},
+                             "both": {"adapter": "verbose", "guided_regex": json_regex}}[kind]
+                    params = SamplingParams(max_tokens=GUIDED_TIMED_TOKENS, temperature=0.7,
+                                            stop_on_eos=False, **extra)
+                    return lambda: engine.submit(short[i], params).result(timeout=300)
+                return [one(i, kind) for i, kind in enumerate(kinds)]
+
+            n = g.max_slots
+            times = {}
+            stack = g.lora
+            g.lora = None
+            try:
+                times["plain_no_lora_pass"] = timed_blocks(engine, "plain", sends(["plain"] * n))
+            finally:
+                g.lora = stack
+            times["plain"] = timed_blocks(engine, "plain", sends(["plain"] * n))
+            times["adapter"] = timed_blocks(engine, "adapter", sends(["adapter"] * n))
+            times["guided"] = timed_blocks(engine, "guided", sends(["guided"] * n))
+            times["mixed"] = timed_blocks(engine, "mixed", sends(
+                ["plain", "adapter", "guided", "both"] * (n // 4)))
+            ref = times["plain_no_lora_pass"]["median_ms"]
+            out["block_ms"] = {"rows": n, "tokens": GUIDED_TIMED_TOKENS, **times,
+                               "ratio_to_plain_no_lora_pass": {
+                                   k: v["median_ms"] / ref for k, v in times.items()},
+                               "guided_over_plain": times["guided"]["median_ms"]
+                               / times["plain"]["median_ms"]}
+            print(json.dumps({"guided_block_ms": out["block_ms"], "card": out["card"]}),
+                  flush=True)
+        finally:
+            http.stop()
+
+        # (c) the operator drive on the same engine
+        launches_c = guided_operator(out, engine, model_id, kernel_modules, workdir, json_regex)
+        out["phase_s"] = time.perf_counter() - phase_t0
+        print(json.dumps({"guided": {k: out[k] for k in (
+            "setup_s", "automata", "phase_s", "lora_files")}, "card": out["card"]}), flush=True)
+        results["guided"] = out
+        return {name: launches_a[name] + launches_c[name] for name in kernel_modules}
+    finally:
+        if engine is not None:
+            engine.close()
+        shutil.rmtree(workdir, ignore_errors=True)
+        if saved is None:
+            os.environ.pop("OPERATOR_TPU_FLASH_PREFILL", None)
+        else:
+            os.environ["OPERATOR_TPU_FLASH_PREFILL"] = saved
+
+
+#: (c)'s pods per AIProvider
+GUIDED_OPERATOR_PODS = 5
+
+
+def guided_operator(out: dict, engine, model_id: str, kernel_modules: dict,
+                    workdir: str, json_regex: str) -> dict:
+    """(c): the port's ``Operator`` over ``FakeKubeApi`` with two
+    ``tpu-native`` AIProviders on the guided engine, one asking for the
+    incident adapter and a root-cause schema, one plain; five failing pods
+    each.  Every stored explanation of the first parses to the schema, the
+    providers' identity digests differ, K5 launches once per semantic
+    ``analyze()`` (and per recall ``query()`` over a non-empty index), and
+    the wave kernels as the drive's waves and blocks say.  Returns the
+    kernels' launch counts over the drive."""
+    import torch
+
+    from operator_tpu_torch.models.encoder import MINILM_L6, init_encoder_params
+    from operator_tpu_torch.operator import FakeKubeApi, Operator
+    from operator_tpu_torch.operator.storage import ANNOTATION_ANALYSIS
+    from operator_tpu_torch.schema.crds import Podmortem
+    from operator_tpu_torch.serving.provider import TPUNativeProvider
+    from operator_tpu_torch.utils.config import OperatorConfig
+    from operator_tpu_torch.utils.timing import MetricsRegistry
+
+    enc_dir = os.path.join(workdir, "encoder")
+    write_encoder_checkpoint(init_encoder_params(
+        MINILM_L6, torch.Generator(device="cuda").manual_seed(0), torch.float32,
+        device="cuda"), enc_dir)
+    env = {"MODEL_ID": model_id, "ENCODER_CHECKPOINT_DIR": enc_dir,
+           "PATTERN_CACHE_DIRECTORY": os.path.join(workdir, "no-pattern-cache"),
+           "HEALTH_PORT": "0", "HEALTH_HOST": "127.0.0.1"}
+    config = OperatorConfig.from_env(env)
+    operator = Operator(FakeKubeApi(), config=config, metrics=MetricsRegistry())
+    provider = TPUNativeProvider(engine, model_id=model_id, register_template_prefixes=False)
+    operator.providers.register("tpu-native", provider)
+    api, semantic, index = operator.api, operator.engine.semantic, operator.memory.index
+    if semantic is None:
+        raise fail("guided (c): the operator did not mount the encoder checkpoint")
+    g = engine.generator
+    k5_calls = {"analyze": 0, "query": 0}
+    match, query, generate = semantic.match, index.query, provider.generate
+    exchanged: list = []
+
+    def counted_match(lines):
+        k5_calls["analyze"] += bool(lines) and semantic.num_patterns > 0
+        return match(lines)
+
+    def counted_query(text, k=3):
+        k5_calls["query"] += len(index) > 0 and bool(text.strip())
+        return query(text, k)
+
+    async def captured(request):
+        pair = [request, None]
+        exchanged.append(pair)
+        pair[1] = await generate(request)
+        return pair[1]
+
+    guided_spec = {"providerId": "tpu-native", "modelId": model_id,
+                   "maxTokens": GUIDED_JSON_TOKENS, "temperature": 1.0}
+    extra = {"lora_adapter": "incident", "guided_json": json.dumps(ROOT_CAUSE_SCHEMA)}
+    providers = {
+        "guided": {**guided_spec, "additionalConfig": extra},
+        "plain": {"providerId": "tpu-native", "modelId": model_id,
+                  "maxTokens": MAX_TOKENS, "temperature": 0.0},
+        # the guided spec without its additionalConfig: named by no
+        # Podmortem, resolved only for its identity digest
+        "guided-bare": guided_spec,
+    }
+    names = sorted(n for n in os.listdir(FIXTURES) if n.endswith(".log"))
+    pods = [(f"payment-{i}", ("guided", "plain")[i % 2],
+             "\n".join(fixture_lines(names[i % len(names)])))
+            for i in range(2 * GUIDED_OPERATOR_PODS)]
+
+    async def drive() -> dict:
+        for name, spec in providers.items():
+            await api.create("AIProvider", {"metadata": {"name": name, "namespace": "ops"},
+                                            "spec": spec})
+        for variant in ("guided", "plain"):
+            await api.create("Podmortem", {
+                "metadata": {"name": f"watch-{variant}", "namespace": "ops"},
+                "spec": {"podSelector": {"matchLabels": {"app": "payment"},
+                                         "matchExpressions": [{"key": "variant",
+                                                               "operator": "In",
+                                                               "values": [variant]}]},
+                         "aiProviderRef": {"name": variant, "namespace": "ops"},
+                         "aiAnalysisEnabled": True}})
+        await operator.start()
+        await asyncio.sleep(0.05)
+        for module in kernel_modules.values():
+            module.launches = 0
+        waves0, blocks0 = g.prefill_waves, g.blocks_dispatched
+        started = time.perf_counter()
+        for i, (name, variant, log) in enumerate(pods):
+            api.set_pod_log("prod", name, log, previous=True)
+            await api.create("Pod", operator_pod(name, variant, f"2026-07-28T11:{i:02d}:00Z"))
+            await api.patch("Pod", name, "prod", {"metadata": {"labels": {"poked": "1"}}})
+        await asyncio.sleep(0.05)
+        await operator.watcher.drain()
+        wall = time.perf_counter() - started
+        deadline = time.time() + 30
+        while (g.num_active or g._inflight_blocks) and time.time() < deadline:
+            await asyncio.sleep(0.05)
+        launches = {name: m.launches for name, m in kernel_modules.items()}
+        digests = {}
+        for ref in ("guided", "plain", "guided-bare"):
+            podmortem = Podmortem.parse({
+                "metadata": {"name": f"probe-{ref}", "namespace": "ops"},
+                "spec": {"aiProviderRef": {"name": ref, "namespace": "ops"}}})
+            _, digests[ref] = await operator.pipeline._resolve_provider_identity(podmortem)
+        pods_now = {p["metadata"]["name"]: p for p in await api.list("Pod", "prod")}
+        failures = {f["podName"]: f for cr in await api.list("Podmortem", "ops")
+                    for f in (cr.get("status") or {}).get("recentFailures") or []}
+        await operator.stop()
+        return {"wall_s": wall, "launches": launches, "digests": digests,
+                "pods": pods_now, "failures": failures,
+                "waves": g.prefill_waves - waves0, "blocks": g.blocks_dispatched - blocks0}
+
+    semantic.match, index.query, provider.generate = counted_match, counted_query, captured
+    try:
+        run = asyncio.run(drive())
+    finally:
+        semantic.match, index.query, provider.generate = match, query, generate
+    stored, bad, unstored = {}, [], []
+    for name, variant, _ in pods:
+        annotation = (run["pods"][name]["metadata"].get("annotations") or {}).get(
+            ANNOTATION_ANALYSIS)
+        if annotation is None or name not in run["failures"]:
+            unstored.append(name)
+            continue
+        if variant == "guided":
+            stored[name] = annotation
+            if not root_cause_ok(annotation):
+                bad.append((name, annotation))
+    responses = {r.failure_data.pod.metadata.name: a for r, a in exchanged}
+    errors = {n: a.error for n, a in responses.items() if a.error}
+    if unstored or bad or errors or not stored:
+        raise fail(f"guided (c): unstored {unstored}, not the schema {bad}, errors {errors}")
+    digests = run["digests"]
+    if len(set(digests.values())) != 3:
+        raise fail(f"guided (c): provider identity digests {digests}")
+    launches, layers = run["launches"], g.config.num_layers
+    k5_want = k5_calls["analyze"] + k5_calls["query"]
+    want = {"ragged_paged_attention": 0, "best_window_similarity": k5_want,
+            "flash_prefill_attention": layers * run["waves"],
+            "paged_decode_attention": layers * g.decode_block * run["blocks"]}
+    if launches != want or k5_calls["analyze"] != len(pods):
+        raise fail(f"guided (c): launches {launches}, want {want}; K5 calls {k5_calls}")
+    completion = sum(a.completion_tokens for a in responses.values())
+    out["c"] = {"pods": len(pods), "wall_s": run["wall_s"], "launches": launches,
+                "k5_calls": k5_calls, "digests": digests, "explanations": stored,
+                "completion_tokens": completion,
+                "tokens_per_s": completion / run["wall_s"],
+                "provider_calls": len(responses)}
+    print(json.dumps({"guided_c": out["c"], "card": out["card"]}), flush=True)
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phase 5: the semantic analysis path (MiniLM encoder + K5)
 # ---------------------------------------------------------------------------
 
@@ -2964,16 +3638,19 @@ CANCEL_MAX_TOKENS = 256
 def held_sends(engine, sends: list, timeout_s: float = 120.0) -> tuple:
     """Run every ``send()`` on its own thread, each queued at the engine in
     list order, the engine's admission held until all are queued — so two
-    drives of the same requests take the same steps.  Returns (results in
-    list order, the sampler's state the first step will find)."""
+    drives of the same requests take the same steps.  The hold is on the
+    loop's intake: the scheduler's admission, or the wave loop's take
+    into its waiting line.  Returns (results in list order, the sampler's
+    state the first step will find)."""
     gate = threading.Lock()
-    admit = engine._admit_submissions
+    intake = "_admit_submissions" if engine.scheduler is not None else "_take_submissions"
+    admit = getattr(engine, intake)
     results: list = [None] * len(sends)
     errors: list = []
 
-    def gated(block: bool) -> None:
+    def gated(block: bool):
         with gate:
-            admit(block)
+            return admit(block)
 
     def call(i: int) -> None:
         try:
@@ -2981,7 +3658,7 @@ def held_sends(engine, sends: list, timeout_s: float = 120.0) -> tuple:
         except BaseException as exc:  # noqa: BLE001 - reported below
             errors.append(f"send {i}: {exc!r}")
 
-    engine._admit_submissions = gated
+    setattr(engine, intake, gated)
     threads = []
     try:
         with gate:
@@ -3002,7 +3679,7 @@ def held_sends(engine, sends: list, timeout_s: float = 120.0) -> tuple:
         for thread in threads:
             thread.join(900)
     finally:
-        engine._admit_submissions = admit
+        setattr(engine, intake, admit)
     if errors or any(t.is_alive() for t in threads):
         raise fail(f"held drive: {errors or 'a request did not finish'}")
     return results, rng
@@ -6175,8 +6852,10 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="also write every result to this JSON file")
     parser.add_argument("--phases",
-                        default="device,kernels,serve,wave,analysis,checkpoint,operator,remote,"
-                                "fleet,deployed,fabric,parity")
+                        default="device,kernels,serve,wave,guided,analysis,checkpoint,operator,"
+                                "remote,fleet,deployed,fabric,parity")
+    parser.add_argument("--seed", type=int, default=0,
+                        help="the guided phase's weights and adapters")
     args = parser.parse_args()
     phases = set(args.phases.split(","))
 
@@ -6248,6 +6927,8 @@ def main() -> int:
         selector: timed("wave", phase_wave, results, kernel_modules, phases, selector)
         for selector in (("v1", "v2") if "wave" in phases else ())
     }
+    guided = timed("guided", phase_guided, results, kernel_modules, args.seed) \
+        if "guided" in phases else {}
     analysis = timed("analysis", phase_analysis, results, kernel_modules, phases) \
         if "analysis" in phases else {}
     served = phases & {"operator", "remote", "fleet"}
@@ -6298,6 +6979,7 @@ def main() -> int:
         record["launches_fleet"] = fleet.get(base)
         record["launches_deployed"] = deployed.get(base)
         record["launches_fabric"] = fabric.get(base)
+        record["launches_guided"] = guided.get(base)
     kernels = records
     results["kernels"] = kernels
     device = {

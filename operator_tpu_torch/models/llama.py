@@ -6,8 +6,10 @@ serving step runs (``rms_norm`` with f32 accumulation,
 rotate-half, ``_PROJ_BIAS``, ``init_params``) and the wave engine's
 passes: ``make_causal_mask``, the contiguous ``KVCache``, dense and
 query-chunked attention, :func:`forward` (with a cache, and with the
-flash-prefill branch) and :func:`decode_step_paged`.  LoRA is not ported
-yet.  :func:`params_from_jax` turns a JAX parameter tree (as numpy arrays)
+flash-prefill branch) and :func:`decode_step_paged`, both with the
+multi-LoRA path (:func:`_lora_path`: ``lora=`` stacked adapters from
+``parallel/lora.py``, ``lora_indices`` one adapter per batch row).
+:func:`params_from_jax` turns a JAX parameter tree (as numpy arrays)
 into the port's tensors so both packages can run the same weights.
 
 Weight layout is the JAX package's: every projection is stored
@@ -279,21 +281,64 @@ def _layer_weights(layers: dict[str, Any], index: int) -> dict[str, Any]:
     return out
 
 
-def _proj(h_in: torch.Tensor, weights: dict[str, Any], name: str) -> torch.Tensor:
-    """``h_in @ W`` plus the projection's bias where the config has one."""
+def _lora_path(
+    h_in: torch.Tensor,  # [B, T, in]
+    factors: dict[str, torch.Tensor],
+    alpha: float,
+    lora_indices: Optional[torch.Tensor],  # [B] adapter ids, or None
+) -> torch.Tensor:
+    """The low-rank delta ``(x @ A @ B) * alpha/r``, never expanded to a
+    full matrix.  With ``lora_indices`` the layer's factors carry an
+    ADAPTER axis (``[n_adapters, in, r]``, ``parallel/lora.py
+    stack_adapters``) and each batch row applies its own adapter: a
+    rank-r gather per row, then two batched products."""
+    a = factors["a"].to(h_in.dtype)
+    b = factors["b"].to(h_in.dtype)
+    scale = alpha / a.shape[-1]
+    if lora_indices is None:
+        return ((h_in @ a) @ b) * scale
+    idx = lora_indices.long()
+    return torch.bmm(torch.bmm(h_in, a[idx]), b[idx]) * scale
+
+
+#: one layer's LoRA inputs: (its factors by target, alpha, indices or None)
+LayerLora = Optional[tuple[dict[str, dict[str, torch.Tensor]], float, Optional[torch.Tensor]]]
+
+
+def _layer_lora(lora: Optional[dict], index: int, alpha: float,
+                lora_indices: Optional[torch.Tensor]) -> LayerLora:
+    """Layer ``index``'s slice of the stacked adapter factors."""
+    if lora is None:
+        return None
+    factors = {
+        name: {"a": f["a"][index], "b": f["b"][index]} for name, f in lora.items()
+    }
+    return factors, alpha, lora_indices
+
+
+def _proj(
+    h_in: torch.Tensor, weights: dict[str, Any], name: str, lora: LayerLora = None
+) -> torch.Tensor:
+    """``h_in @ W`` plus the projection's bias where the config has one,
+    plus the LoRA delta where ``lora`` adapts this matrix."""
     y = mm(h_in, weights[name])
     bias = _PROJ_BIAS.get(name)
     if bias is not None and bias in weights:
         y = y + weights[bias].to(y.dtype)
+    if lora is not None and name in lora[0]:
+        factors, alpha, lora_indices = lora
+        y = y + _lora_path(h_in, factors[name], alpha, lora_indices)
     return y
 
 
-def _mlp(x: torch.Tensor, weights: dict[str, Any], eps: float) -> torch.Tensor:
+def _mlp(
+    x: torch.Tensor, weights: dict[str, Any], eps: float, lora: LayerLora = None
+) -> torch.Tensor:
     """The residual SiLU-gated MLP block."""
     mlp_in = rms_norm(x, weights["ln_mlp"], eps)
-    gate = F.silu(_proj(mlp_in, weights, "w_gate"))
-    up = _proj(mlp_in, weights, "w_up")
-    return x + _proj(gate * up, weights, "w_down")
+    gate = F.silu(_proj(mlp_in, weights, "w_gate", lora))
+    up = _proj(mlp_in, weights, "w_up", lora)
+    return x + _proj(gate * up, weights, "w_down", lora)
 
 
 def _logits(params: Params, config: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -383,8 +428,11 @@ def forward(
     q_chunk: Optional[int] = None,  # explicit prefill chunk (tests)
     prefill_lengths: Optional[torch.Tensor] = None,  # [B]; enables flash prefill
     logits_at: Optional[torch.Tensor] = None,  # [B]; logits of one position per row
+    lora: Optional[dict[str, dict[str, torch.Tensor]]] = None,  # parallel/lora.py
+    lora_alpha: float = 16.0,
+    lora_indices: Optional[torch.Tensor] = None,  # [B]; lora holds STACKED adapters
 ) -> tuple[torch.Tensor, Optional[KVCache]]:
-    """One decoder pass (the JAX ``forward`` without LoRA and mesh).
+    """One decoder pass (the JAX ``forward`` without the mesh).
 
     Without a cache: plain causal self-attention over the T tokens.  With
     a cache: the T tokens are written at ``cache_offset`` (a Python int
@@ -394,7 +442,10 @@ def forward(
     cache slots that hold no real token; a full ``attn_mask`` forces the
     dense path.  Flash prefill (``ops/flash_prefill.py``) takes the
     attention when ``prefill_lengths`` is given, it is enabled, and the
-    bucket is a self-attention one (``flash_prefill_supported``).
+    bucket is a self-attention one (``flash_prefill_supported``).  With
+    ``lora`` every targeted projection adds its low-rank delta
+    (:func:`_lora_path`): one adapter for the batch, or with
+    ``lora_indices`` row ``b``'s own adapter out of the stack.
 
     Returns (logits [B, T, vocab] float32, the cache or None).  With
     ``logits_at`` only those positions reach the vocab head: logits
@@ -452,10 +503,11 @@ def forward(
 
     for index in range(config.num_layers):
         weights = _layer_weights(params["layers"], index)
+        layer_lora = _layer_lora(lora, index, lora_alpha, lora_indices)
         attn_in = rms_norm(x, weights["ln_attn"], config.rms_norm_eps)
-        q = _proj(attn_in, weights, "wq").reshape(b, t, qh, hd)
-        k = _proj(attn_in, weights, "wk").reshape(b, t, kh, hd)
-        v = _proj(attn_in, weights, "wv").reshape(b, t, kh, hd)
+        q = _proj(attn_in, weights, "wq", layer_lora).reshape(b, t, qh, hd)
+        k = _proj(attn_in, weights, "wk", layer_lora).reshape(b, t, kh, hd)
+        v = _proj(attn_in, weights, "wv", layer_lora).reshape(b, t, kh, hd)
         q = apply_rope(q, positions, inv_freq)
         k = apply_rope(k, positions, inv_freq)
         if use_cache:
@@ -476,8 +528,8 @@ def forward(
             )
         else:
             attn = _attention(q, k_att, v_att, attn_mask, config)
-        x = x + _proj(attn.to(x.dtype), weights, "wo")
-        x = _mlp(x, weights, config.rms_norm_eps)
+        x = x + _proj(attn.to(x.dtype), weights, "wo", layer_lora)
+        x = _mlp(x, weights, config.rms_norm_eps, layer_lora)
 
     if logits_at is not None:
         x = x[torch.arange(b, device=device), logits_at.long()]  # [B, H]
@@ -489,6 +541,9 @@ def decode_step_paged(
     config: ModelConfig,
     token_ids: torch.Tensor,  # [B, 1]
     paged: "PagedKVCache",
+    lora: Optional[dict[str, dict[str, torch.Tensor]]] = None,  # stacked adapters
+    lora_alpha: float = 16.0,
+    lora_indices: Optional[torch.Tensor] = None,  # [B] adapter id per slot
 ) -> tuple[torch.Tensor, "PagedKVCache"]:
     """Single-token decode over a paged KV cache (``ops/paged_attention.py``).
 
@@ -496,6 +551,7 @@ def decode_step_paged(
     table maps it to a page and slot, written in place) and attends over
     exactly its own pages through :func:`ops.paged_attention.paged_attention`;
     sliding-window configs mask to the last ``sliding_window`` tokens.
+    ``lora``/``lora_indices`` add each slot's adapter as in :func:`forward`.
 
     Returns (last-token logits [B, vocab] float32, cache with lengths + 1
     sharing the page tensors).
@@ -511,10 +567,11 @@ def decode_step_paged(
 
     for index in range(config.num_layers):
         weights = _layer_weights(params["layers"], index)
+        layer_lora = _layer_lora(lora, index, lora_alpha, lora_indices)
         attn_in = rms_norm(x, weights["ln_attn"], config.rms_norm_eps)
-        q = _proj(attn_in, weights, "wq").reshape(b, 1, qh, hd)
-        k = _proj(attn_in, weights, "wk").reshape(b, 1, kh, hd)
-        v = _proj(attn_in, weights, "wv").reshape(b, 1, kh, hd)
+        q = _proj(attn_in, weights, "wq", layer_lora).reshape(b, 1, qh, hd)
+        k = _proj(attn_in, weights, "wk", layer_lora).reshape(b, 1, kh, hd)
+        v = _proj(attn_in, weights, "wv", layer_lora).reshape(b, 1, kh, hd)
         q = apply_rope(q, positions, inv_freq)
         k = apply_rope(k, positions, inv_freq)
         k_pages = write_tokens(paged.k_pages[index], paged.page_table, k, paged.lengths)
@@ -523,8 +580,8 @@ def decode_step_paged(
             q[:, 0].to(k_pages.dtype).contiguous(), k_pages, v_pages,
             paged.page_table, new_lengths, sliding_window=config.sliding_window,
         )  # [B, QH, D]
-        x = x + _proj(attn.to(x.dtype).reshape(b, 1, -1), weights, "wo")
-        x = _mlp(x, weights, config.rms_norm_eps)
+        x = x + _proj(attn.to(x.dtype).reshape(b, 1, -1), weights, "wo", layer_lora)
+        x = _mlp(x, weights, config.rms_norm_eps, layer_lora)
 
     new_cache = PagedKVCache(
         k_pages=paged.k_pages, v_pages=paged.v_pages,

@@ -8,9 +8,11 @@ and ``_truncate_prompt``; and the deadline budget's policy, which both
 loops share: ``decode_token_estimate_s`` (:53), ``deadline_policy`` (:64,
 on the injectable ``_clock``, with the overload ladder when
 ``overload_policy`` is wired) and the wave's ``_deadline_clamp_wave``
-(:142).  Not ported yet: the registered shared prefix (prefix matching
-and the suffix-only prefill), chunked prefill, guided decoding and LoRA
-adapters.
+(:142).  A wave carries each row's LoRA adapter index and, when any
+active or admitted request is guided, the restacked automaton tables
+(the row's automaton masks its first token; ``_apply_guided_activation``
+binds the slots).  Not ported yet: the registered shared prefix (prefix
+matching and the suffix-only prefill) and chunked prefill.
 
 Mixed into :class:`serving.engine.Generator`.
 """
@@ -230,6 +232,7 @@ class AdmissionMixin:
         temp = np.zeros((n_pad,), np.float32)
         top_p = np.ones((n_pad,), np.float32)
         slot_ids = np.zeros((n_pad,), np.int32)
+        adapter_idx = np.zeros((n_pad,), np.int64)
         taken = free[:n]
         for row, (toks, sampling) in enumerate(zip(token_lists, params_list)):
             ids[row, : len(toks)] = toks
@@ -237,6 +240,12 @@ class AdmissionMixin:
             temp[row] = sampling.temperature
             top_p[row] = sampling.top_p
             slot_ids[row] = taken[row]
+            if sampling.adapter is not None and sampling.adapter not in self._adapter_ids:
+                raise ValueError(
+                    f"unknown LoRA adapter {sampling.adapter!r}; registered: "
+                    f"{sorted(n for n in self._adapter_ids if n)}"
+                )
+            adapter_idx[row] = self._adapter_ids[sampling.adapter]
         # padding rows duplicate row 0 verbatim (tokens, length AND slot):
         # the scatter then writes identical values to one slot's pages from
         # several rows, which is order-independent
@@ -244,30 +253,44 @@ class AdmissionMixin:
             ids[row] = ids[0]
             lengths[row] = lengths[0]
             slot_ids[row] = slot_ids[0]
+            adapter_idx[row] = adapter_idx[0]
 
         self.prefill_waves += 1
         # the reference counts plain against prefix-shared waves; the
         # wave engine's shared prefix is not ported (Queue 1 item 6), so
         # every wave is plain
         self.metrics.incr("prefill_waves_plain")
+        # guided decoding: stack the automata this wave + active slots need
+        wave_specs = [self._guided_spec(p) for p in params_list]
+        if any(wave_specs) or self._guided_tables is not None:
+            self._refresh_guided_tables(wave_specs)
+        guided = self._guided_tables is not None
+        row_aut = self._guided_row_aut(wave_specs, n_pad) if guided else None
         staged, row_tables = self._stage_page_tables(
             n, n_pad, slot_ids, page_grants, lengths
         )
         device = self.device
         with torch.profiler.record_function("podmortem.prefill"):
-            self.paged_cache, first_tokens = self._prefill_paged(
+            self.paged_cache, first_tokens, first_state = self._prefill_paged(
                 self.params, staged,
                 torch.from_numpy(ids).to(device),
                 torch.from_numpy(lengths).to(device),
                 torch.from_numpy(row_tables).to(device),
                 torch.from_numpy(temp).to(device),
                 torch.from_numpy(top_p).to(device),
+                self.lora,
+                torch.from_numpy(adapter_idx).to(device) if self.lora is not None else None,
+                self._guided_tables,
+                torch.from_numpy(row_aut).to(device) if guided else None,
             )
             first_np = first_tokens.cpu().numpy()  # the wave's ONE host sync
-        return self._activate_slots(
+        result = self._activate_slots(
             first_np, lengths, taken, params_list, page_grants,
             (time.perf_counter() - started) * 1e3,
         )
+        if guided:
+            self._apply_guided_activation(row_aut, taken, first_state)
+        return result
 
     def _truncate_prompt(self, ids: list, budget: int) -> list:
         """Fit ``ids`` into ``budget`` tokens, keeping the TAIL (failure

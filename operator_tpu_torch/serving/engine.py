@@ -11,7 +11,12 @@ prefill per wave (``admission.py``), then decode in blocks of
 ``decode_block`` chained steps (``programs.py``) with up to
 ``pipeline_depth - 1`` blocks in flight while the host processes older
 tokens.  Per-slot epochs keep a block dispatched before a slot was
-recycled from crediting its tokens to the new sequence.
+recycled from crediting its tokens to the new sequence.  The wave engine
+also serves guided decoding (the reference's automaton registry: an LRU
+of built automata, the stacked ``[A, S, vocab]`` tables and each slot's
+automaton and DFA state on the device) and multi-LoRA (the adapters
+stacked with the all-zeros adapter at index 0, each slot's index riding
+into the projections); the continuous scheduler refuses both.
 
 Both loops record each step into the generator's step clock
 (``serving/perf.py:StepClock``; ``step_clock.summary()`` is the stall
@@ -99,6 +104,7 @@ from .types import (
     PageAllocator,
     SamplingParams,
     ShedLowValue,
+    _bucket,
     _Slot,
 )
 
@@ -106,10 +112,6 @@ log = logging.getLogger(__name__)
 
 __all__ = ["EngineStalled", "Generator", "ServingEngine", "SupervisorPolicy"]
 
-_NOT_PORTED_GUIDED = (
-    "guided decoding and LoRA adapters are not ported to operator_tpu_torch "
-    "yet (ROADMAP.md Queue 1 item 9)"
-)
 
 
 class EngineStalled(RuntimeError):
@@ -177,6 +179,8 @@ class Generator(AdmissionMixin, ProgramBuilderMixin):
         metrics: Optional[MetricsRegistry] = None,
         roofline_token_s: Optional[float] = None,
         step_ring_capacity: Optional[int] = None,
+        lora_adapters: Optional[dict[str, Any]] = None,
+        lora_alpha: float = 16.0,
     ) -> None:
         self.device = resolve_device(device)
         self.params = params
@@ -262,6 +266,53 @@ class Generator(AdmissionMixin, ProgramBuilderMixin):
         self.occupancy_sum = 0.0
         self.block_ms: list[float] = []
 
+        # ---- guided decoding (serving/guided.py): automaton tables stacked
+        # [A_pad, S_pad, vocab] on the device, per-slot (automaton, state)
+        # vectors carried through the decode block.  None = no guided slot
+        # active; the unguided block runs untouched.
+        self._guided_cache: dict[tuple, Any] = {}  # spec -> ChoiceAutomaton (LRU)
+        # submit-time validation builds automata on the caller's thread
+        # while the worker refreshes the stacked tables; the lock guards
+        # the bookkeeping only (builds run unlocked), and _guided_protect
+        # shields an in-flight refresh from submit-thread eviction
+        self._guided_lock = threading.Lock()
+        self._guided_protect: frozenset = frozenset()
+        self._guided_tables: Optional[torch.Tensor] = None
+        self._guided_index: dict[tuple, int] = {}  # spec -> stacked index
+        self._guided_aut_np = np.zeros((max_slots,), np.int64)
+        self.guided_aut: Optional[torch.Tensor] = None  # [B] automaton ids
+        self.guided_state: Optional[torch.Tensor] = None  # [B] DFA states
+
+        # ---- multi-LoRA serving: adapters stacked [L, n_adapters + 1, ...]
+        # with the all-zeros base at index 0; every row picks its adapter
+        # inside the one pass (models/llama.py _lora_path)
+        self.lora_alpha = lora_alpha
+        self.lora: Optional[dict] = None
+        self._adapter_ids: dict[Optional[str], int] = {None: 0}
+        if lora_adapters:
+            from ..parallel.lora import stack_adapters, zero_lora
+
+            names = sorted(lora_adapters)
+            first = lora_adapters[names[0]]
+            first_a = first[next(iter(first))]["a"]
+            zero = zero_lora(
+                config, rank=first_a.shape[-1], targets=tuple(first),
+                dtype=first_a.dtype, device=self.device,
+            )
+            self.lora = stack_adapters(
+                [zero] + [
+                    {t: {k: v.to(self.device) for k, v in f.items()}
+                     for t, f in lora_adapters[n].items()}
+                    for n in names
+                ]
+            )
+            self._adapter_ids.update({n: i + 1 for i, n in enumerate(names)})
+
+    @property
+    def adapter_names(self) -> list[str]:
+        """Registered LoRA adapter names (multi-LoRA serving)."""
+        return sorted(name for name in self._adapter_ids if name is not None)
+
     def _alloc_decode_state(self) -> None:
         """Fresh zeroed decode state: the page pool and the per-slot last
         sampled tokens."""
@@ -299,6 +350,8 @@ class Generator(AdmissionMixin, ProgramBuilderMixin):
             self.slots[i] = _Slot()
         self._host_offsets[:] = 0
         self._sampling_cache = None
+        self._guided_aut_np[:] = 0
+        self._drop_guided_tables()
 
     def free_slots(self) -> list[int]:
         return [i for i, slot in enumerate(self.slots) if not slot.active]
@@ -356,8 +409,9 @@ class Generator(AdmissionMixin, ProgramBuilderMixin):
         return list(taken)
 
     def _sampling_tensors(self) -> tuple:
-        """(active_np, temp_dev, top_p_dev, active_dev), rebuilt only when
-        the slot set changes (admit/finish) — not every decode step."""
+        """(active_np, temp_dev, top_p_dev, active_dev, adapter_idx_dev),
+        rebuilt only when the slot set changes (admit/finish) — not every
+        decode step."""
         if self._sampling_cache is None:
             active = np.array([s.active for s in self.slots])
             temp = np.array(
@@ -367,9 +421,14 @@ class Generator(AdmissionMixin, ProgramBuilderMixin):
             top_p = np.array(
                 [s.params.top_p if s.active else 1.0 for s in self.slots], np.float32
             )
+            adapter_idx = np.array(
+                [self._adapter_ids[s.params.adapter] if s.active else 0
+                 for s in self.slots],
+                np.int64,
+            )
             self._sampling_cache = (
                 active, self._to_device(temp), self._to_device(top_p),
-                self._to_device(active),
+                self._to_device(active), self._to_device(adapter_idx),
             )
         return self._sampling_cache
 
@@ -416,16 +475,19 @@ class Generator(AdmissionMixin, ProgramBuilderMixin):
     def _dispatch_block(self) -> None:
         """Enqueue one decode block; its tokens stay on the device (and
         travel to pinned host memory on the stream) until processed."""
-        active, temp_dev, top_p_dev, active_dev = self._sampling_tensors()
+        active, temp_dev, top_p_dev, active_dev, idx_dev = self._sampling_tensors()
+        lora_idx = idx_dev if self.lora is not None else None
         begin = end = None
         cuda = self.device.type == "cuda"
         if cuda:
             begin = torch.cuda.Event(enable_timing=True)
             begin.record()
-        self.paged_cache, toks, self.last_tokens = self._decode_block_paged(
+        self.paged_cache, toks, self.last_tokens, state = self._decode_block_paged(
             self.params, self.paged_cache, self.last_tokens,
-            temp_dev, top_p_dev, active_dev,
+            temp_dev, top_p_dev, active_dev, self.lora, lora_idx,
+            self._guided_tables, self.guided_aut, self.guided_state,
         )
+        self.guided_state = state  # None while no guided slot is active
         if cuda:
             toks = toks.to("cpu", non_blocking=True)
             end = torch.cuda.Event(enable_timing=True)
@@ -536,6 +598,21 @@ class Generator(AdmissionMixin, ProgramBuilderMixin):
         self._slot_epoch[slot_id] += 1  # stale in-flight tokens now orphaned
         self._host_offsets[slot_id] = 0
         self._sampling_cache = None  # slot set changed
+        if self._guided_tables is not None:
+            if self._guided_aut_np[slot_id]:
+                self._guided_aut_np[slot_id] = 0
+                self.guided_aut = self._to_device(self._guided_aut_np)
+                # the identity automaton has one state: a stale state would
+                # index a padding row (all -1), and the sampler would face
+                # an all -inf row (an error for torch.multinomial, where the
+                # JAX sampler draws junk into the freed slot)
+                self.guided_state[slot_id] = 0
+            if not self._guided_aut_np.any() and not any(
+                s.active and self._guided_spec(s.params)
+                for i, s in enumerate(self.slots)
+                if i != slot_id  # this slot is finishing right now
+            ):
+                self._drop_guided_tables()  # back to the unguided block
         eos = self.tokenizer.eos_id
         ids = [t for t in slot.generated if t != eos]
         if reason == "length" and slot.params.deadline_clamped:
@@ -555,6 +632,158 @@ class Generator(AdmissionMixin, ProgramBuilderMixin):
         )
         self.slots[slot_id] = _Slot()
         return result
+
+    # -- guided decoding registry (serving/guided.py) --------------------
+
+    #: automaton-state cap: bounds the [A_pad, S_pad, vocab] int32 table the
+    #: guided block carries; matches _refresh_guided_tables' s_pad clamp so
+    #: an oversized request is refused at SUBMIT time, never at admission
+    MAX_GUIDED_STATES = 1 << 14
+
+    @staticmethod
+    def _guided_spec(params: Optional[SamplingParams]) -> Optional[tuple]:
+        """The hashable automaton key of a request: ("choice", names) or
+        ("regex", pattern); None = unconstrained."""
+        if params is None:
+            return None
+        if params.guided_choice is not None:
+            return ("choice", tuple(params.guided_choice))
+        if params.guided_regex is not None:
+            return ("regex", str(params.guided_regex))
+        return None
+
+    def _automaton_cached(self, spec: tuple) -> bool:
+        """Lock-guarded cache probe (with the LRU touch), so submit paths
+        skip the build for specs already built."""
+        with self._guided_lock:
+            if spec in self._guided_cache:
+                self._guided_cache[spec] = self._guided_cache.pop(spec)
+                return True
+        return False
+
+    def _ensure_automaton(self, spec: tuple) -> None:
+        """Build (and cache) the automaton of a guided spec; raises
+        ``ValueError`` for anything unservable — called at SUBMIT time, so
+        a bad request never fails a co-batched wave.
+
+        The cache is an LRU of 32 that never evicts a spec bound to an
+        active slot, indexed in the current stacked tables, or in the
+        refresh pass in flight (``_guided_protect``): the worker indexes
+        the cache directly for those.  The bookkeeping holds
+        ``_guided_lock``; the build (seconds for a novel regex) runs
+        outside it, so it never stalls the worker or the event loop."""
+        if self._automaton_cached(spec):
+            return
+        kind, payload = spec
+        if kind == "choice":
+            from .guided import build_choice_automaton
+
+            automaton = build_choice_automaton(
+                payload, self.tokenizer, self.config.vocab_size
+            )
+        else:
+            from .regex_dfa import compile_regex_automaton
+
+            automaton = compile_regex_automaton(
+                payload, self.tokenizer, self.config.vocab_size,
+                max_states=self.MAX_GUIDED_STATES,
+            )
+        if automaton.num_states > self.MAX_GUIDED_STATES:
+            raise ValueError(
+                f"guided automaton needs {automaton.num_states} states, "
+                f"above the {self.MAX_GUIDED_STATES} cap — simplify the "
+                f"choices/pattern"
+            )
+        with self._guided_lock:
+            if spec in self._guided_cache:  # raced another builder: theirs won
+                self._guided_cache[spec] = self._guided_cache.pop(spec)
+                return
+            live = {
+                self._guided_spec(slot.params) for slot in self.slots if slot.active
+            }
+            live.update(self._guided_index)
+            live.update(self._guided_protect)
+            live.discard(None)
+            evictable = [k for k in self._guided_cache if k not in live]
+            while len(self._guided_cache) >= 32 and evictable:
+                self._guided_cache.pop(evictable.pop(0))
+            self._guided_cache[spec] = automaton
+
+    def _refresh_guided_tables(self, wave_specs: "list[Optional[tuple]]") -> None:
+        """(Re)stack the automata the active and newly admitted guided slots
+        need; None when no guided slot remains (the unguided block)."""
+        from .guided import identity_automaton, stack_automata
+
+        specs = {
+            self._guided_spec(slot.params)
+            for slot in self.slots
+            if slot.active and self._guided_spec(slot.params)
+        }
+        specs.update(spec for spec in wave_specs if spec)
+        if not specs:
+            self._drop_guided_tables()
+            return
+        # advertise the wave to submit-thread evictions BEFORE ensuring
+        with self._guided_lock:
+            self._guided_protect = frozenset(specs)
+        try:
+            for spec in specs:
+                self._ensure_automaton(spec)
+            with self._guided_lock:
+                ordered = sorted(specs)
+                new_index = {spec: i + 1 for i, spec in enumerate(ordered)}
+                if self._guided_tables is not None and new_index == self._guided_index:
+                    return  # the same stack: no rebuild, no upload
+                automata = [identity_automaton(self.config.vocab_size)]
+                automata += [self._guided_cache[spec] for spec in ordered]
+                self._guided_index = new_index
+        finally:
+            with self._guided_lock:
+                self._guided_protect = frozenset()
+        a_pad = _bucket(len(automata), 2, 64)
+        s_pad = _bucket(max(a.num_states for a in automata), 8, self.MAX_GUIDED_STATES)
+        while len(automata) < a_pad:
+            automata.append(identity_automaton(self.config.vocab_size))
+        stacked = stack_automata(automata, self.config.vocab_size, state_pad=s_pad)
+        self._guided_tables = self._to_device(stacked)
+        # remap every ACTIVE slot's automaton id under the new ordering
+        for i, slot in enumerate(self.slots):
+            spec = self._guided_spec(slot.params) if slot.active else None
+            self._guided_aut_np[i] = self._guided_index[spec] if spec else 0
+        self.guided_aut = self._to_device(self._guided_aut_np)
+        if self.guided_state is None:
+            self.guided_state = torch.zeros(
+                (self.max_slots,), dtype=torch.int64, device=self.device
+            )
+
+    def _drop_guided_tables(self) -> None:
+        """No guided slot is active: the unguided block runs again."""
+        self._guided_tables = None
+        self._guided_index = {}
+        self.guided_aut = None
+        self.guided_state = None
+
+    def _guided_row_aut(self, specs: list, n_pad: int) -> np.ndarray:
+        """[n_pad] automaton ids of a wave's rows (padding rows duplicate
+        row 0); id 0 = identity for unguided rows."""
+        row_aut = np.zeros((n_pad,), np.int64)
+        for row, spec in enumerate(specs):
+            row_aut[row] = self._guided_index.get(spec, 0)
+        row_aut[len(specs):] = row_aut[0]
+        return row_aut
+
+    def _apply_guided_activation(
+        self, row_aut: np.ndarray, taken: list[int], first_state: torch.Tensor
+    ) -> None:
+        """Bind each admitted slot's automaton id (0, the identity, for
+        unguided slots — this RESET matters: a recycled slot may carry a
+        stale accept state from a previous guided occupant) and scatter
+        the first DFA states, on the device."""
+        for row, slot_id in enumerate(taken):
+            self._guided_aut_np[slot_id] = row_aut[row]
+        self.guided_aut = self._to_device(self._guided_aut_np)
+        rows = self._to_device(np.asarray(taken, np.int64))
+        self.guided_state[rows] = first_state[: len(taken)].to(torch.int64)
 
     def generate(
         self, prompt: str, params: Optional[SamplingParams] = None
@@ -739,6 +968,8 @@ class ServingEngine:
         self._restarting: list[_Submission] = []
         self._reset_times: list[float] = []
         self._reset_lock = threading.Lock()
+        #: single-flight guided automaton builds (ensure_guided), per spec
+        self._guided_builds: dict[tuple, asyncio.Future] = {}
 
     # -- lifecycle -----------------------------------------------------
 
@@ -832,18 +1063,34 @@ class ServingEngine:
         self, params: Optional[SamplingParams], resume_tokens: Optional[list]
     ) -> None:
         """The verdicts a request gets before it takes a queue place (or,
-        with the fabric, prefetches): a closed or down engine, a guided or
-        LoRA request (not ported), ``resume_tokens`` without the
-        scheduler, a deadline that cannot fit one decoded token."""
+        with the fabric, prefetches): a closed or down engine, an unknown
+        LoRA adapter (so a bad name fails its own request, never the
+        co-batched wave), both guided fields at once, a guided or LoRA
+        request on the continuous scheduler, ``resume_tokens`` without
+        the scheduler, a deadline that cannot fit one decoded token."""
         if self._closed.is_set():
             raise RuntimeError("serving engine is closed")
         self._recover_if_needed()
-        if params is not None and (
+        adapter = params.adapter if params is not None else None
+        if adapter is not None and adapter not in self.generator._adapter_ids:
+            raise ValueError(
+                f"unknown LoRA adapter {adapter!r}; registered: "
+                f"{self.generator.adapter_names}"
+            )
+        if params is not None and params.guided_choice is not None \
+                and params.guided_regex is not None:
+            raise ValueError("guided_choice and guided_regex are mutually exclusive")
+        if self.scheduler is not None and params is not None and (
             params.guided_choice is not None
             or params.guided_regex is not None
             or params.adapter is not None
         ):
-            raise ValueError(_NOT_PORTED_GUIDED)
+            # the mixed step has no guided/LoRA path: refuse at submit, to
+            # this caller, rather than inside the serve loop
+            raise ValueError(
+                "guided decoding and LoRA adapters are not supported in "
+                "continuous scheduler mode (sched_mode=continuous)"
+            )
         if resume_tokens and self.scheduler is None:
             raise ValueError(
                 "token-level streaming resume requires the continuous "
@@ -876,21 +1123,26 @@ class ServingEngine:
         on_partial: Optional[tuple] = None,
         _checked: bool = False,
     ) -> "concurrent.futures.Future[GenerationResult]":
-        """Queue one request; raises ``ValueError`` for a guided or LoRA
-        request (not ported) or ``resume_tokens`` without the scheduler,
-        and :class:`DeadlineExceeded` when its budget cannot fit one
-        decoded token — all to this caller, before the request takes a
-        queue place.  ``priority`` orders admission (higher first, FIFO
+        """Queue one request; raises ``ValueError`` for an unknown adapter,
+        an unservable guided spec (its automaton is built here, on this
+        thread, when not cached), a guided or LoRA request on the
+        continuous scheduler or ``resume_tokens`` without it, and
+        :class:`DeadlineExceeded` when its budget cannot fit one decoded
+        token — all to this caller, before the request takes a queue
+        place.  ``priority`` orders admission (higher first, FIFO
         within a class).  ``on_partial`` is ``(loop, callback)``: each
         step's generated-so-far ids reach ``callback`` on ``loop``.
-        ``_checked``: ``generate`` ran the verdicts before its fabric
-        prefetch; only the closed engine and the deadline, which the
-        prefetch's wait may have used up, are checked again."""
+        ``_checked``: ``generate`` ran the verdicts (and the guided build)
+        before its awaits; only the closed engine and the deadline, which
+        those waits may have used up, are checked again."""
         feed = None
         if on_partial is not None:
             feed = _PartialFeed(*on_partial)
         if not _checked:
             self._check_submission(params, resume_tokens)
+            spec = self.generator._guided_spec(params)
+            if spec is not None:
+                self.generator._ensure_automaton(spec)
         elif self._closed.is_set():
             raise RuntimeError("serving engine is closed")
         else:
@@ -940,15 +1192,22 @@ class ServingEngine:
         if self._error is not None or self._gave_up:
             await asyncio.to_thread(self._recover_if_needed)
         self.start_fabric_poll()
-        checked = self.fabric is not None and self.scheduler is not None
+        fabric = self.fabric is not None and self.scheduler is not None
+        guided_spec = self.generator._guided_spec(params)
+        checked = fabric or guided_spec is not None
         if checked:
+            self._check_submission(params, resume_tokens)
+        if guided_spec is not None:
+            # builds and caches the automaton off this loop; raises
+            # ValueError here, to THIS caller, for an unservable spec
+            await self.ensure_guided(guided_spec)
+        if fabric:
             # fleet KV fabric: once the request passed its verdicts, pull
             # the prompt's missing prefix blocks from a peer's host pool
             # BEFORE admission so the scheduler's prefix match restores
             # them instead of recomputing.  Best effort, residual-budget
             # clamped: a failed fetch degrades to the ordinary recompute,
             # never an error to this caller
-            self._check_submission(params, resume_tokens)
             await self._fabric_prefetch(prompt, params, resume_tokens)
         future = self.submit(
             prompt, params, priority=priority, resume_tokens=resume_tokens,
@@ -995,6 +1254,35 @@ class ServingEngine:
         finally:
             if not settled:
                 self._slo_board.finished(slo_cls, attained=False, tokens=0)
+
+    async def ensure_guided(self, spec: tuple) -> None:
+        """Build (and cache) the automaton of a guided spec; raises
+        ``ValueError`` for a bad spec.
+
+        The build (a regex's NFA and subset construction take seconds for
+        a novel spec) runs on the loop's default executor: not inline (it
+        would stall every connection on the loop) and not on the worker
+        (it would delay the decode steps behind it).  A cached spec
+        returns without the executor hop; concurrent callers with the
+        same novel spec share one build (shielded, so a cancelled waiter
+        never kills the build for the others).  The one entry point for
+        ``generate`` and the HTTP server's validation."""
+        if self.generator._automaton_cached(spec):
+            return
+        build = self._guided_builds.get(spec)
+        if build is None:
+            build = asyncio.get_running_loop().run_in_executor(
+                None, self.generator._ensure_automaton, spec
+            )
+            self._guided_builds[spec] = build
+
+            def _done(fut: "asyncio.Future") -> None:
+                self._guided_builds.pop(spec, None)
+                if not fut.cancelled():
+                    fut.exception()  # retrieved even with no waiter left
+
+            build.add_done_callback(_done)
+        await asyncio.shield(build)
 
     def generate_batch(
         self, prompts: Sequence[str], params: Optional[SamplingParams] = None

@@ -12,10 +12,13 @@ task, which the engine reaps at its next step.
   economy) for the failover router (``router/``)
 - ``GET  /metrics``, ``GET /metrics.json`` — the engine's registry as
   Prometheus text (OpenMetrics under ``Accept`` negotiation) or JSON
-- ``GET  /v1/models``            — the served model (+ the embedder)
+- ``GET  /v1/models``            — the served model, its LoRA adapters
+  (``parent`` the base model) and the embedder
 - ``POST /v1/completions``       — prompt (str or list), n, max_tokens,
-  temperature, top_p, stop; every prompt and replica joins the shared
-  continuous batch
+  temperature, top_p, stop, model (the base id or an adapter), and the
+  guided fields ``guided_choice``, ``guided_regex``, ``guided_json`` and
+  ``response_format`` (``json_schema``); every prompt and replica joins
+  the shared batch
 - ``POST /v1/chat/completions``  — messages (string or text-part content)
   rendered with the served model family's chat template
   (``serving/templates.py:template_for``), otherwise as completions
@@ -34,12 +37,13 @@ granularity), then ``[DONE]``; n=1 and a single prompt only, as the SDKs
 use it.
 
 Stop sequences are applied by post-truncation, logprobs are null, as in
-the JAX server.  A ``model`` other than the served id answers 404, as
-the reference's ``_resolve_adapter`` does for a name that is neither the
-base model nor an adapter (the port registers no adapters).  The
-guided-decoding fields (``guided_choice``, ``guided_regex``,
-``guided_json`` and a ``response_format`` other than
-``{"type": "text"}``) answer 400 naming ROADMAP Queue 1 item 9.
+the JAX server.  A ``model`` that is neither the served id nor a
+registered adapter answers 404.  A guided spec is validated and its
+automaton built before the request is queued (``engine.ensure_guided``,
+off the loop), so a bad choice list, pattern or schema answers 400 and
+never reaches a co-batched wave; ``response_format: json_object``
+(free-form JSON is not a regular language) answers 400, as in the JAX
+server.
 
 ``GET /kv/blocks/{hash}`` is the fleet KV fabric's peer endpoint: the
 block's PMKV1 wire bytes (``fabric/wire.py``) out of the engine's host
@@ -64,6 +68,7 @@ from typing import Any, Optional
 
 from ..obs import current_trace_id, parse_traceparent
 from .engine import ServingEngine
+from .json_schema import lower_guided_json
 from .templates import template_for
 from .types import GenerationResult, OversizedRequest, SamplingParams
 
@@ -469,6 +474,17 @@ class CompletionServer:
                 "created": int(self._started),
                 "owned_by": "operator-tpu",
             }]
+            # LoRA adapters are addressable models (the vLLM convention):
+            # model=<adapter> routes the request through that adapter on
+            # the shared base — one batch, per-slot adapters
+            for adapter in self._adapter_names():
+                models.append({
+                    "id": adapter,
+                    "object": "model",
+                    "created": int(self._started),
+                    "owned_by": "operator-tpu",
+                    "parent": self.model_id,
+                })
             if self.embedder is not None:
                 models.append({
                     "id": self.embedding_model_id,
@@ -520,38 +536,34 @@ class CompletionServer:
 
     # -- completion handling -------------------------------------------------
 
-    def _resolve_model(self, req: dict) -> None:
-        """The served id (or no ``model``) serves; anything else is a 404
-        — the port has no adapters to select."""
-        model = req.get("model")
-        if model is not None and model != self.model_id:
-            raise ApiError(
-                404, f"model {model!r} not found; available: {[self.model_id]}",
-            )
+    def _adapter_names(self) -> list[str]:
+        return self.engine.generator.adapter_names
 
-    @staticmethod
-    def _refuse_guided(req: dict) -> None:
-        """Guided decoding is not ported: refuse its fields rather than
-        answer with unconstrained text."""
-        fields = [
-            name for name in ("guided_choice", "guided_regex", "guided_json")
-            if req.get(name) is not None
-        ]
-        response_format = req.get("response_format")
-        if response_format is not None and not (
-            isinstance(response_format, dict) and response_format.get("type") in (None, "text")
-        ):
-            fields.append("response_format")
-        if fields:
-            raise ApiError(
-                400,
-                f"{', '.join(fields)}: guided decoding is not ported to "
-                f"operator_tpu_torch yet (ROADMAP.md Queue 1 item 9)",
-            )
+    def _resolve_adapter(self, req: dict) -> Optional[str]:
+        """``model`` naming a registered adapter selects it; the base model
+        id (or no model) selects none; anything else is a 404."""
+        model = req.get("model")
+        if model is None or model == self.model_id:
+            return None
+        if model in self._adapter_names():
+            return model
+        raise ApiError(
+            404,
+            f"model {model!r} not found; available: "
+            f"{[self.model_id, *self._adapter_names()]}",
+            "invalid_request_error",
+        )
+
+    async def _ensure_guided(self, spec: tuple) -> None:
+        """``engine.ensure_guided`` with the validate-time ValueError ->
+        400 mapping.  Engine-internal ValueErrors raised later stay 5xx,
+        so the 400 mapping lives only here."""
+        try:
+            await self.engine.ensure_guided(spec)
+        except ValueError as exc:
+            raise ApiError(400, str(exc)) from None
 
     async def _sampling(self, req: dict) -> tuple[SamplingParams, list[str]]:
-        self._resolve_model(req)
-        self._refuse_guided(req)
         max_tokens = req.get("max_tokens", 256)
         if not isinstance(max_tokens, int) or max_tokens < 1:
             raise ApiError(400, "max_tokens must be a positive integer")
@@ -566,9 +578,67 @@ class CompletionServer:
             stop = [stop]
         if not isinstance(stop, list) or not all(isinstance(s, str) for s in stop):
             raise ApiError(400, "stop must be a string or list of strings")
+        guided = req.get("guided_choice")
+        if guided is not None:
+            if (
+                not isinstance(guided, list)
+                or not guided
+                or not all(isinstance(c, str) and 0 < len(c) <= 512 for c in guided)
+                or len(guided) > 256
+            ):
+                raise ApiError(
+                    400,
+                    "guided_choice must be a non-empty list of <=256 strings "
+                    "of <=512 chars each",
+                )
+            await self._ensure_guided(("choice", tuple(guided)))
+        regex = req.get("guided_regex")
+        if regex is not None:
+            if guided is not None:
+                raise ApiError(400, "guided_choice and guided_regex are mutually exclusive")
+            if not isinstance(regex, str) or not regex or len(regex) > 1024:
+                raise ApiError(400, "guided_regex must be a non-empty string (<=1024 chars)")
+            await self._ensure_guided(("regex", regex))
+        schema = req.get("guided_json")
+        response_format = req.get("response_format")
+        if schema is None and isinstance(response_format, dict):
+            kind = response_format.get("type")
+            if kind == "json_schema":
+                # OpenAI wire shape: response_format.json_schema.schema
+                wrapper = response_format.get("json_schema")
+                if wrapper is not None and not isinstance(wrapper, dict):
+                    raise ApiError(400, "response_format.json_schema must be an object")
+                schema = (wrapper or {}).get("schema") or response_format.get("schema")
+                if schema is None:
+                    raise ApiError(400, "response_format json_schema needs a schema")
+            elif kind == "json_object":
+                raise ApiError(
+                    400,
+                    "response_format json_object (free-form JSON) is not "
+                    "supported: arbitrary nesting is not a regular language; "
+                    "provide a schema via json_schema or guided_json",
+                )
+            elif kind not in (None, "text"):
+                raise ApiError(400, f"unknown response_format type {kind!r}")
+        if schema is not None:
+            if guided is not None or regex is not None:
+                raise ApiError(
+                    400,
+                    "guided_json is mutually exclusive with guided_choice "
+                    "and guided_regex",
+                )
+            try:
+                # lowered onto the regex path and validated here, so a bad
+                # schema never fails a co-batched wave
+                regex = lower_guided_json(schema)
+            except ValueError as exc:
+                raise ApiError(400, str(exc)) from None
+            await self._ensure_guided(("regex", regex))
         params = SamplingParams(
             max_tokens=max_tokens, temperature=float(temperature),
-            top_p=float(top_p),
+            top_p=float(top_p), adapter=self._resolve_adapter(req),
+            guided_choice=tuple(guided) if guided is not None else None,
+            guided_regex=regex,  # guided_json arrives lowered to a regex
             # a traceparent-carrying request's trace id rides into the
             # engine's profiler annotations (None outside a trace)
             trace_tag=current_trace_id(),

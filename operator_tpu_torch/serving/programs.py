@@ -1,20 +1,30 @@
 """The wave engine's device programs: the paged decode block and prefill.
 
 Counterpart of ``operator_tpu/serving/programs.py`` for the paged path
-without mesh, LoRA or guided decoding: :meth:`ProgramBuilderMixin._decode_step_paged`
-(:71), :meth:`~ProgramBuilderMixin._decode_block_paged` (:132) and
+without mesh: :meth:`ProgramBuilderMixin._decode_step_paged` (:71),
+:meth:`~ProgramBuilderMixin._decode_block_paged` (:132, and its guided
+twin ``_decode_block_paged_guided``, :192) and
 :meth:`~ProgramBuilderMixin._prefill_paged`, the program that
 ``_make_prefill_paged`` (:370) builds.  JAX compiles each into one program
 per shape; here they are eager PyTorch, so nothing is cached per bucket.
 They read nothing back to the host: the callers do that once per block
 and once per prefill wave.  Sampling is the port's ``serving/sampling.py``.
 
+Multi-LoRA: the stacked adapters (``lora``, ``[L, n_adapters, ...]``) and
+the per-row ``lora_idx`` ride along as arguments into the model's
+projections.  Guided decoding: the stacked automaton tables
+(``gtables``, ``[A, S, vocab]`` int32, -1 = forbidden), each row's
+automaton id (``gaut``) and DFA state (``gstate``) mask the logits with
+``-inf`` where the row's transition is -1, and the state steps on the
+device for active rows whose sampled token is allowed — the state is
+carried through the block, never read back per step.
+
 Mixed into :class:`serving.engine.Generator`.
 """
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Optional
 
 import torch
 
@@ -25,50 +35,83 @@ from .sampling import sample
 __all__ = ["ProgramBuilderMixin"]
 
 
+def _mask(logits: torch.Tensor, row: torch.Tensor) -> torch.Tensor:
+    """Forbidden transitions (``row < 0``) become ``-inf``."""
+    return torch.where(row >= 0, logits, torch.full_like(logits, float("-inf")))
+
+
+def _transition(row: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``row[b, tokens[b]]``: the state each row's sampled token leads to."""
+    return torch.gather(row, 1, tokens.long()[:, None])[:, 0]
+
+
 class ProgramBuilderMixin:
     """The decode block and the prefill of the paged wave engine."""
 
     config: Any
     decode_block: int
     sample_top_k: int
+    lora_alpha: float
     _rng: torch.Generator
 
     def _decode_step_paged(
         self, params, paged: PagedKVCache, tokens: torch.Tensor,
         temp: torch.Tensor, top_p: torch.Tensor, active: torch.Tensor,
-    ) -> tuple[PagedKVCache, torch.Tensor]:
+        lora: Optional[dict] = None, lora_idx: Optional[torch.Tensor] = None,
+        gtables: Optional[torch.Tensor] = None, gaut: Optional[torch.Tensor] = None,
+        gstate: Optional[torch.Tensor] = None,
+    ) -> tuple[PagedKVCache, torch.Tensor, Optional[torch.Tensor]]:
         """[B, 1] tokens -> the next token per slot.  Released slots write
         to the trash page through their zeroed page-table row, and only
-        active slots' lengths advance."""
-        logits, new_paged = decode_step_paged(params, self.config, tokens, paged)
+        active slots' lengths advance.  With guided args the sampler is
+        masked by each row's automaton row and the DFA state advances;
+        returns (cache, tokens, the new state or None)."""
+        logits, new_paged = decode_step_paged(
+            params, self.config, tokens, paged,
+            lora=lora, lora_alpha=self.lora_alpha, lora_indices=lora_idx,
+        )
+        row = None
+        if gtables is not None:
+            row = gtables[gaut, gstate]  # [B, vocab] allowed-transition rows
+            logits = _mask(logits, row)
         next_tokens = sample(logits, self._rng, temp, top_p, self.sample_top_k)
         lengths = torch.where(active, new_paged.lengths, paged.lengths)
+        if row is not None:
+            stepped = _transition(row, next_tokens)
+            gstate = torch.where(active & (stepped >= 0), stepped, gstate)
         return PagedKVCache(
             k_pages=new_paged.k_pages, v_pages=new_paged.v_pages,
             page_table=new_paged.page_table, lengths=lengths,
-        ), next_tokens
+        ), next_tokens, gstate
 
     def _decode_block_paged(
         self, params, paged: PagedKVCache, tokens: torch.Tensor,
         temp: torch.Tensor, top_p: torch.Tensor, active: torch.Tensor,
-    ) -> tuple[PagedKVCache, torch.Tensor, torch.Tensor]:
+        lora: Optional[dict] = None, lora_idx: Optional[torch.Tensor] = None,
+        gtables: Optional[torch.Tensor] = None, gaut: Optional[torch.Tensor] = None,
+        gstate: Optional[torch.Tensor] = None,
+    ) -> tuple[PagedKVCache, torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
         """``decode_block`` chained decode steps, enqueued back to back on
-        the stream (the JAX ``lax.scan``).  Returns (cache, the [K, B]
-        token matrix, the last tokens [B, 1])."""
+        the stream (the JAX ``lax.scan``; with ``gtables`` its guided twin,
+        the DFA state in the carry).  Returns (cache, the [K, B] token
+        matrix, the last tokens [B, 1], the final DFA state or None)."""
         toks = []
         for _ in range(self.decode_block):
-            paged, next_tokens = self._decode_step_paged(
-                params, paged, tokens, temp, top_p, active
+            paged, next_tokens, gstate = self._decode_step_paged(
+                params, paged, tokens, temp, top_p, active,
+                lora, lora_idx, gtables, gaut, gstate,
             )
             tokens = next_tokens[:, None]
             toks.append(next_tokens)
-        return paged, torch.stack(toks), tokens
+        return paged, torch.stack(toks), tokens, gstate
 
     def _prefill_paged(
         self, params, paged: PagedKVCache, token_ids: torch.Tensor,
         lengths: torch.Tensor, row_tables: torch.Tensor,
         temp: torch.Tensor, top_p: torch.Tensor,
-    ) -> tuple[PagedKVCache, torch.Tensor]:
+        lora: Optional[dict] = None, lora_idx: Optional[torch.Tensor] = None,
+        gtables: Optional[torch.Tensor] = None, gaut: Optional[torch.Tensor] = None,
+    ) -> tuple[PagedKVCache, torch.Tensor, Optional[torch.Tensor]]:
         """One prefill bucket ``[n_pad, t_pad]``: the mini-cache forward,
         then each row's prompt KV scattered into its pages (``write_tokens``
         with ``valid_len``, so padded positions land in the trash page),
@@ -77,7 +120,11 @@ class ProgramBuilderMixin:
         The hidden state is gathered at ``lengths - 1`` before the vocab
         head (``forward(logits_at=...)``): the same logits the JAX program
         takes from its full ``[n_pad, t_pad, vocab]`` tensor, which at
-        n = 16, t = 2048 would be 4 GiB of float32."""
+        n = 16, t = 2048 would be 4 GiB of float32.
+
+        With guided args the first token is masked by each row's start
+        state (state 0) and the state it leads to is returned, clamped at
+        0 as the JAX program does; else the third value is None."""
         n_pad, t_pad = token_ids.shape
         device = token_ids.device
         mini = KVCache.create(
@@ -91,10 +138,18 @@ class ProgramBuilderMixin:
             params, self.config, token_ids, positions, cache=mini,
             cache_offset=0, kv_valid=kv_valid, prefill_lengths=lengths,
             logits_at=lengths - 1,
+            lora=lora, lora_alpha=self.lora_alpha, lora_indices=lora_idx,
         )
         zero = torch.zeros((n_pad,), dtype=torch.int32, device=device)
         for index in range(self.config.num_layers):
             write_tokens(paged.k_pages[index], row_tables, mini.k[index], zero, lengths)
             write_tokens(paged.v_pages[index], row_tables, mini.v[index], zero, lengths)
+        row = None
+        if gtables is not None:
+            row = gtables[gaut, torch.zeros_like(gaut)]  # DFA start state
+            last_logits = _mask(last_logits, row)
         first_tokens = sample(last_logits, self._rng, temp, top_p, self.sample_top_k)
-        return paged, first_tokens
+        first_state = None
+        if row is not None:
+            first_state = torch.clamp_min(_transition(row, first_tokens), 0)
+        return paged, first_tokens, first_state

@@ -34,13 +34,25 @@ empty index (``KV_FABRIC_FETCH_TIMEOUT_S`` 2, ``KV_FABRIC_CONCURRENCY``
 every ``KV_FABRIC_POLL_S`` (5); ``REPLICA_ROLE`` (``mixed``) is the role
 ``/healthz`` advertises.
 
+Multi-LoRA: every ``<name>.safetensors`` under ``LORA_DIR`` becomes an
+adapter a request selects by name (``parallel/lora.py:load_lora``); a
+file that does not load, is empty, differs from the first adapter in
+targets or shapes, or is named like the base model is dropped alone,
+with a warning, as in the reference.  The mixed step has no LoRA path,
+so adapters under ``SCHED_MODE=continuous`` fall back to the wave engine
+with the reference's warning.  The provider reads the AIProvider's
+``additionalConfig``: ``lora_adapter`` selects an adapter,
+``guided_regex`` (at most 1,024 characters) or ``guided_json`` (a JSON
+Schema, lowered to a regex by ``serving/json_schema.py``) constrains the
+explanation.
+
 A knob whose feature is not ported is refused when it is set away from
 its default, naming the ROADMAP Queue 1 item that ports it:
 ``KV_CACHE_MODE=contiguous`` (item 8), ``PREFILL_CHUNK`` (item 7),
-``SERVING_MESH`` (item 11), ``LORA_DIR`` (item 9) and ``AOT_CACHE_PATH``
-(item 10).  The reference would fall back to
-the wave engine for a mesh or LoRA on the continuous path; the port does
-not serve something else quietly.  As in the reference, the queue limit
+``SERVING_MESH`` (item 11) and ``AOT_CACHE_PATH`` (item 10).  The
+reference would fall back to the wave engine for a mesh on the
+continuous path; the port does not serve something else quietly.  As in
+the reference, the queue limit
 and the overload ladder are not read here: the caller that wants them
 sets ``Scheduler.queue_limit``, ``Scheduler.overload_policy`` and
 ``Generator.overload_policy`` (the operator's pipeline, in the reference).
@@ -72,6 +84,7 @@ from ..models.loader import load_params_async
 from ..models.tokenizer import load_tokenizer
 from ..obs import annotate_root, current_trace_id
 from ..ops.paged_attention import _kernel_version
+from ..parallel.lora import load_lora
 from ..schema.analysis import AIResponse, AnalysisRequest
 from ..utils.config import OperatorConfig
 from .engine import Generator, ServingEngine, SupervisorPolicy
@@ -87,9 +100,6 @@ __all__ = [
     "build_serving_engine",
     "build_tpu_native_provider",
 ]
-
-#: ``additionalConfig`` keys whose features are not ported
-_NOT_PORTED_EXTRA = ("guided_regex", "guided_json", "lora_adapter")
 
 
 class MissingCheckpoint(RuntimeError):
@@ -141,16 +151,38 @@ class TPUNativeProvider:
     async def generate(self, request: AnalysisRequest) -> AIResponse:
         config = request.provider_config
         self._ensure_template_prefix(config.prompt_template if config else None)
-        extra = (config.additional_config or {}) if config else {}
-        asked = [key for key in _NOT_PORTED_EXTRA if extra.get(key)]
-        if asked:
-            # the pipeline's degrade path: a pattern-only result, not a raise
-            return self._error(
-                f"additionalConfig {', '.join(asked)}: guided decoding and LoRA "
-                "adapters are not ported to operator_tpu_torch yet "
-                "(ROADMAP.md Queue 1 item 9)"
-            )
         prompt = build_prompt(request)
+        # per-CR LoRA adapter: additionalConfig.lora_adapter names a
+        # registered adapter; CRs with different adapters share one batch
+        extra = (config.additional_config or {}) if config else {}
+        adapter = extra.get("lora_adapter") or None
+        # per-CR constrained decoding: a guided_regex pattern or a
+        # guided_json schema (lowered onto the same regex automaton).  A
+        # bad pattern or schema is a CONFIG error: this provider's
+        # generation fails (the pipeline stores the pattern-only result)
+        # rather than silently dropping the constraint the CR asked for
+        guided_regex = extra.get("guided_regex") or None
+        guided_schema = extra.get("guided_json") or None
+        if guided_regex is not None and (
+            not isinstance(guided_regex, str) or len(guided_regex) > 1024
+        ):
+            # the HTTP entry point's bound: an unbounded pattern from one
+            # misconfigured CR must not stall the automaton build
+            return self._error(
+                "additionalConfig.guided_regex must be a string of <=1024 chars"
+            )
+        if guided_schema is not None:
+            if guided_regex is not None:
+                return self._error(
+                    "additionalConfig guided_json and guided_regex are "
+                    "mutually exclusive"
+                )
+            from .json_schema import lower_guided_json
+
+            try:
+                guided_regex = lower_guided_json(guided_schema)
+            except ValueError as exc:
+                return self._error(f"additionalConfig.guided_json: {exc}")
         # deadline budget: the pipeline's residual envelope becomes an
         # absolute admission deadline — the engine clamps max_tokens to the
         # roofline fit or rejects outright (serving/admission.py)
@@ -162,6 +194,8 @@ class TPUNativeProvider:
             temperature=(
                 config.temperature if config and config.temperature is not None else 0.3
             ),
+            adapter=adapter,
+            guided_regex=guided_regex,
             deadline=abs_deadline,
             trace_tag=current_trace_id(),
         )
@@ -201,7 +235,6 @@ def _refuse_unported(config: OperatorConfig) -> None:
     unported = (
         ("PREFILL_CHUNK", config.prefill_chunk, "7", "the wave engine's chunked prefill"),
         ("SERVING_MESH", config.serving_mesh, "11", "multi-device serving"),
-        ("LORA_DIR", config.lora_dir, "9", "LoRA adapters"),
         ("AOT_CACHE_PATH", config.aot_cache_path, "10", "the AOT executable cache"),
     )
     for name, value, item, feature in unported:
@@ -211,6 +244,57 @@ def _refuse_unported(config: OperatorConfig) -> None:
                 f"operator_tpu_torch yet (ROADMAP.md Queue 1 item {item}); "
                 f"unset {name}"
             )
+
+
+def _load_lora_dir(
+    lora_dir: str, model_id: str, device: torch.device
+) -> Optional[dict]:
+    """The multi-LoRA registry: every ``<name>.safetensors`` under
+    ``lora_dir`` that loads and matches the first adapter's targets and
+    shapes (one pass serves the whole stack); a bad file drops only its
+    own adapter.  None when no adapter is usable."""
+    if not os.path.isdir(lora_dir):
+        log.warning(
+            "lora_dir %r does not exist or is not a directory; "
+            "multi-LoRA serving disabled", lora_dir,
+        )
+        return None
+    adapters = {}
+    for fname in sorted(os.listdir(lora_dir)):
+        if not fname.endswith(".safetensors"):
+            continue
+        name = fname[: -len(".safetensors")]
+        try:
+            adapters[name] = load_lora(os.path.join(lora_dir, fname), device=device)
+        except Exception:  # noqa: BLE001 - one bad file must not stop serving
+            log.warning("LoRA adapter %s unusable; skipping", fname, exc_info=True)
+    signature = None
+    for name in sorted(adapters):
+        adapter = adapters[name]
+        sig = tuple(
+            (target, tuple(adapter[target]["a"].shape), tuple(adapter[target]["b"].shape))
+            for target in sorted(adapter)
+        )
+        if not sig:
+            log.warning("LoRA adapter %r is empty; skipping", name)
+            del adapters[name]
+        elif name == model_id:
+            log.warning(
+                "LoRA adapter %r collides with the base model id and "
+                "would be unroutable over the API; skipping", name,
+            )
+            del adapters[name]
+        elif signature is None:
+            signature = sig
+        elif sig != signature:
+            log.warning(
+                "LoRA adapter %r has targets/shapes %s != %s of the first "
+                "adapter; skipping (adapters must match to share one "
+                "compiled program)", name, sig, signature,
+            )
+            del adapters[name]
+    log.info("multi-LoRA serving: %s", sorted(adapters) or "none loaded")
+    return adapters or None
 
 
 def build_serving_engine(
@@ -248,7 +332,19 @@ def build_serving_engine(
     if config.kv_cache_mode != "paged":
         raise ValueError(f"unknown KV_CACHE_MODE {config.kv_cache_mode!r}: expected 'paged'")
     _refuse_unported(config)
-    if config.sched_mode == "wave":
+    lora_adapters = None
+    if config.lora_dir:
+        lora_adapters = _load_lora_dir(config.lora_dir, model_id, device)
+    wave = config.sched_mode == "wave"
+    if not wave and lora_adapters:
+        # the mixed step has no LoRA path: the reference's fallback
+        log.warning(
+            "sched_mode=continuous requires paged KV, no mesh and no "
+            "LoRA adapters (paged=True mesh=False lora=True); falling back "
+            "to the wave engine"
+        )
+        wave = True
+    if wave:
         _kernel_version(env)  # an unknown decode-kernel selector fails here
     checkpoint_dir = config.checkpoint_dir
     tokenizer = load_tokenizer(checkpoint_dir)
@@ -290,6 +386,8 @@ def build_serving_engine(
         step_ring_capacity=config.step_ring_capacity,
         seed=seed,
         device=device,
+        lora_adapters=lora_adapters,
+        lora_alpha=config.lora_alpha,
     )
     # supervised by default (the reference's production wiring): a stalled
     # or errored loop resets the engine and requeues in-flight requests
@@ -300,7 +398,7 @@ def build_serving_engine(
             stall_timeout_s=config.supervisor_stall_s,
             join_grace_s=config.supervisor_join_grace_s,
         )
-    if config.sched_mode == "wave":
+    if wave:
         log.info("serving mode: WAVE engine (sched_mode=%s)", config.sched_mode)
         # the JAX provider primes the default template's shared prefix
         # here; the port has no shared-prefix path yet (Queue 1 item 6)

@@ -235,7 +235,8 @@ class Scheduler:
     ) -> int:
         """Tokenise + queue one request; returns its req id.  Raises
         :class:`OversizedRequest` when the request can never fit the KV
-        pool, ``ValueError`` for guided decoding or LoRA (not ported), and
+        pool, ``ValueError`` for guided decoding or LoRA (the mixed step serves
+        neither: the wave engine does), and
         :class:`ShedLowValue` when the queue is at ``queue_limit`` and the
         arrival is its lowest-value request.  ``priority`` orders
         admission (higher class first; earliest deadline first within a
@@ -247,15 +248,13 @@ class Scheduler:
         params = params or SamplingParams()
         if params.guided_choice is not None or params.guided_regex is not None:
             raise ValueError(
-                "guided decoding is not supported by the continuous scheduler, "
-                "and guided decoding is not ported to operator_tpu_torch yet "
-                "(ROADMAP.md Queue 1 item 9)"
+                "guided decoding is not supported by the continuous "
+                "scheduler (sched_mode=continuous); use the wave engine"
             )
         if params.adapter is not None:
             raise ValueError(
-                "LoRA adapters are not supported by the continuous scheduler, "
-                "and LoRA is not ported to operator_tpu_torch yet "
-                "(ROADMAP.md Queue 1 item 9)"
+                "LoRA adapters are not supported by the continuous "
+                "scheduler (sched_mode=continuous); use the wave engine"
             )
         ids = g.tokenizer.encode(prompt)
         # same truncation budget as the wave path's admit()

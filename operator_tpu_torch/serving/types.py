@@ -3,9 +3,10 @@
 The port's own copies of ``operator_tpu/serving/types.py``:
 ``SamplingParams``, ``GenerationResult``, ``PageAllocator``, the two
 admission formulas and the wave engine's bucket rule ``_bucket``.
-``SamplingParams`` carries the reference's fields; the engine refuses a
-request that sets ``adapter``, ``guided_choice`` or ``guided_regex``
-(ROADMAP Queue 1 item 9, not ported yet).  ``DeadlineExceeded`` and
+``SamplingParams`` carries the reference's fields; ``adapter``,
+``guided_choice`` and ``guided_regex`` are served by the wave engine and
+refused by the continuous scheduler, as in the reference.
+``DeadlineExceeded`` and
 ``ShedLowValue`` are the deadline policy's and the overload ladder's
 terminal errors.
 """
@@ -33,9 +34,9 @@ class SamplingParams:
     temperature: float = 0.3  # reference default, aiprovider-crd.yaml:56-58
     top_p: float = 0.95
     stop_on_eos: bool = True
-    #: LoRA adapter name (not ported: a request that sets it is refused)
+    #: multi-LoRA: a registered adapter name (None = base model)
     adapter: Optional[str] = None
-    #: guided decoding (not ported: a request that sets either is refused)
+    #: guided decoding: one of these strings, or a full match of the regex
     guided_choice: Optional[tuple] = None
     guided_regex: Optional[str] = None
     #: absolute ``time.monotonic()`` deadline (``utils/deadline.py``).

@@ -374,7 +374,32 @@ def test_admission_ladder_matches_reference(sides):
     assert any(isinstance(o, tuple) and o[1] == "degraded" for o in outcomes)
 
 
+def _jax_engine_refusal(sides, clock, params):
+    """The JAX ``ServingEngine``'s submit-time verdict on the continuous
+    scheduler (its ``generate`` raises before queueing)."""
+    import asyncio
+
+    from operator_tpu.serving.engine import ServingEngine as JaxServingEngine
+
+    jax_sched, jax_gen = sides["jax"].sched(clock)
+    engine = JaxServingEngine(jax_gen, scheduler=jax_sched)
+
+    async def verdict():
+        try:
+            with pytest.raises(ValueError) as info:
+                await engine.generate("guided", params)
+            return str(info.value)
+        finally:
+            await engine.close()
+
+    return asyncio.run(verdict()), jax_sched
+
+
 def test_engine_submit_refuses_an_expired_budget_and_guided_requests(sides):
+    """The continuous engine refuses guided and LoRA requests at submit
+    with the JAX engine's words (an adapter that is not registered is an
+    unknown adapter first), the scheduler with the JAX scheduler's ("use
+    the wave engine"); the wave engine serves a guided choice."""
     side = sides["torch"]
     clock = FakeClock(100.0)
     sched, generator = side.sched(clock)
@@ -387,10 +412,23 @@ def test_engine_submit_refuses_an_expired_budget_and_guided_requests(sides):
             engine.submit("under one token", side.params_(deadline=clock.now + 0.001))
         for field, val in (("guided_choice", ("a", "b")), ("guided_regex", "a+"),
                            ("adapter", "ops")):
-            with pytest.raises(ValueError, match="item 9"):
+            want, jax_sched = _jax_engine_refusal(
+                sides, clock, sides["jax"].params_(**{field: val}))
+            with pytest.raises(ValueError) as got:
                 engine.submit("guided", side.params_(**{field: val}))
-            with pytest.raises(ValueError, match="item 9"):
+            assert str(got.value) == want
+            with pytest.raises(ValueError, match="use the wave engine") as got:
                 sched.enqueue("guided", side.params_(**{field: val}))
+            with pytest.raises(ValueError) as ref:
+                jax_sched.enqueue("guided", sides["jax"].params_(**{field: val}))
+            assert str(got.value) == str(ref.value)
+        wave = ServingEngine(side.generator(decode_block=2))
+        try:
+            chosen = wave.submit("pick one", side.params_(
+                max_tokens=8, temperature=0.0, guided_choice=("a", "b"))).result(timeout=120)
+            assert chosen.text in ("a", "b")
+        finally:
+            wave.close()
         result = engine.submit("in budget", side.params_(
             max_tokens=30, temperature=0.0, stop_on_eos=False, deadline=clock.now + 0.055,
         )).result(timeout=120)

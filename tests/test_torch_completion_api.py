@@ -8,7 +8,8 @@ server.  The same requests go to both; the bodies must be equal after
 the per-response ``id`` and ``created`` are blanked:
 
 - completions, chat and content parts, fan-out, stop sequences (one that
-  spans decode blocks too) and the error surface;
+  spans decode blocks too), the guided fields (served on the wave
+  engine, refused by the continuous scheduler) and the error surface;
 - ``stream: true``: the SSE chunk texts, chunk for chunk, on the
   continuous scheduler and on the wave engine; fan-out refused in a
   stream; an oversized request answered 400 before the headers;
@@ -225,6 +226,8 @@ def _equal_json(answers):
 # ---------------------------------------------------------------------------
 
 GREEDY = {"max_tokens": 6, "temperature": 0.0}
+GUIDED_SCHEMA = {"type": "object", "properties": {
+    "severity": {"enum": ["CRITICAL", "LOW"]}, "confident": {"type": "boolean"}}}
 COMPLETION_CASES = {
     "completion": ("/v1/completions", {"prompt": "pod failed with exit code 137", **GREEDY}),
     "prompt_list": ("/v1/completions", {"prompt": ["oom", "crash loop"], **GREEDY}),
@@ -249,6 +252,26 @@ COMPLETION_CASES = {
                    {"messages": [{"role": "user", "content": [{"type": "image_url"}]}]}),
     "unknown_model": ("/v1/completions", {"prompt": "x", "model": "nope"}),
     "not_an_object": ("/v1/completions", [1, 2]),
+    # guided decoding: served on the wave engine, refused by the
+    # continuous scheduler, with the JAX server's answers either way
+    "guided_choice": ("/v1/completions",
+                      {"prompt": "severity?", "guided_choice": ["CRITICAL", "LOW"], **GREEDY}),
+    "guided_regex": ("/v1/completions",
+                     {"prompt": "how many?", "guided_regex": r"\d{1,3} errors",
+                      "max_tokens": 16, "temperature": 0.0}),
+    "guided_json": ("/v1/completions",
+                    {"prompt": "classify", "guided_json": GUIDED_SCHEMA,
+                     "max_tokens": 40, "temperature": 0.0}),
+    "response_format_schema": ("/v1/chat/completions", {
+        "messages": [{"role": "user", "content": "classify"}], "max_tokens": 40,
+        "temperature": 0.0,
+        "response_format": {"type": "json_schema", "json_schema": {"schema": GUIDED_SCHEMA}}}),
+    "json_object": ("/v1/completions",
+                    {"prompt": "x", "response_format": {"type": "json_object"}}),
+    "bad_guided_choice": ("/v1/completions", {"prompt": "x", "guided_choice": "yes"}),
+    "bad_guided_regex": ("/v1/completions", {"prompt": "x", "guided_regex": r"(?i)x"}),
+    "guided_exclusive": ("/v1/completions",
+                         {"prompt": "x", "guided_regex": "a", "guided_choice": ["b"]}),
 }
 
 

@@ -12,6 +12,7 @@ import ast
 import asyncio
 import contextlib
 import json
+import re
 import subprocess
 import sys
 import threading
@@ -257,20 +258,31 @@ def _post_status(url, body):
     ({"model": "tiny-test"}, 200, None),
     ({"model": "no-such-model"}, 404, "no-such-model"),
     ({"model": "an-adapter"}, 404, "not found"),
-    ({"guided_choice": ["yes", "no"]}, 400, "item 9"),
-    ({"guided_regex": "[a-z]+"}, 400, "item 9"),
-    ({"guided_json": {"type": "object"}}, 400, "item 9"),
-    ({"response_format": {"type": "json_schema", "json_schema": {"schema": {}}}}, 400, "item 9"),
-    ({"response_format": {"type": "json_object"}}, 400, "item 9"),
+    ({"guided_choice": ["yes", "no"]}, 200, r"yes|no"),
+    ({"guided_regex": "[a-z]+"}, 200, r"[a-z]+"),
+    ({"guided_json": {"type": "object"}}, 400, "properties"),
+    ({"response_format": {"type": "json_schema", "json_schema": {"schema": {}}}}, 400,
+     "response_format json_schema needs a schema"),
+    ({"response_format": {"type": "json_object"}}, 400,
+     "response_format json_object (free-form JSON) is not supported"),
     ({"response_format": {"type": "text"}}, 200, None),
 ])
 def test_http_server_answers_model_and_guided_fields_as_the_reference(
     torch_params, extra, status, needle
 ):
-    """An unknown ``model`` is a 404 (the reference's ``_resolve_adapter``);
-    guided decoding is not ported, so its fields are refused, naming the
-    ROADMAP item, instead of answered with unconstrained text."""
-    engine = _engine(torch_params, 1, False)
+    """An unknown ``model`` is a 404 (the reference's ``_resolve_adapter``:
+    no adapters are registered here).  The guided fields are served on
+    the wave engine, as by the reference: a choice or a regex constrains
+    the text (``needle`` is the language), a schema the reference cannot
+    lower and ``json_object`` answer its 400s."""
+    guided = any(key.startswith("guided") or key == "response_format" for key in extra)
+    if guided:
+        engine = ServingEngine(Generator(
+            torch_params, TINY_TEST, ByteTokenizer(), max_slots=4, max_seq=128,
+            page_size=16, cache_dtype=torch.float32, device="cpu", decode_block=2,
+        ))
+    else:
+        engine = _engine(torch_params, 1, False)
     server = CompletionServer(engine, model_id="tiny-test", host="127.0.0.1", port=0)
     with serving(server):
         code, payload = _post_status(
@@ -281,6 +293,8 @@ def test_http_server_answers_model_and_guided_fields_as_the_reference(
         if status == 200:
             assert payload["model"] == "tiny-test"
             assert payload["usage"]["completion_tokens"] > 0
+            if needle is not None:
+                assert re.fullmatch(needle, payload["choices"][0]["text"]), payload
         else:
             assert needle in payload["error"]["message"]
 
@@ -330,6 +344,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import operator_tpu_torch.chaos, operator_tpu_torch.chaos.conductor\n"
         "import operator_tpu_torch.chaos.scenario, operator_tpu_torch.chaos.invariants\n"
         "import operator_tpu_torch.chaos.library, operator_tpu_torch.chaos.shrink\n"
+        "import operator_tpu_torch.parallel.lora, operator_tpu_torch.serving.json_schema\n"
+        "from operator_tpu_torch.serving import regex_dfa\n"
+        "bpe = operator_tpu_torch.models.bpe.load_builtin_bpe()\n"
+        "regex_dfa.compile_regex_automaton(operator_tpu_torch.serving.json_schema\n"
+        "    .lower_guided_json('{\"type\": \"boolean\"}'), bpe, bpe.vocab_size, max_states=64)\n"
         "import torch\n"
         "k = torch.arange(8, dtype=torch.float32).to(torch.bfloat16).reshape(2, 4)\n"
         "_h, k2, _v = operator_tpu_torch.fabric.decode_block(\n"

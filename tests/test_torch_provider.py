@@ -22,12 +22,14 @@ import asyncio
 import dataclasses
 import json
 import os
+import re
 import shutil
 import threading
 import urllib.error
 import urllib.request
 from types import SimpleNamespace
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -49,6 +51,7 @@ from operator_tpu_torch import obs  # noqa: E402
 from operator_tpu_torch.models import configs  # noqa: E402
 from operator_tpu_torch.models.quant import is_quantized  # noqa: E402
 from operator_tpu_torch.models.tokenizer import HFTokenizer  # noqa: E402
+from operator_tpu_torch.parallel.lora import init_lora, save_lora  # noqa: E402
 from operator_tpu_torch.schema.analysis import AnalysisRequest  # noqa: E402
 from operator_tpu_torch.serving import prompts, templates  # noqa: E402
 from operator_tpu_torch.serving.httpserver import CompletionServer  # noqa: E402
@@ -93,6 +96,7 @@ def _resolved(engine, sched, params_dtype) -> dict:
             "self_id": poller.self_id, "same_index": poller.index is fetcher.index,
         },
         "fabric_mirror": sched._fabric_mirror if sched is not None else None,
+        "adapters": g.adapter_names,
         "num_pages": g.allocator.num_pages,
         "sample_top_k": g.sample_top_k,
         "weights": params_dtype,
@@ -158,9 +162,18 @@ def _jax(env, monkeypatch) -> dict:
     ("KV_FABRIC_POLL_S", "0.5"),
     ("SERVING_REPLICA_ID", "replica-7"),
     ("KV_FABRIC_WAVE", "wave"),
+    # multi-LoRA: a directory with one adapter (the continuous default
+    # falls back to the wave engine), and a missing one (a warning)
+    ("LORA_DIR", "sre"),
+    ("LORA_DIR", "/nonexistent/adapters"),
 ])
-def test_provider_knob_resolves_as_the_jax_package(knob, value, monkeypatch):
+def test_provider_knob_resolves_as_the_jax_package(knob, value, monkeypatch, tmp_path):
     env = dict(BASE)
+    if knob == "LORA_DIR" and value == "sre":
+        gen = torch.Generator().manual_seed(0)
+        save_lora(init_lora(configs.TINY_TEST, gen, rank=4, device="cpu"),
+                  str(tmp_path / "sre.safetensors"))
+        value = str(tmp_path)
     if knob is not None and knob.startswith(("KV_FABRIC", "SERVING_REPLICA_ID")):
         # the fabric's knobs, with a host pool for the mirror to land in
         env.update({"KV_FABRIC": "true", "KV_HOST_POOL_MB": "8", "POD_NAME": "pod-3",
@@ -190,6 +203,9 @@ def test_provider_knob_resolves_as_the_jax_package(knob, value, monkeypatch):
             "stall_timeout_s": 120.0, "join_grace_s": 2.5, "max_requeues": 1}),
         "ENGINE_SUPERVISOR": ("supervisor", None),
     }
+    if knob == "LORA_DIR":
+        adapters = ["sre"] if value == str(tmp_path) else []
+        assert got["adapters"] == adapters and got["continuous"] == (not adapters)
     if knob in pins:
         key, want = pins[knob]
         assert got[key] == want
@@ -232,7 +248,6 @@ def test_weight_dtype_wins_over_serving_dtype():
 @pytest.mark.parametrize("knob,value,item", [
     ("PREFILL_CHUNK", "32", "item 7"),
     ("SERVING_MESH", "tp=2", "item 11"),
-    ("LORA_DIR", "/nonexistent/adapters", "item 9"),
     ("AOT_CACHE_PATH", "/nonexistent/aot", "item 10"),
     ("KV_CACHE_MODE", "contiguous", "item 8"),
 ])
@@ -465,19 +480,88 @@ def test_provider_reports_an_engine_error_as_the_jax_provider(checkpoint):
     assert got_root == want_root == {"blackbox": "engine-error"}
 
 
+#: a root cause shaped like the card drive's (kept short for tiny-test)
+_CAUSE = {"type": "object", "properties": {
+    "reason": {"enum": ["OOMKilled", "Error"]}, "confidence": {"type": "integer"}},
+    "required": ["reason", "confidence"]}
+
+_EXTRAS = [
+    {"lora_adapter": "incident"},
+    {"guided_regex": r"exit code [0-9]{1,3}"},
+    {"guided_json": json.dumps(_CAUSE)},
+    {"guided_json": _CAUSE, "lora_adapter": "incident"},
+    {"guided_regex": "x" * 1025},
+    {"guided_regex": "a", "guided_json": json.dumps(_CAUSE)},
+    {"guided_json": '{"type": "object"}'},
+    {"lora_adapter": "nope"},
+]
+
+
 def test_provider_refuses_guided_and_lora_configs_naming_item_9():
-    port = build_tpu_native_provider("cpu", {
-        "OPERATOR_TPU_MODEL": "tiny-test", "ALLOW_RANDOM_WEIGHTS": "true",
-        "MAX_BATCH_SIZE": "2", "KV_PAGE_SIZE": "16"})
+    """Once a refusal naming ROADMAP item 9, now the parity of the
+    AIProvider's three ``additionalConfig`` keys with the JAX
+    ``TPUNativeProvider`` on one wave engine's weights and adapters:
+    ``lora_adapter`` selects an adapter, ``guided_regex`` and
+    ``guided_json`` (text or an object) constrain the explanation, and a
+    long pattern, both keys at once, a schema that cannot be lowered and
+    an unknown adapter answer the same errors."""
+    import jax.numpy as jnp
+
+    from operator_tpu.models import init_params as jax_init_params
+    from operator_tpu.models.tokenizer import ByteTokenizer as JaxByteTokenizer
+    from operator_tpu.parallel import init_lora as jax_init_lora
+    from operator_tpu.serving.engine import BatchedGenerator
+    from operator_tpu.serving.engine import ServingEngine as JaxServingEngine
+    from operator_tpu.serving.provider import TPUNativeProvider as JaxProvider
+    from operator_tpu_torch.models import ByteTokenizer, params_from_jax
+    from operator_tpu_torch.serving.engine import Generator, ServingEngine
+    from operator_tpu_torch.serving.provider import TPUNativeProvider
+
+    jax_params = jax_init_params(jax_configs.TINY_TEST, jax.random.PRNGKey(0),
+                                 dtype=jnp.float32)
+    base = jax_init_lora(jax_configs.TINY_TEST, jax.random.PRNGKey(1), rank=4,
+                         dtype=jnp.float32)
+    jax_adapter = {n: {"a": f["a"], "b": jax.random.normal(
+        jax.random.PRNGKey(7), f["b"].shape, jnp.float32) * 0.2} for n, f in base.items()}
+
+    def port(tree):
+        return params_from_jax(jax.tree_util.tree_map(np.array, tree))
+
+    shape = {"max_slots": 2, "max_seq": 256, "page_size": 16, "decode_block": 2}
+    port_engine = ServingEngine(Generator(
+        port(jax_params), configs.TINY_TEST, ByteTokenizer(), cache_dtype=torch.float32,
+        device="cpu", lora_adapters={"incident": port(jax_adapter)}, **shape))
+    ours = TPUNativeProvider(port_engine, model_id="tiny-test",
+                             register_template_prefixes=False)
+    ref = JaxProvider(JaxServingEngine(BatchedGenerator(
+        jax_params, jax_configs.TINY_TEST, JaxByteTokenizer(), paged=True,
+        cache_dtype=jnp.float32, lora_adapters={"incident": jax_adapter}, **shape),
+        admission_wait_s=0.005), model_id="tiny-test", register_template_prefixes=False)
+
+    async def both():
+        answers = []
+        for extra in _EXTRAS:
+            request = jax_analysis.AnalysisRequest.parse({"providerConfig": {
+                "maxTokens": 64, "temperature": 0.0, "additionalConfig": extra}})
+            answers.append((await ours.generate(_port_request(request)),
+                            await ref.generate(request)))
+        await ref.engine.close()
+        return answers
+
     try:
-        for extra in ({"guided_regex": "[a-z]+"}, {"guided_json": '{"type": "string"}'},
-                      {"lora_adapter": "sre"}):
-            request = AnalysisRequest.parse({"providerConfig": {"additionalConfig": extra}})
-            response = asyncio.run(port.generate(request))
-            assert response.explanation is None and "Queue 1 item 9" in response.error
-            assert next(iter(extra)) in response.error
+        answers = asyncio.run(both())
     finally:
-        port.engine.close()
+        port_engine.close()
+    for extra, (got, want) in zip(_EXTRAS, answers):
+        assert got.to_dict() == want.to_dict(), extra
+    texts = [got.explanation for got, _ in answers]
+    assert re.fullmatch(r"exit code [0-9]{1,3}", texts[1])
+    assert json.loads(texts[2])["reason"] in ("OOMKilled", "Error")
+    assert json.loads(texts[3])["reason"] in ("OOMKilled", "Error")
+    errors = [got.error for got, _ in answers[4:]]
+    assert errors[0] == "additionalConfig.guided_regex must be a string of <=1024 chars"
+    assert "mutually exclusive" in errors[1] and "guided_json" in errors[2]
+    assert "unknown LoRA adapter 'nope'" in errors[3]
 
 
 def _call(url: str, body=None) -> tuple:
