@@ -2,8 +2,8 @@
 """Chip smoke test of the PyTorch/H100 port (``operator_tpu_torch``).
 
     python3 chip_smoke.py [--out results.json] [--seed N]
-        [--phases device,kernels,serve,wave,guided,analysis,checkpoint,operator,remote,fleet,
-                  deployed,fabric,parity]
+        [--phases device,kernels,serve,wave,guided,graphs,analysis,checkpoint,operator,remote,
+                  fleet,deployed,fabric,parity]
 
 Runs on one CUDA card, from the root of a checkout; exits non-zero, and
 prints no result, when no card is present or the package is missing.
@@ -130,7 +130,40 @@ Phases, in order — any failure stops the run:
    the first's without its ``additionalConfig``), K5 launches once per
    ``analyze()`` and recall ``query()``, the wave kernels as the drive's
    waves and blocks say, K1 never;
-6. analysis: the semantic analysis path at the full width of
+6. graphs: the serving programs as captured CUDA graphs, at full width.
+   Every other phase already serves through them (a held kernel's check
+   runs its untimed request with the programs eager, ``eager_programs``).
+   (a) tinyllama-1.1b (the serve phase's ten requests) and llama-3-8b
+   (the deployed drive's ten prompts), each built by
+   ``build_serving_engine`` with ``WARMUP_GRID=serving`` and
+   ``AOT_CACHE_PATH``, the grid run by ``engine.precompile``: its dict,
+   the captures and their seconds and the graph pool's bytes; then held
+   drives (half greedy, no row stopping early, the prefix cache spilled
+   before each) with the graphs and with the un-captured step
+   (``Scheduler._mixed_fn``, ``make_mixed_step``'s function), in turns:
+   no capture and no ``nvcc`` build after precompile, greedy answers
+   equal, K1 exact, stream ms per step, tokens/s and the device's busy
+   share (a traced drive of the first four requests at 16 tokens, whose
+   device trace bounds K1's count: CUPTI loses some records of the
+   replays, so no more than counted, and no replay with more than one per
+   layer).  Under replay the
+   counts are the wrappers' own: a launch under capture counts by a
+   device add captured beside it (``ops/_build.py:LaunchCounter``).  (c) The guided phase's wave engine (LORA_DIR,
+   32 slots, flash prefill) with ``WARMUP_GRID=full``: plain, adapted,
+   guided and mixed held drives with graphs and eager, greedy answers
+   equal, K2/K3 and K4 exact under replay (the mixed graph drive traced,
+   its trace bounding the counts as in (a)).  (b) A second process on the
+   same AOT caches boots both tinyllama engines again: no ``nvcc``, every
+   capture a hit (as many as the records), nothing stored, no capture
+   after precompile; cold and warm bring-up seconds.  Then (c)'s block
+   drives at 32 rows (32 tokens) with graphs and eager (no LoRA pass, on
+   the stack, adapted, guided), and (d) a one-shot device error mid-drive: one
+   supervised restart, all eight requests requeued, no graph captured
+   again.  (e) The analysis phase's long drive with the encoder's graph
+   and eager: wall, encoder stream ms, every score within SIM_TOL.
+   Last, the launch counters' own cost: a graph of a decode block's 88
+   counted launches' device adds, device ms per replay;
+7. analysis: the semantic analysis path at the full width of
    all-MiniLM-L6-v2 (f32 weights from a seed, byte-level token ids,
    buckets of 32 texts x 256 tokens) through ``PatternEngine.analyze``
    with a ``SemanticMatcher`` on the card: a crash-loop log of 33,000
@@ -139,7 +172,7 @@ Phases, in order — any failure stops the run:
    set to 0 before each drive: K5 must launch exactly once per analysis
    and once per query, K1-K4 never.  Each K5 call of the drives is held
    to the plain version on its own inputs;
-7. checkpoint: a tinyllama-1.1b checkpoint at full width (bf16, the
+8. checkpoint: a tinyllama-1.1b checkpoint at full width (bf16, the
    serve phase's seeded weights) written by the port's ``save_params``
    as HF-layout shards with an index, with the committed
    SentencePiece-style ``tokenizer.json`` (``tests/torch_tokenizers/``),
@@ -165,7 +198,7 @@ Phases, in order — any failure stops the run:
    load seconds, GB/s, device memory after the load, the drive's wall,
    tokens/s and K1 launches, and the analysis wall, encoder span and K5
    launches are printed with the card's name and power limit;
-8. operator: the port's ``Operator`` (its default device, cuda) over the
+9. operator: the port's ``Operator`` (its default device, cuda) over the
    in-memory ``FakeKubeApi``, with the checkpoint phase's two checkpoints
    (kept for it, deleted after it): ``providerId: tpu-native`` through
    two AIProviders on the one engine (greedy, and the default
@@ -192,7 +225,7 @@ Phases, in order — any failure stops the run:
    span tree (collect, analyze, recall, generate, store) and the host
    time outside the engine; the drive's tokens/s against the checkpoint
    phase's provider drive, and the recall hit's wall;
-9. remote: the serving front as a service and the operator's remote
+10. remote: the serving front as a service and the operator's remote
    path, on the checkpoint phase's two checkpoints (kept for it too): two
    ``CompletionServer``s, replicas A and B, on an event loop of their own
    over one engine on the card, with the encoder as the embedder and the
@@ -223,7 +256,7 @@ Phases, in order — any failure stops the run:
    stream, the steps from the close to the release, tokens/s, the
    per-pod stage split and the HTTP overhead per request (the provider's
    dispatch span less the replica's own request span) are printed;
-10. fleet: the operator's HA and elastic fleet, on the checkpoint phase's
+11. fleet: the operator's HA and elastic fleet, on the checkpoint phase's
    two checkpoints (kept for it too).  (a) Two ``Operator``s, ``op-a`` and
    ``op-b``, with ``LEADER_ELECTION`` and a 3 s lease over one
    ``FakeKubeApi``, one claims ledger and one ``tpu-native`` engine: ten
@@ -259,7 +292,7 @@ Phases, in order — any failure stops the run:
    kill to takeover, scale-up reaction, replica start, join to the first
    routed request, scale-down and process start to stored status are
    printed;
-11. deployed: the deployed model, llama-3-8b at full width (32 layers,
+12. deployed: the deployed model, llama-3-8b at full width (32 layers,
    hidden 4,096, 32 query heads over 8 KV heads of 128, vocab 128,256,
    rope theta 500,000; int8 weights from a seed), with the committed
    byte-level tokenizer (``tests/torch_tokenizers/llama3_bl`` through
@@ -286,7 +319,7 @@ Phases, in order — any failure stops the run:
    one ``EngineReplica``, a stall after 40 steps: one restart, every
    arrival settles, no torn ledger line; the schedule's fingerprint, the
    attainment and the goodput are printed;
-12. fabric: the fleet KV fabric at llama-3-8b's full width, a prefill
+13. fabric: the fleet KV fabric at llama-3-8b's full width, a prefill
    replica P (``REPLICA_ROLE=prefill``) and a decode replica D
    (``REPLICA_ROLE=decode``, ``KV_FABRIC_PEERS`` naming P) on the card,
    each built by ``build_serving_engine`` with the deployed phase's
@@ -323,7 +356,7 @@ Phases, in order — any failure stops the run:
    are printed.  (d) The auditor records no
    violation.  K1 launches 32 times per step of each engine, K2-K5
    never, and the pages balance after every drive;
-13. parity: small f32 ``tiny-test`` engines on the card (kernels) and on
+14. parity: small f32 ``tiny-test`` engines on the card (kernels) and on
    the CPU (plain versions) must give the same greedy tokens — the
    continuous engine, and the wave engine with the decode selector at
    ``v1`` and ``v2`` and flash prefill on and off; the continuous engine
@@ -350,6 +383,7 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import contextlib
 import dataclasses
 import json
 import logging
@@ -362,6 +396,7 @@ import threading
 import time
 import urllib.error
 import urllib.request
+from pathlib import Path
 
 #: bf16: the plain version rounds the softmax probabilities to bf16 before
 #: P.V and rounds again at the end; the kernel keeps them in f32 and rounds
@@ -470,14 +505,31 @@ class HeldToPlain:
         return got
 
 
+@contextlib.contextmanager
+def eager_programs():
+    """While held, every serving program (``serving/graphs.py``) runs its
+    function eagerly: a held kernel's Python dispatch, which a hold
+    replaces, runs in an eager call and at a capture, never in a replay.
+    The held requests are untimed; their launches are real and counted."""
+    from operator_tpu_torch.serving.graphs import GraphProgram
+
+    call = GraphProgram.__call__
+    GraphProgram.__call__ = lambda self, *args, key=None, variant=None: self.fn(*args)
+    try:
+        yield
+    finally:
+        GraphProgram.__call__ = call
+
+
 def held_drive_calls(url: str, module, name: str, held: HeldToPlain, prompt: str) -> dict:
     """One more request, untimed, with ``module.name`` replaced by
-    ``held``; fails unless all of its calls were held and each agrees
-    (every element within its limit: ``excess`` <= 0).  The record keeps
-    the largest of each number over the calls."""
+    ``held`` (the programs eager meanwhile); fails unless all of its calls
+    were held and each agrees (every element within its limit: ``excess``
+    <= 0).  The record keeps the largest of each number over the calls."""
     setattr(module, name, held)
     try:
-        _post(url, {"prompt": prompt, "max_tokens": 8, "temperature": 0.0})
+        with eager_programs():
+            _post(url, {"prompt": prompt, "max_tokens": 8, "temperature": 0.0})
     finally:
         setattr(module, name, held.fn)
     calls = held.held
@@ -2366,9 +2418,10 @@ def phase_guided(results: dict, kernel_modules: dict, seed: int) -> dict:
             held = LoraHeld(llama._proj, layers * len(DEFAULT_TARGETS))
             llama._proj = held
             try:
-                held_sends(engine, [(lambda m=m: _post(url, {
-                    "prompt": prompts[2], "max_tokens": 4, "temperature": 0.0,
-                    **({"model": m} if m else {})})) for m in (None, "incident", "verbose")])
+                with eager_programs():
+                    held_sends(engine, [(lambda m=m: _post(url, {
+                        "prompt": prompts[2], "max_tokens": 4, "temperature": 0.0,
+                        **({"model": m} if m else {})})) for m in (None, "incident", "verbose")])
             finally:
                 llama._proj = held.fn
             record_b = {}
@@ -3080,7 +3133,8 @@ def phase_checkpoint(results: dict, kernel_modules: dict, keep: bool = False) ->
         )
         mixed_module.ragged_paged_attention = held
         try:
-            asyncio.run(provider.generate(requests[1]))
+            with eager_programs():
+                asyncio.run(provider.generate(requests[1]))
         finally:
             mixed_module.ragged_paged_attention = held.fn
         bad_held = [c for c in held.held if not c["finite"] or not c["excess"] <= 0]
@@ -3553,8 +3607,9 @@ def phase_operator(results: dict, kernel_modules: dict, dirs: dict) -> dict:
     mixed_module.ragged_paged_attention = held
     semantic_module.best_window_scores = k5_held
     try:
-        asyncio.run(generate(exchanged[0][0]))
-        operator.engine.analyze(PodFailureData(logs=pods[1][2]))
+        with eager_programs():
+            asyncio.run(generate(exchanged[0][0]))
+            operator.engine.analyze(PodFailureData(logs=pods[1][2]))
     finally:
         mixed_module.ragged_paged_attention = held.fn
         semantic_module.best_window_scores = k5_held.fn
@@ -3635,13 +3690,15 @@ REMOTE_BATCH = 5
 CANCEL_MAX_TOKENS = 256
 
 
-def held_sends(engine, sends: list, timeout_s: float = 120.0) -> tuple:
+def held_sends(engine, sends: list, timeout_s: float = 120.0,
+               timing: "dict | None" = None) -> tuple:
     """Run every ``send()`` on its own thread, each queued at the engine in
     list order, the engine's admission held until all are queued — so two
     drives of the same requests take the same steps.  The hold is on the
     loop's intake: the scheduler's admission, or the wave loop's take
-    into its waiting line.  Returns (results in list order, the sampler's
-    state the first step will find)."""
+    into its waiting line.  ``timing`` receives ``released``, when the
+    hold lifts.  Returns (results in list order, the sampler's state the
+    first step will find)."""
     gate = threading.Lock()
     intake = "_admit_submissions" if engine.scheduler is not None else "_take_submissions"
     admit = getattr(engine, intake)
@@ -3676,6 +3733,8 @@ def held_sends(engine, sends: list, timeout_s: float = 120.0) -> tuple:
                         raise fail(f"held drive: request {i} not queued in {timeout_s} s")
                     time.sleep(0.0005)
             rng = engine.generator._rng.get_state()
+        if timing is not None:
+            timing["released"] = time.perf_counter()
         for thread in threads:
             thread.join(900)
     finally:
@@ -5610,7 +5669,9 @@ def phase_deployed(results: dict, kernel_modules: dict) -> dict:
         )
         mixed_module.ragged_paged_attention = held
         try:
-            asyncio.run(engine.generate(long_prompt, SamplingParams(max_tokens=8, temperature=0.0)))
+            with eager_programs():
+                asyncio.run(engine.generate(long_prompt,
+                                            SamplingParams(max_tokens=8, temperature=0.0)))
         finally:
             mixed_module.ragged_paged_attention = held.fn
         bad_held = [c for c in held.held if not c["finite"] or not c["excess"] <= 0]
@@ -6336,8 +6397,9 @@ def fabric_drives(out: dict, kernel_modules: dict, memory0: int) -> dict:
         )
         mixed_module.ragged_paged_attention = held_k1
         try:
-            http.run(engine_d.generate(prompts[0] + " Summary:",
-                                       SamplingParams(max_tokens=2, temperature=0.0)))
+            with eager_programs():
+                http.run(engine_d.generate(prompts[0] + " Summary:",
+                                           SamplingParams(max_tokens=2, temperature=0.0)))
         finally:
             mixed_module.ragged_paged_attention = held_k1.fn
         bad_held = [c for c in held_k1.held if not c["finite"] or not c["excess"] <= 0]
@@ -6848,14 +6910,594 @@ def analysis_parity(kernel_modules: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# the graphs phase: the serving programs as captured CUDA graphs
+# ---------------------------------------------------------------------------
+
+#: the phase's AOT caches, LoRA files and the warm boot's plan
+GRAPHS_DIR = os.path.join(ROOT, "build", "chip_smoke_graphs")
+#: the wave grid's automaton (``precompile_grid``'s guided choice): (c)'s
+#: guided rows use it, so their tables restack into the captured buffer
+GRAPHS_CHOICE = ("warm", "cold")
+#: the block drives' tokens (the guided phase's are 64): nine blocks of
+#: 32 rows each, the eager ones at 0.2-0.3 s a block
+GRAPHS_BLOCK_TOKENS = 32
+
+
+def graph_params(n: int, tokens: int = MAX_TOKENS, **extra) -> list:
+    """Half greedy, half sampled; no row stops at EOS, so two drives of the
+    same requests take the same steps whatever the sampled rows draw."""
+    from operator_tpu_torch.serving.types import SamplingParams
+
+    return [SamplingParams(max_tokens=tokens, temperature=0.0 if i % 2 == 0 else 0.7,
+                           top_p=0.95, stop_on_eos=False, **extra) for i in range(n)]
+
+
+#: each counted kernel module's kernels in a device trace, by symbol
+#: (``ops/csrc``; K1's split merge kernel belongs to its one counted launch)
+KERNEL_SYMBOLS = {
+    name: re.compile(rf"(?<![a-z_]){symbol}(?![a-z_])")  # demangled or mangled
+    for name, symbol in (
+        ("ragged_paged_attention", "ragged_attention(_tc)?_kernel"),
+        ("paged_decode_attention", "paged_decode(_tc)?_kernel"),
+        ("flash_prefill_attention", "flash_prefill(_tc)?_kernel"),
+        ("best_window_similarity", "best_window_(tiled|rows)"),
+    )
+}
+
+
+def traced(drive) -> tuple:
+    """``drive()`` under ``torch.profiler`` tracing the device only (no
+    host operator events: they would slow the eager drive's host): its
+    result, the device's busy share of the wall, and for each counted
+    module how many of its kernels the trace holds (replays included) and
+    how they group by the call that launched them (a graph replay
+    launches all of its kernels under one correlation id): {group size:
+    groups}."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        started = time.perf_counter()
+        result = drive()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - started) * 1e3
+    # the raw device events (kernels, copies, memsets): building the
+    # profiler's Python event tree for a drive's every kernel takes minutes
+    device_ns = 0
+    kernels = dict.fromkeys(KERNEL_SYMBOLS, 0)
+    launches: dict = {module: {} for module in KERNEL_SYMBOLS}
+    for event in prof.profiler.kineto_results.events():
+        if event.device_type() != DeviceType.CUDA:
+            continue
+        device_ns += event.duration_ns()
+        name = event.name()
+        for module, symbol in KERNEL_SYMBOLS.items():
+            if symbol.search(name):
+                kernels[module] += 1
+                by_launch = launches[module]
+                by_launch[event.correlation_id()] = by_launch.get(event.correlation_id(), 0) + 1
+    groups: dict = {module: {} for module in KERNEL_SYMBOLS}
+    for module, by_launch in launches.items():
+        for size in by_launch.values():
+            groups[module][size] = groups[module].get(size, 0) + 1
+    return result, device_ns / 1e6 / wall_ms, kernels, groups
+
+
+def graph_drive(engine, prompts: list, params: list, kernel_modules: dict, where: str,
+                *, profile: bool = False) -> dict:
+    """One held drive through ``engine.submit``, every kernel count set to
+    0 just before and read just after, each checked exactly: K1 once per
+    layer per step (continuous); K2/K3 once per layer per step of each
+    block and K4 once per layer per prefill wave (wave, flash prefill on).
+    Returns the answers, tokens/s from the release, the stream ms per
+    step or block and, with ``profile``, the device's busy share; the
+    trace then bounds each count."""
+    g, sched = engine.generator, engine.scheduler
+    for module in kernel_modules.values():
+        module.launches = 0
+    stream = sched.device_ms if sched is not None else g.block_ms
+    ms0 = len(stream)
+    steps0 = sched.steps if sched is not None else g.blocks_dispatched
+    waves0 = g.prefill_waves
+    timing: dict = {}
+    sends = [lambda p=p, sp=sp: engine.submit(p, sp).result(timeout=600)
+             for p, sp in zip(prompts, params)]
+
+    def drive():
+        results = held_sends(engine, sends, timing=timing)[0]
+        wall = time.perf_counter() - timing["released"]
+        # settled inside a trace's window: a step still in flight belongs
+        # to the drive's counts, so its kernels belong to its trace
+        deadline = time.time() + 30
+        while (g.num_active or g._inflight_blocks) and time.time() < deadline:
+            time.sleep(0.01)
+        if sched is not None:
+            wait_idle(sched)
+        return results, wall
+
+    busy = in_trace = groups = None
+    if profile:
+        (results, wall), busy, in_trace, groups = traced(drive)
+    else:
+        results, wall = drive()
+    launches = {name: m.launches for name, m in kernel_modules.items()}
+    layers = g.config.num_layers
+    if sched is not None:
+        steps = sched.steps - steps0
+        want = {"ragged_paged_attention": layers * steps}
+    else:
+        steps = g.blocks_dispatched - steps0
+        want = {"paged_decode_attention": layers * g.decode_block * steps,
+                "flash_prefill_attention": layers * (g.prefill_waves - waves0)}
+    want = {name: want.get(name, 0) for name in kernel_modules}
+    if launches != want or steps == 0:
+        raise fail(f"graphs {where}: launches {launches} over {steps} steps, want {want}")
+    if in_trace is not None:
+        # CUPTI loses records at a graph's rate (llama-3-8b on an H100: 20,
+        # 296 and 30 of 2,784 K1 records in three runs, as whole and
+        # partial replays),
+        # so the trace bounds the counts: never more kernels than counted,
+        # none of a counted kernel missing entirely, and no launch holding
+        # more than one step (or block, or wave) launches
+        in_trace = {name: in_trace[name] for name in kernel_modules}
+        per_launch = {"ragged_paged_attention": layers,
+                      "paged_decode_attention": layers * g.decode_block,
+                      "flash_prefill_attention": layers}
+        if any(in_trace[name] > want[name] or (want[name] and not in_trace[name])
+               or max(groups[name], default=0) > per_launch.get(name, 0)
+               for name in kernel_modules):
+            raise fail(f"graphs {where}: the trace holds kernels {in_trace}, want {want}; "
+                       f"kernels per launch {groups}")
+    tokens = sum(r.completion_tokens for r in results)
+    ms = stream[ms0:]
+    return {
+        "answers": [list(r.token_ids) for r in results], "tokens": tokens,
+        "wall_s": wall, "tokens_per_s": tokens / wall, "steps": steps,
+        "stream_ms_per_step": sum(ms) / len(ms) if ms else None,
+        "launches": launches, "launches_in_trace": in_trace,
+        "kernels_per_launch_in_trace": groups and {k: v for k, v in groups.items() if v},
+        "busy_share": busy,
+    }
+
+
+def greedy_equal(graph: dict, eager: dict, params: list, where: str) -> int:
+    """The greedy rows' answers of two drives must be equal; returns how
+    many rows were compared."""
+    rows = [i for i, sp in enumerate(params) if sp.temperature == 0.0]
+    differ = [i for i in rows if graph["answers"][i] != eager["answers"][i]]
+    if differ:
+        raise fail(f"graphs {where}: greedy answers of rows {differ} differ from eager")
+    return len(rows)
+
+
+def graph_summary(drive: dict) -> dict:
+    return {k: v for k, v in drive.items() if k != "answers"}
+
+
+def captured(g, since: int = 0) -> list:
+    return [[name, repr(key), seconds] for name, key, seconds in g.graphs.log[since:]]
+
+
+def watched_bringup(env: dict, tokenizer=None) -> tuple:
+    """``build_serving_engine`` and the warmup grid at ``WARMUP_GRID``
+    under a ``CompileWatcher``: (engine, watcher, the bring-up record)."""
+    import torch
+
+    from operator_tpu_torch.serving.provider import build_serving_engine
+    from operator_tpu_torch.utils.compilewatch import CompileWatcher
+    from operator_tpu_torch.utils.config import OperatorConfig
+
+    torch.cuda.empty_cache()
+    watcher = CompileWatcher()
+    started = time.perf_counter()
+    engine, model_id = build_serving_engine("cuda", env, seed=0)
+    if tokenizer is not None:
+        engine.generator.tokenizer = tokenizer
+    built = time.perf_counter() - started
+    report = asyncio.run(engine.precompile(OperatorConfig.from_env(env).warmup_grid))
+    torch.cuda.synchronize()
+    g = engine.generator
+    record = {
+        "model": model_id, "build_s": built, "bringup_s": time.perf_counter() - started,
+        "precompile": report, "captures": len(g.graphs.log),
+        "capture_s": g.graphs.capture_s, "pool_bytes": g.graphs.pool_bytes(),
+        "builds": [e[1] for e in watcher.events() if e[1].startswith("nvcc:")],
+    }
+    watcher.mark()
+    return engine, watcher, record
+
+
+def graphs_continuous(name: str, env: dict, prompts: list, kernel_modules: dict,
+                      tokenizer=None) -> dict:
+    """(a): one continuous engine from ``build_serving_engine`` with the
+    warmup grid and the AOT cache; the held drive with graphs and with the
+    un-captured step (``make_mixed_step``'s function, ``Scheduler._mixed_fn``),
+    each cold (the prefix cache spilled), then each traced over the first
+    four requests at 16 tokens."""
+    engine, watcher, out = watched_bringup(env, tokenizer)
+    sched = engine.scheduler
+    params = graph_params(len(prompts))
+    try:
+        out["captured"] = captured(engine.generator)
+        program = sched._fn
+        step = sched._mixed_fn()
+
+        def eager(*args, key=None):
+            return step(*args)
+
+        # the traced drives are short (the first four requests, 16 tokens):
+        # a trace of every kernel of the whole drive takes minutes to sum
+        traced_prompts, traced_params = prompts[:4], graph_params(4, tokens=16)
+        drives = {}
+        for mode, profile in (("graph", False), ("eager", False), ("eager", True),
+                              ("graph", True)):
+            sched._fn = program if mode == "graph" else eager
+            sched.spill_cache()
+            drives[(mode, profile)] = graph_drive(
+                engine, *((traced_prompts, traced_params) if profile else (prompts, params)),
+                kernel_modules, f"{name} {mode}", profile=profile)
+        sched._fn = program
+        after = watcher.events_since_mark()
+        if after:
+            raise fail(f"graphs {name}: captured or built after precompile: {after}")
+        graph, eager = drives[("graph", False)], drives[("eager", False)]
+        out["greedy_rows_equal"] = greedy_equal(graph, eager, params, name)
+        greedy_equal(drives[("graph", True)], drives[("eager", True)], traced_params, name)
+        out["graph"] = {**graph_summary(graph), "busy_share": drives[("graph", True)]["busy_share"]}
+        out["eager"] = {**graph_summary(eager), "busy_share": drives[("eager", True)]["busy_share"]}
+        out["traced"] = {
+            "requests": len(traced_prompts), "max_tokens": 16,
+            **{key: {m: drives[(m, True)][key] for m in ("graph", "eager")}
+               for key in ("steps", "launches", "launches_in_trace")},
+            "kernels_per_launch_in_trace": drives[("graph", True)]["kernels_per_launch_in_trace"],
+        }
+        out["graph_over_eager"] = {
+            "tokens_per_s": graph["tokens_per_s"] / eager["tokens_per_s"],
+            "stream_ms_per_step": graph["stream_ms_per_step"] / eager["stream_ms_per_step"],
+        }
+        out["after_precompile"] = {"captures": 0, "builds": 0}
+        out["aot"] = engine.generator._aot.stats()
+        return out
+    finally:
+        watcher.close()
+        engine.close()
+
+
+def graphs_wave_blocks(engine, eager_programs_of) -> dict:
+    """The guided phase's block drives at 32 rows (32 tokens, sampled) on
+    the (c) engine, with graphs and eager: no LoRA pass, on the stack,
+    every row adapted, every row guided (the root-cause schema); median
+    block ms."""
+    from operator_tpu_torch.serving.json_schema import lower_guided_json
+    from operator_tpu_torch.serving.types import SamplingParams
+
+    g = engine.generator
+    json_regex = lower_guided_json(ROOT_CAUSE_SCHEMA)
+    short = [(LOG_LINE * 2)[:48 + i] for i in range(g.max_slots)]
+    extra = {"no_lora_pass": {}, "plain": {}, "adapter": {"adapter": "incident"},
+             "guided": {"guided_regex": json_regex}}
+
+    def sends(kind: str) -> list:
+        params = SamplingParams(max_tokens=GRAPHS_BLOCK_TOKENS, temperature=0.7,
+                                stop_on_eos=False, **extra[kind])
+        return [lambda i=i: engine.submit(short[i], params).result(timeout=300)
+                for i in range(g.max_slots)]
+
+    out = {}
+    for kind in extra:
+        for mode in ("graph", "eager"):
+            restore = eager_programs_of(g) if mode == "eager" else None
+            stack = g.lora
+            if kind == "no_lora_pass":
+                g.lora = None
+            try:
+                out[f"{kind}_{mode}"] = timed_blocks(engine, kind, sends(kind))
+            finally:
+                g.lora = stack
+                if restore is not None:
+                    restore()
+    return {"rows": g.max_slots, "tokens": GRAPHS_BLOCK_TOKENS, **out,
+            "graph_over_eager": {k: out[f"{k}_graph"]["median_ms"] / out[f"{k}_eager"]["median_ms"]
+                                 for k in extra}}
+
+
+def eager_wave_programs(g):
+    """Swap the wave engine's programs for their un-captured functions;
+    returns the undo."""
+    saved = (g._decode_program, g._decode_guided_program, g._prefill_program)
+
+    def decode(*args, key=None):
+        return g._decode_block_paged(*args)
+
+    def prefill(*args, key=None, variant=None):
+        return g._prefill_paged(*args)
+
+    g._decode_program = g._decode_guided_program = decode
+    g._prefill_program = prefill
+
+    def restore():
+        g._decode_program, g._decode_guided_program, g._prefill_program = saved
+
+    return restore
+
+
+def graphs_wave(env: dict, kernel_modules: dict) -> tuple:
+    """(c): the guided phase's wave engine (LORA_DIR, 32 slots, flash
+    prefill) with ``WARMUP_GRID=full`` and the AOT cache; plain, adapted,
+    guided and mixed held drives with graphs and eager (greedy answers
+    equal, K2/K3 and K4 exact), then (b)'s warm boot is run by the caller
+    and the block drives and (d) follow.  Returns (engine, watcher, record)."""
+    engine, watcher, out = watched_bringup(env)
+    g = engine.generator
+    if engine.scheduler is not None or g.max_slots != 32 or not g.adapter_names:
+        raise fail("graphs (c): not the 32-slot wave engine with adapters")
+    out["captured"] = len(g.graphs.log)
+    prompts = [(LOG_LINE * (n // len(LOG_LINE) + 1))[:n] for n in PROMPT_CHARS]
+    kinds = {
+        "plain": [{}] * len(prompts),
+        "adapted": [{"adapter": "incident"}] * len(prompts),
+        "guided": [{"guided_choice": GRAPHS_CHOICE}] * len(prompts),
+        "mixed": [[{}, {"adapter": "verbose"}, {"guided_choice": GRAPHS_CHOICE},
+                   {"adapter": "incident", "guided_choice": GRAPHS_CHOICE}][i % 4]
+                  for i in range(len(prompts))],
+    }
+    drives = {}
+    for kind, extras in kinds.items():
+        params = [dataclasses.replace(sp, **extra)
+                  for sp, extra in zip(graph_params(len(prompts)), extras)]
+        graph = graph_drive(engine, prompts, params, kernel_modules, f"wave {kind} graph",
+                            profile=kind == "mixed")
+        restore = eager_wave_programs(g)
+        try:
+            eager = graph_drive(engine, prompts, params, kernel_modules, f"wave {kind} eager")
+        finally:
+            restore()
+        drives[kind] = {"greedy_rows_equal": greedy_equal(graph, eager, params, f"wave {kind}"),
+                        "graph": graph_summary(graph), "eager": graph_summary(eager)}
+    after = watcher.events_since_mark()
+    out["after_precompile"] = {"captures": len(after), "events": [e[1] for e in after]}
+    out["drives"] = drives
+    out["aot"] = g._aot.stats()
+    return engine, watcher, out
+
+
+def graphs_restart(engine, kernel_modules: dict) -> dict:
+    """(d): a one-shot device error mid-drive on the (c) engine: one
+    supervised restart, every request in flight requeued, no graph
+    captured again."""
+    from operator_tpu_torch.utils.faultinject import OK, FaultPlan, raise_
+
+    g = engine.generator
+    prompts = [(LOG_LINE * 2)[:40 + 20 * i] for i in range(8)]
+    params = graph_params(len(prompts))
+    counts0 = supervisor_counts(g.metrics)
+    captures0 = g.graphs.captures
+    plan = FaultPlan(seed=11)
+    plan.rule("engine.step", [OK, OK, OK, raise_(
+        lambda: RuntimeError("injected device error"), "device")])
+    g.fault_plan = plan
+    try:
+        drive = graph_drive(engine, prompts, params, {}, "restart")
+    finally:
+        g.fault_plan = None
+    counts = {k: v - counts0[k] for k, v in supervisor_counts(g.metrics).items()}
+    out = {"supervisor": counts, "captures_after_restart": g.graphs.captures - captures0,
+           "tokens": drive["tokens"], "pending_faults": plan.pending()}
+    if (counts["restart"] != 1 or counts["requeue"] != len(prompts) or counts["gaveup"]
+            or out["captures_after_restart"] or plan.pending()
+            or drive["tokens"] != len(prompts) * MAX_TOKENS):
+        raise fail(f"graphs (d): {out}")
+    return out
+
+
+def graphs_analysis(kernel_modules: dict) -> dict:
+    """(e): the analysis phase's long drive (MiniLM-L6 width, the encoder
+    buckets as one graph) with graphs and eager: wall, encoder stream ms,
+    and every event's score within SIM_TOL of eager's."""
+    import torch
+
+    from operator_tpu_torch.models.encoder import MINILM_L6, encode, init_encoder_params
+    from operator_tpu_torch.patterns.engine import PatternEngine
+    from operator_tpu_torch.patterns.semantic import NeuralEmbedder, SemanticMatcher
+    from operator_tpu_torch.schema.analysis import PodFailureData
+
+    params = init_encoder_params(MINILM_L6, torch.Generator(device="cuda").manual_seed(0),
+                                 torch.float32, device="cuda")
+    embedder = NeuralEmbedder(params, MINILM_L6, byte_ids, device="cuda")
+    matcher = SemanticMatcher(embedder, device="cuda")
+    engine = PatternEngine(semantic=matcher)
+    timed = TimedEmbedder(embedder)
+    matcher.embedder = timed
+    engine.analyze(PodFailureData(logs="\n".join(fixture_lines("oom_java.log"))))  # capture
+    program = embedder._encode
+    logs = crash_loop_log()
+    out, events = {}, {}
+    for mode in ("graph", "eager", "eager", "graph"):
+        embedder._encode = program if mode == "graph" else (
+            lambda p, ids, mask, key=None: encode(p, MINILM_L6, ids, mask))
+        calls0 = len(timed.embed.calls)
+        started = time.perf_counter()
+        result = engine.analyze(PodFailureData(logs=logs))
+        wall_ms = (time.perf_counter() - started) * 1e3
+        spans = timed.embed.spans_ms()[calls0:]
+        out.setdefault(mode, []).append({"wall_ms": wall_ms, "encoder_stream_ms": sum(spans)})
+        events[mode] = [(e.matched_pattern.id, e.score) for e in result.events]
+    embedder._encode = program
+    graph, eager = events["graph"], events["eager"]
+    worst = max((abs(a[1] - b[1]) for a, b in zip(graph, eager)), default=0.0)
+    if [e[0] for e in graph] != [e[0] for e in eager] or not worst <= SIM_TOL:
+        raise fail(f"graphs (e): events differ from eager (worst score diff {worst})")
+    if embedder.graphs.captures != 1:
+        raise fail(f"graphs (e): {embedder.graphs.captures} encoder captures, want 1")
+    return {"events": len(graph), "max_score_diff": worst, "tolerance": SIM_TOL,
+            "replays": embedder.graphs.replays, **out}
+
+
+def launch_count_cost(adds: int = 88, replays: int = 200) -> dict:
+    """What the kernels' launch counters cost inside a graph: one graph of
+    ``adds`` counted launches' device adds (a tinyllama decode block's
+    22 layers x 4 steps of K2/K3), replayed back to back, CUDA-event
+    timed: device ms per replay and us per add."""
+    import torch
+
+    from operator_tpu_torch.ops import _build
+
+    counter = _build.LaunchCounter()
+    device = torch.device("cuda", torch.cuda.current_device())
+    counter.launched(device)  # the eager launch that makes the device counter
+    graph, stream = torch.cuda.CUDAGraph(), torch.cuda.Stream()
+    with torch.cuda.graph(graph, stream=stream):
+        for _ in range(adds):
+            counter.launched(device)
+    graph.replay()
+    begin, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    begin.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    ms = begin.elapsed_time(end) / replays
+    if counter.value() != 1 + adds * (replays + 1):
+        raise fail(f"launch counter: {counter.value()} after {replays + 1} replays of {adds}")
+    return {"adds": adds, "replays": replays, "ms_per_replay": ms, "us_per_add": ms * 1e3 / adds}
+
+
+def graphs_warm_boot(plan_path: str) -> int:
+    """(b), in its own process: each engine of the plan built on its AOT
+    cache again — no ``nvcc`` build, every capture a hit (as many as the
+    cache holds records), nothing stored, and no capture or build after
+    precompile over a short drive."""
+    with open(plan_path) as fh:
+        plan = json.load(fh)
+    out = {}
+    for name, env, prompts in plan:
+        engine, watcher, record = watched_bringup(env)
+        try:
+            aot = engine.generator._aot
+            stats = aot.stats()
+            records = len(aot.records())
+            params = graph_params(len(prompts), tokens=8)
+            for future in [engine.submit(p, sp) for p, sp in zip(prompts, params)]:
+                future.result(timeout=600)
+            after = [e[1] for e in watcher.events_since_mark()]
+            record.update({"records": records, "aot": stats, "after_precompile": after})
+            if (record["builds"] or stats["hits"] != records or stats["stored"]
+                    or stats["live_compiles"] or after or records == 0):
+                raise fail(f"graphs (b) {name}: warm boot {record}")
+            out[name] = {k: v for k, v in record.items() if k != "precompile"}
+        finally:
+            watcher.close()
+            engine.close()
+    print(json.dumps({"graphs_warm": out}), flush=True)
+    return 0
+
+
+def phase_graphs(results: dict, kernel_modules: dict, seed: int) -> dict:
+    """The serving programs as captured CUDA graphs (see the module doc):
+    (a) the continuous path at tinyllama-1.1b and llama-3-8b, (c) the wave
+    path, (b) a warm boot of both tinyllama engines in a second process,
+    the block drives, (d) a supervised restart, (e) the analysis."""
+    from operator_tpu_torch.models.configs import get_config
+    from operator_tpu_torch.models.tokenizer import load_tokenizer
+    from operator_tpu_torch.serving.prompts import build_prompt
+
+    card = card_line()
+    out: dict = {"card": card}
+    part_s = out["part_s"] = {}
+    mark = [time.perf_counter()]
+
+    def lap(name: str) -> None:
+        now = time.perf_counter()
+        part_s[name] = now - mark[0]
+        mark[0] = now
+
+    shutil.rmtree(GRAPHS_DIR, ignore_errors=True)
+    os.makedirs(GRAPHS_DIR)
+    saved = os.environ.get("OPERATOR_TPU_FLASH_PREFILL")
+    os.environ["OPERATOR_TPU_FLASH_PREFILL"] = "1"
+    try:
+        serve_env = {**SERVE_ENV, "WARMUP_GRID": "serving",
+                     "AOT_CACHE_PATH": os.path.join(GRAPHS_DIR, "aot")}
+        prompts = [(LOG_LINE * (n // len(LOG_LINE) + 1))[:n] for n in PROMPT_CHARS]
+        out["a_tinyllama"] = graphs_continuous("tinyllama", serve_env, prompts, kernel_modules)
+        print(json.dumps({"graphs_a_tinyllama": out["a_tinyllama"], "card": card}), flush=True)
+        lap("a_tinyllama")
+        tokenizer = load_tokenizer(LLAMA3_TOKENIZER)
+        requests, _ = deployed_requests(tokenizer)
+        out["a_llama3"] = graphs_continuous(
+            "llama-3-8b", {**DEPLOYED_ENV, "WARMUP_GRID": "serving",
+                           "AOT_CACHE_PATH": os.path.join(GRAPHS_DIR, "aot")},
+            [build_prompt(r) for r in requests], kernel_modules, tokenizer)
+        print(json.dumps({"graphs_a_llama3": out["a_llama3"], "card": card}), flush=True)
+        lap("a_llama3")
+
+        lora_dir = os.path.join(GRAPHS_DIR, "lora")
+        write_lora_dir(lora_dir, get_config("tinyllama-1.1b"), seed)
+        wave_env = {**SERVE_ENV, "LORA_DIR": lora_dir, "WARMUP_GRID": "full",
+                    "AOT_CACHE_PATH": os.path.join(GRAPHS_DIR, "aot")}
+        engine, watcher, wave = graphs_wave(wave_env, kernel_modules)
+        try:
+            out["c_wave"] = wave
+            print(json.dumps({"graphs_c": wave, "card": card}), flush=True)
+            lap("c_wave")
+            # (b) the warm boot, in a second process on the same caches
+            plan_path = os.path.join(GRAPHS_DIR, "warm_plan.json")
+            with open(plan_path, "w") as fh:
+                json.dump([["tinyllama_continuous", serve_env, prompts[:4]],
+                           ["tinyllama_wave", wave_env, prompts[:4]]], fh)
+            started = time.perf_counter()
+            child = subprocess.run(
+                [sys.executable, os.path.abspath(__file__), "--graphs-warm", plan_path],
+                capture_output=True, text=True, timeout=600, cwd=ROOT)
+            lines = [line for line in child.stdout.splitlines() if line.startswith("{")]
+            if child.returncode != 0 or not lines:
+                raise fail(f"graphs (b): the warm boot exited {child.returncode}: "
+                           f"{child.stderr[-2000:]}")
+            warm = json.loads(lines[-1])["graphs_warm"]
+            warm["process_s"] = time.perf_counter() - started
+            warm["cold_bringup_s"] = {"tinyllama_continuous": out["a_tinyllama"]["bringup_s"],
+                                      "tinyllama_wave": wave["bringup_s"]}
+            out["b_warm_boot"] = warm
+            print(json.dumps({"graphs_b": warm, "card": card}), flush=True)
+            lap("b_warm_boot")
+            out["c_block_ms"] = graphs_wave_blocks(engine, eager_wave_programs)
+            print(json.dumps({"graphs_c_blocks": out["c_block_ms"], "card": card}), flush=True)
+            lap("c_blocks")
+            out["d_restart"] = graphs_restart(engine, kernel_modules)
+            print(json.dumps({"graphs_d": out["d_restart"], "card": card}), flush=True)
+            lap("d_restart")
+        finally:
+            watcher.close()
+            engine.close()
+        out["e_analysis"] = graphs_analysis(kernel_modules)
+        print(json.dumps({"graphs_e": out["e_analysis"], "card": card}), flush=True)
+        lap("e_analysis")
+        out["launch_count_cost"] = launch_count_cost()
+        print(json.dumps({"graphs_launch_count_cost": out["launch_count_cost"], "card": card}),
+              flush=True)
+        print(json.dumps({"graphs_part_s": part_s, "card": card}), flush=True)
+        results["graphs"] = out
+        return out
+    finally:
+        if saved is None:
+            os.environ.pop("OPERATOR_TPU_FLASH_PREFILL", None)
+        else:
+            os.environ["OPERATOR_TPU_FLASH_PREFILL"] = saved
+        shutil.rmtree(GRAPHS_DIR, ignore_errors=True)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="also write every result to this JSON file")
     parser.add_argument("--phases",
-                        default="device,kernels,serve,wave,guided,analysis,checkpoint,operator,"
-                                "remote,fleet,deployed,fabric,parity")
+                        default="device,kernels,serve,wave,guided,graphs,analysis,checkpoint,"
+                                "operator,remote,fleet,deployed,fabric,parity")
     parser.add_argument("--seed", type=int, default=0,
                         help="the guided phase's weights and adapters")
+    parser.add_argument("--graphs-warm", metavar="PLAN",
+                        help="the graphs phase's warm boot (b), in its own process")
     args = parser.parse_args()
     phases = set(args.phases.split(","))
 
@@ -6864,6 +7506,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
+    if args.graphs_warm:
+        return graphs_warm_boot(args.graphs_warm)
     try:
         from operator_tpu_torch.ops import _build
         from operator_tpu_torch.ops import (
@@ -6929,6 +7573,8 @@ def main() -> int:
     }
     guided = timed("guided", phase_guided, results, kernel_modules, args.seed) \
         if "guided" in phases else {}
+    if "graphs" in phases:
+        timed("graphs", phase_graphs, results, kernel_modules, args.seed)
     analysis = timed("analysis", phase_analysis, results, kernel_modules, phases) \
         if "analysis" in phases else {}
     served = phases & {"operator", "remote", "fleet"}

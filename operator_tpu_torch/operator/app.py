@@ -357,7 +357,13 @@ class Operator:
             engine, model_id = await loop.run_in_executor(
                 None, lambda: build_serving_engine(self.device, os.environ, config=self.config)
             )
-            await loop.run_in_executor(None, engine.warmup)
+            # the warmup grid (WARMUP_GRID): every serving program captured
+            # before readiness, as the JAX operator compiles its grid;
+            # readiness stays cold until it returns.  With AOT_CACHE_PATH
+            # the grid's ``aot`` entry carries hit/miss/live_compile counts
+            # — a warm boot shows live_compiles=0 and builds no kernel
+            grid = await engine.precompile(self.config.warmup_grid)
+            log.info("engine warmup grid: %s", grid)
             # /v1/embeddings reuses the pattern engine's embedder (MiniLM
             # if an encoder checkpoint is mounted, lexical hashing
             # otherwise)
@@ -408,7 +414,8 @@ class Operator:
                     log.warning("minimal warmup also exceeds the KV cache; "
                                 "serving cold")
             log.info(
-                "engine bring-up ready in %.1fs", time.monotonic() - bringup_t0,
+                "engine bring-up ready in %.1fs (aot=%s)",
+                time.monotonic() - bringup_t0, (grid or {}).get("aot", "off"),
             )
         except asyncio.CancelledError:
             # operator stop() mid-load: not a failure, just no engine
@@ -841,8 +848,14 @@ def _main(argv: Optional[list[str]] = None) -> int:
     if not args.demo:
         from .kubeapi import ApiError
 
+        config = OperatorConfig.from_env()
+        if config.aot_cache_path:
+            # the kernels persist beside the AOT cache's records
+            from ..utils.platform import enable_persistent_compilation_cache
+
+            enable_persistent_compilation_cache(os.path.join(config.aot_cache_path, "kernels"))
         try:
-            return asyncio.run(_run_real(OperatorConfig.from_env(), device=args.device))
+            return asyncio.run(_run_real(config, device=args.device))
         except (ApiError, FileNotFoundError) as exc:
             print(
                 f"error: no cluster access ({exc}); "

@@ -27,10 +27,13 @@ and the card-vs-CPU greedy parity of the f32 engines).
 from __future__ import annotations
 
 import ctypes
+import sys
 import os
 from typing import Optional
 
 import torch
+
+from . import _build
 
 __all__ = [
     "flash_prefill_attention",
@@ -43,9 +46,10 @@ __all__ = [
 
 _NEG_INF = -1e30
 
-#: kernel launches since the count was last set to 0 (``chip_smoke.py``
+#: ``launches``: kernel launches since the count was last set to 0 (``chip_smoke.py``
 #: reads it to show the wave path went through the kernel)
-launches = 0
+_launch_counter = _build.LaunchCounter()
+sys.modules[__name__].__class__ = _build.KernelModule  # ``launches``
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64, 128)
@@ -132,8 +136,6 @@ def flash_prefill_cuda(
     synchronisation): the tensor-core kernel for bf16, the CUDA-core
     kernel for f32.  Raises on anything the kernels do not take and on a
     non-zero launch status."""
-    global launches
-
     tensors = {"q": q, "k": k, "v": v, "lengths": lengths}
     for name, t in tensors.items():
         if not t.is_cuda or t.device != q.device:
@@ -172,7 +174,7 @@ def flash_prefill_cuda(
     )
     if status != 0:
         raise RuntimeError(f"flash_prefill kernel launch failed: CUDA error {status}")
-    launches += 1
+    _launch_counter.launched(q.device)
     return out
 
 

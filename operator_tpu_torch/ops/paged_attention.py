@@ -33,6 +33,7 @@ the split from shapes alone, so a decode step never syncs on ``lengths``.
 from __future__ import annotations
 
 import ctypes
+import sys
 import os
 from dataclasses import dataclass
 from typing import Mapping, Optional, Union
@@ -40,6 +41,7 @@ from typing import Mapping, Optional, Union
 import torch
 
 from . import ragged_attention as _ragged
+from . import _build
 from ._build import ticket_counters
 
 _NEG_INF = -1e30
@@ -55,9 +57,10 @@ __all__ = [
     "write_tokens",
 ]
 
-#: decode-kernel launches since the count was last set to 0 (``chip_smoke.py``
+#: ``launches``: decode-kernel launches since the count was last set to 0 (``chip_smoke.py``
 #: reads it to show the wave path went through the kernel)
-launches = 0
+_launch_counter = _build.LaunchCounter()
+sys.modules[__name__].__class__ = _build.KernelModule  # ``launches``
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 64, 128)
@@ -263,8 +266,6 @@ def paged_attention_cuda(
     synchronisation): the split tensor-core kernel for bf16, the CUDA-core
     kernel for f32.  Raises on anything the kernels do not take and on a
     non-zero launch status."""
-    global launches
-
     tensors = {
         "q": q, "k_pages": k_pages, "v_pages": v_pages,
         "page_table": page_table, "lengths": lengths,
@@ -322,7 +323,7 @@ def paged_attention_cuda(
     )
     if status != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA error {status}")
-    launches += 1
+    _launch_counter.launched(q.device)
     return out
 
 

@@ -37,10 +37,13 @@ sizes the split from shapes alone, so the mixed step never syncs on
 from __future__ import annotations
 
 import ctypes
+import sys
 from dataclasses import dataclass
 from typing import Optional
 
 import torch
+
+from . import _build
 
 __all__ = [
     "LaunchPlan",
@@ -54,9 +57,10 @@ __all__ = [
 
 _NEG_INF = -1e30
 
-#: kernel launches since the count was last set to 0 (``chip_smoke.py``
+#: ``launches``: kernel launches since the count was last set to 0 (``chip_smoke.py``
 #: reads it to show the main path went through the kernel)
-launches = 0
+_launch_counter = _build.LaunchCounter()
+sys.modules[__name__].__class__ = _build.KernelModule  # ``launches``
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64, 128)
@@ -205,8 +209,6 @@ def ragged_attention_cuda(
     :func:`launch_plan` splits, its merge kernel; one launch counted), the
     CUDA-core kernel for f32.  Raises on anything the kernels do not take
     and on a non-zero launch status."""
-    global launches
-
     tensors = {
         "q": q, "k_pages": k_pages, "v_pages": v_pages,
         "page_table": page_table, "kv_len": kv_len, "q_count": q_count,
@@ -263,7 +265,7 @@ def ragged_attention_cuda(
     )
     if status != 0:
         raise RuntimeError(f"ragged_attention kernel launch failed: CUDA error {status}")
-    launches += 1
+    _launch_counter.launched(q.device)
     return out
 
 

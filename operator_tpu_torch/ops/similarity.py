@@ -26,10 +26,12 @@ shares from the shapes and the card's SM count alone.
 from __future__ import annotations
 
 import ctypes
+import sys
 from dataclasses import dataclass
 
 import torch
 
+from . import _build
 from ._build import ticket_counters
 
 __all__ = [
@@ -43,9 +45,10 @@ __all__ = [
     "top_k_windows",
 ]
 
-#: kernel launches since the count was last set to 0 (``chip_smoke.py``
+#: ``launches``: kernel launches since the count was last set to 0 (``chip_smoke.py``
 #: reads it to show the main path went through the kernel)
-launches = 0
+_launch_counter = _build.LaunchCounter()
+sys.modules[__name__].__class__ = _build.KernelModule  # ``launches``
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: the kernel's layouts (``csrc/similarity.cu``; checked against the
@@ -189,8 +192,6 @@ def best_window_scores_cuda(
     """Launch ``csrc/similarity.cu`` on the current stream (no
     synchronisation): one kernel launch, whatever the plan.  Raises on
     anything the kernel does not take and on a non-zero launch status."""
-    global launches
-
     for name, t in (("windows", windows), ("patterns", patterns)):
         if not t.is_cuda or t.device != windows.device:
             raise ValueError(f"{name} must be a CUDA tensor on {windows.device}, got {t.device}")
@@ -229,7 +230,7 @@ def best_window_scores_cuda(
     )
     if status != 0:
         raise RuntimeError(f"best_window kernel launch failed: CUDA error {status}")
-    launches += 1
+    _launch_counter.launched(device)
     return scores, best
 
 

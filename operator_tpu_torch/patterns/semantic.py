@@ -33,6 +33,7 @@ from ..models.encoder import encode
 from ..ops.similarity import best_window_scores
 from ..schema.analysis import AnalysisEvent, MatchContext, MatchedPattern
 from ..schema.patterns import Pattern
+from ..serving.graphs import GraphSet
 from ..utils.device import resolve_device
 from .loader import LoadedLibrary
 from .windows import LogWindow, iter_windows
@@ -166,11 +167,14 @@ class NeuralEmbedder:
     """MiniLM-class encoder behind the same embed() interface.
 
     Batches are padded to fixed ``[batch_size, max_tokens]`` buckets (the
-    JAX package's compile-once shapes; here they keep the encoder's work
-    per bucket the same whatever the texts).  ``encode`` runs eagerly on
-    ``device`` (``cuda`` unless the caller asks for another); the buckets'
-    embeddings stay there until the last one is enqueued, and ``embed``
-    returns them as one f32 numpy array.
+    JAX package's compile-once shapes, one ``jax.jit`` per bucket).  Here
+    ``encode`` runs as one program per bucket shape
+    (``serving/graphs.py``): a CUDA graph on the card, captured at the
+    first bucket and replayed for every later one, eager on the CPU
+    (``device``, ``cuda`` unless the caller asks for another).  Each
+    bucket's embeddings are copied out of the graph's output on the
+    device; ``embed`` returns them as one f32 numpy array.  The best-window
+    kernel after it (K5) stays eager: its window count changes per log.
     """
 
     default_threshold = 0.45
@@ -197,6 +201,12 @@ class NeuralEmbedder:
         # one instance may be shared by the analysis thread and other
         # callers; tokenizers are not all safe for concurrent use
         self._lock = threading.Lock()
+        self.graphs = GraphSet(self.device)
+        self._encode = self.graphs.program(
+            "encoder",
+            lambda params, ids, mask: encode(params, config, ids, mask),
+            fixed_args=(0,),
+        )
 
     @classmethod
     def from_checkpoint(
@@ -238,7 +248,7 @@ class NeuralEmbedder:
             return self._embed_locked(texts)
 
     def _embed_locked(self, texts: Sequence[str]) -> np.ndarray:
-        out = []
+        out = torch.empty((len(texts), self.dim), dtype=torch.float32, device=self.device)
         for lo in range(0, len(texts), self.batch_size):
             chunk = texts[lo : lo + self.batch_size]
             ids = np.zeros((self.batch_size, self.max_tokens), np.int64)
@@ -247,12 +257,14 @@ class NeuralEmbedder:
                 toks = self.tokenize(text)[: self.max_tokens]
                 ids[row, : len(toks)] = toks
                 mask[row, : len(toks)] = 1
-            emb = encode(
-                self.params, self.config,
+            emb = self._encode(
+                self.params,
                 torch.from_numpy(ids).to(self.device), torch.from_numpy(mask).to(self.device),
+                key=(self.batch_size, self.max_tokens),
             )
-            out.append(emb[: len(chunk)])
-        return torch.cat(out).cpu().numpy()
+            # the next replay overwrites the graph's output: copy it out
+            out[lo : lo + len(chunk)] = emb[: len(chunk)]
+        return out.cpu().numpy()
 
 
 def build_embedder(

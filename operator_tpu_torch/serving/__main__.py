@@ -10,7 +10,9 @@ MAX_BATCH_SIZE, KV_PAGE_SIZE, SCHED_MODE, ...), plus
 OPERATOR_TPU_API_TOKEN to require a bearer token,
 ENCODER_CHECKPOINT_DIR for ``/v1/embeddings``, PROFILE_ENABLED /
 PROFILE_DIR for ``/profile`` and SERVING_REPLICA_ID (or POD_NAME) for
-the replica's identity.  The ``tpu-native`` provider answers
+the replica's identity.  With AOT_CACHE_PATH the kernels are built into
+its ``kernels/`` directory, so a restart on the same volume runs no
+``nvcc``.  The ``tpu-native`` provider answers
 ``/api/v1/analysis/analyze``.  Runs on the card unless ``--device cpu``
 is given.
 """
@@ -37,10 +39,14 @@ def main() -> None:
 
     from ..patterns.semantic import build_embedder
     from ..utils.config import OperatorConfig
+    from ..utils.platform import enable_persistent_compilation_cache
     from .httpserver import serve_forever
     from .provider import TPUNativeProvider, build_serving_engine
 
     cfg = OperatorConfig.from_env()
+    if cfg.aot_cache_path:
+        # the kernels persist beside the AOT cache's records
+        enable_persistent_compilation_cache(os.path.join(cfg.aot_cache_path, "kernels"))
     engine, model_id = build_serving_engine(args.device, config=cfg)
     engine.warmup()
     analysis_backend = TPUNativeProvider(

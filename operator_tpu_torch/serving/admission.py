@@ -8,10 +8,11 @@ and ``_truncate_prompt``; and the deadline budget's policy, which both
 loops share: ``decode_token_estimate_s`` (:53), ``deadline_policy`` (:64,
 on the injectable ``_clock``, with the overload ladder when
 ``overload_policy`` is wired) and the wave's ``_deadline_clamp_wave``
-(:142).  A wave carries each row's LoRA adapter index and, when any
-active or admitted request is guided, the restacked automaton tables
-(the row's automaton masks its first token; ``_apply_guided_activation``
-binds the slots).  Not ported yet: the registered shared prefix (prefix
+(:142); the warmup grid ``precompile_grid`` (:178) with its coverage
+count ``_program_count`` (:164).  A wave carries each row's LoRA adapter
+index and, when any active or admitted request is guided, the restacked
+automaton tables (the row's automaton masks its first token;
+``_apply_guided_activation`` binds the slots).  Not ported yet: the registered shared prefix (prefix
 matching and the suffix-only prefill) and chunked prefill.
 
 Mixed into :class:`serving.engine.Generator`.
@@ -20,16 +21,20 @@ Mixed into :class:`serving.engine.Generator`.
 from __future__ import annotations
 
 import dataclasses
+import logging
 import time
 from typing import Sequence
 
 import numpy as np
 import torch
 
+from ..ops.flash_prefill import flash_prefill_enabled
 from ..ops.paged_attention import PagedKVCache
 from .types import OversizedRequest, SamplingParams, _bucket, pages_needed, prompt_budget
 
 __all__ = ["AdmissionMixin"]
+
+log = logging.getLogger(__name__)
 
 
 class AdmissionMixin:
@@ -132,6 +137,162 @@ class AdmissionMixin:
                 self.metrics.incr("admission_deadline_truncated")
             out.append(clamped)
         return out
+
+    # -- the warmup grid --------------------------------------------------
+
+    def _program_count(self) -> int:
+        """Serving programs: the prefill buckets captured so far (on the
+        CPU: keys first used) plus the decode blocks — the precompile
+        coverage metric, counted as the JAX generator counts it (its plain
+        decode program exists from construction, the guided one from its
+        first use).  The shared-prefix and chunked programs are not ported
+        (ROADMAP Queue 1 items 6 and 7), so they count none."""
+        decode = 1 + int(bool(self._decode_guided_program.keys()))
+        return len(self._prefill_fns) + decode
+
+    def precompile_grid(
+        self,
+        level: str = "serving",
+        *,
+        workload_prompts: "Sequence[str] | None" = None,
+        workload_params: "SamplingParams | None" = None,
+    ) -> dict:
+        """Capture every program the admission policy can select BEFORE
+        serving: a capture mid-run is a latency outlier, not noise.
+
+        ``level``:
+          - ``"off"``: nothing.
+          - ``"serving"``: the unguided grid — the prefill of every
+            ``(n_pad, t_pad)`` bucket admission can produce, plus the
+            decode block.  Guided programs capture on the first guided
+            request.
+          - ``"full"``: additionally the guided variants of the whole grid
+            and the guided decode block.
+
+        ``workload_prompts`` (with ``workload_params``) restricts the
+        length buckets to exactly those the given prompts produce under
+        the real encode/truncate pipeline; every wave size stays covered.
+        With an AOT cache, every prefill bucket its records name joins the
+        grid, so a warm boot captures what the last boot recorded.
+
+        Every wave runs through the real admission path
+        (``_admit_tokens``), so bucket selection and page granting run as
+        production traffic would.  Waves the KV pool cannot grant are
+        skipped, as are waves a concurrently admitted live request leaves
+        too few free slots for.  All grid slots are cancelled and their
+        pages released afterwards.  The JAX grid also drives one cheap
+        wave at every batch size to compile its host glue; the port's host
+        glue is eager PyTorch, compiled by nothing, so those waves are not
+        driven.
+        """
+        if level not in ("off", "serving", "full"):
+            raise ValueError(
+                f"warmup grid level {level!r}: expected off/serving/full"
+            )
+        t0 = time.perf_counter()
+        before = self._program_count()
+        if level == "off":
+            return {"level": level, "programs": 0, "seconds": 0.0}
+
+        filler = 7 % self.config.vocab_size
+        short = 8  # filler rows: only row 0 drives the t_pad bucket
+        n_pads = self._admission_n_pads()
+
+        def t_buckets(limit: int) -> list:
+            ts, t = [], 64
+            while t < min(limit, self.max_seq):
+                ts.append(t)
+                t *= 2
+            ts.append(min(limit if limit >= 64 else 64, self.max_seq))
+            return sorted(set(ts))
+
+        plain_ts = t_buckets(self.max_seq - 1)
+        if workload_prompts is not None:
+            if workload_params is None:
+                raise ValueError(
+                    "workload_prompts requires workload_params: the "
+                    "truncation budget (max_tokens) decides the buckets"
+                )
+            budget = self.max_seq - max(
+                1, min(workload_params.max_tokens, self.max_seq // 2)
+            )
+            plain_ts = sorted({
+                _bucket(
+                    len(self._truncate_prompt(self.tokenizer.encode(p), budget)),
+                    64, self.max_seq,
+                )
+                for p in workload_prompts
+            })
+
+        guided_variants = [False] + ([True] if level == "full" else [])
+        # the buckets a previous boot recorded (a guided one only when
+        # this level warms guided programs at all)
+        recorded = set()
+        if self._aot is not None:
+            for record in self._aot.records():
+                key = record.get("key")
+                if record.get("program") == "prefill_fn" and key[2] in guided_variants:
+                    recorded.add(tuple(key))
+        base = dict(max_tokens=1, stop_on_eos=False)
+        waves: list[tuple[list, SamplingParams]] = []
+        for guided in guided_variants:
+            params = SamplingParams(
+                **base, guided_choice=("warm", "cold") if guided else None,
+            )
+            buckets = {(n, t) for t in plain_ts for n in n_pads}
+            buckets |= {(n, t) for n, t, g in recorded if g == guided}
+            for n, t in sorted(buckets, key=lambda b: (b[1], b[0])):
+                long_row = [filler] * min(t, self.max_seq - 1)
+                rows = [list(long_row)] + [[filler] * short for _ in range(n - 1)]
+                waves.append((rows, params))
+
+        decode_warm = {False: False, True: False}
+        skipped = 0
+
+        def drive(rows: list, params: SamplingParams) -> None:
+            nonlocal skipped
+            guided = params.guided_choice is not None
+            if len(self.free_slots()) < len(rows):
+                skipped += 1  # a live request holds slots: degrade, never assert
+                return
+            try:
+                taken = self._admit_tokens(
+                    [list(r) for r in rows], [params] * len(rows),
+                    time.perf_counter(),
+                )
+            except OversizedRequest:
+                skipped += 1
+                return
+            if len(taken) < len(rows):
+                skipped += 1  # the page pool cannot grant the full wave
+            if taken and not decode_warm[guided]:
+                self.step()  # captures the (guided) decode block
+                decode_warm[guided] = True
+            for slot_id in taken:
+                self.cancel(slot_id)
+            while self._inflight_blocks:
+                self.step()
+
+        for rows, params in waves:
+            guided = params.guided_choice is not None
+            n_pad = self._admission_n_pad(len(rows))
+            t_pad = _bucket(max(len(r) for r in rows), 64, self.max_seq)
+            if (n_pad, t_pad, guided) in self._prefill_fns and decode_warm[guided]:
+                continue
+            drive(rows, params)
+
+        result = {
+            "level": level,
+            "programs": self._program_count() - before,
+            "skipped_waves": skipped,
+            "seconds": round(time.perf_counter() - t0, 2),
+        }
+        if self._aot is not None:
+            # a warm boot captures what its records name (hits) and stores
+            # nothing: live_compiles == 0 is the warm-start signature
+            result["aot"] = self._aot.stats()
+        log.info("precompile grid: %s", result)
+        return result
 
     # -- wave admission -------------------------------------------------
 
@@ -271,7 +432,10 @@ class AdmissionMixin:
         )
         device = self.device
         with torch.profiler.record_function("podmortem.prefill"):
-            self.paged_cache, first_tokens, first_state = self._prefill_paged(
+            # one program per bucket, as the JAX generator keys
+            # ``_prefill_fns``; the flash-prefill switch is read here, as JAX
+            # reads it at trace time, and selects its own graph
+            self.paged_cache, first_tokens, first_state = self._prefill_program(
                 self.params, staged,
                 torch.from_numpy(ids).to(device),
                 torch.from_numpy(lengths).to(device),
@@ -282,6 +446,7 @@ class AdmissionMixin:
                 torch.from_numpy(adapter_idx).to(device) if self.lora is not None else None,
                 self._guided_tables,
                 torch.from_numpy(row_aut).to(device) if guided else None,
+                key=(n_pad, t_pad, guided), variant=flash_prefill_enabled(),
             )
             first_np = first_tokens.cpu().numpy()  # the wave's ONE host sync
         result = self._activate_slots(

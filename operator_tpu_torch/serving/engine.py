@@ -18,6 +18,16 @@ automaton and DFA state on the device) and multi-LoRA (the adapters
 stacked with the all-zeros adapter at index 0, each slot's index riding
 into the projections); the continuous scheduler refuses both.
 
+Every serving program — the continuous scheduler's mixed step, the wave
+engine's plain and guided decode blocks and its prefill buckets — runs
+as a ``serving/graphs.py`` program: a CUDA graph on the card, captured at
+its key's first use or by the warmup grid (``ServingEngine.precompile``,
+``WARMUP_GRID``) and replayed after, eager on the CPU; with an AOT cache
+(``aot_cache``, ``serving/aotcache.py``) each capture is recorded.
+``reset`` zeroes the page pool in place, so a restart captures nothing
+again, unless a stalled worker is still wedged (then the graphs and the
+pool are made anew).
+
 Both loops record each step into the generator's step clock
 (``serving/perf.py:StepClock``; ``step_clock.summary()`` is the stall
 attribution and the measured MFU against the H100's peak) and its
@@ -57,10 +67,11 @@ watchdog thread sees a step (or a wave's batched prefill) older than
 orphan, when its step returns, touches nothing and waits — or is woken
 by a loop death; it then collects the outstanding requests, waits
 ``join_grace_s`` for a stalled orphan, resets the generator and the
-scheduler (``Generator.reset``: a fresh page pool, every slot emptied,
-the weights kept), audits slots and pages, requeues each survivor once
-at priority ``max(p, 1)`` with its absolute deadline and restarts the
-loop — on the orphan when it came back, else on a fresh thread —
+scheduler (``Generator.reset``: the page pool zeroed in place, or the
+graphs and the pool made anew under an orphan still wedged, every slot
+emptied, the weights kept), audits slots and pages, requeues each
+survivor once at priority ``max(p, 1)`` with its absolute deadline and
+restarts the loop — on the orphan when it came back, else on a fresh thread —
 leaving a black-box record (``engine-stall`` or ``engine-error``).  Without a policy a loop death fails what is
 outstanding, and the next ``submit`` resets the engine first (lazy
 recovery); both paths allow ``MAX_RESETS_PER_WINDOW`` resets per
@@ -80,7 +91,7 @@ import logging
 import queue
 import threading
 import time
-from typing import Any, Optional, Sequence, Union
+from typing import Any, Callable, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -94,6 +105,7 @@ from ..router.health import ReplicaLoad
 from ..utils.device import resolve_device
 from ..utils.timing import MetricsRegistry
 from .admission import AdmissionMixin
+from .graphs import GraphProgram, GraphSet
 from .perf import StepClock, flops_per_token, peak_tflops
 from .programs import ProgramBuilderMixin
 from .sampling import SAMPLE_TOP_K
@@ -181,6 +193,7 @@ class Generator(AdmissionMixin, ProgramBuilderMixin):
         step_ring_capacity: Optional[int] = None,
         lora_adapters: Optional[dict[str, Any]] = None,
         lora_alpha: float = 16.0,
+        aot_cache: Any = None,
     ) -> None:
         self.device = resolve_device(device)
         self.params = params
@@ -214,6 +227,11 @@ class Generator(AdmissionMixin, ProgramBuilderMixin):
         #: stalls (a sleep action; the worker thread, never the event
         #: loop) and simulated device errors
         self.fault_plan = None
+        #: True on a worker the serving engine's supervisor abandoned (set
+        #: by ``ServingEngine``): checked after the chaos seam, so a worker
+        #: woken from an injected stall dispatches nothing into the state
+        #: the restarted loop owns
+        self.abandoned: Callable[[], bool] = lambda: False
         self.page_size = page_size
         self.pages_per_seq = -(-self.max_seq // page_size)
         self.sample_top_k = sample_top_k or SAMPLE_TOP_K
@@ -307,6 +325,72 @@ class Generator(AdmissionMixin, ProgramBuilderMixin):
                 ]
             )
             self._adapter_ids.update({n: i + 1 for i, n in enumerate(names)})
+        #: the guided tables' device buffers, one per padded shape: a
+        #: restack of the same shape is copied into the buffer the decode
+        #: graphs were captured with
+        self._guided_buffers: dict[tuple, torch.Tensor] = {}
+
+        # ---- the serving programs (serving/graphs.py): CUDA graphs on the
+        # card, captured at each key's first use or by the warmup grid
+        # (precompile_grid) and replayed after; eager on the CPU.  With an
+        # AOT cache (serving/aotcache.py: a path, or a provider-built
+        # AotCache) every capture is recorded for the next boot.
+        self._aot = None
+        if aot_cache is not None:
+            from .aotcache import AotCache, generator_fingerprint
+
+            if isinstance(aot_cache, AotCache):
+                self._aot = aot_cache
+                self._aot.metrics = self.metrics
+            else:
+                try:
+                    self._aot = AotCache(str(aot_cache), generator_fingerprint(
+                        config=config,
+                        weight_dtype=serving_dtype,
+                        max_slots=max_slots,
+                        max_seq=max_seq,
+                        cache_dtype=cache_dtype,
+                        paged=True,
+                        page_size=page_size,
+                        kv_pages=kv_pages,
+                        decode_block=decode_block,
+                        sample_top_k=sample_top_k,
+                        pipeline_depth=pipeline_depth,
+                        lora_names=[n for n in self._adapter_ids if n],
+                    ), metrics=self.metrics)
+                except Exception:  # noqa: BLE001 - the cache is an optimisation only
+                    log.warning(
+                        "AOT cache disabled: fingerprint construction failed",
+                        exc_info=True,
+                    )
+        self.graphs = GraphSet(self.device)
+        held = dict(fixed_fields=("k_pages", "v_pages"), generators=(self._rng,))
+        # fixed by address: params, the adapter stack, the guided tables
+        self._decode_program = self._aot_wrap(
+            "_decode_block", self._decode_block_paged, fixed_args=(0, 6, 8), **held
+        )
+        self._decode_guided_program = self._aot_wrap(
+            "_decode_block_guided", self._decode_block_paged, fixed_args=(0, 6, 8), **held
+        )
+        self._prefill_program = self._aot_wrap(
+            "prefill_fn", self._prefill_paged, fixed_args=(0, 7, 9), **held
+        )
+
+    def _aot_wrap(self, name: str, fn: Any, **kwargs: Any) -> GraphProgram:
+        """One serving program (``serving/graphs.py``), its captures
+        recorded in the AOT cache when there is one."""
+        cached = None
+        if self._aot is not None:
+            from .aotcache import CachedProgram
+
+            cached = CachedProgram(self._aot, name)
+        return self.graphs.program(name, fn, cached=cached, **kwargs)
+
+    @property
+    def _prefill_fns(self) -> set:
+        """The prefill buckets ``(n_pad, t_pad, guided)`` captured so far
+        (the JAX generator's ``_prefill_fns`` keys)."""
+        return self._prefill_program.keys()
 
     @property
     def adapter_names(self) -> list[str]:
@@ -326,25 +410,41 @@ class Generator(AdmissionMixin, ProgramBuilderMixin):
             (self.max_slots, 1), dtype=torch.int32, device=self.device
         )
 
-    def reset(self) -> None:
-        """Drop every sequence and rebuild the decode state: the engine's
-        recovery path after a device error or a stall.  The page pool and
-        allocator are rebuilt, every slot is emptied and its epoch bumped
-        (tokens of blocks still in flight are orphaned), the step clock
-        restarts; the weights are kept.  The old pool is dropped before
-        the new one is allocated, so a full-width pool is never held
-        twice.  On the card a sticky error (an illegal address kills the
-        context) makes this raise: no in-process reset revives it."""
+    def reset(self, *, fresh: bool = False) -> None:
+        """Drop every sequence and zero the decode state: the engine's
+        recovery path after a device error or a stall.  The allocator is
+        rebuilt, every slot is emptied and its epoch bumped (tokens of
+        blocks still in flight are orphaned), the step clock restarts; the
+        weights are kept.  The page pool and the per-slot tokens are zeroed
+        IN PLACE, so the captured graphs, which read them by address, stay
+        valid and nothing is captured again.
+
+        ``fresh`` is for a stalled worker that did not come back: it may
+        still copy into the graphs' static inputs and replay them.  Then
+        the graphs are dropped and the pool is allocated anew (the old one
+        dropped first), so the orphan's late writes land only in what it
+        holds; each program is captured again at its next use, counted in
+        ``graphs.captures``.  On the card a sticky error (an illegal
+        address kills the context) makes this raise: no in-process reset
+        revives it."""
         self._inflight_blocks.clear()
         # the step timeline died with the decode state (the black-box
         # dump captured its tail first)
         self.step_clock.reset()
-        self.paged_cache = None
-        self.last_tokens = None
+        if fresh:
+            self.graphs.drop()
+            self.paged_cache = None
+            self.last_tokens = None
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.allocator = PageAllocator(self.allocator.num_pages)
-        self._alloc_decode_state()
+        if fresh:
+            self._alloc_decode_state()
+        else:
+            paged = self.paged_cache
+            for tensor in (paged.k_pages, paged.v_pages, paged.page_table,
+                           paged.lengths, self.last_tokens):
+                tensor.zero_()
         for i in range(self.max_slots):
             self._slot_epoch[i] += 1
             self.slots[i] = _Slot()
@@ -447,6 +547,8 @@ class Generator(AdmissionMixin, ProgramBuilderMixin):
             # chaos seam: a raise action fails this step as a device error
             # would, and the worker's boundary fails what is outstanding
             self.fault_plan.apply("engine.step", active=self.num_active)
+            if self.abandoned():
+                raise RuntimeError("worker abandoned during its step")
         started = time.perf_counter()
         if self.num_active:
             # held slots over capacity, as the continuous scheduler's
@@ -482,10 +584,15 @@ class Generator(AdmissionMixin, ProgramBuilderMixin):
         if cuda:
             begin = torch.cuda.Event(enable_timing=True)
             begin.record()
-        self.paged_cache, toks, self.last_tokens, state = self._decode_block_paged(
+        program = (
+            self._decode_program if self._guided_tables is None
+            else self._decode_guided_program
+        )
+        self.paged_cache, toks, self.last_tokens, state = program(
             self.params, self.paged_cache, self.last_tokens,
             temp_dev, top_p_dev, active_dev, self.lora, lora_idx,
             self._guided_tables, self.guided_aut, self.guided_state,
+            key=self._decode_key(),
         )
         self.guided_state = state  # None while no guided slot is active
         if cuda:
@@ -507,6 +614,15 @@ class Generator(AdmissionMixin, ProgramBuilderMixin):
         t_dispatch = time.perf_counter()
         timing = (t_dispatch, self.step_clock.host_gap_ms(t_dispatch), len(snapshot))
         self._inflight_blocks.append((toks, snapshot, begin, end, timing))
+
+    def _decode_key(self) -> tuple:
+        """The decode block's program key: its shape, whether the adapter
+        stack rides along, and the guided tables' padded shape."""
+        tables = self._guided_tables
+        return (
+            self.max_slots, self.decode_block, self.lora is not None,
+            None if tables is None else tuple(tables.shape[:2]),
+        )
 
     def _process_block(
         self, toks: torch.Tensor, snapshot: dict, begin: Any, end: Any,
@@ -744,8 +860,17 @@ class Generator(AdmissionMixin, ProgramBuilderMixin):
         s_pad = _bucket(max(a.num_states for a in automata), 8, self.MAX_GUIDED_STATES)
         while len(automata) < a_pad:
             automata.append(identity_automaton(self.config.vocab_size))
-        stacked = stack_automata(automata, self.config.vocab_size, state_pad=s_pad)
-        self._guided_tables = self._to_device(stacked)
+        stacked = torch.from_numpy(
+            stack_automata(automata, self.config.vocab_size, state_pad=s_pad)
+        )
+        buffer = self._guided_buffers.get(tuple(stacked.shape))
+        if buffer is None:
+            buffer = stacked.to(self.device)
+            self._guided_buffers[tuple(stacked.shape)] = buffer
+        else:
+            # in stream order: blocks already dispatched read the old stack
+            buffer.copy_(stacked)
+        self._guided_tables = buffer
         # remap every ACTIVE slot's automaton id under the new ordering
         for i, slot in enumerate(self.slots):
             spec = self._guided_spec(slot.params) if slot.active else None
@@ -929,8 +1054,10 @@ class ServingEngine:
         #: loop of the first ``generate`` or server start, cancelled by close
         self.fabric_poller: Optional[Any] = None
         self._fabric_poll_task: Optional[asyncio.Task] = None
-        #: runs store work (the fabric prefetch's probe and adoption) on
-        #: the worker at a step boundary, holding the worker lock
+        #: runs host work on the worker at a step boundary, holding the
+        #: worker lock: the fabric prefetch's store probe and adoption,
+        #: and the profiler's start and stop (``/profile``), which must
+        #: not race a graph replay
         self.store_executor = _WorkerExecutor(self)
         self._host_tasks: "queue.SimpleQueue[_HostTask]" = queue.SimpleQueue()
         #: set with every submission or store task: wakes an idle worker
@@ -950,6 +1077,7 @@ class ServingEngine:
         #: was abandoned and touches nothing more
         self._epoch = 0
         self._local = threading.local()
+        generator.abandoned = self._abandoned
         #: (epoch, monotonic start, what) of the device call in progress
         self._busy: Optional[tuple[int, float, str]] = None
         self._wake = threading.Event()
@@ -989,6 +1117,47 @@ class ServingEngine:
             )])
             while g.num_active or g._inflight_blocks:
                 g.step()
+
+    def _precompile(self, level: str) -> dict:
+        """The warmup grid (see :meth:`precompile`), on the caller's
+        thread, before the worker starts."""
+        with self._lock:
+            if self._thread is not None:
+                raise RuntimeError("precompile must run before the engine starts")
+            if level not in ("off", "serving", "full"):
+                raise ValueError(
+                    f"warmup grid level {level!r}: expected off/serving/full"
+                )
+            g = self.generator
+            if level != "off" and g.device.type == "cuda":
+                # every kernel built (in parallel) before readiness; found
+                # built in the build directory on a warm boot
+                from ..ops import _build
+
+                _build.build_all()
+            if self.scheduler is None:
+                return g.precompile_grid(level)
+            # continuous: ONE mixed program, whatever the workload
+            if level == "off":
+                return {"level": level, "programs": 0, "seconds": 0.0}
+            started = time.perf_counter()
+            self.scheduler.precompile()
+            out = {
+                "level": level, "programs": 1,
+                "seconds": round(time.perf_counter() - started, 2),
+            }
+            if g._aot is not None:
+                out["aot"] = g._aot.stats()
+            return out
+
+    async def precompile(self, level: str = "serving") -> dict:
+        """Capture the serving programs before serving traffic, off the
+        event loop: the wave engine's grid (``precompile_grid``) or the
+        continuous scheduler's ONE mixed program.  Readiness gates on it
+        (``operator/app.py``).  Returns the JAX engine's dict: ``level``,
+        ``programs``, ``seconds`` (the grid adds ``skipped_waves``) and,
+        with an AOT cache, ``aot``.  Must run before the first submit."""
+        return await asyncio.to_thread(self._precompile, level)
 
     def start(self) -> None:
         with self._lock:
@@ -1433,10 +1602,8 @@ class ServingEngine:
         return encode_block(block_hash, entry[0], entry[1])
 
     def _submit_host_task(self, fn: Any) -> concurrent.futures.Future:
-        """Queue ``fn()`` for the worker's next step boundary (continuous
-        mode only); its future carries the result."""
-        if self.scheduler is None:
-            raise RuntimeError("store tasks need the continuous scheduler")
+        """Queue ``fn()`` for the worker's next step boundary (either
+        loop); its future carries the result."""
         if self._closed.is_set():
             raise RuntimeError("serving engine is closed")
         task = _HostTask(fn)
@@ -1475,13 +1642,14 @@ class ServingEngine:
 
     # -- recovery --------------------------------------------------------
 
-    def _reset_engine(self) -> None:
-        """Rebuild the device state after a loop death or a stall.  The
-        scheduler drops its rows, queue and in-flight steps first, so
-        nothing holds the old page pool when the generator frees it."""
+    def _reset_engine(self, fresh: bool = False) -> None:
+        """Rebuild the device state after a loop death or a stall
+        (``fresh``: under a worker still wedged, see ``Generator.reset``).
+        The scheduler drops its rows, queue and in-flight steps first, so
+        nothing of the engine holds the old page pool when it is freed."""
         if self.scheduler is not None:
             self.scheduler.reset()
-        self.generator.reset()
+        self.generator.reset(fresh=fresh)
 
     def _try_recover(self) -> None:
         """One bounded attempt to revive a dead loop (lazy recovery): the
@@ -1715,7 +1883,9 @@ class ServingEngine:
         self._reset_times.append(now)
         try:
             with self._work_lock:
-                self._reset_engine()
+                # a worker still wedged may replay into the graphs and the
+                # pool: it keeps them, and the engine takes fresh ones
+                self._reset_engine(fresh=stalled and not returned)
         except Exception as exc:  # noqa: BLE001 - the reset failed: stay down
             log.exception("supervised engine reset failed; staying down")
             self._error = exc
@@ -1761,6 +1931,10 @@ class ServingEngine:
             "leaks": leaks,
             "resets_in_window": len(self._reset_times),
             "restart_ready_s": round(ready_s, 3),
+            "aot_cache": (
+                self.generator._aot.stats() if self.generator._aot is not None else "off"
+            ),
+            "graphs": self.generator.graphs.stats(),
             "steps": step_tail,
         })
         log.warning(
@@ -1821,6 +1995,11 @@ class ServingEngine:
         self._work_lock.acquire()
         self._check_epoch(epoch)
         return result
+
+    def _abandoned(self) -> bool:
+        """True on a worker whose epoch the supervisor has moved past."""
+        epoch = getattr(self._local, "epoch", None)
+        return epoch is not None and epoch != self._epoch
 
     def _check_epoch(self, epoch: int) -> None:
         if epoch != self._epoch:
@@ -2029,6 +2208,7 @@ class ServingEngine:
     def _run_wave(self, epoch: int) -> None:
         g = self.generator
         while not self._closed.is_set():
+            self._run_host_tasks()
             busy = bool(self._waiting) or g.num_active > 0 or bool(g._inflight_blocks)
             arrived = self._take_submissions(block=not busy)
             if self._waiting:

@@ -813,8 +813,16 @@ class CompletionServer:
         if self.engine.generator.device.type == "cuda":
             activities.append(torch.profiler.ProfilerActivity.CUDA)
         os.makedirs(out_dir, exist_ok=True)
-        with torch.profiler.profile(activities=activities) as prof:
+        # the profiler's start and stop run on the engine's worker between
+        # steps: CUPTI switched on or off while the worker replays a CUDA
+        # graph on another thread can deadlock both
+        on_worker = self.engine.store_executor
+        prof = torch.profiler.profile(activities=activities)
+        on_worker.submit(prof.__enter__).result()
+        try:
             time.sleep(seconds)
+        finally:
+            on_worker.submit(prof.__exit__, None, None, None).result()
         prof.export_chrome_trace(os.path.join(out_dir, "trace.json"))
 
     # -- reference ai-interface contract -------------------------------------

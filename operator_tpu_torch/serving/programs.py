@@ -6,9 +6,12 @@ without mesh: :meth:`ProgramBuilderMixin._decode_step_paged` (:71),
 twin ``_decode_block_paged_guided``, :192) and
 :meth:`~ProgramBuilderMixin._prefill_paged`, the program that
 ``_make_prefill_paged`` (:370) builds.  JAX compiles each into one program
-per shape; here they are eager PyTorch, so nothing is cached per bucket.
-They read nothing back to the host: the callers do that once per block
-and once per prefill wave.  Sampling is the port's ``serving/sampling.py``.
+per shape behind ``_aot_wrap`` (``engine.py:390-425``); here each runs
+through the generator's ``_aot_wrap`` as a ``serving/graphs.py`` program:
+one CUDA graph per decode variant and per prefill bucket on the card,
+eager on the CPU.  They read nothing back to the host (the callers do
+that once per block and once per prefill wave) and draw from the
+generator's registered ``torch.Generator``.  Sampling is the port's ``serving/sampling.py``.
 
 Multi-LoRA: the stacked adapters (``lora``, ``[L, n_adapters, ...]``) and
 the per-row ``lora_idx`` ride along as arguments into the model's

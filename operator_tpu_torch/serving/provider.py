@@ -46,10 +46,18 @@ with the reference's warning.  The provider reads the AIProvider's
 Schema, lowered to a regex by ``serving/json_schema.py``) constrains the
 explanation.
 
+The serving programs are CUDA graphs on the card (``serving/graphs.py``),
+captured by the warmup grid the caller runs (``ServingEngine.precompile``
+with ``WARMUP_GRID``, as the operator does) or at each key's first use.
+``AOT_CACHE_PATH`` (with ``AOT_CACHE_SALT``) gives the generator an
+``AotCache`` keyed by the JAX package's fingerprint: capture records and
+the kernel libraries persist there, so a warm boot builds nothing and
+records every capture as a hit (``serving/aotcache.py``).
+
 A knob whose feature is not ported is refused when it is set away from
 its default, naming the ROADMAP Queue 1 item that ports it:
-``KV_CACHE_MODE=contiguous`` (item 8), ``PREFILL_CHUNK`` (item 7),
-``SERVING_MESH`` (item 11) and ``AOT_CACHE_PATH`` (item 10).  The
+``KV_CACHE_MODE=contiguous`` (item 8), ``PREFILL_CHUNK`` (item 7) and
+``SERVING_MESH`` (item 11).  The
 reference would fall back to the wave engine for a mesh on the
 continuous path; the port does not serve something else quietly.  As in
 the reference, the queue limit
@@ -235,7 +243,6 @@ def _refuse_unported(config: OperatorConfig) -> None:
     unported = (
         ("PREFILL_CHUNK", config.prefill_chunk, "7", "the wave engine's chunked prefill"),
         ("SERVING_MESH", config.serving_mesh, "11", "multi-device serving"),
-        ("AOT_CACHE_PATH", config.aot_cache_path, "10", "the AOT executable cache"),
     )
     for name, value, item, feature in unported:
         if value:
@@ -349,6 +356,31 @@ def build_serving_engine(
     checkpoint_dir = config.checkpoint_dir
     tokenizer = load_tokenizer(checkpoint_dir)
     quantize = serving_dtype == "int8"
+    max_seq = min(model_config.max_seq_len, 2048)
+    aot = None
+    if config.aot_cache_path:
+        from .aotcache import AotCache, generator_fingerprint
+
+        try:
+            aot = AotCache(config.aot_cache_path, generator_fingerprint(
+                config=model_config,
+                weight_dtype="int8" if quantize else "bfloat16",
+                max_slots=config.max_batch_size,
+                max_seq=max_seq,
+                paged=config.kv_cache_mode == "paged",
+                page_size=config.kv_page_size,
+                kv_pages=config.kv_pages or None,
+                decode_block=config.decode_block,
+                sample_top_k=config.sample_top_k,
+                pipeline_depth=config.pipeline_depth,
+                prefill_chunk=config.prefill_chunk or None,
+                sched_pipeline_depth=config.sched_pipeline_depth,
+                spec_width=1 + (config.spec_lookup_k if config.spec_decode else 0),
+                kv_prefix_cache=config.kv_prefix_cache,
+                lora_names=sorted(lora_adapters) if lora_adapters else (),
+            ))
+        except Exception:  # noqa: BLE001 - the cache is an optimisation only
+            log.warning("AOT executable cache disabled", exc_info=True)
     if checkpoint_dir and os.path.isdir(checkpoint_dir):
         log.info("loading %s weights from %s", model_id, checkpoint_dir)
         # quantize-at-load: each layer group quantizes as it lands, so an
@@ -376,7 +408,7 @@ def build_serving_engine(
     generator = Generator(
         params, model_config, tokenizer,
         max_slots=config.max_batch_size,
-        max_seq=min(model_config.max_seq_len, 2048),
+        max_seq=max_seq,
         page_size=config.kv_page_size,
         kv_pages=config.kv_pages or None,
         cache_dtype=torch.bfloat16,
@@ -388,6 +420,7 @@ def build_serving_engine(
         device=device,
         lora_adapters=lora_adapters,
         lora_alpha=config.lora_alpha,
+        aot_cache=aot,
     )
     # supervised by default (the reference's production wiring): a stalled
     # or errored loop resets the engine and requeues in-flight requests

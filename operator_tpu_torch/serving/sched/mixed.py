@@ -17,7 +17,9 @@ effect), so the kernel is a pure page read.
 ``t_budget``, ``chunk``, ``max_slots`` and ``width`` are fixed when the
 step is made, and the step reads nothing back to the host (no
 ``.item()``, ``.cpu()`` or ``.tolist()``): every shape is the same from
-one call to the next, the property a later CUDA-graph capture needs.
+one call to the next, so the scheduler runs it as ONE captured CUDA
+graph (``serving/graphs.py``, keyed by those four), its inputs copied
+into the graph's static buffers before each replay.
 """
 
 from __future__ import annotations

@@ -11,8 +11,12 @@ loop over ONE ragged mixed-phase step (``sched/mixed.py`` +
   RUNNING wave the moment a slot and pages free up — token-level
   admission;
 - **dispatch** (:meth:`Scheduler._dispatch`) — pack the wave onto the flat
-  token axis, copy it to the device without blocking, and enqueue the
-  step, WITHOUT waiting for it;
+  token axis, copy it to the device without blocking (one upload for the
+  ints, one for the floats), and enqueue the step, WITHOUT waiting for
+  it: on the card a replay of the ONE mixed program's CUDA graph
+  (``serving/graphs.py`` through the generator's ``_aot_wrap``, captured
+  by :meth:`Scheduler.precompile`), the uploads copied into its static
+  inputs first;
 - **commit** (:meth:`Scheduler._commit_oldest`) — wait for a dispatched
   step's sampled tokens (the step's ONE host sync), advance rows, and
   recycle a finished row's slot and KV pages this step.
@@ -442,8 +446,9 @@ class Scheduler:
         return count
 
     def precompile(self) -> None:
-        """Run one empty wave end to end (builds the kernels and warms the
-        step; its shapes are workload-independent by construction)."""
+        """Run one empty wave end to end: builds the kernels and captures
+        the mixed program (its shapes are workload-independent by
+        construction), as the JAX scheduler's ``precompile`` compiles it."""
         entry = self._dispatch(StepPlan())
         self._wait(entry)
 
@@ -461,6 +466,8 @@ class Scheduler:
             # chaos seam, same site as the wave engine's step so stall /
             # device-error scenarios drive both loops identically
             g.fault_plan.apply("engine.step", active=self.num_active)
+            if g.abandoned():
+                raise RuntimeError("worker abandoned during its step")
         outcomes: list[StepOutcome] = []
         if self._evicted:
             # value-based queue evictions since the last step
@@ -936,10 +943,37 @@ class Scheduler:
 
     # -- dispatch ------------------------------------------------------
 
-    def _get_fn(self):
-        if self._fn is None:
-            from .mixed import make_mixed_step
+    def _mixed_fn(self):
+        """The mixed step over the packed inputs: ``(params, paged, ints,
+        floats, latest, rng)``, where ``ints`` is the one int32 upload
+        (six flat arrays of ``t_budget``, then five per-slot ones) and
+        ``floats`` the per-slot temperature and top-p."""
+        from .mixed import make_mixed_step
 
+        g = self.generator
+        t, b = self.t_budget, g.max_slots
+        step = make_mixed_step(
+            g.config, max_slots=b, t_budget=t, chunk=self.chunk,
+            spec_width=self.width, sample_top_k=g.sample_top_k, device=g.device,
+        )
+
+        def mixed_fn(params, paged, ints, floats, latest, rng):
+            ids, rows, pos, valid, in_row, from_prev = ints[: 6 * t].split(t)
+            q_start, q_count, kv_len, sample_start, spec_len = ints[6 * t :].split(b)
+            temp, top_p = floats.split(b)
+            return step(
+                params, paged, ids, rows, pos, valid.bool(), in_row,
+                q_start, q_count, kv_len, latest, from_prev.bool(),
+                sample_start, spec_len, rng, temp, top_p,
+            )
+
+        return mixed_fn
+
+    def _get_fn(self):
+        """The ONE mixed program (``serving/graphs.py``, through the
+        generator's ``_aot_wrap`` as in the JAX scheduler): a CUDA graph
+        on the card, keyed by the step's shape."""
+        if self._fn is None:
             g = self.generator
             log.info(
                 "mixed step t_budget=%d chunk=%d slots=%d width=%d "
@@ -947,12 +981,17 @@ class Scheduler:
                 self.t_budget, self.chunk, g.max_slots, self.width, self.depth,
                 g.device,
             )
-            self._fn = make_mixed_step(
-                g.config, max_slots=g.max_slots, t_budget=self.t_budget,
-                chunk=self.chunk, spec_width=self.width,
-                sample_top_k=g.sample_top_k, device=g.device,
+            # fixed by address: the weights and the page pools
+            self._fn = g._aot_wrap(
+                "mixed_fn", self._mixed_fn(),
+                fixed_args=(0,), fixed_fields=("k_pages", "v_pages"),
             )
         return self._fn
+
+    @property
+    def program_key(self) -> tuple:
+        """The mixed program's key: its shape."""
+        return (self.t_budget, self.chunk, self.generator.max_slots, self.width)
 
     def _to_device(self, array: np.ndarray) -> torch.Tensor:
         """Host array -> device tensor; on a card through pinned memory
@@ -1017,11 +1056,6 @@ class Scheduler:
             q_start, q_count, kv_len, sample_start, spec_len,
         ]))
         floats = self._to_device(np.concatenate([temp, top_p]))
-        (d_ids, d_rows, d_pos, d_valid, d_in_row, d_from_prev) = ints[: 6 * t].split(t)
-        (d_q_start, d_q_count, d_kv_len, d_sample_start, d_spec_len) = (
-            ints[6 * t :].split(b)
-        )
-        d_temp, d_top_p = floats.split(b)
         paged = g.paged_cache
         if self._staged_tables:
             slots = np.asarray([slot for slot, _ in self._staged_tables], np.int64)
@@ -1036,13 +1070,11 @@ class Scheduler:
             begin = torch.cuda.Event(enable_timing=True)
             begin.record()
         dispatch_t = time.perf_counter()
+        # on the card a replay: the two uploads and the carried latest
+        # samples are copied into the graph's static inputs first
         new_paged, toks, accept, latest, rng = self._get_fn()(
-            g.params, paged,
-            d_ids, d_rows, d_pos, d_valid.bool(), d_in_row,
-            d_q_start, d_q_count, d_kv_len,
-            self._latest, d_from_prev.bool(),
-            d_sample_start, d_spec_len,
-            g._rng, d_temp, d_top_p,
+            g.params, paged, ints, floats, self._latest, g._rng,
+            key=self.program_key,
         )
         g.paged_cache = new_paged
         g._rng = rng

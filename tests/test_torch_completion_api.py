@@ -30,6 +30,7 @@ stream; ``/kv/blocks`` serves a mirrored block; ``/profile`` captures a
 import asyncio
 import json
 import os
+import threading
 import time
 from types import SimpleNamespace
 
@@ -667,6 +668,33 @@ def test_profile_writes_a_trace_and_guards_its_window(torch_params, tmp_path):
     assert out.busy[0] == 409
     assert out.short[0] == 200 and json.loads(out.short[2])["seconds"] == 0.1
     assert out.off[0] == 404
+
+
+@pytest.mark.parametrize("mode", ["continuous", "wave"])
+def test_profile_starts_and_stops_on_the_worker_between_steps(torch_params, tmp_path, mode):
+    """The capture's start and stop run on the engine's worker between
+    steps (never beside a graph replay), in either loop."""
+    engine = _port_engine(torch_params, mode, store=False)
+    server = CompletionServer(engine, model_id="tiny-test", host="127.0.0.1", port=0,
+                              profile_enabled=True, profile_dir=str(tmp_path))
+    submit = engine.store_executor.submit
+    threads = []
+
+    def recorded(fn, *args, **kwargs):
+        return submit(lambda: (threads.append(threading.current_thread().name),
+                               fn(*args, **kwargs))[1])
+
+    engine.store_executor.submit = recorded
+    with event_loop_thread() as run:
+        run(server.start())
+        try:
+            status, _, data = call(server.bound_port, "POST", "/profile?seconds=0.2")
+        finally:
+            run(server.stop())
+            engine.close()
+    assert status == 200
+    assert os.path.exists(os.path.join(json.loads(data)["artifact"], "trace.json"))
+    assert threads == [engine._thread.name] * 2
 
 
 # ---------------------------------------------------------------------------

@@ -346,6 +346,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import operator_tpu_torch.chaos.library, operator_tpu_torch.chaos.shrink\n"
         "import operator_tpu_torch.parallel.lora, operator_tpu_torch.serving.json_schema\n"
         "from operator_tpu_torch.serving import regex_dfa\n"
+        "import operator_tpu_torch.serving.graphs, operator_tpu_torch.serving.aotcache\n"
+        "import operator_tpu_torch.utils.compilewatch, operator_tpu_torch.utils.platform\n"
+        "operator_tpu_torch.serving.aotcache.runtime_versions()\n"
         "bpe = operator_tpu_torch.models.bpe.load_builtin_bpe()\n"
         "regex_dfa.compile_regex_automaton(operator_tpu_torch.serving.json_schema\n"
         "    .lower_guided_json('{\"type\": \"boolean\"}'), bpe, bpe.vocab_size, max_states=64)\n"
@@ -398,7 +401,9 @@ def test_no_jax_import_in_port_sources():
                    "loadgen/storm.py", "loadgen/__main__.py", "fabric/wire.py",
                    "fabric/fetch.py", "fabric/peers.py", "fabric/disagg.py",
                    "chaos/scenario.py", "chaos/invariants.py", "chaos/library.py",
-                   "chaos/conductor.py", "chaos/shrink.py", "chaos/__init__.py"):
+                   "chaos/conductor.py", "chaos/shrink.py", "chaos/__init__.py",
+                   "serving/graphs.py", "serving/aotcache.py", "utils/compilewatch.py",
+                   "utils/platform.py"):
         assert f"operator_tpu_torch/{module}" in names
     bad = [hit for path in files for hit in _forbidden_imports(path)]
     assert not bad, bad

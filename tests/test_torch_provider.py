@@ -248,7 +248,6 @@ def test_weight_dtype_wins_over_serving_dtype():
 @pytest.mark.parametrize("knob,value,item", [
     ("PREFILL_CHUNK", "32", "item 7"),
     ("SERVING_MESH", "tp=2", "item 11"),
-    ("AOT_CACHE_PATH", "/nonexistent/aot", "item 10"),
     ("KV_CACHE_MODE", "contiguous", "item 8"),
 ])
 def test_provider_refuses_unported_knobs_naming_their_item(knob, value, item):
@@ -256,6 +255,31 @@ def test_provider_refuses_unported_knobs_naming_their_item(knob, value, item):
         with pytest.raises(NotImplementedError, match=item) as info:
             build_serving_engine("cpu", {**BASE, "SCHED_MODE": mode, knob: value})
         assert knob in str(info.value)
+
+
+@pytest.mark.parametrize("mode", ["continuous", "wave"])
+def test_aot_cache_path_resolves_as_the_jax_package(mode, tmp_path, monkeypatch):
+    """``AOT_CACHE_PATH`` gives the generator an ``AotCache`` under the
+    path, keyed by a fingerprint payload with the JAX provider's keys and
+    its values for every engine-shaping knob (the model's dataclass and
+    the runtime facts are each package's own)."""
+    env = {**BASE, "SCHED_MODE": mode, "AOT_CACHE_PATH": str(tmp_path / "aot")}
+    engine, _ = build_serving_engine("cpu", env)
+    try:
+        aot = engine.generator._aot
+        assert aot is not None and aot.dir.startswith(str(tmp_path / "aot"))
+        assert aot.metrics is engine.generator.metrics
+        payload = aot.payload
+    finally:
+        engine.close()
+    for key, val in env.items():
+        monkeypatch.setenv(key, val)
+    jax_engine, _ = jax_provider.build_serving_engine(JaxOperatorConfig.from_env(env))
+    want = jax_engine.generator._aot.payload
+    assert set(payload) == set(want)
+    for key in set(want) - {"model", "runtime"}:
+        assert payload[key] == want[key], key
+    assert payload["model"]["name"] == want["model"]["name"]
 
 
 def test_provider_leaves_the_overload_ladder_to_the_caller():

@@ -434,21 +434,78 @@ def test_policy_defaults_match_the_reference():
 
 
 def test_reset_frees_the_pool_and_keeps_the_weights(params):
-    """``Generator.reset``: a fresh pool and allocator, every slot empty
-    and its epoch bumped, the step clock restarted, the weights kept."""
+    """``Generator.reset``: the pool freed of every sequence — zeroed in
+    place, so the serving programs' captured graphs, which read it by
+    address, stay valid — a fresh allocator, every slot empty and its
+    epoch bumped, the step clock restarted, the weights kept."""
     engine, generator, _ = build(PORT, params, "wave")
     generator.admit(["some prompt"], [greedy(PORT, 8)])
     generator.step()
     old_cache, weights = generator.paged_cache, generator.params
+    assert old_cache.k_pages.abs().sum() > 0 and old_cache.lengths.sum() > 0
+    allocator = generator.allocator
     epochs = list(generator._slot_epoch)
     generator.reset()
-    assert generator.paged_cache is not old_cache
+    cache = generator.paged_cache
+    assert cache.k_pages is old_cache.k_pages and cache.v_pages is old_cache.v_pages
+    for tensor in (cache.k_pages, cache.v_pages, cache.page_table, cache.lengths,
+                   generator.last_tokens):
+        assert not tensor.any()
+    assert generator.allocator is not allocator
     assert generator.params is weights
     assert generator.num_active == 0 and not generator._inflight_blocks
     assert all(b > a for a, b in zip(epochs, generator._slot_epoch))
     assert generator.step_clock.summary().get("steps", 0) == 0
     assert leaks(generator) == {"slots": 0, "pages": 0}
     engine.close()
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_a_worker_wedged_past_the_grace_leaves_with_its_graphs_and_pool(params, mode):
+    """A stalled worker still wedged after ``join_grace_s`` may yet copy
+    into the serving programs' static inputs and replay them, so the reset
+    under it drops the graphs and allocates a new pool (each program is
+    captured again at its next use, counted); the requeued request
+    completes as an unstalled run does, and the orphan, woken after the
+    restart, stops at the chaos seam without dispatching."""
+    policy = PORT.SupervisorPolicy(stall_timeout_s=60.0, join_grace_s=0.05)
+    engine, generator, metrics = build(PORT, params, mode, policy=policy)
+    plan = faultinject.FaultPlan(seed=5)
+    plan.rule("engine.step", [faultinject.OK, faultinject.sleep_(STALL_SLEEP_S)])
+    checks: list = []
+    abandoned = generator.abandoned
+    generator.abandoned = lambda: checks.append(abandoned()) or checks[-1]
+
+    async def scenario():
+        engine.start()
+        await _warm(PORT, engine)
+        policy.stall_timeout_s = STALL_BUDGET_S
+        worker, pool = engine._thread, generator.paged_cache.k_pages
+        captures, drops = generator.graphs.captures, generator.graphs.drops
+        generator.fault_plan = plan
+        result = await asyncio.wait_for(
+            engine.generate("stalled mid-decode then requeued", greedy(PORT, 12)), WAIT_S)
+        generator.fault_plan = None
+        # the orphan wakes, then waits for the worker lock, which the new
+        # worker lets go inside its next device call
+        await asyncio.sleep(STALL_SLEEP_S)
+        await _warm(PORT, engine)
+        await asyncio.to_thread(worker.join, WAIT_S)
+        fresh = {
+            "orphan_left": not worker.is_alive(),
+            "new_pool": generator.paged_cache.k_pages is not pool,
+            "drops": generator.graphs.drops - drops,
+            "captured_again": generator.graphs.captures > captures,
+        }
+        engine.close()
+        return result, fresh
+
+    result, fresh = asyncio.run(scenario())
+    assert fresh == {"orphan_left": True, "new_pool": True, "drops": 1, "captured_again": True}
+    assert True in checks  # the orphan saw it was abandoned
+    assert supervisor_counters(metrics) == {"restart": 1, "requeue": 1, "gaveup": 0, "leak": 0}
+    assert result.completion_tokens == 12 and result.token_ids == unstalled(PORT, params, mode)
+    assert leaks(generator) == {"slots": 0, "pages": 0}
 
 
 def streamed_through_a_stall(pkg, params, mode) -> dict:
