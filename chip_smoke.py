@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--out results.json] [--seed N]
         [--phases device,kernels,serve,wave,guided,graphs,analysis,checkpoint,operator,remote,
-                  fleet,deployed,fabric,parity]
+                  fleet,deployed,fabric,prefix,parity]
 
 Runs on one CUDA card, from the root of a checkout; exits non-zero, and
 prints no result, when no card is present or the package is missing.
@@ -356,10 +356,41 @@ Phases, in order — any failure stops the run:
    are printed.  (d) The auditor records no
    violation.  K1 launches 32 times per step of each engine, K2-K5
    never, and the pages balance after every drive;
-14. parity: small f32 ``tiny-test`` engines on the card (kernels) and on
+14. prefix: the long-prompt path of the wave engine at tinyllama-1.1b's
+   full width (int8, 32 slots, page 64, block 4, depth 2, flash prefill
+   on).  (a) The int8 gate: ``parity_report`` of the seeded bf16 tree
+   against ``quantize_params`` of it over the JAX test's two prompts and
+   ten tokens; ``max_logit_diff`` must be under 0.5.  (b) An engine from
+   ``build_serving_engine`` with ``PREFIX_CACHE`` on primes the default
+   template's preamble (896 tokens, 14 pages); the operator drive's ten
+   default-template prompts (over the budget, so the preamble is kept as
+   their head) go through the HTTP server, admission held, primed and
+   with the preamble cleared, after a warm-up drive of each, in turns
+   (unprimed, primed, primed, unprimed): one prefixed wave (no K4: its
+   suffix attention is the dense path, as in the JAX program) against
+   one plain wave (22 K4), K2/K3 22 x 4 per block, the pool balancing
+   with the prefix held; the prefill ms of each.  The same with each
+   request's log cut to its last four lines and no pattern analysis
+   (1,432 to 1,774 tokens, within the budget).  The build's 22 K4
+   calls are held to the plain version, and the 22 K2/K3 calls of a
+   decode step whose rows share the prefix pages.  (c) Two requests with
+   a custom ``promptTemplate`` through ``TPUNativeProvider``: registered
+   once, the second's wave prefixed.  (e) A one-shot device error under
+   the supervisor: one restart, every prefix re-primed, the next wave
+   prefixed.  (f) A second engine with ``PREFILL_CHUNK=256`` runs the
+   ``serving`` grid: prefixed, chunk and finish keys captured; then (d):
+   four live decode rows, a 16 x 2,048 wave as a chunked job (eight
+   chunks, decode blocks between them, its reserved slots kept from a
+   wave admitted meanwhile), each row's first-token logits within 0.25 of
+   the one-shot K4 wave's on the same tokens; a prefixed wave after it,
+   and nothing captured after the grid.  Then the 16 x 2,048 wave's
+   prefill ms alone on the card, chunked and one-shot, in turns;
+15. parity: small f32 ``tiny-test`` engines on the card (kernels) and on
    the CPU (plain versions) must give the same greedy tokens — the
    continuous engine, and the wave engine with the decode selector at
-   ``v1`` and ``v2`` and flash prefill on and off; the continuous engine
+   ``v1`` and ``v2`` and flash prefill on and off, and with a shared
+   prefix (a prefixed wave) and chunked prefill (chunk 16); the
+   continuous engine
    with the prefix cache and an 8 MB host pool over two waves of prompts
    sharing a prefix, a ``spill_cache()`` between them (and the warm wave
    the cold one's on the card); and a ``PatternEngine``
@@ -532,6 +563,13 @@ def held_drive_calls(url: str, module, name: str, held: HeldToPlain, prompt: str
             _post(url, {"prompt": prompt, "max_tokens": 8, "temperature": 0.0})
     finally:
         setattr(module, name, held.fn)
+    return held_record(name, held)
+
+
+def held_record(name: str, held: HeldToPlain) -> dict:
+    """Fails unless all of ``held``'s calls were held and each agrees
+    (every element within its limit: ``excess`` <= 0).  The record keeps
+    the largest of each number over the calls."""
     calls = held.held
     record = {"calls": len(calls), "dtypes": sorted({c["dtype"] for c in calls})}
     for key in (calls[0] if calls else {}):
@@ -1401,10 +1439,11 @@ def request_bodies() -> list:
     ]
 
 
-def drive_requests(url: str, bodies: list) -> tuple:
+def drive_requests(url: str, bodies: list, truncated: bool = False) -> tuple:
     """Send every body at once from its own thread; returns (completion
     tokens, wall seconds).  Fails unless every request finished with a
-    sane usage record."""
+    sane usage record (``truncated``: prompts over the budget, whose
+    prompt tokens are the budget's)."""
     replies: list = [None] * len(bodies)
     errors: list = []
 
@@ -1429,7 +1468,7 @@ def drive_requests(url: str, bodies: list) -> tuple:
         usage = reply["usage"]
         if choice["finish_reason"] not in ("length", "stop"):
             raise fail(f"unexpected finish_reason {choice['finish_reason']}")
-        if usage["prompt_tokens"] != len(body["prompt"].encode()) + 1:
+        if not truncated and usage["prompt_tokens"] != len(body["prompt"].encode()) + 1:
             raise fail(f"prompt_tokens {usage['prompt_tokens']} for {len(body['prompt'])} chars")
         if not 0 <= usage["completion_tokens"] <= MAX_TOKENS:
             raise fail(f"completion_tokens {usage['completion_tokens']}")
@@ -1813,6 +1852,9 @@ WAVE_ENV = {
     "SCHED_MODE": "wave",
     "DECODE_BLOCK": "4",
     "PIPELINE_DEPTH": "2",
+    # the default template's shared prefix is the prefix phase's: the
+    # wave phase's prompts share no template
+    "PREFIX_CACHE": "false",
 }
 
 
@@ -2280,7 +2322,8 @@ def phase_guided(results: dict, kernel_modules: dict, seed: int) -> dict:
         provider_log.addHandler(tap)
         try:
             engine, model_id = build_serving_engine(
-                "cuda", {**SERVE_ENV, "LORA_DIR": lora_dir}, seed=seed)
+                "cuda", {**SERVE_ENV, "LORA_DIR": lora_dir, "PREFIX_CACHE": "false"},
+                seed=seed)
         finally:
             provider_log.removeHandler(tap)
         g = engine.generator
@@ -6724,6 +6767,527 @@ def fabric_drives(out: dict, kernel_modules: dict, memory0: int) -> dict:
     return totals
 
 
+# ---------------------------------------------------------------------------
+# the prefix phase: the int8 gate, shared prefixes and chunked prefill
+# ---------------------------------------------------------------------------
+
+#: (a) the int8 gate: the JAX test's prompts, new tokens and 1B-class
+#: threshold (tests/test_quant_parity.py)
+PARITY_PROMPTS = ("pod crashed exit 137", "oom killed container")
+PARITY_NEW_TOKENS = 10
+MAX_LOGIT_DIFF = 0.5
+#: the phase's engines: the wave phase's, with the default template's
+#: preamble primed (b, c, e), and with chunked prefill too (d, f)
+PREFIX_ENV = {**WAVE_ENV, "PREFIX_CACHE": "true"}
+PREFIX_CHUNK = 256
+#: the phase's device and the int8 gate's model (a CPU rehearsal at a
+#: tiny width sets both; ``main`` runs on the card only)
+PREFIX_DEVICE = "cuda"
+GATE_MODEL = "tinyllama-1.1b"
+#: (d): the 16 x 2,048 bucket, its rows' prompt characters, and the live
+#: decode rows beside it
+CHUNK_ROWS = 16
+CHUNK_PROMPT_CHARS = 1990
+CHUNK_LIVE_ROWS = 4
+#: (d): a chunked wave's first-token logits against the one-shot K4
+#: wave's, bf16.  Both run the same weights and tokens; the attention
+#: differs: the chunk program's dense path rounds the probabilities to
+#: bf16 before P.V, K4 keeps them in f32 (3e-2 apart per attention
+#: output, WAVE_TOL), in each of 22 layers.  About 5 % of the largest
+#: logit of these seeded weights (~5)
+CHUNK_LOGIT_TOL = 0.25
+#: (c): a custom AIProvider promptTemplate whose static preamble spans
+#: more than two 64-token pages
+CUSTOM_TEMPLATE = (
+    "You are the on-call assistant of the payments platform team. Read the pod's "
+    "failure evidence below and answer in two short sections, Cause and Action. Name "
+    "the Kubernetes object to change and the exact field. Never speculate past the "
+    "quoted log lines; say what to collect next when the evidence is thin.\n\n"
+    "Pod {pod_name} in {namespace}.\nPatterns: {patterns}\nLog tail:\n{log_tail}\n"
+)
+
+
+def int8_gate() -> dict:
+    """(a): ``parity_report`` of the port's seeded bf16 tinyllama-1.1b
+    against ``quantize_params`` of it, on the card."""
+    import torch
+
+    from operator_tpu_torch.models import ByteTokenizer, get_config, init_params
+    from operator_tpu_torch.models.quant import parity_report, quantize_params
+
+    config = get_config(GATE_MODEL)
+    gen = torch.Generator(device=PREFIX_DEVICE).manual_seed(0)
+    params = init_params(config, gen, torch.bfloat16, device=PREFIX_DEVICE)
+    qparams = quantize_params(params, config)
+    started = time.perf_counter()
+    report = parity_report(params, qparams, config,
+                           [ByteTokenizer().encode(p) for p in PARITY_PROMPTS],
+                           max_new_tokens=PARITY_NEW_TOKENS)
+    torch.cuda.synchronize()
+    report["seconds"] = time.perf_counter() - started
+    report["threshold"] = MAX_LOGIT_DIFF
+    del params, qparams
+    torch.cuda.empty_cache()
+    if not report["max_logit_diff"] < MAX_LOGIT_DIFF:
+        raise fail(f"int8 gate: max_logit_diff {report['max_logit_diff']} is not under "
+                   f"{MAX_LOGIT_DIFF}: {report}")
+    return report
+
+
+def idle_wave(g) -> None:
+    deadline = time.time() + 60
+    while (g.num_active or g._inflight_blocks) and time.time() < deadline:
+        time.sleep(0.01)
+    if g.num_active or g._inflight_blocks:
+        raise fail("the wave engine did not go idle")
+
+
+def pool_balances(g, where: str) -> int:
+    """Every page is free but the registered prefixes' and every slot is
+    free; returns the free pages."""
+    want = g.allocator.num_pages - 1 - g.prefix_held_pages
+    if g.allocator.available != want or len(g.free_slots()) != g.max_slots:
+        raise fail(f"{where}: {g.allocator.available} pages free, want {want}; "
+                   f"{len(g.free_slots())} of {g.max_slots} slots")
+    return g.allocator.available
+
+
+def prefix_drive(engine, url: str, bodies: list, kernel_modules: dict, where: str) -> dict:
+    """The bodies through the HTTP front, admission held until all are
+    queued, every kernel count set to 0 just before and read just after:
+    K4 22 times per plain wave (a prefixed wave's suffix attention is the
+    dense path, outside any kernel, as in the JAX program), K2/K3 22 x 4
+    per decode block, K1 and K5 never; the pool balances after it.
+    Returns the waves, each wave's prefill ms (admission to its first
+    tokens on the host) and the launches."""
+    g = engine.generator
+    counter = g.metrics.counter
+    names = ("prefill_waves_prefix", "prefill_waves_plain")
+    waves0 = {name: counter(name) for name in names}
+    blocks0 = g.blocks_dispatched
+    ring = g.step_clock.ring
+    seq0 = ring.records(1)[0].seq if len(ring) else -1
+    for module in kernel_modules.values():
+        module.launches = 0
+    timing: dict = {}
+    replies, _ = held_sends(engine, [lambda b=b: _post(url, b) for b in bodies], timing=timing)
+    wall = time.perf_counter() - timing["released"]
+    idle_wave(g)
+    launches = {name: m.launches for name, m in kernel_modules.items()}
+    waves = {name[len("prefill_waves_"):]: counter(name) - waves0[name] for name in names}
+    blocks = g.blocks_dispatched - blocks0
+    layers = g.config.num_layers
+    per_path = {"flash_prefill_attention": layers * waves["plain"],
+                "paged_decode_attention": layers * g.decode_block * blocks}
+    want = {name: per_path.get(name, 0) for name in kernel_modules}
+    if launches != want or not blocks:
+        raise fail(f"prefix {where}: launches {launches} over {waves} waves and {blocks} "
+                   f"blocks; want {want}")
+    tokens = sum(r["usage"]["completion_tokens"] for r in replies)
+    return {
+        "waves": waves, "blocks": blocks, "tokens": tokens, "wall_s": wall,
+        "prefill_ms": [r.device_ms for r in ring.records() if r.seq > seq0
+                       and r.kind == "prefill"],
+        "launches": launches, "pages_free": pool_balances(g, f"after the {where} drive"),
+    }
+
+
+def prefix_bodies(short: bool = False) -> list:
+    """The ten default-template requests of the operator drive, as
+    completions: ``build_prompt`` of each fixture log's analysis (2,499 to
+    4,015 tokens, over the 2,016-token budget).  ``short``: each with its
+    log's last four lines and no pattern analysis (1,432 to 1,774 tokens,
+    within the budget), the template's preamble then most of a prompt."""
+    from operator_tpu_torch.serving.prompts import build_prompt
+
+    requests = provider_requests()
+    if short:
+        requests = [dataclasses.replace(r, analysis_result=None, failure_data=dataclasses.replace(
+            r.failure_data, logs="\n".join(r.failure_data.logs.splitlines()[-4:])))
+            for r in requests]
+    return [{"prompt": build_prompt(r), "max_tokens": MAX_TOKENS,
+             "temperature": r.provider_config.temperature, "top_p": 0.95}
+            for r in requests]
+
+
+def phase_prefix(results: dict, kernel_modules: dict) -> dict:
+    """(a) the int8 gate; (b) primed serving against the unprimed drive,
+    K4 held in the build and K2/K3 on rows sharing prefix pages; (c) a
+    custom promptTemplate through the provider; (e) a device error under
+    the supervisor; then (f) the chunked engine's warmup grid and (d) its
+    chunked wave.  Returns the kernels' launches over (b)'s drives."""
+    import torch
+
+    card = card_line()
+    saved = os.environ.get("OPERATOR_TPU_FLASH_PREFILL")
+    os.environ["OPERATOR_TPU_FLASH_PREFILL"] = "1"
+    out: dict = {}
+    try:
+        out["a_int8_gate"] = int8_gate()
+        print(json.dumps({"prefix_a": out["a_int8_gate"], "card": card}), flush=True)
+        launches = prefix_serving(out, kernel_modules, card)
+        out["df_chunked"] = prefix_chunked(kernel_modules)
+        print(json.dumps({"prefix_df": out["df_chunked"], "card": card}), flush=True)
+    finally:
+        if saved is None:
+            os.environ.pop("OPERATOR_TPU_FLASH_PREFILL", None)
+        else:
+            os.environ["OPERATOR_TPU_FLASH_PREFILL"] = saved
+        torch.cuda.empty_cache()
+    out["launches"] = launches
+    results["prefix"] = out
+    return launches
+
+
+def prefix_serving(out: dict, kernel_modules: dict, card: str) -> dict:
+    """(b), (c), (e) on one engine primed by ``build_serving_engine``."""
+    import torch
+
+    from operator_tpu_torch.ops import flash_prefill as fp
+    from operator_tpu_torch.ops import paged_attention as pa
+    from operator_tpu_torch.serving.httpserver import CompletionServer
+    from operator_tpu_torch.serving.prompts import DEFAULT_TEMPLATE, template_preamble
+    from operator_tpu_torch.serving.provider import build_serving_engine
+
+    started = time.perf_counter()
+    engine, model_id = build_serving_engine(PREFIX_DEVICE, PREFIX_ENV, seed=0)
+    g = engine.generator
+    try:
+        if engine.scheduler is not None or g.max_slots != 32:
+            raise fail("prefix: SCHED_MODE=wave did not build the 32-slot wave engine")
+        preamble = template_preamble(DEFAULT_TEMPLATE)
+        n_keep = g._prefix_keep_len(g.tokenizer.encode(preamble))
+        primed = [entry["tokens"] for entry in g._prefixes]
+        if len(primed) != 1 or g.prefix_held_pages != n_keep // g.page_size:
+            raise fail(f"prefix (b): primed {len(primed)} prefixes holding "
+                       f"{g.prefix_held_pages} pages, want the preamble's {n_keep // g.page_size}")
+        setup_s = time.perf_counter() - started
+        server = CompletionServer(engine, model_id=model_id, host="127.0.0.1", port=0)
+        http = HttpLoop(server)
+        url = f"http://127.0.0.1:{server.bound_port}/v1/completions"
+        bodies = prefix_bodies()
+        try:
+            def prime(on: bool) -> None:
+                def switch():
+                    g.clear_shared_prefixes()
+                    if on:
+                        g.set_shared_prefix(preamble)
+                on_worker(engine, switch)
+
+            launches = dict.fromkeys(kernel_modules, 0)
+            workloads = {}
+            for workload, load in (("long", bodies), ("short", prefix_bodies(short=True))):
+                # warm: each path's programs captured at first use, untimed
+                prime(True)
+                prefix_drive(engine, url, load, kernel_modules, f"{workload} primed warm-up")
+                prime(False)
+                prefix_drive(engine, url, load, kernel_modules, f"{workload} unprimed warm-up")
+                drives = []
+                for on in (False, True, True, False):  # in turns
+                    prime(on)
+                    where = f"{workload} {'primed' if on else 'unprimed'}"
+                    drive = prefix_drive(engine, url, load, kernel_modules, where)
+                    drive["primed"] = on
+                    if on and (drive["waves"]["prefix"] < 1 or drive["waves"]["plain"]):
+                        raise fail(f"prefix (b): the {where} drive's waves {drive['waves']}")
+                    if not on and drive["waves"]["prefix"]:
+                        raise fail(f"prefix (b): the {where} drive shared: {drive['waves']}")
+                    for name, n in drive["launches"].items():
+                        launches[name] += n
+                    drives.append(drive)
+                primed_ms = [m for d in drives if d["primed"] for m in d["prefill_ms"]]
+                plain_ms = [m for d in drives if not d["primed"] for m in d["prefill_ms"]]
+                workloads[workload] = {
+                    "prompt_tokens": [len(g.tokenizer.encode(x["prompt"])) for x in load],
+                    "drives": drives,
+                    "prefill_ms_primed": primed_ms, "prefill_ms_unprimed": plain_ms,
+                    "prefill_ratio_primed_to_unprimed": (
+                        (sum(primed_ms) / len(primed_ms)) / (sum(plain_ms) / len(plain_ms))
+                    ),
+                }
+            prime(True)
+            b = {
+                "model": model_id, "setup_s": setup_s, "prefix_tokens": n_keep,
+                "prefix_held_pages": g.prefix_held_pages, "requests": len(bodies),
+                "workloads": workloads, "launches": launches,
+            }
+            # K4 held in the build (the preamble primed again, eagerly)
+            k4 = HeldToPlain(fp.flash_prefill_attention, fp.flash_prefill_reference,
+                             g.config.num_layers, prefill_drive_limit)
+            fp.flash_prefill_attention = k4
+            try:
+                with eager_programs():
+                    on_worker(engine, lambda: (g.clear_shared_prefixes(),
+                                               g.set_shared_prefix(preamble)))
+            finally:
+                fp.flash_prefill_attention = k4.fn
+            b["held_build_k4"] = held_record("prefix build K4", k4)
+            # K2/K3 held on a decode step whose rows share the prefix pages
+            n_pp = n_keep // g.page_size
+            prefix_row = torch.tensor(g._prefix_pages, dtype=torch.int32, device=PREFIX_DEVICE)
+
+            def sharing(q, k_pages, v_pages, table, lengths, **_):
+                rows = (table[:, :n_pp] == prefix_row).all(dim=1) & (lengths > 0)
+                return {"rows_sharing_prefix": int(rows.sum().item())}
+
+            k23 = HeldToPlain(pa.paged_attention, pa.paged_attention_reference,
+                              g.config.num_layers, lambda dtype, _: WAVE_TOL[dtype],
+                              note=sharing)
+            pa.paged_attention = k23
+            try:
+                with eager_programs():
+                    held_sends(engine, [lambda x=x: _post(url, {**x, "max_tokens": 8,
+                                                                "temperature": 0.0})
+                                        for x in bodies[:4]])
+            finally:
+                pa.paged_attention = k23.fn
+            b["held_decode_k23"] = held_record("prefix decode K2/K3", k23)
+            if b["held_decode_k23"]["rows_sharing_prefix"] < 2:
+                raise fail(f"prefix (b): the held decode step's rows do not share the "
+                           f"prefix pages: {b['held_decode_k23']}")
+            idle_wave(g)
+            pool_balances(g, "after the held requests")
+            out["b_primed"] = b
+            print(json.dumps({"prefix_b": {**b, "workloads": {
+                w: {k: v for k, v in rec.items() if k != "drives"}
+                for w, rec in b["workloads"].items()}}, "card": card}), flush=True)
+            out["c_custom_template"] = prefix_custom_template(engine, http, model_id)
+            print(json.dumps({"prefix_c": out["c_custom_template"], "card": card}), flush=True)
+            out["e_recovery"] = prefix_recovery(engine, url, bodies)
+            print(json.dumps({"prefix_e": out["e_recovery"], "card": card}), flush=True)
+        finally:
+            http.stop()
+        return launches
+    finally:
+        engine.close()
+
+
+def prefix_custom_template(engine, http: "HttpLoop", model_id: str) -> dict:
+    """(c): two requests with a custom ``promptTemplate`` through
+    ``TPUNativeProvider``: its preamble is registered once, and the
+    second request's wave shares it."""
+    from operator_tpu_torch.schema.analysis import (
+        AIProviderConfig,
+        AnalysisRequest,
+        PodFailureData,
+    )
+    from operator_tpu_torch.serving.provider import TPUNativeProvider
+
+    g = engine.generator
+    provider = TPUNativeProvider(engine, model_id=model_id, register_template_prefixes=True)
+    registered0 = len(g._prefixes)
+    counts = []
+    responses = []
+    for i, name in enumerate(("oom_java.log", "dns_failure.log")):
+        log_text = "\n".join(fixture_lines(name)[-12:])
+        request = AnalysisRequest(
+            failure_data=PodFailureData.parse({
+                "logs": log_text,
+                "pod": {"metadata": {"name": f"payments-{i}", "namespace": "prod"}},
+            }),
+            provider_config=AIProviderConfig(
+                provider_id="tpu-native", prompt_template=CUSTOM_TEMPLATE,
+                max_tokens=MAX_TOKENS, temperature=0.0),
+        )
+        before = g.metrics.counter("prefill_waves_prefix")
+        response = http.run(provider.generate(request))
+        counts.append(g.metrics.counter("prefill_waves_prefix") - before)
+        responses.append(response)
+    record = {
+        "registered": len(g._prefixes) - registered0,
+        "custom_prefix_tokens": len(g._prefixes[-1]["tokens"]),
+        "prefix_waves_per_request": counts,
+        "errors": [r.error for r in responses],
+        "completion_tokens": [r.completion_tokens for r in responses],
+    }
+    if record["registered"] != 1 or counts[1] < 1 or any(record["errors"]):
+        raise fail(f"prefix (c): {record}")
+    idle_wave(g)
+    pool_balances(g, "after the custom template")
+    return record
+
+
+def prefix_recovery(engine, url: str, bodies: list) -> dict:
+    """(e): a one-shot device error under the supervisor mid-drive: one
+    restart that re-primes every registered prefix, and the next wave
+    shares."""
+    from operator_tpu_torch.utils.faultinject import OK, FaultPlan, raise_
+
+    g = engine.generator
+    registry = [entry["tokens"] for entry in g._prefixes]
+    held = g.prefix_held_pages
+    counts0 = supervisor_counts(g.metrics)
+    plan = FaultPlan(seed=15)
+    plan.rule("engine.step", [OK, OK, raise_(
+        lambda: RuntimeError("injected device error"), "device")])
+    g.fault_plan = plan
+    try:
+        # 32 tokens: eight blocks, so the third step is mid-drive
+        drive_requests(url, bodies[:6], truncated=True)
+    finally:
+        g.fault_plan = None
+    idle_wave(g)
+    counts = {k: v - counts0[k] for k, v in supervisor_counts(g.metrics).items()}
+    before = g.metrics.counter("prefill_waves_prefix")
+    drive_requests(url, [{**x, "max_tokens": 4} for x in bodies[:2]], truncated=True)
+    idle_wave(g)
+    record = {
+        "supervisor": counts, "pending_faults": plan.pending(),
+        "reprimed": [entry["tokens"] for entry in g._prefixes] == registry,
+        "prefix_held_pages": g.prefix_held_pages,
+        "next_wave_prefix_waves": g.metrics.counter("prefill_waves_prefix") - before,
+        "pages_free": pool_balances(g, "after the recovery"),
+    }
+    if (counts["restart"] != 1 or counts["gaveup"] or counts["leak"] or plan.pending()
+            or not record["reprimed"] or g.prefix_held_pages != held
+            or record["next_wave_prefix_waves"] < 1):
+        raise fail(f"prefix (e): {record}")
+    return record
+
+
+def prefix_chunked(kernel_modules: dict) -> dict:
+    """(f) ``WARMUP_GRID=serving`` on the primed engine with
+    ``PREFILL_CHUNK``: the grid's prefixed and chunked keys, then no
+    capture in (d) and a prefixed wave after it; (d) the 16 x 2,048
+    bucket chunked while decode rows are live: decode blocks between the
+    chunks, ceil(t_pad / chunk) chunks, the reserved slots kept from
+    another wave, each row's first-token logits against the one-shot K4
+    wave's."""
+    import numpy as np
+    import torch
+
+    from operator_tpu_torch.models.llama import KVCache, forward
+    from operator_tpu_torch.serving.provider import build_serving_engine
+    from operator_tpu_torch.serving.types import SamplingParams, _bucket, prompt_budget
+
+    env = {**PREFIX_ENV, "PREFILL_CHUNK": str(PREFIX_CHUNK), "WARMUP_GRID": "serving"}
+    engine, _ = build_serving_engine(PREFIX_DEVICE, env, seed=0)
+    g = engine.generator
+    try:
+        if g.prefill_chunk != PREFIX_CHUNK or not g._prefixes:
+            raise fail(f"prefix (f): chunk {g.prefill_chunk}, {len(g._prefixes)} prefixes")
+        started = time.perf_counter()
+        report = asyncio.run(engine.precompile("serving"))
+        torch.cuda.synchronize()
+        f = {
+            "precompile": report, "grid_s": time.perf_counter() - started,
+            "prefix_keys": len(g._prefix_fns), "chunk_keys": len(g._chunk_fns),
+            "finish_keys": len(g._finish_fns), "plain_keys": len(g._prefill_fns),
+            "captures": len(g.graphs.log), "pool_bytes": g.graphs.pool_bytes(),
+            "job_buffer_bytes": sum(m.k.nbytes + m.v.nbytes + logits.nbytes
+                                    for m, logits in g._job_buffers.values()),
+        }
+        if not (f["prefix_keys"] and f["chunk_keys"] and f["finish_keys"]):
+            raise fail(f"prefix (f): the grid missed the prefixed or chunked keys: {f}")
+        captures0 = len(g.graphs.log)
+
+        # (d) live decode rows, then the 16 x 2,048 wave as a chunked job
+        live = g.admit([LOG_LINE[: 40 + 8 * i] for i in range(CHUNK_LIVE_ROWS)], [
+            SamplingParams(max_tokens=240, temperature=0.0, stop_on_eos=False)
+        ] * CHUNK_LIVE_ROWS)
+        g.step()
+        long_prompts = [(f"row {i} " + LOG_LINE * 14)[:CHUNK_PROMPT_CHARS]
+                        for i in range(CHUNK_ROWS)]
+        sampling = SamplingParams(max_tokens=8, temperature=0.0, stop_on_eos=False)
+        chunks0 = g.metrics.stage("prefill_chunk").count
+        blocks0 = g.blocks_dispatched
+        taken = g.admit(long_prompts, [sampling] * CHUNK_ROWS)
+        job = g._prefill_job
+        if job is None or job.key != (CHUNK_ROWS, 2048) or set(taken) != g._reserved:
+            raise fail(f"prefix (d): no 16 x 2,048 job: {job and job.key}, {taken}")
+        other = g.admit(["another wave", "and one more"], [sampling] * 2)
+        if set(other) & set(taken) or not other:
+            raise fail(f"prefix (d): the reserved slots {taken} went to another wave {other}")
+        decoding_between = 0
+        while g._prefill_job is not None:
+            before = g.blocks_dispatched
+            g.step()
+            if g._prefill_job is not None:
+                decoding_between += g.blocks_dispatched - before
+        chunks = g.metrics.stage("prefill_chunk").count - chunks0
+        want_chunks = -(-2048 // PREFIX_CHUNK)
+        last_logits = g._job_buffers[(CHUNK_ROWS, 2048)][1].clone()
+        # the one-shot K4 wave's logits on the same tokens
+        budget = prompt_budget(g.max_seq, sampling.max_tokens)
+        ids_np = np.zeros((CHUNK_ROWS, 2048), np.int32)
+        lengths_np = np.zeros((CHUNK_ROWS,), np.int32)
+        for row, prompt in enumerate(long_prompts):
+            toks = g._truncate_prompt(g.tokenizer.encode(prompt), budget)
+            ids_np[row, : len(toks)] = toks
+            lengths_np[row] = len(toks)
+        if _bucket(int(lengths_np.max()), 64, g.max_seq) != 2048:
+            raise fail(f"prefix (d): rows of {lengths_np.max()} tokens are not the 2,048 bucket")
+        with torch.no_grad():
+            ids = torch.from_numpy(ids_np).to(PREFIX_DEVICE)
+            lengths = torch.from_numpy(lengths_np).to(PREFIX_DEVICE)
+            positions = torch.arange(2048, dtype=torch.int32, device=PREFIX_DEVICE)[None].expand(
+                CHUNK_ROWS, 2048)
+            mini = KVCache.create(g.config, CHUNK_ROWS, 2048, dtype=torch.bfloat16,
+                                  device=PREFIX_DEVICE)
+            oneshot, _ = forward(g.params, g.config, ids, positions, cache=mini,
+                                 cache_offset=0, kv_valid=positions < lengths[:, None],
+                                 prefill_lengths=lengths, logits_at=lengths - 1)
+            del mini
+        err = (last_logits - oneshot).abs()
+        while g.num_active or g._inflight_blocks:
+            g.step()
+        d = {
+            "t_pad": 2048, "rows": CHUNK_ROWS, "chunk": PREFIX_CHUNK, "chunks": chunks,
+            "decode_blocks_between_chunks": decoding_between,
+            "job_blocks": g.blocks_dispatched - blocks0, "live_rows": len(live),
+            "reserved": sorted(taken), "other_wave": other,
+            "logits_max_abs_err": err.max().item(), "logits_tol": CHUNK_LOGIT_TOL,
+            "max_abs_logit": oneshot.abs().max().item(),
+            "argmax_equal_rows": int((last_logits.argmax(-1) == oneshot.argmax(-1)).sum()),
+            "prompt_tokens": lengths_np.tolist(),
+            "chunk_host_ms": g.metrics.stage("prefill_chunk").p50_ms,
+        }
+        if chunks != want_chunks or not decoding_between:
+            raise fail(f"prefix (d): {chunks} chunks (want {want_chunks}), "
+                       f"{decoding_between} blocks between them")
+        if not d["logits_max_abs_err"] <= CHUNK_LOGIT_TOL:
+            raise fail(f"prefix (d): chunked first-token logits {d['logits_max_abs_err']} "
+                       f"from the one-shot K4 wave's, tolerance {CHUNK_LOGIT_TOL}")
+        # (f): a prefixed wave after the chunked one, then nothing captured
+        prompts = [b["prompt"] for b in prefix_bodies()[:4]]
+        before = g.metrics.counter("prefill_waves_prefix")
+        g.admit(prompts, [sampling] * len(prompts))
+        while g.num_active or g._inflight_blocks:
+            g.step()
+        f["prefixed_waves_after"] = g.metrics.counter("prefill_waves_prefix") - before
+        f["captured_after_grid"] = captured(g, captures0)
+        if f["captured_after_grid"] or f["prefixed_waves_after"] != 1:
+            raise fail(f"prefix (f): {f}")
+        pool_balances(g, "after the chunked drive")
+        # the 16 x 2,048 wave's prefill ms (admission to its first tokens,
+        # nothing else on the card) chunked and one-shot (the chunk unset:
+        # the plain bucket, captured at its first, untimed wave), in turns
+        one = SamplingParams(max_tokens=1, temperature=0.0, stop_on_eos=False)
+
+        def wave_ms(chunked: bool) -> float:
+            g.prefill_chunk = PREFIX_CHUNK if chunked else None
+            ring = g.step_clock.ring
+            seq0 = ring.records(1)[0].seq
+            g.admit(long_prompts, [one] * CHUNK_ROWS)
+            while g.num_active or g._inflight_blocks:
+                g.step()
+            return [r.device_ms for r in ring.records() if r.seq > seq0 and r.kind == "prefill"][0]
+
+        try:
+            wave_ms(False)
+            timed = [(chunked, wave_ms(chunked)) for chunked in (True, False, False, True)]
+        finally:
+            g.prefill_chunk = PREFIX_CHUNK
+        d["prefill_ms_chunked"] = [ms for c, ms in timed if c]
+        d["prefill_ms_oneshot"] = [ms for c, ms in timed if not c]
+        d["prefill_ratio_chunked_to_oneshot"] = (
+            sum(d["prefill_ms_chunked"]) / sum(d["prefill_ms_oneshot"]))
+        pool_balances(g, "after the timed waves")
+        return {"d": d, "f": f}
+    finally:
+        engine.close()
+
+
 def phase_parity(results: dict, kernel_modules: dict) -> None:
     import torch
 
@@ -6797,7 +7361,72 @@ def phase_parity(results: dict, kernel_modules: dict) -> None:
             else:
                 os.environ[key] = value
     results["wave_parity"] = wave_parity
+    results["prefix_parity"] = prefix_parity(params_cpu, to, kernel_modules)
     results["analysis_parity"] = analysis_parity(kernel_modules)
+
+
+#: the parity phase's shared prefix (byte tokens: 144 cached at page 16)
+PARITY_PREFIX = (
+    "You are a Kubernetes failure analyst. Explain the failure using the pattern "
+    "evidence and log excerpts provided below; answer with Root Cause and Fix. "
+)
+
+
+def prefix_parity(params_cpu, to, kernel_modules: dict) -> dict:
+    """A prefixed wave and a chunked wave (chunk 16) of small f32
+    ``tiny-test`` wave engines on the card and on the CPU: the same greedy
+    tokens, flash prefill on (the prefix build's and the plain waves' K4
+    on the card), the decode kernel launched."""
+    import torch
+
+    from operator_tpu_torch.models import TINY_TEST, ByteTokenizer
+    from operator_tpu_torch.serving.engine import Generator
+    from operator_tpu_torch.serving.types import SamplingParams
+
+    sampling = SamplingParams(max_tokens=16, temperature=0.0, stop_on_eos=False)
+    waves = [[PARITY_PREFIX + "pod one OOMKilled", PARITY_PREFIX + "pod two exit code 1"],
+             [LOG_LINE, LOG_LINE[:30]]]
+
+    def run(device):
+        generator = Generator(
+            to(params_cpu, device), TINY_TEST, ByteTokenizer(), max_slots=4, max_seq=256,
+            page_size=16, cache_dtype=torch.float32, device=device, decode_block=4,
+            pipeline_depth=2, prefill_chunk=16,
+        )
+        generator.set_shared_prefix(PARITY_PREFIX)
+        tokens = []
+        for prompts in waves:
+            slots = generator.admit(prompts, [sampling] * len(prompts))
+            results = {}
+            while generator.num_active or generator._inflight_blocks:
+                for slot_id, result in generator.step():
+                    results[slot_id] = result
+            tokens.append([results[s].token_ids for s in slots])
+        counter = generator.metrics.counter
+        return tokens, {"prefix_waves": counter("prefill_waves_prefix"),
+                        "chunks": generator.metrics.stage("prefill_chunk").count}
+
+    saved = os.environ.get("OPERATOR_TPU_FLASH_PREFILL")
+    os.environ["OPERATOR_TPU_FLASH_PREFILL"] = "1"
+    try:
+        for module in kernel_modules.values():
+            module.launches = 0
+        card, card_counts = run("cuda")
+        launches = {name: m.launches for name, m in kernel_modules.items()}
+        cpu, cpu_counts = run("cpu")
+    finally:
+        if saved is None:
+            os.environ.pop("OPERATOR_TPU_FLASH_PREFILL", None)
+        else:
+            os.environ["OPERATOR_TPU_FLASH_PREFILL"] = saved
+    record = {"tokens_equal": card == cpu, "card": card_counts, "cpu": cpu_counts,
+              "launches": launches}
+    print(json.dumps({"prefix_parity": record}), flush=True)
+    if (card != cpu or card_counts != cpu_counts or card_counts["prefix_waves"] != 1
+            or card_counts["chunks"] < 2 or not launches["paged_decode_attention"]
+            or launches["ragged_paged_attention"] or launches["best_window_similarity"]):
+        raise fail(f"prefix parity: card {card} cpu {cpu}, {record}")
+    return record
 
 
 def store_parity(params_cuda, params_cpu) -> dict:
@@ -7435,7 +8064,8 @@ def phase_graphs(results: dict, kernel_modules: dict, seed: int) -> dict:
 
         lora_dir = os.path.join(GRAPHS_DIR, "lora")
         write_lora_dir(lora_dir, get_config("tinyllama-1.1b"), seed)
-        wave_env = {**SERVE_ENV, "LORA_DIR": lora_dir, "WARMUP_GRID": "full",
+        wave_env = {**SERVE_ENV, "LORA_DIR": lora_dir, "PREFIX_CACHE": "false",
+                    "WARMUP_GRID": "full",
                     "AOT_CACHE_PATH": os.path.join(GRAPHS_DIR, "aot")}
         engine, watcher, wave = graphs_wave(wave_env, kernel_modules)
         try:
@@ -7493,7 +8123,7 @@ def main() -> int:
     parser.add_argument("--out", help="also write every result to this JSON file")
     parser.add_argument("--phases",
                         default="device,kernels,serve,wave,guided,graphs,analysis,checkpoint,"
-                                "operator,remote,fleet,deployed,fabric,parity")
+                                "operator,remote,fleet,deployed,fabric,prefix,parity")
     parser.add_argument("--seed", type=int, default=0,
                         help="the guided phase's weights and adapters")
     parser.add_argument("--graphs-warm", metavar="PLAN",
@@ -7598,6 +8228,8 @@ def main() -> int:
     deployed = timed("deployed", phase_deployed, results, kernel_modules) \
         if "deployed" in phases else {}
     fabric = timed("fabric", phase_fabric, results, kernel_modules) if "fabric" in phases else {}
+    prefix = timed("prefix", phase_prefix, results, kernel_modules) \
+        if "prefix" in phases else {}
     if "parity" in phases:
         timed("parity", phase_parity, results, kernel_modules)
     phase_s["total"] = time.perf_counter() - started
@@ -7626,6 +8258,7 @@ def main() -> int:
         record["launches_deployed"] = deployed.get(base)
         record["launches_fabric"] = fabric.get(base)
         record["launches_guided"] = guided.get(base)
+        record["launches_prefix"] = prefix.get(base)
     kernels = records
     results["kernels"] = kernels
     device = {

@@ -11,6 +11,10 @@ The seven layer matrices (stacked ``[n_layers, in, out]``) are quantized;
 embeddings, lm_head and norms stay in the float dtype.  The product
 itself is a plain ``torch.matmul``: the JAX package leaves it to XLA
 outside any Pallas kernel.
+
+:func:`parity_report` is the gate that licenses int8 as the serving
+default: greedy tokens of the float and the int8 tree, and the
+teacher-forced logit error along the float path's tokens.
 """
 
 from __future__ import annotations
@@ -29,8 +33,10 @@ QUANTIZED_LAYER_MATRICES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 __all__ = [
     "QUANTIZED_LAYER_MATRICES",
     "dequantize_params",
+    "init_params_quantized",
     "is_quantized",
     "mm",
+    "parity_report",
     "quantize_matrix",
     "quantize_params",
     "quantized_bytes",
@@ -95,3 +101,87 @@ def quantized_bytes(params: Params) -> int:
     if isinstance(params, dict):
         return sum(quantized_bytes(leaf) for leaf in params.values())
     return params.numel() * params.element_size()
+
+
+def init_params_quantized(
+    config: ModelConfig, gen: torch.Generator, dtype: torch.dtype = torch.bfloat16,
+    *, device: Union[str, torch.device] = "cuda",
+) -> Params:
+    """Random-init an already-quantized tree without the float tree ever
+    existing whole: each layer matrix stack is drawn and quantized before
+    the next is drawn, so the peak is the int8 tree plus one float stack
+    (``models/llama.py:init_params(quantize=True)``)."""
+    from .llama import init_params
+
+    return init_params(config, gen, dtype, device=device, quantize=True)
+
+
+def parity_report(
+    params_float: Params,
+    params_quant: Params,
+    config: ModelConfig,
+    prompts: "list[list[int]]",
+    *,
+    max_new_tokens: int = 16,
+) -> dict:
+    """The int8-by-default parity gate.
+
+    Greedy-decodes each token-id prompt under the float and the quantized
+    params and reports ``greedy_match`` (every prompt produced the same
+    tokens), ``prompts``, ``mismatched_prompts`` and ``max_logit_diff``:
+    the largest absolute difference between the two logit streams along
+    the float path's greedy tokens (teacher-forced, so the comparison
+    stays step-aligned even where an argmax near-tie flips a token).
+    Tiny models must pass ``greedy_match``; 1B-class configs gate on
+    ``max_logit_diff`` under an absolute threshold.  The tensors' device
+    is the params' own."""
+    from .llama import forward
+
+    device = params_float["embed"].device
+
+    @torch.no_grad()
+    def last_logits(params: Params, ids: list) -> torch.Tensor:
+        # cache-free full-sequence forward per step: O(T^2), but it runs
+        # the serving numerics on the gate's short prompts
+        arr = torch.tensor([ids], dtype=torch.int32, device=device)
+        pos = torch.arange(len(ids), dtype=torch.int32, device=device)[None]
+        logits, _ = forward(params, config, arr, pos)
+        return logits[0, -1]
+
+    def greedy(params: Params, prompt: list) -> "tuple[list[int], list[torch.Tensor]]":
+        ids = list(prompt)
+        toks: list[int] = []
+        steps: list[torch.Tensor] = []
+        for _ in range(max_new_tokens):
+            logits = last_logits(params, ids)
+            steps.append(logits)
+            tok = int(torch.argmax(logits))
+            toks.append(tok)
+            ids.append(tok)
+        return toks, steps
+
+    def forced(params: Params, prompt: list, driven: list) -> "list[torch.Tensor]":
+        # teacher-forced along the float path's tokens
+        ids = list(prompt)
+        steps: list[torch.Tensor] = []
+        for tok in driven:
+            steps.append(last_logits(params, ids))
+            ids.append(tok)
+        return steps
+
+    matches = []
+    max_diff = 0.0
+    for prompt in prompts:
+        float_toks, float_steps = greedy(params_float, prompt)
+        quant_toks, _ = greedy(params_quant, prompt)
+        matches.append(quant_toks == float_toks)
+        quant_steps = forced(params_quant, prompt, float_toks)
+        for a, b in zip(float_steps, quant_steps):
+            diff = float((a.to(torch.float32) - b.to(torch.float32)).abs().max())
+            max_diff = max(max_diff, diff)
+    return {
+        "greedy_match": all(matches),
+        "prompts": len(prompts),
+        "mismatched_prompts": sum(1 for m in matches if not m),
+        "max_logit_diff": max_diff,
+    }

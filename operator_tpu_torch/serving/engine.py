@@ -10,8 +10,13 @@ runs the phase-separated WAVE engine itself: batched admission with one
 prefill per wave (``admission.py``), then decode in blocks of
 ``decode_block`` chained steps (``programs.py``) with up to
 ``pipeline_depth - 1`` blocks in flight while the host processes older
-tokens.  Per-slot epochs keep a block dispatched before a slot was
-recycled from crediting its tokens to the new sequence.  The wave engine
+tokens.  Registered shared prefixes (``add_shared_prefix``: a prompt
+template's static preamble prefilled once into generator-owned pages)
+let a wave whose every prompt starts with one forward only its suffix;
+with ``prefill_chunk`` a long wave is prefilled one chunk per ``step()``
+into its reserved slots while the live slots' decode blocks go on.
+Per-slot epochs keep a block dispatched before a slot was recycled from
+crediting its tokens to the new sequence.  The wave engine
 also serves guided decoding (the reference's automaton registry: an LRU
 of built automata, the stacked ``[A, S, vocab]`` tables and each slot's
 automaton and DFA state on the device) and multi-LoRA (the adapters
@@ -97,6 +102,7 @@ import numpy as np
 import torch
 
 from ..models.configs import ModelConfig
+from ..models.llama import KVCache
 from ..models.quant import is_quantized
 from ..obs import span as obs_span
 from ..obs.sloledger import SLOBoard
@@ -117,6 +123,7 @@ from .types import (
     SamplingParams,
     ShedLowValue,
     _bucket,
+    _PrefillJob,
     _Slot,
 )
 
@@ -194,6 +201,7 @@ class Generator(AdmissionMixin, ProgramBuilderMixin):
         lora_adapters: Optional[dict[str, Any]] = None,
         lora_alpha: float = 16.0,
         aot_cache: Any = None,
+        prefill_chunk: Optional[int] = None,
     ) -> None:
         self.device = resolve_device(device)
         self.params = params
@@ -255,6 +263,21 @@ class Generator(AdmissionMixin, ProgramBuilderMixin):
             )
         self.decode_block = decode_block
         self.pipeline_depth = pipeline_depth
+        # chunked prefill: a wave whose bucket is longer than the chunk is
+        # prefilled ``prefill_chunk`` tokens per step() round instead of in
+        # one pass, so the decode blocks of live slots interleave with it
+        if prefill_chunk is not None and prefill_chunk < 1:
+            raise ValueError(f"prefill_chunk={prefill_chunk} must be >= 1")
+        self.prefill_chunk = prefill_chunk
+        self._prefill_job: Optional[_PrefillJob] = None
+        #: a pending job's slots: neither free nor decoding, but active
+        self._reserved: set[int] = set()
+        #: the job's (mini cache, last logits) buffers per (n_pad, t_pad):
+        #: allocated once, written in place by the chunk programs
+        self._job_buffers: dict[tuple, tuple] = {}
+        #: registered shared prefixes: text, tokens and generator-owned
+        #: pages each (see add_shared_prefix)
+        self._prefixes: list[dict] = []
         #: optional ``hook(slot_id, token_ids_so_far)`` called after each
         #: processed block for slots that are still generating — the
         #: streaming feed (ServingEngine marshals it onto the caller's
@@ -356,6 +379,7 @@ class Generator(AdmissionMixin, ProgramBuilderMixin):
                         decode_block=decode_block,
                         sample_top_k=sample_top_k,
                         pipeline_depth=pipeline_depth,
+                        prefill_chunk=prefill_chunk,
                         lora_names=[n for n in self._adapter_ids if n],
                     ), metrics=self.metrics)
                 except Exception:  # noqa: BLE001 - the cache is an optimisation only
@@ -375,6 +399,14 @@ class Generator(AdmissionMixin, ProgramBuilderMixin):
         self._prefill_program = self._aot_wrap(
             "prefill_fn", self._prefill_paged, fixed_args=(0, 7, 9), **held
         )
+        # one program per key, named as the JAX generator names its
+        # executables: the prefixed prefill buckets (n_pad, t_sfx, shared,
+        # guided), the chunk programs (n_pad, t_pad, chunk), the finish
+        # programs (n_pad, t_pad, guided) and the prefix builds (n_keep)
+        self._prefix_fns: dict[tuple, GraphProgram] = {}
+        self._chunk_fns: dict[tuple, GraphProgram] = {}
+        self._finish_fns: dict[tuple, GraphProgram] = {}
+        self._prefix_build_fns: dict[int, GraphProgram] = {}
 
     def _aot_wrap(self, name: str, fn: Any, **kwargs: Any) -> GraphProgram:
         """One serving program (``serving/graphs.py``), its captures
@@ -414,8 +446,10 @@ class Generator(AdmissionMixin, ProgramBuilderMixin):
         """Drop every sequence and zero the decode state: the engine's
         recovery path after a device error or a stall.  The allocator is
         rebuilt, every slot is emptied and its epoch bumped (tokens of
-        blocks still in flight are orphaned), the step clock restarts; the
-        weights are kept.  The page pool and the per-slot tokens are zeroed
+        blocks still in flight are orphaned), a pending chunked job is
+        dropped, the step clock restarts, and every registered shared
+        prefix is primed again into the fresh pool; the weights are
+        kept.  The page pool and the per-slot tokens are zeroed
         IN PLACE, so the captured graphs, which read them by address, stay
         valid and nothing is captured again.
 
@@ -428,13 +462,19 @@ class Generator(AdmissionMixin, ProgramBuilderMixin):
         address kills the context) makes this raise: no in-process reset
         revives it."""
         self._inflight_blocks.clear()
+        self._prefill_job = None
+        self._reserved.clear()
         # the step timeline died with the decode state (the black-box
         # dump captured its tail first)
         self.step_clock.reset()
+        prefix_texts = [entry["text"] for entry in self._prefixes]
+        self._prefixes = []
         if fresh:
             self.graphs.drop()
             self.paged_cache = None
             self.last_tokens = None
+            # an orphan may still replay a chunk graph into these
+            self._job_buffers.clear()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.allocator = PageAllocator(self.allocator.num_pages)
@@ -452,19 +492,166 @@ class Generator(AdmissionMixin, ProgramBuilderMixin):
         self._sampling_cache = None
         self._guided_aut_np[:] = 0
         self._drop_guided_tables()
+        # the pool was zeroed or rebuilt: re-prime every registered prefix
+        # so admissions after the recovery keep their fast path.  A failed
+        # re-prime must not fail the recovery: serving without the
+        # optimisation beats staying down
+        for text in prefix_texts:
+            try:
+                self.add_shared_prefix(text)
+            except Exception:  # noqa: BLE001 - the prefix is an optimisation only
+                log.warning(
+                    "shared-prefix re-prime failed after reset; serving without it",
+                    exc_info=True,
+                )
 
     def free_slots(self) -> list[int]:
-        return [i for i, slot in enumerate(self.slots) if not slot.active]
-
-    @property
-    def prefix_held_pages(self) -> int:
-        """KV pages held by registered shared prefixes: none, the wave
-        engine's shared prefix is not ported (ROADMAP Queue 1 item 6)."""
-        return 0
+        return [
+            i for i, slot in enumerate(self.slots)
+            if not slot.active and i not in self._reserved
+        ]
 
     @property
     def num_active(self) -> int:
+        # a pending chunked job's slots count: they hold capacity and need
+        # step() calls to progress before they decode
+        return sum(1 for slot in self.slots if slot.active) + len(self._reserved)
+
+    @property
+    def num_decoding(self) -> int:
         return sum(1 for slot in self.slots if slot.active)
+
+    # -- shared-prefix KV (the registered prompt preambles) ---------------
+
+    #: registered-prefix cap: each entry holds up to max_seq / page_size
+    #: pages for the engine's lifetime, so a runaway set of templates must
+    #: not eat the pool
+    MAX_SHARED_PREFIXES = 8
+
+    @property
+    def _prefix_tokens(self) -> list:
+        """The first-registered prefix's tokens (single-prefix view)."""
+        return self._prefixes[0]["tokens"] if self._prefixes else []
+
+    @property
+    def _prefix_pages(self) -> list:
+        return self._prefixes[0]["pages"] if self._prefixes else []
+
+    @property
+    def prefix_held_pages(self) -> int:
+        """KV pages owned by every registered prefix: held for the
+        engine's lifetime, never in any slot's grant (the page audits
+        subtract them)."""
+        return sum(len(entry["pages"]) for entry in self._prefixes)
+
+    def _prefix_keep_len(self, tokens: list) -> int:
+        """Page-floored cacheable length of a prefix's tokens: at least
+        one page of room for every suffix and its generation, and at
+        least one suffix token, so the first sampled token has a logit
+        row."""
+        max_keep = self.max_seq - max(self.page_size, 64)
+        return (min(len(tokens) - 1, max_keep) // self.page_size) * self.page_size
+
+    def set_shared_prefix(self, text: str) -> int:
+        """Replace every registered prefix with this one (an idle engine
+        is required: live slots' tables may reference the released
+        pages).  A text too short to cache leaves the registry as it is.
+        See :meth:`add_shared_prefix`."""
+        if self.num_active:
+            raise RuntimeError(
+                "set_shared_prefix requires an idle engine "
+                f"({self.num_active} sequences active)"
+            )
+        if self._prefix_keep_len(self.tokenizer.encode(text)) < self.page_size:
+            log.warning("shared prefix shorter than one page; not caching")
+            return 0
+        self.clear_shared_prefixes()
+        return self.add_shared_prefix(text)
+
+    def clear_shared_prefixes(self) -> None:
+        """Release every registered prefix's pages (idle engine only).
+        The prefixed programs stay: they are keyed by shape and shared
+        length and take the prefix's pages as an input, so a later prefix
+        of the same length replays them (the JAX generator drops its
+        executables here)."""
+        if self.num_active:
+            raise RuntimeError(
+                "clear_shared_prefixes requires an idle engine "
+                f"({self.num_active} sequences active)"
+            )
+        for entry in self._prefixes:
+            self.allocator.release(entry["pages"])
+        self._prefixes = []
+
+    def add_shared_prefix(self, text: str) -> int:
+        """Prefill ``text``'s KV once into generator-owned pages; later
+        waves whose every prompt starts with it forward only their
+        suffix.
+
+        Every explanation request shares one prompt template, so each
+        template's static preamble is prefilled once.  Prefix pages are
+        owned by the generator (never in a slot's grant, so a sequence's
+        teardown cannot free them).  Sharing is decided per wave by token
+        comparison against every registered prefix: the longest one that
+        every row fully matches wins (``admission.py:_wave_prefix_match``);
+        a wave matching none takes the plain prefill.  Over-budget
+        prompts keep the prefix's head (``_truncate_prompt``).
+
+        Safe while serving, on the worker between steps: registration
+        only allocates pages and writes them (the release paths, set and
+        clear, need an idle engine).  Idempotent by cached tokens, capped
+        at :attr:`MAX_SHARED_PREFIXES`, and refused when it would leave
+        less than one full sequence's pages grantable.  The build is one
+        program per ``n_keep`` (flash prefill when enabled); its pages are
+        released if it fails.  Returns the number of prefix tokens cached
+        (0: nothing cached)."""
+        tokens = self.tokenizer.encode(text)
+        n_keep = self._prefix_keep_len(tokens)
+        if n_keep < self.page_size:
+            log.warning("shared prefix shorter than one page; not caching")
+            return 0
+        for entry in self._prefixes:
+            if entry["tokens"] == tokens[:n_keep]:
+                return n_keep  # idempotent: already cached
+        if len(self._prefixes) >= self.MAX_SHARED_PREFIXES:
+            log.warning(
+                "shared-prefix registry full (%d); %r not cached",
+                self.MAX_SHARED_PREFIXES, text[:60],
+            )
+            return 0
+        need = n_keep // self.page_size
+        if self.allocator.available - need < self.pages_per_seq:
+            # a refused prefix costs a full prefill, never a request
+            log.warning(
+                "shared prefix %r needs %d pages but only %d are free "
+                "(one-sequence reserve %d); not cached",
+                text[:60], need, self.allocator.available, self.pages_per_seq,
+            )
+            return 0
+        pages = self.allocator.allocate(need)
+        program = self._prefix_build_fns.get(n_keep)
+        if program is None:
+            program = self._prefix_build_fns[n_keep] = self._aot_wrap(
+                f"prefix_build_k{n_keep}", self._prefix_build, fixed_args=(0,),
+                fixed_fields=("k_pages", "v_pages"),
+            )
+        from ..ops.flash_prefill import flash_prefill_enabled
+
+        try:
+            # writes the pages in place; the engine's tables are untouched
+            program(
+                self.params, self.paged_cache,
+                self._to_device(np.asarray([tokens[:n_keep]], np.int32)),
+                self._to_device(np.asarray([pages], np.int32)),
+                key=(n_keep,), variant=flash_prefill_enabled(),
+            )
+        except BaseException:
+            self.allocator.release(pages)
+            raise
+        self._prefixes.append({"text": text, "tokens": tokens[:n_keep], "pages": pages})
+        log.info("shared prefix cached: %d tokens in %d pages (%d registered)",
+                 n_keep, len(pages), len(self._prefixes))
+        return n_keep
 
     # -- the wave engine ------------------------------------------------
 
@@ -549,10 +736,14 @@ class Generator(AdmissionMixin, ProgramBuilderMixin):
             self.fault_plan.apply("engine.step", active=self.num_active)
             if self.abandoned():
                 raise RuntimeError("worker abandoned during its step")
+        if self._prefill_job is not None:
+            # one chunk per round: live slots' next block waits for at
+            # most one chunk
+            self._advance_prefill()
         started = time.perf_counter()
-        if self.num_active:
-            # held slots over capacity, as the continuous scheduler's
-            # occupancy is defined
+        if self.num_decoding:
+            # held slots (decoding and reserved) over capacity, as the
+            # continuous scheduler's occupancy is defined
             self.metrics.record(
                 "batch_occupancy", 100.0 * self.num_active / self.max_slots
             )
@@ -623,6 +814,105 @@ class Generator(AdmissionMixin, ProgramBuilderMixin):
             self.max_slots, self.decode_block, self.lora is not None,
             None if tables is None else tuple(tables.shape[:2]),
         )
+
+    def _advance_prefill(self) -> None:
+        """Run ONE chunk of the pending job, or its finish program.
+
+        The last chunk is partial where ``t_pad`` is not a multiple of the
+        chunk (buckets clamp to ``max_seq``).  The chunks write only the
+        job's own buffers; the page tables are staged at the finish, from
+        the engine's tables as they are then, and committed from the
+        finish program's return, so a failure at any chunk leaves the
+        device state untouched and an interleaved block's commit is never
+        overwritten."""
+        job = self._prefill_job
+        n_pad, t_pad = job.key
+        t0 = time.perf_counter()
+        if job.written < t_pad:
+            step_chunk = min(self.prefill_chunk, t_pad - job.written)
+            fn_key = (n_pad, t_pad, step_chunk)
+            program = self._chunk_fns.get(fn_key)
+            if program is None:
+                log.info("capturing prefill chunk n=%d t=%d chunk=%d", n_pad, t_pad, step_chunk)
+                # params, the mini cache, the last logits and the adapter
+                # stack are read in place, by address
+                program = self._chunk_fns[fn_key] = self._aot_wrap(
+                    f"chunk_n{n_pad}_t{t_pad}_c{step_chunk}", self._prefill_chunk,
+                    fixed_args=(0, 1, 5, 6),
+                )
+            with torch.profiler.record_function("podmortem.prefill_chunk"):
+                program(
+                    self.params, job.mini, job.ids[:, job.written: job.written + step_chunk],
+                    job.lengths, job.offsets[job.written // self.prefill_chunk],
+                    job.last_logits, self.lora, job.adapter_idx, key=fn_key,
+                )
+            job.written += step_chunk
+            elapsed_ms = (time.perf_counter() - t0) * 1e3
+            job.chunk_ms += elapsed_ms
+            self.metrics.record("prefill_chunk", elapsed_ms)
+            if job.written < t_pad:
+                return
+            t0 = time.perf_counter()  # the finish is timed on its own
+        # every chunk written: scatter and sample, then activate.  Guided
+        # rows mask the first token here; their automaton ids are resolved
+        # NOW (waves admitted between the chunks may have restacked)
+        job_specs = [self._guided_spec(p) for p in job.params_list]
+        if any(job_specs) or self._guided_tables is not None:
+            self._refresh_guided_tables(job_specs)
+        # whenever tables are live every activated slot gets its binding
+        # (the identity for unguided rows): a recycled slot may hold a
+        # stale state whose padding row would mask every logit
+        guided = self._guided_tables is not None
+        row_aut = self._guided_row_aut(job_specs, n_pad) if guided else None
+        fn_key = (n_pad, t_pad, guided)
+        program = self._finish_fns.get(fn_key)
+        if program is None:
+            program = self._finish_fns[fn_key] = self._aot_wrap(
+                f"finish_n{n_pad}_t{t_pad}_g{int(guided)}", self._prefill_finish,
+                fixed_args=(1, 4, 7), fixed_fields=("k_pages", "v_pages"),
+                generators=(self._rng,),
+            )
+        staged, row_tables = self._stage_page_tables(
+            len(job.taken), n_pad, job.slot_ids_np, job.page_grants, job.lengths_np,
+        )
+        with torch.profiler.record_function("podmortem.prefill_finish"):
+            paged, first_tokens, first_state = program(
+                staged, job.mini, job.lengths, self._to_device(row_tables),
+                job.last_logits, job.temp, job.top_p, self._guided_tables,
+                self._to_device(row_aut) if guided else None, key=fn_key,
+            )
+            first_np = first_tokens.cpu().numpy()  # the job's ONE host sync
+        self.paged_cache = paged
+        self._prefill_job = None
+        self._reserved.difference_update(job.taken)
+        finish_ms = (time.perf_counter() - t0) * 1e3
+        self._activate_slots(
+            first_np, job.lengths_np, job.taken, job.params_list, job.page_grants,
+            job.chunk_ms + finish_ms,
+        )
+        if guided:
+            self._apply_guided_activation(row_aut, job.taken, first_state)
+
+    def _job_buffers_for(self, n_pad: int, t_pad: int) -> tuple:
+        """The (mini cache, last logits) pair of a ``(n_pad, t_pad)`` job,
+        allocated at its first job: the chunk graphs read and write them
+        in place, so a chunk copies neither (at 16 x 2,048 tinyllama's
+        mini cache is 738 MB).  Their contents need no reset between
+        jobs: every cache slot a chunk attends to was written by an
+        earlier chunk of the same job, and every row's last logits land
+        in exactly one chunk."""
+        buffers = self._job_buffers.get((n_pad, t_pad))
+        if buffers is None:
+            buffers = self._job_buffers[(n_pad, t_pad)] = (
+                KVCache.create(
+                    self.config, n_pad, t_pad, dtype=self.paged_cache.k_pages.dtype,
+                    device=self.device,
+                ),
+                torch.zeros(
+                    (n_pad, self.config.vocab_size), dtype=torch.float32, device=self.device
+                ),
+            )
+        return buffers
 
     def _process_block(
         self, toks: torch.Tensor, snapshot: dict, begin: Any, end: Any,
@@ -1601,6 +1891,17 @@ class ServingEngine:
         metrics.incr("fabric_serve_hit", exemplar=hash_hex)
         return encode_block(block_hash, entry[0], entry[1])
 
+    async def add_prefix(self, text: str) -> int:
+        """Register a shared prompt prefix (``Generator.add_shared_prefix``)
+        on the worker, between steps: safe while serving, since
+        registration only allocates pages and writes them.  The programs
+        of the new prefix's buckets are captured on their first waves
+        (restart to fold them into the warmup grid).  Returns the prefix
+        tokens cached (0: none)."""
+        return await asyncio.wrap_future(
+            self._submit_host_task(lambda: self.generator.add_shared_prefix(text))
+        )
+
     def _submit_host_task(self, fn: Any) -> concurrent.futures.Future:
         """Queue ``fn()`` for the worker's next step boundary (either
         loop); its future carries the result."""
@@ -2217,12 +2518,16 @@ class ServingEngine:
                 self._admit_waiting(epoch, arrived)
             if g.num_active:
                 # reclaim slots whose callers are gone: an abandoned
-                # request must not decode to max_tokens holding its pages
+                # request must not decode to max_tokens holding its pages.
+                # A chunk-prefilling (reserved) slot cannot be cancelled
+                # mid-job: its request stays pending, and this sweep frees
+                # it once the job's wave is live, so its grant is released
+                # once, by that cancel
                 for slot_id in self._cancelled():
-                    g.cancel(slot_id)
-                    self._pending.pop(slot_id, None)
-                    self._queue_wait_ms.pop(slot_id, None)
-                    self._forget(slot_id)
+                    if g.cancel(slot_id):
+                        self._pending.pop(slot_id, None)
+                        self._queue_wait_ms.pop(slot_id, None)
+                        self._forget(slot_id)
             if not (g.num_active or g._inflight_blocks):
                 continue
             for slot_id, result in self._device_call(epoch, "decode step", g.step):

@@ -1,15 +1,24 @@
-"""The wave engine's device programs: the paged decode block and prefill.
+"""The wave engine's device programs: the paged decode block and prefills.
 
 Counterpart of ``operator_tpu/serving/programs.py`` for the paged path
 without mesh: :meth:`ProgramBuilderMixin._decode_step_paged` (:71),
 :meth:`~ProgramBuilderMixin._decode_block_paged` (:132, and its guided
-twin ``_decode_block_paged_guided``, :192) and
+twin ``_decode_block_paged_guided``, :192),
 :meth:`~ProgramBuilderMixin._prefill_paged`, the program that
-``_make_prefill_paged`` (:370) builds.  JAX compiles each into one program
-per shape behind ``_aot_wrap`` (``engine.py:390-425``); here each runs
-through the generator's ``_aot_wrap`` as a ``serving/graphs.py`` program:
-one CUDA graph per decode variant and per prefill bucket on the card,
-eager on the CPU.  They read nothing back to the host (the callers do
+``_make_prefill_paged`` (:370) builds, the suffix-only prefill over a
+registered shared prefix (:meth:`~ProgramBuilderMixin._prefill_paged_prefixed`,
+``_make_prefill_paged_prefixed``, :431), the chunked prefill's chunk and
+finish programs (:meth:`~ProgramBuilderMixin._prefill_chunk`,
+:meth:`~ProgramBuilderMixin._prefill_finish`; ``_make_chunk_fn`` :522,
+``_make_finish_fn`` :580, paged) and the shared prefix's build
+(:meth:`~ProgramBuilderMixin._prefix_build`, ``engine.py:818-838``).
+JAX compiles each into one program per shape behind ``_aot_wrap``
+(``engine.py:390-425``); here each runs through the generator's
+``_aot_wrap`` as a ``serving/graphs.py`` program: one CUDA graph per
+decode variant and per prefill, prefix, chunk and finish key on the
+card, eager on the CPU.  A static value of a key that no tensor shape
+carries (the shared length) is a Python ``int`` argument, part of the
+program's signature.  They read nothing back to the host (the callers do
 that once per block and once per prefill wave) and draw from the
 generator's registered ``torch.Generator``.  Sampling is the port's ``serving/sampling.py``.
 
@@ -147,6 +156,17 @@ class ProgramBuilderMixin:
         for index in range(self.config.num_layers):
             write_tokens(paged.k_pages[index], row_tables, mini.k[index], zero, lengths)
             write_tokens(paged.v_pages[index], row_tables, mini.v[index], zero, lengths)
+        first_tokens, first_state = self._sample_first(last_logits, temp, top_p, gtables, gaut)
+        return paged, first_tokens, first_state
+
+    def _sample_first(
+        self, last_logits: torch.Tensor, temp: torch.Tensor, top_p: torch.Tensor,
+        gtables: Optional[torch.Tensor], gaut: Optional[torch.Tensor],
+    ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """Each row's first token from its last prompt position's logits;
+        with guided args masked by the row's start state (state 0), and
+        the state it leads to, clamped at 0 as the JAX programs do (else
+        None)."""
         row = None
         if gtables is not None:
             row = gtables[gaut, torch.zeros_like(gaut)]  # DFA start state
@@ -155,4 +175,126 @@ class ProgramBuilderMixin:
         first_state = None
         if row is not None:
             first_state = torch.clamp_min(_transition(row, first_tokens), 0)
+        return first_tokens, first_state
+
+    def _prefill_paged_prefixed(
+        self, params, paged: PagedKVCache, prefix_table: torch.Tensor,
+        token_ids: torch.Tensor, lengths: torch.Tensor, row_tables: torch.Tensor,
+        temp: torch.Tensor, top_p: torch.Tensor,
+        lora: Optional[dict] = None, lora_idx: Optional[torch.Tensor] = None,
+        gtables: Optional[torch.Tensor] = None, gaut: Optional[torch.Tensor] = None,
+        shared: int = 0,
+    ) -> tuple[PagedKVCache, torch.Tensor, Optional[torch.Tensor]]:
+        """Suffix-only prefill over a registered shared prefix: the first
+        ``shared`` tokens' KV is gathered from the prefix pages
+        (``prefix_table``) into the mini cache once, broadcast over the
+        rows, and only the ``[n_pad, t_sfx]`` suffix runs through the
+        model at ``cache_offset = shared``.  ``lengths`` are the FULL
+        sequence lengths.  Only the suffix is scattered, from position
+        ``shared`` on, into each row's own pages: the prefix pages are
+        read, never written.  Guided rows mask the first token as the
+        plain prefill does.  The attention is the dense path (no
+        ``prefill_lengths``), as in the JAX program."""
+        n_pad, t_sfx = token_ids.shape
+        device = token_ids.device
+        t_total = shared + t_sfx
+        layers = self.config.num_layers
+        mini = KVCache.create(
+            self.config, n_pad, t_total, dtype=paged.k_pages.dtype, device=device
+        )
+        # pages -> contiguous [L, shared, KH, D], the same for every row
+        for pages, dest in ((paged.k_pages, mini.k), (paged.v_pages, mini.v)):
+            picked = pages[:, prefix_table.long()]  # [L, n_pp, ps, KH, D]
+            dest[:, :, :shared] = picked.reshape(layers, 1, shared, *pages.shape[3:])
+        positions = shared + torch.arange(t_sfx, dtype=torch.int32, device=device)[None].expand(
+            n_pad, t_sfx
+        )
+        kv_positions = torch.arange(t_total, dtype=torch.int32, device=device)[None]
+        kv_valid = kv_positions.expand(n_pad, t_total) < lengths[:, None]
+        last_logits, mini = forward(
+            params, self.config, token_ids, positions, cache=mini,
+            cache_offset=shared, kv_valid=kv_valid,
+            logits_at=lengths - 1 - shared,
+            lora=lora, lora_alpha=self.lora_alpha, lora_indices=lora_idx,
+        )
+        start = torch.full((n_pad,), shared, dtype=torch.int32, device=device)
+        suffix_len = lengths - shared
+        for index in range(layers):
+            write_tokens(paged.k_pages[index], row_tables, mini.k[index, :, shared:],
+                         start, suffix_len)
+            write_tokens(paged.v_pages[index], row_tables, mini.v[index, :, shared:],
+                         start, suffix_len)
+        first_tokens, first_state = self._sample_first(last_logits, temp, top_p, gtables, gaut)
         return paged, first_tokens, first_state
+
+    def _prefill_chunk(
+        self, params, mini: KVCache, ids_chunk: torch.Tensor, lengths: torch.Tensor,
+        offset: torch.Tensor, last_logits: torch.Tensor,
+        lora: Optional[dict] = None, lora_idx: Optional[torch.Tensor] = None,
+    ) -> tuple[KVCache, torch.Tensor]:
+        """One prefill chunk: ``[n_pad, chunk]`` tokens forwarded at the
+        device offset ``offset`` (a 0-d tensor, so one program serves
+        every chunk of a job) into the job's mini cache, in place; rows
+        whose prompt ends inside this chunk write their last-token logits
+        into ``last_logits``, in place.  Both are the job's buffers, read
+        by address under a graph, so a chunk copies neither."""
+        n_pad, chunk = ids_chunk.shape
+        t_pad = mini.k.shape[2]
+        device = ids_chunk.device
+        steps = torch.arange(chunk, dtype=torch.int32, device=device)
+        positions = (offset + steps)[None].expand(n_pad, chunk)
+        kv_positions = torch.arange(t_pad, dtype=torch.int32, device=device)[None]
+        # valid cache slots: written so far (this chunk included) AND real
+        kv_valid = kv_positions.expand(n_pad, t_pad) < torch.minimum(
+            lengths, offset + chunk
+        )[:, None]
+        rel = (lengths - 1 - offset).long()  # the last token, chunk-relative
+        in_chunk = (rel >= 0) & (rel < chunk)
+        gathered, mini = forward(
+            params, self.config, ids_chunk, positions, cache=mini,
+            cache_offset=offset, kv_valid=kv_valid,
+            logits_at=rel.clamp(0, chunk - 1),
+            lora=lora, lora_alpha=self.lora_alpha, lora_indices=lora_idx,
+        )
+        last_logits.copy_(torch.where(in_chunk[:, None], gathered, last_logits))
+        return mini, last_logits
+
+    def _prefill_finish(
+        self, paged: PagedKVCache, mini: KVCache, lengths: torch.Tensor,
+        row_tables: torch.Tensor, last_logits: torch.Tensor,
+        temp: torch.Tensor, top_p: torch.Tensor,
+        gtables: Optional[torch.Tensor] = None, gaut: Optional[torch.Tensor] = None,
+    ) -> tuple[PagedKVCache, torch.Tensor, Optional[torch.Tensor]]:
+        """A chunked job's end: the completed mini cache scattered into
+        each row's pages, and each row's first token sampled from the
+        carried last logits (masked by the automaton's start state for
+        guided rows)."""
+        n_pad = lengths.shape[0]
+        zero = torch.zeros((n_pad,), dtype=torch.int32, device=lengths.device)
+        for index in range(self.config.num_layers):
+            write_tokens(paged.k_pages[index], row_tables, mini.k[index], zero, lengths)
+            write_tokens(paged.v_pages[index], row_tables, mini.v[index], zero, lengths)
+        first_tokens, first_state = self._sample_first(last_logits, temp, top_p, gtables, gaut)
+        return paged, first_tokens, first_state
+
+    def _prefix_build(
+        self, params, paged: PagedKVCache, ids: torch.Tensor, table: torch.Tensor
+    ) -> PagedKVCache:
+        """A shared prefix's KV, prefilled once (``[1, n_keep]`` tokens,
+        flash prefill when enabled) and scattered into its
+        generator-owned pages ``table`` (``[1, n_keep / page]``)."""
+        n_keep = ids.shape[1]
+        device = ids.device
+        mini = KVCache.create(self.config, 1, n_keep, dtype=paged.k_pages.dtype, device=device)
+        positions = torch.arange(n_keep, dtype=torch.int32, device=device)[None]
+        lengths = torch.full((1,), n_keep, dtype=torch.int32, device=device)
+        _, mini = forward(
+            params, self.config, ids, positions, cache=mini, cache_offset=0,
+            kv_valid=torch.ones((1, n_keep), dtype=torch.bool, device=device),
+            prefill_lengths=lengths, logits_at=lengths - 1,
+        )
+        zero = torch.zeros((1,), dtype=torch.int32, device=device)
+        for index in range(self.config.num_layers):
+            write_tokens(paged.k_pages[index], table, mini.k[index], zero, lengths)
+            write_tokens(paged.v_pages[index], table, mini.v[index], zero, lengths)
+        return paged

@@ -21,8 +21,9 @@ from ..schema.analysis import AnalysisRequest, AnalysisResult
 
 #: the preamble before the first placeholder is STATIC across every
 #: request, so its KV is cached once (the continuous scheduler's
-#: block-hash prefix cache; the wave engine's shared prefix, ROADMAP Queue
-#: 1 item 6) and each admission prefills only the variable remainder —
+#: block-hash prefix cache; the wave engine's registered shared prefix,
+#: primed by ``build_serving_engine``) and each admission prefills only
+#: the variable remainder —
 #: keep new static instructions above the first ``{`` and variable
 #: content below it
 DEFAULT_TEMPLATE = """You are a Kubernetes failure analyst. A pod failed; your job is to name the root cause and the most direct fix.

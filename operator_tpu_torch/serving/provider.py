@@ -20,8 +20,12 @@ reads ``SCHED_CHUNK`` (64), ``SCHED_TOKEN_BUDGET`` (0 = auto),
 ``SCHED_PIPELINE_DEPTH`` (2), ``SPEC_DECODE`` (true), ``SPEC_LOOKUP_K`` (4)
 and the block-hash prefix cache, ``KV_PREFIX_CACHE`` (true) with its
 host-RAM pool ``KV_HOST_POOL_MB`` (0 = none); the wave engine reads
-``DECODE_BLOCK`` (4), ``PIPELINE_DEPTH`` (2) and
-``OPERATOR_TPU_PAGED_KERNEL`` (``v1``/``v2``).  Both loops are supervised
+``DECODE_BLOCK`` (4), ``PIPELINE_DEPTH`` (2), ``PREFILL_CHUNK`` (0 = one
+pass; else a longer wave is prefilled that many tokens per round while
+live slots decode) and ``OPERATOR_TPU_PAGED_KERNEL`` (``v1``/``v2``),
+and with ``PREFIX_CACHE`` (true) primes the default template's static
+preamble as the shared KV prefix; the provider registers each custom
+``promptTemplate``'s preamble once (``engine.add_prefix``).  Both loops are supervised
 by default, as in the reference: ``ENGINE_SUPERVISOR`` (true) with
 ``SUPERVISOR_STALL_S`` (120) and ``SUPERVISOR_JOIN_GRACE_S`` (10) build the
 engine's ``SupervisorPolicy``.  The fleet KV fabric, on the continuous
@@ -56,8 +60,7 @@ records every capture as a hit (``serving/aotcache.py``).
 
 A knob whose feature is not ported is refused when it is set away from
 its default, naming the ROADMAP Queue 1 item that ports it:
-``KV_CACHE_MODE=contiguous`` (item 8), ``PREFILL_CHUNK`` (item 7) and
-``SERVING_MESH`` (item 11).  The
+``KV_CACHE_MODE=contiguous`` (item 8) and ``SERVING_MESH`` (item 11).  The
 reference would fall back to the wave engine for a mesh on the
 continuous path; the port does not serve something else quietly.  As in
 the reference, the queue limit
@@ -96,7 +99,7 @@ from ..parallel.lora import load_lora
 from ..schema.analysis import AIResponse, AnalysisRequest
 from ..utils.config import OperatorConfig
 from .engine import Generator, ServingEngine, SupervisorPolicy
-from .prompts import build_prompt, template_preamble
+from .prompts import DEFAULT_TEMPLATE, build_prompt, template_preamble
 from .sched.scheduler import Scheduler
 from .types import DeadlineExceeded, SamplingParams
 
@@ -131,25 +134,28 @@ class TPUNativeProvider:
         # custom promptTemplates already seen — one note per template
         self._registered_templates: set[str] = set()
 
-    def _ensure_template_prefix(self, template: Optional[str]) -> None:
-        """The reference registers a custom template's static preamble as
-        the wave engine's shared KV prefix (``engine.add_prefix``), once
-        per template.  That prefix is not ported (ROADMAP Queue 1 item 6):
-        this notes it once per template and carries on.  On the
-        continuous path the block-hash prefix cache shares the template's
-        head anyway."""
+    async def _ensure_template_prefix(self, template: Optional[str]) -> None:
+        """Register a custom template's static preamble as a shared KV
+        prefix, once per template: later waves of its requests prefill
+        only their variable remainder (the default template's preamble is
+        primed when the engine is built)."""
         if not self.register_template_prefixes:
             return
         if not template or template in self._registered_templates:
             return
         self._registered_templates.add(template)
-        if not template_preamble(template):
+        preamble = template_preamble(template)
+        if not preamble:
+            # build_prompt falls back to the default template for it: its
+            # preamble would hold pages for a prefix no prompt starts with
             log.warning("promptTemplate does not render; prefix not cached")
             return
-        log.info(
-            "custom template preamble not registered as a shared prefix: the "
-            "wave engine's shared prefix is not ported (ROADMAP.md Queue 1 item 6)"
-        )
+        try:
+            cached = await self.engine.add_prefix(preamble)
+            if cached:
+                log.info("custom template preamble cached: %d tokens", cached)
+        except Exception:  # noqa: BLE001 - an optimisation must never fail a request
+            log.warning("custom template prefix registration failed", exc_info=True)
 
     def _error(self, message: str, **extra) -> AIResponse:
         return AIResponse(
@@ -158,7 +164,7 @@ class TPUNativeProvider:
 
     async def generate(self, request: AnalysisRequest) -> AIResponse:
         config = request.provider_config
-        self._ensure_template_prefix(config.prompt_template if config else None)
+        await self._ensure_template_prefix(config.prompt_template if config else None)
         prompt = build_prompt(request)
         # per-CR LoRA adapter: additionalConfig.lora_adapter names a
         # registered adapter; CRs with different adapters share one batch
@@ -241,7 +247,6 @@ def _refuse_unported(config: OperatorConfig) -> None:
     """Raise for a knob set away from its default whose feature is not
     ported, naming its ROADMAP Queue 1 item."""
     unported = (
-        ("PREFILL_CHUNK", config.prefill_chunk, "7", "the wave engine's chunked prefill"),
         ("SERVING_MESH", config.serving_mesh, "11", "multi-device serving"),
     )
     for name, value, item, feature in unported:
@@ -356,6 +361,7 @@ def build_serving_engine(
     checkpoint_dir = config.checkpoint_dir
     tokenizer = load_tokenizer(checkpoint_dir)
     quantize = serving_dtype == "int8"
+    prefill_chunk = config.prefill_chunk or None
     max_seq = min(model_config.max_seq_len, 2048)
     aot = None
     if config.aot_cache_path:
@@ -373,7 +379,7 @@ def build_serving_engine(
                 decode_block=config.decode_block,
                 sample_top_k=config.sample_top_k,
                 pipeline_depth=config.pipeline_depth,
-                prefill_chunk=config.prefill_chunk or None,
+                prefill_chunk=prefill_chunk,
                 sched_pipeline_depth=config.sched_pipeline_depth,
                 spec_width=1 + (config.spec_lookup_k if config.spec_decode else 0),
                 kv_prefix_cache=config.kv_prefix_cache,
@@ -421,6 +427,7 @@ def build_serving_engine(
         lora_adapters=lora_adapters,
         lora_alpha=config.lora_alpha,
         aot_cache=aot,
+        prefill_chunk=prefill_chunk,
     )
     # supervised by default (the reference's production wiring): a stalled
     # or errored loop resets the engine and requeues in-flight requests
@@ -433,9 +440,16 @@ def build_serving_engine(
         )
     if wave:
         log.info("serving mode: WAVE engine (sched_mode=%s)", config.sched_mode)
-        # the JAX provider primes the default template's shared prefix
-        # here; the port has no shared-prefix path yet (Queue 1 item 6)
-        log.info("shared-prefix priming is not ported; every prompt is prefilled in full")
+        if config.prefix_cache:
+            # every explanation request shares the default template's
+            # static preamble: its KV is cached once, and each wave of
+            # such prompts prefills only its remainder.  Continuous mode
+            # skips it: the scheduler's block-hash cache shares the head,
+            # and primed pages would only shrink its pool
+            try:
+                generator.set_shared_prefix(template_preamble(DEFAULT_TEMPLATE))
+            except Exception:  # noqa: BLE001 - an optimisation must never block startup
+                log.warning("shared-prefix priming failed; serving without it", exc_info=True)
         engine = ServingEngine(generator, supervisor=supervisor)
         return _with_role(engine, config), model_id
     # automatic block-hash prefix caching (serving/kvstore.py), with an

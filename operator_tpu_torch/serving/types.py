@@ -14,7 +14,7 @@ terminal errors.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import Any, Optional
 
 __all__ = [
     "DeadlineExceeded",
@@ -95,6 +95,33 @@ class _Slot:
     prefill_ms: float = 0.0
     #: step-clock decode cumulative when the slot went live
     decode_cum0: float = 0.0
+
+
+@dataclass
+class _PrefillJob:
+    """An in-progress chunked prefill (``Generator.prefill_chunk``).
+
+    The device state (the bucket's mini cache and the running last-token
+    logits) is the generator's buffer pair for the job's ``(n_pad,
+    t_pad)``, written in place chunk by chunk; the host arrays describe
+    the admitted wave as the one-shot path's do."""
+
+    key: tuple  # (n_pad, t_pad)
+    ids: Any  # [n_pad, t_pad] device tokens (each chunk is a view)
+    offsets: Any  # [n_chunks] device chunk starts (each chunk's offset)
+    lengths_np: Any
+    lengths: Any  # device
+    temp: Any
+    top_p: Any
+    slot_ids_np: Any  # padded rows duplicate row 0
+    taken: list
+    params_list: list
+    page_grants: list
+    adapter_idx: Any  # device or None
+    mini: Any  # KVCache carry
+    last_logits: Any  # [n_pad, vocab] carry
+    written: int
+    chunk_ms: float = 0.0  # accumulated chunk time (not the interleaved wall)
 
 
 def _bucket(n: int, floor: int, cap: int) -> int:

@@ -109,6 +109,9 @@ def _resolved(engine, sched, params_dtype) -> dict:
         "chunk": sched.chunk if sched is not None else None,
         "depth": sched.depth if sched is not None else None,
         "prefix_cache": store is not None,
+        "prefill_chunk": g.prefill_chunk,
+        # the wave engine's primed shared prefix (the default template's)
+        "prefix_held_pages": g.prefix_held_pages,
         "host_pool_bytes": (
             store.host_pool.capacity_bytes
             if store is not None and store.host_pool is not None else None
@@ -149,6 +152,7 @@ def _jax(env, monkeypatch) -> dict:
     ("SCHED_PIPELINE_DEPTH", "1"),
     ("SPEC_DECODE", "false"),
     ("SCHED_MODE", "wave"),
+    ("PREFILL_CHUNK", "32"),
     ("REPLICA_ROLE", "Prefill"),
     ("SUPERVISOR_STALL_S", "7.5"),
     ("SUPERVISOR_JOIN_GRACE_S", "2.5"),
@@ -202,6 +206,7 @@ def test_provider_knob_resolves_as_the_jax_package(knob, value, monkeypatch, tmp
         "SUPERVISOR_JOIN_GRACE_S": ("supervisor", {
             "stall_timeout_s": 120.0, "join_grace_s": 2.5, "max_requeues": 1}),
         "ENGINE_SUPERVISOR": ("supervisor", None),
+        "PREFILL_CHUNK": ("prefill_chunk", 32),
     }
     if knob == "LORA_DIR":
         adapters = ["sre"] if value == str(tmp_path) else []
@@ -246,14 +251,25 @@ def test_weight_dtype_wins_over_serving_dtype():
 
 
 @pytest.mark.parametrize("knob,value,item", [
-    ("PREFILL_CHUNK", "32", "item 7"),
+    ("PREFILL_CHUNK", "32", None),  # ported: the knob reaches the engine
     ("SERVING_MESH", "tp=2", "item 11"),
     ("KV_CACHE_MODE", "contiguous", "item 8"),
 ])
 def test_provider_refuses_unported_knobs_naming_their_item(knob, value, item):
     for mode in ("continuous", "wave"):
+        env = {**BASE, "SCHED_MODE": mode, knob: value}
+        if item is None:
+            engine, _ = build_serving_engine("cpu", env)
+            try:
+                assert engine.generator.prefill_chunk == int(value)
+            finally:
+                engine.close()
+            # the contiguous KV stays refused with a chunk set too
+            with pytest.raises(NotImplementedError, match="item 8"):
+                build_serving_engine("cpu", {**env, "KV_CACHE_MODE": "contiguous"})
+            continue
         with pytest.raises(NotImplementedError, match=item) as info:
-            build_serving_engine("cpu", {**BASE, "SCHED_MODE": mode, knob: value})
+            build_serving_engine("cpu", env)
         assert knob in str(info.value)
 
 
@@ -332,7 +348,6 @@ def served(checkpoint):
             mp.setenv(key, value)
         port = build_tpu_native_provider("cpu", env)
         ref = jax_provider.build_tpu_native_provider(JaxOperatorConfig.from_env(env))
-        ref.register_template_prefixes = False  # no wave-engine shared prefix
         loop = asyncio.new_event_loop()
         thread = threading.Thread(target=loop.run_forever, daemon=True)
         thread.start()

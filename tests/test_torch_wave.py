@@ -90,8 +90,12 @@ def _torch_generator(torch_params, **kw):
 
 
 def _assert_no_leaks(generator):
+    """Every slot free, every page free but the registered shared
+    prefixes' (the JAX engine's leak audit)."""
     assert len(generator.free_slots()) == generator.max_slots
-    assert generator.allocator.available == generator.allocator.num_pages - 1
+    assert generator.allocator.available == (
+        generator.allocator.num_pages - 1 - generator.prefix_held_pages
+    )
     assert not generator._inflight_blocks
 
 
@@ -258,6 +262,8 @@ def test_provider_builds_the_wave_engine():
         assert model_id == "tiny-test" and engine.scheduler is None
         g = engine.generator
         assert (g.decode_block, g.pipeline_depth) == (4, 2)
+        # PREFIX_CACHE (on by default) primes the default template's preamble
+        assert g.prefix_held_pages > 0
         engine.warmup()
         [result] = engine.generate_batch(["pod crashed"], SamplingParams(max_tokens=6, temperature=0.0))
         assert 1 <= result.completion_tokens <= 6
