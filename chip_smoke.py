@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--out results.json] [--seed N]
         [--phases device,kernels,serve,wave,guided,graphs,analysis,checkpoint,operator,remote,
-                  fleet,deployed,fabric,prefix,parity]
+                  fleet,deployed,fabric,prefix,contiguous,parity]
 
 Runs on one CUDA card, from the root of a checkout; exits non-zero, and
 prints no result, when no card is present or the package is missing.
@@ -385,11 +385,38 @@ Phases, in order — any failure stops the run:
    the one-shot K4 wave's on the same tokens; a prefixed wave after it,
    and nothing captured after the grid.  Then the 16 x 2,048 wave's
    prefill ms alone on the card, chunked and one-shot, in turns;
-15. parity: small f32 ``tiny-test`` engines on the card (kernels) and on
+15. contiguous: the wave engine's contiguous KV cache
+   (``KV_CACHE_MODE=contiguous``, a ``32 x 2,048`` cache) at
+   tinyllama-1.1b's full width (int8, 32 slots, block 4, depth 2, flash
+   prefill on, ``PREFIX_CACHE`` off), built by ``build_serving_engine``
+   with ``SCHED_MODE`` at its default (continuous: the fallback to the
+   wave engine and its warning are checked) and ``LORA_DIR`` (the guided
+   phase's adapters).  (b) ``WARMUP_GRID=serving``: the grid's dict, its
+   captures, seconds and pool bytes.  (a) The wave phase's ten requests
+   through the HTTP server, admission held: K4 22 times per prefill wave,
+   K1, K2/K3 and K5 never (the contiguous decode attends in dense
+   PyTorch, as the JAX program does), every slot free; one more request's
+   22 K4 calls held to the plain version; the same ten on a paged wave
+   engine of the same weights, its decode's attention run by the plain
+   version (which rounds the probabilities to bf16 as the dense decode
+   does), must give the same greedy answers (against K2/K3, which keep
+   them in f32, the equal rows are recorded).  (b)
+   The stream ms per 32-row decode block, contiguous and paged (K2/K3),
+   in turns; nothing captured or built after the grid.  (d) Base,
+   ``incident`` and ``zero`` on one prompt and a ``guided_choice`` with
+   ``incident``, admitted together: the zero adapter's answer is the
+   base's, incident's differs, the choice stays in its automaton.  (e) A
+   one-shot device error: one supervised restart whose reset zeroes the
+   cache and the offsets in place, and the next wave replays its graphs.
+   (c) On the worker: four live decode rows and a 16 x 2,048 wave with
+   ``PREFILL_CHUNK=256`` (eight chunks, decode blocks between them), each
+   row's first-token logits within 0.25 of the one-shot K4 wave's;
+16. parity: small f32 ``tiny-test`` engines on the card (kernels) and on
    the CPU (plain versions) must give the same greedy tokens — the
    continuous engine, and the wave engine with the decode selector at
    ``v1`` and ``v2`` and flash prefill on and off, and with a shared
-   prefix (a prefixed wave) and chunked prefill (chunk 16); the
+   prefix (a prefixed wave) and chunked prefill (chunk 16), and over the
+   contiguous cache with flash prefill on and off; the
    continuous engine
    with the prefix cache and an 8 MB host pool over two waves of prompts
    sharing a prefix, a ``spill_cache()`` between them (and the warm wave
@@ -404,8 +431,9 @@ time by kernel and the device's busy share (not part of the default
 run).
 
 After the phases, one JSON line gives each phase's seconds (``phase_s``)
-and, after each, the threads left and the share of a host CPU they burn
-while the script sleeps (``left_behind``).
+and, after each, the threads left, their names, the share of a host CPU
+they burn while the script sleeps and the card's free memory
+(``left_behind``).
 The line before the last is one JSON object with a record per kernel;
 the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -416,6 +444,7 @@ import argparse
 import asyncio
 import contextlib
 import dataclasses
+import importlib
 import json
 import logging
 import os
@@ -611,7 +640,7 @@ def k2_split_note(q, k_pages, v_pages, page_table, lengths, sliding_window=None)
     row in this K2/K3 call, by the kernel's span rule
     (``csrc/paged_attention.cu``) and the wrapper's plan; 1 when the plan
     does not split."""
-    from operator_tpu_torch.ops import paged_attention as pa
+    pa = importlib.import_module("operator_tpu_torch.ops.paged_attention")
     from operator_tpu_torch.ops import ragged_attention as ra
 
     plan = pa.launch_plan(q, k_pages, page_table)
@@ -1084,7 +1113,7 @@ def phase_wave_kernels(results: dict) -> list:
     import torch
 
     from operator_tpu_torch.ops import flash_prefill as fp
-    from operator_tpu_torch.ops import paged_attention as pa
+    pa = importlib.import_module("operator_tpu_torch.ops.paged_attention")
 
     checks = []
     worst = {"decode": 0.0, "prefill": 0.0}
@@ -1865,7 +1894,7 @@ def phase_wave(results: dict, kernel_modules: dict, phases: set, selector: str) 
     import torch
 
     from operator_tpu_torch.ops import flash_prefill as fp
-    from operator_tpu_torch.ops import paged_attention as pa
+    pa = importlib.import_module("operator_tpu_torch.ops.paged_attention")
     from operator_tpu_torch.serving.httpserver import CompletionServer
     from operator_tpu_torch.serving.provider import build_serving_engine
 
@@ -2109,7 +2138,7 @@ LORA_ATOL, LORA_RTOL = 2e-2, 2e-2
 GUIDED_TIMED_TOKENS = 64
 
 
-def write_lora_dir(path: str, config, seed: int) -> dict:
+def write_lora_dir(path: str, config, seed: int, device: str = "cuda") -> dict:
     """``incident`` and ``verbose`` (rank 16, the default targets, a and b
     seeded, b nonzero), ``zero`` (all zeros) and ``truncated`` (the first
     half of incident's file), written by the port's ``save_lora``.  Returns
@@ -2119,14 +2148,14 @@ def write_lora_dir(path: str, config, seed: int) -> dict:
     from operator_tpu_torch.parallel.lora import init_lora, save_lora, zero_lora
 
     os.makedirs(path, exist_ok=True)
-    gen = torch.Generator(device="cuda").manual_seed(seed)
+    gen = torch.Generator(device=device).manual_seed(seed)
     for name in ("incident", "verbose"):
-        adapter = init_lora(config, gen, rank=LORA_RANK, device="cuda")
+        adapter = init_lora(config, gen, rank=LORA_RANK, device=device)
         for factors in adapter.values():
-            factors["b"] = (torch.randn(factors["b"].shape, generator=gen, device="cuda")
+            factors["b"] = (torch.randn(factors["b"].shape, generator=gen, device=device)
                             * LORA_B_STD).to(torch.bfloat16)
         save_lora(adapter, os.path.join(path, f"{name}.safetensors"))
-    save_lora(zero_lora(config, rank=LORA_RANK, device="cuda"),
+    save_lora(zero_lora(config, rank=LORA_RANK, device=device),
               os.path.join(path, "zero.safetensors"))
     with open(os.path.join(path, "incident.safetensors"), "rb") as fh:
         whole = fh.read()
@@ -5340,8 +5369,9 @@ def fleet_pattern_sync(dirs: dict, counts, layers: int, card: str) -> dict:
 #: runs it, plus an exit hook that writes the process's kernel launch
 #: counts and its engine's steps to ``FLEET_COUNTS_PATH``
 FLEET_LAUNCHER = """
-import atexit, json, os, runpy
-from operator_tpu_torch.ops import flash_prefill, paged_attention, ragged_attention, similarity
+import atexit, importlib, json, os, runpy
+from operator_tpu_torch.ops import flash_prefill, ragged_attention, similarity
+paged_attention = importlib.import_module("operator_tpu_torch.ops.paged_attention")
 from operator_tpu_torch.serving import provider
 built = []
 build = provider.build_tpu_native_provider
@@ -6944,7 +6974,7 @@ def prefix_serving(out: dict, kernel_modules: dict, card: str) -> dict:
     import torch
 
     from operator_tpu_torch.ops import flash_prefill as fp
-    from operator_tpu_torch.ops import paged_attention as pa
+    pa = importlib.import_module("operator_tpu_torch.ops.paged_attention")
     from operator_tpu_torch.serving.httpserver import CompletionServer
     from operator_tpu_torch.serving.prompts import DEFAULT_TEMPLATE, template_preamble
     from operator_tpu_torch.serving.provider import build_serving_engine
@@ -7288,6 +7318,405 @@ def prefix_chunked(kernel_modules: dict) -> dict:
         engine.close()
 
 
+#: the contiguous phase's engine: the wave phase's settings (tinyllama-1.1b,
+#: int8, 32 slots, page 64, block 4, depth 2, PREFIX_CACHE off) with
+#: ``KV_CACHE_MODE=contiguous`` and ``SCHED_MODE`` at its default
+#: (continuous), which the provider must turn into the wave engine; the
+#: phase adds ``LORA_DIR``.  Its contiguous cache holds 32 x 2,048
+#: positions (1.48 GB in bf16)
+CONTIG_ENV = {**{k: v for k, v in WAVE_ENV.items() if k != "SCHED_MODE"},
+              "KV_CACHE_MODE": "contiguous", "WARMUP_GRID": "serving"}
+#: the phase's device (a CPU rehearsal at a tiny width sets it, with a
+#: tiny model of a 2,048 context in CONTIG_ENV)
+CONTIG_DEVICE = "cuda"
+#: (c): the chunk of the 16 x 2,048 wave, and its first-token logits'
+#: tolerance against the one-shot K4 wave's (the prefix phase's (d)
+#: tolerance, CHUNK_LOGIT_TOL, stated before this phase's first run)
+CONTIG_CHUNK = 256
+
+
+def contiguous_drive(engine, url: str, bodies: list, kernel_modules: dict, where: str) -> dict:
+    """The bodies through the HTTP front, queued in order and admitted
+    together, every kernel count set to 0 just before and read just after:
+    K4 22 times per prefill wave, K1, K2/K3 and K5 never (the contiguous
+    decode's attention is dense PyTorch, as in the JAX program); every
+    slot free after it.  Returns the drive's record and the results."""
+    g = engine.generator
+    for module in kernel_modules.values():
+        module.launches = 0
+    waves0, blocks0, ms0 = g.prefill_waves, g.blocks_dispatched, len(g.block_ms)
+    replies, results, wall = guided_drive(engine, url, bodies)
+    idle_wave(g)
+    launches = {name: m.launches for name, m in kernel_modules.items()}
+    waves, blocks = g.prefill_waves - waves0, g.blocks_dispatched - blocks0
+    want = {name: 0 for name in kernel_modules}
+    want["flash_prefill_attention"] = g.config.num_layers * waves
+    if launches != want or not waves or not blocks:
+        raise fail(f"contiguous {where}: launches {launches} over {waves} prefill waves and "
+                   f"{blocks} decode blocks; want {want}")
+    if len(g.free_slots()) != g.max_slots:
+        raise fail(f"contiguous {where}: {len(g.free_slots())} of {g.max_slots} slots free")
+    block_ms = g.block_ms[ms0:]
+    tokens = sum(r["usage"]["completion_tokens"] for r in replies)
+    return {
+        "requests": len(bodies), "completion_tokens": tokens, "wall_s": wall,
+        "tokens_per_s": tokens / wall, "prefill_waves": waves, "decode_blocks": blocks,
+        "stream_ms_per_block": sum(block_ms) / len(block_ms) if block_ms else None,
+        "launches": launches,
+    }, results
+
+
+def contiguous_blocks(engine) -> dict:
+    """One held drive of 32 sampled requests of 32 tokens (every block
+    carries all 32 rows); the stream ms of its decode blocks."""
+    from operator_tpu_torch.serving.types import SamplingParams
+
+    g = engine.generator
+    params = SamplingParams(max_tokens=GRAPHS_BLOCK_TOKENS, temperature=0.7, stop_on_eos=False)
+    short = [(LOG_LINE * 2)[:48 + i] for i in range(g.max_slots)]
+    return timed_blocks(engine, "contiguous", [
+        lambda i=i: engine.submit(short[i], params).result(timeout=300)
+        for i in range(g.max_slots)])
+
+
+def phase_contiguous(results: dict, kernel_modules: dict, seed: int) -> dict:
+    """The wave engine's contiguous KV cache at full width (see the module
+    doc): (a) the drive and the paged drive's greedy answers, (b) the
+    graphs, (d) a guided choice and adapted requests, (e) a device
+    error, (c) a chunked wave.  Returns the kernels' launches over (a)'s
+    drive."""
+    import torch
+
+    from operator_tpu_torch.models.configs import get_config
+    from operator_tpu_torch.ops import flash_prefill as fp
+    pa = importlib.import_module("operator_tpu_torch.ops.paged_attention")
+    from operator_tpu_torch.serving.httpserver import CompletionServer
+    from operator_tpu_torch.serving.provider import build_serving_engine
+    from operator_tpu_torch.utils.compilewatch import CompileWatcher
+
+    card = card_line()
+    saved = os.environ.get("OPERATOR_TPU_FLASH_PREFILL")
+    os.environ["OPERATOR_TPU_FLASH_PREFILL"] = "1"
+    workdir = os.path.join(ROOT, "build", "chip_smoke_contiguous")
+    shutil.rmtree(workdir, ignore_errors=True)
+    lora_dir = os.path.join(workdir, "lora")
+    out: dict = {"card": card}
+    tap = LogTap()
+    provider_log = logging.getLogger("operator_tpu_torch.serving.provider")
+    watcher = CompileWatcher()
+    engine = http = None
+    try:
+        model = CONTIG_ENV["OPERATOR_TPU_MODEL"]
+        write_lora_dir(lora_dir, get_config(model), seed, device=CONTIG_DEVICE)
+        env = {**CONTIG_ENV, "LORA_DIR": lora_dir}
+        started = time.perf_counter()
+        provider_log.addHandler(tap)
+        try:
+            engine, model_id = build_serving_engine(CONTIG_DEVICE, env, seed=0)
+        finally:
+            provider_log.removeHandler(tap)
+        g = engine.generator
+        config = g.config
+        fell_back = [m for m in tap.messages if "falling back to the wave engine" in m]
+        out["fallback_warning"] = fell_back
+        if engine.scheduler is not None or g.paged or not fell_back or "paged=False" not in fell_back[0]:
+            raise fail(f"contiguous: SCHED_MODE=continuous with KV_CACHE_MODE=contiguous did not "
+                       f"fall back to the wave engine with the warning: {fell_back}")
+        if (g.decode_block, g.pipeline_depth, g.max_slots, g.max_seq) != (4, 2, 32, 2048):
+            raise fail(f"contiguous: block {g.decode_block}, depth {g.pipeline_depth}, "
+                       f"{g.max_slots} slots, max_seq {g.max_seq}")
+        if CONTIG_DEVICE == "cuda" and (config.num_layers, config.hidden_size,
+                                        config.num_heads) != (22, 2048, 32):
+            raise fail(f"contiguous: not tinyllama-1.1b at full width: {config}")
+        if g.adapter_names != ["incident", "verbose", "zero"]:
+            raise fail(f"contiguous: adapters {g.adapter_names}")
+        built = time.perf_counter() - started
+
+        # (b) the warmup grid
+        report = asyncio.run(engine.precompile("serving"))
+        if CONTIG_DEVICE == "cuda":
+            torch.cuda.synchronize()
+        out["b_graphs"] = {
+            "build_s": built, "grid_s": time.perf_counter() - started - built,
+            "precompile": report, "captures": len(g.graphs.log),
+            "capture_s": g.graphs.capture_s, "pool_bytes": g.graphs.pool_bytes(),
+            "cache_bytes": g.cache.k.nbytes + g.cache.v.nbytes,
+        }
+        captures0 = len(g.graphs.log)
+        watcher.mark()
+
+        # (a) the wave phase's ten requests, K4 held in one more request
+        server = CompletionServer(engine, model_id=model_id, host="127.0.0.1", port=0)
+        http = HttpLoop(server)
+        url = f"http://127.0.0.1:{server.bound_port}/v1/completions"
+        bodies = request_bodies()
+        drive, answers = contiguous_drive(engine, url, bodies, kernel_modules, "(a)")
+        layers = config.num_layers
+        drive["held_calls"] = held_drive_calls(url, fp, "flash_prefill_attention", HeldToPlain(
+            fp.flash_prefill_attention, fp.flash_prefill_reference, layers,
+            prefill_drive_limit), LOG_LINE * 3)
+        launches = drive["launches"]
+        out["a_drive"] = drive
+        print(json.dumps({"contiguous_a": drive, "card": card}), flush=True)
+
+        # the same requests on a paged wave engine of the same weights:
+        # the greedy answers must be equal; then (b)'s block ms, in turns
+        paged_env = {**env, "KV_CACHE_MODE": "paged", "SCHED_MODE": "wave", "WARMUP_GRID": "off"}
+        paged, _ = build_serving_engine(CONTIG_DEVICE, paged_env, seed=0)
+        paged_http = None
+        try:
+            if not paged.generator.paged:
+                raise fail("contiguous: the paged comparison engine is not paged")
+            paged_server = CompletionServer(paged, model_id=model_id, host="127.0.0.1", port=0)
+            paged_http = HttpLoop(paged_server)
+            paged_url = f"http://127.0.0.1:{paged_server.bound_port}/v1/completions"
+            greedy = [i for i, body in enumerate(bodies) if body["temperature"] == 0.0]
+
+            def compare(other: list) -> dict:
+                differ = [i for i in greedy if answers[i].token_ids != other[i].token_ids]
+                return {"rows": len(greedy), "differ": differ, "first_divergence": {
+                    i: next((k for k, (a, b) in enumerate(zip(
+                        answers[i].token_ids, other[i].token_ids)) if a != b), None)
+                    for i in differ}}
+
+            # with K2/K3, which keep P in f32 where the dense decode rounds
+            # it to bf16: recorded (a near-tie of random weights flips)
+            _, kernel_answers, _ = guided_drive(paged, paged_url, bodies)
+            idle_wave(paged.generator)
+            # with the paged decode's plain version, which rounds P as the
+            # dense decode does: the layouts must give the same tokens
+            kernel = pa.paged_attention
+            pa.paged_attention = pa.paged_attention_reference
+            try:
+                with eager_programs():
+                    _, plain_answers, _ = guided_drive(paged, paged_url, bodies)
+            finally:
+                pa.paged_attention = kernel
+            idle_wave(paged.generator)
+            out["a_greedy_vs_paged"] = {"paged_plain_decode": compare(plain_answers),
+                                        "paged_k2_k3": compare(kernel_answers)}
+            print(json.dumps({"contiguous_a_vs_paged": out["a_greedy_vs_paged"], "card": card}),
+                  flush=True)
+            if out["a_greedy_vs_paged"]["paged_plain_decode"]["differ"]:
+                raise fail(f"contiguous (a): greedy answers differ from the paged drive's "
+                           f"with the plain decode: {out['a_greedy_vs_paged']}")
+            if CONTIG_DEVICE == "cuda":
+                turns = [(name, contiguous_blocks(e)) for name, e in (
+                    ("contiguous", engine), ("paged", paged), ("paged", paged),
+                    ("contiguous", engine))]
+                medians = {name: [r["median_ms"] for n, r in turns if n == name]
+                           for name in ("contiguous", "paged")}
+                out["b_graphs"]["block_ms"] = {
+                    "rows": g.max_slots, "tokens": GRAPHS_BLOCK_TOKENS, "turns": turns,
+                    "median_ms": medians,
+                    "contiguous_over_paged": sum(medians["contiguous"]) / sum(medians["paged"]),
+                }
+        finally:
+            if paged_http is not None:
+                paged_http.stop()
+            paged.close()
+            del paged
+            if CONTIG_DEVICE == "cuda":
+                torch._C._cuda_clearCublasWorkspaces()
+                torch.cuda.empty_cache()
+        after = captured(g, captures0)
+        builds = [e for e in watcher.events_since_mark() if e[1].startswith("nvcc:")]
+        out["b_graphs"]["captured_after_grid"] = after
+        out["b_graphs"]["builds_after_grid"] = builds
+        print(json.dumps({"contiguous_b": out["b_graphs"], "card": card}), flush=True)
+        if after or builds:
+            raise fail(f"contiguous (b): captured or built after the grid: {after} {builds}")
+
+        # (d) a guided choice with an adapter, and the adapters on one prompt
+        out["d_guided_lora"] = contiguous_guided(engine, url, kernel_modules)
+        print(json.dumps({"contiguous_d": out["d_guided_lora"], "card": card}), flush=True)
+        # (e) a device error under the supervisor
+        out["e_recovery"] = contiguous_recovery(engine, url, bodies)
+        print(json.dumps({"contiguous_e": out["e_recovery"], "card": card}), flush=True)
+        # (c) the chunked wave, on the worker between steps
+        out["c_chunked"] = engine.store_executor.submit(
+            lambda: contiguous_chunked(engine)).result(900)
+        print(json.dumps({"contiguous_c": out["c_chunked"], "card": card}), flush=True)
+    finally:
+        watcher.close()
+        if http is not None:
+            http.stop()
+        if engine is not None:
+            engine.close()
+        shutil.rmtree(workdir, ignore_errors=True)
+        if saved is None:
+            os.environ.pop("OPERATOR_TPU_FLASH_PREFILL", None)
+        else:
+            os.environ["OPERATOR_TPU_FLASH_PREFILL"] = saved
+        if CONTIG_DEVICE == "cuda":
+            torch.cuda.empty_cache()
+    out["launches"] = launches
+    results["contiguous"] = out
+    return launches
+
+
+def contiguous_guided(engine, url: str, kernel_modules: dict) -> dict:
+    """(d): base, ``incident`` and ``zero`` on one prompt (greedy) and a
+    ``guided_choice`` with ``incident``, admitted together: the zero
+    adapter's answer is the base's, incident's differs, the choice is a
+    choice and its tokens never leave the automaton; K4 22 per wave."""
+    g = engine.generator
+    prompt = LOG_LINE[:120]
+    greedy = {"max_tokens": MAX_TOKENS, "temperature": 0.0}
+    bodies = [{"prompt": prompt, **greedy},
+              {"prompt": prompt, "model": "incident", **greedy},
+              {"prompt": prompt, "model": "zero", **greedy},
+              {"prompt": "severity of this failure?", "model": "incident",
+               "guided_choice": GUIDED_CHOICES, **greedy}]
+    for module in kernel_modules.values():
+        module.launches = 0
+    waves0 = g.prefill_waves
+    captures0 = len(g.graphs.log)
+    replies, results, wall = guided_drive(engine, url, bodies)
+    idle_wave(g)
+    launches = {name: m.launches for name, m in kernel_modules.items()}
+    base, incident, zero, choice = results
+    spec = ("choice", tuple(GUIDED_CHOICES))
+    record = {
+        "wall_s": wall, "prefill_waves": g.prefill_waves - waves0, "launches": launches,
+        "zero_equals_base": zero.token_ids == base.token_ids,
+        "incident_differs": incident.token_ids != base.token_ids,
+        "choice": choice.text, "choice_replay": replay_in_automaton(g, spec, choice),
+        "captured": captured(g, captures0),
+    }
+    if (not record["zero_equals_base"] or not record["incident_differs"]
+            or choice.text not in GUIDED_CHOICES or record["choice_replay"]["left_at"] is not None
+            or launches["flash_prefill_attention"] != g.config.num_layers * record["prefill_waves"]
+            or launches["paged_decode_attention"] or launches["ragged_paged_attention"]):
+        raise fail(f"contiguous (d): {record}")
+    return record
+
+
+def contiguous_recovery(engine, url: str, bodies: list) -> dict:
+    """(e): a one-shot device error at the third step of a drive: one
+    supervised restart whose reset zeroes the cache and the offsets in
+    place (the graphs read them by address), every request requeued and
+    answered; the next wave replays its graphs, capturing nothing."""
+    from operator_tpu_torch.utils.faultinject import OK, FaultPlan, raise_
+
+    g = engine.generator
+    held = (g.cache.k.data_ptr(), g.cache.v.data_ptr(), g.offsets.data_ptr())
+    seen: list = []
+    reset = g.reset
+
+    def watched_reset(*args, **kwargs):
+        reset(*args, **kwargs)
+        seen.append({
+            "fresh": bool(kwargs.get("fresh")),
+            "in_place": (g.cache.k.data_ptr(), g.cache.v.data_ptr(), g.offsets.data_ptr()) == held,
+            "zeroed": not (g.cache.k.any() or g.cache.v.any() or g.offsets.any()),
+        })
+
+    counts0 = supervisor_counts(g.metrics)
+    plan = FaultPlan(seed=16)
+    plan.rule("engine.step", [OK, OK, raise_(
+        lambda: RuntimeError("injected device error"), "device")])
+    g.fault_plan = plan
+    g.reset = watched_reset
+    try:
+        drive_requests(url, bodies[:6])
+    finally:
+        g.fault_plan = None
+        del g.reset  # the method again, no bound method kept on its instance
+    idle_wave(g)
+    counts = {k: v - counts0[k] for k, v in supervisor_counts(g.metrics).items()}
+    captures0, replays0 = g.graphs.captures, g.graphs.replays
+    drive_requests(url, [{**b, "max_tokens": 8} for b in bodies[:2]])
+    idle_wave(g)
+    record = {
+        "supervisor": counts, "pending_faults": plan.pending(), "resets": seen,
+        "captures_after": g.graphs.captures - captures0,
+        "replays_after": g.graphs.replays - replays0,
+        "slots_free": len(g.free_slots()),
+    }
+    if (counts["restart"] != 1 or counts["gaveup"] or counts["leak"] or plan.pending()
+            or len(seen) != 1 or not seen[0]["in_place"] or not seen[0]["zeroed"]
+            or record["captures_after"] or record["slots_free"] != g.max_slots
+            or (CONTIG_DEVICE == "cuda" and not record["replays_after"])):
+        raise fail(f"contiguous (e): {record}")
+    return record
+
+
+def contiguous_chunked(engine) -> dict:
+    """(c), on the worker between steps: four live decode rows, then a
+    16 x 2,048 wave as a chunked job (``prefill_chunk`` 256, eight chunks,
+    decode blocks between them); each row's first-token logits against
+    the one-shot K4 wave's on the same tokens, within CHUNK_LOGIT_TOL."""
+    import numpy as np
+    import torch
+
+    from operator_tpu_torch.models.llama import KVCache, forward
+    from operator_tpu_torch.serving.types import SamplingParams, _bucket, prompt_budget
+
+    g = engine.generator
+    captures0 = len(g.graphs.log)
+    g.prefill_chunk = CONTIG_CHUNK
+    try:
+        live = g.admit([LOG_LINE[: 40 + 8 * i] for i in range(CHUNK_LIVE_ROWS)], [
+            SamplingParams(max_tokens=240, temperature=0.0, stop_on_eos=False)
+        ] * CHUNK_LIVE_ROWS)
+        g.step()
+        long_prompts = [(f"row {i} " + LOG_LINE * 14)[:CHUNK_PROMPT_CHARS]
+                        for i in range(CHUNK_ROWS)]
+        sampling = SamplingParams(max_tokens=8, temperature=0.0, stop_on_eos=False)
+        chunks0 = g.metrics.stage("prefill_chunk").count
+        taken = g.admit(long_prompts, [sampling] * CHUNK_ROWS)
+        job = g._prefill_job
+        if job is None or job.key != (CHUNK_ROWS, 2048) or set(taken) != g._reserved:
+            raise fail(f"contiguous (c): no 16 x 2,048 job: {job and job.key}, {taken}")
+        decoding_between = 0
+        while g._prefill_job is not None:
+            before = g.blocks_dispatched
+            g.step()
+            if g._prefill_job is not None:
+                decoding_between += g.blocks_dispatched - before
+        chunks = g.metrics.stage("prefill_chunk").count - chunks0
+        last_logits = g._job_buffers[(CHUNK_ROWS, 2048)][1].clone()
+        budget = prompt_budget(g.max_seq, sampling.max_tokens)
+        ids_np = np.zeros((CHUNK_ROWS, 2048), np.int32)
+        lengths_np = np.zeros((CHUNK_ROWS,), np.int32)
+        for row, prompt in enumerate(long_prompts):
+            toks = g._truncate_prompt(g.tokenizer.encode(prompt), budget)
+            ids_np[row, : len(toks)] = toks
+            lengths_np[row] = len(toks)
+        if _bucket(int(lengths_np.max()), 64, g.max_seq) != 2048:
+            raise fail(f"contiguous (c): rows of {lengths_np.max()} tokens are not the 2,048 bucket")
+        with torch.no_grad():
+            ids = torch.from_numpy(ids_np).to(g.device)
+            lengths = torch.from_numpy(lengths_np).to(g.device)
+            positions = torch.arange(2048, dtype=torch.int32, device=g.device)[None].expand(
+                CHUNK_ROWS, 2048)
+            mini = KVCache.create(g.config, CHUNK_ROWS, 2048, dtype=g.cache_dtype,
+                                  device=g.device)
+            oneshot, _ = forward(g.params, g.config, ids, positions, cache=mini,
+                                 cache_offset=0, kv_valid=positions < lengths[:, None],
+                                 prefill_lengths=lengths, logits_at=lengths - 1)
+            del mini
+        err = (last_logits - oneshot).abs()
+        while g.num_active or g._inflight_blocks:
+            g.step()
+    finally:
+        g.prefill_chunk = None
+    record = {
+        "t_pad": 2048, "rows": CHUNK_ROWS, "chunk": CONTIG_CHUNK, "chunks": chunks,
+        "decode_blocks_between_chunks": decoding_between, "live_rows": len(live),
+        "logits_max_abs_err": err.max().item(), "logits_tol": CHUNK_LOGIT_TOL,
+        "max_abs_logit": oneshot.abs().max().item(),
+        "argmax_equal_rows": int((last_logits.argmax(-1) == oneshot.argmax(-1)).sum()),
+        "captured": captured(g, captures0), "slots_free": len(g.free_slots()),
+    }
+    if (chunks != -(-2048 // CONTIG_CHUNK) or not decoding_between
+            or not record["logits_max_abs_err"] <= CHUNK_LOGIT_TOL
+            or record["slots_free"] != g.max_slots):
+        raise fail(f"contiguous (c): {record}")
+    return record
+
+
 def phase_parity(results: dict, kernel_modules: dict) -> None:
     import torch
 
@@ -7307,11 +7736,11 @@ def phase_parity(results: dict, kernel_modules: dict) -> None:
     prompts = [LOG_LINE[:30], LOG_LINE * 3, "OOMKilled OOMKilled OOMKilled"]
     sampling = SamplingParams(max_tokens=16, temperature=0.0)
 
-    def run(device, wave):
+    def run(device, wave, paged=True):
         generator = Generator(
             to(params_cpu, device), TINY_TEST, ByteTokenizer(), max_slots=4,
             max_seq=256, page_size=16, cache_dtype=torch.float32, device=device,
-            decode_block=4 if wave else 1, pipeline_depth=2 if wave else 1,
+            decode_block=4 if wave else 1, pipeline_depth=2 if wave else 1, paged=paged,
         )
         sched = None if wave else Scheduler(
             generator, chunk=16, token_budget=32, pipeline_depth=2, spec_decode=True,
@@ -7354,6 +7783,25 @@ def phase_parity(results: dict, kernel_modules: dict) -> None:
                 if not ok:
                     raise fail(f"wave parity {version}/flash={flash}: card {card} cpu {cpu} "
                                f"launches {launches}")
+        # the contiguous cache: K4 in the prefill when flash is on, no
+        # decode kernel (its attention is dense PyTorch)
+        for flash in ("0", "1"):
+            os.environ["OPERATOR_TPU_FLASH_PREFILL"] = flash
+            for module in kernel_modules.values():
+                module.launches = 0
+            card = run("cuda", wave=True, paged=False)
+            launches = {name: m.launches for name, m in kernel_modules.items()}
+            cpu = run("cpu", wave=True, paged=False)
+            ok = (card == cpu and (launches["flash_prefill_attention"] > 0) == (flash == "1")
+                  and launches["paged_decode_attention"] == 0
+                  and launches["ragged_paged_attention"] == 0
+                  and launches["best_window_similarity"] == 0)
+            wave_parity.append({"contiguous": True, "flash_prefill": flash == "1",
+                                "launches": launches, "tokens_equal": card == cpu})
+            print(json.dumps({"wave_parity": wave_parity[-1]}), flush=True)
+            if not ok:
+                raise fail(f"contiguous wave parity flash={flash}: card {card} cpu {cpu} "
+                           f"launches {launches}")
     finally:
         for key, value in saved.items():
             if value is None:
@@ -7841,7 +8289,7 @@ def eager_wave_programs(g):
         return g._decode_block_paged(*args)
 
     def prefill(*args, key=None, variant=None):
-        return g._prefill_paged(*args)
+        return g._prefill(*args)
 
     g._decode_program = g._decode_guided_program = decode
     g._prefill_program = prefill
@@ -8123,7 +8571,7 @@ def main() -> int:
     parser.add_argument("--out", help="also write every result to this JSON file")
     parser.add_argument("--phases",
                         default="device,kernels,serve,wave,guided,graphs,analysis,checkpoint,"
-                                "operator,remote,fleet,deployed,fabric,prefix,parity")
+                                "operator,remote,fleet,deployed,fabric,prefix,contiguous,parity")
     parser.add_argument("--seed", type=int, default=0,
                         help="the guided phase's weights and adapters")
     parser.add_argument("--graphs-warm", metavar="PLAN",
@@ -8140,12 +8588,10 @@ def main() -> int:
         return graphs_warm_boot(args.graphs_warm)
     try:
         from operator_tpu_torch.ops import _build
-        from operator_tpu_torch.ops import (
-            flash_prefill,
-            paged_attention,
-            ragged_attention,
-            similarity,
-        )
+        from operator_tpu_torch.ops import flash_prefill, ragged_attention, similarity
+
+        # the module: the package's ``paged_attention`` is the function, as in JAX
+        paged_attention = importlib.import_module("operator_tpu_torch.ops.paged_attention")
     except ImportError as exc:
         print(f"chip_smoke: the operator_tpu_torch package is missing: {exc}", file=sys.stderr)
         return 2
@@ -8173,8 +8619,9 @@ def main() -> int:
         raise fail(f"no tensor-core instruction (HMMA/HGMMA) in {no_mma}")
 
     # each phase's seconds, the build's (device) included; after each
-    # phase, the threads left and the host CPU they burn while this one
-    # sleeps (what a later phase competes with)
+    # phase, the threads left (and their names), the host CPU they burn
+    # while this one sleeps (what a later phase competes with) and the
+    # card's free memory
     phase_s = results["phase_s"] = {"device": time.perf_counter() - started}
     left_behind = results["left_behind"] = {}
 
@@ -8187,7 +8634,9 @@ def main() -> int:
             cpu = time.process_time()
             time.sleep(0.2)
             left_behind[name] = {"threads": threading.active_count(),
-                                 "idle_cpu_share": (time.process_time() - cpu) / 0.2}
+                                 "idle_cpu_share": (time.process_time() - cpu) / 0.2,
+                                 "names": sorted(t.name for t in threading.enumerate()),
+                                 "device_free_gib": torch.cuda.mem_get_info()[0] / 2**30}
 
     records = []
     if "kernels" in phases:
@@ -8230,6 +8679,8 @@ def main() -> int:
     fabric = timed("fabric", phase_fabric, results, kernel_modules) if "fabric" in phases else {}
     prefix = timed("prefix", phase_prefix, results, kernel_modules) \
         if "prefix" in phases else {}
+    contiguous = timed("contiguous", phase_contiguous, results, kernel_modules, args.seed) \
+        if "contiguous" in phases else {}
     if "parity" in phases:
         timed("parity", phase_parity, results, kernel_modules)
     phase_s["total"] = time.perf_counter() - started
@@ -8259,6 +8710,7 @@ def main() -> int:
         record["launches_fabric"] = fabric.get(base)
         record["launches_guided"] = guided.get(base)
         record["launches_prefix"] = prefix.get(base)
+        record["launches_contiguous"] = contiguous.get(base)
     kernels = records
     results["kernels"] = kernels
     device = {

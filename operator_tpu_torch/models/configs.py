@@ -211,6 +211,11 @@ def get_config(name: str) -> ModelConfig:
         raise KeyError(f"unknown model {name!r}; known: {sorted(_REGISTRY)}") from None
 
 
+def register_config(config: ModelConfig) -> None:
+    """Make ``config`` known to :func:`get_config` under its name."""
+    _REGISTRY[config.name] = config
+
+
 def scaled(config: ModelConfig, *, num_layers: Optional[int] = None,
            max_seq_len: Optional[int] = None) -> ModelConfig:
     """A reduced variant (fewer layers / shorter context) for smoke tests."""

@@ -6,7 +6,8 @@ serving step runs (``rms_norm`` with f32 accumulation,
 rotate-half, ``_PROJ_BIAS``, ``init_params``) and the wave engine's
 passes: ``make_causal_mask``, the contiguous ``KVCache``, dense and
 query-chunked attention, :func:`forward` (with a cache, and with the
-flash-prefill branch) and :func:`decode_step_paged`, both with the
+flash-prefill branch), :func:`decode_step` over the contiguous cache and
+:func:`decode_step_paged`, each with the
 multi-LoRA path (:func:`_lora_path`: ``lora=`` stacked adapters from
 ``parallel/lora.py``, ``lora_indices`` one adapter per batch row).
 :func:`params_from_jax` turns a JAX parameter tree (as numpy arrays)
@@ -44,11 +45,14 @@ _PROJ_BIAS = {"wq": "bq", "wk": "bk", "wv": "bv"}
 __all__ = [
     "KVCache",
     "apply_rope",
+    "decode_step",
     "decode_step_paged",
+    "dense_init",
     "forward",
     "init_params",
     "layer_matrix_shapes",
     "make_causal_mask",
+    "param_count",
     "params_from_jax",
     "rms_norm",
     "rope_frequencies",
@@ -76,14 +80,23 @@ def layer_matrix_shapes(config: ModelConfig) -> dict[str, tuple[int, int, int]]:
     }
 
 
-def _dense_init(
-    gen: torch.Generator, shape: tuple[int, ...], dtype: torch.dtype,
-    device: torch.device,
+def dense_init(
+    gen: torch.Generator, shape: tuple[int, ...], fallback_fan_in: int,
+    dtype: torch.dtype, device: Union[str, torch.device] = "cuda",
 ) -> torch.Tensor:
-    """Normal init scaled by fan-in (the second-to-last axis)."""
-    scale = shape[-2] ** -0.5
+    """Normal init scaled by fan-in (the second-to-last axis, or
+    ``fallback_fan_in`` for a vector), drawn from ``gen`` on ``device``."""
+    scale = (shape[-2] if len(shape) >= 2 else fallback_fan_in) ** -0.5
     out = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
     return out.mul_(scale).to(dtype)
+
+
+def param_count(params: Params) -> int:
+    """Elements in a parameter tree (an int8 group counts its values and
+    its scales, as the JAX tree's leaves do)."""
+    if isinstance(params, dict):
+        return sum(param_count(value) for value in params.values())
+    return int(params.numel())
 
 
 def init_params(
@@ -109,7 +122,7 @@ def init_params(
     h, n = config.hidden_size, config.num_layers
     layers: dict[str, Any] = {}
     for name, shape in layer_matrix_shapes(config).items():
-        w = _dense_init(gen, shape, dtype, device)
+        w = dense_init(gen, shape, h, dtype, device)
         layers[name] = quantize_matrix(w) if quantize else w
         del w
     layers["ln_attn"] = torch.ones((n, h), dtype=dtype, device=device)
@@ -120,12 +133,12 @@ def init_params(
         layers["bk"] = torch.zeros((n, kvh * d), dtype=dtype, device=device)
         layers["bv"] = torch.zeros((n, kvh * d), dtype=dtype, device=device)
     params: Params = {
-        "embed": _dense_init(gen, (config.vocab_size, h), dtype, device),
+        "embed": dense_init(gen, (config.vocab_size, h), h, dtype, device),
         "layers": layers,
         "ln_final": torch.ones((h,), dtype=dtype, device=device),
     }
     if not config.tie_embeddings:
-        params["lm_head"] = _dense_init(gen, (h, config.vocab_size), dtype, device)
+        params["lm_head"] = dense_init(gen, (h, config.vocab_size), h, dtype, device)
     return params
 
 
@@ -237,7 +250,8 @@ def make_causal_mask(
 class KVCache:
     """Contiguous per-layer cache (the paged variant lives in ops/).  The
     wave engine's prefill runs its bucket through one of these as a mini
-    cache before scattering it into the pages."""
+    cache before scattering it into the engine's cache; a contiguous
+    engine keeps one row of ``max_seq`` positions per slot in another."""
 
     k: torch.Tensor  # [layers, B, max_seq, kv_heads, head_dim]
     v: torch.Tensor  # [layers, B, max_seq, kv_heads, head_dim]
@@ -474,7 +488,11 @@ def forward(
         if kv_valid is None:
             kv_valid = kv_positions < offsets[:, None] + t
         write_rows = torch.arange(b, device=device)[:, None]
-        write_pos = offsets[:, None] + torch.arange(t, device=device)[None]  # [B, T]
+        # the JAX write is ``dynamic_update_slice``, which clamps each row's
+        # start so its T tokens fit the axis; an index past the end would
+        # raise here on the CPU and assert on the card
+        start = offsets.clamp(0, max_seq - t)
+        write_pos = start[:, None] + torch.arange(t, device=device)[None]  # [B, T]
     else:
         max_seq = t
         kv_positions = positions
@@ -534,6 +552,29 @@ def forward(
     if logits_at is not None:
         x = x[torch.arange(b, device=device), logits_at.long()]  # [B, H]
     return _logits(params, config, x), cache
+
+
+def decode_step(
+    params: Params,
+    config: ModelConfig,
+    token_ids: torch.Tensor,  # [B, 1]
+    positions: torch.Tensor,  # [B, 1]
+    cache: KVCache,
+    cache_offset: Union[int, torch.Tensor],  # [B] (or one offset for every row)
+    lora: Optional[dict[str, dict[str, torch.Tensor]]] = None,  # stacked adapters
+    lora_alpha: float = 16.0,
+    lora_indices: Optional[torch.Tensor] = None,  # [B] adapter id per row
+) -> tuple[torch.Tensor, KVCache]:
+    """Single-token decode over the contiguous cache: each row's token is
+    written at its ``cache_offset`` (in place, clamped into the cache as
+    :func:`forward` writes) and attends over the slots before it.  Returns
+    (last-token logits [B, vocab] float32, the cache)."""
+    logits, cache = forward(
+        params, config, token_ids, positions, cache=cache, cache_offset=cache_offset,
+        logits_at=torch.zeros(token_ids.shape[0], dtype=torch.int64, device=token_ids.device),
+        lora=lora, lora_alpha=lora_alpha, lora_indices=lora_indices,
+    )
+    return logits, cache
 
 
 def decode_step_paged(

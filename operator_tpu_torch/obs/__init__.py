@@ -25,7 +25,7 @@ from .sloledger import (
     SLORecord,
     parse_slo_classes,
 )
-from .steptrace import StepRecord, StepRing, attribution
+from .steptrace import StepRecord, StepRing, attribution, render_steps
 from .span import (
     Span,
     Trace,
@@ -65,6 +65,7 @@ __all__ = [
     "current_traceparent",
     "format_traceparent",
     "parse_traceparent",
+    "render_steps",
     "render_tree",
     "span",
     "stage_durations",

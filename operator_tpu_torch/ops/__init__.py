@@ -7,6 +7,15 @@ kernel is built (``_build.py``) the first time a CUDA tensor reaches its
 wrapper.
 """
 
+from .paged_attention import (
+    PagedKVCache,
+    paged_attention,
+    paged_attention_reference,
+)
+from .ragged_attention import (
+    ragged_attention_reference,
+    ragged_paged_attention,
+)
 from .similarity import (
     best_window_scores,
     best_window_scores_reference,
@@ -15,8 +24,13 @@ from .similarity import (
 )
 
 __all__ = [
+    "PagedKVCache",
     "best_window_scores",
     "best_window_scores_reference",
+    "paged_attention",
+    "paged_attention_reference",
+    "ragged_attention_reference",
+    "ragged_paged_attention",
     "similarity_matrix",
     "top_k_windows",
 ]

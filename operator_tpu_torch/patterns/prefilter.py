@@ -2,16 +2,17 @@
 deserve a real regex check.
 
 Copy of ``operator_tpu/patterns/prefilter.py``.  The port's scanner
-(``operator_tpu_torch/native``) is the JAX package's pure-Python one; the
-C++ Aho-Corasick build of ``native/logscan.cpp`` is not ported yet, which
-changes speed only, never results.
+(``operator_tpu_torch/native``) builds the checkout's
+``native/logscan.cpp`` (Aho-Corasick) with ``g++`` on first use, as the
+JAX package does, and falls back to the pure-Python sweep without a
+compiler; which one ran changes speed only, never results.
 
 The matcher's hot loop is O(patterns × lines) Python regex calls
 (matcher.py _primary_hits) — the analysis-latency bearing stage between
 kube watch and the TPU programs.  Most library patterns anchor on a
 distinctive literal ("OutOfMemoryError", "CrashLoopBackOff", "exit code"):
 scanning the whole log ONCE for all such literals (native/logscan.cpp
-Aho-Corasick via operator_tpu.native) yields candidate lines per pattern,
+Aho-Corasick via operator_tpu_torch.native) yields candidate lines per pattern,
 and only those lines see the full regex.  Patterns whose regex has no
 required literal (alternations, classes, quantifiers) are conservatively
 left on the full scan path — the prefilter NEVER changes results, only

@@ -1,6 +1,8 @@
 """Wave admission: tokenise, grant pages, batch-prefill into free slots.
 
-Counterpart of the paged branches of ``operator_tpu/serving/admission.py``:
+Counterpart of ``operator_tpu/serving/admission.py`` without mesh, both
+cache layouts (a contiguous engine grants no pages, never admits in part
+and prefills into the slots' rows, ``_admit_batch``'s ``else`` branch):
 :meth:`AdmissionMixin.admit` (:395), ``_admit_tokens`` (:429), the batch
 buckets ``_admission_n_pads``/``_admission_n_pad`` (:478-499),
 ``_admit_batch`` (:501-664) with its three paths — the chunked job
@@ -391,7 +393,11 @@ class AdmissionMixin:
         decision, page grants, then the batched prefill of the prefix of
         the wave that fits.  When every prompt starts with one registered
         prefix, rows reference its generator-owned pages and are granted
-        (and later prefill) only their suffix."""
+        (and later prefill) only their suffix.  A contiguous engine grants
+        nothing and admits the whole wave: each slot's row already holds
+        ``max_seq`` positions."""
+        if not self.paged:
+            return self._admit_batch(token_lists, params_list, [], started)
         shared, prefix_pages = self._wave_prefix_match(token_lists, params_list)
         page_grants: list[list[int]] = []
         pool = self.allocator.num_pages - 1 - self.prefix_held_pages
@@ -506,15 +512,19 @@ class AdmissionMixin:
                 (n_pad, t_pad), ids, lengths, temp, top_p, slot_ids, adapter_idx,
                 params_list, page_grants, taken,
             )
-        staged, row_tables = self._stage_page_tables(
-            n, n_pad, slot_ids, page_grants, lengths,
-            prefix_shared=prefix_shared, prefix_pages=prefix_pages,
-        )
+        if self.paged:
+            cache, rows = self._stage_page_tables(
+                n, n_pad, slot_ids, page_grants, lengths,
+                prefix_shared=prefix_shared, prefix_pages=prefix_pages,
+            )
+        else:
+            # contiguous: the bucket's rows land in the slots' own rows
+            cache, rows = self.cache, slot_ids
         device = self.device
         args = (
             torch.from_numpy(ids).to(device),
             torch.from_numpy(lengths).to(device),
-            torch.from_numpy(row_tables).to(device),
+            torch.from_numpy(rows).to(device),
             torch.from_numpy(temp).to(device),
             torch.from_numpy(top_p).to(device),
             self.lora,
@@ -538,19 +548,21 @@ class AdmissionMixin:
                 prefix_table = np.asarray(
                     (prefix_pages or [])[: prefix_shared // self.page_size], np.int32
                 )
-                self.paged_cache, first_tokens, first_state = program(
-                    self.params, staged, torch.from_numpy(prefix_table).to(device), *args,
+                cache, first_tokens, first_state = program(
+                    self.params, cache, torch.from_numpy(prefix_table).to(device), *args,
                     prefix_shared, key=key,
                 )
             else:
                 # one program per bucket, as the JAX generator keys
                 # ``_prefill_fns``; the flash-prefill switch is read here,
                 # as JAX reads it at trace time, and selects its own graph
-                self.paged_cache, first_tokens, first_state = self._prefill_program(
-                    self.params, staged, *args,
+                cache, first_tokens, first_state = self._prefill_program(
+                    self.params, cache, *args,
                     key=(n_pad, t_pad, guided), variant=flash_prefill_enabled(),
                 )
             first_np = first_tokens.cpu().numpy()  # the wave's ONE host sync
+        if self.paged:  # the contiguous cache was written in place
+            self.paged_cache = cache
         result = self._activate_slots(
             first_np, lengths, taken, params_list, page_grants,
             (time.perf_counter() - started) * 1e3,

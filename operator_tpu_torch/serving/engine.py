@@ -1,12 +1,17 @@
-"""The port's serving engine: a paged generator and its worker thread.
+"""The port's serving engine: the generator and its worker thread.
 
-``Generator`` is the counterpart of the paged part of
-``operator_tpu/serving/engine.py:BatchedGenerator``: it holds the
-parameters, the ``PagedKVCache`` (worst-case sizing by default,
-``max_slots * pages_per_seq + 1`` pages with page 0 the trash page), the
-page allocator, the slot table and the sampling ``torch.Generator`` —
-everything the continuous scheduler (``sched/scheduler.py``) reads — and
-runs the phase-separated WAVE engine itself: batched admission with one
+``Generator`` is the counterpart of
+``operator_tpu/serving/engine.py:BatchedGenerator`` without mesh: it
+holds the parameters, the KV cache, the slot table and the sampling
+``torch.Generator``.  Paged (``paged=True``, the port's default): a
+``PagedKVCache`` (worst-case sizing by default, ``max_slots *
+pages_per_seq + 1`` pages with page 0 the trash page) and its page
+allocator — everything the continuous scheduler (``sched/scheduler.py``)
+reads.  Contiguous (``paged=False``, JAX's default and
+``KV_CACHE_MODE=contiguous``): a ``KVCache`` of ``max_slots x max_seq``
+reserved up front, with each slot's offset in a device vector, no
+allocator and no shared prefixes.  It runs the phase-separated WAVE
+engine itself: batched admission with one
 prefill per wave (``admission.py``), then decode in blocks of
 ``decode_block`` chained steps (``programs.py``) with up to
 ``pipeline_depth - 1`` blocks in flight while the host processes older
@@ -172,8 +177,9 @@ def _params_dtype_name(params: Any) -> str:
 
 
 class Generator(AdmissionMixin, ProgramBuilderMixin):
-    """Slot-based paged generation state over one shared KV cache, and
-    the wave engine over it (``admit`` + ``step``).
+    """Slot-based generation state over one shared KV cache (paged, or
+    contiguous with ``paged=False``), and the wave engine over it
+    (``admit`` + ``step``).
 
     Not thread-safe by design: the :class:`ServingEngine` serialises all
     calls on its one worker thread.  ``params`` must already live on
@@ -202,8 +208,13 @@ class Generator(AdmissionMixin, ProgramBuilderMixin):
         lora_alpha: float = 16.0,
         aot_cache: Any = None,
         prefill_chunk: Optional[int] = None,
+        paged: bool = True,
     ) -> None:
         self.device = resolve_device(device)
+        #: the KV layout: pages (the scheduler's too) or one contiguous row
+        #: per slot.  JAX's ``BatchedGenerator`` defaults to contiguous; the
+        #: port defaults to paged, and the provider passes it explicitly
+        self.paged = paged
         self.params = params
         self.config = config
         self.tokenizer = tokenizer
@@ -245,7 +256,8 @@ class Generator(AdmissionMixin, ProgramBuilderMixin):
         self.sample_top_k = sample_top_k or SAMPLE_TOP_K
         self.cache_dtype = cache_dtype or torch.bfloat16
         num_pages = kv_pages or (max_slots * self.pages_per_seq + 1)
-        self.allocator = PageAllocator(num_pages)
+        #: contiguous mode has no pages, as JAX's has no allocator
+        self.allocator: Optional[PageAllocator] = PageAllocator(num_pages) if paged else None
         # wave decode: blocks of K chained steps per host round trip, with
         # up to pipeline_depth - 1 blocks in flight; a finished slot may
         # decode that many junk blocks into its own pages before the host
@@ -373,7 +385,7 @@ class Generator(AdmissionMixin, ProgramBuilderMixin):
                         max_slots=max_slots,
                         max_seq=max_seq,
                         cache_dtype=cache_dtype,
-                        paged=True,
+                        paged=paged,
                         page_size=page_size,
                         kv_pages=kv_pages,
                         decode_block=decode_block,
@@ -388,16 +400,23 @@ class Generator(AdmissionMixin, ProgramBuilderMixin):
                         exc_info=True,
                     )
         self.graphs = GraphSet(self.device)
-        held = dict(fixed_fields=("k_pages", "v_pages"), generators=(self._rng,))
-        # fixed by address: params, the adapter stack, the guided tables
+        # fixed by address: params, the adapter stack, the guided tables,
+        # the cache's KV (and in contiguous mode the offsets vector, which
+        # the decode block advances in place)
+        if paged:
+            held = dict(fixed_fields=("k_pages", "v_pages"), generators=(self._rng,))
+            decode_fn, decode_fixed = self._decode_block_paged, (0, 6, 8)
+        else:
+            held = dict(fixed_fields=("k", "v"), generators=(self._rng,))
+            decode_fn, decode_fixed = self._decode_block, (0, 3, 7, 9)
         self._decode_program = self._aot_wrap(
-            "_decode_block", self._decode_block_paged, fixed_args=(0, 6, 8), **held
+            "_decode_block", decode_fn, fixed_args=decode_fixed, **held
         )
         self._decode_guided_program = self._aot_wrap(
-            "_decode_block_guided", self._decode_block_paged, fixed_args=(0, 6, 8), **held
+            "_decode_block_guided", decode_fn, fixed_args=decode_fixed, **held
         )
         self._prefill_program = self._aot_wrap(
-            "prefill_fn", self._prefill_paged, fixed_args=(0, 7, 9), **held
+            "prefill_fn", self._prefill, fixed_args=(0, 7, 9), **held
         )
         # one program per key, named as the JAX generator names its
         # executables: the prefixed prefill buckets (n_pad, t_sfx, shared,
@@ -430,14 +449,25 @@ class Generator(AdmissionMixin, ProgramBuilderMixin):
         return sorted(name for name in self._adapter_ids if name is not None)
 
     def _alloc_decode_state(self) -> None:
-        """Fresh zeroed decode state: the page pool and the per-slot last
-        sampled tokens."""
+        """Fresh zeroed decode state: the page pool, or the contiguous
+        cache and the per-slot offsets (JAX ``engine.py:897-905``), and
+        the per-slot last sampled tokens."""
         config = self.config
-        self.paged_cache = PagedKVCache.create(
-            config.num_layers, self.allocator.num_pages, self.page_size,
-            config.num_kv_heads, config.head_dim, self.max_slots,
-            self.pages_per_seq, dtype=self.cache_dtype, device=self.device,
-        )
+        self.paged_cache: Optional[PagedKVCache] = None
+        self.cache: Optional[KVCache] = None
+        self.offsets: Optional[torch.Tensor] = None
+        if self.paged:
+            self.paged_cache = PagedKVCache.create(
+                config.num_layers, self.allocator.num_pages, self.page_size,
+                config.num_kv_heads, config.head_dim, self.max_slots,
+                self.pages_per_seq, dtype=self.cache_dtype, device=self.device,
+            )
+        else:
+            self.cache = KVCache.create(
+                config, self.max_slots, self.max_seq, dtype=self.cache_dtype,
+                device=self.device,
+            )
+            self.offsets = torch.zeros((self.max_slots,), dtype=torch.int32, device=self.device)
         self.last_tokens = torch.zeros(
             (self.max_slots, 1), dtype=torch.int32, device=self.device
         )
@@ -449,9 +479,10 @@ class Generator(AdmissionMixin, ProgramBuilderMixin):
         blocks still in flight are orphaned), a pending chunked job is
         dropped, the step clock restarts, and every registered shared
         prefix is primed again into the fresh pool; the weights are
-        kept.  The page pool and the per-slot tokens are zeroed
-        IN PLACE, so the captured graphs, which read them by address, stay
-        valid and nothing is captured again.
+        kept.  The page pool (or the contiguous cache and its offsets)
+        and the per-slot tokens are zeroed IN PLACE, so the captured
+        graphs, which read them by address, stay valid and nothing is
+        captured again.
 
         ``fresh`` is for a stalled worker that did not come back: it may
         still copy into the graphs' static inputs and replay them.  Then
@@ -471,19 +502,23 @@ class Generator(AdmissionMixin, ProgramBuilderMixin):
         self._prefixes = []
         if fresh:
             self.graphs.drop()
-            self.paged_cache = None
+            self.paged_cache = self.cache = self.offsets = None
             self.last_tokens = None
             # an orphan may still replay a chunk graph into these
             self._job_buffers.clear()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        self.allocator = PageAllocator(self.allocator.num_pages)
+        if self.paged:
+            self.allocator = PageAllocator(self.allocator.num_pages)
         if fresh:
             self._alloc_decode_state()
         else:
-            paged = self.paged_cache
-            for tensor in (paged.k_pages, paged.v_pages, paged.page_table,
-                           paged.lengths, self.last_tokens):
+            if self.paged:
+                paged = self.paged_cache
+                state = (paged.k_pages, paged.v_pages, paged.page_table, paged.lengths)
+            else:
+                state = (self.cache.k, self.cache.v, self.offsets)
+            for tensor in (*state, self.last_tokens):
                 tensor.zero_()
         for i in range(self.max_slots):
             self._slot_epoch[i] += 1
@@ -556,7 +591,11 @@ class Generator(AdmissionMixin, ProgramBuilderMixin):
         """Replace every registered prefix with this one (an idle engine
         is required: live slots' tables may reference the released
         pages).  A text too short to cache leaves the registry as it is.
-        See :meth:`add_shared_prefix`."""
+        See :meth:`add_shared_prefix`.  A contiguous engine caches
+        nothing: JAX's warning, and 0."""
+        if not self.paged:
+            log.warning("set_shared_prefix needs paged KV; ignoring")
+            return 0
         if self.num_active:
             raise RuntimeError(
                 "set_shared_prefix requires an idle engine "
@@ -604,7 +643,11 @@ class Generator(AdmissionMixin, ProgramBuilderMixin):
         less than one full sequence's pages grantable.  The build is one
         program per ``n_keep`` (flash prefill when enabled); its pages are
         released if it fails.  Returns the number of prefix tokens cached
-        (0: nothing cached)."""
+        (0: nothing cached, as in a contiguous engine, which logs JAX's
+        warning)."""
+        if not self.paged:
+            log.warning("add_shared_prefix needs paged KV; ignoring")
+            return 0
         tokens = self.tokenizer.encode(text)
         n_keep = self._prefix_keep_len(tokens)
         if n_keep < self.page_size:
@@ -663,8 +706,11 @@ class Generator(AdmissionMixin, ProgramBuilderMixin):
         params_list: Sequence[SamplingParams], page_grants: list[list[int]],
         prefill_ms: float,
     ) -> list[int]:
-        """Prompt KV is in the pages and first tokens are sampled: flip the
-        slots live."""
+        """Prompt KV is in the cache and first tokens are sampled: flip the
+        slots live.  In contiguous mode each slot's device offset is set to
+        its prompt length, in place (the decode graphs read the vector by
+        address); the host shadow stays the truth, so nothing is read
+        back, where JAX reads the offsets to the host here."""
         self.metrics.record("prefill", prefill_ms)
         self.metrics.record("prefill_batch", float(len(taken)))
         # the wave's prefill is one phase-separated step; its time is all
@@ -682,7 +728,7 @@ class Generator(AdmissionMixin, ProgramBuilderMixin):
             self._slot_epoch[slot_id] += 1  # new generation begins
             self.slots[slot_id] = _Slot(
                 active=True, prompt_len=int(lengths[row]),
-                params=params_list[row], pages=page_grants[row],
+                params=params_list[row], pages=page_grants[row] if self.paged else [],
                 generated=[int(first_np[row])], started=started,
                 prefill_ms=prefill_ms,
                 decode_cum0=self.step_clock.decode_cum_ms,
@@ -692,6 +738,10 @@ class Generator(AdmissionMixin, ProgramBuilderMixin):
         self.last_tokens[rows, 0] = self._to_device(
             first_np[: len(taken)].astype(np.int32)
         )
+        if not self.paged:
+            self.offsets[rows] = self._to_device(
+                np.asarray(lengths[: len(taken)], np.int32)
+            )
         self._sampling_cache = None  # slot set changed
         return list(taken)
 
@@ -779,12 +829,19 @@ class Generator(AdmissionMixin, ProgramBuilderMixin):
             self._decode_program if self._guided_tables is None
             else self._decode_guided_program
         )
-        self.paged_cache, toks, self.last_tokens, state = program(
-            self.params, self.paged_cache, self.last_tokens,
-            temp_dev, top_p_dev, active_dev, self.lora, lora_idx,
-            self._guided_tables, self.guided_aut, self.guided_state,
-            key=self._decode_key(),
-        )
+        rest = (temp_dev, top_p_dev, active_dev, self.lora, lora_idx,
+                self._guided_tables, self.guided_aut, self.guided_state)
+        if self.paged:
+            self.paged_cache, toks, self.last_tokens, state = program(
+                self.params, self.paged_cache, self.last_tokens, *rest,
+                key=self._decode_key(),
+            )
+        else:
+            # the offsets advance in place, inside the program
+            self.cache, toks, self.last_tokens, state = program(
+                self.params, self.cache, self.last_tokens, self.offsets, *rest,
+                key=self._decode_key(),
+            )
         self.guided_state = state  # None while no guided slot is active
         if cuda:
             toks = toks.to("cpu", non_blocking=True)
@@ -824,7 +881,8 @@ class Generator(AdmissionMixin, ProgramBuilderMixin):
         the engine's tables as they are then, and committed from the
         finish program's return, so a failure at any chunk leaves the
         device state untouched and an interleaved block's commit is never
-        overwritten."""
+        overwritten.  A contiguous finish scatters into the slots' rows,
+        which no live slot reads."""
         job = self._prefill_job
         n_pad, t_pad = job.key
         t0 = time.perf_counter()
@@ -869,20 +927,26 @@ class Generator(AdmissionMixin, ProgramBuilderMixin):
         if program is None:
             program = self._finish_fns[fn_key] = self._aot_wrap(
                 f"finish_n{n_pad}_t{t_pad}_g{int(guided)}", self._prefill_finish,
-                fixed_args=(1, 4, 7), fixed_fields=("k_pages", "v_pages"),
+                fixed_args=(1, 4, 7),
+                fixed_fields=("k_pages", "v_pages") if self.paged else ("k", "v"),
                 generators=(self._rng,),
             )
-        staged, row_tables = self._stage_page_tables(
-            len(job.taken), n_pad, job.slot_ids_np, job.page_grants, job.lengths_np,
-        )
+        if self.paged:
+            cache, rows = self._stage_page_tables(
+                len(job.taken), n_pad, job.slot_ids_np, job.page_grants, job.lengths_np,
+            )
+        else:
+            # JAX's contiguous finish: the slots' rows, by slot id
+            cache, rows = self.cache, job.slot_ids_np.astype(np.int64)
         with torch.profiler.record_function("podmortem.prefill_finish"):
-            paged, first_tokens, first_state = program(
-                staged, job.mini, job.lengths, self._to_device(row_tables),
+            cache, first_tokens, first_state = program(
+                cache, job.mini, job.lengths, self._to_device(rows),
                 job.last_logits, job.temp, job.top_p, self._guided_tables,
                 self._to_device(row_aut) if guided else None, key=fn_key,
             )
             first_np = first_tokens.cpu().numpy()  # the job's ONE host sync
-        self.paged_cache = paged
+        if self.paged:  # the contiguous cache was written in place
+            self.paged_cache = cache
         self._prefill_job = None
         self._reserved.difference_update(job.taken)
         finish_ms = (time.perf_counter() - t0) * 1e3
@@ -905,8 +969,7 @@ class Generator(AdmissionMixin, ProgramBuilderMixin):
         if buffers is None:
             buffers = self._job_buffers[(n_pad, t_pad)] = (
                 KVCache.create(
-                    self.config, n_pad, t_pad, dtype=self.paged_cache.k_pages.dtype,
-                    device=self.device,
+                    self.config, n_pad, t_pad, dtype=self.cache_dtype, device=self.device,
                 ),
                 torch.zeros(
                     (n_pad, self.config.vocab_size), dtype=torch.float32, device=self.device
@@ -1771,6 +1834,8 @@ class ServingEngine:
         summary = g.step_clock.summary()
         fractions = summary.get("fractions") or {}
         kvstore = getattr(sched, "_kvstore", None)
+        # a contiguous replica has no pages: 0 and 0, as the JAX server says
+        allocator = g.allocator
         return ReplicaLoad(
             queue_depth=queue_depth,
             inflight=inflight,
@@ -1784,8 +1849,8 @@ class ServingEngine:
             goodput_tokens_s=self._slo_board.goodput_tokens_s(),
             slo_completed=self._slo_board.completed,
             slo_classes=self._slo_board.per_class(),
-            kv_pages_free=g.allocator.available,
-            kv_pages_total=g.allocator.num_pages - 1,
+            kv_pages_free=allocator.available if allocator is not None else 0,
+            kv_pages_total=allocator.num_pages - 1 if allocator is not None else 0,
             prefix_hit_rate=kvstore.hit_rate() if kvstore is not None else None,
             prefix_lookups=kvstore.lookups if kvstore is not None else 0,
             kv_blocks=kvstore.inventory() if kvstore is not None else None,
@@ -2039,9 +2104,10 @@ class ServingEngine:
         free = len(g.free_slots())
         if free != g.max_slots:
             leaks["slots"] = g.max_slots - free
-        expected = g.allocator.num_pages - 1 - g.prefix_held_pages
-        if g.allocator.available != expected:
-            leaks["pages"] = expected - g.allocator.available
+        if g.allocator is not None:
+            expected = g.allocator.num_pages - 1 - g.prefix_held_pages
+            if g.allocator.available != expected:
+                leaks["pages"] = expected - g.allocator.available
         return leaks
 
     def _step_tail(self) -> list:
@@ -2500,7 +2566,7 @@ class ServingEngine:
             self._register_partial(slot_id, item)
             self._queue_wait_ms[slot_id] = max(0.0, (admitted_t - item.submitted) * 1e3)
         # a stall is recorded only while active sequences hold pages: their
-        # release is the retry trigger
+        # release is the retry trigger (a contiguous wave is never partial)
         self._stalled_avail = (
             g.allocator.available
             if len(slots) < len(batch) and g.num_active > 0 else None

@@ -4,7 +4,9 @@ The JAX package runs each serving program as one compiled executable per
 shape (``jax.jit``, behind ``serving/aotcache.py:_aot_wrap``).  The port's
 counterpart is a :class:`GraphProgram`: on the card, the first call at a
 key runs the function eagerly (that call's own result, its launches
-counted once) and then captures it into a ``torch.cuda.CUDAGraph``; every
+counted once) and then captures it into a ``torch.cuda.CUDAGraph``, with
+Python's automatic collection off meanwhile (a collected cycle's graphs
+would be destroyed inside the capture, which CUDA forbids); every
 later call at the key copies its inputs into the graph's static buffers
 and replays.  On the CPU (the tests' path) programs run eagerly, and the
 same registry records each key's first use, so the warmup grid's coverage
@@ -46,7 +48,9 @@ no eager fallback on the card.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import gc
 import inspect
 import logging
 import threading
@@ -67,6 +71,23 @@ __all__ = ["GraphProgram", "GraphSet"]
 _capture_lock = threading.Lock()
 
 _SCALARS = (int, float, bool, str, torch.dtype, torch.device, torch.Generator)
+
+
+@contextlib.contextmanager
+def _no_collection():
+    """Python's automatic collection off while a graph is captured.
+    ``torch.cuda.graph`` collects once before the capture begins; a cycle
+    that becomes garbage later (an engine closed on another thread, its
+    graphs inside) and is collected by an allocation in the capturing
+    thread would destroy its graphs there, a call CUDA forbids during a
+    capture, which invalidates it."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
 
 
 # -- flattening -----------------------------------------------------------
@@ -263,7 +284,7 @@ class GraphProgram:
         gens = [leaf for leaf in leaves if isinstance(leaf, torch.Generator)]
         for gen in {id(g): g for g in [*gens, *self.generators]}.values():
             graph.register_generator_state(gen)
-        with _capture_lock:
+        with _capture_lock, _no_collection():
             try:
                 with torch.cuda.graph(
                     graph, pool=graphs.pool(), stream=graphs.stream(),

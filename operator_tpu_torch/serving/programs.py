@@ -1,16 +1,27 @@
-"""The wave engine's device programs: the paged decode block and prefills.
+"""The wave engine's device programs: the decode blocks and the prefills.
 
-Counterpart of ``operator_tpu/serving/programs.py`` for the paged path
-without mesh: :meth:`ProgramBuilderMixin._decode_step_paged` (:71),
+Counterpart of ``operator_tpu/serving/programs.py`` without mesh, for
+both cache layouts.  Contiguous (``KVCache``, one ``[max_seq]`` row per
+slot): :meth:`ProgramBuilderMixin._decode_step` (:47),
+:meth:`~ProgramBuilderMixin._decode_block` (:101, and with the guided
+args its twin ``_decode_block_guided``, :160) and
+:meth:`~ProgramBuilderMixin._prefill`, the program ``_make_prefill``
+(:314) builds: the bucket forwarded through a fresh mini cache (flash
+prefill, K4, when enabled) and scattered into ``cache[:, slot_ids,
+:t_pad]`` (one function for both layouts).  Each slot's offset lives in a device vector the decode step
+advances in place for active slots; an inactive slot keeps writing into
+its own row at its frozen offset, masked by ``kv_valid`` like any stale
+position past a row's length.  Paged:
+:meth:`ProgramBuilderMixin._decode_step_paged` (:71),
 :meth:`~ProgramBuilderMixin._decode_block_paged` (:132, and its guided
 twin ``_decode_block_paged_guided``, :192),
-:meth:`~ProgramBuilderMixin._prefill_paged`, the program that
+:meth:`~ProgramBuilderMixin._prefill` again, the program that
 ``_make_prefill_paged`` (:370) builds, the suffix-only prefill over a
 registered shared prefix (:meth:`~ProgramBuilderMixin._prefill_paged_prefixed`,
 ``_make_prefill_paged_prefixed``, :431), the chunked prefill's chunk and
 finish programs (:meth:`~ProgramBuilderMixin._prefill_chunk`,
 :meth:`~ProgramBuilderMixin._prefill_finish`; ``_make_chunk_fn`` :522,
-``_make_finish_fn`` :580, paged) and the shared prefix's build
+``_make_finish_fn`` :580, both layouts) and the shared prefix's build
 (:meth:`~ProgramBuilderMixin._prefix_build`, ``engine.py:818-838``).
 JAX compiles each into one program per shape behind ``_aot_wrap``
 (``engine.py:390-425``); here each runs through the generator's
@@ -40,7 +51,7 @@ from typing import Any, Optional
 
 import torch
 
-from ..models.llama import KVCache, decode_step_paged, forward
+from ..models.llama import KVCache, decode_step, decode_step_paged, forward
 from ..ops.paged_attention import PagedKVCache, write_tokens
 from .sampling import sample
 
@@ -58,13 +69,64 @@ def _transition(row: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
 
 
 class ProgramBuilderMixin:
-    """The decode block and the prefill of the paged wave engine."""
+    """The decode blocks and the prefills of the wave engine."""
 
     config: Any
     decode_block: int
     sample_top_k: int
     lora_alpha: float
     _rng: torch.Generator
+
+    def _decode_step(
+        self, params, cache: KVCache, tokens: torch.Tensor, offsets: torch.Tensor,
+        temp: torch.Tensor, top_p: torch.Tensor, active: torch.Tensor,
+        lora: Optional[dict] = None, lora_idx: Optional[torch.Tensor] = None,
+        gtables: Optional[torch.Tensor] = None, gaut: Optional[torch.Tensor] = None,
+        gstate: Optional[torch.Tensor] = None,
+    ) -> tuple[KVCache, torch.Tensor, Optional[torch.Tensor]]:
+        """[B, 1] tokens at each slot's offset -> the next token per slot,
+        over the contiguous cache.  ``offsets`` ([B] int32, the engine's
+        device vector) advances in place for active slots only; inactive
+        slots keep decoding junk into their own rows at their frozen
+        offset.  Guided args as in :meth:`_decode_step_paged`; returns
+        (cache, tokens, the new state or None)."""
+        logits, cache = decode_step(
+            params, self.config, tokens, offsets[:, None], cache, offsets,
+            lora=lora, lora_alpha=self.lora_alpha, lora_indices=lora_idx,
+        )
+        row = None
+        if gtables is not None:
+            row = gtables[gaut, gstate]  # [B, vocab] allowed-transition rows
+            logits = _mask(logits, row)
+        next_tokens = sample(logits, self._rng, temp, top_p, self.sample_top_k)
+        offsets.copy_(torch.where(active, offsets + 1, offsets))
+        if row is not None:
+            stepped = _transition(row, next_tokens)
+            gstate = torch.where(active & (stepped >= 0), stepped, gstate)
+        return cache, next_tokens, gstate
+
+    def _decode_block(
+        self, params, cache: KVCache, tokens: torch.Tensor, offsets: torch.Tensor,
+        temp: torch.Tensor, top_p: torch.Tensor, active: torch.Tensor,
+        lora: Optional[dict] = None, lora_idx: Optional[torch.Tensor] = None,
+        gtables: Optional[torch.Tensor] = None, gaut: Optional[torch.Tensor] = None,
+        gstate: Optional[torch.Tensor] = None,
+    ) -> tuple[KVCache, torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+        """``decode_block`` chained contiguous decode steps (the JAX
+        ``lax.scan``, or its straight line under
+        ``OPERATOR_TPU_DECODE_UNROLL``: here both are the same enqueued
+        sequence); with ``gtables`` its guided twin.  ``offsets`` advance
+        in place.  Returns (cache, the [K, B] token matrix, the last
+        tokens [B, 1], the final DFA state or None)."""
+        toks = []
+        for _ in range(self.decode_block):
+            cache, next_tokens, gstate = self._decode_step(
+                params, cache, tokens, offsets, temp, top_p, active,
+                lora, lora_idx, gtables, gaut, gstate,
+            )
+            tokens = next_tokens[:, None]
+            toks.append(next_tokens)
+        return cache, torch.stack(toks), tokens, gstate
 
     def _decode_step_paged(
         self, params, paged: PagedKVCache, tokens: torch.Tensor,
@@ -117,17 +179,47 @@ class ProgramBuilderMixin:
             toks.append(next_tokens)
         return paged, torch.stack(toks), tokens, gstate
 
-    def _prefill_paged(
-        self, params, paged: PagedKVCache, token_ids: torch.Tensor,
-        lengths: torch.Tensor, row_tables: torch.Tensor,
+    def _store_prompt_kv(
+        self, cache: "KVCache | PagedKVCache", mini: KVCache, lengths: torch.Tensor,
+        rows: torch.Tensor, start: int = 0,
+    ) -> None:
+        """A prefilled mini cache's KV into the engine's cache, in place.
+        Paged: each row's tokens from ``start`` on into its pages
+        (``rows``, the ``[n_pad, pages_per_seq]`` tables; ``write_tokens``
+        with ``valid_len``, so padding lands in the trash page).
+        Contiguous: the whole ``[:, :, start:t_pad]`` block into the slots'
+        rows (``rows``, the ``[n_pad]`` slot ids: JAX's ``cache.at[:,
+        slot_ids, :t_pad].set``); padding rows duplicate row 0 and write
+        its values again, and positions past a row's length are masked
+        until its decode writes them."""
+        if isinstance(cache, KVCache):
+            t_pad = mini.k.shape[2]
+            slots = rows.long()
+            for dest, src in ((cache.k, mini.k), (cache.v, mini.v)):
+                dest[:, :, start:t_pad].index_copy_(1, slots, src[:, :, start:].to(dest.dtype))
+            return
+        n_pad = lengths.shape[0]
+        offset = torch.full((n_pad,), start, dtype=torch.int32, device=lengths.device)
+        for index in range(self.config.num_layers):
+            write_tokens(cache.k_pages[index], rows, mini.k[index, :, start:], offset,
+                         lengths - start)
+            write_tokens(cache.v_pages[index], rows, mini.v[index, :, start:], offset,
+                         lengths - start)
+
+    def _prefill(
+        self, params, cache: "KVCache | PagedKVCache", token_ids: torch.Tensor,
+        lengths: torch.Tensor, rows: torch.Tensor,
         temp: torch.Tensor, top_p: torch.Tensor,
         lora: Optional[dict] = None, lora_idx: Optional[torch.Tensor] = None,
         gtables: Optional[torch.Tensor] = None, gaut: Optional[torch.Tensor] = None,
-    ) -> tuple[PagedKVCache, torch.Tensor, Optional[torch.Tensor]]:
-        """One prefill bucket ``[n_pad, t_pad]``: the mini-cache forward,
-        then each row's prompt KV scattered into its pages (``write_tokens``
-        with ``valid_len``, so padded positions land in the trash page),
-        and the first token sampled from each row's last prompt position.
+    ) -> tuple["KVCache | PagedKVCache", torch.Tensor, Optional[torch.Tensor]]:
+        """One prefill bucket ``[n_pad, t_pad]``, the program JAX
+        ``_make_prefill_paged`` (paged) or ``_make_prefill`` (contiguous)
+        builds: the mini-cache forward (flash prefill, K4, when enabled),
+        then each row's prompt KV stored into the engine's cache
+        (:meth:`_store_prompt_kv`: ``rows`` are the page tables or the
+        slot ids), and the first token sampled from each row's last
+        prompt position.
 
         The hidden state is gathered at ``lengths - 1`` before the vocab
         head (``forward(logits_at=...)``): the same logits the JAX program
@@ -137,27 +229,32 @@ class ProgramBuilderMixin:
         With guided args the first token is masked by each row's start
         state (state 0) and the state it leads to is returned, clamped at
         0 as the JAX program does; else the third value is None."""
+        dtype = cache.k.dtype if isinstance(cache, KVCache) else cache.k_pages.dtype
+        last_logits, mini = self._prefill_forward(params, token_ids, lengths, dtype, lora, lora_idx)
+        self._store_prompt_kv(cache, mini, lengths, rows)
+        first_tokens, first_state = self._sample_first(last_logits, temp, top_p, gtables, gaut)
+        return cache, first_tokens, first_state
+
+    def _prefill_forward(
+        self, params, token_ids: torch.Tensor, lengths: torch.Tensor, dtype: torch.dtype,
+        lora: Optional[dict] = None, lora_idx: Optional[torch.Tensor] = None,
+    ) -> tuple[torch.Tensor, KVCache]:
+        """A bucket through a fresh mini cache with ``prefill_lengths``
+        (the flash-prefill path): each row's last-prompt-position logits
+        and the mini cache."""
         n_pad, t_pad = token_ids.shape
         device = token_ids.device
-        mini = KVCache.create(
-            self.config, n_pad, t_pad, dtype=paged.k_pages.dtype, device=device
-        )
+        mini = KVCache.create(self.config, n_pad, t_pad, dtype=dtype, device=device)
         positions = torch.arange(t_pad, dtype=torch.int32, device=device)[None].expand(
             n_pad, t_pad
         )
         kv_valid = positions < lengths[:, None]
-        last_logits, mini = forward(
+        return forward(
             params, self.config, token_ids, positions, cache=mini,
             cache_offset=0, kv_valid=kv_valid, prefill_lengths=lengths,
             logits_at=lengths - 1,
             lora=lora, lora_alpha=self.lora_alpha, lora_indices=lora_idx,
         )
-        zero = torch.zeros((n_pad,), dtype=torch.int32, device=device)
-        for index in range(self.config.num_layers):
-            write_tokens(paged.k_pages[index], row_tables, mini.k[index], zero, lengths)
-            write_tokens(paged.v_pages[index], row_tables, mini.v[index], zero, lengths)
-        first_tokens, first_state = self._sample_first(last_logits, temp, top_p, gtables, gaut)
-        return paged, first_tokens, first_state
 
     def _sample_first(
         self, last_logits: torch.Tensor, temp: torch.Tensor, top_p: torch.Tensor,
@@ -217,13 +314,7 @@ class ProgramBuilderMixin:
             logits_at=lengths - 1 - shared,
             lora=lora, lora_alpha=self.lora_alpha, lora_indices=lora_idx,
         )
-        start = torch.full((n_pad,), shared, dtype=torch.int32, device=device)
-        suffix_len = lengths - shared
-        for index in range(layers):
-            write_tokens(paged.k_pages[index], row_tables, mini.k[index, :, shared:],
-                         start, suffix_len)
-            write_tokens(paged.v_pages[index], row_tables, mini.v[index, :, shared:],
-                         start, suffix_len)
+        self._store_prompt_kv(paged, mini, lengths, row_tables, start=shared)
         first_tokens, first_state = self._sample_first(last_logits, temp, top_p, gtables, gaut)
         return paged, first_tokens, first_state
 
@@ -260,22 +351,20 @@ class ProgramBuilderMixin:
         return mini, last_logits
 
     def _prefill_finish(
-        self, paged: PagedKVCache, mini: KVCache, lengths: torch.Tensor,
-        row_tables: torch.Tensor, last_logits: torch.Tensor,
+        self, cache: "KVCache | PagedKVCache", mini: KVCache, lengths: torch.Tensor,
+        rows: torch.Tensor, last_logits: torch.Tensor,
         temp: torch.Tensor, top_p: torch.Tensor,
         gtables: Optional[torch.Tensor] = None, gaut: Optional[torch.Tensor] = None,
-    ) -> tuple[PagedKVCache, torch.Tensor, Optional[torch.Tensor]]:
+    ) -> tuple["KVCache | PagedKVCache", torch.Tensor, Optional[torch.Tensor]]:
         """A chunked job's end: the completed mini cache scattered into
-        each row's pages, and each row's first token sampled from the
-        carried last logits (masked by the automaton's start state for
-        guided rows)."""
-        n_pad = lengths.shape[0]
-        zero = torch.zeros((n_pad,), dtype=torch.int32, device=lengths.device)
-        for index in range(self.config.num_layers):
-            write_tokens(paged.k_pages[index], row_tables, mini.k[index], zero, lengths)
-            write_tokens(paged.v_pages[index], row_tables, mini.v[index], zero, lengths)
+        the engine's cache (each row's pages, ``rows`` the page tables;
+        or the slots' contiguous rows, ``rows`` the slot ids: JAX's
+        ``else`` branch of ``_make_finish_fn``), and each row's first
+        token sampled from the carried last logits (masked by the
+        automaton's start state for guided rows)."""
+        self._store_prompt_kv(cache, mini, lengths, rows)
         first_tokens, first_state = self._sample_first(last_logits, temp, top_p, gtables, gaut)
-        return paged, first_tokens, first_state
+        return cache, first_tokens, first_state
 
     def _prefix_build(
         self, params, paged: PagedKVCache, ids: torch.Tensor, table: torch.Tensor
@@ -283,18 +372,7 @@ class ProgramBuilderMixin:
         """A shared prefix's KV, prefilled once (``[1, n_keep]`` tokens,
         flash prefill when enabled) and scattered into its
         generator-owned pages ``table`` (``[1, n_keep / page]``)."""
-        n_keep = ids.shape[1]
-        device = ids.device
-        mini = KVCache.create(self.config, 1, n_keep, dtype=paged.k_pages.dtype, device=device)
-        positions = torch.arange(n_keep, dtype=torch.int32, device=device)[None]
-        lengths = torch.full((1,), n_keep, dtype=torch.int32, device=device)
-        _, mini = forward(
-            params, self.config, ids, positions, cache=mini, cache_offset=0,
-            kv_valid=torch.ones((1, n_keep), dtype=torch.bool, device=device),
-            prefill_lengths=lengths, logits_at=lengths - 1,
-        )
-        zero = torch.zeros((1,), dtype=torch.int32, device=device)
-        for index in range(self.config.num_layers):
-            write_tokens(paged.k_pages[index], table, mini.k[index], zero, lengths)
-            write_tokens(paged.v_pages[index], table, mini.v[index], zero, lengths)
+        lengths = torch.full((1,), ids.shape[1], dtype=torch.int32, device=ids.device)
+        _, mini = self._prefill_forward(params, ids, lengths, paged.k_pages.dtype)
+        self._store_prompt_kv(paged, mini, lengths, table)
         return paged

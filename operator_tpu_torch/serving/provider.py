@@ -58,12 +58,17 @@ with ``WARMUP_GRID``, as the operator does) or at each key's first use.
 the kernel libraries persist there, so a warm boot builds nothing and
 records every capture as a hit (``serving/aotcache.py``).
 
-A knob whose feature is not ported is refused when it is set away from
-its default, naming the ROADMAP Queue 1 item that ports it:
-``KV_CACHE_MODE=contiguous`` (item 8) and ``SERVING_MESH`` (item 11).  The
-reference would fall back to the wave engine for a mesh on the
-continuous path; the port does not serve something else quietly.  As in
-the reference, the queue limit
+``KV_CACHE_MODE=contiguous`` builds the wave engine over a contiguous
+cache (``Generator(paged=False)``, ``max_slots x max_seq`` reserved up
+front, no shared-prefix priming); under ``SCHED_MODE=continuous`` it
+falls back to the wave engine with the reference's warning, as LoRA
+adapters do.  Any other mode raises ``ValueError`` (the reference serves
+anything but ``paged`` contiguous).  A knob whose feature is not ported
+is refused when it is set away from its default, naming the ROADMAP
+Queue 1 item that ports it: ``SERVING_MESH`` (item 11).  The reference
+would fall back to the wave engine for a mesh on the continuous path;
+the port does not serve something else quietly.  As in the reference,
+the queue limit
 and the overload ladder are not read here: the caller that wants them
 sets ``Scheduler.queue_limit``, ``Scheduler.overload_policy`` and
 ``Generator.overload_policy`` (the operator's pipeline, in the reference).
@@ -336,24 +341,25 @@ def build_serving_engine(
         raise ValueError(
             f"unknown sched_mode {config.sched_mode!r}: expected 'wave' or 'continuous'"
         )
-    if config.kv_cache_mode == "contiguous":
-        raise NotImplementedError(
-            "KV_CACHE_MODE=contiguous is not ported to operator_tpu_torch yet "
-            "(ROADMAP.md Queue 1 item 8, 'Wave engine: contiguous KV'); use paged"
+    if config.kv_cache_mode not in ("paged", "contiguous"):
+        # stricter than the reference, which serves anything but "paged"
+        # contiguous
+        raise ValueError(
+            f"unknown KV_CACHE_MODE {config.kv_cache_mode!r}: expected 'paged' or 'contiguous'"
         )
-    if config.kv_cache_mode != "paged":
-        raise ValueError(f"unknown KV_CACHE_MODE {config.kv_cache_mode!r}: expected 'paged'")
+    paged = config.kv_cache_mode == "paged"
     _refuse_unported(config)
     lora_adapters = None
     if config.lora_dir:
         lora_adapters = _load_lora_dir(config.lora_dir, model_id, device)
     wave = config.sched_mode == "wave"
-    if not wave and lora_adapters:
-        # the mixed step has no LoRA path: the reference's fallback
+    if not wave and (lora_adapters or not paged):
+        # the mixed step has paged KV only and no LoRA path: the
+        # reference's fallback
         log.warning(
             "sched_mode=continuous requires paged KV, no mesh and no "
-            "LoRA adapters (paged=True mesh=False lora=True); falling back "
-            "to the wave engine"
+            "LoRA adapters (paged=%s mesh=False lora=%s); falling back "
+            "to the wave engine", paged, bool(lora_adapters),
         )
         wave = True
     if wave:
@@ -373,7 +379,7 @@ def build_serving_engine(
                 weight_dtype="int8" if quantize else "bfloat16",
                 max_slots=config.max_batch_size,
                 max_seq=max_seq,
-                paged=config.kv_cache_mode == "paged",
+                paged=paged,
                 page_size=config.kv_page_size,
                 kv_pages=config.kv_pages or None,
                 decode_block=config.decode_block,
@@ -428,6 +434,7 @@ def build_serving_engine(
         lora_alpha=config.lora_alpha,
         aot_cache=aot,
         prefill_chunk=prefill_chunk,
+        paged=paged,
     )
     # supervised by default (the reference's production wiring): a stalled
     # or errored loop resets the engine and requeues in-flight requests
@@ -440,12 +447,13 @@ def build_serving_engine(
         )
     if wave:
         log.info("serving mode: WAVE engine (sched_mode=%s)", config.sched_mode)
-        if config.prefix_cache:
+        if config.prefix_cache and paged:
             # every explanation request shares the default template's
             # static preamble: its KV is cached once, and each wave of
             # such prompts prefills only its remainder.  Continuous mode
             # skips it: the scheduler's block-hash cache shares the head,
-            # and primed pages would only shrink its pool
+            # and primed pages would only shrink its pool; so does a
+            # contiguous engine, which has no pages to prime
             try:
                 generator.set_shared_prefix(template_preamble(DEFAULT_TEMPLATE))
             except Exception:  # noqa: BLE001 - an optimisation must never block startup

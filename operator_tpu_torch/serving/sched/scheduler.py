@@ -76,8 +76,8 @@ Counters (on the generator's ``metrics``): ``sched_admitted_midwave``,
 
 Chaos seam: the generator's ``fault_plan`` is consulted at the top of
 every :meth:`Scheduler.step` under the wave engine's site,
-``engine.step``.  Not ported yet: the fabric's wire (ROADMAP Queue 1 item
-5b).
+``engine.step``.  The fleet KV fabric's wire (PMKV1, ``fabric/``) reads
+and lands pooled blocks through this scheduler's store between steps.
 """
 
 from __future__ import annotations

@@ -1,3 +1,19 @@
-from .device import resolve_device
+"""Cross-cutting utilities: config, timing and metrics, deadline
+budgets, fault injection, the device resolver."""
 
-__all__ = ["resolve_device"]
+from .config import OperatorConfig
+from .deadline import Deadline
+from .device import resolve_device
+from .faultinject import FaultAction, FaultPlan
+from .timing import METRICS, MetricsRegistry, StageStats
+
+__all__ = [
+    "METRICS",
+    "Deadline",
+    "FaultAction",
+    "FaultPlan",
+    "MetricsRegistry",
+    "OperatorConfig",
+    "StageStats",
+    "resolve_device",
+]

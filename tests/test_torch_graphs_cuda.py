@@ -14,6 +14,8 @@ marker); this file imports no JAX::
     python -m pytest tests/test_torch_graphs_cuda.py -q
 """
 
+import gc
+import importlib
 import time
 
 import pytest
@@ -28,7 +30,10 @@ from operator_tpu_torch.models import (  # noqa: E402
     init_encoder_params,
     init_params,
 )
-from operator_tpu_torch.ops import flash_prefill, paged_attention, ragged_attention  # noqa: E402
+from operator_tpu_torch.ops import flash_prefill, ragged_attention  # noqa: E402
+
+# the module: the package's ``paged_attention`` is the function, as in JAX
+paged_attention = importlib.import_module("operator_tpu_torch.ops.paged_attention")
 from operator_tpu_torch.parallel.lora import init_lora  # noqa: E402
 from operator_tpu_torch.patterns.semantic import NeuralEmbedder  # noqa: E402
 from operator_tpu_torch.serving.engine import (  # noqa: E402
@@ -77,7 +82,7 @@ def _eager(g):
     """The same generator's programs, un-captured: the raw functions."""
 
     def prefill(*args, key=None, variant=None):
-        return g._prefill_paged(*args)
+        return g._prefill(*args)
 
     g._prefill_program = prefill
 
@@ -281,3 +286,42 @@ def test_sampled_rows_draw_anew_on_each_replay_from_their_distribution(cuda):
     counts = torch.bincount(torch.cat(draws[1:]).long(), minlength=4).float()
     freq = (counts / counts.sum()).cpu()
     assert (freq - probs.cpu()).abs().max() < 0.02
+
+
+@pytest.mark.cuda
+def test_a_cycle_that_dies_during_a_capture_is_not_collected_inside_it(cuda):
+    """A program captured while another program's last holder becomes a
+    garbage cycle, with automatic collection at every allocation: the
+    capture succeeds and replays as eager (a collection inside it would
+    free the old program and destroy its graph there, which CUDA forbids
+    during a capture), and the old program goes at the next
+    collection."""
+    x = torch.arange(8, dtype=torch.float32, device="cuda")
+    old = GraphSet("cuda")
+    old_program = old.program("old", lambda t: t * 2)
+    old_program(x, key="o")
+    old_program(x, key="o")
+    holder = [old_program]
+    del old_program
+    graphs = GraphSet("cuda")
+
+    def step(t):
+        if torch.cuda.is_current_stream_capturing() and holder:
+            box = [holder.pop()]
+            box.append(box)  # the old program's last holder: a cycle
+            del box
+            [[] for _ in range(100)]  # allocations that would collect it
+        return t + 1
+
+    threshold = gc.get_threshold()
+    gc.set_threshold(1)
+    try:
+        program = graphs.program("new", step)
+        first = program(x, key="n")
+        again = program(x, key="n")
+    finally:
+        gc.set_threshold(*threshold)
+    assert graphs.captures == 1 and graphs.replays == 1
+    assert torch.equal(first, x + 1) and torch.equal(again, x + 1)
+    gc.collect()
+    assert not old.programs

@@ -13,6 +13,7 @@ this file imports no JAX::
     python -m pytest tests/test_torch_guided_cuda.py -q
 """
 
+import importlib
 import re
 
 import pytest
@@ -20,7 +21,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from operator_tpu_torch.models import TINY_TEST, ByteTokenizer, init_params  # noqa: E402
-from operator_tpu_torch.ops import paged_attention  # noqa: E402
+
+# the module: the package's ``paged_attention`` is the function, as in JAX
+paged_attention = importlib.import_module("operator_tpu_torch.ops.paged_attention")
 from operator_tpu_torch.parallel.lora import init_lora  # noqa: E402
 from operator_tpu_torch.serving.engine import Generator  # noqa: E402
 from operator_tpu_torch.serving.types import SamplingParams  # noqa: E402

@@ -63,7 +63,8 @@ torch = pytest.importorskip("torch")
 
 from operator_tpu_torch.ops import _build  # noqa: E402
 from operator_tpu_torch.ops import flash_prefill  # noqa: E402
-from operator_tpu_torch.ops import paged_attention as paged  # noqa: E402
+# the module: the package's ``paged_attention`` is the function, as in JAX
+paged = importlib.import_module("operator_tpu_torch.ops.paged_attention")
 from operator_tpu_torch.ops import ragged_attention as ragged  # noqa: E402
 from operator_tpu_torch.ops import similarity  # noqa: E402
 

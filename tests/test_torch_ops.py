@@ -43,7 +43,8 @@ jax_ragged = importlib.import_module("operator_tpu.ops.ragged_attention")
 jax_flash = importlib.import_module("operator_tpu.ops.flash_prefill")
 jax_similarity = importlib.import_module("operator_tpu.ops.similarity")
 from operator_tpu_torch.ops import flash_prefill  # noqa: E402
-from operator_tpu_torch.ops import paged_attention as paged  # noqa: E402
+# the module: the package's ``paged_attention`` is the function, as in JAX
+paged = importlib.import_module("operator_tpu_torch.ops.paged_attention")
 from operator_tpu_torch.ops import ragged_attention as ragged  # noqa: E402
 from operator_tpu_torch.ops import similarity  # noqa: E402
 

@@ -3,9 +3,9 @@ the JAX package's.
 
 - Every serving knob the reference reads (the fleet KV fabric's
   ``KV_FABRIC*`` too) resolves to the same setting in both, through each
-  package's ``OperatorConfig.from_env``; a knob whose
-  feature is not ported is refused with a message naming its ROADMAP
-  Queue 1 item.
+  package's ``OperatorConfig.from_env``, ``KV_CACHE_MODE=contiguous``
+  included; a knob whose feature is not ported is refused with a message
+  naming its ROADMAP Queue 1 item.
 - With ``CHECKPOINT_DIR`` (a tiny ``transformers`` Llama checkpoint with
   the committed SentencePiece-style tokenizer, at ``tiny-test``'s widths
   with a 2,048-token context so the default prompt template fits) both
@@ -97,7 +97,9 @@ def _resolved(engine, sched, params_dtype) -> dict:
         },
         "fabric_mirror": sched._fabric_mirror if sched is not None else None,
         "adapters": g.adapter_names,
-        "num_pages": g.allocator.num_pages,
+        "paged": g.paged,
+        # a contiguous generator has no allocator (JAX's has no attribute)
+        "num_pages": g.allocator.num_pages if getattr(g, "allocator", None) else None,
         "sample_top_k": g.sample_top_k,
         "weights": params_dtype,
         "ring_capacity": g.step_clock.ring.capacity,
@@ -253,20 +255,40 @@ def test_weight_dtype_wins_over_serving_dtype():
 @pytest.mark.parametrize("knob,value,item", [
     ("PREFILL_CHUNK", "32", None),  # ported: the knob reaches the engine
     ("SERVING_MESH", "tp=2", "item 11"),
-    ("KV_CACHE_MODE", "contiguous", "item 8"),
+    # ported (item 8): a contiguous wave engine in both modes, the
+    # continuous one through the reference's fallback warning
+    ("KV_CACHE_MODE", "contiguous", None),
 ])
-def test_provider_refuses_unported_knobs_naming_their_item(knob, value, item):
+def test_provider_refuses_unported_knobs_naming_their_item(knob, value, item, monkeypatch,
+                                                          caplog):
     for mode in ("continuous", "wave"):
         env = {**BASE, "SCHED_MODE": mode, knob: value}
+        if knob == "KV_CACHE_MODE":
+            caplog.clear()
+            got = _port(env)
+            assert not got["paged"] and not got["continuous"]
+            assert got["num_pages"] is None and got["prefix_held_pages"] == 0
+            fell_back = [r.getMessage() for r in caplog.records
+                         if r.name.startswith("operator_tpu_torch")
+                         and "falling back to the wave engine" in r.getMessage()]
+            assert len(fell_back) == (mode == "continuous"), fell_back
+            if fell_back:
+                assert "paged=False" in fell_back[0]
+            assert got == _jax(env, monkeypatch)
+            continue
         if item is None:
             engine, _ = build_serving_engine("cpu", env)
             try:
                 assert engine.generator.prefill_chunk == int(value)
             finally:
                 engine.close()
-            # the contiguous KV stays refused with a chunk set too
-            with pytest.raises(NotImplementedError, match="item 8"):
-                build_serving_engine("cpu", {**env, "KV_CACHE_MODE": "contiguous"})
+            # the chunk reaches a contiguous engine too
+            engine, _ = build_serving_engine("cpu", {**env, "KV_CACHE_MODE": "contiguous"})
+            try:
+                g = engine.generator
+                assert g.prefill_chunk == int(value) and not g.paged
+            finally:
+                engine.close()
             continue
         with pytest.raises(NotImplementedError, match=item) as info:
             build_serving_engine("cpu", env)

@@ -8,7 +8,8 @@ and 2 with flash prefill off and on, a wave admitted only in part under
 page pressure, slots and pages recycled across more requests than slots,
 and ``max_tokens=1``.  The port's wave ``ServingEngine`` must give the
 same tokens, leave no slot or page held, and ``build_serving_engine``
-must build it from ``SCHED_MODE=wave`` and refuse bad settings.
+must build it from ``SCHED_MODE=wave`` (with ``KV_CACHE_MODE=contiguous``
+too) and refuse bad settings.
 """
 
 import numpy as np
@@ -275,10 +276,17 @@ def test_provider_builds_the_wave_engine():
 @pytest.mark.parametrize("key,value,error", [
     ("SCHED_MODE", "waves", ValueError),
     ("OPERATOR_TPU_PAGED_KERNEL", "v3", ValueError),
-    ("KV_CACHE_MODE", "contiguous", NotImplementedError),
+    ("KV_CACHE_MODE", "contiguous", None),  # ported: a build that succeeds
     ("KV_CACHE_MODE", "ring", ValueError),
 ])
 def test_provider_refuses_bad_settings(key, value, error):
+    if error is None:
+        engine, _ = build_serving_engine("cpu", {**_WAVE_ENV, key: value})
+        try:
+            assert engine.scheduler is None and not engine.generator.paged
+        finally:
+            engine.close()
+        return
     with pytest.raises(error, match=value):
         build_serving_engine("cpu", {**_WAVE_ENV, key: value})
 
