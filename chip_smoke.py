@@ -2,8 +2,8 @@
 """Chip smoke test of the PyTorch/H100 port (``operator_tpu_torch``).
 
     python3 chip_smoke.py [--out results.json] [--seed N]
-        [--phases device,kernels,serve,wave,guided,graphs,analysis,checkpoint,operator,remote,
-                  fleet,deployed,fabric,prefix,contiguous,parity]
+        [--phases device,kernels,serve,wave,guided,graphs,analysis,checkpoint,tokenizers,
+                  operator,remote,fleet,deployed,fabric,prefix,contiguous,parity]
 
 Runs on one CUDA card, from the root of a checkout; exits non-zero, and
 prints no result, when no card is present or the package is missing.
@@ -198,6 +198,25 @@ Phases, in order — any failure stops the run:
    load seconds, GB/s, device memory after the load, the drive's wall,
    tokens/s and K1 launches, and the analysis wall, encoder span and K5
    launches are printed with the card's name and power limit;
+8b. tokenizers: the tokenizer families the port reads beyond BPE, on the
+   checkpoint phase's two checkpoints (their weights linked, not
+   written again).  (a) The tinyllama-1.1b weights with the committed
+   Unigram fixture's tokenizer files (``tests/torch_tokenizers/
+   xlmr_unigram``: XLM-RoBERTa's layout, ``Precompiled`` charsmap, byte
+   fallback) through ``build_serving_engine``: the engine's tokenizer
+   must be an ``HFTokenizer`` over a Unigram model, its special ids and
+   ``vocab_size`` and the ids of the fixture's prompts those of
+   ``AutoTokenizer`` (``expected_ids.json``); the prompts are served
+   (greedy, 8 tokens), the ids the engine read for each equal BOS and
+   the expected ones, and K1 launches exactly once per layer per step
+   with the counts set to 0 before.  (b) The MiniLM-width encoder weights
+   with a ``tokenizer.json`` in the WordPiece fixture's layout over the
+   same 30,522-entry vocab and no ``vocab.txt``: ``build_embedder`` must
+   return a ``NeuralEmbedder``, whose ids equal the ``vocab.txt``
+   checkpoint's on every fixture line and whose ``PatternEngine.analyze``
+   launches K5 once with scores and indices equal to the ``vocab.txt``
+   checkpoint's, exactly (the same tokens, the same weights).  Each
+   family's host encode time per prompt is printed with the card;
 9. operator: the port's ``Operator`` (its default device, cuda) over the
    in-memory ``FakeKubeApi``, with the checkpoint phase's two checkpoints
    (kept for it, deleted after it): ``providerId: tpu-native`` through
@@ -3320,6 +3339,233 @@ def phase_checkpoint(results: dict, kernel_modules: dict, keep: bool = False) ->
         if not keep:
             shutil.rmtree(workdir, ignore_errors=True)
 
+
+#: the tokenizer families' committed fixtures: the files of each and
+#: ``AutoTokenizer``'s ids for a fixed list of prompts (``expected_ids.json``)
+UNIGRAM_FIXTURE = os.path.join(ROOT, "tests", "torch_tokenizers", "xlmr_unigram")
+WORDPIECE_FIXTURE = os.path.join(ROOT, "tests", "torch_tokenizers", "minilm_wordpiece")
+#: the files a checkpoint's tokenizer is read from
+TOKENIZER_FILES = ("tokenizer.json", "tokenizer_config.json", "special_tokens_map.json",
+                   "vocab.txt", "tokenizer.model")
+#: encodes of each text behind a host time per prompt
+ENCODE_REPEATS = 20
+#: the tokenizers phase's device and the engine's environment (a CPU
+#: rehearsal sets a tiny model and ``cpu``)
+TOKENIZERS_DEVICE = "cuda"
+TOKENIZERS_ENV = CHECKPOINT_ENV
+
+
+def linked_checkpoint(source: str, directory: str, files: dict) -> str:
+    """``directory`` with ``source``'s weights and configs linked (not
+    written again) and its tokenizer given by ``files`` (name -> text)."""
+    os.makedirs(directory)
+    for name in os.listdir(source):
+        if name not in TOKENIZER_FILES:
+            os.symlink(os.path.join(source, name), os.path.join(directory, name))
+    for name, text in files.items():
+        with open(os.path.join(directory, name), "w", encoding="utf-8") as fh:
+            fh.write(text)
+    return directory
+
+
+def fixture_file(fixture: str, name: str) -> str:
+    with open(os.path.join(fixture, name), encoding="utf-8") as fh:
+        return fh.read()
+
+
+def wordpiece_tokenizer_json(vocab: list) -> str:
+    """The WordPiece fixture's ``tokenizer.json`` (all-MiniLM-L6-v2's
+    layout) over ``vocab``: its specials and template at their ids there."""
+    spec = json.loads(fixture_file(WORDPIECE_FIXTURE, "tokenizer.json"))
+    ids = {token: i for i, token in enumerate(vocab)}
+    spec["model"]["vocab"] = ids
+    spec["added_tokens"] = [{**t, "id": ids[t["content"]]} for t in spec["added_tokens"]]
+    for name, entry in spec["post_processor"]["special_tokens"].items():
+        entry["ids"] = [ids[name]]
+    return json.dumps(spec, ensure_ascii=False)
+
+
+def encode_us(encode, texts: list) -> float:
+    """Host microseconds per text of ``encode``, over ``ENCODE_REPEATS``
+    passes."""
+    started = time.perf_counter()
+    for _ in range(ENCODE_REPEATS):
+        for text in texts:
+            encode(text)
+    return (time.perf_counter() - started) * 1e6 / (ENCODE_REPEATS * len(texts))
+
+
+def phase_tokenizers(results: dict, kernel_modules: dict, dirs: dict) -> dict:
+    """The checkpoint phase's weights behind the Unigram and WordPiece
+    ``tokenizer.json`` families (module docstring, 8b).  Returns the
+    kernels' launch counts over the serve drive (a) and the
+    ``tokenizer.json`` encoder's analysis (b)."""
+    import gc
+
+    import torch
+
+    total = {name: 0 for name in kernel_modules}
+
+    def counted(drive):
+        for module in kernel_modules.values():
+            module.launches = 0
+        result = drive()
+        launches = {name: m.launches for name, m in kernel_modules.items()}
+        for name, n in launches.items():
+            total[name] += n
+        return result, launches
+
+    out = results["tokenizers"] = {"card": card_line()}
+    out["unigram"] = tokenizers_unigram(dirs, counted)
+    print(json.dumps({"tokenizers_unigram": out["unigram"], "card": out["card"]}), flush=True)
+    out["wordpiece"], comparison = tokenizers_wordpiece(dirs, counted, list(kernel_modules))
+    # the vocab.txt checkpoint's run is the comparison, not the path
+    for name, n in comparison.items():
+        total[name] -= n
+    print(json.dumps({"tokenizers_wordpiece": out["wordpiece"], "card": out["card"]}), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
+def tokenizers_unigram(dirs: dict, counted) -> dict:
+    """(a): tinyllama-1.1b with the Unigram family's tokenizer, served."""
+    import torch
+
+    from operator_tpu_torch.models.configs import get_config
+    from operator_tpu_torch.models.tokenizer import HFTokenizer
+    from operator_tpu_torch.serving import provider as provider_module
+    from operator_tpu_torch.serving.types import SamplingParams
+
+    config = get_config(TOKENIZERS_ENV["OPERATOR_TPU_MODEL"])
+    expected = json.loads(fixture_file(UNIGRAM_FIXTURE, "expected_ids.json"))
+    llm = linked_checkpoint(dirs["llm"], os.path.join(dirs["workdir"], "tinyllama-unigram"), {
+        name: fixture_file(UNIGRAM_FIXTURE, name)
+        for name in ("tokenizer.json", "tokenizer_config.json")})
+    started = time.perf_counter()
+    engine, _ = provider_module.build_serving_engine(
+        TOKENIZERS_DEVICE, {**TOKENIZERS_ENV, "CHECKPOINT_DIR": llm})
+    try:
+        g, sched = engine.generator, engine.scheduler
+        tok = g.tokenizer
+        if type(tok) is not HFTokenizer or type(tok._model).__name__ != "Unigram":
+            raise fail(f"tokenizers (a): the engine's tokenizer is {type(tok).__name__} "
+                       f"({type(getattr(tok, '_model', None)).__name__}), not the Unigram family")
+        specials = {"bos_id": tok.bos_id, "eos_id": tok.eos_id, "vocab_size": tok.vocab_size}
+        if specials != {k: expected[k] for k in specials}:
+            raise fail(f"tokenizers (a): special ids {specials} are not AutoTokenizer's")
+        got = [tok.encode(p, add_bos=False) for p in expected["prompts"]]
+        if got != expected["ids"]:
+            bad = [p for p, a, b in zip(expected["prompts"], got, expected["ids"]) if a != b]
+            raise fail(f"tokenizers (a): ids differ from AutoTokenizer's on {bad}")
+        encode_time = encode_us(tok.encode, expected["prompts"])
+        engine.warmup()
+        # the ids the engine reads for each served prompt
+        seen: dict = {}
+        encode = tok.encode
+
+        def recorded(text, **kwargs):
+            seen[text] = encode(text, **kwargs)
+            return seen[text]
+
+        prompts = [p for p in expected["prompts"] if p]
+        tok.encode = recorded
+        try:
+            steps0 = sched.steps
+            served, launches = counted(lambda: engine.generate_batch(
+                prompts, SamplingParams(max_tokens=8, temperature=0.0)))
+            steps = sched.steps - steps0
+        finally:
+            del tok.encode
+        wait_idle(sched)
+        want = {p: [tok.bos_id, *ids] for p, ids in zip(expected["prompts"], expected["ids"]) if p}
+        if {p: seen.get(p) for p in want} != want:
+            raise fail(f"tokenizers (a): the served ids differ from expected_ids.json on "
+                       f"{[p for p in want if seen.get(p) != want[p]]}")
+        if [r.prompt_tokens for r in served] != [len(want[p]) for p in prompts]:
+            raise fail(f"tokenizers (a): prompt tokens {[r.prompt_tokens for r in served]}")
+        if any(r.completion_tokens < 1 for r in served):
+            raise fail(f"tokenizers (a): a request without a token: {served}")
+        if steps == 0 or launches["ragged_paged_attention"] != config.num_layers * steps:
+            raise fail(f"tokenizers (a): ragged kernel launched {launches} over {steps} steps")
+        if any(n for k, n in launches.items() if k != "ragged_paged_attention"):
+            raise fail(f"tokenizers (a): other kernels launched: {launches}")
+        return {
+            "fixture": os.path.relpath(UNIGRAM_FIXTURE, ROOT), "model": config.name,
+            "layers": config.num_layers, "vocab_size": tok.vocab_size, "prompts": len(prompts),
+            "prompt_tokens": [r.prompt_tokens for r in served],
+            "completion_tokens": sum(r.completion_tokens for r in served), "steps": steps,
+            "launches": launches, "encode_us_per_prompt": encode_time,
+            "wall_s": time.perf_counter() - started,
+        }
+    finally:
+        engine.close()
+        if TOKENIZERS_DEVICE == "cuda":
+            torch.cuda.empty_cache()
+
+
+def tokenizers_wordpiece(dirs: dict, counted, kernels: list) -> tuple:
+    """(b): the encoder with ``tokenizer.json`` and no ``vocab.txt``
+    against the ``vocab.txt`` checkpoint of the same weights; returns the
+    record and the comparison run's launch counts."""
+    import torch
+
+    from operator_tpu_torch.patterns import semantic as semantic_module
+    from operator_tpu_torch.patterns.engine import PatternEngine
+    from operator_tpu_torch.patterns.semantic import NeuralEmbedder, SemanticMatcher, build_embedder
+    from operator_tpu_torch.schema.analysis import PodFailureData
+
+    started = time.perf_counter()
+    vocab = wordpiece_vocab()
+    enc_json = linked_checkpoint(dirs["encoder"], os.path.join(dirs["workdir"], "minilm-json"), {
+        "tokenizer.json": wordpiece_tokenizer_json(vocab),
+        "tokenizer_config.json": fixture_file(WORDPIECE_FIXTURE, "tokenizer_config.json")})
+    embedders = {"tokenizer_json": build_embedder(enc_json, device=TOKENIZERS_DEVICE),
+                 "vocab_txt": build_embedder(dirs["encoder"], device=TOKENIZERS_DEVICE)}
+    for name, embedder in embedders.items():
+        if not isinstance(embedder, NeuralEmbedder):
+            raise fail(f"tokenizers (b): build_embedder fell back to {type(embedder).__name__} "
+                       f"on the {name} checkpoint")
+    texts = [line for name in sorted(os.listdir(FIXTURES)) if name.endswith(".log")
+             for line in fixture_lines(name)]
+    ids = {name: [e.tokenize(t) for t in texts] for name, e in embedders.items()}
+    if ids["tokenizer_json"] != ids["vocab_txt"]:
+        bad = [t for t, a, b in zip(texts, ids["tokenizer_json"], ids["vocab_txt"]) if a != b]
+        raise fail(f"tokenizers (b): tokenizer.json ids differ from vocab.txt's on {bad[:3]}")
+    encode_times = {name: encode_us(e.tokenize, texts) for name, e in embedders.items()}
+    log = "\n".join(texts)
+    runs = {}
+    for name, embedder in embedders.items():
+        engine_ = PatternEngine(semantic=SemanticMatcher(embedder, device=TOKENIZERS_DEVICE))
+        engine_.analyze(PodFailureData(logs="\n".join(fixture_lines("oom_java.log"))))
+        k5 = StreamSpans(semantic_module.best_window_scores)
+        semantic_module.best_window_scores = k5
+        try:
+            result, launches = counted(lambda: engine_.analyze(PodFailureData(logs=log)))
+        finally:
+            semantic_module.best_window_scores = k5.fn
+        [(_, _, (w_emb, p_emb), (scores, idx))] = k5.calls
+        runs[name] = {"launches": launches, "scores": scores, "idx": idx,
+                      "k5_max_abs_err": check_similarity(w_emb, p_emb, scores, idx),
+                      "events": [(e.source, e.matched_pattern.id, e.context.line_number, e.score)
+                                 for e in result.events], "windows": int(w_emb.shape[0])}
+    got, ref = runs["tokenizer_json"], runs["vocab_txt"]
+    want_launch = {name: 0 for name in kernels}
+    want_launch["best_window_similarity"] = 1
+    if got["launches"] != want_launch or not got["k5_max_abs_err"] <= SIM_TOL:
+        raise fail(f"tokenizers (b): launches {got['launches']}, K5 error {got['k5_max_abs_err']}")
+    if not (torch.equal(got["scores"], ref["scores"]) and torch.equal(got["idx"], ref["idx"])):
+        raise fail("tokenizers (b): K5's scores or indices differ from the vocab.txt checkpoint's")
+    if got["events"] != ref["events"]:
+        raise fail(f"tokenizers (b): events {got['events']} != {ref['events']}")
+    return {
+        "fixture": os.path.relpath(WORDPIECE_FIXTURE, ROOT), "vocab": len(vocab),
+        "texts": len(texts), "windows": got["windows"], "launches": got["launches"],
+        "k5_max_abs_err": got["k5_max_abs_err"], "scores_equal_vocab_txt": True,
+        "events": len(got["events"]), "encode_us_per_prompt": encode_times["tokenizer_json"],
+        "vocab_txt_encode_us_per_prompt": encode_times["vocab_txt"],
+        "wall_s": time.perf_counter() - started,
+    }, ref["launches"]
 
 # ---------------------------------------------------------------------------
 # phase 7: the operator control plane over the fake apiserver
@@ -8571,7 +8817,8 @@ def main() -> int:
     parser.add_argument("--out", help="also write every result to this JSON file")
     parser.add_argument("--phases",
                         default="device,kernels,serve,wave,guided,graphs,analysis,checkpoint,"
-                                "operator,remote,fleet,deployed,fabric,prefix,contiguous,parity")
+                                "tokenizers,operator,remote,fleet,deployed,fabric,prefix,"
+                                "contiguous,parity")
     parser.add_argument("--seed", type=int, default=0,
                         help="the guided phase's weights and adapters")
     parser.add_argument("--graphs-warm", metavar="PLAN",
@@ -8656,16 +8903,18 @@ def main() -> int:
         timed("graphs", phase_graphs, results, kernel_modules, args.seed)
     analysis = timed("analysis", phase_analysis, results, kernel_modules, phases) \
         if "analysis" in phases else {}
-    served = phases & {"operator", "remote", "fleet"}
+    served = phases & {"tokenizers", "operator", "remote", "fleet"}
     if served and "checkpoint" not in phases:
         raise fail(f"the {', '.join(sorted(served))} phase serves the checkpoint phase's "
                    f"checkpoints: add checkpoint")
     checkpoint, dirs = (timed("checkpoint", phase_checkpoint, results, kernel_modules,
                               keep=bool(served))
                         if "checkpoint" in phases else ({}, None))
-    operator, remote, fleet = {}, {}, {}
+    tokenizers, operator, remote, fleet = {}, {}, {}, {}
     if served:
         try:
+            if "tokenizers" in phases:
+                tokenizers = timed("tokenizers", phase_tokenizers, results, kernel_modules, dirs)
             if "operator" in phases:
                 operator = timed("operator", phase_operator, results, kernel_modules, dirs)
             if "remote" in phases:
@@ -8703,6 +8952,7 @@ def main() -> int:
         # the same kernel's launches on the checkpoint and operator phases' paths
         base = re.sub(r"_v[12]$", "", record["name"])
         record["launches_checkpoint"] = checkpoint.get(base)
+        record["launches_tokenizers"] = tokenizers.get(base)
         record["launches_operator"] = operator.get(base)
         record["launches_remote"] = remote.get(base)
         record["launches_fleet"] = fleet.get(base)

@@ -1,0 +1,52 @@
+"""The components of a ``tokenizer.json``, read without ``tokenizers``.
+
+One module per group, laid out as the ``tokenizers`` library lays them
+out, each step run as the library runs it (its Rust sources are the
+specification; the tests hold every component to the library on the CPU):
+
+- :mod:`.models` — ``BPE`` (byte fallback, unknowns fused, merges by rank,
+  ``ignore_merges``, ``continuing_subword_prefix``, ``end_of_word_suffix``
+  and ``dropout`` drawn from a generator the caller seeds), ``WordPiece``,
+  ``WordLevel`` and ``Unigram`` (Viterbi over the piece lattice, byte
+  fallback);
+- :mod:`.normalizers` — ``BertNormalizer``, ``ByteLevel``, ``Lowercase``,
+  ``NFC``/``NFD``/``NFKC``/``NFKD``, ``Nmt``, ``Precompiled``,
+  ``Prepend``, ``Replace`` (string or regex), ``Sequence``, ``Strip``,
+  ``StripAccents``;
+- :mod:`.pre_tokenizers` — ``BertPreTokenizer``, ``ByteLevel``,
+  ``CharDelimiterSplit``, ``Digits``, ``FixedLength``, ``Metaspace``,
+  ``Punctuation``, ``Sequence``, ``Split`` (every behavior, ``invert``),
+  ``Whitespace``, ``WhitespaceSplit``;
+- :mod:`.decoders` — ``BPEDecoder``, ``ByteFallback``, ``ByteLevel``,
+  ``CTC``, ``Fuse``, ``Metaspace``, ``Replace``, ``Sequence``, ``Strip``,
+  ``WordPiece``;
+- :mod:`.processors` — ``BertProcessing``, ``ByteLevel``,
+  ``RobertaProcessing``, ``Sequence``, ``TemplateProcessing``;
+- :mod:`.charsmap` — the ``Precompiled`` normalizer's SentencePiece
+  charsmap (a darts-clone double array and its strings) and the grapheme
+  clusters it is applied to;
+- :mod:`.text` — Oniguruma's expressions and classes in Python's ``re``,
+  the library's ways of finding and splitting, GPT-2's byte table.
+
+What needs Unicode Script data (the ``UnicodeScripts`` pre-tokenizer, a
+``\\p{Han}``-style class in an expression) raises ``NotImplementedError``
+naming ROADMAP Queue 1 item 4d: Python's ``unicodedata`` has no Script
+property.
+"""
+
+from __future__ import annotations
+
+ITEM_4D = "ROADMAP.md Queue 1 item 4d"
+
+
+def unsupported(what: str) -> NotImplementedError:
+    """A ``tokenizer.json`` feature the port does not read."""
+    return NotImplementedError(f"tokenizer.json {what} is not read by operator_tpu_torch")
+
+
+def needs_scripts(what: str) -> NotImplementedError:
+    """A feature that needs the Unicode Script property."""
+    return NotImplementedError(
+        f"tokenizer.json {what} needs Unicode Script data, which operator_tpu_torch "
+        f"does not have yet ({ITEM_4D})"
+    )

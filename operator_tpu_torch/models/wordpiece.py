@@ -19,6 +19,13 @@ fast tokenizer ``AutoTokenizer`` builds from them:
 4. greedy longest-match WordPiece with ``##`` continuation pieces; a word
    over 100 characters, or one with an unmatched remainder, is ``[UNK]``;
 5. ``[CLS] ... [SEP]`` around the ids when ``add_special_tokens``.
+
+Steps 2-4 are :func:`bert_normalize`, :func:`bert_words` and
+:func:`wordpiece`, which a ``tokenizer.json``'s ``BertNormalizer``,
+``BertPreTokenizer`` and ``WordPiece`` model run too
+(``models/tokenization/``); the characters they drop, strip and isolate
+are the library's own tables (``models/tokenization/tables.py``), not
+``unicodedata``'s categories.
 """
 
 from __future__ import annotations
@@ -29,7 +36,10 @@ import re
 import unicodedata
 from typing import Optional
 
-__all__ = ["WordPieceTokenizer"]
+from .tokenization import tables
+from .tokenization.text import in_ranges
+
+__all__ = ["WordPieceTokenizer", "bert_normalize", "bert_words", "wordpiece"]
 
 #: ``char::is_whitespace`` (Unicode White_Space) plus tab, newline, CR —
 #: the BERT normalizer maps these to a space (after dropping the controls)
@@ -50,6 +60,9 @@ _CJK_RANGES = (
 _ASCII_CLEAN = {**{i: None for i in (*range(9), 11, 12, *range(14, 32), 127)},
                 9: " ", 10: " ", 13: " "}
 _ASCII_WORDS = re.compile(r"[0-9A-Za-z]+|[!-/:-@\[-`{-~]")
+#: the pre-tokenizer on any ASCII text: runs of what is neither
+#: whitespace nor punctuation, and each punctuation character alone
+_ASCII_SPLIT = re.compile(r"[^\t\n\x0b\x0c\r !-/:-@\[-`{-~]+|[!-/:-@\[-`{-~]")
 #: words kept in one tokenizer's WordPiece cache before it is cleared
 _CACHE_WORDS = 1 << 16
 
@@ -59,10 +72,12 @@ _SPECIAL_DEFAULTS = {
 }
 
 
-def _is_control(char: str) -> bool:
-    if char in "\t\n\r":
-        return False
-    return unicodedata.category(char).startswith("C")
+#: the library's tables (``tokenization/tables.py``): what the BERT
+#: normalizer drops, the non-spacing marks it strips, the punctuation the
+#: pre-tokenizer isolates
+_is_control = in_ranges(tables.BERT_CONTROL)
+_is_mark_nonspacing = in_ranges(tables.MARK_NONSPACING)
+_is_punctuation = in_ranges(tables.PUNCTUATION)
 
 
 def _is_cjk(char: str) -> bool:
@@ -70,11 +85,82 @@ def _is_cjk(char: str) -> bool:
     return any(lo <= cp <= hi for lo, hi in _CJK_RANGES)
 
 
-def _is_punctuation(char: str) -> bool:
-    cp = ord(char)
-    if 33 <= cp <= 47 or 58 <= cp <= 64 or 91 <= cp <= 96 or 123 <= cp <= 126:
-        return True
-    return unicodedata.category(char).startswith("P")
+def bert_normalize(text: str, *, clean_text: bool = True, handle_chinese_chars: bool = True,
+                   strip_accents: Optional[bool] = None, lowercase: bool = True) -> str:
+    """The BERT normalizer (``BertNormalizer``): NUL, U+FFFD and control
+    characters dropped and whitespace to a space, CJK ideographs spaced,
+    accents stripped (NFD, non-spacing marks dropped; by default when
+    lowercasing), then lowercased, character by character."""
+    if text.isascii():
+        # no CJK, nothing to strip: the controls go, tab and line ends
+        # become spaces
+        text = text.translate(_ASCII_CLEAN) if clean_text else text
+        return text.lower() if lowercase else text
+    if clean_text or handle_chinese_chars:
+        chars = []
+        for char in text:
+            if clean_text:
+                if _is_control(char):
+                    continue
+                if char in _WHITESPACE:
+                    chars.append(" ")
+                    continue
+            if handle_chinese_chars and _is_cjk(char):
+                chars.extend((" ", char, " "))
+            else:
+                chars.append(char)
+        text = "".join(chars)
+    if lowercase if strip_accents is None else strip_accents:
+        text = "".join(c for c in unicodedata.normalize("NFD", text)
+                       if not _is_mark_nonspacing(c))
+    if lowercase:
+        text = "".join(c.lower() for c in text)  # per character, no final sigma
+    return text
+
+
+def bert_words(text: str) -> list[str]:
+    """The BERT pre-tokenizer (``BertPreTokenizer``): split on whitespace,
+    which goes, and around every punctuation character (ASCII punctuation
+    and Unicode ``P*``), which stays a word of its own."""
+    if text.isascii():
+        return _ASCII_SPLIT.findall(text)
+    words: list[str] = []
+    word: list[str] = []
+    for char in text:
+        if char in _WHITESPACE or _is_punctuation(char):
+            if word:
+                words.append("".join(word))
+                word = []
+            if char not in _WHITESPACE:
+                words.append(char)
+        else:
+            word.append(char)
+    if word:
+        words.append("".join(word))
+    return words
+
+
+def wordpiece(word: str, vocab: dict, unk_id: int, *, prefix: str = "##",
+              max_input_chars_per_word: int = 100) -> list[int]:
+    """Greedy longest-match WordPiece: pieces after the first carry
+    ``prefix``; a word over ``max_input_chars_per_word`` characters, or
+    one with a remainder no piece matches, is the unknown token."""
+    if len(word) > max_input_chars_per_word:
+        return [unk_id]
+    ids = []
+    start = 0
+    while start < len(word):
+        end = len(word)
+        while start < end:
+            piece = word[start:end] if start == 0 else prefix + word[start:end]
+            if piece in vocab:
+                ids.append(vocab[piece])
+                break
+            end -= 1
+        else:
+            return [unk_id]
+        start = end
+    return ids
 
 
 def _token_content(value) -> Optional[str]:
@@ -130,47 +216,14 @@ class WordPieceTokenizer:
             special_tokens=special,
         )
 
-    def _normalize(self, text: str) -> str:
-        chars = []
-        for char in text:
-            if char in "\x00\ufffd" or _is_control(char):
-                continue
-            if char in _WHITESPACE:
-                chars.append(" ")
-            elif self.tokenize_chinese_chars and _is_cjk(char):
-                chars.extend((" ", char, " "))
-            else:
-                chars.append(char)
-        text = "".join(chars)
-        if self.strip_accents:
-            text = "".join(c for c in unicodedata.normalize("NFD", text)
-                           if unicodedata.category(c) != "Mn")
-        if self.do_lower_case:
-            text = "".join(c.lower() for c in text)  # per character, no final sigma
-        return text
-
-    def _words(self, text: str) -> list[str]:
-        words = []
-        for chunk in text.split(" "):  # the normalizer left no other whitespace
-            word: list[str] = []
-            for char in chunk:
-                if _is_punctuation(char):
-                    if word:
-                        words.append("".join(word))
-                        word = []
-                    words.append(char)
-                else:
-                    word.append(char)
-            if word:
-                words.append("".join(word))
-        return words
-
     def _pieces(self, text: str) -> list[str]:
         """Normalized words of ``text`` (no special tokens in it)."""
         if text.isascii():
             text = text.translate(_ASCII_CLEAN)
             return _ASCII_WORDS.findall(text.lower() if self.do_lower_case else text)
-        return self._words(self._normalize(text))
+        return bert_words(bert_normalize(
+            text, handle_chinese_chars=self.tokenize_chinese_chars,
+            strip_accents=self.strip_accents, lowercase=self.do_lower_case))
 
     def _wordpiece(self, word: str) -> list[int]:
         ids = self._cache.get(word)
@@ -181,22 +234,8 @@ class WordPieceTokenizer:
         return ids
 
     def _wordpiece_uncached(self, word: str) -> list[int]:
-        if len(word) > self.max_input_chars_per_word:
-            return [self.unk_id]
-        ids = []
-        start = 0
-        while start < len(word):
-            end = len(word)
-            while start < end:
-                piece = word[start:end] if start == 0 else "##" + word[start:end]
-                if piece in self.vocab:
-                    ids.append(self.vocab[piece])
-                    break
-                end -= 1
-            else:
-                return [self.unk_id]
-            start = end
-        return ids
+        return wordpiece(word, self.vocab, self.unk_id,
+                         max_input_chars_per_word=self.max_input_chars_per_word)
 
     def encode(self, text: str, *, add_special_tokens: bool = True) -> list[int]:
         ids: list[int] = []

@@ -21,6 +21,7 @@ device; the window embeddings go there once per ``match``.
 from __future__ import annotations
 
 import logging
+import os
 import re
 import threading
 import zlib
@@ -218,8 +219,12 @@ class NeuralEmbedder:
         device: Optional[Union[str, torch.device]] = None,
     ) -> "NeuralEmbedder":
         """Build from a local sentence-transformers/BERT checkpoint dir
-        (safetensors weights + config.json + ``vocab.txt`` WordPiece
-        files), the weights loaded straight onto ``device``.
+        (safetensors weights + config.json + the tokenizer files), the
+        weights loaded straight onto ``device``.  The tokenizer is read
+        in ``AutoTokenizer``'s order, as the reference's is:
+        ``tokenizer.json`` when the directory has one
+        (:class:`~..models.tokenizer.HFTokenizer`, its post-processor's
+        specials), else ``vocab.txt`` (the BERT WordPiece tokenizer).
 
         Tokenisation includes the [CLS]/[SEP] specials — the
         sentence-transformers mean-pooling convention counts them, and
@@ -227,14 +232,18 @@ class NeuralEmbedder:
         MiniLM embeddings.
         """
         from ..models.encoder import load_encoder_params
+        from ..models.tokenizer import HFTokenizer
         from ..models.wordpiece import WordPieceTokenizer
 
         device = resolve_device(device)
         params, config = load_encoder_params(checkpoint_dir, device=device)
-        tok = WordPieceTokenizer.from_dir(checkpoint_dir)
+        if os.path.exists(os.path.join(checkpoint_dir, "tokenizer.json")):
+            tokenize = HFTokenizer(checkpoint_dir).encode_with_special_tokens
+        else:
+            tok = WordPieceTokenizer.from_dir(checkpoint_dir)
 
-        def tokenize(text: str) -> list[int]:
-            return tok.encode(text, add_special_tokens=True)
+            def tokenize(text: str) -> list[int]:
+                return tok.encode(text, add_special_tokens=True)
 
         return cls(
             params, config, tokenize, max_tokens=max_tokens, batch_size=batch_size,

@@ -77,8 +77,10 @@ Weights: ``CHECKPOINT_DIR`` names a local HF-layout safetensors
 checkpoint; its weights stream onto the engine's device on a background
 thread (``models/loader.py:load_params_async``), quantized group by group
 when serving int8, and its own ``tokenizer.json`` is the tokenizer
-(``models/tokenizer.py:load_tokenizer``, which falls back to bytes for a
-directory without one, as the reference does).  Without a checkpoint the
+(``models/tokenizer.py:load_tokenizer``: any model, normalizer,
+pre-tokenizer and decoder of the ``tokenizers`` library; the byte
+fallback for a directory without one, a lone SentencePiece
+``tokenizer.model`` included, as the reference does).  Without a checkpoint the
 engine serves seeded random weights only when
 ``ALLOW_RANDOM_WEIGHTS=true`` — the same opt-in the JAX provider asks
 for.
