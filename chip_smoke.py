@@ -2,8 +2,8 @@
 """Chip smoke test of the PyTorch/H100 port (``operator_tpu_torch``).
 
     python3 chip_smoke.py [--out results.json] [--seed N]
-        [--phases device,kernels,serve,wave,guided,graphs,analysis,checkpoint,tokenizers,
-                  operator,remote,fleet,deployed,fabric,prefix,contiguous,parity]
+        [--phases device,kernels,train,serve,wave,guided,graphs,analysis,checkpoint,
+                  tokenizers,operator,remote,fleet,deployed,fabric,prefix,contiguous,parity]
 
 Runs on one CUDA card, from the root of a checkout; exits non-zero, and
 prints no result, when no card is present or the package is missing.
@@ -42,7 +42,29 @@ Phases, in order — any failure stops the run:
    the deployed phase launches) over the three waves and the decode,
    window and off-grid geometries, held in bf16 and f32, and timed at the
    three waves beside its bound and the SDPA call;
-3. serve: the continuous path at full width — tinyllama-1.1b, 22
+3. train: training on the port's mesh layer (``parallel/``) over a real
+   one-rank nccl group and a 1x1x1 ``DeviceMesh`` on the card.  (a) A full
+   fine-tune of tinyllama-1.1b at full width (22 layers, hidden 2,048,
+   bf16 params from ``--seed``): five ``make_train_step`` steps on one
+   fixed batch of 8 x 512 tokens; the loss must drop.  (b) LoRA over
+   llama-3-8b at full width (32 layers, an int8 base from
+   ``init_params_quantized``): ``make_lora_train_step`` with rank-16
+   adapters on wq/wk/wv/wo, five steps on 4 x 512 tokens; the loss must
+   drop and the base must be bit for bit what it was; one more step with
+   the int8 product as a plain expression gives the peak memory that
+   ``models/quant.py:_Int8MatMul`` saves.  (c) (a)'s state
+   saved and loaded (``save_train_state``/``load_train_state``) under
+   the checkout's ``build/``: every leaf equal, and the next step's loss
+   equal.  (d) ``tiny-test`` in f32, five steps on the card against the
+   same five on the CPU: losses within 1e-3 relative.  Each of (a) and
+   (b) gives ms per step (the median of steps 2-5), tokens per second
+   and ``torch.cuda.max_memory_allocated``; no hand-written kernel may
+   launch (the JAX training path runs no Pallas kernel).  With
+   ``profile`` in ``--phases``, one more step of (a) and of (b) runs
+   under ``torch.profiler``.  It runs before the serving phases, while
+   the card's memory is free (after them, on an 80 GB H100, about 32 GiB
+   are);
+4. serve: the continuous path at full width — tinyllama-1.1b, 22
    layers, int8 weights from a seed, 32 slots, page 64, chunk 64,
    pipeline depth 2, speculative decoding on, the block-hash prefix cache
    on (the default) — through the port's HTTP server on localhost, with
@@ -72,7 +94,7 @@ Phases, in order — any failure stops the run:
    the pool: the pages balance, a restored page must hold exactly the
    bytes gathered at its eviction, and no commit window's drain may wait
    half a step (the copies run on a side stream);
-4. wave: the wave path (``SCHED_MODE=wave``, ``DECODE_BLOCK=4``,
+5. wave: the wave path (``SCHED_MODE=wave``, ``DECODE_BLOCK=4``,
    ``PIPELINE_DEPTH=2``, ``OPERATOR_TPU_FLASH_PREFILL=1``) at the same
    width through the HTTP server with the same requests, driven twice,
    once with each decode-kernel selector (``OPERATOR_TPU_PAGED_KERNEL``
@@ -91,7 +113,7 @@ Phases, in order — any failure stops the run:
    stall budget after four steps: the supervisor must restart once and
    requeue every request in flight, the decode and prefill kernels launch
    again after the restart, and every page and slot comes back free;
-5. guided: guided decoding and multi-LoRA on the wave engine at
+6. guided: guided decoding and multi-LoRA on the wave engine at
    tinyllama-1.1b's full width (int8, 32 slots, page 64, flash prefill
    on), built by ``build_serving_engine`` with the default
    ``SCHED_MODE`` (continuous) and ``LORA_DIR`` naming ``incident`` and
@@ -130,7 +152,7 @@ Phases, in order — any failure stops the run:
    the first's without its ``additionalConfig``), K5 launches once per
    ``analyze()`` and recall ``query()``, the wave kernels as the drive's
    waves and blocks say, K1 never;
-6. graphs: the serving programs as captured CUDA graphs, at full width.
+7. graphs: the serving programs as captured CUDA graphs, at full width.
    Every other phase already serves through them (a held kernel's check
    runs its untimed request with the programs eager, ``eager_programs``).
    (a) tinyllama-1.1b (the serve phase's ten requests) and llama-3-8b
@@ -163,7 +185,7 @@ Phases, in order — any failure stops the run:
    and eager: wall, encoder stream ms, every score within SIM_TOL.
    Last, the launch counters' own cost: a graph of a decode block's 88
    counted launches' device adds, device ms per replay;
-7. analysis: the semantic analysis path at the full width of
+8. analysis: the semantic analysis path at the full width of
    all-MiniLM-L6-v2 (f32 weights from a seed, byte-level token ids,
    buckets of 32 texts x 256 tokens) through ``PatternEngine.analyze``
    with a ``SemanticMatcher`` on the card: a crash-loop log of 33,000
@@ -172,7 +194,7 @@ Phases, in order — any failure stops the run:
    set to 0 before each drive: K5 must launch exactly once per analysis
    and once per query, K1-K4 never.  Each K5 call of the drives is held
    to the plain version on its own inputs;
-8. checkpoint: a tinyllama-1.1b checkpoint at full width (bf16, the
+9. checkpoint: a tinyllama-1.1b checkpoint at full width (bf16, the
    serve phase's seeded weights) written by the port's ``save_params``
    as HF-layout shards with an index, with the committed
    SentencePiece-style ``tokenizer.json`` (``tests/torch_tokenizers/``),
@@ -217,7 +239,7 @@ Phases, in order — any failure stops the run:
    launches K5 once with scores and indices equal to the ``vocab.txt``
    checkpoint's, exactly (the same tokens, the same weights).  Each
    family's host encode time per prompt is printed with the card;
-9. operator: the port's ``Operator`` (its default device, cuda) over the
+10. operator: the port's ``Operator`` (its default device, cuda) over the
    in-memory ``FakeKubeApi``, with the checkpoint phase's two checkpoints
    (kept for it, deleted after it): ``providerId: tpu-native`` through
    two AIProviders on the one engine (greedy, and the default
@@ -244,7 +266,7 @@ Phases, in order — any failure stops the run:
    span tree (collect, analyze, recall, generate, store) and the host
    time outside the engine; the drive's tokens/s against the checkpoint
    phase's provider drive, and the recall hit's wall;
-10. remote: the serving front as a service and the operator's remote
+11. remote: the serving front as a service and the operator's remote
    path, on the checkpoint phase's two checkpoints (kept for it too): two
    ``CompletionServer``s, replicas A and B, on an event loop of their own
    over one engine on the card, with the encoder as the embedder and the
@@ -275,7 +297,7 @@ Phases, in order — any failure stops the run:
    stream, the steps from the close to the release, tokens/s, the
    per-pod stage split and the HTTP overhead per request (the provider's
    dispatch span less the replica's own request span) are printed;
-11. fleet: the operator's HA and elastic fleet, on the checkpoint phase's
+12. fleet: the operator's HA and elastic fleet, on the checkpoint phase's
    two checkpoints (kept for it too).  (a) Two ``Operator``s, ``op-a`` and
    ``op-b``, with ``LEADER_ELECTION`` and a 3 s lease over one
    ``FakeKubeApi``, one claims ledger and one ``tpu-native`` engine: ten
@@ -311,7 +333,7 @@ Phases, in order — any failure stops the run:
    kill to takeover, scale-up reaction, replica start, join to the first
    routed request, scale-down and process start to stored status are
    printed;
-12. deployed: the deployed model, llama-3-8b at full width (32 layers,
+13. deployed: the deployed model, llama-3-8b at full width (32 layers,
    hidden 4,096, 32 query heads over 8 KV heads of 128, vocab 128,256,
    rope theta 500,000; int8 weights from a seed), with the committed
    byte-level tokenizer (``tests/torch_tokenizers/llama3_bl`` through
@@ -338,7 +360,7 @@ Phases, in order — any failure stops the run:
    one ``EngineReplica``, a stall after 40 steps: one restart, every
    arrival settles, no torn ledger line; the schedule's fingerprint, the
    attainment and the goodput are printed;
-13. fabric: the fleet KV fabric at llama-3-8b's full width, a prefill
+14. fabric: the fleet KV fabric at llama-3-8b's full width, a prefill
    replica P (``REPLICA_ROLE=prefill``) and a decode replica D
    (``REPLICA_ROLE=decode``, ``KV_FABRIC_PEERS`` naming P) on the card,
    each built by ``build_serving_engine`` with the deployed phase's
@@ -375,7 +397,7 @@ Phases, in order — any failure stops the run:
    are printed.  (d) The auditor records no
    violation.  K1 launches 32 times per step of each engine, K2-K5
    never, and the pages balance after every drive;
-14. prefix: the long-prompt path of the wave engine at tinyllama-1.1b's
+15. prefix: the long-prompt path of the wave engine at tinyllama-1.1b's
    full width (int8, 32 slots, page 64, block 4, depth 2, flash prefill
    on).  (a) The int8 gate: ``parity_report`` of the seeded bf16 tree
    against ``quantize_params`` of it over the JAX test's two prompts and
@@ -404,7 +426,7 @@ Phases, in order — any failure stops the run:
    the one-shot K4 wave's on the same tokens; a prefixed wave after it,
    and nothing captured after the grid.  Then the 16 x 2,048 wave's
    prefill ms alone on the card, chunked and one-shot, in turns;
-15. contiguous: the wave engine's contiguous KV cache
+16. contiguous: the wave engine's contiguous KV cache
    (``KV_CACHE_MODE=contiguous``, a ``32 x 2,048`` cache) at
    tinyllama-1.1b's full width (int8, 32 slots, block 4, depth 2, flash
    prefill on, ``PREFIX_CACHE`` off), built by ``build_serving_engine``
@@ -430,7 +452,7 @@ Phases, in order — any failure stops the run:
    (c) On the worker: four live decode rows and a 16 x 2,048 wave with
    ``PREFILL_CHUNK=256`` (eight chunks, decode blocks between them), each
    row's first-token logits within 0.25 of the one-shot K4 wave's;
-16. parity: small f32 ``tiny-test`` engines on the card (kernels) and on
+17. parity: small f32 ``tiny-test`` engines on the card (kernels) and on
    the CPU (plain versions) must give the same greedy tokens — the
    continuous engine, and the wave engine with the decode selector at
    ``v1`` and ``v2`` and flash prefill on and off, and with a shared
@@ -444,7 +466,8 @@ Phases, in order — any failure stops the run:
    card as on the CPU over the 12 fixture logs (scores within 1e-4).
 
 ``--phases device,kernels,serve,profile`` (or ``...,wave,profile``, the
-``v1`` drive, or ``...,analysis,profile``, the long analysis) also drives
+``v1`` drive, ``...,analysis,profile``, the long analysis, or
+``...,train,profile``, a step of (a) and of (b)) also drives
 that phase's work again under ``torch.profiler`` and prints the device
 time by kernel and the device's busy share (not part of the default
 run).
@@ -469,6 +492,7 @@ import logging
 import os
 import re
 import shutil
+import statistics
 import subprocess
 import sys
 import threading
@@ -8059,6 +8083,198 @@ def phase_parity(results: dict, kernel_modules: dict) -> None:
     results["analysis_parity"] = analysis_parity(kernel_modules)
 
 
+TRAIN_STEPS = 5
+#: (a) and (b): the batch of each drive, rows x tokens
+TRAIN_FULL_BATCH = (8, 512)
+TRAIN_LORA_BATCH = (4, 512)
+TRAIN_LORA_RANK = 16
+TRAIN_DIR = os.path.join(ROOT, "build", "chip_smoke_train")
+#: the drives' device and models ((a) full fine-tune, (b) LoRA); a CPU
+#: rehearsal sets "cpu" and tiny models
+TRAIN_DEVICE = "cuda"
+TRAIN_MODELS = ("tinyllama-1.1b", "llama-3-8b")
+#: (d): the card's f32 losses against the CPU's
+TRAIN_CPU_RTOL = 1e-3
+
+
+def train_drive(name: str, step, state, args: tuple, tokens: int, card: str) -> tuple:
+    """``TRAIN_STEPS`` steps of ``step`` from ``state``; the loss must drop.
+    Returns (state, record): the losses, each step's ms, the median of
+    steps 2 on, tokens per second at it, and the peak memory."""
+    import torch
+
+    losses, ms = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        begun = time.perf_counter()
+        state, loss = step(state, *args)
+        losses.append(float(loss))  # waits for the step
+        ms.append((time.perf_counter() - begun) * 1e3)
+    steady = statistics.median(ms[1:])
+    record = {"losses": losses, "step_ms": ms, "ms_per_step": steady,
+              "tokens_per_s": tokens / (steady / 1e3),
+              "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+              "card": card}
+    print(json.dumps({f"train_{name}": record}), flush=True)
+    if not all(map(lambda x: x == x and abs(x) != float("inf"), losses)) \
+            or losses[-1] >= losses[0]:
+        raise fail(f"train ({name}): the loss did not drop over {TRAIN_STEPS} steps: {losses}")
+    return state, record
+
+
+def phase_train(results: dict, kernel_modules: dict, seed: int, profile: bool = False) -> dict:
+    """(a)-(d) of the train phase; the kernels' launches over all four.
+    With ``profile``, one more step of (a) and of (b) under the profiler."""
+    import torch
+    import torch.distributed as dist
+
+    from operator_tpu_torch.models import TINY_TEST, get_config, init_params
+    from operator_tpu_torch.models.quant import init_params_quantized
+    from operator_tpu_torch.parallel import (
+        MeshPlan, init_lora, load_train_state, make_lora_train_step, make_mesh,
+        make_train_step, mesh_summary, save_train_state, shard_params,
+    )
+    from operator_tpu_torch.parallel.mesh import tree_leaves, tree_map
+    from operator_tpu_torch.parallel.train import adam_moments
+
+    full_config, lora_config = map(get_config, TRAIN_MODELS)
+    device = TRAIN_DEVICE
+    torch.cuda.empty_cache()
+    card = card_line()
+    out: dict = {"card": card}
+    begun = time.perf_counter()
+    for module in kernel_modules.values():
+        module.launches = 0
+    mesh = make_mesh(MeshPlan(), device_type=device)
+    out.update(mesh=mesh_summary(mesh), backend=str(dist.get_backend()))
+    if device == "cuda" and "nccl" not in out["backend"]:
+        raise fail(f"train: the group's backend is {out['backend']}, not nccl")
+    gen = torch.Generator(device=device)
+
+    def batch(rows_tokens: tuple, vocab: int) -> tuple:
+        tokens = torch.randint(0, vocab, rows_tokens, generator=gen, device=device,
+                               dtype=torch.int32)
+        return tokens, torch.ones(rows_tokens, device=device)
+
+    try:
+        # (a) full fine-tune, tinyllama-1.1b
+        gen.manual_seed(seed)
+        init_state, train_step = make_train_step(full_config, mesh)
+        state = init_state(init_params(full_config, gen, torch.bfloat16, device=device))
+        full_batch = batch(TRAIN_FULL_BATCH, full_config.vocab_size)
+        state, out["a_full_tinyllama"] = train_drive(
+            "a_full_tinyllama", train_step, state, full_batch,
+            TRAIN_FULL_BATCH[0] * TRAIN_FULL_BATCH[1], card)
+
+        # (c) its checkpoint round trip
+        started = time.perf_counter()
+        shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+        save_train_state(state, TRAIN_DIR)
+        saved_s = time.perf_counter() - started
+        gen.manual_seed(seed + 1)
+        reference = init_state(init_params(full_config, gen, torch.bfloat16, device=device))
+        started = time.perf_counter()
+        restored = load_train_state(TRAIN_DIR, reference)
+        loaded_s = time.perf_counter() - started
+        pairs = list(zip((restored.params, *adam_moments(restored)),
+                         (state.params, *adam_moments(state))))
+        unequal = sum(not torch.equal(a.full_tensor(), b.full_tensor())
+                      for got, want in pairs for a, b in zip(tree_leaves(got), tree_leaves(want)))
+        _, loss_restored = train_step(restored, *full_batch)
+        _, loss_original = train_step(state, *full_batch)
+        out["c_checkpoint"] = {
+            "leaves": 3 * len(tree_leaves(state.params)), "unequal_leaves": unequal,
+            "step": int(restored.step), "save_s": saved_s, "load_s": loaded_s,
+            "bytes": sum(f.stat().st_size for f in Path(TRAIN_DIR).iterdir()),
+            "next_loss": [float(loss_restored), float(loss_original)], "card": card}
+        print(json.dumps({"train_c_checkpoint": out["c_checkpoint"]}), flush=True)
+        if unequal or int(restored.step) != TRAIN_STEPS \
+                or float(loss_restored) != float(loss_original):
+            raise fail(f"train (c): the checkpoint did not round-trip: {out['c_checkpoint']}")
+        if profile:
+            out["a_full_tinyllama"]["profile"] = profile_call(
+                lambda: train_step(state, *full_batch))
+        del state, restored, reference, pairs, init_state, train_step
+        shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+        # (b) LoRA over an int8 llama-3-8b
+        gen.manual_seed(seed)
+        base = shard_params(init_params_quantized(lora_config, gen, torch.bfloat16, device=device),
+                            mesh, lora_config, quantized=True)
+        before = [leaf.to_local().cpu() for leaf in tree_leaves(base)]
+        init_lora_state, lora_step = make_lora_train_step(lora_config, mesh, quantized_base=True)
+        adapters = init_lora(lora_config, gen, rank=TRAIN_LORA_RANK, device=device)
+        lora_state = init_lora_state(adapters)
+        lora_batch = batch(TRAIN_LORA_BATCH, lora_config.vocab_size)
+        lora_state, out["b_lora_llama3_8b"] = train_drive(
+            "b_lora_llama3_8b", lora_step, lora_state, (base, *lora_batch),
+            TRAIN_LORA_BATCH[0] * TRAIN_LORA_BATCH[1], card)
+        # one more step with the int8 product as a plain expression, whose
+        # backward keeps the activation-dtype copy of every int8 matrix:
+        # the peak the autograd function in models/quant.py saves
+        from operator_tpu_torch.models import llama
+
+        fused_mm = llama.mm
+        llama.mm = lambda x, w: (x @ w["q"].to(x.dtype)) * w["s"].to(x.dtype) \
+            if isinstance(w, dict) else x @ w
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            lora_state, _ = lora_step(lora_state, base, *lora_batch)
+            torch.cuda.synchronize()
+            out["b_lora_llama3_8b"]["max_memory_allocated_gib_plain_int8_mm"] = (
+                torch.cuda.max_memory_allocated() / 2**30)
+        finally:
+            llama.mm = fused_mm
+        if profile:
+            out["b_lora_llama3_8b"]["profile"] = profile_call(
+                lambda: lora_step(lora_state, base, *lora_batch))
+        changed = sum(not torch.equal(leaf.to_local().cpu(), was)
+                      for leaf, was in zip(tree_leaves(base), before))
+        int8 = [leaf.dtype for leaf in tree_leaves(base)].count(torch.int8)
+        out["b_lora_llama3_8b"].update(base_leaves=len(before), base_int8_leaves=int8,
+                                       base_changed_leaves=changed)
+        if changed or int8 != 7:
+            raise fail(f"train (b): the int8 base changed ({changed} leaves) or is not int8 "
+                       f"({int8} int8 leaves)")
+        del base, before, lora_state, adapters
+        torch.cuda.empty_cache()
+
+        # (d) the card against the CPU, tiny-test in f32
+        cpu_mesh = make_mesh(MeshPlan(), device_type="cpu")
+        cpu_gen = torch.Generator(device="cpu").manual_seed(seed)
+        params = init_params(TINY_TEST, cpu_gen, torch.float32, device="cpu")
+        tokens = torch.randint(0, TINY_TEST.vocab_size, (4, 32), generator=cpu_gen,
+                               dtype=torch.int32)
+        mask = torch.ones(4, 32)
+        losses: dict = {}
+        for where, on in ((device, mesh), ("cpu", cpu_mesh)):
+            init_state, train_step = make_train_step(TINY_TEST, on)
+            state = init_state(tree_map(lambda t: t.to(where), params))
+            losses[where] = []
+            for _ in range(TRAIN_STEPS):
+                state, loss = train_step(state, tokens.to(where), mask.to(where))
+                losses[where].append(float(loss))
+        worst = max(abs(a - b) / abs(b) for a, b in zip(losses[device], losses["cpu"]))
+        out["d_card_vs_cpu"] = {"losses": losses, "max_rel_diff": worst}
+        print(json.dumps({"train_d_card_vs_cpu": out["d_card_vs_cpu"]}), flush=True)
+        if worst > TRAIN_CPU_RTOL:
+            raise fail(f"train (d): card and CPU losses differ by {worst} relative: {losses}")
+    finally:
+        shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+        dist.destroy_process_group()
+    launches = {name: m.launches for name, m in kernel_modules.items()}
+    out["launches"] = launches
+    out["wall_s"] = time.perf_counter() - begun
+    print(json.dumps({"train": {"launches": launches, "wall_s": out["wall_s"], "card": card}}),
+          flush=True)
+    if any(launches.values()):
+        raise fail(f"train: the training path launched a hand-written kernel: {launches}")
+    results["train"] = out
+    return launches
+
+
 #: the parity phase's shared prefix (byte tokens: 144 cached at page 16)
 PARITY_PREFIX = (
     "You are a Kubernetes failure analyst. Explain the failure using the pattern "
@@ -8816,11 +9032,11 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="also write every result to this JSON file")
     parser.add_argument("--phases",
-                        default="device,kernels,serve,wave,guided,graphs,analysis,checkpoint,"
-                                "tokenizers,operator,remote,fleet,deployed,fabric,prefix,"
-                                "contiguous,parity")
+                        default="device,kernels,train,serve,wave,guided,graphs,analysis,"
+                                "checkpoint,tokenizers,operator,remote,fleet,deployed,fabric,"
+                                "prefix,contiguous,parity")
     parser.add_argument("--seed", type=int, default=0,
-                        help="the guided phase's weights and adapters")
+                        help="the guided and train phases' weights and adapters")
     parser.add_argument("--graphs-warm", metavar="PLAN",
                         help="the graphs phase's warm boot (b), in its own process")
     args = parser.parse_args()
@@ -8889,6 +9105,8 @@ def main() -> int:
     if "kernels" in phases:
         records = timed("kernels", lambda: [phase_kernels(results)] + phase_wave_kernels(results)
                         + [phase_similarity_kernels(results, phases)])
+    train = timed("train", phase_train, results, kernel_modules, args.seed,
+                  "profile" in phases) if "train" in phases else {}
     launches = timed("serve", phase_serve, results, kernel_modules, phases) \
         if "serve" in phases else {}
     if "serve" in phases:
@@ -8961,6 +9179,7 @@ def main() -> int:
         record["launches_guided"] = guided.get(base)
         record["launches_prefix"] = prefix.get(base)
         record["launches_contiguous"] = contiguous.get(base)
+        record["launches_train"] = train.get(base)
     kernels = records
     results["kernels"] = kernels
     device = {

@@ -15,11 +15,14 @@ thing to both linters.  The invariant families ordinary linters cannot see:
   path must spend a budget, not block forever;
 - **lock discipline** — operator/memory state shared between watcher
   threads and the pipeline must only be touched under its guarding lock;
+- **mesh-axis consistency** — every functional collective, mesh lookup
+  and placement spec must name an axis the governing ``DeviceMesh``
+  declares (GL013);
 - the event-loop, replay, release, config, await and chaos-seam rules of
   the JAX catalogue, retargeted at ``operator_tpu_torch/``.
 
-GL008 (Mosaic lowerability) and GL013 (mesh axes) have no counterpart: the
-port's kernels are CUDA C++, and it has no mesh yet.
+GL008 (Mosaic lowerability) has no counterpart: the port's kernels are
+CUDA C++.
 
 ``python -m operator_tpu_torch.analysis --baseline
 analysis-baseline-torch.json`` runs every registered rule over the repo,

@@ -34,8 +34,9 @@ Purely syntactic (``ast``), no torch import.  Three passes:
    ``torch.nn.functional`` / ``F.*`` call or by a call to the port's
    ``ops`` wrappers, and everything derived from those.  Metadata is host
    data and sanitises: the attributes ``.shape``, ``.ndim``, ``.dtype``,
-   ``.device``, ``.is_cuda``, the methods ``.size()``, ``.dim()``,
-   ``.numel()``, and ``len(x)``; so do ``is``/``is not``/``in`` tests.
+   ``.device``, ``.is_cuda``, ``.requires_grad``, the methods ``.size()``,
+   ``.dim()``, ``.numel()``, and ``len(x)``; so do ``is``/``is not``/``in``
+   tests.
    Host-introspection calls under ``torch`` (``torch.cuda.*``,
    ``torch.device``, ``torch.finfo``, ``torch.is_tensor``, ...) yield host
    values.  Taint propagates into callees per call site (positional +
@@ -64,7 +65,7 @@ from .callgraph import (
 from .core import AnalysisContext, ModuleSource
 
 #: attribute accesses that yield host metadata of a tensor
-SANITIZING_ATTRS = {"shape", "ndim", "dtype", "device", "is_cuda"}
+SANITIZING_ATTRS = {"shape", "ndim", "dtype", "device", "is_cuda", "requires_grad"}
 #: tensor methods that return host metadata (``size`` is a method in torch;
 #: ``data_ptr``/``stride`` feed a kernel launch's arguments)
 SANITIZING_METHODS = {"size", "dim", "numel", "data_ptr", "stride",

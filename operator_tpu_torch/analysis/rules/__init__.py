@@ -1,9 +1,8 @@
 """Rule registry — one module per rule, imported here in catalogue order.
 
 The JAX package's catalogue minus GL008 (Mosaic lowerability: the port's
-kernels are CUDA C++, not Python kernel bodies) and GL013 (mesh axes: the
-port has no mesh yet).  The ids keep their JAX meaning, so one pragma means
-the same thing to both linters."""
+kernels are CUDA C++, not Python kernel bodies).  The ids keep their JAX
+meaning, so one pragma means the same thing to both linters."""
 
 from __future__ import annotations
 
@@ -19,6 +18,7 @@ from .gl009_release import ResourceReleaseRule
 from .gl010_config import ConfigDriftRule
 from .gl011_await_atomicity import AwaitAtomicityRule
 from .gl012_seam_coverage import ChaosSeamCoverage
+from .gl013_mesh_axes import MeshAxisConsistency
 
 ALL_RULES: list[Rule] = [
     HostSyncInHotPath(),
@@ -32,6 +32,7 @@ ALL_RULES: list[Rule] = [
     ConfigDriftRule(),
     AwaitAtomicityRule(),
     ChaosSeamCoverage(),
+    MeshAxisConsistency(),
 ]
 
 

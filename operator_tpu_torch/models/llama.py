@@ -283,16 +283,22 @@ class KVCache:
 # --------------------------------------------------------------------------
 
 
-def _layer_weights(layers: dict[str, Any], index: int) -> dict[str, Any]:
-    """Layer ``index``'s slice of the stacked weights (int8 groups stay
-    groups)."""
-    out = {}
-    for name, leaf in layers.items():
-        if isinstance(leaf, dict):
-            out[name] = {key: value[index] for key, value in leaf.items()}
-        else:
-            out[name] = leaf[index]
-    return out
+def _layer_views(layers: dict[str, Any], count: int) -> list[dict[str, Any]]:
+    """The ``count`` layers' slices of the stacked weights, from one
+    ``unbind`` per leaf (int8 groups stay groups).  Under autograd a
+    stack's gradient is then one ``stack`` of the layers' gradients,
+    where a ``select`` per layer would add a zero-filled stack per layer."""
+    unbound = {
+        name: ({key: value.unbind(0) for key, value in leaf.items()}
+               if isinstance(leaf, dict) else leaf.unbind(0))
+        for name, leaf in layers.items()
+    }
+    return [
+        {name: ({key: value[index] for key, value in leaf.items()}
+                if isinstance(leaf, dict) else leaf[index])
+         for name, leaf in unbound.items()}
+        for index in range(count)
+    ]
 
 
 def _lora_path(
@@ -519,8 +525,7 @@ def forward(
     else:
         q_chunk = None  # explicit mask: dense semantics the mask encodes
 
-    for index in range(config.num_layers):
-        weights = _layer_weights(params["layers"], index)
+    for index, weights in enumerate(_layer_views(params["layers"], config.num_layers)):
         layer_lora = _layer_lora(lora, index, lora_alpha, lora_indices)
         attn_in = rms_norm(x, weights["ln_attn"], config.rms_norm_eps)
         q = _proj(attn_in, weights, "wq", layer_lora).reshape(b, t, qh, hd)
@@ -606,8 +611,7 @@ def decode_step_paged(
     x = params["embed"][token_ids.long()]  # [B, 1, H]
     new_lengths = paged.lengths + 1
 
-    for index in range(config.num_layers):
-        weights = _layer_weights(params["layers"], index)
+    for index, weights in enumerate(_layer_views(params["layers"], config.num_layers)):
         layer_lora = _layer_lora(lora, index, lora_alpha, lora_indices)
         attn_in = rms_norm(x, weights["ln_attn"], config.rms_norm_eps)
         q = _proj(attn_in, weights, "wq", layer_lora).reshape(b, 1, qh, hd)

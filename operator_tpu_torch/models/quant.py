@@ -87,11 +87,33 @@ def quantize_params(params: Params, config: ModelConfig) -> Params:
     return {**params, "layers": layers}
 
 
+class _Int8MatMul(torch.autograd.Function):
+    """``(x @ q) * s`` under autograd, saving the int8 ``q`` and its scale
+    rather than the activation-dtype copy of ``q`` that a plain product
+    would save for its backward pass (for llama-3-8b, about 14 GB of bf16
+    beside 7 GB of int8).  The backward pass casts ``q`` again.  The base
+    is frozen: no gradient flows to ``q`` or ``s``."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(q, s)
+        return (x @ q.to(x.dtype)) * s.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor) -> tuple:
+        q, s = ctx.saved_tensors
+        return (grad * s.to(grad.dtype)) @ q.to(grad.dtype).transpose(-1, -2), None, None
+
+
 def mm(x: torch.Tensor, w: Union[torch.Tensor, dict[str, torch.Tensor]]) -> torch.Tensor:
     """``x @ W`` for plain or quantized weights: the int8 matrix is cast
     to the activation dtype going into the product and the per-channel
-    scale folds into the result."""
+    scale folds into the result.  Where ``x`` needs a gradient, the int8
+    product runs through :class:`_Int8MatMul`, which keeps the base
+    int8 between the forward and the backward pass."""
     if isinstance(w, dict):
+        if x.requires_grad and torch.is_grad_enabled():
+            return _Int8MatMul.apply(x, w["q"], w["s"])
         return (x @ w["q"].to(x.dtype)) * w["s"].to(x.dtype)
     return x @ w
 

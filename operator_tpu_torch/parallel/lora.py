@@ -1,7 +1,7 @@
-"""LoRA adapters for serving: init, merge, stack, save and load.
+"""LoRA adapters: init, merge, stack, save and load, and training.
 
-Port of the serving half of ``operator_tpu/parallel/lora.py``.  An
-adapter trains only rank-r factors per projection::
+Port of ``operator_tpu/parallel/lora.py``.  An adapter trains only
+rank-r factors per projection::
 
     W_eff = W + (alpha / r) * A @ B      A: [in, r]   B: [r, out]
 
@@ -14,23 +14,32 @@ projections (``models/llama.py:_lora_path``), never expanding a delta
 matrix.  :func:`merge_lora` folds one adapter into the weights once, the
 reference the stacked path is held to.
 
+Training (:func:`make_lora_train_step`) threads the factors through
+``forward(lora=...)`` over a frozen base, which may be int8, so
+gradients exist for the rank-r factors alone; the adapters rest on the
+mesh at :func:`lora_specs`, derived from each base matrix's spec (A
+takes the base fan-in axis, B the fan-out axis).
+
 Files are one safetensors file per adapter, tensors named
 ``lora.{target}.{a|b}``, written and read through ``models/loader.py``
-in the JAX package's byte layout.  Training (``make_lora_train_step``)
-and the mesh specs (``lora_specs``, ``lora_shardings``) are not ported
-(ROADMAP Queue 1 item 11).
+in the JAX package's byte layout.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Any, Sequence, Union
+from typing import TYPE_CHECKING, Any, Optional, Sequence, Union
 
 import torch
 
 from ..models.configs import ModelConfig
 from ..models.llama import Params, layer_matrix_shapes
 from ..models.loader import read_safetensors, write_safetensors
+
+if TYPE_CHECKING:
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from .train import OptimizerFactory
 
 __all__ = [
     "DEFAULT_TARGETS",
@@ -39,6 +48,9 @@ __all__ = [
     "init_lora",
     "load_lora",
     "lora_param_count",
+    "lora_shardings",
+    "lora_specs",
+    "make_lora_train_step",
     "merge_lora",
     "save_lora",
     "stack_adapters",
@@ -200,3 +212,85 @@ def load_lora(
         if set(factors) != {"a", "b"}:
             raise ValueError(f"adapter target {name!r} is missing a factor")
     return adapters
+
+
+# --------------------------------------------------------------------------
+# training (the mesh modules import torch.distributed.tensor, so they are
+# imported here only when training asks for them, not by serving)
+# --------------------------------------------------------------------------
+
+
+def lora_specs(config: ModelConfig, targets: Sequence[str]) -> Any:
+    """Specs for adapter factors, derived from each base matrix's spec
+    (``mesh.param_specs``): A takes the base fan-in axis, B the base
+    fan-out axis, so column-parallel wq/wk/wv (in on fsdp, out on tp)
+    and row-parallel wo/w_down (in on tp, out on fsdp) both merge without
+    resharding a full-size matrix."""
+    from .mesh import P, param_specs
+
+    base = param_specs(config)["layers"]  # plain (unquantized) matrix specs
+    return {
+        name: {"a": P(None, base[name][1], None),  # [n, in, r]
+               "b": P(None, None, base[name][2])}  # [n, r, out]
+        for name in targets
+    }
+
+
+def lora_shardings(mesh: DeviceMesh, adapters: LoraParams, config: ModelConfig) -> Any:
+    """The placements of every adapter factor on ``mesh``."""
+    from .mesh import placements, tree_map
+
+    return tree_map(lambda spec: placements(spec, mesh), lora_specs(config, tuple(adapters)))
+
+
+def make_lora_train_step(
+    config: ModelConfig,
+    mesh: DeviceMesh,
+    *,
+    alpha: float = 16.0,
+    targets: Sequence[str] = DEFAULT_TARGETS,
+    quantized_base: bool = False,
+    optimizer: Optional[OptimizerFactory] = None,
+):
+    """Returns ``(init_state, train_step)``: trains only the adapters.
+
+    ``init_state(adapters)`` copies the factors onto :func:`lora_specs`
+    and zeroes their moments there.  ``train_step(state, base_params,
+    token_ids, loss_mask)`` returns ``(state, loss)``: the forward
+    threads the rank-r factors through ``forward(lora=...)`` (no delta
+    matrix, no full-rank gradient), so what trains is the factors and
+    their moments.  The base is frozen and never written; it is placed
+    (``param_shardings(..., quantized=quantized_base)``) or whole, and
+    ``quantized_base`` says whether its layer matrices are int8 ``{q,
+    s}`` groups.  The input state is consumed, as in
+    :func:`~.train.make_train_step`."""
+    from .mesh import param_specs, tree_map, tree_structure
+    from .train import (
+        _apply, _batch_rows, _loss_terms, _start, _value_and_grad, _whole, make_optimizer,
+    )
+
+    optimizer = optimizer or make_optimizer()
+    base_specs = param_specs(config, quantized=quantized_base)
+
+    def init_state(adapters: LoraParams):
+        if set(adapters) != set(targets):
+            raise ValueError(f"adapters {sorted(adapters)} do not match the targets "
+                             f"{sorted(targets)}")
+        return _start(adapters, lora_shardings(mesh, adapters, config), mesh, optimizer)
+
+    def train_step(state, base_params: Params, token_ids: torch.Tensor,
+                   loss_mask: torch.Tensor):
+        if tree_structure(base_params) != tree_structure(base_specs):
+            kind = "an int8" if quantized_base else "a float"
+            raise ValueError(f"base_params is not {kind} param tree of {config.name}")
+        tokens, mask = _batch_rows(token_ids, mesh), _batch_rows(loss_mask, mesh)
+        with torch.no_grad():
+            base = tree_map(_whole, base_params)
+        loss, grads = _value_and_grad(
+            state.params,
+            lambda adapters: _loss_terms(base, config, tokens, mask, adapters, alpha),
+            mesh,
+        )
+        return _apply(state, grads), loss
+
+    return init_state, train_step

@@ -30,7 +30,7 @@ import torch
 
 from ...models.configs import ModelConfig
 from ...models.llama import (
-    _layer_weights,
+    _layer_views,
     _logits,
     _mlp,
     _proj,
@@ -117,8 +117,7 @@ def make_mixed_step(
         gather_in_row = in_row.long()
         token_live = valid[:, None, None]
 
-        for index in range(config.num_layers):
-            weights = _layer_weights(params["layers"], index)
+        for index, weights in enumerate(_layer_views(params["layers"], config.num_layers)):
             attn_in = rms_norm(x, weights["ln_attn"], eps)
             q = _proj(attn_in, weights, "wq").reshape(1, t_budget, qh, hd)
             k = _proj(attn_in, weights, "wk").reshape(1, t_budget, kvh, hd)

@@ -4,7 +4,7 @@ baseline, pragmas, and the port's linter held to the JAX package's.
 Four parts:
 
 - mirrors of tests/test_analysis.py for every ported rule, on fixtures under
-  operator_tpu_torch/ (GL008 and GL013 have no counterpart); GL001/GL002 on
+  operator_tpu_torch/ (GL008 has no counterpart); GL001/GL002 on
   PyTorch fixtures, one per CUDA-graph root form the port uses, one negative
   case per sanitiser, and the step loop's deliberate syncs left unflagged;
 - parity: the same host-code fixture under operator_tpu/ for the JAX rule and
@@ -44,7 +44,7 @@ from operator_tpu_torch.analysis.rules.gl005_drift import undocumented_metrics
 REPO_ROOT = Path(__file__).resolve().parent.parent
 PORT_RULES = (
     "GL001", "GL002", "GL003", "GL004", "GL005", "GL006",
-    "GL007", "GL009", "GL010", "GL011", "GL012",
+    "GL007", "GL009", "GL010", "GL011", "GL012", "GL013",
 )
 
 
@@ -524,6 +524,7 @@ _SANITISERS = [
     "x.dtype == torch.float16",
     "x.device.type == 'cuda'",
     "x.is_cuda",
+    "x.requires_grad and torch.is_grad_enabled()",
     "x.size(0) > 1",
     "x.dim() == 2",
     "x.numel() > 0",
@@ -1732,6 +1733,133 @@ def test_gl012_python_injection_unknown_seam_is_flagged(tmp_path):
 
 
 # ---------------------------------------------------------------------------
+# GL013 mesh-axis consistency
+# ---------------------------------------------------------------------------
+
+
+def test_gl013_positive_undeclared_collective_axis(tmp_path):
+    findings, _ = run_rule(tmp_path, "GL013", {
+        "operator_tpu_torch/parallel/comm.py": """
+            import torch.distributed._functional_collectives as funcol
+            from torch.distributed.device_mesh import init_device_mesh
+
+            def build():
+                return init_device_mesh("cuda", (2, 2), mesh_dim_names=("dp", "tp"))
+
+            def allreduce(x, mesh):
+                return funcol.all_reduce(x, "sum", (mesh, "model"))
+        """,
+    })
+    assert len(findings) == 1
+    assert "collective all_reduce" in findings[0].message
+    assert "axis 'model'" in findings[0].message
+    assert "dp" in findings[0].message and "tp" in findings[0].message
+
+
+def test_gl013_positive_spec_axis_not_in_mesh(tmp_path):
+    findings, _ = run_rule(tmp_path, "GL013", {
+        "operator_tpu_torch/parallel/shard.py": """
+            from torch.distributed.device_mesh import init_device_mesh
+
+            from operator_tpu_torch.parallel.mesh import P
+
+            AXES = ("dp", "tp")
+
+            def specs():
+                mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=AXES)
+                return mesh, P(None, "model")
+        """,
+    })
+    assert len(findings) == 1
+    assert "spec P(...)" in findings[0].message
+    assert "axis 'model'" in findings[0].message
+
+
+def test_gl013_nested_mesh_shadowing(tmp_path):
+    """The nearest enclosing ``with DeviceMesh(...)`` SHADOWS the module
+    environment: an inner pipeline mesh redefines the axis world, so an
+    outer-mesh axis looked up inside it is a finding."""
+    findings, _ = run_rule(tmp_path, "GL013", {
+        "operator_tpu_torch/parallel/pipe.py": """
+            from torch.distributed import _functional_collectives as funcol
+            from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+
+            def run(stage_ranks, x):
+                mesh = init_device_mesh("cuda", (2, 2), mesh_dim_names=("dp", "tp"))
+                with DeviceMesh("cuda", stage_ranks, mesh_dim_names=("stage",)):
+                    group = mesh.get_group("tp")
+                return funcol.all_reduce(x, "sum", group=(mesh, "dp")), group
+        """,
+    })
+    assert len(findings) == 1
+    assert "get_group" in findings[0].message
+    assert "axis 'tp'" in findings[0].message
+    assert "stage" in findings[0].message
+
+
+def test_gl013_negative_declared_axes_and_meshless_module(tmp_path):
+    """group= keyword, bare funcol imports, mesh[...] lookups, AXES
+    constants resolved cross-module, and a module that declares NO mesh
+    (empty environment: skipped, its specs are checked where a mesh is
+    in scope)."""
+    findings, _ = run_rule(tmp_path, "GL013", {
+        "operator_tpu_torch/parallel/mesh.py": """
+            AXES = ("dp", "tp")
+
+            class P(tuple):
+                pass
+        """,
+        "operator_tpu_torch/parallel/good.py": """
+            from torch.distributed._functional_collectives import all_reduce
+            from torch.distributed.device_mesh import init_device_mesh
+
+            from operator_tpu_torch.parallel.mesh import AXES, P
+
+            def reduce(x):
+                with init_device_mesh("cpu", (2, 2), mesh_dim_names=AXES) as mesh:
+                    return (all_reduce(x, "sum", group=(mesh, "dp")), P("dp", None),
+                            mesh["tp"], mesh["dp", "tp"], mesh.get_local_rank("dp"))
+        """,
+        "operator_tpu_torch/serving/layout.py": """
+            from operator_tpu_torch.parallel.mesh import P
+
+            def spec():
+                return P(None, "model")
+        """,
+    })
+    assert findings == []
+
+
+def test_gl013_mesh_subscript_of_an_undeclared_axis(tmp_path):
+    findings, _ = run_rule(tmp_path, "GL013", {
+        "operator_tpu_torch/serving/sharded.py": """
+            from torch.distributed.device_mesh import init_device_mesh
+
+            def tp_group():
+                device_mesh = init_device_mesh("cuda", (4,), mesh_dim_names=("tp",))
+                return device_mesh["dp", "tp"], {"dp": 1}["dp"]
+        """,
+    })
+    assert len(findings) == 1
+    assert "mesh lookup" in findings[0].message and "axis 'dp'" in findings[0].message
+
+
+def test_gl013_holds_the_ports_mesh_module(tmp_path):
+    """The port's own parallel/ modules are clean, and a mistyped axis
+    added to parallel/mesh.py's specs is caught."""
+    files = {rel: (REPO_ROOT / rel).read_text() for rel in (
+        "operator_tpu_torch/parallel/mesh.py", "operator_tpu_torch/parallel/train.py",
+        "operator_tpu_torch/parallel/lora.py")}
+    findings, _ = run_rule(tmp_path / "clean", "GL013", files)
+    assert findings == []
+    files["operator_tpu_torch/parallel/mesh.py"] = files[
+        "operator_tpu_torch/parallel/mesh.py"].replace('"wo": P(None, "tp", f)',
+                                                       '"wo": P(None, "tpp", f)')
+    findings, _ = run_rule(tmp_path / "mutated", "GL013", files)
+    assert len(findings) == 1 and "axis 'tpp'" in findings[0].message
+
+
+# ---------------------------------------------------------------------------
 # widened scopes: router/discovery.py + operator/autoscale.py
 # ---------------------------------------------------------------------------
 
@@ -1976,15 +2104,15 @@ def test_cli_list_rules(capsys):
     out = capsys.readouterr().out
     for rule_id in PORT_RULES:
         assert rule_id in out
-    # no counterpart: Mosaic lowerability (CUDA C++ kernels), mesh axes
-    assert "GL008" not in out and "GL013" not in out
+    # no counterpart: Mosaic lowerability (CUDA C++ kernels)
+    assert "GL008" not in out
 
 
 def test_cli_unknown_rule_is_usage_error(capsys):
     assert cli_main(["--rules", "GL999"]) == 2
 
 
-@pytest.mark.parametrize("rule_id", ["GL008", "GL013"])
+@pytest.mark.parametrize("rule_id", ["GL008"])
 def test_cli_jax_only_rules_are_unknown(capsys, rule_id):
     assert cli_main(["--rules", rule_id]) == 2
     assert f"unknown rule id(s): {rule_id}" in capsys.readouterr().err
