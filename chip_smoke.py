@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py [--out results.json] [--seed N]
         [--phases device,kernels,train,serve,wave,guided,graphs,analysis,checkpoint,
-                  tokenizers,operator,remote,fleet,deployed,fabric,prefix,contiguous,parity]
+                  tokenizers,operator,remote,fleet,deployed,fabric,prefix,contiguous,mesh,
+                  parity]
 
 Runs on one CUDA card, from the root of a checkout; exits non-zero, and
 prints no result, when no card is present or the package is missing.
@@ -452,7 +453,32 @@ Phases, in order — any failure stops the run:
    (c) On the worker: four live decode rows and a 16 x 2,048 wave with
    ``PREFILL_CHUNK=256`` (eight chunks, decode blocks between them), each
    row's first-token logits within 0.25 of the one-shot K4 wave's;
-17. parity: small f32 ``tiny-test`` engines on the card (kernels) and on
+17. mesh: sharded serving (``SERVING_MESH``) on the wave engine, the
+   deployed replica's knobs (llama-3-8b in int8 from a seed, 32 slots,
+   ``SCHED_MODE`` at its default, continuous, which must fall back to the
+   wave engine with the reference's warning naming the mesh, block 4,
+   depth 2, flash prefill on).  (a) ``SERVING_MESH=dp=1,tp=1`` (and
+   ``auto``, which must plan 1x1x1) at full width on a one-rank nccl
+   group: every program a CUDA graph with its collectives inside; the
+   ten wave-phase requests through the HTTP server: K4 32 times per
+   prefill wave, K2/K3 32 x 4 per decode block, K1 and K5 never; one
+   wave's 32 K4 calls and one decode step's 32 K2/K3 calls held to the
+   plain versions at D = 128 (every row); ten short greedy prompts equal
+   to the same wave engine built without ``SERVING_MESH``; tokens/s,
+   stream ms per block and memory.  (b) ``dp=1,tp=4``: four rank
+   processes (``--mesh-rank``, torchrun's environment) sharing the card
+   over gloo, programs eager by the engine's stated mode, llama-3-8b at
+   every width but ``MESH_B_LAYERS`` layers: each rank holds a quarter
+   of the layer matrices (memory per rank) and launches K2/K3 and K4 at
+   QH 8, KH 2, D 128 (per-rank counts held as in (a)); the next-token
+   logits of four rows within ``MESH_LOGIT_TOL`` of one rank's at that
+   depth, and the ten greedy answers equal wherever the one-rank model's
+   top-two margin exceeds it.  (c) ``dp=2,tp=2`` on four ranks at
+   tinyllama-1.1b width, loaded from a bf16 HF checkpoint (written here)
+   through the sharded loader in int8, 16 slots per data rank: every
+   prefill bucket a multiple of 2, the answers held to a one-rank
+   engine's as in (b), per-rank launches;
+18. parity: small f32 ``tiny-test`` engines on the card (kernels) and on
    the CPU (plain versions) must give the same greedy tokens — the
    continuous engine, and the wave engine with the decode selector at
    ``v1`` and ``v2`` and flash prefill on and off, and with a shared
@@ -1001,9 +1027,11 @@ def cached_tokens(prompt_tokens: int, page: int = PAGE) -> int:
     return (prompt_tokens - 1) // page * page
 
 
-def decode_case(name: str, dtype, seed: int):
+def decode_case(name: str, dtype, seed: int, heads: tuple = (QH, KH, D)):
     """(args, window, lengths) of the paged decode kernel at tinyllama's
-    shapes: 32 rows, page 64, 32 pages per row."""
+    shapes: 32 rows, page 64, 32 pages per row (``heads``: another
+    model's or a tp rank's (QH, KH, D))."""
+    qh, kh, d = heads
     import numpy as np
     import torch
 
@@ -1027,9 +1055,9 @@ def decode_case(name: str, dtype, seed: int):
     table = (1 + rng.permutation(num_pages - 1)[: B * PPS]).reshape(B, PPS)
     table[released] = 0
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    shape = (num_pages, PAGE, KH, D)
+    shape = (num_pages, PAGE, kh, d)
     args = (
-        torch.randn((B, QH, D), generator=gen, device="cuda").to(dtype),
+        torch.randn((B, qh, d), generator=gen, device="cuda").to(dtype),
         torch.randn(shape, generator=gen, device="cuda").to(dtype),
         torch.randn(shape, generator=gen, device="cuda").to(dtype),
         torch.as_tensor(table, dtype=torch.int32, device="cuda"),
@@ -1038,11 +1066,12 @@ def decode_case(name: str, dtype, seed: int):
     return args, window, lengths
 
 
-def decode_bound(lengths, window, itemsize):
+def decode_bound(lengths, window, itemsize, heads: tuple = (QH, KH, D)):
     """Least time of one decode call: each row's live K and V read once,
     q read, out written, the ids of the pages holding live keys and the
     lengths read; 4 * keys * QH * D operations at the bf16 tensor-core
     peak."""
+    QH, KH, D = heads  # noqa: N806 - the module's names, another geometry's values
     keys = live_pages = 0
     for n in map(int, lengths):
         first = max(n - window, 0) if window else 0
@@ -1060,8 +1089,9 @@ def decode_library_call(args, window):
     import torch
 
     q, k_pages, v_pages, table, lengths = args
-    k = k_pages[table.long()].reshape(B, MAX_SEQ, KH, D).transpose(1, 2).contiguous()
-    v = v_pages[table.long()].reshape(B, MAX_SEQ, KH, D).transpose(1, 2).contiguous()
+    kh, d = k_pages.shape[2:]
+    k = k_pages[table.long()].reshape(B, MAX_SEQ, kh, d).transpose(1, 2).contiguous()
+    v = v_pages[table.long()].reshape(B, MAX_SEQ, kh, d).transpose(1, 2).contiguous()
     pos = torch.arange(MAX_SEQ, device="cuda")[None, :]
     mask = pos < lengths.long()[:, None]
     if window is not None:
@@ -1069,9 +1099,10 @@ def decode_library_call(args, window):
     return sdpa(q[:, :, None, :].contiguous(), k, v, mask[:, None, None, :])
 
 
-def prefill_case(name: str, dtype, seed: int):
+def prefill_case(name: str, dtype, seed: int, heads: tuple = (QH, KH, D)):
     """(args, window, lengths) of the flash-prefill kernel at tinyllama's
-    head layout."""
+    head layout (``heads``: another model's or a tp rank's)."""
+    qh, kh, d = heads
     import numpy as np
     import torch
 
@@ -1097,15 +1128,15 @@ def prefill_case(name: str, dtype, seed: int):
     b = len(lengths)
     gen = torch.Generator(device="cuda").manual_seed(seed)
     args = (
-        torch.randn((b, t, QH, D), generator=gen, device="cuda").to(dtype),
-        torch.randn((b, t, KH, D), generator=gen, device="cuda").to(dtype),
-        torch.randn((b, t, KH, D), generator=gen, device="cuda").to(dtype),
+        torch.randn((b, t, qh, d), generator=gen, device="cuda").to(dtype),
+        torch.randn((b, t, kh, d), generator=gen, device="cuda").to(dtype),
+        torch.randn((b, t, kh, d), generator=gen, device="cuda").to(dtype),
         torch.as_tensor(lengths, dtype=torch.int32, device="cuda"),
     )
     return args, window, np.asarray(lengths)
 
 
-def prefill_bound(lengths, t, window, itemsize):
+def prefill_bound(lengths, t, window, itemsize, heads: tuple = (QH, KH, D)):
     """Least time of one prefill call: q read and out written over all T
     positions (padded query rows are part of the output), K and V read at
     the positions some query row attends to — the first ``length`` of
@@ -1116,6 +1147,7 @@ def prefill_bound(lengths, t, window, itemsize):
     bf16 tensor-core peak."""
     import numpy as np
 
+    QH, KH, D = heads  # noqa: N806 - the module's names, another geometry's values
     q_pos = np.arange(t)
     kv_rows = flops = 0
     for length in lengths.tolist():
@@ -1150,9 +1182,20 @@ def prefill_library_call(args, window):
     )
 
 
+#: the wave kernels' head layouts (QH, KH, D): tinyllama-1.1b's (the wave
+#: phase), llama-3-8b's (the deployed model) and one tp rank's share of
+#: llama-3-8b's under the deployed plan's tp = 4 (the mesh phase)
+WAVE_HEADS = {
+    "tinyllama-1.1b": (QH, KH, D),
+    "llama-3-8b": (32, 8, 128),
+    "llama-3-8b/tp4": (8, 2, 128),
+}
+
+
 def phase_wave_kernels(results: dict) -> list:
     """The paged decode kernel (K2/K3) and the flash-prefill kernel (K4)
-    against their plain versions, every row; then their times."""
+    against their plain versions, every row, at each of ``WAVE_HEADS``;
+    then their times."""
     import torch
 
     from operator_tpu_torch.ops import flash_prefill as fp
@@ -1166,49 +1209,59 @@ def phase_wave_kernels(results: dict) -> list:
         "prefill_t64_b1", "prefill_t512_b8", "prefill_t2048_b1", "prefill_t2048_b8",
         "prefill_window",
     )]
-    for dtype in (torch.bfloat16, torch.float32):
-        dname = str(dtype).replace("torch.", "")
-        for seed, (kind, name) in enumerate(cases):
-            if kind == "decode":
-                args, window, _ = decode_case(name, dtype, seed)
-                got = pa.paged_attention_cuda(*args, sliding_window=window)
-                torch.cuda.synchronize()
-                want = pa.paged_attention_reference(*args, sliding_window=window)
-            else:
-                args, window, _ = prefill_case(name, dtype, seed)
-                got = fp.flash_prefill_cuda(*args, sliding_window=window)
-                torch.cuda.synchronize()
-                want = fp.flash_prefill_reference(*args, sliding_window=window)
-            err = (got.float() - want.float()).abs().max().item()
-            finite = bool(torch.isfinite(got.float()).all().item())
-            del got, want
-            torch.cuda.empty_cache()
-            tol = WAVE_TOL[dname]
-            checks.append({"kernel": kind, "geometry": name, "dtype": dname,
-                           "max_abs_err": err, "tol": tol, "finite": finite})
-            print(json.dumps({"kernel_check": checks[-1]}), flush=True)
-            if not finite or not err <= tol:
-                raise fail(f"{kind} kernel {name}/{dname}: max_abs_err={err} (tol {tol})")
-            if dname == "bfloat16":
-                worst[kind] = max(worst[kind], err)
+    for heads_name, heads in WAVE_HEADS.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            dname = str(dtype).replace("torch.", "")
+            for seed, (kind, name) in enumerate(cases):
+                if kind == "decode":
+                    args, window, _ = decode_case(name, dtype, seed, heads)
+                    got = pa.paged_attention_cuda(*args, sliding_window=window)
+                    torch.cuda.synchronize()
+                    want = pa.paged_attention_reference(*args, sliding_window=window)
+                else:
+                    args, window, _ = prefill_case(name, dtype, seed, heads)
+                    got = fp.flash_prefill_cuda(*args, sliding_window=window)
+                    torch.cuda.synchronize()
+                    want = fp.flash_prefill_reference(*args, sliding_window=window)
+                err = (got.float() - want.float()).abs().max().item()
+                finite = bool(torch.isfinite(got.float()).all().item())
+                del got, want, args
+                torch.cuda.empty_cache()
+                tol = WAVE_TOL[dname]
+                checks.append({"kernel": kind, "geometry": name, "heads": heads_name,
+                               "dtype": dname, "max_abs_err": err, "tol": tol,
+                               "finite": finite})
+                print(json.dumps({"kernel_check": checks[-1]}), flush=True)
+                if not finite or not err <= tol:
+                    raise fail(f"{kind} kernel {name}/{heads_name}/{dname}: "
+                               f"max_abs_err={err} (tol {tol})")
+                if dname == "bfloat16":
+                    worst[kind] = max(worst[kind], err)
     timings = {}
-    for kind, name in (("decode", "decode_wave"), ("decode", "decode_mixed"),
-                       ("prefill", "prefill_wave"), ("prefill", "prefill_t2048_b8")):
+    timed_cases = [(kind, name, "tinyllama-1.1b") for kind, name in (
+        ("decode", "decode_wave"), ("decode", "decode_mixed"),
+        ("prefill", "prefill_wave"), ("prefill", "prefill_t2048_b8"))]
+    timed_cases += [(kind, name, heads) for heads in ("llama-3-8b", "llama-3-8b/tp4")
+                    for kind, name in (("decode", "decode_wave"), ("prefill", "prefill_wave"))]
+    for kind, name, heads_name in timed_cases:
+        heads = WAVE_HEADS[heads_name]
         if kind == "decode":
-            args, window, lengths = decode_case(name, torch.bfloat16, 100)
-            bound_ms, bound_by = decode_bound(lengths, window, 2)
+            args, window, lengths = decode_case(name, torch.bfloat16, 100, heads)
+            bound_ms, bound_by = decode_bound(lengths, window, 2, heads)
             kernel = lambda: pa.paged_attention_cuda(*args, sliding_window=window)  # noqa: E731
             plain = lambda: pa.paged_attention_reference(*args, sliding_window=window)  # noqa: E731
             library = decode_library_call(args, window)
             iters = (50, 5, 20)
         else:
-            args, window, lengths = prefill_case(name, torch.bfloat16, 100)
-            bound_ms, bound_by = prefill_bound(lengths, args[0].shape[1], window, 2)
+            args, window, lengths = prefill_case(name, torch.bfloat16, 100, heads)
+            bound_ms, bound_by = prefill_bound(lengths, args[0].shape[1], window, 2, heads)
             kernel = lambda: fp.flash_prefill_cuda(*args, sliding_window=window)  # noqa: E731
             plain = lambda: fp.flash_prefill_reference(*args, sliding_window=window)  # noqa: E731
             library = prefill_library_call(args, window)
             iters = (5, 2, 5)
-        timings[name] = {
+        key = name if heads_name == "tinyllama-1.1b" else f"{name}@{heads_name}"
+        timings[key] = {
+            "heads": heads_name,
             "ms": time_ms(kernel, iters[0]),
             "plain_ms": time_ms(plain, iters[1], warmup=1),
             "bound_ms": bound_ms,
@@ -1218,20 +1271,22 @@ def phase_wave_kernels(results: dict) -> list:
         del args, library
         torch.cuda.empty_cache()
         print(json.dumps({"kernel_timing": {
-            "geometry": name, **timings[name], "bound_us": bound_ms * 1e3,
+            "geometry": key, **timings[key], "bound_us": bound_ms * 1e3,
         }}), flush=True)
     results["wave_kernel_checks"] = checks
     results["wave_kernel_timings"] = timings
     # both selector values launch this one kernel, so its check and times
     # stand in both records; each record's launches come from the wave
     # drive under its own selector value
+    deployed = ("llama-3-8b", "llama-3-8b/tp4")
     decode = {
         "route": "cuda",
         "source": "operator_tpu_torch/ops/csrc/paged_attention.cu",
         "launches": None,  # filled by the wave phase
         "max_abs_err": worst["decode"],
         **timings["decode_wave"],
-        "geometries": {name: timings[name] for name in ("decode_wave", "decode_mixed")},
+        "geometries": {name: timings[name] for name in (
+            "decode_wave", "decode_mixed", *(f"decode_wave@{h}" for h in deployed))},
     }
     return [
         {"name": "paged_decode_attention_v2", **decode,
@@ -1242,7 +1297,9 @@ def phase_wave_kernels(results: dict) -> list:
          "source": "operator_tpu_torch/ops/csrc/flash_prefill.cu",
          "replaces": "operator_tpu/ops/flash_prefill.py:78",
          "launches": None, "max_abs_err": worst["prefill"],
-         **timings["prefill_wave"]},
+         **timings["prefill_wave"],
+         "geometries": {name: timings[name] for name in (
+             "prefill_wave", "prefill_t2048_b8", *(f"prefill_wave@{h}" for h in deployed))}},
     ]
 
 
@@ -7987,6 +8044,473 @@ def contiguous_chunked(engine) -> dict:
     return record
 
 
+# ---------------------------------------------------------------------------
+# the mesh phase: SERVING_MESH on the wave engine
+# ---------------------------------------------------------------------------
+
+#: the deployed replica's knobs (deploy/serving-deployment.yaml): llama-3-8b
+#: in int8, 32 slots, SCHED_MODE at its default (continuous: a mesh falls
+#: back to the wave engine), decode block 4, pipeline depth 2
+MESH_ENV = {
+    "OPERATOR_TPU_MODEL": "llama-3-8b",
+    "ALLOW_RANDOM_WEIGHTS": "true",
+    "SERVING_DTYPE": "int8",
+    "MAX_BATCH_SIZE": "32",
+    "KV_PAGE_SIZE": "64",
+    "DECODE_BLOCK": "4",
+    "PIPELINE_DEPTH": "2",
+}
+#: rehearsal on the CPU: "cpu", and tiny models in MESH_MODELS
+MESH_DEVICE = "cuda"
+#: (a) and (b)'s model, (c)'s model
+MESH_MODELS = ("llama-3-8b", "tinyllama-1.1b")
+#: (b)'s depth: four ranks share the card over gloo, whose all-reduce of a
+#: decode step's [32, 4096] bf16 activations takes milliseconds
+#: (``scripts/torch_mesh_probe.py``), two per layer; every width stays
+MESH_B_LAYERS = 8
+#: (b) and (c)'s prompts (bytes) and tokens: short, so a prefill wave's
+#: all-reduces stay small on gloo; every answer greedy
+MESH_PROMPT_CHARS = [16, 40, 100, 220, 64, 120, 180, 30, 200, 90]
+MESH_TOKENS = 16
+#: (b): the next-token logits of four 32-token rows on four tp ranks
+#: against one rank's (bf16: each rank's partial sums round before the
+#: all-reduce adds them), and the top-two margin of the one-rank model
+#: under which a greedy token may differ
+MESH_LOGIT_TOL = 0.25
+MESH_RANK_TIMEOUT_S = 600.0
+MESH_DIR = os.path.join(ROOT, "build", "chip_smoke_mesh")
+
+
+def mesh_bodies() -> list:
+    return [(LOG_LINE * (n // len(LOG_LINE) + 1))[:n] for n in MESH_PROMPT_CHARS]
+
+
+def mesh_config(name: str, layers: "int | None" = None):
+    """A model of the registry, at ``layers`` depth (registered under its
+    own name, so ``build_serving_engine`` reads it by name)."""
+    from operator_tpu_torch.models import configs
+
+    config = configs.get_config(name)
+    if layers is None or layers == config.num_layers:
+        return config
+    cut = dataclasses.replace(config, num_layers=layers, name=f"{name}-d{layers}")
+    configs._REGISTRY[cut.name] = cut
+    return cut
+
+
+def next_token_logits(g, seed: int = 7):
+    """The model's next-token logits for four 32-token rows (seeded ids),
+    through the generator's shard where it has one: every rank of a mesh
+    must call this together."""
+    import numpy as np
+    import torch
+
+    from operator_tpu_torch.models.llama import forward
+
+    ids = np.random.default_rng(seed).integers(3, 250, (4, 32))
+    ids = torch.as_tensor(ids, device=g.device)
+    positions = torch.arange(32, device=g.device)[None].expand(4, 32)
+    logits, _ = forward(g.params, g.config, ids, positions, shard=g.shard,
+                        logits_at=torch.full((4,), 31, device=g.device))
+    return logits.float().cpu()
+
+
+def tie_margins(g, prompts: list, answers: list, got: list) -> list:
+    """For each answer ``got`` leaves (``answers``: the one-rank engine's),
+    the one-rank model's top-two margin at the first position they
+    differ, teacher forced over the prompt and the answer; None where
+    they agree."""
+    import torch
+
+    from operator_tpu_torch.models.llama import forward
+
+    out = []
+    for prompt, want, have in zip(prompts, answers, got):
+        at = next((i for i, (a, b) in enumerate(zip(have, want)) if a != b), None)
+        if at is None and len(have) == len(want):
+            out.append(None)
+            continue
+        at = min(len(have), len(want)) if at is None else at
+        ids = g.tokenizer.encode(prompt) + list(want)
+        row = torch.as_tensor([ids], device=g.device)
+        positions = torch.arange(len(ids), device=g.device)[None]
+        logits, _ = forward(g.params, g.config, row, positions, shard=g.shard,
+                            logits_at=torch.tensor([len(ids) - len(want) - 1 + at],
+                                                   device=g.device))
+        top = logits[0].float().topk(2).values
+        out.append(float(top[0] - top[1]))
+    return out
+
+
+def mesh_drive(engine, prompts: list, tokens: int) -> list:
+    """Every prompt queued before admission (``held_sends``), greedy."""
+    from operator_tpu_torch.serving.types import SamplingParams
+
+    params = SamplingParams(max_tokens=tokens, temperature=0.0, stop_on_eos=False)
+    results, _ = held_sends(engine, [
+        (lambda p=p: engine.submit(p, params).result(900)) for p in prompts])
+    return [r.token_ids for r in results]
+
+
+def mesh_rank(spec_path: str, rank: int) -> int:
+    """One rank of a mesh phase's launch (``--mesh-rank``): joins the
+    launch's group from torchrun's environment, builds its engine with
+    ``build_serving_engine``, computes ``next_token_logits`` with the
+    other ranks, then rank 0 drives the prompts and every other rank
+    follows; each writes its record (kernel counts, memory) as JSON."""
+    import torch
+
+    from operator_tpu_torch.ops import flash_prefill as fp
+    from operator_tpu_torch.serving.meshserve import MeshFollower
+    from operator_tpu_torch.serving.provider import build_serving_engine
+
+    pa = importlib.import_module("operator_tpu_torch.ops.paged_attention")
+    with open(spec_path) as fh:
+        spec = json.load(fh)
+    os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE=str(spec["world"]),
+                      MASTER_ADDR="localhost", MASTER_PORT=str(spec["port"]),
+                      OPERATOR_TPU_FLASH_PREFILL="1")
+    mesh_config(spec["model"], spec.get("layers"))
+    device = spec["device"]
+    started = time.perf_counter()
+    engine, model_id = build_serving_engine(device, spec["env"], seed=0)
+    follower = isinstance(engine, MeshFollower)
+    g = engine.generator
+    cuda = g.device.type == "cuda"
+    out = {"rank": rank, "model": model_id, "build_s": time.perf_counter() - started,
+           "memory_gib": torch.cuda.memory_allocated(g.device) / 2**30 if cuda else None,
+           "param_bytes": sum(t.numel() * t.element_size() for t in tree_tensors(g.params)),
+           "graphs": g.graphs.stats()["mode"], "tp": g.shard.tp, "data": g.shard.data}
+    logits = next_token_logits(g)
+    for module in (fp, pa):
+        module.launches = 0
+    waves0, blocks0 = g.prefill_waves, g.blocks_dispatched
+    if follower:
+        engine.run()
+    else:
+        try:
+            t0 = time.perf_counter()
+            out["tokens"] = mesh_drive(engine, spec["prompts"], spec["tokens"])
+            out["wall_s"] = time.perf_counter() - t0
+            out["buckets"] = sorted(n for n, *_ in g._prefill_fns)
+            out["stream_ms_per_block"] = (statistics.mean(g.block_ms) if g.block_ms else None)
+        finally:
+            engine.close()
+        torch.save(logits, os.path.join(spec["workdir"], "logits.pt"))
+    out.update(prefill_waves=g.prefill_waves - waves0, decode_blocks=g.blocks_dispatched - blocks0,
+               launches={"flash_prefill_attention": fp.launches,
+                         "paged_decode_attention": pa.launches},
+               peak_gib=torch.cuda.max_memory_allocated(g.device) / 2**30 if cuda else None)
+    with open(os.path.join(spec["workdir"], f"rank{rank}.json"), "w") as fh:
+        json.dump(out, fh)
+    return 0
+
+
+def tree_tensors(tree) -> list:
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in tree_tensors(v)]
+    return [tree]
+
+
+def mesh_launch(label: str, world: int, model: str, env: dict, layers=None) -> tuple:
+    """``world`` ranks of ``python3 chip_smoke.py --mesh-rank``, sharing
+    the card; fails unless every rank exits 0 within MESH_RANK_TIMEOUT_S.
+    Returns (each rank's record, rank 0's logits)."""
+    import socket
+
+    import torch
+
+    workdir = os.path.join(MESH_DIR, label)
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    with socket.socket() as probe:
+        probe.bind(("localhost", 0))
+        port = probe.getsockname()[1]
+    spec = {"world": world, "port": port, "model": model, "layers": layers, "env": env,
+            "device": MESH_DEVICE, "workdir": workdir, "prompts": mesh_bodies(),
+            "tokens": MESH_TOKENS}
+    spec_path = os.path.join(workdir, "spec.json")
+    with open(spec_path, "w") as fh:
+        json.dump(spec, fh)
+    logs = [open(os.path.join(workdir, f"rank{r}.log"), "w+") for r in range(world)]
+    child_env = {**os.environ, "OMP_NUM_THREADS": "1", "GLOO_SOCKET_IFNAME": "lo"}
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--mesh-rank",
+                               spec_path, str(r)], stdout=logs[r], stderr=subprocess.STDOUT,
+                              env=child_env, cwd=ROOT) for r in range(world)]
+    deadline = time.monotonic() + MESH_RANK_TIMEOUT_S
+    try:
+        for proc in procs:
+            proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    tails = []
+    for r, log in enumerate(logs):
+        log.seek(0)
+        tails.append(log.read()[-3000:])
+        log.close()
+    if any(proc.returncode != 0 for proc in procs):
+        raise fail(f"mesh {label}: ranks exited {[p.returncode for p in procs]}:\n"
+                   + "\n".join(f"--- rank {r} ---\n{t}" for r, t in enumerate(tails)))
+    records = []
+    for r in range(world):
+        with open(os.path.join(workdir, f"rank{r}.json")) as fh:
+            records.append(json.load(fh))
+    logits = torch.load(os.path.join(workdir, "logits.pt"))
+    return records, logits
+
+
+def check_rank_launches(label: str, records: list, layers: int, block: int) -> list:
+    """Every rank launched K4 ``layers`` times per prefill wave and K2/K3
+    ``layers * block`` times per decode block."""
+    out = []
+    for record in records:
+        want = {"flash_prefill_attention": layers * record["prefill_waves"],
+                "paged_decode_attention": layers * block * record["decode_blocks"]}
+        if (record["launches"] != want or not record["prefill_waves"]
+                or not record["decode_blocks"]):
+            raise fail(f"mesh {label} rank {record['rank']}: launches {record['launches']} "
+                       f"over {record['prefill_waves']} waves and {record['decode_blocks']} "
+                       f"blocks; want {want}")
+        out.append(record["launches"])
+    return out
+
+
+def held_tokens(label: str, got: list, want: list, margins: list, tol: float) -> int:
+    """Greedy answers equal wherever the one-rank model's top-two margin
+    exceeds ``tol``; returns how many are equal."""
+    ties = [m for m in margins if m is not None]
+    if any(m > tol for m in ties):
+        raise fail(f"mesh {label}: answers left the one-rank engine's at margins {margins} "
+                   f"(tol {tol}):\n{got}\n{want}")
+    return sum(a == b for a, b in zip(got, want))
+
+
+def phase_mesh(results: dict, kernel_modules: dict) -> dict:
+    """(a) the deployed plan on one rank, (b) its tp = 4 factorisation on
+    four ranks sharing the card, (c) dp2tp2 from a checkpoint through the
+    sharded load.  Returns (a)'s kernel launches over its HTTP drive."""
+    import torch
+
+    from operator_tpu_torch.models.llama import init_params
+    from operator_tpu_torch.models.loader import save_params
+    from operator_tpu_torch.ops import flash_prefill as fp
+    from operator_tpu_torch.serving.httpserver import CompletionServer
+    from operator_tpu_torch.serving.provider import _parse_mesh_plan, build_serving_engine
+
+    pa = importlib.import_module("operator_tpu_torch.ops.paged_attention")
+    card = card_line() if MESH_DEVICE == "cuda" else "cpu"
+    # earlier phases' closed engines may still sit in reference cycles,
+    # their weights and graph pools with them: (a) needs the card's memory
+    free_before = torch.cuda.mem_get_info()[0] if MESH_DEVICE == "cuda" else None
+    release_card()
+    free_after = torch.cuda.mem_get_info()[0] if MESH_DEVICE == "cuda" else None
+    print(json.dumps({"mesh_free_gib": {
+        "before_collect": free_before and free_before / 2**30,
+        "after_collect": free_after and free_after / 2**30}}), flush=True)
+    saved = os.environ.get("OPERATOR_TPU_FLASH_PREFILL")
+    os.environ["OPERATOR_TPU_FLASH_PREFILL"] = "1"
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    out: dict = {"card": card}
+    model_a, model_c = MESH_MODELS
+    try:
+        # (a) the deployed plan on one rank
+        env = {**MESH_ENV, "OPERATOR_TPU_MODEL": model_a}
+        plan = _parse_mesh_plan("auto", [torch.device(MESH_DEVICE)], mesh_config(model_a))
+        if (plan.dp, plan.fsdp, plan.tp) != (1, 1, 1):
+            raise fail(f"mesh (a): SERVING_MESH=auto planned {plan} on one card")
+        tap = LogTap()
+        provider_log = logging.getLogger("operator_tpu_torch.serving.provider")
+        provider_log.addHandler(tap)
+        if MESH_DEVICE == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            engine, model_id = build_serving_engine(
+                MESH_DEVICE, {**env, "SERVING_MESH": "dp=1,tp=1"}, seed=0)
+        finally:
+            provider_log.removeHandler(tap)
+        g = engine.generator
+        fell_back = [m for m in tap.messages if "falling back to the wave engine" in m]
+        mode = g.graphs.stats()["mode"]
+        if (engine.scheduler is not None or not fell_back or "mesh=True" not in fell_back[0]
+                or g.shard is None or (g.decode_block, g.pipeline_depth, g.max_slots) != (4, 2, 32)):
+            raise fail(f"mesh (a): not the wave engine on a one-rank mesh with the fallback "
+                       f"warning: {fell_back}, block {g.decode_block}, depth {g.pipeline_depth}")
+        if MESH_DEVICE == "cuda" and (mode != "graphs" or not g.shard.capturable):
+            raise fail(f"mesh (a): the programs are not CUDA graphs: {mode} ({g.shard.backend})")
+        config = g.config
+        layers = config.num_layers
+        a: dict = {"model": model_id, "plan_auto": dataclasses.asdict(plan),
+                   "backend": g.shard.backend, "graphs": mode, "fallback_warning": fell_back[0]}
+        try:
+            engine.warmup()
+            a["setup_s"] = time.perf_counter() - t0
+            server = CompletionServer(engine, model_id=model_id, host="127.0.0.1", port=0)
+            http = HttpLoop(server)
+            url = f"http://127.0.0.1:{server.bound_port}/v1/completions"
+            try:
+                _post(url, {"prompt": "warm up", "max_tokens": 4, "temperature": 0.0})
+                bodies = request_bodies()
+                for module in kernel_modules.values():
+                    module.launches = 0
+                waves0, blocks0, ms0 = g.prefill_waves, g.blocks_dispatched, len(g.block_ms)
+                completion, wall = drive_requests(url, bodies)
+                launches = {name: m.launches for name, m in kernel_modules.items()}
+                waves, blocks = g.prefill_waves - waves0, g.blocks_dispatched - blocks0
+                want = {"flash_prefill_attention": layers * waves,
+                        "paged_decode_attention": layers * g.decode_block * blocks,
+                        "ragged_paged_attention": 0, "best_window_similarity": 0}
+                if not waves or not blocks or launches != want:
+                    raise fail(f"mesh (a): launches {launches} over {waves} prefill waves and "
+                               f"{blocks} decode blocks; want {want}")
+                block_ms = g.block_ms[ms0:]
+                a.update(requests=len(bodies), completion_tokens=completion, wall_s=wall,
+                         tokens_per_s=completion / wall, prefill_waves=waves,
+                         decode_blocks=blocks, launches_mesh=launches,
+                         stream_ms_per_block=statistics.mean(block_ms) if block_ms else None)
+                a["held_prefill_calls"] = held_drive_calls(url, fp, "flash_prefill_attention",
+                                                           HeldToPlain(
+                    fp.flash_prefill_attention, fp.flash_prefill_reference, layers,
+                    prefill_drive_limit), LOG_LINE * 3)
+                a["held_decode_calls"] = held_drive_calls(url, pa, "paged_attention", HeldToPlain(
+                    pa.paged_attention, pa.paged_attention_reference, layers,
+                    lambda dtype, _: WAVE_TOL[dtype]), LOG_LINE * 2)
+            finally:
+                http.stop()
+                del server, http  # they hold the engine
+            wait_wave_idle(g)
+            prompts = mesh_bodies()
+            a["answers"] = mesh_drive(engine, prompts, MESH_TOKENS)
+            if MESH_DEVICE == "cuda":
+                a["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+                a["memory_gib"] = torch.cuda.memory_allocated() / 2**30
+        finally:
+            engine.close()
+        del engine, g
+        release_card()
+        plain, _ = build_serving_engine(MESH_DEVICE, {**env, "SCHED_MODE": "wave"}, seed=0)
+        try:
+            plain_answers = mesh_drive(plain, prompts, MESH_TOKENS)
+        finally:
+            plain.close()
+        del plain
+        release_card()
+        if a["answers"] != plain_answers:
+            raise fail(f"mesh (a): greedy answers differ from the engine without "
+                       f"SERVING_MESH:\n{a['answers']}\n{plain_answers}")
+        a["equal_to_unmeshed"] = len(prompts)
+        print(json.dumps({"mesh_a": a, "card": card}), flush=True)
+        out["a"] = a
+
+        # (b) the deployed factorisation on four ranks sharing the card, at
+        # MESH_B_LAYERS layers; its reference is one rank at that depth
+        cut = mesh_config(model_a, MESH_B_LAYERS)
+        # no template prefix primed at build: every rank computes the
+        # logits before rank 0 sends its first call
+        env_b = {**MESH_ENV, "OPERATOR_TPU_MODEL": cut.name, "PREFIX_CACHE": "false"}
+        ref, _ = build_serving_engine(MESH_DEVICE, {**env_b, "SERVING_MESH": "dp=1,tp=1"}, seed=0)
+        try:
+            ref_logits = next_token_logits(ref.generator)
+            ref_answers = mesh_drive(ref, prompts, MESH_TOKENS)
+            records, logits = mesh_launch("b", 4, model_a, {**env_b, "SERVING_MESH": "dp=1,tp=4"},
+                                          layers=MESH_B_LAYERS)
+            got = records[0]["tokens"]
+            margins = tie_margins(ref.generator, prompts, ref_answers, got)
+        finally:
+            ref.close()
+        del ref
+        release_card()
+        err = float((logits - ref_logits).abs().max())
+        if not err <= MESH_LOGIT_TOL:
+            raise fail(f"mesh (b): next-token logits {err} from one rank's (tol {MESH_LOGIT_TOL})")
+        b = {"layers": MESH_B_LAYERS, "width": [cut.hidden_size, cut.num_heads,
+                                                cut.num_kv_heads, cut.head_dim, cut.vocab_size],
+             "ranks": 4, "per_rank_heads": [cut.num_heads // 4, cut.num_kv_heads // 4,
+                                            cut.head_dim],
+             "logits_max_abs_err": err, "logit_tol": MESH_LOGIT_TOL,
+             "equal_answers": held_tokens("(b)", got, ref_answers, margins, MESH_LOGIT_TOL),
+             "margins_where_different": [m for m in margins if m is not None],
+             "launches_per_rank": check_rank_launches("(b)", records, MESH_B_LAYERS, 4),
+             "memory_gib_per_rank": [r["memory_gib"] for r in records],
+             "param_bytes_per_rank": [r["param_bytes"] for r in records],
+             "graphs": records[0]["graphs"], "wall_s": records[0]["wall_s"],
+             "tokens_per_s": sum(map(len, got)) / records[0]["wall_s"],
+             "stream_ms_per_block": records[0]["stream_ms_per_block"],
+             "build_s": max(r["build_s"] for r in records)}
+        print(json.dumps({"mesh_b": b, "card": card}), flush=True)
+        out["b"] = b
+
+        # (c) dp2tp2 from a bf16 checkpoint through the sharded load (int8)
+        config_c = mesh_config(model_c)
+        ckpt = os.path.join(MESH_DIR, "ckpt")
+        gen = torch.Generator(device=MESH_DEVICE).manual_seed(0)
+        params = init_params(config_c, gen, torch.bfloat16, device=MESH_DEVICE)
+        save_params(params, ckpt, config_c)
+        del params
+        release_card()
+        for name in os.listdir(TOKENIZER_FIXTURE):
+            shutil.copy(os.path.join(TOKENIZER_FIXTURE, name), ckpt)
+        env_c = {**MESH_ENV, "OPERATOR_TPU_MODEL": model_c, "CHECKPOINT_DIR": ckpt,
+                 "WEIGHT_DTYPE": "int8", "PREFIX_CACHE": "false"}
+        env_c.pop("ALLOW_RANDOM_WEIGHTS")
+        one, _ = build_serving_engine(MESH_DEVICE, {**env_c, "SCHED_MODE": "wave"}, seed=0)
+        try:
+            one_answers = mesh_drive(one, prompts, MESH_TOKENS)
+            records, _ = mesh_launch("c", 4, model_c, {**env_c, "SERVING_MESH": "dp=2,tp=2"})
+            got = records[0]["tokens"]
+            margins = tie_margins(one.generator, prompts, one_answers, got)
+        finally:
+            one.close()
+        del one
+        release_card()
+        buckets = records[0]["buckets"]
+        if not buckets or any(n % 2 for n in buckets):
+            raise fail(f"mesh (c): prefill buckets {buckets} not multiples of dp*fsdp = 2")
+        c = {"model": model_c, "ranks": 4, "slots_per_data_rank": 16,
+             "per_rank_kv_heads": config_c.num_kv_heads // 2, "buckets": buckets,
+             "equal_answers": held_tokens("(c)", got, one_answers, margins, MESH_LOGIT_TOL),
+             "margins_where_different": [m for m in margins if m is not None],
+             "launches_per_rank": check_rank_launches("(c)", records, config_c.num_layers, 4),
+             "memory_gib_per_rank": [r["memory_gib"] for r in records],
+             "param_bytes_per_rank": [r["param_bytes"] for r in records],
+             "graphs": records[0]["graphs"], "wall_s": records[0]["wall_s"],
+             "build_s": max(r["build_s"] for r in records)}
+        print(json.dumps({"mesh_c": c, "card": card}), flush=True)
+        out["c"] = c
+        results["mesh"] = out
+        return launches
+    finally:
+        shutil.rmtree(MESH_DIR, ignore_errors=True)
+        if saved is None:
+            os.environ.pop("OPERATOR_TPU_FLASH_PREFILL", None)
+        else:
+            os.environ["OPERATOR_TPU_FLASH_PREFILL"] = saved
+
+
+def wait_wave_idle(g, timeout_s: float = 60.0) -> None:
+    deadline = time.time() + timeout_s
+    while (g.num_active or g._inflight_blocks) and time.time() < deadline:
+        time.sleep(0.05)
+
+
+def release_card() -> None:
+    """Free what a closed engine held on the card (cuBLAS workspaces too)."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+        torch._C._cuda_clearCublasWorkspaces()
+        torch.cuda.empty_cache()
+
+
 def phase_parity(results: dict, kernel_modules: dict) -> None:
     import torch
 
@@ -9034,13 +9558,17 @@ def main() -> int:
     parser.add_argument("--phases",
                         default="device,kernels,train,serve,wave,guided,graphs,analysis,"
                                 "checkpoint,tokenizers,operator,remote,fleet,deployed,fabric,"
-                                "prefix,contiguous,parity")
+                                "prefix,contiguous,mesh,parity")
     parser.add_argument("--seed", type=int, default=0,
                         help="the guided and train phases' weights and adapters")
     parser.add_argument("--graphs-warm", metavar="PLAN",
                         help="the graphs phase's warm boot (b), in its own process")
+    parser.add_argument("--mesh-rank", nargs=2, metavar=("SPEC", "RANK"),
+                        help="one rank of the mesh phase's (b) or (c), in its own process")
     args = parser.parse_args()
     phases = set(args.phases.split(","))
+    if args.mesh_rank:
+        return mesh_rank(args.mesh_rank[0], int(args.mesh_rank[1]))
 
     import torch
 
@@ -9148,6 +9676,7 @@ def main() -> int:
         if "prefix" in phases else {}
     contiguous = timed("contiguous", phase_contiguous, results, kernel_modules, args.seed) \
         if "contiguous" in phases else {}
+    mesh = timed("mesh", phase_mesh, results, kernel_modules) if "mesh" in phases else {}
     if "parity" in phases:
         timed("parity", phase_parity, results, kernel_modules)
     phase_s["total"] = time.perf_counter() - started
@@ -9179,6 +9708,7 @@ def main() -> int:
         record["launches_guided"] = guided.get(base)
         record["launches_prefix"] = prefix.get(base)
         record["launches_contiguous"] = contiguous.get(base)
+        record["launches_mesh"] = mesh.get(base)
         record["launches_train"] = train.get(base)
     kernels = records
     results["kernels"] = kernels

@@ -74,6 +74,23 @@ def attr_chain(func: ast.AST) -> list[str]:
     return []
 
 
+def annotation_names(annotation: Optional[ast.AST]) -> set[str]:
+    """The names an annotation mentions, string forward references
+    included (``Optional["ServingShard"]`` -> {"Optional", "ServingShard"})."""
+    out: set[str] = set()
+    for node in ast.walk(annotation) if annotation is not None else ():
+        if isinstance(node, ast.Name):
+            out.add(node.id)
+        elif isinstance(node, ast.Attribute):
+            out.add(node.attr)
+        elif isinstance(node, ast.Constant) and isinstance(node.value, str):
+            try:
+                out |= annotation_names(ast.parse(node.value, mode="eval").body)
+            except SyntaxError:
+                continue
+    return out
+
+
 class SymbolTables:
     """Function/method/import tables over a set of parsed modules.
 
@@ -91,9 +108,20 @@ class SymbolTables:
         self.imports: dict[str, dict[str, tuple[str, str]]] = {}
         #: def node id -> owning module (resolution output needs it)
         self.module_of: dict[int, ModuleSource] = {}
+        #: attribute name -> the class names a class body annotates it
+        #: with (``shard: Optional["ServingShard"]``), over every class
+        self.attr_classes: dict[str, set[str]] = {}
         for module in self.modules:
             funcs: dict[str, ast.AST] = {}
             for node in ast.walk(module.tree):
+                if (
+                    isinstance(node, ast.AnnAssign)
+                    and isinstance(node.target, ast.Name)
+                    and isinstance(getattr(node, "_graftlint_parent", None), ast.ClassDef)
+                ):
+                    self.attr_classes.setdefault(node.target.id, set()).update(
+                        annotation_names(node.annotation)
+                    )
                 if isinstance(node, DEF_NODES):
                     self.module_of[id(node)] = module
                     parent = getattr(node, "_graftlint_parent", None)
@@ -181,3 +209,30 @@ class SymbolTables:
             if other is not None:
                 return [other]
         return []
+
+    def typed_methods(self, site: ast.AST, target: ast.Attribute) -> list[ast.AST]:
+        """Defs of ``target.attr`` on a receiver whose class an annotation
+        names: a parameter of the enclosing def (``shard:
+        Optional["ServingShard"]``), or ``self.<a>`` where a class body
+        annotates ``a`` (class-agnostic, as ``self.method`` is).  Only
+        methods of classes so named, in the analysed set."""
+        receiver, classes = target.value, set()
+        if isinstance(receiver, ast.Name) and receiver.id != "self":
+            scope = getattr(site, "_graftlint_parent", None)
+            while scope is not None and not isinstance(scope, DEF_NODES):
+                scope = getattr(scope, "_graftlint_parent", None)
+            if isinstance(scope, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                args = scope.args
+                for arg in (*args.posonlyargs, *args.args, *args.kwonlyargs):
+                    if arg.arg == receiver.id:
+                        classes = annotation_names(arg.annotation)
+        elif (
+            isinstance(receiver, ast.Attribute)
+            and isinstance(receiver.value, ast.Name)
+            and receiver.value.id == "self"
+        ):
+            classes = self.attr_classes.get(receiver.attr, set())
+        return [
+            node for node in self.methods_by_name.get(target.attr, [])
+            if getattr(getattr(node, "_graftlint_parent", None), "name", None) in classes
+        ]

@@ -21,8 +21,12 @@ Purely syntactic (``ast``), no torch import.  Three passes:
    (``self._mixed_fn()``).
 2. **Reachability** — from each root, resolve calls through module-level
    functions, ``from x import y`` imports within the analysed set,
-   class-agnostic ``self.method`` lookups, and the same local-binding and
-   factory forms (``step = make_mixed_step(...)`` then ``step(...)``).
+   class-agnostic ``self.method`` lookups, methods of a receiver whose
+   class an annotation names (a parameter ``shard:
+   Optional["ServingShard"]``, or ``self.shard`` where a class body
+   annotates ``shard``: the serving mesh's collectives), and the same
+   local-binding and factory forms (``step = make_mixed_step(...)`` then
+   ``step(...)``).
    Higher-order wrappers (``functools.partial``, ``torch.vmap``,
    ``torch.func.*``, ``torch.utils.checkpoint.checkpoint``) treat
    function-valued arguments as calls.
@@ -517,6 +521,12 @@ class JitGraph:
             and func.value.id == "self"
         ):
             targets = self._resolve_function_ref(module, call, func)
+        elif isinstance(func, ast.Attribute):
+            # a method of a receiver whose class an annotation names
+            targets = [
+                self._infos[id(node)] for node in self._tables.typed_methods(call, func)
+                if id(node) in self._infos
+            ]
         else:
             targets = []
         for info in targets:

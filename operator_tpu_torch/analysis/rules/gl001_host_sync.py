@@ -62,6 +62,9 @@ class HostSyncInHotPath(Rule):
         r"operator_tpu_torch/serving/.*\.py$",
         r"operator_tpu_torch/models/.*\.py$",
         r"operator_tpu_torch/patterns/.*\.py$",
+        # the serving mesh's collectives (ServingShard), which the
+        # programs call on a mesh
+        r"operator_tpu_torch/parallel/mesh\.py$",
     )
 
     def check(self, ctx: AnalysisContext) -> list[Finding]:

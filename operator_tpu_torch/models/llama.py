@@ -36,6 +36,7 @@ from .quant import mm
 
 if TYPE_CHECKING:
     from ..ops.paged_attention import PagedKVCache
+    from ..parallel.mesh import ServingShard
 
 Params = dict[str, Any]
 
@@ -264,12 +265,15 @@ class KVCache:
         max_seq_len: Optional[int] = None,
         dtype: torch.dtype = torch.bfloat16,
         device: Union[str, torch.device] = "cuda",
+        kv_heads: Optional[int] = None,
     ) -> "KVCache":
+        """Zeroed; ``kv_heads`` is a tensor-parallel rank's share of the
+        config's KV heads (default: all of them)."""
         shape = (
             config.num_layers,
             batch_size,
             max_seq_len or config.max_seq_len,
-            config.num_kv_heads,
+            kv_heads or config.num_kv_heads,
             config.head_dim,
         )
         return cls(
@@ -351,21 +355,52 @@ def _proj(
     return y
 
 
+def _row_parallel(y: torch.Tensor, shard: Optional["ServingShard"]) -> torch.Tensor:
+    """A row-parallel projection's output: on a tp mesh each rank holds a
+    partial sum, completed by one all-reduce."""
+    return y if shard is None else shard.reduce_tp(y)
+
+
 def _mlp(
-    x: torch.Tensor, weights: dict[str, Any], eps: float, lora: LayerLora = None
+    x: torch.Tensor, weights: dict[str, Any], eps: float, lora: LayerLora = None,
+    shard: Optional["ServingShard"] = None,
 ) -> torch.Tensor:
-    """The residual SiLU-gated MLP block."""
+    """The residual SiLU-gated MLP block (``w_gate``/``w_up`` column
+    parallel, ``w_down`` row parallel on a tp mesh)."""
     mlp_in = rms_norm(x, weights["ln_mlp"], eps)
     gate = F.silu(_proj(mlp_in, weights, "w_gate", lora))
     up = _proj(mlp_in, weights, "w_up", lora)
-    return x + _proj(gate * up, weights, "w_down", lora)
+    return x + _row_parallel(_proj(gate * up, weights, "w_down", lora), shard)
 
 
-def _logits(params: Params, config: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    """Final norm and the vocab head: [..., H] -> [..., vocab] float32."""
+def _logits(params: Params, config: ModelConfig, x: torch.Tensor,
+            shard: Optional["ServingShard"] = None) -> torch.Tensor:
+    """Final norm and the vocab head: [..., H] -> [..., vocab] float32
+    (on a mesh gathered to the full vocab, ``ServingShard.logits``)."""
     x = rms_norm(x, params["ln_final"], config.rms_norm_eps)
+    if shard is not None:
+        return shard.logits(x, params, config).to(torch.float32)
     head = params["embed"].T if config.tie_embeddings else params["lm_head"]
     return (x @ head).to(torch.float32)
+
+
+def _embed(params: Params, token_ids: torch.Tensor,
+           shard: Optional["ServingShard"]) -> torch.Tensor:
+    ids = token_ids.long()
+    return params["embed"][ids] if shard is None else shard.embed(params["embed"], ids)
+
+
+def _layers(params: Params, config: ModelConfig, shard: Optional["ServingShard"]):
+    """Each layer's weights, whole on their fsdp axis on a mesh."""
+    for weights in _layer_views(params["layers"], config.num_layers):
+        yield weights if shard is None else shard.layer_weights(weights, config)
+
+
+def _heads(config: ModelConfig, shard: Optional["ServingShard"]) -> tuple[int, int]:
+    """(query heads, KV heads) of this rank: all of them, or a tp rank's
+    share."""
+    tp = 1 if shard is None else shard.tp
+    return config.num_heads // tp, config.num_kv_heads // tp
 
 
 def _attention(
@@ -377,8 +412,8 @@ def _attention(
 ) -> torch.Tensor:
     """Dense masked GQA attention, f32 scores.  Returns [B, T, QH * D]."""
     b, t, qh, d = q.shape
-    kh = config.num_kv_heads
-    g = config.q_per_kv
+    kh = k.shape[2]  # a tp rank's share on a mesh
+    g = qh // kh
     q_grouped = q.reshape(b, t, kh, g, d).to(torch.float32)
     scores = torch.einsum("btkgd,bskd->bkgts", q_grouped, k.to(torch.float32))
     scores = scores * (d ** -0.5)
@@ -451,8 +486,9 @@ def forward(
     lora: Optional[dict[str, dict[str, torch.Tensor]]] = None,  # parallel/lora.py
     lora_alpha: float = 16.0,
     lora_indices: Optional[torch.Tensor] = None,  # [B]; lora holds STACKED adapters
+    shard: Optional["ServingShard"] = None,  # a serving mesh rank's collectives
 ) -> tuple[torch.Tensor, Optional[KVCache]]:
-    """One decoder pass (the JAX ``forward`` without the mesh).
+    """One decoder pass (the JAX ``forward``).
 
     Without a cache: plain causal self-attention over the T tokens.  With
     a cache: the T tokens are written at ``cache_offset`` (a Python int
@@ -467,6 +503,13 @@ def forward(
     (:func:`_lora_path`): one adapter for the batch, or with
     ``lora_indices`` row ``b``'s own adapter out of the stack.
 
+    With ``shard`` (``parallel/mesh.py:ServingShard``) the params are a
+    tensor-parallel rank's shards: its share of the heads (the cache
+    too), an all-reduce after ``wo`` and ``w_down``, the fsdp-split layer
+    weights gathered per layer, and the logits gathered to the full
+    vocab.  Attention (flash prefill, chunked or dense) runs on the
+    rank's own heads.
+
     Returns (logits [B, T, vocab] float32, the cache or None).  With
     ``logits_at`` only those positions reach the vocab head: logits
     [B, vocab], the same values without the [B, T, vocab] tensor.
@@ -479,9 +522,9 @@ def forward(
 
     device = token_ids.device
     inv_freq = rope_frequencies(config, device)
-    x = params["embed"][token_ids.long()]  # [B, T, H]
+    x = _embed(params, token_ids, shard)  # [B, T, H]
     b, t, _ = x.shape
-    qh, kh, hd = config.num_heads, config.num_kv_heads, config.head_dim
+    (qh, kh), hd = _heads(config, shard), config.head_dim
 
     use_cache = cache is not None
     if isinstance(cache_offset, int):
@@ -525,7 +568,7 @@ def forward(
     else:
         q_chunk = None  # explicit mask: dense semantics the mask encodes
 
-    for index, weights in enumerate(_layer_views(params["layers"], config.num_layers)):
+    for index, weights in enumerate(_layers(params, config, shard)):
         layer_lora = _layer_lora(lora, index, lora_alpha, lora_indices)
         attn_in = rms_norm(x, weights["ln_attn"], config.rms_norm_eps)
         q = _proj(attn_in, weights, "wq", layer_lora).reshape(b, t, qh, hd)
@@ -551,12 +594,12 @@ def forward(
             )
         else:
             attn = _attention(q, k_att, v_att, attn_mask, config)
-        x = x + _proj(attn.to(x.dtype), weights, "wo", layer_lora)
-        x = _mlp(x, weights, config.rms_norm_eps, layer_lora)
+        x = x + _row_parallel(_proj(attn.to(x.dtype), weights, "wo", layer_lora), shard)
+        x = _mlp(x, weights, config.rms_norm_eps, layer_lora, shard)
 
     if logits_at is not None:
         x = x[torch.arange(b, device=device), logits_at.long()]  # [B, H]
-    return _logits(params, config, x), cache
+    return _logits(params, config, x, shard), cache
 
 
 def decode_step(
@@ -569,6 +612,7 @@ def decode_step(
     lora: Optional[dict[str, dict[str, torch.Tensor]]] = None,  # stacked adapters
     lora_alpha: float = 16.0,
     lora_indices: Optional[torch.Tensor] = None,  # [B] adapter id per row
+    shard: Optional["ServingShard"] = None,
 ) -> tuple[torch.Tensor, KVCache]:
     """Single-token decode over the contiguous cache: each row's token is
     written at its ``cache_offset`` (in place, clamped into the cache as
@@ -577,7 +621,7 @@ def decode_step(
     logits, cache = forward(
         params, config, token_ids, positions, cache=cache, cache_offset=cache_offset,
         logits_at=torch.zeros(token_ids.shape[0], dtype=torch.int64, device=token_ids.device),
-        lora=lora, lora_alpha=lora_alpha, lora_indices=lora_indices,
+        lora=lora, lora_alpha=lora_alpha, lora_indices=lora_indices, shard=shard,
     )
     return logits, cache
 
@@ -590,6 +634,7 @@ def decode_step_paged(
     lora: Optional[dict[str, dict[str, torch.Tensor]]] = None,  # stacked adapters
     lora_alpha: float = 16.0,
     lora_indices: Optional[torch.Tensor] = None,  # [B] adapter id per slot
+    shard: Optional["ServingShard"] = None,
 ) -> tuple[torch.Tensor, "PagedKVCache"]:
     """Single-token decode over a paged KV cache (``ops/paged_attention.py``).
 
@@ -597,7 +642,9 @@ def decode_step_paged(
     table maps it to a page and slot, written in place) and attends over
     exactly its own pages through :func:`ops.paged_attention.paged_attention`;
     sliding-window configs mask to the last ``sliding_window`` tokens.
-    ``lora``/``lora_indices`` add each slot's adapter as in :func:`forward`.
+    ``lora``/``lora_indices`` add each slot's adapter as in :func:`forward`,
+    and ``shard`` runs a serving mesh rank's share as there (the pages
+    hold its KV heads).
 
     Returns (last-token logits [B, vocab] float32, cache with lengths + 1
     sharing the page tensors).
@@ -606,12 +653,12 @@ def decode_step_paged(
 
     inv_freq = rope_frequencies(config, token_ids.device)
     b = token_ids.shape[0]
-    qh, kh, hd = config.num_heads, config.num_kv_heads, config.head_dim
+    (qh, kh), hd = _heads(config, shard), config.head_dim
     positions = paged.lengths[:, None]  # [B, 1] append position
-    x = params["embed"][token_ids.long()]  # [B, 1, H]
+    x = _embed(params, token_ids, shard)  # [B, 1, H]
     new_lengths = paged.lengths + 1
 
-    for index, weights in enumerate(_layer_views(params["layers"], config.num_layers)):
+    for index, weights in enumerate(_layers(params, config, shard)):
         layer_lora = _layer_lora(lora, index, lora_alpha, lora_indices)
         attn_in = rms_norm(x, weights["ln_attn"], config.rms_norm_eps)
         q = _proj(attn_in, weights, "wq", layer_lora).reshape(b, 1, qh, hd)
@@ -625,11 +672,12 @@ def decode_step_paged(
             q[:, 0].to(k_pages.dtype).contiguous(), k_pages, v_pages,
             paged.page_table, new_lengths, sliding_window=config.sliding_window,
         )  # [B, QH, D]
-        x = x + _proj(attn.to(x.dtype).reshape(b, 1, -1), weights, "wo", layer_lora)
-        x = _mlp(x, weights, config.rms_norm_eps, layer_lora)
+        x = x + _row_parallel(
+            _proj(attn.to(x.dtype).reshape(b, 1, -1), weights, "wo", layer_lora), shard)
+        x = _mlp(x, weights, config.rms_norm_eps, layer_lora, shard)
 
     new_cache = PagedKVCache(
         k_pages=paged.k_pages, v_pages=paged.v_pages,
         page_table=paged.page_table, lengths=new_lengths,
     )
-    return _logits(params, config, x[:, -1]), new_cache
+    return _logits(params, config, x[:, -1], shard), new_cache

@@ -364,6 +364,7 @@ def load_params(
     *,
     device: Union[str, torch.device, None] = None,
     quantize: bool = False,
+    mesh: Any = None,
 ) -> Params:
     """Load a HF Llama checkpoint directory onto ``device`` (``cuda``
     unless the caller asks for another).
@@ -371,16 +372,36 @@ def load_params(
     ``quantize=True`` quantizes each layer-matrix group on the device the
     moment it is placed (``models/quant.py``'s int8 scheme), so the
     device's peak is the int8 tree plus one ``dtype`` group, never the
-    float tree beside the int8 one.  Multi-device placement (the JAX
-    package's ``shardings``) comes with ROADMAP Queue 1 item 11.
+    float tree beside the int8 one.
+
+    ``mesh`` (a serving ``DeviceMesh``, the JAX package's ``shardings=``)
+    puts only this rank's shard of each tensor on its card
+    (``parallel/mesh.py:param_specs``), cut from the file's map on the
+    host.  A quantized group goes to the card at its local OUTPUT columns
+    with its whole input axis (the per-output-channel scale reads all of
+    it), is quantized there and then cut on its input axis: each rank
+    gets exactly its slice of the unsharded load, and no rank's card
+    holds more than one float group of its columns.
     """
     place = _placer(resolve_device(device), dtype)
+    shard = specs = None
+    if mesh is not None:
+        from ..parallel.mesh import P, ServingShard, param_specs
+
+        shard = ServingShard(mesh)
+        specs = param_specs(config, quantized=quantize)
+        specs = {**specs, **specs.pop("layers")}
 
     def put(name: str, value: torch.Tensor) -> Any:
-        placed = place(name, value)
         if quantize and name in QUANTIZED_LAYER_MATRICES:
-            return quantize_matrix(placed)  # the float group frees on return
-        return placed
+            if shard is None:
+                return quantize_matrix(place(name, value))  # the float group frees on return
+            spec = specs[name]["q"]  # [L, in, out]
+            group = quantize_matrix(place(name, shard.local(value, P(None, None, spec[2]))))
+            return {"q": shard.local(group["q"], P(None, spec[1], None)), "s": group["s"]}
+        if shard is not None:
+            value = shard.local(value, specs[name])
+        return place(name, value)
 
     return convert_hf_state_dict(iter_safetensors(checkpoint_dir), config, dtype, put=put)
 
@@ -426,10 +447,11 @@ def load_params_async(
     *,
     device: Union[str, torch.device, None] = None,
     quantize: bool = False,
+    mesh: Any = None,
 ) -> _AsyncLoad:
     """Start :func:`load_params` on a background thread and return a
     handle; the caller touches the params only after ``result()``."""
     return _AsyncLoad(
         load_params, (checkpoint_dir, config, dtype),
-        {"device": device, "quantize": quantize},
+        {"device": device, "quantize": quantize, "mesh": mesh},
     )

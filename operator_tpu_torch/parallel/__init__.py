@@ -27,9 +27,10 @@ from .lora import (
 #: names that load their module on first use
 _LAZY = {
     **dict.fromkeys(
-        ("AXES", "MeshPlan", "P", "batch_spec", "initialize_distributed", "kv_cache_spec",
-         "logits_spec", "make_mesh", "mesh_summary", "paged_cache_specs", "param_shardings",
-         "param_specs", "placements", "plan_for", "shard_params", "validate_param_shardings"),
+        ("AXES", "MeshPlan", "P", "ServingShard", "batch_spec", "initialize_distributed",
+         "kv_cache_spec", "launched", "logits_spec", "make_mesh", "mesh_summary",
+         "paged_cache_specs", "param_shardings", "param_specs", "placements", "plan_for",
+         "shard_params", "validate_param_shardings", "validate_serving_mesh"),
         "mesh"),
     **dict.fromkeys(
         ("TrainState", "adam_moments", "load_train_state", "make_optimizer", "make_train_step",

@@ -15,6 +15,10 @@ turns it into DTensor placements on a mesh, the counterpart of
 ``NamedSharding``.  The rules (:func:`param_specs`, :func:`batch_spec`,
 ...) are the JAX package's, entry for entry.
 
+Its serving half: :func:`validate_serving_mesh` (the wave engine's two
+rules) and :class:`ServingShard`, a rank's place in a serving mesh and
+the collectives the serving programs run on plain local tensors.
+
 Two differences from JAX, both of the runtime:
 
 - one process per rank: JAX puts many (virtual) devices in one process,
@@ -49,9 +53,12 @@ __all__ = [
     "AXES",
     "MeshPlan",
     "P",
+    "ServingShard",
+    "validate_serving_mesh",
     "batch_spec",
     "initialize_distributed",
     "kv_cache_spec",
+    "launched",
     "logits_spec",
     "make_mesh",
     "mesh_summary",
@@ -177,9 +184,19 @@ def plan_for(
     return plan
 
 
-def _backend() -> str:
-    """gloo for CPU tensors, and nccl for CUDA ones where there is a card."""
-    return "cpu:gloo,cuda:nccl" if torch.cuda.is_available() else "gloo"
+def _backend(world_size: Optional[int] = None) -> str:
+    """gloo for CPU tensors, and nccl for CUDA ones where every rank has
+    a card of its own.  Where ``world_size`` ranks share fewer cards, gloo
+    for both: nccl refuses two ranks of one communicator on one device,
+    and gloo takes CUDA tensors for all-reduce and broadcast (the
+    collectives :class:`ServingShard` runs there)."""
+    if not torch.cuda.is_available():
+        return "gloo"
+    if world_size is not None and world_size > torch.cuda.device_count():
+        log.warning("%d ranks share %d card(s): gloo collectives, no nccl",
+                    world_size, torch.cuda.device_count())
+        return "gloo"
+    return "cpu:gloo,cuda:nccl"
 
 
 def make_mesh(plan: Optional[MeshPlan] = None, *, device_type: str = "cuda") -> DeviceMesh:
@@ -207,14 +224,24 @@ def make_mesh(plan: Optional[MeshPlan] = None, *, device_type: str = "cuda") -> 
             f"ranks (one process per rank; torch has no virtual devices as JAX has)")
     if device_type == "cuda":
         # one card per rank, chosen before the mesh binds its communicator
+        # (ranks beyond the card count share cards, over gloo: _backend)
         local = os.environ.get("LOCAL_RANK")
-        torch.cuda.set_device(int(local) if local is not None
-                              else dist.get_rank() % torch.cuda.device_count())
+        index = int(local) if local is not None else dist.get_rank()
+        torch.cuda.set_device(index % torch.cuda.device_count())
     mesh = init_device_mesh(device_type, (plan.dp, plan.fsdp, plan.tp), mesh_dim_names=AXES)
     # the data axes as one dim too, so a sum over both (the loss, the
     # gradients) is one collective rather than two in sequence
     mesh["dp", "fsdp"]._flatten("data")
     return mesh
+
+
+def launched() -> bool:
+    """Whether the environment names a coordinator (JAX's or torchrun's),
+    as :func:`initialize_distributed` reads it."""
+    coordinator = os.environ.get("JAX_COORDINATOR_ADDRESS") or os.environ.get(
+        "COORDINATOR_ADDRESS")
+    torchrun = bool(os.environ.get("MASTER_ADDR")) and int(os.environ.get("WORLD_SIZE", "1")) > 1
+    return bool(coordinator or torchrun)
 
 
 def initialize_distributed(**kwargs: Any) -> None:
@@ -233,7 +260,7 @@ def initialize_distributed(**kwargs: Any) -> None:
     coordinator = os.environ.get("JAX_COORDINATOR_ADDRESS") or os.environ.get(
         "COORDINATOR_ADDRESS")
     torchrun = bool(os.environ.get("MASTER_ADDR")) and int(os.environ.get("WORLD_SIZE", "1")) > 1
-    if not (kwargs or coordinator or torchrun):
+    if not (kwargs or launched()):
         return
     renamed = {"num_processes": "world_size", "process_id": "rank"}
     kwargs = {renamed.get(key, key): value for key, value in kwargs.items()}
@@ -248,7 +275,8 @@ def initialize_distributed(**kwargs: Any) -> None:
                     raise ValueError(f"coordinator {address} given without {key} "
                                      f"(pass it, or set {env})")
                 kwargs[key] = int(os.environ[env])
-    kwargs.setdefault("backend", _backend())
+    world = kwargs.get("world_size", os.environ.get("WORLD_SIZE"))
+    kwargs.setdefault("backend", _backend(None if world is None else int(world)))
     dist.init_process_group(**kwargs)
 
 
@@ -433,3 +461,214 @@ def validate_param_shardings(mesh: MeshLike, config: ModelConfig, *,
 def mesh_summary(mesh: DeviceMesh) -> str:
     sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
     return f"mesh {sizes} over {mesh.size()} {mesh.device_type} device(s)"
+
+
+# --------------------------------------------------------------------------
+# serving on a mesh: local shards and explicit collectives
+# --------------------------------------------------------------------------
+
+#: the tp-split layer matrices whose OUTPUT axis is split (column
+#: parallel) and whose INPUT axis is (row parallel: a partial sum that an
+#: all-reduce over tp completes)
+COLUMN_PARALLEL = ("wq", "wk", "wv", "w_gate", "w_up")
+ROW_PARALLEL = ("wo", "w_down")
+
+
+def validate_serving_mesh(mesh: MeshLike, config: ModelConfig, max_slots: int) -> None:
+    """The wave engine's two rules for a serving mesh, with the JAX
+    generator's messages (``operator_tpu/serving/engine.py:457-478``):
+    tp divides the KV heads and the heads, and the slots divide over the
+    data axes.  ``mesh`` may be a :class:`MeshPlan` (no ranks needed)."""
+    sizes = _axis_sizes(mesh)
+    tp = sizes.get("tp", 1)
+    dp_total = sizes.get("dp", 1) * sizes.get("fsdp", 1)
+    if config.num_kv_heads % tp or config.num_heads % tp:
+        raise ValueError(
+            f"tp={tp} must divide kv_heads={config.num_kv_heads} "
+            f"and heads={config.num_heads}"
+        )
+    if max_slots % dp_total:
+        raise ValueError(
+            f"max_slots={max_slots} must be a multiple of "
+            f"dp*fsdp={dp_total} (slots shard over the data axes)"
+        )
+
+
+class ServingShard:
+    """This rank's place in a serving mesh, and the collectives the
+    serving programs run on plain local tensors (DTensor's sharding
+    propagation is too slow for the model's ops; it is used for nothing
+    here).  JAX serves a mesh from one process and XLA inserts the
+    collectives that ``in_shardings`` imply; the port writes them:
+
+    - ``reduce_tp``: the all-reduce after each row-parallel projection
+      (``wo``, ``w_down``);
+    - ``gather_data``: slots and prefill rows split over the data axes
+      (``dp`` major, ``fsdp`` minor, :func:`batch_spec`); sampled tokens
+      and prefilled KV are gathered over them;
+    - ``gather_fsdp``: at serving, a matrix's fan-in axis is split over
+      fsdp, and each layer's weights are gathered before use;
+    - vocab: ``lm_head``'s columns are split over tp (``logits_spec``),
+      and the logits are gathered to the full vocab before sampling, so
+      every tp rank draws the same token; the embedding (and a tied head)
+      is split over fsdp and gathered as a layer's weights are.
+
+    A gather over a one-rank group returns its input; an all-reduce
+    always runs, so a one-rank group's collectives are in the programs
+    (and in their CUDA graphs) as a larger group's are.  nccl gathers into
+    one tensor; gloo (the CPU, and ranks sharing a card) into a list."""
+
+    def __init__(self, mesh: DeviceMesh) -> None:
+        sizes = _axis_sizes(mesh)
+        self.dp, self.fsdp, self.tp = sizes["dp"], sizes["fsdp"], sizes["tp"]
+        #: slots and prefill rows split this many ways
+        self.data = self.dp * self.fsdp
+        self.ranks = {axis: mesh.get_local_rank(axis) for axis in AXES}
+        self.data_rank = self.ranks["dp"] * self.fsdp + self.ranks["fsdp"]
+        self.tp_group = mesh.get_group("tp")
+        self.fsdp_group = mesh.get_group("fsdp")
+        self.data_group = mesh["dp", "fsdp"]._flatten("data").get_group()
+        if dist.get_group_rank(self.data_group, dist.get_rank()) != self.data_rank:
+            raise RuntimeError("the data axes' group does not order ranks dp-major")
+        self.backend = str(dist.get_backend(self.tp_group))
+        #: collectives a CUDA graph can capture: nccl's on the card, not gloo's
+        self.capturable = mesh.device_type == "cuda" and "nccl" in self.backend
+        self._layer_specs: dict = {}
+
+    # -- where this rank's shard lies ---------------------------------------
+
+    def _index(self, entry: Union[None, str, tuple]) -> tuple[int, int]:
+        """(ways, this rank's index) of one spec entry."""
+        ways, index = 1, 0
+        for axis in _spec_axes(entry):
+            size = getattr(self, axis)
+            ways, index = ways * size, index * size + self.ranks[axis]
+        return ways, index
+
+    def local(self, tensor: torch.Tensor, spec: P) -> torch.Tensor:
+        """This rank's shard of a whole ``tensor`` under ``spec`` (a
+        contiguous copy where the spec splits it, else the tensor)."""
+        out = tensor
+        for dim, entry in enumerate(spec):
+            ways, index = self._index(entry)
+            if ways > 1:
+                size = tensor.shape[dim]
+                if size % ways:
+                    raise ValueError(f"dim {dim} of shape {tuple(tensor.shape)} does not "
+                                     f"divide over {ways} ranks ({spec})")
+                out = out.narrow(dim, index * (size // ways), size // ways)
+        return out.contiguous() if out is not tensor else tensor
+
+    def local_shape(self, shape: Sequence[int], spec: P) -> tuple:
+        out = list(shape)
+        for dim, entry in enumerate(spec):
+            out[dim] //= self._index(entry)[0]
+        return tuple(out)
+
+    def local_params(self, params: Params, config: ModelConfig, quantized: bool) -> Params:
+        """``params`` cut to this rank's shards.  A leaf already at its
+        local shape (the sharded loader's output) is kept; a leaf at
+        neither shape raises."""
+        from ..models.llama import init_params
+
+        specs = param_specs(config, quantized=quantized)
+        shapes = init_params(config, None, device="meta", quantize=quantized)
+
+        def cut(leaf, spec, meta):
+            local = self.local_shape(meta.shape, spec)
+            if tuple(leaf.shape) == tuple(meta.shape):
+                return self.local(leaf, spec)
+            if tuple(leaf.shape) == local:
+                return leaf
+            raise ValueError(f"a param leaf of shape {tuple(leaf.shape)} is neither the "
+                             f"model's {tuple(meta.shape)} nor this rank's shard {local}")
+
+        return tree_map(cut, params, specs, shapes)
+
+    def local_lora(self, lora: dict) -> dict:
+        """A stacked adapter tree (``[L, n, in, r]`` ``a``, ``[L, n, r,
+        out]`` ``b``, replicated) cut for this rank's projections: a
+        column-parallel target keeps its ``b`` columns, a row-parallel
+        one its ``a`` rows, so its term joins the partial sum before the
+        projection's all-reduce (exact by linearity: no collective of its
+        own)."""
+        out = {}
+        for name, factors in lora.items():
+            a, b = factors["a"], factors["b"]
+            if name in COLUMN_PARALLEL:
+                b = self.local(b, P(None, None, None, "tp"))
+            elif name in ROW_PARALLEL:
+                a = self.local(a, P(None, None, "tp"))
+            out[name] = {"a": a, "b": b}
+        return out
+
+    def rows(self, n: int) -> slice:
+        """This data rank's rows of an ``n``-row batch (``n`` divides)."""
+        per = n // self.data
+        return slice(self.data_rank * per, (self.data_rank + 1) * per)
+
+    # -- collectives ----------------------------------------------------------
+
+    def reduce_tp(self, x: torch.Tensor) -> torch.Tensor:
+        """The partial sums of a row-parallel projection, summed over tp
+        (in place)."""
+        dist.all_reduce(x, group=self.tp_group)
+        return x
+
+    def _gather(self, x: torch.Tensor, dim: int, group, ways: int) -> torch.Tensor:
+        if ways == 1:
+            return x
+        x = x.contiguous()
+        if self.capturable:
+            moved = x.movedim(dim, 0).contiguous()
+            out = torch.empty((ways * moved.shape[0], *moved.shape[1:]), dtype=x.dtype,
+                              device=x.device)
+            dist.all_gather_into_tensor(out, moved, group=group)
+            return out.movedim(0, dim)
+        parts = [torch.empty_like(x) for _ in range(ways)]
+        dist.all_gather(parts, x, group=group)
+        return torch.cat(parts, dim=dim)
+
+    def gather_data(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """Each data rank's rows (``dim``) joined in data-rank order."""
+        return self._gather(x, dim, self.data_group, self.data)
+
+    def gather_tp(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        return self._gather(x, dim % x.dim(), self.tp_group, self.tp)
+
+    def gather_fsdp(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        return self._gather(x, dim % x.dim(), self.fsdp_group, self.fsdp)
+
+    def layer_weights(self, weights: dict, config: ModelConfig) -> dict:
+        """One layer's weights whole on their fsdp axis (the per-layer
+        all-gather XLA inserts for JAX at serving)."""
+        if self.fsdp == 1:
+            return weights
+        quantized = isinstance(weights["wq"], dict)
+        specs = self._layer_specs.get((config.name, quantized))
+        if specs is None:
+            specs = self._layer_specs[(config.name, quantized)] = param_specs(
+                config, quantized=quantized)["layers"]
+
+        def whole(leaf, spec):
+            for dim, entry in enumerate(tuple(spec)[1:]):
+                if "fsdp" in _spec_axes(entry):
+                    leaf = self.gather_fsdp(leaf, dim)
+            return leaf
+
+        return tree_map(whole, weights, {name: specs[name] for name in weights})
+
+    def embed(self, table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+        """Rows of the embedding, whose vocab axis is split over fsdp: the
+        table is gathered first, as a layer's weights are (fsdp is also a
+        data axis, so the ranks of an fsdp group look up different ids)."""
+        return self.gather_fsdp(table, 0)[ids]
+
+    def logits(self, x: torch.Tensor, params: Params, config: ModelConfig) -> torch.Tensor:
+        """``x @ head`` over the full vocab: an untied head's columns are
+        split over tp (its rows, over fsdp, are gathered first); a tied
+        head is the embedding, its vocab split over fsdp."""
+        if config.tie_embeddings:
+            return x @ self.gather_fsdp(params["embed"], 0).T
+        head = self.gather_fsdp(params["lm_head"], 0)
+        return self.gather_tp(x @ head, -1)

@@ -15,6 +15,16 @@ its ``kernels/`` directory, so a restart on the same volume runs no
 ``nvcc``.  The ``tpu-native`` provider answers
 ``/api/v1/analysis/analyze``.  Runs on the card unless ``--device cpu``
 is given.
+
+``SERVING_MESH`` serves on a mesh of ranks.  One process (``auto`` on one
+card, or ``dp=1,tp=1``) makes its own one-rank group.  Under a launcher,
+every rank runs this module:
+
+    SERVING_MESH=dp=1,tp=4 torchrun --nproc-per-node 4 \
+        -m operator_tpu_torch.serving --port 8000
+
+rank 0 serves HTTP and drives the others, which follow its calls on
+their shards until it stops (``serving/meshserve.py``).
 """
 
 from __future__ import annotations
@@ -48,6 +58,11 @@ def main() -> None:
         # the kernels persist beside the AOT cache's records
         enable_persistent_compilation_cache(os.path.join(cfg.aot_cache_path, "kernels"))
     engine, model_id = build_serving_engine(args.device, config=cfg)
+    from .meshserve import MeshFollower
+
+    if isinstance(engine, MeshFollower):
+        engine.run()  # a mesh rank other than 0: rank 0's calls, until it stops
+        return
     engine.warmup()
     analysis_backend = TPUNativeProvider(
         engine, model_id=model_id, register_template_prefixes=cfg.prefix_cache,
@@ -78,6 +93,8 @@ def main() -> None:
         )
     except KeyboardInterrupt:
         pass
+    finally:
+        engine.close()  # a mesh's followers stop with rank 0
 
 
 if __name__ == "__main__":

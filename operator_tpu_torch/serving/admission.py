@@ -1,6 +1,6 @@
 """Wave admission: tokenise, grant pages, batch-prefill into free slots.
 
-Counterpart of ``operator_tpu/serving/admission.py`` without mesh, both
+Counterpart of ``operator_tpu/serving/admission.py``, both
 cache layouts (a contiguous engine grants no pages, never admits in part
 and prefills into the slots' rows, ``_admit_batch``'s ``else`` branch):
 :meth:`AdmissionMixin.admit` (:395), ``_admit_tokens`` (:429), the batch
@@ -431,9 +431,15 @@ class AdmissionMixin:
 
     def _admission_n_pads(self) -> list[int]:
         """The closed set of batch buckets admission can assign:
-        power-of-two buckets capped at max_slots."""
+        power-of-two buckets, on a mesh rounded up to multiples of
+        ``dp * fsdp`` (so prefill rows split over the data axes and never
+        run replicated; JAX ``admission.py:480-492``), capped at
+        max_slots.  Taking the smallest member >= n keeps
+        ``_admission_n_pad`` idempotent where ``dp * fsdp`` is not a power
+        of two."""
+        d = 1 if self.shard is None else self.shard.data
         return sorted({
-            min(self.max_slots, 1 << k)
+            min(self.max_slots, -(-(1 << k) // d) * d)
             for k in range(self.max_slots.bit_length() + 1)
         })
 

@@ -135,8 +135,8 @@ def generator_fingerprint(
     """The fingerprint payload for a ``Generator`` shape, with the JAX
     package's keys.  Called with the constructor's arguments (provider
     and tests) or the generator's resolved attributes; a divergence reads
-    as a miss, never as a wrong load.  The port serves on one device, so
-    ``mesh`` is None unless a caller names one."""
+    as a miss, never as a wrong load.  ``mesh`` (a ``DeviceMesh``) keys on
+    :func:`_mesh_desc`, the same on every boot of the same layout."""
     try:
         model = dataclasses.asdict(config)
     except TypeError:
@@ -153,7 +153,7 @@ def generator_fingerprint(
         "paged": bool(paged),
         "page_size": int(page_size),
         "kv_pages": int(kv_pages or 0),
-        "mesh": None if mesh is None else str(mesh),
+        "mesh": _mesh_desc(mesh),
         "decode_block": int(decode_block),
         "sample_top_k": int(sample_top_k) if sample_top_k else None,
         "pipeline_depth": int(pipeline_depth),
@@ -165,6 +165,26 @@ def generator_fingerprint(
         "kv_prefix_cache": bool(kv_prefix_cache),
         "lora": sorted(str(n) for n in lora_names if n),
         "runtime": runtime_versions(),
+    }
+
+
+def _mesh_desc(mesh: Any) -> Optional[dict]:
+    """A serving mesh as the fingerprint keys it (JAX's axes, device
+    count and device kind, and this rank's place: each rank captures its
+    own shard's programs).  Nothing of it changes between boots."""
+    if mesh is None:
+        return None
+    names = tuple(mesh.mesh_dim_names)
+    kind = mesh.device_type
+    if kind == "cuda":
+        import torch
+
+        kind = torch.cuda.get_device_name(torch.cuda.current_device())
+    return {
+        "axes": dict(zip(names, (int(n) for n in mesh.shape))),
+        "devices": int(mesh.size()),
+        "kind": kind,
+        "rank": {name: int(mesh.get_local_rank(name)) for name in names},
     }
 
 

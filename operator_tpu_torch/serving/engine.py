@@ -1,7 +1,7 @@
 """The port's serving engine: the generator and its worker thread.
 
 ``Generator`` is the counterpart of
-``operator_tpu/serving/engine.py:BatchedGenerator`` without mesh: it
+``operator_tpu/serving/engine.py:BatchedGenerator``: it
 holds the parameters, the KV cache, the slot table and the sampling
 ``torch.Generator``.  Paged (``paged=True``, the port's default): a
 ``PagedKVCache`` (worst-case sizing by default, ``max_slots *
@@ -37,6 +37,16 @@ its key's first use or by the warmup grid (``ServingEngine.precompile``,
 ``reset`` zeroes the page pool in place, so a restart captures nothing
 again, unless a stalled worker is still wedged (then the graphs and the
 pool are made anew).
+
+With ``mesh`` (a ``DeviceMesh`` of the process group's ranks) it is one
+rank of a sharded generator: the JAX generator's validation and
+messages, its params cut to this rank's shards, its cache at this
+rank's KV heads (and, contiguous, its data rank's rows), the programs'
+mesh paths (``programs.py``), dp-rounded buckets (``admission.py``) and
+a ``torch.Generator`` of its data rank.  Ranks keep in lockstep through
+``serving/meshserve.py``: rank 0 sends each state-changing call to the
+others before making it.  A mesh whose collectives no graph can capture
+(gloo) runs its programs eagerly, by ``GraphSet``'s stated mode.
 
 Both loops record each step into the generator's step clock
 (``serving/perf.py:StepClock``; ``step_clock.summary()`` is the stall
@@ -209,8 +219,23 @@ class Generator(AdmissionMixin, ProgramBuilderMixin):
         aot_cache: Any = None,
         prefill_chunk: Optional[int] = None,
         paged: bool = True,
+        mesh: Any = None,
     ) -> None:
         self.device = resolve_device(device)
+        # ---- sharded serving: a DeviceMesh (parallel/mesh.py:make_mesh) of
+        # the process group's ranks, each running this generator on its
+        # shard — tp on heads and MLP columns, slots over the data axes;
+        # the programs run the collectives (ServingShard) that XLA inserts
+        # for JAX.  ``params`` may be whole (each rank cuts its shard) or
+        # already this rank's shards (the sharded load)
+        self.mesh = mesh
+        self.shard = None
+        if mesh is not None:
+            from ..parallel.mesh import ServingShard, validate_serving_mesh
+
+            validate_serving_mesh(mesh, config, max_slots)
+            self.shard = ServingShard(mesh)
+            params = self.shard.local_params(params, config, quantized=is_quantized(params))
         #: the KV layout: pages (the scheduler's too) or one contiguous row
         #: per slot.  JAX's ``BatchedGenerator`` defaults to contiguous; the
         #: port defaults to paged, and the provider passes it explicitly
@@ -290,6 +315,9 @@ class Generator(AdmissionMixin, ProgramBuilderMixin):
         #: registered shared prefixes: text, tokens and generator-owned
         #: pages each (see add_shared_prefix)
         self._prefixes: list[dict] = []
+        #: rank 0's ``serving/meshserve.py:MeshDriver`` on a serving mesh
+        #: of several ranks, else None
+        self.mirror = None
         #: optional ``hook(slot_id, token_ids_so_far)`` called after each
         #: processed block for slots that are still generating — the
         #: streaming feed (ServingEngine marshals it onto the caller's
@@ -310,7 +338,10 @@ class Generator(AdmissionMixin, ProgramBuilderMixin):
         # per-slot sampling tensors change only at admit/finish
         self._sampling_cache: Optional[tuple] = None
         self._rng = torch.Generator(device=self.device)
-        self._rng.manual_seed(seed)
+        # a data rank draws for its own rows: its own stream (tp ranks of
+        # one data rank draw alike, so they sample the same tokens)
+        self._rng.manual_seed(seed if self.shard is None
+                              else seed * self.shard.data + self.shard.data_rank)
         #: wave counters: prefill waves, decode blocks dispatched, held
         #: slots / capacity summed over blocks, and the stream milliseconds
         #: of each processed block (CUDA events around it; CUDA only)
@@ -360,6 +391,9 @@ class Generator(AdmissionMixin, ProgramBuilderMixin):
                 ]
             )
             self._adapter_ids.update({n: i + 1 for i, n in enumerate(names)})
+            if self.shard is not None:
+                # replicated factors, each rank keeping its projections' part
+                self.lora = self.shard.local_lora(self.lora)
         #: the guided tables' device buffers, one per padded shape: a
         #: restack of the same shape is copied into the buffer the decode
         #: graphs were captured with
@@ -393,13 +427,18 @@ class Generator(AdmissionMixin, ProgramBuilderMixin):
                         pipeline_depth=pipeline_depth,
                         prefill_chunk=prefill_chunk,
                         lora_names=[n for n in self._adapter_ids if n],
+                        mesh=mesh,
                     ), metrics=self.metrics)
                 except Exception:  # noqa: BLE001 - the cache is an optimisation only
                     log.warning(
                         "AOT cache disabled: fingerprint construction failed",
                         exc_info=True,
                     )
-        self.graphs = GraphSet(self.device)
+        eager = None
+        if self.shard is not None and self.device.type == "cuda" and not self.shard.capturable:
+            eager = (f"the mesh's {self.shard.backend} collectives cannot be captured in a "
+                     f"CUDA graph")
+        self.graphs = GraphSet(self.device, eager=eager)
         # fixed by address: params, the adapter stack, the guided tables,
         # the cache's KV (and in contiguous mode the offsets vector, which
         # the decode block advances in place)
@@ -456,16 +495,19 @@ class Generator(AdmissionMixin, ProgramBuilderMixin):
         self.paged_cache: Optional[PagedKVCache] = None
         self.cache: Optional[KVCache] = None
         self.offsets: Optional[torch.Tensor] = None
+        # on a mesh: this rank's KV heads; the whole pool (the tables and
+        # lengths are whole on every rank), or its data rank's cache rows
         if self.paged:
             self.paged_cache = PagedKVCache.create(
                 config.num_layers, self.allocator.num_pages, self.page_size,
-                config.num_kv_heads, config.head_dim, self.max_slots,
+                self._kv_heads, config.head_dim, self.max_slots,
                 self.pages_per_seq, dtype=self.cache_dtype, device=self.device,
             )
         else:
+            rows = self.max_slots // (1 if self.shard is None else self.shard.data)
             self.cache = KVCache.create(
-                config, self.max_slots, self.max_seq, dtype=self.cache_dtype,
-                device=self.device,
+                config, rows, self.max_seq, dtype=self.cache_dtype,
+                device=self.device, kv_heads=self._kv_heads,
             )
             self.offsets = torch.zeros((self.max_slots,), dtype=torch.int32, device=self.device)
         self.last_tokens = torch.zeros(
@@ -786,6 +828,11 @@ class Generator(AdmissionMixin, ProgramBuilderMixin):
             self.fault_plan.apply("engine.step", active=self.num_active)
             if self.abandoned():
                 raise RuntimeError("worker abandoned during its step")
+        # on a serving mesh, the part every rank makes (serving/meshserve.py)
+        return self._step()
+
+    def _step(self) -> list[tuple[int, GenerationResult]]:
+        """:meth:`step` past its chaos seam."""
         if self._prefill_job is not None:
             # one chunk per round: live slots' next block waits for at
             # most one chunk
@@ -967,12 +1014,11 @@ class Generator(AdmissionMixin, ProgramBuilderMixin):
         in exactly one chunk."""
         buffers = self._job_buffers.get((n_pad, t_pad))
         if buffers is None:
+            rows = n_pad // (1 if self.shard is None else self.shard.data)  # this rank's
             buffers = self._job_buffers[(n_pad, t_pad)] = (
-                KVCache.create(
-                    self.config, n_pad, t_pad, dtype=self.cache_dtype, device=self.device,
-                ),
+                self._mini_cache(rows, t_pad, self.cache_dtype, self.device),
                 torch.zeros(
-                    (n_pad, self.config.vocab_size), dtype=torch.float32, device=self.device
+                    (rows, self.config.vocab_size), dtype=torch.float32, device=self.device
                 ),
             )
         return buffers
@@ -1263,6 +1309,12 @@ class Generator(AdmissionMixin, ProgramBuilderMixin):
         rows = self._to_device(np.asarray(taken, np.int64))
         self.guided_state[rows] = first_state[: len(taken)].to(torch.int64)
 
+    def close(self) -> None:
+        """End a serving mesh's followers (rank 0, once the worker has
+        stopped); nothing to do on one rank."""
+        if self.mirror is not None:
+            self.mirror.close()
+
     def generate(
         self, prompt: str, params: Optional[SamplingParams] = None
     ) -> GenerationResult:
@@ -1552,6 +1604,10 @@ class ServingEngine:
             if thread.is_alive():
                 log.warning("serving worker did not stop within %.0fs", timeout)
         self._fail_outstanding(asyncio.CancelledError("serving engine closed"))
+        # a serving mesh's followers stop with the engine
+        close = getattr(self.generator, "close", None)
+        if close is not None:
+            close()
 
     # -- submit side ---------------------------------------------------
 

@@ -43,7 +43,9 @@ between replays.  A kernel's wrapper counts its launch where it launches
 it: under capture that count is a device add captured beside the launch
 (``ops/_build.py:LaunchCounter``), so every replay counts its launches on
 the card.  A capture or replay error raises, naming the program; there is
-no eager fallback on the card.
+no eager fallback on the card: a serving mesh whose collectives no graph
+can capture (gloo's) runs its programs eagerly by an explicit mode
+(``GraphSet(eager=reason)``), logged and stated in ``stats()``.
 """
 
 from __future__ import annotations
@@ -248,7 +250,7 @@ class GraphProgram:
         # the first call's own result, eager: every kernel is loaded and
         # every library handle made before the capture, and nothing runs twice
         out = self.fn(*args)
-        if self.graphs.device.type == "cuda":
+        if self.graphs.device.type == "cuda" and self.graphs.eager is None:
             entry = self._capture(key, leaves, fixed, spec, out)
         else:
             entry = _Entry()
@@ -342,8 +344,15 @@ class GraphSet:
     """The graph programs of one engine (or one encoder): one memory pool
     and one capture stream for all of them, and their counters."""
 
-    def __init__(self, device: Any) -> None:
+    def __init__(self, device: Any, eager: Optional[str] = None) -> None:
         self.device = torch.device(device)
+        #: why the programs run eagerly on the card (a serving mesh whose
+        #: collectives no graph can capture, such as gloo's), or None: an
+        #: explicit mode, logged and stated in :meth:`stats`, never a
+        #: fallback from a capture that failed (that raises)
+        self.eager = eager
+        if eager is not None and self.device.type == "cuda":
+            log.warning("serving programs run eagerly on %s: %s", self.device, eager)
         #: by name, held weakly: the owner holds its programs
         self.programs: "weakref.WeakValueDictionary[str, GraphProgram]" = (
             weakref.WeakValueDictionary()
@@ -403,6 +412,7 @@ class GraphSet:
 
     def stats(self) -> dict:
         return {
+            "mode": "graphs" if self.eager is None else f"eager: {self.eager}",
             "captures": self.captures,
             "capture_s": round(self.capture_s, 3),
             "replays": self.replays,

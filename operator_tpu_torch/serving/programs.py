@@ -1,7 +1,7 @@
 """The wave engine's device programs: the decode blocks and the prefills.
 
-Counterpart of ``operator_tpu/serving/programs.py`` without mesh, for
-both cache layouts.  Contiguous (``KVCache``, one ``[max_seq]`` row per
+Counterpart of ``operator_tpu/serving/programs.py``, for both cache
+layouts, with and without a serving mesh.  Contiguous (``KVCache``, one ``[max_seq]`` row per
 slot): :meth:`ProgramBuilderMixin._decode_step` (:47),
 :meth:`~ProgramBuilderMixin._decode_block` (:101, and with the guided
 args its twin ``_decode_block_guided``, :160) and
@@ -42,18 +42,35 @@ automaton id (``gaut``) and DFA state (``gstate``) mask the logits with
 device for active rows whose sampled token is allowed — the state is
 carried through the block, never read back per step.
 
+On a serving mesh (``Generator(mesh=...)``) each rank runs every program
+on its shard, and the programs make the collectives that JAX's
+``in_shardings``/``out_shardings`` imply (``parallel/mesh.py:
+ServingShard``).  A data rank decodes and prefills only its rows: the
+per-slot vectors are whole on every rank and each program takes its
+rows (:meth:`~ProgramBuilderMixin._local_rows`).  Each program's results
+(sampled tokens, lengths, DFA states) are gathered over the data axes
+once, at its end (:meth:`~ProgramBuilderMixin._gather_rows`), so every
+rank's host sees every slot's token; a prefill's mini cache is gathered
+before the store (:meth:`~ProgramBuilderMixin._gather_mini`), because a
+wave's row and the slot it fills may lie on different data ranks.  The
+model (``models/llama.py``) runs the tp all-reduces, the fsdp weight
+gathers and the vocab gather.
+
 Mixed into :class:`serving.engine.Generator`.
 """
 
 from __future__ import annotations
 
-from typing import Any, Optional
+from typing import TYPE_CHECKING, Any, Optional
 
 import torch
 
 from ..models.llama import KVCache, decode_step, decode_step_paged, forward
 from ..ops.paged_attention import PagedKVCache, write_tokens
 from .sampling import sample
+
+if TYPE_CHECKING:
+    from ..parallel.mesh import ServingShard
 
 __all__ = ["ProgramBuilderMixin"]
 
@@ -76,6 +93,45 @@ class ProgramBuilderMixin:
     sample_top_k: int
     lora_alpha: float
     _rng: torch.Generator
+    #: this rank's place on a serving mesh, else None
+    shard: Optional["ServingShard"]
+
+    # -- a serving mesh's rows ------------------------------------------------
+
+    def _local_rows(self, n: int, *tensors: Optional[torch.Tensor]) -> tuple:
+        """Each tensor's rows of this data rank (``ServingShard.rows``), or
+        the tensors as they are without a mesh; None stays None."""
+        if self.shard is None:
+            return tensors
+        rows = self.shard.rows(n)
+        return tuple(None if t is None else t[rows] for t in tensors)
+
+    def _gather_rows(self, *tensors: Optional[torch.Tensor]) -> tuple:
+        """The inverse of :meth:`_local_rows` for per-row integer results
+        (1-d, one row each): every data rank's rows, joined by ONE gather
+        over the data axes.  Without a mesh, as they are."""
+        if self.shard is None:
+            return tensors
+        present = [t for t in tensors if t is not None]
+        packed = self.shard.gather_data(torch.stack([t.to(torch.int64) for t in present]), 1)
+        out, i = [], 0
+        for t in tensors:
+            if t is None:
+                out.append(None)
+            else:
+                out.append(packed[i].to(t.dtype))
+                i += 1
+        return tuple(out)
+
+    def _gather_mini(self, mini: KVCache) -> KVCache:
+        """A prefill's mini cache of this data rank's rows, joined over the
+        data axes: a wave's row and the slot it fills may lie on different
+        data ranks (the paged pool is whole on every data rank, as
+        ``paged_cache_specs`` places it in JAX; a contiguous rank keeps
+        its own slots' rows, ``_store_prompt_kv``)."""
+        if self.shard is None:
+            return mini
+        return KVCache(k=self.shard.gather_data(mini.k, 1), v=self.shard.gather_data(mini.v, 1))
 
     def _decode_step(
         self, params, cache: KVCache, tokens: torch.Tensor, offsets: torch.Tensor,
@@ -92,7 +148,7 @@ class ProgramBuilderMixin:
         (cache, tokens, the new state or None)."""
         logits, cache = decode_step(
             params, self.config, tokens, offsets[:, None], cache, offsets,
-            lora=lora, lora_alpha=self.lora_alpha, lora_indices=lora_idx,
+            lora=lora, lora_alpha=self.lora_alpha, lora_indices=lora_idx, shard=self.shard,
         )
         row = None
         if gtables is not None:
@@ -117,7 +173,13 @@ class ProgramBuilderMixin:
         ``OPERATOR_TPU_DECODE_UNROLL``: here both are the same enqueued
         sequence); with ``gtables`` its guided twin.  ``offsets`` advance
         in place.  Returns (cache, the [K, B] token matrix, the last
-        tokens [B, 1], the final DFA state or None)."""
+        tokens [B, 1], the final DFA state or None).
+
+        On a mesh a data rank decodes its own slots' rows (its cache holds
+        only those), and the tokens and states of every rank's rows are
+        gathered once, at the block's end."""
+        tokens, offsets, temp, top_p, active, lora_idx, gaut, gstate = self._local_rows(
+            tokens.shape[0], tokens, offsets, temp, top_p, active, lora_idx, gaut, gstate)
         toks = []
         for _ in range(self.decode_block):
             cache, next_tokens, gstate = self._decode_step(
@@ -126,7 +188,8 @@ class ProgramBuilderMixin:
             )
             tokens = next_tokens[:, None]
             toks.append(next_tokens)
-        return cache, torch.stack(toks), tokens, gstate
+        *toks, gstate = self._gather_rows(*toks, gstate)
+        return cache, torch.stack(toks), toks[-1][:, None], gstate
 
     def _decode_step_paged(
         self, params, paged: PagedKVCache, tokens: torch.Tensor,
@@ -142,7 +205,7 @@ class ProgramBuilderMixin:
         returns (cache, tokens, the new state or None)."""
         logits, new_paged = decode_step_paged(
             params, self.config, tokens, paged,
-            lora=lora, lora_alpha=self.lora_alpha, lora_indices=lora_idx,
+            lora=lora, lora_alpha=self.lora_alpha, lora_indices=lora_idx, shard=self.shard,
         )
         row = None
         if gtables is not None:
@@ -168,7 +231,17 @@ class ProgramBuilderMixin:
         """``decode_block`` chained decode steps, enqueued back to back on
         the stream (the JAX ``lax.scan``; with ``gtables`` its guided twin,
         the DFA state in the carry).  Returns (cache, the [K, B] token
-        matrix, the last tokens [B, 1], the final DFA state or None)."""
+        matrix, the last tokens [B, 1], the final DFA state or None).
+
+        On a mesh a data rank decodes its own slots' rows over the whole
+        pool (at its KV heads), and the tokens, lengths and states of every
+        rank's rows are gathered once, at the block's end."""
+        table = paged.page_table
+        tokens, temp, top_p, active, lora_idx, gaut, gstate, rows_table, lengths = (
+            self._local_rows(tokens.shape[0], tokens, temp, top_p, active, lora_idx, gaut,
+                             gstate, table, paged.lengths))
+        paged = PagedKVCache(k_pages=paged.k_pages, v_pages=paged.v_pages,
+                             page_table=rows_table, lengths=lengths)
         toks = []
         for _ in range(self.decode_block):
             paged, next_tokens, gstate = self._decode_step_paged(
@@ -177,7 +250,10 @@ class ProgramBuilderMixin:
             )
             tokens = next_tokens[:, None]
             toks.append(next_tokens)
-        return paged, torch.stack(toks), tokens, gstate
+        *toks, lengths, gstate = self._gather_rows(*toks, paged.lengths, gstate)
+        paged = PagedKVCache(k_pages=paged.k_pages, v_pages=paged.v_pages,
+                             page_table=table, lengths=lengths)
+        return paged, torch.stack(toks), toks[-1][:, None], gstate
 
     def _store_prompt_kv(
         self, cache: "KVCache | PagedKVCache", mini: KVCache, lengths: torch.Tensor,
@@ -192,6 +268,19 @@ class ProgramBuilderMixin:
         slot_ids, :t_pad].set``); padding rows duplicate row 0 and write
         its values again, and positions past a row's length are masked
         until its decode writes them."""
+        if isinstance(cache, KVCache) and self.shard is not None:
+            # a data rank holds its own slots' rows: each takes the first
+            # wave row that fills it (padding rows repeat row 0's values)
+            t_pad = mini.k.shape[2]
+            held = cache.k.shape[1]
+            slots = rows.long() - self.shard.data_rank * held
+            match = slots[None, :] == torch.arange(held, device=slots.device)[:, None]
+            filled = match.any(1)[None, :, None, None, None]
+            source = match.int().argmax(1)
+            for dest, src in ((cache.k, mini.k), (cache.v, mini.v)):
+                region = dest[:, :, start:t_pad]
+                region.copy_(torch.where(filled, src[:, source, start:].to(dest.dtype), region))
+            return
         if isinstance(cache, KVCache):
             t_pad = mini.k.shape[2]
             slots = rows.long()
@@ -228,11 +317,19 @@ class ProgramBuilderMixin:
 
         With guided args the first token is masked by each row's start
         state (state 0) and the state it leads to is returned, clamped at
-        0 as the JAX program does; else the third value is None."""
+        0 as the JAX program does; else the third value is None.
+
+        On a mesh a data rank forwards its rows of the bucket (admission
+        pads it to a multiple of ``dp * fsdp``), the mini caches are
+        gathered over the data axes before the store, and the first
+        tokens after the sampling."""
         dtype = cache.k.dtype if isinstance(cache, KVCache) else cache.k_pages.dtype
-        last_logits, mini = self._prefill_forward(params, token_ids, lengths, dtype, lora, lora_idx)
-        self._store_prompt_kv(cache, mini, lengths, rows)
+        ids, lens, temp, top_p, lora_idx, gaut = self._local_rows(
+            token_ids.shape[0], token_ids, lengths, temp, top_p, lora_idx, gaut)
+        last_logits, mini = self._prefill_forward(params, ids, lens, dtype, lora, lora_idx)
+        self._store_prompt_kv(cache, self._gather_mini(mini), lengths, rows)
         first_tokens, first_state = self._sample_first(last_logits, temp, top_p, gtables, gaut)
+        first_tokens, first_state = self._gather_rows(first_tokens, first_state)
         return cache, first_tokens, first_state
 
     def _prefill_forward(
@@ -244,7 +341,7 @@ class ProgramBuilderMixin:
         and the mini cache."""
         n_pad, t_pad = token_ids.shape
         device = token_ids.device
-        mini = KVCache.create(self.config, n_pad, t_pad, dtype=dtype, device=device)
+        mini = self._mini_cache(n_pad, t_pad, dtype, device)
         positions = torch.arange(t_pad, dtype=torch.int32, device=device)[None].expand(
             n_pad, t_pad
         )
@@ -253,8 +350,18 @@ class ProgramBuilderMixin:
             params, self.config, token_ids, positions, cache=mini,
             cache_offset=0, kv_valid=kv_valid, prefill_lengths=lengths,
             logits_at=lengths - 1,
-            lora=lora, lora_alpha=self.lora_alpha, lora_indices=lora_idx,
+            lora=lora, lora_alpha=self.lora_alpha, lora_indices=lora_idx, shard=self.shard,
         )
+
+    def _mini_cache(self, n: int, t: int, dtype: torch.dtype, device: Any) -> KVCache:
+        """A fresh ``[n, t]`` mini cache at this rank's KV heads."""
+        return KVCache.create(self.config, n, t, dtype=dtype, device=device,
+                              kv_heads=self._kv_heads)
+
+    @property
+    def _kv_heads(self) -> int:
+        """KV heads this rank holds: all, or a tp rank's share."""
+        return self.config.num_kv_heads // (1 if self.shard is None else self.shard.tp)
 
     def _sample_first(
         self, last_logits: torch.Tensor, temp: torch.Tensor, top_p: torch.Tensor,
@@ -291,14 +398,16 @@ class ProgramBuilderMixin:
         ``shared`` on, into each row's own pages: the prefix pages are
         read, never written.  Guided rows mask the first token as the
         plain prefill does.  The attention is the dense path (no
-        ``prefill_lengths``), as in the JAX program."""
+        ``prefill_lengths``), as in the JAX program.  On a mesh as
+        :meth:`_prefill`: a data rank's rows, gathered before the store."""
+        full_lengths = lengths
+        token_ids, lengths, temp, top_p, lora_idx, gaut = self._local_rows(
+            token_ids.shape[0], token_ids, lengths, temp, top_p, lora_idx, gaut)
         n_pad, t_sfx = token_ids.shape
         device = token_ids.device
         t_total = shared + t_sfx
         layers = self.config.num_layers
-        mini = KVCache.create(
-            self.config, n_pad, t_total, dtype=paged.k_pages.dtype, device=device
-        )
+        mini = self._mini_cache(n_pad, t_total, paged.k_pages.dtype, device)
         # pages -> contiguous [L, shared, KH, D], the same for every row
         for pages, dest in ((paged.k_pages, mini.k), (paged.v_pages, mini.v)):
             picked = pages[:, prefix_table.long()]  # [L, n_pp, ps, KH, D]
@@ -312,10 +421,12 @@ class ProgramBuilderMixin:
             params, self.config, token_ids, positions, cache=mini,
             cache_offset=shared, kv_valid=kv_valid,
             logits_at=lengths - 1 - shared,
-            lora=lora, lora_alpha=self.lora_alpha, lora_indices=lora_idx,
+            lora=lora, lora_alpha=self.lora_alpha, lora_indices=lora_idx, shard=self.shard,
         )
-        self._store_prompt_kv(paged, mini, lengths, row_tables, start=shared)
+        self._store_prompt_kv(paged, self._gather_mini(mini), full_lengths, row_tables,
+                              start=shared)
         first_tokens, first_state = self._sample_first(last_logits, temp, top_p, gtables, gaut)
+        first_tokens, first_state = self._gather_rows(first_tokens, first_state)
         return paged, first_tokens, first_state
 
     def _prefill_chunk(
@@ -328,7 +439,11 @@ class ProgramBuilderMixin:
         every chunk of a job) into the job's mini cache, in place; rows
         whose prompt ends inside this chunk write their last-token logits
         into ``last_logits``, in place.  Both are the job's buffers, read
-        by address under a graph, so a chunk copies neither."""
+        by address under a graph, so a chunk copies neither.  On a mesh
+        the job's buffers hold this data rank's rows, and the chunk
+        forwards those."""
+        ids_chunk, lengths, lora_idx = self._local_rows(
+            ids_chunk.shape[0], ids_chunk, lengths, lora_idx)
         n_pad, chunk = ids_chunk.shape
         t_pad = mini.k.shape[2]
         device = ids_chunk.device
@@ -345,7 +460,7 @@ class ProgramBuilderMixin:
             params, self.config, ids_chunk, positions, cache=mini,
             cache_offset=offset, kv_valid=kv_valid,
             logits_at=rel.clamp(0, chunk - 1),
-            lora=lora, lora_alpha=self.lora_alpha, lora_indices=lora_idx,
+            lora=lora, lora_alpha=self.lora_alpha, lora_indices=lora_idx, shard=self.shard,
         )
         last_logits.copy_(torch.where(in_chunk[:, None], gathered, last_logits))
         return mini, last_logits
@@ -361,9 +476,13 @@ class ProgramBuilderMixin:
         or the slots' contiguous rows, ``rows`` the slot ids: JAX's
         ``else`` branch of ``_make_finish_fn``), and each row's first
         token sampled from the carried last logits (masked by the
-        automaton's start state for guided rows)."""
-        self._store_prompt_kv(cache, mini, lengths, rows)
+        automaton's start state for guided rows).  On a mesh the job's
+        mini cache and last logits hold this data rank's rows: the cache
+        is gathered before the store, the first tokens after the sampling."""
+        self._store_prompt_kv(cache, self._gather_mini(mini), lengths, rows)
+        temp, top_p, gaut = self._local_rows(lengths.shape[0], temp, top_p, gaut)
         first_tokens, first_state = self._sample_first(last_logits, temp, top_p, gtables, gaut)
+        first_tokens, first_state = self._gather_rows(first_tokens, first_state)
         return cache, first_tokens, first_state
 
     def _prefix_build(
@@ -371,7 +490,8 @@ class ProgramBuilderMixin:
     ) -> PagedKVCache:
         """A shared prefix's KV, prefilled once (``[1, n_keep]`` tokens,
         flash prefill when enabled) and scattered into its
-        generator-owned pages ``table`` (``[1, n_keep / page]``)."""
+        generator-owned pages ``table`` (``[1, n_keep / page]``).  On a
+        mesh every rank builds the whole prefix at its own KV heads."""
         lengths = torch.full((1,), ids.shape[1], dtype=torch.int32, device=ids.device)
         _, mini = self._prefill_forward(params, ids, lengths, paged.k_pages.dtype)
         self._store_prompt_kv(paged, mini, lengths, table)

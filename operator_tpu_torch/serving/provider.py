@@ -63,12 +63,15 @@ cache (``Generator(paged=False)``, ``max_slots x max_seq`` reserved up
 front, no shared-prefix priming); under ``SCHED_MODE=continuous`` it
 falls back to the wave engine with the reference's warning, as LoRA
 adapters do.  Any other mode raises ``ValueError`` (the reference serves
-anything but ``paged`` contiguous).  A knob whose feature is not ported
-is refused when it is set away from its default, naming the ROADMAP
-Queue 1 item that ports it: ``SERVING_MESH`` (item 11).  The reference
-would fall back to the wave engine for a mesh on the continuous path;
-the port does not serve something else quietly.  As in the reference,
-the queue limit
+anything but ``paged`` contiguous).  ``SERVING_MESH`` (``auto`` or
+``dp=N,tp=N[,fsdp=N]``, the reference's ``_parse_mesh_plan``) serves on
+a mesh of the process group's ranks (``parallel/mesh.py:make_mesh``; one
+process makes its own one-rank group), falling back to the wave engine
+with the reference's warning under ``SCHED_MODE=continuous``: every rank
+loads its shard (the sharded load, or its cut of the seeded weights) and
+builds its generator; rank 0 gets the engine and drives the others
+(``serving/meshserve.py``), which get a :class:`MeshFollower` to run.  As
+in the reference, the queue limit
 and the overload ladder are not read here: the caller that wants them
 sets ``Scheduler.queue_limit``, ``Scheduler.overload_policy`` and
 ``Generator.overload_policy`` (the operator's pipeline, in the reference).
@@ -91,7 +94,7 @@ from __future__ import annotations
 import asyncio
 import logging
 import os
-from typing import Mapping, Optional, Union
+from typing import Any, Mapping, Optional, Union
 
 import torch
 
@@ -250,19 +253,49 @@ class TPUNativeProvider:
         )
 
 
-def _refuse_unported(config: OperatorConfig) -> None:
-    """Raise for a knob set away from its default whose feature is not
-    ported, naming its ROADMAP Queue 1 item."""
-    unported = (
-        ("SERVING_MESH", config.serving_mesh, "11", "multi-device serving"),
-    )
-    for name, value, item, feature in unported:
-        if value:
-            raise NotImplementedError(
-                f"{name}={value!r}: {feature} is not ported to "
-                f"operator_tpu_torch yet (ROADMAP.md Queue 1 item {item}); "
-                f"unset {name}"
+def _parse_mesh_plan(spec: str, devices: list, model_config: Any) -> Any:
+    """'auto' or 'dp=2,tp=4[,fsdp=1]' -> MeshPlan (the reference's
+    ``_parse_mesh_plan``); ``devices`` are the process group's ranks'
+    cards (one process: one)."""
+    from ..parallel.mesh import MeshPlan, plan_for
+
+    if spec == "auto":
+        # the cards, so tp sizing uses their memory, not the fallback budget
+        return plan_for(len(devices), config=model_config, devices=devices)
+    sizes = {"dp": 1, "fsdp": 1, "tp": 1}
+    for part in spec.split(","):
+        axis, _, value = part.strip().partition("=")
+        if axis not in sizes or not value.isdigit():
+            raise ValueError(
+                f"bad serving_mesh {spec!r}: expected 'auto' or 'dp=N,tp=N[,fsdp=N]'"
             )
+        sizes[axis] = int(value)
+    plan = MeshPlan(**sizes)
+    if plan.total > len(devices):
+        raise ValueError(
+            f"serving_mesh {spec!r} needs {plan.total} devices, found {len(devices)}"
+        )
+    return plan
+
+
+def _serving_mesh(spec: str, device: torch.device, model_config: Any) -> Any:
+    """The serving mesh of ``SERVING_MESH``: over the launcher's process
+    group (joined here, with :data:`meshserve.FOLLOWER_TIMEOUT_S` as its
+    collectives' timeout), or a one-rank group of this process."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from ..parallel.mesh import initialize_distributed, launched, make_mesh, mesh_summary
+    from .meshserve import FOLLOWER_TIMEOUT_S
+
+    if not dist.is_initialized() and launched():
+        initialize_distributed(timeout=timedelta(seconds=FOLLOWER_TIMEOUT_S))
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    plan = _parse_mesh_plan(spec, [device] * world, model_config)
+    mesh = make_mesh(plan, device_type=device.type)
+    log.info("sharded serving: %s", mesh_summary(mesh))
+    return mesh
 
 
 def _load_lora_dir(
@@ -327,7 +360,10 @@ def build_serving_engine(
     ``os.environ``) on ``device`` (default ``cuda``).  ``config`` (the
     operator's) takes the place of ``OperatorConfig.from_env(environ)``,
     as the JAX package's ``build_serving_engine`` takes it; the model id is read
-    from ``OPERATOR_TPU_MODEL`` in ``environ`` either way."""
+    from ``OPERATOR_TPU_MODEL`` in ``environ`` either way.  With a
+    ``SERVING_MESH`` of several ranks, a rank other than 0 gets a
+    ``serving/meshserve.py:MeshFollower`` in the engine's place: its
+    ``run()`` serves rank 0's calls until rank 0's engine closes."""
     from ..utils.device import resolve_device
 
     env = dict(os.environ if environ is None else environ)
@@ -350,18 +386,22 @@ def build_serving_engine(
             f"unknown KV_CACHE_MODE {config.kv_cache_mode!r}: expected 'paged' or 'contiguous'"
         )
     paged = config.kv_cache_mode == "paged"
-    _refuse_unported(config)
+    mesh = None
+    if config.serving_mesh:
+        mesh = _serving_mesh(config.serving_mesh, device, model_config)
+        if device.type == "cuda":
+            device = torch.device("cuda", torch.cuda.current_device())  # the rank's card
     lora_adapters = None
     if config.lora_dir:
         lora_adapters = _load_lora_dir(config.lora_dir, model_id, device)
     wave = config.sched_mode == "wave"
-    if not wave and (lora_adapters or not paged):
-        # the mixed step has paged KV only and no LoRA path: the
+    if not wave and (lora_adapters or not paged or mesh is not None):
+        # the mixed step has paged KV only, and no mesh or LoRA path: the
         # reference's fallback
         log.warning(
             "sched_mode=continuous requires paged KV, no mesh and no "
-            "LoRA adapters (paged=%s mesh=False lora=%s); falling back "
-            "to the wave engine", paged, bool(lora_adapters),
+            "LoRA adapters (paged=%s mesh=%s lora=%s); falling back "
+            "to the wave engine", paged, mesh is not None, bool(lora_adapters),
         )
         wave = True
     if wave:
@@ -392,6 +432,7 @@ def build_serving_engine(
                 spec_width=1 + (config.spec_lookup_k if config.spec_decode else 0),
                 kv_prefix_cache=config.kv_prefix_cache,
                 lora_names=sorted(lora_adapters) if lora_adapters else (),
+                mesh=mesh,
             ))
         except Exception:  # noqa: BLE001 - the cache is an optimisation only
             log.warning("AOT executable cache disabled", exc_info=True)
@@ -401,6 +442,7 @@ def build_serving_engine(
         # int8 load peaks at the int8 tree plus one bf16 group
         handle = load_params_async(
             checkpoint_dir, model_config, torch.bfloat16, device=device, quantize=quantize,
+            mesh=mesh,
         )
         params = handle.result()
         log.info("weight stream finished in %.1fs", handle.seconds or 0.0)
@@ -410,9 +452,7 @@ def build_serving_engine(
             "— output will be non-linguistic (ALLOW_RANDOM_WEIGHTS set)",
             model_id, checkpoint_dir,
         )
-        gen = torch.Generator(device=device)
-        gen.manual_seed(seed)
-        params = init_params(model_config, gen, torch.bfloat16, device=device, quantize=quantize)
+        params = _seeded_params(model_config, seed, device, quantize, mesh)
     else:
         raise MissingCheckpoint(
             f"providerId tpu-native needs weights for {model_id!r} but "
@@ -437,7 +477,18 @@ def build_serving_engine(
         aot_cache=aot,
         prefill_chunk=prefill_chunk,
         paged=paged,
+        mesh=mesh,
     )
+    if mesh is not None and mesh.size() > 1:
+        from torch.distributed import get_rank
+
+        from .meshserve import MeshDriver, MeshFollower, command_group
+
+        group = command_group()
+        if get_rank() != 0:
+            # the follower makes rank 0's calls (priming included) in order
+            return MeshFollower(generator, group), model_id
+        MeshDriver(generator, group)
     # supervised by default (the reference's production wiring): a stalled
     # or errored loop resets the engine and requeues in-flight requests
     # once with their residual deadlines
@@ -504,6 +555,38 @@ def build_serving_engine(
     if config.kv_fabric:
         _with_fabric(engine, config, env)
     return engine, model_id
+
+
+def _seeded_params(model_config: Any, seed: int, device: torch.device, quantize: bool,
+                   mesh: Any) -> Any:
+    """The seeded random weights, on a mesh cut to this rank's shards.
+    Every rank draws the whole tree (the same draws on every rank);
+    ranks sharing a card draw in turn, each keeping only its shards, so
+    the card never holds more than one rank's whole tree."""
+    def draw() -> Any:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
+        params = init_params(model_config, gen, torch.bfloat16, device=device, quantize=quantize)
+        if mesh is None:
+            return params
+        from ..parallel.mesh import ServingShard
+
+        local = ServingShard(mesh).local_params(params, model_config, quantized=quantize)
+        del params
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        return local
+
+    if mesh is None or device.type != "cuda" or mesh.size() <= torch.cuda.device_count():
+        return draw()
+    import torch.distributed as dist
+
+    params = None
+    for turn in range(dist.get_world_size()):
+        if turn == dist.get_rank():
+            params = draw()
+        dist.barrier()
+    return params
 
 
 def _with_role(engine: ServingEngine, config: OperatorConfig) -> ServingEngine:

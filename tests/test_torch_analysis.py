@@ -2747,3 +2747,68 @@ def test_port_rule_matches_jax_rule(tmp_path, rule_id):
         results[pkg] = _normalised(findings, pkg)
     assert results["operator_tpu_torch"], "the fixture must trip the rule"
     assert results["operator_tpu_torch"] == results["operator_tpu"]
+
+
+#: the serving mesh's collectives (``parallel/mesh.py:ServingShard``),
+#: which the programs reach through annotated receivers: ``shard:
+#: Optional["ServingShard"]`` in ``models/llama.py`` and ``self.shard``
+#: in ``serving/programs.py``
+_MESH_COLLECTIVES = {
+    "reduce_tp": "    def reduce_tp(",
+    "gather": "    def _gather(",
+    "logits": "    def logits(self",
+}
+
+
+@pytest.fixture(scope="module")
+def probed_mesh(tmp_path_factory):
+    """GL001 over a copy of the port's compute tree with a probe sync in
+    each of :data:`_MESH_COLLECTIVES`."""
+    root = tmp_path_factory.mktemp("probed_mesh")
+    for sub in ("ops", "serving", "models", "parallel"):
+        shutil.copytree(
+            REPO_ROOT / "operator_tpu_torch" / sub, root / "operator_tpu_torch" / sub,
+            ignore=shutil.ignore_patterns("__pycache__", "csrc", "builtin"),
+        )
+    for marker in _MESH_COLLECTIVES.values():
+        _inject_probe(root / "operator_tpu_torch/parallel/mesh.py", marker)
+    findings, _ = run_analysis(collect_context(root), rules_by_id(["GL001"]))
+    return findings
+
+
+@pytest.mark.parametrize("method", sorted(_MESH_COLLECTIVES))
+def test_mesh_collectives_are_reached_from_the_programs(probed_mesh, method):
+    """A host sync in a serving mesh collective is one inside every
+    program that reaches it; the collectives themselves are not host
+    syncs (the repo gate is clean over them)."""
+    symbol = "ServingShard._gather" if method == "gather" else f"ServingShard.{method}"
+    hits = [f for f in probed_mesh
+            if f.path == "operator_tpu_torch/parallel/mesh.py" and f.symbol == symbol]
+    assert len(hits) == 1, [f.render() for f in probed_mesh]
+    assert len(probed_mesh) == len(_MESH_COLLECTIVES)
+
+
+def test_an_unannotated_receiver_stays_unresolved(tmp_path):
+    """Only a receiver whose class an annotation names resolves: the same
+    call on an unannotated parameter reaches nothing."""
+    pkg = tmp_path / "operator_tpu_torch" / "serving"
+    pkg.mkdir(parents=True)
+    (pkg / "m.py").write_text(
+        "class Shard:\n"
+        "    def reduce(self, x):\n"
+        "        return x.item()\n"
+        "\n"
+        "class Engine:\n"
+        "    def build(self, graphs):\n"
+        "        graphs.program('a', self.typed)\n"
+        "        graphs.program('b', self.untyped)\n"
+        "\n"
+        "    def typed(self, x, shard: 'Shard'):\n"
+        "        return shard.reduce(x)\n"
+        "\n"
+        "    def untyped(self, x, shard):\n"
+        "        return shard.reduce(x)\n",
+        encoding="utf-8",
+    )
+    findings, _ = run_analysis(collect_context(tmp_path), rules_by_id(["GL001"]))
+    assert [f.symbol for f in findings] == ["Shard.reduce"], [f.render() for f in findings]

@@ -6,8 +6,8 @@ job, each on the port's wave ``Generator`` and the JAX
 ``BatchedGenerator(paged=True)`` with the same calls, on ``TINY_TEST``
 f32 weights from ``PRNGKey(0)`` carried across by ``params_from_jax``:
 greedy token ids byte for byte, the same chunk programs.  The contiguous
-cases are in ``tests/test_torch_contiguous.py``; the mesh ones wait for
-multi-device serving (ROADMAP Queue 1 item 11).  Beyond the JAX files: a prefixed
+cases are in ``tests/test_torch_contiguous.py``, the mesh ones in
+``tests/test_torch_sharded_serving.py``.  Beyond the JAX files: a prefixed
 wave never chunks, the warmup grid's chunk and finish keys are the JAX
 grid's, a failed chunk leaves the engine's tables untouched, and a
 request cancelled while its slot is reserved releases its grant once.

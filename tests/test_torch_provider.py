@@ -4,8 +4,9 @@ the JAX package's.
 - Every serving knob the reference reads (the fleet KV fabric's
   ``KV_FABRIC*`` too) resolves to the same setting in both, through each
   package's ``OperatorConfig.from_env``, ``KV_CACHE_MODE=contiguous``
-  included; a knob whose feature is not ported is refused with a message
-  naming its ROADMAP Queue 1 item.
+  included; ``SERVING_MESH=auto`` serves a one-rank mesh on the wave
+  engine as JAX's one-device mesh does, and a mesh wider than the
+  process group raises JAX's device-count message.
 - With ``CHECKPOINT_DIR`` (a tiny ``transformers`` Llama checkpoint with
   the committed SentencePiece-style tokenizer, at ``tiny-test``'s widths
   with a 2,048-token context so the default prompt template fits) both
@@ -254,7 +255,9 @@ def test_weight_dtype_wins_over_serving_dtype():
 
 @pytest.mark.parametrize("knob,value,item", [
     ("PREFILL_CHUNK", "32", None),  # ported: the knob reaches the engine
-    ("SERVING_MESH", "tp=2", "item 11"),
+    # ported (item 11): one process serves a one-rank mesh on the wave
+    # engine; a mesh wider than the process group raises JAX's message
+    ("SERVING_MESH", "auto", "needs 2 devices, found 1"),
     # ported (item 8): a contiguous wave engine in both modes, the
     # continuous one through the reference's fallback warning
     ("KV_CACHE_MODE", "contiguous", None),
@@ -275,6 +278,26 @@ def test_provider_refuses_unported_knobs_naming_their_item(knob, value, item, mo
             if fell_back:
                 assert "paged=False" in fell_back[0]
             assert got == _jax(env, monkeypatch)
+            continue
+        if knob == "SERVING_MESH":
+            made = not torch.distributed.is_initialized()
+            try:
+                caplog.clear()
+                got = _port(env)
+                fell_back = [r.getMessage() for r in caplog.records
+                             if r.name.startswith("operator_tpu_torch")
+                             and "falling back to the wave engine" in r.getMessage()]
+                assert len(fell_back) == (mode == "continuous"), fell_back
+                if fell_back:
+                    assert "mesh=True" in fell_back[0]
+                # JAX's auto would plan its eight virtual devices: its
+                # one-device mesh is dp=1,tp=1
+                assert got == _jax({**env, knob: "dp=1,tp=1"}, monkeypatch)
+                with pytest.raises(ValueError, match=item):
+                    build_serving_engine("cpu", {**env, knob: "tp=2"})
+            finally:
+                if made and torch.distributed.is_initialized():
+                    torch.distributed.destroy_process_group()
             continue
         if item is None:
             engine, _ = build_serving_engine("cpu", env)
