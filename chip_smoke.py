@@ -238,7 +238,11 @@ Phases, in order — any failure stops the run:
    return a ``NeuralEmbedder``, whose ids equal the ``vocab.txt``
    checkpoint's on every fixture line and whose ``PatternEngine.analyze``
    launches K5 once with scores and indices equal to the ``vocab.txt``
-   checkpoint's, exactly (the same tokens, the same weights).  Each
+   checkpoint's, exactly (the same tokens, the same weights).  (c) The
+   tinyllama-1.1b weights again, with the Script-aware fixture
+   (``tests/torch_tokenizers/xlmr_scripts``: the Unigram fixture behind
+   ``UnicodeScripts``, a ``Split`` on Script classes and ``Metaspace``),
+   checked and served as (a) over its multilingual prompts.  Each
    family's host encode time per prompt is printed with the card;
 10. operator: the port's ``Operator`` (its default device, cuda) over the
    in-memory ``FakeKubeApi``, with the checkpoint phase's two checkpoints
@@ -3424,6 +3428,7 @@ def phase_checkpoint(results: dict, kernel_modules: dict, keep: bool = False) ->
 #: the tokenizer families' committed fixtures: the files of each and
 #: ``AutoTokenizer``'s ids for a fixed list of prompts (``expected_ids.json``)
 UNIGRAM_FIXTURE = os.path.join(ROOT, "tests", "torch_tokenizers", "xlmr_unigram")
+SCRIPTS_FIXTURE = os.path.join(ROOT, "tests", "torch_tokenizers", "xlmr_scripts")
 WORDPIECE_FIXTURE = os.path.join(ROOT, "tests", "torch_tokenizers", "minilm_wordpiece")
 #: the files a checkpoint's tokenizer is read from
 TOKENIZER_FILES = ("tokenizer.json", "tokenizer_config.json", "special_tokens_map.json",
@@ -3479,7 +3484,7 @@ def encode_us(encode, texts: list) -> float:
 def phase_tokenizers(results: dict, kernel_modules: dict, dirs: dict) -> dict:
     """The checkpoint phase's weights behind the Unigram and WordPiece
     ``tokenizer.json`` families (module docstring, 8b).  Returns the
-    kernels' launch counts over the serve drive (a) and the
+    kernels' launch counts over the serve drives (a) and (c) and the
     ``tokenizer.json`` encoder's analysis (b)."""
     import gc
 
@@ -3497,8 +3502,10 @@ def phase_tokenizers(results: dict, kernel_modules: dict, dirs: dict) -> dict:
         return result, launches
 
     out = results["tokenizers"] = {"card": card_line()}
-    out["unigram"] = tokenizers_unigram(dirs, counted)
+    out["unigram"] = tokenizers_unigram(dirs, counted, UNIGRAM_FIXTURE, "a")
     print(json.dumps({"tokenizers_unigram": out["unigram"], "card": out["card"]}), flush=True)
+    out["scripts"] = tokenizers_unigram(dirs, counted, SCRIPTS_FIXTURE, "c")
+    print(json.dumps({"tokenizers_scripts": out["scripts"], "card": out["card"]}), flush=True)
     out["wordpiece"], comparison = tokenizers_wordpiece(dirs, counted, list(kernel_modules))
     # the vocab.txt checkpoint's run is the comparison, not the path
     for name, n in comparison.items():
@@ -3509,8 +3516,9 @@ def phase_tokenizers(results: dict, kernel_modules: dict, dirs: dict) -> dict:
     return total
 
 
-def tokenizers_unigram(dirs: dict, counted) -> dict:
-    """(a): tinyllama-1.1b with the Unigram family's tokenizer, served."""
+def tokenizers_unigram(dirs: dict, counted, fixture: str, part: str) -> dict:
+    """(a) and (c): tinyllama-1.1b with a Unigram fixture's tokenizer
+    (``fixture``), served; ``part`` names the drive in messages."""
     import torch
 
     from operator_tpu_torch.models.configs import get_config
@@ -3519,9 +3527,10 @@ def tokenizers_unigram(dirs: dict, counted) -> dict:
     from operator_tpu_torch.serving.types import SamplingParams
 
     config = get_config(TOKENIZERS_ENV["OPERATOR_TPU_MODEL"])
-    expected = json.loads(fixture_file(UNIGRAM_FIXTURE, "expected_ids.json"))
-    llm = linked_checkpoint(dirs["llm"], os.path.join(dirs["workdir"], "tinyllama-unigram"), {
-        name: fixture_file(UNIGRAM_FIXTURE, name)
+    expected = json.loads(fixture_file(fixture, "expected_ids.json"))
+    directory = os.path.join(dirs["workdir"], f"tinyllama-{os.path.basename(fixture)}")
+    llm = linked_checkpoint(dirs["llm"], directory, {
+        name: fixture_file(fixture, name)
         for name in ("tokenizer.json", "tokenizer_config.json")})
     started = time.perf_counter()
     engine, _ = provider_module.build_serving_engine(
@@ -3530,15 +3539,15 @@ def tokenizers_unigram(dirs: dict, counted) -> dict:
         g, sched = engine.generator, engine.scheduler
         tok = g.tokenizer
         if type(tok) is not HFTokenizer or type(tok._model).__name__ != "Unigram":
-            raise fail(f"tokenizers (a): the engine's tokenizer is {type(tok).__name__} "
+            raise fail(f"tokenizers ({part}): the engine's tokenizer is {type(tok).__name__} "
                        f"({type(getattr(tok, '_model', None)).__name__}), not the Unigram family")
         specials = {"bos_id": tok.bos_id, "eos_id": tok.eos_id, "vocab_size": tok.vocab_size}
         if specials != {k: expected[k] for k in specials}:
-            raise fail(f"tokenizers (a): special ids {specials} are not AutoTokenizer's")
+            raise fail(f"tokenizers ({part}): special ids {specials} are not AutoTokenizer's")
         got = [tok.encode(p, add_bos=False) for p in expected["prompts"]]
         if got != expected["ids"]:
             bad = [p for p, a, b in zip(expected["prompts"], got, expected["ids"]) if a != b]
-            raise fail(f"tokenizers (a): ids differ from AutoTokenizer's on {bad}")
+            raise fail(f"tokenizers ({part}): ids differ from AutoTokenizer's on {bad}")
         encode_time = encode_us(tok.encode, expected["prompts"])
         engine.warmup()
         # the ids the engine reads for each served prompt
@@ -3561,18 +3570,19 @@ def tokenizers_unigram(dirs: dict, counted) -> dict:
         wait_idle(sched)
         want = {p: [tok.bos_id, *ids] for p, ids in zip(expected["prompts"], expected["ids"]) if p}
         if {p: seen.get(p) for p in want} != want:
-            raise fail(f"tokenizers (a): the served ids differ from expected_ids.json on "
+            raise fail(f"tokenizers ({part}): the served ids differ from expected_ids.json on "
                        f"{[p for p in want if seen.get(p) != want[p]]}")
         if [r.prompt_tokens for r in served] != [len(want[p]) for p in prompts]:
-            raise fail(f"tokenizers (a): prompt tokens {[r.prompt_tokens for r in served]}")
+            raise fail(f"tokenizers ({part}): prompt tokens {[r.prompt_tokens for r in served]}")
         if any(r.completion_tokens < 1 for r in served):
-            raise fail(f"tokenizers (a): a request without a token: {served}")
+            raise fail(f"tokenizers ({part}): a request without a token: {served}")
         if steps == 0 or launches["ragged_paged_attention"] != config.num_layers * steps:
-            raise fail(f"tokenizers (a): ragged kernel launched {launches} over {steps} steps")
+            raise fail(f"tokenizers ({part}): ragged kernel launched {launches} over {steps} "
+                       "steps")
         if any(n for k, n in launches.items() if k != "ragged_paged_attention"):
-            raise fail(f"tokenizers (a): other kernels launched: {launches}")
+            raise fail(f"tokenizers ({part}): other kernels launched: {launches}")
         return {
-            "fixture": os.path.relpath(UNIGRAM_FIXTURE, ROOT), "model": config.name,
+            "fixture": os.path.relpath(fixture, ROOT), "model": config.name,
             "layers": config.num_layers, "vocab_size": tok.vocab_size, "prompts": len(prompts),
             "prompt_tokens": [r.prompt_tokens for r in served],
             "completion_tokens": sum(r.completion_tokens for r in served), "steps": steps,

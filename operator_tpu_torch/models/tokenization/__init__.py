@@ -16,7 +16,7 @@ specification; the tests hold every component to the library on the CPU):
 - :mod:`.pre_tokenizers` — ``BertPreTokenizer``, ``ByteLevel``,
   ``CharDelimiterSplit``, ``Digits``, ``FixedLength``, ``Metaspace``,
   ``Punctuation``, ``Sequence``, ``Split`` (every behavior, ``invert``),
-  ``Whitespace``, ``WhitespaceSplit``;
+  ``UnicodeScripts``, ``Whitespace``, ``WhitespaceSplit``;
 - :mod:`.decoders` — ``BPEDecoder``, ``ByteFallback``, ``ByteLevel``,
   ``CTC``, ``Fuse``, ``Metaspace``, ``Replace``, ``Sequence``, ``Strip``,
   ``WordPiece``;
@@ -25,28 +25,18 @@ specification; the tests hold every component to the library on the CPU):
 - :mod:`.charsmap` — the ``Precompiled`` normalizer's SentencePiece
   charsmap (a darts-clone double array and its strings) and the grapheme
   clusters it is applied to;
-- :mod:`.text` — Oniguruma's expressions and classes in Python's ``re``,
-  the library's ways of finding and splitting, GPT-2's byte table.
-
-What needs Unicode Script data (the ``UnicodeScripts`` pre-tokenizer, a
-``\\p{Han}``-style class in an expression) raises ``NotImplementedError``
-naming ROADMAP Queue 1 item 4d: Python's ``unicodedata`` has no Script
-property.
+- :mod:`.onig` — Oniguruma's expressions, as the library reads them, in
+  Python's ``re``;
+- :mod:`.text` — finding and splitting as the library does, GPT-2's byte
+  table;
+- :mod:`.tables` and :mod:`.unicode_tables` — the library's character
+  tables and its Unicode data (property classes, case folding, grapheme
+  cluster classes, ``UnicodeScripts``' scripts), generated from it.
 """
 
 from __future__ import annotations
-
-ITEM_4D = "ROADMAP.md Queue 1 item 4d"
 
 
 def unsupported(what: str) -> NotImplementedError:
     """A ``tokenizer.json`` feature the port does not read."""
     return NotImplementedError(f"tokenizer.json {what} is not read by operator_tpu_torch")
-
-
-def needs_scripts(what: str) -> NotImplementedError:
-    """A feature that needs the Unicode Script property."""
-    return NotImplementedError(
-        f"tokenizer.json {what} needs Unicode Script data, which operator_tpu_torch "
-        f"does not have yet ({ITEM_4D})"
-    )

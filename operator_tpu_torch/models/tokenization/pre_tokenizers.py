@@ -6,16 +6,18 @@ is what ``Metaspace``'s ``prepend_scheme: first`` reads.
 
 from __future__ import annotations
 
+import bisect
 import functools
 import re
 import unicodedata
 from typing import Callable, Optional
 
 from ..wordpiece import _is_punctuation, bert_words
-from . import needs_scripts, unsupported
+from . import unicode_tables, unsupported
+from .onig import Expression
 from .text import (BEHAVIORS, JOIN_CONTROLS, WHITESPACE, byte_level, char_matches,
-                   escape_codepoints, invert, ranges, regex_matches, split, string_matches,
-                   translate_regex)
+                   escape_codepoints, invert, literal_expression, ranges, regex_matches, split,
+                   string_matches, translate_regex)
 
 __all__ = ["build_pre_tokenizer"]
 
@@ -45,13 +47,61 @@ def _splitting(find, behavior: str) -> PreTokenizer:
 
 
 @functools.lru_cache(maxsize=1)
-def _whitespace_regex() -> "re.Pattern":
+def _whitespace_regex() -> Expression:
     """``Whitespace``'s ``\\w+|[^\\w\\s]+`` (the words and the runs of
     other non-space characters) as the ``regex`` crate reads it, whose
     ``\\w`` also takes the join controls."""
     word = ranges(sorted({*escape_codepoints("w"), *JOIN_CONTROLS}))
     space = ranges(escape_codepoints("s"))
-    return re.compile(f"[{word}]+|[^{word}{space}]+")
+    return literal_expression(re.compile(f"[{word}]+|[^{word}{space}]+"))
+
+
+_ANY = -1
+
+
+@functools.lru_cache(maxsize=1)
+def _script_table() -> "tuple[list[int], list[int], int]":
+    """Run starts, each run's fixed script (an index of ``SCRIPT_NAMES``;
+    Hiragana and Katakana as Han, what the table leaves out as ``Any``)
+    and Han's index."""
+    names = unicode_tables.SCRIPT_NAMES
+    han = names.index("Hani")
+    fixed = [han if name in ("Hira", "Kana") else _ANY if name == "Any" else i
+             for i, name in enumerate(names)]
+    runs = unicode_tables.SCRIPT_RUNS
+    return [lo for lo, _ in runs], [fixed[i] for _, i in runs], han
+
+
+@functools.lru_cache(maxsize=4096)
+def fixed_script(char: str) -> int:
+    """``UnicodeScripts``' ``fixed_script``: Hiragana, Katakana and U+30FC
+    count as Han, a space as ``Any``."""
+    if char == " ":
+        return _ANY
+    starts, scripts, han = _script_table()
+    if char == "\u30fc":
+        return han
+    return scripts[bisect.bisect_right(starts, ord(char)) - 1]
+
+
+def script_pieces(text: str) -> "list[tuple[str, int]]":
+    """``UnicodeScripts`` on one piece: a cut wherever the script changes,
+    ``Any`` joining what is before it (and dropped before the first
+    script, as the library drops it)."""
+    cuts, last = [], None
+    for i, char in enumerate(text):
+        script = fixed_script(char)
+        if script != _ANY:
+            if script != last:
+                cuts.append(i)
+            last = script
+    cuts.append(len(text))
+    return [(text[a:b], a) for a, b in zip(cuts, cuts[1:])]
+
+
+def _unicode_scripts(pieces):
+    return [(part, first and start == 0) for text, first in pieces
+            for part, start in script_pieces(text)]
 
 
 def _prepend_scheme(spec: dict) -> str:
@@ -172,6 +222,6 @@ def build_pre_tokenizer(spec: Optional[dict]) -> PreTokenizer:
     if kind == "FixedLength":
         return _fixed_length(int(spec.get("length", 5)))
     if kind == "UnicodeScripts":
-        raise needs_scripts("pre_tokenizer 'UnicodeScripts'")
+        return _unicode_scripts
     raise unsupported(f"pre_tokenizer {kind!r}")
 

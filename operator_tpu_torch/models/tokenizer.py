@@ -18,8 +18,12 @@ implementations behind one minimal interface (encode/decode/ids):
   ``add_bos_token``/``add_eos_token``, a top-level ``ByteLevel``
   pre-tokenizer's ``add_prefix_space`` taken from the config,
   ``clean_up_tokenization_spaces``.
-  What needs Unicode Script data (``UnicodeScripts``, ``\\p{Han}``) raises
-  ``NotImplementedError`` naming ROADMAP Queue 1 item 4d; a directory with
+  Expressions are read as the library's Oniguruma reads them, its Unicode
+  data (Script classes, ``UnicodeScripts``) included; an expression the
+  library rejects raises a ``ValueError`` (so :func:`load_tokenizer`
+  falls back to bytes, as the reference does), and a construct the library
+  reads that Python's ``re`` cannot express (a recursive call, the absent
+  operator) ``NotImplementedError``; a directory with
   a SentencePiece ``tokenizer.model`` and no ``tokenizer.json`` is not
   read, as the reference's ``transformers`` without ``sentencepiece``
   does not read it;
@@ -368,9 +372,11 @@ def load_tokenizer(path: Optional[str]) -> Tokenizer:
     - a directory path — its ``tokenizer.json`` (:class:`HFTokenizer`);
     - ``None``/``"byte"``/load failure — the byte fallback.
 
-    A ``tokenizer.json`` the port cannot read yet raises
+    A ``tokenizer.json`` the library reads and the port cannot (an
+    expression construct Python's ``re`` cannot express) raises
     ``NotImplementedError`` instead of falling back: a mounted checkpoint
-    must not be served through the wrong vocabulary quietly.
+    must not be served through the wrong vocabulary quietly.  One the
+    library rejects falls back to bytes, as the reference does.
     """
     if path == "byte":
         return ByteTokenizer()

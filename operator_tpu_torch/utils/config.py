@@ -4,7 +4,7 @@ The port's own copy of ``operator_tpu/utils/config.py``: the whole
 ``OperatorConfig`` dataclass and its ``from_env``, field for field, so one
 environment resolves to the same values in both packages.  The port's
 ``serving/provider.py:build_serving_engine`` reads the serving knobs
-through it and refuses those whose feature is not ported yet.
+through it and serves every one of them, as the reference does.
 
 Three tiers, mirroring the reference (SURVEY.md §5 config entry):
 static defaults < environment variables < CR spec (runtime behaviour such as

@@ -45,7 +45,7 @@ REPO = Path(__file__).resolve().parents[1]
 #: what neither the port nor ``chip_smoke.py`` may import: the port
 #: depends on PyTorch alone and keeps its own copies
 FORBIDDEN = ("jax", "jaxlib", "operator_tpu", "safetensors", "transformers", "tokenizers", "regex",
-             "ml_dtypes", "optax", "orbax")
+             "ml_dtypes", "optax", "orbax", "fontTools")
 
 PROMPTS = [
     "pod crashed with exit code 137",

@@ -245,7 +245,7 @@ def test_loadgen_lanes_not_ported_refuse_naming_their_item(env, expect):
     assert proc.stdout.strip().splitlines()[-1] == expect
 
 
-def test_a_disaggregated_storm_refuses_naming_item_5b():
+def test_a_disaggregated_storm_settles_every_arrival_as_the_jax_package():
     """A disaggregated storm (once a refusal naming item 5b) settles every
     arrival, as the JAX package's does: each analysis runs as a prefill
     leg on the prefill replica and a decode leg on a decode replica."""

@@ -262,8 +262,8 @@ def test_weight_dtype_wins_over_serving_dtype():
     # continuous one through the reference's fallback warning
     ("KV_CACHE_MODE", "contiguous", None),
 ])
-def test_provider_refuses_unported_knobs_naming_their_item(knob, value, item, monkeypatch,
-                                                          caplog):
+def test_provider_serves_the_once_refused_knobs_as_the_jax_package(knob, value, item,
+                                                                    monkeypatch, caplog):
     for mode in ("continuous", "wave"):
         env = {**BASE, "SCHED_MODE": mode, knob: value}
         if knob == "KV_CACHE_MODE":
@@ -581,7 +581,7 @@ _EXTRAS = [
 ]
 
 
-def test_provider_refuses_guided_and_lora_configs_naming_item_9():
+def test_provider_serves_guided_and_lora_configs_as_the_jax_provider():
     """Once a refusal naming ROADMAP item 9, now the parity of the
     AIProvider's three ``additionalConfig`` keys with the JAX
     ``TPUNativeProvider`` on one wave engine's weights and adapters:

@@ -15,9 +15,9 @@
   one-digit numbers, GPT-2's ``ByteLevel`` with its own expression, a
   prefix space, the instruct EOS), over the fixture lines and seeded
   random texts of many scripts, and random ids up to 128,256;
-- the ``tokenizer.json`` features still not read (those that need
-  Unicode Script data), which must raise ``NotImplementedError`` naming
-  ROADMAP Queue 1 item 4d;
+- the ``tokenizer.json`` features that need Unicode Script data (the
+  ``UnicodeScripts`` pre-tokenizer, Script classes in an expression),
+  which must give the JAX package's ids;
 - ``load_tokenizer``'s ladder against the JAX one (a lone SentencePiece
   ``tokenizer.model`` included);
 - the builtin BPE against the JAX one;
@@ -456,28 +456,30 @@ def _greek_replace(spec, config):
     spec["normalizer"] = {"type": "Replace", "pattern": {"Regex": r"\p{Greek}"}, "content": "?"}
 
 
-#: what waits on Unicode Script data (every other feature of the list
-#: that was here is read now, each held to the JAX package by a parity
-#: case in tests/test_torch_tokenizer_components.py or _families.py)
-STILL_UNPORTED = {
+#: the features that once waited on Unicode Script data (ROADMAP Queue 1
+#: item 4d), now read from the library's own tables
+SCRIPT_FEATURES = {
     "unicode_scripts_pre_tokenizer": _unicode_scripts,
     "han_class": _han_class,
     "greek_class_replace": _greek_replace,
 }
 
 
-@pytest.mark.parametrize("case", sorted(STILL_UNPORTED))
-def test_an_unported_tokenizer_feature_raises_naming_item_4c(tmp_path, case):
-    """What the port still does not read raises ``NotImplementedError``
-    naming the ROADMAP item that holds it — item 4d now, the features that
-    need Unicode Script data (item 4c is done) — from ``HFTokenizer`` and
-    from ``load_tokenizer`` (a mounted checkpoint is never served through
-    the wrong vocabulary quietly)."""
-    path = _bl_variant(tmp_path, case, STILL_UNPORTED[case])
-    tokenizers.Tokenizer.from_file(os.path.join(path, "tokenizer.json"))  # the library reads it
+@pytest.mark.parametrize("case", sorted(SCRIPT_FEATURES))
+def test_a_script_feature_gives_the_jax_tokenizers_ids(tmp_path, case):
+    """The ``UnicodeScripts`` pre-tokenizer and Script classes in an
+    expression (a ``Split``, a ``Replace`` normalizer), through
+    ``HFTokenizer`` and ``load_tokenizer``, give the JAX ``HFTokenizer``'s
+    ids (over ``AutoTokenizer``) on texts of many scripts."""
+    path = _bl_variant(tmp_path, case, SCRIPT_FEATURES[case])
+    want = jax_tokenizer.HFTokenizer(path)
+    texts = (fixture_lines()[:40] + EDGE_TEXTS + _many_scripts_texts(len(case), 120)
+             + ["Hello中文abc Ελληνικά ひらがなカタカナー 123!", " 漢字かなカナ ー Ωμέγα"])
     for load in (tokenizer.HFTokenizer, tokenizer.load_tokenizer):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 4d"):
-            load(path)
+        got = load(path)
+        assert type(got).__name__ == "HFTokenizer"
+        for text in texts:
+            assert got.encode(text, add_bos=False) == want.encode(text, add_bos=False), text
 
 
 def _sentencepiece_model_only(directory: str) -> str:

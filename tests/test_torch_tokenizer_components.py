@@ -7,8 +7,9 @@ a variant of a committed fixture (``llama_sp``, ``llama3_bl``,
 equal on the special ids, ``vocab_size``, ``encode`` with and without BOS,
 ``encode`` with the post-processor's specials (against ``AutoTokenizer``)
 and ``decode``; BPE dropout as the library draws it; the library's
-character tables the port keeps a copy of; and where Python's ``unicodedata`` (Unicode 15.0) and the library's tables
-(Oniguruma's and Rust's, Unicode 16.0) disagree.
+character tables the port keeps a copy of; and where Python's ``unicodedata``
+(Unicode 15.0) and the library's tables (Rust's) disagree, or no longer do
+(expression classes, read from the library's own Oniguruma data).
 """
 
 import copy
@@ -304,26 +305,29 @@ def _library_class(pattern: str) -> set:
 def _port_class(pattern: str) -> set:
     """The code points the port's translation of a one-character class
     matches (every code point in one string)."""
-    regex = port_text.translate_regex(pattern)
-    return {ord(m.group()) for m in regex.finditer("".join(map(chr, _ALL)))}
+    text = "".join(map(chr, _ALL))
+    return {ord(text[a]) for a, _ in port_text.find_iter(port_text.translate_regex(pattern), text)}
 
 
 def _cn(points) -> bool:
     return all(unicodedata.category(chr(c)) == "Cn" for c in points)
 
 
-#: pattern -> code points the library matches that Python 15.0 leaves
-#: unassigned (Unicode 16.0's new letters, numbers and marks)
-VERSION_GAP = {r"\p{L}": 4924, r"\p{N}": 80, r"\p{M}": 51, r"\w": 5055, r"\s": 0, r"\p{Lu}": 27}
+#: pattern -> code points the library matches that the port does not
+#: (Unicode 16.0's new letters, numbers and marks while the port's classes
+#: came from Python's 15.0; the port's classes are the library's own data
+#: now, ``tokenization/unicode_tables.py``)
+VERSION_GAP = {r"\p{L}": 0, r"\p{N}": 0, r"\p{M}": 0, r"\w": 0, r"\s": 0, r"\p{Lu}": 0}
 
 
 @pytest.mark.parametrize("pattern", sorted(VERSION_GAP))
 def test_unicode_classes_differ_only_by_version(pattern):
-    """An expression class matches what the library's does, except code
-    points Unicode 16.0 assigned after Python's 15.0 (ROADMAP Queue 3)."""
+    """An expression class matches what the library's does on every code
+    point: no Unicode version stands between them."""
     got, want = _port_class(pattern), _library_class(pattern)
     assert got <= want
     assert _cn(want - got) and len(want - got) == VERSION_GAP[pattern]
+    assert got == want
 
 
 #: form -> the code points (ranges) whose result differs: the library's

@@ -48,6 +48,7 @@ from test_torch_tokenizer import (EDGE_TEXTS, HERE, _many_scripts_texts,  # noqa
 
 MINILM_WORDPIECE = os.path.join(HERE, "torch_tokenizers", "minilm_wordpiece")
 XLMR_UNIGRAM = os.path.join(HERE, "torch_tokenizers", "xlmr_unigram")
+XLMR_SCRIPTS = os.path.join(HERE, "torch_tokenizers", "xlmr_scripts")
 
 #: the prompts whose ids ``expected_ids.json`` keeps (the card has no
 #: ``tokenizers``: ``chip_smoke.py`` serves these and checks against it)
@@ -65,6 +66,21 @@ PROMPTS = [
     "Liveness probe failed: HTTP probe failed with statuscode: 503",
     "",
 ]
+
+#: the Script-aware fixture's prompts: the ones above and lines of many
+#: scripts, where its ``UnicodeScripts`` and ``\\p{Han}``-style splits act
+SCRIPT_PROMPTS = PROMPTS[:-1] + [
+    "Hello中文abc Ελληνικά ひらがなカタカナー 123!",
+    "节点 node-7 内存不足 (OOMKilled)，容器已重启 3 次",
+    "ошибка: не удалось подключиться к базе данных postgres:5432",
+    "خطأ في الاتصال بالخادم: انتهت المهلة بعد 30 ثانية",
+    "त्रुटि: डिस्क भर गई है /var/lib/kubelet",
+    "컨테이너 api 가 충돌했습니다 CrashLoopBackOff 상태",
+    "Σφάλμα δικτύου στο pod web-0; δοκιμή ξανά σε 5s",
+    "",
+]
+#: the prompts each fixture's ``expected_ids.json`` keeps
+FIXTURE_PROMPTS = {XLMR_SCRIPTS: SCRIPT_PROMPTS}
 
 #: ``tokenizer_config.json`` of all-MiniLM-L6-v2
 MINILM_CONFIG = {
@@ -316,13 +332,34 @@ def xlmr_unigram_files(directory: str, spec: "dict | None" = None,
     return _write(directory, spec or xlmr_unigram_spec(), config or XLMR_CONFIG)
 
 
+#: the Script-aware pre-tokenizer: a cut wherever the script changes, the
+#: Han, kana, Greek and Cyrillic runs again on their own, then Metaspace
+SCRIPTS_PRE_TOKENIZER = {"type": "Sequence", "pretokenizers": [
+    {"type": "UnicodeScripts"},
+    {"type": "Split", "pattern": {
+        "Regex": r"\p{Han}+|[\p{Hiragana}\p{Katakana}ー]+|\p{Greek}+|\p{Cyrl}+"},
+     "behavior": "Isolated", "invert": False},
+    METASPACE,
+]}
+
+
+def xlmr_scripts_spec(model: "dict | None" = None) -> dict:
+    """The Unigram fixture with the Script-aware pre-tokenizer."""
+    spec = xlmr_unigram_spec(model or committed_spec("xlmr_unigram")["model"])
+    spec["pre_tokenizer"] = SCRIPTS_PRE_TOKENIZER
+    tokenizers.Tokenizer.from_str(json.dumps(spec))  # the library reads it
+    return spec
+
+
 def expected_ids(path: str) -> dict:
-    """``AutoTokenizer``'s ids for :data:`PROMPTS`, without and with the
+    """``AutoTokenizer``'s ids for the fixture's prompts (:data:`PROMPTS`
+    unless :data:`FIXTURE_PROMPTS` names others), without and with the
     post-processor's specials."""
     auto = transformers.AutoTokenizer.from_pretrained(path, local_files_only=True)
-    return {"prompts": PROMPTS,
-            "ids": [auto.encode(p, add_special_tokens=False) for p in PROMPTS],
-            "ids_with_special_tokens": [auto.encode(p, add_special_tokens=True) for p in PROMPTS],
+    prompts = FIXTURE_PROMPTS.get(path, PROMPTS)
+    return {"prompts": prompts,
+            "ids": [auto.encode(p, add_special_tokens=False) for p in prompts],
+            "ids_with_special_tokens": [auto.encode(p, add_special_tokens=True) for p in prompts],
             "bos_id": auto.bos_token_id, "eos_id": auto.eos_token_id,
             "vocab_size": len(auto)}
 
@@ -333,7 +370,8 @@ def write_expected_ids(path: str) -> None:
         fh.write("\n")
 
 
-FIXTURES = {"minilm_wordpiece": MINILM_WORDPIECE, "xlmr_unigram": XLMR_UNIGRAM}
+FIXTURES = {"minilm_wordpiece": MINILM_WORDPIECE, "xlmr_unigram": XLMR_UNIGRAM,
+            "xlmr_scripts": XLMR_SCRIPTS}
 
 
 def committed_spec(name: str) -> dict:
@@ -344,6 +382,12 @@ def committed_spec(name: str) -> dict:
 # ---------------------------------------------------------------------------
 # the fixtures
 # ---------------------------------------------------------------------------
+
+
+def test_scripts_fixture_regenerates(tmp_path):
+    """The Script-aware fixture is the committed Unigram model in its
+    layout, byte for byte."""
+    _same_files(xlmr_unigram_files(str(tmp_path / "scripts"), xlmr_scripts_spec()), XLMR_SCRIPTS)
 
 
 def _same_files(fresh: str, committed: str) -> None:
@@ -517,6 +561,7 @@ def test_encoder_tokenizes_as_the_jax_encoder(encoder_weights, tmp_path, layout)
 if __name__ == "__main__":
     minilm_wordpiece_files(MINILM_WORDPIECE)
     xlmr_unigram_files(XLMR_UNIGRAM)
+    xlmr_unigram_files(XLMR_SCRIPTS, xlmr_scripts_spec())
     for fixture in FIXTURES.values():
         write_expected_ids(fixture)
     sys.exit(print(*FIXTURES.values()))
