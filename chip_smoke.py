@@ -179,7 +179,7 @@ Phases, in order — any failure stops the run:
    same AOT caches boots both tinyllama engines again: no ``nvcc``, every
    capture a hit (as many as the records), nothing stored, no capture
    after precompile; cold and warm bring-up seconds.  Then (c)'s block
-   drives at 32 rows (32 tokens) with graphs and eager (no LoRA pass, on
+   drives at 32 rows (16 tokens) with graphs and eager (no LoRA pass, on
    the stack, adapted, guided), and (d) a one-shot device error mid-drive: one
    supervised restart, all eight requests requeued, no graph captured
    again.  (e) The analysis phase's long drive with the encoder's graph
@@ -242,8 +242,17 @@ Phases, in order — any failure stops the run:
    tinyllama-1.1b weights again, with the Script-aware fixture
    (``tests/torch_tokenizers/xlmr_scripts``: the Unigram fixture behind
    ``UnicodeScripts``, a ``Split`` on Script classes and ``Metaspace``),
-   checked and served as (a) over its multilingual prompts.  Each
-   family's host encode time per prompt is printed with the card;
+   checked and served as (a) over its multilingual prompts.  (d) The
+   tinyllama-1.1b weights again, with the log fixture
+   (``tests/torch_tokenizers/onig_logs``: a BPE model behind a ``Split``
+   expression only the port's own Oniguruma matcher runs — a recursive
+   call, the absent operator, ``\\y``, an unbounded look-behind, a back
+   reference under ``(?i)``), checked and served as (a) over its log-line
+   prompts; on the prompt ``expected_ids.json`` marks as the one where
+   the library gives up, the tokenizer must raise ``RetryLimitError``
+   (its seconds printed).  Each family's host encode time per prompt is
+   printed with the card, split by the engine its expressions take
+   (Python's ``re`` or the matcher);
 10. operator: the port's ``Operator`` (its default device, cuda) over the
    in-memory ``FakeKubeApi``, with the checkpoint phase's two checkpoints
    (kept for it, deleted after it): ``providerId: tpu-native`` through
@@ -3428,6 +3437,7 @@ def phase_checkpoint(results: dict, kernel_modules: dict, keep: bool = False) ->
 #: the tokenizer families' committed fixtures: the files of each and
 #: ``AutoTokenizer``'s ids for a fixed list of prompts (``expected_ids.json``)
 UNIGRAM_FIXTURE = os.path.join(ROOT, "tests", "torch_tokenizers", "xlmr_unigram")
+LOGS_FIXTURE = os.path.join(ROOT, "tests", "torch_tokenizers", "onig_logs")
 SCRIPTS_FIXTURE = os.path.join(ROOT, "tests", "torch_tokenizers", "xlmr_scripts")
 WORDPIECE_FIXTURE = os.path.join(ROOT, "tests", "torch_tokenizers", "minilm_wordpiece")
 #: the files a checkpoint's tokenizer is read from
@@ -3502,10 +3512,18 @@ def phase_tokenizers(results: dict, kernel_modules: dict, dirs: dict) -> dict:
         return result, launches
 
     out = results["tokenizers"] = {"card": card_line()}
-    out["unigram"] = tokenizers_unigram(dirs, counted, UNIGRAM_FIXTURE, "a")
+    out["unigram"] = tokenizers_served(dirs, counted, UNIGRAM_FIXTURE, "a", "Unigram")
     print(json.dumps({"tokenizers_unigram": out["unigram"], "card": out["card"]}), flush=True)
-    out["scripts"] = tokenizers_unigram(dirs, counted, SCRIPTS_FIXTURE, "c")
+    out["scripts"] = tokenizers_served(dirs, counted, SCRIPTS_FIXTURE, "c", "Unigram")
     print(json.dumps({"tokenizers_scripts": out["scripts"], "card": out["card"]}), flush=True)
+    out["logs"] = tokenizers_served(dirs, counted, LOGS_FIXTURE, "d", "BPE")
+    print(json.dumps({"tokenizers_logs": out["logs"], "card": out["card"]}), flush=True)
+    by_engine: dict = {}
+    for name in ("unigram", "scripts", "logs"):
+        for engine_name in out[name]["expression_engines"]:
+            by_engine.setdefault(engine_name, {})[name] = out[name]["encode_us_per_prompt"]
+    print(json.dumps({"tokenizers_encode_us_by_engine": by_engine, "card": out["card"]}),
+          flush=True)
     out["wordpiece"], comparison = tokenizers_wordpiece(dirs, counted, list(kernel_modules))
     # the vocab.txt checkpoint's run is the comparison, not the path
     for name, n in comparison.items():
@@ -3516,12 +3534,35 @@ def phase_tokenizers(results: dict, kernel_modules: dict, dirs: dict) -> dict:
     return total
 
 
-def tokenizers_unigram(dirs: dict, counted, fixture: str, part: str) -> dict:
-    """(a) and (c): tinyllama-1.1b with a Unigram fixture's tokenizer
-    (``fixture``), served; ``part`` names the drive in messages."""
+def fixture_expressions(fixture: str) -> list:
+    """Every ``Regex`` pattern of the fixture's ``tokenizer.json``."""
+    found: list = []
+
+    def walk(spec):
+        if isinstance(spec, dict):
+            pattern = spec.get("pattern")
+            if isinstance(pattern, dict) and "Regex" in pattern:
+                found.append(pattern["Regex"])
+            for value in spec.values():
+                walk(value)
+        elif isinstance(spec, list):
+            for value in spec:
+                walk(value)
+
+    walk(json.loads(fixture_file(fixture, "tokenizer.json")))
+    return found
+
+
+def tokenizers_served(dirs: dict, counted, fixture: str, part: str, model: str) -> dict:
+    """(a), (c) and (d): tinyllama-1.1b with a fixture's tokenizer
+    (``fixture``, its model a ``model``), served; ``part`` names the drive
+    in messages.  Where ``expected_ids.json`` marks a prompt on which the
+    library gives up, the tokenizer must raise ``RetryLimitError`` on it."""
     import torch
 
     from operator_tpu_torch.models.configs import get_config
+    from operator_tpu_torch.models.tokenization.onig import compile_expression
+    from operator_tpu_torch.models.tokenization.onig_match import RetryLimitError
     from operator_tpu_torch.models.tokenizer import HFTokenizer
     from operator_tpu_torch.serving import provider as provider_module
     from operator_tpu_torch.serving.types import SamplingParams
@@ -3538,9 +3579,10 @@ def tokenizers_unigram(dirs: dict, counted, fixture: str, part: str) -> dict:
     try:
         g, sched = engine.generator, engine.scheduler
         tok = g.tokenizer
-        if type(tok) is not HFTokenizer or type(tok._model).__name__ != "Unigram":
+        if type(tok) is not HFTokenizer or type(tok._model).__name__ != model:
             raise fail(f"tokenizers ({part}): the engine's tokenizer is {type(tok).__name__} "
-                       f"({type(getattr(tok, '_model', None)).__name__}), not the Unigram family")
+                       f"({type(getattr(tok, '_model', None)).__name__}), not the {model} "
+                       "family")
         specials = {"bos_id": tok.bos_id, "eos_id": tok.eos_id, "vocab_size": tok.vocab_size}
         if specials != {k: expected[k] for k in specials}:
             raise fail(f"tokenizers ({part}): special ids {specials} are not AutoTokenizer's")
@@ -3549,6 +3591,16 @@ def tokenizers_unigram(dirs: dict, counted, fixture: str, part: str) -> dict:
             bad = [p for p, a, b in zip(expected["prompts"], got, expected["ids"]) if a != b]
             raise fail(f"tokenizers ({part}): ids differ from AutoTokenizer's on {bad}")
         encode_time = encode_us(tok.encode, expected["prompts"])
+        gives_up_s = None
+        if "gives_up" in expected:
+            gives_up_started = time.perf_counter()
+            try:
+                tok.encode(expected["gives_up"])
+            except RetryLimitError:
+                gives_up_s = time.perf_counter() - gives_up_started
+            else:
+                raise fail(f"tokenizers ({part}): the prompt the library gives up on was "
+                           "encoded, not given up")
         engine.warmup()
         # the ids the engine reads for each served prompt
         seen: dict = {}
@@ -3587,7 +3639,9 @@ def tokenizers_unigram(dirs: dict, counted, fixture: str, part: str) -> dict:
             "prompt_tokens": [r.prompt_tokens for r in served],
             "completion_tokens": sum(r.completion_tokens for r in served), "steps": steps,
             "launches": launches, "encode_us_per_prompt": encode_time,
-            "wall_s": time.perf_counter() - started,
+            "expression_engines": sorted({compile_expression(p).engine
+                                          for p in fixture_expressions(fixture)}),
+            "gives_up_s": gives_up_s, "wall_s": time.perf_counter() - started,
         }
     finally:
         engine.close()
@@ -8992,9 +9046,9 @@ GRAPHS_DIR = os.path.join(ROOT, "build", "chip_smoke_graphs")
 #: the wave grid's automaton (``precompile_grid``'s guided choice): (c)'s
 #: guided rows use it, so their tables restack into the captured buffer
 GRAPHS_CHOICE = ("warm", "cold")
-#: the block drives' tokens (the guided phase's are 64): nine blocks of
+#: the block drives' tokens (the guided phase's are 64): five blocks of
 #: 32 rows each, the eager ones at 0.2-0.3 s a block
-GRAPHS_BLOCK_TOKENS = 32
+GRAPHS_BLOCK_TOKENS = 16
 
 
 def graph_params(n: int, tokens: int = MAX_TOKENS, **extra) -> list:
@@ -9239,7 +9293,7 @@ def graphs_continuous(name: str, env: dict, prompts: list, kernel_modules: dict,
 
 
 def graphs_wave_blocks(engine, eager_programs_of) -> dict:
-    """The guided phase's block drives at 32 rows (32 tokens, sampled) on
+    """The guided phase's block drives at 32 rows (16 tokens, sampled) on
     the (c) engine, with graphs and eager: no LoRA pass, on the stack,
     every row adapted, every row guided (the root-cause schema); median
     block ms."""

@@ -26,7 +26,10 @@ specification; the tests hold every component to the library on the CPU):
   charsmap (a darts-clone double array and its strings) and the grapheme
   clusters it is applied to;
 - :mod:`.onig` — Oniguruma's expressions, as the library reads them, in
-  Python's ``re``;
+  Python's ``re`` where it runs them as Oniguruma does;
+- :mod:`.onig_match` — the port's own Oniguruma matcher for the rest
+  (recursion, the absent operator, segment boundaries, callouts, ...), with
+  the library's retry limit;
 - :mod:`.text` — finding and splitting as the library does, GPT-2's byte
   table;
 - :mod:`.tables` and :mod:`.unicode_tables` — the library's character

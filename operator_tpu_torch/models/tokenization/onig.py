@@ -1,9 +1,11 @@
-"""Oniguruma's expressions in Python's ``re``, as the ``tokenizers`` library reads them.
+"""Oniguruma's expressions, as the ``tokenizers`` library reads and runs them.
 
 The library compiles a ``Regex`` pattern with Oniguruma's own syntax
 (``(?imxWDSPy-imx)`` options, ``m`` meaning dot-all, ``\\h`` a hex digit,
 ``{n,m}+`` a repeat of a repeat) and finds with its ``find_iter``.  This
-module parses that syntax into a small tree and writes it out for ``re``:
+module parses that syntax into a small tree and, where Python's ``re`` can
+run it in the library's order without exponential backtracking, writes it
+out for ``re``:
 
 - every class is a code point set from :mod:`.unicode_tables` (Unicode as
   the library's Oniguruma has it): ``\\p{..}`` names as Oniguruma compares
@@ -20,17 +22,20 @@ module parses that syntax into a small tree and writes it out for ``re``:
   ``\\cX``/``\\C-X``/``\\M-X``, raw bytes (``\\xHH``, octal) read as UTF-8;
 - capture groups, named groups, back references, conditionals, atomic
   groups, lookarounds (a look-behind of several widths as one look-behind
-  per width), possessive and nested repeats, a ``\\g<..>`` call that is
-  not recursive (written in place).
+  per width), possessive and nested repeats (a repeat of a repeat reduced
+  as Oniguruma reduces it), a ``\\g<..>`` call that is not recursive
+  (written in place).
 
-An expression the library rejects raises :class:`OnigurumaError` (a
-``ValueError``, so a loader falls back as the reference does); a construct
-the library reads and ``re`` cannot express raises ``NotImplementedError``
-naming it: a recursive call, the absent operator ``(?~..)``, ``\\y``/``\\Y``,
-callouts other than ``(*FAIL)``, a back reference under ``(?i)``, a
-look-behind of unbounded width, a repeat of two or more rounds of what can
-match empty.  It is raised once the whole expression is read, so that an
-error of the library's comes first.
+Every other expression the library reads goes to the port's own matcher
+(:mod:`.onig_match`), which runs Oniguruma's semantics and its retry
+limit: a recursive call, the absent operator ``(?~..)``, ``\\y``/``\\Y``,
+callouts, back references under ``(?i)``, with a nest level or to a
+shared name, look-behinds ``re`` cannot write, ``\\G`` and ``\\K`` anywhere,
+a repeat of two or more rounds of what can match empty, and exponential
+ambiguity (:func:`ambiguous`), where ``re`` backtracks without bound and
+Oniguruma gives up.  An expression the library rejects raises
+:class:`OnigurumaError` (a ``ValueError``, so a loader falls back as the
+reference does).
 """
 
 from __future__ import annotations
@@ -41,7 +46,6 @@ import re
 from typing import Optional
 
 from . import unicode_tables as _tables
-from . import unsupported
 
 __all__ = ["Expression", "OnigurumaError", "compile_expression", "property_ranges"]
 
@@ -72,8 +76,9 @@ class _CaptureInLookBehind(OnigurumaError):
     """A capture group in a negative look-behind."""
 
 
-def _not_read(what: str) -> NotImplementedError:
-    return unsupported(f"expression {what} (read by the library, not expressible in Python's re)")
+class _Unwritable(Exception):
+    """What Python's ``re`` cannot express: the expression goes to the
+    matcher (:mod:`.onig_match`)."""
 
 
 # ---------------------------------------------------------------------------
@@ -296,18 +301,21 @@ class Anchor(Node):
 
 
 class Backref(Node):
-    __slots__ = ("number", "icase")
+    """``\\k<..>``: ``numbers`` the groups of a name several groups share
+    (None: ``number`` alone), ``level`` a nest level (``\\k<n+0>``)."""
+    __slots__ = ("number", "icase", "level", "numbers")
 
-    def __init__(self, number, icase=False):
-        self.number, self.icase = number, icase
+    def __init__(self, number, icase=False, level=None, numbers=None):
+        self.number, self.icase, self.level, self.numbers = number, icase, level, numbers
 
 
 class Cond(Node):
-    """``(?(n)yes|no)`` (``number``) or ``(?(cond)yes|no)`` (``test``)."""
-    __slots__ = ("number", "test", "yes", "no")
+    """``(?(n)yes|no)`` (``number``, ``numbers`` for a shared name) or
+    ``(?(cond)yes|no)`` (``test``)."""
+    __slots__ = ("number", "test", "yes", "no", "numbers")
 
-    def __init__(self, number, test, yes, no):
-        self.number, self.test, self.yes, self.no = number, test, yes, no
+    def __init__(self, number, test, yes, no, numbers=None):
+        self.number, self.test, self.yes, self.no, self.numbers = number, test, yes, no, numbers
 
 
 class Call(Node):
@@ -317,6 +325,32 @@ class Call(Node):
 
     def __init__(self, target):
         self.target, self.number = target, None
+
+
+class Cluster(Node):
+    """``\\X``: one grapheme cluster, or under ``(?y{w})`` one word segment."""
+    __slots__ = ("word",)
+
+    def __init__(self, word=False):
+        self.word = word
+
+
+class Absent(Node):
+    """The absent operator: ``kind`` ``repeater`` (``(?~absent)``),
+    ``expr`` (``(?~|absent|body)``), ``stopper`` (``(?~|absent)``) or
+    ``clear`` (``(?~|)``)."""
+    __slots__ = ("kind", "absent", "body")
+
+    def __init__(self, kind, absent=None, body=None):
+        self.kind, self.absent, self.body = kind, absent, body
+
+
+class Callout(Node):
+    """A builtin callout ``(*name[tag]{args})`` other than ``(*FAIL)``."""
+    __slots__ = ("name", "args", "tag")
+
+    def __init__(self, name, args, tag):
+        self.name, self.args, self.tag = name, args, tag
 
 
 class Raw(Node):
@@ -356,10 +390,16 @@ def width(node: Node) -> "tuple[int, Optional[int]]":
     if isinstance(node, Repeat):
         a, b = width(node.body)
         return a * node.lo, (None if node.hi is None or b is None else b * node.hi)
-    if isinstance(node, Anchor):
+    if isinstance(node, (Anchor, Callout)):
         return 0, 0
     if isinstance(node, (Backref, Call)):
         return 0, None
+    if isinstance(node, Cluster):
+        return 1, None
+    if isinstance(node, Absent):
+        if node.kind == "expr":
+            return width(node.body)
+        return (0, None) if node.kind == "repeater" else (0, 0)
     if isinstance(node, Cond):
         ws = [width(node.yes), width(node.no)]
         if node.test is not None:
@@ -393,6 +433,8 @@ def _walk(node: Node):
         children = [node.body]
     elif isinstance(node, Cond):
         children = [c for c in (node.test, node.yes, node.no) if c is not None]
+    elif isinstance(node, Absent):
+        children = [c for c in (node.absent, node.body) if c is not None]
     for child in children:
         yield from _walk(child)
 
@@ -424,6 +466,10 @@ _NAME = re.compile(r"[^\W\d]\w*")
 #: a byte escape that may continue a UTF-8 sequence (the digits: octal
 #: unless a back reference)
 _BYTE_ESCAPE = re.compile(r"\\(x(?!\{)|[0-7])([0-9]*)")
+#: the builtin callouts the library reads: the fewest and most arguments
+_CALLOUT_ARGS = {"FAIL": (0, 0), "MISMATCH": (0, 0), "SKIP": (0, 0), "ERROR": (0, 1),
+                 "MAX": (1, 2), "COUNT": (0, 1), "TOTAL_COUNT": (0, 1), "CMP": (3, 3)}
+_TAG = re.compile(r"[A-Za-z_]\w*")
 
 
 class _Parser:
@@ -436,7 +482,8 @@ class _Parser:
         self.bodies: dict = {}   # number -> Group
         self.saw_name = False
         self.numbered_refs = False
-        self.unexpressible: "Optional[NotImplementedError]" = None
+        self.matcher_reason: Optional[str] = None   # what only the matcher runs
+        self.tags: dict = {}     # callout tag -> its callout's name
         self.capture_error: "Optional[OnigurumaError]" = None
 
     # --- helpers ---
@@ -507,11 +554,11 @@ class _Parser:
             if lo > 1 and width(atom)[0] == 0:
                 # Oniguruma ends a repeat at its first empty round; Python's
                 # goes on to the minimum, and so backtracks in another order
-                self.unread("a repeat of at least two of what can match empty")
+                self.needs("a repeat of at least two of what can match empty")
             if mode == "optional":  # x{n}? is (?:x{n})?
                 atom = Repeat(Repeat(atom, lo, hi, "greedy"), 0, 1, "greedy")
             else:
-                atom = Repeat(atom, lo, hi, mode)
+                atom = _nested_repeat(atom, lo, hi, mode)
 
     def quantifier(self):
         c = self.peek()
@@ -637,17 +684,43 @@ class _Parser:
             return None
         if c == "~":
             self.i += 1
-            self.close(Group("nc", self.alternation(flags)))
-            return self.unread("absent operator (?~...)")
+            self.needs("the absent operator (?~...)")
+            return self.absent(flags)
         if c == "(":
             return self.conditional(flags)
         if c == "{":
-            m = re.compile(r"\{+.*?\}+(?:\[\w*\])?[<>X]?\)", re.S).match(self.p, self.i)
-            if m is None:
-                raise OnigurumaError("invalid callout pattern")
-            self.i = m.end()
-            return self.unread("callout (?{...})")
+            self.code_callout()
+            return None
         return self.options(flags)
+
+    def absent(self, flags: _Flags) -> Node:
+        """``(?~absent)``, ``(?~|absent|expr)``, ``(?~|absent)``, ``(?~|)``
+        after the ``~``: the absent part of the two middle forms is one
+        branch, the expression the alternatives after it."""
+        if not self.eat("|"):
+            return self.close(Absent("repeater", self.alternation(flags)))
+        if self.peek() == ")":
+            return self.close(Absent("clear"))
+        absent = self.sequence(flags)
+        if not self.eat("|"):
+            return self.close(Absent("stopper", absent))
+        return self.close(Absent("expr", absent, self.alternation(flags)))
+
+    def code_callout(self) -> None:
+        """``(?{contents}[tag]X)``: the contents end at as many ``}`` as
+        opened them.  The library registers no function for it, so it
+        does nothing."""
+        opened = len(self.p) - len(self.p[self.i:].lstrip("{")) - self.i
+        end = self.p.find("}" * opened, self.i + opened)
+        if end < 0:
+            raise OnigurumaError("invalid callout pattern")
+        self.i = end + opened
+        m = re.compile(r"(?:\[([^\]]*)\])?[<>X]?\)").match(self.p, self.i)
+        if m is None:
+            raise OnigurumaError("invalid callout pattern")
+        self.i = m.end()
+        if m.group(1) is not None:
+            self.tag(m.group(1), "CODE")
 
     def group_name(self, close: str) -> str:
         end = self.p.find(close, self.i)
@@ -689,24 +762,72 @@ class _Parser:
                 raise OnigurumaError("undefined group option")
 
     def callout(self):
-        m = re.compile(r"([A-Za-z_]\w*)(\{[^}]*\})?(\[[^\]]*\])?\)").match(self.p, self.i)
+        """``(*name[tag]{args})`` after the ``(*``."""
+        m = re.compile(r"([A-Za-z_]\w*)(?:\[([^\]]*)\])?(?:\{([^}]*)\})?\)").match(
+            self.p, self.i)
         if m is None:
             raise OnigurumaError("invalid callout pattern")
         self.i = m.end()
-        name = m.group(1)
-        if name == "FAIL" and not m.group(2):
+        name, tag, text = m.groups()
+        if name not in _CALLOUT_ARGS:
+            raise OnigurumaError("undefined callout name")
+        args = [] if text is None else text.split(",")
+        fewest, most = _CALLOUT_ARGS[name]
+        if not fewest <= len(args) <= most:
+            raise OnigurumaError("invalid callout arg")
+        if tag is not None:
+            self.tag(tag, name)
+        if name == "FAIL":
             return FAIL
-        if name in ("MISMATCH", "ERROR", "SKIP", "MAX", "COUNT", "TOTAL_COUNT", "CMP"):
-            return self.unread(f"callout (*{name})")
-        raise OnigurumaError("undefined callout name")
+        self.needs(f"the callout (*{name})")
+        return Callout(name, self.callout_args(name, args), tag)
+
+    def tag(self, tag: str, name: str) -> None:
+        if not _TAG.fullmatch(tag):
+            raise OnigurumaError("invalid callout tag name")
+        if tag in self.tags:
+            raise OnigurumaError(f"multiplex defined name <{tag}>")
+        self.tags[tag] = name
+
+    @staticmethod
+    def callout_args(name: str, args: list) -> tuple:
+        """Integers, tags (checked once every tag is read) and the count
+        and comparison words, with the library's defaults."""
+        def value(text: str):
+            if re.fullmatch(r"[+-]?\d+", text):
+                return int(text)
+            if not _TAG.fullmatch(text):
+                raise OnigurumaError("invalid callout tag name")
+            return text
+
+        if name == "ERROR":
+            if not args:
+                return (0,)
+            if not re.fullmatch(r"[+-]?\d+", args[0]):
+                raise OnigurumaError("invalid callout arg")
+            return (int(args[0]),)
+        if name in ("COUNT", "TOTAL_COUNT"):
+            if args and len(args[0]) != 1:
+                raise OnigurumaError("invalid callout arg")
+            return (args[0] if args else ">",)
+        if name == "MAX":
+            if len(args) > 1 and len(args[1]) != 1:
+                raise OnigurumaError("invalid callout arg")
+            return value(args[0]), (args[1] if len(args) > 1 else "X")
+        if name == "CMP":
+            return value(args[0]), args[1], value(args[2])
+        return ()
 
     def conditional(self, flags: _Flags):
         self.i += 1  # the "("
         ref = re.compile(r"(?:<([^>]*)>|'([^']*)'|([+-]?\d+))\)").match(self.p, self.i)
-        number = test = None
+        number = test = shared = None
         if ref is not None:
             self.i = ref.end()
-            number = self.reference(ref.group(1) or ref.group(2) or ref.group(3), "backref")
+            name = ref.group(1) or ref.group(2) or ref.group(3)
+            number = self.reference(name, "backref")
+            names = self.names.get(name)
+            shared = tuple(names) if names is not None and len(names) > 1 else None
         else:
             test = self.alternation(flags)
             if not self.eat(")"):
@@ -716,7 +837,7 @@ class _Parser:
         if len(branches) > 2:
             raise OnigurumaError("invalid conditional pattern")
         yes, no = branches[0], branches[1] if len(branches) == 2 else Seq([])
-        return self.close(Cond(number, test, yes, no))
+        return self.close(Cond(number, test, yes, no, shared if test is None else None))
 
     # --- references ---
 
@@ -736,22 +857,31 @@ class _Parser:
             return n
         if not text:
             raise OnigurumaError("group name is empty")
-        if re.fullmatch(r".*[+-]\d+", text) and what == "backref":
-            self.unread(f"back reference with a nest level \\k<{text}>")
-            text = re.sub(r"[+-]\d+$", "", text)
         numbers = self.names.get(text)
         if numbers is None:
             raise OnigurumaError(f"undefined name <{text}> reference")
         if len(numbers) > 1:
-            self.unread(f"reference to the name <{text}> of several groups")
+            self.needs(f"a reference to the name <{text}> of several groups")
         return numbers[0]
 
-    def unread(self, what: str, node: "Optional[Node]" = FAIL) -> "Optional[Node]":
-        """A construct ``re`` cannot express: kept to raise once the whole
-        expression is read (the library's own errors come first)."""
-        if self.unexpressible is None:
-            self.unexpressible = _not_read(what)
-        return node
+    def backref(self, text: str, flags: _Flags) -> Backref:
+        """``\\k<..>``: a name or number, a nest level after it."""
+        level = None
+        m = re.fullmatch(r"(.*?[^+-])([+-]\d+)", text)
+        if m is not None and not re.fullmatch(r"[+-]?\d+", text):
+            text, level = m.group(1), int(m.group(2))
+            self.needs(f"a back reference with a nest level \\k<{m.group(0)}>")
+        number = self.reference(text, "backref")
+        numbers = self.names.get(text)
+        shared = tuple(numbers) if numbers is not None and len(numbers) > 1 else None
+        if flags.i:
+            self.needs("a back reference under (?i)")
+        return Backref(number, flags.i, level, shared)
+
+    def needs(self, what: str) -> None:
+        """A construct only the matcher runs (the first one is kept)."""
+        if self.matcher_reason is None:
+            self.matcher_reason = what
 
     def bracketed(self, what: str) -> str:
         """The text of ``<..>`` or ``'..'`` after ``\\k`` or ``\\g``."""
@@ -811,19 +941,20 @@ class _Parser:
         if c == "K":
             return Anchor("keep")
         if c in "yY":
-            return self.unread(f"text segment boundary \\{c}", Anchor("segment"))
+            self.needs(f"the text segment boundary \\{c}")
+            return Anchor("segment" if c == "y" else "nonsegment", flags.y)
         if c == "R":
             return NEWLINES
         if c == "X":
             if flags.y:
-                self.unread("\\X under (?y{w})")
-            return Raw(grapheme_cluster(), 1, None)
+                self.needs("\\X under (?y{w})")
+            return Cluster(flags.y)
         if c == "O":
             return Chars(ALL)
         if c == "N":
             return Chars(complement(points(NEWLINE)))
         if c == "k" and self.peek() in ("<", "'"):
-            return Backref(self.reference(self.bracketed("backref"), "backref"), flags.i)
+            return self.backref(self.bracketed("backref"), flags)
         if c == "g" and self.peek() in ("<", "'"):
             text = self.bracketed("call")
             if text == "0":
@@ -840,6 +971,8 @@ class _Parser:
                 self.numbered_refs = True
                 if self.saw_name or self.named_only:
                     raise OnigurumaError("numbered backref/call is not allowed. (use name)")
+                if flags.i:
+                    self.needs("a back reference under (?i)")
                 return Backref(n, flags.i)
             self.i = j
             if c in "89":
@@ -1111,10 +1244,55 @@ class _Parser:
         return cps[0]
 
 
+#: the repeats Oniguruma reduces when one repeats another directly
+_REPEAT_KINDS = {(0, 1, "greedy"): 0, (0, None, "greedy"): 1, (1, None, "greedy"): 2,
+                 (0, 1, "lazy"): 3, (0, None, "lazy"): 4, (1, None, "lazy"): 5}
+#: Oniguruma's ``ReduceTypeTable``: row the inner repeat (``? * + ?? *?
+#: +?``), column the outer
+_REDUCE = (("del", "a", "a", "qq", "aq", "asis"),
+           ("del", "del", "del", "p_qq", "p_qq", "del"),
+           ("a", "a", "del", "asis", "p_qq", "del"),
+           ("del", "aq", "aq", "del", "aq", "aq"),
+           ("del", "del", "del", "del", "del", "del"),
+           ("asis", "pq_q", "del", "aq", "aq", "del"))
+
+
+def _nested_repeat(atom: Node, lo: int, hi: Optional[int], mode: str) -> Node:
+    """``atom`` repeated, where a repeat of a repeat (``a**``, ``(?:a+)+``,
+    not a capture group's) is reduced as Oniguruma reduces it."""
+    inner = atom
+    if isinstance(inner, Group) and inner.kind == "nc":
+        inner = inner.body
+    if isinstance(inner, Seq) and len(inner.items) == 1:
+        inner = inner.items[0]
+    if not isinstance(inner, Repeat):
+        return Repeat(atom, lo, hi, mode)
+    child = _REPEAT_KINDS.get((inner.lo, inner.hi, inner.mode))
+    parent = _REPEAT_KINDS.get((lo, hi, mode))
+    if child is None or parent is None:
+        if child in (1, 2) and hi is not None and hi > 1 and mode == "greedy":
+            hi = lo or 1  # (?:a*){n,m} is (?:a*){n}
+        return Repeat(atom, lo, hi, mode)
+    action, body = _REDUCE[child][parent], inner.body
+    if action == "del":
+        return inner
+    if action == "a":
+        return Repeat(body, 0, None, "greedy")
+    if action == "aq":
+        return Repeat(body, 0, None, "lazy")
+    if action == "qq":
+        return Repeat(body, 0, 1, "lazy")
+    if action == "p_qq":
+        return Repeat(Repeat(body, 1, None, "greedy"), 0, 1, "lazy")
+    if action == "pq_q":
+        return Repeat(Repeat(body, 1, None, "lazy"), 0, 1, "greedy")
+    return Repeat(atom, lo, hi, mode)
+
+
 def _invalid_target(node: Node) -> bool:
-    """A repeat's target Oniguruma refuses: an anchor or look-around, a
-    ``(?:..)`` of one, an alternation with one as a branch."""
-    if isinstance(node, Anchor):
+    """A repeat's target Oniguruma refuses: an anchor, look-around or
+    callout, a ``(?:..)`` of one, an alternation with one as a branch."""
+    if isinstance(node, (Anchor, Callout)) or node is FAIL:
         return True
     if isinstance(node, Group):
         if node.kind == "nc":
@@ -1164,8 +1342,7 @@ def _one_node(node: Node) -> bool:
     if isinstance(node, Chars):
         return not node.icase or width(node)[1] == 1
     if isinstance(node, Text):
-        return not node.icase or _icase_text(node.cps) == "".join(
-            _single(c) if c >= 0 else "(?!)" for c in node.cps)
+        return not node.icase or not any(isinstance(n, Alt) for n in icase_parts(node.cps))
     return False
 
 
@@ -1257,8 +1434,18 @@ def _single(cp: int) -> str:
     return _char(cp) if len(group) == 1 else class_text(points(*group))
 
 
-def _icase_text(cps: "list[int]") -> str:
-    """A literal run under ``(?i)`` (Oniguruma's case fold expansion)."""
+def _fold_class(cp: int) -> Node:
+    return FAIL if cp < 0 else Chars(points(*case_class(cp)))
+
+
+def icase_parts(cps: "list[int]", lookbehind: bool = False) -> "list[Node]":
+    """A literal run under ``(?i)`` as Oniguruma's case fold expansion
+    makes it: each character its fold class, a character that folds to
+    several its spelling too, two or three characters folding to one
+    character that character too (taken greedily).  In a look-behind
+    Oniguruma keeps the fold classes alone."""
+    if lookbehind:
+        return [_fold_class(c) for c in cps]
     _, _, multi = _case()
     out, p = [], 0
     while p < len(cps):
@@ -1268,35 +1455,32 @@ def _icase_text(cps: "list[int]") -> str:
                     c not in _tables.MULTI_FOLDS for c in span):
                 folded = "".join(fold(c) for c in span)
                 if folded in multi:
-                    singles = "".join(_single(c) for c in span)
-                    out.append(f"(?:{singles}|{class_text(points(*multi[folded]))})")
+                    out.append(Alt([Seq([_fold_class(c) for c in span]),
+                                    Chars(points(*multi[folded]))]))
                     p += k
                     break
         else:
             c = cps[p]
-            if c < 0:
-                out.append("(?!)")
-            elif c in _tables.MULTI_FOLDS:
+            if c in _tables.MULTI_FOLDS:
                 folded = fold(c)
-                spelled = "".join(_single(ord(x)) for x in folded)
-                out.append(f"(?:{class_text(points(*multi[folded]))}|{spelled})")
+                out.append(Alt([Chars(points(*multi[folded])),
+                                Seq([_fold_class(ord(x)) for x in folded])]))
             else:
-                out.append(_single(c))
+                out.append(_fold_class(c))
             p += 1
-    return "".join(out)
+    return out
 
 
-def _icase_class(ranges: "Ranges") -> str:
-    """A class under ``(?i)`` (closed): its characters, then the spelling
-    of those that fold to several."""
+def icase_spellings(ranges: "Ranges") -> "list[Node]":
+    """A class under ``(?i)`` (closed): the spellings of its characters
+    that fold to several, each its fold classes in a row."""
     _, _, multi = _case()
-    spelled = []
+    spelled = {}
     for folded, cps in multi.items():
         if any(contains(ranges, c) for c in cps):
-            spelled.append("".join(_single(ord(x)) for x in folded))
-    if not spelled:
-        return class_text(ranges)
-    return "(?:" + "|".join([class_text(ranges), *sorted(set(spelled))]) + ")"
+            key = "".join(_single(ord(x)) for x in folded)
+            spelled[key] = Seq([_fold_class(ord(x)) for x in folded])
+    return [spelled[key] for key in sorted(spelled)]
 
 
 @functools.lru_cache(maxsize=1)
@@ -1339,12 +1523,13 @@ class _Writer:
     def write(self, node: Node, start: Optional[bool] = None, in_look: bool = False) -> str:
         w = lambda n: self.write(n, start, in_look)  # noqa: E731
         if isinstance(node, Chars):
-            if node.icase:
-                return _icase_class(node.ranges)
+            spelled = icase_spellings(node.ranges) if node.icase else []
+            if spelled:
+                return "(?:" + "|".join([class_text(node.ranges), *map(w, spelled)]) + ")"
             return class_text(node.ranges)
         if isinstance(node, Text):
             if node.icase:
-                return _icase_text(node.cps)
+                return "".join(map(w, icase_parts(node.cps)))
             return "".join("(?!)" if c < 0 else _char(c) for c in node.cps)
         if isinstance(node, Seq):
             return "".join(w(item) for item in node.items)
@@ -1384,17 +1569,17 @@ class _Writer:
             if node.number not in self.parser.bodies:
                 raise OnigurumaError("invalid backref number/name")
             if self.calls:
-                raise _not_read("back reference inside a called group")
-            if node.icase:  # Oniguruma compares the folded texts
-                raise _not_read("back reference under (?i)")
+                raise _Unwritable("back reference inside a called group")
+            if node.icase or node.level is not None or node.numbers:
+                raise _Unwritable("a back reference only the matcher runs")
             return f"(?P=_g{node.number})"
         if isinstance(node, Cond):
             yes, no = w(node.yes), w(node.no)
             if node.test is None:
                 if node.number not in self.parser.bodies:
                     raise OnigurumaError("invalid backref number/name")
-                if self.calls:
-                    raise _not_read("conditional inside a called group")
+                if self.calls or node.numbers:
+                    raise _Unwritable("conditional inside a called group")
                 return f"(?(_g{node.number}){yes}|{no})"
             test = self.write(node.test, start, True)
             return f"(?:(?>{test}){yes}|(?!{test}){no})"
@@ -1402,6 +1587,10 @@ class _Writer:
             return self.call(node, start, in_look)
         if isinstance(node, Raw):
             return node.text
+        if isinstance(node, Cluster) and not node.word:
+            return grapheme_cluster()
+        if isinstance(node, (Cluster, Absent, Callout)):
+            raise _Unwritable(type(node).__name__)
         raise TypeError(node)
 
     def anchor(self, node: Anchor, start: Optional[bool], in_look: bool) -> str:
@@ -1423,13 +1612,15 @@ class _Writer:
             return f"(?:(?<={w})(?={w})|(?<!{w})(?!{w}))"
         if kind == "keep":
             if in_look:
-                raise _not_read("\\K inside a look-around")
+                raise _Unwritable("\\K inside a look-around")
             self.keeps.append(f"_k{len(self.keeps)}")
             return f"(?P<{self.keeps[-1]}>)"
         if kind == "start":
             if start is None:
-                raise _not_read("\\G other than at the start of an alternative")
+                raise _Unwritable("\\G other than at the start of an alternative")
             return "" if start else "(?!)"
+        if kind in ("segment", "nonsegment"):
+            raise _Unwritable("a text segment boundary")
         raise TypeError(kind)
 
     def call(self, node: Call, start, in_look) -> str:
@@ -1438,7 +1629,7 @@ class _Writer:
         referenced = any((isinstance(n, Backref) and n.number == number) or (
             isinstance(n, Cond) and n.number == number) for n in _walk(self.parser.tree))
         if referenced:
-            raise _not_read("a called group that is also referenced")
+            raise _Unwritable("a called group that is also referenced")
         self.calls.append(number)
         try:
             return "(?:" + self.write(target.body, start, in_look) + ")"
@@ -1452,7 +1643,7 @@ class _Writer:
             inner = self.write(node.body, start, True)
             return f"(?<={inner})" if positive else f"(?<!{inner})"
         if any(isinstance(n, Group) and n.kind == "cap" for n in _walk(node.body)):
-            raise _not_read("a capture group in a look-behind of several widths")
+            raise _Unwritable("a capture group in a look-behind of several widths")
         variants = _fixed_variants(node.body)
         parts = [self.write(v, start, True) for v in variants]
         if positive:
@@ -1482,27 +1673,27 @@ def _fixed_variants(node: Node) -> "list[Node]":
         for item in node.items:
             out = [Seq([*v.items, x]) for v in out for x in _fixed_variants(item)]
             if len(out) > MAX_LOOKBEHIND_WIDTHS:
-                raise _not_read("a look-behind of too many widths")
+                raise _Unwritable("a look-behind of too many widths")
         return out
     if isinstance(node, Alt):
         out = [v for b in node.branches for v in _fixed_variants(b)]
         if len(out) > MAX_LOOKBEHIND_WIDTHS:
-            raise _not_read("a look-behind of too many widths")
+            raise _Unwritable("a look-behind of too many widths")
         return out
     if isinstance(node, Group) and node.kind in ("nc", "sub", "atomic"):
         return _fixed_variants(node.body)
     if isinstance(node, Repeat):
         if node.hi is None:
-            raise _not_read("an unbounded repeat in a look-behind")
+            raise _Unwritable("an unbounded repeat in a look-behind")
         return [v for n in range(node.lo, node.hi + 1)
                 for v in _fixed_variants(Seq([node.body] * n))]
     if node is NEWLINES:
         return [Raw("\\r\\n", 2, 2), Raw("[\\n\\x0b\\x0c\\r\\x85\\u2028\\u2029]", 1, 1)]
     if isinstance(node, Raw) and node.lo != node.hi:
-        raise _not_read("\\X in a look-behind")
+        raise _Unwritable("\\X in a look-behind")
     lo, hi = width(node)
     if lo != hi:
-        raise _not_read("a look-behind of several widths")
+        raise _Unwritable("a look-behind of several widths")
     return [node]
 
 
@@ -1516,6 +1707,7 @@ class Expression:
     from a position, ``\\G`` at that position, ``\\K`` moving the start."""
 
     __slots__ = ("regex", "_at_start", "_keeps")
+    engine = "re"
 
     def __init__(self, regex: "re.Pattern", at_start: "Optional[re.Pattern]" = None,
                  keeps: "tuple[str, ...]" = ()):
@@ -1551,9 +1743,9 @@ def _tops(tree: Node) -> list:
     return out
 
 
-@functools.lru_cache(maxsize=None)
-def compile_expression(pattern: str) -> Expression:
-    """The library's expression ``pattern`` as an :class:`Expression`."""
+def read_expression(pattern: str) -> "tuple[_Parser, Node]":
+    """The library's expression ``pattern`` as its tree (and the parser
+    that read it), or the library's error."""
     parser = _Parser(pattern, named_only=False)
     tree = parser.parse()
     if parser.capture_error is not None and not parser.saw_name:
@@ -1566,12 +1758,38 @@ def compile_expression(pattern: str) -> Expression:
     parser.tree = tree
     parser.resolve_calls(tree)
     _check_recursion(parser, tree)
-    if parser.unexpressible is not None:
-        raise parser.unexpressible
+    for node in _walk(tree):
+        if isinstance(node, Callout):
+            values = {"MAX": node.args[:1], "CMP": node.args[::2]}.get(node.name, ())
+            tags = [a for a in values if isinstance(a, str)]
+            if any(t not in parser.tags for t in tags):
+                raise OnigurumaError("invalid callout tag name")
+    return parser, tree
+
+
+@functools.lru_cache(maxsize=None)
+def compile_expression(pattern: str):
+    """The library's expression ``pattern``, searched as its ``find_iter``
+    searches: an :class:`Expression` over Python's ``re`` where ``re``
+    runs it in the library's order and without exponential backtracking,
+    else the port's own matcher (:class:`.onig_match.Matcher`).  Either
+    says which it is in ``engine``."""
+    parser, tree = read_expression(pattern)
+    if parser.matcher_reason is None and not ambiguous(tree):
+        expression = _write(parser, tree)
+        if expression is not None:
+            return expression
+    from .onig_match import Matcher
+
+    return Matcher(parser, tree)
+
+
+def _write(parser: _Parser, tree: Node) -> Optional[Expression]:
+    """``tree`` for Python's ``re``, or None where ``re`` cannot express it."""
     starts = [n for n in _walk(tree) if isinstance(n, Anchor) and n.kind == "start"]
     tops = _tops(tree)
     if any(not any(n is t for t in tops) for n in starts):
-        raise _not_read("\\G other than at the start of an alternative")
+        return None
     try:
         if starts:
             w = _Writer(parser)
@@ -1581,22 +1799,100 @@ def compile_expression(pattern: str) -> Expression:
         w = _Writer(parser)
         text = w.write(tree)
         return Expression(re.compile(text), None, tuple(w.keeps))
-    except re.error as err:
-        raise _not_read(f"{pattern!r} ({err})") from err
-    except RecursionError as err:
-        raise _not_read(f"{pattern!r} (nested too deeply)") from err
+    except (_Unwritable, re.error, RecursionError):
+        return None
+
+
+def first_chars(node: Node) -> "Optional[Ranges]":
+    """The characters ``node``'s matches start with; None where that is
+    not known or ``node`` may match empty."""
+    if isinstance(node, Chars):
+        return ALL if node.icase else node.ranges
+    if isinstance(node, Text):
+        if not node.cps or node.icase or node.cps[0] < 0:
+            return None
+        return points(node.cps[0])
+    if isinstance(node, Seq):
+        for item in node.items:
+            if isinstance(item, Anchor) or (isinstance(item, Group) and item.kind in (
+                    "ahead", "nahead", "behind", "nbehind")):
+                continue
+            return first_chars(item)
+        return None
+    if isinstance(node, Alt):
+        sets = [first_chars(b) for b in node.branches]
+        return None if any(s is None for s in sets) else union(*sets)
+    if isinstance(node, Group) and node.kind in ("cap", "nc", "sub", "atomic"):
+        return first_chars(node.body)
+    if isinstance(node, Repeat) and node.lo > 0:
+        return first_chars(node.body)
+    if isinstance(node, Cluster):
+        return ALL
+    return None
+
+
+def _unatomic(node: Node):
+    """``node`` and what it holds outside atomic groups and possessive
+    repeats."""
+    yield node
+    if isinstance(node, Group) and node.kind == "atomic":
+        return
+    if isinstance(node, Repeat) and node.mode == "possessive":
+        return
+    for child in _children(node):
+        yield from _unatomic(child)
+
+
+def _children(node: Node) -> list:
+    if isinstance(node, Seq):
+        return node.items
+    if isinstance(node, Alt):
+        return node.branches
+    if isinstance(node, (Group, Repeat)):
+        return [node.body]
+    if isinstance(node, Cond):
+        return [c for c in (node.test, node.yes, node.no) if c is not None]
+    if isinstance(node, Absent):
+        return [c for c in (node.absent, node.body) if c is not None]
+    return []
+
+
+def ambiguous(tree: Node) -> bool:
+    """Exponential ambiguity: a repeat of more than one round, not
+    possessive, whose body can match one text in two ways (it holds an
+    unbounded repeat, or alternatives that may start alike, outside an
+    atomic group).  Python's ``re`` backtracks over such an expression
+    without bound where Oniguruma gives up, so the matcher takes it."""
+    for node in _walk(tree):
+        if not isinstance(node, Repeat) or node.mode == "possessive":
+            continue
+        if node.hi is not None and node.hi <= 1:
+            continue
+        for inner in _unatomic(node.body):
+            if isinstance(inner, Repeat) and inner.mode != "possessive" and inner.hi is None:
+                return True
+            if isinstance(inner, Alt):
+                sets = [first_chars(b) for b in inner.branches]
+                if any(s is None for s in sets):
+                    return True
+                for i, a in enumerate(sets):
+                    if any(intersect(a, b) for b in sets[i + 1:]):
+                        return True
+    return False
 
 
 def _check_recursion(parser: _Parser, tree: Node) -> None:
     """A call that can reach itself before reading a character never ends
-    (the library's error); any other recursive call is not read."""
+    (the library's error); any other recursive call is the matcher's."""
     def visit(number: int, stack: tuple) -> None:
         body = tree if number == 0 else parser.bodies[number].body
         for n in _walk(body):
             if isinstance(n, Call):
                 if n.number in stack:
-                    raise OnigurumaError("never ending recursion") if _left_recursive(
-                        parser, n.number, tree) else _not_read("recursive subexpression call")
+                    if _left_recursive(parser, n.number, tree):
+                        raise OnigurumaError("never ending recursion")
+                    parser.needs("a recursive call")
+                    continue
                 visit(n.number, stack + (n.number,))
 
     visit(0, (0,))

@@ -2,7 +2,7 @@
 
 - :func:`translate_regex` reads an Oniguruma expression (the library's
   ``Regex`` patterns) into an :class:`~.onig.Expression` over Python's
-  ``re`` (:mod:`.onig`);
+  ``re`` or the port's own matcher (:mod:`.onig`, :mod:`.onig_match`);
 - :func:`regex_matches` finds as Oniguruma's ``find_iter`` does (no empty
   match right after a match), :func:`char_matches` as the library's
   character predicates do (each matching character its own match);
@@ -83,7 +83,8 @@ def ranges(points: Iterable[int]) -> str:
 
 
 def translate_regex(pattern: str) -> Expression:
-    """The library's (Oniguruma) expression, read for Python's ``re``."""
+    """The library's (Oniguruma) expression, read for Python's ``re`` or the
+    port's matcher (its ``engine`` says which)."""
     return compile_expression(pattern)
 
 

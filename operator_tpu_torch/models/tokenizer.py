@@ -18,12 +18,14 @@ implementations behind one minimal interface (encode/decode/ids):
   ``add_bos_token``/``add_eos_token``, a top-level ``ByteLevel``
   pre-tokenizer's ``add_prefix_space`` taken from the config,
   ``clean_up_tokenization_spaces``.
-  Expressions are read as the library's Oniguruma reads them, its Unicode
-  data (Script classes, ``UnicodeScripts``) included; an expression the
-  library rejects raises a ``ValueError`` (so :func:`load_tokenizer`
-  falls back to bytes, as the reference does), and a construct the library
-  reads that Python's ``re`` cannot express (a recursive call, the absent
-  operator) ``NotImplementedError``; a directory with
+  Expressions are read and run as the library's Oniguruma reads and runs
+  them, its Unicode data (Script classes, ``UnicodeScripts``) included,
+  every expression the library reads (Python's ``re`` or the port's own
+  matcher, ``tokenization/onig_match.py``); an expression the library
+  rejects raises a ``ValueError`` (so :func:`load_tokenizer` falls back
+  to bytes, as the reference does); where the library gives up on a text
+  (its retry limit) ``encode`` raises ``RetryLimitError``, which, like the
+  library's panic, is no ``Exception``; a directory with
   a SentencePiece ``tokenizer.model`` and no ``tokenizer.json`` is not
   read, as the reference's ``transformers`` without ``sentencepiece``
   does not read it;
@@ -372,11 +374,11 @@ def load_tokenizer(path: Optional[str]) -> Tokenizer:
     - a directory path — its ``tokenizer.json`` (:class:`HFTokenizer`);
     - ``None``/``"byte"``/load failure — the byte fallback.
 
-    A ``tokenizer.json`` the library reads and the port cannot (an
-    expression construct Python's ``re`` cannot express) raises
-    ``NotImplementedError`` instead of falling back: a mounted checkpoint
-    must not be served through the wrong vocabulary quietly.  One the
-    library rejects falls back to bytes, as the reference does.
+    A ``tokenizer.json`` component the port does not read (an unknown
+    component type) raises ``NotImplementedError`` instead of falling
+    back: a mounted checkpoint must not be served through the wrong
+    vocabulary quietly.  One the library rejects (an expression it does
+    not read too) falls back to bytes, as the reference does.
     """
     if path == "byte":
         return ByteTokenizer()

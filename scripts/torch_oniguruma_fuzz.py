@@ -4,10 +4,13 @@ Draws seeded random expressions from a grammar of Oniguruma's constructs
 (classes, properties, escapes, anchors, groups, look-arounds, repeats,
 options, back references, conditionals, calls) and compares, for each:
 
-- whether the library and the port accept it (the port may also refuse
-  one the library reads with ``NotImplementedError``, counted apart);
+- whether the library and the port accept it;
 - the library's ``Split(Regex(p), "isolated")`` pieces and the port's over
-  a fixed corpus and seeded random text of many scripts.
+  a fixed corpus and seeded random text of many scripts, through the
+  engine the port routes the expression to (``engines`` counts them);
+- where the library gives up (its retry limit, a panic), whether the port
+  gives up too (``RetryLimitError``): both give up, or the library only
+  (a known difference); the port giving up alone is a disagreement.
 
 It prints each disagreement and one summary line of counts, and exits 1 if
 there was a disagreement.  It needs ``tokenizers`` (this container has
@@ -64,7 +67,8 @@ def expression(rng: random.Random, depth: int = 0) -> str:
 
 
 def library_pieces(pattern: str, text: str):
-    """The library's pieces, or None where it panics (its retry limit)."""
+    """The library's pieces, or None where it gives up (its retry limit, a
+    panic)."""
     import tokenizers
 
     split = tokenizers.pre_tokenizers.Split(tokenizers.Regex(pattern), "isolated")
@@ -76,18 +80,22 @@ def library_pieces(pattern: str, text: str):
         raise
 
 
-def port_pieces(pattern: str, text: str) -> list:
+def port_pieces(pattern: str, text: str):
+    """The port's pieces, or None where its matcher gives up."""
     from operator_tpu_torch.models.tokenization import text as port_text
+    from operator_tpu_torch.models.tokenization.onig_match import RetryLimitError
 
     expression_ = port_text.translate_regex(pattern)
-    return [piece for piece, _ in port_text.split(
-        text, port_text.regex_matches(expression_, text), "Isolated")]
+    try:
+        return [piece for piece, _ in port_text.split(
+            text, port_text.regex_matches(expression_, text), "Isolated")]
+    except RetryLimitError:
+        return None
 
 
 def compare(pattern: str, texts: list) -> "tuple[str, str]":
-    """(outcome, detail): ``same``, ``rejected`` (both), ``not_read`` (the
-    port's ``NotImplementedError``), ``panic`` (the library's), or a
-    disagreement."""
+    """(outcome, detail): ``same``, ``rejected`` (both), ``both_give_up``,
+    ``library_gives_up`` (the port answers), or a disagreement."""
     import tokenizers
 
     from operator_tpu_torch.models.tokenization.onig import OnigurumaError
@@ -98,10 +106,7 @@ def compare(pattern: str, texts: list) -> "tuple[str, str]":
     except Exception as err:  # noqa: BLE001 - the library's error for a pattern it rejects
         library_error = str(err)
     try:
-        port_pieces(pattern, "")
-    except NotImplementedError as err:
-        return ("not_read", str(err)) if library_error is None else (
-            "disagree", f"the library rejects ({library_error}), the port: {err}")
+        port_text_engine(pattern)
     except OnigurumaError as err:
         return ("rejected", "") if library_error is not None else (
             "disagree", f"the port rejects ({err}), the library reads it")
@@ -109,12 +114,22 @@ def compare(pattern: str, texts: list) -> "tuple[str, str]":
         return "disagree", f"the library rejects ({library_error}), the port reads it"
     for text in texts:
         want = library_pieces(pattern, text)
-        if want is None:
-            return "panic", ""
         got = port_pieces(pattern, text)
+        if want is None:
+            # the first give-up decides (each takes the port seconds)
+            return ("both_give_up" if got is None else "library_gives_up"), ""
+        if got is None:
+            return "disagree", f"on {text!r}: the port gives up, the library {want}"
         if got != want:
             return "disagree", f"on {text!r}: the library {want}, the port {got}"
     return "same", ""
+
+
+def port_text_engine(pattern: str) -> str:
+    """The engine the port routes ``pattern`` to (its rejection raises)."""
+    from operator_tpu_torch.models.tokenization.onig import compile_expression
+
+    return compile_expression(pattern).engine
 
 
 def main(argv=None) -> int:
@@ -126,13 +141,18 @@ def main(argv=None) -> int:
     texts = TEXTS + ["".join(rng.choice(POOL) for _ in range(rng.randrange(0, 25)))
                      for _ in range(40)]
     counts: dict = {}
+    engines: dict = {}
     for _ in range(args.count):
         pattern = ("(?i)" if rng.random() < 0.15 else "") + expression(rng)
         outcome, detail = compare(pattern, texts)
         counts[outcome] = counts.get(outcome, 0) + 1
-        if outcome == "disagree":
-            print(f"{pattern!r}: {detail}"[:600])
-    print(json.dumps({"seed": args.seed, "expressions": args.count, **counts}))
+        if outcome != "rejected" and not detail.startswith("the "):
+            engine = port_text_engine(pattern)
+            engines[engine] = engines.get(engine, 0) + 1
+        if outcome in ("disagree", "library_gives_up"):
+            print(f"{outcome} {pattern!r}: {detail}"[:600])
+    print(json.dumps({"seed": args.seed, "expressions": args.count, **counts,
+                      "engines": engines}))
     return 1 if counts.get("disagree") else 0
 
 

@@ -27,6 +27,14 @@ this script probes the installed library for it and writes it down:
    library's Rust table): the runs it cuts every code point in order into,
    each named by pairing one of its characters with a representative of a
    fontTools script.
+5. **Word break classes** (Oniguruma's ``\\y``, ``\\Y`` and ``\\X``
+   under ``(?y{w})``): the ``regex`` package's ``Word_Break`` values are
+   the candidates; each code point's class is checked against whether the
+   library's word segments hold it together with a neighbour in a set of
+   contexts (``a`` + c, c + ``a``, a digit, Katakana, Hebrew, a space, an
+   emoji, a regional indicator on either side), and where the two differ
+   the library's behaviour decides the class (each such code point is
+   printed).
 
 Run it where ``tokenizers``, ``regex`` and fontTools are installed (the
 port reads the written module, never these packages):
@@ -169,6 +177,20 @@ def single_cluster(prefix: str, suffix: str) -> set:
 def _probe_cluster(context: "tuple[str, str, str]") -> tuple:
     name, prefix, suffix = context
     return name, frozenset(single_cluster(prefix, suffix))
+
+
+def single_word(prefix: str, suffix: str) -> set:
+    """The code points c for which the library's ``\\X`` under
+    ``(?y{w})`` reads ``prefix + c + suffix`` as one word segment."""
+    step = len(prefix) + len(suffix) + 2
+    text = "".join(f"{prefix}{chr(c)}{suffix}\n" for c in ALL)
+    return {ALL[start // step] for start, stop in matched_spans(r"(?y{w})^\X$", text)
+            if stop - start == step - 1 and start % step == 0}
+
+
+def _probe_word(context: "tuple[str, str, str]") -> tuple:
+    name, prefix, suffix = context
+    return name, frozenset(single_word(prefix, suffix))
 
 
 # ---------------------------------------------------------------------------
@@ -318,6 +340,76 @@ def cluster_tables(pool) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 5. word break classes
+# ---------------------------------------------------------------------------
+
+#: (name, prefix, suffix): whether prefix + c + suffix is one word segment
+#: tells c's class apart (UAX #29's rules as Oniguruma implements them)
+WORD_CONTEXTS = (
+    ("after_letter", "a", ""),                 # letters, digits, _, Extend/Format/ZWJ
+    ("before_letter", "", "a"),                # letters, digits, _
+    ("after_digit", "1", ""),                  # letters, digits, _, Extend/Format/ZWJ
+    ("after_katakana", "\u30A2", ""),          # Katakana, _, Extend/Format/ZWJ
+    ("between_letters", "a", "a"),             # MidLetter, MidNumLet, Single_Quote
+    ("between_digits", "1", "1"),              # MidNum, MidNumLet, Single_Quote
+    ("after_hebrew", "\u05D0", ""),            # Single_Quote too
+    ("between_hebrew", "\u05D0", "\u05D0"),    # Double_Quote too
+    ("after_space", " ", ""),                  # WSegSpace, Extend/Format/ZWJ
+    ("before_extend", "", "\u0301"),           # all but the line breaks
+    ("before_pictograph", "", "\U0001F600"),   # ZWJ
+    ("after_ri", "\U0001F1E6", ""),            # Regional_Indicator, Extend/Format/ZWJ
+)
+#: the ``regex`` package's Word_Break values the library's rules read
+WORD_CLASSES = ("ALetter", "Hebrew_Letter", "Numeric", "Katakana", "ExtendNumLet", "MidLetter",
+                "MidNum", "MidNumLet", "Single_Quote", "Double_Quote", "Extend", "Format", "ZWJ",
+                "WSegSpace", "Regional_Indicator", "CR", "LF", "Newline")
+
+
+def word_tables(pool) -> dict:
+    """Each word break class, as a set of code points: ``regex``'s value
+    where the library behaves as that value says, else the value whose
+    behaviour the library shows (None where none does)."""
+    import regex
+
+    probes = dict(pool.map(_probe_word, WORD_CONTEXTS, chunksize=1))
+    candidate: dict = {}
+    for name in WORD_CLASSES:
+        for m in regex.finditer(f"\\p{{Word_Break={name}}}+", _TEXT):
+            for i in range(m.start(), m.end()):
+                candidate[_index_to_cp(i)] = name
+
+    def print_(c):
+        return tuple(c in probes[name] for name, _, _ in WORD_CONTEXTS)
+
+    seen: dict = {}
+    for c in ALL:
+        seen.setdefault(candidate.get(c), {}).setdefault(print_(c), 0)
+        seen[candidate.get(c)][print_(c)] += 1
+    # each class's behaviour: the fingerprint most of its code points show
+    typical = {name: max(counts, key=counts.get) for name, counts in seen.items()}
+    by_print: dict = {}
+    for name, fingerprint in typical.items():
+        by_print.setdefault(fingerprint, []).append(name)
+    out: dict = {name: set() for name in WORD_CLASSES}
+    differ = []
+    for c in ALL:
+        name, fingerprint = candidate.get(c), print_(c)
+        if typical[name] != fingerprint:
+            names = by_print.get(fingerprint, [None])
+            differ.append((c, name, names[0]))
+            name = names[0]
+        if name is not None:
+            out[name].add(c)
+    print(f"words: {len(differ)} code points where regex's Word_Break and the library differ "
+          "(the library's class kept)", file=sys.stderr)
+    for c, was, now in differ:
+        print(f"  U+{c:04X} {was} -> {now}", file=sys.stderr)
+    for name, points in out.items():
+        print(f"words: {name} {len(points)}", file=sys.stderr)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # 4. the UnicodeScripts pre-tokenizer's scripts
 # ---------------------------------------------------------------------------
 
@@ -427,6 +519,8 @@ not edit.  ``tests/test_torch_oniguruma.py`` holds it to the library.
 - ``CASE_CLASSES``: the characters ``(?i)`` holds equal, one class each;
   ``MULTI_FOLDS``: the characters that fold to two or three.
 - ``CLUSTERS``: the grapheme cluster classes of ``\\\\X``.
+- ``WORD_BREAKS``: the word break classes of ``\\\\y``, ``\\\\Y`` and
+  ``\\\\X`` under ``(?y{{w}})``.
 - ``SCRIPT_NAMES`` and ``SCRIPT_RUNS``: the ``UnicodeScripts``
   pre-tokenizer's script of every code point, as (first code point, name)
   runs.  Its Rust table and Oniguruma's Script classes are
@@ -496,6 +590,10 @@ def render(tables: dict) -> str:
     for name, points in tables["clusters"].items():
         lines.append(f"    {name!r}: {encode(to_ranges(points))!r},")
     lines += ["}", ""]
+    lines.append("WORD_BREAKS = {")
+    for name, points in tables["word_breaks"].items():
+        lines.append(f"    {name!r}: {encode(to_ranges(points))!r},")
+    lines += ["}", ""]
     lines += _wrap("SCRIPT_NAMES", [f"{n!r}," for n in tables["script_names"]])
     lines.append("")
     lines += _wrap("SCRIPT_RUNS", [f"(0x{lo:X}, {i})," for lo, i in tables["script_runs"]])
@@ -509,6 +607,7 @@ def probe(workers: int) -> dict:
     with multiprocessing.get_context("fork").Pool(workers) as pool:
         names, sets, bare = property_tables(pool)
         clusters = cluster_tables(pool)
+        word_breaks = word_tables(pool)
 
     def property_set(name, default=None):
         return sets[names[name]] if name in names else default
@@ -537,7 +636,8 @@ def probe(workers: int) -> dict:
         "escapes": {k[1:]: v for k, v in names.items() if k.startswith("\\")},
         "brackets": {k[2:-2]: v for k, v in names.items() if k.startswith("[")},
         "bare": bare, "case_classes": case_classes, "multi_folds": multi_folds,
-        "clusters": clusters, "script_names": script_names, "script_runs": runs,
+        "clusters": clusters, "word_breaks": word_breaks, "script_names": script_names,
+        "script_runs": runs,
     }
 
 

@@ -8,10 +8,17 @@ the library's Oniguruma and Rust tables hold
 
 - one case per construct: the port's ``Split`` pieces equal the library's
   over a fixed corpus and seeded random text of many scripts and Unicode
-  16.0's additions; an expression the library rejects is rejected with a
-  ``ValueError`` (and ``load_tokenizer`` falls back to bytes, as the JAX
-  package's does); one it reads that ``re`` cannot express raises
-  ``NotImplementedError`` naming the construct;
+  16.0's additions, through whichever engine the port routes the
+  expression to (Python's ``re`` or its own matcher,
+  ``tokenization/onig_match.py``) and through the matcher forced; an
+  expression the library rejects is rejected with a ``ValueError`` (and
+  ``load_tokenizer`` falls back to bytes, as the JAX package's does);
+- the retry limit: where the library's search gives up
+  (``retry-limit-in-match over``, a panic) the matcher raises
+  :class:`~operator_tpu_torch.models.tokenization.onig_match.RetryLimitError`,
+  and where the library answers the port answers;
+- which engine an expression takes: the named families and the committed
+  fixtures stay on ``re``;
 - one case per property family: every accepted name on a seeded sample of
   code points, alone and in a class, and a few names on every code point;
 - case folding, ``\\X`` and ``UnicodeScripts`` on every code point;
@@ -32,7 +39,7 @@ pytest.importorskip("fontTools")
 
 from operator_tpu.models import tokenizer as jax_tokenizer  # noqa: E402
 from operator_tpu_torch.models import tokenizer  # noqa: E402
-from operator_tpu_torch.models.tokenization import onig, pre_tokenizers  # noqa: E402
+from operator_tpu_torch.models.tokenization import onig, onig_match, pre_tokenizers  # noqa: E402
 from operator_tpu_torch.models.tokenization import text as port_text  # noqa: E402
 from operator_tpu_torch.models.tokenization import unicode_tables  # noqa: E402
 
@@ -71,8 +78,8 @@ def library_pieces(pattern: str, text: str) -> list:
     return [piece for piece, _ in split.pre_tokenize_str(text)]
 
 
-def port_pieces(pattern: str, text: str) -> list:
-    expression = port_text.translate_regex(pattern)
+def port_pieces(pattern: str, text: str, matcher: bool = False) -> list:
+    expression = (onig_match.compile_matcher if matcher else onig.compile_expression)(pattern)
     return [piece for piece, _ in port_text.split(
         text, port_text.regex_matches(expression, text), "Isolated")]
 
@@ -209,6 +216,51 @@ CONSTRUCTS = {
     "deepseek_cjk": (r"[一-龥぀-ゟ゠-ヿ]+|[!\"#$%&'()*+,\-./:;<=>?@\[\\\]^_`{|}~][A-Za-z]+"
                      r"|[^\r\n\p{L}\p{P}\p{S}]?[\p{L}\p{M}]+| ?[\p{P}\p{S}]+[\r\n]*", []),
     "bloom": (r" ?[^(\s|[.,!?…。，、।۔،])]+", []),
+    # what Python's re cannot express, matched by the port's own matcher
+    "recursive_call": (r"(?<x>a|\(\g<x>\))", ["((a)) (a (((a)))"]),
+    "absent_operator": (r"(?~ab)", ["xab xaab abab"]),
+    "segment_boundary": (r"\y", ["éa👩‍💻b 🇩🇪🇫🇷 한국어"]),
+    "segment_inside": (r"\Y", ["éa👩‍💻b"]),
+    "callout": (r"(*SKIP)a", ["bab"]),
+    "cluster_lookbehind": (r"(?<=\X)a", ["éa a 👩‍💻a"]),
+    "unbounded_lookbehind": (r"(?<=a+)b", ["aab b cab"]),
+    "search_start_inside": (r"a\Gb", ["ab bab"]),
+    "icase_backref": (r"(?i)(ß)\1", ["ßss ßß SSß ẞß"]),
+    "several_groups_one_name": (r"(?<x>a)|(?<x>b)\k<x>", ["ab bb ba"]),
+    "counted_repeat_of_empty": (r"(?:\h?|\w*){2}\P{Lu}", ["abZ 12x"]),
+    "call_balanced_brackets": (r"(?<p>\((?:[^()]|\g<p>)*\))", ["f(a(b)c) g((x)"]),
+    "call_sets_its_capture": (r"(?<x>a|b)\g<x>\k<x>", ["aba abb aab bab baa"]),
+    "call_conditional_inside": (r"(?<x>(?(<x>)b|c))\g<x>", ["cb cc"]),
+    "call_referenced_recursive": (r"(?<p>a\g<p>?b)\k<p>", ["aabbaabb aabbab abab"]),
+    "call_whole_pattern": (r"\((?:[^()]|\g<0>)*\)", ["f(a(b)c) ((x)"]),
+    "backref_level_palindrome": (r"\A(?<a>|.|(?:(?<b>.)\g<a>\k<b+0>))\z",
+                                 ["abba", "abcba", "abca", "a"]),
+    "backref_level_same": (r"(?<a>x)\k<a+0>|(?<b>y)\k<b-1>", ["xx x yy"]),
+    "backref_level_in_call": (r"(?<n>a|b\g<n>c)\k<n+0>", ["aa bacba bbaccbbacc"]),
+    "backref_icase_ligature": (r"(?i)(ﬃ)\1|(?i)(ss)\2", ["ﬃffi ﬃﬃ ssß ßß SSß ssSS"]),
+    "backref_icase_scope": (r"(k)(?i)\1|(?i:(s))\2", ["kK KK kk sS ss"]),
+    "backref_shared_name_order": (r"(?<x>a)(?<x>ab)\k<x>|(?<x>c)x(?<x>ddd)\k<x>",
+                                  ["aababz aabaz cxdddc"]),
+    "absent_comment": (r"/\*(?~\*/)\*/", ["a /* b */ c */"]),
+    "absent_expression": (r"(?~|ab|\w+)|(?~|a|b|c)", ["xxabyy zz xcab"]),
+    "absent_stopper_and_clear": (r"(?~|ab)\w+(?~|)\w*|(?~|)", ["xxabyy"]),
+    "segment_word_mode": (r"(?y{w})\X", ["can't 3.14 e.g. über-cool", "a1_b ア・イ 'x' x\"y\" 🇩🇪🇫🇷"]),
+    "segment_word_boundary": (r"(?y{w})\y", ["can't 3.14 e.g. über-cool"]),
+    "segment_word_inside": (r"(?y{w})\Y.", ["can't 3.14 e.g. über-cool"]),
+    "lookbehind_unbounded_class": (r"(?<=[=:]\s*)\w+", ["k= v a:b AAa"]),
+    "lookbehind_captures": (r"(?<=(aa|a))b\1|(?<=(a+))c\2", ["aaba aabaa aacaa"]),
+    "lookbehind_icase_single": (r"(?<=(?i)ß)x|(?<=(?i)ss)y", ["ssx SSx ßx ẞx ßy SSy"]),
+    "lookbehind_negative_unbounded": (r"(?<!a+)b|(?<!\X)c", ["aab b cb c"]),
+    "search_start_anywhere": (r"\Gb|a|(?:\Gc)+", ["bab abb bb ccac"]),
+    "keep_in_lookaround": (r"(?=a\Kb)\w|(?<=\Kc)d|e(?=f\K)", ["ab ab cd ef"]),
+    "callout_skip": (r"xa+(*SKIP)c|ab", ["xaab ab", "xaaab yab"]),
+    "callout_mismatch_error": (r"a(*MISMATCH)|a|b(*ERROR{-1})|b", ["a aa bb"]),
+    "callout_max": (r"(?:a|ab)(*MAX{1})c|(?:d|de)(*MAX{1,>})f|(?:(*MAX{2})g)+", ["abc def gggg"]),
+    "callout_count_cmp": (r"(?:a(*COUNT[x]))+(*CMP{x,==,2})|(?:b(*TOTAL_COUNT[y]))+"
+                          r"(*CMP{y,<=,3})", ["aaa aa a bbb bb b"]),
+    "callout_code": (r"(?{foo})a|(?{{b}}[t]X)b", ["ab"]),
+    "repeat_of_empty_rounds": (r"(?:|a){2}x|(?:a*|b){2,}c", ["ax aax x abc bbc ac"]),
+    "nested_repeat_reduced": (r"(?:a+)+b|(?:c*)*d|(?:e?)??f", ["aab cd ef f"]),
 }
 
 
@@ -218,6 +270,140 @@ def test_a_construct_splits_as_the_library_splits(name):
     assert library_reads(pattern)
     for text in own + texts(len(name)):
         assert port_pieces(pattern, text) == library_pieces(pattern, text), (pattern, text)
+
+
+@pytest.mark.parametrize("name", sorted(CONSTRUCTS))
+def test_the_matcher_splits_every_construct_as_the_library(name):
+    """The port's own matcher, forced whatever the routing says, holds to
+    the library on every construct case."""
+    pattern, own = CONSTRUCTS[name]
+    assert onig_match.compile_matcher(pattern).engine == "matcher"
+    for text in own + texts(len(name)):
+        assert port_pieces(pattern, text, matcher=True) == library_pieces(pattern, text), (
+            pattern, text)
+
+
+#: the families the repo names: ``re`` runs them in linear time, so they
+#: never pay for the matcher
+FAMILIES_ON_RE = ("gpt2", "llama3", "o200k", "deepseek_cjk", "bloom")
+#: expressions the matcher takes: constructs ``re`` cannot express, and
+#: exponential ambiguity (a repeat of a body that matches one text two ways)
+TO_MATCHER = {
+    "nested_unbounded_repeat": r"(\w+\s?)*$",
+    "overlapping_alternatives": r"(a|a)*b",
+    "repeat_of_repeats": r"(?:x+x+)+y",
+    "recursive_call": CONSTRUCTS["recursive_call"][0],
+    "absent_operator": CONSTRUCTS["absent_operator"][0],
+    "icase_backref": CONSTRUCTS["icase_backref"][0],
+}
+#: ambiguity that is only polynomial, and possessive or atomic nesting, stay
+#: on re
+TO_RE = {
+    "adjacent_overlapping_repeats": r"\s*[\r\n]+",
+    "possessive_inner_repeat": r"(?:\w++\s?)*$",
+    "atomic_body": r"(?>a|a)*b",
+    "disjoint_alternatives": r"(?:a|b)*c",
+}
+
+
+def _fixture_expressions() -> dict:
+    """Every ``Regex`` pattern of the committed ``tokenizer.json`` files."""
+    out = {}
+    root = os.path.join(REPO, "tests", "torch_tokenizers")
+    for name in sorted(os.listdir(root)):
+        path = os.path.join(root, name, "tokenizer.json")
+        if not os.path.exists(path):
+            continue
+        with open(path, encoding="utf-8") as fh:
+            text = fh.read()
+        for i, pattern in enumerate(sorted(set(
+                m for m in _regexes(json.loads(text))))):
+            out[f"{name}_{i}"] = pattern
+    return out
+
+
+def _regexes(spec):
+    if isinstance(spec, dict):
+        if isinstance(spec.get("pattern"), dict) and "Regex" in spec["pattern"]:
+            yield spec["pattern"]["Regex"]
+        for value in spec.values():
+            yield from _regexes(value)
+    elif isinstance(spec, list):
+        for value in spec:
+            yield from _regexes(value)
+
+
+FIXTURES_ON_RE = {name: p for name, p in _fixture_expressions().items()
+                  if not name.startswith("onig_logs")}
+
+
+@pytest.mark.parametrize("name", sorted(
+    [f"family_{n}" for n in FAMILIES_ON_RE] + [f"fixture_{n}" for n in FIXTURES_ON_RE]
+    + [f"re_{n}" for n in TO_RE] + [f"matcher_{n}" for n in TO_MATCHER]))
+def test_an_expression_takes_re_unless_only_the_matcher_runs_it(name):
+    """The five named families, the committed fixtures' expressions and
+    polynomial ambiguity stay on Python's ``re`` (their encode costs
+    microseconds); a construct ``re`` cannot express, or exponential
+    ambiguity, takes the matcher."""
+    kind, _, key = name.partition("_")
+    pattern = {"family": lambda k: CONSTRUCTS[k][0], "fixture": FIXTURES_ON_RE.get,
+               "re": TO_RE.get, "matcher": TO_MATCHER.get}[kind](key)
+    assert library_reads(pattern)
+    want = "matcher" if kind == "matcher" else "re"
+    assert onig.compile_expression(pattern).engine == want, pattern
+    assert onig_match.compile_matcher(pattern).engine == "matcher"
+
+
+# ---------------------------------------------------------------------------
+# the retry limit
+# ---------------------------------------------------------------------------
+
+
+def _library_gives_up(pattern: str, text: str) -> bool:
+    try:
+        library_pieces(pattern, text)
+    except BaseException as err:  # noqa: BLE001 - the library panics (not an Exception)
+        assert "retry-limit-in-match over" in str(err) or "Panic" in type(err).__name__
+        return True
+    return False
+
+
+#: (pattern, text of size n, the n at which the library first gives up):
+#: the count grows 8 times a word and 2 times a letter, so one n apart
+#: the library answers (at n - 1) and gives up (at n)
+GIVE_UP = {
+    "words": (r"\A(\w+\s?)*$", lambda n: "word " * n + "!", 7),
+    "letters": (r"\A(a|a)*$", lambda n: "a" * n + "!", 22),
+}
+
+
+@pytest.mark.parametrize("name", sorted(GIVE_UP))
+def test_the_matcher_gives_up_where_the_library_gives_up(name):
+    """One n below the library's first panic both answer alike; at it, the
+    port raises ``RetryLimitError`` where the library panics (the n at
+    which each first gives up is in PERF.md)."""
+    pattern, make, n = GIVE_UP[name]
+    assert onig.compile_expression(pattern).engine == "matcher"
+    assert not _library_gives_up(pattern, make(n - 1))
+    assert port_pieces(pattern, make(n - 1)) == library_pieces(pattern, make(n - 1))
+    assert _library_gives_up(pattern, make(n))
+    with pytest.raises(onig_match.RetryLimitError, match="retry-limit-in-match over"):
+        port_pieces(pattern, make(n))
+
+
+def test_a_nested_repeat_gives_up_in_bounded_time_where_re_ran_on():
+    """``(\\w+\\s?)*$`` on fifteen words and a ``!``: the library panics
+    at once; Python's ``re`` backtracked here for longer than anyone waits
+    (still running after 75 s at eight words), the matcher gives up at its
+    retry limit."""
+    pattern, text = r"(\w+\s?)*$", "word " * 15 + "!"
+    assert _library_gives_up(pattern, text)
+    expression = onig.compile_expression(pattern)
+    assert expression.engine == "matcher"
+    with pytest.raises(onig_match.RetryLimitError):
+        list(port_text.find_iter(expression, text))
+    assert issubclass(onig_match.RetryLimitError, BaseException)
+    assert not issubclass(onig_match.RetryLimitError, Exception)
 
 
 #: expressions the library rejects, each with the library's message
@@ -266,30 +452,6 @@ def test_an_expression_the_library_rejects_is_rejected(name):
     pattern, message = REJECTED[name]
     assert not library_reads(pattern)
     with pytest.raises(onig.OnigurumaError, match=message.replace("(", r"\(")):
-        port_text.translate_regex(pattern)
-
-
-#: what the library reads and Python's ``re`` cannot express
-NOT_EXPRESSIBLE = {
-    "recursive_call": (r"(?<x>a|\(\g<x>\))", "recursive subexpression call"),
-    "absent_operator": (r"(?~ab)", "absent operator"),
-    "segment_boundary": (r"\y", "text segment boundary"),
-    "segment_inside": (r"\Y", "text segment boundary"),
-    "callout": (r"(*SKIP)a", "callout"),
-    "cluster_lookbehind": (r"(?<=\X)a", "look-behind"),
-    "unbounded_lookbehind": (r"(?<=a+)b", "look-behind"),
-    "search_start_inside": (r"a\Gb", "\\\\G"),
-    "icase_backref": (r"(?i)(ß)\1", "back reference under"),
-    "several_groups_one_name": (r"(?<x>a)|(?<x>b)\k<x>", "several groups"),
-    "counted_repeat_of_empty": (r"(?:\h?|\w*){2}\P{Lu}", "can match empty"),
-}
-
-
-@pytest.mark.parametrize("name", sorted(NOT_EXPRESSIBLE))
-def test_a_construct_re_cannot_express_raises_naming_it(name):
-    pattern, what = NOT_EXPRESSIBLE[name]
-    assert library_reads(pattern)
-    with pytest.raises(NotImplementedError, match=what):
         port_text.translate_regex(pattern)
 
 
@@ -464,6 +626,7 @@ def _committed() -> dict:
         "bare": {k: points(v) for k, v in t.BARE_LATIN1.items()},
         "case_classes": [tuple(g) for g in t.CASE_CLASSES], "multi_folds": t.MULTI_FOLDS,
         "clusters": {k: points(v) for k, v in t.CLUSTERS.items()},
+        "word_breaks": {k: points(v) for k, v in t.WORD_BREAKS.items()},
         "script_names": list(t.SCRIPT_NAMES), "script_runs": [tuple(r) for r in t.SCRIPT_RUNS],
     }
 

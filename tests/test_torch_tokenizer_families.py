@@ -14,6 +14,14 @@
   scores differ in the last bits between runs), so the committed model is
   held to ``AutoTokenizer`` through ``expected_ids.json`` and the layout
   around it is regenerated byte for byte;
+- ``tests/torch_tokenizers/onig_logs``: a log tokenizer whose ``Split``
+  expression only the port's own Oniguruma matcher runs (a recursive call
+  for balanced brackets, the absent operator for a quoted string, a
+  back reference under ``(?i)``, an unbounded look-behind, ``\\y``): a
+  BPE model with byte fallback trained by the library on the fixture
+  logs behind it; its ``expected_ids.json`` also names a prompt on which
+  the library gives up (its retry limit), where the port's tokenizer
+  raises ``RetryLimitError``;
 
 each over the fixture lines, the edge texts and seeded texts of many
 scripts (``encode`` with and without BOS, ``encode`` with the
@@ -47,6 +55,7 @@ from test_torch_tokenizer import (EDGE_TEXTS, HERE, _many_scripts_texts,  # noqa
                                   fixture_lines)
 
 MINILM_WORDPIECE = os.path.join(HERE, "torch_tokenizers", "minilm_wordpiece")
+ONIG_LOGS = os.path.join(HERE, "torch_tokenizers", "onig_logs")
 XLMR_UNIGRAM = os.path.join(HERE, "torch_tokenizers", "xlmr_unigram")
 XLMR_SCRIPTS = os.path.join(HERE, "torch_tokenizers", "xlmr_scripts")
 
@@ -79,8 +88,30 @@ SCRIPT_PROMPTS = PROMPTS[:-1] + [
     "Σφάλμα δικτύου στο pod web-0; δοκιμή ξανά σε 5s",
     "",
 ]
+#: the log fixture's prompts: lines where each construct of its expression
+#: acts (brackets, quotes, stretched letters, key=value, emoji)
+LOG_PROMPTS = [
+    "at com.acme.Foo.bar(Foo.java:42) [main] ERROR db=prod msg=\"conn (refused)\" AAAaargh "
+    "\U0001F469\u200d\U0001F4BB done",
+    "Pod crashed OOMKilled",
+    "java.lang.OutOfMemoryError: Java heap space at com.example.Cache.put(Cache.java:42)",
+    "Back-off restarting failed container api in pod api-7d9f  (exit code 137)",
+    "level=error ts=2024-05-01T12:00:00Z caller=main.go:88 msg=\"listen tcp :8080: bind\"",
+    "panic: runtime error: index out of range [5] with length 3\n\ngoroutine 1 [running]:",
+    "readiness: probe=[http (get /healthz) [port 8080]] status: FAILED  retries= 3",
+    "Nooooo!!! disk full, sooo sloooow \U0001F525\U0001F525 retry `kubectl logs`",
+    "emoji \U0001F600\U0001F680 \U0001F469\u200d\U0001F4BB and a flag \U0001F1E9\U0001F1EA "
+    "\u2014 données, straße",
+    "Liveness probe failed: HTTP probe failed with statuscode: 503",
+    "unbalanced ((( brackets ]] and \"an open quote",
+    "",
+]
+#: a line on which the library gives up (its retry limit): an open
+#: backquote before six words, which the ``\`(?:\w+\s?)*\``` branch
+#: splits every way before it fails
+LOG_GIVES_UP = "ERROR volume `data was not found for pod web on node worker after retry"
 #: the prompts each fixture's ``expected_ids.json`` keeps
-FIXTURE_PROMPTS = {XLMR_SCRIPTS: SCRIPT_PROMPTS}
+FIXTURE_PROMPTS = {XLMR_SCRIPTS: SCRIPT_PROMPTS, ONIG_LOGS: LOG_PROMPTS}
 
 #: ``tokenizer_config.json`` of all-MiniLM-L6-v2
 MINILM_CONFIG = {
@@ -354,14 +385,31 @@ def xlmr_scripts_spec(model: "dict | None" = None) -> dict:
 def expected_ids(path: str) -> dict:
     """``AutoTokenizer``'s ids for the fixture's prompts (:data:`PROMPTS`
     unless :data:`FIXTURE_PROMPTS` names others), without and with the
-    post-processor's specials."""
+    post-processor's specials; for the log fixture also the prompt on
+    which the library gives up."""
     auto = transformers.AutoTokenizer.from_pretrained(path, local_files_only=True)
     prompts = FIXTURE_PROMPTS.get(path, PROMPTS)
-    return {"prompts": prompts,
-            "ids": [auto.encode(p, add_special_tokens=False) for p in prompts],
-            "ids_with_special_tokens": [auto.encode(p, add_special_tokens=True) for p in prompts],
-            "bos_id": auto.bos_token_id, "eos_id": auto.eos_token_id,
-            "vocab_size": len(auto)}
+    out = {"prompts": prompts,
+           "ids": [auto.encode(p, add_special_tokens=False) for p in prompts],
+           "ids_with_special_tokens": [auto.encode(p, add_special_tokens=True) for p in prompts],
+           "bos_id": auto.bos_token_id, "eos_id": auto.eos_token_id,
+           "vocab_size": len(auto)}
+    if path == ONIG_LOGS:
+        assert library_gives_up(auto, LOG_GIVES_UP)
+        out["gives_up"] = LOG_GIVES_UP
+    return out
+
+
+def library_gives_up(auto, text: str) -> bool:
+    """Whether the library's tokenizer panics on ``text`` (its retry
+    limit: ``pyo3_runtime.PanicException``, not an ``Exception``)."""
+    try:
+        auto.encode(text, add_special_tokens=False)
+    except BaseException as err:  # noqa: BLE001 - the library's panic
+        if "retry-limit-in-match" in str(err):
+            return True
+        raise
+    return False
 
 
 def write_expected_ids(path: str) -> None:
@@ -370,8 +418,79 @@ def write_expected_ids(path: str) -> None:
         fh.write("\n")
 
 
+# ---------------------------------------------------------------------------
+# the log fixture
+# ---------------------------------------------------------------------------
+
+#: the log fixture's ``Split`` expression: balanced (and nested) brackets
+#: by a recursive call, a double-quoted string by the absent operator, a
+#: backquoted phrase, a letter stretched three or more times (any case) by
+#: a back reference under ``(?i)``, a value after ``=`` or ``:`` by an
+#: unbounded look-behind, an emoji sequence to its grapheme boundary by
+#: ``\\y``, then spaces, words and single characters
+ONIG_LOGS_PATTERN = (r"(?<b>\((?:[^()\[\]]++|\g<b>)*\)|\[(?:[^()\[\]]++|\g<b>)*\])"
+                     r'|"(?~")"|`(?:\w+\s?)*`|(?i)(?<r>\p{L})\k<r>{2,}|(?<=[=:]\s*)\w+'
+                     r"|\p{Extended_Pictographic}\X*?\y|\s+|\w+|\S")
+#: ``tokenizer_config.json`` of the log fixture (TinyLlama's specials)
+ONIG_LOGS_CONFIG = {
+    "bos_token": "<s>",
+    "clean_up_tokenization_spaces": False,
+    "eos_token": "</s>",
+    "model_max_length": 2048,
+    "tokenizer_class": "PreTrainedTokenizerFast",
+    "unk_token": "<unk>",
+}
+
+
+def train_onig_logs(vocab_size: int = 2048) -> dict:
+    """A BPE model trained by the library on the fixture logs split by
+    :data:`ONIG_LOGS_PATTERN` (``<unk> <s> </s>``, the 256 ``<0xNN>`` byte
+    tokens, then merges seen twice; ``vocab_size`` is a ceiling)."""
+    from tokenizers import Regex, models, pre_tokenizers, trainers
+
+    trainer = tokenizers.Tokenizer(models.BPE(unk_token="<unk>"))
+    trainer.pre_tokenizer = pre_tokenizers.Split(Regex(ONIG_LOGS_PATTERN), "isolated")
+    trainer.train_from_iterator(fixture_lines(), trainers.BpeTrainer(
+        vocab_size=vocab_size, min_frequency=2, show_progress=False,
+        special_tokens=["<unk>", "<s>", "</s>"] + [f"<0x{b:02X}>" for b in range(256)]))
+    return json.loads(trainer.to_str())["model"]
+
+
+def onig_logs_spec(model: "dict | None" = None) -> dict:
+    """The log fixture's ``tokenizer.json`` around a trained BPE model:
+    byte fallback, ``<s>`` before every text, the ``ByteFallback`` and
+    ``Fuse`` decoder."""
+    model = model or train_onig_logs()
+    spec = {
+        "version": "1.0",
+        "truncation": None,
+        "padding": None,
+        "added_tokens": [_special(0, "<unk>"), _special(1, "<s>"), _special(2, "</s>")],
+        "normalizer": None,
+        "pre_tokenizer": {"type": "Split", "pattern": {"Regex": ONIG_LOGS_PATTERN},
+                          "behavior": "Isolated", "invert": False},
+        "post_processor": {
+            "type": "TemplateProcessing",
+            "single": [{"SpecialToken": {"id": "<s>", "type_id": 0}},
+                       {"Sequence": {"id": "A", "type_id": 0}}],
+            "pair": [{"SpecialToken": {"id": "<s>", "type_id": 0}},
+                     {"Sequence": {"id": "A", "type_id": 0}},
+                     {"Sequence": {"id": "B", "type_id": 1}}],
+            "special_tokens": {"<s>": {"id": "<s>", "ids": [1], "tokens": ["<s>"]}}},
+        "decoder": {"type": "Sequence", "decoders": [{"type": "ByteFallback"},
+                                                     {"type": "Fuse"}]},
+        "model": {**model, "byte_fallback": True},
+    }
+    tokenizers.Tokenizer.from_str(json.dumps(spec))  # the library reads it
+    return spec
+
+
+def onig_logs_files(directory: str, spec: "dict | None" = None) -> str:
+    return _write(directory, spec or onig_logs_spec(), ONIG_LOGS_CONFIG)
+
+
 FIXTURES = {"minilm_wordpiece": MINILM_WORDPIECE, "xlmr_unigram": XLMR_UNIGRAM,
-            "xlmr_scripts": XLMR_SCRIPTS}
+            "xlmr_scripts": XLMR_SCRIPTS, "onig_logs": ONIG_LOGS}
 
 
 def committed_spec(name: str) -> dict:
@@ -395,6 +514,33 @@ def _same_files(fresh: str, committed: str) -> None:
         with open(os.path.join(fresh, name), "rb") as a, \
                 open(os.path.join(committed, name), "rb") as b:
             assert a.read() == b.read(), name
+
+
+def test_log_fixture_regenerates(tmp_path):
+    """The log fixture is the library's training on the fixture logs in
+    its layout, byte for byte, and its expression takes the matcher."""
+    from operator_tpu_torch.models.tokenization import onig
+
+    _same_files(onig_logs_files(str(tmp_path / "logs")), ONIG_LOGS)
+    assert os.path.getsize(os.path.join(ONIG_LOGS, "tokenizer.json")) < 1 << 20
+    assert len(committed_spec("onig_logs")["model"]["vocab"]) <= 4096
+    assert onig.compile_expression(ONIG_LOGS_PATTERN).engine == "matcher"
+
+
+def test_the_log_fixture_gives_up_where_the_library_does():
+    """On the marked prompt the library's tokenizer panics and the port's
+    raises ``RetryLimitError``; on every other prompt both give
+    ``expected_ids.json``'s ids."""
+    from operator_tpu_torch.models.tokenization import onig_match
+
+    with open(os.path.join(ONIG_LOGS, "expected_ids.json"), encoding="utf-8") as fh:
+        expected = json.load(fh)
+    auto = transformers.AutoTokenizer.from_pretrained(ONIG_LOGS, local_files_only=True)
+    assert library_gives_up(auto, expected["gives_up"])
+    port = tokenizer.HFTokenizer(ONIG_LOGS)
+    with pytest.raises(onig_match.RetryLimitError):
+        port.encode(expected["gives_up"], add_bos=False)
+    assert [port.encode(p, add_bos=False) for p in expected["prompts"]] == expected["ids"]
 
 
 def test_wordpiece_fixture_regenerates(tmp_path):
@@ -562,6 +708,7 @@ if __name__ == "__main__":
     minilm_wordpiece_files(MINILM_WORDPIECE)
     xlmr_unigram_files(XLMR_UNIGRAM)
     xlmr_unigram_files(XLMR_SCRIPTS, xlmr_scripts_spec())
+    onig_logs_files(ONIG_LOGS)
     for fixture in FIXTURES.values():
         write_expected_ids(fixture)
     sys.exit(print(*FIXTURES.values()))
