@@ -238,7 +238,13 @@ Phases, in order — any failure stops the run:
    return a ``NeuralEmbedder``, whose ids equal the ``vocab.txt``
    checkpoint's on every fixture line and whose ``PatternEngine.analyze``
    launches K5 once with scores and indices equal to the ``vocab.txt``
-   checkpoint's, exactly (the same tokens, the same weights).  (c) The
+   checkpoint's, exactly (the same tokens, the same weights); and the
+   WordPiece fixture's own vocabulary, from its ``tokenizer.json`` and
+   from a ``vocab.txt``, must give ``AutoTokenizer``'s ids
+   (``expected_ids.json``) on its prompts, among them texts where
+   Python's Unicode data and the library's differ (Devanagari and
+   Bengali vowel signs, an ideograph of U+2B8xx, Unicode 16.0 capitals
+   and digits, U+11938), their host encode time printed.  (c) The
    tinyllama-1.1b weights again, with the Script-aware fixture
    (``tests/torch_tokenizers/xlmr_scripts``: the Unigram fixture behind
    ``UnicodeScripts``, a ``Split`` on Script classes and ``Metaspace``),
@@ -3649,10 +3655,46 @@ def tokenizers_served(dirs: dict, counted, fixture: str, part: str, model: str) 
             torch.cuda.empty_cache()
 
 
+def wordpiece_fixture_ids(workdir: str) -> dict:
+    """The WordPiece fixture's prompts (the texts where Python's Unicode
+    data and the library's differ among them) through the encoder's
+    tokenizer as ``NeuralEmbedder.from_checkpoint`` reads it, from the
+    fixture's ``tokenizer.json`` and from a ``vocab.txt`` of its vocabulary:
+    both must give ``expected_ids.json``'s ``AutoTokenizer`` ids."""
+    from operator_tpu_torch.models.tokenizer import HFTokenizer
+    from operator_tpu_torch.models.wordpiece import WordPieceTokenizer
+
+    expected = json.loads(fixture_file(WORDPIECE_FIXTURE, "expected_ids.json"))
+    vocab = json.loads(fixture_file(WORDPIECE_FIXTURE, "tokenizer.json"))["model"]["vocab"]
+    directory = os.path.join(workdir, "minilm-fixture-vocab")
+    os.makedirs(directory)
+    with open(os.path.join(directory, "vocab.txt"), "w", encoding="utf-8") as fh:
+        fh.write("\n".join(sorted(vocab, key=vocab.get)) + "\n")
+    with open(os.path.join(directory, "tokenizer_config.json"), "w", encoding="utf-8") as fh:
+        fh.write(fixture_file(WORDPIECE_FIXTURE, "tokenizer_config.json"))
+    wordpiece = WordPieceTokenizer.from_dir(directory)
+    encoders = {"tokenizer_json": HFTokenizer(WORDPIECE_FIXTURE).encode_with_special_tokens,
+                "vocab_txt": lambda text: wordpiece.encode(text, add_special_tokens=True)}
+    prompts, want = expected["prompts"], expected["ids_with_special_tokens"]
+    for name, encode in encoders.items():
+        got = [encode(p) for p in prompts]
+        if got != want:
+            bad = [p for p, a, b in zip(prompts, got, want) if a != b]
+            raise fail(f"tokenizers (b): the {name} encoder's ids differ from expected_ids.json "
+                       f"on {bad[:3]}")
+    unicode_prompts = [p for p in prompts if not p.isascii()]
+    return {"prompts": len(prompts), "ids_equal_expected": True,
+            "non_ascii_prompts": len(unicode_prompts),
+            "non_ascii_encode_us_per_prompt": {name: encode_us(encode, unicode_prompts)
+                                             for name, encode in encoders.items()}}
+
+
 def tokenizers_wordpiece(dirs: dict, counted, kernels: list) -> tuple:
     """(b): the encoder with ``tokenizer.json`` and no ``vocab.txt``
-    against the ``vocab.txt`` checkpoint of the same weights; returns the
-    record and the comparison run's launch counts."""
+    against the ``vocab.txt`` checkpoint of the same weights, and the
+    fixture's own vocabulary held to ``AutoTokenizer``'s ids
+    (:func:`wordpiece_fixture_ids`); returns the record and the comparison
+    run's launch counts."""
     import torch
 
     from operator_tpu_torch.patterns import semantic as semantic_module
@@ -3661,6 +3703,7 @@ def tokenizers_wordpiece(dirs: dict, counted, kernels: list) -> tuple:
     from operator_tpu_torch.schema.analysis import PodFailureData
 
     started = time.perf_counter()
+    fixture_ids = wordpiece_fixture_ids(dirs["workdir"])
     vocab = wordpiece_vocab()
     enc_json = linked_checkpoint(dirs["encoder"], os.path.join(dirs["workdir"], "minilm-json"), {
         "tokenizer.json": wordpiece_tokenizer_json(vocab),
@@ -3709,7 +3752,7 @@ def tokenizers_wordpiece(dirs: dict, counted, kernels: list) -> tuple:
         "k5_max_abs_err": got["k5_max_abs_err"], "scores_equal_vocab_txt": True,
         "events": len(got["events"]), "encode_us_per_prompt": encode_times["tokenizer_json"],
         "vocab_txt_encode_us_per_prompt": encode_times["vocab_txt"],
-        "wall_s": time.perf_counter() - started,
+        "fixture_ids": fixture_ids, "wall_s": time.perf_counter() - started,
     }, ref["launches"]
 
 # ---------------------------------------------------------------------------
@@ -4654,8 +4697,10 @@ def remote_operator(dirs: dict, engine, model_id: str, servers: list, http, port
             raise fail(f"remote operator: every pod is owned by one replica: {owners}")
         keep_url = urls[1 - urls.index(stop_url)]
         doomed = by_owner[stop_url]
+        # the second batch is filled from the kept replica's pods, so the
+        # doomed pod held back stays in the first batch beside them
         second = doomed[:min(len(doomed) - 1, REMOTE_BATCH)]
-        second += [n for n, _, _ in pods if n not in second][:REMOTE_BATCH - len(second)]
+        second += [n for n, _, _ in pods if n not in doomed][:REMOTE_BATCH - len(second)]
         first = [n for n, _, _ in pods if n not in second]
         batches = []
         for batch_no, batch in enumerate((first, second)):

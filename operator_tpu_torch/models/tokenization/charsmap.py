@@ -8,21 +8,22 @@ grapheme clusters (UAX #29) and replaces a cluster under 6 bytes whole
 when a prefix of it is a key (the shortest such prefix's string stands
 for the cluster); anything else goes character by character, each
 replaced when it is a key.  Python has no grapheme segmentation: the
-cluster rules are here, with the break properties built from
-``unicodedata`` and the few lists it lacks (Prepend, the Grapheme_Extend
-exceptions, Extended_Pictographic), as of Unicode 15.0, without 15.1's
-Indic conjunct rule (GB9c) — a cluster it would join spans 6 bytes or
-more, which goes character by character either way.
+cluster rules are here, the Indic conjunct rule (GB9c) among them, over
+the break classes probed from the library's ``Precompiled``
+(``tables.GRAPHEMES``), not ``unicodedata``'s.
 """
 
 from __future__ import annotations
 
 import base64
+import bisect
 import functools
 import re
 import struct
-import unicodedata
 from typing import Optional
+
+from . import tables
+from .onig import decode
 
 __all__ = ["Precompiled", "graphemes"]
 
@@ -106,77 +107,40 @@ def _offset(unit: int) -> int:
 # extended grapheme clusters (UAX #29)
 # ---------------------------------------------------------------------------
 
-_PREPEND = frozenset([*range(0x0600, 0x0606), 0x06DD, 0x070F, 0x0890, 0x0891, 0x08E2, 0x0D4E,
-                      0x110BD, 0x110CD, 0x111C2, 0x111C3, 0x1193F, 0x11941, 0x11A3A,
-                      *range(0x11A84, 0x11A8A), 0x11D46, 0x11F02])
-#: Other_Grapheme_Extend (spacing marks and others that extend) and the
-#: emoji modifiers, which are Extend since Unicode 11
-_EXTEND_EXTRA = frozenset([
-    0x09BE, 0x09D7, 0x0B3E, 0x0B57, 0x0BBE, 0x0BD7, 0x0CC2, 0x0CD5, 0x0CD6, 0x0D3E, 0x0D57,
-    0x0DCF, 0x0DDF, 0x1B35, 0x200C, 0x302E, 0x302F, 0xFF9E, 0xFF9F, 0x1133E, 0x11357, 0x114B0,
-    0x114BD, 0x115AF, 0x11930, 0x1D165, *range(0x1D16E, 0x1D173), *range(0xE0020, 0xE0080),
-    *range(0x1F3FB, 0x1F400)])
-#: Mc characters that are not SpacingMark
-_NOT_SPACING = frozenset([0x102B, 0x102C, 0x1038, 0x1062, 0x1063, 0x1064, *range(0x1067, 0x106E),
-                          0x1083, *range(0x1087, 0x108D), 0x108F, 0x109A, 0x109B, 0x109C,
-                          0x1A61, 0x1A63, 0x1A64, 0xAA7B, 0xAA7D, 0x11720, 0x11721])
-_PICTOGRAPHIC_RANGES = (
-    (0x00A9, 0x00A9), (0x00AE, 0x00AE), (0x203C, 0x203C), (0x2049, 0x2049), (0x2122, 0x2122),
-    (0x2139, 0x2139), (0x2194, 0x2199), (0x21A9, 0x21AA), (0x231A, 0x231B), (0x2328, 0x2328),
-    (0x2388, 0x2388), (0x23CF, 0x23CF), (0x23E9, 0x23F3), (0x23F8, 0x23FA), (0x24C2, 0x24C2),
-    (0x25AA, 0x25AB), (0x25B6, 0x25B6), (0x25C0, 0x25C0), (0x25FB, 0x25FE), (0x2600, 0x2605),
-    (0x2607, 0x2612), (0x2614, 0x2685), (0x2690, 0x2705), (0x2708, 0x2712), (0x2714, 0x2714),
-    (0x2716, 0x2716), (0x271D, 0x271D), (0x2721, 0x2721), (0x2728, 0x2728), (0x2733, 0x2734),
-    (0x2744, 0x2744), (0x2747, 0x2747), (0x274C, 0x274C), (0x274E, 0x274E), (0x2753, 0x2755),
-    (0x2757, 0x2757), (0x2763, 0x2767), (0x2795, 0x2797), (0x27A1, 0x27A1), (0x27B0, 0x27B0),
-    (0x27BF, 0x27BF), (0x2934, 0x2935), (0x2B05, 0x2B07), (0x2B1B, 0x2B1C), (0x2B50, 0x2B50),
-    (0x2B55, 0x2B55), (0x3030, 0x3030), (0x303D, 0x303D), (0x3297, 0x3297), (0x3299, 0x3299),
-    (0x1F000, 0x1F0FF), (0x1F10D, 0x1F10F), (0x1F12F, 0x1F12F), (0x1F16C, 0x1F171),
-    (0x1F17E, 0x1F17F), (0x1F18E, 0x1F18E), (0x1F191, 0x1F19A), (0x1F1AD, 0x1F1E5),
-    (0x1F201, 0x1F20F), (0x1F21A, 0x1F21A), (0x1F22F, 0x1F22F), (0x1F232, 0x1F23A),
-    (0x1F23C, 0x1F23F), (0x1F249, 0x1F3FA), (0x1F400, 0x1F53D), (0x1F546, 0x1F64F),
-    (0x1F680, 0x1F6FF), (0x1F774, 0x1F77F), (0x1F7D5, 0x1F7FF), (0x1F80C, 0x1F80F),
-    (0x1F848, 0x1F84F), (0x1F85A, 0x1F85F), (0x1F888, 0x1F88F), (0x1F8AE, 0x1F8FF),
-    (0x1F90C, 0x1F93A), (0x1F93C, 0x1F945), (0x1F947, 0x1FAFF), (0x1FC00, 0x1FFFD),
-)
-
-
 _ASCII_CLUSTERS = re.compile(r"\r\n|[\x00-\x7f]")
+
+#: the break classes, one per code point (the rest are Other), and the
+#: Indic conjunct classes beside them
+_BREAK_CLASSES = ("CR", "LF", "ZWJ", "Control", "Prepend", "Extend", "SpacingMark", "L", "V",
+                  "T", "LV", "LVT", "RI", "ExtPict")
+_CONJUNCT_CLASSES = ("Consonant", "Linker", "InCBExtend")
+
+
+def _runs(names) -> "tuple[list[int], list[tuple[int, str]]]":
+    """Run starts and (last code point, class) of the named classes."""
+    runs = sorted((lo, hi, name) for name in names for lo, hi in decode(tables.GRAPHEMES[name]))
+    return [lo for lo, _, _ in runs], [(hi, name) for _, hi, name in runs]
+
+
+@functools.lru_cache(maxsize=1)
+def _class_runs() -> tuple:
+    return _runs(_BREAK_CLASSES), _runs(_CONJUNCT_CLASSES)
+
+
+def _lookup(runs, cp: int, default: Optional[str]) -> Optional[str]:
+    starts, ends = runs
+    i = bisect.bisect_right(starts, cp) - 1
+    if i >= 0 and cp <= ends[i][0]:
+        return ends[i][1]
+    return default
 
 
 @functools.lru_cache(maxsize=4096)
-def _break_property(char: str) -> str:
+def _break_property(char: str) -> "tuple[str, Optional[str]]":
+    """The character's break class and its Indic conjunct class (or None)."""
+    breaks, conjuncts = _class_runs()
     cp = ord(char)
-    if char == "\r":
-        return "CR"
-    if char == "\n":
-        return "LF"
-    if cp == 0x200D:
-        return "ZWJ"
-    if cp in _EXTEND_EXTRA:
-        return "Extend"
-    if cp in _PREPEND:
-        return "Prepend"
-    if 0x1F1E6 <= cp <= 0x1F1FF:
-        return "RI"
-    if 0x1100 <= cp <= 0x115F or 0xA960 <= cp <= 0xA97C:
-        return "L"
-    if 0x1160 <= cp <= 0x11A7 or 0xD7B0 <= cp <= 0xD7C6:
-        return "V"
-    if 0x11A8 <= cp <= 0x11FF or 0xD7CB <= cp <= 0xD7FB:
-        return "T"
-    if 0xAC00 <= cp <= 0xD7A3:
-        return "LV" if (cp - 0xAC00) % 28 == 0 else "LVT"
-    category = unicodedata.category(char)
-    if category in ("Mn", "Me"):
-        return "Extend"
-    if category == "Mc" or cp in (0x0E33, 0x0EB3):
-        return "Other" if cp in _NOT_SPACING else "SpacingMark"
-    if category in ("Cc", "Zl", "Zp", "Cs") or (category == "Cf" and cp not in (0x200C, 0x200D)):
-        return "Control"
-    if any(lo <= cp <= hi for lo, hi in _PICTOGRAPHIC_RANGES):
-        return "Pictographic"
-    return "Other"
+    return _lookup(breaks, cp, "Other"), _lookup(conjuncts, cp, None)
 
 
 def graphemes(text: str) -> "list[str]":
@@ -190,12 +154,14 @@ def graphemes(text: str) -> "list[str]":
     start = 0
     props = [_break_property(c) for c in text]
     # GB11: inside an emoji sequence (Pictographic Extend* ZWJ) the next
-    # Pictographic joins; GB12/13: regional indicators pair up
+    # Pictographic joins; GB12/13: regional indicators pair up; GB9c: a
+    # consonant after consonant [Extend Linker]* Linker [Extend Linker]*
     pict_zwj = False
-    in_pict = props[0] == "Pictographic"
-    ri_run = 1 if props[0] == "RI" else 0
+    in_pict = props[0][0] == "ExtPict"
+    ri_run = 1 if props[0][0] == "RI" else 0
+    conjunct = "consonant" if props[0][1] == "Consonant" else None
     for i in range(1, len(text)):
-        prev, cur = props[i - 1], props[i]
+        prev, (cur, incb) = props[i - 1][0], props[i]
         if prev == "CR" and cur == "LF":
             keep = True
         elif prev in ("Control", "CR", "LF") or cur in ("Control", "CR", "LF"):
@@ -208,7 +174,9 @@ def graphemes(text: str) -> "list[str]":
             keep = True
         elif cur in ("Extend", "ZWJ", "SpacingMark") or prev == "Prepend":
             keep = True
-        elif prev == "ZWJ" and cur == "Pictographic" and pict_zwj:
+        elif incb == "Consonant" and conjunct == "linked":
+            keep = True
+        elif prev == "ZWJ" and cur == "ExtPict" and pict_zwj:
             keep = True
         elif prev == "RI" and cur == "RI":
             keep = ri_run % 2 == 1
@@ -218,7 +186,7 @@ def graphemes(text: str) -> "list[str]":
             out.append(text[start:i])
             start = i
         # the emoji-sequence state after character i
-        if cur == "Pictographic":
+        if cur == "ExtPict":
             in_pict = True
         elif cur == "ZWJ":
             pict_zwj = in_pict
@@ -228,5 +196,12 @@ def graphemes(text: str) -> "list[str]":
         if cur != "ZWJ":
             pict_zwj = False
         ri_run = ri_run + 1 if cur == "RI" else 0
+        # the conjunct state after character i
+        if incb == "Consonant":
+            conjunct = "consonant"
+        elif incb == "Linker" and conjunct:
+            conjunct = "linked"
+        elif incb != "InCBExtend":
+            conjunct = None
     out.append(text[start:])
     return out

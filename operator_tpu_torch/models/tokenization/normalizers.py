@@ -2,20 +2,20 @@
 
 from __future__ import annotations
 
-import unicodedata
 from typing import Callable, Optional
 
 from ..wordpiece import bert_normalize
-from . import tables, unsupported
+from . import unsupported
 from .charsmap import Precompiled
-from .text import WHITESPACE, byte_level, in_ranges, regex_matches, translate_regex
+from .text import (WHITESPACE, byte_level, in_ranges, lowercase, normalize, regex_matches, table,
+                   translate_regex)
 
 __all__ = ["build_normalizer", "replace"]
 
 Normalizer = Callable[[str], str]
 
-#: ``StripAccents`` drops what the library's table calls a non-spacing mark
-_is_mark_nonspacing = in_ranges(tables.MARK_NONSPACING)
+#: ``StripAccents`` drops every combining mark of the library's table
+_is_combining_mark = in_ranges(table("COMBINING_MARK"))
 
 #: ``Nmt``: control characters it drops, and the characters it makes a space
 _NMT_DROP = frozenset([*range(0x01, 0x09), 0x0B, *range(0x0E, 0x20), 0x7F, 0x8F, 0x9F])
@@ -76,11 +76,11 @@ def build_normalizer(spec: Optional[dict]) -> Normalizer:
     if kind == "Replace":
         return replace(spec, "Replace normalizer")
     if kind in ("NFC", "NFD", "NFKC", "NFKD"):
-        return lambda text: unicodedata.normalize(kind, text)
+        return lambda text: normalize(kind, text)
     if kind == "Lowercase":
-        return lambda text: "".join(c.lower() for c in text)  # per character, as Rust's
+        return lowercase
     if kind == "StripAccents":
-        return lambda text: "".join(c for c in text if not _is_mark_nonspacing(c))
+        return lambda text: "".join(c for c in text if not _is_combining_mark(c))
     if kind == "Strip":
         return _strip(bool(spec.get("strip_left", True)), bool(spec.get("strip_right", True)))
     if kind == "Nmt":

@@ -1638,17 +1638,29 @@ class _Writer:
 
     def lookbehind(self, node: Group, start) -> str:
         positive = node.kind == "behind"
-        lo, hi = width(node.body)
-        if lo == hi and not _has_icase_text(node.body):
-            inner = self.write(node.body, start, True)
+        parts = [self.lookbehind_part(b, positive, start) for b in lookbehind_parts(node.body)]
+        return parts[0] if len(parts) == 1 else (
+            "(?:" + "|".join(parts) + ")" if positive else "".join(parts))
+
+    def lookbehind_part(self, body: Node, positive: bool, start) -> str:
+        lo, hi = width(body)
+        if lo == hi and not _has_icase_text(body):
+            inner = self.write(body, start, True)
             return f"(?<={inner})" if positive else f"(?<!{inner})"
-        if any(isinstance(n, Group) and n.kind == "cap" for n in _walk(node.body)):
+        if any(isinstance(n, Group) and n.kind == "cap" for n in _walk(body)):
             raise _Unwritable("a capture group in a look-behind of several widths")
-        variants = _fixed_variants(node.body)
-        parts = [self.write(v, start, True) for v in variants]
+        if any(isinstance(n, Anchor) and n.kind in ("word", "nonword") for n in _walk(body)):
+            # its body reads nothing past the position: a word boundary at
+            # the text's start fails there (Oniguruma's DATA_ENSURE)
+            raise _Unwritable("a word boundary in a look-behind of several widths")
+        variants = [self.write(v, start, True) for v in _fixed_variants(body)]
+        # Oniguruma's tail check: \R's is a CRLF before the position
+        crlf = len(lookbehind_tail(body) or ()) == 2
         if positive:
-            return "(?:" + "|".join(f"(?<={p})" for p in parts) + ")"
-        return "".join(f"(?<!{p})" for p in parts)
+            found = "|".join(f"(?<={v})" for v in variants)
+            return f"(?:(?<=\\r\\n)(?:{found}))" if crlf else f"(?:{found})"
+        missing = "".join(f"(?<!{v})" for v in variants)
+        return f"(?:(?<!\\r\\n)|{missing})" if crlf else missing
 
 
 def _has_icase_text(node: Node) -> bool:
@@ -1666,35 +1678,119 @@ def _is_atom(node: Node) -> bool:
     return isinstance(node, Group) and node.kind in ("cap", "nc", "sub", "atomic")
 
 
-def _fixed_variants(node: Node) -> "list[Node]":
-    """``node`` as alternatives of one width each (a look-behind)."""
+def _fixed_variants(node: Node, followed: bool = False) -> "list[Node]":
+    """``node`` as alternatives of one width each (a look-behind);
+    ``followed``: a character of the look-behind comes after it."""
     if isinstance(node, Seq):
         out = [Seq([])]
-        for item in node.items:
-            out = [Seq([*v.items, x]) for v in out for x in _fixed_variants(item)]
+        for i, item in enumerate(node.items):
+            after = followed or any(width(x)[0] > 0 for x in node.items[i + 1:])
+            out = [Seq([*v.items, x]) for v in out for x in _fixed_variants(item, after)]
             if len(out) > MAX_LOOKBEHIND_WIDTHS:
                 raise _Unwritable("a look-behind of too many widths")
         return out
     if isinstance(node, Alt):
-        out = [v for b in node.branches for v in _fixed_variants(b)]
+        out = [v for b in node.branches for v in _fixed_variants(b, followed)]
         if len(out) > MAX_LOOKBEHIND_WIDTHS:
             raise _Unwritable("a look-behind of too many widths")
         return out
     if isinstance(node, Group) and node.kind in ("nc", "sub", "atomic"):
-        return _fixed_variants(node.body)
+        return _fixed_variants(node.body, followed)
     if isinstance(node, Repeat):
         if node.hi is None:
             raise _Unwritable("an unbounded repeat in a look-behind")
         return [v for n in range(node.lo, node.hi + 1)
-                for v in _fixed_variants(Seq([node.body] * n))]
+                for v in _fixed_variants(Seq([node.body] * n), followed)]
     if node is NEWLINES:
-        return [Raw("\\r\\n", 2, 2), Raw("[\\n\\x0b\\x0c\\r\\x85\\u2028\\u2029]", 1, 1)]
+        # atomic: a CR with a LF after it inside the look-behind is a CRLF
+        one = "(?:\\r(?!\\n)|[\\n\\x0b\\x0c\\x85\\u2028\\u2029])" if followed else \
+            "[\\n\\x0b\\x0c\\r\\x85\\u2028\\u2029]"
+        return [Raw("\\r\\n", 2, 2), Raw(one, 1, 1)]
     if isinstance(node, Raw) and node.lo != node.hi:
         raise _Unwritable("\\X in a look-behind")
     lo, hi = width(node)
     if lo != hi:
         raise _Unwritable("a look-behind of several widths")
     return [node]
+
+
+def char_width(node: Node, lookbehind: bool) -> "tuple[int, Optional[int]]":
+    """:func:`width`, where in a look-behind a literal under ``(?i)`` is
+    one character each (no foldings to several), as Oniguruma measures a
+    look-behind's body."""
+    if lookbehind and isinstance(node, Text):
+        return len(node.cps), len(node.cps)
+    if lookbehind and isinstance(node, Chars):
+        return 1, 1
+    if isinstance(node, Seq):
+        lo, hi = 0, 0
+        for item in node.items:
+            a, b = char_width(item, lookbehind)
+            lo += a
+            hi = None if hi is None or b is None else hi + b
+        return lo, hi
+    if isinstance(node, Alt):
+        ws = [char_width(b, lookbehind) for b in node.branches]
+        return min(a for a, _ in ws), (None if any(b is None for _, b in ws)
+                                       else max(b for _, b in ws))
+    if isinstance(node, Group):
+        if node.kind in ("ahead", "nahead", "behind", "nbehind"):
+            return 0, 0
+        return char_width(node.body, lookbehind)
+    if isinstance(node, Repeat):
+        a, b = char_width(node.body, lookbehind)
+        return a * node.lo, (None if node.hi is None or b is None else b * node.hi)
+    return width(node)
+
+
+def lookbehind_parts(body: Node) -> "list[Node]":
+    """A look-behind's body as Oniguruma divides it, one look-behind per
+    part: a top-level alternation is divided when the whole has several
+    widths and every branch after the first has one (the first is not
+    looked at: ``\\R|a`` is divided, ``a|\\R`` is not), and each part
+    again."""
+    top = body
+    while (isinstance(top, Group) and top.kind == "nc") or (
+            isinstance(top, Seq) and len(top.items) == 1):
+        top = top.body if isinstance(top, Group) else top.items[0]
+    if not isinstance(top, Alt):
+        return [body]
+    widths = [char_width(b, True) for b in top.branches]
+    one_width = len(set(widths)) == 1 and widths[0][0] == widths[0][1]
+    if one_width or any(a != b for a, b in widths[1:]):
+        return [body]
+    # each part is a look-behind of its own, divided again
+    return [part for b in top.branches for part in lookbehind_parts(b)]
+
+
+def lookbehind_tail(node: Node) -> "Optional[tuple[Ranges, ...]]":
+    """The characters, last last, that a look-behind of several widths
+    checks before its position ahead of running ``node`` (Oniguruma's tail
+    literal: the last item, past zero-width ones), or None.  Each is one a
+    match ends with, but for ``\\R``'s: its condition's CRLF, so such a
+    look-behind matches only after a CRLF."""
+    if isinstance(node, Seq):
+        for item in reversed(node.items):
+            if width(item) != (0, 0):
+                return lookbehind_tail(item)
+        return None
+    if node is NEWLINES:
+        return points(0x0D), points(0x0A)
+    if isinstance(node, Chars):
+        return (node.ranges,)
+    if isinstance(node, Text):
+        if not node.cps or node.cps[-1] < 0:
+            return None
+        return (points(*case_class(node.cps[-1])) if node.icase else points(node.cps[-1]),)
+    if isinstance(node, Group) and node.kind in ("cap", "nc", "sub", "atomic"):
+        return lookbehind_tail(node.body)
+    if isinstance(node, Repeat) and node.lo > 0:
+        return lookbehind_tail(node.body)
+    if isinstance(node, Alt):
+        tails = [lookbehind_tail(b) for b in node.branches]
+        if all(t is not None and len(t) == 1 for t in tails):
+            return (union(*(t[0] for t in tails)),)
+    return None
 
 
 # ---------------------------------------------------------------------------
@@ -1704,25 +1800,35 @@ def _fixed_variants(node: Node) -> "list[Node]":
 
 class Expression:
     """An expression as the library's ``find_iter`` sees it: ``search``
-    from a position, ``\\G`` at that position, ``\\K`` moving the start."""
+    from a position, ``\\G`` at that position, ``\\K`` moving the start,
+    only at the positions Oniguruma's search tries (:func:`search_starts`)."""
 
-    __slots__ = ("regex", "_at_start", "_keeps")
+    __slots__ = ("regex", "_at_start", "_keeps", "_starts")
     engine = "re"
 
     def __init__(self, regex: "re.Pattern", at_start: "Optional[re.Pattern]" = None,
-                 keeps: "tuple[str, ...]" = ()):
+                 keeps: "tuple[str, ...]" = (), starts: Optional[str] = None):
         self.regex, self._at_start, self._keeps = regex, at_start, keeps
+        self._starts = starts
 
     def search(self, text: str, pos: int = 0) -> "Optional[tuple[int, int]]":
         """The leftmost match from ``pos`` as ``(start, stop)``."""
+        if self._starts is not None:
+            for at in start_positions(self._starts, text, pos):
+                regex = self._at_start if self._at_start is not None and at == pos else self.regex
+                match = regex.match(text, at)
+                if match is not None:
+                    return self._span(match)
+            return None
         if self._at_start is not None:
             match = self._at_start.match(text, pos)
             if match is None and pos < len(text):
                 match = self.regex.search(text, pos + 1)
         else:
             match = self.regex.search(text, pos)
-        if match is None:
-            return None
+        return None if match is None else self._span(match)
+
+    def _span(self, match: "re.Match") -> "tuple[int, int]":
         start = match.start()
         for name in self._keeps:
             kept = match.start(name)
@@ -1795,12 +1901,131 @@ def _write(parser: _Parser, tree: Node) -> Optional[Expression]:
             w = _Writer(parser)
             at_start = re.compile(w.write(tree, True))
             regex = re.compile(_Writer(parser).write(tree, False))
-            return Expression(regex, at_start, tuple(w.keeps))
+            return Expression(regex, at_start, tuple(w.keeps), search_starts(tree))
         w = _Writer(parser)
         text = w.write(tree)
-        return Expression(re.compile(text), None, tuple(w.keeps))
+        return Expression(re.compile(text), None, tuple(w.keeps), search_starts(tree))
     except (_Unwritable, re.error, RecursionError):
         return None
+
+
+# ---------------------------------------------------------------------------
+# where Oniguruma's search tries a match
+# ---------------------------------------------------------------------------
+
+#: ``.`` without the dot-all option and ``\\N``: any character but a line feed
+NOT_NEWLINE = complement(points(NEWLINE))
+_OPEN_GROUPS = ("cap", "nc", "sub", "atomic")
+
+
+def _any_repeat(node: Node) -> Optional[Ranges]:
+    """What an unbounded greedy (or possessive) repeat of one any-character
+    class repeats (``\\O``'s every character or ``.``'s all but a line
+    feed), else None."""
+    if not isinstance(node, Repeat) or node.hi is not None or node.mode == "lazy":
+        return None
+    body = node.body
+    while (isinstance(body, Group) and body.kind == "nc") or (
+            isinstance(body, Seq) and len(body.items) == 1):
+        body = body.body if isinstance(body, Group) else body.items[0]
+    if isinstance(body, Chars) and not body.icase and body.ranges in (ALL, NOT_NEWLINE):
+        return body.ranges
+    return None
+
+
+def _informs(node: Node) -> bool:
+    """Whether ``node`` gives Oniguruma's optimizer something to search for
+    (an exact string, or a map of first bytes: a class of ASCII
+    characters only)."""
+    if isinstance(node, Text):
+        return bool(node.cps) and min(node.cps) >= 0
+    if isinstance(node, Chars):
+        if not node.ranges or node.ranges[-1][1] >= 0x80:
+            return False
+        return not node.icase or all(f < 0x80 for lo, hi in node.ranges
+                                     for c in range(lo, hi + 1) for f in case_class(c))
+    if isinstance(node, Seq):
+        return any(_informs(item) for item in node.items)
+    if isinstance(node, Group) and node.kind in _OPEN_GROUPS:
+        return _informs(node.body)
+    if isinstance(node, Repeat) and node.lo > 0:
+        return _informs(node.body)
+    if isinstance(node, Alt):
+        return all(_informs(b) for b in node.branches)
+    return False
+
+
+_NOTHING = {"dot_all": False, "dot": False, "behind": False, "not_ahead_left": False,
+            "not_ahead_right": False, "end": False, "found_first": False}
+
+
+def _optimizer_reading(node: Node) -> "dict[str, bool]":
+    """What Oniguruma's optimizer reads off ``node`` for its search: the
+    repeat of an any-character class its first character-reading item is,
+    the assertions before that (positive look-behinds, negative
+    look-aheads, look-aheads that give it something to find) and after
+    its last such item (``\\z``, ``\\Z``, negative look-aheads); an
+    alternation's are what all of its branches have."""
+    if isinstance(node, Alt):
+        readings = [_optimizer_reading(b) for b in node.branches]
+        return {key: all(r[key] for r in readings) for key in _NOTHING}
+    if isinstance(node, Group) and node.kind in _OPEN_GROUPS:
+        return _optimizer_reading(node.body)
+    if not isinstance(node, Seq):
+        repeated = _any_repeat(node)
+        return {**_NOTHING, "dot_all": repeated == ALL, "dot": repeated == NOT_NEWLINE}
+    reading = dict(_NOTHING)
+    consuming = [i for i, item in enumerate(node.items) if width(item) != (0, 0)]
+    first = consuming[0] if consuming else len(node.items)
+    last = consuming[-1] if consuming else -1
+    if consuming:
+        head = _optimizer_reading(node.items[first])
+        reading.update(dot_all=head["dot_all"], dot=head["dot"], behind=head["behind"],
+                       not_ahead_left=head["not_ahead_left"], found_first=head["found_first"])
+        tail = head if first == last else _optimizer_reading(node.items[last])
+        reading.update(end=tail["end"], not_ahead_right=tail["not_ahead_right"])
+    for item in node.items[:first]:
+        kind = item.kind if isinstance(item, Group) else None
+        reading["behind"] |= kind == "behind"
+        reading["not_ahead_left"] |= kind == "nahead"
+        reading["found_first"] |= kind == "ahead" and _informs(item.body)
+    for item in node.items[last + 1:]:
+        reading["not_ahead_right"] |= isinstance(item, Group) and item.kind == "nahead"
+        reading["end"] |= isinstance(item, Anchor) and item.kind in ("eos", "eos_nl")
+    return reading
+
+
+def search_starts(tree: Node) -> Optional[str]:
+    """Where Oniguruma's search tries a match from its start, when its
+    optimizer anchors it (None: at every position).  An expression whose
+    first character-reading item is an unbounded repeat of ``\\O`` (the
+    dot-all ``.``) can match only where the search starts, so the search
+    tries ``"first"`` (when a look-ahead before it gives the optimizer a
+    string or class to find) or ``"first_two"`` positions (its loop runs
+    once more at the range's end); the zero-width assertions before it are
+    not read, so ``\\b\\O+`` finds nothing where the first two positions
+    are not word boundaries.  A positive look-behind before it, or a
+    ``\\z``/``\\Z`` at its end, keeps every position.  An unbounded
+    repeat of ``.`` with something to find after it tries the start and
+    each position after a line feed (``"lines"``), unless a look-behind
+    before it or a negative look-ahead before it or at its end is there."""
+    r = _optimizer_reading(tree)
+    if r["dot_all"] and not r["behind"] and not r["end"]:
+        return "first" if r["found_first"] else "first_two"
+    if r["dot"] and _informs(tree) and not (r["found_first"] or r["behind"] or
+                                             r["not_ahead_left"] or r["not_ahead_right"]):
+        return "lines"
+    return None
+
+
+def start_positions(starts: Optional[str], text: str, pos: int):
+    """The positions, from ``pos``, where a search of :func:`search_starts`'
+    kind ``starts`` (not None) tries a match."""
+    if starts == "first":
+        return (pos,)
+    if starts == "first_two":
+        return (pos, pos + 1) if pos < len(text) else (pos,)
+    return [pos] + [i + 1 for i in range(pos, len(text) - 1) if text[i] == "\n"]
 
 
 def first_chars(node: Node) -> "Optional[Ranges]":

@@ -272,10 +272,6 @@ CAPS, OPENS, KEEP_AT, RETS, MARKS, LIMIT, REPS, CHECKS, HIST = range(9)
 ALT_ENTRY, STAR_ENTRY, PLACES_ENTRY, RETRACT_ENTRY, BEHIND_ENTRY = range(5)
 
 
-#: ``.`` and ``\\N``: Oniguruma's any character but a newline
-NOT_NEWLINE = onig.complement(onig.points(onig.NEWLINE))
-
-
 @functools.lru_cache(maxsize=None)
 def _lead(ch: str) -> int:
     """The first UTF-8 byte of ``ch`` (what Oniguruma's peeks compare)."""
@@ -286,7 +282,7 @@ def _head(node, exact: bool):
     """Oniguruma's ``get_tree_head_literal``: the literal (``exact``) or
     literal or class a match of ``node`` starts with, or None."""
     if isinstance(node, onig.Chars):
-        if exact or node.ranges in (onig.ALL, NOT_NEWLINE):
+        if exact or node.ranges in (onig.ALL, onig.NOT_NEWLINE):
             return None
         return node
     if isinstance(node, onig.Text):
@@ -347,34 +343,6 @@ class _Callout:
         self.per_attempt = name in ("MAX", "COUNT")
 
 
-def _lb_width(node, lookbehind: bool) -> "tuple[int, Optional[int]]":
-    """:func:`onig.width`, where in a look-behind a literal under ``(?i)``
-    is one character each (no foldings to several)."""
-    if lookbehind and isinstance(node, onig.Text):
-        return len(node.cps), len(node.cps)
-    if lookbehind and isinstance(node, onig.Chars):
-        return 1, 1
-    if isinstance(node, onig.Seq):
-        lo, hi = 0, 0
-        for item in node.items:
-            a, b = _lb_width(item, lookbehind)
-            lo += a
-            hi = None if hi is None or b is None else hi + b
-        return lo, hi
-    if isinstance(node, onig.Alt):
-        ws = [_lb_width(b, lookbehind) for b in node.branches]
-        return min(a for a, _ in ws), (None if any(b is None for _, b in ws)
-                                       else max(b for _, b in ws))
-    if isinstance(node, onig.Group):
-        if node.kind in ("ahead", "nahead", "behind", "nbehind"):
-            return 0, 0
-        return _lb_width(node.body, lookbehind)
-    if isinstance(node, onig.Repeat):
-        a, b = _lb_width(node.body, lookbehind)
-        return a * node.lo, (None if node.hi is None or b is None else b * node.hi)
-    return onig.width(node)
-
-
 class Matcher:
     """A compiled expression: :meth:`search` as :class:`onig.Expression`'s."""
 
@@ -403,6 +371,8 @@ class Matcher:
         self.ops = [tuple(op) for op in self.ops]
         self.first = _first_set(tree)
         self.required = _required_text(tree)
+        #: the positions Oniguruma's search tries (``onig.search_starts``)
+        self.starts = onig.search_starts(tree)
         self.empty_caps = (None,) * (self.groups + 1)
 
     # --- compiling ---
@@ -538,17 +508,18 @@ class Matcher:
             self.emit(NLOOK_END)
             self.ops[start][1] = self.here()
         else:
-            branches = node.body.branches if isinstance(node.body, onig.Alt) else [node.body]
-            widths = [_lb_width(b, True) for b in branches]
-            if len(branches) > 1 and all(a == b for a, b in widths) and len(set(widths)) > 1:
-                # branches of one width each, widths that differ: Oniguruma
-                # divides the look-behind, one per branch, in branch order
+            branches = onig.lookbehind_parts(node.body)
+            if len(branches) > 1:
+                # Oniguruma divides the look-behind, one per branch, in
+                # branch order
                 parts = [onig.Group(kind, b) for b in branches]
                 self.compile(onig.Alt(parts) if kind == "behind" else onig.Seq(parts))
                 return
-            lo, hi = _lb_width(node.body, True)
-            tail = _tail(node.body)
-            tail = None if tail is None else _Set(tail)
+            widths = [onig.char_width(b, True) for b in (
+                node.body.branches if isinstance(node.body, onig.Alt) else [node.body])]
+            lo, hi = onig.char_width(node.body, True)
+            tail = onig.lookbehind_tail(node.body)
+            tail = None if tail is None else tuple(map(_Set, tail))
             # a look-behind of several widths reads nothing past where it
             # stands: Oniguruma moves its right range there
             bounded = any(a != b for a, b in widths)
@@ -575,7 +546,7 @@ class Matcher:
             return
         if hi == 0:
             return
-        empty = _lb_width(body, self._lookbehind > 0)[0] == 0
+        empty = onig.char_width(body, self._lookbehind > 0)[0] == 0
         greedy_loop = mode == "greedy" and hi is None
         # Oniguruma's count-only shortcuts of a greedy loop: no choice point
         # where the body's first literal or the next one cannot follow
@@ -589,7 +560,7 @@ class Matcher:
             self.emit(ATOMIC)
         single = _single_char(body, self._lookbehind > 0)
         if mode == "greedy" and single is not None:
-            anychar = hi is None and single.ranges in (onig.ALL, NOT_NEWLINE)
+            anychar = hi is None and single.ranges in (onig.ALL, onig.NOT_NEWLINE)
             exact = hi is None and isinstance(body, onig.Text)
             self.emit(STAR, _Set(single.ranges), lo, hi, atomic, exact, anychar,
                       None if exact or peek is None else _lead(chr(peek.cps[0])))
@@ -748,6 +719,18 @@ class Matcher:
             last = min(last, at)
         first = self.first
         data: dict = {}
+        if self.starts is not None:
+            # Oniguruma's search tries these positions only
+            skip = pos
+            for start in onig.start_positions(self.starts, text, pos):
+                if start < skip or start > last:
+                    continue
+                result = _Attempt(self, text, pos, data).run(start)
+                if isinstance(result, tuple):
+                    return result
+                if result is not None:
+                    skip = result
+            return None
         start = pos
         while start <= n and start <= last:
             if first is not None:
@@ -970,8 +953,9 @@ class _Attempt:
                 del stack[ctx[MARKS][0][0]:]
             elif code == BEHIND or code == NBEHIND:
                 tail = op[3]
-                if tail is not None and (s == 0 or not tail.has(text[s - 1])):
-                    # the character before is not the body's last one: the
+                if tail is not None and (s < len(tail) or not all(
+                        t.has(text[s - len(tail) + i]) for i, t in enumerate(tail))):
+                    # the characters before are not the body's tail: the
                     # body fails at once, at the one retry Oniguruma counts
                     if code == NBEHIND:
                         self.retries += 1
@@ -1323,28 +1307,6 @@ def _compare(text: str, begin: int, end: int, s: int, limit: int, icase: bool) -
 # ---------------------------------------------------------------------------
 # what a match must hold (the search skips what cannot start one)
 # ---------------------------------------------------------------------------
-
-
-def _tail(node):
-    """The characters a match of ``node`` must end with (a look-behind's
-    quick reject), or None."""
-    if isinstance(node, onig.Seq):
-        return _tail(node.items[-1]) if node.items else None
-    if isinstance(node, onig.Chars):
-        return node.ranges
-    if isinstance(node, onig.Text):
-        if not node.cps or node.cps[-1] < 0:
-            return None
-        return onig.points(*onig.case_class(node.cps[-1])) if node.icase else onig.points(
-            node.cps[-1])
-    if isinstance(node, onig.Group) and node.kind in ("cap", "nc", "sub", "atomic"):
-        return _tail(node.body)
-    if isinstance(node, onig.Repeat) and node.lo > 0:
-        return _tail(node.body)
-    if isinstance(node, onig.Alt):
-        sets = [_tail(b) for b in node.branches]
-        return None if any(s is None for s in sets) else onig.union(*sets)
-    return None
 
 
 def _first_set(tree) -> Optional[_Set]:

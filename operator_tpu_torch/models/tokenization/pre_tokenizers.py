@@ -9,15 +9,14 @@ from __future__ import annotations
 import bisect
 import functools
 import re
-import unicodedata
 from typing import Callable, Optional
 
 from ..wordpiece import _is_punctuation, bert_words
 from . import unicode_tables, unsupported
 from .onig import Expression
-from .text import (BEHAVIORS, JOIN_CONTROLS, WHITESPACE, byte_level, char_matches,
-                   escape_codepoints, invert, literal_expression, ranges, regex_matches, split,
-                   string_matches, translate_regex)
+from .text import (BEHAVIORS, WHITESPACE, byte_level, char_matches, class_text, in_ranges,
+                   invert, literal_expression, regex_matches, split, string_matches, table,
+                   translate_regex)
 
 __all__ = ["build_pre_tokenizer"]
 
@@ -29,9 +28,8 @@ GPT2_PATTERN = (r"'s|'t|'re|'ve|'m|'ll|'d| ?\p{L}+| ?\p{N}+| ?[^\s\p{L}\p{N}]+"
                 r"|\s+(?!\S)|\s+")
 
 
-def _is_numeric(char: str) -> bool:
-    """``char::is_numeric``: the ``N*`` categories."""
-    return unicodedata.category(char)[0] == "N"
+#: ``char::is_numeric`` (the ``N*`` categories of the library's Unicode)
+_is_numeric = in_ranges(table("NUMERIC"))
 
 
 def _splitting(find, behavior: str) -> PreTokenizer:
@@ -49,10 +47,8 @@ def _splitting(find, behavior: str) -> PreTokenizer:
 @functools.lru_cache(maxsize=1)
 def _whitespace_regex() -> Expression:
     """``Whitespace``'s ``\\w+|[^\\w\\s]+`` (the words and the runs of
-    other non-space characters) as the ``regex`` crate reads it, whose
-    ``\\w`` also takes the join controls."""
-    word = ranges(sorted({*escape_codepoints("w"), *JOIN_CONTROLS}))
-    space = ranges(escape_codepoints("s"))
+    other non-space characters) as the ``regex`` crate reads it."""
+    word, space = class_text(table("WORD")), class_text(table("SPACE"))
     return literal_expression(re.compile(f"[{word}]+|[^{word}{space}]+"))
 
 

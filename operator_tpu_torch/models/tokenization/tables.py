@@ -1,114 +1,184 @@
-"""Character tables of the ``tokenizers`` library, as code point ranges.
+"""Unicode data of the ``tokenizers`` library's text front end.
 
-The library takes these predicates from the ``unicode_categories`` crate,
-whose tables are of an older Unicode (and shifted against it in places),
-so ``unicodedata`` cannot stand in for them:
+Generated by ``PYTHONPATH=. python scripts/torch_text_tables.py`` from
+the installed library (tokenizers 0.22.2); do not edit.  Each is
+what the library takes from a Rust crate of its own Unicode version, so
+Python's ``unicodedata`` cannot stand in for it:
 
-- ``MARK_NONSPACING``: ``is_mark_nonspacing`` (``StripAccents``, the BERT
-  normalizer's accent stripping);
-- ``BERT_CONTROL``: what the BERT normalizer's ``clean_text`` drops (NUL,
-  U+FFFD and ``is_other`` but tab, line feed and carriage return);
-- ``PUNCTUATION``: ASCII punctuation and ``is_punctuation``
-  (``BertPreTokenizer``, ``Punctuation``).
+- ``BERT_CONTROL``: what ``BertNormalizer``'s ``clean_text`` drops;
+  ``BERT_MARK_NONSPACING``: the marks its accent stripping drops after
+  NFD; ``BERT_CJK``: the ideographs ``handle_chinese_chars`` spaces;
+- ``COMBINING_MARK``: what ``StripAccents`` drops;
+- ``PUNCTUATION``: what ``BertPreTokenizer`` and ``Punctuation`` isolate;
+- ``NORMALIZATION_CUTS``: where the library's normalization tables and
+  ``unicodedata`` disagree (each a starter with no mapping to the
+  library: a text is normalized on either side of one);
+- ``LOWERCASE``: code point -> ``Lowercase``'s result, where it is not
+  ``str.lower``'s;
+- ``NUMERIC``: what ``Digits`` splits off; ``WORD`` and ``SPACE``:
+  ``Whitespace``'s ``\\w`` and ``\\s`` (``WORD`` is also what an added
+  token's ``single_word`` counts as a word character);
+- ``GRAPHEMES``: ``Precompiled``'s grapheme cluster classes, the Indic
+  conjunct ones (``Consonant``, ``Linker``, ``InCBExtend``) too.
 
-Generated from the library by ``PYTHONPATH=. python
-tests/test_torch_tokenizer_components.py``; a test holds it to the library.
+A set is encoded as ``unicode_tables``' are.
 """
 
 from __future__ import annotations
 
-MARK_NONSPACING = (
-    (0x300, 0x36F), (0x483, 0x489), (0x591, 0x5BD), (0x5BF, 0x5BF), (0x5C1, 0x5C2), (0x5C4, 0x5C5),
-    (0x5C7, 0x5C7), (0x610, 0x61A), (0x64B, 0x65F), (0x670, 0x670), (0x6D6, 0x6DC), (0x6DF, 0x6E4),
-    (0x6E7, 0x6E8), (0x6EA, 0x6ED), (0x711, 0x711), (0x730, 0x74A), (0x7A6, 0x7B0), (0x7EB, 0x7F3),
-    (0x816, 0x819), (0x81B, 0x823), (0x825, 0x827), (0x829, 0x82D), (0x859, 0x85B), (0x8D4, 0x8E1),
-    (0x8E3, 0x903), (0x93A, 0x93C), (0x93E, 0x94F), (0x951, 0x957), (0x962, 0x963), (0x981, 0x983),
-    (0x9BC, 0x9BC), (0x9BE, 0x9C4), (0x9C7, 0x9C8), (0x9CB, 0x9CD), (0x9D7, 0x9D7), (0x9E2, 0x9E3),
-    (0xA01, 0xA03), (0xA3C, 0xA3C), (0xA3E, 0xA42), (0xA47, 0xA48), (0xA4B, 0xA4D), (0xA51, 0xA51),
-    (0xA70, 0xA71), (0xA75, 0xA75), (0xA81, 0xA83), (0xABC, 0xABC), (0xABE, 0xAC5), (0xAC7, 0xAC9),
-    (0xACB, 0xACD), (0xAE2, 0xAE3), (0xB01, 0xB03), (0xB3C, 0xB3C), (0xB3E, 0xB44), (0xB47, 0xB48),
-    (0xB4B, 0xB4D), (0xB56, 0xB57), (0xB62, 0xB63), (0xB82, 0xB82), (0xBBE, 0xBC2), (0xBC6, 0xBC8),
-    (0xBCA, 0xBCD), (0xBD7, 0xBD7), (0xC00, 0xC03), (0xC3E, 0xC44), (0xC46, 0xC48), (0xC4A, 0xC4D),
-    (0xC55, 0xC56), (0xC62, 0xC63), (0xC81, 0xC83), (0xCBC, 0xCBC), (0xCBE, 0xCC4), (0xCC6, 0xCC8),
-    (0xCCA, 0xCCD), (0xCD5, 0xCD6), (0xCE2, 0xCE3), (0xD01, 0xD03), (0xD3E, 0xD44), (0xD46, 0xD48),
-    (0xD4A, 0xD4D), (0xD57, 0xD57), (0xD62, 0xD63), (0xD82, 0xD83), (0xDCA, 0xDCA), (0xDCF, 0xDD4),
-    (0xDD6, 0xDD6), (0xDD8, 0xDDF), (0xDF2, 0xDF3), (0xE31, 0xE31), (0xE34, 0xE3A), (0xE47, 0xE4E),
-    (0xEB1, 0xEB1), (0xEB4, 0xEB9), (0xEBB, 0xEBC), (0xEC8, 0xECD), (0xF18, 0xF19), (0xF35, 0xF35),
-    (0xF37, 0xF37), (0xF39, 0xF39), (0xF3E, 0xF3F), (0xF71, 0xF84), (0xF86, 0xF87), (0xF8D, 0xF97),
-    (0xF99, 0xFBC), (0xFC6, 0xFC6), (0x102B, 0x103E), (0x1056, 0x1059), (0x105E, 0x1060),
-    (0x1062, 0x1064), (0x1067, 0x106D), (0x1071, 0x1074), (0x1082, 0x108D), (0x108F, 0x108F),
-    (0x109A, 0x109D), (0x135D, 0x135F), (0x1712, 0x1714), (0x1732, 0x1734), (0x1752, 0x1753),
-    (0x1772, 0x1773), (0x17B4, 0x17D3), (0x17DD, 0x17DD), (0x180B, 0x180D), (0x1885, 0x1886),
-    (0x18A9, 0x18A9), (0x1920, 0x192B), (0x1930, 0x193B), (0x1A17, 0x1A1B), (0x1A55, 0x1A5E),
-    (0x1A60, 0x1A7C), (0x1A7F, 0x1A7F), (0x1AB0, 0x1ABE), (0x1B00, 0x1B04), (0x1B34, 0x1B44),
-    (0x1B6B, 0x1B73), (0x1B80, 0x1B82), (0x1BA1, 0x1BAD), (0x1BE6, 0x1BF3), (0x1C24, 0x1C37),
-    (0x1CD0, 0x1CD2), (0x1CD4, 0x1CE8), (0x1CED, 0x1CED), (0x1CF2, 0x1CF4), (0x1CF8, 0x1CF9),
-    (0x1DC0, 0x1DF5), (0x1DFB, 0x1DFF), (0x20D0, 0x20F0), (0x2CEF, 0x2CF1), (0x2D7F, 0x2D7F),
-    (0x2DE0, 0x2DFF), (0x302A, 0x302F), (0x3099, 0x309A), (0xA66F, 0xA672), (0xA674, 0xA67D),
-    (0xA69E, 0xA69F), (0xA6F0, 0xA6F1), (0xA802, 0xA802), (0xA806, 0xA806), (0xA80B, 0xA80B),
-    (0xA823, 0xA827), (0xA880, 0xA881), (0xA8B4, 0xA8C5), (0xA8E0, 0xA8F1), (0xA926, 0xA92D),
-    (0xA947, 0xA953), (0xA980, 0xA983), (0xA9B3, 0xA9C0), (0xA9E5, 0xA9E5), (0xAA29, 0xAA36),
-    (0xAA43, 0xAA43), (0xAA4C, 0xAA4D), (0xAA7B, 0xAA7D), (0xAAB0, 0xAAB0), (0xAAB2, 0xAAB4),
-    (0xAAB7, 0xAAB8), (0xAABE, 0xAABF), (0xAAC1, 0xAAC1), (0xAAEB, 0xAAEF), (0xAAF5, 0xAAF6),
-    (0xABE3, 0xABEA), (0xABEC, 0xABED), (0xFB1E, 0xFB1E), (0xFE00, 0xFE0F), (0xFE20, 0xFE2F),
-    (0x101FD, 0x101FD), (0x102E0, 0x102E0), (0x10376, 0x1037A), (0x10A01, 0x10A03),
-    (0x10A05, 0x10A06), (0x10A0C, 0x10A0F), (0x10A38, 0x10A3A), (0x10A3F, 0x10A3F),
-    (0x10AE5, 0x10AE6), (0x11000, 0x11002), (0x11038, 0x11046), (0x1107F, 0x11082),
-    (0x110B0, 0x110BA), (0x11100, 0x11102), (0x11127, 0x11134), (0x11173, 0x11173),
-    (0x11180, 0x11182), (0x111B3, 0x111C0), (0x111CA, 0x111CC), (0x1122C, 0x11237),
-    (0x1123E, 0x1123E), (0x112DF, 0x112EA), (0x11300, 0x11303), (0x1133C, 0x1133C),
-    (0x1133E, 0x11344), (0x11347, 0x11348), (0x1134B, 0x1134D), (0x11357, 0x11357),
-    (0x11362, 0x11363), (0x11366, 0x1136C), (0x11370, 0x11374), (0x11435, 0x11446),
-    (0x114B0, 0x114C3), (0x115AF, 0x115B5), (0x115B8, 0x115C0), (0x115DC, 0x115DD),
-    (0x11630, 0x11640), (0x116AB, 0x116B7), (0x1171D, 0x1172B), (0x11C2F, 0x11C36),
-    (0x11C38, 0x11C3F), (0x11C92, 0x11CA7), (0x11CA9, 0x11CB6), (0x16AF0, 0x16AF4),
-    (0x16B30, 0x16B36), (0x16F51, 0x16F7E), (0x16F8F, 0x16F92), (0x1BC9D, 0x1BC9E),
-    (0x1D165, 0x1D169), (0x1D16D, 0x1D172), (0x1D17B, 0x1D182), (0x1D185, 0x1D18B),
-    (0x1D1AA, 0x1D1AD), (0x1D242, 0x1D244), (0x1DA00, 0x1DA36), (0x1DA3B, 0x1DA6C),
-    (0x1DA75, 0x1DA75), (0x1DA84, 0x1DA84), (0x1DA9B, 0x1DA9F), (0x1DAA1, 0x1DAAF),
-    (0x1E000, 0x1E006), (0x1E008, 0x1E018), (0x1E01B, 0x1E021), (0x1E023, 0x1E024),
-    (0x1E026, 0x1E02A), (0x1E8D0, 0x1E8D6), (0x1E944, 0x1E94A), (0xE0100, 0xE01EF),
-)
 
 BERT_CONTROL = (
-    (0x0, 0x8), (0xB, 0xC), (0xE, 0x1F), (0x7F, 0x9F), (0xAD, 0xAD), (0x600, 0x605),
-    (0x61C, 0x61C), (0x6DD, 0x6DD), (0x70F, 0x70F), (0x180E, 0x180E), (0x200B, 0x200F),
-    (0x202A, 0x202E), (0x2060, 0x2064), (0x2066, 0x206F), (0xE000, 0xF8FF), (0xFEFF, 0xFEFF),
-    (0xFFF9, 0xFFFB), (0xFFFD, 0xFFFD), (0x110BD, 0x110BD), (0x1BCA0, 0x1BCA3), (0x1D173, 0x1D17A),
-    (0xE0001, 0xE0001), (0xE0020, 0xE007F), (0xF0000, 0xFFFFD), (0x100000, 0x10FFFD),
+    "aicbbrC5BanaBKsfwaGaaBraEH4aB/2e0eBrebjBP8qGH5BP5aHzcbaEF5aBK/cdFGphYLUga4C5B/8aB//3cB//3"
+)
+
+BERT_MARK_NONSPACING = (
+    "YaDpIteIjBmbabbbbbaCikBquqaDfgcfcbbdBda40C1kB0iBcdbibcbeBlcEh5Bxabaeheadgkb3aB0aediaub3bBzae"
+    "bebccda4bdalbBzaeebbeaub3aB0acabdiaialb4aB3amaBsaB3cfcbdhblb3aB0acagafbub3aB5diaubDgahcbaC0a"
+    "cgmhDcacfbblfCkb1ababaBxnbebbfkbBdjaDgdbfbbcbzbecqdnacbgapaV5c9sc3c3b4bCabbgiackjaBncE1aDwce"
+    "bjagcG1bcaB0abgbabachgjcaBqnCcdBqabebafaBiimbBadcbbcByabbdabcB0hcbEycbmbgeagadbGgBvgdWqmeadl"
+    "C/4cEnaDa5RkdDlb9OuaejBabCqbIqadaeazbE3a1rBuhzkBocBqacdcaBiaCdfcbcbmaiaBpaBtabccbfbbaBkbiaHo"
+    "acaeaTZqaXbpqp+naHcaEveBUgcbbfdBiceaFfbBI0aBwoBycBrdcbCfcBeebhB4ambBuilcDcccabbFhadhvbB0adaB"
+    "fgdeJ4fbaebbbHodgbbb1bCvhcabbDkabacfbaDfccdbeU+eeB1gBCydTIkbFGicrhcg4dEucB91BweBriaoaweboDRa"
+    "gYGBjHp"
+)
+
+BERT_CJK = (
+    "NAaGN5CaUP5WIaP5CBIaBJW5BaEI5IaFMpKKqQ5"
+)
+
+COMBINING_MARK = (
+    "YaDpItgIhBmbabbbbbaCikBquqaDfgcfcbbdBda40C1kB0iBcdbibcbeBlcDynbBaBwcbrbgkb3cByabgcbccjakb3cB"
+    "yabeebccda4bdalcByabhbcbcub3cByabgcbccibkb4aB1edcbdjaBidB0gbcbdhblb3cByabgbcbdhblb3cB0gbcbdj"
+    "akb4bCgaefbabhsbB3acgmhDcacfbblfCkb1ababaebBrtbbfkbBdjaDetxdecbccgddnlbakdV5c9sc3c3b4bCa5jaB"
+    "ncDxbBcaDwlelG1eBzjb2caBqoCbeBpqBgimc4mBynBqtEycbueaecdbGgBvfeWqBaC/4cEnaDa5RkfDjb9OudbjBabC"
+    "qbIqadaeaxeCybBsr0rBuhzmBmdBpnBeaCdnmaibBncBsabccbfbbaBjefbHmhbbTZqaXbpqp+naHcaEveBUgcbbfdBi"
+    "ceaFfbBIzcBvoBydBnkCfcBenB4amcBqnjcC5lgaFalvdByabgcbccjakbcgdeGarDjtHlgci1bCsqDkmDfoBIdhbhCs"
+    "vbnTRzeB1gBA0BnqdTIkbFGgedfihcg4dEucB91BweBriaoaweboBKqgbqcgbbbeCFfgDngYF9vHp"
 )
 
 PUNCTUATION = (
-    (0x21, 0x2F), (0x3A, 0x40), (0x5B, 0x60), (0x7B, 0x7E), (0xA1, 0xA1), (0xA7, 0xA7),
-    (0xAB, 0xAB), (0xB6, 0xB7), (0xBB, 0xBB), (0xBF, 0xBF), (0x37E, 0x37E), (0x387, 0x387),
-    (0x55A, 0x55F), (0x589, 0x58A), (0x5BE, 0x5BE), (0x5C0, 0x5C0), (0x5C3, 0x5C3), (0x5C6, 0x5C6),
-    (0x5F3, 0x5F4), (0x609, 0x60A), (0x60C, 0x60D), (0x61B, 0x61B), (0x61E, 0x61F), (0x66A, 0x66D),
-    (0x6D4, 0x6D4), (0x700, 0x70D), (0x7F7, 0x7F9), (0x830, 0x83E), (0x85E, 0x85E), (0x964, 0x965),
-    (0x970, 0x970), (0xAF0, 0xAF0), (0xDF4, 0xDF4), (0xE4F, 0xE4F), (0xE5A, 0xE5B), (0xF04, 0xF12),
-    (0xF14, 0xF14), (0xF3A, 0xF3D), (0xF85, 0xF85), (0xFD0, 0xFD4), (0xFD9, 0xFDA),
-    (0x104A, 0x104F), (0x10FB, 0x10FB), (0x1360, 0x1368), (0x1400, 0x1400), (0x166D, 0x166E),
-    (0x169B, 0x169C), (0x16EB, 0x16ED), (0x1735, 0x1736), (0x17D4, 0x17D6), (0x17D8, 0x17DA),
-    (0x1800, 0x180A), (0x1944, 0x1945), (0x1A1E, 0x1A1F), (0x1AA0, 0x1AA6), (0x1AA8, 0x1AAD),
-    (0x1B5A, 0x1B60), (0x1BFC, 0x1BFF), (0x1C3B, 0x1C3F), (0x1C7E, 0x1C7F), (0x1CC0, 0x1CC7),
-    (0x1CD3, 0x1CD3), (0x2010, 0x2027), (0x2030, 0x2043), (0x2045, 0x2051), (0x2053, 0x205E),
-    (0x207D, 0x207E), (0x208D, 0x208E), (0x2308, 0x230B), (0x2329, 0x232A), (0x2768, 0x2775),
-    (0x27C5, 0x27C6), (0x27E6, 0x27EF), (0x2983, 0x2998), (0x29D8, 0x29DB), (0x29FC, 0x29FD),
-    (0x2CF9, 0x2CFC), (0x2CFE, 0x2CFF), (0x2D70, 0x2D70), (0x2E00, 0x2E2E), (0x2E30, 0x2E42),
-    (0x3001, 0x3003), (0x3008, 0x3011), (0x3014, 0x301F), (0x3030, 0x3030), (0x303D, 0x303D),
-    (0x30A0, 0x30A0), (0x30FB, 0x30FB), (0xA4FE, 0xA4FF), (0xA60D, 0xA60F), (0xA673, 0xA673),
-    (0xA67E, 0xA67E), (0xA6F2, 0xA6F7), (0xA874, 0xA877), (0xA8CE, 0xA8CF), (0xA8F8, 0xA8FA),
-    (0xA8FC, 0xA8FC), (0xA92E, 0xA92F), (0xA95F, 0xA95F), (0xA9C1, 0xA9CD), (0xA9DE, 0xA9DF),
-    (0xAA5C, 0xAA5F), (0xAADE, 0xAADF), (0xAAF0, 0xAAF1), (0xABEB, 0xABEB), (0xFD3E, 0xFD3F),
-    (0xFE10, 0xFE19), (0xFE30, 0xFE52), (0xFE54, 0xFE61), (0xFE63, 0xFE63), (0xFE68, 0xFE68),
-    (0xFE6A, 0xFE6B), (0xFF01, 0xFF03), (0xFF05, 0xFF0A), (0xFF0C, 0xFF0F), (0xFF1A, 0xFF1B),
-    (0xFF1F, 0xFF20), (0xFF3B, 0xFF3D), (0xFF3F, 0xFF3F), (0xFF5B, 0xFF5B), (0xFF5D, 0xFF5D),
-    (0xFF5F, 0xFF65), (0x10100, 0x10102), (0x1039F, 0x1039F), (0x103D0, 0x103D0),
-    (0x1056F, 0x1056F), (0x10857, 0x10857), (0x1091F, 0x1091F), (0x1093F, 0x1093F),
-    (0x10A50, 0x10A58), (0x10A7F, 0x10A7F), (0x10AF0, 0x10AF6), (0x10B39, 0x10B3F),
-    (0x10B99, 0x10B9C), (0x11047, 0x1104D), (0x110BB, 0x110BC), (0x110BE, 0x110C1),
-    (0x11140, 0x11143), (0x11174, 0x11175), (0x111C5, 0x111C9), (0x111CD, 0x111CD),
-    (0x111DB, 0x111DB), (0x111DD, 0x111DF), (0x11238, 0x1123D), (0x112A9, 0x112A9),
-    (0x114C6, 0x114C6), (0x115C1, 0x115D7), (0x11641, 0x11643), (0x1173C, 0x1173E),
-    (0x12470, 0x12474), (0x16A6E, 0x16A6F), (0x16AF5, 0x16AF5), (0x16B37, 0x16B3B),
-    (0x16B44, 0x16B44), (0x1BC9F, 0x1BC9F), (0x1DA87, 0x1DA8B),
+    "Bbokg0f0dBcafadakbdadaV4aiaOsfBjbBtabacacaBmbubbbnacbCkdDgaBlnHjcBwo5aIfbkaL5aYdaC0akbFiobaB"
+    "fdChaCkeebDpfFlaTeiExaTmbBmbCocChbE3cbcBfkJzbGybEagbfFmgE1dB1eB4bCahlaZ2xitbmbl4bobTzd3bBB3n"
+    "Cpb5jMtvB5dBabX1dbbDqaEpBobsN4cejclqamaDcaC0a9AcbIncDdakaDtfL2dCwbBicbaBrbBpaDbmqbD2dD4bqbHz"
+    "aUKsbGqjwBcbnbaeabbEvcbfbdkbdb0cba1ababgM0cU2aBqaM4aXhaGha5aIqiBgaDqgCcgCzdBFkgDnbbdD4dBqbCp"
+    "edanabcCyfDlaQ2aH0wDjcHycDJreRPzbEfaCbeiaUK0aHPhe"
 )
+
+NORMALIZATION_CUTS = (
+    "B/3aE0hBkjJkaR3aH4bL3aCC0a9jpZheFIea9HscBxaZ2aXAxebBjbiBLjdMdbCqcCgkBrdHkaWkaJca+0bHvaeacaeb"
+    "eaE2aCtasaCraViabbCraNjbUFnb8B4B3BbaFagLxaB3dP2dDD2aCUdj"
+)
+
+NUMERIC = (
+    "BqjDybfaccBNbjEgjGgjM2jDwjefDmjDwjDwjcfDomDtjigDhjDighsDnjDajDwjCgtImjCgjWpt7rcHpjgjwjJmjEak"
+    "FfjgjFwjCwjEgjgjBAwadfgjGgBsceWwB1CovTw3BLjaYjaziocKxdEkj4hboBajBho87ajF2jKafE0jBgjGgjwjCwjM"
+    "wjUYwjPnBmmByrbKv0Bed3aiaEgeGkj9ohzgBhiClewfFabcpcBnCaiBub4cCleDihyhBjgKkfBqjgjIw4E4jBkdDqgE"
+    "g3EajB2jEqjhtH1jKwjDwjLwjDgjgtCmlNesC3jUwjCw2HdjCgjBwjLgjDguBBlDoPGbjCJgjCwjEgjbgQojIgwK3cXH"
+    "zjBOgtmtDmyBCvBrCKajNgjPwjHxjWmiEajYxB0bcbdCmBmbo+cmCXdj"
+)
+
+WORD = (
+    "BqjhzeabzBpakaeafwb4bOjeloehabarDubbcdbagabcbabtbCsbEkbFmbBfcagBiiBmbabbbbbai0ed3kfCjeDfbhcj"
+    "bscaqB0cDeoBveacacBns1ekfxbfiCkbEacjbsbhcbcvbgbaddcicbcdiaebbeclkabaccbfebcvbgbbbbbbcabeebcc"
+    "dahdbahplcbibcbvbgbbbecjbcbccapdcjjgbcbhcbcvbgbbbecicbcchcebbecjbaqbbfdcbddbbabbdbdcdleedcbd"
+    "cagaojqmbcbwbpcibcbdhbbccacdcjqdbhbcbwbjbecibcbdhbgbbdcjbcmmbcbBsbcbefdhecjkfbcbrdxbibacgdae"
+    "fbabhgjcbnBzfobjBhbbabebxbabwcebabgbjcdBaaxbgjlababaejbBdetbrbBdjaBzCjgCncBfbafacBkbKmbdcgba"
+    "bdcBibdcBabdcgbabdcobBybdcCcccBapqCvcfdTlcqbzfCkdkhvjvltmmbcbbmCtdaebcjBbcbkgCyhBkfCfk4blelk"
+    "BhcelBlezgjBg1eB4b2ckgjnai4BrCmdjrimDtmBxijdBqckfBkccqcbBgfQvcfcBfcfchbababab4cBubgbadcbgddc"
+    "femfcbgpbBrbta2anaqmBtBaraeacjbadegabababdbkcdfeearBiZnBtBYwHegimBfbafacBxhapxjgbgbgbgbgbgbg"
+    "bgb5BpaOvczobeceeCvcbccbCzbdfBkbC3r5BqpQaGN5CaVUmCdBncImd1uBsbjbDsBficDgcCccbbabhvBveatBtmCf"
+    "kjgxdabBqcBdm2dCaokg4bBwjncjgwdCiyccpcekfcfcfjgbgbBkbngD0bbcjgK9dmweBqIIeLncDjBggmeflbmbebab"
+    "bbbbDlBbLksB5cBvBilepqpdbycBaebEgtjhzeabzlCydfcfcfccBdlbzbsbbbocnBcD0CfBuEiaEc2dBqpa55n3fBkf"
+    "3cBdehbeBkE3cjgBdeBdeBhiBtmkbobgbbbkbobgbbdBtmJwjvkhyfbBjbiCffcabBlbbdacwkwj4CbsbbkvkzCgBxgb"
+    "Cadbbfhbcb2cceaBa2d2Bdhb3zBvkvksnrDoCiBxBsnBsnBhijgBfdebwH0BjbbdbqcBxBakaiBa5vBku1wjCg5pjB1h"
+    "anyhjgBubjediBdcajCeedbmbaBdrbBegdB4gbabdbobjhB0fjgdbhcbcvbgbbbebjcbcccagafgcgdeljbacabBfbjb"
+    "acabdbhnb3Ckfjed4CfbaijFgBvcixfBcCadaljBgByhjgt20coejggFzB0DfCjvhcachbbb3bbcimjCghcBnchbb1B4"
+    "iaiCjdasCiGhBapjgibBmbipjy3cvbnCjgbbbBldabbbiijgfbbbBebbbfhjJwwjqbBidenkCvaCp8zDgDorGdCSmDap"
+    "BBpqvkD80fSgGVzBzBWgRyh4bjgCobjg3celBwjdmjjufsNqBmdjGgB5EaCkeByhqCabbblboF/xiBGvBjjIXhdbgbbb"
+    "Jcpa3ccaodiMlCIeDkfmdihjdbECrjQgBncwQ4edfihcg4dEucN1CubCgbbcacbcdblbabgbCabdchbgb1bdbebadgbK"
+    "tcybyb4byb4byb4byb4bybhcBrQaBweBriaoaweboBCq4gfGvgbqcgbbbefB3BbaDqBmdncjeaKb4rBzOwBjGwBkPfgb"
+    "dbbbobGelgBjClejBFgdb0bbbacabjbdbabagaeabababcbbbacabababababbbacdbgbdbdbabjbqfcbebqTuzgzgzC"
+    "TgjBAgBJW5BaEBzgG3cFUboHJqpTnCNcQ3BPcE6kfEC5VXKqHp"
+)
+
+SPACE = (
+    "jesaDea0aFO5aCL5k3bfaBpaD9aa"
+)
+
+LOWERCASE = {
+    0x1C89: '\u1c8a',
+    0xA7CB: 'ɤ',
+    0xA7CC: '\ua7cd',
+    0xA7CE: '\ua7cf',
+    0xA7D2: 'ꟓ',
+    0xA7D4: 'ꟕ',
+    0xA7DA: '\ua7db',
+    0xA7DC: 'ƛ',
+    0x10D50: '\U00010d70',
+    0x10D51: '\U00010d71',
+    0x10D52: '\U00010d72',
+    0x10D53: '\U00010d73',
+    0x10D54: '\U00010d74',
+    0x10D55: '\U00010d75',
+    0x10D56: '\U00010d76',
+    0x10D57: '\U00010d77',
+    0x10D58: '\U00010d78',
+    0x10D59: '\U00010d79',
+    0x10D5A: '\U00010d7a',
+    0x10D5B: '\U00010d7b',
+    0x10D5C: '\U00010d7c',
+    0x10D5D: '\U00010d7d',
+    0x10D5E: '\U00010d7e',
+    0x10D5F: '\U00010d7f',
+    0x10D60: '\U00010d80',
+    0x10D61: '\U00010d81',
+    0x10D62: '\U00010d82',
+    0x10D63: '\U00010d83',
+    0x10D64: '\U00010d84',
+    0x10D65: '\U00010d85',
+    0x16EA0: '\U00016ebb',
+    0x16EA1: '\U00016ebc',
+    0x16EA2: '\U00016ebd',
+    0x16EA3: '\U00016ebe',
+    0x16EA4: '\U00016ebf',
+    0x16EA5: '\U00016ec0',
+    0x16EA6: '\U00016ec1',
+    0x16EA7: '\U00016ec2',
+    0x16EA8: '\U00016ec3',
+    0x16EA9: '\U00016ec4',
+    0x16EAA: '\U00016ec5',
+    0x16EAB: '\U00016ec6',
+    0x16EAC: '\U00016ec7',
+    0x16EAD: '\U00016ec8',
+    0x16EAE: '\U00016ec9',
+    0x16EAF: '\U00016eca',
+    0x16EB0: '\U00016ecb',
+    0x16EB1: '\U00016ecc',
+    0x16EB2: '\U00016ecd',
+    0x16EB3: '\U00016ece',
+    0x16EB4: '\U00016ecf',
+    0x16EB5: '\U00016ed0',
+    0x16EB6: '\U00016ed1',
+    0x16EB7: '\U00016ed2',
+    0x16EB8: '\U00016ed3',
+}
+
+GRAPHEMES = {
+    'CR': 'na',
+    'LF': 'ka',
+    'ZWJ': 'IAna',
+    'Control': 'ajbbbrC5BanaBLoaEPraB/2acbygBrpBXUpaHqlNBupBCDadFGphYLUf5DaD5HqDQp',
+    'Prepend': 'BQafGxaBraMabCqaBDlaCA7oapaHubQnaBLnabaHyaCjfV2aN1a',
+    'Extend': 'YaDpItgIhBmbabbbbbaCikBquqaDfgcfcbbdBda40C1kB0ijaydbibcbeBlcB1iBkxb5Bxabaeheadgkb3aB0abacdiajakb0acbBzaebebccda4bdalbBzaeebbeaubwfbaB0abbbdiahckb4aB1abamajaBiadaBxabcfcbdhblb3aB0acbbadcbdhblb2bBzbbacdiajakb3aCiaeaccbaiaCracgmhDcacilgCjb1ababaBxnbebbfkbBdjaDgdbfbbcbzbecqdnacbgapaV5c9sd2c3b4bCabbgiackjaBncbaDvbBcaDwcebjagcG1bcaB0abgbabachgjcaBq4BrdBqjecBgimbBadcfByabbdabeByhcbEycbmbgeagadbGgB5QmaGdBaC/4cEnaDa5RkfDjb9OudbjBabCqbIqadaeazbfaExb0rnaBghzkbaBmcBqacdcbcaBeaCdfcbcbmaiaBpaBtabccbfbbaBkbiaHoacaeaTZqaXbpqpLobS3aHcaEveBUgcbbfdBiceaFfbR3dCbeJ3bCpdCgkBrdD1aBwoBjacbkcBrdcbhaB3cBeebhB4ambBuibaidcaC5ccdgacaE3adhvbBzbbabamajaogdeCdacfbacabcecbaobCvhccbaxaCracfbacabbbbHlacdgbbb1bCvhcabbDkabachDfabacdbeIdibbHvakdeaEqdcbeaBajBifcdiajfccBombbMwgbfbaCsvcgbbbbD0fdabbbgbaCibdabaK1blbBuefcxaFHfagoLGildcCOaeB1gBAyaB5dCralbTFlbETbBncwQ4edfihcg4dEucB91BweBriaoaweboBKqgbqcgbbbeDeaFagLxaB3dP2dH4bXagDngCVqeYDBaC5EaHp',
+    'L': 'EIaC5BGAa2',
+    'V': 'ELaChBRQiwBFM2add',
+    'T': 'ENiCxBROlBq',
+    'LV': 'BLAaa1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a1a',
+    'LVT': 'BLAb0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0b0',
+    'RI': 'D8Pgz',
+    'ExtPict': 'FjaeaH8namaGyawaC0fpbLpbmaC5aCgazkecGhaHhbkajaB0dbfblbDrkDvckbabagadagakbpacaeabaecbaleBncjaoaoaLubOpctbBtaeaBG0amaSzabaDPLgH5nc5aB2fmboacjsBy1okauacibdjNrfJ3iIjBqD5DulCvBkmdByhkfBih4CrmBobjbNyIa/3',
+    'Consonant': 'CIvBe4hyhvtbgbaddBcbbaqbFdtbgbbbeB5a1tbgbbbeBcbbaraFdtbp4cF0Bf',
+    'Linker': 'CKnaD5aH5aD5aH5aH5a',
+    'SpacingMark': 'CIdaBxaccidbbBsbB1bgbcbBwaB0cCcaB0ciabbBvbB2agbcbDsabbdcbcBucB3dB3bB0acabbBoaobB1bfcbcBvbCmbggtbB5aD5aEkbB5aFrajbzbBmaBZrahhbbK0dccebbfHabB0abavfEraBzdCaa4aebB5accbaBvhibFlavaBCZlbcaCybBspEoaBqaBqbebcbDpbcbyaE3acbfaHnbbbbbbaZAtabaD5aBncebDtaybB1aBqcjaoaC3cdbFmc5bB1abdcbcbvbCvbpabbDhcibdaDlbgabbbacaHobgdcaDrcibbaDnabbDoahaIfcjaHyebbhabaEocideaCua3bB4aMxaoaDkahacaGveebbaK4bmaBqbibQPkcDReBw',
+    'InCBExtend': 'YaDpItgIhBmbabbbbbaCikBquqaDfgcfcbbdBda40C1kB0ijaydbibcbeBlcB1iBkxb5Bxabaehigkb3aB0abacdsakb0acbBzaebebccda4bdalbBzaeebbzbwfbaB0abbbdqckb4aB1abamajaBiadaBxabcfcbciblb3aB0acbbadcbdhblb2bBzbbacdsakb3aCiaeaccbaiaCracgmhDcacilgCjb1ababaBxnbebbfkbBdjaDgdbfbbcbzbecqdnacbgapaV5c9sd2c3b4bCabbgiackjaBncbaDvbBcaDwcebjagcG1bcaB0abgbabachgjcaBq4BrdBqjecBgimbBadcfByabbdabeByhcbEycbmbgeagadbGgB5QnaGcBaC/4cEnaDa5RkfDjb9OudbjBabCqbIqadaeazbfaExb0rnaBghzkbaBmcBqacdcbcaBeaCdfcbcbmaiaBpaBtabccbfbbaBkbiaHoacaeaTZqaXbpqpLobS3aHcaEveBUgcbbfdBiceaFfbR3dCbeJ3bCpdCgkBrdD1aBwoBjacbkcBrdcbhaB3cBeebhB4ambBuibaidcaC5ccdgacaE3adhvbBzbbabamajaogdeCdacfbacabcecbaobCvhccbaxaCracfbacabbbbHlacdgbbb1bCvhcabbDkabachDfabacdbeIdibbHvakdeaEqdcbeaBajBifcdiajfccBombbMwgbfbaCsvcgbbbbD0fdabbbgbaCibdabaK1blbBuefcxaFHfagoLGildcCOaeB1gBAyaB5dCralbTFlbETbBncwQ4edfihcg4dEucB91BweBriaoaweboBKqgbqcgbbbeDeaFagLxaB3dP2dH4bXagDngCVqeYDBaC5EaHp',
+}

@@ -8,8 +8,10 @@
   character predicates do (each matching character its own match);
 - :func:`split` is ``NormalizedString::split``: one of the five
   delimiter behaviors over those matches, empty pieces dropped;
-- :func:`escape_codepoints` gives the Rust ``regex`` crate's ``\\w`` and
-  ``\\s``, which the ``Whitespace`` pre-tokenizer and ``single_word``
+- :func:`normalize` and :func:`lowercase` are the library's normalization
+  forms and ``Lowercase`` (its tables, not Python's Unicode);
+- ``WHITESPACE`` and :func:`is_word` are the Rust ``regex`` crate's ``\\s``
+  and ``\\w``, which the ``Whitespace`` pre-tokenizer and ``single_word``
   added tokens read (not Oniguruma's).
 """
 
@@ -18,68 +20,79 @@ from __future__ import annotations
 import bisect
 import functools
 import re
-import sys
 import unicodedata
 from typing import Callable, Iterable, Iterator
 
-from . import unsupported
-from .onig import Expression, compile_expression
-
-#: ``char::is_whitespace`` (Unicode White_Space), Oniguruma's ``\s`` too;
-#: Python's ``str.isspace`` also counts U+001C..U+001F
-WHITESPACE = frozenset(
-    "\t\n\x0b\x0c\r \x85\xa0\u1680\u2000\u2001\u2002\u2003\u2004\u2005\u2006"
-    "\u2007\u2008\u2009\u200a\u2028\u2029\u202f\u205f\u3000"
-)
-
-#: what a word character is to the ``regex`` crate beyond the letters,
-#: marks, decimal and letter numbers and connectors: the Other_Alphabetic
-#: symbols (circled and squared Latin letters)
-_WORD_EXTRA = ((0x24B6, 0x24E9), (0x1F130, 0x1F149), (0x1F150, 0x1F169), (0x1F170, 0x1F189))
-#: the join controls, word characters to the ``regex`` crate
-JOIN_CONTROLS = (0x200C, 0x200D)
+from . import tables, unsupported
+from .onig import Expression, compile_expression, decode
 
 
-def in_ranges(table: "tuple[tuple[int, int], ...]") -> Callable[[str], bool]:
+def table(name: str) -> "tuple[tuple[int, int], ...]":
+    """One of :mod:`.tables`' sets as sorted code point ranges."""
+    return tuple(decode(getattr(tables, name)))
+
+
+def in_ranges(ranges: "tuple[tuple[int, int], ...]") -> Callable[[str], bool]:
     """Membership of a character in sorted code point ranges."""
-    starts = [lo for lo, _ in table]
+    starts = [lo for lo, _ in ranges]
 
     def contains(char: str) -> bool:
         cp = ord(char)
         i = bisect.bisect_right(starts, cp) - 1
-        return i >= 0 and cp <= table[i][1]
+        return i >= 0 and cp <= ranges[i][1]
 
     return contains
 
 
-@functools.lru_cache(maxsize=None)
-def escape_codepoints(escape: str) -> "tuple[int, ...]":
-    """The ``regex`` crate's ``\\s`` or ``\\w`` (without the join
-    controls), from ``unicodedata``."""
-    if escape == "s":
-        return tuple(sorted(ord(c) for c in WHITESPACE))
-    if escape == "w":
-        word = {c for c in range(sys.maxunicode + 1)
-                if unicodedata.category(chr(c))[0] in "LM"
-                or unicodedata.category(chr(c)) in ("Nd", "Nl", "Pc")}
-        for lo, hi in _WORD_EXTRA:
-            word.update(range(lo, hi + 1))
-        return tuple(sorted(word))
-    raise ValueError(f"no class \\{escape}")
+def class_text(ranges: "Iterable[tuple[int, int]]") -> str:
+    """Code point ranges as the body of an ``re`` character class."""
+    return "".join(re.escape(chr(lo)) if lo == hi else f"{re.escape(chr(lo))}-{re.escape(chr(hi))}"
+                   for lo, hi in ranges)
 
 
-def ranges(points: Iterable[int]) -> str:
-    """Code points as the body of an ``re`` character class."""
-    out, start, prev = [], None, None
-    for c in [*points, -2]:
-        if start is not None and c == prev + 1:
-            prev = c
-            continue
-        if start is not None:
-            lo, hi = re.escape(chr(start)), re.escape(chr(prev))
-            out.append(lo if start == prev else f"{lo}-{hi}")
-        start = prev = c
-    return "".join(out)
+#: ``char::is_whitespace`` (Unicode White_Space), the ``regex`` crate's and
+#: Oniguruma's ``\s`` too; Python's ``str.isspace`` also counts
+#: U+001C..U+001F
+WHITESPACE = frozenset(chr(c) for lo, hi in table("SPACE") for c in range(lo, hi + 1))
+#: the ``regex`` crate's ``\w`` (``Whitespace``, ``single_word``)
+is_word = in_ranges(table("WORD"))
+
+
+# ---------------------------------------------------------------------------
+# normalization and case, as the library's tables give them
+# ---------------------------------------------------------------------------
+
+#: where the library's normalization tables and ``unicodedata`` disagree:
+#: each a starter the library does not map, so the text on either side of
+#: one normalizes alone
+_CUTS = re.compile(f"([{class_text(table('NORMALIZATION_CUTS'))}])")
+#: the library's lowercase where ``str.lower`` of the character differs
+_LOWER = str.maketrans({chr(c): lower for c, lower in tables.LOWERCASE.items()})
+
+
+def normalize(form: str, text: str) -> str:
+    """``NFC``, ``NFD``, ``NFKC`` or ``NFKD`` as the library's tables give
+    it: ``unicodedata`` on each run between the code points they disagree
+    on, which stay as they are."""
+    if text.isascii():
+        return text
+    if _CUTS.search(text) is None:
+        return unicodedata.normalize(form, text)
+    return "".join(part if i % 2 else unicodedata.normalize(form, part)
+                   for i, part in enumerate(_CUTS.split(text)))
+
+
+def lowercase(text: str) -> str:
+    """``Lowercase``: each character's lowercase (Rust's
+    ``char::to_lowercase``, no final sigma), the library's where Python's
+    Unicode lacks it."""
+    if text.isascii():
+        return text.lower()
+    text = text.translate(_LOWER)
+    if "Σ" in text:
+        # str.lower reads a final sigma from its context, a character alone does not
+        return "".join(c.lower() for c in text)
+    return text.lower()
 
 
 def translate_regex(pattern: str) -> Expression:

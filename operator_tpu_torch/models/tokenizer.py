@@ -73,9 +73,6 @@ _MODEL_TYPES = {"llama": "llama", "bert": "bert", "xlm-roberta": "xlm-roberta"}
 #: pre-tokens kept in one tokenizer's cache of model ids before it is cleared
 _CACHE_WORDS = 1 << 16
 
-#: what ``single_word`` counts as part of a word (the ``regex`` crate's
-#: ``\\w``: Oniguruma's and the two join controls)
-_WORD_CHARS = frozenset(map(chr, (*_text.escape_codepoints("w"), *_text.JOIN_CONTROLS)))
 
 
 class Tokenizer(Protocol):
@@ -316,8 +313,8 @@ class HFTokenizer:
             start, stop = match.span()
             token = tokens[match.group()]
             if token.get("single_word") and (
-                    (start > 0 and text[start - 1] in _WORD_CHARS)
-                    or (stop < len(text) and text[stop] in _WORD_CHARS)):
+                    (start > 0 and _text.is_word(text[start - 1]))
+                    or (stop < len(text) and _text.is_word(text[stop]))):
                 continue
             if token.get("lstrip"):
                 while start > offset and text[start - 1] in _text.WHITESPACE:

@@ -12,8 +12,9 @@ fast tokenizer ``AutoTokenizer`` builds from them:
 1. special tokens (``[CLS]``, ``[SEP]``, ``[UNK]``, ``[PAD]``, ``[MASK]``)
    written in the text are split out first, case-sensitively;
 2. the BERT normalizer: NUL, U+FFFD and control characters dropped,
-   whitespace to a space, CJK ideographs spaced, accents stripped (NFD,
-   non-spacing marks dropped) and then lowercased, character by character;
+   whitespace to a space, CJK ideographs spaced, accents stripped (the
+   library's NFD, its non-spacing marks dropped) and then lowercased,
+   character by character;
 3. split on whitespace and around every punctuation character (ASCII
    punctuation and Unicode ``P*``);
 4. greedy longest-match WordPiece with ``##`` continuation pieces; a word
@@ -23,9 +24,9 @@ fast tokenizer ``AutoTokenizer`` builds from them:
 Steps 2-4 are :func:`bert_normalize`, :func:`bert_words` and
 :func:`wordpiece`, which a ``tokenizer.json``'s ``BertNormalizer``,
 ``BertPreTokenizer`` and ``WordPiece`` model run too
-(``models/tokenization/``); the characters they drop, strip and isolate
-are the library's own tables (``models/tokenization/tables.py``), not
-``unicodedata``'s categories.
+(``models/tokenization/``); the characters they drop, strip, space,
+lowercase and isolate, and its NFD, are the library's own tables
+(``models/tokenization/tables.py``), not ``unicodedata``'s.
 """
 
 from __future__ import annotations
@@ -33,26 +34,12 @@ from __future__ import annotations
 import json
 import os
 import re
-import unicodedata
 from typing import Optional
 
-from .tokenization import tables
-from .tokenization.text import in_ranges
+from .tokenization.text import WHITESPACE, in_ranges, normalize, table
+from .tokenization.text import lowercase as lowercase_text
 
 __all__ = ["WordPieceTokenizer", "bert_normalize", "bert_words", "wordpiece"]
-
-#: ``char::is_whitespace`` (Unicode White_Space) plus tab, newline, CR —
-#: the BERT normalizer maps these to a space (after dropping the controls)
-_WHITESPACE = frozenset(
-    "\t\n\x0b\x0c\r \x85\xa0\u1680\u2000\u2001\u2002\u2003\u2004\u2005\u2006"
-    "\u2007\u2008\u2009\u200a\u2028\u2029\u202f\u205f\u3000"
-)
-
-#: CJK ideograph blocks that get a space on either side
-_CJK_RANGES = (
-    (0x4E00, 0x9FFF), (0x3400, 0x4DBF), (0x20000, 0x2A6DF), (0x2A700, 0x2B73F),
-    (0x2B740, 0x2B81F), (0x2B820, 0x2CEAF), (0xF900, 0xFAFF), (0x2F800, 0x2FA1F),
-)
 
 #: the normalizer and the word split on ASCII text, where they reduce to
 #: dropping the control characters, tabs and line ends to spaces, and
@@ -73,24 +60,20 @@ _SPECIAL_DEFAULTS = {
 
 
 #: the library's tables (``tokenization/tables.py``): what the BERT
-#: normalizer drops, the non-spacing marks it strips, the punctuation the
-#: pre-tokenizer isolates
-_is_control = in_ranges(tables.BERT_CONTROL)
-_is_mark_nonspacing = in_ranges(tables.MARK_NONSPACING)
-_is_punctuation = in_ranges(tables.PUNCTUATION)
-
-
-def _is_cjk(char: str) -> bool:
-    cp = ord(char)
-    return any(lo <= cp <= hi for lo, hi in _CJK_RANGES)
+#: normalizer drops, the ideographs it spaces, the non-spacing marks it
+#: strips, the punctuation the pre-tokenizer isolates
+_is_control = in_ranges(table("BERT_CONTROL"))
+_is_cjk = in_ranges(table("BERT_CJK"))
+_is_mark_nonspacing = in_ranges(table("BERT_MARK_NONSPACING"))
+_is_punctuation = in_ranges(table("PUNCTUATION"))
 
 
 def bert_normalize(text: str, *, clean_text: bool = True, handle_chinese_chars: bool = True,
                    strip_accents: Optional[bool] = None, lowercase: bool = True) -> str:
     """The BERT normalizer (``BertNormalizer``): NUL, U+FFFD and control
     characters dropped and whitespace to a space, CJK ideographs spaced,
-    accents stripped (NFD, non-spacing marks dropped; by default when
-    lowercasing), then lowercased, character by character."""
+    accents stripped (the library's NFD, its non-spacing marks dropped; by
+    default when lowercasing), then lowercased, character by character."""
     if text.isascii():
         # no CJK, nothing to strip: the controls go, tab and line ends
         # become spaces
@@ -102,7 +85,7 @@ def bert_normalize(text: str, *, clean_text: bool = True, handle_chinese_chars: 
             if clean_text:
                 if _is_control(char):
                     continue
-                if char in _WHITESPACE:
+                if char in WHITESPACE:
                     chars.append(" ")
                     continue
             if handle_chinese_chars and _is_cjk(char):
@@ -111,11 +94,8 @@ def bert_normalize(text: str, *, clean_text: bool = True, handle_chinese_chars: 
                 chars.append(char)
         text = "".join(chars)
     if lowercase if strip_accents is None else strip_accents:
-        text = "".join(c for c in unicodedata.normalize("NFD", text)
-                       if not _is_mark_nonspacing(c))
-    if lowercase:
-        text = "".join(c.lower() for c in text)  # per character, no final sigma
-    return text
+        text = "".join(c for c in normalize("NFD", text) if not _is_mark_nonspacing(c))
+    return lowercase_text(text) if lowercase else text
 
 
 def bert_words(text: str) -> list[str]:
@@ -127,11 +107,11 @@ def bert_words(text: str) -> list[str]:
     words: list[str] = []
     word: list[str] = []
     for char in text:
-        if char in _WHITESPACE or _is_punctuation(char):
+        if char in WHITESPACE or _is_punctuation(char):
             if word:
                 words.append("".join(word))
                 word = []
-            if char not in _WHITESPACE:
+            if char not in WHITESPACE:
                 words.append(char)
         else:
             word.append(char)

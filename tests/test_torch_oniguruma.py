@@ -98,7 +98,8 @@ def library_reads(pattern: str) -> bool:
 
 #: name -> (pattern, texts it must be tried on besides the corpus); the
 #: ``fault_`` cases are the translator's faults before Oniguruma's syntax
-#: was read as such
+#: was read as such (and before the look-behind's ``\\R`` and the search's
+#: start anchor were read as Oniguruma runs them)
 CONSTRUCTS = {
     # faults: each read differently before
     "fault_class_intersection": (r"[\w&&\D]+", ["ab&12cd"]),
@@ -108,6 +109,29 @@ CONSTRUCTS = {
     "fault_word_boundary_marks": (r"\bab\b", ["ab́ ab"]),
     "fault_lowercase_names": (r"\p{l}", ["ab1"]),
     "fault_long_names": (r"\p{letter}+", ["ab1 é"]),
+    # faults of the look-behind's \R and the search's start anchor
+    "fault_lookbehind_newline_tail": (r"(?<=\R)c|(?<=x\R)d|(?<=\R\R)e|(?<=\R{1,2})f",
+                                      ["\r\nc \nc \rc x\nd x\r\nd \n\r\ne \r\n\ne \nf \r\nf"]),
+    "fault_lookbehind_newline_atomic": (r"(?<=\R\n)c|(?<=\Rx)d|(?<=\r\R)e",
+                                        ["\n\nc \r\nc \r\n\nc \nxd \r\nxd \r\re \r\r\ne"]),
+    "fault_lookbehind_newline_negative": (r"(?<!\R)c|(?<!\R|ab)d|(?<!\R\b)e",
+                                          ["\nc \r\nc c \nd abd \r\nd \ne \r\ne"]),
+    "fault_lookbehind_divided": (r"(?<=\R|a)c|(?<=a|\R)d|(?<=\R|\Ra)e|(?<=(?:\R|a))f"
+                                 r"|(?<=(\R|b))g|(?<!(?:\R|a)|xa\n)h",
+                                 ["\nc ac \r\nc \nd \ne \nf af \ng x\nh \r\nh xa\nh"]),
+    "fault_lookbehind_word_boundary_at_start": (r"(?<=\b|ab?)c", ["c cc c\nc abc"]),
+    "fault_search_anchor_end_word": (r"$\b\O+", ["ax\n", "ab\ncd"]),
+    "fault_search_anchor_word_line": (r"\b^\O+", ["-x\nby", "\nab"]),
+    "fault_search_anchor_lookahead": (r"(?=x)\O+", ["-x", "ax\n", "xy"]),
+    "fault_search_anchor_icase_repeat": (r"(?i)\b^\O{2,}", ["-x\nby", "\nab"]),
+    "fault_search_anchor_two_starts": (r"\b\O+", ["--x", "-x\nby", "-\nab"]),
+    "fault_search_anchor_class_lookahead": (r"(?=[xy])\O+", ["-xyz", "-ax"]),
+    "fault_search_anchor_word_lookahead": (r"(?=\w)\O+", ["-ax", "--x"]),
+    "fault_search_anchor_lines": (r"\b.*x", ["-ax", "-a\nbx", "--x\nx"]),
+    "fault_search_anchor_alternatives": (r"(?<=a)\O{2,}\w|(?=-)(?<!a)\O+", ["xb- b", "\n\nx -"]),
+    "search_anchor_lookbehind_keeps": (r"(?<=a)\O+", ["-\nab", "xa\nb"]),
+    "search_anchor_end_keeps": (r"\b\O*\z|\b.*x(?!y)", ["--x\nx", "--x\nxy"]),
+    "search_anchor_lazy_keeps": (r"\b\O+?|(?m:.)+", ["--x\nx"]),
     "fault_lowercase_short_names": (r"\p{lu}", ["aB1"]),
     "fault_dashed_names": (r"\p{uppercase-letter}", ["aB"]),
     "fault_spaced_names": (r"\p{Upper case letter}", ["aB"]),

@@ -6,13 +6,18 @@ a variant of a committed fixture (``llama_sp``, ``llama3_bl``,
 ``HFTokenizer`` and the JAX ``HFTokenizer`` over ``AutoTokenizer``, held
 equal on the special ids, ``vocab_size``, ``encode`` with and without BOS,
 ``encode`` with the post-processor's specials (against ``AutoTokenizer``)
-and ``decode``; BPE dropout as the library draws it; the library's
-character tables the port keeps a copy of; and where Python's ``unicodedata``
-(Unicode 15.0) and the library's tables (Rust's) disagree, or no longer do
-(expression classes, read from the library's own Oniguruma data).
+and ``decode``; BPE dropout as the library draws it; every code point,
+and seeded sequences, through each component that reads a Unicode
+property (the normalization forms, ``Lowercase``, ``BertNormalizer``,
+``Digits``, ``Whitespace``, ``single_word``, ``Precompiled``'s clusters)
+against the library; the library's tables the port keeps
+(``scripts/torch_text_tables.py``, each probed again); and where Python's
+``unicodedata`` (Unicode 15.0) still disagrees with the library, which is
+why the port keeps them.
 """
 
 import copy
+import importlib.util
 import json
 import math
 import os
@@ -20,6 +25,7 @@ import random
 import sys
 import unicodedata
 
+import numpy as np
 import pytest
 
 transformers = pytest.importorskip("transformers")
@@ -27,7 +33,9 @@ tokenizers = pytest.importorskip("tokenizers")
 
 from operator_tpu.models import tokenizer as jax_tokenizer  # noqa: E402
 from operator_tpu_torch.models import tokenizer  # noqa: E402
-from operator_tpu_torch.models.tokenization import charsmap, text as port_text  # noqa: E402
+from operator_tpu_torch.models.tokenization import charsmap, normalizers, onig  # noqa: E402
+from operator_tpu_torch.models.tokenization import pre_tokenizers, tables  # noqa: E402
+from operator_tpu_torch.models.tokenization import text as port_text  # noqa: E402
 from test_torch_tokenizer import (EDGE_TEXTS, LLAMA3_BL, LLAMA3_BL_CONFIG, LLAMA_SP,  # noqa: E402
                                   LLAMA_SP_CONFIG, _many_scripts_texts, fixture_lines)
 from test_torch_tokenizer_families import (METASPACE, MINILM_CONFIG, MINILM_WORDPIECE,  # noqa: E402
@@ -330,18 +338,16 @@ def test_unicode_classes_differ_only_by_version(pattern):
     assert got == want
 
 
-#: form -> the code points (ranges) whose result differs: the library's
-#: normalization tables are older than Python's for NFKC and NFD (the
-#: compatibility mappings of Unicode 12.1-14.0's modifier letters and
-#: digits, U+11938's decomposition) and newer for case (16.0's letters)
-NORMALIZATION_DIFFERENCES = {
-    "Lowercase": [[0x1C89, 0x1C89], [0xA7CB, 0xA7CC], [0xA7CE, 0xA7CE], [0xA7D2, 0xA7D2],
-                  [0xA7D4, 0xA7D4], [0xA7DA, 0xA7DA], [0xA7DC, 0xA7DC], [0x10D50, 0x10D65],
-                  [0x16EA0, 0x16EB8]],
+#: form -> the code points (ranges) whose result differs between the
+#: library and Python's ``unicodedata`` (Unicode 15.0) alone: the
+#: library's normalization tables are older than Python's (the
+#: compatibility mappings of Unicode 12.1-15.0's modifier letters and
+#: digits; NFD differs on U+11938, lowercasing on 16.0's 55 capitals).
+#: The port reads the library's own tables instead (``tokenization/tables.py``)
+UNICODEDATA_DIFFERENCES = {
     "NFKC": [[0x32FF, 0x32FF], [0xA7F2, 0xA7F4], [0xAB69, 0xAB69], [0x10781, 0x10785],
              [0x10787, 0x107B0], [0x107B2, 0x107BA], [0x1E030, 0x1E06D], [0x1F16C, 0x1F16C],
              [0x1FBF0, 0x1FBF9]],
-    "NFD": [[0x11938, 0x11938]],
 }
 
 
@@ -350,32 +356,87 @@ def _differences(library, ours) -> list:
     joined by NUL first, which neither composes nor reorders)."""
     out = []
     for lo in range(0, len(_ALL), 8192):
-        chunk = _ALL[lo:lo + 8192]
+        chunk = [c for c in _ALL[lo:lo + 8192] if c]
         joined = "\0".join(map(chr, chunk))
         if library(joined) != ours(joined):
             out += [c for c in chunk if library(chr(c)) != ours(chr(c))]
     return out
 
 
-@pytest.mark.parametrize("form", sorted(NORMALIZATION_DIFFERENCES))
+def _library_normalizer(form: str):
+    return getattr(tokenizers.normalizers, form)().normalize_str
+
+
+@pytest.mark.parametrize("form", ["Lowercase", "NFC", "NFD", "NFKC", "NFKD"])
 def test_normalization_differs_by_version(form):
-    """NFKC, NFD and per-character lowercasing code point by code point:
-    where the library's tables and Python's ``unicodedata`` disagree
-    (ROADMAP Queue 3)."""
-    library = getattr(tokenizers.normalizers, form)().normalize_str
-    ours = ((lambda s: "".join(c.lower() for c in s)) if form == "Lowercase"
-            else (lambda s: unicodedata.normalize(form, s)))
-    assert _ranges(_differences(library, ours)) == NORMALIZATION_DIFFERENCES[form]
+    """NFC, NFD, NFKC, NFKD and per-character lowercasing code point by
+    code point: the port's (``build_normalizer``) is the library's on every
+    one, though Python's ``unicodedata`` is of another Unicode."""
+    ours = normalizers.build_normalizer({"type": form})
+    assert _differences(_library_normalizer(form), ours) == []
+
+
+@pytest.mark.parametrize("form", sorted(UNICODEDATA_DIFFERENCES))
+def test_unicodedata_still_differs_from_the_library(form):
+    """Why the port keeps the library's tables: ``unicodedata`` alone still
+    disagrees with the library there."""
+    plain = lambda s: unicodedata.normalize(form, s)  # noqa: E731
+    assert _ranges(_differences(_library_normalizer(form), plain)) == \
+        UNICODEDATA_DIFFERENCES[form]
+
+
+#: the code points whose normalization differs by Unicode version, and
+#: combining marks of several classes, for the sequence fuzz
+def _fuzz_alphabet() -> list:
+    cuts = [c for lo, hi in port_text.table("NORMALIZATION_CUTS") for c in range(lo, hi + 1)]
+    lower = list(tables.LOWERCASE)
+    marks = [0x0300, 0x0301, 0x0316, 0x0327, 0x0334, 0x0345, 0x05B0, 0x093C, 0x094D, 0x0E38,
+             0x1DFA, 0x1E4EC, 0x16FF0, 0x11930, 0x11935, 0x302A, 0x3099]
+    starters = [0x61, 0x41, 0x3A3, 0xC5, 0x1100, 0x1161, 0x11A8, 0xAC00, 0x915, 0x937, 0x2B820,
+                0x4E00, 0x20, 0x10D40, 0x1E5F1, 0x6F, 0x3131, 0xFB01]
+    return cuts + lower + marks + starters + [0x11938, 0x1F16C]
+
+
+SEQUENCE_COMPONENTS = {
+    **{form: {"type": form} for form in ("NFC", "NFD", "NFKC", "NFKD", "Lowercase")},
+    "StripAccents": {"type": "StripAccents"},
+    "BertNormalizer": {"type": "BertNormalizer", "clean_text": True,
+                       "handle_chinese_chars": True, "strip_accents": True, "lowercase": True},
+}
+
+
+def _library_component(spec: dict):
+    kind = spec["type"]
+    if kind == "BertNormalizer":
+        options = {k: v for k, v in spec.items() if k != "type"}
+        return tokenizers.normalizers.BertNormalizer(**options).normalize_str
+    return getattr(tokenizers.normalizers, kind)().normalize_str
+
+
+@pytest.mark.parametrize("name", sorted(SEQUENCE_COMPONENTS))
+def test_normalizers_match_the_library_on_mixed_sequences(name):
+    """Seeded random sequences of the code points where the Unicode
+    versions differ, mixed with combining marks of several classes,
+    starters that compose with them, Hangul jamo and ideographs: each
+    normalizer gives the library's text."""
+    spec = SEQUENCE_COMPONENTS[name]
+    library, ours = _library_component(spec), normalizers.build_normalizer(spec)
+    alphabet = _fuzz_alphabet()
+    rng = np.random.default_rng(29)
+    texts = ["".join(chr(alphabet[i]) for i in rng.integers(0, len(alphabet), rng.integers(1, 12)))
+             for _ in range(3000)]
+    bad = [t for t in texts if ours(t) != library(t)]
+    assert bad == [], [[hex(ord(c)) for c in t] for t in bad[:5]]
 
 
 def test_grapheme_extension_differs_only_by_version():
     """Which code points join the grapheme cluster of a letter before
     them (Extend, ZWJ, SpacingMark), read through the library's
     ``Precompiled`` (a cluster under 6 bytes that starts with a key is
-    replaced whole): the port's clusters agree but on 51 code points
-    Python 15.0 leaves unassigned (ROADMAP Queue 3).  Planes 0, 1 and 14
-    are read: planes 2 and 3 hold ideographs only, 4 to 13 nothing, 15
-    and 16 private use."""
+    replaced whole): the port's clusters, on the break classes probed from
+    ``Precompiled`` (``tables.GRAPHEMES``), agree on every code point.
+    Planes 0, 1 and 14 are read: planes 2 and 3 hold ideographs only, 4 to
+    13 nothing, 15 and 16 private use."""
     library = tokenizers.normalizers.Precompiled(charsmap_blob({"a": "A"}))
     points = [c for c in _ALL if (c < 0x20000 or 0xE0000 <= c < 0xF0000) and chr(c) not in "\r\n"]
     joined = set()
@@ -384,53 +445,137 @@ def test_grapheme_extension_differs_only_by_version():
         pieces = library.normalize_str("\n".join("a" + chr(c) for c in chunk)).split("\n")
         joined.update(c for c, piece in zip(chunk, pieces) if piece == "A")
     ours = {c for c in points if len(charsmap.graphemes("a" + chr(c))) == 1}
-    assert ours <= joined and _cn(joined - ours)
-    assert len(joined - ours) == 51
+    assert ours == joined
+
+
+#: the pieces of texts whose grapheme clusters every rule decides: Hangul
+#: syllables and jamo, emoji ZWJ sequences, regional indicators, Indic
+#: conjuncts (GB9c), prepends, controls and spacing marks
+GRAPHEME_PIECES = ["a", "\r", "\n", "\x07", "\u200d", "\u0301", "\u0300", "\u1100", "\u1161",
+                   "\u11a8", "\uac00", "\uac01", "\xa9", "\U0001F600", "\u2764", "\U0001F3FB",
+                   "\U0001F1E6", "\U0001F1E9", "\u0915", "\u0937", "\u094d", "\u09cd", "\u0995",
+                   "\u093f", "\u0903", "\u0600", "\U000111C2", "\u0e33", "\ufe0f", "\u200c",
+                   "\xad", "\u0915\u094d", "\u0995\u09cd", "\xa9\u200d", "\u1100\u1161",
+                   "\U00016D63", "\U00011938"]
+
+
+def test_precompiled_matches_the_library_on_random_clusters():
+    """Seeded random texts over code points of every break class, through
+    a charsmap that replaces every character (so a cluster under 6 bytes
+    shows as one replacement): the port's ``Precompiled`` is the
+    library's."""
+    chars = {c for piece in GRAPHEME_PIECES for c in piece} - {"\r", "\n"}
+    blob = charsmap_blob({c: f"<{ord(c):x}>" for c in chars})
+    library = tokenizers.normalizers.Precompiled(blob)
+    ours = charsmap.Precompiled(blob)
+    rng = np.random.default_rng(31)
+    texts = ["".join(GRAPHEME_PIECES[i]
+                     for i in rng.integers(0, len(GRAPHEME_PIECES), rng.integers(1, 7)))
+             for _ in range(6000)]
+    bad = [t for t in texts if ours.normalize(t) != library.normalize_str(t)]
+    assert bad == [], [[hex(ord(c)) for c in t] for t in bad[:5]]
 
 
 # ---------------------------------------------------------------------------
-# the library's character tables (``unicode_categories``, an older Unicode)
+# every code point through the port and the library
 # ---------------------------------------------------------------------------
 
-TABLES = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                      "operator_tpu_torch", "models", "tokenization", "tables.py")
 
-
-def _probe(normalize, keep) -> set:
-    """The code points ``keep(code point, its normalized text)`` selects,
-    each normalized alone (a CJK ideograph between them, which none of
-    the probes changes)."""
-    out = set()
-    points = [c for c in _ALL if c != 0x4E00]
+def _sweep(library, ours, item: str, separator: str) -> list:
+    """Code points for which ``item.format(c)`` comes out of ``ours``
+    otherwise than out of ``library`` (a chunk of them, joined by
+    ``separator``, at a time)."""
+    out = []
+    points = [c for c in _ALL if chr(c) != separator]
     for lo in range(0, len(points), 8192):
         chunk = points[lo:lo + 8192]
-        pieces = normalize("一".join(map(chr, chunk))).split("一")
-        assert len(pieces) == len(chunk)
-        out.update(c for c, piece in zip(chunk, pieces) if keep(c, piece))
+        joined = separator.join(item.format(chr(c)) for c in chunk)
+        if library(joined) != ours(joined):
+            alone = [c for c in chunk if library(item.format(chr(c))) != ours(item.format(chr(c)))]
+            # a difference only neighbours show: the chunk's range
+            out += alone or [(chunk[0], chunk[-1])]
     return out
 
 
-def library_tables() -> dict:
-    """``StripAccents``' non-spacing marks, what ``BertNormalizer``'s
-    ``clean_text`` drops, and what ``BertPreTokenizer`` isolates (ASCII
-    punctuation and ``unicode_categories``' punctuation)."""
-    from tokenizers import normalizers, pre_tokenizers
-
-    bert_clean = normalizers.BertNormalizer(clean_text=True, handle_chinese_chars=False,
-                                            strip_accents=False, lowercase=False)
-    punctuation = pre_tokenizers.Punctuation(behavior="removed")
-
-    def without_punctuation(text):
-        return "".join(piece for piece, _ in punctuation.pre_tokenize_str(text))
-
-    return {
-        "MARK_NONSPACING": _probe(normalizers.StripAccents().normalize_str, lambda c, p: p == ""),
-        "BERT_CONTROL": _probe(bert_clean.normalize_str, lambda c, p: p == ""),
-        "PUNCTUATION": _probe(without_punctuation, lambda c, p: p == ""),
-    }
+#: each option of the BERT normalizer alone, and the separator it leaves be
+BERT_OPTIONS = {"strip_accents": "一", "handle_chinese_chars": "\n", "lowercase": "一",
+                "clean_text": "一"}
 
 
-def _ranges(points: set) -> list:
+@pytest.mark.parametrize("option", sorted(BERT_OPTIONS))
+def test_bert_normalizer_matches_the_library_on_every_code_point(option):
+    """``BertNormalizer`` with one option on: the port's (``bert_normalize``
+    through ``build_normalizer``, the path of ``vocab.txt`` and
+    ``tokenizer.json`` alike) is the library's on every code point, alone
+    and after a letter."""
+    spec = {"clean_text": False, "handle_chinese_chars": False, "strip_accents": False,
+            "lowercase": False, option: True}
+    library = tokenizers.normalizers.BertNormalizer(**spec).normalize_str
+    ours = normalizers.build_normalizer({"type": "BertNormalizer", **spec})
+    assert _sweep(library, ours, "a{}", BERT_OPTIONS[option]) == []
+
+
+def _library_pieces(pre_tokenizer):
+    return lambda text: [piece for piece, _ in pre_tokenizer.pre_tokenize_str(text)]
+
+
+def _port_pieces(spec: dict):
+    run = pre_tokenizers.build_pre_tokenizer(spec)
+    return lambda text: [piece for piece, _ in run([(text, True)])]
+
+
+#: pre-tokenizer -> (its spec, each code point's context)
+PRE_TOKENIZER_SWEEPS = {
+    "Digits": {"type": "Digits", "individual_digits": True},
+    "Whitespace": {"type": "Whitespace"},
+}
+
+
+@pytest.mark.parametrize("name", sorted(PRE_TOKENIZER_SWEEPS))
+def test_pre_tokenizer_matches_the_library_on_every_code_point(name):
+    """``Digits`` (``char::is_numeric``) and ``Whitespace`` (the ``regex``
+    crate's ``\\w`` and ``\\s``): the port's pieces are the library's over
+    every code point in order (a code point read into another class moves
+    a piece's edge or splits it)."""
+    spec = PRE_TOKENIZER_SWEEPS[name]
+    library = getattr(tokenizers.pre_tokenizers, name)(
+        **{k: v for k, v in spec.items() if k != "type"})
+    assert _sweep(_library_pieces(library), _port_pieces(spec), "{}", "") == []
+
+
+def test_single_word_matches_the_library_on_every_code_point(tmp_path):
+    """An added token with ``single_word``: found, or not, between two of
+    each code point as the library finds it (a word character on either
+    side keeps it from matching)."""
+    library = tokenizers.Tokenizer(tokenizers.models.WordLevel({"[UNK]": 0}, unk_token="[UNK]"))
+    library.add_tokens([tokenizers.AddedToken("tok", single_word=True)])
+    library.save(str(tmp_path / "tokenizer.json"))
+    (tmp_path / "tokenizer_config.json").write_text("{}")
+    ours = tokenizer.HFTokenizer(str(tmp_path))
+
+    def found_library(text):
+        encoding = library.encode(text)
+        return [start for (start, _), i in zip(encoding.offsets, encoding.ids) if i == 1]
+
+    def found_ours(text):
+        return [start for added, _, start in ours._split_added(text, ours._normalized_split)
+                if added is not None]
+
+    assert _sweep(found_library, found_ours, "{0}tok{0} ", "") == []
+
+
+# ---------------------------------------------------------------------------
+# the library's character tables (``scripts/torch_text_tables.py``)
+# ---------------------------------------------------------------------------
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_spec = importlib.util.spec_from_file_location(
+    "torch_text_tables", os.path.join(REPO, "scripts", "torch_text_tables.py"))
+generator = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(generator)
+
+
+def _ranges(points) -> list:
     out: list = []
     for c in sorted(points):
         if out and out[-1][1] == c - 1:
@@ -440,47 +585,53 @@ def _ranges(points: set) -> list:
     return out
 
 
-def write_tables(path: str = TABLES) -> None:
-    """Rewrite the port's copy of the library's tables."""
-    lines = ['"""Character tables of the ``tokenizers`` library, as code point ranges.',
-             "",
-             "The library takes these predicates from the ``unicode_categories`` crate,",
-             "whose tables are of an older Unicode (and shifted against it in places),",
-             "so ``unicodedata`` cannot stand in for them:",
-             "",
-             "- ``MARK_NONSPACING``: ``is_mark_nonspacing`` (``StripAccents``, the BERT",
-             "  normalizer's accent stripping);",
-             "- ``BERT_CONTROL``: what the BERT normalizer's ``clean_text`` drops (NUL,",
-             "  U+FFFD and ``is_other`` but tab, line feed and carriage return);",
-             "- ``PUNCTUATION``: ASCII punctuation and ``is_punctuation``",
-             "  (``BertPreTokenizer``, ``Punctuation``).",
-             "",
-             "Generated from the library by ``PYTHONPATH=. python",
-             "tests/test_torch_tokenizer_components.py``; a test holds it to the library.",
-             '"""',
-             "",
-             "from __future__ import annotations",
-             ""]
-    for name, points in library_tables().items():
-        lines.append(f"{name} = (")
-        row = "   "
-        for lo, hi in _ranges(points):
-            item = f" (0x{lo:X}, 0x{hi:X}),"
-            if len(row) + len(item) > 99:
-                lines.append(row)
-                row = "   "
-            row += item
-        lines += [row, ")", ""]
-    with open(path, "w", encoding="utf-8") as fh:
-        fh.write("\n".join(lines))
+def _committed(name: str) -> set:
+    return {c for lo, hi in port_text.table(name) for c in range(lo, hi + 1)
+            if not 0xD800 <= c < 0xE000}
 
 
 def test_library_tables_are_the_librarys():
-    from operator_tpu_torch.models.tokenization import tables
+    """The BERT normalizer's, ``StripAccents``' and ``BertPreTokenizer``'s
+    tables are what the library gives now."""
+    for name, points in generator.bert_tables().items():
+        assert _ranges(_committed(name)) == _ranges(points), name
 
-    for name, points in library_tables().items():
-        assert [list(r) for r in getattr(tables, name)] == _ranges(points), name
+
+def _committed_graphemes() -> dict:
+    return {name: {c for lo, hi in onig.decode(encoded) for c in range(lo, hi + 1)
+                   if not 0xD800 <= c < 0xE000}
+            for name, encoded in tables.GRAPHEMES.items()}
 
 
-if __name__ == "__main__":
-    sys.exit(write_tables())
+#: the rest of the generated tables, each probed again
+TABLE_PROBES = {
+    "NORMALIZATION_CUTS": lambda: generator.normalization_cuts(),
+    "LOWERCASE": lambda: generator.lowercase_table(),
+    "NUMERIC": lambda: generator.numeric_points(),
+    "WORD": lambda: generator.whitespace_classes()[0],
+    "SPACE": lambda: generator.whitespace_classes()[1],
+    "GRAPHEMES": lambda: generator.cluster_tables(),
+}
+
+
+@pytest.mark.parametrize("name", sorted(TABLE_PROBES))
+def test_text_tables_are_the_librarys(name):
+    """Each table the generator writes is what the library gives now
+    (``scripts/torch_text_tables.py --check`` in parts)."""
+    probed = TABLE_PROBES[name]()
+    if name == "LOWERCASE":
+        assert tables.LOWERCASE == probed
+    elif name == "GRAPHEMES":
+        assert _committed_graphemes() == {k: set(v) for k, v in probed.items()}
+    else:
+        assert _ranges(_committed(name)) == _ranges(probed)
+
+
+def test_text_tables_module_is_the_generators_rendering():
+    """The committed module is the generator's rendering of its tables,
+    byte for byte (so ``--check`` compares what the probes gave)."""
+    committed = {name: _committed(name) for name in generator.SETS}
+    committed.update(tokenizers=tokenizers.__version__, LOWERCASE=tables.LOWERCASE,
+                     GRAPHEMES=_committed_graphemes())
+    with open(generator.OUT, encoding="utf-8") as fh:
+        assert generator.render(committed) == fh.read()

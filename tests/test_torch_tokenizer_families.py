@@ -110,8 +110,20 @@ LOG_PROMPTS = [
 #: backquote before six words, which the ``\`(?:\w+\s?)*\``` branch
 #: splits every way before it fails
 LOG_GIVES_UP = "ERROR volume `data was not found for pod web on node worker after retry"
+#: texts where Python's Unicode data and the library's differ: Devanagari
+#: and Bengali spacing vowel signs (which the BERT normalizer's accent
+#: stripping keeps), an ideograph of U+2B8xx (which it does not space),
+#: Unicode 16.0 capitals and digits, U+11938 (which the library's NFD does
+#: not decompose); the WordPiece fixture's vocabulary holds their pieces
+UNICODE_PROMPTS = [
+    "दुनिया কাজ error: डिस्क भर गई",
+    "log\U0002B823line \U0002B8FF end",
+    "\u1C89 TJE \uA7CB \U00010D50 digits \U00010D40\U00010D41",
+    "pod \U0001190C\U00011938 ok",
+]
 #: the prompts each fixture's ``expected_ids.json`` keeps
-FIXTURE_PROMPTS = {XLMR_SCRIPTS: SCRIPT_PROMPTS, ONIG_LOGS: LOG_PROMPTS}
+FIXTURE_PROMPTS = {XLMR_SCRIPTS: SCRIPT_PROMPTS, ONIG_LOGS: LOG_PROMPTS,
+                   MINILM_WORDPIECE: PROMPTS + UNICODE_PROMPTS}
 
 #: ``tokenizer_config.json`` of all-MiniLM-L6-v2
 MINILM_CONFIG = {
@@ -170,7 +182,11 @@ def minilm_vocab() -> list:
     """MiniLM's layout (``[PAD]``, 99 ``[unusedN]``, ``[UNK] [CLS] [SEP]
     [MASK]`` at 100..103), then the fixture logs' characters (lowercased,
     accents stripped, and a few of other scripts), their ``##`` pieces,
-    the 1,500 most frequent words (ties by spelling) and some suffixes."""
+    the 1,500 most frequent words (ties by spelling) and some suffixes;
+    last the words of :data:`UNICODE_PROMPTS` as the library reads them,
+    and every character of those and of the texts as written, alone and
+    as ``##`` pieces (so a text read otherwise gets other ids, not
+    ``[UNK]``)."""
     lines = [tokenizer_words(line) for line in fixture_lines()]
     words = Counter(w for line in lines for w in line)
     chars = sorted({c for line in lines for w in line for c in w} | set("日本語ωμέγαß"))
@@ -178,7 +194,20 @@ def minilm_vocab() -> list:
     vocab += chars + ["##" + c for c in chars]
     vocab += sorted(words, key=lambda w: (-words[w], w))[:1500]
     vocab += ["##ing", "##ed", "##s", "##er", "##tion", "##ly", "cafe", "resume", "##able"]
+    unicode_words = [w for text in UNICODE_PROMPTS for w in library_words(text)]
+    unicode_chars = sorted({c for text in UNICODE_PROMPTS for c in text if not c.isspace()}
+                           | {c for w in unicode_words for c in w})
+    vocab += unicode_words + unicode_chars + ["##" + c for c in unicode_chars]
     return list(dict.fromkeys(vocab))
+
+
+def library_words(text: str) -> list:
+    """The library's BERT normalizer (all-MiniLM-L6-v2's options) and
+    pre-tokenizer on ``text``."""
+    normalizer = tokenizers.normalizers.BertNormalizer(
+        clean_text=True, handle_chinese_chars=True, strip_accents=None, lowercase=True)
+    return [w for w, _ in tokenizers.pre_tokenizers.BertPreTokenizer().pre_tokenize_str(
+        normalizer.normalize_str(text))]
 
 
 def tokenizer_words(text: str) -> list:
@@ -702,6 +731,26 @@ def test_encoder_tokenizes_as_the_jax_encoder(encoder_weights, tmp_path, layout)
         assert ours.tokenize(text) == theirs.tokenize(text), text
     assert ours.tokenize("Pod crashed OOMKilled")[0] == 101
     assert isinstance(semantic.build_embedder(path, device="cpu"), semantic.NeuralEmbedder)
+
+
+@pytest.mark.parametrize("layout", ["vocab_txt", "tokenizer_json", "both_disagreeing"])
+def test_encoder_tokenizes_unicode_texts_as_the_jax_encoder(encoder_weights, tmp_path, layout):
+    """The texts where Python's Unicode data and the library's differ
+    (:data:`UNICODE_PROMPTS`), through ``NeuralEmbedder.from_checkpoint``
+    and the JAX encoder's ``AutoTokenizer``: the same ids, none of them
+    ``[UNK]`` where the checkpoint lowercases (the vocabulary holds both
+    readings' pieces)."""
+    from operator_tpu.patterns import semantic as jax_semantic
+    from operator_tpu_torch.patterns import semantic
+
+    path = _layout(encoder_weights, str(tmp_path / layout), layout)
+    ours = semantic.NeuralEmbedder.from_checkpoint(path, device="cpu")
+    theirs = jax_semantic.NeuralEmbedder.from_checkpoint(path)
+    for text in UNICODE_PROMPTS:
+        ids = theirs.tokenize(text)
+        assert ours.tokenize(text) == ids, text
+        if layout != "both_disagreeing":
+            assert 100 not in ids, text
 
 
 if __name__ == "__main__":
