@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py [--out results.json] [--seed N]
         [--phases device,kernels,train,serve,wave,guided,graphs,analysis,checkpoint,
-                  tokenizers,operator,remote,fleet,deployed,fabric,prefix,contiguous,mesh,
-                  parity]
+                  tokenizers,operator,remote,fleet,deployed,deploy,fabric,prefix,contiguous,
+                  mesh,parity]
 
 Runs on one CUDA card, from the root of a checkout; exits non-zero, and
 prints no result, when no card is present or the package is missing.
@@ -380,7 +380,37 @@ Phases, in order — any failure stops the run:
    one ``EngineReplica``, a stall after 40 steps: one restart, every
    arrival settles, no torn ledger line; the schedule's fingerprint, the
    attainment and the goodput are printed;
-14. fabric: the fleet KV fabric at llama-3-8b's full width, a prefill
+14. deploy: the port as it is deployed — ``Dockerfile.torch`` and
+   ``deploy/overlays/h100`` rendered in Python
+   (``operator_tpu_torch/utils/manifests.py``), each pod's container run
+   as the kubelet runs it: the rendered ``command`` (``python`` is this
+   interpreter) and ``env`` over the image's ``ENV``, in a copy of the
+   image's tree (its ``COPY`` lines), with PATH holding no ``nvcc``; only
+   the build directory, the volumes' paths and the Service URL of
+   ``KV_FABRIC_PEERS`` (this pod, the one endpoint) are remapped, each
+   remap printed, and a ``sitecustomize`` on PYTHONPATH writes the
+   kernels' launches at exit.  (a) The image's pre-build (``python -m
+   operator_tpu_torch.ops``, no card visible) into a fresh directory,
+   beside (b): its seconds, and a library for every kernel source.  (b) A
+   seeded llama-3-8b checkpoint (bf16, HF layout, ``save_params``, about
+   16 GB; free disk checked first) with the committed Llama-3 tokenizer,
+   where the pods' ``CHECKPOINT_DIR`` points.  (c) The serving pod: start
+   → listening → ``/healthz`` 200 → a first completion, then ten
+   ``/api/v1/analysis/analyze`` requests at once and SIGTERM once the
+   engine holds all ten: each answered 200, exit 0 within the grace
+   period less the preStop sleep.  (d) The operator pod against a stub
+   apiserver (``KubeFacade``): ``/healthz/live`` and ``/healthz/ready``
+   within their probes' windows, a failing pod's analysis stored (its
+   first, loading the model warm from the page cache), SIGTERM: exit 0
+   within the grace less the preStop sleep, the Lease released.  Each
+   pod's peak host RSS (the largest of ``VmHWM``, the sampled ``VmRSS``
+   and the reaped process's ``ru_maxrss``) against its rendered memory
+   limit, and its card memory; K1 launched in both pods, no wave kernel
+   (the overlay mounts no encoder, so the analysis matches lexically and
+   launches no K5).  It fails if a cold start takes over half its startup
+   probe's window, or if the pre-built directory's listing or mtimes
+   changed (a pod built a kernel).  The checkpoint is deleted at the end;
+15. fabric: the fleet KV fabric at llama-3-8b's full width, a prefill
    replica P (``REPLICA_ROLE=prefill``) and a decode replica D
    (``REPLICA_ROLE=decode``, ``KV_FABRIC_PEERS`` naming P) on the card,
    each built by ``build_serving_engine`` with the deployed phase's
@@ -417,7 +447,7 @@ Phases, in order — any failure stops the run:
    are printed.  (d) The auditor records no
    violation.  K1 launches 32 times per step of each engine, K2-K5
    never, and the pages balance after every drive;
-15. prefix: the long-prompt path of the wave engine at tinyllama-1.1b's
+16. prefix: the long-prompt path of the wave engine at tinyllama-1.1b's
    full width (int8, 32 slots, page 64, block 4, depth 2, flash prefill
    on).  (a) The int8 gate: ``parity_report`` of the seeded bf16 tree
    against ``quantize_params`` of it over the JAX test's two prompts and
@@ -446,7 +476,7 @@ Phases, in order — any failure stops the run:
    the one-shot K4 wave's on the same tokens; a prefixed wave after it,
    and nothing captured after the grid.  Then the 16 x 2,048 wave's
    prefill ms alone on the card, chunked and one-shot, in turns;
-16. contiguous: the wave engine's contiguous KV cache
+17. contiguous: the wave engine's contiguous KV cache
    (``KV_CACHE_MODE=contiguous``, a ``32 x 2,048`` cache) at
    tinyllama-1.1b's full width (int8, 32 slots, block 4, depth 2, flash
    prefill on, ``PREFIX_CACHE`` off), built by ``build_serving_engine``
@@ -472,7 +502,7 @@ Phases, in order — any failure stops the run:
    (c) On the worker: four live decode rows and a 16 x 2,048 wave with
    ``PREFILL_CHUNK=256`` (eight chunks, decode blocks between them), each
    row's first-token logits within 0.25 of the one-shot K4 wave's;
-17. mesh: sharded serving (``SERVING_MESH``) on the wave engine, the
+18. mesh: sharded serving (``SERVING_MESH``) on the wave engine, the
    deployed replica's knobs (llama-3-8b in int8 from a seed, 32 slots,
    ``SCHED_MODE`` at its default, continuous, which must fall back to the
    wave engine with the reference's warning naming the mesh, block 4,
@@ -497,7 +527,7 @@ Phases, in order — any failure stops the run:
    through the sharded loader in int8, 16 slots per data rank: every
    prefill bucket a multiple of 2, the answers held to a one-rank
    engine's as in (b), per-rank launches;
-18. parity: small f32 ``tiny-test`` engines on the card (kernels) and on
+19. parity: small f32 ``tiny-test`` engines on the card (kernels) and on
    the CPU (plain versions) must give the same greedy tokens — the
    continuous engine, and the wave engine with the decode selector at
    ``v1`` and ``v2`` and flash prefill on and off, and with a shared
@@ -536,6 +566,7 @@ import json
 import logging
 import os
 import re
+import shlex
 import shutil
 import statistics
 import subprocess
@@ -9661,13 +9692,710 @@ def phase_graphs(results: dict, kernel_modules: dict, seed: int) -> dict:
         shutil.rmtree(GRAPHS_DIR, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the port as it is deployed — Dockerfile.torch and
+# deploy/overlays/h100, each pod run as the kubelet runs it
+# ---------------------------------------------------------------------------
+
+DEPLOY_OVERLAY = os.path.join(ROOT, "deploy", "overlays", "h100")
+DEPLOY_DOCKERFILE = os.path.join(ROOT, "Dockerfile.torch")
+#: where the pods run; a CPU rehearsal sets "cpu" (each command then ends
+#: in ``--device cpu``), with DEPLOY_CONFIG (a ModelConfig's fields, under
+#: the overlay's model name) registered in each pod by the launch hook and
+#: DEPLOY_PREBUILD (a command) in place of the image's nvcc step
+DEPLOY_DEVICE = "cuda"
+DEPLOY_CONFIG = None
+DEPLOY_PREBUILD = None
+DEPLOY_REQUESTS = 10
+#: the analyze requests' tokens: long enough to be in flight at SIGTERM
+DEPLOY_TOKENS = 128
+#: free disk wanted beyond the checkpoint's own bytes
+DEPLOY_DISK_MARGIN = 2 * 2**30
+DEPLOY_POLL_S = 0.1
+#: the pods' launch hook (a ``sitecustomize`` on their PYTHONPATH): each
+#: kernel's launches written at exit, and a rehearsal's config registered
+DEPLOY_HOOK = """
+import atexit, json, os, sys
+KERNELS = {"ragged_paged_attention": "operator_tpu_torch.ops.ragged_attention",
+           "paged_decode_attention": "operator_tpu_torch.ops.paged_attention",
+           "flash_prefill_attention": "operator_tpu_torch.ops.flash_prefill",
+           "best_window_similarity": "operator_tpu_torch.ops.similarity"}
+def dump():
+    counts = {name: (sys.modules[module].launches if module in sys.modules else 0)
+              for name, module in KERNELS.items()}
+    with open(os.environ["CHIP_SMOKE_LAUNCHES_PATH"], "w") as fh:
+        json.dump(counts, fh)
+atexit.register(dump)
+if os.environ.get("CHIP_SMOKE_DEPLOY_CONFIG"):
+    sys.path.insert(0, os.getcwd())  # where ``-m`` finds the package, later on
+    from operator_tpu_torch.models.configs import ModelConfig, register_config
+    register_config(ModelConfig(**json.loads(os.environ["CHIP_SMOKE_DEPLOY_CONFIG"])))
+"""
+#: the machine's environment a container keeps (what the image's base
+#: layers and the device plugin would give it)
+DEPLOY_KEEP_ENV = ("LD_LIBRARY_PATH", "LANG", "LC_ALL", "LC_CTYPE", "PYTHONPATH",
+                   "CUDA_VISIBLE_DEVICES", "NVIDIA_VISIBLE_DEVICES",
+                   "NVIDIA_DRIVER_CAPABILITIES")
+
+
+def memory_bytes(quantity: str) -> int:
+    """A Kubernetes memory quantity (``48Gi``, ``512Mi``, ``16G``) in bytes."""
+    units = {"Ki": 2**10, "Mi": 2**20, "Gi": 2**30, "Ti": 2**40,
+             "k": 10**3, "M": 10**6, "G": 10**9, "T": 10**12}
+    for unit, factor in units.items():
+        if quantity.endswith(unit):
+            return int(float(quantity[:-len(unit)]) * factor)
+    return int(quantity)
+
+
+def probe_window_s(probe: dict) -> float:
+    """How long after the container starts the kubelet gives ``probe``
+    before it acts: the first check's delay and every allowed failure
+    (Kubernetes' defaults: period 10 s, threshold 3)."""
+    return (probe.get("initialDelaySeconds", 0)
+            + probe.get("periodSeconds", 10) * probe.get("failureThreshold", 3))
+
+
+def stop_budget_s(spec: dict, container: dict) -> float:
+    """The grace period less the preStop hook's sleep: what SIGTERM
+    leaves the process."""
+    hook = ((container.get("lifecycle") or {}).get("preStop") or {}).get("exec") or {}
+    command = hook.get("command") or []
+    sleep = float(command[1]) if command[:1] == ["sleep"] else 0.0
+    return spec.get("terminationGracePeriodSeconds", 30) - sleep
+
+
+def tree_listing(directory: str) -> dict:
+    """Every file under ``directory``: (size, mtime in ns)."""
+    out = {}
+    for base, _, names in os.walk(directory):
+        for name in names:
+            path = os.path.join(base, name)
+            info = os.stat(path)
+            out[os.path.relpath(path, directory)] = (info.st_size, info.st_mtime_ns)
+    return out
+
+
+def image_tree(stage, app: str) -> None:
+    """The stage's ``COPY`` lines from the checkout into ``app`` (its
+    WORKDIR); a copy from another stage is the pre-built directory, which
+    the caller names instead."""
+    for sources, destination, origin in stage.copies:
+        if origin is not None:
+            continue
+        for source in sources:
+            src = os.path.join(ROOT, source)
+            dst = os.path.join(app, destination)
+            if os.path.isdir(src):
+                shutil.copytree(src, dst, dirs_exist_ok=True,
+                                ignore=shutil.ignore_patterns("__pycache__", "*.pyc", "*.so"))
+            else:
+                os.makedirs(os.path.dirname(dst), exist_ok=True)
+                shutil.copy2(src, dst)
+
+
+def machine_path() -> str:
+    """PATH with this interpreter first and no directory that holds
+    ``nvcc``: the runtime image has no CUDA toolkit."""
+    dirs = [os.path.dirname(sys.executable), *os.environ.get("PATH", "").split(os.pathsep)]
+    return os.pathsep.join(dict.fromkeys(
+        d for d in dirs if d and not os.path.exists(os.path.join(d, "nvcc"))))
+
+
+def pod_environment(obj: dict, container: dict, image_env: dict, volumes: dict,
+                    workdir: str, pod_name: str) -> tuple:
+    """What the kubelet gives the container: the image's ENV, then the
+    rendered ``env`` (downward API from ``pod_name``), with each path
+    under a volume's mount and each image path in ``volumes`` remapped,
+    and a Service name in a URL pointed at this pod (the one endpoint
+    the headless Service would resolve to).  Returns (env, remaps)."""
+    mounts = {m["mountPath"]: volumes[m["name"]] for m in container.get("volumeMounts", [])}
+    mounts.update(volumes.get("image", {}))
+    remaps: dict = {}
+
+    def remap(name: str, value: str) -> str:
+        for mount, target in sorted(mounts.items(), key=lambda kv: -len(kv[0])):
+            if value == mount or value.startswith(mount.rstrip("/") + "/"):
+                new = target + value[len(mount.rstrip("/")):]
+                remaps[name] = [value, new]
+                return new
+        match = re.fullmatch(r"(https?://)([a-z0-9-]+)(:\d+.*)", value)
+        if match and match.group(2) != "localhost":
+            new = f"{match.group(1)}127.0.0.1{match.group(3)}"
+            remaps[name] = [value, new]
+            return new
+        return value
+
+    home = os.path.join(workdir, pod_name, "home")
+    tmp = os.path.join(workdir, pod_name, "tmp")
+    os.makedirs(home, exist_ok=True)
+    os.makedirs(tmp, exist_ok=True)
+    env = {k: os.environ[k] for k in DEPLOY_KEEP_ENV if k in os.environ}
+    env.update({"PATH": machine_path(), "HOME": home, "TMPDIR": tmp})
+    for name, value in image_env.items():
+        env[name] = remap(name, value)
+    fields = {"metadata.name": pod_name, "metadata.namespace": obj["metadata"]["namespace"]}
+    for entry in container.get("env", []):
+        if "valueFrom" in entry:
+            env[entry["name"]] = fields[entry["valueFrom"]["fieldRef"]["fieldPath"]]
+        else:
+            env[entry["name"]] = remap(entry["name"], str(entry.get("value", "")))
+    return env, remaps
+
+
+def pod_volumes(spec: dict, workdir: str, pod_name: str) -> dict:
+    """Each volume of the pod spec -> a directory: a claim's by its name
+    (pods of one claim share it), an emptyDir the pod's own."""
+    out = {}
+    for volume in spec.get("volumes", []):
+        claim = (volume.get("persistentVolumeClaim") or {}).get("claimName")
+        path = (os.path.join(workdir, "claims", claim) if claim
+                else os.path.join(workdir, pod_name, volume["name"]))
+        os.makedirs(path, exist_ok=True)
+        out[volume["name"]] = path
+    return out
+
+
+class PodSampler:
+    """A pod process's resident host memory and the card's memory in use
+    beyond ``baseline``, sampled on a thread: ``VmHWM`` (the kernel's
+    peak) where ``/proc/<pid>/status`` has it, and the largest ``VmRSS``
+    seen; the caller adds the ``ru_maxrss`` of the reaped process."""
+
+    def __init__(self, pid: int, baseline: "int | None") -> None:
+        self.pid, self.baseline = pid, baseline
+        self.vm_hwm = 0
+        self.vm_rss = 0
+        self.card_peak = 0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, name="pod-sampler", daemon=True)
+        self._thread.start()
+
+    def sample(self) -> None:
+        try:
+            with open(f"/proc/{self.pid}/status") as fh:
+                for line in fh:
+                    if line.startswith("VmHWM:"):
+                        self.vm_hwm = max(self.vm_hwm, int(line.split()[1]) * 1024)
+                    elif line.startswith("VmRSS:"):
+                        self.vm_rss = max(self.vm_rss, int(line.split()[1]) * 1024)
+        except OSError:
+            pass
+        if self.baseline is not None:
+            import torch
+
+            free, total = torch.cuda.mem_get_info()
+            self.card_peak = max(self.card_peak, total - free - self.baseline)
+
+    def _run(self) -> None:
+        while not self._stop.wait(0.25):
+            self.sample()
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._thread.join(5)
+
+
+def card_used() -> "int | None":
+    if DEPLOY_DEVICE != "cuda":
+        return None
+    import torch
+
+    free, total = torch.cuda.mem_get_info()
+    return total - free
+
+
+def port_free(port: int) -> bool:
+    import socket
+
+    with socket.socket() as sock:
+        sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        try:
+            sock.bind(("0.0.0.0", port))
+            return True
+        except OSError:
+            return False
+
+
+def wait_for(check, proc, until: float, what: str, log_path: str) -> float:
+    """Poll ``check()`` until true (a refused connection or an HTTP error
+    reads as false) and return when.  Fails if the process ends or
+    ``until`` passes."""
+    while time.monotonic() < until:
+        if proc.poll() is not None:
+            raise fail(f"deploy: the pod exited {proc.returncode} before {what}; "
+                       f"log tail: {log_tail(log_path)}")
+        try:
+            if check():
+                return time.monotonic()
+        except OSError:
+            pass
+        time.sleep(DEPLOY_POLL_S)
+    raise fail(f"deploy: no {what} by the deadline; log tail: {log_tail(log_path)}")
+
+
+def log_tail(path: str, size: int = 3000) -> str:
+    with open(path, encoding="utf-8", errors="replace") as fh:
+        return fh.read()[-size:]
+
+
+def tcp_open(port: int) -> bool:
+    import socket
+
+    with socket.socket() as sock:
+        sock.settimeout(1.0)
+        return sock.connect_ex(("127.0.0.1", port)) == 0
+
+
+def pod_command(container: dict) -> list:
+    """The rendered command with ``python`` as this interpreter (the
+    machine's, standing in for the image's)."""
+    command = list(container["command"])
+    if command[0] in ("python", "python3"):
+        command[0] = sys.executable
+    if DEPLOY_DEVICE != "cuda":
+        command += ["--device", DEPLOY_DEVICE]
+    return command
+
+
+class Pod:
+    """One container started as the kubelet starts it, its output in a
+    log, its memory sampled, and its launch counts read at its exit."""
+
+    def __init__(self, name: str, obj: dict, image, kernels_dir: str, workdir: str,
+                 hook_dir: str, extra_env: "dict | None" = None) -> None:
+        self.name = name
+        self.spec = obj["spec"]["template"]["spec"]
+        self.container = self.spec["containers"][0]
+        volumes = pod_volumes(self.spec, workdir, name)
+        volumes["image"] = {image.env["OPERATOR_TPU_TORCH_BUILD_DIR"]: kernels_dir}
+        self.env, self.remaps = pod_environment(obj, self.container, image.env, volumes,
+                                                workdir, name)
+        self.launches_path = os.path.join(workdir, name, "launches.json")
+        self.env["PYTHONPATH"] = os.pathsep.join(
+            p for p in (hook_dir, self.env.get("PYTHONPATH")) if p)
+        self.env["CHIP_SMOKE_LAUNCHES_PATH"] = self.launches_path
+        if DEPLOY_CONFIG is not None:
+            self.env["CHIP_SMOKE_DEPLOY_CONFIG"] = json.dumps(DEPLOY_CONFIG)
+        self.env.update(extra_env or {})
+        self.command = pod_command(self.container)
+        self.log_path = os.path.join(workdir, f"{name}.log")
+        self.proc = None
+        self.sampler = None
+        self.max_rss = 0  # the reaped process's ru_maxrss, bytes
+        self.children_max_rss = 0  # the largest earlier child's, bytes
+
+    def start(self, app: str) -> float:
+        import resource
+
+        baseline = card_used()
+        self.children_max_rss = resource.getrusage(resource.RUSAGE_CHILDREN).ru_maxrss * 1024
+        with open(self.log_path, "w") as log:
+            started = time.monotonic()
+            self.proc = subprocess.Popen(self.command, cwd=app, env=self.env, stdout=log,
+                                         stderr=subprocess.STDOUT)
+        self.sampler = PodSampler(self.proc.pid, baseline)
+        return started
+
+    def terminate(self, budget_s: float) -> tuple:
+        """SIGTERM, then the exit code and its seconds (None past twice
+        the budget, so a hung drain fails instead of stalling the run).
+        The process is reaped with ``wait4``, for its own ``ru_maxrss``."""
+        import signal
+
+        self.sampler.sample()
+        self.proc.send_signal(signal.SIGTERM)
+        sent = time.monotonic()
+        while time.monotonic() < sent + 2 * budget_s:
+            pid, status, usage = os.wait4(self.proc.pid, os.WNOHANG)
+            if pid:
+                self.proc.returncode = os.waitstatus_to_exitcode(status)
+                self.max_rss = usage.ru_maxrss * 1024  # kB on Linux
+                return self.proc.returncode, time.monotonic() - sent
+            time.sleep(0.02)
+        return None, time.monotonic() - sent
+
+    def close(self) -> None:
+        if self.sampler is not None:
+            self.sampler.stop()
+        if self.proc is not None and self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(30)
+
+    def launches(self) -> dict:
+        if not os.path.exists(self.launches_path):
+            raise fail(f"deploy: {self.name} wrote no launch counts at exit; "
+                       f"log tail: {log_tail(self.log_path)}")
+        with open(self.launches_path) as fh:
+            return json.load(fh)
+
+    def memory(self, limit: "str | None") -> dict:
+        """The peak resident host memory by each reading (the largest is
+        the one held to ``limit``) and the card's peak in use.  The
+        reaped ``ru_maxrss`` counts only when it exceeds every earlier
+        child's: a kernel that reports the largest of all children there
+        (as the card's machine does) cannot attribute a smaller one."""
+        readings = {"vm_hwm_gib": self.sampler.vm_hwm / 2**30,
+                    "vm_rss_max_sampled_gib": self.sampler.vm_rss / 2**30,
+                    "ru_maxrss_gib": (self.max_rss / 2**30
+                                      if self.max_rss > self.children_max_rss else 0.0)}
+        return {"peak_rss_gib": max(readings.values()), **readings,
+                "ru_maxrss_reaped_gib": self.max_rss / 2**30,
+                "earlier_children_max_rss_gib": self.children_max_rss / 2**30,
+                "limit": limit, "limit_gib": memory_bytes(limit) / 2**30 if limit else None,
+                "card_gib": (self.sampler.card_peak / 2**30
+                             if self.sampler.baseline is not None else None)}
+
+
+def deploy_prebuild(stage, app: str, kernels_dir: str) -> subprocess.Popen:
+    """(a) The image's pre-build step (the build stage's RUN that runs
+    the port's ops module) in a child with no card visible, into a fresh
+    directory standing for the stage's OPERATOR_TPU_TORCH_BUILD_DIR."""
+    [run] = [r for r in stage.runs if "operator_tpu_torch.ops" in r]
+    command = DEPLOY_PREBUILD or shlex.split(run)
+    if command[0] in ("python", "python3"):
+        command = [sys.executable, *command[1:]]
+    env = {**os.environ, **stage.env, "OPERATOR_TPU_TORCH_BUILD_DIR": kernels_dir,
+           "CUDA_VISIBLE_DEVICES": ""}
+    print(json.dumps({"deploy_prebuild_command": command, "remap": {
+        "OPERATOR_TPU_TORCH_BUILD_DIR": [stage.env["OPERATOR_TPU_TORCH_BUILD_DIR"],
+                                         kernels_dir]}}), flush=True)
+    return subprocess.Popen(command, cwd=app, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def deploy_checkpoint(directory: str, model: str) -> dict:
+    """(b) A seeded ``model`` checkpoint in bf16, HF layout, written by
+    the loader's own writer, with the committed Llama-3 tokenizer."""
+    import torch
+
+    from operator_tpu_torch.models.configs import get_config
+    from operator_tpu_torch.models.llama import init_params
+    from operator_tpu_torch.models.loader import save_params
+
+    config = get_config(model)
+    per_layer = (2 * config.hidden_size * config.num_heads * config.head_dim
+                 + 2 * config.hidden_size * config.num_kv_heads * config.head_dim
+                 + 3 * config.hidden_size * config.intermediate_size + 2 * config.hidden_size)
+    need = 2 * (config.num_layers * per_layer + 2 * config.vocab_size * config.hidden_size
+                + config.hidden_size)
+    os.makedirs(directory, exist_ok=True)
+    free = shutil.disk_usage(directory).free
+    if free < need + DEPLOY_DISK_MARGIN:
+        raise fail(f"deploy: the {model} checkpoint needs {need / 2**30:.1f} GiB and "
+                   f"{DEPLOY_DISK_MARGIN / 2**30:.0f} GiB to spare under {directory}, "
+                   f"which has {free / 2**30:.1f} GiB free")
+    seeded = init_params(config, torch.Generator(device=DEPLOY_DEVICE).manual_seed(0),
+                         torch.bfloat16, device=DEPLOY_DEVICE)
+    started = time.perf_counter()
+    files = save_params(seeded, directory, config)
+    write_s = time.perf_counter() - started
+    del seeded
+    if DEPLOY_DEVICE == "cuda":
+        release_card()
+    for name in ("tokenizer.json", "tokenizer_config.json"):
+        shutil.copy(os.path.join(LLAMA3_TOKENIZER, name), os.path.join(directory, name))
+    written = sum(os.path.getsize(os.path.join(directory, f)) for f in files)
+    return {"model": model, "files": len(files), "bytes": written,
+            "expected_bytes": need, "disk_free_gib_before": free / 2**30,
+            "write_s": write_s, "write_gb_per_s": written / write_s / 1e9,
+            "tokenizer": os.path.relpath(LLAMA3_TOKENIZER, ROOT)}
+
+
+def deploy_serving(pod: Pod, app: str, report) -> dict:
+    """(c) The serving replica: start → listening → ``/healthz`` 200 →
+    a first completion; ten analyze requests at once and SIGTERM while
+    the engine holds all ten: every one answered 200, exit 0 within the
+    grace period less the preStop sleep."""
+    import http.client
+
+    port = next(p["containerPort"] for p in pod.container["ports"] if p["name"] == "http")
+    window = probe_window_s(pod.container["startupProbe"])
+    budget = stop_budget_s(pod.spec, pod.container)
+    if not port_free(port):
+        raise fail(f"deploy: port {port} is taken on this machine")
+    started = pod.start(app)
+    until = started + window
+    listening = wait_for(lambda: tcp_open(port), pod.proc, until, "listening", pod.log_path)
+    ready = wait_for(lambda: http_get(port, "/healthz")[0] == 200, pod.proc, until,
+                     "/healthz 200", pod.log_path)
+    first = _post(f"http://127.0.0.1:{port}/v1/completions",
+                  {"prompt": "pod crashed with exit code 137", "max_tokens": 8,
+                   "temperature": 0.0}, timeout=window)
+    answered = time.monotonic()
+    if not first.get("choices"):
+        raise fail(f"deploy: the first completion came back without choices: {first}")
+    out = {"start_to_listening_s": listening - started, "start_to_healthz_s": ready - started,
+           "start_to_first_answer_s": answered - started, "startup_window_s": window}
+    for key in ("start_to_listening_s", "start_to_healthz_s", "start_to_first_answer_s"):
+        report(f"serving_{key}", out[key], startup_window_s=window)
+
+    # ten analyze requests, each sent whole before SIGTERM
+    requests = provider_requests()[:DEPLOY_REQUESTS]
+    answers: list = [None] * len(requests)
+    connections = []
+    for request in requests:
+        request.provider_config.max_tokens = DEPLOY_TOKENS
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=2 * budget + 60)
+        conn.request("POST", "/api/v1/analysis/analyze", json.dumps(request.to_dict()),
+                     {"Content-Type": "application/json"})
+        connections.append(conn)
+
+    def answer(i: int) -> None:
+        try:
+            response = connections[i].getresponse()
+            answers[i] = (response.status, time.monotonic(), json.loads(response.read()))
+        except (OSError, http.client.HTTPException, ValueError) as exc:
+            answers[i] = (None, time.monotonic(), repr(exc))
+
+    readers = [threading.Thread(target=answer, args=(i,), daemon=True)
+               for i in range(len(requests))]
+    for thread in readers:
+        thread.start()
+
+    def held() -> bool:
+        load = healthz(port).get("load") or {}
+        return load.get("queueDepth", 0) + load.get("inflight", 0) >= len(requests)
+
+    wait_for(held, pod.proc, time.monotonic() + 60, "all ten requests in the engine",
+             pod.log_path)
+    before = sum(a is not None for a in answers)
+    rc, exit_s = pod.terminate(budget)
+    terminated = time.monotonic() - exit_s
+    for thread in readers:
+        thread.join(2 * budget + 60)
+    statuses = [a[0] if a else None for a in answers]
+    bad = [a for a in answers if not a or a[0] != 200 or not isinstance(a[2], dict)
+           or a[2].get("error") or not a[2].get("completionTokens")]
+    drain = {"requests": len(requests), "answered_before_sigterm": before,
+             "statuses": statuses,
+             "answered_after_sigterm_s": [a[1] - terminated for a in answers if a],
+             "completion_tokens": [a[2].get("completionTokens") for a in answers
+                                   if a and isinstance(a[2], dict)],
+             "exit_code": rc, "sigterm_to_exit_s": exit_s, "stop_budget_s": budget}
+    out["drain"] = drain
+    report("serving_drain", drain)
+    if before or bad or rc != 0 or exit_s > budget:
+        raise fail(f"deploy: the serving pod's drain: {drain}; bad answers {bad[:2]}; "
+                   f"log tail: {log_tail(pod.log_path)}")
+    if out["start_to_healthz_s"] > window / 2:
+        raise fail(f"deploy: the serving pod took {out['start_to_healthz_s']:.1f} s to "
+                   f"/healthz, over half its startup window of {window:.0f} s")
+    return out
+
+
+def deploy_operator(pod: Pod, app: str, facade, serving_obj: dict, model: str,
+                    report) -> dict:
+    """(d) The operator against the stub apiserver: start → listening →
+    ``/healthz/live`` → ``/healthz/ready`` → a failing pod's stored
+    analysis (its first, which loads the model), then SIGTERM: exit 0
+    within the grace period less the preStop sleep, the Lease released."""
+    api = facade.api
+    port = next(p["containerPort"] for p in pod.container["ports"] if p["name"] == "health")
+    window = probe_window_s(pod.container["startupProbe"])
+    ready_window = probe_window_s(pod.container["readinessProbe"])
+    budget = stop_budget_s(pod.spec, pod.container)
+    lease_ns = pod.env["LEASE_NAMESPACE"]
+    if not port_free(port):
+        raise fail(f"deploy: port {port} is taken on this machine")
+
+    async def seed() -> None:
+        await api.create("Deployment", json.loads(json.dumps(serving_obj)))
+        for kind, obj in fleet_resources(model, "tpu-native", {"deploy": DEPLOY_TOKENS}):
+            await api.create(kind, obj)
+
+    facade.call(seed())
+    started = pod.start(app)
+    listening = wait_for(lambda: tcp_open(port), pod.proc, started + window, "listening",
+                         pod.log_path)
+    live = wait_for(lambda: http_get(port, "/healthz/live")[0] == 200, pod.proc,
+                    started + window, "/healthz/live 200", pod.log_path)
+    ready = wait_for(lambda: http_get(port, "/healthz/ready")[0] == 200, pod.proc,
+                     started + ready_window, "/healthz/ready 200", pod.log_path)
+    api.set_pod_log("prod", "payment-deploy", "\n".join(fixture_lines("oom_java.log")),
+                    previous=True)
+    seeded = time.monotonic()
+    facade.call(api.create("Pod", operator_pod("payment-deploy", "deploy",
+                                               "2026-07-28T13:00:00Z")))
+    entry, poked = None, 0
+    until = seeded + OPERATOR_QUEUE_S + 300
+    while time.monotonic() < until and pod.proc.poll() is None:
+        status = facade.call(api.get("Podmortem", "watch-payment-deploy", "ops")).get("status")
+        entries = (status or {}).get("recentFailures") or []
+        if entries:
+            entry = entries[0]
+            break
+        if time.monotonic() - seeded > 5 * (poked + 1):
+            poked += 1  # the MODIFIED the watcher reacts to, if the pod came first
+            facade.call(api.patch("Pod", "payment-deploy", "prod", {
+                "metadata": {"labels": {"poked": str(poked)}}}))
+        time.sleep(DEPLOY_POLL_S)
+    stored = time.monotonic()
+    out = {"start_to_listening_s": listening - started, "start_to_live_s": live - started,
+           "start_to_ready_s": ready - started, "pod_to_stored_s": stored - seeded,
+           "start_to_stored_s": stored - started, "startup_window_s": window,
+           "readiness_window_s": ready_window,
+           "status": (entry or {}).get("analysisStatus")}
+    for key in ("start_to_listening_s", "start_to_live_s", "start_to_ready_s",
+                "pod_to_stored_s", "start_to_stored_s"):
+        report(f"operator_{key}", out[key], startup_window_s=window,
+               readiness_window_s=ready_window)
+    rc, exit_s = pod.terminate(budget)
+    lease = facade.call(api.get("Lease", "podmortem-tpu-operator", lease_ns))["spec"]
+    out["stop"] = {"exit_code": rc, "sigterm_to_exit_s": exit_s, "stop_budget_s": budget,
+                   "lease_holder": lease.get("holderIdentity")}
+    report("operator_stop", out["stop"])
+    if entry is None or out["status"] != "Analyzed":
+        raise fail(f"deploy: the operator stored {entry} for the failing pod; "
+                   f"log tail: {log_tail(pod.log_path)}")
+    if rc != 0 or exit_s > budget or lease.get("holderIdentity") != "":
+        raise fail(f"deploy: the operator's stop: {out['stop']}; "
+                   f"log tail: {log_tail(pod.log_path)}")
+    if out["start_to_live_s"] > window / 2:
+        raise fail(f"deploy: the operator took {out['start_to_live_s']:.1f} s to "
+                   f"/healthz/live, over half its startup window of {window:.0f} s")
+    return out
+
+
+def phase_deploy(results: dict, kernel_modules: dict) -> dict:
+    """``Dockerfile.torch`` and ``deploy/overlays/h100`` on this machine:
+    (a) the image's kernel pre-build, (b) a seeded checkpoint of the
+    overlay's model, (c) the serving pod and (d) the operator pod, each
+    run as the kubelet runs its container (the rendered command and env
+    on the image's tree and ENV; only the build directory, the volumes'
+    paths and a Service URL remapped, each remap printed).  Returns the
+    kernels' launches summed over both pods."""
+    import tempfile
+
+    from operator_tpu_torch.models.configs import get_config, register_config
+    from operator_tpu_torch.operator.kubefacade import KubeFacade
+    from operator_tpu_torch.ops import _build
+    from operator_tpu_torch.utils import manifests
+
+    card = card_line()
+    out: dict = {"card": card}
+
+    def report(name: str, value, **extra) -> None:
+        print(json.dumps({f"deploy_{name}": value, **extra, "card": card}), flush=True)
+
+    if DEPLOY_CONFIG is not None:
+        from operator_tpu_torch.models.configs import ModelConfig
+
+        register_config(ModelConfig(**DEPLOY_CONFIG))
+    objects = manifests.render(DEPLOY_OVERLAY)
+    build, image = manifests.read_dockerfile(DEPLOY_DOCKERFILE)
+    serving_obj = manifests.deployment(objects, "podmortem-serving")
+    operator_obj = manifests.deployment(objects, "podmortem-tpu-operator")
+    if DEPLOY_DEVICE == "cuda":
+        release_card()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    workdir = tempfile.mkdtemp(prefix="deploy-", dir=os.path.join(ROOT, "build"))
+    pods: list = []
+    facade = None
+    try:
+        app = os.path.join(workdir, "app")  # the image's WORKDIR
+        image_tree(image, app)
+        hook_dir = os.path.join(workdir, "hook")
+        os.makedirs(hook_dir)
+        with open(os.path.join(hook_dir, "sitecustomize.py"), "w") as fh:
+            fh.write(DEPLOY_HOOK)
+        kernels_dir = os.path.join(workdir, "kernels")
+
+        serving = Pod("serving", serving_obj, image, kernels_dir, workdir, hook_dir)
+        pods.append(serving)
+        model = serving.env["MODEL_ID"]
+        # (a) the pre-build, beside (b)'s checkpoint write
+        started = time.perf_counter()
+        prebuild = deploy_prebuild(build, app, kernels_dir)
+        # (b) the checkpoint, where the pods' CHECKPOINT_DIR points
+        out["checkpoint"] = deploy_checkpoint(serving.env["CHECKPOINT_DIR"], model)
+        report("checkpoint", out["checkpoint"])
+        stdout, stderr = prebuild.communicate(timeout=900)
+        prebuild_s = time.perf_counter() - started
+        lines = [line for line in stdout.splitlines() if line.startswith("{")]
+        if prebuild.returncode != 0 or not lines:
+            raise fail(f"deploy: the pre-build exited {prebuild.returncode}: {stderr[-3000:]}")
+        built = json.loads(lines[-1])
+        want = [_build.library_path(name).name for name in _build.source_names()]
+        listing = tree_listing(kernels_dir)
+        missing = [name for name in want if name not in listing]
+        if DEPLOY_PREBUILD is None and missing:
+            raise fail(f"deploy: the pre-build left no library for {missing}: {built}")
+        out["prebuild"] = {"seconds": built["seconds"], "process_s": prebuild_s,
+                           "libraries": sorted(listing), "sources": _build.source_names(),
+                           "overlapped_with": "the checkpoint write"}
+        report("prebuild_s", built["seconds"], process_s=prebuild_s,
+               libraries=len(listing), sources=len(want))
+
+        # (c) and (d), one after the other, on the same checkpoint
+        report("serving_pod", {"command": serving.command, "remaps": serving.remaps})
+        out["serving"] = deploy_serving(serving, app, report)
+        serving.close()
+        out["serving"]["memory"] = serving.memory(
+            manifests.container(serving_obj)["resources"]["limits"].get("memory"))
+        out["serving"]["launches"] = serving.launches()
+        report("serving_memory", out["serving"]["memory"])
+        facade = KubeFacade(namespace=operator_obj["metadata"]["namespace"]).start()
+        kubeconfig = facade.write_kubeconfig(os.path.join(workdir, "kubeconfig"))
+        operator = Pod("operator", operator_obj, image, kernels_dir, workdir, hook_dir,
+                       {"KUBECONFIG": kubeconfig})
+        operator.remaps["KUBECONFIG"] = ["(in-cluster service account)", kubeconfig]
+        pods.append(operator)
+        report("operator_pod", {"command": operator.command, "remaps": operator.remaps})
+        out["operator"] = deploy_operator(operator, app, facade, serving_obj, model, report)
+        operator.close()
+        limit = manifests.container(operator_obj)["resources"]["limits"].get("memory")
+        out["operator"]["memory"] = operator.memory(limit)
+        out["operator"]["launches"] = operator.launches()
+        report("operator_memory", out["operator"]["memory"])
+        out["load_order"] = ("serving first, from the checkpoint just written (its pages "
+                             "may still be cached); operator second, warm")
+
+        # nothing was built by a pod, and each pod ran the main path's kernel
+        after = tree_listing(kernels_dir)
+        out["no_pod_build"] = {"files": len(after), "unchanged": after == listing,
+                               "nvcc_on_a_pods_path": [p.name for p in pods if shutil.which(
+                                   "nvcc", path=p.env["PATH"])]}
+        report("no_pod_build", out["no_pod_build"])
+        if after != listing or out["no_pod_build"]["nvcc_on_a_pods_path"]:
+            raise fail(f"deploy: a pod changed the pre-built directory: "
+                       f"{sorted(set(after.items()) ^ set(listing.items()))}")
+        for name, part in (("serving", out["serving"]), ("operator", out["operator"])):
+            memory = part["memory"]
+            if not memory["peak_rss_gib"]:
+                raise fail(f"deploy: no reading of the {name} pod's resident memory: {memory}")
+            if memory["limit"] and memory["peak_rss_gib"] > memory["limit_gib"]:
+                raise fail(f"deploy: the {name} pod's peak RSS {memory['peak_rss_gib']:.2f} "
+                           f"GiB is over its limit {memory['limit']}")
+        total = {name: out["serving"]["launches"][name] + out["operator"]["launches"][name]
+                 for name in kernel_modules}
+        layers = get_config(model).num_layers
+        if DEPLOY_DEVICE == "cuda" and (
+                out["serving"]["launches"]["ragged_paged_attention"] < layers
+                or out["operator"]["launches"]["ragged_paged_attention"] < layers
+                or total["paged_decode_attention"] or total["flash_prefill_attention"]):
+            raise fail(f"deploy: the pods' launches: serving {out['serving']['launches']}, "
+                       f"operator {out['operator']['launches']}")
+        out["launches"] = total
+        report("launches", {"serving": out["serving"]["launches"],
+                            "operator": out["operator"]["launches"]})
+        results["deploy"] = out
+        return total
+    finally:
+        for pod in pods:
+            pod.close()
+        if facade is not None:
+            facade.stop()
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="also write every result to this JSON file")
     parser.add_argument("--phases",
                         default="device,kernels,train,serve,wave,guided,graphs,analysis,"
-                                "checkpoint,tokenizers,operator,remote,fleet,deployed,fabric,"
-                                "prefix,contiguous,mesh,parity")
+                                "checkpoint,tokenizers,operator,remote,fleet,deployed,deploy,"
+                                "fabric,prefix,contiguous,mesh,parity")
     parser.add_argument("--seed", type=int, default=0,
                         help="the guided and train phases' weights and adapters")
     parser.add_argument("--graphs-warm", metavar="PLAN",
@@ -9780,6 +10508,8 @@ def main() -> int:
             shutil.rmtree(dirs["workdir"], ignore_errors=True)
     deployed = timed("deployed", phase_deployed, results, kernel_modules) \
         if "deployed" in phases else {}
+    deploy = timed("deploy", phase_deploy, results, kernel_modules) \
+        if "deploy" in phases else {}
     fabric = timed("fabric", phase_fabric, results, kernel_modules) if "fabric" in phases else {}
     prefix = timed("prefix", phase_prefix, results, kernel_modules) \
         if "prefix" in phases else {}
@@ -9813,6 +10543,7 @@ def main() -> int:
         record["launches_remote"] = remote.get(base)
         record["launches_fleet"] = fleet.get(base)
         record["launches_deployed"] = deployed.get(base)
+        record["launches_deploy"] = deploy.get(base)
         record["launches_fabric"] = fabric.get(base)
         record["launches_guided"] = guided.get(base)
         record["launches_prefix"] = prefix.get(base)

@@ -18,7 +18,10 @@ three directions, each of which has a distinct failure smell:
 The rule therefore cross-references four surfaces: config fields
 (parsed from ``utils/config.py``), code-level ``os.environ``/
 ``os.getenv`` reads (regex scan, same technique as GL005's metric
-scan), ``deploy/**/*.yaml`` env rows, and the README/docs text.
+scan), ``deploy/**/*.yaml`` env rows, and the README/docs text.  An
+overlay's row that deletes a base entry (``$patch: delete``, a
+strategic-merge directive) sets nothing, so it is no dead setting: such
+rows are how an overlay drops the settings this rule would flag.
 Pragmas cannot annotate YAML/Markdown, so deliberate exceptions go in
 the committed baseline — which this repo keeps EMPTY, so there are
 none.
@@ -41,11 +44,27 @@ _ENV_READ = re.compile(
 #: a k8s env row: `- name: UPPER_SNAKE` (ports/volumes/containers use
 #: lowercase names and never match)
 _YAML_ENV_ROW = re.compile(r"^\s*-\s*name:\s*([A-Z][A-Z0-9_]*)\s*$")
+#: a strategic-merge patch's deletion of the list element it sits in
+_YAML_PATCH_DELETE = re.compile(r"^\s*\$patch:\s*delete\s*$")
 #: backticked env names in a README table row's first cell
 _README_ROW = re.compile(r"^\|[^|]*\|")
 _BACKTICKED_ENV = re.compile(r"`([A-Z][A-Z0-9_]*)`")
 
 CONFIG_RELPATH = "operator_tpu_torch/utils/config.py"
+
+
+def _deletes(lines: list[str], lineno: int) -> bool:
+    """Whether the list element opened on line ``lineno`` (1-based) holds
+    ``$patch: delete``: the lines after it indented past its dash."""
+    dash = len(lines[lineno - 1]) - len(lines[lineno - 1].lstrip())
+    for line in lines[lineno:]:
+        if not line.strip() or line.lstrip().startswith("#"):
+            continue
+        if len(line) - len(line.lstrip()) <= dash:
+            return False
+        if _YAML_PATCH_DELETE.match(line):
+            return True
+    return False
 
 
 def _config_fields(tree: ast.Module) -> dict[str, tuple[str, int]]:
@@ -135,13 +154,10 @@ class ConfigDriftRule(Rule):
         # 2) deploy env rows must be consumed by the code
         for yaml_path in sorted(ctx.root.glob("deploy/**/*.yaml")):
             rel = yaml_path.relative_to(ctx.root).as_posix()
-            for lineno, line in enumerate(
-                yaml_path.read_text(encoding="utf-8", errors="replace")
-                .splitlines(),
-                start=1,
-            ):
+            lines = yaml_path.read_text(encoding="utf-8", errors="replace").splitlines()
+            for lineno, line in enumerate(lines, start=1):
                 match = _YAML_ENV_ROW.match(line)
-                if match and match.group(1) not in known_envs:
+                if match and match.group(1) not in known_envs and not _deletes(lines, lineno):
                     findings.append(Finding(
                         rule=self.id, path=rel, line=lineno,
                         symbol=match.group(1),

@@ -14,7 +14,9 @@ the replica's identity.  With AOT_CACHE_PATH the kernels are built into
 its ``kernels/`` directory, so a restart on the same volume runs no
 ``nvcc``.  The ``tpu-native`` provider answers
 ``/api/v1/analysis/analyze``.  Runs on the card unless ``--device cpu``
-is given.
+is given.  SIGTERM (the kubelet's stop) or SIGINT stops accepting, lets
+the requests in flight finish within the server's drain grace, closes
+the engine and exits 0.
 
 ``SERVING_MESH`` serves on a mesh of ranks.  One process (``auto`` on one
 card, or ``dp=1,tp=1``) makes its own one-rank group.  Under a launcher,
@@ -33,6 +35,29 @@ import argparse
 import asyncio
 import logging
 import os
+
+
+async def _until_signalled(serving) -> None:
+    """Run ``serving`` until SIGTERM or SIGINT, then cancel it once: its
+    ``finally`` stops accepting, drains the requests in flight within the
+    server's grace and closes the engine, so the kubelet's SIGTERM ends
+    the process with 0 after the drain, not with -15 before it."""
+    import signal
+
+    task = asyncio.ensure_future(serving)
+    loop = asyncio.get_running_loop()
+
+    def stop() -> None:
+        if not task.cancelling():  # a second signal must not cut the drain short
+            task.cancel()
+
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        loop.add_signal_handler(sig, stop)
+    try:
+        await task
+    except asyncio.CancelledError:
+        if not task.cancelled():
+            raise
 
 
 def main() -> None:
@@ -74,7 +99,7 @@ def main() -> None:
     )
     try:
         asyncio.run(
-            serve_forever(
+            _until_signalled(serve_forever(
                 engine,
                 model_id=model_id,
                 host=args.host,
@@ -89,10 +114,8 @@ def main() -> None:
                 ),
                 profile_enabled=cfg.profile_enabled,
                 profile_dir=cfg.profile_dir,
-            )
+            ))
         )
-    except KeyboardInterrupt:
-        pass
     finally:
         engine.close()  # a mesh's followers stop with rank 0
 

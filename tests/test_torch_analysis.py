@@ -1411,6 +1411,33 @@ def test_gl010_negative_round_trip(tmp_path):
     assert findings == []
 
 
+def test_gl010_an_overlays_delete_row_is_no_dead_setting(tmp_path):
+    """A strategic-merge row that deletes a base entry sets nothing: it
+    is how an overlay drops a setting the code never reads.  A row that
+    sets a value nothing reads is still flagged, also in an overlay."""
+    findings, _ = run_rule(tmp_path, "GL010", {
+        "operator_tpu_torch/utils/config.py": _GL010_CONFIG,
+        "README.md": """
+            | env | meaning |
+            |-----|---------|
+            | `POLL_INTERVAL_S` | poll cadence |
+            | `SECRET_TOKEN` | provider credential |
+        """,
+        "deploy/overlays/gpu/patch.yaml": """
+            env:
+              # dropped: nothing reads it
+              - name: OLD_RENAMED_KNOB
+                $patch: delete
+              - name: OTHER_DEAD_KNOB
+                value: "1"
+              - name: POLL_INTERVAL_S
+                value: "5"
+        """,
+    })
+    assert [(f.symbol, f.path) for f in findings] == [
+        ("OTHER_DEAD_KNOB", "deploy/overlays/gpu/patch.yaml")]
+
+
 # ---------------------------------------------------------------------------
 # GL011 await-atomicity
 # ---------------------------------------------------------------------------
