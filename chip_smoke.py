@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--out results.json] [--seed N]
         [--phases device,kernels,train,serve,wave,guided,graphs,analysis,checkpoint,
                   tokenizers,operator,remote,fleet,deployed,deploy,fabric,prefix,contiguous,
-                  mesh,parity]
+                  mesh,parity,families]
 
 Runs on one CUDA card, from the root of a checkout; exits non-zero, and
 prints no result, when no card is present or the package is missing.
@@ -42,7 +42,22 @@ Phases, in order — any failure stops the run:
    and K1 again at llama-3-8b's heads (QH=32, KH=8, D=128, the group of 4
    the deployed phase launches) over the three waves and the decode,
    window and off-grid geometries, held in bf16 and f32, and timed at the
-   three waves beside its bound and the SDPA call;
+   three waves beside its bound and the SDPA call; K1 at the families
+   phase's heads, D = 128 and groups of 7 (28/4, qwen2.5-7b), 3 (24/8,
+   llama-3.2-3b) and 6 (12/2, qwen2.5-1.5b), whose 64-row tiles cut a
+   token's heads, over the three waves, the verify rows and the off-grid
+   lengths, held and timed the same way; and under mistral-7b's
+   4,096-token window over its 8,192 positions (QH=32, KH=8, D=128, 128
+   pages of 64; tile 0 in 16 splits of 512): K1 on 32 rows of kv_len
+   4,097-8,192 (decode rows; decode, verify rows and two chunks), bf16
+   and f32, with whole splits before a row's window, timed with every row
+   at 8,192 beside every row at 4,096 without the window (the same live
+   keys); the paged decode kernel on 32 such rows and the prefill kernel
+   at T = 8,192, B = 1, under the window, held on every row and timed.
+   These outputs average thousands of random V rows (about 0.03), so
+   each of their query rows is also held to ``ROW_TOL`` (its largest
+   error over its largest plain output), which a split dropped or
+   counted twice fails (``scripts/torch_k1_merge_mutation.py``);
 3. train: training on the port's mesh layer (``parallel/``) over a real
    one-rank nccl group and a 1x1x1 ``DeviceMesh`` on the card.  (a) A full
    fine-tune of tinyllama-1.1b at full width (22 layers, hidden 2,048,
@@ -538,7 +553,46 @@ Phases, in order — any failure stops the run:
    sharing a prefix, a ``spill_cache()`` between them (and the warm wave
    the cold one's on the card); and a ``PatternEngine``
    with a tiny f32 ``NeuralEmbedder`` must find the same events on the
-   card as on the CPU over the 12 fixture logs (scores within 1e-4).
+   card as on the CPU over the 12 fixture logs (scores within 1e-4); and
+   the continuous engine (speculation on, depth 2) over three f32
+   variants of ``tiny-test`` carrying the other families' features — a
+   24-token window, q/k/v biases with groups of 7, tied embeddings with
+   llama3 RoPE scaling and groups of 3 — on prompts of three windows:
+   greedy tokens equal, K1 once per layer per step on the card;
+20. families: the model families beyond Llama through the continuous
+   main path as deployed (``build_serving_engine`` with ``SERVE_ENV``:
+   int8, 32 slots, page 64, chunk 64, depth 2, speculation, the prefix
+   cache, every step a CUDA graph from the ``serving`` warmup grid), each
+   at full width and serving its whole context (``SERVING_MAX_SEQ`` at
+   the model's ``max_seq_len``), behind
+   the port's HTTP server: (a) mistral-7b at full depth (32 layers, a
+   4,096-token window over 8,192 positions): a priming request caches a
+   shared head of 4,401 tokens, then ten requests of 4,500-7,000 prompt
+   tokens that reuse its 4,352 (more than the window) and 32 new tokens
+   each, so every row's kv_len passes the window; then one more request,
+   with its programs eager, whose first decode step has its 32 K1 calls
+   each held to the plain version (tile 0 in 16 splits, at least three
+   wholly before the window); (b) qwen2.5-7b cut to 4 layers (seeded
+   q/k/v biases, groups of 7, a 152,064-token vocabulary) and (c)
+   llama-3.2-3b cut to 4 layers (groups of 3, tied embeddings, llama3
+   scaling by 32), each over the serve phase's ten requests; (d)
+   qwen2.5-1.5b at full depth (28 layers, biases, tied embeddings, groups
+   of 6) loaded int8 through ``CHECKPOINT_DIR`` from a seeded bf16
+   checkpoint written under ``build/`` (3.1 GB; the byte tokenizer), its
+   tree the seeded tree's ``quantize_params`` byte for byte, and an
+   in-memory engine of the same tree.  Each drive is held until its ten
+   requests are queued, after a ``spill_cache()``, twice (the in-memory
+   engine once): K1 once per layer per step and no other kernel, pages
+   balanced in four terms, the greedy answers of the second drive (and
+   of (d)'s in-memory engine) the first's, nothing captured and no
+   ``nvcc`` build after the warmup grid.  Records tokens/s, stream ms a
+   step, the card's GiB, build and capture seconds; the card released
+   between engines.  Then (e) mistral-7b at full depth on the wave engine
+   (``SCHED_MODE=wave``, flash prefill on, programs captured at first
+   use): (a)'s first four bodies twice, K4 once per layer per prefill
+   wave and K2/K3 once per layer per step of each block, the greedy
+   answers equal; one more request's first decode step has its 32 K2/K3
+   calls held to the plain version past the window.
 
 ``--phases device,kernels,serve,profile`` (or ``...,wave,profile``, the
 ``v1`` drive, ``...,analysis,profile``, the long analysis, or
@@ -733,12 +787,14 @@ def held_record(name: str, held: HeldToPlain) -> dict:
 def k1_split_note(q, k_pages, v_pages, page_table, kv_len, q_count, sliding_window=None) -> dict:
     """How many of tile 0's splits hold keys of a live row in this K1
     call, by the kernel's span rule (``csrc/ragged_attention.cu``
-    ``tile_span``) and the wrapper's plan; 1 when the plan does not split."""
+    ``tile_span``) and the wrapper's plan (1 when the plan does not
+    split), and the most splits wholly before a live row's window."""
     from operator_tpu_torch.ops import ragged_attention as ra
 
     plan = ra.launch_plan(q, k_pages, page_table)
     group = q.shape[2] // k_pages.shape[2]
     most = 0
+    before = 0  # the most splits wholly before a live row's window
     for seq, count in zip(kv_len.tolist(), q_count.tolist()):
         if count <= 0:
             continue
@@ -751,7 +807,9 @@ def k1_split_note(q, k_pages, v_pages, page_table, kv_len, q_count, sliding_wind
             begin = max(seq - count - sliding_window + 1, 0)
             begin -= begin % ra.STAGE_KEYS
         most = max(most, -(-end // plan.split_keys) - begin // plan.split_keys)
-    return {"n_splits": plan.n_splits, "splits_with_keys": most}
+        before = max(before, begin // plan.split_keys)
+    return {"n_splits": plan.n_splits, "split_keys": plan.split_keys,
+            "splits_with_keys": most, "splits_before_window": before}
 
 
 def k2_split_note(q, k_pages, v_pages, page_table, lengths, sliding_window=None) -> dict:
@@ -891,7 +949,7 @@ def kernel_case(name: str, dtype, seed: int, heads: tuple = (QH, KH, D)):
     return args, window, kv_len, q_count
 
 
-def bound(kv_len, q_count, window, itemsize, heads: tuple = (QH, KH, D)):
+def bound(kv_len, q_count, window, itemsize, heads: tuple = (QH, KH, D), pps: int = PPS):
     """Least time for the function on these inputs: live KV (each row's
     in-window keys), the valid q rows and out rows, the indices; and the
     QK^T + PV operations at the bf16 tensor-core peak."""
@@ -907,7 +965,7 @@ def bound(kv_len, q_count, window, itemsize, heads: tuple = (QH, KH, D)):
             keys = min(q_pos + 1, window or (q_pos + 1))
             flops += 4 * keys * qh * d
     nbytes = live_kv * kh * d * 2 * itemsize + 2 * int(sum(q_count)) * qh * d * itemsize
-    nbytes += (len(kv_len) * PPS + 2 * len(kv_len)) * 4
+    nbytes += (len(kv_len) * pps + 2 * len(kv_len)) * 4
     byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
     op_ms = flops / BF16_FLOPS * 1e3
     return (byte_ms, "bytes") if byte_ms >= op_ms else (op_ms, "operations")
@@ -938,10 +996,11 @@ def library_call(args, window):
     q, k_pages, v_pages, table, kv_len, q_count = args
     b, c = q.shape[0], q.shape[1]
     kh, d = k_pages.shape[2], k_pages.shape[3]
-    k = k_pages[table.long()].reshape(b, MAX_SEQ, kh, d).transpose(1, 2).contiguous()
-    v = v_pages[table.long()].reshape(b, MAX_SEQ, kh, d).transpose(1, 2).contiguous()
+    max_seq = table.shape[1] * k_pages.shape[1]
+    k = k_pages[table.long()].reshape(b, max_seq, kh, d).transpose(1, 2).contiguous()
+    v = v_pages[table.long()].reshape(b, max_seq, kh, d).transpose(1, 2).contiguous()
     qd = q.transpose(1, 2).contiguous()  # [B, QH, C, D]
-    kv_pos = torch.arange(MAX_SEQ, device="cuda")[None, None, :]
+    kv_pos = torch.arange(max_seq, device="cuda")[None, None, :]
     q_pos = ((kv_len - q_count).long()[:, None] + torch.arange(c, device="cuda"))[:, :, None]
     mask = (kv_pos <= q_pos) & (kv_pos < kv_len.long()[:, None, None])
     if window is not None:
@@ -950,53 +1009,20 @@ def library_call(args, window):
 
 
 def phase_kernels(results: dict) -> dict:
-    import torch
-
-    from operator_tpu_torch.ops import ragged_attention as ra
-
     geometries = [
         "prefill", "decode", "mixed", "verify", "idle_rows", "window", "ragged",
         "wave_decode", "wave_mixed", "wave_prefill", "wave_hit",
     ]
     checks = []
-    worst = 0.0
-    for dtype in (torch.bfloat16, torch.float32):
-        dname = str(dtype).replace("torch.", "")
-        for seed, name in enumerate(geometries):
-            args, window, kv_len, q_count = kernel_case(name, dtype, seed)
-            got = ra.ragged_attention_cuda(*args, sliding_window=window)
-            torch.cuda.synchronize()
-            want = ra.ragged_attention_reference(*args, sliding_window=window)
-            c = args[0].shape[1]
-            valid = torch.arange(c, device="cuda")[None, :] < args[5][:, None]
-            err = (got[valid].float() - want[valid].float()).abs().max().item()
-            finite = bool(torch.isfinite(got[valid].float()).all().item())
-            checks.append({"geometry": name, "dtype": dname, "max_abs_err": err,
-                           "tol": TOL[dname], "finite": finite})
-            print(json.dumps({"kernel_check": checks[-1]}), flush=True)
-            if not finite or not err <= TOL[dname]:
-                raise fail(f"ragged kernel {name}/{dname}: max_abs_err={err} (tol {TOL[dname]})")
-            if dname == "bfloat16":
-                worst = max(worst, err)
+    worst = k1_check(checks, lambda name, dtype, index: kernel_case(name, dtype, index),
+                     geometries)
     # the serve phase's waves in bf16 (and a prefix-cache hit's first
     # chunk); the mixed one is the record
-    timings = {}
-    for name in ("wave_decode", "wave_mixed", "wave_prefill", "wave_hit"):
-        args, window, kv_len, q_count = kernel_case(name, torch.bfloat16, 100)
-        bound_ms, bound_by = bound(kv_len, q_count, window, 2)
-        timings[name] = {
-            "ms": time_ms(lambda: ra.ragged_attention_cuda(*args, sliding_window=window), 50),
-            "plain_ms": time_ms(
-                lambda: ra.ragged_attention_reference(*args, sliding_window=window), 5
-            ),
-            "bound_ms": bound_ms,
-            "bound_by": bound_by,
-            "library_ms": time_ms(library_call(args, window), 20),
-        }
-        print(json.dumps({"kernel_timing": {
-            "geometry": name, **timings[name], "bound_us": bound_ms * 1e3,
-        }}), flush=True)
+    timings = k1_time("", lambda name, dtype: kernel_case(name, dtype, 100),
+                      ("wave_decode", "wave_mixed", "wave_prefill", "wave_hit"), (QH, KH, D))
     deployed, deployed_worst = k1_deployed_geometry(checks)
+    families, families_worst = k1_family_geometry(checks)
+    long_window, long_worst = k1_long_window(checks)
     record = {
         "name": "ragged_paged_attention",
         "route": "cuda",
@@ -1009,60 +1035,246 @@ def phase_kernels(results: dict) -> dict:
         # llama-3-8b's heads (D = 128, group of 4) at the same waves
         "geometries_llama_3_8b": deployed,
         "max_abs_err_llama_3_8b": deployed_worst,
+        # the families phase's heads (groups of 7, 3 and 6) at the same waves
+        "geometries_families": families,
+        "max_abs_err_families": families_worst,
+        # mistral-7b's window over its 8,192 positions
+        "geometries_mistral_7b": long_window,
+        "max_abs_err_mistral_7b": long_worst,
     }
     results["kernel_checks"] = checks
     results["kernel_timings"] = timings
     results["kernel_timings_llama_3_8b"] = deployed
+    results["kernel_timings_families"] = families
+    results["kernel_timings_mistral_7b"] = long_window
     return record
 
 
-def k1_deployed_geometry(checks: list) -> tuple:
-    """K1 at llama-3-8b's heads (QH = 32, KH = 8, D = 128, page 64) over the
-    serve phase's three waves (decode, mixed, prefill), bf16 and f32: held
-    to the plain version (valid rows), then timed in bf16 beside its bound
-    and the SDPA call.  Returns (timings by wave, the largest bf16 error)."""
+#: TOL and WAVE_TOL are stated for outputs of magnitude up to ~3.  Under
+#: mistral-7b's window a query row averages up to 4,096 randn V rows, so
+#: its outputs are about sqrt(e / 4096) ~ 0.026 (the largest about 0.1),
+#: and a split dropped or counted twice moves them by about 0.01-0.05:
+#: those cases are also held query row by query row (its heads and D), its
+#: largest error over its largest |plain| within ROW_TOL.  bf16: 2.5 ulps
+#: of the row's largest output (an ulp is at most 2^-7 of it), as TOL is
+#: 2.5-5 ulps at magnitude 2-3; f32: TOL over magnitude 3
+ROW_TOL = {"bfloat16": 2e-2, "float32": 1e-4 / 3}
+
+
+def row_scaled_err(got, want) -> float:
+    """The largest, over query rows (every dim but the last two: heads
+    and D), of a row's max |got - want| over its max |want|."""
+    diff = (got - want).abs().flatten(-2).amax(-1)
+    return (diff / want.abs().flatten(-2).amax(-1).clamp_min(1e-30)).max().item()
+
+
+def hold(checks: list, record: dict, got, want, tol: float,
+         row_tol: "float | None" = None) -> float:
+    """Hold ``got`` to ``want``, the plain version's on the same inputs:
+    finite, every element within ``tol`` and, given ``row_tol``, every
+    query row's largest error within ``row_tol`` of its largest |want|.
+    Adds the numbers to ``record``, appends and prints it; fails outside
+    the tolerance.  Returns the max abs error."""
+    import torch
+
+    got, want = got.float(), want.float()
+    err = (got - want).abs().max().item()
+    record.update(max_abs_err=err, tol=tol, finite=bool(torch.isfinite(got).all().item()))
+    ok = record["finite"] and err <= tol
+    if row_tol is not None:
+        record.update(max_row_rel_err=row_scaled_err(got, want), row_rel_tol=row_tol)
+        ok = ok and record["max_row_rel_err"] <= row_tol
+    checks.append(record)
+    print(json.dumps({"kernel_check": record}), flush=True)
+    if not ok:
+        raise fail(f"kernel check outside its tolerance: {record}")
+    return err
+
+
+def k1_check(checks: list, make, names, *, label: str = "", info: "dict | None" = None,
+             note=None, scaled: bool = False) -> float:
+    """K1 held to its plain version (``hold`` at TOL, and with ``scaled``
+    at ROW_TOL too; valid rows) on ``make(name, dtype, index)`` for each
+    of ``names``, in bf16 and f32; ``info`` and ``note(*args,
+    sliding_window=)`` join each record.
+    Returns the largest bf16 error."""
     import torch
 
     from operator_tpu_torch.ops import ragged_attention as ra
 
-    heads = HEADS["llama-3-8b"]
     worst = 0.0
-    timings = {}
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).replace("torch.", "")
-        for seed, name in enumerate(("wave_decode", "wave_mixed", "wave_prefill", "decode",
-                                     "window", "ragged")):
-            args, window, kv_len, q_count = kernel_case(name, dtype, 200 + seed, heads)
+        for index, name in enumerate(names):
+            args, window, _, _ = make(name, dtype, index)
+            record = {"geometry": f"{label}/{name}" if label else name, "dtype": dname,
+                      **(info or {}), **(note(*args, sliding_window=window) if note else {})}
             got = ra.ragged_attention_cuda(*args, sliding_window=window)
             torch.cuda.synchronize()
             want = ra.ragged_attention_reference(*args, sliding_window=window)
             valid = torch.arange(args[0].shape[1], device="cuda")[None, :] < args[5][:, None]
-            err = (got[valid].float() - want[valid].float()).abs().max().item()
-            finite = bool(torch.isfinite(got[valid].float()).all().item())
-            checks.append({"geometry": f"llama-3-8b/{name}", "dtype": dname, "max_abs_err": err,
-                           "tol": TOL[dname], "finite": finite, "heads": heads})
-            print(json.dumps({"kernel_check": checks[-1]}), flush=True)
-            if not finite or not err <= TOL[dname]:
-                raise fail(f"ragged kernel llama-3-8b/{name}/{dname}: max_abs_err={err} "
-                           f"(tol {TOL[dname]})")
+            err = hold(checks, record, got[valid], want[valid], TOL[dname],
+                       ROW_TOL[dname] if scaled else None)
             if dname == "bfloat16":
                 worst = max(worst, err)
-    for name in ("wave_decode", "wave_mixed", "wave_prefill"):
-        args, window, kv_len, q_count = kernel_case(name, torch.bfloat16, 300, heads)
-        bound_ms, bound_by = bound(kv_len, q_count, window, 2, heads)
+            del args, got, want
+            torch.cuda.empty_cache()
+    return worst
+
+
+def k1_time(label: str, make, names, heads: tuple, pps: int = PPS,
+            iters: tuple = (50, 5, 20), plain_warmup: int = 2,
+            info: "dict | None" = None) -> dict:
+    """K1 timed in bf16 on ``make(name, bfloat16)`` for each of ``names``
+    beside the plain version (``iters``: the kernel's, the plain
+    version's and the SDPA call's calls), its bound and the SDPA call."""
+    import torch
+
+    from operator_tpu_torch.ops import ragged_attention as ra
+
+    timings = {}
+    for name in names:
+        args, window, kv_len, q_count = make(name, torch.bfloat16)
+        bound_ms, bound_by = bound(kv_len, q_count, window, 2, heads, pps)
         timings[name] = {
-            "ms": time_ms(lambda: ra.ragged_attention_cuda(*args, sliding_window=window), 50),
+            "ms": time_ms(lambda: ra.ragged_attention_cuda(*args, sliding_window=window),
+                          iters[0]),
             "plain_ms": time_ms(
-                lambda: ra.ragged_attention_reference(*args, sliding_window=window), 5
-            ),
+                lambda: ra.ragged_attention_reference(*args, sliding_window=window), iters[1],
+                warmup=plain_warmup),
             "bound_ms": bound_ms,
             "bound_by": bound_by,
-            "library_ms": time_ms(library_call(args, window), 20),
-            "heads": heads,
+            "library_ms": time_ms(library_call(args, window), iters[2]),
+            **(info or {}),
         }
+        del args
+        torch.cuda.empty_cache()
         print(json.dumps({"kernel_timing": {
-            "geometry": f"llama-3-8b/{name}", **timings[name], "bound_us": bound_ms * 1e3,
+            "geometry": f"{label}/{name}" if label else name, **timings[name],
+            "bound_us": bound_ms * 1e3,
         }}), flush=True)
+    return timings
+
+
+def k1_heads_geometry(checks: list, label: str, heads: tuple, seed: int,
+                      names: tuple = ("wave_decode", "wave_mixed", "wave_prefill", "decode",
+                                      "window", "ragged")) -> tuple:
+    """K1 at another model's heads (page 64) over ``names``, bf16 and f32:
+    held to the plain version (valid rows), then timed in bf16 over the
+    serve phase's three waves (decode, mixed, prefill) beside its bound
+    and the SDPA call.  Returns (timings by wave, the largest bf16 error)."""
+    worst = k1_check(checks, lambda name, dtype, index: kernel_case(name, dtype, seed + index,
+                                                                    heads),
+                     names, label=label, info={"heads": heads})
+    timings = k1_time(label, lambda name, dtype: kernel_case(name, dtype, seed + 100, heads),
+                      ("wave_decode", "wave_mixed", "wave_prefill"), heads,
+                      info={"heads": heads})
+    return timings, worst
+
+
+def k1_deployed_geometry(checks: list) -> tuple:
+    """K1 at llama-3-8b's heads (QH = 32, KH = 8, D = 128): the deployed
+    model's group of 4."""
+    return k1_heads_geometry(checks, "llama-3-8b", HEADS["llama-3-8b"], 200)
+
+
+#: K1's heads at the families phase's models, D = 128 each: a 64-row tile
+#: cuts a token's heads at groups of 7 (qwen2.5-7b), 3 (llama-3.2-3b) and
+#: 6 (qwen2.5-1.5b); the verify rows and the off-grid lengths beside the
+#: serve phase's three waves
+FAMILY_HEADS = {"qwen2.5-7b": (28, 4, 128), "llama-3.2-3b": (24, 8, 128),
+                "qwen2.5-1.5b": (12, 2, 128)}
+FAMILY_GEOMETRIES = ("wave_decode", "wave_mixed", "wave_prefill", "verify", "ragged")
+#: mistral-7b: its heads, its window, and its context of 128 pages of 64
+#: (8,192 positions: tile 0 in 16 splits of 512)
+MISTRAL_HEADS, MISTRAL_WINDOW, LONG_PPS = (32, 8, 128), 4096, 128
+
+
+def k1_family_geometry(checks: list) -> tuple:
+    """K1 at each of ``FAMILY_HEADS``: (timings by heads, largest bf16 error)."""
+    timings, worst = {}, 0.0
+    for index, (label, heads) in enumerate(FAMILY_HEADS.items()):
+        timings[label], err = k1_heads_geometry(checks, label, heads, 400 + 10 * index,
+                                                FAMILY_GEOMETRIES)
+        worst = max(worst, err)
+    return timings, worst
+
+
+def long_window_case(name: str, dtype, seed: int):
+    """K1's inputs at mistral-7b's heads over its 8,192 positions, window
+    4,096: every live row's kv_len in 4,097-8,192 (``long_window_decode``:
+    32 decode rows; ``long_window_mixed``: decode and verify rows, a
+    40-token and a 64-token chunk, idle slots; ``long_window_8192``: every
+    row decoding at 8,192), or ``long_4096``: every row decoding at 4,096
+    with no window, the same live keys a row."""
+    import numpy as np
+    import torch
+
+    qh, kh, d = MISTRAL_HEADS
+    rng = np.random.default_rng(seed)
+    span = LONG_PPS * PAGE
+    c, window = 1, MISTRAL_WINDOW
+    q_count = np.ones(B, np.int64)
+    kv_len = rng.integers(MISTRAL_WINDOW + 1, span + 1, size=B)
+    if name == "long_window_decode":
+        kv_len[:4] = [MISTRAL_WINDOW + 1, span, MISTRAL_WINDOW + PAGE, 6000]
+    elif name == "long_window_mixed":
+        c = C
+        q_count[16:24] = 1 + rng.integers(1, 5, size=8)
+        q_count[24], q_count[25] = 40, C
+        q_count[28:] = 0
+        kv_len[28:] = 0
+    elif name == "long_window_8192":
+        kv_len[:] = span
+    elif name == "long_4096":
+        kv_len[:] = MISTRAL_WINDOW
+        window = None
+    else:
+        raise ValueError(name)
+    num_pages = B * LONG_PPS + 1
+    table = (1 + rng.permutation(num_pages - 1)[: B * LONG_PPS]).reshape(B, LONG_PPS)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    shape = (num_pages, PAGE, kh, d)
+    args = (
+        torch.randn((B, c, qh, d), generator=gen, device="cuda").to(dtype),
+        torch.randn(shape, generator=gen, device="cuda").to(dtype),
+        torch.randn(shape, generator=gen, device="cuda").to(dtype),
+        torch.as_tensor(table, dtype=torch.int32, device="cuda"),
+        torch.as_tensor(kv_len.astype(np.int32), device="cuda"),
+        torch.as_tensor(q_count.astype(np.int32), device="cuda"),
+    )
+    return args, window, kv_len.astype(np.int32), q_count.astype(np.int32)
+
+
+def k1_long_window(checks: list) -> tuple:
+    """K1 under mistral-7b's window over its whole context: the decode and
+    mixed cases held to the plain version (valid rows) in bf16 and f32,
+    each query row's error also within ROW_TOL of its outputs, the bf16
+    plan 16 splits of 512 with whole splits before a row's window; then
+    timed in bf16, every row at kv_len 8,192 under the window beside every
+    row at 4,096 without one (the same live keys: the kernel walks only
+    those, so about 1x).  Returns (timings, largest bf16 error)."""
+    start = len(checks)
+    worst = k1_check(checks, lambda name, dtype, index: long_window_case(name, dtype, 500 + index),
+                     ("long_window_decode", "long_window_mixed"), label="mistral-7b",
+                     info={"heads": MISTRAL_HEADS, "window": MISTRAL_WINDOW},
+                     note=k1_split_note, scaled=True)
+    for record in checks[start:]:
+        if record["dtype"] == "bfloat16" and (
+                (record["n_splits"], record["split_keys"]) != (16, 512)
+                or record["splits_before_window"] < 1):
+            raise fail(f"{record['geometry']}: tile 0's plan {record}, want 16 splits of 512 "
+                       f"and whole splits before the window")
+    names = ("long_window_8192", "long_4096", "long_window_mixed")
+    timings = k1_time("mistral-7b", lambda name, dtype: long_window_case(name, dtype, 600),
+                      names, MISTRAL_HEADS, LONG_PPS, iters=(50, 3, 10), plain_warmup=1,
+                      info={"heads": MISTRAL_HEADS})
+    for name in names:
+        timings[name]["window"] = None if name == "long_4096" else MISTRAL_WINDOW
+    timings["window_8192_over_4096"] = (timings["long_window_8192"]["ms"]
+                                        / timings["long_4096"]["ms"])
+    print(json.dumps({"k1_window_8192_over_4096": timings["window_8192_over_4096"]}),
+          flush=True)
     return timings, worst
 
 
@@ -1140,9 +1352,10 @@ def decode_library_call(args, window):
 
     q, k_pages, v_pages, table, lengths = args
     kh, d = k_pages.shape[2:]
-    k = k_pages[table.long()].reshape(B, MAX_SEQ, kh, d).transpose(1, 2).contiguous()
-    v = v_pages[table.long()].reshape(B, MAX_SEQ, kh, d).transpose(1, 2).contiguous()
-    pos = torch.arange(MAX_SEQ, device="cuda")[None, :]
+    max_seq = table.shape[1] * k_pages.shape[1]
+    k = k_pages[table.long()].reshape(B, max_seq, kh, d).transpose(1, 2).contiguous()
+    v = v_pages[table.long()].reshape(B, max_seq, kh, d).transpose(1, 2).contiguous()
+    pos = torch.arange(max_seq, device="cuda")[None, :]
     mask = pos < lengths.long()[:, None]
     if window is not None:
         mask = mask & (pos >= lengths.long()[:, None] - window)
@@ -1323,6 +1536,12 @@ def phase_wave_kernels(results: dict) -> list:
         print(json.dumps({"kernel_timing": {
             "geometry": key, **timings[key], "bound_us": bound_ms * 1e3,
         }}), flush=True)
+    long_checks, long_timings = wave_long_window()
+    checks += long_checks
+    timings.update(long_timings)
+    for check in long_checks:
+        if check["dtype"] == "bfloat16":
+            worst[check["kernel"]] = max(worst[check["kernel"]], check["max_abs_err"])
     results["wave_kernel_checks"] = checks
     results["wave_kernel_timings"] = timings
     # both selector values launch this one kernel, so its check and times
@@ -1336,7 +1555,8 @@ def phase_wave_kernels(results: dict) -> list:
         "max_abs_err": worst["decode"],
         **timings["decode_wave"],
         "geometries": {name: timings[name] for name in (
-            "decode_wave", "decode_mixed", *(f"decode_wave@{h}" for h in deployed))},
+            "decode_wave", "decode_mixed", *(f"decode_wave@{h}" for h in deployed),
+            "decode_long_window@mistral-7b")},
     }
     return [
         {"name": "paged_decode_attention_v2", **decode,
@@ -1349,8 +1569,96 @@ def phase_wave_kernels(results: dict) -> list:
          "launches": None, "max_abs_err": worst["prefill"],
          **timings["prefill_wave"],
          "geometries": {name: timings[name] for name in (
-             "prefill_wave", "prefill_t2048_b8", *(f"prefill_wave@{h}" for h in deployed))}},
+             "prefill_wave", "prefill_t2048_b8", *(f"prefill_wave@{h}" for h in deployed),
+             "prefill_t8192_window@mistral-7b")}},
     ]
+
+
+def wave_long_window() -> tuple:
+    """The decode kernel (K2/K3) over mistral-7b's 8,192 positions (32
+    rows of 4,097-8,192 keys, 128 pages of 64) and the prefill kernel (K4)
+    at T = 8,192, B = 1, both under its 4,096-token window: each held to
+    its plain version on every row in bf16 and f32, then timed in bf16
+    beside its bound and the SDPA call; each query row's error (a decode
+    row, a prefill token) also within ROW_TOL of its outputs.  Returns
+    (checks, timings)."""
+    import numpy as np
+    import torch
+
+    from operator_tpu_torch.ops import flash_prefill as fp
+    pa = importlib.import_module("operator_tpu_torch.ops.paged_attention")
+
+    qh, kh, d = MISTRAL_HEADS
+    window = MISTRAL_WINDOW
+
+    def decode_args(dtype, seed):
+        rng = np.random.default_rng(seed)
+        lengths = rng.integers(window + 1, LONG_PPS * PAGE + 1, size=B)
+        lengths[:3] = [window + 1, LONG_PPS * PAGE, 6000]
+        num_pages = B * LONG_PPS + 1
+        table = (1 + rng.permutation(num_pages - 1)[: B * LONG_PPS]).reshape(B, LONG_PPS)
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        shape = (num_pages, PAGE, kh, d)
+        return (
+            torch.randn((B, qh, d), generator=gen, device="cuda").to(dtype),
+            torch.randn(shape, generator=gen, device="cuda").to(dtype),
+            torch.randn(shape, generator=gen, device="cuda").to(dtype),
+            torch.as_tensor(table, dtype=torch.int32, device="cuda"),
+            torch.as_tensor(lengths.astype(np.int32), device="cuda"),
+        ), lengths
+
+    def prefill_args(dtype, seed):
+        t = LONG_PPS * PAGE
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        return (
+            torch.randn((1, t, qh, d), generator=gen, device="cuda").to(dtype),
+            torch.randn((1, t, kh, d), generator=gen, device="cuda").to(dtype),
+            torch.randn((1, t, kh, d), generator=gen, device="cuda").to(dtype),
+            torch.as_tensor([t], dtype=torch.int32, device="cuda"),
+        ), np.asarray([t])
+
+    kinds = {
+        "decode": ("decode_long_window@mistral-7b", decode_args, pa.paged_attention_cuda,
+                   pa.paged_attention_reference),
+        "prefill": ("prefill_t8192_window@mistral-7b", prefill_args, fp.flash_prefill_cuda,
+                    fp.flash_prefill_reference),
+    }
+    checks, timings = [], {}
+    for kind, (key, make, kernel, plain) in kinds.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            dname = str(dtype).replace("torch.", "")
+            args, _ = make(dtype, 700)
+            got = kernel(*args, sliding_window=window)
+            torch.cuda.synchronize()
+            want = plain(*args, sliding_window=window)
+            hold(checks, {"kernel": kind, "geometry": key, "heads": "mistral-7b",
+                          "dtype": dname, "window": window},
+                 got, want, WAVE_TOL[dname], ROW_TOL[dname])
+            del got, want, args
+            torch.cuda.empty_cache()
+        args, lengths = make(torch.bfloat16, 800)
+        if kind == "decode":
+            bound_ms, bound_by = decode_bound(lengths, window, 2, MISTRAL_HEADS)
+            library = decode_library_call(args, window)
+            iters = (50, 3, 10)
+        else:
+            bound_ms, bound_by = prefill_bound(lengths, lengths[0], window, 2, MISTRAL_HEADS)
+            library = prefill_library_call(args, window)
+            iters = (5, 2, 3)
+        timings[key] = {
+            "heads": "mistral-7b", "window": window,
+            "ms": time_ms(lambda: kernel(*args, sliding_window=window), iters[0]),
+            "plain_ms": time_ms(lambda: plain(*args, sliding_window=window), iters[1], warmup=1),
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": time_ms(library, iters[2]),
+        }
+        del args, library
+        torch.cuda.empty_cache()
+        print(json.dumps({"kernel_timing": {
+            "geometry": key, **timings[key], "bound_us": bound_ms * 1e3,
+        }}), flush=True)
+    return checks, timings
 
 
 #: K5's geometries on the semantic path: name -> (windows, patterns, D)
@@ -1641,6 +1949,25 @@ def drive_requests(url: str, bodies: list, truncated: bool = False) -> tuple:
     wall = time.perf_counter() - started
     if errors or any(t.is_alive() for t in threads):
         raise fail(f"requests failed: {errors}")
+    return checked_completion(bodies, replies, truncated), wall
+
+
+def held_requests(engine, url: str, bodies: list) -> tuple:
+    """Every body at once over HTTP, the engine's admission held until all
+    are queued in list order (``held_sends``), so two drives of the same
+    bodies take the same steps; returns (completion tokens, wall seconds
+    from the release, the replies), checked as ``drive_requests`` checks
+    them."""
+    timing: dict = {}
+    replies = held_sends(engine, [lambda body=body: _post(url, body) for body in bodies],
+                         timing=timing)[0]
+    wall = time.perf_counter() - timing["released"]
+    return checked_completion(bodies, replies), wall, replies
+
+
+def checked_completion(bodies: list, replies: list, truncated: bool = False) -> int:
+    """The replies' completion tokens, failing unless each finished with a
+    sane usage record."""
     completion = 0
     for body, reply in zip(bodies, replies):
         choice = reply["choices"][0]
@@ -1654,7 +1981,7 @@ def drive_requests(url: str, bodies: list, truncated: bool = False) -> tuple:
         completion += usage["completion_tokens"]
     if completion == 0:
         raise fail("no request generated any token")
-    return completion, wall
+    return completion
 
 
 def balanced(sched, where: str) -> dict:
@@ -1674,11 +2001,13 @@ def wait_idle(sched) -> None:
 
 
 def timed_drive(url: str, sched, config, kernel_modules: dict, where: str,
-                bodies: "list | None" = None) -> dict:
+                bodies: "list | None" = None, engine=None) -> dict:
     """The ten requests once, every kernel count set to 0 just before and
     read just after: K1 exactly once per layer per step, the others never;
     the scheduler holds no row after it and its pages balance.  Returns
-    the drive's record, the prefix cache's economy over it included."""
+    the drive's record, the prefix cache's economy over it included; with
+    ``engine``, the requests are held until all are queued
+    (``held_requests``) and the record keeps each reply's text."""
     g = sched.generator
     bodies = bodies or request_bodies()
     counter = g.metrics.counter
@@ -1690,7 +2019,11 @@ def timed_drive(url: str, sched, config, kernel_modules: dict, where: str,
     for module in kernel_modules.values():
         module.launches = 0
     steps0, dev0 = sched.steps, len(sched.device_ms)
-    completion, wall = drive_requests(url, bodies)
+    replies = None
+    if engine is None:
+        completion, wall = drive_requests(url, bodies)
+    else:
+        completion, wall, replies = held_requests(engine, url, bodies)
     launches = {name: m.launches for name, m in kernel_modules.items()}
     steps = sched.steps - steps0
     device_ms = sched.device_ms[dev0:]
@@ -1715,6 +2048,7 @@ def timed_drive(url: str, sched, config, kernel_modules: dict, where: str,
         "kv_economy": {name[3:]: counter(name) - kv0[name] for name in kv_names},
         "cached_tokens": sum(r.cached_tokens or 0 for r in records),
         "step_records": len(records),
+        **({"answers": [r["choices"][0]["text"] for r in replies]} if replies else {}),
     }
 
 
@@ -2072,36 +2406,9 @@ def phase_wave(results: dict, kernel_modules: dict, phases: set, selector: str) 
         try:
             _post(url, {"prompt": "warm up", "max_tokens": 4, "temperature": 0.0})
             bodies = request_bodies()
-            for module in kernel_modules.values():
-                module.launches = 0
-            waves0, blocks0, ms0 = g.prefill_waves, g.blocks_dispatched, len(g.block_ms)
-            completion, wall = drive_requests(url, bodies)
-            launches = {name: m.launches for name, m in kernel_modules.items()}
-            waves = g.prefill_waves - waves0
-            blocks = g.blocks_dispatched - blocks0
-            deadline = time.time() + 30
-            while (g.num_active or g._inflight_blocks) and time.time() < deadline:
-                time.sleep(0.05)
-            block_ms = g.block_ms[ms0:]
-            free_pages = g.allocator.available
-            if free_pages != g.allocator.num_pages - 1 or len(g.free_slots()) != g.max_slots:
-                raise fail(
-                    f"pages or slots held after the drive: {free_pages} of "
-                    f"{g.allocator.num_pages - 1} pages free, "
-                    f"{len(g.free_slots())} of {g.max_slots} slots"
-                )
-            layers = config.num_layers
-            want = {
-                "flash_prefill_attention": layers * waves,
-                "paged_decode_attention": layers * g.decode_block * blocks,
-                "ragged_paged_attention": 0,
-                "best_window_similarity": 0,
-            }
-            if waves == 0 or blocks == 0 or launches != want:
-                raise fail(
-                    f"wave launches {launches} over {waves} prefill waves and "
-                    f"{blocks} decode blocks; want {want}"
-                )
+            drive = wave_drive(g, kernel_modules, "wave",
+                               lambda: (*drive_requests(url, bodies), None))
+            launches, layers = drive["launches"], config.num_layers
             if "profile" in phases and selector == "v1":
                 results["wave_profile"] = profile_drive(url, bodies)
             held = held_drive_calls(url, fp, "flash_prefill_attention", HeldToPlain(
@@ -2131,12 +2438,8 @@ def phase_wave(results: dict, kernel_modules: dict, phases: set, selector: str) 
             "pipeline_depth": g.pipeline_depth, "flash_prefill": True,
             "paged_kernel": selector, "requests": len(bodies),
             "prompt_chars": PROMPT_CHARS, "max_tokens": MAX_TOKENS,
-            "completion_tokens": completion, "wall_s": wall,
-            "tokens_per_s": completion / wall, "prefill_waves": waves,
-            "decode_blocks": blocks,
-            "stream_ms_per_block": sum(block_ms) / len(block_ms) if block_ms else None,
-            "launches": launches, "setup_s": setup_s,
-            "pages_free": free_pages, "held_calls": held, "held_decode_calls": held_decode,
+            **{k: v for k, v in drive.items() if k != "answers"}, "setup_s": setup_s,
+            "held_calls": held, "held_decode_calls": held_decode,
             "supervised_stall": stall,
             "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
             "healthz_load": load,
@@ -2151,6 +2454,41 @@ def phase_wave(results: dict, kernel_modules: dict, phases: set, selector: str) 
                 os.environ.pop(key, None)
             else:
                 os.environ[key] = value
+
+
+def wave_drive(g, kernel_modules: dict, where: str, drive) -> dict:
+    """One counted drive of the wave engine ``g``: every count set to 0,
+    ``drive()`` (-> completion tokens, wall seconds, the replies or None),
+    the engine waited idle; then K4 once per layer per prefill wave, K2/K3
+    once per layer per step of each block and no other kernel, and every
+    page and slot free.  Returns the drive's record (``answers``: the
+    replies' texts)."""
+    for module in kernel_modules.values():
+        module.launches = 0
+    waves0, blocks0, ms0 = g.prefill_waves, g.blocks_dispatched, len(g.block_ms)
+    completion, wall, replies = drive()
+    wait_wave_idle(g)
+    launches = {name: m.launches for name, m in kernel_modules.items()}
+    waves, blocks = g.prefill_waves - waves0, g.blocks_dispatched - blocks0
+    block_ms = g.block_ms[ms0:]
+    layers = g.config.num_layers
+    want = {name: 0 for name in kernel_modules}
+    want["flash_prefill_attention"] = layers * waves
+    want["paged_decode_attention"] = layers * g.decode_block * blocks
+    if waves == 0 or blocks == 0 or launches != want:
+        raise fail(f"{where}: wave launches {launches} over {waves} prefill waves and "
+                   f"{blocks} decode blocks; want {want}")
+    free_pages = g.allocator.available
+    if free_pages != g.allocator.num_pages - 1 or len(g.free_slots()) != g.max_slots:
+        raise fail(f"{where}: pages or slots held after the drive: {free_pages} of "
+                   f"{g.allocator.num_pages - 1} pages free, {len(g.free_slots())} of "
+                   f"{g.max_slots} slots")
+    return {
+        "completion_tokens": completion, "wall_s": wall, "tokens_per_s": completion / wall,
+        "prefill_waves": waves, "decode_blocks": blocks, "launches": launches,
+        "stream_ms_per_block": sum(block_ms) / len(block_ms) if block_ms else None,
+        "pages_free": free_pages,
+        "answers": None if replies is None else [r["choices"][0]["text"] for r in replies]}
 
 
 def wave_stall(engine, url: str, bodies: list, kernel_modules: dict) -> dict:
@@ -8743,8 +9081,78 @@ def phase_parity(results: dict, kernel_modules: dict) -> None:
             else:
                 os.environ[key] = value
     results["wave_parity"] = wave_parity
+    results["family_parity"] = family_parity(to, kernel_modules)
     results["prefix_parity"] = prefix_parity(params_cpu, to, kernel_modules)
     results["analysis_parity"] = analysis_parity(kernel_modules)
+
+
+#: the families' features at TINY_TEST's size (``tests/test_torch_families.py``'s
+#: variants): a 24-token window, q/k/v biases with groups of 7, tied
+#: embeddings with llama3 scaling and groups of 3; prompts of three windows
+FAMILY_PARITY_PROMPTS = (
+    "pod web-7d9f8c crashed with exit code 137, reason OOMKilled, memory limit 512Mi",
+    "OOMKilled " * 8,
+    "a much longer prompt " * 5,
+)
+
+
+def family_parity(to, kernel_modules: dict) -> dict:
+    """Each tiny family variant's continuous engine (f32, speculation on,
+    depth 2) on the card and on the CPU: greedy tokens equal, K1 launched
+    once per layer per step on the card and no other kernel."""
+    from dataclasses import replace
+
+    import torch
+
+    from operator_tpu_torch.models import ByteTokenizer, configs, init_params
+    from operator_tpu_torch.serving.engine import Generator, ServingEngine
+    from operator_tpu_torch.serving.sched import Scheduler
+    from operator_tpu_torch.serving.types import SamplingParams
+
+    tiny = configs.TINY_TEST
+    variants = {
+        "window": replace(tiny, name="tiny-window", sliding_window=24),
+        "bias_g7": replace(tiny, name="tiny-bias-g7", num_heads=14, num_kv_heads=2,
+                           attention_bias=True),
+        "tied_scaled_g3": replace(
+            tiny, name="tiny-tied-g3", num_heads=6, num_kv_heads=2, tie_embeddings=True,
+            rope_theta=500_000.0,
+            rope_scaling=configs.RopeScaling(factor=32.0, original_max_positions=64)),
+    }
+    sampling = SamplingParams(max_tokens=16, temperature=0.0)
+    out = {}
+    for name, config in variants.items():
+        params = init_params(config, torch.Generator(device="cpu").manual_seed(0),
+                             torch.float32, device="cpu")
+        if config.attention_bias:
+            seeded_biases(params["layers"], 1)
+        tokens, steps = {}, {}
+        for device in ("cuda", "cpu"):
+            for module in kernel_modules.values():
+                module.launches = 0
+            generator = Generator(to(params, device), config, ByteTokenizer(), max_slots=4,
+                                  max_seq=256, page_size=16, cache_dtype=torch.float32,
+                                  device=device)
+            sched = Scheduler(generator, chunk=16, token_budget=32, pipeline_depth=2,
+                              spec_decode=True)
+            engine = ServingEngine(generator, sched)
+            try:
+                tokens[device] = [r.token_ids for r in engine.generate_batch(
+                    list(FAMILY_PARITY_PROMPTS), sampling)]
+                steps[device] = sched.steps
+            finally:
+                engine.close()
+            if device == "cuda":
+                launches = {k: m.launches for k, m in kernel_modules.items()}
+        want = {k: 0 for k in kernel_modules}
+        want["ragged_paged_attention"] = config.num_layers * steps["cuda"]
+        out[name] = {"tokens_equal": tokens["cuda"] == tokens["cpu"], "launches": launches,
+                     "steps": steps["cuda"], "tokens": tokens["cuda"]}
+        print(json.dumps({"family_parity": {name: out[name]}}), flush=True)
+        if tokens["cuda"] != tokens["cpu"] or launches != want:
+            raise fail(f"family parity {name}: card {tokens['cuda']} cpu {tokens['cpu']}, "
+                       f"launches {launches} (want {want})")
+    return out
 
 
 TRAIN_STEPS = 5
@@ -9283,9 +9691,10 @@ def captured(g, since: int = 0) -> list:
     return [[name, repr(key), seconds] for name, key, seconds in g.graphs.log[since:]]
 
 
-def watched_bringup(env: dict, tokenizer=None) -> tuple:
-    """``build_serving_engine`` and the warmup grid at ``WARMUP_GRID``
-    under a ``CompileWatcher``: (engine, watcher, the bring-up record)."""
+def watched_bringup(env: dict, tokenizer=None, *, seed: int = 0, prepare=None) -> tuple:
+    """``build_serving_engine`` and the warmup grid at ``WARMUP_GRID`` under a ``CompileWatcher``;
+    ``prepare(engine)`` runs between the two.  Returns (engine, watcher,
+    the bring-up record)."""
     import torch
 
     from operator_tpu_torch.serving.provider import build_serving_engine
@@ -9295,9 +9704,11 @@ def watched_bringup(env: dict, tokenizer=None) -> tuple:
     torch.cuda.empty_cache()
     watcher = CompileWatcher()
     started = time.perf_counter()
-    engine, model_id = build_serving_engine("cuda", env, seed=0)
+    engine, model_id = build_serving_engine("cuda", env, seed=seed)
     if tokenizer is not None:
         engine.generator.tokenizer = tokenizer
+    if prepare is not None:
+        prepare(engine)
     built = time.perf_counter() - started
     report = asyncio.run(engine.precompile(OperatorConfig.from_env(env).warmup_grid))
     torch.cuda.synchronize()
@@ -10389,15 +10800,351 @@ def phase_deploy(results: dict, kernel_modules: dict) -> dict:
         shutil.rmtree(workdir, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# phase: the model families beyond Llama on the continuous main path
+# ---------------------------------------------------------------------------
+
+#: part -> (model, layers kept; None: full depth).  Each at full width, its
+#: whole context served (``SERVING_MAX_SEQ``: its ``max_seq_len``) and int8 as
+#: SERVE_ENV deploys it;
+#: (d) loads a bf16 checkpoint written from the seeded tree
+FAMILIES = {"a": ("mistral-7b", None), "b": ("qwen2.5-7b", 4), "c": ("llama-3.2-3b", 4),
+            "d": ("qwen2.5-1.5b", None)}
+#: (layers, hidden, query heads, KV heads) each part must have
+FAMILY_SHAPES = {"mistral-7b": (32, 4096, 32, 8), "qwen2.5-7b": (4, 3584, 28, 4),
+                 "llama-3.2-3b": (4, 3072, 24, 8), "qwen2.5-1.5b": (28, 1536, 12, 2)}
+FAMILIES_ENV = {**SERVE_ENV, "WARMUP_GRID": "serving"}
+FAMILIES_DIR = os.path.join(ROOT, "build", "chip_smoke_families")
+FAMILIES_DEVICE = "cuda"
+#: (a)'s prompts: a shared head of 4,400 characters (4,401 tokens with
+#: BOS: 68 pages, 4,352 tokens, cached by a priming request, more than
+#: the window) and ten tails, so every prompt is 4,500-7,000 tokens
+MISTRAL_SHARED_CHARS = 4400
+MISTRAL_TAIL_CHARS = [99, 300, 2598, 600, 1000, 1500, 200, 2000, 400, 800]
+#: (a)'s held request: its decode steps' one live row at kv_len 6,601 and
+#: up, so tile 0's first three splits of 512 lie wholly before its window
+MISTRAL_HELD_TAIL = 2200
+#: the seeded q/k/v biases' scale (init_params draws them as zeros, as JAX)
+BIAS_STD = 0.5
+
+
+def family_config(part: str):
+    """(a part's config, registered under its name when cut in depth)."""
+    from operator_tpu_torch.models import configs
+
+    name, layers = FAMILIES[part]
+    config = configs.get_config(name)
+    if layers is not None:
+        config = configs.scaled(config, num_layers=layers)
+        configs.register_config(config)
+    return config
+
+
+def seeded_biases(layers: dict, seed: int) -> None:
+    """Draw the q/k/v biases in place, from ``seed``."""
+    import torch
+
+    gen = torch.Generator(device=layers["bq"].device).manual_seed(seed)
+    for name in ("bq", "bk", "bv"):
+        layers[name].copy_(BIAS_STD * torch.randn(layers[name].shape, generator=gen,
+                                                  device=layers[name].device))
+
+
+def mistral_bodies() -> tuple:
+    """(a)'s ten bodies, half greedy, and the shared head they start with;
+    each tail starts with its own index, so no two prompts share more."""
+    shared = (LOG_LINE * (MISTRAL_SHARED_CHARS // len(LOG_LINE) + 1))[:MISTRAL_SHARED_CHARS]
+    bodies = []
+    for i, n in enumerate(MISTRAL_TAIL_CHARS):
+        tail = (f"[{i}] " + LOG_LINE * (n // len(LOG_LINE) + 1))[:n]
+        bodies.append({"prompt": shared + tail, "max_tokens": MAX_TOKENS,
+                       "temperature": 0.0 if i % 2 == 0 else 0.7, "top_p": 0.95})
+    return bodies, shared
+
+
+def family_drives(part: str, engine, model_id: str, config, kernel_modules: dict,
+                  runs: int, bodies: list, prime: "str | None") -> dict:
+    """``runs`` drives of ``bodies`` through the port's HTTP server, each
+    after ``spill_cache()`` (and, with ``prime``, one request of that
+    prompt, so the drive's prompts hit its cached pages), held until all
+    are queued: K1 once per layer per step and no other kernel, pages
+    balanced, the greedy answers of every drive the first's.  (a) adds
+    one held request whose decode steps each hold all 32 K1 calls to the
+    plain version.  Returns the drives' records."""
+    import torch
+
+    from operator_tpu_torch.ops import ragged_attention as ra
+    from operator_tpu_torch.serving.httpserver import CompletionServer
+    from operator_tpu_torch.serving.sched import mixed as mixed_module
+
+    sched = engine.scheduler
+    server = CompletionServer(engine, model_id=model_id, host="127.0.0.1", port=0)
+    http = HttpLoop(server)
+    url = f"http://127.0.0.1:{server.bound_port}/v1/completions"
+    out: dict = {}
+    try:
+        _post(url, {"prompt": "warm up", "max_tokens": 4, "temperature": 0.0})
+        drives = []
+        for run in range(runs):
+            sched.spill_cache()
+            if prime is not None:
+                _post(url, {"prompt": prime, "max_tokens": 1, "temperature": 0.0})
+                wait_idle(sched)
+            drives.append(timed_drive(url, sched, config, kernel_modules,
+                                      f"families ({part}) {run}", bodies, engine=engine))
+        greedy = [i for i, body in enumerate(bodies) if body["temperature"] == 0.0]
+        for drive in drives[1:]:
+            differ = [i for i in greedy if drive["answers"][i] != drives[0]["answers"][i]]
+            if differ:
+                raise fail(f"families ({part}): greedy answers of rows {differ} differ "
+                           f"between two identical drives")
+        if prime is not None:
+            want = len(bodies) * ((len(prime.encode()) + 1) // PAGE * PAGE)
+            saved = [d["kv_economy"]["prefill_tokens_saved"] for d in drives]
+            if saved != [want] * runs:
+                raise fail(f"families ({part}): the drives reused {saved} prompt tokens, "
+                           f"the primed head gives {want}")
+        out["drives"] = [{k: v for k, v in d.items() if k != "answers"} for d in drives]
+        out["greedy_rows_equal"] = len(greedy)
+        out["answers"] = drives[0]["answers"]
+        if part == "a":
+            window = config.sliding_window
+            held_prompt = prime + (LOG_LINE * (MISTRAL_HELD_TAIL // len(LOG_LINE) + 1))[
+                :MISTRAL_HELD_TAIL]
+            held = held_drive_calls(url, mixed_module, "ragged_paged_attention", HeldToPlain(
+                mixed_module.ragged_paged_attention, ra.ragged_attention_reference,
+                config.num_layers, lambda dtype, _: TOL[dtype],
+                # a decode or verify step whose every live row is past the window
+                select=lambda q, k, v, table, kv_len, q_count: bool(
+                    (q_count > 0).any() and ((q_count == 0) | (
+                        (kv_len > window) & (q_count <= 1 + sched.spec_k))).all()),
+                valid=lambda q, *args: torch.arange(q.shape[1], device=q.device)[None]
+                < args[4][:, None],
+                note=k1_split_note,
+            ), held_prompt)
+            n_splits = ra.split_plan(config.max_seq_len)[0]
+            if held["n_splits"] != n_splits or held["splits_before_window"] < 3:
+                raise fail(f"families (a): the held K1 step's tile 0 {held}: want {n_splits} "
+                           f"splits, at least 3 wholly before the window")
+            out["held_calls"] = held
+        out["page_accounting"] = balanced(sched, f"after the families ({part}) drives")
+        return out
+    finally:
+        http.stop()
+
+
+def families_part(part: str, kernel_modules: dict, seed: int) -> dict:
+    """One part of the families phase: bring-up under a ``CompileWatcher``
+    (its build and capture seconds), the drives, nothing captured or built
+    after the warmup grid, the card's GiB."""
+    import torch
+
+    from operator_tpu_torch.models.llama import init_params
+    from operator_tpu_torch.models.loader import save_params
+    from operator_tpu_torch.models.quant import quantize_params
+
+    config = family_config(part)
+    shape = (config.num_layers, config.hidden_size, config.num_heads, config.num_kv_heads)
+    if shape != FAMILY_SHAPES[FAMILIES[part][0]]:
+        raise fail(f"families ({part}): not {FAMILIES[part][0]} at full width: {config}")
+    env = {**FAMILIES_ENV, "OPERATOR_TPU_MODEL": config.name,
+           "SERVING_MAX_SEQ": str(config.max_seq_len)}
+    torch.cuda.reset_peak_memory_stats()
+    out: dict = {"model": config.name, "layers": config.num_layers,
+                 "max_seq": config.max_seq_len, "window": config.sliding_window,
+                 "group": config.q_per_kv, "vocab": config.vocab_size,
+                 "bias": config.attention_bias, "tied": config.tie_embeddings,
+                 "rope_scaling": config.rope_scaling and config.rope_scaling.factor}
+    def draw_biases(engine):
+        seeded_biases(engine.generator.params["layers"], seed + 1)
+
+    # (label, env, called between build and warmup grid, drives)
+    engines = [("engine", env, draw_biases if config.attention_bias else None, 2)]
+    tree = None
+    if part == "d":
+        # the seeded tree, its biases drawn, written as bf16 HF shards and
+        # loaded int8 through CHECKPOINT_DIR (no tokenizer.json: bytes);
+        # beside it an in-memory engine of the same draws and biases
+        ckpt = os.path.join(FAMILIES_DIR, "qwen2.5-1.5b")
+        seeded = init_params(config, torch.Generator(device=FAMILIES_DEVICE).manual_seed(seed),
+                             torch.bfloat16, device=FAMILIES_DEVICE)
+        seeded_biases(seeded["layers"], seed + 1)
+        torch.cuda.synchronize()
+        started = time.perf_counter()
+        files = save_params(seeded, ckpt, config, shard_bytes=1 << 30)
+        out["checkpoint"] = {
+            "files": len(files), "write_s": time.perf_counter() - started,
+            "bytes": sum(os.path.getsize(os.path.join(ckpt, f)) for f in files)}
+        tree = quantize_params(seeded, config)
+        del seeded
+        release_card()
+        loaded = {k: v for k, v in env.items() if k != "ALLOW_RANDOM_WEIGHTS"}
+        engines = [("loaded", {**loaded, "CHECKPOINT_DIR": ckpt}, None, 2),
+                   ("in_memory", env, draw_biases, 1)]
+    if part == "a":
+        bodies, prime = mistral_bodies()
+    else:
+        bodies, prime = request_bodies(), None
+    for label, engine_env, engine_prepare, runs in engines:
+        engine, watcher, record = watched_bringup(engine_env, seed=seed, prepare=engine_prepare)
+        try:
+            # no name of the generator outlives the engine: release_card
+            # below must find its weights and pages unreferenced
+            if engine.generator.max_seq != config.max_seq_len or engine.scheduler is None:
+                raise fail(f"families ({part}): {label} serves {engine.generator.max_seq} "
+                           f"positions, scheduler {engine.scheduler}")
+            if tree is not None and not trees_equal(engine.generator.params, tree):
+                raise fail(f"families ({part}): the {label} tree is not the seeded tree's "
+                           f"quantize_params, byte for byte")
+            record["memory_gib"] = torch.cuda.memory_allocated() / 2**30
+            record.update(family_drives(part, engine, record["model"], config,
+                                        kernel_modules, runs, bodies, prime))
+            after = watcher.events_since_mark()
+            if after:
+                raise fail(f"families ({part}): captured or built after the warmup grid: "
+                           f"{after}")
+            record["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        finally:
+            watcher.close()
+            engine.close()
+            del engine
+            release_card()
+        out[label] = record
+    if part == "d":
+        greedy = [i for i, body in enumerate(bodies) if body["temperature"] == 0.0]
+        differ = [i for i in greedy
+                  if out["loaded"]["answers"][i] != out["in_memory"]["answers"][i]]
+        if differ:
+            raise fail(f"families (d): greedy answers of rows {differ} differ from the "
+                       f"in-memory engine's")
+    for record in out.values():
+        if isinstance(record, dict):
+            record.pop("answers", None)
+    return out
+
+
+#: (e): the first four of (a)'s bodies on the wave engine (one prefill
+#: wave of 4 x 8,192 positions beside the 34 GB pool)
+MISTRAL_WAVE_REQUESTS = 4
+
+
+def families_wave(kernel_modules: dict, seed: int) -> dict:
+    """(e) mistral-7b at full depth on the wave engine (``SCHED_MODE=wave``,
+    decode blocks of 4 at depth 2, flash prefill on, programs captured at
+    first use), its whole context served: (a)'s first four bodies, 4,500-
+    7,000 prompt tokens, twice through the HTTP server, each held until
+    all are queued: K4 once per layer per prefill wave, K2/K3 once per
+    layer per step of each block, nothing else; slots and pages free after
+    each; the second drive's greedy answers the first's.  Then one more
+    request, programs eager, whose first decode step's 32 K2/K3 calls are
+    each held to the plain version (a row past the window)."""
+    import torch
+
+    pa = importlib.import_module("operator_tpu_torch.ops.paged_attention")
+    from operator_tpu_torch.serving.httpserver import CompletionServer
+
+    config = family_config("a")
+    env = {**WAVE_ENV, "OPERATOR_TPU_MODEL": config.name, "WARMUP_GRID": "off",
+           "SERVING_MAX_SEQ": str(config.max_seq_len)}
+    saved = os.environ.get("OPERATOR_TPU_FLASH_PREFILL")
+    os.environ["OPERATOR_TPU_FLASH_PREFILL"] = "1"
+    torch.cuda.reset_peak_memory_stats()
+    engine, watcher, out = watched_bringup(env, seed=seed)
+    layers = config.num_layers
+    try:
+        if engine.scheduler is not None or engine.generator.max_seq != config.max_seq_len:
+            raise fail("families (e): not the wave engine over mistral-7b's context")
+        out["memory_gib"] = torch.cuda.memory_allocated() / 2**30
+        server = CompletionServer(engine, model_id=out["model"], host="127.0.0.1", port=0)
+        http = HttpLoop(server)
+        url = f"http://127.0.0.1:{server.bound_port}/v1/completions"
+        bodies, shared = mistral_bodies()
+        bodies = bodies[:MISTRAL_WAVE_REQUESTS]
+        try:
+            _post(url, {"prompt": "warm up", "max_tokens": 4, "temperature": 0.0})
+            drives = [wave_drive(engine.generator, kernel_modules, f"families (e) {run}",
+                                 lambda: held_requests(engine, url, bodies))
+                      for run in range(2)]
+            greedy = [i for i, body in enumerate(bodies) if body["temperature"] == 0.0]
+            differ = [i for i in greedy if drives[1]["answers"][i] != drives[0]["answers"][i]]
+            if differ:
+                raise fail(f"families (e): greedy answers of rows {differ} differ between "
+                           f"two identical drives")
+            held_prompt = shared + (LOG_LINE * (MISTRAL_HELD_TAIL // len(LOG_LINE) + 1))[
+                :MISTRAL_HELD_TAIL]
+            window = config.sliding_window
+            out["held_decode_calls"] = held_drive_calls(
+                url, pa, "paged_attention", HeldToPlain(
+                    pa.paged_attention, pa.paged_attention_reference, layers,
+                    lambda dtype, _: WAVE_TOL[dtype],
+                    select=lambda q, k, v, table, lengths, sliding_window=None: bool(
+                        lengths.max().item() > window),
+                    note=k2_split_note,
+                ), held_prompt)
+        finally:
+            http.stop()
+            del http, server  # the server holds the engine: release_card must not
+        out["drives"] = [{k: v for k, v in d.items() if k != "answers"} for d in drives]
+        out["greedy_rows_equal"] = len(greedy)
+        out["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        return out
+    finally:
+        watcher.close()
+        engine.close()
+        del engine
+        release_card()
+        if saved is None:
+            os.environ.pop("OPERATOR_TPU_FLASH_PREFILL", None)
+        else:
+            os.environ["OPERATOR_TPU_FLASH_PREFILL"] = saved
+
+
+def phase_families(results: dict, kernel_modules: dict, seed: int) -> dict:
+    """The model families beyond Llama on the continuous main path (see the
+    module doc): (a) mistral-7b, (b) qwen2.5-7b, (c) llama-3.2-3b, (d)
+    qwen2.5-1.5b from a checkpoint; then (e) mistral-7b on the wave
+    engine; the card released between engines.  Returns the kernels'
+    launches summed over the drives."""
+    card = card_line()
+    out: dict = {"card": card, "part_s": {}}
+    total: dict = {}
+    shutil.rmtree(FAMILIES_DIR, ignore_errors=True)
+    os.makedirs(FAMILIES_DIR)
+    try:
+        for part in FAMILIES:
+            begun = time.perf_counter()
+            out[part] = families_part(part, kernel_modules, seed)
+            out["part_s"][part] = time.perf_counter() - begun
+            # the in-memory engine's drive is a comparison, not the path's
+            for label, record in out[part].items():
+                if label == "in_memory" or not isinstance(record, dict):
+                    continue
+                for drive in record.get("drives", []):
+                    for name, n in drive["launches"].items():
+                        total[name] = total.get(name, 0) + n
+            print(json.dumps({f"families_{part}": out[part], "card": card}), flush=True)
+        begun = time.perf_counter()
+        out["e"] = families_wave(kernel_modules, seed)
+        out["part_s"]["e"] = time.perf_counter() - begun
+        for drive in out["e"]["drives"]:
+            for name, n in drive["launches"].items():
+                total[name] = total.get(name, 0) + n
+        print(json.dumps({"families_e": out["e"], "card": card}), flush=True)
+    finally:
+        shutil.rmtree(FAMILIES_DIR, ignore_errors=True)
+    results["families"] = out
+    return total
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="also write every result to this JSON file")
     parser.add_argument("--phases",
                         default="device,kernels,train,serve,wave,guided,graphs,analysis,"
                                 "checkpoint,tokenizers,operator,remote,fleet,deployed,deploy,"
-                                "fabric,prefix,contiguous,mesh,parity")
+                                "fabric,prefix,contiguous,mesh,parity,families")
     parser.add_argument("--seed", type=int, default=0,
-                        help="the guided and train phases' weights and adapters")
+                        help="the guided, train and families phases' weights and adapters")
     parser.add_argument("--graphs-warm", metavar="PLAN",
                         help="the graphs phase's warm boot (b), in its own process")
     parser.add_argument("--mesh-rank", nargs=2, metavar=("SPEC", "RANK"),
@@ -10518,6 +11265,8 @@ def main() -> int:
     mesh = timed("mesh", phase_mesh, results, kernel_modules) if "mesh" in phases else {}
     if "parity" in phases:
         timed("parity", phase_parity, results, kernel_modules)
+    families = timed("families", phase_families, results, kernel_modules, args.seed) \
+        if "families" in phases else {}
     phase_s["total"] = time.perf_counter() - started
     print(json.dumps({"phase_s": phase_s, "left_behind": left_behind, "card": card}),
           flush=True)
@@ -10550,6 +11299,7 @@ def main() -> int:
         record["launches_contiguous"] = contiguous.get(base)
         record["launches_mesh"] = mesh.get(base)
         record["launches_train"] = train.get(base)
+        record["launches_families"] = families.get(base)
     kernels = records
     results["kernels"] = kernels
     device = {

@@ -360,7 +360,9 @@ def build_serving_engine(
     ``os.environ``) on ``device`` (default ``cuda``).  ``config`` (the
     operator's) takes the place of ``OperatorConfig.from_env(environ)``,
     as the JAX package's ``build_serving_engine`` takes it; the model id is read
-    from ``OPERATOR_TPU_MODEL`` in ``environ`` either way.  With a
+    from ``OPERATOR_TPU_MODEL`` in ``environ`` either way.  A row holds
+    ``SERVING_MAX_SEQ`` positions, up to the model's ``max_seq_len``, or
+    the reference's ``min(max_seq_len, 2048)`` when it is unset or 0.  With a
     ``SERVING_MESH`` of several ranks, a rank other than 0 gets a
     ``serving/meshserve.py:MeshFollower`` in the engine's place: its
     ``run()`` serves rank 0's calls until rank 0's engine closes."""
@@ -410,7 +412,12 @@ def build_serving_engine(
     tokenizer = load_tokenizer(checkpoint_dir)
     quantize = serving_dtype == "int8"
     prefill_chunk = config.prefill_chunk or None
-    max_seq = min(model_config.max_seq_len, 2048)
+    max_seq = config.serving_max_seq or min(model_config.max_seq_len, 2048)
+    if not 0 < max_seq <= model_config.max_seq_len:
+        raise ValueError(
+            f"SERVING_MAX_SEQ={max_seq} is outside {model_id}'s context of "
+            f"{model_config.max_seq_len} positions"
+        )
     aot = None
     if config.aot_cache_path:
         from .aotcache import AotCache, generator_fingerprint

@@ -2,7 +2,8 @@
 
 The port's own copy of ``operator_tpu/utils/config.py``: the whole
 ``OperatorConfig`` dataclass and its ``from_env``, field for field, so one
-environment resolves to the same values in both packages.  The port's
+environment resolves to the same values in both packages, and the
+fields of its own in ``PORT_FIELDS`` (which the reference does not read).  The port's
 ``serving/provider.py:build_serving_engine`` reads the serving knobs
 through it and serves every one of them, as the reference does.
 
@@ -21,6 +22,10 @@ from __future__ import annotations
 import os
 from dataclasses import dataclass, field, fields
 from typing import Optional
+
+
+#: the port's own fields, beside the reference's: ``serving_max_seq``
+PORT_FIELDS = ("serving_max_seq",)
 
 
 @dataclass
@@ -404,6 +409,13 @@ class OperatorConfig:
     # preference, never a filter — mixed (the default) serves both
     # phases and a role-less fleet behaves exactly as before
     replica_role: str = "mixed"
+
+    # --- the port's own (PORT_FIELDS) -------------------------------------
+    # positions a serving row holds, up to the model's max_seq_len; 0 = the
+    # reference's min(max_seq_len, 2048).  Mistral's 4,096-token window
+    # takes effect only past 4,096 positions, so a mistral-7b deployment
+    # sets its whole context, SERVING_MAX_SEQ=8192
+    serving_max_seq: int = 0
 
     @classmethod
     def from_env(cls, env: Optional[dict[str, str]] = None) -> "OperatorConfig":

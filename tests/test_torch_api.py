@@ -39,6 +39,7 @@ from operator_tpu_torch.models import params_from_jax  # noqa: E402
 from operator_tpu_torch.ops import _build  # noqa: E402
 from operator_tpu_torch.patterns import prefilter  # noqa: E402
 from operator_tpu_torch.patterns.loader import load_builtin_library  # noqa: E402
+from operator_tpu_torch.utils.config import PORT_FIELDS  # noqa: E402
 
 FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures")
 LONG_LOG_LINES = 33_000
@@ -82,8 +83,10 @@ def test_straggler_imports_from_both_packages(module, name):
     if isinstance(ours, str):
         assert ours == theirs
     elif dataclasses.is_dataclass(ours):
+        # OperatorConfig: the reference's fields, in order, then the port's own
+        own = list(PORT_FIELDS) if name == "OperatorConfig" else []
         assert [f.name for f in dataclasses.fields(ours)] == [
-            f.name for f in dataclasses.fields(theirs)]
+            f.name for f in dataclasses.fields(theirs)] + own
     elif isinstance(ours, type):
         assert ours.__name__ == theirs.__name__
     else:

@@ -354,8 +354,11 @@ def _read_until(stream, pattern: str, lines: list, timeout_s: float) -> re.Match
 
 def test_sigterm_drains_a_request_in_flight_and_exits_0(tmp_path):
     env = {k: v for k, v in os.environ.items() if k != "SERVING_MESH"}
+    # one CPU thread: tiny-test's matmuls gain nothing from more, and a
+    # thread per core on a loaded host stretches the 160 tokens past the
+    # server's 30 s drain grace
     env.update(OPERATOR_TPU_MODEL="tiny-test", ALLOW_RANDOM_WEIGHTS="true",
-               MAX_BATCH_SIZE="4", KV_PAGE_SIZE="16", PYTHONPATH=str(REPO),
+               MAX_BATCH_SIZE="4", KV_PAGE_SIZE="16", OMP_NUM_THREADS="1", PYTHONPATH=str(REPO),
                OPERATOR_TPU_TORCH_BUILD_DIR=str(tmp_path / "kernels"))
     proc = subprocess.Popen(
         [sys.executable, "-m", "operator_tpu_torch.serving", "--device", "cpu",

@@ -36,7 +36,10 @@ CPU (bf16 and int8), and ``TPUNativeProvider.generate`` over it launches
 the ragged kernel.
 The ragged kernel also at llama-3-8b's head layout (QH=32, KH=8,
 D=128: the group of 4 the deployed model serves with), on short and
-long rows, and a supervised restart of a continuous engine on the card
+long rows, at the other families' groups of 7, 3 and 6 (D = 128) on
+64-query chunks whose tiles cut a token's heads and on the long rows,
+and with the decode and prefill kernels under mistral-7b's 4,096-token
+window over 8,192 positions, and a supervised restart of a continuous engine on the card
 (a stalled step, the supervisor's reset) leaves its device memory where
 it was.  The fleet KV fabric on the card: a page gathered by one engine,
 sent through the PMKV1 wire and restored by a second is the first's
@@ -98,12 +101,13 @@ def _inputs(name, dtype=torch.float32, device="cpu", d=D):
                          device, d)
 
 
-def _paged_inputs(kv_len, q_count, window, page, pps, seed, dtype, device, d=D, qh=QH, kh=KH):
+def _paged_inputs(kv_len, q_count, window, page, pps, seed, dtype, device, d=D, qh=QH, kh=KH,
+                  c=C):
     rng = np.random.default_rng(seed)
     b = len(kv_len)
     num_pages = b * pps + 1
     arrays = [
-        rng.normal(size=(b, C, qh, d)).astype(np.float32),
+        rng.normal(size=(b, c, qh, d)).astype(np.float32),
         rng.normal(size=(num_pages, page, kh, d)).astype(np.float32),
         rng.normal(size=(num_pages, page, kh, d)).astype(np.float32),
     ]
@@ -1039,6 +1043,139 @@ def test_cuda_kernel_matches_plain_version_at_llama3_heads(cuda, name, dtype_nam
     assert ragged.launches == before + 1
     want = ragged.ragged_attention_reference(*args, sliding_window=window)
     assert _valid_rows_err(got, want, q_count) <= TOL[dtype_name], name
+
+
+#: the other families' heads, D = 128: qwen2.5-7b's group of 7,
+#: llama-3.2-3b's of 3 and qwen2.5-1.5b's of 6 (a 64-row tile then cuts a
+#: token's heads)
+FAMILY_HEADS = {
+    "g7": {"qh": 28, "kh": 4, "d": 128},
+    "g3": {"qh": 24, "kh": 8, "d": 128},
+    "g6": {"qh": 12, "kh": 2, "d": 128},
+}
+#: chunks of 64 queries (tiles of 64 flash rows end inside a token at
+#: groups of 7, 3 and 6): name -> (page, pages_per_seq, kv_len, q_count,
+#: window); a whole first chunk, a chunk after cached pages, a decode row,
+#: a short prompt, an idle row
+CHUNK_ROWS = {
+    "chunks": (16, 16, [64, 250, 131, 9, 0], [64, 64, 1, 9, 0], None),
+    "chunks_window": (16, 16, [64, 250, 131, 9, 0], [64, 64, 1, 9, 0], 40),
+}
+
+
+def _family_inputs(heads, name, dtype, device):
+    if name in CHUNK_ROWS:
+        page, pps, kv_len, q_count, window = CHUNK_ROWS[name]
+        c = 64
+    else:
+        page, pps, kv_len, q_count, window = LONG_ROWS[name]
+        c = C
+    return _paged_inputs(kv_len, q_count, window, page, pps, 256 + pps + len(heads), dtype,
+                         device, c=c, **FAMILY_HEADS[heads])
+
+
+@pytest.mark.parametrize("name", list(CHUNK_ROWS))
+@pytest.mark.parametrize("heads", list(FAMILY_HEADS))
+def test_family_heads_take_the_plain_version_on_cpu(heads, name):
+    args, window, _ = _family_inputs(heads, name, torch.float32, "cpu")
+    before = ragged.launches
+    got = ragged.ragged_paged_attention(*args, sliding_window=window)
+    assert ragged.launches == before
+    assert got.shape == args[0].shape and torch.isfinite(got).all()
+    assert torch.equal(got, ragged.ragged_attention_reference(*args, sliding_window=window))
+
+
+def test_ragged_split_plan_at_the_families_contexts():
+    """Mistral's 8,192 positions cut into 16 splits of 512, the 16,384 of
+    Qwen2.5 and Llama-3.2 into 16 of 1,024; at mistral-7b's serve shapes
+    (32 rows, chunk 64, 32 q heads over 8 KV heads of 128, 128 pages of
+    64) the scratch holds 16 partials of 64 rows per row and KV head."""
+    assert ragged.split_plan(8192) == (16, 512)
+    assert ragged.split_plan(16384) == (16, 1024)
+    plan = ragged.launch_plan(_meta((32, 64, 32, 128), torch.bfloat16),
+                              _meta((4097, 64, 8, 128), torch.bfloat16),
+                              _meta((32, 128), torch.int32))
+    assert (plan.n_splits, plan.split_keys) == (16, 512)
+    assert plan.acc_shape == (32, 8, 16, 64, 128) and plan.ml_shape == (32, 8, 16, 64, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", list(CHUNK_ROWS) + list(LONG_ROWS))
+@pytest.mark.parametrize("heads", list(FAMILY_HEADS))
+def test_cuda_kernel_matches_plain_version_at_the_families_heads(cuda, heads, name, dtype_name):
+    """K1 at groups of 7, 3 and 6 with D = 128, on 64-query chunks whose
+    tiles split a token's heads and on the long rows."""
+    args, window, q_count = _family_inputs(heads, name, getattr(torch, dtype_name), "cuda")
+    before = ragged.launches
+    got = ragged.ragged_paged_attention(*args, sliding_window=window)
+    torch.cuda.synchronize()
+    assert ragged.launches == before + 1
+    want = ragged.ragged_attention_reference(*args, sliding_window=window)
+    assert _valid_rows_err(got, want, q_count) <= TOL[dtype_name], name
+
+
+#: mistral-7b's 4,096-token window over its 8,192 positions (128 pages of
+#: 64): rows at 4,097 (one key before the window), 8,192, a verify row and
+#: a 64-token chunk past the window, a decode row inside it, an idle row
+MISTRAL_ROWS = ([4097, 8192, 6001, 5000, 3000, 0], [1, 1, 5, 64, 1, 0])
+MISTRAL_WINDOW = 4096
+#: a query under the window averages up to 4,096 random V rows (outputs
+#: about 0.03, far below the magnitude TOL and WAVE_TOL are stated for),
+#: so these cases also hold each query row (its heads and D): its largest
+#: error over its largest |plain|, in bf16 2.5 ulps of that output
+ROW_TOL = {"float32": 1e-4 / 3, "bfloat16": 2e-2}
+
+
+def _row_scaled_err(got, want):
+    """The largest, over query rows, of a row's max |got - want| over its
+    max |want|."""
+    got, want = got.float(), want.float()
+    diff = (got - want).abs().flatten(-2).amax(-1)
+    return (diff / want.abs().flatten(-2).amax(-1).clamp_min(1e-30)).max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+def test_cuda_kernels_under_a_4096_window_over_8192_positions(cuda, dtype_name):
+    """K1 (tile 0 in 16 splits of 512, the first ones wholly before a
+    row's window), the decode kernel K2/K3 on the same rows and the
+    prefill kernel K4 at T = 8,192, each at mistral-7b's heads under its
+    window, against the plain versions."""
+    dtype = getattr(torch, dtype_name)
+    kv_len, q_count = MISTRAL_ROWS
+    args, window, q_count = _paged_inputs(kv_len, q_count, MISTRAL_WINDOW, 64, 128, 8192,
+                                          dtype, "cuda", c=64, **LLAMA3_HEADS)
+    if dtype_name == "bfloat16":
+        plan = ragged.launch_plan(args[0], args[1], args[3])
+        assert (plan.n_splits, plan.split_keys) == (16, 512)
+    before = ragged.launches
+    got = ragged.ragged_paged_attention(*args, sliding_window=window)
+    torch.cuda.synchronize()
+    assert ragged.launches == before + 1
+    want = ragged.ragged_attention_reference(*args, sliding_window=window)
+    assert _valid_rows_err(got, want, q_count) <= TOL[dtype_name]
+    valid = torch.arange(64, device="cuda")[None, :] < args[5][:, None]
+    assert _row_scaled_err(got[valid], want[valid]) <= ROW_TOL[dtype_name]
+    # the decode kernel: each row's last query over the same pages
+    lengths = torch.clamp(args[4], min=1)
+    q = args[0][:, 0].contiguous()
+    got = paged.paged_attention_cuda(q, args[1], args[2], args[3], lengths,
+                                     sliding_window=MISTRAL_WINDOW)
+    want = paged.paged_attention_reference(q, args[1], args[2], args[3], lengths,
+                                           sliding_window=MISTRAL_WINDOW)
+    assert (got.float() - want.float()).abs().max().item() <= WAVE_TOL[dtype_name]
+    assert _row_scaled_err(got, want) <= ROW_TOL[dtype_name]
+    del args, got, want
+    # the prefill kernel over one 8,192-token row
+    rng = np.random.default_rng(8192)
+    arrays = [rng.normal(size=(1, 8192, h, 128)).astype(np.float32) for h in (32, 8, 8)]
+    pre = [torch.from_numpy(a).to("cuda", dtype) for a in arrays] + [
+        torch.tensor([8192], dtype=torch.int32, device="cuda")]
+    got = flash_prefill.flash_prefill_cuda(*pre, sliding_window=MISTRAL_WINDOW)
+    want = flash_prefill.flash_prefill_reference(*pre, sliding_window=MISTRAL_WINDOW)
+    assert (got.float() - want.float()).abs().max().item() <= WAVE_TOL[dtype_name]
+    assert _row_scaled_err(got, want) <= ROW_TOL[dtype_name]
 
 
 @pytest.mark.cuda

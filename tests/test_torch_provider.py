@@ -61,7 +61,7 @@ from operator_tpu_torch.serving.provider import (  # noqa: E402
     build_tpu_native_provider,
 )
 from operator_tpu_torch.serving.types import SamplingParams  # noqa: E402
-from operator_tpu_torch.utils.config import OperatorConfig  # noqa: E402
+from operator_tpu_torch.utils.config import PORT_FIELDS, OperatorConfig  # noqa: E402
 from test_torch_loader import hf_checkpoint  # noqa: E402
 from test_torch_tokenizer import LLAMA_SP  # noqa: E402
 
@@ -192,6 +192,9 @@ def test_provider_knob_resolves_as_the_jax_package(knob, value, monkeypatch, tmp
     elif knob is not None:
         env[knob] = value
     port_config = dataclasses.asdict(OperatorConfig.from_env(env))
+    # the port's own fields (a row's positions; 0: the reference's cap),
+    # unset by every knob here
+    assert {name: port_config.pop(name) for name in PORT_FIELDS} == {"serving_max_seq": 0}
     assert port_config == dataclasses.asdict(JaxOperatorConfig.from_env(env))
     got = _port(env)
     assert got == _jax(env, monkeypatch)
